@@ -1,0 +1,166 @@
+"""The flat FreSh index on torch tensors.
+
+The paper's leaf-oriented tree, flattened as `repro.core.index` does it:
+every series is summarized (PAA + iSAX word, the summarize kernel), the
+series are sorted by the round-robin bit-interleaved iSAX key, so leaves
+are blocks of M consecutive entries, and each leaf gets a dense
+per-segment [lo, hi] region for one of three sound lower bounds
+('prefix', 'symbox', 'paabox').
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.isax_summarize import summarize
+
+from . import isax
+
+# rows per step where a full-size temporary would double the series' memory
+_CHUNK_ROWS = 1 << 20
+
+
+class FlatIndex(NamedTuple):
+    """The device-resident index; fields, dtypes and meanings as in
+    `repro.core.index.FlatIndex`."""
+    series: torch.Tensor       # (n_pad, L) z-normalized, leaf order
+    paa: torch.Tensor          # (n_pad, w) f32
+    words: torch.Tensor        # (n_pad, w) uint8
+    sq_norms: torch.Tensor     # (n_pad,)   |x|^2, 1e30 for padding
+    perm: torch.Tensor         # (n_pad,)   int32 original id; -1 padding
+    valid: torch.Tensor        # (n_pad,)   bool
+    leaf_lo: torch.Tensor      # (n_leaves, w) region lower edge (f32)
+    leaf_hi: torch.Tensor      # (n_leaves, w) region upper edge (f32)
+    leaf_valid: torch.Tensor   # (n_leaves,) bool
+
+    @property
+    def leaf_capacity(self) -> int:
+        return self.series.shape[0] // self.leaf_lo.shape[0]
+
+    @property
+    def n_leaves(self) -> int:
+        return self.leaf_lo.shape[0]
+
+
+def _bit_length_u8(x: torch.Tensor) -> torch.Tensor:
+    """bit_length for uint8 values, elementwise, as int32."""
+    x = x.to(torch.int32)
+    return sum((x > t).to(torch.int32) for t in (0, 1, 3, 7, 15, 31, 63, 127))
+
+
+def leaf_regions(lo_sym: torch.Tensor, hi_sym: torch.Tensor,
+                 lo_paa: torch.Tensor, hi_paa: torch.Tensor,
+                 bound: str = "prefix", bits: int = isax.SAX_BITS):
+    """Per-leaf per-segment [lo, hi] region for the chosen bound."""
+    if bound == "paabox":
+        return lo_paa, hi_paa
+    if bound == "symbox":
+        lo, _ = isax.symbol_region(lo_sym, bits, bits)
+        _, hi = isax.symbol_region(hi_sym, bits, bits)
+        return lo, hi
+    if bound == "prefix":
+        # common prefix depth per segment = bits - bit_length(lo XOR hi)
+        depth = bits - _bit_length_u8(torch.bitwise_xor(lo_sym, hi_sym))
+        return isax.symbol_region(lo_sym, depth, bits)
+    raise ValueError(f"unknown bound {bound!r}")
+
+
+def leaf_stats_blocks(pw: torch.Tensor, ww: torch.Tensor,
+                      vmask: torch.Tensor, *, bits: int, bound: str):
+    """Per-leaf summaries from leaf-blocked sorted entries.
+
+    pw: (n_leaves, M, w) PAA, ww: (n_leaves, M, w) symbols, vmask:
+    (n_leaves, M, 1) validity.  Returns (leaf_lo, leaf_hi, leaf_valid);
+    a fully padded leaf carries the empty region [+inf, +inf].
+    """
+    inf = torch.tensor(float("inf"), dtype=pw.dtype, device=pw.device)
+    wi = ww.to(torch.int32)
+    lo_paa = torch.where(vmask, pw, inf).amin(dim=1)
+    hi_paa = torch.where(vmask, pw, -inf).amax(dim=1)
+    lo_sym = torch.where(vmask, wi, (1 << bits) - 1).amin(dim=1)
+    hi_sym = torch.where(vmask, wi, 0).amax(dim=1)
+    leaf_valid = vmask[..., 0].any(dim=1)
+    lo, hi = leaf_regions(lo_sym.to(torch.uint8), hi_sym.to(torch.uint8),
+                          lo_paa, hi_paa, bound, bits)
+    lo = torch.where(leaf_valid[:, None], lo, inf)
+    hi = torch.where(leaf_valid[:, None], hi, inf)
+    return lo, hi, leaf_valid
+
+
+def lexsort_lanes(lanes: torch.Tensor) -> torch.Tensor:
+    """Stable ascending order of (n, n_lanes) non-negative 31-bit key
+    lanes, lane 0 primary: `jnp.lexsort(tuple(reversed(lanes)))`.
+
+    Two lanes pack into one int64 (62 bits), so five lanes take three
+    stable sorts, applied from the least significant key to the most.
+    """
+    cols = [lanes[:, i].to(torch.int64) for i in range(lanes.shape[1])]
+    keys = [(cols[i] << 31) | cols[i + 1] if i + 1 < len(cols) else cols[i]
+            for i in range(0, len(cols), 2)]
+    perm = torch.arange(lanes.shape[0], device=lanes.device)
+    for key in reversed(keys):
+        _, order = torch.sort(key[perm], stable=True)
+        perm = perm[order]
+    return perm
+
+
+def _rows(fn, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """out[rows] = fn(x[rows]) in blocks of _CHUNK_ROWS rows, so a row-wise
+    function of a full-size tensor never holds a full-size temporary."""
+    for s in range(0, x.shape[0], _CHUNK_ROWS):
+        out[s:s + _CHUNK_ROWS] = fn(x[s:s + _CHUNK_ROWS])
+    return out
+
+
+def build_index(raw: torch.Tensor, *, segments: int = isax.SEGMENTS,
+                bits: int = isax.SAX_BITS, leaf_capacity: int = 64,
+                znorm: bool = True, bound: str = "prefix") -> FlatIndex:
+    """Bulk index construction over raw (n, L) float series, on raw's
+    device.  n is padded up to a whole number of leaves.
+
+    Memory: beyond `raw`, the build holds the normalized series and their
+    leaf-ordered copy at once (two float32 copies of the data), then only
+    the latter.
+    """
+    n, L = raw.shape
+    dev = raw.device
+    if znorm:
+        x = _rows(lambda c: isax.znormalize(c.float()), raw,
+                  torch.empty((n, L), dtype=torch.float32, device=dev))
+    else:
+        x = raw.float()
+    p, w = summarize(x, segments=segments, bits=bits, znorm=False)
+    w = w.to(torch.uint8)
+
+    # ---- sort by interleaved key (leaf order of the round-robin tree) ----
+    perm = lexsort_lanes(isax.interleaved_key(w, bits))
+    x, p, w = x[perm], p[perm], w[perm]
+    perm = perm.to(torch.int32)
+
+    # ---- pad to a whole number of leaves ---------------------------------
+    n_pad = -(-n // leaf_capacity) * leaf_capacity
+    pad = n_pad - n
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, L))])
+        # padded symbols = max symbol; padded PAA = +inf so boxes stay tight
+        p = torch.cat([p, p.new_full((pad, segments), float("inf"))])
+        w = torch.cat([w, w.new_full((pad, segments), (1 << bits) - 1)])
+        perm = torch.cat([perm, perm.new_full((pad,), -1)])
+    valid = perm >= 0
+
+    n_leaves = n_pad // leaf_capacity
+    lo, hi, leaf_valid = leaf_stats_blocks(
+        p.reshape(n_leaves, leaf_capacity, segments),
+        w.reshape(n_leaves, leaf_capacity, segments),
+        valid.reshape(n_leaves, leaf_capacity, 1), bits=bits, bound=bound)
+
+    sq_norms = _rows(lambda c: (c * c).sum(dim=-1), x,
+                     torch.empty((n_pad,), dtype=torch.float32, device=dev))
+    # padded rows must never win a min: push their norms (hence distances) up
+    sq_norms = torch.where(valid, sq_norms, torch.full_like(sq_norms, 1e30))
+
+    return FlatIndex(series=x, paa=p, words=w, sq_norms=sq_norms,
+                     perm=perm, valid=valid, leaf_lo=lo, leaf_hi=hi,
+                     leaf_valid=leaf_valid)

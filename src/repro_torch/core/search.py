@@ -1,0 +1,166 @@
+"""Exact k-NN search over the flat index, local (one device) path.
+
+The counterpart of `repro.core.search`'s local plan:
+
+  pruning     one lower-bound computation of every query against every
+              leaf region (the lb_distance kernel);
+  the PQ      a stable ascending sort of the lower bounds per query, so
+              ties go to the lower leaf index as `jax.lax.top_k` orders
+              them;
+  refinement  rounds of K leaves per query through the refine_topk
+              kernel, each folding real distances into a per-query top-k
+              buffer.  The loop stops once no query's next unrefined
+              lower bound is below its k-th best distance, so the answer
+              is exact.  JAX's `while_loop` becomes a Python loop whose
+              condition is read on the host once per round;
+  re-rank     the winners' distances recomputed in direct form.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels.lb_distance import lb_distance
+from repro_torch.kernels.ref import BIG
+from repro_torch.kernels.refine import refine_topk
+
+from . import isax
+from .index import FlatIndex
+
+
+def _rounds_cap(n_leaves: int, K: int) -> int:
+    """Bound on refinement rounds: enough to cover every leaf."""
+    return -(-n_leaves // K)
+
+
+def _pq_order(lb: torch.Tensor, K: int, n_rounds_cap: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-query priority queue: leaf ids ascending in lower bound,
+    ties to the lower leaf index, padded with lb = BIG to n_rounds_cap * K
+    entries so every round reads K in-range slots."""
+    sorted_lb, order = torch.sort(lb, dim=1, stable=True)
+    padw = n_rounds_cap * K - lb.shape[1]
+    if padw > 0:
+        order = torch.nn.functional.pad(order, (0, padw))
+        sorted_lb = torch.nn.functional.pad(sorted_lb, (0, padw), value=BIG)
+    return order.to(torch.int32), sorted_lb
+
+
+def prepare_queries(queries: torch.Tensor, znorm: bool, segments: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normalize queries and compute their PAA at the index's segment
+    count.  Raises ValueError when the length does not divide into it."""
+    L = queries.shape[-1]
+    if L % segments != 0:
+        raise ValueError(f"query length {L} is not divisible by the index "
+                         f"segment count {segments}")
+    q = isax.znormalize(queries) if znorm else queries
+    q = q.float()
+    return q, isax.paa(q, segments)
+
+
+def leaf_lower_bounds(idx: FlatIndex, q_paa: torch.Tensor,
+                      series_len: int) -> torch.Tensor:
+    """(Q, n_leaves) squared lower bounds, the pruning stage."""
+    return lb_distance(q_paa.contiguous(), idx.leaf_lo, idx.leaf_hi,
+                       series_len=series_len)
+
+
+def _refine_round(q, q_sq, series, sq_norms, ids, alive, bsf_d, bsf_e,
+                  *, M: int, k: int):
+    """One refinement round: distances of the addressed leaves' members,
+    pruned by `alive`, folded into the (Q, k) buffer."""
+    return refine_topk(q, q_sq, series, sq_norms, ids.contiguous(),
+                       alive.contiguous(), bsf_d, bsf_e, leaf_capacity=M,
+                       k=k)
+
+
+def search_plan_impl(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
+                     round_leaves: int = 8, znorm: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Exact k-NN of `queries` (Q, L) over `idx`, on idx's device.
+
+    Returns (dist, original_id, rounds): dist and ids are (Q, k) ascending
+    by distance; rounds is the number of refinement rounds run.  Slots
+    with no series carry id -1 and distance sqrt(BIG).
+    """
+    L = idx.series.shape[1]
+    Q = queries.shape[0]
+    K = round_leaves
+    M = idx.leaf_capacity
+
+    q, q_paa = prepare_queries(queries, znorm, idx.paa.shape[1])
+    q_sq = (q * q).sum(dim=-1)
+    lb = leaf_lower_bounds(idx, q_paa, L)                # (Q, n_leaves)
+    cap = _rounds_cap(idx.n_leaves, K)
+    order, sorted_lb = _pq_order(lb, K, cap)
+    del lb
+
+    bsf_d = torch.full((Q, k), BIG, dtype=torch.float32, device=q.device)
+    bsf_e = torch.zeros((Q, k), dtype=torch.int32, device=q.device)
+    cursor = 0
+    # PQ termination: stop when no query's best unrefined lb < its k-th BSF
+    while cursor < cap * K and bool(
+            (sorted_lb[:, cursor] < bsf_d[:, -1]).any()):
+        ids = order[:, cursor:cursor + K]
+        alive = sorted_lb[:, cursor:cursor + K] < bsf_d[:, -1:]
+        bsf_d, bsf_e = _refine_round(q, q_sq, idx.series, idx.sq_norms, ids,
+                                     alive, bsf_d, bsf_e, M=M, k=k)
+        cursor += K
+
+    # the top-k set is exact; the matmul-form distance loses ~1e-3 absolute
+    # to f32 cancellation.  Recompute the winners' distances in direct form
+    # and re-sort the buffer by them.
+    found = bsf_d < BIG
+    e = bsf_e.long()
+    ids = torch.where(found, idx.perm[e], torch.full_like(bsf_e, -1))
+    d_exact = (q[:, None, :] - idx.series[e].float()).square().sum(dim=-1)
+    d = torch.where(found, d_exact, bsf_d)
+    resort = torch.argsort(d, dim=1, stable=True)
+    d = torch.gather(d, 1, resort).sqrt()
+    ids = torch.gather(ids, 1, resort)
+    return d, ids, cursor // K
+
+
+def squeeze_k(d: torch.Tensor, i: torch.Tensor, k: int):
+    """The 1-NN interface: (Q, 1) -> (Q,) when k == 1."""
+    if k == 1:
+        return d[:, 0], i[:, 0]
+    return d, i
+
+
+def run_search(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
+               round_leaves: int = 8, znorm: bool = True
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`search_plan_impl` with the k == 1 squeeze: (Q,) arrays for k == 1,
+    (Q, k) ascending otherwise."""
+    d, i, _ = search_plan_impl(idx, queries, k=k, round_leaves=round_leaves,
+                               znorm=znorm)
+    return squeeze_k(d, i, k)
+
+
+def _bruteforce_topk(raw: torch.Tensor, queries: torch.Tensor, *, k: int,
+                     znorm: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Q, k) exact scan over all series: matmul-form selection, direct-form
+    reported distances, both ascending with ties to the lower index."""
+    x = isax.znormalize(raw).float() if znorm else raw.float()
+    q = isax.znormalize(queries).float() if znorm else queries.float()
+    d2 = ((q * q).sum(-1)[:, None] + (x * x).sum(-1)[None, :]
+          - 2.0 * q @ x.T).clamp_min(0.0)
+    i = torch.sort(d2, dim=1, stable=True).indices[:, :k]
+    d_exact = (q[:, None, :] - x[i]).square().sum(dim=-1)
+    resort = torch.argsort(d_exact, dim=1, stable=True)
+    d = torch.gather(d_exact, 1, resort).sqrt()
+    i = torch.gather(i, 1, resort).to(torch.int32)
+    return d, i
+
+
+def search_bruteforce(raw: torch.Tensor, queries: torch.Tensor, *,
+                      k: int = 1, znorm: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k oracle: exact scan over all series.  (Q,) for k == 1, (Q, k)
+    ascending otherwise."""
+    d, i = _bruteforce_topk(raw, queries, k=k, znorm=znorm)
+    return squeeze_k(d, i, k)

@@ -1,0 +1,125 @@
+"""Build and load the CUDA kernels under `csrc/`.
+
+Each `csrc/<name>.cu` is compiled by hand with `nvcc` into its own shared
+library with a plain C interface, and loaded with `ctypes`.  A library's
+file name carries a hash of its source and the compiler flags, so an
+edited source is rebuilt at its next use and an unchanged one is loaded
+as it is.  The first use of any kernel builds every missing library, one
+`nvcc` process per source, all started together.
+
+The build directory is `build/` beside this file (listed in .gitignore).
+Nothing here runs at import time: the CPU tests import this module on a
+machine with no `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+SOURCES = ("isax_summarize", "lb_distance", "refine")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: `nvcc` on PATH, else under $CUDA_HOME (default
+    /usr/local/cuda).  Raises RuntimeError when there is none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch "
+                       "are built at first use and need the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of `csrc/<name>.cu` lives, keyed by the hash of
+    the source and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def nvcc_command(name: str, out: Path) -> List[str]:
+    """The nvcc command line that compiles `csrc/<name>.cu` into `out`."""
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build_all() -> Dict[str, dict]:
+    """Compile every library that is missing, in parallel.
+
+    Returns {name: {"seconds": wall time or 0.0 if cached, "ptxas": the
+    compiler's resource report}}.  Raises RuntimeError with the
+    compiler's output if any source fails to compile.
+    """
+    report: Dict[str, dict] = {}
+    missing = []
+    for name in SOURCES:
+        if library_path(name).is_file():
+            report[name] = {"seconds": 0.0, "ptxas": ""}
+        else:
+            missing.append(name)
+    if missing:
+        nvcc_path()                    # raises before anything is written
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in missing:
+        out = library_path(name)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, out, subprocess.Popen(
+            nvcc_command(name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu ---\n{log}")
+            continue
+        os.replace(tmp, out)           # atomic: a reader never sees half
+        report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return report
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    path = library_path(name)
+    if not path.is_file():
+        build_all()
+    return ctypes.CDLL(str(path))
+
+
+def entry(source: str, name: str, argtypes: list):
+    """The C entry point `name` of `csrc/<source>.cu`, returning an int.
+    Pointers and the stream go as ctypes.c_void_p, so none is cut to 32
+    bits."""
+    fn = getattr(library(source), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(source: str, name: str, code: int) -> None:
+    """Raise RuntimeError if entry point `name` returned a CUDA error; each
+    library exports `<name>_error` to spell it out."""
+    if code != 0:
+        fn = getattr(library(source), f"{name}_error")
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name}: CUDA error {code} at launch: "
+                           f"{fn(code).decode()}")

@@ -1,0 +1,65 @@
+"""Plain PyTorch versions of the three kernels on the build-and-search path.
+
+Each function computes what its CUDA kernel computes, with ordinary torch
+operations.  They are the CPU path of the kernel wrappers and, on the
+card, the yardstick each kernel is held against.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core import isax
+
+BIG = 1e30
+
+
+def summarize_ref(x: torch.Tensor, segments: int = isax.SEGMENTS,
+                  bits: int = isax.SAX_BITS, znorm: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(z-norm) -> PAA -> iSAX words.  x: (n, L) -> (n, w) f32, (n, w) i32."""
+    if znorm:
+        x = isax.znormalize(x)
+    p = isax.paa(x.float(), segments)
+    return p, isax.sax_word(p, bits).to(torch.int32)
+
+
+def lb_distance_ref(q_paa: torch.Tensor, leaf_lo: torch.Tensor,
+                    leaf_hi: torch.Tensor,
+                    series_len: int = isax.SERIES_LEN) -> torch.Tensor:
+    """Squared MINDIST of every query PAA against every leaf region.
+    q_paa: (Q, w); leaf_lo/hi: (NL, w) -> (Q, NL) f32."""
+    return isax.mindist_region_sq(q_paa[:, None, :], leaf_lo[None],
+                                  leaf_hi[None], series_len)
+
+
+def refine_topk_ref(q: torch.Tensor, q_sq: torch.Tensor,
+                    series: torch.Tensor, sq_norms: torch.Tensor,
+                    leaf_ids: torch.Tensor, alive: torch.Tensor,
+                    bsf_d: torch.Tensor, bsf_e: torch.Tensor, *,
+                    leaf_capacity: int, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One refinement round, materializing form.
+
+    Gathers the (Q, K*M, L) member rows, computes matmul-form squared
+    distances in f32, masks dead slots to BIG and folds the candidates
+    into the carried (Q, k) buffer.  The fold is a stable ascending sort
+    of the union [buffer, candidates], so ties go to the lower union
+    index with buffer slots first, as `jax.lax.top_k` orders them.
+    """
+    Q = q.shape[0]
+    M = leaf_capacity
+    entry = (leaf_ids.to(torch.int64)[..., None] * M
+             + torch.arange(M, device=q.device)).reshape(Q, -1)
+    xs = series[entry].float()                               # (Q, K*M, L)
+    xn = sq_norms[entry].float()
+    dots = torch.einsum("qnl,ql->qn", xs, q.float())
+    d2 = (q_sq[:, None] + xn - 2.0 * dots).clamp_min(0.0)
+    d2 = torch.where(alive.bool().repeat_interleave(M, dim=1), d2,
+                     torch.full_like(d2, BIG))
+    alld = torch.cat([bsf_d, d2], dim=1)
+    alle = torch.cat([bsf_e, entry.to(torch.int32)], dim=1)
+    d, pos = torch.sort(alld, dim=1, stable=True)
+    return d[:, :k].contiguous(), torch.gather(alle, 1, pos[:, :k])

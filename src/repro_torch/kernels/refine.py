@@ -1,0 +1,108 @@
+"""One refinement round: gather + distances + prune + top-k fold.
+
+On CUDA tensors `refine_topk` launches the kernel of `csrc/refine.cu`,
+which reads only the alive leaves, at their stored width, and never
+materializes the (Q, K*M, L) gather.  On CPU tensors it runs the plain
+version `ref.refine_topk_ref`.  `launches` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .ref import refine_topk_ref
+
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 7
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+
+def _check(q, q_sq, series, sq_norms, leaf_ids, alive, bsf_d, bsf_e,
+           M: int, k: int) -> None:
+    if q.dim() != 2:
+        raise ValueError(f"q must be (Q, L), got {tuple(q.shape)}")
+    Q, L = q.shape
+    if leaf_ids.dim() != 2 or leaf_ids.shape[0] != Q:
+        raise ValueError(f"leaf_ids must be (Q, K), got "
+                         f"{tuple(leaf_ids.shape)}")
+    K = leaf_ids.shape[1]
+    if M < 1 or k < 1:
+        raise ValueError(f"need leaf_capacity >= 1 and k >= 1, got {M}, {k}")
+    if series.dim() != 2 or series.shape[1] != L or series.shape[0] % M:
+        raise ValueError(f"series must be (n_leaves * {M}, {L}), got "
+                         f"{tuple(series.shape)}")
+    want = {"q_sq": (q_sq, (Q,), torch.float32),
+            "sq_norms": (sq_norms, (series.shape[0],), torch.float32),
+            "alive": (alive, (Q, K), torch.bool),
+            "leaf_ids": (leaf_ids, (Q, K), torch.int32),
+            "bsf_d": (bsf_d, (Q, k), torch.float32),
+            "bsf_e": (bsf_e, (Q, k), torch.int32),
+            "q": (q, (Q, L), torch.float32)}
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
+                             f"{t.dtype} of shape {tuple(t.shape)}")
+    if series.dtype not in _DTYPES:
+        raise TypeError(f"series must be float32, bfloat16 or float16, got "
+                        f"{series.dtype}")
+    for t in (q, q_sq, series, sq_norms, leaf_ids, alive, bsf_d, bsf_e):
+        if not t.is_contiguous():
+            raise ValueError("refine_topk takes contiguous tensors")
+        if t.device != q.device:
+            raise ValueError("refine_topk's tensors must share a device")
+
+
+def refine_topk(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
+                sq_norms: torch.Tensor, leaf_ids: torch.Tensor,
+                alive: torch.Tensor, bsf_d: torch.Tensor,
+                bsf_e: torch.Tensor, *, leaf_capacity: int, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One fused refinement round.
+
+    q:        (Q, L) f32 prepared queries
+    q_sq:     (Q,)   f32 |q|^2
+    series:   (n_pad, L) leaf-ordered series, f32/bf16/f16 (math in f32)
+    sq_norms: (n_pad,)   f32 |x|^2 (padded rows at 1e30)
+    leaf_ids: (Q, K) int32 leaves to visit this round; each must be a
+              leaf of `series` (the search makes them so)
+    alive:    (Q, K) bool, lb < the round-start k-th best (pruning mask)
+    bsf_d/e:  (Q, k) f32 / int32 carried top-k buffer, ascending
+    -> the merged (Q, k) buffer, ties to the lower union index with
+       buffer slots first.  Raises ValueError/TypeError on input the
+       kernel does not take, and RuntimeError if a launch fails.
+    """
+    global launches
+    M = leaf_capacity
+    _check(q, q_sq, series, sq_norms, leaf_ids, alive, bsf_d, bsf_e, M, k)
+    if q.device.type == "cpu":
+        return refine_topk_ref(q, q_sq, series, sq_norms, leaf_ids, alive,
+                               bsf_d, bsf_e, leaf_capacity=M, k=k)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no refine_topk kernel for device {q.device}")
+    Q, L = q.shape
+    K = leaf_ids.shape[1]
+    per16 = 16 // series.element_size()
+    if L % per16 or series.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError(f"the refine kernel reads rows in 16-byte pieces: "
+                         f"L={L} must be a multiple of {per16} and series "
+                         f"and q 16-byte aligned")
+    out_d = torch.empty((Q, k), dtype=torch.float32, device=q.device)
+    out_e = torch.empty((Q, k), dtype=torch.int32, device=q.device)
+    if Q == 0:
+        return out_d, out_e
+    fn = _build.entry("refine", "refine_topk", _ARGTYPES)
+    with torch.cuda.device(q.device):
+        code = fn(q.data_ptr(), q_sq.data_ptr(), series.data_ptr(),
+                  _DTYPES[series.dtype], sq_norms.data_ptr(),
+                  leaf_ids.data_ptr(), alive.data_ptr(), bsf_d.data_ptr(),
+                  bsf_e.data_ptr(), out_d.data_ptr(), out_e.data_ptr(),
+                  Q, L, K, M, k, torch.cuda.current_stream().cuda_stream)
+    _build.check("refine", "refine_topk", code)
+    launches += 1
+    return out_d, out_e

@@ -1,0 +1,138 @@
+"""The port never falls back and never reaches for JAX.
+
+* Entry points default to the card and raise where there is none.
+* Kernel wrappers raise on input their kernel does not take, and on a
+  CPU tensor run the plain version without counting a launch.
+* The kernel loader raises when there is no nvcc, before writing anything.
+* Importing every module of repro_torch loads neither jax nor repro.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import api
+from repro_torch.kernels import _build, isax_summarize, lb_distance, refine
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_build_without_a_device_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    x = np.zeros((64, 256), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.FreshIndex.build(x)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.FreshIndex.build(x, device="cuda")
+
+
+def test_config_and_data_are_validated():
+    with pytest.raises(ValueError):
+        api.IndexConfig(bound="box")
+    with pytest.raises(ValueError):
+        api.IndexConfig(dtype="int8")
+    with pytest.raises(ValueError):
+        api.IndexConfig(round_leaves=0)
+    with pytest.raises(ValueError):
+        api.FreshIndex.build(np.zeros((4, 250), np.float32), device="cpu")
+    with pytest.raises(ValueError):
+        api.FreshIndex.build(np.zeros((0, 256), np.float32), device="cpu")
+
+
+def test_wrappers_raise_on_what_the_kernel_does_not_take():
+    x = torch.zeros(8, 256)
+    with pytest.raises(TypeError):
+        isax_summarize.summarize(x.double())
+    with pytest.raises(ValueError):
+        isax_summarize.summarize(x.t())                  # not contiguous
+    with pytest.raises(ValueError):
+        isax_summarize.summarize(x, segments=15)
+    q, lo = torch.zeros(2, 16), torch.zeros(5, 16)
+    with pytest.raises(TypeError):
+        lb_distance.lb_distance(q.double(), lo, lo)
+    with pytest.raises(ValueError):
+        lb_distance.lb_distance(q, lo, torch.zeros(5, 8))
+    args = dict(q=torch.zeros(2, 64), q_sq=torch.zeros(2),
+                series=torch.zeros(4 * 8, 64), sq_norms=torch.zeros(32),
+                leaf_ids=torch.zeros(2, 3, dtype=torch.int32),
+                alive=torch.ones(2, 3, dtype=torch.bool),
+                bsf_d=torch.full((2, 5), 1e30),
+                bsf_e=torch.zeros(2, 5, dtype=torch.int32))
+    refine.refine_topk(**args, leaf_capacity=8, k=5)
+    for name, bad in (("leaf_ids", torch.zeros(2, 3, dtype=torch.int64)),
+                      ("alive", torch.ones(2, 3, dtype=torch.int32)),
+                      ("series", torch.zeros(30, 64)),
+                      ("bsf_d", torch.full((2, 4), 1e30))):
+        with pytest.raises(ValueError):
+            refine.refine_topk(**{**args, name: bad}, leaf_capacity=8, k=5)
+    with pytest.raises(TypeError):
+        refine.refine_topk(**{**args, "series": torch.zeros(32, 64).double()},
+                           leaf_capacity=8, k=5)
+
+
+def test_cpu_tensors_run_the_plain_version_and_count_nothing():
+    before = (isax_summarize.launches, lb_distance.launches,
+              refine.launches)
+    x = torch.randn(16, 256)
+    p, w = isax_summarize.summarize(x, znorm=True)
+    assert p.shape == (16, 16) and w.dtype == torch.int32
+    lb = lb_distance.lb_distance(p, p, p)
+    assert lb.shape == (16, 16)
+    assert (isax_summarize.launches, lb_distance.launches,
+            refine.launches) == before
+
+
+def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.build_all()
+    assert not (tmp_path / "build").exists()
+
+
+def test_library_names_follow_the_sources(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    paths = {n: _build.library_path(n) for n in _build.SOURCES}
+    for name, path in paths.items():
+        assert path.parent == tmp_path and path.name.startswith(name + "-")
+        assert (_build.CSRC / f"{name}.cu").is_file()
+    assert len(set(paths.values())) == len(paths)
+
+
+def test_importing_the_port_loads_neither_jax_nor_repro():
+    mods = ["repro_torch", "repro_torch.api", "repro_torch.convert",
+            "repro_torch.core", "repro_torch.core.isax",
+            "repro_torch.core.index", "repro_torch.core.search",
+            "repro_torch.data", "repro_torch.data.synthetic",
+            "repro_torch.kernels", "repro_torch.kernels._build",
+            "repro_torch.kernels.ref", "repro_torch.kernels.isax_summarize",
+            "repro_torch.kernels.lb_distance", "repro_torch.kernels.refine"]
+    here = {m[len("src/"):-len(".py")].replace("/", ".").replace(
+        ".__init__", "")
+        for m in _py_files(os.path.join(ROOT, "src", "repro_torch"))}
+    assert here == set(mods), "a port module is missing from this list"
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]\n"
+            "print(bad)\n")
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, cwd=ROOT, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+def _py_files(top):
+    for d, _, files in os.walk(top):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.relpath(os.path.join(d, f), ROOT)
