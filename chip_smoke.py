@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
-"""Drive repro_torch's build-and-search path on one NVIDIA GPU.
+"""Drive repro_torch's kernel paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--series N] [--seed S]
 
 Phases, each printing one JSON line:
-  device   nvidia-smi's name and power limit, torch's device name;
-  build    nvcc builds of every kernel under src/repro_torch/kernels/csrc;
-  kernel   each CUDA kernel against its plain PyTorch version on the card,
-           at the path's shapes, with its time, the plain version's time
-           and the least time the card could take (the bound);
-  main     FreshIndex.build over N random walks of length 256 made on the
-           card (default 2^24, 16 GiB of float32), then exact 10-NN of 256
-           noisy collection series (sigma 0.1, the paper's hardest Fig. 6a
-           workload), held against a chunked brute-force scan; every
-           kernel's launch count over this phase must be > 0.
-Then the kernel table, the nvidia-smi line and, last, the device line.
-Any failure raises and exits non-zero; without CUDA, or without the
-repository's src/ beside this file, it exits 1 before printing a result.
+  device     nvidia-smi's name and power limit, torch's device name;
+  build      nvcc builds of the five kernels under src/repro_torch/kernels/csrc;
+  kernel     each CUDA kernel against its plain PyTorch version on the card,
+             at its path's shapes, with its time, the plain version's time,
+             a PyTorch library call's time where one computes the same
+             function, and the least time the card could take (the bound);
+  main       FreshIndex.build over N random walks of length 256 made on the
+             card (default 2^24, 16 GiB of float32), then exact 10-NN of 256
+             noisy collection series (sigma 0.1, the paper's hardest Fig. 6a
+             workload), held against a chunked brute-force scan;
+  scan       ops.ed_argmin of the same z-normalized queries over the whole
+             stored collection (the exact 1-NN scan, 16 GiB read), held
+             against the search's nearest neighbour;
+  attention  ops.flash_attention at granite-8b's attention widths (B 1,
+             Hq 32, Hkv 8, T = S = 4096, dh 128, bf16, causal), held
+             against the plain version.
+Each of main, scan and attention sets every launch count to 0 before it
+and requires each kernel of its path to have launched.  Then the kernel
+table, the nvidia-smi line and, last, the device line.  Any failure raises
+and exits non-zero; without CUDA, or without the repository's src/ beside
+this file, it exits 1 before printing a result.
 """
 
 from __future__ import annotations
@@ -31,15 +39,19 @@ from pathlib import Path
 DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 Q, K, M, L, TOPK = 256, 8, 64, 256, 10
+MAIN = ("summarize", "lb_distance", "refine_topk")
+# granite-8b's attention (train_4k): 32 query heads, 8 KV heads of 128
+GRANITE = dict(B=1, Hq=32, Hkv=8, T=4096, dh=128)
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(nbytes: float, flops: float):
-    b, f = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS):
+    b, f = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return max(b, f), ("bytes" if b >= f else "operations")
 
 
@@ -195,6 +207,164 @@ def check_refine(torch, isax, rk, ref, gen, NL=4096):
             "checks": rows}
 
 
+def matmul_tol(dr, qsq, xsq, rtol=1e-4):
+    """What the matmul form of d^2 may differ by, from another summation
+    order or from the direct form: rtol relative, plus 1e-5 of the
+    |q|^2 + |x|^2 that it cancels (as refine's check holds it)."""
+    return rtol * dr.abs() + 1e-5 * (qsq + xsq)
+
+
+def check_ed_argmin(torch, isax, edk, ref, gen, n=1 << 20):
+    """Q z-normalized walks against n f32 and bf16 candidates; row j2
+    duplicates row j1 < j2 and query 0 is that row, which pins the tie
+    rule: the kernel must answer j1."""
+    x = isax.znormalize(torch.randn(n, L, generator=gen, device=DEV)
+                        .cumsum_(1))
+    q = isax.znormalize(torch.randn(Q, L, generator=gen, device=DEV)
+                        .cumsum_(1))
+    j1, j2 = n // 3, n // 2 + 1
+    x[j2] = x[j1]
+    rows = {}
+    for name, xin in (("f32", x), ("bf16", x.to(torch.bfloat16))):
+        qn = q.clone()
+        qn[0] = xin[j1].float()
+        dk, ik = edk.ed_argmin(qn, xin)
+        dr, ir = ref.ed_argmin_ref(qn, xin)
+        qsq = (qn * qn).sum(1)
+        xsq = (xin.float() ** 2).sum(1)
+        tol = matmul_tol(dr, qsq, xsq.max())
+        err = (dk - dr).abs()
+        require(bool((err <= tol).all()),
+                f"ed_argmin {name}: d^2 off by {err.max().item()}")
+        require(int(ik[0]) == j1, f"ed_argmin {name}: tie went to "
+                f"{int(ik[0])}, not the lower index {j1}")
+        mism = ik != ir     # ids differ only where the two d^2 nearly tie
+        near = err <= matmul_tol(dr, qsq, xsq.max(), rtol=1e-5)
+        require(bool(near[mism].all()),
+                f"ed_argmin {name}: an id differs beyond a near-tie")
+        rows[name] = {"max_abs_err": err.max().item(),
+                      "max_rel_err": (err / dr.clamp_min(1e-6)).max().item(),
+                      "near_tie_swaps": int(mism.sum()),
+                      "tie_to": int(ik[0])}
+        if name == "f32":
+            ms = time_ms(torch, lambda: edk.ed_argmin(qn, xin))
+            plain = time_ms(torch, lambda: ref.ed_argmin_ref(qn, xin), 3)
+            chunk = 1 << 18
+            lib = time_ms(torch, lambda: [torch.mm(qn, xin[s:s + chunk].T)
+                                          for s in range(0, n, chunk)], 5)
+        else:
+            rows[name]["ms"] = time_ms(torch, lambda: edk.ed_argmin(qn, xin))
+    bms, by = bound_ms(n * L * 4 + Q * L * 4 + Q * 8, 2 * Q * n * L)
+    return {"name": "ed_argmin", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ed_argmin.cu",
+            "replaces": "src/repro/kernels/ed_argmin.py:35",
+            "shape": f"q ({Q}, {L}) f32, xs ({n}, {L}) f32, one duplicated "
+                     f"row",
+            "max_abs_err": rows["f32"]["max_abs_err"], "ms": ms,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib,
+            "library_call": "torch.mm(q, x.T) over chunks of 2^18 rows, "
+                            "TF32 off: the product alone",
+            "checks": rows}
+
+
+def attention_work(torch, T, S, causal, window):
+    """(query, key) pairs the attention computes: the visible ones, and
+    all S keys for a row that sees none (it averages V)."""
+    t = torch.arange(T)
+    lo = (t - window + 1).clamp_min(0) if window else torch.zeros_like(t)
+    hi = t.clamp_max(S - 1) if causal else torch.full_like(t, S - 1)
+    seen = hi - lo + 1
+    return int(torch.where(seen > 0, seen, S).sum())
+
+
+def attention_inputs(torch, gen, B, Hq, Hkv, T, dh, dtype, S=None):
+    S = T if S is None else S
+    return (torch.randn(B, Hq, T, dh, generator=gen, device=DEV).to(dtype),
+            torch.randn(B, Hkv, S, dh, generator=gen, device=DEV).to(dtype),
+            torch.randn(B, Hkv, S, dh, generator=gen, device=DEV).to(dtype))
+
+
+def sdpa_ms(torch, q, k, v):
+    """scaled_dot_product_attention, causal, on the same inputs; K/V heads
+    repeated first where this torch has no enable_gqa."""
+    F = torch.nn.functional
+    try:
+        F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                       enable_gqa=True)
+        return time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)), "enable_gqa"
+    except TypeError:
+        G = q.shape[1] // k.shape[1]
+        kr, vr = (t.repeat_interleave(G, dim=1) for t in (k, v))
+        return time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, kr, vr, is_causal=True)), "repeat_interleave"
+
+
+def attention_check(torch, out, ref, q, k, v, what, **kw):
+    """out against the plain version computed in float32 from the same
+    inputs: rtol + atol 2e-5 for a float32 out; for a bfloat16 out, its
+    own rounding (at most 2^-8 of the value) plus the same 2e-5 for the
+    float32 sums.  Returns the largest |out - plain|."""
+    require(out.dtype == q.dtype and out.shape == q.shape
+            and bool(torch.isfinite(out).all()), f"attention {what}")
+    plain = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    rtol = 2 ** -8 if q.dtype == torch.bfloat16 else 2e-5
+    err = (out.float() - plain).abs()
+    excess = (err - rtol * plain.abs() - 2e-5).max().item()
+    require(excess <= 0, f"attention {what}: off by {err.max().item()}, "
+            f"{excess} beyond rtol {rtol} + atol 2e-5")
+    return err.max().item(), rtol
+
+
+def check_flash(torch, fk, ref, gen):
+    """granite-8b's attention in bf16 (causal, then window 1024), held to
+    the bf16 rounding of the float32 plain version; float32 cases at 2e-5:
+    causal at T 1024, causal with window 256 and with window 200 over a
+    ragged T = S = 1000 (the tiles before the window are skipped), and
+    rows that see no key (T 256 over S 64, window 32), which must average
+    V."""
+    g = GRANITE
+    f32 = dict(B=1, Hq=8, Hkv=2, T=1024, dh=128, dtype=torch.float32)
+    cases = (("granite_bf16_causal", dict(g, dtype=torch.bfloat16), True, 0),
+             ("granite_bf16_window1024", dict(g, dtype=torch.bfloat16), True,
+              1024),
+             ("f32_1024", f32, True, 0),
+             ("f32_1024_window256", f32, True, 256),
+             ("f32_1000_window200", dict(f32, T=1000), True, 200),
+             ("f32_empty_rows", dict(B=1, Hq=2, Hkv=2, T=256, S=64, dh=64,
+                                     dtype=torch.float32), False, 32))
+    rows = {}
+    for name, shape, causal, window in cases:
+        q, k, v = attention_inputs(torch, gen, **shape)
+        ok = fk.flash_attention(q, k, v, causal=causal, window=window)
+        err, rtol = attention_check(torch, ok, ref, q, k, v, name,
+                                    causal=causal, window=window)
+        rows[name] = {"max_abs_err": err, "rtol": rtol, "atol": 2e-5}
+        if name == "granite_bf16_causal":
+            ms = time_ms(torch, lambda: fk.flash_attention(q, k, v))
+            plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v),
+                            3)
+            lib, how = sdpa_ms(torch, q, k, v)
+            pairs = attention_work(torch, g["T"], g["T"], True, 0)
+            nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+            bms, by = bound_ms(nbytes, 4 * g["dh"] * pairs * g["B"] * g["Hq"],
+                               BF16_FLOPS)
+            f32_floor = 4 * g["dh"] * pairs * g["B"] * g["Hq"] / F32_FLOPS
+        del q, k, v, ok
+        torch.cuda.empty_cache()
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:36",
+            "shape": "B 1, Hq 32, Hkv 8, T = S = 4096, dh 128, bf16, causal",
+            "max_abs_err": rows["granite_bf16_causal"]["max_abs_err"],
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib,
+            "library_call": f"scaled_dot_product_attention(is_causal=True) "
+                            f"via {how}",
+            "f32_fma_floor_ms": f32_floor * 1e3, "checks": rows}
+
+
 # --------------------------------------------------------------- main path
 def bruteforce(torch, series, q, k, chunk=1 << 20, per_chunk=32):
     """Exact k-NN rows of `series` (stored order): matmul-form candidates
@@ -255,7 +425,7 @@ def main_path(torch, api, isax, search, kmods, n, gen):
     d, ids = index.search(queries, k=TOPK)
     torch.cuda.synchronize()
     search_ms = (time.perf_counter() - t0) * 1e3
-    launches = {name: mod.launches for name, mod in kmods.items()}
+    launches = {name: kmods[name].launches for name in MAIN}
     peak = torch.cuda.max_memory_allocated()
 
     idx = index.index
@@ -311,7 +481,102 @@ def main_path(torch, api, isax, search, kmods, n, gen):
             "search_ms": search_ms, "search_ms_repeats": reps,
             "search_ms_per_query": min(reps) / Q, "rounds": rounds,
             "launches": launches, "near_ties": ties,
-            "pq_sort_ms": sort_ms, "device_time": device}, launches
+            "pq_sort_ms": sort_ms, "device_time": device}, launches, (
+                index, q, d, ids)
+
+
+def ed_argmin_chunked(torch, ref, q, xs, chunk=1 << 20):
+    """The plain version over chunks of `chunk` candidates, merged with
+    the first (lowest) chunk winning a tie: what ed_argmin_ref gives over
+    all of xs, without its (Q, N) matrices."""
+    ds, ids = zip(*(ref.ed_argmin_ref(q, xs[s:s + chunk])
+                    for s in range(0, xs.shape[0], chunk)))
+    ds = torch.stack(ds, 1)
+    c = torch.argmin(ds, dim=1)
+    off = torch.arange(0, xs.shape[0], chunk, device=q.device)[c]
+    return ds.gather(1, c[:, None])[:, 0], (
+        torch.stack(ids, 1).gather(1, c[:, None])[:, 0] + off).to(torch.int32)
+
+
+def scan_phase(torch, ops, kmods, ref, index, q, d, ids, search_ms):
+    """The exact 1-NN scan over the whole stored collection through
+    ops.ed_argmin.  Held against the search's nearest neighbour: d^2
+    within matmul_tol of the search's first distance squared, and the
+    same id except where the two direct-form distances lie within 1e-5
+    relative (near-ties, counted).  Then, outside the counted run, held
+    against the plain version at this shape and timed beside it."""
+    idx = index.index
+    series = idx.series
+    for mod in kmods.values():
+        mod.launches = 0
+    reps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        d2, arg = ops.ed_argmin(q, series)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) * 1e3)
+    launches = {"ed_argmin": kmods["ed_argmin"].launches}
+    require(launches["ed_argmin"] > 0, "ed_argmin was not launched")
+    require(d2.shape == (Q,) and bool(torch.isfinite(d2).all()), "scan")
+    qsq = (q * q).sum(1)
+    s2 = d[:, 0] ** 2
+    err = (d2 - s2).abs()
+    require(bool((err <= matmul_tol(s2, qsq, idx.sq_norms[arg.long()]))
+                 .all()), f"scan d^2 differs from the search's by "
+            f"{err.max().item()}")
+    mism = idx.perm[arg.long()] != ids[:, 0]
+    d_scan = (q - series[arg.long()].float()).square().sum(1).sqrt()
+    near = (d_scan - d[:, 0]).abs() <= 1e-5 * d[:, 0] + 1e-5
+    require(bool(near[mism].all()), "scan id differs beyond a near-tie")
+
+    dr, ir = ed_argmin_chunked(torch, ref, q, series)
+    perr = (d2 - dr).abs()
+    require(bool((perr <= matmul_tol(dr, qsq, idx.sq_norms.max())).all()),
+            f"scan d^2 differs from the plain version by "
+            f"{perr.max().item()}")
+    pm = arg != ir
+    near = perr <= matmul_tol(dr, qsq, idx.sq_norms.max(), rtol=1e-5)
+    require(bool(near[pm].all()), "scan id differs from the plain version "
+            "beyond a near-tie")
+    n = series.shape[0]
+    chunk = 1 << 18
+    row = {"name": "ed_argmin", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ed_argmin.cu",
+           "replaces": "src/repro/kernels/ed_argmin.py:35",
+           "shape": f"q ({Q}, {L}) f32, the stored series ({n}, {L}) f32",
+           "max_abs_err": perr.max().item(),
+           "ms": time_ms(torch, lambda: ops.ed_argmin(q, series), 10),
+           "plain_ms": time_ms(torch, lambda: ed_argmin_chunked(
+               torch, ref, q, series), 3),
+           "library_ms": time_ms(torch, lambda: [
+               torch.mm(q, series[s:s + chunk].T)
+               for s in range(0, n, chunk)], 3)}
+    row["bound_ms"], row["bound_by"] = bound_ms(n * L * 4 + Q * L * 4 + Q * 8,
+                                                2 * Q * n * L)
+    return {"phase": "scan", "series": n, "queries": Q,
+            "scan_ms": reps[0], "scan_ms_repeats": reps,
+            "search_ms_best": search_ms, "d2_max_abs_err": err.max().item(),
+            "near_ties": int(mism.sum()), "plain_near_ties": int(pm.sum()),
+            "launches": launches, "row": row}, launches
+
+
+def attention_phase(torch, ops, kmods, ref, gen):
+    """granite-8b's attention through ops.flash_attention, held against
+    the float32 plain version on the same inputs (attention_check)."""
+    g = GRANITE
+    q, k, v = attention_inputs(torch, gen, dtype=torch.bfloat16, **g)
+    for mod in kmods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    out = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {"flash_attention": kmods["flash_attention"].launches}
+    require(launches["flash_attention"] > 0,
+            "flash_attention was not launched")
+    err, _ = attention_check(torch, out, ref, q, k, v, "phase")
+    return {"phase": "attention", **g, "dtype": "bfloat16", "causal": True,
+            "wall_ms": wall, "max_abs_err": err, "launches": launches}, launches
 
 
 def main() -> int:
@@ -330,8 +595,7 @@ def main() -> int:
     sys.path.insert(0, str(src))
     from repro_torch import api
     from repro_torch.core import isax, search
-    from repro_torch.kernels import (_build, isax_summarize, lb_distance,
-                                     ref, refine)
+    from repro_torch.kernels import _build, ops, ref
     # the plain versions' products in full float32, as the kernels compute
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -352,13 +616,14 @@ def main() -> int:
                         if "Used" in ln] for k, v in rep.items()}})
 
     gen = torch.Generator(device=DEV).manual_seed(args.seed)
-    kmods = {"summarize": isax_summarize, "lb_distance": lb_distance,
-             "refine_topk": refine}
+    kmods = dict(ops.WRAPPERS)
     rows = []
     for name, check, mods in (
-            ("summarize", check_summarize, (isax, isax_summarize)),
-            ("lb_distance", check_lb_distance, (lb_distance,)),
-            ("refine_topk", check_refine, (isax, refine))):
+            ("summarize", check_summarize, (isax, kmods["summarize"])),
+            ("lb_distance", check_lb_distance, (kmods["lb_distance"],)),
+            ("refine_topk", check_refine, (isax, kmods["refine_topk"])),
+            ("ed_argmin", check_ed_argmin, (isax, kmods["ed_argmin"])),
+            ("flash_attention", check_flash, (kmods["flash_attention"],))):
         kmods[name].launches = 0
         r = check(torch, *mods, ref, gen)
         rows.append(r)
@@ -366,9 +631,20 @@ def main() -> int:
               "result": "PASS"})
     torch.cuda.empty_cache()
 
-    report, launches = main_path(torch, api, isax, search, kmods,
-                                 args.series, gen)
+    report, launches, (index, q, d, ids) = main_path(
+        torch, api, isax, search, kmods, args.series, gen)
     emit(report)
+    scan, more = scan_phase(torch, ops, kmods, ref, index, q, d, ids,
+                            min(report["search_ms_repeats"]))
+    emit(scan)
+    launches |= more
+    # the scan's own shape replaces the kernel phase's 2^20 in the table
+    rows = [scan["row"] if r["name"] == "ed_argmin" else r for r in rows]
+    del index, q, d, ids
+    torch.cuda.empty_cache()
+    attn, more = attention_phase(torch, ops, kmods, ref, gen)
+    emit(attn)
+    launches |= more
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces")} | {
         "launches": launches[r["name"]]} | {k: r[k] for k in (

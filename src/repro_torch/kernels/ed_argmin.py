@@ -1,0 +1,74 @@
+"""Exact 1-NN scan: per-query min squared Euclidean distance and argmin.
+
+On CUDA tensors `ed_argmin` launches the kernel of `csrc/ed_argmin.cu`,
+which streams the candidates at their stored width and never
+materializes the (Q, N) distance matrix; on CPU tensors it runs the
+plain version `ref.ed_argmin_ref`.  `launches` counts the kernel's
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from . import _build
+from .ref import ed_argmin_ref
+
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+
+
+def ed_argmin(q: torch.Tensor, xs: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q: (Q, L) float32, xs: (N, L) float32 or bfloat16 -> ((Q,) float32
+    min d^2, (Q,) int32 argmin), d^2 in matmul form, ties to the lowest
+    index.
+
+    Raises ValueError/TypeError on input the kernel does not take, and
+    RuntimeError if a launch fails.
+    """
+    global launches
+    if q.dim() != 2 or xs.dim() != 2 or q.shape[1] != xs.shape[1]:
+        raise ValueError(f"need q (Q, L) and xs (N, L), got "
+                         f"{tuple(q.shape)}, {tuple(xs.shape)}")
+    if q.dtype != torch.float32:
+        raise TypeError(f"q must be float32, got {q.dtype}")
+    if xs.dtype not in _DTYPES:
+        raise TypeError(f"xs must be float32 or bfloat16, got {xs.dtype}")
+    if not (q.is_contiguous() and xs.is_contiguous()):
+        raise ValueError("ed_argmin takes contiguous tensors")
+    if q.device != xs.device:
+        raise ValueError("q and xs must share a device")
+    Q, L = q.shape
+    N = xs.shape[0]
+    if Q == 0 or N == 0:
+        raise ValueError(f"need Q >= 1 queries and N >= 1 candidates, got "
+                         f"{Q}, {N}")
+    if N >= 2**31:
+        raise ValueError(f"the argmin is int32: N={N} must be < 2^31")
+    if q.device.type == "cpu":
+        return ed_argmin_ref(q, xs)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no ed_argmin kernel for device {q.device}")
+    if L % 8 or q.data_ptr() % 16 or xs.data_ptr() % 16:
+        raise ValueError(f"the ed_argmin kernel reads rows in 16-byte "
+                         f"pieces: L={L} must be a multiple of 8 and q, xs "
+                         f"16-byte aligned")
+    keys = torch.empty((Q,), dtype=torch.int64, device=q.device)
+    out_d = torch.empty((Q,), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((Q,), dtype=torch.int32, device=q.device)
+    fn = _build.entry("ed_argmin", "ed_argmin", _ARGTYPES)
+    with torch.cuda.device(q.device):
+        code = fn(q.data_ptr(), xs.data_ptr(), _DTYPES[xs.dtype],
+                  keys.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), Q, N,
+                  L, torch.cuda.current_stream().cuda_stream)
+    _build.check("ed_argmin", "ed_argmin", code)
+    launches += 1
+    return out_d, out_i

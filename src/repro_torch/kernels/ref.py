@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels on the build-and-search path.
+"""Plain PyTorch versions of the five CUDA kernels.
 
 Each function computes what its CUDA kernel computes, with ordinary torch
 operations.  They are the CPU path of the kernel wrappers and, on the
@@ -14,6 +14,7 @@ import torch
 from repro_torch.core import isax
 
 BIG = 1e30
+NEG_INF = -1e30                 # the attention mask, finite as in repro
 
 
 def summarize_ref(x: torch.Tensor, segments: int = isax.SEGMENTS,
@@ -33,6 +34,22 @@ def lb_distance_ref(q_paa: torch.Tensor, leaf_lo: torch.Tensor,
     q_paa: (Q, w); leaf_lo/hi: (NL, w) -> (Q, NL) f32."""
     return isax.mindist_region_sq(q_paa[:, None, :], leaf_lo[None],
                                   leaf_hi[None], series_len)
+
+
+def ed_argmin_ref(q: torch.Tensor, xs: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query min squared Euclidean distance and its argmin.
+
+    q: (Q, L); xs: (N, L) -> (Q,) f32 min d^2, (Q,) i32 argmin, in the
+    matmul form d^2 = max(|q|^2 + |x|^2 - 2 q.x, 0) in float32.  Ties go
+    to the lowest index (`torch.argmin` returns the first minimum).
+    """
+    q = q.float()
+    xs = xs.float()
+    d2 = ((q * q).sum(-1)[:, None] + (xs * xs).sum(-1)[None, :]
+          - 2.0 * q @ xs.T).clamp_min(0.0)
+    i = torch.argmin(d2, dim=1)
+    return d2.gather(1, i[:, None])[:, 0], i.to(torch.int32)
 
 
 def refine_topk_ref(q: torch.Tensor, q_sq: torch.Tensor,
@@ -63,3 +80,29 @@ def refine_topk_ref(q: torch.Tensor, q_sq: torch.Tensor,
     alle = torch.cat([bsf_e, entry.to(torch.int32)], dim=1)
     d, pos = torch.sort(alld, dim=1, stable=True)
     return d[:, :k].contiguous(), torch.gather(alle, 1, pos[:, :k])
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0
+                        ) -> torch.Tensor:
+    """Plain softmax attention.  q: (B, Hq, T, dh); k/v: (B, Hkv, S, dh)
+    -> (B, Hq, T, dh) in q's dtype; query head h reads KV head
+    h // (Hq // Hkv).  Scores are scaled by dh^-0.5 and masked to the
+    finite NEG_INF, so a row that sees no key gets the mean of V over all
+    S keys."""
+    B, Hq, T, dh = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf = q.reshape(B, Hkv, G, T, dh).float()
+    s = torch.einsum("bkgtd,bksd->bkgts", qf, k.float()) * (dh ** -0.5)
+    qpos = torch.arange(T, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window:
+        mask &= kpos > qpos - window
+    s = s.masked_fill(~mask, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgts,bksd->bkgtd", w, v.float())
+    return o.reshape(B, Hq, T, dh).to(q.dtype)

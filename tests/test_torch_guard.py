@@ -10,13 +10,19 @@
 import os
 import subprocess
 import sys
+from importlib import import_module
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import api
-from repro_torch.kernels import _build, isax_summarize, lb_distance, refine
+from repro_torch.kernels import _build, isax_summarize, ops, refine
+
+# the package re-exports these entry points under their modules' names
+lb_distance = import_module("repro_torch.kernels.lb_distance")
+ed_argmin = import_module("repro_torch.kernels.ed_argmin")
+flash_attention = import_module("repro_torch.kernels.flash_attention")
 
 torch.set_num_threads(2)
 
@@ -77,6 +83,36 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take():
                            leaf_capacity=8, k=5)
 
 
+def test_scan_and_attention_wrappers_raise_on_what_the_kernel_does_not_take():
+    q, xs = torch.zeros(2, 64), torch.zeros(9, 64)
+    ed_argmin.ed_argmin(q, xs)
+    ed_argmin.ed_argmin(q, xs.bfloat16())
+    for bad_q, bad_xs, err in ((q.double(), xs, TypeError),
+                               (q, xs.half(), TypeError),
+                               (q, torch.zeros(9, 32), ValueError),
+                               (q[0], xs, ValueError),
+                               (q, xs.t(), ValueError),
+                               (q, xs[:0], ValueError),
+                               (q[:0], xs, ValueError)):
+        with pytest.raises(err):
+            ed_argmin.ed_argmin(bad_q, bad_xs)
+    qa, ka = torch.zeros(1, 4, 8, 32), torch.zeros(1, 2, 8, 32)
+    flash_attention.flash_attention(qa, ka, ka)
+    for args, err in (((qa, torch.zeros(1, 3, 8, 32),
+                        torch.zeros(1, 3, 8, 32)), ValueError),  # Hq % Hkv
+                      ((qa, ka, torch.zeros(1, 2, 8, 16)), ValueError),
+                      ((qa, torch.zeros(1, 2, 8, 16),
+                        torch.zeros(1, 2, 8, 16)), ValueError),
+                      ((qa.double(), ka.double(), ka.double()), TypeError),
+                      ((qa, ka.bfloat16(), ka.bfloat16()), TypeError),
+                      ((qa.transpose(2, 3), ka, ka), ValueError),
+                      ((qa[0], ka, ka), ValueError)):
+        with pytest.raises(err):
+            flash_attention.flash_attention(*args)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention(qa, ka, ka, window=-1)
+
+
 def test_cpu_tensors_run_the_plain_version_and_count_nothing():
     before = (isax_summarize.launches, lb_distance.launches,
               refine.launches)
@@ -87,6 +123,17 @@ def test_cpu_tensors_run_the_plain_version_and_count_nothing():
     assert lb.shape == (16, 16)
     assert (isax_summarize.launches, lb_distance.launches,
             refine.launches) == before
+
+
+def test_cpu_scan_and_attention_count_nothing():
+    before = {name: mod.launches for name, mod in ops.WRAPPERS.items()}
+    d, i = ops.ed_argmin(torch.randn(3, 64), torch.randn(10, 64))
+    assert d.shape == (3,) and i.dtype == torch.int32
+    q = torch.randn(1, 2, 16, 32)
+    assert ops.flash_attention(q, q, q).shape == q.shape
+    assert ed_argmin.launches == before["ed_argmin"]
+    assert flash_attention.launches == before["flash_attention"]
+    assert {n: m.launches for n, m in ops.WRAPPERS.items()} == before
 
 
 def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
@@ -114,7 +161,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.data", "repro_torch.data.synthetic",
             "repro_torch.kernels", "repro_torch.kernels._build",
             "repro_torch.kernels.ref", "repro_torch.kernels.isax_summarize",
-            "repro_torch.kernels.lb_distance", "repro_torch.kernels.refine"]
+            "repro_torch.kernels.lb_distance", "repro_torch.kernels.refine",
+            "repro_torch.kernels.ops", "repro_torch.kernels.ed_argmin",
+            "repro_torch.kernels.flash_attention"]
     here = {m[len("src/"):-len(".py")].replace("/", ".").replace(
         ".__init__", "")
         for m in _py_files(os.path.join(ROOT, "src", "repro_torch"))}

@@ -8,6 +8,8 @@ refine entry buffers equal, distances within 1e-5 * (q_sq + max |x|^2)
 absolute (the matmul form cancels terms of that size).
 """
 
+from importlib import import_module
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -16,7 +18,10 @@ import torch
 
 from repro.kernels import ops
 from repro.kernels import ref as ref_j
-from repro_torch.kernels import isax_summarize, lb_distance, ref, refine
+from repro_torch.kernels import isax_summarize, ref, refine
+
+# the package re-exports the entry point lb_distance under the module's name
+lb_distance = import_module("repro_torch.kernels.lb_distance")
 
 torch.set_num_threads(2)
 
