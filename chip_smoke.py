@@ -10,6 +10,10 @@ Phases, each printing one JSON line:
              at its path's shapes, with its time, the plain version's time,
              a PyTorch library call's time where one computes the same
              function, and the least time the card could take (the bound);
+             then the tensor-core routes at their edges (ragged and empty
+             attention rows, dh 64 and 32, a ragged scan), drawn from a
+             generator of their own so that the main phase's inputs stay
+             what the seed alone makes them;
   main       FreshIndex.build over N random walks of length 256 made on the
              card (default 2^24, 16 GiB of float32), then exact 10-NN of 256
              noisy collection series (sigma 0.1, the paper's hardest Fig. 6a
@@ -40,6 +44,7 @@ DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
+TF32_FLOPS = 495e12            # H100 SXM tf32 tensor cores, dense
 Q, K, M, L, TOPK = 256, 8, 64, 256, 10
 MAIN = ("summarize", "lb_distance", "refine_topk")
 # granite-8b's attention (train_4k): 32 query heads, 8 KV heads of 128
@@ -214,10 +219,45 @@ def matmul_tol(dr, qsq, xsq, rtol=1e-4):
     return rtol * dr.abs() + 1e-5 * (qsq + xsq)
 
 
-def check_ed_argmin(torch, isax, edk, ref, gen, n=1 << 20):
+def ed_bound(n):
+    """The least time of the scan of n candidates at the check's accuracy:
+    the larger of reading x, q and the answers once and of the 3xTF32
+    products (three TF32 products of 2 * Q * n * L operations each); and
+    the same product as float32 FMAs, for the note."""
+    bms, by = bound_ms(n * L * 4 + Q * L * 4 + Q * 8, 6 * Q * n * L,
+                       TF32_FLOPS)
+    return bms, by, 2 * Q * n * L / F32_FLOPS * 1e3
+
+
+def ed_check(torch, edk, ref, q, xin, name, tie=None):
+    """The kernel's (d^2, id) against the plain version on q, xin: d^2
+    within matmul_tol, ids equal but where the two d^2 nearly tie, and
+    the tie (query 0 equal to rows j1 < j2) to j1.  Returns the row."""
+    dk, ik = edk.ed_argmin(q, xin)
+    dr, ir = ref.ed_argmin_ref(q, xin)
+    qsq = (q * q).sum(1)
+    xsq = (xin.float() ** 2).sum(1)
+    tol = matmul_tol(dr, qsq, xsq.max())
+    err = (dk - dr).abs()
+    require(bool((err <= tol).all()),
+            f"ed_argmin {name}: d^2 off by {err.max().item()}")
+    if tie is not None:
+        require(int(ik[0]) == tie, f"ed_argmin {name}: tie went to "
+                f"{int(ik[0])}, not the lower index {tie}")
+    mism = ik != ir     # ids differ only where the two d^2 nearly tie
+    near = err <= matmul_tol(dr, qsq, xsq.max(), rtol=1e-5)
+    require(bool(near[mism].all()),
+            f"ed_argmin {name}: an id differs beyond a near-tie")
+    return {"max_abs_err": err.max().item(),
+            "max_rel_err": (err / dr.clamp_min(1e-6)).max().item(),
+            "near_tie_swaps": int(mism.sum()), "tie_to": int(ik[0])}
+
+
+def check_ed_argmin(torch, isax, edk, ref, gen, edge_gen, n=1 << 20):
     """Q z-normalized walks against n f32 and bf16 candidates; row j2
     duplicates row j1 < j2 and query 0 is that row, which pins the tie
-    rule: the kernel must answer j1."""
+    rule: the kernel must answer j1.  Then a ragged case, 100 queries
+    against 2^20 + 37 candidates in both types, drawn from edge_gen."""
     x = isax.znormalize(torch.randn(n, L, generator=gen, device=DEV)
                         .cumsum_(1))
     q = isax.znormalize(torch.randn(Q, L, generator=gen, device=DEV)
@@ -228,24 +268,7 @@ def check_ed_argmin(torch, isax, edk, ref, gen, n=1 << 20):
     for name, xin in (("f32", x), ("bf16", x.to(torch.bfloat16))):
         qn = q.clone()
         qn[0] = xin[j1].float()
-        dk, ik = edk.ed_argmin(qn, xin)
-        dr, ir = ref.ed_argmin_ref(qn, xin)
-        qsq = (qn * qn).sum(1)
-        xsq = (xin.float() ** 2).sum(1)
-        tol = matmul_tol(dr, qsq, xsq.max())
-        err = (dk - dr).abs()
-        require(bool((err <= tol).all()),
-                f"ed_argmin {name}: d^2 off by {err.max().item()}")
-        require(int(ik[0]) == j1, f"ed_argmin {name}: tie went to "
-                f"{int(ik[0])}, not the lower index {j1}")
-        mism = ik != ir     # ids differ only where the two d^2 nearly tie
-        near = err <= matmul_tol(dr, qsq, xsq.max(), rtol=1e-5)
-        require(bool(near[mism].all()),
-                f"ed_argmin {name}: an id differs beyond a near-tie")
-        rows[name] = {"max_abs_err": err.max().item(),
-                      "max_rel_err": (err / dr.clamp_min(1e-6)).max().item(),
-                      "near_tie_swaps": int(mism.sum()),
-                      "tie_to": int(ik[0])}
+        rows[name] = ed_check(torch, edk, ref, qn, xin, name, tie=j1)
         if name == "f32":
             ms = time_ms(torch, lambda: edk.ed_argmin(qn, xin))
             plain = time_ms(torch, lambda: ref.ed_argmin_ref(qn, xin), 3)
@@ -254,7 +277,16 @@ def check_ed_argmin(torch, isax, edk, ref, gen, n=1 << 20):
                                           for s in range(0, n, chunk)], 5)
         else:
             rows[name]["ms"] = time_ms(torch, lambda: edk.ed_argmin(qn, xin))
-    bms, by = bound_ms(n * L * 4 + Q * L * 4 + Q * 8, 2 * Q * n * L)
+    del x
+    nr, qr = n + 37, 100
+    x = isax.znormalize(torch.randn(nr, L, generator=edge_gen, device=DEV)
+                        .cumsum_(1))
+    q = isax.znormalize(torch.randn(qr, L, generator=edge_gen, device=DEV)
+                        .cumsum_(1))
+    for name, xin in (("f32", x), ("bf16", x.to(torch.bfloat16))):
+        rows[f"ragged_{name}"] = ed_check(torch, edk, ref, q, xin,
+                                          f"ragged {name} Q {qr} N {nr}")
+    bms, by, f32_floor = ed_bound(n)
     return {"name": "ed_argmin", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ed_argmin.cu",
             "replaces": "src/repro/kernels/ed_argmin.py:35",
@@ -265,7 +297,7 @@ def check_ed_argmin(torch, isax, edk, ref, gen, n=1 << 20):
             "library_ms": lib,
             "library_call": "torch.mm(q, x.T) over chunks of 2^18 rows, "
                             "TF32 off: the product alone",
-            "checks": rows}
+            "f32_fma_floor_ms": f32_floor, "checks": rows}
 
 
 def attention_work(torch, T, S, causal, window):
@@ -285,58 +317,79 @@ def attention_inputs(torch, gen, B, Hq, Hkv, T, dh, dtype, S=None):
             torch.randn(B, Hkv, S, dh, generator=gen, device=DEV).to(dtype))
 
 
-def sdpa_ms(torch, q, k, v):
-    """scaled_dot_product_attention, causal, on the same inputs; K/V heads
-    repeated first where this torch has no enable_gqa."""
+def sdpa(torch, q, k, v):
+    """(scaled_dot_product_attention, causal, on the same inputs, as a
+    function of none, how it was called): K/V heads repeated first where
+    this torch has no enable_gqa."""
     F = torch.nn.functional
     try:
         F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                        enable_gqa=True)
-        return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        return (lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)), "enable_gqa"
     except TypeError:
         G = q.shape[1] // k.shape[1]
         kr, vr = (t.repeat_interleave(G, dim=1) for t in (k, v))
-        return time_ms(torch, lambda: F.scaled_dot_product_attention(
+        return (lambda: F.scaled_dot_product_attention(
             q, kr, vr, is_causal=True)), "repeat_interleave"
 
 
+def attention_excess(torch, out, plain):
+    """How far out lies beyond its limit around plain (the float32 plain
+    version on the same inputs): rtol + atol 2e-5 for a float32 out; for
+    a bfloat16 out, its own rounding (at most 2^-8 of the value) plus the
+    same 2e-5 for the float32 sums.  Returns (max |out - plain|, the
+    largest excess, <= 0 within the limit, rtol)."""
+    rtol = 2 ** -8 if out.dtype == torch.bfloat16 else 2e-5
+    err = (out.float() - plain).abs()
+    return (err.max().item(), (err - rtol * plain.abs() - 2e-5).max().item(),
+            rtol)
+
+
 def attention_check(torch, out, ref, q, k, v, what, **kw):
-    """out against the plain version computed in float32 from the same
-    inputs: rtol + atol 2e-5 for a float32 out; for a bfloat16 out, its
-    own rounding (at most 2^-8 of the value) plus the same 2e-5 for the
-    float32 sums.  Returns the largest |out - plain|."""
+    """out held to attention_excess <= 0.  Returns the largest
+    |out - plain| and the rtol."""
     require(out.dtype == q.dtype and out.shape == q.shape
             and bool(torch.isfinite(out).all()), f"attention {what}")
     plain = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
-    rtol = 2 ** -8 if q.dtype == torch.bfloat16 else 2e-5
-    err = (out.float() - plain).abs()
-    excess = (err - rtol * plain.abs() - 2e-5).max().item()
-    require(excess <= 0, f"attention {what}: off by {err.max().item()}, "
+    err, excess, rtol = attention_excess(torch, out, plain)
+    require(excess <= 0, f"attention {what}: off by {err}, "
             f"{excess} beyond rtol {rtol} + atol 2e-5")
-    return err.max().item(), rtol
+    return err, rtol
 
 
-def check_flash(torch, fk, ref, gen):
+def check_flash(torch, fk, ref, gen, edge_gen):
     """granite-8b's attention in bf16 (causal, then window 1024), held to
     the bf16 rounding of the float32 plain version; float32 cases at 2e-5:
     causal at T 1024, causal with window 256 and with window 200 over a
     ragged T = S = 1000 (the tiles before the window are skipped), and
     rows that see no key (T 256 over S 64, window 32), which must average
-    V."""
+    V.  Then, drawn from edge_gen, the bf16 route (the tensor cores) at
+    its edges under the same bf16 limit: the ragged T = S = 1000 with
+    window 200, the empty rows, and dh 64 and 32 with GQA.  SDPA's own
+    excess under that limit at the granite shape is recorded, not held."""
     g = GRANITE
+    bf16 = torch.bfloat16
     f32 = dict(B=1, Hq=8, Hkv=2, T=1024, dh=128, dtype=torch.float32)
-    cases = (("granite_bf16_causal", dict(g, dtype=torch.bfloat16), True, 0),
-             ("granite_bf16_window1024", dict(g, dtype=torch.bfloat16), True,
-              1024),
-             ("f32_1024", f32, True, 0),
-             ("f32_1024_window256", f32, True, 256),
-             ("f32_1000_window200", dict(f32, T=1000), True, 200),
-             ("f32_empty_rows", dict(B=1, Hq=2, Hkv=2, T=256, S=64, dh=64,
-                                     dtype=torch.float32), False, 32))
+    empty = dict(B=1, Hq=2, Hkv=2, T=256, S=64, dh=64, dtype=torch.float32)
+    cases = (("granite_bf16_causal", dict(g, dtype=bf16), True, 0, gen),
+             ("granite_bf16_window1024", dict(g, dtype=bf16), True, 1024,
+              gen),
+             ("f32_1024", f32, True, 0, gen),
+             ("f32_1024_window256", f32, True, 256, gen),
+             ("f32_1000_window200", dict(f32, T=1000), True, 200, gen),
+             ("f32_empty_rows", empty, False, 32, gen),
+             ("bf16_1000_window200", dict(f32, T=1000, dtype=bf16), True, 200,
+              edge_gen),
+             ("bf16_empty_rows", dict(empty, dtype=bf16), False, 32,
+              edge_gen),
+             ("bf16_1024_dh64", dict(f32, dh=64, dtype=bf16), True, 0,
+              edge_gen),
+             ("bf16_1024_dh32", dict(f32, dh=32, dtype=bf16), True, 0,
+              edge_gen))
     rows = {}
-    for name, shape, causal, window in cases:
-        q, k, v = attention_inputs(torch, gen, **shape)
+    for name, shape, causal, window, draw in cases:
+        q, k, v = attention_inputs(torch, draw, **shape)
         ok = fk.flash_attention(q, k, v, causal=causal, window=window)
         err, rtol = attention_check(torch, ok, ref, q, k, v, name,
                                     causal=causal, window=window)
@@ -345,12 +398,15 @@ def check_flash(torch, fk, ref, gen):
             ms = time_ms(torch, lambda: fk.flash_attention(q, k, v))
             plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v),
                             3)
-            lib, how = sdpa_ms(torch, q, k, v)
+            lib_fn, how = sdpa(torch, q, k, v)
+            lib = time_ms(torch, lib_fn)
+            lib_err, lib_excess, _ = attention_excess(
+                torch, lib_fn(), ref.flash_attention_ref(
+                    q.float(), k.float(), v.float()))
             pairs = attention_work(torch, g["T"], g["T"], True, 0)
+            flops = 4 * g["dh"] * pairs * g["B"] * g["Hq"]
             nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-            bms, by = bound_ms(nbytes, 4 * g["dh"] * pairs * g["B"] * g["Hq"],
-                               BF16_FLOPS)
-            f32_floor = 4 * g["dh"] * pairs * g["B"] * g["Hq"] / F32_FLOPS
+            bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
         del q, k, v, ok
         torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
@@ -362,7 +418,10 @@ def check_flash(torch, fk, ref, gen):
             "library_ms": lib,
             "library_call": f"scaled_dot_product_attention(is_causal=True) "
                             f"via {how}",
-            "f32_fma_floor_ms": f32_floor * 1e3, "checks": rows}
+            "library_max_abs_err": lib_err, "library_excess": lib_excess,
+            # the kernel's own floor: P.V twice (P_hi, P_lo), 6 dh a pair
+            "tensor_floor_ms": 1.5 * flops / BF16_FLOPS * 1e3,
+            "f32_fma_floor_ms": flops / F32_FLOPS * 1e3, "checks": rows}
 
 
 # --------------------------------------------------------------- main path
@@ -551,8 +610,7 @@ def scan_phase(torch, ops, kmods, ref, index, q, d, ids, search_ms):
            "library_ms": time_ms(torch, lambda: [
                torch.mm(q, series[s:s + chunk].T)
                for s in range(0, n, chunk)], 3)}
-    row["bound_ms"], row["bound_by"] = bound_ms(n * L * 4 + Q * L * 4 + Q * 8,
-                                                2 * Q * n * L)
+    row["bound_ms"], row["bound_by"], row["f32_fma_floor_ms"] = ed_bound(n)
     return {"phase": "scan", "series": n, "queries": Q,
             "scan_ms": reps[0], "scan_ms_repeats": reps,
             "search_ms_best": search_ms, "d2_max_abs_err": err.max().item(),
@@ -613,19 +671,28 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_source_s": {k: v["seconds"] for k, v in rep.items()},
           "ptxas": {k: [ln.strip() for ln in v["ptxas"].splitlines()
-                        if "Used" in ln] for k, v in rep.items()}})
+                        if "Used" in ln or "spill" in ln]
+                    for k, v in rep.items()}})
 
     gen = torch.Generator(device=DEV).manual_seed(args.seed)
+    # the edge cases draw from their own generator, so that the main phase
+    # gets the same collection and queries whatever cases are added here
+    edge_gen = torch.Generator(device=DEV).manual_seed(args.seed + 1)
     kmods = dict(ops.WRAPPERS)
     rows = []
-    for name, check, mods in (
-            ("summarize", check_summarize, (isax, kmods["summarize"])),
-            ("lb_distance", check_lb_distance, (kmods["lb_distance"],)),
-            ("refine_topk", check_refine, (isax, kmods["refine_topk"])),
-            ("ed_argmin", check_ed_argmin, (isax, kmods["ed_argmin"])),
-            ("flash_attention", check_flash, (kmods["flash_attention"],))):
+    for name, check, args_ in (
+            ("summarize", check_summarize, (isax, kmods["summarize"], ref,
+                                            gen)),
+            ("lb_distance", check_lb_distance, (kmods["lb_distance"], ref,
+                                                gen)),
+            ("refine_topk", check_refine, (isax, kmods["refine_topk"], ref,
+                                           gen)),
+            ("ed_argmin", check_ed_argmin, (isax, kmods["ed_argmin"], ref,
+                                            gen, edge_gen)),
+            ("flash_attention", check_flash, (kmods["flash_attention"], ref,
+                                              gen, edge_gen))):
         kmods[name].launches = 0
-        r = check(torch, *mods, ref, gen)
+        r = check(torch, *args_)
         rows.append(r)
         emit({"phase": "kernel", **r, "launches": kmods[name].launches,
               "result": "PASS"})

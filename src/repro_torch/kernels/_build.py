@@ -2,10 +2,13 @@
 
 Each `csrc/<name>.cu` is compiled by hand with `nvcc` into its own shared
 library with a plain C interface, and loaded with `ctypes`.  A library's
-file name carries a hash of its source and the compiler flags, so an
-edited source is rebuilt at its next use and an unchanged one is loaded
-as it is.  The first use of any kernel builds every missing library, one
-`nvcc` process per source, all started together.
+file name carries a hash of its source, of the `csrc/*.cuh` headers it
+includes and of the compiler flags, so an edited source or header is
+rebuilt at its next use and an unchanged one is loaded as it is.  The
+first use of any kernel builds every missing library, one `nvcc` process
+per source, all started together.  The tensor-core kernels take the
+driver's TMA encoder at run time (`csrc/sm90.cuh`), so no library links
+against libcuda and no include path beyond the toolkit's is needed.
 
 The build directory is `build/` beside this file (listed in .gitignore).
 Nothing here runs at import time: the CPU tests import this module on a
@@ -18,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -30,6 +34,7 @@ SOURCES = ("isax_summarize", "lb_distance", "refine", "ed_argmin",
            "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 
 
 def nvcc_path() -> str:
@@ -45,10 +50,29 @@ def nvcc_path() -> str:
                        "are built at first use and need the CUDA toolkit")
 
 
+def headers(path: Path) -> List[Path]:
+    """The headers under csrc/ that `path` includes (`#include "x.cuh"`),
+    directly or through one another, in the order first met."""
+    found: List[Path] = []
+    todo = [path]
+    while todo:
+        here = todo.pop(0)
+        for m in _INCLUDE.finditer(here.read_text()):
+            h = here.parent / m.group(1)
+            if h not in found:
+                found.append(h)
+                todo.append(h)
+    return found
+
+
 def library_path(name: str) -> Path:
     """Where the library of `csrc/<name>.cu` lives, keyed by the hash of
-    the source and the flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    everything it is compiled from: the source, the headers it includes
+    and the flags."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in headers(src):
+        h.update(hdr.name.encode() + b"\0" + hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

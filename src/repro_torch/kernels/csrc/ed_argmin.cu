@@ -6,115 +6,89 @@
 // Replaces the Pallas kernel `_ed_kernel` of
 // src/repro/kernels/ed_argmin.py (wrapper `ed_argmin`).
 //
-// Bound on this card: operations.  At Q = 256 queries, N = 2^24
-// candidates and L = 256, the 2 * Q * N * L = 2.2e12 float32 operations
-// take 32.8 ms at 67 TFLOP/s, and reading the 16 GiB of candidates takes
-// 5.1 ms at 3.35 TB/s.  The TF32 tensor cores would keep about three
-// decimal digits of q.x, too few for d^2 of z-normalized rows at rtol
-// 1e-4, so the products are float32 FMAs.
+// Bound on this card: operations, at the accuracy the check asks for.
+// d^2 of two z-normalized rows of 256 cancels |q|^2 + |x|^2 = 512 down to
+// d^2, so q.x must keep about seven digits.  One TF32 product keeps about
+// three (a 10-bit mantissa): too few for rtol 1e-4.  Three TF32 products
+// keep float32's: with a = a_hi + a_lo, a_hi = tf32(a), a_lo = tf32(a -
+// a_hi), q.x = q_hi.x_hi + q_hi.x_lo + q_lo.x_hi up to ~2^-21 relative
+// (3xTF32).  At Q = 256 queries, N = 2^24 candidates and L = 256 the
+// 3 * 2 * Q * N * L = 6.6e12 operations take 13.3 ms at the 495 TFLOP/s
+// TF32 tensor peak; reading the 16 GiB of candidates takes 5.1 ms at
+// 3.35 TB/s.  (As float32 FMAs outside the tensor cores the same product
+// would take 32.8 ms at 67 TFLOP/s.)  Candidates stored in bfloat16 are
+// exact in TF32, so that route needs x_hi alone: two products.
 //
 // Design: the TPU kernel walks candidate blocks on a sequential grid axis
-// and carries (min, argmin) in its output tile.  Here a block owns a tile
-// of kBQ queries and loops over a contiguous range of candidate tiles of
-// kBN rows; the ranges split the candidates so that about two blocks run
-// on every SM.  Per candidate tile, slices of kBK columns of the query
-// and candidate tiles are staged transposed in shared memory (two
-// buffers, the next slice loaded into registers while the current one is
-// used), and each of the 256 threads accumulates an 8 x 8 tile of q.x in
-// registers.  |q|^2 is summed once per block, |x|^2 from the slices as
-// they are loaded; candidates are read once per tile at their stored
-// width (float32 or bfloat16, 16 bytes a load).  Each thread keeps, per
-// query row, the least key
+// and carries (min, argmin) in its output tile.  Here a block owns a
+// group of kBQ = 256 queries and a contiguous range of candidate tiles of
+// kBM = 128 rows (about one block per SM).  A first small kernel splits
+// the queries into q_hi and q_lo (scratch from the wrapper) and sums
+// |q|^2.  In the main kernel warpgroup 2 is the producer: one thread keeps
+// TMA loads of kKC = 32-column chunks of the candidate tile and of q_hi
+// and q_lo in a two-stage ring in shared memory (mbarriers for full and
+// empty).  Warpgroups 0 and 1 each own 64 candidates of the tile: per
+// chunk they read their candidates' values from shared memory into the
+// wgmma's A registers, split them into x_hi and x_lo there, and run
+// wgmma m64n256k8 with the queries as B (K-major in shared memory, as
+// stored), all three products into one float32 accumulator.  The same
+// values give |x|^2.  The epilogue forms, per (candidate, query), the key
 //   (float_bits(d^2) << 32) | index,
 // which for d^2 >= 0 (the clamp turns -0.0 into +0.0) orders by least
-// d^2, then lowest index: the JAX tie rule.  Threads of a row combine
-// their keys by shuffles and one 64-bit atomicMin per query and block
-// merges the blocks in whatever order they run.  A last small kernel
-// unpacks the keys.  Ragged Q and N are masked, not padded; row offsets
-// are 64-bit (2^24 x 256 elements is 2^32).
+// d^2, then lowest index: the JAX tie rule.  A thread holds two
+// candidates for 64 queries; it keeps the lesser key of the two, then
+// three halving shuffle rounds over the eight lanes that share its
+// queries leave each lane the least of its warp's 16 candidates for 8
+// queries, kept across tiles in registers; one 64-bit atomicMin per
+// (query, warp) at the end merges warps and blocks in whatever order they
+// run.  A last small kernel unpacks the keys.  Identical rows give
+// identical d^2 (the duplicated-row check): every candidate's products,
+// |x|^2 and d^2 go through the same instructions in the same order,
+// wherever it lies.  A ragged N is masked: rows past N arrive as TMA's
+// zeros and never form a key.  A ragged Q pads the scratch with zero
+// rows, whose keys are never written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kBQ = 128;           // queries per block
-constexpr int kBN = 128;           // candidates per tile
-constexpr int kBK = 16;            // columns per staged slice
-constexpr int kThreads = 256;      // 16 x 16, each an 8 x 8 output tile
-constexpr int kLd = kBQ + 4;       // padded row of a transposed slice
+using namespace sm90;
 
-// One thread's share of a (128 x kBK) slice of candidates: 2 float4 of
-// float32 rows, or 1 uint4 (8 values) of bfloat16 rows.
-template <typename T> struct Slice;
+constexpr int kBM = 128;           // candidates per tile
+constexpr int kBQ = 256;           // queries per block: the wgmma's N
+constexpr int kKC = 32;            // columns per chunk
+constexpr int kStages = 2;         // chunks in flight
+constexpr int kThreads = 384;      // warpgroups 0, 1 consume, 2 loads
+constexpr int kConsumers = 256;
+constexpr int kQChunk = kBQ * kKC * 4;   // bytes of q_hi (or q_lo) a chunk
 
-template <> struct Slice<float> {
-  static constexpr int kLoads = 2;
-  static constexpr int kPerLoad = 4;
-  static constexpr int kLanesPerRow = kBK / 4;   // 4 threads share a row
-  uint4 raw[kLoads];
+// A (kBM x kKC) chunk of candidates as TMA writes it: rows of kSpan bytes
+// with the 16-byte chunks swizzled by the row's 128-byte line.
+template <typename T>
+struct XChunk {
+  static constexpr int kSpan = kKC * (int)sizeof(T);      // 128 or 64
+  static constexpr uint32_t kMask = kSpan == 128 ? 7u : 3u;
+  static constexpr int kBytes = kBM * kSpan;
+  static constexpr bool kSplit = sizeof(T) == 4;  // bf16 is exact in tf32
+  static constexpr int kSmem =
+      1024 + kStages * (kBytes + 2 * kQChunk) + 4 * kBQ + 16 * kStages;
 };
 
-template <> struct Slice<__nv_bfloat16> {
-  static constexpr int kLoads = 1;
-  static constexpr int kPerLoad = 8;
-  static constexpr int kLanesPerRow = kBK / 8;   // 2 threads share a row
-  uint4 raw[kLoads];
-};
-
-__device__ __forceinline__ void unpack(const uint4& raw, float* out, float) {
-  const float* f = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) out[i] = f[i];
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
-__device__ __forceinline__ void unpack(const uint4& raw, float* out,
-                                       __nv_bfloat16) {
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) out[i] = __bfloat162float(h[i]);
-}
-
-// Load slice k0 of rows [r0, r0 + 128) of a (rows, L) matrix into
-// registers; rows >= rows_n and columns >= L read as zeros.
 template <typename T>
-__device__ __forceinline__ void load_slice(const T* __restrict__ m,
-                                           long long r0, long long rows_n,
-                                           int L, int k0, int tid,
-                                           Slice<T>& s) {
-  using S = Slice<T>;
-#pragma unroll
-  for (int i = 0; i < S::kLoads; ++i) {
-    const int e = tid + i * kThreads;
-    const int row = e / S::kLanesPerRow;
-    const int col = k0 + (e % S::kLanesPerRow) * S::kPerLoad;
-    if (r0 + row < rows_n && col < L)
-      s.raw[i] = *reinterpret_cast<const uint4*>(m + (r0 + row) * L + col);
-    else
-      s.raw[i] = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// Store a slice transposed into dst[kBK][kLd] and, unless sq is null, add
-// each value's square to this thread's partial row norms sq[i].
-template <typename T>
-__device__ __forceinline__ void store_slice(const Slice<T>& s, int tid,
-                                            float (*dst)[kLd], float* sq) {
-  using S = Slice<T>;
-#pragma unroll
-  for (int i = 0; i < S::kLoads; ++i) {
-    const int e = tid + i * kThreads;
-    const int row = e / S::kLanesPerRow;
-    const int c = (e % S::kLanesPerRow) * S::kPerLoad;
-    float v[S::kPerLoad];
-    unpack(s.raw[i], v, T());
-#pragma unroll
-    for (int j = 0; j < S::kPerLoad; ++j) {
-      dst[c + j][row] = v[j];
-      if (sq != nullptr) sq[i] = fmaf(v[j], v[j], sq[i]);
-    }
-  }
+__device__ __forceinline__ float x_at(const uint8_t* chunk, int row,
+                                      int col) {
+  const uint32_t off = row * XChunk<T>::kSpan + col * (int)sizeof(T);
+  return to_float(*reinterpret_cast<const T*>(
+      chunk + (off ^ (((off >> 7) & XChunk<T>::kMask) << 4))));
 }
 
 __device__ __forceinline__ unsigned long long umin64(unsigned long long a,
@@ -122,135 +96,200 @@ __device__ __forceinline__ unsigned long long umin64(unsigned long long a,
   return a < b ? a : b;
 }
 
+// The lanes whose mask bit is set keep the upper half of k[0, kN), the
+// others the lower half, each the least of its own and its partner's.
+template <int kN, int kMask>
+__device__ __forceinline__ void fold_half(unsigned long long (&k)[64],
+                                          bool upper) {
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    const unsigned long long send = upper ? k[i] : k[i + kN / 2];
+    const unsigned long long keep = upper ? k[i + kN / 2] : k[i];
+    k[i] = umin64(keep, __shfl_xor_sync(0xffffffffu, send, kMask));
+  }
+}
+
+// q (Q, L) -> q_hi, q_lo (Qpad, L) tf32 values and |q|^2 (Qpad); rows past
+// Q are zeros.  One block of 128 threads per row.
+__global__ void split_queries(const float* __restrict__ q,
+                              float* __restrict__ qh, float* __restrict__ ql,
+                              float* __restrict__ qq, int Q, int L) {
+  __shared__ float part[4];
+  const int row = blockIdx.x;
+  float acc = 0.f;
+  for (int c = threadIdx.x; c < L; c += blockDim.x) {
+    const float v = row < Q ? q[(long long)row * L + c] : 0.f;
+    const float hi = __uint_as_float(tf32_rna(v));
+    qh[(long long)row * L + c] = hi;
+    ql[(long long)row * L + c] = __uint_as_float(tf32_rna(v - hi));
+    acc = fmaf(v, v, acc);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) qq[row] = (part[0] + part[1]) + (part[2] + part[3]);
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ed_argmin_kernel(const float* __restrict__ q, const T* __restrict__ xs,
-                 unsigned long long* __restrict__ keys, int Q, long long N,
-                 int L, long long tiles_per_block) {
-  using S = Slice<T>;
-  __shared__ __align__(16) float q_s[2][kBK][kLd];
-  __shared__ __align__(16) float x_s[2][kBK][kLd];
-  __shared__ float qq_s[kBQ];
-  __shared__ float xx_s[kBN];
+__global__ void __launch_bounds__(kThreads, 1)
+ed_tc_kernel(const __grid_constant__ CUtensorMap map_x,
+             const __grid_constant__ CUtensorMap map_qh,
+             const __grid_constant__ CUtensorMap map_ql,
+             const float* __restrict__ qq,
+             unsigned long long* __restrict__ keys,
+             int Q, int N, int L, int tiles_per_block) {
+  using X = XChunk<T>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* x_s = align1024(smem_raw);               // [kStages][X::kBytes]
+  uint8_t* qh_s = x_s + kStages * X::kBytes;        // [kStages][kQChunk]
+  uint8_t* ql_s = qh_s + kStages * kQChunk;
+  float* qq_s = reinterpret_cast<float*>(ql_s + kStages * kQChunk);
+  uint64_t* full = reinterpret_cast<uint64_t*>(qq_s + kBQ);
+  uint64_t* empty = full + kStages;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
   const int q0 = blockIdx.x * kBQ;
-  const long long n_tiles = (N + kBN - 1) / kBN;
-  const long long t_begin = (long long)blockIdx.y * tiles_per_block;
-  const long long t_end = min(n_tiles, t_begin + tiles_per_block);
+  const int n_tiles = (N + kBM - 1) / kBM;
+  const int t_begin = blockIdx.y * tiles_per_block;
+  const int t_end = min(n_tiles, t_begin + tiles_per_block);
+  const int n_chunks = (L + kKC - 1) / kKC;
 
-  {  // |q|^2 of the block's queries: two threads per row, then a shuffle
-    const int row = tid / 2;
-    float acc = 0.f;
-    if (q0 + row < Q) {
-      const float* qr = q + (long long)(q0 + row) * L;
-      for (int c = (tid & 1) * 4; c < L; c += 8) {
-        const float4 v = *reinterpret_cast<const float4*>(qr + c);
-        acc = fmaf(v.x, v.x, acc);
-        acc = fmaf(v.y, v.y, acc);
-        acc = fmaf(v.z, v.z, acc);
-        acc = fmaf(v.w, v.w, acc);
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
     }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if ((tid & 1) == 0) qq_s[row] = acc;
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  unsigned long long best[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) best[i] = ~0ull;
+  if (threadIdx.x >= kConsumers) {                 // the producer
+    regs_dec<40>();
+    if (threadIdx.x == kConsumers) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = t_begin; t < t_end; ++t)
+        for (int c = 0; c < n_chunks; ++c) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], X::kBytes + 2 * kQChunk);
+          tma_load_2d(x_s + stage * X::kBytes, &map_x, &full[stage],
+                      c * kKC, t * kBM);
+          tma_load_2d(qh_s + stage * kQChunk, &map_qh, &full[stage],
+                      c * kKC, q0);
+          tma_load_2d(ql_s + stage * kQChunk, &map_ql, &full[stage],
+                      c * kKC, q0);
+          if (++stage == kStages) { stage = 0; phase ^= 1; }
+        }
+    }
+  } else {                                         // the consumers
+    regs_inc<232>();
+    qq_s[threadIdx.x] = qq[q0 + threadIdx.x];
+    named_sync(1, kConsumers);
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int r0 = wg * 64 + warp * 16 + g, r1 = r0 + 8;   // tile rows
 
-  const int n_slices = (L + kBK - 1) / kBK;
-  for (long long tile = t_begin; tile < t_end; ++tile) {
-    const long long n0 = tile * kBN;
-    float acc[8][8];
+    unsigned long long best[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    float sq[S::kLoads];
-#pragma unroll
-    for (int i = 0; i < S::kLoads; ++i) sq[i] = 0.f;
+    for (int i = 0; i < 8; ++i) best[i] = ~0ull;
 
-    Slice<float> qreg;
-    Slice<T> xreg;
-    load_slice<float>(q, q0, Q, L, 0, tid, qreg);
-    load_slice<T>(xs, n0, N, L, 0, tid, xreg);
-    store_slice<float>(qreg, tid, q_s[0], nullptr);
-    store_slice<T>(xreg, tid, x_s[0], sq);
-    __syncthreads();
-
-    for (int s = 0; s < n_slices; ++s) {
-      const int cur = s & 1;
-      const bool more = s + 1 < n_slices;
-      if (more) {
-        load_slice<float>(q, q0, Q, L, (s + 1) * kBK, tid, qreg);
-        load_slice<T>(xs, n0, N, L, (s + 1) * kBK, tid, xreg);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = t_begin; tile < t_end; ++tile) {
+      float acc[128];
+      float xx0 = 0.f, xx1 = 0.f;
+      for (int c = 0; c < n_chunks; ++c) {
+        mbar_wait(&full[stage], phase);
+        const uint8_t* xc = x_s + stage * X::kBytes;
+        // A of k8 step s: rows r0, r1 and columns 8s + t4, 8s + t4 + 4
+        uint32_t a_hi[kKC / 8][4], a_lo[kKC / 8][4];
+#pragma unroll
+        for (int s = 0; s < kKC / 8; ++s) {
+          const float v[4] = {x_at<T>(xc, r0, 8 * s + t4),
+                              x_at<T>(xc, r1, 8 * s + t4),
+                              x_at<T>(xc, r0, 8 * s + t4 + 4),
+                              x_at<T>(xc, r1, 8 * s + t4 + 4)};
+          xx0 = fmaf(v[0], v[0], xx0);
+          xx0 = fmaf(v[2], v[2], xx0);
+          xx1 = fmaf(v[1], v[1], xx1);
+          xx1 = fmaf(v[3], v[3], xx1);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            a_hi[s][i] = tf32_rna(v[i]);
+            a_lo[s][i] = X::kSplit
+                             ? tf32_rna(v[i] - __uint_as_float(a_hi[s][i]))
+                             : 0u;
+          }
+        }
+        const uint32_t qh_base = smem_u32(qh_s + stage * kQChunk);
+        const uint32_t ql_base = smem_u32(ql_s + stage * kQChunk);
+        fence_operands(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < kKC / 8; ++s) {
+          const uint64_t dh = make_desc(qh_base + 32 * s, 16, 1024, 1);
+          const uint64_t dl = make_desc(ql_base + 32 * s, 16, 1024, 1);
+          wgmma_m64n256k8_rs_tf32(acc, a_hi[s], dh, c > 0 || s > 0);
+          if (X::kSplit) wgmma_m64n256k8_rs_tf32(acc, a_lo[s], dh, 1);
+          wgmma_m64n256k8_rs_tf32(acc, a_hi[s], dl, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_operands(acc);
+        mbar_arrive(&empty[stage]);
+        if (++stage == kStages) { stage = 0; phase ^= 1; }
       }
+
+      // |x|^2 of rows r0 and r1: the four lanes of a row meet
 #pragma unroll
-      for (int k = 0; k < kBK; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&q_s[cur][k][ty * 4]);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(&q_s[cur][k][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&x_s[cur][k][tx * 4]);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(&x_s[cur][k][64 + tx * 4]);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int off = 1; off < 4; off <<= 1) {
+        xx0 += __shfl_xor_sync(0xffffffffu, xx0, off);
+        xx1 += __shfl_xor_sync(0xffffffffu, xx1, off);
       }
-      if (more) {
-        store_slice<float>(qreg, tid, q_s[cur ^ 1], nullptr);
-        store_slice<T>(xreg, tid, x_s[cur ^ 1], sq);
-      }
-      __syncthreads();
+      // acc[4j + e]: row r0 (e < 2) or r1, query q0 + 8j + 2 t4 + (e & 1);
+      // k[2j + e] keeps the lesser key of the two rows
+      const int n0 = tile * kBM + r0, n1 = n0 + 8;
+      unsigned long long k[64];
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float qv = qq_s[8 * j + 2 * t4 + e];
+          // rounded step by step as the plain version writes it
+          float d0 = __fsub_rn(__fadd_rn(qv, xx0),
+                               __fmul_rn(2.f, acc[4 * j + e]));
+          float d1 = __fsub_rn(__fadd_rn(qv, xx1),
+                               __fmul_rn(2.f, acc[4 * j + 2 + e]));
+          d0 = d0 > 0.f ? d0 : 0.f;                  // and -0.0 -> +0.0
+          d1 = d1 > 0.f ? d1 : 0.f;
+          const unsigned long long k0 =
+              n0 < N ? ((unsigned long long)__float_as_uint(d0) << 32) |
+                           (unsigned)n0
+                     : ~0ull;
+          const unsigned long long k1 =
+              n1 < N ? ((unsigned long long)__float_as_uint(d1) << 32) |
+                           (unsigned)n1
+                     : ~0ull;
+          k[2 * j + e] = umin64(k0, k1);
+        }
+      // lanes 4g + t4 share their queries across g: three halving rounds
+      fold_half<64, 4>(k, lane & 4);
+      fold_half<32, 8>(k, lane & 8);
+      fold_half<16, 16>(k, lane & 16);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) best[i] = umin64(best[i], k[i]);
     }
 
-    // |x|^2 of the tile's rows: the threads that loaded a row meet
+    // best[i] holds index base + i of k, i.e. query
+    // q0 + 8 ((base + i) >> 1) + 2 t4 + ((base + i) & 1)
+    const int base = 32 * (g & 1) + 16 * ((g >> 1) & 1) + 8 * ((g >> 2) & 1);
 #pragma unroll
-    for (int i = 0; i < S::kLoads; ++i) {
-      float v = sq[i];
-#pragma unroll
-      for (int off = 1; off < S::kLanesPerRow; off <<= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      const int e = tid + i * kThreads;
-      if (e % S::kLanesPerRow == 0) xx_s[e / S::kLanesPerRow] = v;
+    for (int i = 0; i < 8; ++i) {
+      const int qi = q0 + 8 * ((base + i) >> 1) + 2 * t4 + ((base + i) & 1);
+      if (qi < Q && best[i] != ~0ull) atomicMin(&keys[qi], best[i]);
     }
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = (j < 4 ? 0 : 64) + tx * 4 + (j & 3);
-      const long long n = n0 + c;
-      if (n >= N) continue;
-      const float xx = xx_s[c];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
-        // rounded step by step as the plain version writes it
-        float d = __fsub_rn(__fadd_rn(qq_s[r], xx), __fmul_rn(2.f, acc[i][j]));
-        d = d > 0.f ? d : 0.f;                        // and -0.0 -> +0.0
-        const unsigned long long key =
-            ((unsigned long long)__float_as_uint(d) << 32) |
-            (unsigned long long)(unsigned)n;
-        best[i] = umin64(best[i], key);
-      }
-    }
-    // xx_s is rewritten only after the next tile's slice barriers
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    unsigned long long v = best[i];
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      v = umin64(v, __shfl_xor_sync(0xffffffffu, v, off));
-    const int r = (i < 4 ? 0 : 64) + ty * 4 + (i & 3);
-    if (tx == 0 && q0 + r < Q && v != ~0ull) atomicMin(&keys[q0 + r], v);
   }
 }
 
@@ -265,27 +304,57 @@ __global__ void unpack_kernel(const unsigned long long* __restrict__ keys,
 }
 
 template <typename T>
-cudaError_t launch(const float* q, const void* xs, unsigned long long* keys,
-                   float* d, int* idx, int Q, long long N, int L,
-                   cudaStream_t stream) {
+cudaError_t launch(const float* q, const void* xs, float* scratch,
+                   unsigned long long* keys, float* d, int* idx, int Q, int N,
+                   int L, cudaStream_t stream) {
+  using X = XChunk<T>;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
+  const int q_groups = (Q + kBQ - 1) / kBQ;
+  const int q_pad = q_groups * kBQ;
+  float* qh = scratch;
+  float* ql = qh + (size_t)q_pad * L;
+  float* qq = ql + (size_t)q_pad * L;
+
+  const cuuint64_t dx[2] = {(cuuint64_t)L, (cuuint64_t)N};
+  const cuuint64_t dq[2] = {(cuuint64_t)L, (cuuint64_t)q_pad};
+  const cuuint32_t bx[2] = {kKC, kBM};
+  const cuuint32_t bq[2] = {kKC, kBQ};
+  CUtensorMap mx, mqh, mql;
+  if ((err = make_map(&mx,
+                      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      sizeof(T), xs, 2, dx, bx,
+                      X::kSpan == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                      : CU_TENSOR_MAP_SWIZZLE_64B)) !=
+          cudaSuccess ||
+      (err = make_map(&mqh, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, qh, 2, dq, bq,
+                      CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
+      (err = make_map(&mql, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ql, 2, dq, bq,
+                      CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess)
+    return err;
+  err = cudaFuncSetAttribute(ed_tc_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             X::kSmem);
+  if (err != cudaSuccess) return err;
+
   err = cudaMemsetAsync(keys, 0xff, sizeof(unsigned long long) * Q, stream);
   if (err != cudaSuccess) return err;
-  const int q_tiles = (Q + kBQ - 1) / kBQ;
-  const long long n_tiles = (N + kBN - 1) / kBN;
-  // about two blocks per SM in all, each over a contiguous candidate range
-  long long ranges = (2LL * sms + q_tiles - 1) / q_tiles;
-  if (ranges > n_tiles) ranges = n_tiles;
-  if (ranges < 1) ranges = 1;
-  const long long per = (n_tiles + ranges - 1) / ranges;
+  split_queries<<<q_pad, 128, 0, stream>>>(q, qh, ql, qq, Q, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // about one block per SM, each over a contiguous range of tiles
+  const int n_tiles = (N + kBM - 1) / kBM;
+  int ranges = sms / q_groups;
+  ranges = ranges < 1 ? 1 : (ranges > n_tiles ? n_tiles : ranges);
+  const int per = (n_tiles + ranges - 1) / ranges;
   ranges = (n_tiles + per - 1) / per;
-  dim3 grid((unsigned)q_tiles, (unsigned)ranges);
-  ed_argmin_kernel<T><<<grid, kThreads, 0, stream>>>(
-      q, static_cast<const T*>(xs), keys, Q, N, L, per);
+  dim3 grid((unsigned)q_groups, (unsigned)ranges);
+  ed_tc_kernel<T><<<grid, kThreads, X::kSmem, stream>>>(mx, mqh, mql, qq,
+                                                        keys, Q, N, L, per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   unpack_kernel<<<(Q + 255) / 256, 256, 0, stream>>>(keys, d, idx, Q);
@@ -294,21 +363,23 @@ cudaError_t launch(const float* q, const void* xs, unsigned long long* keys,
 
 }  // namespace
 
-// dtype of xs: 0 = float32, 1 = bfloat16; q is float32.  L must be a
-// multiple of 8 and q, xs 16-byte aligned (the wrapper checks); keys is
-// (Q,) 64-bit scratch.  Q >= 1 and N >= 1.
-extern "C" int ed_argmin(const void* q, const void* xs, int dtype, void* keys,
-                         void* out_d, void* out_idx, int Q, long long N,
-                         int L, void* stream) {
+// dtype of xs: 0 = float32, 1 = bfloat16; q is float32.  L a multiple of
+// 8 and q, xs 16-byte aligned, N < 2^31 (the wrapper checks); scratch is
+// 2 * Qpad * L + Qpad floats with Qpad = Q rounded up to 256, keys is
+// (Q,) 64-bit.  Q >= 1 and N >= 1.
+extern "C" int ed_argmin(const void* q, const void* xs, int dtype,
+                         void* scratch, void* keys, void* out_d,
+                         void* out_idx, int Q, int N, int L, void* stream) {
   if (Q <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
+  float* sc = static_cast<float*>(scratch);
   unsigned long long* k = static_cast<unsigned long long*>(keys);
   float* d = static_cast<float*>(out_d);
   int* i = static_cast<int*>(out_idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return (int)launch<float>(qf, xs, k, d, i, Q, N, L, s);
-    case 1: return (int)launch<__nv_bfloat16>(qf, xs, k, d, i, Q, N, L, s);
+    case 0: return (int)launch<float>(qf, xs, sc, k, d, i, Q, N, L, s);
+    case 1: return (int)launch<__nv_bfloat16>(qf, xs, sc, k, d, i, Q, N, L, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,10 +1,11 @@
 """Exact 1-NN scan: per-query min squared Euclidean distance and argmin.
 
 On CUDA tensors `ed_argmin` launches the kernel of `csrc/ed_argmin.cu`,
-which streams the candidates at their stored width and never
-materializes the (Q, N) distance matrix; on CPU tensors it runs the
-plain version `ref.ed_argmin_ref`.  `launches` counts the kernel's
-launches.
+which streams the candidates at their stored width through the tensor
+cores (three TF32 products for float32 candidates, two for bfloat16 ones,
+which are exact in TF32) and never materializes the (Q, N) distance
+matrix; on CPU tensors it runs the plain version `ref.ed_argmin_ref`.
+`launches` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -20,9 +21,9 @@ from .ref import ed_argmin_ref
 launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [
+    ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_QUERY_GROUP = 256                     # queries per block of the kernel
 
 
 def ed_argmin(q: torch.Tensor, xs: torch.Tensor
@@ -58,17 +59,23 @@ def ed_argmin(q: torch.Tensor, xs: torch.Tensor
     if q.device.type != "cuda":
         raise RuntimeError(f"no ed_argmin kernel for device {q.device}")
     if L % 8 or q.data_ptr() % 16 or xs.data_ptr() % 16:
-        raise ValueError(f"the ed_argmin kernel reads rows in 16-byte "
-                         f"pieces: L={L} must be a multiple of 8 and q, xs "
+        raise ValueError(f"the ed_argmin kernel loads candidate rows by "
+                         f"TMA, which needs them on 16-byte boundaries: "
+                         f"L={L} must be a multiple of 8 and q, xs "
                          f"16-byte aligned")
+    q_pad = -(-Q // _QUERY_GROUP) * _QUERY_GROUP
+    # q_hi, q_lo (q_pad, L) and |q|^2 (q_pad,), written by the kernel
+    scratch = torch.empty((2 * q_pad * L + q_pad,), dtype=torch.float32,
+                          device=q.device)
     keys = torch.empty((Q,), dtype=torch.int64, device=q.device)
     out_d = torch.empty((Q,), dtype=torch.float32, device=q.device)
     out_i = torch.empty((Q,), dtype=torch.int32, device=q.device)
     fn = _build.entry("ed_argmin", "ed_argmin", _ARGTYPES)
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), xs.data_ptr(), _DTYPES[xs.dtype],
-                  keys.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), Q, N,
-                  L, torch.cuda.current_stream().cuda_stream)
+                  scratch.data_ptr(), keys.data_ptr(), out_d.data_ptr(),
+                  out_i.data_ptr(), Q, N, L,
+                  torch.cuda.current_stream().cuda_stream)
     _build.check("ed_argmin", "ed_argmin", code)
     launches += 1
     return out_d, out_i

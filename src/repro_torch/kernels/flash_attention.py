@@ -1,10 +1,12 @@
 """Causal and/or sliding-window softmax attention with grouped KV heads.
 
-On CUDA tensors `flash_attention` launches the kernel of
+On CUDA tensors `flash_attention` launches a kernel of
 `csrc/flash_attention.cu`, which streams K/V tiles with an online
-softmax and never materializes the (T, S) scores; on CPU tensors it runs
-the plain version `ref.flash_attention_ref`.  `launches` counts the
-kernel's launches.  There is no gradient: repro's kernel has none.
+softmax and never materializes the (T, S) scores: bfloat16 inputs go to
+the tensor cores (wgmma fed by TMA, P carried as two bf16 halves),
+float32 inputs to float32 FMAs.  On CPU tensors it runs the plain
+version `ref.flash_attention_ref`.  `launches` counts the kernels'
+launches.  There is no gradient: repro's kernel has none.
 """
 
 from __future__ import annotations
@@ -71,8 +73,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"the flash_attention kernel's grid takes "
                          f"B * Hq <= 65535, got {B * Hq}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the flash_attention kernel reads 16-byte pieces: "
-                         "q, k, v must be 16-byte aligned")
+        raise ValueError("the flash_attention kernels read 16-byte pieces "
+                         "(by TMA for bfloat16): q, k, v must be 16-byte "
+                         "aligned")
     out = torch.empty_like(q)
     fn = _build.entry("flash_attention", "flash_attention", _ARGTYPES)
     with torch.cuda.device(q.device):

@@ -6,6 +6,12 @@ against the same plain version on the card by chip_smoke.py.  Tolerances
 are repro's own (tests/test_kernels.py, flash_attention): 2e-5 for
 float32, 2e-2 for bfloat16 (repro's kernel rounds P to bf16 before P.V,
 the plain versions do not).
+
+The CUDA kernel's bf16 route feeds P to the tensor cores as two bf16
+operands, P = P_hi + P_lo.  `_attention_bf16_p` repeats that arithmetic
+with plain torch, so that the choice is held here, on the CPU, to the
+limit chip_smoke.py holds a bf16 output to: 2^-8 |plain| + 2e-5 around
+the float32 plain version.
 """
 
 import jax.numpy as jnp
@@ -111,3 +117,69 @@ def test_heads_that_do_not_group_raise():
     with pytest.raises(AssertionError):           # repro asserts the same
         jops.flash_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v)),
                              interpret=True)
+
+
+# ----------------------------------------------- the kernel's arithmetic
+def _attention_bf16_p(q, k, v, causal=True, window=0, split=True):
+    """Attention as the bf16 kernel computes it: scores and softmax in
+    float32, P.V from P as two bf16 operands P_hi + P_lo (split) or P
+    rounded once to bf16 (as repro's kernel does), sums in float32, the
+    output rounded to bf16."""
+    B, Hq, T, dh = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    s = torch.einsum("bkgtd,bksd->bkgts",
+                     q.float().reshape(B, Hkv, Hq // Hkv, T, dh),
+                     k.float()) * dh ** -0.5
+    t, j = torch.arange(T)[:, None], torch.arange(S)[None]
+    seen = (t >= j) if causal else torch.ones(T, S, dtype=torch.bool)
+    if window:
+        seen &= j > t - window
+    p = torch.exp(s.masked_fill(~seen, ref.NEG_INF)
+                  - s.masked_fill(~seen, ref.NEG_INF).amax(-1, keepdim=True))
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float() if split else 0 * hi
+    o = sum(torch.einsum("bkgts,bksd->bkgtd", part, v.float())
+            for part in (hi, lo)) / p.sum(-1, keepdim=True)
+    return o.reshape(B, Hq, T, dh).to(torch.bfloat16)
+
+
+def _excess(out, q, k, v, **kw):
+    """How far out lies beyond 2^-8 |plain| + 2e-5 (<= 0: within)."""
+    plain = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    return ((out.float() - plain).abs() - 2 ** -8 * plain.abs()
+            - 2e-5).max().item()
+
+
+def _bf16(a):
+    return torch.from_numpy(a).to(torch.bfloat16)
+
+
+def test_p_in_two_bf16_halves_holds_the_card_limit_where_one_does_not():
+    """Keys in pairs that nearly coincide and values in pairs v, -v: each
+    row's output is a small remainder of terms that cancel.  One bf16 P
+    errs by 2^-9 of each term, far beyond the limit on that remainder;
+    P_hi + P_lo errs by ~2^-17 and stays within it."""
+    rng = np.random.default_rng(21)
+    T, dh = 64, 32
+    k = rng.standard_normal((1, 1, T, dh)).astype(np.float32)
+    k[..., 1::2, :] = k[..., 0::2, :] + 0.02 * rng.standard_normal(
+        (1, 1, T // 2, dh))
+    v = rng.standard_normal((1, 1, T, dh)).astype(np.float32)
+    v[..., 1::2, :] = -v[..., 0::2, :]
+    q = _bf16(rng.standard_normal((1, 1, T, dh)).astype(np.float32))
+    k, v = _bf16(k), _bf16(v)
+    assert _excess(_attention_bf16_p(q, k, v), q, k, v) <= 0
+    assert _excess(_attention_bf16_p(q, k, v, split=False), q, k, v) > 1e-4
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 16),
+                                           (False, 32)])
+def test_p_in_two_bf16_halves_holds_the_card_limit_with_gqa(causal, window):
+    """Random inputs with GQA (Hq 4 over Hkv 2), windows and the empty rows
+    of a non-causal window over S < T: the split stays within the limit
+    (one bf16 P already misses it at rows with few keys)."""
+    q, k, v = (_bf16(a) for a in _qkv(2, 4, 2, 128, 64, S=96, seed=8))
+    kw = dict(causal=causal, window=window)
+    assert _excess(_attention_bf16_p(q, k, v, **kw), q, k, v, **kw) <= 0
+    assert _excess(_attention_bf16_p(q, k, v, split=False, **kw), q, k, v,
+                   **kw) > 0

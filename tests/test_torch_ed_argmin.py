@@ -105,3 +105,74 @@ def test_one_nn_composes_with_the_index(walks):
     np.testing.assert_array_equal(np.asarray(ij), i.numpy())
     np.testing.assert_allclose(np.asarray(dj), d.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+# ----------------------------------------------- the kernel's arithmetic
+def _tf32(x):
+    """Round float32 to the nearest tf32 (10 mantissa bits, ties away from
+    zero), as the kernel's cvt.rna.tf32.f32: add half of the 13 dropped
+    bits to the magnitude, then clear them."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1fff).view(torch.float32)
+
+
+def _ed_argmin_tf32(q, xs, products=3):
+    """(d, i) as the kernel computes them: q.x from tf32 halves, summed in
+    float32, with q_hi.x_hi (products=1), or with q_hi.x_lo and q_lo.x_hi
+    too (products=3).  Each (query, candidate) pair goes through the same
+    elementwise operations, as each does in the kernel."""
+    q, x = torch.as_tensor(q).float(), torch.as_tensor(xs).float()
+    qh, xh = _tf32(q), _tf32(x)
+    pairs = [(qh, xh), (qh, _tf32(x - xh)), (_tf32(q - qh), xh)]
+    dot = sum((a[:, None, :] * b[None]).sum(-1) for a, b in pairs[:products])
+    d2 = ((q * q).sum(-1)[:, None] + (x * x).sum(-1)[None]
+          - 2.0 * dot).clamp_min(0.0)
+    i = torch.argmin(d2, dim=1)
+    return d2.gather(1, i[:, None])[:, 0].numpy(), i.int().numpy()
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits_to_nearest():
+    x = torch.tensor([1.0, 1 + 2 ** -10, 1 + 2 ** -11, 1 + 2 ** -12,
+                      -(1 + 3 * 2 ** -12), 3.1415927], dtype=torch.float32)
+    want = [1.0, 1 + 2 ** -10, 1 + 2 ** -10, 1.0, -(1 + 2 ** -10),
+            3.140625]
+    assert _tf32(x).tolist() == want
+
+
+@pytest.mark.parametrize("Q,N,L", [(1, 64, 256), (16, 1000, 256),
+                                   (5, 33, 128), (32, 4096, 64)])
+def test_3xtf32_matches_pallas_where_one_tf32_product_does_not(Q, N, L):
+    """repro's shapes: three tf32 products hold repro's rtol/atol 1e-4 with
+    the same ids; one product alone (three decimal digits of q.x) misses
+    that tolerance on three of the four."""
+    q, xs = _walks(Q, L, seed=2), _walks(N, L, seed=9)
+    dj, ij = jops.ed_argmin(jnp.asarray(q), jnp.asarray(xs), interpret=True)
+    dj, ij = np.asarray(dj), np.asarray(ij)
+    _agree(dj, ij, *_ed_argmin_tf32(q, xs))
+    d1, _ = _ed_argmin_tf32(q, xs, products=1)
+    beyond = np.abs(d1 - dj) > 1e-4 + 1e-4 * np.abs(dj)
+    assert beyond.any() == ((Q, N, L) != (1, 64, 256))
+
+
+def test_3xtf32_bf16_candidates_need_two_products():
+    """A bf16 value is exact in tf32 (x_lo = 0): the kernel's bf16 route
+    runs q_hi.x + q_lo.x alone and still holds repro's tolerance."""
+    q = np.array(jisax.znormalize(jnp.asarray(_walks(16, 256, seed=4))))
+    xb = np.array(jisax.znormalize(jnp.asarray(_walks(1000, 256, seed=5))))
+    xb = xb.astype(ml_dtypes.bfloat16).astype(np.float32)
+    xt = torch.from_numpy(xb)
+    assert torch.equal(_tf32(xt), xt)
+    dj, ij = jops.ed_argmin(jnp.asarray(q), jnp.asarray(xb), interpret=True)
+    _agree(np.asarray(dj), np.asarray(ij), *_ed_argmin_tf32(q, xb))
+
+
+def test_3xtf32_keeps_the_duplicated_row_tie():
+    """Identical rows give bitwise-identical 3xTF32 d^2, so the tie goes to
+    the lower index, as the card's check requires."""
+    xs = np.array(jisax.znormalize(jnp.asarray(_walks(300, 256, seed=6))))
+    xs[250] = xs[17]
+    q = xs[[17, 250, 3]].copy()
+    d, i = _ed_argmin_tf32(q, xs)
+    np.testing.assert_array_equal(i, [17, 17, 3])
+    dj, _ = jops.ed_argmin(jnp.asarray(q), jnp.asarray(xs), interpret=True)
+    np.testing.assert_allclose(d, np.asarray(dj), rtol=1e-4, atol=1e-4)

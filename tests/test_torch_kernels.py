@@ -8,6 +8,7 @@ refine entry buffers equal, distances within 1e-5 * (q_sq + max |x|^2)
 absolute (the matmul form cancels terms of that size).
 """
 
+import shutil
 from importlib import import_module
 
 import jax.numpy as jnp
@@ -18,7 +19,7 @@ import torch
 
 from repro.kernels import ops
 from repro.kernels import ref as ref_j
-from repro_torch.kernels import isax_summarize, ref, refine
+from repro_torch.kernels import _build, isax_summarize, ref, refine
 
 # the package re-exports the entry point lb_distance under the module's name
 lb_distance = import_module("repro_torch.kernels.lb_distance")
@@ -176,3 +177,26 @@ def test_refine_plain_breaks_ties_to_the_lower_union_index():
         torch.tensor([[5, 0]], dtype=torch.int32), leaf_capacity=M, k=4)
     assert e.tolist() == [[5, 6, 7, 2]]
     assert d.tolist() == [[0.0, 0.0, 0.0, 0.0]]
+
+
+# ------------------------------------------------------------------ build
+@pytest.mark.parametrize("name", ["ed_argmin", "flash_attention"])
+def test_a_changed_header_changes_the_library_key(name, tmp_path,
+                                                  monkeypatch):
+    """The library of a source is keyed by the headers it includes too:
+    editing csrc/sm90.cuh renames the tensor-core kernels' libraries (so
+    the next use rebuilds them) and leaves the others' names alone."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    assert _build.headers(csrc / f"{name}.cu") == [csrc / "sm90.cuh"]
+    before = {n: _build.library_path(n) for n in _build.SOURCES}
+    with open(csrc / "sm90.cuh", "a") as f:
+        f.write("// an edit\n")
+    after = {n: _build.library_path(n) for n in _build.SOURCES}
+    assert after[name] != before[name]
+    assert after[name].name.startswith(name + "-")
+    for other in ("isax_summarize", "lb_distance", "refine"):
+        assert _build.headers(csrc / f"{other}.cu") == []
+        assert after[other] == before[other]
