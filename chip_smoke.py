@@ -14,27 +14,43 @@ Phases, each printing one JSON line:
              attention rows, dh 64 and 32, a ragged scan), drawn from a
              generator of their own so that the main phase's inputs stay
              what the seed alone makes them;
+             refine_search (the whole refinement of a search in one
+             launch) is held against refine_search_ref on a real index of
+             2^18 walks drawn from that generator, in f32 and bf16, and on
+             2^16 walks at other leaf sizes and K (its cluster cut to 1, 2
+             and 4 CTAs, and K = 264 slots a round above 256 threads);
   main       FreshIndex.build over N random walks of length 256 made on the
              card (default 2^24, 16 GiB of float32), then exact 10-NN of 256
              noisy collection series (sigma 0.1, the paper's hardest Fig. 6a
-             workload), held against a chunked brute-force scan;
+             workload), held against a chunked brute-force scan; then the
+             refinement of the same queries alone: each query's rounds and
+             alive slots, the search's bound (the bytes of the distinct
+             leaves alive for any query, over the memory rate) beside the
+             bytes the queries read one by one, refine_search's time, on
+             its longest query alone too, and its plain version at this
+             size;
+  rounds     ops.refine_topk, repro's per-round kernel API, driven through
+             the global loop of rounds over the main cell's queue (the
+             search before refine_search), held bit for bit against
+             refine_search's buffers and rounds;
   scan       ops.ed_argmin of the same z-normalized queries over the whole
              stored collection (the exact 1-NN scan, 16 GiB read), held
              against the search's nearest neighbour;
   attention  ops.flash_attention at granite-8b's attention widths (B 1,
              Hq 32, Hkv 8, T = S = 4096, dh 128, bf16, causal), held
              against the plain version.
-Each of main, scan and attention sets every launch count to 0 before it
-and requires each kernel of its path to have launched.  Then the kernel
-table, the nvidia-smi line and, last, the device line.  Any failure raises
-and exits non-zero; without CUDA, or without the repository's src/ beside
-this file, it exits 1 before printing a result.
+Each of main, rounds, scan and attention sets every launch count to 0
+before it and requires each kernel of its path to have launched.  Then
+the kernel table, the nvidia-smi line and, last, the device line.  Any
+failure raises and exits non-zero; without CUDA, or without the
+repository's src/ beside this file, it exits 1 before printing a result.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -46,7 +62,7 @@ F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 TF32_FLOPS = 495e12            # H100 SXM tf32 tensor cores, dense
 Q, K, M, L, TOPK = 256, 8, 64, 256, 10
-MAIN = ("summarize", "lb_distance", "refine_topk")
+MAIN = ("summarize", "lb_distance", "refine_search")
 # granite-8b's attention (train_4k): 32 query heads, 8 KV heads of 128
 GRANITE = dict(B=1, Hq=32, Hkv=8, T=4096, dh=128)
 
@@ -60,9 +76,9 @@ def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS):
     return max(b, f), ("bytes" if b >= f else "operations")
 
 
-def time_ms(torch, fn, reps: int = 20) -> float:
-    """Mean device time of fn() over `reps` launches, after a warm-up."""
-    for _ in range(3):
+def time_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
+    """Mean device time of fn() over `reps` launches, after `warm`."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -210,6 +226,148 @@ def check_refine(torch, isax, rk, ref, gen, NL=4096):
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": None,
             "checks": rows}
+
+
+def refine_inputs(search, idx, queries, K=K):
+    """The refinement's inputs, as search_plan_impl makes them: prepared
+    queries, their norms, and each query's priority queue of leaves."""
+    q, q_paa = search.prepare_queries(queries, True, idx.paa.shape[1])
+    lb = search.leaf_lower_bounds(idx, q_paa, idx.series.shape[1])
+    order, sorted_lb = search._pq_order(
+        lb, K, search._rounds_cap(idx.n_leaves, K))
+    return q, (q * q).sum(dim=-1), order, sorted_lb
+
+
+def search_work(torch, idx, order, rounds, alive, K=K):
+    """(bytes, flops, leaves, per-query leaf bytes) of the refinement of
+    these queries.  It needs each leaf that is alive for any query once:
+    its rows at the stored width and their norms; a query's alive slots
+    are the first `alive` entries of its queue (the queue ascends, the
+    k-th best never grows).  Besides, each query's queue entries of the
+    rounds it ran (id and bound), the queries and the buffers.  The flops
+    are those of every alive (query, leaf row) pair.  The last item is the
+    leaf bytes when every query reads its own alive leaves."""
+    Mi = idx.leaf_capacity
+    leaf_bytes = Mi * (idx.series.shape[1] * idx.series.element_size() + 4)
+    cols = torch.arange(order.shape[1], device=order.device)
+    leaves = int(order[cols < alive[:, None].long()].unique().numel())
+    slots = int(alive.sum())
+    nbytes = (leaves * leaf_bytes + int(rounds.sum()) * K * 8
+              + Q * (L * 4 + 4 + TOPK * 8))
+    return nbytes, slots * Mi * L * 2, leaves, slots * leaf_bytes
+
+
+def search_tol(torch, idx, q, q_sq):
+    """(tol, true_d): refine's limit, 1e-5 of the |q|^2 + |x|^2 that the
+    matmul form cancels, and the matmul-form d^2 of (Q, k) entries."""
+    xn = idx.sq_norms
+    tol = 1e-5 * (q_sq.max() + xn[xn < 1e29].max()).item()
+
+    def true_d(e):
+        xs = idx.series[e.long()].float()
+        return (q_sq[:, None] + xn[e.long()]
+                - 2 * torch.einsum("qkl,ql->qk", xs, q)).clamp_min(0)
+    return tol, true_d
+
+
+def hold_search(torch, got, want, sorted_lb, true_d, tol, what, K=K):
+    """One refinement's (d, e, rounds, alive) against another's: buffers
+    as fold_check holds them; rounds equal but for a query whose stop test
+    met a near-tie (the deciding lower bound within tol of the k-th best of
+    the side that stopped first), each shown."""
+    (dk, ek, rk, ak), (dr, er, rr, ar) = got, want
+    err, swaps = fold_check(torch, dk, ek, dr, er, true_d, tol, what)
+    ties = []
+    for i in (rk != rr).nonzero()[:, 0].tolist():
+        first = dk if rk[i] < rr[i] else dr
+        r0 = int(min(rk[i], rr[i]))
+        gap = (sorted_lb[i, r0 * K] - first[i, -1]).abs().item()
+        require(gap <= tol, f"{what}: query {i} ran {int(rk[i])} rounds, "
+                f"not {int(rr[i])}, beyond a near-tie ({gap})")
+        ties.append({"query": i, "rounds": [int(rk[i]), int(rr[i])],
+                     "gap": gap})
+    return {"max_abs_err": err, "near_tie_swaps": swaps,
+            "near_tie_rounds": ties,
+            "alive_slots_differ": int((ak != ar).sum())}
+
+
+def run_loop(torch, rk, args, K=K, M=M):
+    """refine_search's (d, e, rounds, alive)."""
+    alive = torch.zeros(args[0].shape[0], dtype=torch.int32, device=DEV)
+    out = rk.refine_search(*args, leaf_capacity=M, k=TOPK, round_leaves=K,
+                           alive_out=alive)
+    return out + (alive,)
+
+
+def run_loop_ref(torch, ref, args, K=K, M=M):
+    alive = torch.zeros(args[0].shape[0], dtype=torch.int32, device=DEV)
+    out = ref.refine_search_ref(*args, leaf_capacity=M, k=TOPK,
+                                round_leaves=K, alive_out=alive)
+    return out + (alive,)
+
+
+def rounds_stats(rounds):
+    r = rounds.float()
+    return {"min": int(r.min()), "median": r.median().item(),
+            "p90": r.quantile(0.9).item(), "max": int(r.max())}
+
+
+def hold_loop(torch, search, rk, ref, idx, queries, K, what):
+    """refine_search against refine_search_ref on one index (hold_search),
+    and the kernel's time, the plain version's and the bound."""
+    q, q_sq, order, sorted_lb = refine_inputs(search, idx, queries, K)
+    args = (q, q_sq, idx.series, idx.sq_norms, order, sorted_lb)
+    M_ = idx.leaf_capacity
+    got = run_loop(torch, rk, args, K, M_)
+    ms = time_ms(torch, lambda: rk.refine_search(
+        *args, leaf_capacity=M_, k=TOPK, round_leaves=K), 3, warm=0)
+    t0 = time.perf_counter()
+    want = run_loop_ref(torch, ref, args, K, M_)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    tol, true_d = search_tol(torch, idx, q, q_sq)
+    row = hold_search(torch, got, want, sorted_lb, true_d, tol, what, K)
+    nbytes, flops, leaves, _ = search_work(torch, idx, order, got[2], got[3],
+                                           K)
+    bms, by = bound_ms(nbytes, flops)
+    return dict(row, tol=tol, rounds=rounds_stats(got[2]),
+                alive_slots=int(got[3].sum()), alive_leaves=leaves, ms=ms,
+                plain_ms=plain, bound_ms=bms, bound_by=by)
+
+
+def check_refine_search(torch, api, search, rk, ref, edge_gen, n=1 << 18):
+    """refine_search against refine_search_ref (hold_loop) on real indexes
+    of random walks and Q noisy collection queries (sigma 0.1), all drawn
+    from edge_gen: n walks in f32 and bf16 storage at the main cell's
+    leaves and K; then n / 4 walks at other (leaf size, K), whose
+    clusters are cut to 2, 4 and 1 CTAs, and whose K = 264 takes more
+    slots a round than a CTA has threads."""
+    def walks(n):
+        raw = torch.randn(n, L, generator=edge_gen, device=DEV).cumsum_(1)
+        pick = torch.randint(0, n, (Q,), generator=edge_gen, device=DEV)
+        return raw, raw[pick] + 0.1 * torch.randn(Q, L, generator=edge_gen,
+                                                  device=DEV)
+    raw, queries = walks(n)
+    rows = {}
+    for name, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        idx = api.FreshIndex.build(raw, api.IndexConfig(dtype=dtype),
+                                   device=DEV).index
+        rows[name] = hold_loop(torch, search, rk, ref, idx, queries, K,
+                               f"refine_search {name}")
+    raw, queries = walks(n // 4)
+    for m, k_ in ((16, 6), (32, 12), (64, 3), (8, 264)):
+        idx = api.FreshIndex.build(raw, api.IndexConfig(leaf_capacity=m),
+                                   device=DEV).index
+        rows[f"M{m} K{k_}"] = hold_loop(torch, search, rk, ref, idx, queries,
+                                        k_, f"refine_search M {m} K {k_}")
+    f = rows["f32"]
+    return {"name": "refine_search", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/refine.cu",
+            "replaces": "src/repro/kernels/refine.py:139",
+            "shape": f"{n} walks, Q={Q} K={K} M={M} L={L} k={TOPK}, f32",
+            "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+            "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"], "library_ms": None, "checks": rows}
 
 
 def matmul_tol(dr, qsq, xsq, rtol=1e-4):
@@ -451,13 +609,15 @@ def keys_sorted(torch, isax, words) -> bool:
     return bool(prev.all())
 
 
-def profile_search(torch, index, queries, wall_ms):
+def profile_search(torch, index, queries):
     """Device time of one search by kernel (torch.profiler over CUPTI) and
-    the device's idle share against an unprofiled search's wall time."""
+    the device's idle share against that search's own wall time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         index.search(queries, k=TOPK)
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kern = {e.key: (e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages() if e.self_device_time_total > 0}
     busy = sum(ms for ms, _ in kern.values())
@@ -468,7 +628,7 @@ def profile_search(torch, index, queries, wall_ms):
                     for name, (ms, c) in top]}
 
 
-def main_path(torch, api, isax, search, kmods, n, gen):
+def main_path(torch, api, isax, search, kmods, ref, n, gen):
     raw = torch.randn(n, L, generator=gen, device=DEV).cumsum_(1)
     pick = torch.randint(0, n, (Q,), generator=gen, device=DEV)
     queries = raw[pick] + 0.1 * torch.randn(Q, L, generator=gen, device=DEV)
@@ -508,10 +668,12 @@ def main_path(torch, api, isax, search, kmods, n, gen):
         index.search(queries, k=TOPK)
         torch.cuda.synchronize()
         reps.append((time.perf_counter() - t0) * 1e3)
+    require(launches["refine_search"] == 1,
+            f"the search launched refine_search {launches} times, not once")
     _, _, rounds = search.search_plan_impl(idx, queries, k=TOPK)
-    require(rounds == launches["refine_topk"],
-            f"rounds {rounds} != refine launches {launches}")
-    device = profile_search(torch, index, queries, min(reps))
+    device = profile_search(torch, index, queries)
+    loop, row, loop_ctx = refine_report(torch, search, kmods["refine_search"],
+                                        ref, idx, queries, rounds)
 
     # the answers: finite, ascending, and the exact 10-NN by brute force
     q = isax.znormalize(queries).float()
@@ -540,8 +702,92 @@ def main_path(torch, api, isax, search, kmods, n, gen):
             "search_ms": search_ms, "search_ms_repeats": reps,
             "search_ms_per_query": min(reps) / Q, "rounds": rounds,
             "launches": launches, "near_ties": ties,
-            "pq_sort_ms": sort_ms, "device_time": device}, launches, (
-                index, q, d, ids)
+            "pq_sort_ms": sort_ms, "device_time": device,
+            "refinement": loop}, launches, (index, q, d, ids), row, loop_ctx
+
+
+def refine_report(torch, search, rk, ref, idx, queries, rounds):
+    """The main cell's refinement alone, outside the counted search: each
+    query's rounds and alive slots, the bound they set (search_work),
+    refine_search's time, on the longest query alone too, and the plain
+    version at this size, held to the kernel by hold_search.  Returns (the
+    report, the kernel table's row, (the inputs, the kernel's result))."""
+    q, q_sq, order, sorted_lb = refine_inputs(search, idx, queries)
+    args = (q, q_sq, idx.series, idx.sq_norms, order, sorted_lb)
+    got = run_loop(torch, rk, args)
+    require(int(got[2].max()) == rounds,
+            f"the search ran {rounds} rounds, its queries at most "
+            f"{int(got[2].max())}")
+    kw = dict(leaf_capacity=M, k=TOPK, round_leaves=K)
+    ms = time_ms(torch, lambda: rk.refine_search(*args, **kw), 3, warm=0)
+    t0 = time.perf_counter()
+    want = run_loop_ref(torch, ref, args)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    tol, true_d = search_tol(torch, idx, q, q_sq)
+    held = hold_search(torch, got, want, sorted_lb, true_d, tol,
+                       "refine_search main")
+    nbytes, flops, leaves, own = search_work(torch, idx, order, got[2],
+                                             got[3])
+    bms, by = bound_ms(nbytes, flops)
+    # the schedule's own cost, and the longest query alone: what no order
+    # of the queries can beat
+    work_ms = time_ms(torch, lambda: rk.estimated_work(*args, M, TOPK, K), 5)
+    i = got[2].argmax()[None]
+    one = tuple(a[i] for a in args[:2]) + args[2:4] + tuple(
+        a[i] for a in args[4:])
+    alone = time_ms(torch, lambda: rk.refine_search(*one, **kw), 2)
+    # CTAs a query: refine.cu's kCluster (8), cut to a divisor of K
+    report = {"cluster": math.gcd(8, K), "schedule_ms": work_ms,
+              "longest_query_alone_ms": alone,
+              "longest_query_rounds": int(got[2][i]),
+              "rounds_per_query": rounds_stats(got[2]),
+              "alive_slots": int(got[3].sum()), "alive_leaves": leaves,
+              "bytes": nbytes, "bound_ms": bms, "ms": ms,
+              "share_of_bound": bms / ms,
+              "per_query_leaf_bytes": own,
+              "per_query_leaf_ms_at_rate": own / HBM_BYTES_PER_S * 1e3,
+              "plain_ms": plain, "tol": tol, **held}
+    row = {"name": "refine_search", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/refine.cu",
+           "replaces": "src/repro/kernels/refine.py:139",
+           "shape": f"main cell: {idx.series.shape[0]} series, Q={Q} K={K} "
+                    f"M={M} L={L} k={TOPK}, f32",
+           "max_abs_err": held["max_abs_err"], "ms": ms, "plain_ms": plain,
+           "bound_ms": bms, "bound_by": by, "library_ms": None}
+    return report, row, (args, got)
+
+
+def rounds_phase(torch, ops, kmods, args, got):
+    """ops.refine_topk, repro's per-round kernel API, driven through the
+    global loop of rounds over the main cell's queue, as the search ran
+    before refine_search: the same buffers and rounds bit for bit."""
+    q, q_sq, series, sq_norms, order, sorted_lb = args
+    for mod in kmods.values():
+        mod.launches = 0
+    bd = torch.full((Q, TOPK), 1e30, device=DEV)
+    be = torch.zeros((Q, TOPK), dtype=torch.int32, device=DEV)
+    rounds = torch.zeros(Q, dtype=torch.int32, device=DEV)
+    t0 = time.perf_counter()
+    cursor = 0
+    while cursor < order.shape[1] and bool(
+            (sorted_lb[:, cursor] < bd[:, -1]).any()):
+        rounds += (sorted_lb[:, cursor] < bd[:, -1]).to(torch.int32)
+        alive = (sorted_lb[:, cursor:cursor + K] < bd[:, -1:]).contiguous()
+        bd, be = ops.refine_topk(q, q_sq, series, sq_norms,
+                                 order[:, cursor:cursor + K].contiguous(),
+                                 alive, bd, be, leaf_capacity=M, k=TOPK)
+        cursor += K
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {"refine_topk": kmods["refine_topk"].launches}
+    require(launches["refine_topk"] == cursor // K > 0,
+            f"refine_topk launches {launches} for {cursor // K} rounds")
+    require(torch.equal(bd, got[0]) and torch.equal(be, got[1])
+            and torch.equal(rounds, got[2]),
+            "the loop of refine_topk rounds and refine_search differ")
+    return {"phase": "rounds", "rounds": cursor // K, "wall_ms": wall,
+            "launches": launches}, launches
 
 
 def ed_argmin_chunked(torch, ref, q, xs, chunk=1 << 20):
@@ -687,26 +933,36 @@ def main() -> int:
                                                 gen)),
             ("refine_topk", check_refine, (isax, kmods["refine_topk"], ref,
                                            gen)),
+            ("refine_search", check_refine_search, (
+                api, search, kmods["refine_search"], ref, edge_gen)),
             ("ed_argmin", check_ed_argmin, (isax, kmods["ed_argmin"], ref,
                                             gen, edge_gen)),
             ("flash_attention", check_flash, (kmods["flash_attention"], ref,
                                               gen, edge_gen))):
         kmods[name].launches = 0
         r = check(torch, *args_)
+        torch.cuda.empty_cache()
         rows.append(r)
         emit({"phase": "kernel", **r, "launches": kmods[name].launches,
               "result": "PASS"})
     torch.cuda.empty_cache()
 
-    report, launches, (index, q, d, ids) = main_path(
-        torch, api, isax, search, kmods, args.series, gen)
+    report, launches, (index, q, d, ids), loop_row, (
+        loop_args, loop_out) = main_path(torch, api, isax, search, kmods,
+                                         ref, args.series, gen)
     emit(report)
+    rounds, more = rounds_phase(torch, ops, kmods, loop_args, loop_out)
+    emit(rounds)
+    launches |= more
+    del loop_args, loop_out
     scan, more = scan_phase(torch, ops, kmods, ref, index, q, d, ids,
                             min(report["search_ms_repeats"]))
     emit(scan)
     launches |= more
-    # the scan's own shape replaces the kernel phase's 2^20 in the table
-    rows = [scan["row"] if r["name"] == "ed_argmin" else r for r in rows]
+    # the scan's own shape replaces the kernel phase's 2^20 in the table,
+    # the main cell's refinement the kernel phase's 2^18
+    mains = {"ed_argmin": scan["row"], "refine_search": loop_row}
+    rows = [mains.get(r["name"], r) for r in rows]
     del index, q, d, ids
     torch.cuda.empty_cache()
     attn, more = attention_phase(torch, ops, kmods, ref, gen)

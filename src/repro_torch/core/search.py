@@ -7,12 +7,13 @@ The counterpart of `repro.core.search`'s local plan:
   the PQ      a stable ascending sort of the lower bounds per query, so
               ties go to the lower leaf index as `jax.lax.top_k` orders
               them;
-  refinement  rounds of K leaves per query through the refine_topk
-              kernel, each folding real distances into a per-query top-k
-              buffer.  The loop stops once no query's next unrefined
-              lower bound is below its k-th best distance, so the answer
-              is exact.  JAX's `while_loop` becomes a Python loop whose
-              condition is read on the host once per round;
+  refinement  rounds of K leaves per query, each folding real distances
+              into a per-query top-k buffer, until the query's next
+              unrefined lower bound is not below its k-th best distance,
+              so the answer is exact.  JAX's `while_loop` becomes one
+              launch of the refine_search kernel, in which each query
+              runs its own rounds; the batch's round count (the most any
+              query ran) is read on the host once per search;
   re-rank     the winners' distances recomputed in direct form.
 """
 
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.kernels.lb_distance import lb_distance
 from repro_torch.kernels.ref import BIG
-from repro_torch.kernels.refine import refine_topk
+from repro_torch.kernels.refine_search import refine_search
 
 from . import isax
 from .index import FlatIndex
@@ -68,22 +69,14 @@ def leaf_lower_bounds(idx: FlatIndex, q_paa: torch.Tensor,
                        series_len=series_len)
 
 
-def _refine_round(q, q_sq, series, sq_norms, ids, alive, bsf_d, bsf_e,
-                  *, M: int, k: int):
-    """One refinement round: distances of the addressed leaves' members,
-    pruned by `alive`, folded into the (Q, k) buffer."""
-    return refine_topk(q, q_sq, series, sq_norms, ids.contiguous(),
-                       alive.contiguous(), bsf_d, bsf_e, leaf_capacity=M,
-                       k=k)
-
-
 def search_plan_impl(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
                      round_leaves: int = 8, znorm: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Exact k-NN of `queries` (Q, L) over `idx`, on idx's device.
 
     Returns (dist, original_id, rounds): dist and ids are (Q, k) ascending
-    by distance; rounds is the number of refinement rounds run.  Slots
+    by distance; rounds is the number of refinement rounds the batch
+    runs, the most any of its queries runs, as repro counts them.  Slots
     with no series carry id -1 and distance sqrt(BIG).
     """
     L = idx.series.shape[1]
@@ -98,17 +91,9 @@ def search_plan_impl(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
     order, sorted_lb = _pq_order(lb, K, cap)
     del lb
 
-    bsf_d = torch.full((Q, k), BIG, dtype=torch.float32, device=q.device)
-    bsf_e = torch.zeros((Q, k), dtype=torch.int32, device=q.device)
-    cursor = 0
-    # PQ termination: stop when no query's best unrefined lb < its k-th BSF
-    while cursor < cap * K and bool(
-            (sorted_lb[:, cursor] < bsf_d[:, -1]).any()):
-        ids = order[:, cursor:cursor + K]
-        alive = sorted_lb[:, cursor:cursor + K] < bsf_d[:, -1:]
-        bsf_d, bsf_e = _refine_round(q, q_sq, idx.series, idx.sq_norms, ids,
-                                     alive, bsf_d, bsf_e, M=M, k=k)
-        cursor += K
+    bsf_d, bsf_e, rounds = refine_search(
+        q, q_sq, idx.series, idx.sq_norms, order, sorted_lb,
+        leaf_capacity=M, k=k, round_leaves=K)
 
     # the top-k set is exact; the matmul-form distance loses ~1e-3 absolute
     # to f32 cancellation.  Recompute the winners' distances in direct form
@@ -121,7 +106,7 @@ def search_plan_impl(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
     resort = torch.argsort(d, dim=1, stable=True)
     d = torch.gather(d, 1, resort).sqrt()
     ids = torch.gather(ids, 1, resort)
-    return d, ids, cursor // K
+    return d, ids, int(rounds.max()) if Q else 0
 
 
 def squeeze_k(d: torch.Tensor, i: torch.Tensor, k: int):

@@ -4,6 +4,7 @@
     lb_distance     — batched MINDIST over leaf regions (pruning)
     ed_argmin       — exact 1-NN scan, min/argmin in matmul form
     refine          — one refinement round: gather + distances + top-k fold
+    refine_search   — every refinement round of a search in one launch
     flash_attention — causal / sliding-window GQA attention
 
 ops.py holds the entry points (as repro.kernels.ops does), re-exported

@@ -1,24 +1,33 @@
-// One refinement round of the exact k-NN search: for every query, the
-// squared distances to the members of the K leaves its priority queue
-// hands out this round, folded into the query's carried top-k buffer.
+// The refinement of the exact k-NN search, in two kernels.
 //
-// Replaces the Pallas kernels `_refine_kernel`, `_refine_kernel_dma` and
+// refine_topk: one round.  For every query, the squared distances to the
+// members of the K leaves its priority queue hands out this round, folded
+// into the query's carried top-k buffer.
+//
+// refine_search: every round of a search in one launch.  Each query runs
+// its own rounds until its own stop (its next lower bound is not below
+// its k-th best), which gives the buffer of the global loop: once a
+// query's first slot of a round is dead, all its later slots are dead
+// (the queue ascends, the k-th best never grows) and its buffer stays.
+//
+// Replace the Pallas kernels `_refine_kernel`, `_refine_kernel_dma` and
 // `_refine_kernel_triton` of src/repro/kernels/refine.py (wrapper
-// `refine_topk`), which compute one function in three structures, and
-// their fold `_rank_select`.
+// `refine_topk`), which compute one round in three structures, and their
+// fold `_rank_select`; refine_search also takes the place of the
+// `while_loop` of src/repro/core/search.py::search_plan_impl.
 //
 // Bound on this card: device memory, on the leaf bytes of the alive
-// slots (alive slots * M * L * sizeof(T)).  Each leaf row is used once
-// per query, so the dot products (2 * L flops per row) cannot hide the
-// reads; the fold is O((k + M)^2) compares on data already in shared
+// slots (alive slots * M * (L * sizeof(T) + 4)).  Each leaf row is used
+// once per query, so the dot products (2 * L flops per row) cannot hide
+// the reads; the fold is O((k + M)^2) compares on data already in shared
 // memory.
 //
-// Design: one block per query row walks that row's K slots in turn.  The
-// query, its norm and the (k) buffer stay in shared memory.  A dead slot
-// reads nothing.  For an alive slot the block's warps take the leaf's M
-// rows; a lane reads 16 bytes of a row at a time (4 floats or 8 halves)
-// at the stored width, and the warp reduces q.x in float32 by
-// xor-shuffles.  d^2 = max((q_sq + |x|^2) - 2 q.x, 0), rounded step by
+// refine_topk's design: one block per query row walks that row's K slots
+// in turn.  The query, its norm and the (k) buffer stay in shared memory.
+// A dead slot reads nothing.  For an alive slot the block's warps take the
+// leaf's M rows; a lane reads 16 bytes of a row at a time (4 floats or 8
+// halves) at the stored width, and the warp reduces q.x in float32 by
+// xor-shuffles, four rows at once (warp_d2).  d^2 = max((q_sq + |x|^2) - 2 q.x, 0), rounded step by
 // step as the plain version writes it.  The fold ranks the union of the
 // k buffer slots and the M candidates:
 //   rank(e) = #{f : d_f < d_e or (d_f == d_e and f < e)},
@@ -26,11 +35,37 @@
 // thread of an element of rank < k writes it to that slot.  Folding the
 // slots one after another gives the ties of one global fold over all
 // K * M candidates, lower union index first, as `jax.lax.top_k` does.
+//
+// refine_search's design (namespace `search` below): a persistent grid of
+// thread-block clusters of C CTAs, each cluster pulling queries from an
+// atomic counter, in the order of a schedule the wrapper gives (the heaviest
+// first, so that no long query starts last).  A query's slot j goes to CTA j
+// mod C.  Each CTA fetches its alive slots' leaves (rows, then their norms)
+// with 1-D bulk copies into a ring of shared-memory stages, completing on
+// mbarriers, ahead of use: a slot is fetched if its lower bound is below the
+// k-th best of the moment, which can only fall, so an alive slot is always
+// fetched and a prefetched slot found dead at its round's start is dropped
+// unread.  The queue entries of the next rounds wait in shared memory, read a
+// few rounds ahead.  The warps reduce q.x from shared memory through
+// refine_topk's own code (warp_d2), so the distances, the buffers and the
+// round counts are refine_topk's bit for bit.  After one cluster barrier a
+// round, every CTA reads all K slots' distances over distributed shared
+// memory and folds them itself, in union order, so all CTAs hold the same
+// buffer and take the same stop, and no cluster barrier is left waiting.  The
+// fold first asks each slot's minimum (the common late round changes
+// nothing), then ranks only the candidates below the k-th best with the rule
+// above (fold); the others cannot enter.  Distances are double-buffered by
+// round parity, so no CTA overwrites what another still reads.
+
+#include <algorithm>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -42,6 +77,82 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 __device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+
+constexpr int kUnroll = 4;           // rows a warp reduces at once
+
+// d^2 of the rows r1, r1 + kWarps, ... (kUnroll of them, those below n)
+// of the rows at `rows`, each reduced by this warp: a lane sums q.x over
+// its 16-byte pieces lane, lane + 32, ... in order, the warp adds the
+// lanes by xor-shuffles, and lane 0 writes d^2 = max((q_sq + |x|^2) -
+// 2 q.x, 0), rounded step by step as the plain version writes it, to
+// out[r] (xn[r] holds |x|^2).  Both kernels take their distances from
+// here, so they agree bit for bit.  Returns lane 0's least d^2.
+template <typename T>
+__device__ __forceinline__ float warp_d2(const T* rows, int L, int r1, int n,
+                                         const float* q_s, float qsq,
+                                         const float* xn, float* out,
+                                         int lane) {
+  constexpr int kVec = 16 / sizeof(T);           // values per 16-byte load
+  const uint4* x = reinterpret_cast<const uint4*>(rows);
+  float dot[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) dot[u] = 0.f;
+  for (int c = lane; c < L / kVec; c += 32) {
+    const float4* qv = reinterpret_cast<const float4*>(q_s + c * kVec);
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (r1 + u * kWarps >= n) break;
+      const uint4 raw = x[(size_t)(r1 + u * kWarps) * (L / kVec) + c];
+      const T* t = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int i = 0; i < kVec / 4; ++i) {
+        const float4 qq = qv[i];
+        dot[u] += to_f32(t[4 * i]) * qq.x;
+        dot[u] += to_f32(t[4 * i + 1]) * qq.y;
+        dot[u] += to_f32(t[4 * i + 2]) * qq.z;
+        dot[u] += to_f32(t[4 * i + 3]) * qq.w;
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      dot[u] += __shfl_xor_sync(0xffffffffu, dot[u], off);
+  float least = 1e30f;
+  if (lane == 0) {
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int r = r1 + u * kWarps;
+      if (r >= n) break;
+      const float s = __fadd_rn(qsq, xn[r]);
+      out[r] = fmaxf(__fsub_rn(s, __fmul_rn(2.f, dot[u])), 0.f);
+      least = fminf(least, out[r]);
+    }
+  }
+  return least;
+}
+
+// The k smallest of the union [buffer (bd, be: k), candidates (cd, ce:
+// n)] into nd, ne, by the rank rule above; the block's threads share the
+// union's elements.
+__device__ __forceinline__ void fold(const float* bd, const int* be,
+                                     const float* cd, const int* ce, int k,
+                                     int n, float* nd, int* ne, int tid) {
+  const int U = k + n;
+  for (int e = tid; e < U; e += kThreads) {
+    const float de = e < k ? bd[e] : cd[e - k];
+    int rank = 0;
+    for (int f = 0; f < U; ++f) {
+      const float df = f < k ? bd[f] : cd[f - k];
+      rank += (df < de) | ((df == de) & (f < e));
+    }
+    if (rank < k) {
+      nd[rank] = de;
+      ne[rank] = e < k ? be[e] : ce[e - k];
+    }
+  }
+}
 
 template <typename T>
 __global__ void refine_kernel(const float* __restrict__ q,
@@ -58,10 +169,11 @@ __global__ void refine_kernel(const float* __restrict__ q,
   extern __shared__ float smem[];
   float* q_s = smem;                              // L
   float* cand_d = q_s + L;                        // M
-  float* bd = cand_d + M;                         // the buffer: k + k
-  int* be = reinterpret_cast<int*>(cand_d + M + k);
-  float* nd = cand_d + M + 2 * k;                 // the next buffer
-  int* ne = reinterpret_cast<int*>(cand_d + M + 3 * k);
+  int* cand_e = reinterpret_cast<int*>(cand_d + M);   // M
+  float* bd = cand_d + 2 * M;                     // the buffer: k + k
+  int* be = reinterpret_cast<int*>(bd + k);
+  float* nd = bd + 2 * k;                         // the next buffer
+  int* ne = reinterpret_cast<int*>(bd + 3 * k);
 
   const int row = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -73,50 +185,15 @@ __global__ void refine_kernel(const float* __restrict__ q,
   const float qsq = q_sq[row];
   __syncthreads();
 
-  constexpr int kVec = 16 / sizeof(T);           // values per 16-byte load
-  const int U = k + M;
   for (int j = 0; j < K; ++j) {
     if (!alive[(long long)row * K + j]) continue;  // uniform over the block
     const long long first = (long long)leaf_ids[(long long)row * K + j] * M;
-
-    for (int r = warp; r < M; r += kWarps) {
-      const uint4* x = reinterpret_cast<const uint4*>(series + (first + r) * L);
-      float dot = 0.f;
-      for (int c = lane; c < L / kVec; c += 32) {
-        const uint4 raw = x[c];
-        const T* t = reinterpret_cast<const T*>(&raw);
-        const float4* qv = reinterpret_cast<const float4*>(q_s + c * kVec);
-#pragma unroll
-        for (int i = 0; i < kVec / 4; ++i) {
-          const float4 qq = qv[i];
-          dot += to_f32(t[4 * i]) * qq.x;
-          dot += to_f32(t[4 * i + 1]) * qq.y;
-          dot += to_f32(t[4 * i + 2]) * qq.z;
-          dot += to_f32(t[4 * i + 3]) * qq.w;
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (lane == 0) {
-        const float s = __fadd_rn(qsq, sq_norms[first + r]);
-        cand_d[r] = fmaxf(__fsub_rn(s, __fmul_rn(2.f, dot)), 0.f);
-      }
-    }
+    for (int r = warp; r < M; r += kUnroll * kWarps)
+      warp_d2<T>(series + first * L, L, r, M, q_s, qsq, sq_norms + first,
+                 cand_d, lane);
+    for (int r = tid; r < M; r += kThreads) cand_e[r] = (int)(first + r);
     __syncthreads();
-
-    for (int e = tid; e < U; e += kThreads) {
-      const float de = e < k ? bd[e] : cand_d[e - k];
-      int rank = 0;
-      for (int f = 0; f < U; ++f) {
-        const float df = f < k ? bd[f] : cand_d[f - k];
-        rank += (df < de) | ((df == de) & (f < e));
-      }
-      if (rank < k) {
-        nd[rank] = de;
-        ne[rank] = e < k ? be[e] : (int)(first + (e - k));
-      }
-    }
+    fold(bd, be, cand_d, cand_e, k, M, nd, ne, tid);
     float* td = bd; bd = nd; nd = td;       // every thread swaps alike
     int* te = be; be = ne; ne = te;
     __syncthreads();
@@ -134,7 +211,7 @@ cudaError_t launch(const float* q, const float* q_sq, const void* series,
                    const float* bsf_d, const int* bsf_e, float* out_d,
                    int* out_e, int Q, int L, int K, int M, int k,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)L + M + 4 * (size_t)k);
+  const size_t smem = sizeof(float) * ((size_t)L + 2 * M + 4 * (size_t)k);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         refine_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -146,6 +223,361 @@ cudaError_t launch(const float* q, const float* q_sq, const void* series,
       bsf_e, out_d, out_e, L, K, M, k);
   return cudaGetLastError();
 }
+
+
+namespace search {
+
+namespace cg = cooperative_groups;
+
+// C = 8 CTAs a query (cut to the largest power of two dividing K), shared
+// memory sized for 3 CTAs an SM: the fastest of C in {1, 2, 4, 8} and 1 to 3
+// CTAs an SM on the main cell of chip_smoke.py (PERF.md).
+constexpr int kCluster = 8;
+constexpr int kBlocksPerSM = 3;
+constexpr int kMaxStages = 4;
+constexpr int kInfo = 4;             // rounds of queue entries in smem
+constexpr int kSmemMax = 232448;     // what a block may take on sm_90
+constexpr int kSmemSM = 233472;      // an SM's, 1 KB of it per block kept
+constexpr float kBig = 1e30f;
+
+struct Params {
+  const float* q;
+  const float* q_sq;
+  const void* series;
+  const float* sq_norms;
+  const int* order;
+  const float* sorted_lb;
+  float* out_d;
+  int* out_e;
+  int* rounds;
+  int* alive;
+  int* next_query;
+  const int* schedule;   // the order in which queries are taken
+  int Q, L, K, M, k, cols;
+  int J;            // own slots a round: K / C
+  int rows;         // leaf rows a stage holds
+  int chunks;       // stages a leaf takes: ceil(M / rows)
+  int stages;
+  int n_it;         // ceil(K * M / kThreads)
+  uint32_t stage_bytes, norm_off;
+  uint32_t off_bar, off_misc, off_q, off_cand, off_min, off_bd, off_be,
+      off_nd, off_ne, off_ld, off_le, off_lb, off_leaf, off_cnt, off_ring;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* series = static_cast<const T*>(p.series);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + p.off_bar);
+  int* misc = reinterpret_cast<int*>(smem + p.off_misc);   // query, count
+  float* q_s = reinterpret_cast<float*>(smem + p.off_q);
+  float* cand = reinterpret_cast<float*>(smem + p.off_cand);   // [2][J][M]
+  int* smin = reinterpret_cast<int*>(smem + p.off_min);  // [2][J] f32 bits
+  float* bd = reinterpret_cast<float*>(smem + p.off_bd);
+  int* be = reinterpret_cast<int*>(smem + p.off_be);
+  float* nd = reinterpret_cast<float*>(smem + p.off_nd);
+  int* ne = reinterpret_cast<int*>(smem + p.off_ne);
+  float* ld = reinterpret_cast<float*>(smem + p.off_ld);  // passing cands
+  int* le = reinterpret_cast<int*>(smem + p.off_le);
+  // the queue entries of rounds r .. r + kInfo - 1, round i at i % kInfo
+  float* s_lb = reinterpret_cast<float*>(smem + p.off_lb);
+  int* s_leaf = reinterpret_cast<int*>(smem + p.off_leaf);
+  int* cnt = reinterpret_cast<int*>(smem + p.off_cnt);
+  uint8_t* ring = smem + p.off_ring;
+
+  if (tid == 0) {
+    for (int i = 0; i < p.stages; ++i) sm90::mbar_init(&bar[i], 1);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int cap = p.cols / p.K;
+  const long long own_chunks = (long long)cap * p.J * p.chunks;
+  long long fetched = 0;        // copies of earlier queries, all completed
+  for (;;) {
+    if (rank == 0 && tid == 0) {
+      const int t = atomicAdd(p.next_query, 1);
+      misc[0] = t < p.Q ? p.schedule[t] : p.Q;
+    }
+    cluster.sync();
+    const int qi = *cluster.map_shared_rank(misc, 0);
+    cluster.sync();             // read by all: rank 0 may move on
+    if (qi >= p.Q) break;
+
+    const float* lbrow = p.sorted_lb + (long long)qi * p.cols;
+    const int* idrow = p.order + (long long)qi * p.cols;
+    for (int i = tid; i < p.L; i += kThreads)
+      q_s[i] = p.q[(long long)qi * p.L + i];
+    for (int i = tid; i < p.k; i += kThreads) {
+      bd[i] = kBig;
+      be[i] = 0;
+    }
+    for (int i = tid; i < kInfo * p.K; i += kThreads) {
+      s_lb[i] = i < p.cols ? lbrow[i] : kBig;
+      s_leaf[i] = i < p.cols ? idrow[i] : 0;
+    }
+    const float qsq = p.q_sq[qi];
+    __syncthreads();
+
+    float kth = kBig;           // bd[k - 1], the same in every thread
+    long long issued = 0;       // own chunks issued: always a prefix
+    bool dead = false;          // an own slot was dead when reached
+    // Issue the own chunks before `upto` while their slot's lower bound
+    // is below the k-th best of the moment; the first dead slot ends it.
+    auto produce = [&](long long upto) {
+      if (upto > own_chunks) upto = own_chunks;
+      while (!dead && issued < upto) {
+        const int s = (int)(issued / p.chunks), c = (int)(issued % p.chunks);
+        // within kInfo rounds of the consumer's: upto <= its chunk + stages
+        const int at = (s / p.J) % kInfo * p.K + rank + C * (s % p.J);
+        if (c == 0 && !(s_lb[at] < kth)) {
+          dead = true;
+          break;
+        }
+        if (tid == 0) {
+          const long long g = fetched + issued;
+          uint64_t* b = &bar[g % p.stages];
+          uint8_t* dst = ring + (size_t)(g % p.stages) * p.stage_bytes;
+          const int r0 = c * p.rows, nr = min(p.rows, p.M - r0);
+          const long long row0 = (long long)s_leaf[at] * p.M + r0;
+          // the norms as a 16-byte aligned window around the rows'
+          const long long w0 = row0 & ~3ll, w1 = (row0 + nr + 3) & ~3ll;
+          const uint32_t xb = (uint32_t)(nr * p.L * sizeof(T));
+          const uint32_t nb = (uint32_t)((w1 - w0) * 4);
+          sm90::mbar_expect_tx(b, xb + nb);
+          sm90::bulk_load(dst, series + row0 * p.L, xb, b);
+          sm90::bulk_load(dst + p.norm_off, p.sq_norms + w0, nb, b);
+        }
+        ++issued;
+      }
+    };
+
+    int r = 0, n_alive = 0;
+    while (r < cap && s_lb[r % kInfo * p.K] < kth) {
+      const int par = r & 1;
+      const float* lb_r = s_lb + r % kInfo * p.K;
+      const int* leaf_r = s_leaf + r % kInfo * p.K;
+      float* my_cand = cand + par * p.J * p.M;
+      for (int i = tid; i < p.J; i += kThreads)
+        smin[par * p.J + i] = __float_as_int(kBig);
+      if (tid == 0)
+        for (int j = 0; j < p.K; ++j) n_alive += lb_r[j] < kth;
+      // round r + kInfo's entry of slot tid, read meanwhile (any slots
+      // past kThreads are read when they are stored)
+      float nlb = kBig;
+      int nid = 0;
+      if (tid < p.K && r + kInfo < cap) {
+        nlb = lbrow[(long long)(r + kInfo) * p.K + tid];
+        nid = idrow[(long long)(r + kInfo) * p.K + tid];
+      }
+      if (tid == 0 && r + 16 < cap) {   // the queue's lines, ahead, in L2
+        sm90::prefetch_l2(lbrow + (long long)(r + 16) * p.K);
+        sm90::prefetch_l2(idrow + (long long)(r + 16) * p.K);
+      }
+      __syncthreads();
+
+      for (int pp = 0; pp < p.J; ++pp) {
+        const int j = rank + C * pp;
+        const bool alive = lb_r[j] < kth;
+        const long long first = (long long)leaf_r[j] * p.M;
+        const long long s = (long long)r * p.J + pp;
+        for (int c = 0; c < p.chunks; ++c) {
+          const long long g = s * p.chunks + c;
+          produce(g + p.stages);
+          if (g < issued) {     // wait for it even if it died meanwhile
+            const long long gg = fetched + g;
+            sm90::mbar_wait(&bar[gg % p.stages],
+                            (uint32_t)((gg / p.stages) & 1));
+            if (alive) {
+              const uint8_t* st =
+                  ring + (size_t)(gg % p.stages) * p.stage_bytes;
+              const int r0 = c * p.rows, nr = min(p.rows, p.M - r0);
+              const float* xn = reinterpret_cast<const float*>(st + p.norm_off)
+                                + ((first + r0) & 3);
+              for (int r1 = warp; r1 < nr; r1 += kUnroll * kWarps) {
+                const float least = warp_d2<T>(
+                    reinterpret_cast<const T*>(st), p.L, r1, nr, q_s, qsq, xn,
+                    my_cand + pp * p.M + r0, lane);
+                if (lane == 0)
+                  atomicMin(&smin[par * p.J + pp], __float_as_int(least));
+              }
+            }
+          } else if (alive) {
+            __trap();           // an alive slot is always issued
+          }
+          __syncthreads();      // the stage is free, the distances written
+        }
+      }
+
+      cluster.sync();           // every CTA's distances of round r are in
+      bool any = false;         // an alive slot's minimum below the k-th?
+      for (int j = tid; j < p.K; j += kThreads)
+        if (lb_r[j] < kth) {
+          const int* m = cluster.map_shared_rank(smin, j % C);
+          any |= __int_as_float(m[par * p.J + j / C]) < kth;
+        }
+      if (__syncthreads_or(any)) {
+        const int KM = p.K * p.M;
+        // the candidates below the k-th best, in union (slot, row) order
+        for (int pass2 = 0; pass2 < 2; ++pass2) {
+          for (int it = 0; it < p.n_it; ++it) {
+            const int e = it * kThreads + tid;
+            bool ok = false;
+            float d = 0.f;
+            int j = 0;
+            if (e < KM) {
+              j = e / p.M;
+              if (lb_r[j] < kth) {
+                const float* rc = cluster.map_shared_rank(cand, j % C);
+                d = rc[(par * p.J + j / C) * p.M + e % p.M];
+                ok = d < kth;
+              }
+            }
+            const unsigned b = __ballot_sync(0xffffffffu, ok);
+            if (!pass2) {
+              if (lane == 0) cnt[it * kWarps + warp] = __popc(b);
+            } else if (ok) {
+              const int at = cnt[it * kWarps + warp] +
+                             __popc(b & ((1u << lane) - 1));
+              ld[at] = d;
+              le[at] = leaf_r[j] * p.M + e % p.M;
+            }
+          }
+          __syncthreads();
+          if (!pass2 && tid == 0) {       // exclusive prefix of the counts
+            int run = 0;
+            for (int i = 0; i < p.n_it * kWarps; ++i) {
+              const int n = cnt[i];
+              cnt[i] = run;
+              run += n;
+            }
+            misc[1] = run;
+          }
+          __syncthreads();
+        }
+        fold(bd, be, ld, le, p.k, misc[1], nd, ne, tid);
+        __syncthreads();
+        float* td = bd; bd = nd; nd = td;   // every thread swaps alike
+        int* te = be; be = ne; ne = te;
+        kth = bd[p.k - 1];
+      }
+      __syncthreads();          // this round's entries are read
+      for (int j = tid; j < p.K; j += kThreads) {
+        const long long at = (long long)(r + kInfo) * p.K + j;
+        const bool more = r + kInfo < cap;
+        s_lb[r % kInfo * p.K + j] = j == tid ? nlb : more ? lbrow[at] : kBig;
+        s_leaf[r % kInfo * p.K + j] = j == tid ? nid : more ? idrow[at] : 0;
+      }
+      __syncthreads();
+      ++r;
+    }
+
+    // copies issued past the stop land before their stages are reused
+    const long long used = min(issued, (long long)r * p.J * p.chunks);
+    for (long long g = used; g < issued; ++g) {
+      const long long gg = fetched + g;
+      sm90::mbar_wait(&bar[gg % p.stages], (uint32_t)((gg / p.stages) & 1));
+    }
+    fetched += issued;
+    if (rank == 0) {
+      for (int i = tid; i < p.k; i += kThreads) {
+        p.out_d[(long long)qi * p.k + i] = bd[i];
+        p.out_e[(long long)qi * p.k + i] = be[i];
+      }
+      if (tid == 0) {
+        p.rounds[qi] = r;
+        p.alive[qi] = n_alive;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+inline uint32_t take(uint32_t& off, uint32_t bytes, uint32_t align) {
+  off = (off + align - 1) / align * align;
+  const uint32_t at = off;
+  off += bytes;
+  return at;
+}
+
+// Shared memory: the fixed parts, then a ring of stages, each `rows` leaf
+// rows and their norms' window (rows + 6 floats at most), as many stages
+// as fit beside `blocks` - 1 other CTAs on the SM, up to kMaxStages; a
+// leaf that leaves no room for two stages is cut into chunks of `rows`
+// rows.
+inline cudaError_t layout(Params& p, int C, int blocks, int elem,
+                          size_t* smem) {
+  p.J = p.K / C;
+  p.n_it = (p.K * p.M + kThreads - 1) / kThreads;
+  uint32_t off = 0;
+  p.off_bar = take(off, 8 * kMaxStages, 8);
+  p.off_misc = take(off, 16, 16);
+  p.off_q = take(off, 4u * p.L, 16);
+  p.off_cand = take(off, 4u * 2 * p.J * p.M, 16);
+  p.off_min = take(off, 4u * 2 * p.J, 4);
+  p.off_bd = take(off, 4u * p.k, 4);
+  p.off_be = take(off, 4u * p.k, 4);
+  p.off_nd = take(off, 4u * p.k, 4);
+  p.off_ne = take(off, 4u * p.k, 4);
+  p.off_ld = take(off, 4u * p.K * p.M, 4);
+  p.off_le = take(off, 4u * p.K * p.M, 4);
+  p.off_lb = take(off, 4u * kInfo * p.K, 4);
+  p.off_leaf = take(off, 4u * kInfo * p.K, 4);
+  p.off_cnt = take(off, 4u * p.n_it * kWarps, 4);
+  p.off_ring = take(off, 0, 128);
+  const long long row_bytes = (long long)p.L * elem;
+  const long long room =
+      (long long)std::min(kSmemMax, kSmemSM / blocks - 1024) - p.off_ring;
+  auto stage = [&](long long rows) {
+    return rows * row_bytes + (rows + 9) / 4 * 16;
+  };
+  long long rows = p.M;
+  while (rows > 1 && 2 * stage(rows) > room) rows = (rows + 1) / 2;
+  if (room < 0 || 2 * stage(rows) > room) return cudaErrorInvalidValue;
+  p.rows = (int)rows;
+  p.chunks = (int)((p.M + rows - 1) / rows);
+  p.stages = (int)std::min<long long>(kMaxStages, room / stage(rows));
+  p.stage_bytes = (uint32_t)stage(rows);
+  p.norm_off = (uint32_t)(rows * row_bytes);
+  *smem = p.off_ring + (size_t)p.stages * p.stage_bytes;
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch(Params p, int C, int blocks, cudaStream_t stream) {
+  size_t smem = 0;
+  cudaError_t err = layout(p, C, blocks, (int)sizeof(T), &smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(search_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, search_kernel<T>, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  cfg.gridDim = dim3(C * std::min(clusters, p.Q));
+  err = cudaLaunchKernelEx(&cfg, search_kernel<T>, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+}  // namespace search
 
 }  // namespace
 
@@ -180,5 +612,56 @@ extern "C" int refine_topk(const void* q, const void* q_sq,
 }
 
 extern "C" const char* refine_topk_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Every refinement round of a search: q (Q, L) f32, q_sq (Q,), series
+// (n, L) of `dtype` with L * sizeof(dtype) a multiple of 16, sq_norms
+// (a multiple of 4 entries, 16-byte aligned), order / sorted_lb (Q, cols)
+// with cols = rounds * K; schedule (Q,) int32, a permutation of 0..Q-1;
+// out_d / out_e (Q, k), rounds and alive (Q,) int32; counter one int32
+// set to 0.  The wrapper checks the shapes.
+extern "C" int refine_search(const void* q, const void* q_sq,
+                             const void* series, int dtype,
+                             const void* sq_norms, const void* order,
+                             const void* sorted_lb, const void* schedule,
+                             void* out_d, void* out_e, void* rounds,
+                             void* alive, void* counter, int Q,
+                             int L, int K, int M, int k, int cols,
+                             void* stream) {
+  if (Q == 0) return 0;
+  if (K < 1 || cols % K) return (int)cudaErrorInvalidValue;
+  int C = search::kCluster;
+  while (K % C) C /= 2;
+  const int blocks = search::kBlocksPerSM;
+  search::Params p = {};
+  p.q = static_cast<const float*>(q);
+  p.q_sq = static_cast<const float*>(q_sq);
+  p.series = series;
+  p.sq_norms = static_cast<const float*>(sq_norms);
+  p.order = static_cast<const int*>(order);
+  p.sorted_lb = static_cast<const float*>(sorted_lb);
+  p.out_d = static_cast<float*>(out_d);
+  p.out_e = static_cast<int*>(out_e);
+  p.rounds = static_cast<int*>(rounds);
+  p.alive = static_cast<int*>(alive);
+  p.next_query = static_cast<int*>(counter);
+  p.schedule = static_cast<const int*>(schedule);
+  p.Q = Q;
+  p.L = L;
+  p.K = K;
+  p.M = M;
+  p.k = k;
+  p.cols = cols;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return (int)search::launch<float>(p, C, blocks, s);
+    case 1: return (int)search::launch<__nv_bfloat16>(p, C, blocks, s);
+    case 2: return (int)search::launch<__half>(p, C, blocks, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* refine_search_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the tensor-core kernels (ed_argmin.cu,
-// flash_attention.cu): shared-memory barriers (mbarrier), TMA tile loads,
+// flash_attention.cu) and the refinement loop (refine.cu): shared-memory
+// barriers (mbarrier), TMA tile loads and 1-D bulk copies,
 // wgmma descriptors and instructions, warpgroup register hand-over, and the
 // host-side encoding of TMA tensor maps.  sm_90a only.
 //
@@ -68,6 +69,23 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ------------------------------------------------------------------ TMA
+// 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global memory to this CTA's shared memory, completing on
+// `bar` (whose phase was armed with mbar_expect_tx for these bytes).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Ask for the 128-byte line holding `p` to be brought into L2.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
+}
+
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1) {
   asm volatile(

@@ -10,7 +10,9 @@ kernel), and attention's `block_q` (repro's query tiling, which changes
 no result; the CUDA kernel masks a ragged T, so any T >= 1 is taken).
 
 `WRAPPERS` maps each entry point to its wrapper module, whose `launches`
-counts its kernel's launches.
+counts its kernel's launches, and "refine_search" (the whole refinement
+of a search, which the search calls in place of a loop of refine_topk
+rounds) to its own wrapper module.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from .refine import refine_topk as _refine_topk
 WRAPPERS = {name: import_module(f"{__package__}.{mod}") for name, mod in (
     ("summarize", "isax_summarize"), ("lb_distance", "lb_distance"),
     ("ed_argmin", "ed_argmin"), ("refine_topk", "refine"),
+    ("refine_search", "refine_search"),
     ("flash_attention", "flash_attention"))}
 
 

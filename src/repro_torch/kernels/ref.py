@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the five CUDA kernels.
+"""Plain PyTorch versions of the CUDA kernels.
 
 Each function computes what its CUDA kernel computes, with ordinary torch
 operations.  They are the CPU path of the kernel wrappers and, on the
@@ -80,6 +80,46 @@ def refine_topk_ref(q: torch.Tensor, q_sq: torch.Tensor,
     alle = torch.cat([bsf_e, entry.to(torch.int32)], dim=1)
     d, pos = torch.sort(alld, dim=1, stable=True)
     return d[:, :k].contiguous(), torch.gather(alle, 1, pos[:, :k])
+
+
+def refine_search_ref(q: torch.Tensor, q_sq: torch.Tensor,
+                      series: torch.Tensor, sq_norms: torch.Tensor,
+                      order: torch.Tensor, sorted_lb: torch.Tensor, *,
+                      leaf_capacity: int, k: int, round_leaves: int,
+                      alive_out: torch.Tensor | None = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The whole refinement of the exact search: the host loop of rounds.
+
+    order/sorted_lb: (Q, cap * K) priority queue, leaf ids ascending in
+    lower bound (padding at lb = BIG).  From the empty buffer, each round
+    takes the next K slots, keeps those whose lb is below the round-start
+    k-th best, and folds them with `refine_topk_ref`; the loop stops once
+    no query's next lb is below its k-th best, or the queue ends.
+    -> (bsf_d, bsf_e, rounds): the (Q, k) buffer and, per query, the
+    rounds in which its first slot was alive, i.e. the rounds a loop of
+    its own would run.  The batch runs max(rounds) rounds.  `alive_out`,
+    a (Q,) int32 tensor if given, receives each query's alive slots.
+    """
+    Q, K = q.shape[0], round_leaves
+    bsf_d = torch.full((Q, k), BIG, dtype=torch.float32, device=q.device)
+    bsf_e = torch.zeros((Q, k), dtype=torch.int32, device=q.device)
+    rounds = torch.zeros(Q, dtype=torch.int32, device=q.device)
+    n_alive = torch.zeros(Q, dtype=torch.int32, device=q.device)
+    cursor = 0
+    while cursor < order.shape[1]:
+        live = sorted_lb[:, cursor] < bsf_d[:, -1]
+        if not bool(live.any()):
+            break
+        alive = sorted_lb[:, cursor:cursor + K] < bsf_d[:, -1:]
+        bsf_d, bsf_e = refine_topk_ref(
+            q, q_sq, series, sq_norms, order[:, cursor:cursor + K], alive,
+            bsf_d, bsf_e, leaf_capacity=leaf_capacity, k=k)
+        rounds += live.to(torch.int32)
+        n_alive += alive.sum(1, dtype=torch.int32)
+        cursor += K
+    if alive_out is not None:
+        alive_out.copy_(n_alive)
+    return bsf_d, bsf_e, rounds
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,6 +4,8 @@ On CUDA tensors `refine_topk` launches the kernel of `csrc/refine.cu`,
 which reads only the alive leaves, at their stored width, and never
 materializes the (Q, K*M, L) gather.  On CPU tensors it runs the plain
 version `ref.refine_topk_ref`.  `launches` counts the kernel's launches.
+Every round of a search in one launch is `refine_search.py`'s, whose
+input checks are the ones below.
 """
 
 from __future__ import annotations
@@ -23,27 +25,23 @@ _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 7
              + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
-def _check(q, q_sq, series, sq_norms, leaf_ids, alive, bsf_d, bsf_e,
-           M: int, k: int) -> None:
+def _dims(q, series, M: int, k: int, K: int):
+    """(Q, L) of q, once the sizes both refine kernels take hold."""
     if q.dim() != 2:
         raise ValueError(f"q must be (Q, L), got {tuple(q.shape)}")
     Q, L = q.shape
-    if leaf_ids.dim() != 2 or leaf_ids.shape[0] != Q:
-        raise ValueError(f"leaf_ids must be (Q, K), got "
-                         f"{tuple(leaf_ids.shape)}")
-    K = leaf_ids.shape[1]
-    if M < 1 or k < 1:
-        raise ValueError(f"need leaf_capacity >= 1 and k >= 1, got {M}, {k}")
+    if M < 1 or k < 1 or K < 1:
+        raise ValueError(f"need leaf_capacity, k and K >= 1, got {M}, {k}, "
+                         f"{K}")
     if series.dim() != 2 or series.shape[1] != L or series.shape[0] % M:
         raise ValueError(f"series must be (n_leaves * {M}, {L}), got "
                          f"{tuple(series.shape)}")
-    want = {"q_sq": (q_sq, (Q,), torch.float32),
-            "sq_norms": (sq_norms, (series.shape[0],), torch.float32),
-            "alive": (alive, (Q, K), torch.bool),
-            "leaf_ids": (leaf_ids, (Q, K), torch.int32),
-            "bsf_d": (bsf_d, (Q, k), torch.float32),
-            "bsf_e": (bsf_e, (Q, k), torch.int32),
-            "q": (q, (Q, L), torch.float32)}
+    return Q, L
+
+
+def _check_tensors(what: str, q, series, want: dict) -> None:
+    """Each of `want` ({name: (tensor, shape, dtype)}) as it says, series
+    of a dtype the kernels read, and all contiguous on q's device."""
     for name, (t, shape, dtype) in want.items():
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
@@ -51,11 +49,28 @@ def _check(q, q_sq, series, sq_norms, leaf_ids, alive, bsf_d, bsf_e,
     if series.dtype not in _DTYPES:
         raise TypeError(f"series must be float32, bfloat16 or float16, got "
                         f"{series.dtype}")
-    for t in (q, q_sq, series, sq_norms, leaf_ids, alive, bsf_d, bsf_e):
+    for t in [series] + [t for t, _, _ in want.values()]:
         if not t.is_contiguous():
-            raise ValueError("refine_topk takes contiguous tensors")
+            raise ValueError(f"{what} takes contiguous tensors")
         if t.device != q.device:
-            raise ValueError("refine_topk's tensors must share a device")
+            raise ValueError(f"{what}'s tensors must share a device")
+
+
+def _check(q, q_sq, series, sq_norms, leaf_ids, alive, bsf_d, bsf_e,
+           M: int, k: int) -> None:
+    if leaf_ids.dim() != 2:
+        raise ValueError(f"leaf_ids must be (Q, K), got "
+                         f"{tuple(leaf_ids.shape)}")
+    K = leaf_ids.shape[1]
+    Q, L = _dims(q, series, M, k, max(K, 1))
+    _check_tensors("refine_topk", q, series, {
+        "q_sq": (q_sq, (Q,), torch.float32),
+        "sq_norms": (sq_norms, (series.shape[0],), torch.float32),
+        "alive": (alive, (Q, K), torch.bool),
+        "leaf_ids": (leaf_ids, (Q, K), torch.int32),
+        "bsf_d": (bsf_d, (Q, k), torch.float32),
+        "bsf_e": (bsf_e, (Q, k), torch.int32),
+        "q": (q, (Q, L), torch.float32)})
 
 
 def refine_topk(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,

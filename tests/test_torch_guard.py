@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from repro_torch import api
-from repro_torch.kernels import _build, isax_summarize, ops, refine
+from repro_torch.kernels import (_build, isax_summarize, ops, refine,
+                                 refine_search)
 
 # the package re-exports these entry points under their modules' names
 lb_distance = import_module("repro_torch.kernels.lb_distance")
@@ -115,14 +116,22 @@ def test_scan_and_attention_wrappers_raise_on_what_the_kernel_does_not_take():
 
 def test_cpu_tensors_run_the_plain_version_and_count_nothing():
     before = (isax_summarize.launches, lb_distance.launches,
-              refine.launches)
+              refine.launches, refine_search.launches)
     x = torch.randn(16, 256)
     p, w = isax_summarize.summarize(x, znorm=True)
     assert p.shape == (16, 16) and w.dtype == torch.int32
     lb = lb_distance.lb_distance(p, p, p)
     assert lb.shape == (16, 16)
+    # the whole refinement over 2 leaves of 8 rows, 2 rounds of 1 leaf
+    q = x[:3].contiguous()
+    order = torch.tensor([[0, 1]] * 3, dtype=torch.int32)
+    d, e, r = refine_search.refine_search(
+        q, (q * q).sum(1), x, (x * x).sum(1), order,
+        torch.zeros(3, 2), leaf_capacity=8, k=2, round_leaves=1)
+    assert d.shape == (3, 2) and r.tolist() == [2, 2, 2]
+    assert e[:, 0].tolist() == [0, 1, 2]             # each query is a row
     assert (isax_summarize.launches, lb_distance.launches,
-            refine.launches) == before
+            refine.launches, refine_search.launches) == before
 
 
 def test_cpu_scan_and_attention_count_nothing():
@@ -162,6 +171,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.kernels", "repro_torch.kernels._build",
             "repro_torch.kernels.ref", "repro_torch.kernels.isax_summarize",
             "repro_torch.kernels.lb_distance", "repro_torch.kernels.refine",
+            "repro_torch.kernels.refine_search",
             "repro_torch.kernels.ops", "repro_torch.kernels.ed_argmin",
             "repro_torch.kernels.flash_attention"]
     here = {m[len("src/"):-len(".py")].replace("/", ".").replace(
