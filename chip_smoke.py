@@ -29,6 +29,13 @@ Phases, each printing one JSON line:
              bytes the queries read one by one, refine_search's time, on
              its longest query alone too, and its plain version at this
              size;
+  route      each kernel's other routes (the ones a shape takes where the
+             fast route does not fit) against their plain versions:
+             summarize strided at L 96 / w 16 (f32, bf16) and L 100 / w 10,
+             lb_distance looped at w 32 and 10, refine_topk general at bf16
+             L 100 and at k 16,000, refine_search at k 5000 (2 CTAs an SM),
+             at leaves of 256 and K 64 (1 CTA an SM), at k 20,000 and bf16
+             L 100 (general), ed_argmin general at L 100; one table row each;
   rounds     ops.refine_topk, repro's per-round kernel API, driven through
              the global loop of rounds over the main cell's queue (the
              search before refine_search), held bit for bit against
@@ -36,13 +43,25 @@ Phases, each printing one JSON line:
   scan       ops.ed_argmin of the same z-normalized queries over the whole
              stored collection (the exact 1-NN scan, 16 GiB read), held
              against the search's nearest neighbour;
+  l96        FreshIndex.build and search over 2^20 walks of length 96
+             (w 16), 256 noisy queries, k 10, held to brute force: the
+             summarize kernel's strided route on a search path;
+  lifecycle  2^22 walks of length 256: the Refresh builder at 1 and 4
+             workers (4 chunks) and at 4 with a crashing worker, each
+             bit-equal to the one-pass build; 65,536 adds (half with a
+             TTL), 65,536 deletes (half core, half delta), 1,024 updates,
+             the TTL batch expired; searches with all of it pending and
+             after compaction, held to a tombstone-aware brute force;
+             compact twice, bit-equal; save, load and reload, the search
+             bit-equal after each;
   attention  ops.flash_attention at granite-8b's attention widths (B 1,
              Hq 32, Hkv 8, T = S = 4096, dh 128, bf16, causal), held
              against the plain version.
-Each of main, rounds, scan and attention sets every launch count to 0
-before it and requires each kernel of its path to have launched.  Then
-the kernel table, the nvidia-smi line and, last, the device line.  Any
-failure raises and exits non-zero; without CUDA, or without the
+Each of main, rounds, scan, l96, lifecycle and attention sets every
+launch count to 0 before it and requires each kernel (and route) of its
+path to have launched, and every kernel of the table to have launched
+on some path.  Then the kernel table, the nvidia-smi line and, last,
+the device line.  Any failure raises and exits non-zero; without CUDA, or without the
 repository's src/ beside this file, it exits 1 before printing a result.
 """
 
@@ -61,6 +80,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
 TF32_FLOPS = 495e12            # H100 SXM tf32 tensor cores, dense
+# float32 instructions that are not FMAs (add, sub, max): one a lane a
+# clock, 132 SMs x 128 lanes x 1.98 GHz boost
+FP32_ISSUE = 132 * 128 * 1.98e9
 Q, K, M, L, TOPK = 256, 8, 64, 256, 10
 MAIN = ("summarize", "lb_distance", "refine_search")
 # granite-8b's attention (train_4k): 32 query heads, 8 KV heads of 128
@@ -97,7 +119,12 @@ def require(ok: bool, what: str) -> None:
 
 
 # ----------------------------------------------------------------- kernels
-def check_summarize(torch, isax, ks, ref, gen, n=1 << 20):
+def check_summarize(torch, isax, ks, ref, gen, rows_gen, n=1 << 20):
+    """summarize (the TPU kernel's interface) in f32 and bf16, and with
+    its one-pass z-norm on n / 16 raw rows, against the plain version;
+    then summarize_rows, what the build launches, on n raw rows drawn
+    from rows_gen (so that gen's draws, and the main phase's data after
+    them, stay as they were): held, timed and bounded by rows_row."""
     x = isax.znormalize(torch.randn(n, L, generator=gen, device=DEV)
                         .cumsum_(1))
     out = {}
@@ -115,6 +142,9 @@ def check_summarize(torch, isax, ks, ref, gen, n=1 << 20):
         dw = (wk - wr).abs()
         require(int(dw.max()) <= 1, f"summarize {name}: symbol moved > 1")
         out[name] = {"max_abs_err": err, "symbols_moved": int(dw.sum())}
+    out["znorm_false_ms"] = time_ms(torch, lambda: ks.summarize(
+        x, znorm=False))
+    del x
     # the in-kernel z-norm, in the TPU kernel's one-pass E[x^2] - mu^2
     # form: its cancellation costs digits, hence 1e-4
     raw = torch.randn(n // 16, L, generator=gen, device=DEV).cumsum_(1)
@@ -124,16 +154,65 @@ def check_summarize(torch, isax, ks, ref, gen, n=1 << 20):
     require(err <= 1e-4 and int((wk - wr).abs().max()) <= 1,
             f"summarize znorm: PAA off by {err}")
     out["znorm_max_abs_err"] = err
-    ms = time_ms(torch, lambda: ks.summarize(x, znorm=False))
-    plain = time_ms(torch, lambda: ref.summarize_ref(x, znorm=False), 5)
-    bms, by = bound_ms(n * L * 4 + n * 16 * 8, n * L)
+    # what the build launches: summarize_rows over blocks of 2^20 raw rows
+    row = rows_row(torch, isax, ks, ref, walks(torch, rows_gen, n, L), 16,
+                   "summarize_rows")
+    out["rows"] = row.pop("checks")
     return {"name": "summarize", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/isax_summarize.cu",
             "replaces": "src/repro/kernels/isax_summarize.py:33",
-            "shape": f"x ({n}, {L}) f32, w=16, bits=8, znorm=False",
-            "max_abs_err": out["f32"]["max_abs_err"], "ms": ms,
-            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-            "library_ms": None, "checks": out}
+            **row, "library_ms": None, "checks": out}
+
+
+def rows_row(torch, isax, ks, ref, raw, w, what):
+    """summarize_rows on raw (n, L) held by hold_rows, timed beside its
+    plain version, and its bound: raw read once; the series, PAA, symbols
+    (int32) and norms written once; six float32 instructions a value (the
+    mean's add, the deviation's subtract and FMA, the scaling's subtract
+    and multiply, the norm's FMA) at the issue rate."""
+    n, Lx = raw.shape
+    errs = hold_rows(torch, isax, ks, ref, raw, w, what)
+    ms = time_ms(torch, lambda: ks.summarize_rows(raw, segments=w))
+    plain = time_ms(torch, lambda: ref.summarize_rows_ref(raw, segments=w),
+                    5)
+    bms, by = bound_ms(n * Lx * raw.element_size() + n * Lx * 4
+                       + n * w * 8 + n * 4, n * Lx * 6, FP32_ISSUE)
+    return {"shape": f"raw ({n}, {Lx}) {str(raw.dtype)[6:]}, w={w}, "
+                     f"summarize_rows (two-pass z-norm; series, PAA, "
+                     f"symbols, norms)",
+            "max_abs_err": errs["series"], "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "checks": errs}
+
+
+def hold_rows(torch, isax, ks, ref, raw, w, what):
+    """summarize_rows (what the build stores: the two-pass z-norm, the
+    float32 series, PAA, symbols, squared norms) against its plain version
+    on raw; and a row's bits the same in a launch of all rows, of 2048
+    rows and of 5 (the builder's parts), and when the 5 are written in
+    place into slices of larger outputs (as the build writes them)."""
+    xk, pk, wk, sk = ks.summarize_rows(raw, segments=w)
+    xr, pr, wr, sr = ref.summarize_rows_ref(raw, segments=w)
+    errs = {"series": (xk - xr).abs().max().item(),
+            "paa": (pk - pr).abs().max().item(),
+            "sq_norms_rel": ((sk - sr).abs() / sr.clamp_min(1e-6)).max()
+            .item()}
+    require(errs["series"] <= 1e-5 and errs["paa"] <= 1e-5
+            and errs["sq_norms_rel"] <= 1e-5, f"{what}: off by {errs}")
+    require(torch.equal(wk, isax.sax_word(pk).to(torch.int32))
+            and int((wk - wr).abs().max()) <= 1, f"{what}: symbols")
+    for lo, hi in ((0, 2048), (2048, 2053)):
+        part = ks.summarize_rows(raw[lo:hi].contiguous(), segments=w)
+        require(all(torch.equal(a, b[lo:hi]) for a, b in
+                    zip(part, (xk, pk, wk, sk))),
+                f"{what}: rows {lo}:{hi} alone differ from the whole")
+    buf = tuple(torch.zeros((2053,) + t.shape[1:], dtype=t.dtype, device=DEV)
+                for t in (xk, pk, wk, sk))
+    ks.summarize_rows(raw[2048:2053].contiguous(), segments=w,
+                      out=tuple(t[2048:] for t in buf))
+    require(all(torch.equal(a[2048:], b[2048:2053]) and not a[:2048].any()
+                for a, b in zip(buf, (xk, pk, wk, sk))),
+            f"{what}: rows 2048:2053 written in place differ")
+    return errs
 
 
 def check_lb_distance(torch, lbk, ref, gen, NL=1 << 18):
@@ -152,7 +231,10 @@ def check_lb_distance(torch, lbk, ref, gen, NL=1 << 18):
             f"lb_distance: off by {err}")
     ms = time_ms(torch, lambda: lbk.lb_distance(q, lo, hi))
     plain = time_ms(torch, lambda: ref.lb_distance_ref(q, lo, hi), 3)
-    bms, by = bound_ms(Q * NL * 4 + (Q + 2 * NL) * 16 * 4, Q * NL * 16 * 5)
+    # five float32 instructions a (query, leaf, segment) term: two
+    # subtractions, two max and one FMA, none of them a two-flop FMA
+    bms, by = bound_ms(Q * NL * 4 + (Q + 2 * NL) * 16 * 4, Q * NL * 16 * 5,
+                       FP32_ISSUE)
     return {"name": "lb_distance", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/lb_distance.cu",
             "replaces": "src/repro/kernels/lb_distance.py:28",
@@ -238,7 +320,7 @@ def refine_inputs(search, idx, queries, K=K):
     return q, (q * q).sum(dim=-1), order, sorted_lb
 
 
-def search_work(torch, idx, order, rounds, alive, K=K):
+def search_work(torch, idx, order, rounds, alive, K=K, k=TOPK):
     """(bytes, flops, leaves, per-query leaf bytes) of the refinement of
     these queries.  It needs each leaf that is alive for any query once:
     its rows at the stored width and their norms; a query's alive slots
@@ -252,9 +334,10 @@ def search_work(torch, idx, order, rounds, alive, K=K):
     cols = torch.arange(order.shape[1], device=order.device)
     leaves = int(order[cols < alive[:, None].long()].unique().numel())
     slots = int(alive.sum())
+    Lx = idx.series.shape[1]
     nbytes = (leaves * leaf_bytes + int(rounds.sum()) * K * 8
-              + Q * (L * 4 + 4 + TOPK * 8))
-    return nbytes, slots * Mi * L * 2, leaves, slots * leaf_bytes
+              + order.shape[0] * (Lx * 4 + 4 + k * 8))
+    return nbytes, slots * Mi * Lx * 2, leaves, slots * leaf_bytes
 
 
 def search_tol(torch, idx, q, q_sq):
@@ -291,17 +374,17 @@ def hold_search(torch, got, want, sorted_lb, true_d, tol, what, K=K):
             "alive_slots_differ": int((ak != ar).sum())}
 
 
-def run_loop(torch, rk, args, K=K, M=M):
+def run_loop(torch, rk, args, K=K, M=M, k=TOPK):
     """refine_search's (d, e, rounds, alive)."""
     alive = torch.zeros(args[0].shape[0], dtype=torch.int32, device=DEV)
-    out = rk.refine_search(*args, leaf_capacity=M, k=TOPK, round_leaves=K,
+    out = rk.refine_search(*args, leaf_capacity=M, k=k, round_leaves=K,
                            alive_out=alive)
     return out + (alive,)
 
 
-def run_loop_ref(torch, ref, args, K=K, M=M):
+def run_loop_ref(torch, ref, args, K=K, M=M, k=TOPK):
     alive = torch.zeros(args[0].shape[0], dtype=torch.int32, device=DEV)
-    out = ref.refine_search_ref(*args, leaf_capacity=M, k=TOPK,
+    out = ref.refine_search_ref(*args, leaf_capacity=M, k=k,
                                 round_leaves=K, alive_out=alive)
     return out + (alive,)
 
@@ -312,25 +395,27 @@ def rounds_stats(rounds):
             "p90": r.quantile(0.9).item(), "max": int(r.max())}
 
 
-def hold_loop(torch, search, rk, ref, idx, queries, K, what):
+def hold_loop(torch, search, rk, ref, idx, queries, K, what, k=TOPK):
     """refine_search against refine_search_ref on one index (hold_search),
     and the kernel's time, the plain version's and the bound."""
     q, q_sq, order, sorted_lb = refine_inputs(search, idx, queries, K)
     args = (q, q_sq, idx.series, idx.sq_norms, order, sorted_lb)
     M_ = idx.leaf_capacity
-    got = run_loop(torch, rk, args, K, M_)
+    got = run_loop(torch, rk, args, K, M_, k)
     ms = time_ms(torch, lambda: rk.refine_search(
-        *args, leaf_capacity=M_, k=TOPK, round_leaves=K), 3, warm=0)
+        *args, leaf_capacity=M_, k=k, round_leaves=K), 3, warm=0)
     t0 = time.perf_counter()
-    want = run_loop_ref(torch, ref, args, K, M_)
+    want = run_loop_ref(torch, ref, args, K, M_, k)
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) * 1e3
     tol, true_d = search_tol(torch, idx, q, q_sq)
     row = hold_search(torch, got, want, sorted_lb, true_d, tol, what, K)
     nbytes, flops, leaves, _ = search_work(torch, idx, order, got[2], got[3],
-                                           K)
+                                           K, k)
     bms, by = bound_ms(nbytes, flops)
-    return dict(row, tol=tol, rounds=rounds_stats(got[2]),
+    return dict(row, route=rk.route(idx.series.shape[1], K, M_, k,
+                                    idx.series.dtype),
+                tol=tol, rounds=rounds_stats(got[2]),
                 alive_slots=int(got[3].sum()), alive_leaves=leaves, ms=ms,
                 plain_ms=plain, bound_ms=bms, bound_by=by)
 
@@ -580,6 +665,225 @@ def check_flash(torch, fk, ref, gen, edge_gen):
             # the kernel's own floor: P.V twice (P_hi, P_lo), 6 dh a pair
             "tensor_floor_ms": 1.5 * flops / BF16_FLOPS * 1e3,
             "f32_fma_floor_ms": flops / F32_FLOPS * 1e3, "checks": rows}
+
+
+# ------------------------------------------------------------------ routes
+def route_row(name, route, source, replaces, shape, err, ms, plain, bms, by,
+              checks):
+    return {"name": f"{name}/{route}", "route": "cuda", "source": source,
+            "replaces": replaces, "shape": shape, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "checks": checks}
+
+
+def walks(torch, gen, n, Lx):
+    return torch.randn(n, Lx, generator=gen, device=DEV).cumsum_(1)
+
+
+def route_summarize(torch, isax, ks, ref, gen, n=1 << 20):
+    """The strided route (any L and w) at L 96, w 16 in f32 and bf16 and
+    at L 100, w 10, at the l96 path's launch of n rows: summarize_rows by
+    hold_rows (and timed in f32 at L 96, as the l96 path launches it),
+    summarize against the plain version as check_summarize holds it."""
+    rows = {}
+    for name, Lx, w, dtype in (("L96_w16_f32", 96, 16, torch.float32),
+                               ("L96_w16_bf16", 96, 16, torch.bfloat16),
+                               ("L100_w10_f32", 100, 10, torch.float32)):
+        raw = walks(torch, gen, n, Lx).to(dtype)
+        require(ks.route(Lx, w, dtype) == "strided", f"{name}: route")
+        if name == "L96_w16_f32":
+            row = rows_row(torch, isax, ks, ref, raw, w, name)
+            out = {"rows": row.pop("checks")}
+        else:
+            out = {"rows": hold_rows(torch, isax, ks, ref, raw, w, name)}
+        x = isax.znormalize(raw.float()).to(dtype)
+        pk, wk = ks.summarize(x, segments=w, znorm=False)
+        pr, wr = ref.summarize_ref(x, segments=w, znorm=False)
+        out["max_abs_err"] = (pk - pr).abs().max().item()
+        require(out["max_abs_err"] <= 1e-5 and torch.equal(
+            wk, isax.sax_word(pk).to(torch.int32)) and int(
+            (wk - wr).abs().max()) <= 1, f"summarize {name}")
+        # the kernel reads bf16 and computes in f32: the plain version on
+        # the same values in f32
+        pk, wk = ks.summarize(raw, segments=w, znorm=True)
+        pr, wr = ref.summarize_ref(raw.float(), segments=w, znorm=True)
+        out["znorm_max_abs_err"] = (pk - pr).abs().max().item()
+        require(out["znorm_max_abs_err"] <= 1e-4, f"summarize {name} znorm")
+        rows[name] = out
+        del raw, x
+    return route_row("summarize", "strided",
+                     "src/repro_torch/kernels/csrc/isax_summarize.cu",
+                     "src/repro/kernels/isax_summarize.py:33", row["shape"],
+                     row["max_abs_err"], row["ms"], row["plain_ms"],
+                     row["bound_ms"], row["bound_by"], rows)
+
+
+def route_lb(torch, lbk, ref, gen, NL=1 << 16):
+    """The looped route (w a runtime loop) at w 32 and w 10."""
+    rows = {}
+    for w in (32, 10):
+        q = torch.randn(Q, w, generator=gen, device=DEV)
+        lo = torch.randn(NL, w, generator=gen, device=DEV) - 0.5
+        hi = lo + torch.rand(NL, w, generator=gen, device=DEV)
+        lo[::20, :4] = -float("inf")
+        lo[7::100], hi[7::100] = float("inf"), float("inf")
+        require(lbk.route(w) == "looped", f"lb w {w}: route")
+        dk = lbk.lb_distance(q, lo, hi)
+        dr = ref.lb_distance_ref(q, lo, hi)
+        inf = torch.isinf(dr)
+        require(torch.equal(torch.isinf(dk), inf), f"lb w {w}: infs")
+        err = (dk[~inf] - dr[~inf]).abs().max().item()
+        require(torch.allclose(dk[~inf], dr[~inf], rtol=1e-5, atol=1e-5),
+                f"lb w {w}: off by {err}")
+        rows[f"w{w}"] = {"max_abs_err": err}
+        if w == 32:
+            ms = time_ms(torch, lambda: lbk.lb_distance(q, lo, hi))
+            plain = time_ms(torch, lambda: ref.lb_distance_ref(q, lo, hi), 3)
+            bms, by = bound_ms(Q * NL * 4 + (Q + 2 * NL) * w * 4,
+                               Q * NL * w * 5, FP32_ISSUE)
+    return route_row("lb_distance", "looped",
+                     "src/repro_torch/kernels/csrc/lb_distance.cu",
+                     "src/repro/kernels/lb_distance.py:28",
+                     f"q ({Q}, 32), leaves ({NL}, 32)",
+                     rows["w32"]["max_abs_err"], ms, plain, bms, by, rows)
+
+
+def route_refine_topk(torch, isax, rk, ref, gen, NL=2048):
+    """The general route of one round: bf16 rows of 100 (200 bytes, not
+    whole 16-byte pieces), and k 16,000 (buffers past shared memory)."""
+    rows = {}
+    for name, Lx, dtype, k, nq in (("bf16_L100_k10", 100, torch.bfloat16,
+                                    TOPK, Q),
+                                   ("f32_L256_k16000", L, torch.float32,
+                                    16000, 4)):
+        x = isax.znormalize(walks(torch, gen, NL * M, Lx))
+        qv = isax.znormalize(walks(torch, gen, nq, Lx))
+        qsq = (qv * qv).sum(1)
+        series = x.to(dtype)
+        xn = (series.float() ** 2).sum(1)
+        tol = 1e-5 * (qsq.max() + xn.max()).item()
+        require(rk.route(Lx, M, k, dtype) == "general", f"{name}: route")
+
+        def true_d(e, series=series, xn=xn, qv=qv, qsq=qsq):
+            xs = series[e.long()].float()
+            return (qsq[:, None] + xn[e.long()]
+                    - 2 * torch.einsum("qkl,ql->qk", xs, qv)).clamp_min(0)
+        bd = torch.full((nq, k), 1e30, device=DEV)
+        be = torch.zeros((nq, k), dtype=torch.int32, device=DEV)
+        ids = torch.rand(nq, NL, generator=gen, device=DEV).argsort(
+            1)[:, :K].to(torch.int32).contiguous()
+        alive = torch.rand(nq, K, generator=gen, device=DEV) < 0.5
+        alive[:, 0] = True
+        args = (qv, qsq, series, xn, ids, alive, bd, be)
+        dk, ek = rk.refine_topk(*args, leaf_capacity=M, k=k)
+        dr, er = ref.refine_topk_ref(*args, leaf_capacity=M, k=k)
+        err, swaps = fold_check(torch, dk, ek, dr, er, true_d, tol, name)
+        rows[name] = {"max_abs_err": err, "near_tie_swaps": swaps,
+                      "tol": tol}
+        if name == "bf16_L100_k10":
+            n_alive = int(alive.sum())
+            ms = time_ms(torch, lambda: rk.refine_topk(*args, leaf_capacity=M,
+                                                       k=k))
+            plain = time_ms(torch, lambda: ref.refine_topk_ref(
+                *args, leaf_capacity=M, k=k), 5)
+            bms, by = bound_ms(n_alive * M * (Lx * 2 + 4)
+                               + nq * (Lx * 4 + 4 + K * 5 + k * 16),
+                               n_alive * M * Lx * 2)
+    return route_row("refine_topk", "general",
+                     "src/repro_torch/kernels/csrc/refine.cu",
+                     "src/repro/kernels/refine.py:139",
+                     f"Q={Q} K={K} M={M} L=100 k={TOPK}, bf16, ~half alive",
+                     rows["bf16_L100_k10"]["max_abs_err"], ms, plain, bms, by,
+                     rows)
+
+
+def route_refine_search(torch, api, search, rk, ref, gen, n=1 << 18):
+    """refine_search's other routes against refine_search_ref (hold_loop)
+    on real indexes of n walks: k 5000 (shared memory for 2 CTAs an SM),
+    leaves of 256 and K 64 at k 10 (1 CTA an SM), k 20,000 (the general
+    route, buffers in global scratch), and bf16 rows of 100 with w 10 (the
+    general route, rows not whole 16-byte pieces)."""
+    raw = walks(torch, gen, n, L)
+    pick = torch.randint(0, n, (Q,), generator=gen, device=DEV)
+    queries = raw[pick] + 0.1 * torch.randn(Q, L, generator=gen, device=DEV)
+    f32 = api.FreshIndex.build(raw, device=DEV).index
+    wide = api.FreshIndex.build(raw, api.IndexConfig(leaf_capacity=256),
+                                device=DEV).index
+    del raw
+    rows = {}
+    for name, idx, K_, k_, nq, want in (
+            ("k5000", f32, K, 5000, 16, "cta2"),
+            ("M256_K64", wide, 64, TOPK, 64, "cta1"),
+            ("k20000", f32, K, 20000, 16, "general")):
+        got = rk.route(L, K_, idx.leaf_capacity, k_, idx.series.dtype)
+        require(got == want, f"refine_search {name}: route {got}")
+        rows[name] = hold_loop(torch, search, rk, ref, idx, queries[:nq], K_,
+                               f"refine_search {name}", k_)
+    del f32, wide
+    raw = walks(torch, gen, n // 4, 100)
+    pick = torch.randint(0, n // 4, (64,), generator=gen, device=DEV)
+    queries = raw[pick] + 0.1 * torch.randn(64, 100, generator=gen,
+                                            device=DEV)
+    idx = api.FreshIndex.build(raw, api.IndexConfig(segments=10,
+                                                    dtype="bfloat16"),
+                               device=DEV).index
+    require(rk.route(100, K, M, TOPK, torch.bfloat16) == "general",
+            "refine_search bf16 L 100: route")
+    rows["bf16_L100"] = hold_loop(torch, search, rk, ref, idx, queries, K,
+                                  "refine_search bf16 L 100")
+    out = []
+    for name, route, shape in (
+            ("k5000", "cta2", f"{n} walks, Q=16 K={K} M={M} L={L} k=5000"),
+            ("M256_K64", "cta1", f"{n} walks, Q=64 K=64 M=256 L={L} k=10"),
+            ("k20000", "general", f"{n} walks, Q=16 K={K} M={M} L={L} "
+                                  f"k=20000")):
+        r = rows[name]
+        out.append(route_row("refine_search", route,
+                             "src/repro_torch/kernels/csrc/refine.cu",
+                             "src/repro/kernels/refine.py:139", shape,
+                             r["max_abs_err"], r["ms"], r["plain_ms"],
+                             r["bound_ms"], r["bound_by"],
+                             rows if route == "general" else {name: r}))
+    return out
+
+
+def route_ed_argmin(torch, isax, edk, ref, gen, n=1 << 20):
+    """The general route (float32 FMAs, any L) at L 100, f32 and bf16
+    candidates, with the duplicated-row tie of check_ed_argmin."""
+    Lx = 100
+    x = isax.znormalize(walks(torch, gen, n + 5, Lx))
+    q = isax.znormalize(walks(torch, gen, Q, Lx))
+    j1, j2 = n // 3, n // 2 + 1
+    x[j2] = x[j1]
+    require(edk.route(Lx) == "general", "ed_argmin L 100: route")
+    rows = {}
+    for name, xin in (("f32", x), ("bf16", x.to(torch.bfloat16))):
+        qn = q.clone()
+        qn[0] = xin[j1].float()
+        rows[name] = ed_check(torch, edk, ref, qn, xin, f"L100 {name}",
+                              tie=j1)
+        if name == "f32":
+            ms = time_ms(torch, lambda: edk.ed_argmin(qn, xin), 5)
+            plain = time_ms(torch, lambda: ref.ed_argmin_ref(qn, xin), 3)
+    bms, by = bound_ms((n + 5) * Lx * 4 + Q * Lx * 4 + Q * 8,
+                       2 * Q * (n + 5) * Lx)
+    return route_row("ed_argmin", "general",
+                     "src/repro_torch/kernels/csrc/ed_argmin.cu",
+                     "src/repro/kernels/ed_argmin.py:35",
+                     f"q ({Q}, 100) f32, xs ({n + 5}, 100) f32",
+                     rows["f32"]["max_abs_err"], ms, plain, bms, by, rows)
+
+
+def check_routes(torch, api, isax, search, kmods, ref, gen):
+    """Each route a shape takes beside the main cell's, against its plain
+    version; one kernel-table row each."""
+    rows = [route_summarize(torch, isax, kmods["summarize"], ref, gen),
+            route_lb(torch, kmods["lb_distance"], ref, gen),
+            route_refine_topk(torch, isax, kmods["refine_topk"], ref, gen)]
+    rows += route_refine_search(torch, api, search, kmods["refine_search"],
+                                ref, gen)
+    rows.append(route_ed_argmin(torch, isax, kmods["ed_argmin"], ref, gen))
+    return rows
 
 
 # --------------------------------------------------------------- main path
@@ -883,6 +1187,327 @@ def attention_phase(torch, ops, kmods, ref, gen):
             "wall_ms": wall, "max_abs_err": err, "launches": launches}, launches
 
 
+def reset(kmods) -> None:
+    """Every launch count to 0, by kernel and by route."""
+    for mod in kmods.values():
+        mod.launches = 0
+        getattr(mod, "by_route", {}).clear()
+
+
+def route_counts(kmods) -> dict:
+    """{"kernel/route": launches} of every route launched since reset."""
+    return {f"{name}/{r}": c for name, mod in kmods.items()
+            for r, c in getattr(mod, "by_route", {}).items()}
+
+
+def hold_answers(torch, isax, idx, queries, d, ids, what):
+    """The search's (d, ids) are exact: finite, ascending, each id's own
+    distance, and the brute-force distances (ids equal but at near-ties,
+    counted).  Returns the near-ties."""
+    q = isax.znormalize(queries).float()
+    require(d.shape == (queries.shape[0], TOPK)
+            and bool(torch.isfinite(d).all())
+            and bool((d[:, 1:] >= d[:, :-1]).all()), f"{what}: shape/order")
+    db, rb = bruteforce(torch, idx.series, q, TOPK)
+    perm = idx.perm.long()
+    n = int(idx.valid.sum())
+    inv = torch.empty(n, dtype=torch.long, device=DEV)
+    inv[perm[idx.valid]] = torch.nonzero(idx.valid)[:, 0]
+    d_own = ((q[:, None, :] - idx.series[inv[ids.long()]].float()) ** 2
+             ).sum(-1).sqrt()
+    require(torch.allclose(d_own, d, rtol=1e-5, atol=1e-5),
+            f"{what}: reported distances are not the ids' distances")
+    require(torch.allclose(d, db, rtol=1e-5, atol=1e-5),
+            f"{what}: distances differ from brute force by "
+            f"{(d - db).abs().max().item()}")
+    return int((ids != idx.perm[rb]).sum())
+
+
+def l96_path(torch, api, isax, kmods, gen, n=1 << 20, Lx=96):
+    """FreshIndex.build and search over n random walks of length 96 (the
+    width of the Deep1B embeddings), w = 16: the summarize kernel's
+    strided route, lb_distance's tiled one and refine_search's 3 CTAs an
+    SM.  256 noisy collection queries, k = 10, held to brute force."""
+    raw = walks(torch, gen, n, Lx)
+    pick = torch.randint(0, n, (Q,), generator=gen, device=DEV)
+    queries = raw[pick] + 0.1 * torch.randn(Q, Lx, generator=gen, device=DEV)
+    torch.cuda.synchronize()
+    reset(kmods)
+    t0 = time.perf_counter()
+    index = api.FreshIndex.build(raw, device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d, ids = index.search(queries, k=TOPK)
+    torch.cuda.synchronize()
+    search_ms = (time.perf_counter() - t0) * 1e3
+    launches = route_counts(kmods)
+    for r in ("summarize/strided", "lb_distance/tiled", "refine_search/cta3"):
+        require(launches.get(r, 0) > 0, f"L 96 path: {r} not launched: "
+                f"{launches}")
+    del raw
+    ties = hold_answers(torch, isax, index.index, queries, d, ids, "L 96")
+    return {"phase": "l96", "series": n, "length": Lx, "segments": 16,
+            "queries": Q, "k": TOPK, "build_s": build_s,
+            "search_ms": search_ms, "near_ties": ties,
+            "launches": launches}, launches
+
+
+class LiveRows:
+    """The lifecycle phase's live collection from the script's own data,
+    not from the index's records: `raw` (ids 0..n-1), `extra` (ids n..,
+    the adds) and `new_rows` (the updates' rows, answering as `upd`), with
+    `dead` (the deleted ids, the expired TTL ids and the updated ids' old
+    rows) out."""
+
+    def __init__(self, torch, raw, extra, new_rows, upd, dead):
+        n, m = raw.shape[0], extra.shape[0]
+        self.torch, self.parts = torch, (raw, extra, new_rows)
+        upd_t = torch.as_tensor(upd, dtype=torch.long, device=DEV)
+        dead_t = torch.as_tensor(sorted(dead), dtype=torch.long, device=DEV)
+        self.dead = dead_t
+        # each part's ids, and whether each row is alive
+        self.ids = (torch.arange(n, device=DEV),
+                    n + torch.arange(m, device=DEV), upd_t)
+        gone = torch.cat([dead_t, upd_t])
+        self.alive = tuple(~torch.isin(i, gone) for i in self.ids[:2]) + (
+            torch.ones(len(upd), dtype=torch.bool, device=DEV),)
+        # id -> (part, row) for the answers
+        self.part = torch.zeros(n + m, dtype=torch.long, device=DEV)
+        self.part[n:] = 1
+        self.part[upd_t] = 2
+        self.row = torch.arange(n + m, device=DEV)
+        self.row[n:] -= n
+        self.row[upd_t] = torch.arange(len(upd), device=DEV)
+
+    @property
+    def n_alive(self) -> int:
+        return int(sum(int(a.sum()) for a in self.alive))
+
+    def rows_of(self, ids):
+        """The raw rows that ids (any shape) answer for."""
+        p, r = self.part[ids.long()], self.row[ids.long()]
+        out = self.parts[0][r.clamp_max(self.parts[0].shape[0] - 1)]
+        for j in (1, 2):
+            src = self.parts[j][r.clamp_max(self.parts[j].shape[0] - 1)]
+            out = self.torch.where((p == j)[..., None], src, out)
+        return out
+
+    def topk(self, isax, q, chunk=1 << 20, per_chunk=32):
+        """Exact k-NN of the z-normalized queries q over the live rows,
+        each z-normalized here (isax.znormalize): matmul-form candidates
+        per chunk, then direct-form distances, ascending."""
+        torch = self.torch
+        qsq = (q * q).sum(1)
+        cand_x, cand_i = [], []
+        for x, ids, alive in zip(self.parts, self.ids, self.alive):
+            for s in range(0, x.shape[0], chunk):
+                xs = isax.znormalize(x[s:s + chunk].float())
+                d2 = qsq[:, None] + (xs * xs).sum(1)[None] - 2 * q @ xs.T
+                d2[:, ~alive[s:s + chunk]] = float("inf")
+                j = d2.topk(min(per_chunk, xs.shape[0]), dim=1,
+                            largest=False).indices
+                cand_x.append(xs[j])
+                cand_i.append(ids[s:s + chunk][j])
+        xs, ids = torch.cat(cand_x, 1), torch.cat(cand_i, 1)
+        d = ((q[:, None, :] - xs) ** 2).sum(-1)
+        d, pos = torch.sort(d, dim=1, stable=True)
+        return d[:, :TOPK].sqrt(), torch.gather(ids, 1, pos[:, :TOPK])
+
+
+def hold_live(torch, isax, live, queries, d, ids, what):
+    """The search's answer against the live rows (LiveRows): the same
+    distances as their brute force (rtol/atol 1e-5), each id's own
+    distance, no deleted id, and ids equal to the brute force's but at
+    near-ties (counted)."""
+    require(d.shape == (queries.shape[0], TOPK)
+            and bool(torch.isfinite(d).all()) and bool((ids >= 0).all()),
+            f"{what}: shape")
+    require(not bool(torch.isin(ids.long(), live.dead).any()),
+            f"{what}: a deleted id")
+    q = isax.znormalize(queries).float()
+    db, ib = live.topk(isax, q)
+    require(torch.allclose(d, db, rtol=1e-5, atol=1e-5),
+            f"{what}: distances differ from brute force by "
+            f"{(d - db).abs().max().item()}")
+    own = ((q[:, None, :] - isax.znormalize(live.rows_of(ids).float()))
+           ** 2).sum(-1).sqrt()
+    require(torch.allclose(own, d, rtol=1e-5, atol=1e-5),
+            f"{what}: reported distances are not the ids' distances")
+    return int((ids != ib).sum())
+
+
+def lifecycle_path(torch, api, isax, kmods, gen, n=1 << 22, n_add=1 << 16,
+                   n_upd=1024, Lx=L):
+    """The Refresh builder, the lifecycle and checkpoints at n random walks
+    of length 256 with IndexConfig() defaults: builds at 1 and 4 workers
+    (4 chunks), and at 4 with one worker crashing, each bit-equal to the
+    one-pass build; adds (one batch with a TTL), deletes in core and
+    delta, updates, TTL expiry, with the counts they return and n_series
+    held to the script's own books; searches held to a tombstone-aware
+    brute force over the script's own live rows (LiveRows) before and
+    after compaction, the same ids after it; save, load and reload, the
+    search bit-equal after each."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.core.refresh import Injectors
+    raw = walks(torch, gen, n, Lx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kmods)
+    rep = {"phase": "lifecycle", "series": n, "length": Lx}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rep[key] = time.perf_counter() - t0
+        return out
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def same(a, b, what):
+        for f in a._fields:
+            require(torch.equal(getattr(a, f), getattr(b, f)),
+                    f"{what}: {f} differs")
+
+    ix = timed("build_s", lambda: api.FreshIndex.build(raw, device=DEV))
+    def phases(builder):
+        """Each phase's host wall seconds in a build."""
+        return {p: r["wall_time"] for p, r in
+                builder.report()["phases"].items()}
+    one = api.FreshIndex.builder(workers=1, device=DEV)
+    b1 = timed("builder_1_worker_s", lambda: one.feed(raw).finalize())
+    same(b1.index, ix.index, "builder, 1 worker")
+    rep["builder_1_worker_phases_s"] = phases(one)
+    del b1, one
+
+    def chunked(builder):
+        for c in raw.chunk(4):
+            builder.feed(c)
+        return builder.finalize()
+    four = api.FreshIndex.builder(workers=4, device=DEV)
+    b4 = timed("builder_4_workers_s", lambda: chunked(four))
+    same(b4.index, ix.index, "builder, 4 workers, 4 chunks")
+    rep["builder_4_workers_phases_s"] = phases(four)
+    del b4, four
+    crash = api.FreshIndex.builder(
+        workers=4, device=DEV, injectors=Injectors.crashing({1}, after=3))
+    b4c = timed("builder_4_workers_crash_s", lambda: chunked(crash))
+    same(b4c.index, ix.index, "builder, 4 workers, one crashed")
+    rep["crashed_workers"] = sum(p["crashed_workers"] for p in
+                                 crash.report()["phases"].values())
+    require(rep["crashed_workers"] >= 1, "no worker crashed")
+    del b4c, crash
+
+    rng = np.random.default_rng(int(torch.randint(
+        0, 2**31, (1,), generator=gen, device=DEV)))
+    extra = walks(torch, gen, n_add, Lx)
+    half = n_add // 2
+    now = time.monotonic()
+    timed("add_s", lambda: (ix.add(extra[:half]),
+                            ix.add(extra[half:], ttl_s=1000.0)))
+    # n_add deletes, half of them core ids, half delta ids
+    dels = np.concatenate([rng.choice(n, half, replace=False),
+                           n + rng.choice(n_add, half, replace=False)])
+    rep["deleted"] = timed("delete_s", lambda: ix.delete(dels))
+    require(rep["deleted"] == n_add,
+            f"delete() deleted {rep['deleted']} ids, not {n_add}")
+    dead = set(dels.tolist())
+    upd = [int(i) for i in rng.choice(n, 4 * n_upd, replace=False)
+           if int(i) not in dead][:n_upd]
+    new_rows = walks(torch, gen, len(upd), Lx)
+    timed("update_s", lambda: [ix.update(sid, new_rows[j])
+                               for j, sid in enumerate(upd)])
+    rep["expired"] = ix.expire_ttl(now=now + 2000.0)
+    ttl_ids = set(range(n + half, n + n_add))
+    require(rep["expired"] == len(ttl_ids - dead),
+            f"expire_ttl() expired {rep['expired']} ids, not the "
+            f"{len(ttl_ids - dead)} TTL ids still alive")
+    live = LiveRows(torch, raw, extra, new_rows, upd, dead | ttl_ids)
+    rep["n_series"] = ix.n_series
+    require(rep["n_series"] == live.n_alive,
+            f"n_series {rep['n_series']}, but {live.n_alive} rows live")
+    rep["n_pending"] = ix.n_pending
+    rep["n_deleted"] = ix.n_deleted
+
+    # queries: noisy copies of live core rows, and of 16 updated rows
+    alive_core = np.setdiff1d(np.arange(n), np.array(sorted(dead | set(upd))))
+    pick = torch.as_tensor(rng.choice(alive_core, Q - 16, replace=False),
+                           device=DEV)
+    queries = torch.cat([raw[pick], new_rows[:16]]) + 0.1 * torch.randn(
+        Q, Lx, generator=gen, device=DEV)
+    # the first search also builds the masked view (search_view)
+    d, ids = timed("search_pending_s", lambda: ix.search(queries, k=TOPK))
+    rep["search_pending_ms"] = rep.pop("search_pending_s") * 1e3
+    rep["search_pending_ms_repeats"] = [
+        wall_ms(lambda: ix.search(queries, k=TOPK)) for _ in range(3)]
+    rep["near_ties_pending"] = hold_live(torch, isax, live, queries, d, ids,
+                                         "lifecycle, pending")
+    nn_upd = ids[Q - 16:, 0].tolist()
+    rep["updated_answer_stable"] = sum(a == b for a, b in
+                                       zip(nn_upd, upd[:16]))
+    require(rep["updated_answer_stable"] == 16,
+            f"updated rows do not answer under their stable ids: {nn_upd}")
+
+    timed("compact_s", ix.compact)
+    d2, ids2 = timed("search_compacted_s", lambda: ix.search(queries,
+                                                             k=TOPK))
+    rep["search_compacted_ms"] = rep.pop("search_compacted_s") * 1e3
+    rep["search_compacted_ms_repeats"] = [
+        wall_ms(lambda: ix.search(queries, k=TOPK)) for _ in range(3)]
+    rep["near_ties_compacted"] = hold_live(torch, isax, live, queries, d2,
+                                           ids2, "lifecycle, compacted")
+    del live, raw, extra
+    torch.cuda.empty_cache()
+    # the delta scan read the rows as compaction stores them (delta_rows),
+    # so compaction moves no id
+    require(torch.equal(ids2, ids), f"compaction changed "
+            f"{int((ids2 != ids).sum())} ids")
+    require(torch.allclose(d2, d, rtol=1e-5, atol=1e-5),
+            "compaction moved a distance")
+    rep["distance_bits_moved_by_compaction"] = int((d2 != d).sum())
+    before = {f: getattr(ix.index, f).clone() for f in ix.index._fields}
+    ix.compact()
+    for f, a in before.items():
+        require(torch.equal(a, getattr(ix.index, f)),
+                f"compact twice: {f} differs")
+    del before
+
+    root = Path(__file__).resolve().parent / ".smoke_ckpt"
+    try:
+        path = timed("save_s", lambda: ix.save(str(root), step=1))
+        rep["checkpoint_bytes"] = sum(p.stat().st_size
+                                      for p in Path(path).iterdir())
+        ld = timed("load_s", lambda: api.FreshIndex.load(str(root),
+                                                         device=DEV))
+        d3, ids3 = ld.search(queries, k=TOPK)
+        require(torch.equal(d3, d2) and torch.equal(ids3, ids2),
+                "search after load differs")
+        del ld
+        ix.add(new_rows[:8])
+        timed("reload_s", lambda: ix.reload(str(root)))
+        d4, ids4 = ix.search(queries, k=TOPK)
+        require(torch.equal(d4, d2) and torch.equal(ids4, ids2),
+                "search after reload differs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rep["peak_alloc_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    launches = route_counts(kmods)
+    for r in ("summarize/lanes", "lb_distance/tiled", "refine_search/cta3"):
+        require(launches.get(r, 0) > 0, f"lifecycle: {r} not launched: "
+                f"{launches}")
+    rep["launches"] = launches
+    return rep, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--series", type=int, default=1 << 24)
@@ -924,21 +1549,23 @@ def main() -> int:
     # the edge cases draw from their own generator, so that the main phase
     # gets the same collection and queries whatever cases are added here
     edge_gen = torch.Generator(device=DEV).manual_seed(args.seed + 1)
+    # so do the route cases and the paths added after the main one
+    more_gen = torch.Generator(device=DEV).manual_seed(args.seed + 2)
     kmods = dict(ops.WRAPPERS)
-    rows = []
+    rows, launches = [], {}
     for name, check, args_ in (
-            ("summarize", check_summarize, (isax, kmods["summarize"], ref,
-                                            gen)),
-            ("lb_distance", check_lb_distance, (kmods["lb_distance"], ref,
-                                                gen)),
-            ("refine_topk", check_refine, (isax, kmods["refine_topk"], ref,
-                                           gen)),
+            ("summarize", check_summarize, (isax, kmods["summarize"],
+                                            ref, gen, more_gen)),
+            ("lb_distance", check_lb_distance, (kmods["lb_distance"],
+                                                ref, gen)),
+            ("refine_topk", check_refine, (isax, kmods["refine_topk"],
+                                           ref, gen)),
             ("refine_search", check_refine_search, (
                 api, search, kmods["refine_search"], ref, edge_gen)),
-            ("ed_argmin", check_ed_argmin, (isax, kmods["ed_argmin"], ref,
-                                            gen, edge_gen)),
-            ("flash_attention", check_flash, (kmods["flash_attention"], ref,
-                                              gen, edge_gen))):
+            ("ed_argmin", check_ed_argmin, (isax, kmods["ed_argmin"],
+                                            ref, gen, edge_gen)),
+            ("flash_attention", check_flash, (kmods["flash_attention"],
+                                              ref, gen, edge_gen))):
         kmods[name].launches = 0
         r = check(torch, *args_)
         torch.cuda.empty_cache()
@@ -946,11 +1573,17 @@ def main() -> int:
         emit({"phase": "kernel", **r, "launches": kmods[name].launches,
               "result": "PASS"})
     torch.cuda.empty_cache()
+    for r in check_routes(torch, api, isax, search, kmods, ref,
+                          more_gen):
+        torch.cuda.empty_cache()
+        rows.append(r)
+        emit({"phase": "route", **r, "result": "PASS"})
 
-    report, launches, (index, q, d, ids), loop_row, (
+    report, more, (index, q, d, ids), loop_row, (
         loop_args, loop_out) = main_path(torch, api, isax, search, kmods,
                                          ref, args.series, gen)
     emit(report)
+    launches |= more
     rounds, more = rounds_phase(torch, ops, kmods, loop_args, loop_out)
     emit(rounds)
     launches |= more
@@ -959,18 +1592,30 @@ def main() -> int:
                             min(report["search_ms_repeats"]))
     emit(scan)
     launches |= more
-    # the scan's own shape replaces the kernel phase's 2^20 in the table,
-    # the main cell's refinement the kernel phase's 2^18
+    # the scan's own shape replaces the kernel phase's 2^20 in the
+    # table, the main cell's refinement the kernel phase's 2^18
     mains = {"ed_argmin": scan["row"], "refine_search": loop_row}
     rows = [mains.get(r["name"], r) for r in rows]
     del index, q, d, ids
     torch.cuda.empty_cache()
+    report, more = l96_path(torch, api, isax, kmods, more_gen)
+    emit(report)
+    launches |= {k: v for k, v in more.items() if k not in launches}
+    torch.cuda.empty_cache()
+    report, more = lifecycle_path(torch, api, isax, kmods, more_gen)
+    emit(report)
+    launches |= {k: v for k, v in more.items() if k not in launches}
+    torch.cuda.empty_cache()
     attn, more = attention_phase(torch, ops, kmods, ref, gen)
     emit(attn)
     launches |= more
+    # every kernel of the table was launched on some path
+    missing = [r["name"] for r in rows
+               if "/" not in r["name"] and not launches.get(r["name"])]
+    require(not missing, f"no path launched {missing}")
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces")} | {
-        "launches": launches[r["name"]]} | {k: r[k] for k in (
+        "launches": launches.get(r["name"], 0)} | {k: r[k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")} for r in rows]})
     print(smi, flush=True)

@@ -1,29 +1,59 @@
-"""The FreshIndex facade of the port: build a flat index and answer exact
-k-NN queries, on the card unless the caller asks for the CPU.
+"""The FreshIndex facade of the port: build, exact k-NN search, the index
+lifecycle and checkpoints, on the card unless the caller asks for the CPU.
 
     from repro_torch.api import FreshIndex, IndexConfig
 
     index = FreshIndex.build(series)                  # (n, L), on "cuda"
     dist, ids = index.search(queries, k=10)           # exact k-NN
 
+    b = FreshIndex.builder(cfg, workers=4)            # streaming, lock-free
+    for chunk in stream:                              # multi-worker build
+        b.feed(chunk)
+    index = b.finalize()
+
+    index.add(batch, ttl_s=60.0)   # a delta, searchable at once
+    index.update(sid, series)      # new values under the stable id sid
+    index.delete(ids)              # tombstones, masked out of every search
+    index.expire_ttl()             # TTLs past their deadline -> tombstones
+    index.compact()                # one incremental sorted-run merge
+
+    index.save("ckpt/")            # config, arrays, lifecycle state
+    index = FreshIndex.load("ckpt/")
+
     index = FreshIndex.build(series, device="cpu")    # the plain versions
+
+The counterpart of `repro.api.FreshIndex` (its sharding, serving,
+approximate search and autotune are not ported yet).  Checkpoints use the
+layout and format ("fresh-index-v1") of repro's, so either package loads
+what the other saved.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import time
+from typing import Iterable, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
+from repro_torch.analysis.hooks import observe
+from repro_torch.checkpoint.store import load_arrays, save_checkpoint
 from repro_torch.convert import flat_index_from_numpy
 from repro_torch.core import isax
-from repro_torch.core.index import FlatIndex, build_index
-from repro_torch.core.search import run_search
+from repro_torch.core.builder import IndexBuilder, merge_sorted_delta
+from repro_torch.core.index import STORAGE as _DTYPES
+from repro_torch.core.index import (FlatIndex, build_index, index_stats,
+                                    summarize_rows)
+from repro_torch.core.search import merge_delta_topk, run_search, squeeze_k
+from repro_torch.maintenance.tombstones import (core_dead_mask,
+                                                delta_alive_mask, mask_core)
 
 _BOUNDS = ("prefix", "symbox", "paabox")
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-           "float16": torch.float16}
+FORMAT = "fresh-index-v1"
+# what a repro checkpoint may carry that the port keeps as it is and
+# writes back on save (repro's quality tiers and autotune table)
+_CARRIED = ("quality_calibration", "autotune")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +99,20 @@ class IndexConfig:
                 f"series length {L} is not divisible by segments="
                 f"{self.segments}; pick a divisor or pad the series")
 
+    def to_dict(self) -> dict:
+        """Plain-dict form of every field (what checkpoints persist)."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "IndexConfig":
+        """Rebuild a config from `to_dict()` output, or from repro's:
+        unknown keys (repro's backend and kernel knobs) are ignored, and
+        so is a None (repro's "resolve at search time"), which leaves the
+        port's default."""
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items()
+                      if k in known and v is not None})
+
 
 def resolve_device(device=None) -> torch.device:
     """None means "cuda".  Raises RuntimeError when CUDA is asked for and
@@ -81,37 +125,67 @@ def resolve_device(device=None) -> torch.device:
 
 
 class FreshIndex:
-    """A built flat index and its config.  Construct via build() or
-    from_arrays()."""
+    """A built index and its lifecycle.  Construct via build(), builder(),
+    from_arrays() or load()."""
 
     def __init__(self, idx: FlatIndex, config: IndexConfig):
         self._idx = idx
         self.config = config
-        self._n_series = int(idx.valid.sum())
+        self._n_base = int(idx.valid.sum())
+        self._delta: list = []                  # pending (m, L) f32 batches
+        self._delta_cat = None                  # their concatenation
+        self._delta_rows = None                 # ... as compaction stores it
+        # ids are STABLE and never reused: `_next_id` only grows, delta
+        # position p holds id `_delta_id0 + p`, and after a compaction
+        # that drops tombstones the id space is sparse
+        self._next_id = self._n_base
+        self._delta_id0 = self._n_base
+        self._tombstones: set = set()           # logically deleted ids
+        self._ttl: dict = {}                    # id -> monotonic deadline
+        self._first_tombstone_at: Optional[float] = None
+        self._masked = None                     # search_view cache ...
+        self._masked_key = None                 # ... keyed (ver, pending)
+        self._lifecycle_ver = 0
+        # update(sid, x) retires the old row and adds the new one under a
+        # fresh internal id that keeps answering as sid: `_id_map` is
+        # stable -> internal, `_alias` internal -> stable
+        self._id_map: dict = {}
+        self._alias: dict = {}
+        self._carried: dict = {}                # see _CARRIED
 
+    # ------------------------------------------------------------------ #
+    # construction
+    # ------------------------------------------------------------------ #
     @classmethod
     def build(cls, data, config: Optional[IndexConfig] = None, *,
               device=None) -> "FreshIndex":
         """Bulk-build an index over `data`, an (n, L) float array or tensor.
 
         Args:
-            data: (n, L) series, n >= 1; cast to float32 on `device`.
+            data: (n, L) series, cast to float32 on `device`; n == 0 is
+                the bootstrap (build empty, then add and compact).
             config: IndexConfig (None = defaults).
             device: where the index lives and the kernels run; None means
                 "cuda".
         Returns:
             A new FreshIndex.
         Raises:
-            ValueError: data is not 2-D with n >= 1, or L fails
+            ValueError: data is not 2-D, or L fails
                 `config.validate_series_len`.
             RuntimeError: CUDA asked for (or defaulted to) and missing.
+
+        One pass over all rows (`build_index`); `builder()` gives the same
+        arrays bit for bit through the Refresh-driven phases, and takes
+        the empty bootstrap.
         """
         cfg = config or IndexConfig()
         dev = resolve_device(device)
         x = torch.as_tensor(data, dtype=torch.float32, device=dev)
-        if x.dim() != 2 or x.shape[0] == 0:
-            raise ValueError(f"data must be (n, L) with n >= 1, got shape "
+        if x.dim() != 2:
+            raise ValueError(f"data must be (n, L), got shape "
                              f"{tuple(x.shape)}")
+        if x.shape[0] == 0:
+            return cls.builder(cfg, device=dev).feed(x).finalize()
         cfg.validate_series_len(x.shape[1])
         idx = build_index(x, segments=cfg.segments, bits=cfg.bits,
                           leaf_capacity=cfg.leaf_capacity, znorm=cfg.znorm,
@@ -119,6 +193,14 @@ class FreshIndex:
         if cfg.dtype != "float32":
             idx = idx._replace(series=idx.series.to(_DTYPES[cfg.dtype]))
         return cls(idx, cfg)
+
+    @classmethod
+    def builder(cls, config: Optional[IndexConfig] = None,
+                **builder_kwargs) -> IndexBuilder:
+        """An `IndexBuilder` for streaming / multi-worker construction
+        (workers, part_rows, injectors, executor, device: see
+        `repro_torch.core.builder.IndexBuilder`); single-use."""
+        return IndexBuilder(config, **builder_kwargs)
 
     @classmethod
     def from_arrays(cls, arrays: dict, config: IndexConfig,
@@ -129,10 +211,18 @@ class FreshIndex:
         return cls(flat_index_from_numpy(arrays, resolve_device(device)),
                    config)
 
+    # ------------------------------------------------------------------ #
+    # introspection
+    # ------------------------------------------------------------------ #
     @property
     def index(self) -> FlatIndex:
         """The underlying FlatIndex (read-only use)."""
         return self._idx
+
+    @property
+    def device(self) -> torch.device:
+        """Where the index lives and its kernels run."""
+        return self._idx.series.device
 
     @property
     def series_len(self) -> int:
@@ -141,21 +231,63 @@ class FreshIndex:
 
     @property
     def n_series(self) -> int:
-        """Number of indexed series: what k may not exceed."""
-        return self._n_series
+        """Searchable series: the compacted core plus the pending delta,
+        less the tombstoned ones (which stay physical until compact());
+        what k may not exceed."""
+        return self._n_base + self.n_pending - len(self._tombstones)
 
+    @property
+    def n_pending(self) -> int:
+        """Rows in the uncompacted delta (tombstoned ones included)."""
+        return sum(b.shape[0] for b in self._delta)
+
+    @property
+    def n_deleted(self) -> int:
+        """Live tombstones: deleted, not yet dropped by compact()."""
+        return len(self._tombstones)
+
+    @property
+    def n_ttl(self) -> int:
+        """Series carrying a pending TTL deadline."""
+        return len(self._ttl)
+
+    def stats(self) -> dict:
+        """Host-side summary: leaf count and fill, pending rows,
+        tombstones, TTLs, aliases (the keys of repro's)."""
+        st = index_stats(self._idx)
+        st["n_pending"] = self.n_pending
+        st["sharded"] = False
+        st["n_deleted"] = self.n_deleted
+        st["n_ttl"] = self.n_ttl
+        st["n_aliases"] = len(self._alias)
+        st["calibrated"] = "quality_calibration" in self._carried
+        st["autotuned"] = "autotune" in self._carried
+        return st
+
+    def __repr__(self) -> str:
+        return (f"FreshIndex(n={self.n_series}, L={self.series_len}, "
+                f"pending={self.n_pending}, config={self.config})")
+
+    # ------------------------------------------------------------------ #
+    # search
+    # ------------------------------------------------------------------ #
     def search(self, queries, k: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
         """Exact k-NN of `queries`, an (L,) or (Q, L) float array or tensor.
 
         Returns:
             (dist, ids) on the index's device: (Q,) for k == 1, (Q, k)
             ascending by distance otherwise.  Distances are Euclidean,
-            recomputed in direct form for the winners.
+            recomputed in direct form for the winners.  A pending delta is
+            scanned exactly (its rows as compaction will store them,
+            `delta_rows`) and merged in; tombstoned series never appear
+            (the search runs over `search_view`); rows renamed by
+            update() answer under their stable id.
         Raises:
             ValueError: query length != series_len, k < 1 or k > n_series.
+
+        Concurrency: a reader; serialize against writers.
         """
-        q = torch.as_tensor(queries, dtype=torch.float32,
-                            device=self._idx.series.device)
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         if q.dim() == 1:
             q = q[None]
         if q.shape[-1] != self.series_len:
@@ -164,6 +296,369 @@ class FreshIndex:
                 f"length {self.series_len}")
         if not 1 <= k <= self.n_series:
             raise ValueError(f"k must be in [1, {self.n_series}], got {k}")
-        return run_search(self._idx, q, k=k,
+        core, delta, alive, id0 = self.search_view()
+        d, i = run_search(core, q, k=k,
                           round_leaves=self.config.round_leaves,
                           znorm=self.config.znorm)
+        if delta is not None:
+            md, mi = merge_delta_topk(
+                self.delta_rows,
+                isax.znormalize(q) if self.config.znorm else q,
+                d[:, None] if k == 1 else d, i[:, None] if k == 1 else i,
+                alive, k=k, n_base=id0, znorm=False)
+            d, i = squeeze_k(md, mi, k)
+        return d, self._remap_ids(i)
+
+    def _remap_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        """Internal -> stable ids at the result boundary (rows renamed by
+        update()); untouched until the first update()."""
+        if not self._alias:
+            return ids
+        out = ids.clone()
+        internal = torch.as_tensor(list(self._alias), dtype=ids.dtype,
+                                   device=ids.device)
+        stable = torch.as_tensor(list(self._alias.values()), dtype=ids.dtype,
+                                 device=ids.device)
+        hit = ids[..., None] == internal
+        found = hit.any(-1)
+        out[found] = stable[hit.to(torch.int8).argmax(-1)][found]
+        return out
+
+    def search_view(self):
+        """The tombstone-masked search inputs `(core, delta, delta_alive,
+        delta_id0)`: the core with its dead rows' norms at the never-wins
+        sentinel (the stored arrays untouched), the pending delta as one
+        (m, L) tensor (None when empty), its (m,) alive mask (None when all
+        alive), and the delta's id offset.  Cached until the next
+        lifecycle change."""
+        key = (self._lifecycle_ver, self.n_pending)
+        if self._masked_key != key:
+            if self._tombstones:
+                core = mask_core(self._idx, core_dead_mask(
+                    self._idx.perm, self._tombstones))
+                alive = delta_alive_mask(self.n_pending, self._delta_id0,
+                                         self._tombstones, self.device)
+            else:
+                core, alive = self._idx, None
+            self._masked = (core, alive)
+            self._masked_key = key
+        core, alive = self._masked
+        return core, self.delta_cat, alive, self._delta_id0
+
+    @property
+    def delta_cat(self) -> Optional[torch.Tensor]:
+        """The pending delta as one (m, L) tensor on the index's device
+        (None when empty), cached between add() calls."""
+        if not self._delta:
+            return None
+        if self._delta_cat is None:
+            observe("index.delta_cat", self)
+            self._delta_cat = torch.cat(self._delta)
+        return self._delta_cat
+
+    @property
+    def delta_rows(self) -> Optional[torch.Tensor]:
+        """The pending delta as compaction will store it: float32 rows,
+        z-normalized by the summarize kernel when config.znorm (None when
+        empty), cached with `delta_cat`.  The delta scan reads these, so
+        a row has the same bits, hence the same distances, before and
+        after compaction."""
+        if not self._delta:
+            return None
+        if self._delta_rows is None:
+            cfg = self.config
+            self._delta_rows = summarize_rows(
+                self.delta_cat, segments=cfg.segments, bits=cfg.bits,
+                znorm=cfg.znorm)[0]
+        return self._delta_rows
+
+    # ------------------------------------------------------------------ #
+    # updates (Jiffy-style batch delta)
+    # ------------------------------------------------------------------ #
+    def add(self, batch, *, ttl_s: Optional[float] = None) -> "FreshIndex":
+        """Append `batch` ((L,) or (m, L)) to the delta: no rebuild, and
+        searchable at once by an exact scan.  Ids continue from the
+        monotone id counter.  `ttl_s` gives every row of this batch a
+        time to live: past it, the next expire_ttl() tombstones them.
+
+        Raises:
+            ValueError: batch is not (m, series_len), or ttl_s <= 0.
+
+        Concurrency: a writer.
+        """
+        if ttl_s is not None and ttl_s <= 0:
+            raise ValueError(f"ttl_s must be > 0 or None, got {ttl_s}")
+        # a copy the delta owns: a caller reusing its buffer must not
+        # rewrite pending rows
+        b = torch.tensor(np.asarray(batch, np.float32)) \
+            if not isinstance(batch, torch.Tensor) \
+            else batch.detach().to(torch.float32).clone()
+        b = b.to(self.device)
+        if b.dim() == 1:
+            b = b[None]
+        if b.dim() != 2 or b.shape[1] != self.series_len:
+            raise ValueError(f"batch must be (m, {self.series_len}), got "
+                             f"{tuple(b.shape)}")
+        first_id = self._delta_id0 + self.n_pending
+        self._delta.append(b)
+        self._delta_cat = self._delta_rows = None
+        self._next_id += b.shape[0]
+        if ttl_s is not None:
+            deadline = time.monotonic() + ttl_s
+            for sid in range(first_id, first_id + b.shape[0]):
+                self._ttl[sid] = deadline
+        return self
+
+    def update(self, sid: int, series, *,
+               ttl_s: Optional[float] = None) -> "FreshIndex":
+        """Replace series `sid`'s values under its STABLE id: the old row
+        is tombstoned and the new one added under a fresh internal id that
+        search reports as `sid` (the alias survives compaction and
+        checkpoints).
+
+        Raises:
+            ValueError: `sid` is not a live series, or `series` is not
+                (L,).
+
+        Concurrency: a writer; the retire and add are not atomic against
+        concurrent readers.
+        """
+        sid = int(sid)
+        cur = self._id_map.get(sid, sid)
+        row = torch.as_tensor(np.asarray(series, np.float32)) \
+            if not isinstance(series, torch.Tensor) else series.float()
+        if row.dim() != 1 or row.shape[0] != self.series_len:
+            raise ValueError(f"series must be ({self.series_len},), got "
+                             f"{tuple(row.shape)}")
+        if self.delete(cur) == 0:
+            raise ValueError(
+                f"id {sid} is not a live series; update() replaces an "
+                f"existing row (use add() for new series)")
+        internal = self._delta_id0 + self.n_pending
+        self.add(row, ttl_s=ttl_s)
+        self._id_map[sid] = internal
+        self._alias[internal] = sid
+        return self
+
+    # ------------------------------------------------------------------ #
+    # deletion and TTL expiry
+    # ------------------------------------------------------------------ #
+    def delete(self, ids: Union[int, Iterable[int]]) -> int:
+        """Logically delete series by id: they stop matching any search at
+        once and are dropped, exactly once, by the next compact().
+        Already deleted or dropped ids are skipped.  Returns the number of
+        series newly tombstoned.
+
+        Raises:
+            ValueError: an id is negative or was never assigned.
+
+        Concurrency: a writer.
+        """
+        if isinstance(ids, (int, np.integer)):
+            ids = (int(ids),)
+        elif isinstance(ids, (torch.Tensor, np.ndarray)):
+            ids = ids.tolist()
+        # a stable id renamed by update() resolves to its current row
+        ids = [self._id_map.get(int(i), int(i)) for i in ids]
+        for sid in ids:
+            if sid < 0 or sid >= self._next_id:
+                raise ValueError(
+                    f"id {sid} was never assigned (ids run 0.."
+                    f"{self._next_id - 1})")
+        d_lo, d_hi = self._delta_id0, self._delta_id0 + self.n_pending
+        # which core ids are still stored, asked once on the device
+        core = [i for i in ids if not d_lo <= i < d_hi]
+        stored = set()
+        if core:
+            c = torch.as_tensor(core, dtype=torch.int64, device=self.device)
+            hit = torch.isin(c, self._idx.perm[self._idx.valid].long())
+            stored = set(c[hit].tolist())
+        newly = 0
+        for sid in ids:
+            if sid in self._tombstones:
+                continue
+            if not d_lo <= sid < d_hi and sid not in stored:
+                continue                    # already dropped by a compact
+            self._tombstones.add(sid)
+            self._ttl.pop(sid, None)
+            stable = self._alias.pop(sid, None)
+            if stable is not None:
+                self._id_map.pop(stable, None)
+            newly += 1
+        if newly:
+            if self._first_tombstone_at is None:
+                self._first_tombstone_at = time.monotonic()
+            self._lifecycle_ver += 1
+        return newly
+
+    def expire_ttl(self, now: Optional[float] = None) -> int:
+        """Tombstone every series whose TTL deadline has passed.  `now` is
+        a `time.monotonic()` value (None = the current time; tests pass a
+        clock).  Returns the number expired.  Concurrency: a writer."""
+        if now is None:
+            now = time.monotonic()
+        expired = [sid for sid, dl in self._ttl.items() if dl <= now]
+        return self.delete(expired) if expired else 0
+
+    @property
+    def tombstone_age_s(self) -> float:
+        """Seconds since the oldest live tombstone was made (0.0 if none)."""
+        if self._first_tombstone_at is None:
+            return 0.0
+        return time.monotonic() - self._first_tombstone_at
+
+    # ------------------------------------------------------------------ #
+    # compaction
+    # ------------------------------------------------------------------ #
+    def compact(self) -> "FreshIndex":
+        """Merge the delta into the core and drop the tombstoned rows, with
+        one incremental sorted-run merge (`merge_sorted_delta`): stored
+        rows keep their bits, only the delta is summarized and cast, once.
+        With float32 storage the result is bit-identical to a fresh build
+        over the live rows; compact∘compact == compact.
+
+        Concurrency: a writer (prepare + commit back to back).
+        """
+        return self.commit_compact(self.prepare_compact())
+
+    def prepare_compact(self):
+        """The compacted core, computed WITHOUT changing this index: an
+        opaque token for commit_compact(), or None when there is nothing
+        to merge and nothing to drop."""
+        drops = frozenset(self._tombstones)
+        if not self._delta and not drops:
+            return None
+        delta = (self.delta_cat if self._delta else
+                 torch.zeros((0, self.series_len), device=self.device))
+        merged = merge_sorted_delta(self._idx, delta, self.config,
+                                    drop_ids=drops or None,
+                                    delta_id0=self._delta_id0)
+        return (merged, delta.shape[0], len(self._delta), drops)
+
+    def commit_compact(self, token) -> "FreshIndex":
+        """Install a prepare_compact() token: the merged core, an empty
+        delta and tombstone set, and the delta id offset at the high-water
+        mark (dropped ids stay retired).
+
+        Raises:
+            RuntimeError: the delta or the tombstones changed since the
+                token was prepared (a raced add or delete).
+        """
+        if token is None:
+            return self
+        merged, n_rows, n_batches, drops = token
+        if (len(self._delta) != n_batches
+                or sum(b.shape[0] for b in self._delta) != n_rows):
+            raise RuntimeError(
+                "delta changed between prepare_compact and commit_compact; "
+                "serialize writers around the prepare/commit pair")
+        if frozenset(self._tombstones) != drops:
+            raise RuntimeError(
+                "tombstones changed between prepare_compact and "
+                "commit_compact; serialize writers around the "
+                "prepare/commit pair")
+        self._idx = merged
+        self._n_base = int(merged.valid.sum())
+        self._delta = []
+        self._delta_cat = self._delta_rows = None
+        self._tombstones = set()
+        self._first_tombstone_at = None
+        self._delta_id0 = self._next_id
+        self._masked = None
+        self._masked_key = None
+        self._lifecycle_ver += 1
+        return self
+
+    # ------------------------------------------------------------------ #
+    # checkpoints
+    # ------------------------------------------------------------------ #
+    def save(self, directory: str, step: int = 0) -> str:
+        """Persist the config, the index arrays, any pending delta and the
+        lifecycle state (ids, tombstones, TTLs as remaining seconds,
+        aliases) into `directory` at `step`; returns the checkpoint path.
+        Restore with load() or reload(), no rebuild."""
+        delta = (self.delta_cat if self._delta else
+                 torch.zeros((0, self.series_len)))
+        tree = {"index": self._idx._asdict(), "delta": delta}
+        now = time.monotonic()
+        extra = {"config": self.config.to_dict(),
+                 "n_series": self._n_base,
+                 "format": FORMAT,
+                 "lifecycle": {
+                     "next_id": self._next_id,
+                     "delta_id0": self._delta_id0,
+                     "tombstones": sorted(self._tombstones),
+                     "ttl": [[int(sid), max(0.0, dl - now)]
+                             for sid, dl in sorted(self._ttl.items())],
+                     "aliases": [[int(i), int(s)]
+                                 for i, s in sorted(self._alias.items())],
+                 }}
+        extra.update(self._carried)
+        return save_checkpoint(directory, step, tree, extra=extra)
+
+    @classmethod
+    def load(cls, directory: str, step: Optional[int] = None, *,
+             device=None) -> "FreshIndex":
+        """Restore a save()d index (this package's or repro's) from
+        `directory` at `step` (None = latest) onto `device` (None means
+        "cuda"): config, arrays, delta and lifecycle, no rebuild.
+
+        Raises:
+            ValueError: not a FreshIndex checkpoint, or the manifest's
+                series count disagrees with the arrays.
+        """
+        dev = resolve_device(device)
+        arrays, manifest = load_arrays(directory, step=step)
+        extra = manifest.get("extra", {})
+        if extra.get("format") != FORMAT:
+            raise ValueError(
+                f"{directory} is not a FreshIndex checkpoint "
+                f"(format={extra.get('format')!r})")
+        cfg = IndexConfig.from_dict(extra["config"])
+        idx = FlatIndex(**{f: arrays[f"index/{f}"].to(dev)
+                           for f in FlatIndex._fields})
+        out = cls(idx, cfg)
+        saved_n = extra.get("n_series")
+        if saved_n is not None and saved_n != out._n_base:
+            raise ValueError(
+                f"corrupt checkpoint: manifest records {saved_n} series "
+                f"but the index arrays hold {out._n_base}")
+        delta = arrays.get("delta")
+        if delta is not None and delta.shape[0]:
+            out._delta = [delta.float().to(dev)]
+        life = extra.get("lifecycle")
+        if life is not None:
+            now = time.monotonic()
+            out._next_id = int(life["next_id"])
+            out._delta_id0 = int(life["delta_id0"])
+            out._tombstones = {int(t) for t in life["tombstones"]}
+            out._ttl = {int(s): now + float(r) for s, r in life["ttl"]}
+            out._alias = {int(i): int(s)
+                          for i, s in life.get("aliases", ())}
+            out._id_map = {s: i for i, s in out._alias.items()}
+            if out._tombstones:
+                out._first_tombstone_at = now
+        else:
+            # a checkpoint from before the lifecycle: ids were contiguous
+            out._next_id = out._n_base + out.n_pending
+            out._delta_id0 = out._n_base
+        out._carried = {k: extra[k] for k in _CARRIED if k in extra}
+        return out
+
+    def reload(self, directory: str, step: Optional[int] = None
+               ) -> "FreshIndex":
+        """Swap THIS object's state for a save()d checkpoint, in place, on
+        this index's device: exactly `FreshIndex.load(directory, step)`.
+
+        Raises:
+            ValueError: not a FreshIndex checkpoint, or its IndexConfig
+                differs from this index's.
+        """
+        loaded = FreshIndex.load(directory, step=step, device=self.device)
+        if loaded.config != self.config:
+            raise ValueError(
+                f"checkpoint config {loaded.config} does not match this "
+                f"index's {self.config}; refusing to reload across "
+                f"configs")
+        self.__dict__.update(loaded.__dict__)
+        return self

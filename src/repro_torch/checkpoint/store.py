@@ -1,0 +1,143 @@
+"""Checkpoint store, in the layout `repro.checkpoint.store` writes.
+
+Layout:  <dir>/step_<N>/
+             manifest.json      leaf paths, shapes, dtypes, step, extra
+             <leaf-path>.npy    one file per leaf (full logical array)
+
+A tree is nested dicts, NamedTuples (by field name), lists and tuples
+(by position) whose leaves are tensors or numpy arrays; a leaf's path
+joins its keys with "/", as jax names a pytree's leaves, and its file
+name replaces "/" by "__".  bfloat16 leaves are stored as their uint16
+bit patterns (numpy has no bfloat16) and the manifest records the
+logical dtype.  So either package loads what the other saved.
+Saves write a temporary directory and rename it into place: a crash
+mid-save never leaves a half-written step visible.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import time
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    if hasattr(tree, "_fields"):                  # a NamedTuple: by name
+        tree = tree._asdict()
+    if isinstance(tree, dict):
+        out: Dict[str, Any] = {}
+        for k in sorted(tree):
+            out.update(_flatten(tree[k], f"{prefix}{k}/"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, f"{prefix}{i}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
+    """(array to write, logical dtype name)."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        arr = t.numpy()
+        return arr, str(arr.dtype)
+    arr = np.asarray(leaf)
+    if str(arr.dtype) == "bfloat16":            # ml_dtypes' bfloat16
+        return arr.view(np.uint16), "bfloat16"
+    return arr, str(arr.dtype)
+
+
+def save_checkpoint(directory: str, step: int, tree, *,
+                    extra: Optional[dict] = None) -> str:
+    """Write <dir>/step_<step>; returns the final path."""
+    final = os.path.join(directory, f"step_{step}")
+    tmp = final + ".tmp"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    os.makedirs(tmp, exist_ok=True)
+    manifest = {"step": step, "leaves": {}, "extra": extra or {},
+                "time": time.time()}
+    for key, leaf in _flatten(tree).items():
+        arr, dtype_str = _to_numpy(leaf)
+        fname = key.replace("/", "__") + ".npy"
+        np.save(os.path.join(tmp, fname), arr)
+        manifest["leaves"][key] = {
+            "file": fname, "shape": list(arr.shape), "dtype": dtype_str}
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)                     # atomic publish
+    return final
+
+
+def latest_step(directory: str) -> Optional[int]:
+    """The largest N of the step_<N> checkpoints under `directory`, or
+    None when there is none."""
+    if not os.path.isdir(directory):
+        return None
+    steps = []
+    for d in os.listdir(directory):
+        if d.startswith("step_") and not d.endswith(".tmp"):
+            try:
+                steps.append(int(d.split("_")[1]))
+            except ValueError:
+                pass
+    return max(steps) if steps else None
+
+
+def _decode_leaf(arr: np.ndarray, dtype_str: str) -> torch.Tensor:
+    """A stored leaf as a CPU tensor of its logical dtype (undoing the
+    bfloat16 -> uint16 bit-pattern encoding)."""
+    if dtype_str == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def _step_path(directory: str, step: Optional[int]) -> str:
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {directory}")
+    return os.path.join(directory, f"step_{step}")
+
+
+def load_arrays(directory: str, *, step: Optional[int] = None
+                ) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """({leaf path: CPU tensor}, manifest) of checkpoint `step` (None =
+    the latest), without a template tree."""
+    path = _step_path(directory, step)
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    arrays = {key: _decode_leaf(np.load(os.path.join(path, info["file"])),
+                                info["dtype"])
+              for key, info in manifest["leaves"].items()}
+    return arrays, manifest
+
+
+def load_checkpoint(directory: str, like_tree, *,
+                    step: Optional[int] = None):
+    """(tree, manifest): checkpoint `step` (None = the latest) restored
+    into the structure of `like_tree`, each leaf a CPU tensor."""
+    arrays, manifest = load_arrays(directory, step=step)
+
+    def build(node, prefix: str):
+        if isinstance(node, dict):
+            return {k: build(node[k], f"{prefix}{k}/") for k in node}
+        if hasattr(node, "_fields"):                   # a NamedTuple
+            return type(node)(**{f: build(getattr(node, f), f"{prefix}{f}/")
+                                 for f in node._fields})
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v, f"{prefix}{i}/")
+                              for i, v in enumerate(node))
+        return arrays[prefix[:-1]]
+    return build(like_tree, ""), manifest

@@ -14,12 +14,16 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.isax_summarize import summarize
+from repro_torch.kernels.isax_summarize import \
+    summarize_rows as _summarize_rows
 
 from . import isax
 
 # rows per step where a full-size temporary would double the series' memory
 _CHUNK_ROWS = 1 << 20
+# the storage dtypes of the series matrix, by IndexConfig.dtype
+STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
 
 
 class FlatIndex(NamedTuple):
@@ -106,12 +110,29 @@ def lexsort_lanes(lanes: torch.Tensor) -> torch.Tensor:
     return perm
 
 
-def _rows(fn, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """out[rows] = fn(x[rows]) in blocks of _CHUNK_ROWS rows, so a row-wise
-    function of a full-size tensor never holds a full-size temporary."""
-    for s in range(0, x.shape[0], _CHUNK_ROWS):
-        out[s:s + _CHUNK_ROWS] = fn(x[s:s + _CHUNK_ROWS])
-    return out
+def summarize_rows(raw: torch.Tensor, *, segments: int, bits: int,
+                   znorm: bool):
+    """(series f32, paa, words uint8, sq_norms) of raw (n, L) rows through
+    the summarize kernel, one launch per block of _CHUNK_ROWS rows, each
+    writing its slice of the full-size outputs in place (only a block of
+    raw is converted when it is neither float32 nor bfloat16).  The
+    kernel gives each row the same bits whatever block it lies in: the
+    index builder's parts call this too, and store what `build_index`
+    stores."""
+    n, L = raw.shape
+    dev = raw.device
+    x = torch.empty((n, L), dtype=torch.float32, device=dev)
+    p = torch.empty((n, segments), dtype=torch.float32, device=dev)
+    w = torch.empty((n, segments), dtype=torch.int32, device=dev)
+    sq = torch.empty((n,), dtype=torch.float32, device=dev)
+    for s in range(0, n, _CHUNK_ROWS):
+        c = raw[s:s + _CHUNK_ROWS]
+        if c.dtype not in (torch.float32, torch.bfloat16):
+            c = c.float()
+        _summarize_rows(c.contiguous(), segments=segments, bits=bits,
+                        znorm=znorm, out=tuple(t[s:s + _CHUNK_ROWS]
+                                               for t in (x, p, w, sq)))
+    return x, p, w.to(torch.uint8), sq
 
 
 def build_index(raw: torch.Tensor, *, segments: int = isax.SEGMENTS,
@@ -125,18 +146,12 @@ def build_index(raw: torch.Tensor, *, segments: int = isax.SEGMENTS,
     the latter.
     """
     n, L = raw.shape
-    dev = raw.device
-    if znorm:
-        x = _rows(lambda c: isax.znormalize(c.float()), raw,
-                  torch.empty((n, L), dtype=torch.float32, device=dev))
-    else:
-        x = raw.float()
-    p, w = summarize(x, segments=segments, bits=bits, znorm=False)
-    w = w.to(torch.uint8)
+    x, p, w, sq = summarize_rows(raw, segments=segments, bits=bits,
+                                 znorm=znorm)
 
     # ---- sort by interleaved key (leaf order of the round-robin tree) ----
     perm = lexsort_lanes(isax.interleaved_key(w, bits))
-    x, p, w = x[perm], p[perm], w[perm]
+    x, p, w, sq = x[perm], p[perm], w[perm], sq[perm]
     perm = perm.to(torch.int32)
 
     # ---- pad to a whole number of leaves ---------------------------------
@@ -148,6 +163,7 @@ def build_index(raw: torch.Tensor, *, segments: int = isax.SEGMENTS,
         p = torch.cat([p, p.new_full((pad, segments), float("inf"))])
         w = torch.cat([w, w.new_full((pad, segments), (1 << bits) - 1)])
         perm = torch.cat([perm, perm.new_full((pad,), -1)])
+        sq = torch.cat([sq, sq.new_zeros((pad,))])
     valid = perm >= 0
 
     n_leaves = n_pad // leaf_capacity
@@ -156,11 +172,20 @@ def build_index(raw: torch.Tensor, *, segments: int = isax.SEGMENTS,
         w.reshape(n_leaves, leaf_capacity, segments),
         valid.reshape(n_leaves, leaf_capacity, 1), bits=bits, bound=bound)
 
-    sq_norms = _rows(lambda c: (c * c).sum(dim=-1), x,
-                     torch.empty((n_pad,), dtype=torch.float32, device=dev))
     # padded rows must never win a min: push their norms (hence distances) up
-    sq_norms = torch.where(valid, sq_norms, torch.full_like(sq_norms, 1e30))
+    sq_norms = torch.where(valid, sq, torch.full_like(sq, 1e30))
 
     return FlatIndex(series=x, paa=p, words=w, sq_norms=sq_norms,
                      perm=perm, valid=valid, leaf_lo=lo, leaf_hi=hi,
                      leaf_valid=leaf_valid)
+
+
+def index_stats(idx: FlatIndex) -> dict:
+    """Host-side summary: series, leaves, capacity and leaf fill."""
+    fill = idx.valid.reshape(idx.n_leaves, -1).sum(dim=1)
+    return {"n_series": int(idx.valid.sum()),
+            "n_leaves": int(idx.n_leaves),
+            "leaf_capacity": idx.leaf_capacity,
+            "mean_fill": float(fill.double().mean()),
+            "min_fill": int(fill.min()),
+            "max_fill": int(fill.max())}

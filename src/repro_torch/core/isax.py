@@ -76,6 +76,17 @@ def padded_breakpoints(bits: int = SAX_BITS) -> np.ndarray:
     return np.concatenate([[-np.inf], breakpoints(bits), [np.inf]])
 
 
+@functools.lru_cache(maxsize=None)
+def table(name: str, bits: int, dtype: torch.dtype,
+          device: torch.device) -> torch.Tensor:
+    """The `breakpoints` or `padded_breakpoints` table as a tensor on
+    `device`, made once: a copy from host memory per call would wait for
+    the device each time (and the builder's worker threads for one
+    another)."""
+    fn = breakpoints if name == "breakpoints" else padded_breakpoints
+    return torch.as_tensor(fn(bits), dtype=dtype, device=device)
+
+
 def znormalize(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     """Per-series z-normalization over the last axis.  The standard
     deviation is the population one (`correction=0`), as `jnp.std`."""
@@ -97,8 +108,7 @@ def sax_word(paa_vals: torch.Tensor, bits: int = SAX_BITS) -> torch.Tensor:
     """Quantize PAA values into iSAX symbols at full cardinality:
     searchsorted(breakpoints, value, side="right").  uint8 for bits <= 8,
     int32 otherwise."""
-    bp = torch.as_tensor(breakpoints(bits), dtype=paa_vals.dtype,
-                         device=paa_vals.device)
+    bp = table("breakpoints", bits, paa_vals.dtype, paa_vals.device)
     sym = torch.searchsorted(bp, paa_vals.contiguous(), right=True)
     return sym.to(torch.uint8 if bits <= 8 else torch.int32)
 
@@ -108,6 +118,17 @@ def summarize(x: torch.Tensor, segments: int = SEGMENTS,
     """Series -> (paa, isax_word)."""
     p = paa(x, segments)
     return p, sax_word(p, bits)
+
+
+def root_bucket(words: torch.Tensor, bits: int = SAX_BITS) -> torch.Tensor:
+    """First-bit signature: the MSB of each segment's symbol, packed into
+    an int, the root subtree an iSAX index routes a series to (paper
+    Section V-A).  words: (..., w) -> (...,) int32 in [0, 2^w)."""
+    w = words.shape[-1]
+    msb = (words.to(torch.int32) >> (bits - 1))
+    weights = 1 << torch.arange(w - 1, -1, -1, dtype=torch.int32,
+                                device=words.device)
+    return (msb * weights).sum(dim=-1, dtype=torch.int32)
 
 
 def interleaved_key(words: torch.Tensor, bits: int = SAX_BITS) -> torch.Tensor:
@@ -132,13 +153,49 @@ def interleaved_key(words: torch.Tensor, bits: int = SAX_BITS) -> torch.Tensor:
     return torch.stack(lanes, dim=-1)
 
 
+def interleaved_key_np(words: np.ndarray, bits: int = SAX_BITS) -> np.ndarray:
+    """`interleaved_key` in numpy, for the builder's host-side key, sort
+    and merge phases: integer math only, bit-identical to it and to
+    `repro.core.isax.interleaved_key_np`.  (n, w) -> (n, n_lanes) int32."""
+    words = np.asarray(words).astype(np.int32)
+    w = words.shape[-1]
+    # planes[..., b * w + s] = bit (bits - 1 - b) of segment s: MSB plane
+    # first, as `interleaved_key` walks them
+    shifts = np.arange(bits - 1, -1, -1, dtype=np.int32)[:, None]
+    planes = ((words[..., None, :] >> shifts) & 1).reshape(
+        words.shape[:-1] + (bits * w,))
+    lanes = []
+    for lane_start in range(0, w * bits, 31):
+        chunk = planes[..., lane_start:lane_start + 31]
+        weights = np.int32(1) << np.arange(chunk.shape[-1] - 1, -1, -1,
+                                           dtype=np.int32)
+        lanes.append(chunk @ weights)
+    return np.stack(lanes, axis=-1).astype(np.int32)
+
+
+def lexsort_keys(keys: np.ndarray) -> np.ndarray:
+    """Stable ascending order of (n, n_lanes) keys, lane 0 primary (numpy's
+    lexsort takes its primary key last); ties keep their positions, which
+    is what makes merging sorted runs equal one global stable sort."""
+    return np.lexsort(tuple(keys[:, i]
+                            for i in range(keys.shape[1] - 1, -1, -1)))
+
+
+def pack_keys_bytes(keys: np.ndarray) -> np.ndarray:
+    """(n, n_lanes) non-negative int32 lanes -> (n,) fixed-width byte
+    strings whose memcmp order is the lanes' lexicographic order
+    (big-endian uint32 bytes, lane after lane): a scalar key that
+    np.searchsorted can binary-search when a run is merged."""
+    be = np.ascontiguousarray(keys.astype(">u4"))
+    return be.view(f"S{4 * keys.shape[1]}").reshape(-1)
+
+
 def symbol_region(sym: torch.Tensor, depth_bits, bits: int = SAX_BITS,
                   dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lo, hi) of the N(0,1) region covered by symbol `sym` when only its
     top `depth_bits` bits are considered (an iSAX tree-node prefix).
     depth_bits is an int or a tensor that broadcasts against sym."""
-    pad = torch.as_tensor(padded_breakpoints(bits), dtype=dtype,
-                          device=sym.device)
+    pad = table("padded_breakpoints", bits, dtype, sym.device)
     shift = bits - torch.as_tensor(depth_bits, dtype=torch.int64,
                                    device=sym.device)
     base = (sym.to(torch.int64) >> shift) << shift

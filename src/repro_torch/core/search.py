@@ -15,11 +15,14 @@ The counterpart of `repro.core.search`'s local plan:
               runs its own rounds; the batch's round count (the most any
               query ran) is read on the host once per search;
   re-rank     the winners' distances recomputed in direct form.
+
+A pending delta (rows added since the last compaction) is scanned exactly
+and merged in (`merge_delta_topk`, `snapshot_search_impl`).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -82,9 +85,13 @@ def search_plan_impl(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
     L = idx.series.shape[1]
     Q = queries.shape[0]
     K = round_leaves
-    M = idx.leaf_capacity
 
     q, q_paa = prepare_queries(queries, znorm, idx.paa.shape[1])
+    if idx.n_leaves == 0:              # an empty core (the bootstrap)
+        return (torch.full((Q, k), BIG ** 0.5, device=q.device),
+                torch.full((Q, k), -1, dtype=torch.int32, device=q.device),
+                0)
+    M = idx.leaf_capacity
     q_sq = (q * q).sum(dim=-1)
     lb = leaf_lower_bounds(idx, q_paa, L)                # (Q, n_leaves)
     cap = _rounds_cap(idx.n_leaves, K)
@@ -127,25 +134,97 @@ def run_search(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
 
 
 def _bruteforce_topk(raw: torch.Tensor, queries: torch.Tensor, *, k: int,
-                     znorm: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+                     znorm: bool, alive: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(Q, k) exact scan over all series: matmul-form selection, direct-form
-    reported distances, both ascending with ties to the lower index."""
+    reported distances, both ascending with ties to the lower index.
+
+    The selection's products run in float64, so no TF32 setting of the
+    matmul changes the answer.  `alive` ((n,) bool, None = all rows)
+    makes the scan tombstone-aware: dead rows' distances are masked to
+    BIG after normalization; a dead row chosen because k exceeds the
+    alive count reports distance sqrt(BIG) and id -1, like the index
+    search's not-found slots."""
     x = isax.znormalize(raw).float() if znorm else raw.float()
     q = isax.znormalize(queries).float() if znorm else queries.float()
-    d2 = ((q * q).sum(-1)[:, None] + (x * x).sum(-1)[None, :]
-          - 2.0 * q @ x.T).clamp_min(0.0)
+    xd, qd = x.double(), q.double()
+    d2 = ((qd * qd).sum(-1)[:, None] + (xd * xd).sum(-1)[None, :]
+          - 2.0 * qd @ xd.T).clamp_min(0.0)
+    if alive is not None:
+        d2 = torch.where(alive[None, :], d2, torch.full_like(d2, BIG))
     i = torch.sort(d2, dim=1, stable=True).indices[:, :k]
     d_exact = (q[:, None, :] - x[i]).square().sum(dim=-1)
+    if alive is not None:
+        d_exact = torch.where(alive[i], d_exact, torch.full_like(d_exact,
+                                                                 BIG))
     resort = torch.argsort(d_exact, dim=1, stable=True)
     d = torch.gather(d_exact, 1, resort).sqrt()
     i = torch.gather(i, 1, resort).to(torch.int32)
+    if alive is not None:
+        i = torch.where(alive[i.long()], i, torch.full_like(i, -1))
     return d, i
 
 
+def _merge_topk(d_a: torch.Tensor, i_a: torch.Tensor, d_b: torch.Tensor,
+                i_b: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold two (Q, *) candidate sets into the (Q, k) best, ties to set a
+    and then the lower position, as `jax.lax.top_k` orders them (a stable
+    sort of the concatenation)."""
+    alld = torch.cat([d_a, d_b], dim=1)
+    alli = torch.cat([i_a, i_b], dim=1)
+    d, pos = torch.sort(alld, dim=1, stable=True)
+    return d[:, :k], torch.gather(alli, 1, pos[:, :k])
+
+
+def _shift_delta_ids(di: torch.Tensor, n_base: int,
+                     delta_alive: Optional[torch.Tensor]) -> torch.Tensor:
+    """Delta scan position -> series id: position p holds id n_base + p
+    (n_base is the delta id offset).  With a tombstone mask, not-found
+    slots carry -1 and stay -1."""
+    if delta_alive is None:
+        return di + n_base
+    return torch.where(di >= 0, di + n_base, di)
+
+
+def merge_delta_topk(delta: torch.Tensor, queries: torch.Tensor,
+                     d: torch.Tensor, i: torch.Tensor,
+                     delta_alive: Optional[torch.Tensor] = None, *, k: int,
+                     n_base: int, znorm: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fold an exact scan of the (m, L) delta into (Q, k) core results
+    (d, i): delta ids continue at `n_base`, `delta_alive` masks its
+    tombstoned rows, ties go to the core set."""
+    kd = min(k, delta.shape[0])
+    dd, di = _bruteforce_topk(delta, queries, k=kd, znorm=znorm,
+                              alive=delta_alive)
+    return _merge_topk(d, i, dd, _shift_delta_ids(di, n_base, delta_alive),
+                       k)
+
+
+def snapshot_search_impl(idx: FlatIndex, delta: torch.Tensor,
+                         queries: torch.Tensor,
+                         delta_alive: Optional[torch.Tensor] = None, *,
+                         k: int, n_base: int, round_leaves: int = 8,
+                         znorm: bool = True
+                         ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Exact k-NN over a (core index, delta buffer) snapshot: the core
+    (dead rows pre-masked, `maintenance.mask_core`) by `search_plan_impl`,
+    the unsorted delta by an exact scan, merged by `merge_delta_topk`.
+    Returns (dist, ids, rounds)."""
+    d, i, rounds = search_plan_impl(idx, queries, k=k,
+                                    round_leaves=round_leaves, znorm=znorm)
+    md, mi = merge_delta_topk(delta, queries, d, i, delta_alive, k=k,
+                              n_base=n_base, znorm=znorm)
+    return md, mi, rounds
+
+
 def search_bruteforce(raw: torch.Tensor, queries: torch.Tensor, *,
-                      k: int = 1, znorm: bool = True
+                      k: int = 1, znorm: bool = True,
+                      alive: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k oracle: exact scan over all series.  (Q,) for k == 1, (Q, k)
-    ascending otherwise."""
-    d, i = _bruteforce_topk(raw, queries, k=k, znorm=znorm)
+    """Top-k oracle: exact scan over all series (`alive` masks dead rows,
+    see `_bruteforce_topk`).  (Q,) for k == 1, (Q, k) ascending
+    otherwise."""
+    d, i = _bruteforce_topk(raw, queries, k=k, znorm=znorm, alive=alive)
     return squeeze_k(d, i, k)

@@ -7,12 +7,10 @@
     refine_search   — every refinement round of a search in one launch
     flash_attention — causal / sliding-window GQA attention
 
-ops.py holds the entry points (as repro.kernels.ops does), re-exported
-here; ref.py the plain versions.  The re-exported functions shadow the
-wrapper modules of the same name, as in repro: reach a wrapper module
-(and its `launches`) through `ops.WRAPPERS` or by its full name.
+Each wrapper module picks its kernel's route from the shapes (`route`),
+launches it on CUDA tensors and counts the launches in `launches`.
+ops.py holds the entry points (as repro.kernels.ops does) and
+`ops.WRAPPERS`, each entry point's wrapper module; ref.py the plain
+versions.  Nothing is re-exported here, so `kernels.lb_distance` is
+always the wrapper module.
 """
-
-from . import ops, ref  # noqa: F401
-from .ops import (ed_argmin, flash_attention, lb_distance,  # noqa: F401
-                  refine_topk, summarize)

@@ -18,12 +18,12 @@ machine with no `nvcc`.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List
@@ -35,6 +35,9 @@ SOURCES = ("isax_summarize", "lb_distance", "refine", "ed_argmin",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+# serializes first builds: threads that launch kernels at once (the index
+# builder's Refresh workers) would otherwise each run nvcc
+_BUILD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -83,7 +86,9 @@ def nvcc_command(name: str, out: Path) -> List[str]:
 
 
 def build_all() -> Dict[str, dict]:
-    """Compile every library that is missing, in parallel.
+    """Compile every library that is missing, in parallel.  Each output
+    is written under a name that carries the process and the thread, then
+    renamed into place, so two builders never write one file.
 
     Returns {name: {"seconds": wall time or 0.0 if cached, "ptxas": the
     compiler's resource report}}.  Raises RuntimeError with the
@@ -103,7 +108,8 @@ def build_all() -> Dict[str, dict]:
     t0 = time.perf_counter()
     for name in missing:
         out = library_path(name)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        tmp = out.with_suffix(
+            f".{os.getpid()}.{threading.get_ident()}.tmp")
         procs[name] = (tmp, out, subprocess.Popen(
             nvcc_command(name, tmp), stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
@@ -120,13 +126,25 @@ def build_all() -> Dict[str, dict]:
     return report
 
 
-@functools.lru_cache(maxsize=None)
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
-    path = library_path(name)
-    if not path.is_file():
-        build_all()
-    return ctypes.CDLL(str(path))
+    """The loaded library of `csrc/<name>.cu`, built first if needed.
+
+    Thread-safe: the first calls from several threads build and load it
+    once, under a lock; later calls read the loaded library without one.
+    """
+    lib = _LOADED.get(name)
+    if lib is None:
+        with _BUILD_LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                path = library_path(name)
+                if not path.is_file():
+                    build_all()
+                lib = _LOADED[name] = ctypes.CDLL(str(path))
+    return lib
 
 
 def entry(source: str, name: str, argtypes: list):

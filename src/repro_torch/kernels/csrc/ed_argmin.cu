@@ -47,6 +47,9 @@
 // wherever it lies.  A ragged N is masked: rows past N arrive as TMA's
 // zeros and never form a key.  A ragged Q pads the scratch with zero
 // rows, whose keys are never written.
+//
+// That is route 0, for L a multiple of 8 and 16-byte aligned rows.  Any
+// other shape takes route 1, ed_general below: float32 FMAs, the same keys.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -303,6 +306,80 @@ __global__ void unpack_kernel(const unsigned long long* __restrict__ keys,
   idx[i] = (int)(unsigned)(k & 0xffffffffull);
 }
 
+// The general route: any L and alignment, float32 FMAs outside the
+// tensor cores.  Thread t of a block owns candidate t of the block's 256
+// and the block's kGQ queries: it reads its row once, value by value,
+// into |x|^2 and kGQ running dot products (the queries' values are read
+// by all threads at once, a broadcast), then forms each query's key as
+// the tensor-core route does, takes the least over its warp and merges it
+// by atomicMin.
+constexpr int kGQ = 32;              // queries per block of the general route
+constexpr int kGThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kGThreads) ed_general(
+    const float* __restrict__ q, const T* __restrict__ xs,
+    const float* __restrict__ qq, unsigned long long* __restrict__ keys,
+    int Q, int N, int L) {
+  const long long c = (long long)blockIdx.x * kGThreads + threadIdx.x;
+  const int q0 = blockIdx.y * kGQ;
+  const int nq = min(kGQ, Q - q0);
+  const float* qb = q + (long long)q0 * L;
+  float acc[kGQ];
+#pragma unroll
+  for (int i = 0; i < kGQ; ++i) acc[i] = 0.f;
+  float xsq = 0.f;
+  if (c < N) {
+    const T* x = xs + c * L;
+    for (int j = 0; j < L; ++j) {
+      const float v = to_float(x[j]);
+      xsq = fmaf(v, v, xsq);
+#pragma unroll
+      for (int i = 0; i < kGQ; ++i)
+        if (i < nq) acc[i] = fmaf(v, qb[(long long)i * L + j], acc[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kGQ; ++i) {
+    unsigned long long key = ~0ull;
+    if (c < N && i < nq) {
+      const float d2 = fmaxf(__fsub_rn(__fadd_rn(qq[q0 + i], xsq),
+                                       __fmul_rn(2.f, acc[i])), 0.f) + 0.f;
+      key = ((unsigned long long)__float_as_uint(d2) << 32) |
+            (unsigned long long)(unsigned)c;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      key = umin64(key, __shfl_xor_sync(0xffffffffu, key, off));
+    if ((threadIdx.x & 31) == 0 && key != ~0ull)
+      atomicMin(&keys[q0 + i], key);
+  }
+}
+
+template <typename T>
+cudaError_t launch_general(const float* q, const void* xs, float* scratch,
+                           unsigned long long* keys, float* d, int* idx,
+                           int Q, int N, int L, cudaStream_t stream) {
+  const int q_pad = (Q + kBQ - 1) / kBQ * kBQ;
+  float* qh = scratch;
+  float* ql = qh + (size_t)q_pad * L;
+  float* qq = ql + (size_t)q_pad * L;
+  cudaError_t err =
+      cudaMemsetAsync(keys, 0xff, sizeof(unsigned long long) * Q, stream);
+  if (err != cudaSuccess) return err;
+  split_queries<<<q_pad, 128, 0, stream>>>(q, qh, ql, qq, Q, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid((unsigned)((N + kGThreads - 1) / kGThreads),
+            (unsigned)((Q + kGQ - 1) / kGQ));
+  ed_general<T><<<grid, kGThreads, 0, stream>>>(
+      q, static_cast<const T*>(xs), qq, keys, Q, N, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  unpack_kernel<<<(Q + 255) / 256, 256, 0, stream>>>(keys, d, idx, Q);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch(const float* q, const void* xs, float* scratch,
                    unsigned long long* keys, float* d, int* idx, int Q, int N,
@@ -363,13 +440,15 @@ cudaError_t launch(const float* q, const void* xs, float* scratch,
 
 }  // namespace
 
-// dtype of xs: 0 = float32, 1 = bfloat16; q is float32.  L a multiple of
-// 8 and q, xs 16-byte aligned, N < 2^31 (the wrapper checks); scratch is
-// 2 * Qpad * L + Qpad floats with Qpad = Q rounded up to 256, keys is
-// (Q,) 64-bit.  Q >= 1 and N >= 1.
+// dtype of xs: 0 = float32, 1 = bfloat16; q is float32.  route 0 (the
+// tensor cores): L a multiple of 8 and q, xs 16-byte aligned; route 1
+// (general): any L and alignment.  N < 2^31 (the wrapper checks);
+// scratch is 2 * Qpad * L + Qpad floats with Qpad = Q rounded up to 256,
+// keys is (Q,) 64-bit.  Q >= 1 and N >= 1.
 extern "C" int ed_argmin(const void* q, const void* xs, int dtype,
                          void* scratch, void* keys, void* out_d,
-                         void* out_idx, int Q, int N, int L, void* stream) {
+                         void* out_idx, int Q, int N, int L, int route,
+                         void* stream) {
   if (Q <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   float* sc = static_cast<float*>(scratch);
@@ -377,9 +456,20 @@ extern "C" int ed_argmin(const void* q, const void* xs, int dtype,
   float* d = static_cast<float*>(out_d);
   int* i = static_cast<int*>(out_idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)launch<float>(qf, xs, sc, k, d, i, Q, N, L, s);
-    case 1: return (int)launch<__nv_bfloat16>(qf, xs, sc, k, d, i, Q, N, L, s);
+  if (route == 0) {
+    switch (dtype) {
+      case 0: return (int)launch<float>(qf, xs, sc, k, d, i, Q, N, L, s);
+      case 1:
+        return (int)launch<__nv_bfloat16>(qf, xs, sc, k, d, i, Q, N, L, s);
+    }
+  } else if (route == 1) {
+    switch (dtype) {
+      case 0:
+        return (int)launch_general<float>(qf, xs, sc, k, d, i, Q, N, L, s);
+      case 1:
+        return (int)launch_general<__nv_bfloat16>(qf, xs, sc, k, d, i, Q, N,
+                                                  L, s);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,7 @@
 // iSAX summarization: optional z-normalization, PAA means over w segments
-// and the symbol of each PAA value, in one pass over each series.
+// and the symbol of each PAA value, in one pass over each series; on
+// request also the series as float32 (normalized if asked) and its
+// squared norm, which is what the index build stores.
 //
 // Replaces the Pallas kernel `_summarize_kernel` of
 // src/repro/kernels/isax_summarize.py (wrapper `summarize`).
@@ -9,18 +11,36 @@
 // arithmetic (L adds, w binary searches over <= 255 breakpoints) is far
 // below what the SMs do in the time the bytes take to arrive.
 //
-// Design: one warp per series.  Lane l holds the VPT = L / 32 consecutive
-// values [l * VPT, (l + 1) * VPT) and loads them with 16-byte loads, so a
-// warp reads its row as one contiguous run.  A segment of seg = L / w
-// values spans seg / VPT lanes, whose partial sums meet by xor-shuffles
-// (or, for short segments, lies inside one lane).  The breakpoint table
-// sits in shared memory; the symbol is the number of breakpoints <= the
-// PAA value (upper bound by binary search), which is what
-// searchsorted(side="right") returns in the plain version.  The Pallas
-// kernel counts breakpoints strictly below the value instead; the two
-// differ only for a PAA value equal to a breakpoint (0.0 is one, at
-// 8 bits), and the port follows the plain version.  The last block's
-// rows past n are masked here; nothing is padded.
+// Two routes, both one warp per series, so a row's results depend only
+// on the route and never on how many rows a launch holds (the index
+// builder summarizes parts of 2048 rows, the one-shot build all rows at
+// once, and the two must store the same bits):
+//
+// lanes (route 0): lane l holds the VPT = L / 32 consecutive values
+// [l * VPT, (l + 1) * VPT) and loads them with 16-byte loads, so a warp
+// reads its row as one contiguous run.  A segment of seg = L / w values
+// spans seg / VPT lanes, whose partial sums meet by xor-shuffles (or, for
+// short segments, lies inside one lane).  It takes L = 32 * VPT with VPT
+// in {4, 8, 16, 32} (float32) or {8, 16, 32} (bfloat16), and segments
+// that map onto lanes; the wrapper's `route` decides.
+//
+// strided (route 1): any L and w.  Lane l reads values l, l + 32, ... of
+// the row (one element a load), and each sum is a warp sum of the lanes'
+// strided partial sums; a segment is summed the same way, one after
+// another.  The row is read once per statistic, from L1 after the first.
+//
+// z-normalization comes in two forms: znorm 1 is the TPU kernel's
+// one-pass E[x^2] - mu^2; znorm 2 is the two-pass form of
+// `isax.znormalize` (the mean, then the mean squared deviation), which
+// the build uses.  Either divides by (sd + 1e-8).
+//
+// The breakpoint table sits in shared memory; the symbol is the number
+// of breakpoints <= the PAA value (upper bound by binary search), which
+// is what searchsorted(side="right") returns in the plain version.  The
+// Pallas kernel counts breakpoints strictly below the value instead; the
+// two differ only for a PAA value equal to a breakpoint (0.0 is one, at
+// 8 bits), and the port follows the plain version.  The last block's rows
+// past n are masked here; nothing is padded.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -29,6 +49,7 @@
 namespace {
 
 constexpr int kWarps = 8;                 // rows per block
+constexpr float kEps = 1e-8f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -64,12 +85,17 @@ __device__ __forceinline__ int upper_bound(const float* bp, int nbp, float p) {
   return lo;
 }
 
+struct Out {
+  float* paa;
+  int* words;
+  float* xout;      // (n, L) float32 series, or null
+  float* sqn;       // (n,) squared norms, or null (set with xout)
+};
+
 template <typename T, int VPT>
 __global__ void summarize_kernel(const T* __restrict__ x,
                                  const float* __restrict__ bp, int nbp,
-                                 float* __restrict__ paa,
-                                 int* __restrict__ words, long long n,
-                                 int W, int znorm) {
+                                 Out o, long long n, int W, int znorm) {
   __shared__ float bp_s[256];
   for (int i = threadIdx.x; i < nbp; i += blockDim.x) bp_s[i] = bp[i];
   __syncthreads();
@@ -81,7 +107,7 @@ __global__ void summarize_kernel(const T* __restrict__ x,
   float v[VPT];
   load_row<T, VPT>(x + row * L, lane, v);
 
-  if (znorm) {                            // E[x^2] - mu^2, as the TPU kernel
+  if (znorm == 1) {                       // E[x^2] - mu^2, as the TPU kernel
     float s = 0.f, ss = 0.f;
 #pragma unroll
     for (int i = 0; i < VPT; ++i) { s += v[i]; ss += v[i] * v[i]; }
@@ -89,9 +115,38 @@ __global__ void summarize_kernel(const T* __restrict__ x,
     ss = warp_sum(ss);
     const float mu = s / L;
     const float var = ss / L - mu * mu;
-    const float sd = sqrtf(fmaxf(var, 0.f)) + 1e-8f;
+    const float sd = sqrtf(fmaxf(var, 0.f)) + kEps;
 #pragma unroll
     for (int i = 0; i < VPT; ++i) v[i] = (v[i] - mu) / sd;
+  } else if (znorm == 2) {                // the mean, then the deviations
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) s += v[i];
+    const float mu = warp_sum(s) / L;
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const float d = v[i] - mu;
+      ss += d * d;
+    }
+    const float sd = sqrtf(warp_sum(ss) / L) + kEps;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) v[i] = (v[i] - mu) / sd;
+  }
+
+  if (o.xout != nullptr) {
+    float4* dst = reinterpret_cast<float4*>(o.xout + row * L + lane * VPT);
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPT; i += 4) {
+      dst[i / 4] = make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+      sq += v[i] * v[i];
+      sq += v[i + 1] * v[i + 1];
+      sq += v[i + 2] * v[i + 2];
+      sq += v[i + 3] * v[i + 3];
+    }
+    sq = warp_sum(sq);
+    if (lane == 0) o.sqn[row] = sq;
   }
 
   const int seg = L / W;
@@ -105,8 +160,8 @@ __global__ void summarize_kernel(const T* __restrict__ x,
     if (lane % G == 0) {
       const int sgi = lane / G;
       const float p = s / seg;
-      paa[row * W + sgi] = p;
-      words[row * W + sgi] = upper_bound(bp_s, nbp, p);
+      o.paa[row * W + sgi] = p;
+      o.words[row * W + sgi] = upper_bound(bp_s, nbp, p);
     }
   } else {                                // VPT / seg segments in one lane
     float s = 0.f;
@@ -116,50 +171,141 @@ __global__ void summarize_kernel(const T* __restrict__ x,
       if ((i + 1) % seg == 0) {
         const int sgi = lane * (VPT / seg) + i / seg;
         const float p = s / seg;
-        paa[row * W + sgi] = p;
-        words[row * W + sgi] = upper_bound(bp_s, nbp, p);
+        o.paa[row * W + sgi] = p;
+        o.words[row * W + sgi] = upper_bound(bp_s, nbp, p);
         s = 0.f;
       }
     }
   }
 }
 
+template <typename T>
+__global__ void summarize_strided(const T* __restrict__ x,
+                                  const float* __restrict__ bp, int nbp,
+                                  Out o, long long n, int L, int W,
+                                  int znorm) {
+  __shared__ float bp_s[256];
+  for (int i = threadIdx.x; i < nbp; i += blockDim.x) bp_s[i] = bp[i];
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n) return;
+  const T* r = x + row * L;
+  float mu = 0.f, sd = 1.f;
+  if (znorm == 1) {
+    float s = 0.f, ss = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float v = to_f32(r[j]);
+      s += v;
+      ss += v * v;
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    mu = s / L;
+    sd = sqrtf(fmaxf(ss / L - mu * mu, 0.f)) + kEps;
+  } else if (znorm == 2) {
+    float s = 0.f;
+    for (int j = lane; j < L; j += 32) s += to_f32(r[j]);
+    mu = warp_sum(s) / L;
+    float ss = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float d = to_f32(r[j]) - mu;
+      ss += d * d;
+    }
+    sd = sqrtf(warp_sum(ss) / L) + kEps;
+  }
+  auto value = [&](int j) {
+    const float v = to_f32(r[j]);
+    return znorm ? (v - mu) / sd : v;
+  };
+
+  if (o.xout != nullptr) {
+    float sq = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float v = value(j);
+      o.xout[row * L + j] = v;
+      sq += v * v;
+    }
+    sq = warp_sum(sq);
+    if (lane == 0) o.sqn[row] = sq;
+  }
+
+  const int seg = L / W;
+  for (int sgi = 0; sgi < W; ++sgi) {
+    float s = 0.f;
+    for (int j = lane; j < seg; j += 32) s += value(sgi * seg + j);
+    s = warp_sum(s);
+    if (lane == 0) {
+      const float p = s / seg;
+      o.paa[row * W + sgi] = p;
+      o.words[row * W + sgi] = upper_bound(bp_s, nbp, p);
+    }
+  }
+}
+
+inline unsigned blocks_for(long long n) {
+  return (unsigned)((n + kWarps - 1) / kWarps);
+}
+
 template <typename T, int VPT>
-cudaError_t launch(const void* x, const float* bp, int nbp, float* paa,
-                   int* words, long long n, int W, int znorm,
-                   cudaStream_t stream) {
-  const long long blocks = (n + kWarps - 1) / kWarps;
-  summarize_kernel<T, VPT><<<(unsigned)blocks, 32 * kWarps, 0, stream>>>(
-      static_cast<const T*>(x), bp, nbp, paa, words, n, W, znorm);
+cudaError_t launch(const void* x, const float* bp, int nbp, Out o,
+                   long long n, int W, int znorm, cudaStream_t stream) {
+  summarize_kernel<T, VPT><<<blocks_for(n), 32 * kWarps, 0, stream>>>(
+      static_cast<const T*>(x), bp, nbp, o, n, W, znorm);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_lanes(const void* x, const float* bp, int nbp, Out o,
+                         long long n, int L, int W, int znorm,
+                         cudaStream_t s) {
+  switch (L / 32) {
+    case 4:
+      if constexpr (sizeof(T) == 4)
+        return launch<T, 4>(x, bp, nbp, o, n, W, znorm, s);
+      break;
+    case 8: return launch<T, 8>(x, bp, nbp, o, n, W, znorm, s);
+    case 16: return launch<T, 16>(x, bp, nbp, o, n, W, znorm, s);
+    case 32: return launch<T, 32>(x, bp, nbp, o, n, W, znorm, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_strided(const void* x, const float* bp, int nbp, Out o,
+                           long long n, int L, int W, int znorm,
+                           cudaStream_t stream) {
+  summarize_strided<T><<<blocks_for(n), 32 * kWarps, 0, stream>>>(
+      static_cast<const T*>(x), bp, nbp, o, n, L, W, znorm);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  L = 32 * VPT with VPT in {4, 8, 16, 32}
-// for float32 and {8, 16, 32} for bfloat16; the wrapper checks the shapes.
+// dtype: 0 = float32, 1 = bfloat16.  route 0 (lanes): L = 32 * VPT with
+// VPT in {4, 8, 16, 32} for float32 and {8, 16, 32} for bfloat16, x
+// 16-byte aligned, segments that map onto lanes; route 1 (strided): any
+// L divisible by W.  znorm: 0 none, 1 one-pass, 2 two-pass.  xout and sqn
+// are both null or both (n, L) / (n,) float32.  The wrapper checks.
 extern "C" int isax_summarize(const void* x, int dtype, const void* bp,
-                              int nbp, void* paa, void* words, long long n,
-                              int L, int W, int znorm, void* stream) {
+                              int nbp, void* paa, void* words, void* xout,
+                              void* sqn, long long n, int L, int W,
+                              int znorm, int route, void* stream) {
   if (n == 0) return 0;
   const float* b = static_cast<const float*>(bp);
-  float* p = static_cast<float*>(paa);
-  int* w = static_cast<int*>(words);
+  Out o = {static_cast<float*>(paa), static_cast<int*>(words),
+           static_cast<float*>(xout), static_cast<float*>(sqn)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int vpt = L / 32;
-  if (dtype == 0) {
-    switch (vpt) {
-      case 4: return launch<float, 4>(x, b, nbp, p, w, n, W, znorm, s);
-      case 8: return launch<float, 8>(x, b, nbp, p, w, n, W, znorm, s);
-      case 16: return launch<float, 16>(x, b, nbp, p, w, n, W, znorm, s);
-      case 32: return launch<float, 32>(x, b, nbp, p, w, n, W, znorm, s);
-    }
-  } else if (dtype == 1) {
-    switch (vpt) {
-      case 8: return launch<__nv_bfloat16, 8>(x, b, nbp, p, w, n, W, znorm, s);
-      case 16: return launch<__nv_bfloat16, 16>(x, b, nbp, p, w, n, W, znorm, s);
-      case 32: return launch<__nv_bfloat16, 32>(x, b, nbp, p, w, n, W, znorm, s);
-    }
+  if (route == 0) {
+    if (dtype == 0) return launch_lanes<float>(x, b, nbp, o, n, L, W, znorm, s);
+    if (dtype == 1)
+      return launch_lanes<__nv_bfloat16>(x, b, nbp, o, n, L, W, znorm, s);
+  } else if (route == 1) {
+    if (dtype == 0)
+      return launch_strided<float>(x, b, nbp, o, n, L, W, znorm, s);
+    if (dtype == 1)
+      return launch_strided<__nv_bfloat16>(x, b, nbp, o, n, L, W, znorm, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -56,6 +56,18 @@
 // nothing), then ranks only the candidates below the k-th best with the rule
 // above (fold); the others cannot enter.  Distances are double-buffered by
 // round parity, so no CTA overwrites what another still reads.
+//
+// Routes (the wrappers pick one from the shapes before any launch).
+// refine_topk: the shared-memory kernel above, or, where a row is not
+// whole 16-byte pieces or 4 (L + 2 M + 4 k) bytes outgrow shared memory,
+// refine_general, which reads values one at a time and keeps its buffers
+// in global scratch.  refine_search: search_kernel with its shared memory
+// laid out for 3 CTAs an SM, else for 2, else for 1 (the same code); or,
+// where a row is not whole 16-byte pieces or even one CTA cannot hold the
+// fixed parts beside two one-row stages, search_general: one CTA a query,
+// rows read where they lie, buffers in global scratch.  The general routes
+// share row_d2, so their two loops agree bit for bit with each other; the
+// fast routes share warp_d2.
 
 #include <algorithm>
 
@@ -154,6 +166,60 @@ __device__ __forceinline__ void fold(const float* bd, const int* be,
   }
 }
 
+// d^2 of one row at `row` (any alignment): lane l sums q.x over the
+// values l, l + 32, ... in order, the warp adds the lanes by
+// xor-shuffles, and lane 0's d^2 = max((q_sq + |x|^2) - 2 q.x, 0),
+// rounded step by step as warp_d2 rounds it, is returned (valid in lane 0
+// only).  The general routes of both kernels take their distances from
+// here, so they agree bit for bit with each other.
+template <typename T>
+__device__ __forceinline__ float row_d2(const T* row, int L, const float* q,
+                                        float qsq, float xn, int lane) {
+  float dot = 0.f;
+  for (int j = lane; j < L; j += 32) dot += to_f32(row[j]) * q[j];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    dot += __shfl_xor_sync(0xffffffffu, dot, off);
+  return fmaxf(__fsub_rn(__fadd_rn(qsq, xn), __fmul_rn(2.f, dot)), 0.f);
+}
+
+// fold() for an ascending buffer, in O(k n + n^2) instead of O((k + n)^2):
+// buffer slot i has rank i + #{candidates below it} (a candidate equal to
+// it comes later in union order), and candidate c has rank #{buffer
+// slots <= it} (by binary search) + #{candidates below it, or equal and
+// before it}.  The same ranks as fold's rule, so the same result.
+__device__ __forceinline__ void fold_sorted(const float* bd, const int* be,
+                                            const float* cd, const int* ce,
+                                            int k, int n, float* nd, int* ne,
+                                            int tid) {
+  for (int i = tid; i < k; i += kThreads) {
+    const float d = bd[i];
+    int rank = i;
+    for (int c = 0; c < n && rank < k; ++c) rank += cd[c] < d;
+    if (rank < k) {
+      nd[rank] = d;
+      ne[rank] = be[i];
+    }
+  }
+  for (int c = tid; c < n; c += kThreads) {
+    const float d = cd[c];
+    int lo = 0, hi = k;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (bd[mid] <= d) lo = mid + 1; else hi = mid;
+    }
+    int rank = lo;
+    for (int f = 0; f < n && rank < k; ++f) {
+      const float df = cd[f];
+      rank += (df < d) | ((df == d) & (f < c));
+    }
+    if (rank < k) {
+      nd[rank] = d;
+      ne[rank] = ce[c];
+    }
+  }
+}
+
 template <typename T>
 __global__ void refine_kernel(const float* __restrict__ q,
                               const float* __restrict__ q_sq,
@@ -224,6 +290,74 @@ cudaError_t launch(const float* q, const float* q_sq, const void* series,
   return cudaGetLastError();
 }
 
+
+// refine_topk's general route: any L and alignment, any k.  The block of
+// a query row works as refine_kernel does, but reads each row's values
+// one at a time (row_d2) and keeps the candidates and both buffers in
+// global scratch, (2 M + 4 k) words a row, so shared memory bounds
+// neither k nor M.  The fold is fold(), which takes any carried buffer.
+template <typename T>
+__global__ void refine_general(const float* __restrict__ q,
+                               const float* __restrict__ q_sq,
+                               const T* __restrict__ series,
+                               const float* __restrict__ sq_norms,
+                               const int* __restrict__ leaf_ids,
+                               const uint8_t* __restrict__ alive,
+                               const float* __restrict__ bsf_d,
+                               const int* __restrict__ bsf_e,
+                               float* __restrict__ out_d,
+                               int* __restrict__ out_e, float* scratch,
+                               int L, int K, int M, int k) {
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float* cand_d = scratch + (size_t)row * (2 * (size_t)M + 4 * (size_t)k);
+  int* cand_e = reinterpret_cast<int*>(cand_d + M);
+  float* bd = cand_d + 2 * M;
+  int* be = reinterpret_cast<int*>(bd + k);
+  float* nd = bd + 2 * k;
+  int* ne = reinterpret_cast<int*>(bd + 3 * k);
+  const float* qr = q + (long long)row * L;
+  for (int i = tid; i < k; i += kThreads) {
+    bd[i] = bsf_d[(long long)row * k + i];
+    be[i] = bsf_e[(long long)row * k + i];
+  }
+  const float qsq = q_sq[row];
+  __syncthreads();
+
+  for (int j = 0; j < K; ++j) {
+    if (!alive[(long long)row * K + j]) continue;  // uniform over the block
+    const long long first = (long long)leaf_ids[(long long)row * K + j] * M;
+    for (int r = warp; r < M; r += kWarps) {
+      const float d = row_d2<T>(series + (first + r) * L, L, qr, qsq,
+                                sq_norms[first + r], lane);
+      if (lane == 0) cand_d[r] = d;
+    }
+    for (int r = tid; r < M; r += kThreads) cand_e[r] = (int)(first + r);
+    __syncthreads();
+    fold(bd, be, cand_d, cand_e, k, M, nd, ne, tid);
+    float* td = bd; bd = nd; nd = td;
+    int* te = be; be = ne; ne = te;
+    __syncthreads();
+  }
+
+  for (int i = tid; i < k; i += kThreads) {
+    out_d[(long long)row * k + i] = bd[i];
+    out_e[(long long)row * k + i] = be[i];
+  }
+}
+
+template <typename T>
+cudaError_t launch_general(const float* q, const float* q_sq,
+                           const void* series, const float* sq_norms,
+                           const int* ids, const uint8_t* alive,
+                           const float* bsf_d, const int* bsf_e,
+                           float* out_d, int* out_e, float* scratch, int Q,
+                           int L, int K, int M, int k, cudaStream_t stream) {
+  refine_general<T><<<Q, kThreads, 0, stream>>>(
+      q, q_sq, static_cast<const T*>(series), sq_norms, ids, alive, bsf_d,
+      bsf_e, out_d, out_e, scratch, L, K, M, k);
+  return cudaGetLastError();
+}
 
 namespace search {
 
@@ -577,18 +711,152 @@ cudaError_t launch(Params p, int C, int blocks, cudaStream_t stream) {
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// The general route: one CTA a query (no cluster), any L, alignment, k
+// and K * M.  Rows are read from device memory where they lie, one value
+// a load (row_d2), and the candidates, both buffers, the passing
+// candidates and the warp counts live in global scratch, `per` words a
+// CTA; so shared memory bounds nothing.  A round runs as in search_kernel:
+// every alive slot's distances, then, if one is below the k-th best, the
+// passing candidates in union (slot, row) order, folded by fold_sorted
+// into the buffer, which stays ascending.  The rounds, the alive count
+// and the buffer follow the rule of the fast route and of
+// refine_search_ref.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) search_general(const Params p,
+                                                           float* scratch,
+                                                           long long per) {
+  __shared__ int misc[2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* series = static_cast<const T*>(p.series);
+  const int KM = p.K * p.M;
+  float* cand = scratch + (long long)blockIdx.x * per;     // K * M
+  float* bd = cand + KM;
+  int* be = reinterpret_cast<int*>(bd + p.k);
+  float* nd = bd + 2 * p.k;
+  int* ne = reinterpret_cast<int*>(bd + 3 * p.k);
+  float* ld = bd + 4 * p.k;                                 // K * M
+  int* le = reinterpret_cast<int*>(ld + KM);                // K * M
+  int* cnt = reinterpret_cast<int*>(ld + 2 * KM);           // n_it * kWarps
+  const int cap = p.cols / p.K;
+
+  for (;;) {
+    if (tid == 0) {
+      const int t = atomicAdd(p.next_query, 1);
+      misc[0] = t < p.Q ? p.schedule[t] : p.Q;
+    }
+    __syncthreads();
+    const int qi = misc[0];
+    if (qi >= p.Q) break;
+    const float* lbrow = p.sorted_lb + (long long)qi * p.cols;
+    const int* idrow = p.order + (long long)qi * p.cols;
+    const float* qr = p.q + (long long)qi * p.L;
+    for (int i = tid; i < p.k; i += kThreads) {
+      bd[i] = kBig;
+      be[i] = 0;
+    }
+    const float qsq = p.q_sq[qi];
+    __syncthreads();
+
+    float kth = kBig;
+    int r = 0, n_alive = 0;
+    while (r < cap && lbrow[(long long)r * p.K] < kth) {
+      const float* lb_r = lbrow + (long long)r * p.K;
+      const int* leaf_r = idrow + (long long)r * p.K;
+      if (tid == 0)
+        for (int j = 0; j < p.K; ++j) n_alive += lb_r[j] < kth;
+      bool any = false;
+      for (int e = warp; e < KM; e += kWarps) {
+        const int j = e / p.M;
+        if (!(lb_r[j] < kth)) continue;          // uniform over the warp
+        const long long x = (long long)leaf_r[j] * p.M + e % p.M;
+        const float d = row_d2<T>(series + x * p.L, p.L, qr, qsq,
+                                  p.sq_norms[x], lane);
+        if (lane == 0) {
+          cand[e] = d;
+          any |= d < kth;
+        }
+      }
+      if (__syncthreads_or(any)) {
+        for (int pass2 = 0; pass2 < 2; ++pass2) {
+          for (int it = 0; it < p.n_it; ++it) {
+            const int e = it * kThreads + tid;
+            bool ok = false;
+            float d = 0.f;
+            int j = 0;
+            if (e < KM) {
+              j = e / p.M;
+              if (lb_r[j] < kth) {
+                d = cand[e];
+                ok = d < kth;
+              }
+            }
+            const unsigned b = __ballot_sync(0xffffffffu, ok);
+            if (!pass2) {
+              if (lane == 0) cnt[it * kWarps + warp] = __popc(b);
+            } else if (ok) {
+              const int at = cnt[it * kWarps + warp] +
+                             __popc(b & ((1u << lane) - 1));
+              ld[at] = d;
+              le[at] = leaf_r[j] * p.M + e % p.M;
+            }
+          }
+          __syncthreads();
+          if (!pass2 && tid == 0) {       // exclusive prefix of the counts
+            int run = 0;
+            for (int i = 0; i < p.n_it * kWarps; ++i) {
+              const int n = cnt[i];
+              cnt[i] = run;
+              run += n;
+            }
+            misc[1] = run;
+          }
+          __syncthreads();
+        }
+        fold_sorted(bd, be, ld, le, p.k, misc[1], nd, ne, tid);
+        __syncthreads();
+        float* td = bd; bd = nd; nd = td;   // every thread swaps alike
+        int* te = be; be = ne; ne = te;
+        kth = bd[p.k - 1];
+      }
+      __syncthreads();
+      ++r;
+    }
+
+    for (int i = tid; i < p.k; i += kThreads) {
+      p.out_d[(long long)qi * p.k + i] = bd[i];
+      p.out_e[(long long)qi * p.k + i] = be[i];
+    }
+    if (tid == 0) {
+      p.rounds[qi] = r;
+      p.alive[qi] = n_alive;
+    }
+    __syncthreads();
+  }
+}
+
+// Words of global scratch a CTA of the general route takes.
+inline long long general_words(int K, int M, int k) {
+  const long long KM = (long long)K * M;
+  const long long n_it = (KM + kThreads - 1) / kThreads;
+  return 3 * KM + 4 * (long long)k + n_it * kWarps;
+}
+
 }  // namespace search
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  L must be a multiple of
-// 16 / sizeof(dtype) and the series 16-byte aligned; the wrapper checks.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  route 0 (the shared-
+// memory kernel): L a multiple of 16 / sizeof(dtype), the series and q
+// 16-byte aligned and 4 (L + 2 M + 4 k) bytes of shared memory at most
+// 232,448; route 1 (general): any shape, with scratch of Q (2 M + 4 k)
+// float32 words.  The wrapper checks.
 extern "C" int refine_topk(const void* q, const void* q_sq,
                            const void* series, int dtype,
                            const void* sq_norms, const void* leaf_ids,
                            const void* alive, const void* bsf_d,
                            const void* bsf_e, void* out_d, void* out_e,
-                           int Q, int L, int K, int M, int k, void* stream) {
+                           int Q, int L, int K, int M, int k, int route,
+                           void* scratch, void* stream) {
   if (Q == 0) return 0;
   const float* qf = static_cast<const float*>(q);
   const float* qs = static_cast<const float*>(q_sq);
@@ -599,14 +867,27 @@ extern "C" int refine_topk(const void* q, const void* q_sq,
   const int* be = static_cast<const int*>(bsf_e);
   float* od = static_cast<float*>(out_d);
   int* oe = static_cast<int*>(out_e);
+  float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch<float>(qf, qs, series, xn, ids, al, bd, be, od, oe,
-                                 Q, L, K, M, k, s);
-    case 1: return launch<__nv_bfloat16>(qf, qs, series, xn, ids, al, bd, be,
-                                         od, oe, Q, L, K, M, k, s);
-    case 2: return launch<__half>(qf, qs, series, xn, ids, al, bd, be, od, oe,
-                                  Q, L, K, M, k, s);
+  if (route == 0) {
+    switch (dtype) {
+      case 0: return launch<float>(qf, qs, series, xn, ids, al, bd, be, od,
+                                   oe, Q, L, K, M, k, s);
+      case 1: return launch<__nv_bfloat16>(qf, qs, series, xn, ids, al, bd,
+                                           be, od, oe, Q, L, K, M, k, s);
+      case 2: return launch<__half>(qf, qs, series, xn, ids, al, bd, be, od,
+                                    oe, Q, L, K, M, k, s);
+    }
+  } else if (route == 1 && sc != nullptr) {
+    switch (dtype) {
+      case 0: return launch_general<float>(qf, qs, series, xn, ids, al, bd,
+                                           be, od, oe, sc, Q, L, K, M, k, s);
+      case 1: return launch_general<__nv_bfloat16>(qf, qs, series, xn, ids,
+                                                   al, bd, be, od, oe, sc, Q,
+                                                   L, K, M, k, s);
+      case 2: return launch_general<__half>(qf, qs, series, xn, ids, al, bd,
+                                            be, od, oe, sc, Q, L, K, M, k, s);
+    }
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -616,24 +897,26 @@ extern "C" const char* refine_topk_error(int code) {
 }
 
 // Every refinement round of a search: q (Q, L) f32, q_sq (Q,), series
-// (n, L) of `dtype` with L * sizeof(dtype) a multiple of 16, sq_norms
-// (a multiple of 4 entries, 16-byte aligned), order / sorted_lb (Q, cols)
-// with cols = rounds * K; schedule (Q,) int32, a permutation of 0..Q-1;
-// out_d / out_e (Q, k), rounds and alive (Q,) int32; counter one int32
-// set to 0.  The wrapper checks the shapes.
+// (n, L) of `dtype`, sq_norms (a multiple of 4 entries), order /
+// sorted_lb (Q, cols) with cols = rounds * K; schedule (Q,) int32, a
+// permutation of 0..Q-1; out_d / out_e (Q, k), rounds and alive (Q,)
+// int32; counter one int32 set to 0.
+// route 0: search_kernel, clusters of C CTAs a query, its shared memory
+// laid out for `ctas` (3, 2 or 1) CTAs an SM; L * sizeof(dtype) a
+// multiple of 16 and series, q and sq_norms 16-byte aligned.  route 1:
+// search_general over `ctas` CTAs, each with `per` words of `scratch`.
+// The wrapper checks the shapes and picks the route.
 extern "C" int refine_search(const void* q, const void* q_sq,
                              const void* series, int dtype,
                              const void* sq_norms, const void* order,
                              const void* sorted_lb, const void* schedule,
                              void* out_d, void* out_e, void* rounds,
                              void* alive, void* counter, int Q,
-                             int L, int K, int M, int k, int cols,
+                             int L, int K, int M, int k, int cols, int route,
+                             int ctas, void* scratch, long long per,
                              void* stream) {
   if (Q == 0) return 0;
-  if (K < 1 || cols % K) return (int)cudaErrorInvalidValue;
-  int C = search::kCluster;
-  while (K % C) C /= 2;
-  const int blocks = search::kBlocksPerSM;
+  if (K < 1 || cols % K || ctas < 1) return (int)cudaErrorInvalidValue;
   search::Params p = {};
   p.q = static_cast<const float*>(q);
   p.q_sq = static_cast<const float*>(q_sq);
@@ -654,10 +937,32 @@ extern "C" int refine_search(const void* q, const void* q_sq,
   p.k = k;
   p.cols = cols;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)search::launch<float>(p, C, blocks, s);
-    case 1: return (int)search::launch<__nv_bfloat16>(p, C, blocks, s);
-    case 2: return (int)search::launch<__half>(p, C, blocks, s);
+  if (route == 0) {
+    if (ctas > search::kBlocksPerSM) return (int)cudaErrorInvalidValue;
+    int C = search::kCluster;
+    while (K % C) C /= 2;
+    switch (dtype) {
+      case 0: return (int)search::launch<float>(p, C, ctas, s);
+      case 1: return (int)search::launch<__nv_bfloat16>(p, C, ctas, s);
+      case 2: return (int)search::launch<__half>(p, C, ctas, s);
+    }
+  } else if (route == 1) {
+    if (scratch == nullptr || per < search::general_words(K, M, k))
+      return (int)cudaErrorInvalidValue;
+    p.n_it = (K * M + kThreads - 1) / kThreads;
+    float* sc = static_cast<float*>(scratch);
+    switch (dtype) {
+      case 0:
+        search::search_general<float><<<ctas, kThreads, 0, s>>>(p, sc, per);
+        return (int)cudaGetLastError();
+      case 1:
+        search::search_general<__nv_bfloat16><<<ctas, kThreads, 0, s>>>(
+            p, sc, per);
+        return (int)cudaGetLastError();
+      case 2:
+        search::search_general<__half><<<ctas, kThreads, 0, s>>>(p, sc, per);
+        return (int)cudaGetLastError();
+    }
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -4,8 +4,9 @@ On CUDA tensors `ed_argmin` launches the kernel of `csrc/ed_argmin.cu`,
 which streams the candidates at their stored width through the tensor
 cores (three TF32 products for float32 candidates, two for bfloat16 ones,
 which are exact in TF32) and never materializes the (Q, N) distance
-matrix; on CPU tensors it runs the plain version `ref.ed_argmin_ref`.
-`launches` counts the kernel's launches.
+matrix; a row length that is not a multiple of 8 takes the kernel's
+general route (`route`), float32 FMAs; on CPU tensors it runs the plain
+version `ref.ed_argmin_ref`.  `launches` counts the kernel's launches.
 """
 
 from __future__ import annotations
@@ -17,13 +18,24 @@ import torch
 
 from . import _build
 from .ref import ed_argmin_ref
+from .refine import aligned
 
 launches = 0
+by_route: dict = {}                    # launches of each route
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = ("tensor", "general")
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [
-    ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _QUERY_GROUP = 256                     # queries per block of the kernel
+
+
+def route(L: int) -> str:
+    """The kernel route for rows of length L: "tensor" (TMA loads, the
+    tensor cores) where L is a multiple of 8, so rows lie on 16-byte
+    boundaries; "general" (float32 FMAs, values one at a time) for any
+    other L.  The wrapper realigns a base that is not 16-byte aligned."""
+    return "tensor" if L % 8 == 0 else "general"
 
 
 def ed_argmin(q: torch.Tensor, xs: torch.Tensor
@@ -58,11 +70,8 @@ def ed_argmin(q: torch.Tensor, xs: torch.Tensor
         return ed_argmin_ref(q, xs)
     if q.device.type != "cuda":
         raise RuntimeError(f"no ed_argmin kernel for device {q.device}")
-    if L % 8 or q.data_ptr() % 16 or xs.data_ptr() % 16:
-        raise ValueError(f"the ed_argmin kernel loads candidate rows by "
-                         f"TMA, which needs them on 16-byte boundaries: "
-                         f"L={L} must be a multiple of 8 and q, xs "
-                         f"16-byte aligned")
+    how = route(L)
+    q, xs = aligned(q), aligned(xs)
     q_pad = -(-Q // _QUERY_GROUP) * _QUERY_GROUP
     # q_hi, q_lo (q_pad, L) and |q|^2 (q_pad,), written by the kernel
     scratch = torch.empty((2 * q_pad * L + q_pad,), dtype=torch.float32,
@@ -74,8 +83,9 @@ def ed_argmin(q: torch.Tensor, xs: torch.Tensor
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), xs.data_ptr(), _DTYPES[xs.dtype],
                   scratch.data_ptr(), keys.data_ptr(), out_d.data_ptr(),
-                  out_i.data_ptr(), Q, N, L,
+                  out_i.data_ptr(), Q, N, L, _ROUTES.index(how),
                   torch.cuda.current_stream().cuda_stream)
     _build.check("ed_argmin", "ed_argmin", code)
     launches += 1
+    by_route[how] = by_route.get(how, 0) + 1
     return out_d, out_i

@@ -1,8 +1,9 @@
 """Batched lower-bound (MINDIST) distances, the pruning stage.
 
 On CUDA tensors `lb_distance` launches the kernel of
-`csrc/lb_distance.cu`; on CPU tensors it runs the plain version
-`ref.lb_distance_ref`.  `launches` counts the kernel's launches.
+`csrc/lb_distance.cu`, by the route `route` picks from w; on CPU tensors
+it runs the plain version `ref.lb_distance_ref`.  `launches` counts the
+kernel's launches.
 """
 
 from __future__ import annotations
@@ -17,11 +18,19 @@ from . import _build
 from .ref import lb_distance_ref
 
 launches = 0
+by_route: dict = {}                    # launches of each route
 
-_SEGMENTS = (4, 8, 16)
+_ROUTES = ("tiled", "looped")
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-             ctypes.c_float, ctypes.c_void_p]
+             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def route(w: int) -> str:
+    """The kernel route for w segments: "tiled" (w unrolled, the tile
+    staged in shared memory) for w in {4, 8, 16}, "looped" (w a runtime
+    loop) for any other w."""
+    return "tiled" if w in (4, 8, 16) else "looped"
 
 
 def lb_distance(q_paa: torch.Tensor, leaf_lo: torch.Tensor,
@@ -52,10 +61,8 @@ def lb_distance(q_paa: torch.Tensor, leaf_lo: torch.Tensor,
         raise RuntimeError(f"no lb_distance kernel for device "
                            f"{q_paa.device}")
     Q, w = q_paa.shape
+    how = route(w)
     NL = leaf_lo.shape[0]
-    if w not in _SEGMENTS:
-        raise ValueError(f"the lb_distance kernel takes w in {_SEGMENTS}, "
-                         f"got {w}")
     out = torch.empty((Q, NL), dtype=torch.float32, device=q_paa.device)
     if Q == 0 or NL == 0:
         return out
@@ -63,7 +70,9 @@ def lb_distance(q_paa: torch.Tensor, leaf_lo: torch.Tensor,
     with torch.cuda.device(q_paa.device):
         code = fn(q_paa.data_ptr(), leaf_lo.data_ptr(), leaf_hi.data_ptr(),
                   out.data_ptr(), Q, NL, w, float(series_len) / w,
+                  _ROUTES.index(how),
                   torch.cuda.current_stream().cuda_stream)
     _build.check("lb_distance", "lb_distance", code)
     launches += 1
+    by_route[how] = by_route.get(how, 0) + 1
     return out

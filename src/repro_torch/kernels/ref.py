@@ -27,6 +27,19 @@ def summarize_ref(x: torch.Tensor, segments: int = isax.SEGMENTS,
     return p, isax.sax_word(p, bits).to(torch.int32)
 
 
+
+def summarize_rows_ref(x: torch.Tensor, segments: int = isax.SEGMENTS,
+                       bits: int = isax.SAX_BITS, znorm: bool = True
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """What the build stores of each row: x (n, L) -> (series (n, L) f32,
+    z-normalized if znorm; paa (n, w) f32; words (n, w) i32; |x|^2 (n,))."""
+    # a new tensor either way: the index owns what it stores
+    x = isax.znormalize(x.float()) if znorm else x.to(torch.float32,
+                                                       copy=True)
+    p = isax.paa(x, segments)
+    return x, p, isax.sax_word(p, bits).to(torch.int32), (x * x).sum(-1)
+
 def lb_distance_ref(q_paa: torch.Tensor, leaf_lo: torch.Tensor,
                     leaf_hi: torch.Tensor,
                     series_len: int = isax.SERIES_LEN) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """One refinement round: gather + distances + prune + top-k fold.
 
-On CUDA tensors `refine_topk` launches the kernel of `csrc/refine.cu`,
-which reads only the alive leaves, at their stored width, and never
-materializes the (Q, K*M, L) gather.  On CPU tensors it runs the plain
-version `ref.refine_topk_ref`.  `launches` counts the kernel's launches.
+On CUDA tensors `refine_topk` launches a kernel of `csrc/refine.cu`, by
+the route `route` picks from the shapes; each reads only the alive
+leaves, at their stored width, and never materializes the (Q, K*M, L)
+gather.  On CPU tensors it runs the plain version `ref.refine_topk_ref`.
+`launches` counts the kernel's launches.
 Every round of a search in one launch is `refine_search.py`'s, whose
 input checks are the ones below.
 """
@@ -19,10 +20,32 @@ from . import _build
 from .ref import refine_topk_ref
 
 launches = 0
+by_route: dict = {}                    # launches of each route
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_ROUTES = ("shared", "general")
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 7
-             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
+_SMEM_MAX = 232448                     # the shared memory a block may take
+
+
+def route(L: int, M: int, k: int, dtype: torch.dtype) -> str:
+    """The kernel route of one round: "shared" (rows in 16-byte pieces,
+    the query, candidates and buffers in shared memory) where a row is
+    whole 16-byte pieces and 4 (L + 2 M + 4 k) bytes fit in a block's
+    shared memory; "general" (values one at a time, the candidates and
+    buffers in global scratch) for every other shape.  A pure function of
+    the shapes; the wrapper realigns a row base that is not 16-byte
+    aligned."""
+    elem = torch.finfo(dtype).bits // 8
+    if (L * elem) % 16 == 0 and 4 * (L + 2 * M + 4 * k) <= _SMEM_MAX:
+        return "shared"
+    return "general"
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a fresh (16-byte aligned) copy where its base is not."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _dims(q, series, M: int, k: int, K: int):
@@ -102,22 +125,24 @@ def refine_topk(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
         raise RuntimeError(f"no refine_topk kernel for device {q.device}")
     Q, L = q.shape
     K = leaf_ids.shape[1]
-    per16 = 16 // series.element_size()
-    if L % per16 or series.data_ptr() % 16 or q.data_ptr() % 16:
-        raise ValueError(f"the refine kernel reads rows in 16-byte pieces: "
-                         f"L={L} must be a multiple of {per16} and series "
-                         f"and q 16-byte aligned")
+    how = route(L, M, k, series.dtype)
+    q, series = aligned(q), aligned(series)
     out_d = torch.empty((Q, k), dtype=torch.float32, device=q.device)
     out_e = torch.empty((Q, k), dtype=torch.int32, device=q.device)
     if Q == 0:
         return out_d, out_e
+    scratch = (torch.empty((Q, 2 * M + 4 * k), dtype=torch.float32,
+                           device=q.device) if how == "general" else None)
     fn = _build.entry("refine", "refine_topk", _ARGTYPES)
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), q_sq.data_ptr(), series.data_ptr(),
                   _DTYPES[series.dtype], sq_norms.data_ptr(),
                   leaf_ids.data_ptr(), alive.data_ptr(), bsf_d.data_ptr(),
                   bsf_e.data_ptr(), out_d.data_ptr(), out_e.data_ptr(),
-                  Q, L, K, M, k, torch.cuda.current_stream().cuda_stream)
+                  Q, L, K, M, k, _ROUTES.index(how),
+                  None if scratch is None else scratch.data_ptr(),
+                  torch.cuda.current_stream().cuda_stream)
     _build.check("refine", "refine_topk", code)
     launches += 1
+    by_route[how] = by_route.get(how, 0) + 1
     return out_d, out_e

@@ -2,9 +2,11 @@
 
 `refine_search` runs each query's rounds until its own stop, which gives
 the buffer of repro's global loop of `refine_topk` rounds.  On CUDA
-tensors it launches the `refine_search` kernel of `csrc/refine.cu`
-(thread-block clusters of 8 CTAs a query, cut to a divisor of K, taking
-the queries heaviest first); on CPU tensors it runs the plain version
+tensors it launches the `refine_search` kernel of `csrc/refine.cu`, by the
+route `route` picks from the shapes (thread-block clusters of 8 CTAs a
+query, cut to a divisor of K, shared memory for 3, 2 or 1 CTAs an SM; or
+one CTA a query with its buffers in global scratch), taking the queries
+heaviest first; on CPU tensors it runs the plain version
 `ref.refine_search_ref`.  `launches` counts the kernel's launches.
 """
 
@@ -17,12 +19,67 @@ import torch
 
 from . import _build
 from .ref import refine_search_ref
-from .refine import _DTYPES, _check_tensors, _dims
+from .refine import _DTYPES, _SMEM_MAX, _check_tensors, _dims, aligned
 
 launches = 0
+by_route: dict = {}                    # launches of each route
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 9
-             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_longlong,
+                                     ctypes.c_void_p])
+# csrc/refine.cu, namespace search: the layout's constants
+_SMEM_SM = 233472                      # an SM's shared memory
+_THREADS, _WARPS = 256, 8
+_CLUSTER, _MAX_STAGES, _INFO = 8, 4, 4
+ROUTES = ("cta3", "cta2", "cta1", "general")
+
+
+def _fits(L: int, K: int, M: int, k: int, elem: int, blocks: int) -> bool:
+    """Whether `layout` in csrc/refine.cu lays shared memory out for
+    `blocks` CTAs an SM: the fixed parts, then two stages of at least one
+    leaf row and its norms.  The same arithmetic, term for term."""
+    C = _CLUSTER
+    while K % C:
+        C //= 2
+    J, n_it = K // C, -(-K * M // _THREADS)
+    off = 0
+    for nbytes, align in ((8 * _MAX_STAGES, 8), (16, 16), (4 * L, 16),
+                          (8 * J * M, 16), (8 * J, 4), (4 * k, 4),
+                          (4 * k, 4), (4 * k, 4), (4 * k, 4),
+                          (4 * K * M, 4), (4 * K * M, 4), (4 * _INFO * K, 4),
+                          (4 * _INFO * K, 4), (4 * n_it * _WARPS, 4),
+                          (0, 128)):
+        off = -(-off // align) * align + nbytes
+    room = min(_SMEM_MAX, _SMEM_SM // blocks - 1024) - off
+
+    def stage(rows: int) -> int:
+        return rows * L * elem + (rows + 9) // 4 * 16
+    rows = M
+    while rows > 1 and 2 * stage(rows) > room:
+        rows = (rows + 1) // 2
+    return room >= 0 and 2 * stage(rows) <= room
+
+
+def route(L: int, K: int, M: int, k: int, dtype: torch.dtype) -> str:
+    """The kernel route of a search's refinement: search_kernel with its
+    shared memory laid out for 3 CTAs an SM ("cta3", the first choice),
+    else 2 ("cta2"), else 1 ("cta1"), where a row is whole 16-byte pieces;
+    else search_general ("general": one CTA a query, values read one at a
+    time, buffers in global scratch), which takes every shape.  A pure
+    function of the shapes; the wrapper realigns a base that is not
+    16-byte aligned."""
+    elem = torch.finfo(dtype).bits // 8
+    if (L * elem) % 16 == 0:
+        for blocks in (3, 2, 1):
+            if _fits(L, K, M, k, elem, blocks):
+                return f"cta{blocks}"
+    return "general"
+
+
+def general_words(K: int, M: int, k: int) -> int:
+    """Float32 words of global scratch a CTA of the general route takes:
+    the candidates, both buffers, the passing candidates, warp counts."""
+    return 3 * K * M + 4 * k + -(-K * M // _THREADS) * _WARPS
 
 
 def _check(q, q_sq, series, sq_norms, order, sorted_lb, M: int, k: int,
@@ -95,12 +152,8 @@ def refine_search(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
     if q.device.type != "cuda":
         raise RuntimeError(f"no refine_search kernel for device {q.device}")
     Q, L = q.shape
-    per16 = 16 // series.element_size()
-    if (L % per16 or series.data_ptr() % 16 or q.data_ptr() % 16
-            or sq_norms.data_ptr() % 16):
-        raise ValueError(f"the refine_search kernel copies rows in 16-byte "
-                         f"pieces: L={L} must be a multiple of {per16} and "
-                         f"series, sq_norms and q 16-byte aligned")
+    how = route(L, K, M, k, series.dtype)
+    q, series, sq_norms = aligned(q), aligned(series), aligned(sq_norms)
     if sq_norms.shape[0] % 4:
         # the kernel copies a leaf's norms as a 16-byte aligned window,
         # which must not run past the end
@@ -120,6 +173,13 @@ def refine_search(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
                           K)
     schedule = torch.argsort(work, descending=True,
                              stable=True).to(torch.int32)
+    if how == "general":
+        ctas = min(Q, 2 * torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        per = general_words(K, M, k)
+        scratch = torch.empty((ctas, per), dtype=torch.float32, device=dev)
+    else:
+        ctas, per, scratch = int(how[3:]), 0, None
     fn = _build.entry("refine", "refine_search", _ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(q.data_ptr(), q_sq.data_ptr(), series.data_ptr(),
@@ -127,7 +187,10 @@ def refine_search(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
                   order.data_ptr(), sorted_lb.data_ptr(), schedule.data_ptr(),
                   out_d.data_ptr(), out_e.data_ptr(), rounds.data_ptr(),
                   alive.data_ptr(), counter.data_ptr(), Q, L, K, M, k,
-                  order.shape[1], torch.cuda.current_stream().cuda_stream)
+                  order.shape[1], int(how == "general"), ctas,
+                  None if scratch is None else scratch.data_ptr(), per,
+                  torch.cuda.current_stream().cuda_stream)
     _build.check("refine", "refine_search", code)
     launches += 1
+    by_route[how] = by_route.get(how, 0) + 1
     return out_d, out_e, rounds

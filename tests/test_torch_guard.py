@@ -10,20 +10,15 @@
 import os
 import subprocess
 import sys
-from importlib import import_module
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import api
-from repro_torch.kernels import (_build, isax_summarize, ops, refine,
+from repro_torch.kernels import (_build, ed_argmin, flash_attention,
+                                 isax_summarize, lb_distance, ops, refine,
                                  refine_search)
-
-# the package re-exports these entry points under their modules' names
-lb_distance = import_module("repro_torch.kernels.lb_distance")
-ed_argmin = import_module("repro_torch.kernels.ed_argmin")
-flash_attention = import_module("repro_torch.kernels.flash_attention")
 
 torch.set_num_threads(2)
 
@@ -50,7 +45,11 @@ def test_config_and_data_are_validated():
     with pytest.raises(ValueError):
         api.FreshIndex.build(np.zeros((4, 250), np.float32), device="cpu")
     with pytest.raises(ValueError):
-        api.FreshIndex.build(np.zeros((0, 256), np.float32), device="cpu")
+        api.FreshIndex.build(np.zeros((256,), np.float32), device="cpu")
+    # n = 0 is the bootstrap (build empty, add, compact), as in repro
+    empty = api.FreshIndex.build(np.zeros((0, 256), np.float32),
+                                 device="cpu")
+    assert empty.n_series == 0 and empty.index.n_leaves == 0
 
 
 def test_wrappers_raise_on_what_the_kernel_does_not_take():
@@ -163,8 +162,70 @@ def test_library_names_follow_the_sources(tmp_path, monkeypatch):
     assert len(set(paths.values())) == len(paths)
 
 
+def test_first_builds_from_many_threads_build_once(monkeypatch, tmp_path):
+    """Eight threads ask for a library at once (the index builder's
+    Refresh workers launch kernels): the build runs once and every thread
+    gets the one loaded library."""
+    import threading
+    import time
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_LOADED", {})
+    builds = []
+
+    def fake_build_all():
+        builds.append(threading.get_ident())
+        time.sleep(0.05)                 # a window for the others to race
+        _build.library_path("lb_distance").write_bytes(b"")
+        return {}
+    monkeypatch.setattr(_build, "build_all", fake_build_all)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: ("lib", path))
+    got = []
+    start = threading.Barrier(8)
+
+    def worker():
+        start.wait()
+        got.append(_build.library("lb_distance"))
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(builds) == 1 and len(got) == 8
+    assert all(g is got[0] for g in got)
+
+
+def test_build_outputs_are_named_by_process_and_thread(monkeypatch,
+                                                       tmp_path):
+    """Two builders never write one temporary file: its name carries the
+    process and the thread."""
+    import threading
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc")
+    monkeypatch.setattr(_build, "SOURCES", ("lb_distance",))
+    seen = []
+
+    class Done:
+        returncode = 0
+
+        def __init__(self, cmd, **kw):
+            seen.append(cmd[cmd.index("-o") + 1])
+            open(seen[-1], "w").close()
+
+        def communicate(self):
+            return "", ""
+    monkeypatch.setattr(_build.subprocess, "Popen", Done)
+    _build.build_all()
+    assert seen and f".{os.getpid()}.{threading.get_ident()}.tmp" in seen[0]
+    assert _build.library_path("lb_distance").is_file()
+
+
 def test_importing_the_port_loads_neither_jax_nor_repro():
     mods = ["repro_torch", "repro_torch.api", "repro_torch.convert",
+            "repro_torch.analysis", "repro_torch.analysis.hooks",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+            "repro_torch.maintenance", "repro_torch.maintenance.tombstones",
+            "repro_torch.core.builder", "repro_torch.core.refresh",
+            "repro_torch.core.traverse",
             "repro_torch.core", "repro_torch.core.isax",
             "repro_torch.core.index", "repro_torch.core.search",
             "repro_torch.data", "repro_torch.data.synthetic",

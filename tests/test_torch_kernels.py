@@ -9,7 +9,6 @@ absolute (the matmul form cancels terms of that size).
 """
 
 import shutil
-from importlib import import_module
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -19,10 +18,8 @@ import torch
 
 from repro.kernels import ops
 from repro.kernels import ref as ref_j
-from repro_torch.kernels import _build, isax_summarize, ref, refine
-
-# the package re-exports the entry point lb_distance under the module's name
-lb_distance = import_module("repro_torch.kernels.lb_distance")
+from repro_torch.kernels import (_build, isax_summarize, lb_distance, ref,
+                                 refine)
 
 torch.set_num_threads(2)
 
