@@ -5,7 +5,8 @@
 
 Phases, each printing one JSON line:
   device     nvidia-smi's name and power limit, torch's device name;
-  build      nvcc builds of the five kernels under src/repro_torch/kernels/csrc;
+  build      nvcc builds of the six kernel sources under
+             src/repro_torch/kernels/csrc;
   kernel     each CUDA kernel against its plain PyTorch version on the card,
              at its path's shapes, with its time, the plain version's time,
              a PyTorch library call's time where one computes the same
@@ -19,6 +20,13 @@ Phases, each printing one JSON line:
              2^18 walks drawn from that generator, in f32 and bf16, and on
              2^16 walks at other leaf sizes and K (its cluster cut to 1, 2
              and 4 CTAs, and K = 264 slots a round above 256 threads);
+             lb_distance's tiled route is held bit for bit to its looped
+             one; the port-side kernels leaf_stats (the build's per-leaf
+             regions) and leaf_gather (the builder's materialize pass) are
+             held bit for bit to their plain versions, on real sorted
+             summaries at three bounds and 8 and 4 bits, and through the
+             IndexBuilder at 4 workers against the one-pass build at three
+             bounds in float32 and bfloat16 storage;
   main       FreshIndex.build over N random walks of length 256 made on the
              card (default 2^24, 16 GiB of float32), then exact 10-NN of 256
              noisy collection series (sigma 0.1, the paper's hardest Fig. 6a
@@ -45,9 +53,11 @@ Phases, each printing one JSON line:
              against the search's nearest neighbour;
   l96        FreshIndex.build and search over 2^20 walks of length 96
              (w 16), 256 noisy queries, k 10, held to brute force: the
-             summarize kernel's strided route on a search path;
-  lifecycle  2^22 walks of length 256: the Refresh builder at 1 and 4
-             workers (4 chunks) and at 4 with a crashing worker, each
+             summarize kernel's strided route on a search path; and the
+             IndexBuilder at 4 workers, bit-equal to the one-pass build;
+  lifecycle  2^22 walks of length 256: the Refresh builder, three builds
+             each at 1 and 4 workers (4 chunks) with medians and each
+             phase's seconds, and one at 4 with a crashing worker, each
              bit-equal to the one-pass build; 65,536 adds (half with a
              TTL), 65,536 deletes (half core, half delta), 1,024 updates,
              the TTL batch expired; searches with all of it pending and
@@ -70,6 +80,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -84,7 +95,7 @@ TF32_FLOPS = 495e12            # H100 SXM tf32 tensor cores, dense
 # clock, 132 SMs x 128 lanes x 1.98 GHz boost
 FP32_ISSUE = 132 * 128 * 1.98e9
 Q, K, M, L, TOPK = 256, 8, 64, 256, 10
-MAIN = ("summarize", "lb_distance", "refine_search")
+MAIN = ("summarize", "leaf_stats", "lb_distance", "refine_search")
 # granite-8b's attention (train_4k): 32 query heads, 8 KV heads of 128
 GRANITE = dict(B=1, Hq=32, Hkv=8, T=4096, dh=128)
 
@@ -229,6 +240,25 @@ def check_lb_distance(torch, lbk, ref, gen, NL=1 << 18):
     err = (dk[~inf] - dr[~inf]).abs().max().item()
     require(torch.allclose(dk[~inf], dr[~inf], rtol=1e-5, atol=1e-5),
             f"lb_distance: off by {err}")
+    # the looped route on the same inputs, and on a ragged tile (Q and NL
+    # off the tile, NL % 4 != 0: scalar stores): it adds the same terms in
+    # the same order, so the tiled route's redesign kept its bits
+    fn = lbk._build.entry("lb_distance", "lb_distance", lbk._ARGTYPES)
+    for nq, nl in ((Q, NL), (100, 1003)):
+        qs, los, his = q[:nq], lo[:nl], hi[:nl]
+        tiled = lbk.lb_distance(qs, los, his)
+        plain = ref.lb_distance_ref(qs, los, his)
+        fin = torch.isfinite(plain)
+        require(torch.equal(torch.isfinite(tiled), fin) and torch.allclose(
+            tiled[fin], plain[fin], rtol=1e-5, atol=1e-5),
+            f"lb_distance Q {nq} NL {nl}: off the plain version")
+        looped = torch.empty_like(tiled)
+        lbk._build.check("lb_distance", "lb_distance", fn(
+            qs.data_ptr(), los.data_ptr(), his.data_ptr(), looped.data_ptr(),
+            nq, nl, 16, L / 16, lbk._ROUTES.index("looped"),
+            torch.cuda.current_stream().cuda_stream))
+        require(torch.equal(tiled, looped), f"lb_distance Q {nq} NL {nl}: "
+                f"the tiled and looped routes differ")
     ms = time_ms(torch, lambda: lbk.lb_distance(q, lo, hi))
     plain = time_ms(torch, lambda: ref.lb_distance_ref(q, lo, hi), 3)
     # five float32 instructions a (query, leaf, segment) term: two
@@ -241,7 +271,151 @@ def check_lb_distance(torch, lbk, ref, gen, NL=1 << 18):
             "shape": f"q ({Q}, 16), leaves ({NL}, 16)",
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "checks": {"inf_leaves": int(inf[0].sum())}}
+            "checks": {"inf_leaves": int(inf[0].sum()),
+                       "tiled_equals_looped": True}}
+
+
+def check_leaf_stats(torch, api, isax, index, lsk, lgk, ref, gen,
+                     n=1 << 24):
+    """leaf_stats, the build's per-leaf regions (a port-side kernel: repro
+    computes them inside its jitted build), held bit for bit against its
+    plain version leaf_stats_blocks: on the key-sorted summaries of
+    2^20 + 37 walks (a partial last leaf, and a leaf of padding only past
+    it) at three bounds and 8 and 4 bits; then the IndexBuilder at 4
+    workers, which launches leaf_stats and leaf_gather once a part, bit
+    for bit equal to the one-pass build at three bounds in float32 and
+    bfloat16 storage; then timed at the main build's launch, n rows read
+    through a random order (the key sort's), against the plain version."""
+    checks = {}
+    raw = walks(torch, gen, (1 << 20) + 37, L)
+    for bits in (8, 4):
+        x, p, w, _ = index.summarize_rows(raw, segments=16, bits=bits,
+                                          znorm=True)
+        perm = index.lexsort_lanes(isax.interleaved_key(w, bits))
+        nl = -(-p.shape[0] // M) + 1
+        for bound in lsk.BOUNDS:
+            got = (torch.empty(nl, 16, device=DEV),
+                   torch.empty(nl, 16, device=DEV),
+                   torch.empty(nl, dtype=torch.bool, device=DEV))
+            lsk.launcher(p, w, perm, p.shape[0], leaf_capacity=M, bits=bits,
+                         bound=bound, out=got)(0, nl)
+            want = ref.leaf_stats_ref(p, w, perm, p.shape[0], M, bits,
+                                      bound, (0, nl))
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"leaf_stats {bound} {bits} bits: not bit-equal")
+            require(not bool(got[2][-1]) and bool(got[2][-2]),
+                    f"leaf_stats {bound}: leaf_valid")
+        checks[f"bits{bits}"] = "bit-equal at prefix, symbox, paabox"
+        del x, p, w, perm
+    raw = raw[:1 << 18]
+    for dtype in ("float32", "bfloat16"):
+        for bound in lsk.BOUNDS:
+            cfg = api.IndexConfig(bound=bound, dtype=dtype)
+            one = api.FreshIndex.build(raw, cfg, device=DEV).index
+            b = api.FreshIndex.builder(cfg, workers=4, device=DEV)
+            for c in raw.chunk(4):
+                b.feed(c)
+            many = b.finalize().index
+            require(all(torch.equal(getattr(one, f), getattr(many, f))
+                        for f in one._fields),
+                    f"builder {bound} {dtype}: not bit-equal to one pass")
+        checks[f"builder_{dtype}"] = "bit-equal at prefix, symbox, paabox"
+    del raw, one, many
+    # the main build's launch: n rows through a random order
+    paa = torch.randn(n, 16, generator=gen, device=DEV)
+    words = isax.sax_word(paa)
+    order = torch.randperm(n, generator=gen, device=DEV)
+    kw = dict(leaf_capacity=M, bits=8, bound="prefix")
+    got = lsk.leaf_stats(paa, words, order, n, **kw)
+    want = ref.leaf_stats_ref(paa, words, order, n, M, 8, "prefix",
+                              (0, n // M))
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "leaf_stats at the main shape: not bit-equal")
+    ms = time_ms(torch, lambda: lsk.leaf_stats(paa, words, order, n, **kw))
+    plain = time_ms(torch, lambda: ref.leaf_stats_ref(
+        paa, words, order, n, M, 8, "prefix", (0, n // M)), 3)
+    # each row's order entry, PAA and symbols read once; each leaf's two
+    # edges and flag written once; min, max and a lookup a value are far
+    # below the issue rate
+    bms, by = bound_ms(n * (8 + 16 * 4 + 16) + n // M * (16 * 8 + 1),
+                       n * 16 * 4, FP32_ISSUE)
+    return {"name": "leaf_stats", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/leaf_stats.cu",
+            "replaces": "none: a port-side kernel (src/repro/core/index.py:88 "
+                        "leaf_stats_blocks runs inside repro's jitted build, "
+                        "no Pallas kernel)",
+            "port_side": True,
+            "shape": f"{n} rows, w 16, M {M}, prefix, through a random "
+                     f"order (the main build's launch)",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "library_ms": None, "checks": checks}
+
+
+def check_leaf_gather(torch, isax, lgk, ref, gen, n=1 << 22,
+                      part=2048):
+    """leaf_gather, the builder's materialize pass (a port-side kernel),
+    bit for bit against the torch gathers (leaf_gather_ref): float32 rows
+    of 256 (16-byte copies), bfloat16 rows of 100 (8-byte copies) with
+    ids through a perm, in ranges; then timed as one materialize phase
+    of the lifecycle's builds launches it, n rows of 256 float32 in
+    parts of `part` rows, against the plain version's loop of parts."""
+    checks = {}
+    for name, Lx, dtype, with_perm in (("f32_L256", L, torch.float32, False),
+                                       ("bf16_L100", 100, torch.bfloat16,
+                                        True)):
+        m = (1 << 18) + 5
+        src = (torch.randn(m, Lx, generator=gen, device=DEV).to(dtype),
+               torch.randn(m, 16, generator=gen, device=DEV))
+        src += (isax.sax_word(src[1]), torch.rand(m, generator=gen,
+                                                  device=DEV))
+        order = torch.randperm(m, generator=gen, device=DEV)
+        perm = (torch.randperm(m, generator=gen, device=DEV).to(torch.int32)
+                if with_perm else None)
+        outs = [(torch.zeros(m + M, Lx, dtype=dtype, device=DEV),
+                 torch.zeros(m + M, 16, device=DEV),
+                 torch.zeros(m + M, 16, dtype=torch.uint8, device=DEV),
+                 torch.zeros(m + M, device=DEV),
+                 torch.zeros(m + M, dtype=torch.int32, device=DEV))
+                for _ in range(2)]
+        launch = lgk.launcher(order, src, outs[0], perm)
+        for r0, r1 in ((0, 2048), (2048, 2053), (2053, m)):
+            launch(r0, r1)
+            ref.leaf_gather_ref(order, src, outs[1], (r0, r1), perm)
+        require(all(torch.equal(a, b) for a, b in zip(*outs)),
+                f"leaf_gather {name}: not bit-equal to the gathers")
+        checks[name] = {"route": lgk.route(Lx * src[0].element_size(),
+                                           src[0].data_ptr(),
+                                           outs[0][0].data_ptr())}
+    del src, outs
+    src = (torch.randn(n, L, generator=gen, device=DEV),
+           torch.randn(n, 16, generator=gen, device=DEV))
+    src += (isax.sax_word(src[1]), torch.rand(n, generator=gen, device=DEV))
+    order = torch.randperm(n, generator=gen, device=DEV)
+    out = (torch.empty_like(src[0]), torch.empty_like(src[1]),
+           torch.empty_like(src[2]), torch.empty_like(src[3]),
+           torch.empty(n, dtype=torch.int32, device=DEV))
+    launch = lgk.launcher(order, src, out)
+    parts = [(a, min(a + part, n)) for a in range(0, n, part)]
+    ms = time_ms(torch, lambda: [launch(a, b) for a, b in parts], 3)
+    plain = time_ms(torch, lambda: [ref.leaf_gather_ref(order, src, out,
+                                                        (a, b))
+                                    for a, b in parts], 2)
+    # the same rows in one launch: the kernel's own rate, where the
+    # phase's 2048 launches wait on the host
+    checks["one_launch_ms"] = time_ms(torch, lambda: launch(0, n), 5)
+    row_bytes = L * 4 + 16 * 4 + 16 + 4
+    bms, by = bound_ms(n * (row_bytes + 8) + n * (row_bytes + 4), 0)
+    checks["one_launch_share_of_bound"] = bms / checks["one_launch_ms"]
+    return {"name": "leaf_gather", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/leaf_stats.cu",
+            "replaces": "none: a port-side kernel (the gathers of "
+                        "src/repro/core/builder.py's materialize phase, "
+                        "no Pallas kernel)",
+            "port_side": True,
+            "shape": f"{n} rows of {L} f32 in {len(parts)} launches of "
+                     f"{part} rows (one materialize phase)",
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "library_ms": None, "checks": checks}
 
 
 def fold_check(torch, dk, ek, dr, er, true_d, tol, what):
@@ -965,6 +1139,17 @@ def main_path(torch, api, isax, search, kmods, ref, n, gen):
     require(keys_sorted(torch, isax, idx.words), "leaf order")
     del raw
     torch.cuda.empty_cache()
+    # the regions leaf_stats wrote, bit for bit those of its plain version
+    # over the stored leaves
+    nl = idx.n_leaves
+    want = ref.leaf_stats_blocks(idx.paa.reshape(nl, M, -1),
+                                 idx.words.reshape(nl, M, -1),
+                                 idx.valid.reshape(nl, M, 1), bits=8,
+                                 bound="prefix")
+    require(all(torch.equal(a, b) for a, b in zip(
+        (idx.leaf_lo, idx.leaf_hi, idx.leaf_valid), want)),
+        "the build's leaf regions differ from leaf_stats_blocks")
+    del want
 
     reps = []
     for _ in range(3):
@@ -1241,16 +1426,28 @@ def l96_path(torch, api, isax, kmods, gen, n=1 << 20, Lx=96):
     d, ids = index.search(queries, k=TOPK)
     torch.cuda.synchronize()
     search_ms = (time.perf_counter() - t0) * 1e3
+    # the Refresh builder at 4 workers over 4 chunks: the one-pass bits
+    b = api.FreshIndex.builder(workers=4, device=DEV)
+    t0 = time.perf_counter()
+    for c in raw.chunk(4):
+        b.feed(c)
+    built = b.finalize().index
+    torch.cuda.synchronize()
+    builder_s = time.perf_counter() - t0
+    require(all(torch.equal(getattr(built, f), getattr(index.index, f))
+                for f in built._fields),
+            "L 96 path: the builder at 4 workers differs from one pass")
     launches = route_counts(kmods)
-    for r in ("summarize/strided", "lb_distance/tiled", "refine_search/cta3"):
+    for r in ("summarize/strided", "lb_distance/tiled", "refine_search/cta3",
+              "leaf_stats/prefix", "leaf_gather/u16"):
         require(launches.get(r, 0) > 0, f"L 96 path: {r} not launched: "
                 f"{launches}")
-    del raw
+    del raw, built
     ties = hold_answers(torch, isax, index.index, queries, d, ids, "L 96")
     return {"phase": "l96", "series": n, "length": Lx, "segments": 16,
             "queries": Q, "k": TOPK, "build_s": build_s,
-            "search_ms": search_ms, "near_ties": ties,
-            "launches": launches}, launches
+            "builder_4_workers_s": builder_s, "search_ms": search_ms,
+            "near_ties": ties, "launches": launches}, launches
 
 
 class LiveRows:
@@ -1340,8 +1537,9 @@ def hold_live(torch, isax, live, queries, d, ids, what):
 def lifecycle_path(torch, api, isax, kmods, gen, n=1 << 22, n_add=1 << 16,
                    n_upd=1024, Lx=L):
     """The Refresh builder, the lifecycle and checkpoints at n random walks
-    of length 256 with IndexConfig() defaults: builds at 1 and 4 workers
-    (4 chunks), and at 4 with one worker crashing, each bit-equal to the
+    of length 256 with IndexConfig() defaults: three builds each at 1 and
+    4 workers (4 chunks), in turns, with their medians and each phase's
+    seconds, and one at 4 with one worker crashing, each bit-equal to the
     one-pass build; adds (one batch with a TTL), deletes in core and
     delta, updates, TTL expiry, with the counts they return and n_series
     held to the script's own books; searches held to a tombstone-aware
@@ -1379,25 +1577,32 @@ def lifecycle_path(torch, api, isax, kmods, gen, n=1 << 22, n_add=1 << 16,
                     f"{what}: {f} differs")
 
     ix = timed("build_s", lambda: api.FreshIndex.build(raw, device=DEV))
-    def phases(builder):
-        """Each phase's host wall seconds in a build."""
-        return {p: r["wall_time"] for p, r in
-                builder.report()["phases"].items()}
-    one = api.FreshIndex.builder(workers=1, device=DEV)
-    b1 = timed("builder_1_worker_s", lambda: one.feed(raw).finalize())
-    same(b1.index, ix.index, "builder, 1 worker")
-    rep["builder_1_worker_phases_s"] = phases(one)
-    del b1, one
 
     def chunked(builder):
         for c in raw.chunk(4):
             builder.feed(c)
         return builder.finalize()
-    four = api.FreshIndex.builder(workers=4, device=DEV)
-    b4 = timed("builder_4_workers_s", lambda: chunked(four))
-    same(b4.index, ix.index, "builder, 4 workers, 4 chunks")
-    rep["builder_4_workers_phases_s"] = phases(four)
-    del b4, four
+
+    # three builds each at 1 worker (one feed) and at 4 (4 chunks), in
+    # turns: a build moves by up to 2 x between calls, so medians
+    runs = {1: [], 4: []}
+    for workers in (1, 4) * 3:
+        b = api.FreshIndex.builder(workers=workers, device=DEV)
+        built = timed("builder_s", lambda: (b.feed(raw).finalize()
+                                            if workers == 1
+                                            else chunked(b)))
+        same(built.index, ix.index, f"builder, {workers} worker(s)")
+        runs[workers].append({"s": rep.pop("builder_s"), "phases": {
+            p: r["wall_time"] for p, r in b.report()["phases"].items()}})
+        del built, b
+    for workers, rs in runs.items():
+        key = f"builder_{workers}_worker{'s' if workers > 1 else ''}"
+        rep[f"{key}_s"] = [r["s"] for r in rs]
+        rep[f"{key}_median_s"] = statistics.median(r["s"] for r in rs)
+        rep[f"{key}_phases_s"] = [r["phases"] for r in rs]
+        rep[f"{key}_phases_median_s"] = {
+            p: statistics.median(r["phases"][p] for r in rs)
+            for p in rs[0]["phases"]}
     crash = api.FreshIndex.builder(
         workers=4, device=DEV, injectors=Injectors.crashing({1}, after=3))
     b4c = timed("builder_4_workers_crash_s", lambda: chunked(crash))
@@ -1501,9 +1706,12 @@ def lifecycle_path(torch, api, isax, kmods, gen, n=1 << 22, n_add=1 << 16,
         shutil.rmtree(root, ignore_errors=True)
     rep["peak_alloc_gib"] = torch.cuda.max_memory_allocated() / 2**30
     launches = route_counts(kmods)
-    for r in ("summarize/lanes", "lb_distance/tiled", "refine_search/cta3"):
+    for r in ("summarize/lanes", "lb_distance/tiled", "refine_search/cta3",
+              "leaf_stats/prefix", "leaf_gather/u16"):
         require(launches.get(r, 0) > 0, f"lifecycle: {r} not launched: "
                 f"{launches}")
+    launches |= {name: kmods[name].launches
+                 for name in ("leaf_stats", "leaf_gather")}
     rep["launches"] = launches
     return rep, launches
 
@@ -1523,6 +1731,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(src))
     from repro_torch import api
+    from repro_torch.core import index as core_index
     from repro_torch.core import isax, search
     from repro_torch.kernels import _build, ops, ref
     # the plain versions' products in full float32, as the kernels compute
@@ -1551,6 +1760,8 @@ def main() -> int:
     edge_gen = torch.Generator(device=DEV).manual_seed(args.seed + 1)
     # so do the route cases and the paths added after the main one
     more_gen = torch.Generator(device=DEV).manual_seed(args.seed + 2)
+    # and the per-leaf kernels' cases
+    leaf_gen = torch.Generator(device=DEV).manual_seed(args.seed + 3)
     kmods = dict(ops.WRAPPERS)
     rows, launches = [], {}
     for name, check, args_ in (
@@ -1565,7 +1776,12 @@ def main() -> int:
             ("ed_argmin", check_ed_argmin, (isax, kmods["ed_argmin"],
                                             ref, gen, edge_gen)),
             ("flash_attention", check_flash, (kmods["flash_attention"],
-                                              ref, gen, edge_gen))):
+                                              ref, gen, edge_gen)),
+            ("leaf_stats", check_leaf_stats, (
+                api, isax, core_index, kmods["leaf_stats"],
+                kmods["leaf_gather"], ref, leaf_gen)),
+            ("leaf_gather", check_leaf_gather, (isax, kmods["leaf_gather"],
+                                                ref, leaf_gen))):
         kmods[name].launches = 0
         r = check(torch, *args_)
         torch.cuda.empty_cache()

@@ -24,9 +24,10 @@ crash/delay injectors):
     merge        log2 levels of pairwise stable run merges on the host
                  (adjacent runs only, so stability == one global stable
                  sort)
-    leaf_stats   per leaf-group, on the device: `leaf_stats_blocks`, the
-                 function `build_index` calls
-    materialize  per row-block, on the device: gather the rows into the
+    leaf_stats   per leaf-group, on the device: one launch of the
+                 leaf_stats kernel (the function `build_index` calls)
+    materialize  per row-block, on the device: one launch of the
+                 leaf_gather kernel, which gathers the rows into the
                  padded, leaf-ordered FlatIndex arrays
 
 Part boundaries depend only on `part_rows`, every payload writes
@@ -55,7 +56,10 @@ import numpy as np
 import torch
 
 from . import isax
-from .index import STORAGE, FlatIndex, leaf_stats_blocks, summarize_rows
+from repro_torch.kernels import leaf_gather, leaf_stats
+from repro_torch.kernels.isax_summarize import summarize_rows
+
+from .index import STORAGE, FlatIndex
 from .refresh import Injectors, RefreshExecutor
 from .traverse import Executor, SequentialExecutor, traverse_complete
 
@@ -111,55 +115,40 @@ def _finalize_from_order(series_src: torch.Tensor, paa: torch.Tensor,
     out_words = torch.full((n_pad, w), maxsym, dtype=words.dtype, device=dev)
     out_sqn = torch.full((n_pad,), 1e30, device=dev)
     out_perm = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
-    leaf_lo = torch.empty((n_leaves, w), device=dev)
-    leaf_hi = torch.empty((n_leaves, w), device=dev)
-    leaf_valid = torch.empty((n_leaves,), dtype=torch.bool, device=dev)
+    stats = (torch.empty((n_leaves, w), device=dev),
+             torch.empty((n_leaves, w), device=dev),
+             torch.empty((n_leaves,), dtype=torch.bool, device=dev))
 
-    # ---- per-leaf stats: parts are groups of whole leaves ----------------
+    # ---- per-leaf stats: parts are groups of whole leaves, one kernel
+    # launch each ---------------------------------------------------------
     leaves_per_part = max(1, part_rows // M)
     n_lparts = -(-n_leaves // leaves_per_part)
+    stats_of = leaf_stats.launcher(paa, words, order_d, n, leaf_capacity=M,
+                                   bits=config.bits, bound=config.bound,
+                                   out=stats)
 
     def p_leaf_stats(i: int) -> None:
         gl = i * leaves_per_part
-        gh = min(gl + leaves_per_part, n_leaves)
-        g = gh - gl
-        rlo = gl * M
-        m_exist = max(0, min(gh * M, n) - rlo)
-        pw = torch.full((g * M, w), float("inf"), device=dev)
-        ww = torch.full((g * M, w), maxsym, dtype=words.dtype, device=dev)
-        vm = torch.zeros((g * M,), dtype=torch.bool, device=dev)
-        if m_exist:
-            rows = order_d[rlo:rlo + m_exist]
-            pw[:m_exist] = paa[rows]
-            ww[:m_exist] = words[rows]
-            vm[:m_exist] = True
-        lo, hi, lv = leaf_stats_blocks(
-            pw.reshape(g, M, w), ww.reshape(g, M, w), vm.reshape(g, M, 1),
-            bits=config.bits, bound=config.bound)
-        leaf_lo[gl:gh] = lo
-        leaf_hi[gl:gh] = hi
-        leaf_valid[gl:gh] = lv
+        stats_of(gl, min(gl + leaves_per_part, n_leaves))
 
     run_phase("leaf_stats", n_lparts, p_leaf_stats)
 
-    # ---- materialize: gather rows into the padded leaf-ordered arrays ----
+    # ---- materialize: gather rows into the padded leaf-ordered arrays,
+    # one kernel launch a part ---------------------------------------------
     n_mparts = -(-n_pad // part_rows)
+    gather = leaf_gather.launcher(
+        order_d, (series_src, paa, words, sqn),
+        (out_series, out_paa, out_words, out_sqn, out_perm), perm_src)
 
     def p_materialize(i: int) -> None:
         lo = i * part_rows
-        m_exist = max(0, min(lo + part_rows, n) - lo)
-        if not m_exist:
-            return                      # pure padding rows: prefilled
-        rows = order_d[lo:lo + m_exist]
-        out_series[lo:lo + m_exist] = series_src[rows]
-        out_paa[lo:lo + m_exist] = paa[rows]
-        out_words[lo:lo + m_exist] = words[rows]
-        out_sqn[lo:lo + m_exist] = sqn[rows]
-        out_perm[lo:lo + m_exist] = (
-            rows.to(torch.int32) if perm_src is None else perm_src[rows])
+        hi = min(lo + part_rows, n)
+        if hi > lo:                     # else pure padding rows: prefilled
+            gather(lo, hi)
 
     run_phase("materialize", n_mparts, p_materialize)
 
+    leaf_lo, leaf_hi, leaf_valid = stats
     return FlatIndex(series=out_series, paa=out_paa, words=out_words,
                      sq_norms=out_sqn, perm=out_perm, valid=out_perm >= 0,
                      leaf_lo=leaf_lo, leaf_hi=leaf_hi, leaf_valid=leaf_valid)
@@ -213,11 +202,10 @@ class IndexBuilder:
         self._tail_rows = 0
         self._raw_blocks: List[Optional[torch.Tensor]] = []
         self._offsets: List[int] = []          # global row offset per block
-        self._xn: List[torch.Tensor] = []      # f32 normalized series
-        self._paa: List[torch.Tensor] = []
-        self._words: List[torch.Tensor] = []   # on the device
-        self._words_np: List[np.ndarray] = []  # the same, on the host
-        self._sqn: List[torch.Tensor] = []
+        # per feed batch, on the device: (f32 normalized series, paa,
+        # uint8 words, sq_norms) of its blocks' rows
+        self._batches: List[tuple] = []
+        self._words_np: List[tuple] = []  # per block: (host words, event)
         self._keys: List[np.ndarray] = []
         self._runs: List[np.ndarray] = []      # sorted global ids per block
         self._finalized = False
@@ -350,10 +338,9 @@ class IndexBuilder:
                     np.empty((0, lanes), np.int32))
         keys = np.concatenate(self._keys)
         order = self._merge_runs(keys)
-        out = (order, _cat(self._xn), _cat(self._paa), _cat(self._words),
-               _cat(self._sqn), keys)
-        for lst in (self._xn, self._paa, self._words, self._words_np,
-                    self._sqn, self._keys, self._runs):
+        out = (order,) + tuple(_cat([b[k] for b in self._batches])
+                               for k in range(4)) + (keys,)
+        for lst in (self._batches, self._words_np, self._keys, self._runs):
             lst.clear()
         return out
 
@@ -384,30 +371,53 @@ class IndexBuilder:
             self._raw_blocks.append(b)
             self._offsets.append(self._n)
             self._n += b.shape[0]
-            for lst in (self._xn, self._paa, self._words, self._words_np,
-                        self._sqn, self._keys, self._runs):
+            for lst in (self._words_np, self._keys, self._runs):
                 lst.append(None)
         nb = len(blocks)
-        cfg = self.config
+        cfg, dev = self.config, self.device
+        ends = np.cumsum([0] + [b.shape[0] for b in blocks]).tolist()
+        m, w = ends[-1], cfg.segments
+        # the batch's outputs; part i writes its rows ends[i]:ends[i + 1]
+        # with one launch of the summarize kernel (the function
+        # `build_index` calls, which gives a row the same bits whatever
+        # rows share its launch)
+        xn = torch.empty((m, self._L), device=dev)
+        paa = torch.empty((m, w), device=dev)
+        words = torch.empty((m, w), dtype=torch.int32, device=dev)
+        sqn = torch.empty((m,), device=dev)
+        outs = [tuple(t[a:b] for t in (xn, paa, words, sqn))
+                for a, b in zip(ends, ends[1:])]
 
         def p_summarize(i: int) -> None:
-            j = start + i
-            x, p, w, s = summarize_rows(
-                self._raw_blocks[j], segments=cfg.segments, bits=cfg.bits,
-                znorm=cfg.znorm)
-            self._xn[j], self._paa[j], self._sqn[j] = x, p, s
-            self._words[j] = w
-            self._words_np[j] = w.cpu().numpy()
+            summarize_rows(self._raw_blocks[start + i], segments=w,
+                           bits=cfg.bits, znorm=cfg.znorm, out=outs[i])
         self._run_phase("summarize", nb, p_summarize)
         # raw rows are dead after summarization; release them only once
         # the whole phase is done (helpers may re-apply parts within it)
         for i in range(nb):
             self._raw_blocks[start + i] = None
+        # the words go to the host for the key phase: on the card one copy
+        # into pinned memory that no part waits for, and an event that the
+        # key phase waits on
+        words = words.to(torch.uint8)
+        self._batches.append((xn, paa, words, sqn))
+        on_card = dev.type == "cuda"
+        host = torch.empty((m, w), dtype=torch.uint8, pin_memory=on_card)
+        host.copy_(words, non_blocking=on_card)
+        ev = None
+        if on_card:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+        host_np = host.numpy()
+        for i in range(nb):
+            self._words_np[start + i] = (host_np[ends[i]:ends[i + 1]], ev)
 
         def p_key(i: int) -> None:
             j = start + i
-            self._keys[j] = isax.interleaved_key_np(self._words_np[j],
-                                                    cfg.bits)
+            h, ev = self._words_np[j]
+            if ev is not None:
+                ev.synchronize()
+            self._keys[j] = isax.interleaved_key_np(h, cfg.bits)
         self._run_phase("key", nb, p_key)
 
         def p_sort(i: int) -> None:

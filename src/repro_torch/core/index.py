@@ -16,6 +16,10 @@ import torch
 
 from repro_torch.kernels.isax_summarize import \
     summarize_rows as _summarize_rows
+from repro_torch.kernels.leaf_stats import leaf_stats
+# the leaf_stats kernel's plain version, under repro.core.index's names
+from repro_torch.kernels.ref import (  # noqa: F401
+    _bit_length_u8, leaf_stats_blocks)
 
 from . import isax
 
@@ -48,51 +52,6 @@ class FlatIndex(NamedTuple):
         return self.leaf_lo.shape[0]
 
 
-def _bit_length_u8(x: torch.Tensor) -> torch.Tensor:
-    """bit_length for uint8 values, elementwise, as int32."""
-    x = x.to(torch.int32)
-    return sum((x > t).to(torch.int32) for t in (0, 1, 3, 7, 15, 31, 63, 127))
-
-
-def leaf_regions(lo_sym: torch.Tensor, hi_sym: torch.Tensor,
-                 lo_paa: torch.Tensor, hi_paa: torch.Tensor,
-                 bound: str = "prefix", bits: int = isax.SAX_BITS):
-    """Per-leaf per-segment [lo, hi] region for the chosen bound."""
-    if bound == "paabox":
-        return lo_paa, hi_paa
-    if bound == "symbox":
-        lo, _ = isax.symbol_region(lo_sym, bits, bits)
-        _, hi = isax.symbol_region(hi_sym, bits, bits)
-        return lo, hi
-    if bound == "prefix":
-        # common prefix depth per segment = bits - bit_length(lo XOR hi)
-        depth = bits - _bit_length_u8(torch.bitwise_xor(lo_sym, hi_sym))
-        return isax.symbol_region(lo_sym, depth, bits)
-    raise ValueError(f"unknown bound {bound!r}")
-
-
-def leaf_stats_blocks(pw: torch.Tensor, ww: torch.Tensor,
-                      vmask: torch.Tensor, *, bits: int, bound: str):
-    """Per-leaf summaries from leaf-blocked sorted entries.
-
-    pw: (n_leaves, M, w) PAA, ww: (n_leaves, M, w) symbols, vmask:
-    (n_leaves, M, 1) validity.  Returns (leaf_lo, leaf_hi, leaf_valid);
-    a fully padded leaf carries the empty region [+inf, +inf].
-    """
-    inf = torch.tensor(float("inf"), dtype=pw.dtype, device=pw.device)
-    wi = ww.to(torch.int32)
-    lo_paa = torch.where(vmask, pw, inf).amin(dim=1)
-    hi_paa = torch.where(vmask, pw, -inf).amax(dim=1)
-    lo_sym = torch.where(vmask, wi, (1 << bits) - 1).amin(dim=1)
-    hi_sym = torch.where(vmask, wi, 0).amax(dim=1)
-    leaf_valid = vmask[..., 0].any(dim=1)
-    lo, hi = leaf_regions(lo_sym.to(torch.uint8), hi_sym.to(torch.uint8),
-                          lo_paa, hi_paa, bound, bits)
-    lo = torch.where(leaf_valid[:, None], lo, inf)
-    hi = torch.where(leaf_valid[:, None], hi, inf)
-    return lo, hi, leaf_valid
-
-
 def lexsort_lanes(lanes: torch.Tensor) -> torch.Tensor:
     """Stable ascending order of (n, n_lanes) non-negative 31-bit key
     lanes, lane 0 primary: `jnp.lexsort(tuple(reversed(lanes)))`.
@@ -117,8 +76,8 @@ def summarize_rows(raw: torch.Tensor, *, segments: int, bits: int,
     writing its slice of the full-size outputs in place (only a block of
     raw is converted when it is neither float32 nor bfloat16).  The
     kernel gives each row the same bits whatever block it lies in: the
-    index builder's parts call this too, and store what `build_index`
-    stores."""
+    index builder's parts launch it on theirs, and store what
+    `build_index` stores."""
     n, L = raw.shape
     dev = raw.device
     x = torch.empty((n, L), dtype=torch.float32, device=dev)
@@ -151,6 +110,11 @@ def build_index(raw: torch.Tensor, *, segments: int = isax.SEGMENTS,
 
     # ---- sort by interleaved key (leaf order of the round-robin tree) ----
     perm = lexsort_lanes(isax.interleaved_key(w, bits))
+    # ---- per-leaf regions, read through the order (what the builder's
+    # leaf_stats phase calls on each of its parts) --------------------------
+    lo, hi, leaf_valid = leaf_stats(p, w, perm, n,
+                                    leaf_capacity=leaf_capacity, bits=bits,
+                                    bound=bound)
     x, p, w, sq = x[perm], p[perm], w[perm], sq[perm]
     perm = perm.to(torch.int32)
 
@@ -165,12 +129,6 @@ def build_index(raw: torch.Tensor, *, segments: int = isax.SEGMENTS,
         perm = torch.cat([perm, perm.new_full((pad,), -1)])
         sq = torch.cat([sq, sq.new_zeros((pad,))])
     valid = perm >= 0
-
-    n_leaves = n_pad // leaf_capacity
-    lo, hi, leaf_valid = leaf_stats_blocks(
-        p.reshape(n_leaves, leaf_capacity, segments),
-        w.reshape(n_leaves, leaf_capacity, segments),
-        valid.reshape(n_leaves, leaf_capacity, 1), bits=bits, bound=bound)
 
     # padded rows must never win a min: push their norms (hence distances) up
     sq_norms = torch.where(valid, sq, torch.full_like(sq, 1e30))

@@ -6,6 +6,8 @@
     refine          — one refinement round: gather + distances + top-k fold
     refine_search   — every refinement round of a search in one launch
     flash_attention — causal / sliding-window GQA attention
+    leaf_stats      — per-leaf regions of the key-sorted rows (build)
+    leaf_gather     — rows gathered into leaf order (the builder)
 
 Each wrapper module picks its kernel's route from the shapes (`route`),
 launches it on CUDA tensors and counts the launches in `launches`.

@@ -31,13 +31,15 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("isax_summarize", "lb_distance", "refine", "ed_argmin",
-           "flash_attention")
+           "flash_attention", "leaf_stats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
 # serializes first builds: threads that launch kernels at once (the index
 # builder's Refresh workers) would otherwise each run nvcc
 _BUILD_LOCK = threading.Lock()
+# guards the wrappers' launch counts, which those threads add to at once
+COUNT_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -126,11 +128,16 @@ def build_all() -> Dict[str, dict]:
     return report
 
 
-_LOADED: Dict[str, ctypes.CDLL] = {}
+_LOADED: Dict[str, ctypes.PyDLL] = {}
 
 
-def library(name: str) -> ctypes.CDLL:
+def library(name: str) -> ctypes.PyDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed.
+
+    Loaded as a `ctypes.PyDLL`, whose calls keep the interpreter lock: a
+    launch takes microseconds, and the index builder's worker threads,
+    which launch one kernel a part, spent far longer handing the lock to
+    one another around each call than in it (PERF.md §5).
 
     Thread-safe: the first calls from several threads build and load it
     once, under a lock; later calls read the loaded library without one.
@@ -143,17 +150,24 @@ def library(name: str) -> ctypes.CDLL:
                 path = library_path(name)
                 if not path.is_file():
                     build_all()
-                lib = _LOADED[name] = ctypes.CDLL(str(path))
+                lib = _LOADED[name] = ctypes.PyDLL(str(path))
     return lib
 
 
+_ENTRIES: Dict[tuple, object] = {}
+
+
 def entry(source: str, name: str, argtypes: list):
-    """The C entry point `name` of `csrc/<source>.cu`, returning an int.
-    Pointers and the stream go as ctypes.c_void_p, so none is cut to 32
-    bits."""
-    fn = getattr(library(source), name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    """The C entry point `name` of `csrc/<source>.cu`, returning an int,
+    typed once and then taken from a cache (the index builder calls some
+    once for each part).  Pointers and the stream go as ctypes.c_void_p,
+    so none is cut to 32 bits."""
+    fn = _ENTRIES.get((source, name))
+    if fn is None:
+        fn = getattr(library(source), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _ENTRIES[(source, name)] = fn
     return fn
 
 

@@ -11,23 +11,35 @@
 // arithmetic (L adds, w binary searches over <= 255 breakpoints) is far
 // below what the SMs do in the time the bytes take to arrive.
 //
-// Two routes, both one warp per series, so a row's results depend only
-// on the route and never on how many rows a launch holds (the index
-// builder summarizes parts of 2048 rows, the one-shot build all rows at
-// once, and the two must store the same bits):
+// Two routes.  A row's results depend only on the route and never on how
+// many rows a launch holds or which rows lie beside it (the index builder
+// summarizes parts of 2048 rows, the one-shot build all rows at once, and
+// the two must store the same bits):
 //
-// lanes (route 0): lane l holds the VPT = L / 32 consecutive values
-// [l * VPT, (l + 1) * VPT) and loads them with 16-byte loads, so a warp
-// reads its row as one contiguous run.  A segment of seg = L / w values
-// spans seg / VPT lanes, whose partial sums meet by xor-shuffles (or, for
-// short segments, lies inside one lane).  It takes L = 32 * VPT with VPT
-// in {4, 8, 16, 32} (float32) or {8, 16, 32} (bfloat16), and segments
-// that map onto lanes; the wrapper's `route` decides.
+// lanes (route 0): one warp a row.  Lane l holds the VPT = L / 32
+// consecutive values [l * VPT, (l + 1) * VPT) and loads them with 16-byte
+// loads, so a warp reads its row as one contiguous run.  A segment of
+// seg = L / w values spans seg / VPT lanes, whose partial sums meet by
+// xor-shuffles (or, for short segments, lies inside one lane).  It takes
+// L = 32 * VPT with VPT in {4, 8, 16, 32} (float32) or {8, 16, 32}
+// (bfloat16), and segments that map onto lanes; the wrapper's `route`
+// decides.
 //
-// strided (route 1): any L and w.  Lane l reads values l, l + 32, ... of
-// the row (one element a load), and each sum is a warp sum of the lanes'
-// strided partial sums; a segment is summed the same way, one after
-// another.  The row is read once per statistic, from L1 after the first.
+// strided (route 1): any L and w.  A group of G lanes takes a row, G the
+// power of two >= min(w, 32); lane g owns segments g, g + G, ... and sums
+// each one serially, so every statistic is a fixed-order sum of the
+// lanes' serial partials met by a G-lane xor tree, whatever the shapes.
+// A block of 256 threads takes R = 4 * 256 / G rows, four a group (fewer
+// where R rows of L floats outgrow 47 KB), which are one contiguous span
+// of R * L values:
+// the block stages it in shared memory as float32 with 16-byte loads
+// (where the span's base is 16-byte aligned; the wrapper aligns the
+// tensor's base and R * L * sizeof(T) is a multiple of 16 for R >= 8),
+// the groups read their rows from there, write the normalized values back
+// in place, and the block writes the span out as 16-byte stores.  So the
+// input is read once from memory and the series written once, however
+// short the segments.  A row longer than the stage (L > 12,032) is read
+// from memory by its group directly, value by value.
 //
 // z-normalization comes in two forms: znorm 1 is the TPU kernel's
 // one-pass E[x^2] - mu^2; znorm 2 is the two-pass form of
@@ -179,68 +191,127 @@ __global__ void summarize_kernel(const T* __restrict__ x,
   }
 }
 
+constexpr int kThreads = 256;
+constexpr int kStageFloats = (48 * 1024 - 1024) / 4;   // the span's room
+constexpr int kRowsPerGroup = 4;         // strided route: rows a lane group
+
+// xor tree over the G lanes of a group (G a power of two, mask the group)
+__device__ __forceinline__ float group_sum(float s, int G, unsigned mask) {
+  for (int off = G >> 1; off > 0; off >>= 1)
+    s += __shfl_xor_sync(mask, s, off);
+  return s;
+}
+
+// count values of src into the stage as float32: 16 bytes a load where
+// src is 16-byte aligned, one value a load otherwise
 template <typename T>
-__global__ void summarize_strided(const T* __restrict__ x,
-                                  const float* __restrict__ bp, int nbp,
-                                  Out o, long long n, int L, int W,
-                                  int znorm) {
+__device__ __forceinline__ void stage_in(const T* src, int count,
+                                         float* tile) {
+  constexpr int kPer = 16 / sizeof(T);
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int nvec = count / kPer;
+    for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
+      const uint4 raw = reinterpret_cast<const uint4*>(src)[i];
+      const T* t = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int k = 0; k < kPer; k += 4)
+        reinterpret_cast<float4*>(tile + i * kPer)[k / 4] = make_float4(
+            to_f32(t[k]), to_f32(t[k + 1]), to_f32(t[k + 2]),
+            to_f32(t[k + 3]));
+    }
+    done = nvec * kPer;
+  }
+  for (int i = done + threadIdx.x; i < count; i += blockDim.x)
+    tile[i] = to_f32(src[i]);
+}
+
+// count floats of the stage out to dst, 16 bytes a store where aligned
+__device__ __forceinline__ void stage_out(const float* tile, int count,
+                                          float* dst) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int nvec = count / 4;
+    for (int i = threadIdx.x; i < nvec; i += blockDim.x)
+      reinterpret_cast<float4*>(dst)[i] =
+          reinterpret_cast<const float4*>(tile)[i];
+    done = nvec * 4;
+  }
+  for (int i = done + threadIdx.x; i < count; i += blockDim.x)
+    dst[i] = tile[i];
+}
+
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(kThreads)
+summarize_strided(const T* __restrict__ x, const float* __restrict__ bp,
+                  int nbp, Out o, long long n, int L, int W, int G, int R,
+                  int znorm) {
+  extern __shared__ __align__(16) float tile[];   // R * L staged values
   __shared__ float bp_s[256];
   for (int i = threadIdx.x; i < nbp; i += blockDim.x) bp_s[i] = bp[i];
+  const long long row0 = (long long)blockIdx.x * R;
+  const int rows = (int)min((long long)R, n - row0);
+  if (kStaged) stage_in(x + row0 * L, rows * L, tile);
   __syncthreads();
 
+  const int grp = threadIdx.x / G, g = threadIdx.x % G;
   const int lane = threadIdx.x & 31;
-  const long long row = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= n) return;
-  const T* r = x + row * L;
-  float mu = 0.f, sd = 1.f;
-  if (znorm == 1) {
-    float s = 0.f, ss = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float v = to_f32(r[j]);
-      s += v;
-      ss += v * v;
+  const unsigned mask =
+      G == 32 ? 0xffffffffu : ((1u << G) - 1) << (lane & ~(G - 1));
+  for (int rr = grp; rr < rows; rr += kThreads / G) {
+    const long long row = row0 + rr;
+    float* v = tile + rr * L;             // the staged row
+    const T* r = x + row * L;             // the row in memory
+    auto get = [&](int j) { return kStaged ? v[j] : to_f32(r[j]); };
+    const int seg = L / W;
+    float mu = 0.f, sd = 1.f;
+    if (znorm == 1) {                     // E[x^2] - mu^2, as the TPU kernel
+      float s = 0.f, ss = 0.f;
+      for (int sg = g; sg < W; sg += G)
+        for (int j = sg * seg; j < (sg + 1) * seg; ++j) {
+          const float a = get(j);
+          s += a;
+          ss += a * a;
+        }
+      mu = group_sum(s, G, mask) / L;
+      sd = sqrtf(fmaxf(group_sum(ss, G, mask) / L - mu * mu, 0.f)) + kEps;
+    } else if (znorm == 2) {              // the mean, then the deviations
+      float s = 0.f;
+      for (int sg = g; sg < W; sg += G)
+        for (int j = sg * seg; j < (sg + 1) * seg; ++j) s += get(j);
+      mu = group_sum(s, G, mask) / L;
+      float ss = 0.f;
+      for (int sg = g; sg < W; sg += G)
+        for (int j = sg * seg; j < (sg + 1) * seg; ++j) {
+          const float d = get(j) - mu;
+          ss += d * d;
+        }
+      sd = sqrtf(group_sum(ss, G, mask) / L) + kEps;
     }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    mu = s / L;
-    sd = sqrtf(fmaxf(ss / L - mu * mu, 0.f)) + kEps;
-  } else if (znorm == 2) {
-    float s = 0.f;
-    for (int j = lane; j < L; j += 32) s += to_f32(r[j]);
-    mu = warp_sum(s) / L;
-    float ss = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float d = to_f32(r[j]) - mu;
-      ss += d * d;
-    }
-    sd = sqrtf(warp_sum(ss) / L) + kEps;
-  }
-  auto value = [&](int j) {
-    const float v = to_f32(r[j]);
-    return znorm ? (v - mu) / sd : v;
-  };
-
-  if (o.xout != nullptr) {
     float sq = 0.f;
-    for (int j = lane; j < L; j += 32) {
-      const float v = value(j);
-      o.xout[row * L + j] = v;
-      sq += v * v;
+    for (int sg = g; sg < W; sg += G) {
+      float ps = 0.f;
+      for (int j = sg * seg; j < (sg + 1) * seg; ++j) {
+        float a = get(j);
+        if (znorm) a = (a - mu) / sd;
+        ps += a;
+        sq += a * a;
+        if (o.xout != nullptr) {
+          if (kStaged) v[j] = a; else o.xout[row * L + j] = a;
+        }
+      }
+      const float p = ps / seg;
+      o.paa[row * W + sg] = p;
+      o.words[row * W + sg] = upper_bound(bp_s, nbp, p);
     }
-    sq = warp_sum(sq);
-    if (lane == 0) o.sqn[row] = sq;
+    if (o.xout != nullptr) {
+      sq = group_sum(sq, G, mask);
+      if (g == 0) o.sqn[row] = sq;
+    }
   }
-
-  const int seg = L / W;
-  for (int sgi = 0; sgi < W; ++sgi) {
-    float s = 0.f;
-    for (int j = lane; j < seg; j += 32) s += value(sgi * seg + j);
-    s = warp_sum(s);
-    if (lane == 0) {
-      const float p = s / seg;
-      o.paa[row * W + sgi] = p;
-      o.words[row * W + sgi] = upper_bound(bp_s, nbp, p);
-    }
+  if (kStaged && o.xout != nullptr) {
+    __syncthreads();
+    stage_out(tile, rows * L, o.xout + row0 * L);
   }
 }
 
@@ -276,8 +347,20 @@ template <typename T>
 cudaError_t launch_strided(const void* x, const float* bp, int nbp, Out o,
                            long long n, int L, int W, int znorm,
                            cudaStream_t stream) {
-  summarize_strided<T><<<blocks_for(n), 32 * kWarps, 0, stream>>>(
-      static_cast<const T*>(x), bp, nbp, o, n, L, W, znorm);
+  int G = 1;                              // lanes a row
+  while (G < W && G < 32) G <<= 1;
+  int R = kRowsPerGroup * kThreads / G;   // rows a block
+  const bool staged = L <= kStageFloats;
+  if (staged) R = min(R, kStageFloats / L);
+  const unsigned blocks = (unsigned)((n + R - 1) / R);
+  const T* xt = static_cast<const T*>(x);
+  if (staged)
+    summarize_strided<T, true><<<blocks, kThreads,
+                                 (size_t)R * L * sizeof(float), stream>>>(
+        xt, bp, nbp, o, n, L, W, G, R, znorm);
+  else
+    summarize_strided<T, false><<<blocks, kThreads, 0, stream>>>(
+        xt, bp, nbp, o, n, L, W, G, R, znorm);
   return cudaGetLastError();
 }
 

@@ -110,8 +110,9 @@ def _launch(x: torch.Tensor, segments: int, bits: int, znorm: int,
                   _ROUTES.index(how),
                   torch.cuda.current_stream().cuda_stream)
     _build.check("isax_summarize", "isax_summarize", code)
-    launches += 1
-    by_route[how] = by_route.get(how, 0) + 1
+    with _build.COUNT_LOCK:
+        launches += 1
+        by_route[how] = by_route.get(how, 0) + 1
     return out
 
 

@@ -16,6 +16,7 @@ from repro_torch.core import isax
 
 from . import _build
 from .ref import lb_distance_ref
+from .refine import aligned
 
 launches = 0
 by_route: dict = {}                    # launches of each route
@@ -27,9 +28,9 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 
 
 def route(w: int) -> str:
-    """The kernel route for w segments: "tiled" (w unrolled, the tile
-    staged in shared memory) for w in {4, 8, 16}, "looped" (w a runtime
-    loop) for any other w."""
+    """The kernel route for w segments: "tiled" (the tile staged in
+    shared memory, 32 queries by 4 leaves a thread) for w in {4, 8, 16},
+    "looped" (w a runtime loop) for any other w."""
     return "tiled" if w in (4, 8, 16) else "looped"
 
 
@@ -63,6 +64,8 @@ def lb_distance(q_paa: torch.Tensor, leaf_lo: torch.Tensor,
     Q, w = q_paa.shape
     how = route(w)
     NL = leaf_lo.shape[0]
+    # the tiled route reads whole 16-byte pieces of each row
+    q_paa, leaf_lo, leaf_hi = (aligned(t) for t in (q_paa, leaf_lo, leaf_hi))
     out = torch.empty((Q, NL), dtype=torch.float32, device=q_paa.device)
     if Q == 0 or NL == 0:
         return out

@@ -12,7 +12,8 @@ no result; the CUDA kernel masks a ragged T, so any T >= 1 is taken).
 `WRAPPERS` maps each entry point to its wrapper module, whose `launches`
 counts its kernel's launches, and "refine_search" (the whole refinement
 of a search, which the search calls in place of a loop of refine_topk
-rounds) to its own wrapper module.
+rounds), "leaf_stats" and "leaf_gather" (the build's per-leaf passes,
+which have no entry point in repro) to their own wrapper modules.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ WRAPPERS = {name: import_module(f"{__package__}.{mod}") for name, mod in (
     ("summarize", "isax_summarize"), ("lb_distance", "lb_distance"),
     ("ed_argmin", "ed_argmin"), ("refine_topk", "refine"),
     ("refine_search", "refine_search"),
-    ("flash_attention", "flash_attention"))}
+    ("flash_attention", "flash_attention"),
+    ("leaf_stats", "leaf_stats"), ("leaf_gather", "leaf_gather"))}
 
 
 def summarize(x, *, segments=None, bits=None, znorm=True):

@@ -49,6 +49,89 @@ def lb_distance_ref(q_paa: torch.Tensor, leaf_lo: torch.Tensor,
                                   leaf_hi[None], series_len)
 
 
+def _bit_length_u8(x: torch.Tensor) -> torch.Tensor:
+    """bit_length for uint8 values, elementwise, as int32."""
+    x = x.to(torch.int32)
+    return sum((x > t).to(torch.int32) for t in (0, 1, 3, 7, 15, 31, 63, 127))
+
+
+def leaf_regions(lo_sym: torch.Tensor, hi_sym: torch.Tensor,
+                 lo_paa: torch.Tensor, hi_paa: torch.Tensor,
+                 bound: str = "prefix", bits: int = isax.SAX_BITS):
+    """Per-leaf per-segment [lo, hi] region for the chosen bound."""
+    if bound == "paabox":
+        return lo_paa, hi_paa
+    if bound == "symbox":
+        lo, _ = isax.symbol_region(lo_sym, bits, bits)
+        _, hi = isax.symbol_region(hi_sym, bits, bits)
+        return lo, hi
+    if bound == "prefix":
+        # common prefix depth per segment = bits - bit_length(lo XOR hi)
+        depth = bits - _bit_length_u8(torch.bitwise_xor(lo_sym, hi_sym))
+        return isax.symbol_region(lo_sym, depth, bits)
+    raise ValueError(f"unknown bound {bound!r}")
+
+
+def leaf_stats_blocks(pw: torch.Tensor, ww: torch.Tensor,
+                      vmask: torch.Tensor, *, bits: int, bound: str):
+    """Per-leaf summaries from leaf-blocked sorted entries.
+
+    pw: (n_leaves, M, w) PAA, ww: (n_leaves, M, w) symbols, vmask:
+    (n_leaves, M, 1) validity.  Returns (leaf_lo, leaf_hi, leaf_valid);
+    a fully padded leaf carries the empty region [+inf, +inf].
+    """
+    inf = torch.tensor(float("inf"), dtype=pw.dtype, device=pw.device)
+    wi = ww.to(torch.int32)
+    lo_paa = torch.where(vmask, pw, inf).amin(dim=1)
+    hi_paa = torch.where(vmask, pw, -inf).amax(dim=1)
+    lo_sym = torch.where(vmask, wi, (1 << bits) - 1).amin(dim=1)
+    hi_sym = torch.where(vmask, wi, 0).amax(dim=1)
+    leaf_valid = vmask[..., 0].any(dim=1)
+    lo, hi = leaf_regions(lo_sym.to(torch.uint8), hi_sym.to(torch.uint8),
+                          lo_paa, hi_paa, bound, bits)
+    lo = torch.where(leaf_valid[:, None], lo, inf)
+    hi = torch.where(leaf_valid[:, None], hi, inf)
+    return lo, hi, leaf_valid
+
+
+def leaf_stats_ref(paa: torch.Tensor, words: torch.Tensor,
+                   order: torch.Tensor, n: int, leaf_capacity: int,
+                   bits: int, bound: str, leaves: Tuple[int, int]):
+    """The regions of leaves [l0, l1): `leaf_stats_blocks` over their
+    sorted rows, row r < n being source row order[r] of paa and words,
+    rows >= n padding (PAA +inf, the top symbol, invalid)."""
+    l0, l1 = leaves
+    M, w = leaf_capacity, paa.shape[1]
+    g = l1 - l0
+    r0 = l0 * M
+    m = max(0, min(l1 * M, n) - r0)
+    pw = paa.new_full((g * M, w), float("inf"))
+    ww = words.new_full((g * M, w), (1 << bits) - 1)
+    vm = torch.zeros((g * M,), dtype=torch.bool, device=paa.device)
+    if m:
+        rows = order[r0:r0 + m]
+        pw[:m] = paa[rows]
+        ww[:m] = words[rows]
+        vm[:m] = True
+    return leaf_stats_blocks(pw.reshape(g, M, w), ww.reshape(g, M, w),
+                             vm.reshape(g, M, 1), bits=bits, bound=bound)
+
+
+def leaf_gather_ref(order: torch.Tensor, src, out, rows: Tuple[int, int],
+                    perm_src: torch.Tensor | None = None):
+    """Sorted rows [r0, r1) of out = (series, paa, words, sq_norms, perm)
+    from source row order[r] of src = (series, paa, words, sq_norms), in
+    place; perm[r] = perm_src[order[r]], or order[r] where perm_src is
+    None.  Returns out."""
+    r0, r1 = rows
+    idx = order[r0:r1]
+    for o, s in zip(out, src):
+        o[r0:r1] = s[idx]
+    out[4][r0:r1] = (idx.to(torch.int32) if perm_src is None
+                     else perm_src[idx])
+    return out
+
+
 def ed_argmin_ref(q: torch.Tensor, xs: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-query min squared Euclidean distance and its argmin.

@@ -178,7 +178,7 @@ def test_first_builds_from_many_threads_build_once(monkeypatch, tmp_path):
         _build.library_path("lb_distance").write_bytes(b"")
         return {}
     monkeypatch.setattr(_build, "build_all", fake_build_all)
-    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: ("lib", path))
+    monkeypatch.setattr(_build.ctypes, "PyDLL", lambda path: ("lib", path))
     got = []
     start = threading.Barrier(8)
 
@@ -234,7 +234,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.kernels.lb_distance", "repro_torch.kernels.refine",
             "repro_torch.kernels.refine_search",
             "repro_torch.kernels.ops", "repro_torch.kernels.ed_argmin",
-            "repro_torch.kernels.flash_attention"]
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.leaf_stats",
+            "repro_torch.kernels.leaf_gather"]
     here = {m[len("src/"):-len(".py")].replace("/", ".").replace(
         ".__init__", "")
         for m in _py_files(os.path.join(ROOT, "src", "repro_torch"))}
