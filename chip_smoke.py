@@ -51,6 +51,21 @@ Phases, each printing one JSON line:
   scan       ops.ed_argmin of the same z-normalized queries over the whole
              stored collection (the exact 1-NN scan, 16 GiB read), held
              against the search's nearest neighbour;
+  approx     the main cell's index searched approximately: mode="exact"
+             and the EXACT rule byte-equal to the main answer; six rules
+             (max_leaves 1024, eps 0.1, eps 0.5, eps 0.1 with max_leaves
+             8192, pq_budget 4096, max_rounds 64), each with its search ms,
+             rounds, recall@10 against the exact ids and refine_search's
+             launches by route, every reported distance its id's own, and
+             the refinement under the rule held to refine_search_ref (all
+             queries for a capped rule, the 16 heaviest for eps alone);
+             calibrate() on a cut grid (k 10, targets 0.9 and 0.99, 64
+             holdout queries, eps 0 / 0.1 / 0.5 x max_leaves 64 / 1024 /
+             16384), the oracle's seconds inside it, each met entry's
+             holdout recall at least its target, then
+             search(mode="approx", recall_target=0.9); autotune() over
+             round_leaves 8 and 16, after which search is byte-equal to
+             the untuned answer;
   l96        FreshIndex.build and search over 2^20 walks of length 96
              (w 16), 256 noisy queries, k 10, held to brute force: the
              summarize kernel's strided route on a search path; and the
@@ -62,12 +77,16 @@ Phases, each printing one JSON line:
              TTL), 65,536 deletes (half core, half delta), 1,024 updates,
              the TTL batch expired; searches with all of it pending and
              after compaction, held to a tombstone-aware brute force;
-             compact twice, bit-equal; save, load and reload, the search
-             bit-equal after each;
+             compact twice, bit-equal; calibrate() on two settings, then
+             save, load and reload, the search bit-equal after each and
+             the calibration table equal and fresh after load;
   attention  ops.flash_attention at granite-8b's attention widths (B 1,
              Hq 32, Hkv 8, T = S = 4096, dh 128, bf16, causal), held
              against the plain version.
-Each of main, rounds, scan, l96, lifecycle and attention sets every
+refine_search is held under the (1 + eps) stop (inv_eps 1 / 1.25^2) on
+every route too: cta3 in the kernel phase, cta2, cta1 and general in the
+route phase.
+Each of main, rounds, scan, approx, l96, lifecycle and attention sets every
 launch count to 0 before it and requires each kernel (and route) of its
 path to have launched, and every kernel of the table to have launched
 on some path.  Then the kernel table, the nvidia-smi line and, last,
@@ -403,6 +422,16 @@ def check_leaf_gather(torch, isax, lgk, ref, gen, n=1 << 22,
     # the same rows in one launch: the kernel's own rate, where the
     # phase's 2048 launches wait on the host
     checks["one_launch_ms"] = time_ms(torch, lambda: launch(0, n), 5)
+
+    # the library: torch.index_select of each array over the same parts,
+    # and over all rows in one call each
+    def library(a, b):
+        rows = order[a:b]
+        for o, x in zip(out, src):
+            torch.index_select(x, 0, rows, out=o[a:b])
+        out[4][a:b].copy_(rows)
+    library_ms = time_ms(torch, lambda: [library(a, b) for a, b in parts], 3)
+    checks["library_one_call_ms"] = time_ms(torch, lambda: library(0, n), 5)
     row_bytes = L * 4 + 16 * 4 + 16 + 4
     bms, by = bound_ms(n * (row_bytes + 8) + n * (row_bytes + 4), 0)
     checks["one_launch_share_of_bound"] = bms / checks["one_launch_ms"]
@@ -415,7 +444,10 @@ def check_leaf_gather(torch, isax, lgk, ref, gen, n=1 << 22,
             "shape": f"{n} rows of {L} f32 in {len(parts)} launches of "
                      f"{part} rows (one materialize phase)",
             "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": bms,
-            "bound_by": by, "library_ms": None, "checks": checks}
+            "bound_by": by, "library_ms": library_ms,
+            "library_call": "torch.index_select of each array, and a copy "
+                            "of the row ids, over the same parts",
+            "checks": checks}
 
 
 def fold_check(torch, dk, ek, dr, er, true_d, tol, what):
@@ -484,13 +516,14 @@ def check_refine(torch, isax, rk, ref, gen, NL=4096):
             "checks": rows}
 
 
-def refine_inputs(search, idx, queries, K=K):
+def refine_inputs(search, idx, queries, K=K, max_rounds=None, budget=None):
     """The refinement's inputs, as search_plan_impl makes them: prepared
-    queries, their norms, and each query's priority queue of leaves."""
+    queries, their norms, and each query's priority queue of leaves (cut
+    to `max_rounds` rounds and `budget` leaves)."""
     q, q_paa = search.prepare_queries(queries, True, idx.paa.shape[1])
     lb = search.leaf_lower_bounds(idx, q_paa, idx.series.shape[1])
-    order, sorted_lb = search._pq_order(
-        lb, K, search._rounds_cap(idx.n_leaves, K))
+    cap = search._rounds_cap(idx.n_leaves, K, max_rounds, budget)
+    order, sorted_lb = search._pq_order(lb, K, cap, budget)
     return q, (q * q).sum(dim=-1), order, sorted_lb
 
 
@@ -527,18 +560,20 @@ def search_tol(torch, idx, q, q_sq):
     return tol, true_d
 
 
-def hold_search(torch, got, want, sorted_lb, true_d, tol, what, K=K):
+def hold_search(torch, got, want, sorted_lb, true_d, tol, what, K=K,
+                inv_eps=1.0):
     """One refinement's (d, e, rounds, alive) against another's: buffers
     as fold_check holds them; rounds equal but for a query whose stop test
-    met a near-tie (the deciding lower bound within tol of the k-th best of
-    the side that stopped first), each shown."""
+    met a near-tie (the deciding lower bound within tol of the bound, the
+    k-th best times inv_eps, of the side that stopped first), each
+    shown."""
     (dk, ek, rk, ak), (dr, er, rr, ar) = got, want
     err, swaps = fold_check(torch, dk, ek, dr, er, true_d, tol, what)
     ties = []
     for i in (rk != rr).nonzero()[:, 0].tolist():
         first = dk if rk[i] < rr[i] else dr
         r0 = int(min(rk[i], rr[i]))
-        gap = (sorted_lb[i, r0 * K] - first[i, -1]).abs().item()
+        gap = (sorted_lb[i, r0 * K] - first[i, -1] * inv_eps).abs().item()
         require(gap <= tol, f"{what}: query {i} ran {int(rk[i])} rounds, "
                 f"not {int(rr[i])}, beyond a near-tie ({gap})")
         ties.append({"query": i, "rounds": [int(rk[i]), int(rr[i])],
@@ -548,18 +583,19 @@ def hold_search(torch, got, want, sorted_lb, true_d, tol, what, K=K):
             "alive_slots_differ": int((ak != ar).sum())}
 
 
-def run_loop(torch, rk, args, K=K, M=M, k=TOPK):
+def run_loop(torch, rk, args, K=K, M=M, k=TOPK, inv_eps=1.0):
     """refine_search's (d, e, rounds, alive)."""
     alive = torch.zeros(args[0].shape[0], dtype=torch.int32, device=DEV)
     out = rk.refine_search(*args, leaf_capacity=M, k=k, round_leaves=K,
-                           alive_out=alive)
+                           inv_eps=inv_eps, alive_out=alive)
     return out + (alive,)
 
 
-def run_loop_ref(torch, ref, args, K=K, M=M, k=TOPK):
+def run_loop_ref(torch, ref, args, K=K, M=M, k=TOPK, inv_eps=1.0):
     alive = torch.zeros(args[0].shape[0], dtype=torch.int32, device=DEV)
     out = ref.refine_search_ref(*args, leaf_capacity=M, k=k,
-                                round_leaves=K, alive_out=alive)
+                                round_leaves=K, inv_eps=inv_eps,
+                                alive_out=alive)
     return out + (alive,)
 
 
@@ -594,6 +630,26 @@ def hold_loop(torch, search, rk, ref, idx, queries, K, what, k=TOPK):
                 plain_ms=plain, bound_ms=bms, bound_by=by)
 
 
+def hold_eps(torch, search, rk, ref, idx, queries, K_, k_, what, eps=0.25):
+    """refine_search against refine_search_ref under the (1 + eps) stop,
+    inv_eps = 1 / (1 + eps)^2 (hold_search, the near-ties against the
+    scaled bound); with the route and each query's rounds beside the
+    exact search's."""
+    inv, _ = search._stop_knobs(eps, None, None)
+    q, q_sq, order, sorted_lb = refine_inputs(search, idx, queries, K_)
+    args = (q, q_sq, idx.series, idx.sq_norms, order, sorted_lb)
+    M_ = idx.leaf_capacity
+    got = run_loop(torch, rk, args, K_, M_, k_, inv)
+    want = run_loop_ref(torch, ref, args, K_, M_, k_, inv)
+    exact = run_loop(torch, rk, args, K_, M_, k_)[2]
+    tol, true_d = search_tol(torch, idx, q, q_sq)
+    row = hold_search(torch, got, want, sorted_lb, true_d, tol, what, K_,
+                      inv)
+    return dict(row, eps=eps, route=rk.route(idx.series.shape[1], K_, M_, k_,
+                                             idx.series.dtype),
+                rounds=rounds_stats(got[2]), exact_rounds=rounds_stats(exact))
+
+
 def check_refine_search(torch, api, search, rk, ref, edge_gen, n=1 << 18):
     """refine_search against refine_search_ref (hold_loop) on real indexes
     of random walks and Q noisy collection queries (sigma 0.1), all drawn
@@ -613,6 +669,9 @@ def check_refine_search(torch, api, search, rk, ref, edge_gen, n=1 << 18):
                                    device=DEV).index
         rows[name] = hold_loop(torch, search, rk, ref, idx, queries, K,
                                f"refine_search {name}")
+        rows[f"{name} eps 0.25"] = hold_eps(torch, search, rk, ref, idx,
+                                            queries, K, TOPK,
+                                            f"refine_search {name} eps")
     raw, queries = walks(n // 4)
     for m, k_ in ((16, 6), (32, 12), (64, 3), (8, 264)):
         idx = api.FreshIndex.build(raw, api.IndexConfig(leaf_capacity=m),
@@ -993,6 +1052,11 @@ def route_refine_search(torch, api, search, rk, ref, gen, n=1 << 18):
         require(got == want, f"refine_search {name}: route {got}")
         rows[name] = hold_loop(torch, search, rk, ref, idx, queries[:nq], K_,
                                f"refine_search {name}", k_)
+        rows[f"{name}_eps"] = hold_eps(torch, search, rk, ref, idx,
+                                       queries[:nq], K_, k_,
+                                       f"refine_search {name} eps")
+        require(rows[f"{name}_eps"]["route"] == want,
+                f"refine_search {name} eps: route")
     del f32, wide
     raw = walks(torch, gen, n // 4, 100)
     pick = torch.randint(0, n // 4, (64,), generator=gen, device=DEV)
@@ -1005,6 +1069,8 @@ def route_refine_search(torch, api, search, rk, ref, gen, n=1 << 18):
             "refine_search bf16 L 100: route")
     rows["bf16_L100"] = hold_loop(torch, search, rk, ref, idx, queries, K,
                                   "refine_search bf16 L 100")
+    rows["bf16_L100_eps"] = hold_eps(torch, search, rk, ref, idx, queries, K,
+                                     TOPK, "refine_search bf16 L 100 eps")
     out = []
     for name, route, shape in (
             ("k5000", "cta2", f"{n} walks, Q=16 K={K} M={M} L={L} k=5000"),
@@ -1017,7 +1083,8 @@ def route_refine_search(torch, api, search, rk, ref, gen, n=1 << 18):
                              "src/repro/kernels/refine.py:139", shape,
                              r["max_abs_err"], r["ms"], r["plain_ms"],
                              r["bound_ms"], r["bound_by"],
-                             rows if route == "general" else {name: r}))
+                             rows if route == "general" else
+                             {name: r, f"{name}_eps": rows[f"{name}_eps"]}))
     return out
 
 
@@ -1192,7 +1259,8 @@ def main_path(torch, api, isax, search, kmods, ref, n, gen):
             "search_ms_per_query": min(reps) / Q, "rounds": rounds,
             "launches": launches, "near_ties": ties,
             "pq_sort_ms": sort_ms, "device_time": device,
-            "refinement": loop}, launches, (index, q, d, ids), row, loop_ctx
+            "refinement": loop}, launches, (index, q, d, ids, queries), row, \
+        loop_ctx
 
 
 def refine_report(torch, search, rk, ref, idx, queries, rounds):
@@ -1406,6 +1474,203 @@ def hold_answers(torch, isax, idx, queries, d, ids, what):
             f"{what}: distances differ from brute force by "
             f"{(d - db).abs().max().item()}")
     return int((ids != idx.perm[rb]).sum())
+
+
+# the approx phase's rules: FreshIndex.search keywords
+APPROX_RULES = (("max_leaves=1024", dict(mode="approx", max_leaves=1024)),
+                ("eps=0.1", dict(mode="approx", stop_eps=0.1)),
+                ("eps=0.5", dict(mode="approx", stop_eps=0.5)),
+                ("eps=0.1,max_leaves=8192", dict(mode="approx", stop_eps=0.1,
+                                                 max_leaves=8192)),
+                ("pq_budget=4096", dict(pq_budget=4096)),
+                ("max_rounds=64", dict(max_rounds=64)))
+
+
+def approx_rule(torch, search, kmods, ref, index, queries, q, exact_ids,
+                name, kw, inv_perm):
+    """One rule of the approx phase: its search (first, then the mean of 5
+    warm runs), the launches by route of those runs, recall@10 against the
+    exact ids, each reported distance held to its id's own (direct form,
+    within search_tol), and the refinement under the rule held to
+    refine_search_ref: over all queries for a rule that caps the rounds
+    or leaves, over the 16 heaviest for an eps-only rule."""
+    from repro_torch.quality.calibrate import recall_at_k
+    rk = kmods["refine_search"]
+    idx = index.index
+    reset(kmods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d, ids = index.search(queries, TOPK, **kw)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(5):
+        index.search(queries, TOPK, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 5
+    by_route = route_counts(kmods)
+    require(by_route.get("lb_distance/tiled", 0) == 6
+            and sum(c for r, c in by_route.items()
+                    if r.startswith("refine_search/")) == 6,
+            f"approx {name}: launches {by_route}")
+    launches = {n: kmods[n].launches for n in ("lb_distance",
+                                               "refine_search")}
+
+    inv, budget = search._stop_knobs(kw.get("stop_eps", 0.0),
+                                     kw.get("max_leaves"),
+                                     kw.get("pq_budget"))
+    qn, q_sq, order, sorted_lb = refine_inputs(
+        search, idx, queries, K, kw.get("max_rounds"), budget)
+    args = (qn, q_sq, idx.series, idx.sq_norms, order, sorted_lb)
+    got = run_loop(torch, rk, args, inv_eps=inv)
+    tol, _ = search_tol(torch, idx, qn, q_sq)
+    require(d.shape == (Q, TOPK) and bool(torch.isfinite(d).all())
+            and bool((d[:, 1:] >= d[:, :-1]).all()),
+            f"approx {name}: result shape/order")
+    own = (q[:, None, :] - idx.series[inv_perm[ids.long()]].float()
+           ).square().sum(-1)
+    true_err = (own - d * d).abs().max().item()
+    require(true_err <= tol, f"approx {name}: a reported distance is not "
+            f"its id's ({true_err} > {tol})")
+    if any(key in kw for key in ("max_leaves", "pq_budget", "max_rounds")):
+        n_held, sargs, mine = Q, args, got
+    else:                               # the 16 heaviest queries
+        sub = got[2].argsort(descending=True, stable=True)[:16]
+        n_held = 16
+        sargs = (tuple(a[sub] for a in args[:2]) + args[2:4]
+                 + tuple(a[sub] for a in args[4:]))
+        mine = run_loop(torch, rk, sargs, inv_eps=inv)
+    t0 = time.perf_counter()
+    want = run_loop_ref(torch, ref, sargs, inv_eps=inv)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    tol_s, true_d = search_tol(torch, idx, sargs[0], sargs[1])
+    held = hold_search(torch, mine, want, sargs[5], true_d, tol_s,
+                       f"approx {name}", K, inv)
+    return {"rule": name, "inv_eps": inv, "leaf_budget": budget,
+            "first_ms": first, "ms": ms,
+            "rounds": rounds_stats(got[2]),
+            "recall_at_10": recall_at_k(ids.cpu().numpy(),
+                                        exact_ids.cpu().numpy()),
+            "true_distance_err": true_err, "tol": tol,
+            "by_route": by_route,
+            "held": {"queries": n_held, "plain_ms": plain, **held}}, launches
+
+
+def approx_path(torch, isax, search, kmods, ref, index, queries, q, d, ids):
+    """The main cell's index searched approximately, calibrated and
+    autotuned (the quality / autotune slice): exact search through the
+    new knob path byte-equal to the main phase's answer; each rule of
+    APPROX_RULES (approx_rule); calibrate() on a cut grid (the oracle
+    timed inside it, its answer held to the script's brute force on the
+    card, each met entry's holdout recall >= its target), then
+    search(mode="approx", recall_target=0.9) on the main queries; and
+    autotune() over round_leaves 8 and 16, after which search is byte-equal
+    to the untuned answer."""
+    from repro_torch.kernels.autotune import TuneConfig
+    from repro_torch.quality import calibrate as cal
+    from repro_torch.quality.stop_rules import EXACT
+    idx = index.index
+    rep = {"phase": "approx", "series": idx.series.shape[0], "queries": Q,
+           "k": TOPK}
+    launches = {}
+
+    def count(more):
+        for name, c in more.items():
+            launches[name] = launches.get(name, 0) + c
+
+    reset(kmods)
+    de, ie = index.search(queries, TOPK, mode="exact")
+    dp, ip, _ = index._plan(queries, TOPK, round_leaves=K, **EXACT.lower())
+    require(all(torch.equal(a, b) for a, b in ((de, d), (ie, ids), (dp, d),
+                                               (ip, ids))),
+            "approx: exact mode differs from the main phase's answer")
+    count({n: kmods[n].launches for n in ("lb_distance", "refine_search")})
+    perm = idx.perm.long()
+    inv_perm = torch.empty_like(perm)
+    inv_perm[perm] = torch.arange(perm.shape[0], device=DEV)
+    rep["rules"] = []
+    for name, kw in APPROX_RULES:
+        r, more = approx_rule(torch, search, kmods, ref, index, queries, q,
+                              ids, name, kw, inv_perm)
+        rep["rules"].append(r)
+        count(more)
+    del inv_perm
+
+    # calibrate on a cut grid: fewer settings, the full collection; the
+    # oracle is timed where calibrate() calls it
+    oracle_runs = []
+    real_oracle = cal.oracle_topk
+
+    def timed_oracle(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_oracle(*a, **kw)
+        oracle_runs.append((time.perf_counter() - t0, out))
+        return out
+
+    reset(kmods)
+    cal.oracle_topk = timed_oracle
+    try:
+        t0 = time.perf_counter()
+        table = index.calibrate(ks=(TOPK,), targets=(0.9, 0.99),
+                                n_queries=64, eps_grid=(0.0, 0.1, 0.5),
+                                leaves_grid=(64, 1024, 16384), repeat=1)
+        calib_s = time.perf_counter() - t0
+    finally:
+        cal.oracle_topk = real_oracle
+    count({n: kmods[n].launches for n in ("lb_distance", "refine_search")})
+    require(len(oracle_runs) == 1, "calibrate ran the oracle "
+            f"{len(oracle_runs)} times")
+    oracle_s, (od, oi) = oracle_runs[0]
+    hq = torch.from_numpy(cal.holdout_queries(index, 64)).to(DEV)
+    db, rb = bruteforce(torch, idx.series, isax.znormalize(hq).float(), TOPK)
+    require(torch.allclose(torch.from_numpy(od).to(DEV), db, rtol=1e-5,
+                           atol=1e-5), "the oracle's distances differ from "
+            "the brute force on the card")
+    entries = []
+    for (k_, target), e in table.items():
+        row = {"k": k_, "target": target, **e.to_dict()}
+        if e.met:
+            _, hi = index.search(hq, k_, mode="approx", recall_target=target)
+            row["holdout_recall"] = cal.recall_at_k(hi.cpu().numpy(), oi)
+            require(row["holdout_recall"] >= target,
+                    f"approx: a met entry misses its target: {row}")
+        entries.append(row)
+    rep["calibration"] = {"entries": entries, "oracle_s": oracle_s,
+                          "calibrate_s": calib_s,
+                          "oracle_near_ties": int((torch.from_numpy(oi).to(
+                              DEV) != idx.perm[rb]).sum()),
+                          "fresh": index.is_calibration_fresh()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, ia = index.search(queries, TOPK, mode="approx", recall_target=0.9)
+    torch.cuda.synchronize()
+    rep["calibration"]["search_0.9"] = {
+        "ms": (time.perf_counter() - t0) * 1e3,
+        "recall_at_10": cal.recall_at_k(ia.cpu().numpy(), ids.cpu().numpy())}
+
+    reset(kmods)
+    t0 = time.perf_counter()
+    tuned = index.autotune(candidates=(TuneConfig(),
+                                       TuneConfig(round_leaves=16)),
+                           k=TOPK, repeat=3)
+    tune_s = time.perf_counter() - t0
+    count({n: kmods[n].launches for n in ("lb_distance", "refine_search")})
+    ((key, entry),) = tuned.items()
+    dt, it = index.search(queries, TOPK)
+    require(torch.equal(dt, d) and torch.equal(it, ids),
+            "approx: tuned search differs from untuned search")
+    rep["autotune"] = {"key": list(key), "winner": entry.config.to_dict(),
+                       "median_ms": entry.median_ms,
+                       "baseline_ms": entry.baseline_ms,
+                       "candidates": entry.n_candidates,
+                       "survivors": entry.n_exact, "seconds": tune_s,
+                       "knobs": index.search_knobs().to_dict()}
+    require(all(launches.get(n, 0) > 0 for n in ("lb_distance",
+                                                  "refine_search")),
+            f"approx: a kernel of the path was not launched: {launches}")
+    rep["launches"] = launches
+    return rep, launches
 
 
 def l96_path(torch, api, isax, kmods, gen, n=1 << 20, Lx=96):
@@ -1686,6 +1951,12 @@ def lifecycle_path(torch, api, isax, kmods, gen, n=1 << 22, n_add=1 << 16,
                 f"compact twice: {f} differs")
     del before
 
+    # a calibration table (two settings) travels with the checkpoint
+    table = timed("calibrate_s", lambda: ix.calibrate(
+        ks=(TOPK,), targets=(0.9,), n_queries=16, eps_grid=(0.5,),
+        leaves_grid=(64, 1024), repeat=1))
+    rep["calibration"] = [{"k": k_, "target": t, **e.to_dict()}
+                          for (k_, t), e in table.items()]
     root = Path(__file__).resolve().parent / ".smoke_ckpt"
     try:
         path = timed("save_s", lambda: ix.save(str(root), step=1))
@@ -1696,6 +1967,9 @@ def lifecycle_path(torch, api, isax, kmods, gen, n=1 << 22, n_add=1 << 16,
         d3, ids3 = ld.search(queries, k=TOPK)
         require(torch.equal(d3, d2) and torch.equal(ids3, ids2),
                 "search after load differs")
+        require(ld.calibration.to_dict() == table.to_dict()
+                and ld.is_calibration_fresh(),
+                "the calibration table did not survive save and load")
         del ld
         ix.add(new_rows[:8])
         timed("reload_s", lambda: ix.reload(str(root)))
@@ -1795,7 +2069,7 @@ def main() -> int:
         rows.append(r)
         emit({"phase": "route", **r, "result": "PASS"})
 
-    report, more, (index, q, d, ids), loop_row, (
+    report, more, (index, q, d, ids, queries), loop_row, (
         loop_args, loop_out) = main_path(torch, api, isax, search, kmods,
                                          ref, args.series, gen)
     emit(report)
@@ -1812,7 +2086,12 @@ def main() -> int:
     # table, the main cell's refinement the kernel phase's 2^18
     mains = {"ed_argmin": scan["row"], "refine_search": loop_row}
     rows = [mains.get(r["name"], r) for r in rows]
-    del index, q, d, ids
+    torch.cuda.empty_cache()
+    report, more = approx_path(torch, isax, search, kmods, ref, index,
+                               queries, q, d, ids)
+    emit(report)
+    launches |= {k: v for k, v in more.items() if k not in launches}
+    del index, q, d, ids, queries
     torch.cuda.empty_cache()
     report, more = l96_path(torch, api, isax, kmods, more_gen)
     emit(report)

@@ -5,6 +5,12 @@ lifecycle and checkpoints, on the card unless the caller asks for the CPU.
 
     index = FreshIndex.build(series)                  # (n, L), on "cuda"
     dist, ids = index.search(queries, k=10)           # exact k-NN
+    dist, ids = index.search(queries, k=10, mode="approx", stop_eps=0.1)
+
+    index.calibrate(ks=(10,), targets=(0.95,))        # fit stop rules
+    dist, ids = index.search(queries, k=10, mode="approx",
+                             recall_target=0.95)
+    index.autotune()                                  # tune round_leaves
 
     b = FreshIndex.builder(cfg, workers=4)            # streaming, lock-free
     for chunk in stream:                              # multi-worker build
@@ -22,10 +28,10 @@ lifecycle and checkpoints, on the card unless the caller asks for the CPU.
 
     index = FreshIndex.build(series, device="cpu")    # the plain versions
 
-The counterpart of `repro.api.FreshIndex` (its sharding, serving,
-approximate search and autotune are not ported yet).  Checkpoints use the
-layout and format ("fresh-index-v1") of repro's, so either package loads
-what the other saved.
+The counterpart of `repro.api.FreshIndex` (its sharding and serving are
+not ported yet).  Checkpoints use the layout and format
+("fresh-index-v1") of repro's, calibration and autotune tables included,
+so either package loads what the other saved.
 """
 
 from __future__ import annotations
@@ -45,15 +51,17 @@ from repro_torch.core.builder import IndexBuilder, merge_sorted_delta
 from repro_torch.core.index import STORAGE as _DTYPES
 from repro_torch.core.index import (FlatIndex, build_index, index_stats,
                                     summarize_rows)
-from repro_torch.core.search import merge_delta_topk, run_search, squeeze_k
+from repro_torch.core.search import (search_plan_impl, snapshot_search_impl,
+                                     squeeze_k)
+from repro_torch.kernels.autotune import (AutotuneTable, TuneConfig,
+                                          device_kind, resolve_knobs)
 from repro_torch.maintenance.tombstones import (core_dead_mask,
                                                 delta_alive_mask, mask_core)
+from repro_torch.quality.calibrate import CalibrationTable, index_fingerprint
+from repro_torch.quality.stop_rules import EXACT, StopRule
 
 _BOUNDS = ("prefix", "symbox", "paabox")
 FORMAT = "fresh-index-v1"
-# what a repro checkpoint may carry that the port keeps as it is and
-# writes back on save (repro's quality tiers and autotune table)
-_CARRIED = ("quality_calibration", "autotune")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +75,14 @@ class IndexConfig:
                    | 'paabox' (tightest)
     znorm          z-normalize series and queries (the paper's setting)
     dtype          storage dtype of the series matrix; search math is f32
-    round_leaves   leaves refined per query per refinement round (K)
+    round_leaves   leaves refined per query per refinement round (K);
+                   None (default) = resolve through a fresh AutotuneTable
+                   when installed, else the static default of 8
+    pq_budget      cap on leaves admitted to the per-query priority queue
+                   (None = the exact round budget; smaller values trade
+                   exactness for less work, like max_rounds)
+
+    Unset (None) knobs resolve per `FreshIndex.search_knobs`.
     """
     segments: int = isax.SEGMENTS
     bits: int = isax.SAX_BITS
@@ -75,7 +90,8 @@ class IndexConfig:
     bound: str = "prefix"
     znorm: bool = True
     dtype: str = "float32"
-    round_leaves: int = 8
+    round_leaves: Optional[int] = None
+    pq_budget: Optional[int] = None
 
     def __post_init__(self):
         if self.bound not in _BOUNDS:
@@ -88,8 +104,10 @@ class IndexConfig:
             raise ValueError("need segments >= 1 and 1 <= bits <= 8")
         if self.leaf_capacity < 1:
             raise ValueError("leaf_capacity must be >= 1")
-        if self.round_leaves < 1:
-            raise ValueError("round_leaves must be >= 1")
+        if self.round_leaves is not None and self.round_leaves < 1:
+            raise ValueError("round_leaves must be >= 1 or None")
+        if self.pq_budget is not None and self.pq_budget < 1:
+            raise ValueError("pq_budget must be >= 1 or None")
 
     def validate_series_len(self, L: int) -> None:
         """Raise ValueError unless series length L divides into `segments`
@@ -106,12 +124,10 @@ class IndexConfig:
     @classmethod
     def from_dict(cls, d: dict) -> "IndexConfig":
         """Rebuild a config from `to_dict()` output, or from repro's:
-        unknown keys (repro's backend and kernel knobs) are ignored, and
-        so is a None (repro's "resolve at search time"), which leaves the
-        port's default."""
+        unknown keys (repro's backend and kernel-structure knobs) are
+        ignored."""
         known = {f.name for f in dataclasses.fields(cls)}
-        return cls(**{k: v for k, v in d.items()
-                      if k in known and v is not None})
+        return cls(**{k: v for k, v in d.items() if k in known})
 
 
 def resolve_device(device=None) -> torch.device:
@@ -151,7 +167,10 @@ class FreshIndex:
         # stable -> internal, `_alias` internal -> stable
         self._id_map: dict = {}
         self._alias: dict = {}
-        self._carried: dict = {}                # see _CARRIED
+        self._calibration: Optional[CalibrationTable] = None
+        self._autotune: Optional[AutotuneTable] = None
+        self._fp = None                         # fingerprint cache ...
+        self._fp_key = None                     # ... keyed (ver, pending)
 
     # ------------------------------------------------------------------ #
     # construction
@@ -260,8 +279,8 @@ class FreshIndex:
         st["n_deleted"] = self.n_deleted
         st["n_ttl"] = self.n_ttl
         st["n_aliases"] = len(self._alias)
-        st["calibrated"] = "quality_calibration" in self._carried
-        st["autotuned"] = "autotune" in self._carried
+        st["calibrated"] = self._calibration is not None
+        st["autotuned"] = self._autotune is not None
         return st
 
     def __repr__(self) -> str:
@@ -271,19 +290,42 @@ class FreshIndex:
     # ------------------------------------------------------------------ #
     # search
     # ------------------------------------------------------------------ #
-    def search(self, queries, k: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Exact k-NN of `queries`, an (L,) or (Q, L) float array or tensor.
+    def search(self, queries, k: int = 1, *,
+               mode: str = "exact", recall_target: float = 0.95,
+               stop_eps: Optional[float] = None,
+               max_leaves: Optional[int] = None,
+               round_leaves: Optional[int] = None,
+               max_rounds: Optional[int] = None,
+               pq_budget: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """k-NN of `queries`, an (L,) or (Q, L) float array or tensor.
 
         Returns:
             (dist, ids) on the index's device: (Q,) for k == 1, (Q, k)
             ascending by distance otherwise.  Distances are Euclidean,
-            recomputed in direct form for the winners.  A pending delta is
+            recomputed in direct form for the winners: TRUE distances to
+            the returned series in both modes.  A pending delta is
             scanned exactly (its rows as compaction will store them,
             `delta_rows`) and merged in; tombstoned series never appear
             (the search runs over `search_view`); rows renamed by
             update() answer under their stable id.
         Raises:
-            ValueError: query length != series_len, k < 1 or k > n_series.
+            ValueError: query length != series_len, k < 1 or k > n_series,
+                or mode/stop-rule arguments are inconsistent (see
+                `resolve_stop_rule`).
+
+        `mode` selects the quality tier: "exact" (default, certified
+        k-NN) or "approx": the refinement stops early under a
+        `quality.stop_rules.StopRule`, either given explicitly
+        (`stop_eps` / `max_leaves`) or resolved from this index's
+        calibration table as the cheapest fitted rule whose MEASURED
+        recall@k met `recall_target` (run `calibrate()` first, or load a
+        calibrated checkpoint).  `max_rounds` caps the refinement rounds
+        the blunt way (distances become upper bounds).  round_leaves /
+        pq_budget default from this index's IndexConfig, with UNSET
+        config knobs resolved through a fresh autotune table when one is
+        installed (see `search_knobs`); explicit values override per
+        call.
 
         Concurrency: a reader; serialize against writers.
         """
@@ -296,18 +338,210 @@ class FreshIndex:
                 f"length {self.series_len}")
         if not 1 <= k <= self.n_series:
             raise ValueError(f"k must be in [1, {self.n_series}], got {k}")
-        core, delta, alive, id0 = self.search_view()
-        d, i = run_search(core, q, k=k,
-                          round_leaves=self.config.round_leaves,
-                          znorm=self.config.znorm)
-        if delta is not None:
-            md, mi = merge_delta_topk(
-                self.delta_rows,
-                isax.znormalize(q) if self.config.znorm else q,
-                d[:, None] if k == 1 else d, i[:, None] if k == 1 else i,
-                alive, k=k, n_base=id0, znorm=False)
-            d, i = squeeze_k(md, mi, k)
+        rule = self.resolve_stop_rule(mode, k=k, recall_target=recall_target,
+                                      stop_eps=stop_eps,
+                                      max_leaves=max_leaves)
+        kn = self.search_knobs()
+        d, i, _ = self._plan(
+            q, k, max_rounds=max_rounds,
+            round_leaves=(round_leaves if round_leaves is not None
+                          else kn.round_leaves),
+            pq_budget=pq_budget if pq_budget is not None else kn.pq_budget,
+            **rule.lower())
+        d, i = squeeze_k(d, i, k)
         return d, self._remap_ids(i)
+
+    def _plan(self, q: torch.Tensor, k: int, *, round_leaves: int,
+              pq_budget: Optional[int] = None,
+              max_rounds: Optional[int] = None, stop_eps: float = 0.0,
+              stop_leaves: Optional[int] = None):
+        """The plan `search` runs, with every knob resolved: (dist, ids,
+        rounds), (Q, k) internal ids before `_remap_ids`.  The core by
+        `search_plan_impl`; with a pending delta, `snapshot_search_impl`
+        over the delta rows as compaction will store them (`delta_rows`,
+        already normalized, so the queries are normalized here once and
+        the plans take them as they are).  The calibrator and the
+        autotune sweep run this too, so they measure what search runs."""
+        core, delta, alive, id0 = self.search_view()
+        qn = isax.znormalize(q) if self.config.znorm else q
+        kw = dict(k=k, round_leaves=round_leaves, znorm=False,
+                  max_rounds=max_rounds, pq_budget=pq_budget,
+                  stop_eps=stop_eps, stop_leaves=stop_leaves)
+        if delta is None:
+            return search_plan_impl(core, qn, **kw)
+        return snapshot_search_impl(core, self.delta_rows, qn, alive,
+                                    n_base=id0, **kw)
+
+    def resolve_stop_rule(self, mode: str, *, k: int,
+                          recall_target: float = 0.95,
+                          stop_eps: Optional[float] = None,
+                          max_leaves: Optional[int] = None) -> StopRule:
+        """The `StopRule` a (mode, k, recall_target) request lowers to:
+        the one resolution path search() takes.
+
+        Args:
+            mode: "exact" or "approx".
+            k: result count the rule will serve (calibration entries are
+                per-k).
+            recall_target: measured recall@k floor used for the
+                calibration-table lookup (ignored when explicit knobs
+                are given).
+            stop_eps: explicit BSF-convergence slack; with "approx",
+                overrides the table.
+            max_leaves: explicit visited-leaf cap; with "approx",
+                overrides the table.
+        Returns:
+            The resolved StopRule (`stop_rules.EXACT` for exact mode).
+        Raises:
+            ValueError: unknown mode; explicit knobs passed with
+                mode="exact"; or mode="approx" with no explicit knobs
+                and no calibration entry for (k, recall_target).
+
+        Concurrency: read-only on calibration state; serialize against
+        `calibrate()` like any reader against a writer.
+        """
+        if mode not in ("exact", "approx"):
+            raise ValueError(f"mode must be 'exact' or 'approx', "
+                             f"got {mode!r}")
+        if mode == "exact":
+            if stop_eps is not None or max_leaves is not None:
+                raise ValueError(
+                    "stop_eps/max_leaves are approx-mode knobs; they "
+                    "contradict mode='exact'")
+            return EXACT
+        if stop_eps is not None or max_leaves is not None:
+            return StopRule(eps=stop_eps if stop_eps is not None else 0.0,
+                            max_leaves=max_leaves)
+        if self._calibration is None:
+            raise ValueError(
+                "mode='approx' needs either explicit stop_eps/max_leaves "
+                "or a fitted calibration table — run index.calibrate() "
+                "(or load a calibrated checkpoint)")
+        entry = self._calibration.lookup(k, recall_target)
+        if entry is None:
+            raise ValueError(
+                f"no calibration entry for (k={k}, recall_target="
+                f"{recall_target}); re-run calibrate() with ks/targets "
+                f"covering it, or pass explicit stop_eps/max_leaves")
+        return entry.rule
+
+    def calibrate(self, **kwargs) -> CalibrationTable:
+        """Fit approximate-search stop rules for this index and install
+        the resulting table (see `repro_torch.quality.calibrate.calibrate`
+        for every argument: ks, targets, queries/n_queries, eps_grid,
+        leaves_grid, ...).  The installed table is what
+        `search(mode="approx")` resolves rules from, and `save()`
+        persists it with the checkpoint.
+
+        Args:
+            **kwargs: forwarded verbatim to the offline calibrator.
+        Returns:
+            The fitted CalibrationTable (also stored on the index).
+
+        Concurrency: a writer of calibration state (and a reader of the
+        index); serialize against other writers like add().
+        """
+        from repro_torch.quality.calibrate import calibrate as _fit
+        table = _fit(self, **kwargs)
+        self._calibration = table
+        return table
+
+    @property
+    def calibration(self) -> Optional[CalibrationTable]:
+        """The installed CalibrationTable (None until calibrate() runs
+        or a calibrated checkpoint is loaded)."""
+        return self._calibration
+
+    def is_calibration_fresh(self) -> bool:
+        """True when the installed calibration table was measured on
+        EXACTLY this index content (fingerprints match), i.e. its
+        advertised recalls still describe what approx search returns.
+        Mutations (add/delete/update/compact) make it stale; stale
+        tables still resolve (documented degradation).  A table repro
+        fitted is stale here: the fingerprint hashes each package's own
+        config.
+
+        Concurrency: a reader; the fingerprint is cached per lifecycle
+        version, so repeated calls are cheap.
+        """
+        if self._calibration is None:
+            return False
+        return self._fingerprint() == self._calibration.fingerprint
+
+    def _fingerprint(self) -> str:
+        """The content fingerprint, cached per lifecycle version (shared
+        by the calibration and autotune freshness checks)."""
+        key = (self._lifecycle_ver, self.n_pending)
+        if self._fp_key != key:
+            self._fp = index_fingerprint(self)
+            self._fp_key = key
+        return self._fp
+
+    # ------------------------------------------------------------------ #
+    # search-knob autotune (repro_torch.kernels.autotune)
+    # ------------------------------------------------------------------ #
+    def autotune(self, **kwargs) -> AutotuneTable:
+        """Sweep search-knob candidates on this index's device and
+        install the winning AutotuneTable (see
+        `repro_torch.kernels.autotune.autotune_index` for every argument:
+        queries, n_queries, k, repeat, quick, candidates, seed).  Every
+        candidate is gated on BITWISE equality with the default-knob
+        search output before it may win, so installing the table never
+        changes any search result, only its latency.  The installed
+        table is what `search_knobs` resolves unset IndexConfig knobs
+        through, and `save()` persists it with the checkpoint.
+
+        Args:
+            **kwargs: forwarded verbatim to the sweep harness.
+        Returns:
+            The measured AutotuneTable (also stored on the index).
+
+        Concurrency: a writer of autotune state (and a reader of the
+        index); serialize against writers like calibrate().
+        """
+        from repro_torch.kernels.autotune import autotune_index
+        table = autotune_index(self, **kwargs)
+        self._autotune = table
+        return table
+
+    @property
+    def autotune_table(self) -> Optional[AutotuneTable]:
+        """The installed AutotuneTable (None until autotune() runs or a
+        tuned checkpoint is loaded)."""
+        return self._autotune
+
+    def is_autotune_fresh(self) -> bool:
+        """True when the installed autotune table was measured on
+        EXACTLY this index content (fingerprints match).  Mutations
+        (add/delete/update/compact) make it stale; a stale table is NOT
+        resolved through: `search_knobs` falls back to the static
+        defaults until a re-tune.
+
+        Concurrency: a reader; the fingerprint is cached per lifecycle
+        version, so repeated calls are cheap.
+        """
+        if self._autotune is None:
+            return False
+        return self._fingerprint() == self._autotune.fingerprint
+
+    def search_knobs(self) -> TuneConfig:
+        """The fully-resolved search knobs this index serves with, as a
+        `kernels.autotune.TuneConfig`: each knob is the IndexConfig
+        field when set, else the FRESH autotune-table entry for this
+        (device_kind, L, leaf_capacity, dtype) when one is installed,
+        else the static default (`kernels.autotune.DEFAULTS`), so an
+        untuned index, an unknown device, or a stale table all behave
+        exactly as before autotune.  The one resolution path search()
+        and the calibrator share.
+
+        Concurrency: a reader (of config + autotune state).
+        """
+        entry = None
+        if self._autotune is not None and self.is_autotune_fresh():
+            entry = self._autotune.lookup(
+                device_kind(self.device), self.series_len,
+                self.config.leaf_capacity, self.config.dtype)
+        return resolve_knobs(self.config, entry)
 
     def _remap_ids(self, ids: torch.Tensor) -> torch.Tensor:
         """Internal -> stable ids at the result boundary (rows renamed by
@@ -573,10 +807,11 @@ class FreshIndex:
     # checkpoints
     # ------------------------------------------------------------------ #
     def save(self, directory: str, step: int = 0) -> str:
-        """Persist the config, the index arrays, any pending delta and the
+        """Persist the config, the index arrays, any pending delta, the
         lifecycle state (ids, tombstones, TTLs as remaining seconds,
-        aliases) into `directory` at `step`; returns the checkpoint path.
-        Restore with load() or reload(), no rebuild."""
+        aliases) and the installed calibration and autotune tables into
+        `directory` at `step`; returns the checkpoint path.  Restore with
+        load() or reload(), no rebuild."""
         delta = (self.delta_cat if self._delta else
                  torch.zeros((0, self.series_len)))
         tree = {"index": self._idx._asdict(), "delta": delta}
@@ -593,7 +828,10 @@ class FreshIndex:
                      "aliases": [[int(i), int(s)]
                                  for i, s in sorted(self._alias.items())],
                  }}
-        extra.update(self._carried)
+        if self._calibration is not None:
+            extra["quality_calibration"] = self._calibration.to_dict()
+        if self._autotune is not None:
+            extra["autotune"] = self._autotune.to_dict()
         return save_checkpoint(directory, step, tree, extra=extra)
 
     @classmethod
@@ -601,7 +839,8 @@ class FreshIndex:
              device=None) -> "FreshIndex":
         """Restore a save()d index (this package's or repro's) from
         `directory` at `step` (None = latest) onto `device` (None means
-        "cuda"): config, arrays, delta and lifecycle, no rebuild.
+        "cuda"): config, arrays, delta, lifecycle and the calibration and
+        autotune tables, no rebuild.
 
         Raises:
             ValueError: not a FreshIndex checkpoint, or the manifest's
@@ -642,7 +881,12 @@ class FreshIndex:
             # a checkpoint from before the lifecycle: ids were contiguous
             out._next_id = out._n_base + out.n_pending
             out._delta_id0 = out._n_base
-        out._carried = {k: extra[k] for k in _CARRIED if k in extra}
+        calib = extra.get("quality_calibration")
+        if calib is not None:
+            out._calibration = CalibrationTable.from_dict(calib)
+        tuned = extra.get("autotune")
+        if tuned is not None:
+            out._autotune = AutotuneTable.from_dict(tuned)
         return out
 
     def reload(self, directory: str, step: Optional[int] = None

@@ -1,4 +1,5 @@
-"""Exact k-NN search over the flat index, local (one device) path.
+"""k-NN search over the flat index, local (one device) path: exact, or
+approximate under the quality stop rules.
 
 The counterpart of `repro.core.search`'s local plan:
 
@@ -6,11 +7,13 @@ The counterpart of `repro.core.search`'s local plan:
               leaf region (the lb_distance kernel);
   the PQ      a stable ascending sort of the lower bounds per query, so
               ties go to the lower leaf index as `jax.lax.top_k` orders
-              them;
+              them, kept to the entries the rounds may read (max_rounds,
+              pq_budget, the stop rule's leaf cap);
   refinement  rounds of K leaves per query, each folding real distances
               into a per-query top-k buffer, until the query's next
-              unrefined lower bound is not below its k-th best distance,
-              so the answer is exact.  JAX's `while_loop` becomes one
+              unrefined lower bound is not below its k-th best distance
+              (scaled by 1/(1+eps)^2 under an eps stop rule), so the
+              answer is exact at eps 0.  JAX's `while_loop` becomes one
               launch of the refine_search kernel, in which each query
               runs its own rounds; the batch's round count (the most any
               query ran) is read on the host once per search;
@@ -34,22 +37,66 @@ from . import isax
 from .index import FlatIndex
 
 
-def _rounds_cap(n_leaves: int, K: int) -> int:
-    """Bound on refinement rounds: enough to cover every leaf."""
-    return -(-n_leaves // K)
+def _rounds_cap(n_leaves: int, K: int, max_rounds: Optional[int] = None,
+                pq_budget: Optional[int] = None) -> int:
+    """Bound on refinement rounds: enough to cover every leaf, tightened
+    by max_rounds and/or the pq_budget leaf allowance."""
+    cap = -(-n_leaves // K)
+    if max_rounds is not None:
+        cap = min(cap, max_rounds)
+    if pq_budget is not None:
+        cap = min(cap, max(1, -(-pq_budget // K)))
+    return cap
 
 
-def _pq_order(lb: torch.Tensor, K: int, n_rounds_cap: int
+def _stop_knobs(stop_eps: float, stop_leaves: Optional[int],
+                pq_budget: Optional[int]) -> Tuple[float, Optional[int]]:
+    """Validate the early-termination knobs (the quality stop rules) and
+    fold the `stop_leaves` visited-leaf cap into the PQ leaf budget.
+
+    Returns `(inv_eps_sq, leaf_budget)`: the squared-space bound scale
+    1/(1+eps)^2 (a Python float, exactly 1.0 in exact mode) by which the
+    refinement multiplies the k-th best before testing a lower bound
+    against it, and the combined leaf allowance (min of pq_budget and
+    stop_leaves, None = uncapped).
+    """
+    if stop_eps < 0.0:
+        raise ValueError(f"stop_eps must be >= 0, got {stop_eps}")
+    if stop_leaves is not None and stop_leaves < 1:
+        raise ValueError(f"stop_leaves must be >= 1 or None, "
+                         f"got {stop_leaves}")
+    inv = 1.0 if stop_eps == 0.0 else 1.0 / float(1.0 + stop_eps) ** 2
+    if stop_leaves is None:
+        budget = pq_budget
+    elif pq_budget is None:
+        budget = stop_leaves
+    else:
+        budget = min(pq_budget, stop_leaves)
+    return inv, budget
+
+
+def _pq_order(lb: torch.Tensor, K: int, n_rounds_cap: int,
+              leaf_budget: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The per-query priority queue: leaf ids ascending in lower bound,
-    ties to the lower leaf index, padded with lb = BIG to n_rounds_cap * K
-    entries so every round reads K in-range slots."""
+    ties to the lower leaf index.  Only the first R = min(n_rounds_cap *
+    K, NL) entries can ever be read, further capped by `leaf_budget` (an
+    exact cap on admitted leaves, not rounded up to whole rounds); they
+    are padded with lb = BIG to n_rounds_cap * K entries, so every round
+    reads K in-range slots and a padded slot never passes the pruning
+    test."""
+    NL = lb.shape[1]
+    R = min(n_rounds_cap * K, NL)
+    if leaf_budget is not None:
+        R = max(1, min(R, leaf_budget))
+    R = min(R, n_rounds_cap * K)        # max_rounds 0: no round reads one
     sorted_lb, order = torch.sort(lb, dim=1, stable=True)
-    padw = n_rounds_cap * K - lb.shape[1]
+    order, sorted_lb = order[:, :R], sorted_lb[:, :R]
+    padw = n_rounds_cap * K - R
     if padw > 0:
         order = torch.nn.functional.pad(order, (0, padw))
         sorted_lb = torch.nn.functional.pad(sorted_lb, (0, padw), value=BIG)
-    return order.to(torch.int32), sorted_lb
+    return order.to(torch.int32).contiguous(), sorted_lb.contiguous()
 
 
 def prepare_queries(queries: torch.Tensor, znorm: bool, segments: int
@@ -73,15 +120,30 @@ def leaf_lower_bounds(idx: FlatIndex, q_paa: torch.Tensor,
 
 
 def search_plan_impl(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
-                     round_leaves: int = 8, znorm: bool = True
+                     round_leaves: int = 8, znorm: bool = True,
+                     max_rounds: Optional[int] = None,
+                     pq_budget: Optional[int] = None,
+                     stop_eps: float = 0.0,
+                     stop_leaves: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Exact k-NN of `queries` (Q, L) over `idx`, on idx's device.
+    """k-NN of `queries` (Q, L) over `idx`, on idx's device, with every
+    knob resolved.
 
     Returns (dist, original_id, rounds): dist and ids are (Q, k) ascending
     by distance; rounds is the number of refinement rounds the batch
     runs, the most any of its queries runs, as repro counts them.  Slots
     with no series carry id -1 and distance sqrt(BIG).
+
+    Exact at the defaults.  `max_rounds` caps the rounds and `pq_budget`
+    the leaves admitted to each queue (distances become upper bounds when
+    either cuts the search short).  `stop_eps` / `stop_leaves` are the
+    quality stop rules: stop once no unrefined lower bound lies below the
+    k-th best scaled by 1/(1+eps)^2 (squared space), and cap the visited
+    leaves by tightening the leaf budget.  At (0.0, None) the scale is
+    1.0, and the k-th best times 1.0 is the k-th best bit for bit, so
+    exact search keeps its bits.
     """
+    inv_eps, leaf_budget = _stop_knobs(stop_eps, stop_leaves, pq_budget)
     L = idx.series.shape[1]
     Q = queries.shape[0]
     K = round_leaves
@@ -94,13 +156,13 @@ def search_plan_impl(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
     M = idx.leaf_capacity
     q_sq = (q * q).sum(dim=-1)
     lb = leaf_lower_bounds(idx, q_paa, L)                # (Q, n_leaves)
-    cap = _rounds_cap(idx.n_leaves, K)
-    order, sorted_lb = _pq_order(lb, K, cap)
+    cap = _rounds_cap(idx.n_leaves, K, max_rounds, leaf_budget)
+    order, sorted_lb = _pq_order(lb, K, cap, leaf_budget)
     del lb
 
     bsf_d, bsf_e, rounds = refine_search(
         q, q_sq, idx.series, idx.sq_norms, order, sorted_lb,
-        leaf_capacity=M, k=k, round_leaves=K)
+        leaf_capacity=M, k=k, round_leaves=K, inv_eps=inv_eps)
 
     # the top-k set is exact; the matmul-form distance loses ~1e-3 absolute
     # to f32 cancellation.  Recompute the winners' distances in direct form
@@ -124,12 +186,17 @@ def squeeze_k(d: torch.Tensor, i: torch.Tensor, k: int):
 
 
 def run_search(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
-               round_leaves: int = 8, znorm: bool = True
+               round_leaves: int = 8, znorm: bool = True,
+               max_rounds: Optional[int] = None,
+               pq_budget: Optional[int] = None, stop_eps: float = 0.0,
+               stop_leaves: Optional[int] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`search_plan_impl` with the k == 1 squeeze: (Q,) arrays for k == 1,
     (Q, k) ascending otherwise."""
     d, i, _ = search_plan_impl(idx, queries, k=k, round_leaves=round_leaves,
-                               znorm=znorm)
+                               znorm=znorm, max_rounds=max_rounds,
+                               pq_budget=pq_budget, stop_eps=stop_eps,
+                               stop_leaves=stop_leaves)
     return squeeze_k(d, i, k)
 
 
@@ -206,14 +273,22 @@ def snapshot_search_impl(idx: FlatIndex, delta: torch.Tensor,
                          queries: torch.Tensor,
                          delta_alive: Optional[torch.Tensor] = None, *,
                          k: int, n_base: int, round_leaves: int = 8,
-                         znorm: bool = True
+                         znorm: bool = True,
+                         max_rounds: Optional[int] = None,
+                         pq_budget: Optional[int] = None,
+                         stop_eps: float = 0.0,
+                         stop_leaves: Optional[int] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Exact k-NN over a (core index, delta buffer) snapshot: the core
-    (dead rows pre-masked, `maintenance.mask_core`) by `search_plan_impl`,
-    the unsorted delta by an exact scan, merged by `merge_delta_topk`.
-    Returns (dist, ids, rounds)."""
+    """k-NN over a (core index, delta buffer) snapshot: the core (dead
+    rows pre-masked, `maintenance.mask_core`) by `search_plan_impl`, the
+    unsorted delta by an exact scan, merged by `merge_delta_topk`.
+    `stop_eps` / `stop_leaves` apply to the core only: the delta scan
+    stays exact.  Returns (dist, ids, rounds)."""
     d, i, rounds = search_plan_impl(idx, queries, k=k,
-                                    round_leaves=round_leaves, znorm=znorm)
+                                    round_leaves=round_leaves, znorm=znorm,
+                                    max_rounds=max_rounds,
+                                    pq_budget=pq_budget, stop_eps=stop_eps,
+                                    stop_leaves=stop_leaves)
     md, mi = merge_delta_topk(delta, queries, d, i, delta_alive, k=k,
                               n_base=n_base, znorm=znorm)
     return md, mi, rounds

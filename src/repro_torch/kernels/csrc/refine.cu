@@ -388,6 +388,8 @@ struct Params {
   int* next_query;
   const int* schedule;   // the order in which queries are taken
   int Q, L, K, M, k, cols;
+  float inv_eps;    // the stop rule's scale: a slot is alive while its
+                    // lower bound is below kth * inv_eps (1.0f: exact)
   int J;            // own slots a round: K / C
   int rows;         // leaf rows a stage holds
   int chunks;       // stages a leaf takes: ceil(M / rows)
@@ -458,17 +460,20 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
     __syncthreads();
 
     float kth = kBig;           // bd[k - 1], the same in every thread
+    // what a lower bound is tested against: kth * inv_eps, the float32
+    // product repro forms (bsf_d[:, -1] * inv_eps); non-increasing as kth
+    float bound = kth * p.inv_eps;
     long long issued = 0;       // own chunks issued: always a prefix
     bool dead = false;          // an own slot was dead when reached
     // Issue the own chunks before `upto` while their slot's lower bound
-    // is below the k-th best of the moment; the first dead slot ends it.
+    // is below the bound of the moment; the first dead slot ends it.
     auto produce = [&](long long upto) {
       if (upto > own_chunks) upto = own_chunks;
       while (!dead && issued < upto) {
         const int s = (int)(issued / p.chunks), c = (int)(issued % p.chunks);
         // within kInfo rounds of the consumer's: upto <= its chunk + stages
         const int at = (s / p.J) % kInfo * p.K + rank + C * (s % p.J);
-        if (c == 0 && !(s_lb[at] < kth)) {
+        if (c == 0 && !(s_lb[at] < bound)) {
           dead = true;
           break;
         }
@@ -491,7 +496,7 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
     };
 
     int r = 0, n_alive = 0;
-    while (r < cap && s_lb[r % kInfo * p.K] < kth) {
+    while (r < cap && s_lb[r % kInfo * p.K] < bound) {
       const int par = r & 1;
       const float* lb_r = s_lb + r % kInfo * p.K;
       const int* leaf_r = s_leaf + r % kInfo * p.K;
@@ -499,7 +504,7 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
       for (int i = tid; i < p.J; i += kThreads)
         smin[par * p.J + i] = __float_as_int(kBig);
       if (tid == 0)
-        for (int j = 0; j < p.K; ++j) n_alive += lb_r[j] < kth;
+        for (int j = 0; j < p.K; ++j) n_alive += lb_r[j] < bound;
       // round r + kInfo's entry of slot tid, read meanwhile (any slots
       // past kThreads are read when they are stored)
       float nlb = kBig;
@@ -516,7 +521,7 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
 
       for (int pp = 0; pp < p.J; ++pp) {
         const int j = rank + C * pp;
-        const bool alive = lb_r[j] < kth;
+        const bool alive = lb_r[j] < bound;
         const long long first = (long long)leaf_r[j] * p.M;
         const long long s = (long long)r * p.J + pp;
         for (int c = 0; c < p.chunks; ++c) {
@@ -550,7 +555,7 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
       cluster.sync();           // every CTA's distances of round r are in
       bool any = false;         // an alive slot's minimum below the k-th?
       for (int j = tid; j < p.K; j += kThreads)
-        if (lb_r[j] < kth) {
+        if (lb_r[j] < bound) {
           const int* m = cluster.map_shared_rank(smin, j % C);
           any |= __int_as_float(m[par * p.J + j / C]) < kth;
         }
@@ -565,7 +570,7 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
             int j = 0;
             if (e < KM) {
               j = e / p.M;
-              if (lb_r[j] < kth) {
+              if (lb_r[j] < bound) {
                 const float* rc = cluster.map_shared_rank(cand, j % C);
                 d = rc[(par * p.J + j / C) * p.M + e % p.M];
                 ok = d < kth;
@@ -598,6 +603,7 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
         float* td = bd; bd = nd; nd = td;   // every thread swaps alike
         int* te = be; be = ne; ne = te;
         kth = bd[p.k - 1];
+        bound = kth * p.inv_eps;
       }
       __syncthreads();          // this round's entries are read
       for (int j = tid; j < p.K; j += kThreads) {
@@ -757,17 +763,17 @@ __global__ void __launch_bounds__(kThreads) search_general(const Params p,
     const float qsq = p.q_sq[qi];
     __syncthreads();
 
-    float kth = kBig;
+    float kth = kBig, bound = kth * p.inv_eps;   // as in search_kernel
     int r = 0, n_alive = 0;
-    while (r < cap && lbrow[(long long)r * p.K] < kth) {
+    while (r < cap && lbrow[(long long)r * p.K] < bound) {
       const float* lb_r = lbrow + (long long)r * p.K;
       const int* leaf_r = idrow + (long long)r * p.K;
       if (tid == 0)
-        for (int j = 0; j < p.K; ++j) n_alive += lb_r[j] < kth;
+        for (int j = 0; j < p.K; ++j) n_alive += lb_r[j] < bound;
       bool any = false;
       for (int e = warp; e < KM; e += kWarps) {
         const int j = e / p.M;
-        if (!(lb_r[j] < kth)) continue;          // uniform over the warp
+        if (!(lb_r[j] < bound)) continue;        // uniform over the warp
         const long long x = (long long)leaf_r[j] * p.M + e % p.M;
         const float d = row_d2<T>(series + x * p.L, p.L, qr, qsq,
                                   p.sq_norms[x], lane);
@@ -785,7 +791,7 @@ __global__ void __launch_bounds__(kThreads) search_general(const Params p,
             int j = 0;
             if (e < KM) {
               j = e / p.M;
-              if (lb_r[j] < kth) {
+              if (lb_r[j] < bound) {
                 d = cand[e];
                 ok = d < kth;
               }
@@ -817,6 +823,7 @@ __global__ void __launch_bounds__(kThreads) search_general(const Params p,
         float* td = bd; bd = nd; nd = td;   // every thread swaps alike
         int* te = be; be = ne; ne = te;
         kth = bd[p.k - 1];
+        bound = kth * p.inv_eps;
       }
       __syncthreads();
       ++r;
@@ -900,7 +907,10 @@ extern "C" const char* refine_topk_error(int code) {
 // (n, L) of `dtype`, sq_norms (a multiple of 4 entries), order /
 // sorted_lb (Q, cols) with cols = rounds * K; schedule (Q,) int32, a
 // permutation of 0..Q-1; out_d / out_e (Q, k), rounds and alive (Q,)
-// int32; counter one int32 set to 0.
+// int32; counter one int32 set to 0; inv_eps the stop rule's scale
+// 1/(1+eps)^2 (1.0f: the exact search): a slot is alive while its lower
+// bound lies below the k-th best times inv_eps, candidates still fold
+// against the k-th best itself.
 // route 0: search_kernel, clusters of C CTAs a query, its shared memory
 // laid out for `ctas` (3, 2 or 1) CTAs an SM; L * sizeof(dtype) a
 // multiple of 16 and series, q and sq_norms 16-byte aligned.  route 1:
@@ -912,9 +922,9 @@ extern "C" int refine_search(const void* q, const void* q_sq,
                              const void* sorted_lb, const void* schedule,
                              void* out_d, void* out_e, void* rounds,
                              void* alive, void* counter, int Q,
-                             int L, int K, int M, int k, int cols, int route,
-                             int ctas, void* scratch, long long per,
-                             void* stream) {
+                             int L, int K, int M, int k, int cols,
+                             float inv_eps, int route, int ctas,
+                             void* scratch, long long per, void* stream) {
   if (Q == 0) return 0;
   if (K < 1 || cols % K || ctas < 1) return (int)cudaErrorInvalidValue;
   search::Params p = {};
@@ -936,6 +946,7 @@ extern "C" int refine_search(const void* q, const void* q_sq,
   p.M = M;
   p.k = k;
   p.cols = cols;
+  p.inv_eps = inv_eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) {
     if (ctas > search::kBlocksPerSM) return (int)cudaErrorInvalidValue;

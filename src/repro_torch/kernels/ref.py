@@ -182,31 +182,36 @@ def refine_search_ref(q: torch.Tensor, q_sq: torch.Tensor,
                       series: torch.Tensor, sq_norms: torch.Tensor,
                       order: torch.Tensor, sorted_lb: torch.Tensor, *,
                       leaf_capacity: int, k: int, round_leaves: int,
+                      inv_eps: float = 1.0,
                       alive_out: torch.Tensor | None = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The whole refinement of the exact search: the host loop of rounds.
+    """The whole refinement of a search: the host loop of rounds.
 
     order/sorted_lb: (Q, cap * K) priority queue, leaf ids ascending in
     lower bound (padding at lb = BIG).  From the empty buffer, each round
     takes the next K slots, keeps those whose lb is below the round-start
-    k-th best, and folds them with `refine_topk_ref`; the loop stops once
-    no query's next lb is below its k-th best, or the queue ends.
+    bound, the k-th best times float32(inv_eps) (a float32 product, as
+    repro's `bsf_d[:, -1] * inv_eps`; inv_eps 1.0 is the exact search),
+    and folds them with `refine_topk_ref`; the loop stops once no query's
+    next lb is below its bound, or the queue ends.
     -> (bsf_d, bsf_e, rounds): the (Q, k) buffer and, per query, the
     rounds in which its first slot was alive, i.e. the rounds a loop of
     its own would run.  The batch runs max(rounds) rounds.  `alive_out`,
     a (Q,) int32 tensor if given, receives each query's alive slots.
     """
     Q, K = q.shape[0], round_leaves
+    scale = torch.tensor(inv_eps, dtype=torch.float32)
     bsf_d = torch.full((Q, k), BIG, dtype=torch.float32, device=q.device)
     bsf_e = torch.zeros((Q, k), dtype=torch.int32, device=q.device)
     rounds = torch.zeros(Q, dtype=torch.int32, device=q.device)
     n_alive = torch.zeros(Q, dtype=torch.int32, device=q.device)
     cursor = 0
     while cursor < order.shape[1]:
-        live = sorted_lb[:, cursor] < bsf_d[:, -1]
+        bound = bsf_d[:, -1:] * scale
+        live = sorted_lb[:, cursor] < bound[:, 0]
         if not bool(live.any()):
             break
-        alive = sorted_lb[:, cursor:cursor + K] < bsf_d[:, -1:]
+        alive = sorted_lb[:, cursor:cursor + K] < bound
         bsf_d, bsf_e = refine_topk_ref(
             q, q_sq, series, sq_norms, order[:, cursor:cursor + K], alive,
             bsf_d, bsf_e, leaf_capacity=leaf_capacity, k=k)

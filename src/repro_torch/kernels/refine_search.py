@@ -1,7 +1,8 @@
 """Every refinement round of a search in one launch.
 
-`refine_search` runs each query's rounds until its own stop, which gives
-the buffer of repro's global loop of `refine_topk` rounds.  On CUDA
+`refine_search` runs each query's rounds until its own stop (exact, or
+the (1 + eps) stop of the quality rules, `inv_eps`), which gives the
+buffer of repro's global loop of `refine_topk` rounds.  On CUDA
 tensors it launches the `refine_search` kernel of `csrc/refine.cu`, by the
 route `route` picks from the shapes (thread-block clusters of 8 CTAs a
 query, cut to a divisor of K, shared memory for 3, 2 or 1 CTAs an SM; or
@@ -25,8 +26,8 @@ launches = 0
 by_route: dict = {}                    # launches of each route
 
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 9
-             + [ctypes.c_int] * 8 + [ctypes.c_void_p, ctypes.c_longlong,
-                                     ctypes.c_void_p])
+             + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
+             + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
 # csrc/refine.cu, namespace search: the layout's constants
 _SMEM_SM = 233472                      # an SM's shared memory
 _THREADS, _WARPS = 256, 8
@@ -100,13 +101,13 @@ def _check(q, q_sq, series, sq_norms, order, sorted_lb, M: int, k: int,
 
 
 def estimated_work(q, q_sq, series, sq_norms, order, sorted_lb, M: int,
-                   k: int, K: int) -> torch.Tensor:
-    """Each query's leaves whose lower bound lies below its k-th best
-    distance after the first round (the members of its first K leaves),
-    as (Q,) int64.
+                   k: int, K: int, inv_eps: float = 1.0) -> torch.Tensor:
+    """Each query's leaves whose lower bound lies below its bound after
+    the first round (the k-th best of the members of its first K leaves,
+    times inv_eps), as (Q,) int64.
 
-    The k-th best only falls, so every slot alive after the first round
-    is one of these leaves: a cheap overestimate of the query's work (K
+    The bound only falls, so every slot alive after the first round is
+    one of these leaves: a cheap overestimate of the query's work (K
     leaves a query, where the search reads thousands), and each query's
     alive slots are at most this plus K.
     """
@@ -118,14 +119,14 @@ def estimated_work(q, q_sq, series, sq_norms, order, sorted_lb, M: int,
             + torch.arange(M, device=q.device)).reshape(Q, K * M)
     dots = torch.einsum("qnl,ql->qn", series[rows].float(), q)
     d2 = (q_sq[:, None] + sq_norms[rows] - 2.0 * dots).clamp_min(0.0)
-    kth = d2.kthvalue(k, dim=1).values.contiguous()
-    return torch.searchsorted(sorted_lb, kth[:, None])[:, 0]
+    kth = d2.kthvalue(k, dim=1).values * inv_eps
+    return torch.searchsorted(sorted_lb, kth.contiguous()[:, None])[:, 0]
 
 
 def refine_search(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
                   sq_norms: torch.Tensor, order: torch.Tensor,
                   sorted_lb: torch.Tensor, *, leaf_capacity: int, k: int,
-                  round_leaves: int,
+                  round_leaves: int, inv_eps: float = 1.0,
                   alive_out: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Every refinement round of a search, from the empty buffer.
@@ -134,9 +135,13 @@ def refine_search(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
     order:     (Q, cap * K) int32 leaf ids of each query's priority queue,
                ascending in lower bound (each a leaf of `series`)
     sorted_lb: (Q, cap * K) f32 their lower bounds, padding at BIG
+    inv_eps:   the stop rule's scale 1/(1+eps)^2: a slot is alive while
+               its lower bound lies below the k-th best times
+               float32(inv_eps), a float32 product as repro forms it;
+               1.0 (the default) is the exact search, bit for bit
     alive_out: optional (Q,) int32, receives each query's alive slots;
                they are the first that many entries of its queue, since
-               the queue ascends and the k-th best never grows
+               the queue ascends and the bound never grows
     -> (bsf_d, bsf_e, rounds): the (Q, k) buffer and the (Q,) int32
        rounds each query ran, as `ref.refine_search_ref` returns them.
        Raises ValueError/TypeError on input the kernel does not take,
@@ -148,7 +153,7 @@ def refine_search(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
     if q.device.type == "cpu":
         return refine_search_ref(q, q_sq, series, sq_norms, order, sorted_lb,
                                  leaf_capacity=M, k=k, round_leaves=K,
-                                 alive_out=alive_out)
+                                 inv_eps=inv_eps, alive_out=alive_out)
     if q.device.type != "cuda":
         raise RuntimeError(f"no refine_search kernel for device {q.device}")
     Q, L = q.shape
@@ -170,7 +175,7 @@ def refine_search(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
     counter = torch.zeros((1,), dtype=torch.int32, device=dev)
     # the heaviest first, so that no long query starts last
     work = estimated_work(q, q_sq, series, sq_norms, order, sorted_lb, M, k,
-                          K)
+                          K, inv_eps)
     schedule = torch.argsort(work, descending=True,
                              stable=True).to(torch.int32)
     if how == "general":
@@ -187,7 +192,7 @@ def refine_search(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
                   order.data_ptr(), sorted_lb.data_ptr(), schedule.data_ptr(),
                   out_d.data_ptr(), out_e.data_ptr(), rounds.data_ptr(),
                   alive.data_ptr(), counter.data_ptr(), Q, L, K, M, k,
-                  order.shape[1], int(how == "general"), ctas,
+                  order.shape[1], inv_eps, int(how == "general"), ctas,
                   None if scratch is None else scratch.data_ptr(), per,
                   torch.cuda.current_stream().cuda_stream)
     _build.check("refine", "refine_search", code)

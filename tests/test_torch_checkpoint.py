@@ -87,8 +87,7 @@ def test_repro_loads_the_ports_checkpoint(data, dtype, tmp_path):
     path = ix.save(str(tmp_path), step=5)
     assert os.path.basename(path) == "step_5"
     jx = JFreshIndex.load(str(tmp_path))
-    assert jx.config == JIndexConfig(leaf_capacity=16, dtype=dtype,
-                                     round_leaves=8)
+    assert jx.config == JIndexConfig(leaf_capacity=16, dtype=dtype)
     _same_state(ix, jx)
     for k in (1, 5, 10):
         d, i = ix.search(queries, k=k)
@@ -123,23 +122,31 @@ def test_save_load_reload_are_bit_equal(data, tmp_path):
 
 
 def test_carried_dicts_survive_a_round_trip(data, tmp_path):
-    """A repro checkpoint with quality_calibration or autotune loads; the
-    port keeps those dicts as they are and writes them back."""
-    walks, _, _ = data
+    """A repro checkpoint with a quality_calibration and an autotune table
+    loads; the port reads both tables and writes them back in repro's
+    format (the autotune entries without repro's Pallas structure knobs,
+    which read back as their defaults)."""
+    from repro.kernels import autotune as jautotune
+    walks, _, queries = data
     jx = JFreshIndex.build(walks, JIndexConfig(leaf_capacity=16))
+    jx.calibrate(ks=(5,), targets=(0.9,), queries=queries, eps_grid=(0.0,),
+                 leaves_grid=(4,), repeat=1)
+    jt = jautotune.AutotuneTable("fp-x")
+    jt.put("x", 64, 16, "float32", jautotune.TuneEntry(
+        config=jautotune.TuneConfig(round_leaves=16), median_ms=1.0,
+        baseline_ms=2.0, n_candidates=2, n_exact=2))
+    jx._autotune = jt
     jx.save(str(tmp_path / "a"), step=0)
-    man = tmp_path / "a" / "step_0" / "manifest.json"
-    m = json.loads(man.read_text())
-    m["extra"]["quality_calibration"] = {"entries": [[5, 0.9, 0.1, 7]]}
-    m["extra"]["autotune"] = {"device": "x", "entries": []}
-    man.write_text(json.dumps(m))
+    m = json.loads((tmp_path / "a" / "step_0" / "manifest.json")
+                   .read_text())
     ix = FreshIndex.load(str(tmp_path / "a"), device="cpu")
     assert ix.stats()["calibrated"] and ix.stats()["autotuned"]
     ix.save(str(tmp_path / "b"), step=0)
     back = json.loads((tmp_path / "b" / "step_0" / "manifest.json")
                       .read_text())["extra"]
-    for key in ("quality_calibration", "autotune"):
-        assert back[key] == m["extra"][key]
+    assert back["quality_calibration"] == m["extra"]["quality_calibration"]
+    assert jautotune.AutotuneTable.from_dict(back["autotune"]).to_dict() \
+        == m["extra"]["autotune"]
 
 
 def test_store_layout_matches_repros(tmp_path):

@@ -35,6 +35,42 @@ def test_build_without_a_device_needs_cuda():
         api.FreshIndex.build(x, device="cuda")
 
 
+def test_approx_search_and_calibrate_without_a_device_need_cuda(tmp_path):
+    """Approximate search and calibration run where the index lives: an
+    index made or loaded without a device is one on the card, so on a
+    machine without CUDA they raise before any search runs."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    x = np.random.default_rng(0).standard_normal((64, 64)).cumsum(1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.FreshIndex.build(x).search(x[:2], k=3, mode="approx",
+                                       stop_eps=0.1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.FreshIndex.build(x).calibrate(ks=(3,), n_queries=4)
+    cpu = api.FreshIndex.build(x, api.IndexConfig(leaf_capacity=8),
+                               device="cpu")
+    cpu.calibrate(ks=(3,), n_queries=4, eps_grid=(0.0, 0.5),
+                  leaves_grid=(2,), repeat=1)
+    cpu.save(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.FreshIndex.load(str(tmp_path))
+    back = api.FreshIndex.load(str(tmp_path), device="cpu")
+    assert back.is_calibration_fresh()
+    d, i = back.search(x[:2], k=3, mode="approx", recall_target=0.95)
+    assert d.device.type == "cpu" and i.shape == (2, 3)
+    # the kernel's wrapper takes the (1 + eps) stop on the CPU's plain
+    # version only; on any other device it launches or raises
+    q = torch.zeros(2, 64, device="meta")
+    with pytest.raises(RuntimeError, match="meta"):
+        refine_search.refine_search(
+            q, torch.zeros(2, device="meta"), torch.zeros(32, 64,
+                                                          device="meta"),
+            torch.zeros(32, device="meta"),
+            torch.zeros(2, 8, dtype=torch.int32, device="meta"),
+            torch.zeros(2, 8, device="meta"), leaf_capacity=8, k=2,
+            round_leaves=4, inv_eps=0.5)
+
+
 def test_config_and_data_are_validated():
     with pytest.raises(ValueError):
         api.IndexConfig(bound="box")
@@ -236,7 +272,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.kernels.ops", "repro_torch.kernels.ed_argmin",
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.leaf_stats",
-            "repro_torch.kernels.leaf_gather"]
+            "repro_torch.kernels.leaf_gather",
+            "repro_torch.kernels.autotune",
+            "repro_torch.quality", "repro_torch.quality.stop_rules",
+            "repro_torch.quality.calibrate"]
     here = {m[len("src/"):-len(".py")].replace("/", ".").replace(
         ".__init__", "")
         for m in _py_files(os.path.join(ROOT, "src", "repro_torch"))}
