@@ -66,6 +66,26 @@ Phases, each printing one JSON line:
              search(mode="approx", recall_target=0.9); autotune() over
              round_leaves 8 and 16, after which search is byte-equal to
              the untuned answer;
+  serve      the serving engine (repro_torch.serve) over the main cell's
+             index and calibration table, EngineConfig(max_batch=64,
+             workers=2, linger_ms=2, warm_ks=(1, 10), cache_entries=4096,
+             latency_tiers={"batch": 0.9}): warmup() captures one CUDA
+             graph per bucket for k 1, k 10 and the approx tier at k 10;
+             the main queries from 4 client threads in submits of 1, 3,
+             8, 17 and 64 rows, every row byte-equal to the main phase's
+             facade row; the same from the result cache (all hits); 64
+             queries at k 1; the approx tier byte-equal to
+             search(mode="approx", recall_target=0.9), with recall@10;
+             no capture after warmup, every dispatched batch a replay;
+             each bucket's plan.run beside the facade's search of the
+             same rows; 65,536 adds with a batch in flight (answered on
+             its own epoch), 1,024 deletes, winners among them, each
+             followed by a stream held to the facade, no deleted id back;
+             latency p50 / p99, queries/s, warmup seconds and memory;
+             summarize_rows held to its plain version on the rows the
+             search gives it (here the delta scan's difference rows
+             after the add; the main phase holds the queries and the
+             re-rank's rows);
   l96        FreshIndex.build and search over 2^20 walks of length 96
              (w 16), 256 noisy queries, k 10, held to brute force: the
              summarize kernel's strided route on a search path; and the
@@ -79,19 +99,31 @@ Phases, each printing one JSON line:
              after compaction, held to a tombstone-aware brute force;
              compact twice, bit-equal; calibrate() on two settings, then
              save, load and reload, the search bit-equal after each and
-             the calibration table equal and fresh after load;
+             the calibration table equal and fresh after load; then the
+             serving engine with a MaintenancePolicy: adds (half with a
+             TTL) and deletes, maintain() sweeps, compact(), more
+             deletes, maintain() compacts and checkpoints, every answer
+             byte-equal to the facade's, the ids unchanged across each
+             compaction, the policy's checkpoint loaded and answering
+             the same;
   attention  ops.flash_attention at granite-8b's attention widths (B 1,
              Hq 32, Hkv 8, T = S = 4096, dh 128, bf16, causal), held
              against the plain version.
 refine_search is held under the (1 + eps) stop (inv_eps 1 / 1.25^2) on
 every route too: cta3 in the kernel phase, cta2, cta1 and general in the
 route phase.
-Each of main, rounds, scan, approx, l96, lifecycle and attention sets every
-launch count to 0 before it and requires each kernel (and route) of its
-path to have launched, and every kernel of the table to have launched
-on some path.  Then the kernel table, the nvidia-smi line and, last,
-the device line.  Any failure raises and exits non-zero; without CUDA, or without the
-repository's src/ beside this file, it exits 1 before printing a result.
+Each of main, rounds, scan, approx, serve, l96, lifecycle and attention
+sets every launch count to 0 before it and requires each kernel (and
+route) of its path to have launched, and every kernel of the table to
+have launched on some path; a graph replay passes through no wrapper,
+so the serve phase counts replays through each plan's `calls`.  The
+serve phase's facade searches run before its counts are set to 0 (or
+after they are read): the counts it requires are the engine's own, those
+of its warm-ups and captures, then the add's publish and captures, and
+the streams must leave them unchanged.  Then the kernel table, the
+nvidia-smi line and, last, the device line.  Any failure raises and
+exits non-zero; without CUDA, or without the repository's src/ beside
+this file, it exits 1 before printing a result.
 """
 
 from __future__ import annotations
@@ -214,14 +246,18 @@ def rows_row(torch, isax, ks, ref, raw, w, what):
             "bound_ms": bms, "bound_by": by, "checks": errs}
 
 
-def hold_rows(torch, isax, ks, ref, raw, w, what):
+def hold_rows(torch, isax, ks, ref, raw, w, what, znorm=True):
     """summarize_rows (what the build stores: the two-pass z-norm, the
-    float32 series, PAA, symbols, squared norms) against its plain version
-    on raw; and a row's bits the same in a launch of all rows, of 2048
-    rows and of 5 (the builder's parts), and when the 5 are written in
-    place into slices of larger outputs (as the build writes them)."""
-    xk, pk, wk, sk = ks.summarize_rows(raw, segments=w)
-    xr, pr, wr, sr = ref.summarize_rows_ref(raw, segments=w)
+    float32 series, PAA, symbols, squared norms; with znorm=False the
+    search's row sums, no z-norm) against its plain version on raw; and
+    a row's bits the same in a launch of all rows, of the first m =
+    min(2048, n - 5) rows, of the 5 after them (the builder's parts) and
+    of one row alone, and when the 5 are written in place into slices of
+    larger outputs (as the build writes them)."""
+    n = raw.shape[0]
+    m = min(2048, n - 5)
+    xk, pk, wk, sk = ks.summarize_rows(raw, segments=w, znorm=znorm)
+    xr, pr, wr, sr = ref.summarize_rows_ref(raw, segments=w, znorm=znorm)
     errs = {"series": (xk - xr).abs().max().item(),
             "paa": (pk - pr).abs().max().item(),
             "sq_norms_rel": ((sk - sr).abs() / sr.clamp_min(1e-6)).max()
@@ -230,19 +266,42 @@ def hold_rows(torch, isax, ks, ref, raw, w, what):
             and errs["sq_norms_rel"] <= 1e-5, f"{what}: off by {errs}")
     require(torch.equal(wk, isax.sax_word(pk).to(torch.int32))
             and int((wk - wr).abs().max()) <= 1, f"{what}: symbols")
-    for lo, hi in ((0, 2048), (2048, 2053)):
-        part = ks.summarize_rows(raw[lo:hi].contiguous(), segments=w)
+    for lo, hi in ((0, m), (m, m + 5), (n // 2, n // 2 + 1)):
+        part = ks.summarize_rows(raw[lo:hi].contiguous(), segments=w,
+                                 znorm=znorm)
         require(all(torch.equal(a, b[lo:hi]) for a, b in
                     zip(part, (xk, pk, wk, sk))),
                 f"{what}: rows {lo}:{hi} alone differ from the whole")
-    buf = tuple(torch.zeros((2053,) + t.shape[1:], dtype=t.dtype, device=DEV)
-                for t in (xk, pk, wk, sk))
-    ks.summarize_rows(raw[2048:2053].contiguous(), segments=w,
-                      out=tuple(t[2048:] for t in buf))
-    require(all(torch.equal(a[2048:], b[2048:2053]) and not a[:2048].any()
+    buf = tuple(torch.zeros((m + 5,) + t.shape[1:], dtype=t.dtype,
+                            device=DEV) for t in (xk, pk, wk, sk))
+    ks.summarize_rows(raw[m:m + 5].contiguous(), segments=w, znorm=znorm,
+                      out=tuple(t[m:] for t in buf))
+    require(all(torch.equal(a[m:], b[m:m + 5]) and not a[:m].any()
                 for a, b in zip(buf, (xk, pk, wk, sk))),
-            f"{what}: rows 2048:2053 written in place differ")
+            f"{what}: rows {m}:{m + 5} written in place differ")
     return errs
+
+
+def hold_search_rows(torch, isax, ks, ref, queries, w, series, rows, what):
+    """summarize_rows on the very rows a search gives it, held by
+    hold_rows: the raw queries (z-normalized, the search's one query
+    summarize), the normalized queries (znorm=False), and the direct-form
+    distances' (Q * k, L) difference rows of the normalized queries and
+    series[rows] (rows (Q, k); znorm=False, `core.search._row_sq`)."""
+    raw = queries.float().contiguous()
+    q = ks.summarize_rows(raw, segments=w)[0]
+    L_ = raw.shape[1]
+    diff = (q[:, None, :] - series[rows].float()).reshape(-1, L_)
+    return {"queries": hold_rows(torch, isax, ks, ref, raw, w,
+                                 f"{what} queries"),
+            "normalized": hold_rows(torch, isax, ks, ref, q, w,
+                                    f"{what} normalized queries",
+                                    znorm=False),
+            "differences": hold_rows(torch, isax, ks, ref,
+                                     diff.contiguous(), math.gcd(L_, 16),
+                                     f"{what} difference rows",
+                                     znorm=False),
+            "difference_rows": list(diff.shape)}
 
 
 def check_lb_distance(torch, lbk, ref, gen, NL=1 << 18):
@@ -520,11 +579,11 @@ def refine_inputs(search, idx, queries, K=K, max_rounds=None, budget=None):
     """The refinement's inputs, as search_plan_impl makes them: prepared
     queries, their norms, and each query's priority queue of leaves (cut
     to `max_rounds` rounds and `budget` leaves)."""
-    q, q_paa = search.prepare_queries(queries, True, idx.paa.shape[1])
+    q, q_paa, q_sq = search.prepare_rows(queries, True, idx.paa.shape[1])
     lb = search.leaf_lower_bounds(idx, q_paa, idx.series.shape[1])
     cap = search._rounds_cap(idx.n_leaves, K, max_rounds, budget)
     order, sorted_lb = search._pq_order(lb, K, cap, budget)
-    return q, (q * q).sum(dim=-1), order, sorted_lb
+    return q, q_sq, order, sorted_lb
 
 
 def search_work(torch, idx, order, rounds, alive, K=K, k=TOPK):
@@ -1244,6 +1303,11 @@ def main_path(torch, api, isax, search, kmods, ref, n, gen):
              ).sum(-1).sqrt()
     require(torch.allclose(d_own, d, rtol=1e-5, atol=1e-5),
             "reported distances are not the ids' distances")
+    # summarize_rows as this search launched it: its queries and its
+    # re-rank's difference rows (the answers' positions)
+    rows_held = hold_search_rows(torch, isax, kmods["summarize"], ref,
+                                 queries, idx.paa.shape[1], idx.series,
+                                 inv[ids.long()], "main search")
     # ids equal brute force but where two distances are within 1e-5
     # relative: the sorted distance lists must agree everywhere
     require(torch.allclose(d, db, rtol=1e-5, atol=1e-5),
@@ -1258,7 +1322,8 @@ def main_path(torch, api, isax, search, kmods, ref, n, gen):
             "search_ms": search_ms, "search_ms_repeats": reps,
             "search_ms_per_query": min(reps) / Q, "rounds": rounds,
             "launches": launches, "near_ties": ties,
-            "pq_sort_ms": sort_ms, "device_time": device,
+            "search_rows_held": rows_held, "pq_sort_ms": sort_ms,
+            "device_time": device,
             "refinement": loop}, launches, (index, q, d, ids, queries), row, \
         loop_ctx
 
@@ -1673,6 +1738,343 @@ def approx_path(torch, isax, search, kmods, ref, index, queries, q, d, ids):
     return rep, launches
 
 
+SERVE_SIZES = (1, 3, 8, 17, 64)     # rows a submit, in turn
+SERVE_CLIENTS = 4
+
+
+def serve_chunks(n, sizes=SERVE_SIZES):
+    """(start, stop) of n rows cut into submits of `sizes` rows in turn."""
+    out, s, j = [], 0, 0
+    while s < n:
+        m = min(sizes[j % len(sizes)], n - s)
+        out.append((s, s + m))
+        s, j = s + m, j + 1
+    return out
+
+
+def serve_stream(eng, qh, k, chunks, clients=SERVE_CLIENTS, **kw):
+    """Submit the rows of qh (numpy) in `chunks` from `clients` threads,
+    chunk j from thread j % clients; returns ({chunk: (d, ids)}, each
+    future's latency in ms from its submit to its last row, the stream's
+    wall seconds).  Every wait is bounded; a client's error is raised."""
+    import threading
+    out, lat, errs = {}, [], []
+    lock = threading.Lock()
+
+    def client(c):
+        try:
+            mine = [(j, eng.submit(qh[a:b], k=k, **kw))
+                    for j, (a, b) in enumerate(chunks) if j % clients == c]
+            for j, f in mine:
+                r = f.result(timeout=300)
+                with lock:
+                    out[j] = r
+                    lat.append((f.completed_at - f.submitted_at) * 1e3)
+        except BaseException as e:      # raised below, on the main thread
+            errs.append(e)
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    require(not any(t.is_alive() for t in threads), "serve: a client hung")
+    if errs:
+        raise errs[0]
+    return out, lat, wall
+
+
+def bad_rows(out, chunks, d_want, i_want) -> int:
+    """Rows of the stream's answers whose bytes differ from the wanted
+    (numpy) rows, distances and ids."""
+    import numpy as np
+    bad = 0
+    for j, (a, b) in enumerate(chunks):
+        dg, ig = (np.asarray(x).reshape(b - a, -1) for x in out[j])
+        dw, iw = (x[a:b].reshape(b - a, -1) for x in (d_want, i_want))
+        bad += int(((dg.view(np.int32) != dw.view(np.int32))
+                    | (ig != iw)).any(1).sum())
+    return bad
+
+
+def stream_ids(out, chunks):
+    import numpy as np
+    return np.concatenate([np.asarray(out[j][1]).reshape(b - a, -1)
+                           for j, (a, b) in enumerate(chunks)])
+
+
+def pctl(vals):
+    import numpy as np
+    v = np.asarray(vals)
+    return {"n": int(v.size), "p50": float(np.percentile(v, 50)),
+            "p99": float(np.percentile(v, 99)), "mean": float(v.mean()),
+            "max": float(v.max())}
+
+
+def host(pair):
+    """A (dist, ids) pair of device tensors as numpy."""
+    return tuple(t.cpu().numpy() for t in pair)
+
+
+SERVE_KERNELS = ("summarize", "lb_distance", "refine_search")
+
+
+def counts(kmods) -> dict:
+    """The serve path's kernels' launch counts now."""
+    return {name: kmods[name].launches for name in SERVE_KERNELS}
+
+
+def delta_topk(torch, delta_rows, queries, k, w):
+    """The delta scan's picks (Q, k) as `core.search._bruteforce_topk`
+    makes them over delta rows with none deleted: float64 matmul-form
+    distances of the normalized queries, a stable sort."""
+    from repro_torch.core.search import prepare_rows
+    q = prepare_rows(queries, True, w)[0].double()
+    x = delta_rows.double()
+    d2 = ((q * q).sum(-1)[:, None] + (x * x).sum(-1)[None, :]
+          - 2.0 * q @ x.T).clamp_min(0.0)
+    return torch.sort(d2, dim=1, stable=True).indices[:, :k]
+
+
+def serve_path(torch, isax, kmods, ref, index, queries, d, ids, gen):
+    """The serving engine over the main cell's index (with the approx
+    phase's calibration table): warmup() captures every bucket for k 1
+    and 10 and the approx tier at k 10, one CUDA graph each; then the
+    main queries from 4 client threads in submits of 1, 3, 8, 17 and 64
+    rows, each row byte-equal to the main phase's facade row; the same
+    again from the result cache; 64 queries at k 1; the approx tier
+    byte-equal to search(mode="approx", recall_target=0.9); each
+    bucket's plan.run against the facade's search of the same rows;
+    then 65,536 adds with a batch in flight (answered on its own epoch)
+    and 1,024 deletes (winners among them), each followed by a stream
+    held to the facade, and no deleted id back.  The launch counts are
+    the engine's: set to 0 after the facade's reference searches, read
+    after warmup (each kernel of the search launched), unchanged by the
+    streams; the add's and the delete's are read before the facade's
+    searches after them."""
+    import numpy as np
+    from repro_torch.quality.calibrate import recall_at_k
+    from repro_torch.serve import EngineConfig
+    n = index.index.perm.shape[0]
+    qh = queries.cpu().numpy()
+    want = host((d, ids))
+    cfg = EngineConfig(max_batch=64, workers=2, linger_ms=2.0,
+                       warm_ks=(1, TOPK), cache_entries=4096,
+                       latency_tiers={"batch": 0.9})
+    rep = {"phase": "serve", "series": n, "queries": Q, "k": TOPK,
+           "config": {"max_batch": 64, "workers": 2, "linger_ms": 2.0,
+                      "warm_ks": [1, TOPK], "cache_entries": 4096,
+                      "latency_tiers": {"batch": 0.9},
+                      "clients": SERVE_CLIENTS,
+                      "submit_rows": list(SERVE_SIZES)}}
+    t_phase = time.perf_counter()
+    # the facade's answers the streams are held to, before the counts
+    # are set to 0: what the wrappers count from here on is the engine's
+    want1 = host(index.search(queries[:64], k=1))
+    wanta = host(index.search(queries, TOPK, mode="approx",
+                              recall_target=0.9))
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kmods)
+    eng = index.engine(cfg)
+    n_buckets = len(eng._batcher.buckets)
+    try:
+        t0 = time.perf_counter()
+        eng.warmup()
+        torch.cuda.synchronize()
+        warm = eng.stats()["plan_cache"]
+        # the serve path's own launches: each plan's eager warm-up and its
+        # capture; every kernel of the search ran in them
+        launches = counts(kmods)
+        require(all(v > 0 for v in launches.values()),
+                f"serve: a kernel of the path was not launched by the "
+                f"warm-up: {launches}")
+        rep["warmup"] = {
+            "s": time.perf_counter() - t0, "captures": warm["misses"],
+            "buckets": list(eng._batcher.buckets),
+            "allocated_gib_before": alloc0 / 2**30,
+            "allocated_gib_after": torch.cuda.memory_allocated() / 2**30,
+            "reserved_gib_after": torch.cuda.memory_reserved() / 2**30,
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+        require(warm["misses"] == warm["size"] == 3 * n_buckets
+                and warm["donate"]
+                and all(p.graph is not None for p in eng.plans.plans()),
+                f"serve: warmup captured {warm}, not one graph for each "
+                f"of {n_buckets} buckets x (k 1, k 10, approx k 10)")
+
+        chunks = serve_chunks(Q)
+        out, lat, wall = serve_stream(eng, qh, TOPK, chunks)
+        bad = bad_rows(out, chunks, *want)
+        require(bad == 0, f"serve: {bad} exact rows differ from the facade")
+        st = eng.stats()
+        rep["exact_stream"] = {
+            "submits": len(chunks), "wall_s": wall, "qps": Q / wall,
+            "latency_ms": pctl(lat), "engine_latency_ms": st["latency_ms"],
+            "batches": st["batches"], "rows_differing": bad}
+
+        hits0 = st["result_cache"]["hits"]
+        out, lat, wall = serve_stream(eng, qh, TOPK, chunks)
+        bad = bad_rows(out, chunks, *want)
+        hits = eng.stats()["result_cache"]["hits"] - hits0
+        require(bad == 0 and hits == Q, f"serve: the cache pass hit {hits} "
+                f"of {Q} rows, {bad} differ")
+        rep["cache_pass"] = {"hits": hits, "wall_s": wall, "qps": Q / wall,
+                             "latency_ms": pctl(lat)}
+
+        c64 = serve_chunks(64)
+        out, lat, wall = serve_stream(eng, qh[:64], 1, c64)
+        bad = bad_rows(out, c64, *want1)
+        require(bad == 0, f"serve: {bad} k-1 rows differ from the facade")
+        rep["k1"] = {"rows": 64, "wall_s": wall, "latency_ms": pctl(lat)}
+
+        out, lat, wall = serve_stream(eng, qh, TOPK, chunks,
+                                      priority="batch")
+        bad = bad_rows(out, chunks, *wanta)
+        require(bad == 0, f"serve: {bad} approx-tier rows differ from the "
+                f"facade's approx search")
+        tiers = eng.stats()["quality"]["tiers"]
+        rep["approx_tier"] = {
+            "rows": Q, "wall_s": wall, "qps": Q / wall,
+            "latency_ms": pctl(lat),
+            "recall_at_10": recall_at_k(stream_ids(out, chunks), want[1]),
+            "tier": {t: {k: v for k, v in s_.items() if k != "latency_ms"}
+                     for t, s_ in tiers.items()}}
+
+        st = eng.stats()
+        plans = eng.plans.plans()
+        replays = sum(p.calls for p in plans)
+        require(st["plan_cache"]["misses"] == warm["misses"],
+                f"serve: a capture after warmup: {st['plan_cache']}")
+        # the streams launched nothing through a wrapper: all replays
+        require(counts(kmods) == launches, f"serve: the streams launched "
+                f"{counts(kmods)} where the warm-up left {launches}")
+        # every dispatched batch replayed its plan's graph (a helper's
+        # run of a batch still running replays it again, or takes the
+        # owner's result)
+        require(st["batches"]["dispatched"] <= replays
+                <= st["plan_cache"]["hits"]
+                and all(p.graph is not None for p in plans),
+                f"serve: {replays} replays for {st['plan_cache']}, "
+                f"{st['batches']}")
+        used = {f"{p.bucket_q}/k{p.k}/"
+                f"{'exact' if p.knobs == eng._knobs else 'approx'}": p.calls
+                for p in plans}
+        rep["plans"] = {"replays": replays, "by_plan": used,
+                        "plan_cache": st["plan_cache"]}
+
+        # each bucket: plan.run (copy in, replay, copy out) against the
+        # facade's search of the same rows, both to host arrays
+        snap = eng._snapshots[eng.epoch]
+        per = {}
+        for b in eng._batcher.buckets:
+            plan = eng.plans.get(snap, b, TOPK, eng._knobs)
+            got = plan.run(qh[:b])
+            fac = host(index.search(queries[:b], TOPK))
+            require(got[0].tobytes() == fac[0].tobytes()
+                    and got[1].tobytes() == fac[1].tobytes(),
+                    f"serve: bucket {b}'s plan differs from the facade")
+            r_ms, e_ms = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                plan.run(qh[:b])
+                r_ms.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                host(index.search(queries[:b], TOPK))
+                e_ms.append((time.perf_counter() - t0) * 1e3)
+            # the graph's device time alone: what of run() is the card's
+            dev_ms = time_ms(torch, plan.graph.replay, reps=3, warm=1)
+            per[b] = {"replay_ms": r_ms, "facade_ms": e_ms,
+                      "saved_ms": min(e_ms) - min(r_ms),
+                      "graph_device_ms": dev_ms,
+                      "host_ms": min(r_ms) - dev_ms}
+        rep["per_bucket"] = per
+
+        # an add with a batch in flight, then deletes
+        q_new = queries[:64] + 0.05 * torch.randn(64, L, generator=gen,
+                                                  device=DEV)
+        qn_h = q_new.cpu().numpy()
+        pre = host(index.search(q_new, TOPK))
+        extra = walks(torch, gen, 1 << 16, L)
+        torch.cuda.synchronize()
+        c0 = counts(kmods)
+        futs = [eng.submit(qn_h[a:b], k=TOPK) for a, b in c64]
+        t0 = time.perf_counter()
+        eng.add(extra)
+        add_s = time.perf_counter() - t0
+        in_flight = sum(not f.done() for f in futs)
+        out = {j: f.result(timeout=300) for j, f in enumerate(futs)}
+        bad = bad_rows(out, c64, *pre)
+        require(bad == 0, f"serve: {bad} rows in flight across the add "
+                f"differ from the pre-add answer")
+        misses0 = eng.stats()["plan_cache"]["misses"]
+        out, lat, wall = serve_stream(eng, qh, TOPK, chunks)
+        # the publish (the delta's summarize) and the new epoch's
+        # captures, counted before the facade's search below
+        add_launches = {k: v - c0[k] for k, v in counts(kmods).items()}
+        require(all(v > 0 for v in add_launches.values()),
+                f"serve: the add and its captures launched {add_launches}")
+        post = host(index.search(queries, TOPK))
+        bad = bad_rows(out, chunks, *post)
+        require(bad == 0, f"serve: {bad} rows after the add differ from "
+                f"the facade")
+        captures = eng.stats()["plan_cache"]["misses"] - misses0
+        require(captures <= n_buckets, f"serve: {captures} captures after "
+                f"one publish, more than the {n_buckets} buckets")
+        rep["add"] = {"rows": 1 << 16, "add_s": add_s,
+                      "futures_in_flight_at_publish": in_flight,
+                      "of": len(futs), "captures_after_publish": captures,
+                      "launches": add_launches,
+                      "delta_rows_held": hold_search_rows(
+                          torch, isax, kmods["summarize"], ref, queries,
+                          index.index.paa.shape[1], index.delta_rows,
+                          delta_topk(torch, index.delta_rows, queries,
+                                     TOPK, index.index.paa.shape[1]),
+                          "serve delta scan"),
+                      "wall_s": wall, "latency_ms": pctl(lat)}
+
+        rng = np.random.default_rng(int(torch.randint(
+            0, 2**31, (1,), generator=gen, device=DEV)))
+        winners = np.unique(post[1][:, 0])
+        fresh = n + rng.choice(1 << 16, 64, replace=False)
+        rest = np.setdiff1d(rng.choice(n, 4096, replace=False), winners)
+        dels = np.unique(np.concatenate([winners, fresh, rest]))[:1024]
+        require(np.isin(winners, dels).sum() > 0 and len(dels) == 1024,
+                "serve: the delete set")
+        c0 = counts(kmods)
+        t0 = time.perf_counter()
+        deleted = eng.delete(dels)
+        delete_s = time.perf_counter() - t0
+        require(deleted == 1024, f"serve: delete() deleted {deleted}")
+        out, lat, wall = serve_stream(eng, qh, TOPK, chunks)
+        del_launches = {k: v - c0[k] for k, v in counts(kmods).items()}
+        after = host(index.search(queries, TOPK))
+        bad = bad_rows(out, chunks, *after)
+        back = int(np.isin(stream_ids(out, chunks), dels).sum())
+        require(bad == 0 and back == 0, f"serve: after the delete {bad} "
+                f"rows differ from the facade, {back} deleted ids back")
+        rep["delete"] = {"ids": 1024, "winners": int(np.isin(winners,
+                                                             dels).sum()),
+                         "delete_s": delete_s, "deleted_ids_back": back,
+                         "launches": del_launches,
+                         "wall_s": wall, "latency_ms": pctl(lat)}
+        st = eng.stats()
+    finally:
+        eng.close()
+    rep["stats"] = {k: st[k] for k in ("epoch", "completed", "qps",
+                                       "latency_ms", "rounds_per_query",
+                                       "plan_cache", "result_cache",
+                                       "batches", "workers")}
+    rep["launches"] = launches
+    rep["replays"] = replays
+    rep["by_route"] = route_counts(kmods)
+    rep["seconds"] = time.perf_counter() - t_phase
+    del eng
+    return rep, launches
+
+
 def l96_path(torch, api, isax, kmods, gen, n=1 << 20, Lx=96):
     """FreshIndex.build and search over n random walks of length 96 (the
     width of the Deep1B embeddings), w = 16: the summarize kernel's
@@ -1797,6 +2199,88 @@ def hold_live(torch, isax, live, queries, d, ids, what):
     require(torch.allclose(own, d, rtol=1e-5, atol=1e-5),
             f"{what}: reported distances are not the ids' distances")
     return int((ids != ib).sum())
+
+
+def lifecycle_engine(torch, api, ix, queries, gen, path, n_add=1 << 16,
+                     Lx=L):
+    """The serving engine on the lifecycle cell, with a MaintenancePolicy
+    (TTL sweeps every millisecond, a compaction once a tombstone is 1.5 s
+    old, a checkpoint a second): n_add adds (half with a 1 ms TTL) and
+    deletes in core and delta; maintain() sweeps the TTL rows; an
+    explicit compact(); more deletes; maintain() compacts and
+    checkpoints.  Every answer is byte-equal to the facade's, the ids
+    unchanged across each compaction, and the policy's checkpoint loads
+    and answers the same."""
+    import numpy as np
+    from repro_torch.maintenance import FreshnessClass, MaintenancePolicy
+    from repro_torch.serve import EngineConfig
+    tier = FreshnessClass("smoke", sweep_interval_s=1e-3,
+                          staleness_budget_s=1.5, compact_delta_rows=10**9,
+                          compact_dead_frac=1.0)
+    pol = MaintenancePolicy(freshness=tier, checkpoint_dir=str(path),
+                            checkpoint_interval_s=1.0)
+    qh = queries.cpu().numpy()
+    rng = np.random.default_rng(int(torch.randint(
+        0, 2**31, (1,), generator=gen, device=DEV)))
+    n_core, first = ix.index.perm.shape[0], ix._next_id
+    extra = walks(torch, gen, n_add, Lx)
+    rep = {}
+
+    def served(eng, what):
+        got = eng.submit(qh, k=TOPK).result(timeout=300)
+        want = host(ix.search(queries, k=TOPK))
+        require(all(a.tobytes() == b.tobytes() for a, b in zip(got, want)),
+                f"lifecycle engine, {what}: rows differ from the facade")
+        return got[1]
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        rep[key] = time.perf_counter() - t0
+        return out
+
+    with ix.engine(EngineConfig(max_batch=64, maintenance=pol)) as eng:
+        eng.add(extra[:n_add // 2])
+        eng.add(extra[n_add // 2:], ttl_s=1e-3)
+        rep["deleted"] = eng.delete(np.concatenate([
+            rng.choice(n_core, 4096, replace=False),
+            first + rng.choice(n_add // 2, 512, replace=False)]))
+        require(rep["deleted"] > 4096, "lifecycle engine: deletes")
+        time.sleep(0.01)
+        timed("maintain_sweep_s", eng.maintain)
+        st = eng.stats()["maintenance"]
+        require(st["sweeps"] == 1 and st["compacts"] == 0 and ix.n_ttl == 0,
+                f"lifecycle engine: the first maintain() ran {st}")
+        ids_a = served(eng, "pending")
+        timed("compact_s", eng.compact)
+        require(ix.n_pending == 0 and ix.n_deleted == 0,
+                "lifecycle engine: compact() left rows pending")
+        ids_b = served(eng, "compacted")
+        require(np.array_equal(ids_a, ids_b),
+                "lifecycle engine: compact() changed ids")
+        rep["deleted_more"] = eng.delete(rng.choice(n_core, 1024,
+                                                    replace=False))
+        ids_c = served(eng, "tombstones")
+        time.sleep(1.6)
+        timed("maintain_compact_checkpoint_s", eng.maintain)
+        st = eng.stats()
+        require(st["maintenance"]["compacts"] >= 1
+                and st["maintenance"]["checkpoints"] >= 1
+                and st["compactions"] == 2 and ix.n_deleted == 0,
+                f"lifecycle engine: the policy ran {st['maintenance']}")
+        ids_d = served(eng, "policy-compacted")
+        require(np.array_equal(ids_c, ids_d),
+                "lifecycle engine: the policy's compaction changed ids")
+        ld = timed("policy_checkpoint_load_s",
+                   lambda: api.FreshIndex.load(str(path), device=DEV))
+        got = host(ld.search(queries, k=TOPK))
+        require(np.array_equal(got[1], ids_d) and ld.n_series == ix.n_series,
+                "lifecycle engine: the policy's checkpoint answers otherwise")
+        del ld
+        rep["maintenance"] = st["maintenance"]
+        rep["plan_cache"] = st["plan_cache"]
+        rep["epoch"] = st["epoch"]
+    return rep
 
 
 def lifecycle_path(torch, api, isax, kmods, gen, n=1 << 22, n_add=1 << 16,
@@ -1976,6 +2460,8 @@ def lifecycle_path(torch, api, isax, kmods, gen, n=1 << 22, n_add=1 << 16,
         d4, ids4 = ix.search(queries, k=TOPK)
         require(torch.equal(d4, d2) and torch.equal(ids4, ids2),
                 "search after reload differs")
+        rep["engine"] = lifecycle_engine(torch, api, ix, queries, gen,
+                                         root / "policy")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     rep["peak_alloc_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -2034,8 +2520,9 @@ def main() -> int:
     edge_gen = torch.Generator(device=DEV).manual_seed(args.seed + 1)
     # so do the route cases and the paths added after the main one
     more_gen = torch.Generator(device=DEV).manual_seed(args.seed + 2)
-    # and the per-leaf kernels' cases
+    # and the per-leaf kernels' cases, and the serve phase
     leaf_gen = torch.Generator(device=DEV).manual_seed(args.seed + 3)
+    serve_gen = torch.Generator(device=DEV).manual_seed(args.seed + 4)
     kmods = dict(ops.WRAPPERS)
     rows, launches = [], {}
     for name, check, args_ in (
@@ -2089,6 +2576,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     report, more = approx_path(torch, isax, search, kmods, ref, index,
                                queries, q, d, ids)
+    emit(report)
+    launches |= {k: v for k, v in more.items() if k not in launches}
+    torch.cuda.empty_cache()
+    report, more = serve_path(torch, isax, kmods, ref, index, queries, d,
+                              ids, serve_gen)
     emit(report)
     launches |= {k: v for k, v in more.items() if k not in launches}
     del index, q, d, ids, queries

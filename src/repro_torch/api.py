@@ -28,8 +28,11 @@ lifecycle and checkpoints, on the card unless the caller asks for the CPU.
 
     index = FreshIndex.build(series, device="cpu")    # the plain versions
 
-The counterpart of `repro.api.FreshIndex` (its sharding and serving are
-not ported yet).  Checkpoints use the layout and format
+    with index.engine(EngineConfig(workers=2)) as eng:   # serving
+        dist, ids = eng.submit(queries, k=10).result()
+
+The counterpart of `repro.api.FreshIndex` (its sharding is not ported
+yet).  Checkpoints use the layout and format
 ("fresh-index-v1") of repro's, calibration and autotune tables included,
 so either package loads what the other saved.
 """
@@ -51,8 +54,8 @@ from repro_torch.core.builder import IndexBuilder, merge_sorted_delta
 from repro_torch.core.index import STORAGE as _DTYPES
 from repro_torch.core.index import (FlatIndex, build_index, index_stats,
                                     summarize_rows)
-from repro_torch.core.search import (search_plan_impl, snapshot_search_impl,
-                                     squeeze_k)
+from repro_torch.core.search import (batch_rounds, squeeze_k,
+                                     view_search_device)
 from repro_torch.kernels.autotune import (AutotuneTable, TuneConfig,
                                           device_kind, resolve_knobs)
 from repro_torch.maintenance.tombstones import (core_dead_mask,
@@ -356,21 +359,18 @@ class FreshIndex:
               max_rounds: Optional[int] = None, stop_eps: float = 0.0,
               stop_leaves: Optional[int] = None):
         """The plan `search` runs, with every knob resolved: (dist, ids,
-        rounds), (Q, k) internal ids before `_remap_ids`.  The core by
-        `search_plan_impl`; with a pending delta, `snapshot_search_impl`
-        over the delta rows as compaction will store them (`delta_rows`,
-        already normalized, so the queries are normalized here once and
-        the plans take them as they are).  The calibrator and the
+        rounds), (Q, k) internal ids before `_remap_ids`.
+        `view_search_device` over `search_view()`, a pending delta as its
+        rows as compaction will store them (`delta_rows`); the serving
+        engine's plans run the same function.  The calibrator and the
         autotune sweep run this too, so they measure what search runs."""
         core, delta, alive, id0 = self.search_view()
-        qn = isax.znormalize(q) if self.config.znorm else q
-        kw = dict(k=k, round_leaves=round_leaves, znorm=False,
-                  max_rounds=max_rounds, pq_budget=pq_budget,
-                  stop_eps=stop_eps, stop_leaves=stop_leaves)
-        if delta is None:
-            return search_plan_impl(core, qn, **kw)
-        return snapshot_search_impl(core, self.delta_rows, qn, alive,
-                                    n_base=id0, **kw)
+        d, i, rounds = view_search_device(
+            core, None if delta is None else self.delta_rows, alive, id0, q,
+            k=k, znorm=self.config.znorm, round_leaves=round_leaves,
+            max_rounds=max_rounds, pq_budget=pq_budget, stop_eps=stop_eps,
+            stop_leaves=stop_leaves)
+        return d, i, batch_rounds(rounds)
 
     def resolve_stop_rule(self, mode: str, *, k: int,
                           recall_target: float = 0.95,
@@ -605,6 +605,34 @@ class FreshIndex:
                 self.delta_cat, segments=cfg.segments, bits=cfg.bits,
                 znorm=cfg.znorm)[0]
         return self._delta_rows
+
+    # ------------------------------------------------------------------ #
+    # serving
+    # ------------------------------------------------------------------ #
+    def engine(self, config=None, **overrides):
+        """A serving-layer QueryEngine over this index
+        (`repro_torch.serve`): micro-batched `submit(q, k=...)`
+        futures, one captured CUDA graph per (bucket, k, knobs, epoch)
+        on the card (steady state replays and never captures), and
+        snapshot-consistent concurrent add / update / delete / compact.
+
+        Args:
+            config: EngineConfig (None = defaults).
+            **overrides: EngineConfig fields, mirroring build().
+        Returns:
+            A started QueryEngine bound to this index.
+        Raises:
+            ValueError: `donate=True` on a CPU index.
+
+        Concurrency: the engine serializes all writers to this index
+        through its own locks; do not mutate the index out-of-band
+        while an engine serves it (or call `engine.refresh()` after).
+        """
+        from repro_torch.serve import EngineConfig, QueryEngine
+        cfg = config or EngineConfig()
+        if overrides:
+            cfg = dataclasses.replace(cfg, **overrides)
+        return QueryEngine(self, cfg)
 
     # ------------------------------------------------------------------ #
     # updates (Jiffy-style batch delta)

@@ -11,14 +11,17 @@ name replaces "/" by "__".  bfloat16 leaves are stored as their uint16
 bit patterns (numpy has no bfloat16) and the manifest records the
 logical dtype.  So either package loads what the other saved.
 Saves write a temporary directory and rename it into place: a crash
-mid-save never leaves a half-written step visible.
+mid-save never leaves a half-written step visible.  `CheckpointManager`
+writes steps in the background and keeps the newest few.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import queue
 import shutil
+import threading
 import time
 from typing import Any, Dict, Optional, Tuple
 
@@ -141,3 +144,77 @@ def load_checkpoint(directory: str, like_tree, *,
                               for i, v in enumerate(node))
         return arrays[prefix[:-1]]
     return build(like_tree, ""), manifest
+
+
+def _to_host(tree):
+    """A copy of `tree` whose tensor leaves are host copies, taken now."""
+    if hasattr(tree, "_fields"):                  # a NamedTuple
+        return type(tree)(*(_to_host(v) for v in tree))
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return np.array(tree, copy=True)
+
+
+class CheckpointManager:
+    """Async, rotating checkpoint writer.
+
+    `save(step, tree)` copies the tree's tensors to host memory at the
+    call (the values at this step), and writes them with
+    `save_checkpoint`, in a background thread when `async_save` (one
+    write pending at most: a second save waits for the first), keeping
+    the newest `keep` steps.  A write's error is raised by the next
+    save() or wait()."""
+
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = True):
+        self.directory = directory
+        self.keep = keep
+        self.async_save = async_save
+        self._q: "queue.Queue" = queue.Queue(maxsize=1)
+        self._worker: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        if async_save:
+            self._worker = threading.Thread(target=self._loop, daemon=True)
+            self._worker.start()
+
+    def save(self, step: int, tree, extra: Optional[dict] = None) -> None:
+        if self._error:
+            raise self._error
+        host_tree = _to_host(tree)
+        if self.async_save:
+            self._q.put((step, host_tree, extra))   # blocks if one pending
+        else:
+            self._write(step, host_tree, extra)
+
+    def wait(self) -> None:
+        """Block until every queued save is written; raise a write's
+        error."""
+        if self.async_save:
+            self._q.join()
+        if self._error:
+            raise self._error
+
+    def _loop(self) -> None:
+        while True:
+            step, tree, extra = self._q.get()
+            try:
+                self._write(step, tree, extra)
+            except BaseException as e:    # surfaced on next save()/wait()
+                self._error = e
+            finally:
+                self._q.task_done()
+
+    def _write(self, step, tree, extra) -> None:
+        save_checkpoint(self.directory, step, tree, extra=extra)
+        self._gc()
+
+    def _gc(self) -> None:
+        steps = sorted(
+            int(d.split("_")[1]) for d in os.listdir(self.directory)
+            if d.startswith("step_") and not d.endswith(".tmp"))
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.directory, f"step_{s}"),
+                          ignore_errors=True)

@@ -21,14 +21,25 @@ The counterpart of `repro.core.search`'s local plan:
 
 A pending delta (rows added since the last compaction) is scanned exactly
 and merged in (`merge_delta_topk`, `snapshot_search_impl`).
+
+Each `*_impl` plan has a `*_device` twin that leaves every query's round
+count on the device as a (Q,) tensor: nothing of it reads the device
+from the host, so a CUDA graph can hold the whole plan (the serving
+engine's plans, `repro_torch.serve.plan_cache`).  A query's row of the
+answer does not depend on the batch it lies in: the sums over a row (the
+z-norm, the query's norm, the direct-form distances) run in the
+summarize kernel's fixed order a row (`prepare_rows`, `_row_sq`), where
+torch's reductions on the card pick their order from the shape.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.isax_summarize import summarize_rows
 from repro_torch.kernels.lb_distance import lb_distance
 from repro_torch.kernels.ref import BIG
 from repro_torch.kernels.refine_search import refine_search
@@ -99,17 +110,41 @@ def _pq_order(lb: torch.Tensor, K: int, n_rounds_cap: int,
     return order.to(torch.int32).contiguous(), sorted_lb.contiguous()
 
 
-def prepare_queries(queries: torch.Tensor, znorm: bool, segments: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Normalize queries and compute their PAA at the index's segment
-    count.  Raises ValueError when the length does not divide into it."""
+def prepare_rows(queries: torch.Tensor, znorm: bool, segments: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(q, q_paa, q_sq): the queries as float32, z-normalized when
+    `znorm`, their PAA at the index's segment count and their squared
+    norms, through the summarize kernel (`summarize_rows`), which reduces
+    each row in one fixed order: a query gets the same bits alone as in
+    any batch.  Raises ValueError when the length does not divide into
+    `segments`."""
     L = queries.shape[-1]
     if L % segments != 0:
         raise ValueError(f"query length {L} is not divisible by the index "
                          f"segment count {segments}")
-    q = isax.znormalize(queries) if znorm else queries
-    q = q.float()
-    return q, isax.paa(q, segments)
+    q, q_paa, _, q_sq = summarize_rows(queries.float().contiguous(),
+                                       segments=segments, znorm=znorm)
+    return q, q_paa, q_sq
+
+
+def prepare_queries(queries: torch.Tensor, znorm: bool, segments: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normalize queries and compute their PAA at the index's segment
+    count (`prepare_rows` without the norms).  Raises ValueError when the
+    length does not divide into it."""
+    return prepare_rows(queries, znorm, segments)[:2]
+
+
+def _row_sq(x: torch.Tensor) -> torch.Tensor:
+    """The sum of squares over the last axis of x (..., L), one fixed
+    order a row: the summarize kernel's squared norms.  The launch also
+    writes a float32 copy of the rows, their PAA (at the largest power
+    of two up to 16 that divides L) and their symbols, all unused: at
+    the main cell's (2560, 256) re-rank that is 3.0 MB written."""
+    L = x.shape[-1]
+    sq = summarize_rows(x.reshape(-1, L).float().contiguous(),
+                        segments=math.gcd(L, 16), znorm=False)[3]
+    return sq.reshape(x.shape[:-1])
 
 
 def leaf_lower_bounds(idx: FlatIndex, q_paa: torch.Tensor,
@@ -119,42 +154,39 @@ def leaf_lower_bounds(idx: FlatIndex, q_paa: torch.Tensor,
                        series_len=series_len)
 
 
-def search_plan_impl(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
-                     round_leaves: int = 8, znorm: bool = True,
-                     max_rounds: Optional[int] = None,
-                     pq_budget: Optional[int] = None,
-                     stop_eps: float = 0.0,
-                     stop_leaves: Optional[int] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """k-NN of `queries` (Q, L) over `idx`, on idx's device, with every
-    knob resolved.
+def search_plan_device(idx: FlatIndex, queries: torch.Tensor, *,
+                       k: int = 1, round_leaves: int = 8, znorm: bool = True,
+                       max_rounds: Optional[int] = None,
+                       pq_budget: Optional[int] = None,
+                       stop_eps: float = 0.0,
+                       stop_leaves: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`search_plan_impl` with the round count left on the device: (dist,
+    original_id, rounds), rounds a (Q,) int32 tensor of each query's own
+    rounds (zeros over an empty core).  Reads nothing back to the host,
+    so a CUDA graph can capture it."""
+    q, q_paa, q_sq = prepare_rows(queries, znorm, idx.paa.shape[1])
+    return _search_rows(idx, q, q_paa, q_sq, k=k, round_leaves=round_leaves,
+                        max_rounds=max_rounds, pq_budget=pq_budget,
+                        stop_eps=stop_eps, stop_leaves=stop_leaves)
 
-    Returns (dist, original_id, rounds): dist and ids are (Q, k) ascending
-    by distance; rounds is the number of refinement rounds the batch
-    runs, the most any of its queries runs, as repro counts them.  Slots
-    with no series carry id -1 and distance sqrt(BIG).
 
-    Exact at the defaults.  `max_rounds` caps the rounds and `pq_budget`
-    the leaves admitted to each queue (distances become upper bounds when
-    either cuts the search short).  `stop_eps` / `stop_leaves` are the
-    quality stop rules: stop once no unrefined lower bound lies below the
-    k-th best scaled by 1/(1+eps)^2 (squared space), and cap the visited
-    leaves by tightening the leaf budget.  At (0.0, None) the scale is
-    1.0, and the k-th best times 1.0 is the k-th best bit for bit, so
-    exact search keeps its bits.
-    """
+def _search_rows(idx: FlatIndex, q: torch.Tensor, q_paa: torch.Tensor,
+                 q_sq: torch.Tensor, *, k: int, round_leaves: int,
+                 max_rounds: Optional[int], pq_budget: Optional[int],
+                 stop_eps: float, stop_leaves: Optional[int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`search_plan_device` on queries `prepare_rows` already made."""
     inv_eps, leaf_budget = _stop_knobs(stop_eps, stop_leaves, pq_budget)
     L = idx.series.shape[1]
-    Q = queries.shape[0]
+    Q = q.shape[0]
     K = round_leaves
 
-    q, q_paa = prepare_queries(queries, znorm, idx.paa.shape[1])
     if idx.n_leaves == 0:              # an empty core (the bootstrap)
         return (torch.full((Q, k), BIG ** 0.5, device=q.device),
                 torch.full((Q, k), -1, dtype=torch.int32, device=q.device),
-                0)
+                torch.zeros((Q,), dtype=torch.int32, device=q.device))
     M = idx.leaf_capacity
-    q_sq = (q * q).sum(dim=-1)
     lb = leaf_lower_bounds(idx, q_paa, L)                # (Q, n_leaves)
     cap = _rounds_cap(idx.n_leaves, K, max_rounds, leaf_budget)
     order, sorted_lb = _pq_order(lb, K, cap, leaf_budget)
@@ -170,12 +202,50 @@ def search_plan_impl(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
     found = bsf_d < BIG
     e = bsf_e.long()
     ids = torch.where(found, idx.perm[e], torch.full_like(bsf_e, -1))
-    d_exact = (q[:, None, :] - idx.series[e].float()).square().sum(dim=-1)
+    d_exact = _row_sq(q[:, None, :] - idx.series[e].float())
     d = torch.where(found, d_exact, bsf_d)
     resort = torch.argsort(d, dim=1, stable=True)
     d = torch.gather(d, 1, resort).sqrt()
     ids = torch.gather(ids, 1, resort)
-    return d, ids, int(rounds.max()) if Q else 0
+    return d, ids, rounds
+
+
+def search_plan_impl(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
+                     round_leaves: int = 8, znorm: bool = True,
+                     max_rounds: Optional[int] = None,
+                     pq_budget: Optional[int] = None,
+                     stop_eps: float = 0.0,
+                     stop_leaves: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """k-NN of `queries` (Q, L) over `idx`, on idx's device, with every
+    knob resolved.
+
+    Returns (dist, original_id, rounds): dist and ids are (Q, k) ascending
+    by distance; rounds is the number of refinement rounds the batch
+    runs, the most any of its queries runs, as repro counts them (read on
+    the host; `search_plan_device` leaves each query's on the device).
+    Slots with no series carry id -1 and distance sqrt(BIG).
+
+    Exact at the defaults.  `max_rounds` caps the rounds and `pq_budget`
+    the leaves admitted to each queue (distances become upper bounds when
+    either cuts the search short).  `stop_eps` / `stop_leaves` are the
+    quality stop rules: stop once no unrefined lower bound lies below the
+    k-th best scaled by 1/(1+eps)^2 (squared space), and cap the visited
+    leaves by tightening the leaf budget.  At (0.0, None) the scale is
+    1.0, and the k-th best times 1.0 is the k-th best bit for bit, so
+    exact search keeps its bits.
+    """
+    d, ids, rounds = search_plan_device(
+        idx, queries, k=k, round_leaves=round_leaves, znorm=znorm,
+        max_rounds=max_rounds, pq_budget=pq_budget, stop_eps=stop_eps,
+        stop_leaves=stop_leaves)
+    return d, ids, batch_rounds(rounds)
+
+
+def batch_rounds(rounds: torch.Tensor) -> int:
+    """The batch's round count, the most any query ran (0 for none): the
+    plan's one read of the device."""
+    return int(rounds.max()) if rounds.numel() else 0
 
 
 def squeeze_k(d: torch.Tensor, i: torch.Tensor, k: int):
@@ -220,7 +290,7 @@ def _bruteforce_topk(raw: torch.Tensor, queries: torch.Tensor, *, k: int,
     if alive is not None:
         d2 = torch.where(alive[None, :], d2, torch.full_like(d2, BIG))
     i = torch.sort(d2, dim=1, stable=True).indices[:, :k]
-    d_exact = (q[:, None, :] - x[i]).square().sum(dim=-1)
+    d_exact = _row_sq(q[:, None, :] - x[i])
     if alive is not None:
         d_exact = torch.where(alive[i], d_exact, torch.full_like(d_exact,
                                                                  BIG))
@@ -269,6 +339,29 @@ def merge_delta_topk(delta: torch.Tensor, queries: torch.Tensor,
                        k)
 
 
+def snapshot_search_device(idx: FlatIndex, delta: torch.Tensor,
+                           queries: torch.Tensor,
+                           delta_alive: Optional[torch.Tensor] = None, *,
+                           k: int, n_base: int, round_leaves: int = 8,
+                           znorm: bool = True,
+                           max_rounds: Optional[int] = None,
+                           pq_budget: Optional[int] = None,
+                           stop_eps: float = 0.0,
+                           stop_leaves: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """`snapshot_search_impl` with each query's round count left on the
+    device, a (Q,) int32 tensor (see `search_plan_device`)."""
+    d, i, rounds = search_plan_device(idx, queries, k=k,
+                                      round_leaves=round_leaves, znorm=znorm,
+                                      max_rounds=max_rounds,
+                                      pq_budget=pq_budget, stop_eps=stop_eps,
+                                      stop_leaves=stop_leaves)
+    md, mi = merge_delta_topk(delta, queries, d, i, delta_alive, k=k,
+                              n_base=n_base, znorm=znorm)
+    return md, mi, rounds
+
+
 def snapshot_search_impl(idx: FlatIndex, delta: torch.Tensor,
                          queries: torch.Tensor,
                          delta_alive: Optional[torch.Tensor] = None, *,
@@ -284,13 +377,38 @@ def snapshot_search_impl(idx: FlatIndex, delta: torch.Tensor,
     unsorted delta by an exact scan, merged by `merge_delta_topk`.
     `stop_eps` / `stop_leaves` apply to the core only: the delta scan
     stays exact.  Returns (dist, ids, rounds)."""
-    d, i, rounds = search_plan_impl(idx, queries, k=k,
-                                    round_leaves=round_leaves, znorm=znorm,
-                                    max_rounds=max_rounds,
-                                    pq_budget=pq_budget, stop_eps=stop_eps,
-                                    stop_leaves=stop_leaves)
-    md, mi = merge_delta_topk(delta, queries, d, i, delta_alive, k=k,
-                              n_base=n_base, znorm=znorm)
+    d, i, rounds = snapshot_search_device(
+        idx, delta, queries, delta_alive, k=k, n_base=n_base,
+        round_leaves=round_leaves, znorm=znorm, max_rounds=max_rounds,
+        pq_budget=pq_budget, stop_eps=stop_eps, stop_leaves=stop_leaves)
+    return d, i, batch_rounds(rounds)
+
+
+def view_search_device(core: FlatIndex, delta_rows: Optional[torch.Tensor],
+                       delta_alive: Optional[torch.Tensor], n_base: int,
+                       queries: torch.Tensor, *, k: int, znorm: bool,
+                       round_leaves: int, pq_budget: Optional[int] = None,
+                       max_rounds: Optional[int] = None,
+                       stop_eps: float = 0.0,
+                       stop_leaves: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plan `FreshIndex.search` runs over one search view (the
+    tombstone-masked core, the delta rows as compaction will store them
+    or None, their alive mask, the delta's id offset): (dist, ids,
+    rounds (Q,)), (Q, k) internal ids.  The queries are summarized here
+    once (`prepare_rows`: normalized, their PAA and norms), and the core
+    plan and the delta scan take them as they are.  The serving engine's
+    plans run exactly this, so a row the engine answers has the facade's
+    bits."""
+    q, q_paa, q_sq = prepare_rows(queries, znorm, core.paa.shape[1])
+    d, i, rounds = _search_rows(core, q, q_paa, q_sq, k=k,
+                                round_leaves=round_leaves,
+                                max_rounds=max_rounds, pq_budget=pq_budget,
+                                stop_eps=stop_eps, stop_leaves=stop_leaves)
+    if delta_rows is None:
+        return d, i, rounds
+    md, mi = merge_delta_topk(delta_rows, q, d, i, delta_alive, k=k,
+                              n_base=n_base, znorm=False)
     return md, mi, rounds
 
 

@@ -260,6 +260,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.analysis", "repro_torch.analysis.hooks",
             "repro_torch.checkpoint", "repro_torch.checkpoint.store",
             "repro_torch.maintenance", "repro_torch.maintenance.tombstones",
+            "repro_torch.maintenance.policy",
+            "repro_torch.runtime", "repro_torch.runtime.journal",
+            "repro_torch.serve", "repro_torch.serve.batcher",
+            "repro_torch.serve.engine", "repro_torch.serve.plan_cache",
+            "repro_torch.serve.result_cache",
             "repro_torch.core.builder", "repro_torch.core.refresh",
             "repro_torch.core.traverse",
             "repro_torch.core", "repro_torch.core.isax",
