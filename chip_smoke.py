@@ -86,6 +86,20 @@ Phases, each printing one JSON line:
              search gives it (here the delta scan's difference rows
              after the add; the main phase holds the queries and the
              re-rank's rows);
+  sharded    the main cell's index (its arrays, no copy) sharded by
+             FreshIndex.shard over a mesh of 4 slots on cuda:0: 256 queries
+             at k 1 and 10, sync_every 1 and 4, each search's rounds, host
+             reads, ms, peak memory beside the local search's, and
+             launches (lb_distance 4, refine_topk 4 a round run), ids held
+             to brute force (k 10) and to the local search but at ties,
+             the card's busy time and idle share over one k-10 search;
+             the engine on it (EngineConfig(max_batch=64, sync_every=2,
+             warm_ks=(10,))): submits of 1, 8, 64 rows byte-equal to the
+             sharded facade, an add of 4,096 series (a mesh-wide epoch)
+             found by a submit after it, a delete of 64 ids none of which
+             comes back; then 2^22 walks on 2 slots saved and recovered
+             by the engine onto 1 slot with a future in flight, both
+             answers exact;
   l96        FreshIndex.build and search over 2^20 walks of length 96
              (w 16), 256 noisy queries, k 10, held to brute force: the
              summarize kernel's strided route on a search path; and the
@@ -112,10 +126,11 @@ Phases, each printing one JSON line:
 refine_search is held under the (1 + eps) stop (inv_eps 1 / 1.25^2) on
 every route too: cta3 in the kernel phase, cta2, cta1 and general in the
 route phase.
-Each of main, rounds, scan, approx, serve, l96, lifecycle and attention
-sets every launch count to 0 before it and requires each kernel (and
-route) of its path to have launched, and every kernel of the table to
-have launched on some path; a graph replay passes through no wrapper,
+Each of main, rounds, scan, approx, sharded, serve, l96, lifecycle and
+attention sets every launch count to 0 before it and requires each
+kernel (and route) of its path to have launched, and every kernel of
+the table to have launched on some path; a graph replay passes through
+no wrapper,
 so the serve phase counts replays through each plan's `calls`.  The
 serve phase's facade searches run before its counts are set to 0 (or
 after they are read): the counts it requires are the engine's own, those
@@ -2476,6 +2491,256 @@ def lifecycle_path(torch, api, isax, kmods, gen, n=1 << 22, n_add=1 << 16,
     return rep, launches
 
 
+SHARDS = 4                      # slots of the sharded phase's mesh
+SHARD_KERNELS = ("summarize", "lb_distance", "refine_topk")
+
+
+def tie_mismatches(torch, d, ids, d_want, i_want, what) -> int:
+    """(d, ids), k columns, against the first k of wanted rows: the
+    distances within 1e-5 (relative and absolute), the ids equal but
+    where the wanted list holds two distances within 1e-5 relative at
+    that slot (its neighbour may lie past column k).  Returns the slots
+    whose ids differ (each such a tie)."""
+    k = d.shape[1]
+    require(torch.allclose(d, d_want[:, :k], rtol=1e-5, atol=1e-5),
+            f"{what}: distances differ by "
+            f"{(d - d_want[:, :k]).abs().max().item()}")
+    mism = ids != i_want[:, :k]
+    if bool(mism.any()):
+        near = torch.zeros_like(i_want, dtype=torch.bool)
+        close = ((d_want[:, 1:] - d_want[:, :-1]).abs()
+                 <= 1e-5 * d_want[:, 1:].abs())
+        near[:, 1:] |= close
+        near[:, :-1] |= close
+        require(bool(near[:, :k][mism].all()), f"{what}: ids differ where "
+                f"no two distances lie within 1e-5")
+    return int(mism.sum())
+
+
+def shard_counts(kmods) -> dict:
+    return {name: kmods[name].launches for name in SHARD_KERNELS}
+
+
+def sharded_path(torch, api, isax, kmods, index, queries, d, ids, gen):
+    """The main cell's index (2^24 walks, the main phase's arrays, no
+    copy) sharded over a mesh of 4 slots on cuda:0 through FreshIndex.
+    shard: 256 queries at k 1 and 10, sync_every 1 and 4, each search's
+    rounds, host reads, ms, launches (lb_distance once a shard,
+    refine_topk once a shard a round), peak memory beside the local
+    search's; the ids held to brute force (k 10) and to the local search,
+    equal but at ties; the card's busy time over one k-10 search
+    (torch.profiler).  Then the engine on the sharded index
+    (EngineConfig(max_batch=64, sync_every=2, warm_ks=(10,))): submits
+    of 1, 8 and 64 rows byte-equal to the sharded facade; an add of
+    4,096 series (a mesh-wide epoch) and a submit that finds them; a
+    delete of 64 ids, none back.  Then recovery at 2^22 walks: shard
+    over 2 slots, save, recover(ckpt, mesh=<1 slot>) with a future in
+    flight, both answers exact."""
+    import numpy as np
+    from repro_torch.runtime import make_mesh
+    from repro_torch.serve import EngineConfig
+    n = index.index.perm.shape[0]
+    rep = {"phase": "sharded", "series": n, "queries": Q, "slots": SHARDS,
+           "device": "cuda:0",
+           "cards_visible": torch.cuda.device_count()}
+    if torch.cuda.device_count() >= SHARDS:
+        rep["note"] = (f"{torch.cuda.device_count()} cards visible; the "
+                       f"slots stay on cuda:0, the card the last line "
+                       f"reports")
+    t_phase = time.perf_counter()
+    mesh = make_mesh((SHARDS,), ("data",), [DEV + ":0"] * SHARDS)
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    d_loc, _ = index.search(queries, k=TOPK)
+    torch.cuda.synchronize()
+    local_peak = torch.cuda.max_memory_allocated() - alloc0
+    del d_loc
+    # a facade of its own over the main index's arrays: shard() moves
+    # nothing (the slots are the index's device) and adds no padding
+    # (2^18 leaves), so the shards are views; the main index stays local
+    six = api.FreshIndex(index.index, index.config)
+    t0 = time.perf_counter()
+    six.shard(mesh)
+    rep["shard_s"] = time.perf_counter() - t0
+    require(six.index.series.data_ptr() == index.index.series.data_ptr()
+            and all(sh.series.device == index.device
+                    for sh in six.shard_view()),
+            "sharded: the shards are not views of the main index")
+    rep["searches"] = {}
+    launches = {name: 0 for name in SHARD_KERNELS}
+    for k in (1, TOPK):
+        for sync in (1, 4):
+            kn = six.search_knobs()
+            plan = six.sharded_plan(k, round_leaves=kn.round_leaves,
+                                    sync_every=sync, max_rounds=None,
+                                    pq_budget=kn.pq_budget, stop_eps=0.0,
+                                    stop_leaves=None)
+            c0 = (plan.rounds, plan.rounds_launched, plan.host_reads)
+            torch.cuda.synchronize()
+            a0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset(kmods)
+            t0 = time.perf_counter()
+            ds, is_ = six.search(queries, k=k, sync_every=sync)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = shard_counts(kmods)
+            peak = torch.cuda.max_memory_allocated() - a0
+            rounds, ran, reads = (b - a for a, b in zip(c0, (
+                plan.rounds, plan.rounds_launched, plan.host_reads)))
+            require(got["lb_distance"] == SHARDS
+                    and got["refine_topk"] == SHARDS * ran > 0,
+                    f"sharded k {k} sync {sync}: launches {got} for {ran} "
+                    f"rounds run over {SHARDS} shards")
+            for name in SHARD_KERNELS:
+                launches[name] += got[name]
+            if k == 1:
+                ds, is_ = ds[:, None], is_[:, None]
+            ties = tie_mismatches(torch, ds, is_, d, ids,
+                                  f"sharded k {k} sync {sync} vs local")
+            entry = {"ms": ms, "rounds": rounds, "rounds_run": ran,
+                     "host_reads": reads,
+                     "ms_per_round": ms / ran, "launches": got,
+                     "peak_alloc_gib": peak / 2**30,
+                     "peak_above_local_gib": (peak - local_peak) / 2**30,
+                     "ties_vs_local": ties}
+            if k == TOPK and sync == 1:
+                entry["ties_vs_bruteforce"] = hold_answers(
+                    torch, isax, index.index, queries, ds, is_,
+                    "sharded k 10")
+            rep["searches"][f"k{k}_sync{sync}"] = entry
+    rep["local_peak_alloc_gib"] = local_peak / 2**30
+    # where a sharded search's time goes: the card's busy time against
+    # the wall (k 10, sync_every 1), outside the counted searches
+    t0 = time.perf_counter()
+    rep["device_time"] = profile_search(torch, six, queries)
+    rep["device_time"]["profiling_s"] = time.perf_counter() - t0
+
+    # the engine on the sharded index: eager sharded plans
+    cfg = EngineConfig(max_batch=64, sync_every=2, warm_ks=(TOPK,))
+    qh = queries.cpu().numpy()
+    want = host(six.search(queries[:64], k=TOPK, sync_every=2))
+    eng = six.engine(cfg)
+    try:
+        t0 = time.perf_counter()
+        eng.warmup()
+        rep["engine"] = {"warmup_s": time.perf_counter() - t0,
+                         "plans": eng.stats()["plan_cache"]}
+        sub = {}
+        for rows in (1, 8, 64):
+            t0 = time.perf_counter()
+            got = eng.submit(qh[:rows], k=TOPK).result(timeout=300)
+            sub[rows] = (time.perf_counter() - t0) * 1e3
+            require(np.asarray(got[0]).tobytes() == want[0][:rows].tobytes()
+                    and np.asarray(got[1]).tobytes()
+                    == want[1][:rows].tobytes(),
+                    f"sharded engine: a submit of {rows} rows differs from "
+                    f"the sharded facade")
+        st = eng.stats()
+        require(st["plan_cache"]["misses"] == rep["engine"]["plans"][
+            "misses"] and st["mesh"] == {"axes": {"data": SHARDS},
+                                         "devices": SHARDS},
+                f"sharded engine: {st['plan_cache']}, {st['mesh']}")
+        rep["engine"]["submit_ms"] = sub
+        # an add: a mesh-wide epoch, and queries next to the new series
+        extra = walks(torch, gen, 4096, L)
+        q_new = (extra[:8] + 0.01 * torch.randn(8, L, generator=gen,
+                                                device=DEV)).cpu().numpy()
+        epoch = eng.epoch
+        t0 = time.perf_counter()
+        eng.add(extra)
+        rep["engine"]["add_s"] = time.perf_counter() - t0
+        require(eng.epoch == epoch + 1, "sharded engine: add published no "
+                "epoch")
+        got = eng.submit(q_new, k=TOPK).result(timeout=300)
+        fac = host(six.search(q_new, k=TOPK, sync_every=2))
+        require(np.asarray(got[0]).tobytes() == fac[0].tobytes()
+                and np.asarray(got[1]).tobytes() == fac[1].tobytes(),
+                "sharded engine: the submit after the add differs from the "
+                "facade")
+        found = int((np.asarray(got[1])[:, 0] == n + np.arange(8)).sum())
+        require(found == 8, f"sharded engine: {found} of 8 new series "
+                f"found by their own queries after the add")
+        # a delete of 64 ids, the winners of the first rows among them
+        dels = np.unique(np.concatenate([want[1][:16, 0],
+                                         n + np.arange(8)]))
+        extra_ids = np.setdiff1d(np.arange(n - 256, n), dels)
+        dels = np.concatenate([dels, extra_ids[:64 - len(dels)]])
+        require(len(dels) == 64, "sharded engine: the delete set")
+        require(eng.delete(dels) == 64, "sharded engine: delete()")
+        qd = np.concatenate([qh[:16], q_new])
+        got = eng.submit(qd, k=TOPK).result(timeout=300)
+        fac = host(six.search(qd, k=TOPK, sync_every=2))
+        back = int(np.isin(np.asarray(got[1]), dels).sum())
+        require(np.asarray(got[0]).tobytes() == fac[0].tobytes()
+                and np.asarray(got[1]).tobytes() == fac[1].tobytes()
+                and back == 0, f"sharded engine: after the delete the "
+                f"submit differs from the facade, {back} deleted ids back")
+        st = eng.stats()
+        rep["engine"] |= {"deleted_ids_back": back, "epoch": st["epoch"],
+                          "completed": st["completed"],
+                          "rounds_per_query": st["rounds_per_query"],
+                          "plan_cache": st["plan_cache"],
+                          "mesh": st["mesh"]}
+    finally:
+        eng.close()
+    del eng, six
+    torch.cuda.empty_cache()
+    rep["recover"] = sharded_recover(torch, api, isax, gen)
+    rep["launches"] = launches
+    rep["seconds"] = time.perf_counter() - t_phase
+    return rep, launches
+
+
+def sharded_recover(torch, api, isax, gen, n=1 << 22, nq=64):
+    """2^22 walks sharded over 2 slots of cuda:0, saved; the engine
+    recovers onto 1 slot with a future in flight: both answers exact."""
+    import shutil
+
+    from repro_torch.runtime import make_mesh
+    raw = walks(torch, gen, n, L)
+    pick = torch.randint(0, n, (nq,), generator=gen, device=DEV)
+    q = raw[pick] + 0.1 * torch.randn(nq, L, generator=gen, device=DEV)
+    ix = api.FreshIndex.build(raw, device=DEV)
+    del raw
+    ix.shard(make_mesh((2,), ("data",), [DEV + ":0"] * 2))
+    root = Path(__file__).resolve().parent / ".smoke_ckpt" / "sharded"
+    rep = {"series": n, "queries": nq, "slots_before": 2, "slots_after": 1}
+    try:
+        t0 = time.perf_counter()
+        ix.save(str(root))
+        rep["save_s"] = time.perf_counter() - t0
+        eng = ix.engine(max_batch=64, workers=1, linger_ms=1.0)
+        try:
+            qh = q.cpu().numpy()
+            fut = eng.submit(qh, k=TOPK)
+            rep["in_flight_at_recover"] = not fut.done()
+            t0 = time.perf_counter()
+            eng.recover(str(root), mesh=make_mesh((1,), ("data",),
+                                                  [DEV + ":0"]))
+            rep["recover_s"] = time.perf_counter() - t0
+            old = fut.result(timeout=300)
+            new = eng.submit(qh, k=TOPK).result(timeout=300)
+            st = eng.stats()
+            require(st["mesh"] == {"axes": {"data": 1}, "devices": 1}
+                    and st["recoveries"] == 1,
+                    f"sharded recover: mesh {st['mesh']}, recoveries "
+                    f"{st['recoveries']}")
+        finally:
+            eng.close()
+    finally:
+        shutil.rmtree(root.parent, ignore_errors=True)
+    idx = ix.index
+    rep["ties"] = {}
+    for what, (dg, ig) in (("in_flight", old), ("after", new)):
+        dg, ig = torch.as_tensor(dg, device=DEV), torch.as_tensor(
+            ig, device=DEV)
+        rep["ties"][what] = hold_answers(torch, isax, idx, q, dg, ig,
+                                         f"sharded recover {what}")
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--series", type=int, default=1 << 24)
@@ -2523,6 +2788,7 @@ def main() -> int:
     # and the per-leaf kernels' cases, and the serve phase
     leaf_gen = torch.Generator(device=DEV).manual_seed(args.seed + 3)
     serve_gen = torch.Generator(device=DEV).manual_seed(args.seed + 4)
+    shard_gen = torch.Generator(device=DEV).manual_seed(args.seed + 5)
     kmods = dict(ops.WRAPPERS)
     rows, launches = [], {}
     for name, check, args_ in (
@@ -2578,6 +2844,13 @@ def main() -> int:
                                queries, q, d, ids)
     emit(report)
     launches |= {k: v for k, v in more.items() if k not in launches}
+    torch.cuda.empty_cache()
+    report, more = sharded_path(torch, api, isax, kmods, index, queries, d,
+                                ids, shard_gen)
+    emit(report)
+    # refine_topk's launches in the table are this path's (the rounds
+    # phase's stand in its own line)
+    launches |= {"refine_topk": more["refine_topk"]}
     torch.cuda.empty_cache()
     report, more = serve_path(torch, isax, kmods, ref, index, queries, d,
                               ids, serve_gen)

@@ -31,10 +31,14 @@ lifecycle and checkpoints, on the card unless the caller asks for the CPU.
     with index.engine(EngineConfig(workers=2)) as eng:   # serving
         dist, ids = eng.submit(queries, k=10).result()
 
-The counterpart of `repro.api.FreshIndex` (its sharding is not ported
-yet).  Checkpoints use the layout and format
-("fresh-index-v1") of repro's, calibration and autotune tables included,
-so either package loads what the other saved.
+    from repro_torch.runtime import make_mesh
+    index.shard(make_mesh((4,), ("data",), ["cuda:0"] * 4))  # 4 slots
+                                   # of one card, leaves block-sharded
+    dist, ids = index.search(queries, k=10, sync_every=2)
+
+The counterpart of `repro.api.FreshIndex`.  Checkpoints use the layout
+and format ("fresh-index-v1") of repro's, calibration and autotune
+tables included, so either package loads what the other saved.
 """
 
 from __future__ import annotations
@@ -53,15 +57,17 @@ from repro_torch.core import isax
 from repro_torch.core.builder import IndexBuilder, merge_sorted_delta
 from repro_torch.core.index import STORAGE as _DTYPES
 from repro_torch.core.index import (FlatIndex, build_index, index_stats,
-                                    summarize_rows)
-from repro_torch.core.search import (batch_rounds, squeeze_k,
-                                     view_search_device)
+                                    pad_leaves, summarize_rows)
+from repro_torch.core.search import (batch_rounds, build_sharded_plan,
+                                     shard_index, sharded_view_search,
+                                     squeeze_k, view_search_device)
 from repro_torch.kernels.autotune import (AutotuneTable, TuneConfig,
                                           device_kind, resolve_knobs)
 from repro_torch.maintenance.tombstones import (core_dead_mask,
                                                 delta_alive_mask, mask_core)
 from repro_torch.quality.calibrate import CalibrationTable, index_fingerprint
 from repro_torch.quality.stop_rules import EXACT, StopRule
+from repro_torch.runtime.sharding import Mesh, Sharded, mesh_sig, place
 
 _BOUNDS = ("prefix", "symbox", "paabox")
 FORMAT = "fresh-index-v1"
@@ -174,6 +180,10 @@ class FreshIndex:
         self._autotune: Optional[AutotuneTable] = None
         self._fp = None                         # fingerprint cache ...
         self._fp_key = None                     # ... keyed (ver, pending)
+        self._mesh = None                       # the mesh when sharded ...
+        self._mesh_axis = "data"
+        self._shards = None                     # ... and its leaf blocks
+        self._sharded_fns: dict = {}            # resolved knobs -> plan
 
     # ------------------------------------------------------------------ #
     # construction
@@ -247,6 +257,18 @@ class FreshIndex:
         return self._idx.series.device
 
     @property
+    def mesh(self):
+        """The `runtime.sharding.Mesh` this index is sharded over; None
+        when unsharded."""
+        return self._mesh
+
+    @property
+    def mesh_axis(self) -> str:
+        """The mesh axis the leaves are block-sharded over ('data' by
+        default; meaningful only while `mesh` is not None)."""
+        return self._mesh_axis
+
+    @property
     def series_len(self) -> int:
         """Length L of every indexed series (and of valid queries)."""
         return self._idx.series.shape[1]
@@ -274,11 +296,11 @@ class FreshIndex:
         return len(self._ttl)
 
     def stats(self) -> dict:
-        """Host-side summary: leaf count and fill, pending rows,
-        tombstones, TTLs, aliases (the keys of repro's)."""
+        """Host-side summary: leaf count and fill, pending rows, sharded
+        or not, tombstones, TTLs, aliases (the keys of repro's)."""
         st = index_stats(self._idx)
         st["n_pending"] = self.n_pending
-        st["sharded"] = False
+        st["sharded"] = self._mesh is not None
         st["n_deleted"] = self.n_deleted
         st["n_ttl"] = self.n_ttl
         st["n_aliases"] = len(self._alias)
@@ -299,7 +321,8 @@ class FreshIndex:
                max_leaves: Optional[int] = None,
                round_leaves: Optional[int] = None,
                max_rounds: Optional[int] = None,
-               pq_budget: Optional[int] = None
+               pq_budget: Optional[int] = None,
+               sync_every: int = 1
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """k-NN of `queries`, an (L,) or (Q, L) float array or tensor.
 
@@ -328,7 +351,10 @@ class FreshIndex:
         pq_budget default from this index's IndexConfig, with UNSET
         config knobs resolved through a fresh autotune table when one is
         installed (see `search_knobs`); explicit values override per
-        call.
+        call.  On a sharded index `sync_every` is the number of rounds
+        between two publications of the global k-th bound (the
+        expeditive/standard cadence) and keys the per-mesh plan cache;
+        unsharded searches ignore it.
 
         Concurrency: a reader; serialize against writers.
         """
@@ -345,12 +371,20 @@ class FreshIndex:
                                       stop_eps=stop_eps,
                                       max_leaves=max_leaves)
         kn = self.search_knobs()
-        d, i, _ = self._plan(
-            q, k, max_rounds=max_rounds,
+        knobs = dict(
+            max_rounds=max_rounds,
             round_leaves=(round_leaves if round_leaves is not None
                           else kn.round_leaves),
             pq_budget=pq_budget if pq_budget is not None else kn.pq_budget,
             **rule.lower())
+        if self._mesh is not None:
+            _, delta, alive, id0 = self.search_view()
+            d, i, _ = sharded_view_search(
+                self.sharded_plan(k, sync_every=sync_every, **knobs),
+                self.shard_view(), None if delta is None
+                else self.delta_rows, alive, id0, q, znorm=self.config.znorm)
+        else:
+            d, i, _ = self._plan(q, k, **knobs)
         d, i = squeeze_k(d, i, k)
         return d, self._remap_ids(i)
 
@@ -358,12 +392,14 @@ class FreshIndex:
               pq_budget: Optional[int] = None,
               max_rounds: Optional[int] = None, stop_eps: float = 0.0,
               stop_leaves: Optional[int] = None):
-        """The plan `search` runs, with every knob resolved: (dist, ids,
-        rounds), (Q, k) internal ids before `_remap_ids`.
+        """The plan a local `search` runs, with every knob resolved:
+        (dist, ids, rounds), (Q, k) internal ids before `_remap_ids`.
         `view_search_device` over `search_view()`, a pending delta as its
         rows as compaction will store them (`delta_rows`); the serving
         engine's plans run the same function.  The calibrator and the
-        autotune sweep run this too, so they measure what search runs."""
+        autotune sweep run this too, so they measure what search runs; on
+        a sharded index they measure the local plan over the whole
+        index, as repro's do."""
         core, delta, alive, id0 = self.search_view()
         d, i, rounds = view_search_device(
             core, None if delta is None else self.delta_rows, alive, id0, q,
@@ -371,6 +407,27 @@ class FreshIndex:
             max_rounds=max_rounds, pq_budget=pq_budget, stop_eps=stop_eps,
             stop_leaves=stop_leaves)
         return d, i, batch_rounds(rounds)
+
+    def sharded_plan(self, k: int, *, round_leaves: int, sync_every: int,
+                     max_rounds: Optional[int] = None,
+                     pq_budget: Optional[int] = None, stop_eps: float = 0.0,
+                     stop_leaves: Optional[int] = None):
+        """The `core.search.ShardedPlan` a sharded search with these
+        resolved knobs runs, made once per (knobs, mesh placement): the
+        placement is part of the key (`mesh_sig`), so a plan is never
+        run on a mesh other than its own."""
+        key = (k, round_leaves, sync_every, max_rounds, pq_budget, stop_eps,
+               stop_leaves, self._mesh_axis, mesh_sig(self._mesh))
+        plan = self._sharded_fns.get(key)
+        if plan is None:
+            plan = build_sharded_plan(
+                self._mesh, axis=self._mesh_axis, k=k,
+                round_leaves=round_leaves, sync_every=sync_every,
+                max_rounds=max_rounds, znorm=self.config.znorm,
+                pq_budget=pq_budget, stop_eps=stop_eps,
+                stop_leaves=stop_leaves)
+            self._sharded_fns[key] = plan
+        return plan
 
     def resolve_stop_rule(self, mode: str, *, k: int,
                           recall_target: float = 0.95,
@@ -574,10 +631,24 @@ class FreshIndex:
                                          self._tombstones, self.device)
             else:
                 core, alive = self._idx, None
-            self._masked = (core, alive)
+            shards = self._shards
+            if shards is not None and core is not self._idx:
+                # the dead rows' sentinel norms, inside each shard
+                norms = place(core.sq_norms,
+                              Sharded(self._mesh, self._mesh_axis))
+                shards = tuple(sh._replace(sq_norms=n)
+                               for sh, n in zip(shards, norms))
+            self._masked = (core, alive, shards)
             self._masked_key = key
-        core, alive = self._masked
+        core, alive, _ = self._masked
         return core, self.delta_cat, alive, self._delta_id0
+
+    def shard_view(self):
+        """The masked core of `search_view()` as the mesh's leaf blocks
+        (`core.search.shard_index` of it): a tuple of FlatIndex, block s
+        on slot s, or None when the index is not sharded."""
+        self.search_view()
+        return self._masked[2]
 
     @property
     def delta_cat(self) -> Optional[torch.Tensor]:
@@ -615,6 +686,8 @@ class FreshIndex:
         futures, one captured CUDA graph per (bucket, k, knobs, epoch)
         on the card (steady state replays and never captures), and
         snapshot-consistent concurrent add / update / delete / compact.
+        A sharded index gets eager sharded plans, mesh-wide epochs and
+        `recover(checkpoint, mesh=...)`.
 
         Args:
             config: EngineConfig (None = defaults).
@@ -795,7 +868,13 @@ class FreshIndex:
         merged = merge_sorted_delta(self._idx, delta, self.config,
                                     drop_ids=drops or None,
                                     delta_id0=self._delta_id0)
-        return (merged, delta.shape[0], len(self._delta), drops)
+        shards = None
+        if self._mesh is not None:
+            # pad and cut the merged core HERE, in the heavy phase, so the
+            # commit stays a pointer swap under a serving lock
+            merged = pad_leaves(merged, self._mesh.shape[self._mesh_axis])
+            shards = shard_index(merged, self._mesh, self._mesh_axis)
+        return (merged, shards, delta.shape[0], len(self._delta), drops)
 
     def commit_compact(self, token) -> "FreshIndex":
         """Install a prepare_compact() token: the merged core, an empty
@@ -808,7 +887,7 @@ class FreshIndex:
         """
         if token is None:
             return self
-        merged, n_rows, n_batches, drops = token
+        merged, shards, n_rows, n_batches, drops = token
         if (len(self._delta) != n_batches
                 or sum(b.shape[0] for b in self._delta) != n_rows):
             raise RuntimeError(
@@ -819,13 +898,58 @@ class FreshIndex:
                 "tombstones changed between prepare_compact and "
                 "commit_compact; serialize writers around the "
                 "prepare/commit pair")
+        if (shards is None) != (self._mesh is None):
+            raise RuntimeError(
+                "the index was sharded or unsharded between "
+                "prepare_compact and commit_compact")
         self._idx = merged
+        self._shards = shards
         self._n_base = int(merged.valid.sum())
         self._delta = []
         self._delta_cat = self._delta_rows = None
         self._tombstones = set()
         self._first_tombstone_at = None
         self._delta_id0 = self._next_id
+        self._masked = None
+        self._masked_key = None
+        self._lifecycle_ver += 1
+        return self
+
+    # ------------------------------------------------------------------ #
+    # sharding
+    # ------------------------------------------------------------------ #
+    def shard(self, mesh, axis: str = "data") -> "FreshIndex":
+        """Block-shard the leaves (and their rows) over the `axis` axis of
+        `mesh` (a `runtime.sharding.Mesh`), padding to a whole number of
+        leaves per shard (`pad_leaves`), and route later search() calls
+        through the sharded expeditive/standard plan.  The index (and any
+        pending delta) moves to the axis' first slot; each shard is a
+        view of it where its slot is that device, a copy on its slot
+        otherwise.  Returns self.
+
+        Raises:
+            TypeError: `mesh` is not a Mesh.
+            ValueError: `axis` is not an axis of `mesh`.
+
+        Concurrency: a writer (replaces the placed arrays and drops the
+        plan cache); serialize like add/compact.  A serving engine
+        re-places through recover(), never this method directly.
+        """
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a runtime.sharding.Mesh, got "
+                            f"{type(mesh).__name__}")
+        home = mesh.axis_devices(axis)[0]
+        idx = pad_leaves(self._idx, mesh.shape[axis])
+        if idx.series.device != home:
+            idx = FlatIndex(*(t.to(home) for t in idx))
+            self._delta = [b.to(home) for b in self._delta]
+            self._delta_cat = self._delta_rows = None
+        self._idx = idx
+        self._shards = shard_index(idx, mesh, axis)
+        self._mesh = mesh
+        self._mesh_axis = axis
+        self._sharded_fns = {}
+        # the masked search view wraps the old placement
         self._masked = None
         self._masked_key = None
         self._lifecycle_ver += 1
@@ -839,7 +963,8 @@ class FreshIndex:
         lifecycle state (ids, tombstones, TTLs as remaining seconds,
         aliases) and the installed calibration and autotune tables into
         `directory` at `step`; returns the checkpoint path.  Restore with
-        load() or reload(), no rebuild."""
+        load() or reload(), no rebuild.  A sharded index saves its whole
+        (padded) arrays, so the checkpoint restores onto any mesh."""
         delta = (self.delta_cat if self._delta else
                  torch.zeros((0, self.series_len)))
         tree = {"index": self._idx._asdict(), "delta": delta}
@@ -868,7 +993,8 @@ class FreshIndex:
         """Restore a save()d index (this package's or repro's) from
         `directory` at `step` (None = latest) onto `device` (None means
         "cuda"): config, arrays, delta, lifecycle and the calibration and
-        autotune tables, no rebuild.
+        autotune tables, no rebuild.  The restored index is unsharded;
+        call shard(mesh) to place it.
 
         Raises:
             ValueError: not a FreshIndex checkpoint, or the manifest's
@@ -920,7 +1046,8 @@ class FreshIndex:
     def reload(self, directory: str, step: Optional[int] = None
                ) -> "FreshIndex":
         """Swap THIS object's state for a save()d checkpoint, in place, on
-        this index's device: exactly `FreshIndex.load(directory, step)`.
+        this index's device: exactly `FreshIndex.load(directory, step)`,
+        unsharded (a serving engine's recover() re-shards it).
 
         Raises:
             ValueError: not a FreshIndex checkpoint, or its IndexConfig

@@ -11,7 +11,9 @@ name replaces "/" by "__".  bfloat16 leaves are stored as their uint16
 bit patterns (numpy has no bfloat16) and the manifest records the
 logical dtype.  So either package loads what the other saved.
 Saves write a temporary directory and rename it into place: a crash
-mid-save never leaves a half-written step visible.  `CheckpointManager`
+mid-save never leaves a half-written step visible.  Arrays are stored
+whole, and `load_checkpoint(..., shardings=)` places each one whole on
+a device or cut over a mesh axis.  `CheckpointManager`
 writes steps in the background and keeps the newest few.
 """
 
@@ -27,6 +29,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.runtime.sharding import place
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
@@ -128,10 +132,19 @@ def load_arrays(directory: str, *, step: Optional[int] = None
 
 
 def load_checkpoint(directory: str, like_tree, *,
-                    step: Optional[int] = None):
+                    step: Optional[int] = None, shardings=None):
     """(tree, manifest): checkpoint `step` (None = the latest) restored
-    into the structure of `like_tree`, each leaf a CPU tensor."""
+    into the structure of `like_tree`, each leaf a CPU tensor, or placed
+    as `shardings` says: a tree of the same structure (leaves may be left
+    out) whose leaves are a device (the array whole on it) or a
+    `runtime.sharding.Sharded` (the array cut over a mesh axis: a tuple
+    of blocks, block s on slot s; `runtime.sharding.place`).  A
+    checkpoint holds whole arrays, so it restores onto any mesh: the
+    elastic re-mesh."""
     arrays, manifest = load_arrays(directory, step=step)
+    if shardings is not None:
+        for key, where in _flatten(shardings).items():
+            arrays[key] = place(arrays[key], where)
 
     def build(node, prefix: str):
         if isinstance(node, dict):

@@ -138,6 +138,36 @@ def build_index(raw: torch.Tensor, *, segments: int = isax.SEGMENTS,
                      leaf_valid=leaf_valid)
 
 
+def pad_leaves(idx: FlatIndex, multiple: int) -> FlatIndex:
+    """Append fully padded (invalid) leaves so n_leaves % multiple == 0.
+
+    Padded leaves carry empty regions at 1e30 (lower bound 1e30: never a
+    candidate), rows of zeros, PAA +inf, words 0, norms 1e30, perm -1 and
+    valid False, as `repro.core.index.pad_leaves` appends them, so search
+    results are unchanged; this lets any index shard over any number of
+    slots.  Returns idx itself when nothing is missing (no copy)."""
+    target = -(-idx.n_leaves // multiple) * multiple
+    extra = target - idx.n_leaves
+    if extra == 0:
+        return idx
+    rows = extra * idx.leaf_capacity
+    L, w = idx.series.shape[1], idx.paa.shape[1]
+
+    def cat(a, shape, value):
+        return torch.cat([a, a.new_full(shape, value)])
+
+    return FlatIndex(
+        series=cat(idx.series, (rows, L), 0),
+        paa=cat(idx.paa, (rows, w), float("inf")),
+        words=cat(idx.words, (rows, w), 0),
+        sq_norms=cat(idx.sq_norms, (rows,), 1e30),
+        perm=cat(idx.perm, (rows,), -1),
+        valid=cat(idx.valid, (rows,), False),
+        leaf_lo=cat(idx.leaf_lo, (extra, w), 1e30),
+        leaf_hi=cat(idx.leaf_hi, (extra, w), 1e30),
+        leaf_valid=cat(idx.leaf_valid, (extra,), False))
+
+
 def index_stats(idx: FlatIndex) -> dict:
     """Host-side summary: series, leaves, capacity and leaf fill."""
     fill = idx.valid.reshape(idx.n_leaves, -1).sum(dim=1)

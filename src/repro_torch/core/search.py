@@ -1,5 +1,5 @@
-"""k-NN search over the flat index, local (one device) path: exact, or
-approximate under the quality stop rules.
+"""k-NN search over the flat index, local (one device) and sharded:
+exact, or approximate under the quality stop rules.
 
 The counterpart of `repro.core.search`'s local plan:
 
@@ -22,6 +22,12 @@ The counterpart of `repro.core.search`'s local plan:
 A pending delta (rows added since the last compaction) is scanned exactly
 and merged in (`merge_delta_topk`, `snapshot_search_impl`).
 
+The sharded plan (`shard_index`, `build_sharded_plan` -> `ShardedPlan`,
+`sharded_view_search`) is repro's expeditive/standard search over leaf
+blocks on the slots of a mesh: one lower-bound launch and queue a shard,
+then rounds of one `refine_topk` launch a shard against local buffers,
+with the global k-th bound published every `sync_every` rounds.
+
 Each `*_impl` plan has a `*_device` twin that leaves every query's round
 count on the device as a (Q,) tensor: nothing of it reads the device
 from the host, so a CUDA graph can hold the whole plan (the serving
@@ -35,6 +41,7 @@ torch's reductions on the card pick their order from the shape.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -42,7 +49,9 @@ import torch
 from repro_torch.kernels.isax_summarize import summarize_rows
 from repro_torch.kernels.lb_distance import lb_distance
 from repro_torch.kernels.ref import BIG
+from repro_torch.kernels.refine import refine_topk
 from repro_torch.kernels.refine_search import refine_search
+from repro_torch.runtime.sharding import Mesh, Sharded, place
 
 from . import isax
 from .index import FlatIndex
@@ -421,3 +430,284 @@ def search_bruteforce(raw: torch.Tensor, queries: torch.Tensor, *,
     otherwise."""
     d, i = _bruteforce_topk(raw, queries, k=k, znorm=znorm, alive=alive)
     return squeeze_k(d, i, k)
+
+
+# ===========================================================================
+# Sharded search: leaves block-sharded over one mesh axis.
+# ===========================================================================
+def shard_index(idx: FlatIndex, mesh: Mesh, axis: str = "data"
+                ) -> Tuple[FlatIndex, ...]:
+    """The index cut into `mesh.shape[axis]` contiguous leaf blocks, block
+    s (its leaves and their rows) on slot s of `axis`.  Where a slot's
+    device is the index's own, every array of its block is a view of the
+    index's, not a copy.  Raises ValueError unless the leaves divide
+    evenly (`index.pad_leaves` first)."""
+    D = mesh.shape[axis]
+    if idx.n_leaves % D:
+        raise ValueError(f"{idx.n_leaves} leaves do not divide into {D} "
+                         f"shards; pad_leaves(idx, {D}) first")
+    where = Sharded(mesh, axis)
+    blocks = {f: place(getattr(idx, f), where) for f in FlatIndex._fields}
+    return tuple(FlatIndex(**{f: blocks[f][s] for f in FlatIndex._fields})
+                 for s in range(D))
+
+
+def _resolve_knob(value, config, name: str, fallback):
+    """Explicit argument, else the index config's field when set, else
+    `fallback`."""
+    if value is not None:
+        return value
+    if config is not None and getattr(config, name, None) is not None:
+        return getattr(config, name)
+    return fallback
+
+
+# the rounds a sharded search launches between two reads of its loop
+# condition: 4, doubling to 64
+_FIRST_CHUNK, _MOST_CHUNK = 4, 64
+
+
+class ShardedPlan:
+    """The sharded search plan of one (mesh, axis, k, knobs):
+    `plan(shards, queries)` -> (dist (Q, k), ids (Q, k), rounds), no
+    squeeze; the counterpart of the function repro's
+    `build_sharded_plan` returns.  `shards` is `shard_index`'s tuple.
+
+    Each shard, on its slot's device: its own lower bounds (one
+    `lb_distance` launch) and queue (`_pq_order`, capped by its own leaf
+    count), then rounds against a LOCAL top-k buffer (expeditive mode),
+    each one `refine_topk` launch; every `sync_every` rounds the global
+    k-th bound, the min over shards of their k-th best, is published to
+    every shard (standard mode).  A (query, shard) is live while its
+    next lower bound lies below min(published, local k-th), scaled by
+    float32(1/(1+eps)^2) under an eps stop rule; the loop runs while any
+    is live and the cursor is below cap * K.  Then each shard re-ranks
+    its winners in direct form (the sums through `_row_sq`), and the
+    D * k entries, shard-major, are sorted ascending by a stable sort,
+    which orders ties as `lax.top_k` of the gathered buffers does.
+    `rounds` counts the loop's iterations, as repro's collective
+    while_loop does.
+
+    The condition is monotone: the bound only falls, a queue's lower
+    bounds only rise and the cursor only grows, so once no (query,
+    shard) is live every later round prunes every slot, leaves every
+    buffer as it was, and keeps every pair dead.  So the plan launches
+    rounds in chunks (4, doubling to 64), counts the live rounds on the
+    device, and reads the condition and the count once a chunk: the
+    bits and the count are those of a read every round.  It never
+    launches a round at or past cap * K.  `rounds` (as counted),
+    `rounds_launched` and `host_reads` sum what its calls did.
+
+    Queries are prepared once (`prepare_rows`), on their own device,
+    and copied to every slot; the answer comes back to that device.
+    Slots on one device are worked as one group: one bound, one mask
+    and one liveness test a round for all of them."""
+
+    def __init__(self, mesh: Mesh, *, axis: str, k: int, round_leaves: int,
+                 sync_every: int, max_rounds: Optional[int], znorm: bool,
+                 pq_budget: Optional[int], stop_eps: float,
+                 stop_leaves: Optional[int]):
+        if sync_every < 1:
+            raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+        self.mesh, self.axis = mesh, axis
+        self.k, self.K, self.sync_every = k, round_leaves, sync_every
+        self.max_rounds, self.znorm = max_rounds, znorm
+        self.stop_eps = stop_eps
+        self.inv_eps, self.leaf_budget = _stop_knobs(stop_eps, stop_leaves,
+                                                     pq_budget)
+        self.rounds = self.rounds_launched = self.host_reads = 0
+        # the counters: engine workers share a plan
+        self._lock = threading.Lock()
+
+    def __call__(self, shards, queries: torch.Tensor):
+        q, q_paa, q_sq = prepare_rows(queries, self.znorm,
+                                      shards[0].paa.shape[1])
+        return self.rows(shards, q, q_paa, q_sq)
+
+    def rows(self, shards, q: torch.Tensor, q_paa: torch.Tensor,
+             q_sq: torch.Tensor):
+        """The plan on queries `prepare_rows` already made."""
+        D = self.mesh.shape[self.axis]
+        if len(shards) != D:
+            raise ValueError(f"{len(shards)} shards for a mesh axis of {D}")
+        home, (Q, L) = q.device, q.shape
+        k, K = self.k, self.K
+        nl = shards[0].n_leaves
+        cap = _rounds_cap(nl, K, self.max_rounds, self.leaf_budget) \
+            if nl else 0
+        if Q == 0 or cap == 0:
+            return (torch.full((Q, k), BIG ** 0.5, device=home),
+                    torch.full((Q, k), -1, dtype=torch.int32, device=home),
+                    0)
+        M = shards[0].leaf_capacity
+        groups = self._groups(shards, q, q_paa, q_sq, cap)
+        bd, be = [None] * D, [None] * D            # shard s's buffer
+        for g in groups:
+            for s in g["members"]:
+                bd[s] = torch.full((Q, k), BIG, device=g["dev"])
+                be[s] = torch.zeros((Q, k), dtype=torch.int32,
+                                    device=g["dev"])
+        pb = torch.full((Q,), BIG, device=home)
+        n_live = torch.zeros((), dtype=torch.int32, device=home)
+        chunk = _FIRST_CHUNK
+        read_at, r, launched, reads = chunk, 0, 0, 0
+        count = None
+        while r < cap:
+            alive, live = self._alive(groups, bd, pb, r)
+            if r == read_at:
+                # one read a chunk: the count so far, and whether round r
+                # is live (once it is not, no later round is)
+                count, go = torch.stack([n_live, live.int()]).tolist()
+                reads += 1
+                if not go:
+                    break
+                chunk = min(2 * chunk, _MOST_CHUNK)
+                read_at = r + chunk
+            n_live += live
+            for g, a in zip(groups, alive):
+                for j, s in enumerate(g["members"]):
+                    bd[s], be[s] = refine_topk(
+                        g["q"], g["q_sq"], shards[s].series,
+                        shards[s].sq_norms, g["order"][j, r], a[j], bd[s],
+                        be[s], leaf_capacity=M, k=k)
+            launched += 1
+            if r % self.sync_every == self.sync_every - 1:
+                kth = torch.stack([b[:, -1].to(home) for b in bd])
+                pb = torch.minimum(pb, kth.amin(0))
+            r += 1
+        else:
+            count = int(n_live)
+            reads += 1
+        with self._lock:
+            self.rounds += count
+            self.rounds_launched += launched
+            self.host_reads += reads
+
+        # each shard re-ranks its winners in direct form, one fixed order
+        # a row; then the shard-major union, stable-sorted
+        all_d, all_i = [], []
+        for g in groups:
+            for s in g["members"]:
+                found = bd[s] < BIG
+                e = be[s].long()
+                d_exact = _row_sq(g["q"][:, None, :]
+                                  - shards[s].series[e].float())
+                all_d.append(torch.where(found, d_exact, bd[s]).to(home))
+                all_i.append(torch.where(found, shards[s].perm[e],
+                                         torch.full_like(be[s], -1)
+                                         ).to(home))
+        slot = [s for g in groups for s in g["members"]]
+        all_d = torch.cat([all_d[slot.index(s)] for s in range(D)], dim=1)
+        all_i = torch.cat([all_i[slot.index(s)] for s in range(D)], dim=1)
+        d, pos = torch.sort(all_d, dim=1, stable=True)
+        return d[:, :k].sqrt(), torch.gather(all_i, 1, pos[:, :k]), count
+
+    @staticmethod
+    def _group_key(slot: int, shard: FlatIndex):
+        """The shards worked as one group share this key: their device."""
+        return shard.series.device
+
+    def _groups(self, shards, q, q_paa, q_sq, cap: int) -> list:
+        """The shards grouped by device, in slot order: each group's
+        queries, their norms, and its members' queues stacked as (G, cap,
+        Q, K), so round r's slots of member j are one contiguous block."""
+        by_key: dict = {}
+        for s, sh in enumerate(shards):
+            by_key.setdefault(self._group_key(s, sh), []).append(s)
+        Q, L = q.shape
+        groups = []
+        for members in by_key.values():
+            dev = shards[members[0]].series.device
+            qd, pd, sqd = (t.to(dev) for t in (q, q_paa, q_sq))
+            order, slb = [], []
+            for s in members:
+                lb = lb_distance(pd.contiguous(), shards[s].leaf_lo,
+                                 shards[s].leaf_hi, series_len=L)
+                o, b = _pq_order(lb, self.K, cap, self.leaf_budget)
+                del lb
+                order.append(o.view(Q, cap, self.K).transpose(0, 1))
+                slb.append(b.view(Q, cap, self.K).transpose(0, 1))
+            groups.append({
+                "dev": dev, "members": members, "q": qd, "q_sq": sqd,
+                "order": torch.stack(order), "slb": torch.stack(slb),
+                "scale": (torch.tensor(self.inv_eps, dtype=torch.float32,
+                                       device=dev)
+                          if self.stop_eps else None)})
+        return groups
+
+    def _alive(self, groups, bd, pb, r: int):
+        """Round r's (G, Q, K) prune masks, one a group, and whether any
+        (query, shard) is live, a bool on the queries' device."""
+        masks, lives = [], []
+        for g in groups:
+            kth = torch.stack([bd[s][:, -1] for s in g["members"]])
+            bound = torch.minimum(pb.to(g["dev"]), kth)
+            if g["scale"] is not None:
+                bound = bound * g["scale"]
+            a = g["slb"][:, r] < bound[..., None]
+            masks.append(a)
+            lives.append(a.any().to(pb.device))
+        live = lives[0] if len(lives) == 1 else torch.stack(lives).any()
+        return masks, live
+
+
+def build_sharded_plan(mesh: Mesh, *, axis: str = "data", k: int = 1,
+                       round_leaves: Optional[int] = None,
+                       sync_every: int = 1,
+                       max_rounds: Optional[int] = None, znorm: bool = True,
+                       pq_budget: Optional[int] = None,
+                       stop_eps: float = 0.0,
+                       stop_leaves: Optional[int] = None,
+                       tune=None, config=None) -> ShardedPlan:
+    """The sharded search plan (see `ShardedPlan`): `(shards, queries) ->
+    (dist, ids, rounds)`, (Q, k) outputs, no squeeze.
+
+    round_leaves / pq_budget resolve from `config` (an IndexConfig) when
+    unset, then from `tune` (a fresh autotune TuneConfig), then from the
+    defaults 8 / uncapped, as repro's do.  `stop_eps` / `stop_leaves` are
+    the quality stop rules, applied in the loop condition and the prune
+    as in the local plan; `stop_leaves` caps the leaves visited PER
+    SHARD, so a mesh of D shards visits at most D * stop_leaves.  The
+    serving engine runs the very same object the facade runs."""
+    t = tune
+    K = _resolve_knob(round_leaves, config, "round_leaves",
+                      t.round_leaves if t else 8)
+    pq_budget = _resolve_knob(pq_budget, config, "pq_budget",
+                              t.pq_budget if t else None)
+    return ShardedPlan(mesh, axis=axis, k=k, round_leaves=K,
+                       sync_every=sync_every, max_rounds=max_rounds,
+                       znorm=znorm, pq_budget=pq_budget, stop_eps=stop_eps,
+                       stop_leaves=stop_leaves)
+
+
+def build_sharded_search(mesh: Mesh, **kwargs):
+    """`build_sharded_plan` with the k == 1 squeeze: a function
+    `(shards, queries) -> (dist, ids)`, (Q,) for k == 1, (Q, k)
+    ascending otherwise."""
+    plan = build_sharded_plan(mesh, **kwargs)
+
+    def sharded_search(shards, queries):
+        d, i, _ = plan(shards, queries)
+        return squeeze_k(d, i, plan.k)
+
+    return sharded_search
+
+
+def sharded_view_search(plan: ShardedPlan, shards,
+                        delta_rows: Optional[torch.Tensor],
+                        delta_alive: Optional[torch.Tensor], n_base: int,
+                        queries: torch.Tensor, *, znorm: bool):
+    """The plan the sharded `FreshIndex.search` runs over one search view
+    (the tombstone-masked shards, the delta rows as compaction will store
+    them or None, their alive mask, the delta's id offset): (dist, ids,
+    rounds), (Q, k) internal ids.  The queries are summarized once; the
+    sharded plan and the delta scan take them as they are, as
+    `view_search_device` does for a local index.  The serving engine's
+    sharded plans run exactly this."""
+    q, q_paa, q_sq = prepare_rows(queries, znorm, shards[0].paa.shape[1])
+    d, i, rounds = plan.rows(shards, q, q_paa, q_sq)
+    if delta_rows is None:
+        return d, i, rounds
+    md, mi = merge_delta_topk(delta_rows, q, d, i, delta_alive, k=plan.k,
+                              n_base=n_base, znorm=False)
+    return md, mi, rounds

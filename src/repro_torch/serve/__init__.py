@@ -1,5 +1,5 @@
 """Serving layer of the port: micro-batching, captured search plans,
-snapshot-consistent concurrent writes, for a local (one-device) index.
+snapshot-consistent concurrent writes, for a local or a sharded index.
 
     from repro_torch.api import FreshIndex
     from repro_torch.serve import EngineConfig
@@ -15,9 +15,11 @@ snapshot-consistent concurrent writes, for a local (one-device) index.
 
 Module map: `engine` (QueryEngine/futures/epoch snapshots), `batcher`
 (shape-bucketed padding), `plan_cache` (one captured CUDA graph per
-(bucket, k, knobs, epoch)), `result_cache` (epoch-keyed LRU over
-delivered rows).  The compute itself is `repro_torch.core.search.
-view_search_device`, the function `FreshIndex.search` runs.
+(bucket, k, knobs, epoch); for a sharded index a `ShardedCompiledPlan`,
+run eagerly), `result_cache` (epoch-keyed LRU over delivered rows).  The
+compute itself is `repro_torch.core.search.view_search_device` (for a
+sharded index `sharded_view_search`), the function `FreshIndex.search`
+runs.
 
 Overload behavior is opt-in and typed: `EngineConfig.max_pending`
 bounds admission (AdmissionError, batch priority shed first),
@@ -27,15 +29,17 @@ completable.  Lifecycle writes (`delete`, `update`, `add(ttl_s=...)`)
 publish epochs like adds, and `EngineConfig.maintenance` schedules TTL
 sweeps, compactions and checkpoints as journal-registered work.
 `EngineConfig.latency_tiers` maps a priority class to "exact" or a
-calibrated recall target.  The counterpart of `repro.serve`, less its
-sharded plans.
+calibrated recall target.  A sharded index (`index.shard(mesh)`) gets
+mesh-wide epochs and `recover(checkpoint, mesh=...)`.  The counterpart
+of `repro.serve`.
 """
 
 from .batcher import (Batch, MicroBatcher, Pending, bucket_for,
                       earliest_deadline, shape_buckets)
 from .engine import (AdmissionError, DeadlineExceeded, EngineConfig,
                      QueryEngine, ResultTimeout, SearchFuture, Snapshot)
-from .plan_cache import CompiledPlan, Knobs, PlanCache, plan_key
+from .plan_cache import (CompiledPlan, Knobs, PlanCache,
+                         ShardedCompiledPlan, plan_key)
 from .result_cache import ResultCache, query_fingerprint
 
 __all__ = [
@@ -43,6 +47,7 @@ __all__ = [
     "earliest_deadline", "shape_buckets",
     "AdmissionError", "DeadlineExceeded", "EngineConfig", "QueryEngine",
     "ResultTimeout", "SearchFuture", "Snapshot",
-    "CompiledPlan", "Knobs", "PlanCache", "plan_key",
+    "CompiledPlan", "Knobs", "PlanCache", "ShardedCompiledPlan",
+    "plan_key",
     "ResultCache", "query_fingerprint",
 ]

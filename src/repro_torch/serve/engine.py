@@ -4,7 +4,7 @@
     fut = engine.submit(q, k=10)          # single query or small batch
     dist, ids = fut.result()              # shaped like FreshIndex.search
 
-The port's counterpart of `repro.serve.engine`, for a local (one-device)
+The port's counterpart of `repro.serve.engine`, for a local or a sharded
 index.  The paper's whole point is an index that keeps answering
 queries while writers make progress; Jiffy (arXiv:2102.01044) shows the
 API shape — batch updates plus snapshot reads that never block each
@@ -28,10 +28,13 @@ other.  This module is that shape for the index on the card:
   execution is safe; futures fill idempotently).  This is the paper's
   expeditive/standard helping transplanted to the serving plane.
 * stats() exposes queue depth, p50/p99 latency, rounds-per-query, epoch
-  lag, plan-cache hit rates and padding overhead.
-
-Sharded serving (repro's mesh snapshots, sharded plans, `recover(mesh=)`
-and the effect of `sync_every`) is not ported yet.
+  lag, plan-cache hit rates, padding overhead and the mesh.
+* a SHARDED index (`index.shard(mesh)`) serves too: its snapshots are
+  mesh-wide (the masked shards, one per slot, and the delta rows), its
+  plans are `ShardedCompiledPlan`s (the facade's sharded search, run
+  eagerly, `sync_every` from EngineConfig), compaction re-pads and
+  re-shards, and `recover(checkpoint, mesh=...)` restores the arrays and
+  re-shards them over the surviving devices.
 
 Threading: `workers=0` (default) is synchronous — batches dispatch on
 flush() or inside result(); `workers=N` starts N daemon threads that
@@ -55,6 +58,8 @@ from repro_torch.analysis.hooks import observe, sync_point
 from repro_torch.core.refresh import WorkerCrash
 from repro_torch.maintenance import MaintenancePolicy, MaintenanceState
 from repro_torch.runtime import WorkJournal
+from repro_torch.runtime.elastic import plan_serving_mesh
+from repro_torch.runtime.sharding import Mesh, mesh_sig
 
 from .batcher import (Batch, MicroBatcher, Pending, earliest_deadline,
                       shape_buckets)
@@ -136,9 +141,9 @@ class EngineConfig:
                     never wedged — exactly like a dispatched batch.
                     None = no background maintenance (explicit
                     delete()/expire_ttl()/compact() still work)
-    sync_every      SHARDED serving only (not ported yet): refinement
-                    rounds between the all-reduce-min that publishes the
-                    global k-th bound; local plans ignore it
+    sync_every      SHARDED serving only: refinement rounds between two
+                    publications of the global k-th bound (the min over
+                    shards); local plans ignore it
     max_pending     admission budget: total queued query ROWS (across
                     both priority classes) a submit may not push past.
                     Over budget, batch-priority pendings are evicted
@@ -280,6 +285,21 @@ class Snapshot:
     # capture: a batch answering on this snapshot remaps with the alias
     # view its submit epoch saw, never a later writer's
     id_alias: tuple = ()
+    # a sharded index: the mesh, its axis, and the masked core's leaf
+    # blocks (FreshIndex.shard_view), one per slot: the epoch is
+    # MESH-WIDE, one pointer swap publishes every shard's view at once
+    mesh: object = None
+    mesh_axis: str = "data"
+    shards: Optional[tuple] = None
+
+    @property
+    def placement(self) -> Optional[tuple]:
+        """None for a local snapshot, else (axis,) + `mesh_sig(mesh)`:
+        part of every plan key, so a plan made for one placement never
+        serves another (an elastic re-mesh makes fresh plans)."""
+        if self.mesh is None:
+            return None
+        return (self.mesh_axis,) + mesh_sig(self.mesh)
 
 
 class SearchFuture:
@@ -506,7 +526,9 @@ class QueryEngine:
                         n_base=id0, n_total=ix.n_series,
                         series_len=ix.series_len,
                         delta_alive=alive,
-                        id_alias=tuple(sorted(ix._alias.items())))
+                        id_alias=tuple(sorted(ix._alias.items())),
+                        mesh=ix.mesh, mesh_axis=ix.mesh_axis,
+                        shards=ix.shard_view())
 
     def _publish(self) -> None:
         """Capture OUTSIDE _cv (capturing concatenates and summarizes
@@ -696,42 +718,59 @@ class QueryEngine:
         return self
 
     def recover(self, checkpoint: Optional[str] = None, *,
-                step: Optional[int] = None, mesh=None) -> "QueryEngine":
-        """Restore the serving state and publish: with `checkpoint`, the
-        durable arrays of an `index.save()` directory replace the
-        index's in place (`FreshIndex.reload`), then a new epoch is
-        published.  A worker that dies mid-batch needs no recover(): its
-        orphaned batch is a WorkJournal part that any survivor
-        re-executes.
+                step: Optional[int] = None, mesh=None,
+                axis: Optional[str] = None) -> "QueryEngine":
+        """Elastic shard recovery: re-place the index and publish.
+
+        * TRANSIENT loss: a dispatch worker dies mid-batch.  Nothing to
+          call: the orphaned batch is a WorkJournal part and any survivor
+          (another worker, flush(), a blocked result() caller)
+          re-executes it.
+        * PERMANENT loss: a shard's device is gone.  With `checkpoint`
+          the durable arrays of an `index.save()` directory replace the
+          index's in place (`FreshIndex.reload`, unsharded), then the
+          index is re-sharded over `mesh`; for an index that was
+          sharded, `mesh` None means one row over every card still
+          visible (`runtime.elastic.plan_serving_mesh`).  An index that
+          was local stays local unless a mesh is passed.  Then a new
+          epoch is published.
 
         In-flight futures are never dropped: batches formed before the
-        recovery keep their submit-time Snapshot and complete on it; only
-        post-recovery submits bind to the recovered epoch (fresh plans:
-        the epoch keys them).
+        recovery keep their submit-time Snapshot (the old placement) and
+        complete on it; only post-recovery submits bind to the recovered
+        epoch (fresh plans: the epoch and the placement key them).
 
         Args:
             checkpoint: `index.save()` directory to restore arrays from
                 (None = keep the current in-memory arrays).
             step: checkpoint step (None = latest).
-            mesh: re-sharding over a mesh — not ported (ROADMAP queue 1,
-                item 3); must be None.
+            mesh: target `runtime.sharding.Mesh` (None: see above).
+            axis: mesh axis name (None = the index's current axis).
         Returns:
             self.
         Raises:
-            NotImplementedError: a mesh was given.
+            TypeError: `mesh` is neither None nor a Mesh (before anything
+                changes).
             ValueError: checkpoint config mismatch (FreshIndex.reload).
+            RuntimeError: a sharded index, no mesh given, and no card
+                left to build one from.
 
         Concurrency: a writer — serializes on the engine writer lock with
         add/compact/refresh; readers keep draining old epochs throughout.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "recover(mesh=...) re-shards the index over a mesh: "
-                "sharded serving is not ported yet (ROADMAP queue 1, "
-                "item 3)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a runtime.sharding.Mesh, got "
+                            f"{type(mesh).__name__}")
         with self._wlock:
+            ix = self._index
+            axis = axis if axis is not None else ix.mesh_axis
+            was_sharded = ix.mesh is not None
             if checkpoint is not None:
-                self._index.reload(checkpoint, step=step)
+                ix.reload(checkpoint, step=step)
+            if mesh is None and was_sharded:
+                mesh = plan_serving_mesh(axis=axis).make()
+            if mesh is not None:
+                ix.shard(mesh, axis=axis)
             with self._cv:
                 self._recoveries += 1
             self._publish()
@@ -1224,14 +1263,17 @@ class QueryEngine:
                 i[i == internal] = stable
         # visited-leaf accounting for the quality tier counters: the
         # round loop refines round_leaves per round, capped by the PQ
-        # budget and the tier's stop_leaves
-        budget = exact_budget = int(snap.core.n_leaves)
+        # budget and the tier's stop_leaves (each shard's own, on a
+        # sharded snapshot)
+        n_shards = 1 if snap.shards is None else len(snap.shards)
+        budget = exact_budget = int(snap.core.n_leaves) // n_shards
         if knobs.pq_budget is not None:
             budget = exact_budget = min(budget, knobs.pq_budget)
         if knobs.stop_leaves is not None:
             budget = min(budget, knobs.stop_leaves)
-        visited = min(rounds * knobs.round_leaves, budget)
-        early_stop = batch.tier != "exact" and visited < exact_budget
+        visited = n_shards * min(rounds * knobs.round_leaves, budget)
+        early_stop = (batch.tier != "exact"
+                      and visited < n_shards * exact_budget)
         # fingerprint the real query rows OUTSIDE the locks — hashing is
         # the only non-O(1) part of the cache fill below
         fps = None
@@ -1388,8 +1430,9 @@ class QueryEngine:
         """Serving telemetry: queue depth, latency percentiles (ms),
         rounds-per-query, epoch lag, recoveries, plan-cache and batching
         counters, plus the overload counters (shed / evicted_batch /
-        overflow_queued / deadline_expired) and the result_cache
-        hit/miss/fill/eviction rates: repro's keys, less the mesh's.
+        overflow_queued / deadline_expired), the result_cache
+        hit/miss/fill/eviction rates and the mesh (None when local, else
+        its axes and its slot count): repro's keys.
 
         Concurrency: takes the condition variable briefly for one
         consistent cut; safe from any thread at any rate.
@@ -1409,6 +1452,7 @@ class QueryEngine:
             elapsed = (time.monotonic() - self._first_submit
                        if self._first_submit is not None else 0.0)
             js = self._journal.stats()
+            mesh = self._snapshots[self._epoch].mesh
             return {
                 "epoch": self._epoch,
                 "epoch_lag": self._epoch - oldest,
@@ -1428,6 +1472,8 @@ class QueryEngine:
                 },
                 "rounds_per_query": (self._rounds_sum / self._rounds_n
                                      if self._rounds_n else 0.0),
+                "mesh": (None if mesh is None else
+                         {"axes": dict(mesh.shape), "devices": mesh.size}),
                 "maintenance": {
                     "policy": (None if self._policy is None
                                else self._policy.freshness.name),

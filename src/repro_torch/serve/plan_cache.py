@@ -39,6 +39,14 @@ the same function eagerly (on the card, the same kernels launch by
 launch), which is what a CPU index always does: there a plan calls
 exactly what `FreshIndex.search` calls, so engine rows are bit-identical
 to the facade by construction.  `donate=True` on a CPU index raises.
+
+A sharded snapshot gets a `ShardedCompiledPlan`: the sharded search
+reads its loop condition on the host between chunks of rounds, which a
+graph cannot hold, so it runs eagerly under the plan's lock and never
+donates (as repro's sharded plans never do).  Its `core.search.
+ShardedPlan` is made once per (mesh placement, axis, k, knobs) and
+shared by every bucket and epoch (`stats()["sharded_traces"]` counts
+them, repro's count of sharded tracings).
 """
 
 from __future__ import annotations
@@ -51,7 +59,8 @@ from typing import Dict, Hashable, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.search import view_search_device
+from repro_torch.core.search import (ShardedPlan, build_sharded_plan,
+                                     sharded_view_search, view_search_device)
 
 # one capture at a time in the process: a capture synchronizes the
 # device and empties the allocator's cache first, which must not run
@@ -65,8 +74,9 @@ class Knobs:
     tier's Knobs are resolved once at engine construction from
     EngineConfig -> IndexConfig -> the index's autotune table; approx
     tiers get a twin with the stop-rule fields filled in from the
-    calibration table).  `sync_every` only affects sharded plans, which
-    the port does not have yet; local plans ignore it.  `stop_eps` /
+    calibration table).  `sync_every` is the sharded plans' rounds
+    between two publications of the global k-th bound; local plans
+    ignore it.  `stop_eps` /
     `stop_leaves` are the approximate-search early-termination knobs
     (`quality.StopRule.lower()`); their defaults are the exact plan.
     repro's `backend`, `dma_depth` and `block_q` are Pallas structure
@@ -175,15 +185,37 @@ class CompiledPlan:
                     self._q.copy_(torch.from_numpy(queries))
                     self.graph.replay()
                 d, i, rounds = self._out
-            rounds = rounds.cpu().numpy()
-            out = (d.cpu().numpy(), i.cpu().numpy(),
-                   int(rounds.max()) if rounds.size else 0)
+            if isinstance(rounds, torch.Tensor):    # each query's count
+                rounds = rounds.cpu().numpy()
+                rounds = int(rounds.max()) if rounds.size else 0
+            out = (d.cpu().numpy(), i.cpu().numpy(), rounds)
             self._last = (token, out)
         return out
 
 
+class ShardedCompiledPlan(CompiledPlan):
+    """The plan of one (bucket_q, k, knobs, sharded snapshot), `run` as
+    `CompiledPlan.run`: `core.search.sharded_view_search` (the sharded
+    plan `plan` over the snapshot's masked shards, then the exact scan of
+    its delta rows), the function the sharded `FreshIndex.search` runs,
+    so the rows are the facade's.  It runs eagerly under the plan's
+    lock: not captured as a CUDA graph (its loop reads the device
+    between chunks of rounds), and it never donates."""
+
+    __slots__ = ("plan",)
+
+    def __init__(self, snapshot, bucket_q: int, k: int, knobs: Knobs,
+                 plan: ShardedPlan):
+        super().__init__(snapshot, bucket_q, k, knobs, capture=False)
+        self.plan = plan
+        self._fn = functools.partial(
+            sharded_view_search, plan, snapshot.shards, snapshot.delta_rows,
+            snapshot.delta_alive, snapshot.n_base, znorm=knobs.znorm)
+
+
 class PlanCache:
-    """(bucket_q, epoch, k, knobs) -> CompiledPlan, with counters."""
+    """(bucket_q, epoch, k, knobs, placement) -> CompiledPlan (or
+    ShardedCompiledPlan), with counters."""
 
     def __init__(self, device: torch.device, donate: Optional[bool] = None):
         if donate is None:
@@ -197,30 +229,68 @@ class PlanCache:
         self.misses = 0
         self._plans: Dict[Tuple, CompiledPlan] = {}
         self._dropped: set = set()     # epochs whose plans were dropped
+        self._sharded: Dict[Tuple, ShardedPlan] = {}
+        self._making: Dict[Tuple, threading.Lock] = {}   # key -> capture
         self._lock = threading.Lock()
 
     def get(self, snapshot, bucket_q: int, k: int,
             knobs: Knobs) -> CompiledPlan:
         """The plan for this bucket of this snapshot, captured on miss
         (outside the cache lock: a capture takes milliseconds to
-        seconds)."""
-        key = (bucket_q, snapshot.epoch) + plan_key(k, knobs)
+        seconds).  One capture a key: threads that miss the same key
+        together wait on its capture lock, and the first captures while
+        the rest take its plan as a hit, so a publish captures at most
+        once per (bucket, k, knobs) as repro compiles at most once."""
+        key = ((bucket_q, snapshot.epoch) + plan_key(k, knobs)
+               + (snapshot.placement,))
         with self._lock:
             plan = self._plans.get(key)
             if plan is not None:
                 self.hits += 1
                 return plan
-        plan = CompiledPlan(snapshot, bucket_q, k, knobs, self.donate)
+            making = self._making.setdefault(key, threading.Lock())
+        with making:
+            with self._lock:
+                plan = self._plans.get(key)
+                if plan is not None:         # the racer that went first
+                    self.hits += 1
+                    return plan
+            try:
+                if snapshot.mesh is not None:
+                    plan = ShardedCompiledPlan(
+                        snapshot, bucket_q, k, knobs,
+                        self._sharded_plan(snapshot, k, knobs))
+                else:
+                    plan = CompiledPlan(snapshot, bucket_q, k, knobs,
+                                        self.donate)
+            finally:
+                with self._lock:
+                    self._making.pop(key, None)
+            with self._lock:
+                self.misses += 1
+                if snapshot.epoch in self._dropped:
+                    # the epoch died while this capture ran (a helper
+                    # that lost a race, a warmup racing a publish):
+                    # serve the caller, keep nothing
+                    return plan
+                return self._plans.setdefault(key, plan)
+
+    def _sharded_plan(self, snapshot, k: int, knobs: Knobs) -> ShardedPlan:
+        """The ShardedPlan of this (mesh placement, axis, k, knobs), made
+        on first use under the cache lock, so racing buckets share one."""
+        key = (snapshot.placement,) + plan_key(k, knobs)
         with self._lock:
-            # two threads may race-capture the same key; keep the first
-            # so CompiledPlan.calls stays meaningful, count one miss each
-            self.misses += 1
-            if snapshot.epoch in self._dropped:
-                # the epoch died while this capture ran (a helper that
-                # lost a race, a warmup racing a publish): serve the
-                # caller, keep nothing
-                return plan
-            return self._plans.setdefault(key, plan)
+            plan = self._sharded.get(key)
+            if plan is None:
+                plan = build_sharded_plan(
+                    snapshot.mesh, axis=snapshot.mesh_axis, k=k,
+                    round_leaves=knobs.round_leaves,
+                    sync_every=knobs.sync_every,
+                    max_rounds=knobs.max_rounds, znorm=knobs.znorm,
+                    pq_budget=knobs.pq_budget, stop_eps=knobs.stop_eps,
+                    stop_leaves=knobs.stop_leaves)
+                self._sharded[key] = plan
+            return plan
 
     def drop_epochs(self, epochs: Iterable[int]) -> list:
         """Remove the plans of `epochs` (their snapshots are gone) and
@@ -240,7 +310,10 @@ class PlanCache:
     def stats(self) -> dict:
         """Counters proving (or disproving) steady-state zero-capture:
         `misses` must freeze after warmup within an epoch; `size` counts
-        live plans (graphs, when `donate`)."""
+        live plans (graphs, when `donate` and the index is local);
+        `sharded_traces` counts the distinct (mesh, k, knobs) sharded
+        plans behind them."""
         with self._lock:
             return {"hits": self.hits, "misses": self.misses,
-                    "size": len(self._plans), "donate": self.donate}
+                    "size": len(self._plans), "donate": self.donate,
+                    "sharded_traces": len(self._sharded)}

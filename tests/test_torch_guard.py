@@ -262,6 +262,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.maintenance", "repro_torch.maintenance.tombstones",
             "repro_torch.maintenance.policy",
             "repro_torch.runtime", "repro_torch.runtime.journal",
+            "repro_torch.runtime.sharding", "repro_torch.runtime.elastic",
+            "repro_torch.launch", "repro_torch.launch.mesh",
             "repro_torch.serve", "repro_torch.serve.batcher",
             "repro_torch.serve.engine", "repro_torch.serve.plan_cache",
             "repro_torch.serve.result_cache",
