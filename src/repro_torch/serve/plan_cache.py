@@ -59,6 +59,7 @@ from typing import Dict, Hashable, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.hooks import sync_point
 from repro_torch.core.search import (ShardedPlan, build_sharded_plan,
                                      sharded_view_search, view_search_device)
 
@@ -66,6 +67,10 @@ from repro_torch.core.search import (ShardedPlan, build_sharded_plan,
 # device and empties the allocator's cache first, which must not run
 # while another thread's capture is open
 _CAPTURE_LOCK = threading.Lock()
+
+# how long a thread waiting for another's capture of its key blocks
+# between two `plan_cache.get.wait` seams
+_WAIT_S = 0.005
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,6 +218,17 @@ class ShardedCompiledPlan(CompiledPlan):
             snapshot.delta_alive, snapshot.n_base, znorm=knobs.znorm)
 
 
+class _Making:
+    """One key's capture in flight: its waiters block on `done`, then
+    take `plan` (None when the capture raised: they miss again)."""
+
+    __slots__ = ("done", "plan")
+
+    def __init__(self):
+        self.done = threading.Event()
+        self.plan: Optional[CompiledPlan] = None
+
+
 class PlanCache:
     """(bucket_q, epoch, k, knobs, placement) -> CompiledPlan (or
     ShardedCompiledPlan), with counters."""
@@ -230,50 +246,84 @@ class PlanCache:
         self._plans: Dict[Tuple, CompiledPlan] = {}
         self._dropped: set = set()     # epochs whose plans were dropped
         self._sharded: Dict[Tuple, ShardedPlan] = {}
-        self._making: Dict[Tuple, threading.Lock] = {}   # key -> capture
+        self._making: Dict[Tuple, _Making] = {}   # key -> capture in flight
         self._lock = threading.Lock()
 
     def get(self, snapshot, bucket_q: int, k: int,
             knobs: Knobs) -> CompiledPlan:
         """The plan for this bucket of this snapshot, captured on miss
         (outside the cache lock: a capture takes milliseconds to
-        seconds).  One capture a key: threads that miss the same key
-        together wait on its capture lock, and the first captures while
-        the rest take its plan as a hit, so a publish captures at most
-        once per (bucket, k, knobs) as repro compiles at most once."""
+        seconds).  One capture a key: the first thread to miss a key
+        registers its capture, and threads that miss the same key while
+        it runs wait for it and take its plan as a hit, so a publish
+        captures at most once per (bucket, k, knobs) as repro compiles
+        at most once.  The capture's entry leaves `_making` in the same
+        critical section that stores the plan, so no thread can find
+        neither a plan nor a capture in flight and capture again.
+
+        Seams (`analysis.hooks.sync_point`, no lock held at any):
+        `plan_cache.get.lookup` after the first lookup,
+        `plan_cache.get.capture` before the capture,
+        `plan_cache.get.store` between the capture and the store, and
+        `plan_cache.get.wait` before each wait for another's capture."""
         key = ((bucket_q, snapshot.epoch) + plan_key(k, knobs)
                + (snapshot.placement,))
-        with self._lock:
-            plan = self._plans.get(key)
-            if plan is not None:
-                self.hits += 1
-                return plan
-            making = self._making.setdefault(key, threading.Lock())
-        with making:
+        while True:
             with self._lock:
                 plan = self._plans.get(key)
-                if plan is not None:         # the racer that went first
+                if plan is not None:
                     self.hits += 1
                     return plan
-            try:
-                if snapshot.mesh is not None:
-                    plan = ShardedCompiledPlan(
-                        snapshot, bucket_q, k, knobs,
-                        self._sharded_plan(snapshot, k, knobs))
-                else:
-                    plan = CompiledPlan(snapshot, bucket_q, k, knobs,
-                                        self.donate)
-            finally:
+                making = self._making.get(key)
+                mine = making is None
+                if mine:
+                    making = self._making[key] = _Making()
+            sync_point("plan_cache.get.lookup", key)
+            if mine:
+                return self._make(key, making, snapshot, bucket_q, k, knobs)
+            # another thread captures this key: wait for its plan, parking
+            # at a seam between waits so that a race checker that holds
+            # the capturer can run the waiter meanwhile
+            while True:
+                sync_point("plan_cache.get.wait", key)
+                if making.done.wait(_WAIT_S):
+                    break
+            if making.plan is not None:
                 with self._lock:
-                    self._making.pop(key, None)
+                    self.hits += 1
+                return making.plan
+            # that capture raised: miss again, and capture here
+
+    def _make(self, key: tuple, making: "_Making", snapshot, bucket_q: int,
+              k: int, knobs: Knobs) -> CompiledPlan:
+        """Capture the plan of `key` (this thread registered `making`),
+        store it and hand it to the threads waiting on `making`."""
+        sync_point("plan_cache.get.capture", key)
+        try:
+            if snapshot.mesh is not None:
+                plan = ShardedCompiledPlan(
+                    snapshot, bucket_q, k, knobs,
+                    self._sharded_plan(snapshot, k, knobs))
+            else:
+                plan = CompiledPlan(snapshot, bucket_q, k, knobs,
+                                    self.donate)
+        except BaseException:
             with self._lock:
-                self.misses += 1
-                if snapshot.epoch in self._dropped:
-                    # the epoch died while this capture ran (a helper
-                    # that lost a race, a warmup racing a publish):
-                    # serve the caller, keep nothing
-                    return plan
-                return self._plans.setdefault(key, plan)
+                self._making.pop(key, None)
+            making.done.set()
+            raise
+        sync_point("plan_cache.get.store", key)
+        with self._lock:
+            self._making.pop(key, None)
+            self.misses += 1
+            # the epoch died while this capture ran (a helper that lost a
+            # race, a warmup racing a publish): serve the caller and its
+            # waiters, keep nothing
+            if snapshot.epoch not in self._dropped:
+                self._plans[key] = plan
+        making.plan = plan
+        making.done.set()
+        return plan
 
     def _sharded_plan(self, snapshot, k: int, knobs: Knobs) -> ShardedPlan:
         """The ShardedPlan of this (mesh placement, axis, k, knobs), made

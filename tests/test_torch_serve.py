@@ -160,6 +160,52 @@ def test_racing_misses_of_one_key_capture_once(index, small, monkeypatch):
         assert st["size"] - st0["size"] == 1
 
 
+def test_capture_lock_handoff_makes_one_plan(index, monkeypatch):
+    """A get that misses a key while its first capture hands over
+    (between the capture and the store) waits for that capture and takes
+    its plan: 1 plan, 1 miss, 1 hit.  The order is forced through the
+    plan_cache.get.* seams, with no sleep: the first get parks at its
+    store seam until the second has decided to wait or to capture."""
+    import repro_torch.serve.plan_cache as pc
+    from repro_torch.analysis.hooks import SyncHook, installed
+    made = []
+
+    class Counting(pc.CompiledPlan):
+        __slots__ = ()
+
+        def __init__(self, *a, **kw):
+            made.append(1)
+            super().__init__(*a, **kw)
+
+    monkeypatch.setattr(pc, "CompiledPlan", Counting)
+    with index.engine(EngineConfig(max_batch=4, workers=0)) as eng:
+        snap = eng._snapshots[eng.epoch]
+        cache = PlanCache(torch.device("cpu"))
+        first = threading.get_ident()
+        decided = threading.Event()
+        got = []
+        second = threading.Thread(target=lambda: got.append(
+            cache.get(snap, 4, 3, eng._knobs)))
+
+        class Order(SyncHook):
+            def sync(self, name, obj=None):
+                if threading.get_ident() == first:
+                    if name == "plan_cache.get.store":
+                        second.start()
+                        assert decided.wait(30)
+                elif name in ("plan_cache.get.capture",
+                              "plan_cache.get.wait"):
+                    decided.set()
+
+        with installed(Order()):
+            plan = cache.get(snap, 4, 3, eng._knobs)
+            second.join(timeout=30)
+        assert not second.is_alive()
+        st = cache.stats()
+        assert len(made) == 1 and got == [plan]
+        assert (st["misses"], st["hits"], st["size"]) == (1, 1, 1)
+
+
 def test_a_run_of_the_last_token_takes_its_result(index, small):
     """A helper waiting on the plan's lock for the owner's run of the
     same journal part takes that run's result: the plan runs once."""
