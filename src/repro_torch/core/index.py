@@ -168,6 +168,83 @@ def pad_leaves(idx: FlatIndex, multiple: int) -> FlatIndex:
         leaf_valid=cat(idx.leaf_valid, (extra,), False))
 
 
+def build_index_host(raw, executor, *, segments: int = isax.SEGMENTS,
+                     bits: int = isax.SAX_BITS, leaf_capacity: int = 64,
+                     n_threads: int = 8, chunk_elems: int = 256,
+                     device=None):
+    """Host control-plane build: the paper's BC -> TP pipeline verbatim
+    (`repro.core.index.build_index_host`).
+
+    The z-normalized series' words and root buckets are computed on the
+    device (`device`; None means "cuda", RuntimeError without one) by
+    the summarize kernel, as `build_index` computes them, and copied to
+    numpy once.  Then BC.TRAVERSE applies BUFFERCREATION over chunks of
+    RawData under the given executor (Refresh or a baseline), PUTting
+    (iSAX word, series id) pairs into 2^w-slot summarization buffers, and
+    TP.TRAVERSE inserts them into a forest of FatLeafTrees, on the host.
+    The fidelity plane of the paper's shared-memory algorithms; the
+    production path is build_index() above.
+
+    Returns (forest dict bucket->FatLeafTree, buffers ArrayTraverse).
+    """
+    import threading
+
+    import numpy as np
+
+    from repro_torch.api import resolve_device
+
+    from .traverse import ArrayTraverse
+    from .tree import FatLeafTree
+
+    rows = torch.as_tensor(np.asarray(raw), dtype=torch.float32,
+                           device=resolve_device(device))
+    n = rows.shape[0]
+    _, _, words, _ = summarize_rows(rows, segments=segments, bits=bits,
+                                    znorm=True)
+    buckets = isax.root_bucket(words, bits)
+    words_np = words.cpu().numpy()
+    buckets_np = buckets.cpu().numpy()
+
+    # ---- BC: buffer creation over chunks of RawData ----------------------
+    n_buckets_used = sorted(set(int(b) for b in buckets_np))
+    slot_of = {b: i for i, b in enumerate(n_buckets_used)}
+    buffers = ArrayTraverse(executor, n_slots=max(1, len(n_buckets_used)))
+
+    def buffer_creation(chunk_start: int) -> None:
+        hi = min(chunk_start + chunk_elems, n)
+        for i in range(chunk_start, hi):
+            buffers.put((words_np[i], i), slot_of[int(buckets_np[i])])
+
+    bc = ArrayTraverse(executor)
+    for c in range(0, n, chunk_elems):
+        bc.put(c)
+    bc.traverse(buffer_creation)
+
+    # ---- TP: tree population, one subtree per summarization buffer -------
+    forest = {b: FatLeafTree(segments, bits, leaf_capacity, n_threads)
+              for b in n_buckets_used}
+
+    # dense thread ids: announce slots must be unique per live thread
+    # (`ident % n_threads` can collide, corrupting the announce protocol)
+    tid_map: dict = {}
+    tid_lock = threading.Lock()
+
+    def dense_tid() -> int:
+        ident = threading.get_ident()
+        with tid_lock:
+            if ident not in tid_map:
+                tid_map[ident] = len(tid_map) % n_threads
+            return tid_map[ident]
+
+    def tree_population(pair) -> None:
+        word, idx = pair
+        forest[int(buckets_np[idx])].insert(dense_tid(), word, int(idx),
+                                            mode="standard")
+
+    buffers.traverse(tree_population)
+    return forest, buffers
+
+
 def index_stats(idx: FlatIndex) -> dict:
     """Host-side summary: series, leaves, capacity and leaf fill."""
     fill = idx.valid.reshape(idx.n_leaves, -1).sum(dim=1)

@@ -190,6 +190,23 @@ def pack_keys_bytes(keys: np.ndarray) -> np.ndarray:
     return be.view(f"S{4 * keys.shape[1]}").reshape(-1)
 
 
+def euclidean_sq(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Squared Euclidean distance along the last axis (broadcasts)."""
+    d = q - x
+    return (d * d).sum(dim=-1)
+
+
+def euclidean(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(euclidean_sq(q, x))
+
+
+def paa_lb_sq(q_paa: torch.Tensor, x_paa: torch.Tensor,
+              series_len: int = SERIES_LEN) -> torch.Tensor:
+    """Squared PAA lower bound:  (n/w) * ||PAA(q) - PAA(x)||^2  <=  ED^2."""
+    w = q_paa.shape[-1]
+    return (series_len / w) * euclidean_sq(q_paa, x_paa)
+
+
 def symbol_region(sym: torch.Tensor, depth_bits, bits: int = SAX_BITS,
                   dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lo, hi) of the N(0,1) region covered by symbol `sym` when only its
@@ -213,3 +230,14 @@ def mindist_region_sq(q_paa: torch.Tensor, lo: torch.Tensor,
     w = q_paa.shape[-1]
     d = (lo - q_paa).clamp_min(0.0) + (q_paa - hi).clamp_min(0.0)
     return (series_len / w) * (d * d).sum(dim=-1)
+
+
+def mindist_isax_sq(q_paa: torch.Tensor, words: torch.Tensor,
+                    depth_bits=SAX_BITS, bits: int = SAX_BITS,
+                    series_len: int = SERIES_LEN) -> torch.Tensor:
+    """Squared lower-bound distance MINDIST(Q, iSAX(X)) (paper Section
+    II): the point-to-region bound of `symbol_region` at `depth_bits`
+    (an int or a tensor that broadcasts; `bits` is the full-cardinality
+    bound, fewer emulate internal tree nodes)."""
+    lo, hi = symbol_region(words, depth_bits, bits, dtype=q_paa.dtype)
+    return mindist_region_sq(q_paa, lo, hi, series_len)

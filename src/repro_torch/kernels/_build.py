@@ -31,7 +31,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("isax_summarize", "lb_distance", "refine", "ed_argmin",
-           "flash_attention", "leaf_stats")
+           "flash_attention", "leaf_stats", "dtw")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)

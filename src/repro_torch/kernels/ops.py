@@ -13,7 +13,9 @@ no result; the CUDA kernel masks a ragged T, so any T >= 1 is taken).
 counts its kernel's launches, and "refine_search" (the whole refinement
 of a search, which the search calls in place of a loop of refine_topk
 rounds), "leaf_stats" and "leaf_gather" (the build's per-leaf passes,
-which have no entry point in repro) to their own wrapper modules.
+which have no entry point in repro) and "dtw" (LB_Keogh, the DTW
+search's refinement and the DTW scan, which `core/dtw.py` calls: repro's
+DTW is plain jnp) to their own wrapper modules.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ WRAPPERS = {name: import_module(f"{__package__}.{mod}") for name, mod in (
     ("ed_argmin", "ed_argmin"), ("refine_topk", "refine"),
     ("refine_search", "refine_search"),
     ("flash_attention", "flash_attention"),
-    ("leaf_stats", "leaf_stats"), ("leaf_gather", "leaf_gather"))}
+    ("leaf_stats", "leaf_stats"), ("leaf_gather", "leaf_gather"),
+    ("dtw", "dtw"))}
 
 
 def summarize(x, *, segments=None, bits=None, znorm=True):

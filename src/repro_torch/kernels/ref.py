@@ -247,3 +247,126 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgts,bksd->bkgtd", w, v.float())
     return o.reshape(B, Hq, T, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------- DTW
+# The plain versions of csrc/dtw.cu.  repro's DTW (src/repro/core/dtw.py)
+# is plain jnp; these repeat its arithmetic cell for cell: d = (q[i] -
+# x[c])^2, then d + min(diag, up, left), BIG for a cell outside the band,
+# row 0 a running sum from column 0.  min is exact, so the order of the
+# three makes no difference to the bits.
+
+
+def dtw_envelope(q: torch.Tensor, r: int) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Rolling min / max of q within +-r along the last axis (the
+    Sakoe-Chiba envelope).  q: (..., L) -> (lower, upper) each (..., L)."""
+    W = 2 * r + 1
+    lo = torch.nn.functional.pad(q, (r, r), value=float("inf"))
+    hi = torch.nn.functional.pad(q, (r, r), value=float("-inf"))
+    return (lo.unfold(-1, W, 1).amin(dim=-1),
+            hi.unfold(-1, W, 1).amax(dim=-1))
+
+
+def lb_keogh_ref(q: torch.Tensor, x: torch.Tensor, r: int) -> torch.Tensor:
+    """Squared LB_Keogh of each of the Qg queries q (Qg, L) against each
+    of the N series x (N, L), band radius r: (Qg, N) float32.  Each
+    point's excursion e outside the query's envelope (at most one of
+    x - upper and lower - x is positive) adds e^2."""
+    lo, hi = dtw_envelope(q, r)
+    out = torch.empty((q.shape[0], x.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    for g in range(q.shape[0]):
+        e = torch.maximum(x - hi[g], lo[g] - x).clamp_min(0.0)
+        out[g] = (e * e).sum(dim=-1)
+    return out
+
+
+def dtw_band_ref(q: torch.Tensor, x: torch.Tensor, r: int) -> torch.Tensor:
+    """Squared banded-DTW distance of each pair of rows of q and x
+    (broadcast against each other; (..., L) -> (...,) float32)."""
+    q, x = torch.broadcast_tensors(q, x)
+    lead, L = q.shape[:-1], q.shape[-1]
+    q = q.reshape(-1, L)
+    x = x.reshape(-1, L)
+    W = 2 * r + 1
+    xp = torch.nn.functional.pad(x, (r, r))        # xp[:, c + r] = x[:, c]
+    big = torch.full((q.shape[0],), BIG, dtype=torch.float32,
+                     device=q.device)
+    prev = None
+    for i in range(L):
+        t = q[:, i:i + 1] - xp[:, i:i + W]           # columns i - r + k
+        d = t * t
+        if prev is None:
+            m = torch.full_like(d, BIG)
+        else:
+            up = torch.cat([prev[:, 1:], big[:, None]], dim=1)
+            m = torch.minimum(prev, up)
+        cur = torch.empty_like(d)
+        left = big
+        for k in range(W):
+            c = i - r + k
+            if c < 0 or c >= L:
+                v = big
+            elif i == 0 and c == 0:
+                v = d[:, k]
+            else:
+                v = d[:, k] + torch.minimum(m[:, k], left)
+            cur[:, k] = v
+            left = v
+        prev = cur
+    return prev[:, r].reshape(lead)
+
+
+def dtw_search_ref(q: torch.Tensor, x: torch.Tensor,
+                   sorted_lb: torch.Tensor, order: torch.Tensor, r: int,
+                   round_k: int) -> Tuple[torch.Tensor, ...]:
+    """The refinement of a DTW 1-NN search (repro's `search_dtw` loop) for
+    each query of q (Qg, L) over x (N, L): candidates in the order of
+    `order` (Qg, N) int64, whose lower bounds `sorted_lb` (Qg, N) are
+    ascending, `round_k` a round.  In a round, a candidate whose bound is
+    >= the best-so-far at the round's start counts as BIG; the round's
+    first minimum replaces the best-so-far when strictly smaller.  Stop
+    at the padded end or when the next round's first bound is >= the
+    best-so-far.  Returns (bsf (Qg,) float32 squared, best (Qg,) int32,
+    -1 where no candidate was taken, rounds (Qg,) int32, refined (Qg,)
+    int32: the candidates whose DTW was computed)."""
+    Qg, N = sorted_lb.shape
+    end = -(-N // round_k) * round_k
+    bsf = torch.full((Qg,), BIG, dtype=torch.float32, device=x.device)
+    best = torch.full((Qg,), -1, dtype=torch.int32, device=x.device)
+    rounds = torch.zeros((Qg,), dtype=torch.int32, device=x.device)
+    refined = torch.zeros((Qg,), dtype=torch.int32, device=x.device)
+    for g in range(Qg):
+        cursor = 0
+        while cursor < end and bool(sorted_lb[g, cursor] < bsf[g]):
+            lbs = torch.full((round_k,), BIG, dtype=torch.float32,
+                             device=x.device)
+            ids = torch.zeros((round_k,), dtype=torch.int64,
+                              device=x.device)
+            n = min(round_k, N - cursor)
+            lbs[:n] = sorted_lb[g, cursor:cursor + n]
+            ids[:n] = order[g, cursor:cursor + n]
+            take = lbs < bsf[g]
+            d = torch.full((round_k,), BIG, dtype=torch.float32,
+                           device=x.device)
+            if bool(take.any()):
+                d[take] = dtw_band_ref(q[g], x[ids[take]], r)
+            k = int(torch.argmin(d))
+            if bool(d[k] < bsf[g]):
+                bsf[g] = d[k]
+                best[g] = int(ids[k])
+            rounds[g] += 1
+            refined[g] += int(take.sum())
+            cursor += round_k
+    return bsf, best, rounds, refined
+
+
+def dtw_scan_ref(q: torch.Tensor, x: torch.Tensor,
+                 r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Banded DTW of each query of q (Q, L) against every series of x
+    (N >= 1, L): (the least squared distance (Q,) float32, its series
+    (Q,) int32, the first on ties)."""
+    d = torch.stack([dtw_band_ref(q[g], x, r) for g in range(q.shape[0])])
+    i = torch.argmin(d, dim=1)
+    return d.gather(1, i[:, None])[:, 0], i.to(torch.int32)

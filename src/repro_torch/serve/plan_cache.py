@@ -59,7 +59,7 @@ from typing import Dict, Hashable, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.analysis.hooks import sync_point
+from repro_torch.analysis.hooks import observe, sync_point
 from repro_torch.core.search import (ShardedPlan, build_sharded_plan,
                                      sharded_view_search, view_search_device)
 
@@ -300,13 +300,7 @@ class PlanCache:
         store it and hand it to the threads waiting on `making`."""
         sync_point("plan_cache.get.capture", key)
         try:
-            if snapshot.mesh is not None:
-                plan = ShardedCompiledPlan(
-                    snapshot, bucket_q, k, knobs,
-                    self._sharded_plan(snapshot, k, knobs))
-            else:
-                plan = CompiledPlan(snapshot, bucket_q, k, knobs,
-                                    self.donate)
+            plan = self._construct(key, snapshot, bucket_q, k, knobs)
         except BaseException:
             with self._lock:
                 self._making.pop(key, None)
@@ -323,6 +317,19 @@ class PlanCache:
                 self._plans[key] = plan
         making.plan = plan
         making.done.set()
+        return plan
+
+    def _construct(self, key: tuple, snapshot, bucket_q: int, k: int,
+                   knobs: Knobs) -> CompiledPlan:
+        """Make the plan of `key`: capture it (or, for a sharded
+        snapshot, set up its eager plan).  Reports each plan made to the
+        race checker (`observe("plan_cache.make", key)`)."""
+        if snapshot.mesh is not None:
+            plan = ShardedCompiledPlan(snapshot, bucket_q, k, knobs,
+                                       self._sharded_plan(snapshot, k, knobs))
+        else:
+            plan = CompiledPlan(snapshot, bucket_q, k, knobs, self.donate)
+        observe("plan_cache.make", key)
         return plan
 
     def _sharded_plan(self, snapshot, k: int, knobs: Knobs) -> ShardedPlan:

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from repro_torch import api
-from repro_torch.kernels import (_build, ed_argmin, flash_attention,
+from repro_torch.kernels import (_build, dtw, ed_argmin, flash_attention,
                                  isax_summarize, lb_distance, ops, refine,
                                  refine_search)
 
@@ -180,6 +180,59 @@ def test_cpu_scan_and_attention_count_nothing():
     assert {n: m.launches for n, m in ops.WRAPPERS.items()} == before
 
 
+def test_dtw_wrappers_raise_on_what_the_kernel_does_not_take():
+    q, x = torch.zeros(2, 16), torch.zeros(9, 16)
+    lb = torch.zeros(2, 9)
+    order = torch.zeros(2, 9, dtype=torch.int64)
+    for bad_q, bad_x, err in ((q.double(), x, TypeError),
+                              (q, x.bfloat16(), TypeError),
+                              (q, torch.zeros(9, 8), ValueError),
+                              (q[0], x, ValueError),
+                              (q, x.t().contiguous().t(), ValueError),
+                              (torch.zeros(2, 1025), torch.zeros(3, 1025),
+                               ValueError)):
+        for call in (lambda: dtw.lb_keogh(bad_q, bad_x, r=2),
+                     lambda: dtw.dtw_scan(bad_q, bad_x, r=2)):
+            with pytest.raises(err):
+                call()
+    for r in (-1, 2.0):
+        with pytest.raises(ValueError):
+            dtw.lb_keogh(q, x, r=r)
+    with pytest.raises(ValueError):
+        dtw.dtw_scan(q, x[:0], r=2)                  # no series to scan
+    for args, err in (((lb.double(), order), TypeError),
+                      ((lb, order.int()), TypeError),
+                      ((lb[:, :8], order), ValueError),
+                      ((lb.t().contiguous().t(), order), ValueError)):
+        with pytest.raises(err):
+            dtw.dtw_search(q, x, *args, r=2, round_k=4)
+    for rk in (0, 1025):
+        with pytest.raises(ValueError):
+            dtw.dtw_search(q, x, lb, order, r=2, round_k=rk)
+    with pytest.raises(ValueError):                  # band too wide
+        dtw.dtw_search(q, x, lb, order, r=900, round_k=32)
+    with pytest.raises(RuntimeError, match="meta"):
+        dtw.lb_keogh(torch.zeros(2, 16, device="meta"),
+                     torch.zeros(9, 16, device="meta"), r=2)
+
+
+def test_dtw_cpu_tensors_run_the_plain_version_and_count_nothing():
+    from repro_torch.kernels import ref
+    before = (dtw.launches, dict(dtw.by_route))
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(40, 24, generator=g).cumsum(1)
+    q = x[:3] + 0.1
+    lb = dtw.lb_keogh(q, x, r=3)
+    assert torch.equal(lb, ref.lb_keogh_ref(q, x, 3))
+    s, o = torch.sort(lb, dim=1, stable=True)
+    got = dtw.dtw_search(q, x, s, o, r=3, round_k=8)
+    for a, b in zip(got, ref.dtw_search_ref(q, x, s, o, 3, 8)):
+        assert torch.equal(a, b)
+    d2, i = dtw.dtw_scan(q, x, r=3)
+    assert i.tolist() == got[1].tolist() and torch.equal(d2, got[0])
+    assert (dtw.launches, dtw.by_route) == before
+
+
 def test_loader_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
@@ -258,6 +311,8 @@ def test_build_outputs_are_named_by_process_and_thread(monkeypatch,
 def test_importing_the_port_loads_neither_jax_nor_repro():
     mods = ["repro_torch", "repro_torch.api", "repro_torch.convert",
             "repro_torch.analysis", "repro_torch.analysis.hooks",
+            "repro_torch.analysis.schedules", "repro_torch.analysis.checker",
+            "repro_torch.analysis.buggy",
             "repro_torch.checkpoint", "repro_torch.checkpoint.store",
             "repro_torch.maintenance", "repro_torch.maintenance.tombstones",
             "repro_torch.maintenance.policy",
@@ -268,7 +323,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.serve.engine", "repro_torch.serve.plan_cache",
             "repro_torch.serve.result_cache",
             "repro_torch.core.builder", "repro_torch.core.refresh",
-            "repro_torch.core.traverse",
+            "repro_torch.core.traverse", "repro_torch.core.tree",
+            "repro_torch.core.baselines", "repro_torch.core.dtw",
             "repro_torch.core", "repro_torch.core.isax",
             "repro_torch.core.index", "repro_torch.core.search",
             "repro_torch.data", "repro_torch.data.synthetic",
@@ -279,7 +335,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.kernels.ops", "repro_torch.kernels.ed_argmin",
             "repro_torch.kernels.flash_attention",
             "repro_torch.kernels.leaf_stats",
-            "repro_torch.kernels.leaf_gather",
+            "repro_torch.kernels.leaf_gather", "repro_torch.kernels.dtw",
             "repro_torch.kernels.autotune",
             "repro_torch.quality", "repro_torch.quality.stop_rules",
             "repro_torch.quality.calibrate"]
