@@ -5,7 +5,7 @@
 
 Phases, each printing one JSON line:
   device     nvidia-smi's name and power limit, torch's device name;
-  build      nvcc builds of the six kernel sources under
+  build      nvcc builds of the seven kernel sources under
              src/repro_torch/kernels/csrc;
   kernel     each CUDA kernel against its plain PyTorch version on the card,
              at its path's shapes, with its time, the plain version's time,
@@ -100,6 +100,12 @@ Phases, each printing one JSON line:
              comes back; then 2^22 walks on 2 slots saved and recovered
              by the engine onto 1 slot with a future in flight, both
              answers exact;
+  checker    (after serve, on the main cell's index) the port's race
+             checker: PlanCacheScenario over the real PlanCache with one
+             CUDA graph captured a plan made, buckets 1 and 8, k 10, 8
+             random schedules (one plan a key, every replay byte-equal to
+             the facade's search of the same rows); then `python -m
+             repro_torch.analysis.checker --budget 200` in a child process;
   l96        FreshIndex.build and search over 2^20 walks of length 96
              (w 16), 256 noisy queries, k 10, held to brute force: the
              summarize kernel's strided route on a search path; and the
@@ -120,14 +126,29 @@ Phases, each printing one JSON line:
              byte-equal to the facade's, the ids unchanged across each
              compaction, the policy's checkpoint loaded and answering
              the same;
+  dtw        exact DTW 1-NN (core.dtw.search_dtw) over 2^22 walks of
+             length 256 made on the card, 256 noisy queries (sigma 0.1),
+             band r 12, round_k 32: the first 32 held to
+             search_dtw_bruteforce over all 2^22 series, every distance
+             to dtw_band_ref on its (query, id), lb_keogh to its plain
+             version on a group, the DP bit for bit on 4,096 sampled
+             pairs; LB, sort and refinement ms, rounds and candidates
+             refined a query, peak memory; edge runs (r 0, 16, 40 at
+             L 100, N < round_k, N not a multiple of round_k), each
+             kernel bit for bit (lb_keogh to 1e-5); table rows for
+             lb_keogh, dtw_search and dtw_scan and their general routes;
+  fidelity   build_index_host over 2^16 seismic_like series of length
+             256 under RefreshExecutor, DoAllSplit, FaiBased and CasBased
+             at 8 threads: every id in the forest with the one-pass
+             build's word, each executor's seconds;
   attention  ops.flash_attention at granite-8b's attention widths (B 1,
              Hq 32, Hkv 8, T = S = 4096, dh 128, bf16, causal), held
              against the plain version.
 refine_search is held under the (1 + eps) stop (inv_eps 1 / 1.25^2) on
 every route too: cta3 in the kernel phase, cta2, cta1 and general in the
 route phase.
-Each of main, rounds, scan, approx, sharded, serve, l96, lifecycle and
-attention sets every launch count to 0 before it and requires each
+Each of main, rounds, scan, approx, sharded, serve, l96, lifecycle, dtw
+and attention sets every launch count to 0 before it and requires each
 kernel (and route) of its path to have launched, and every kernel of
 the table to have launched on some path; a graph replay passes through
 no wrapper,
@@ -146,6 +167,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2741,6 +2763,405 @@ def sharded_recover(torch, api, isax, gen, n=1 << 22, nq=64):
     return rep
 
 
+# ---------------------------------------------------------------------- dtw
+DTW_N, DTW_Q, DTW_R, DTW_RK, DTW_BRUTE, DTW_PAIRS = 1 << 22, 256, 12, 32, 32, 4096
+DTW_SRC = "src/repro_torch/kernels/csrc/dtw.cu"
+DTW_REPLACES = ("none: a port-side kernel (src/repro/core/dtw.py:{} {} is "
+                "plain jnp, no Pallas kernel)")
+
+
+def dtw_cells(Lx: int, r: int) -> int:
+    """The band cells of one (query, series) pair: row i spans columns
+    max(0, i - r) .. min(L - 1, i + r)."""
+    return sum(min(Lx - 1, i + r) - max(0, i - r) + 1 for i in range(Lx))
+
+
+def dtw_bound(torch, n_pairs: int, Lx: int, r: int, nbytes: float):
+    """A DP cell is five f32 instructions (subtract, multiply, two mins,
+    add; the multiply and the add kept apart), at the issue rate."""
+    return bound_ms(nbytes, n_pairs * dtw_cells(Lx, r) * 5, FP32_ISSUE)
+
+
+def lb_bound(nq: int, n: int, Lx: int):
+    """A point a query is five f32 instructions (two subtracts, two
+    maxes, an FMA); the series, the queries and the bounds move once."""
+    return bound_ms(4 * (n * Lx + nq * Lx + nq * n), nq * n * Lx * 5,
+                    FP32_ISSUE)
+
+
+def rel_err(torch, a, b) -> float:
+    """max |a - b| / max(|b|, 1)."""
+    return float(((a - b).abs() / b.abs().clamp_min(1.0)).max()) \
+        if a.numel() else 0.0
+
+
+def dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk):
+    """Collection, queries (z-normalized) and the three kernels against
+    their plain versions at one small shape: lb_keogh to 1e-5 relative,
+    dtw_search and dtw_scan bit for bit.  Returns the inputs and the
+    check's numbers."""
+    x = isax.znormalize(walks(torch, gen, n, Lx)).contiguous()
+    pick = torch.randint(0, n, (nq,), generator=gen, device=DEV)
+    q = isax.znormalize(x[pick] + 0.1 * torch.randn(
+        nq, Lx, generator=gen, device=DEV)).contiguous()
+    lb = kd.lb_keogh(q, x, r=r)
+    lb_err = rel_err(torch, lb, ref.lb_keogh_ref(q, x, r))
+    require(lb_err <= 1e-5, f"lb_keogh L {Lx} r {r}: {lb_err}")
+    s, o = torch.sort(lb, dim=1, stable=True)
+    got = kd.dtw_search(q, x, s, o, r=r, round_k=rk)
+    want = ref.dtw_search_ref(q, x, s, o, r, rk)
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            f"dtw_search N {n} L {Lx} r {r} round_k {rk}: not bit-equal")
+    d2, i = kd.dtw_scan(q, x, r=r)
+    d2r, ir = ref.dtw_scan_ref(q, x, r)
+    require(torch.equal(d2, d2r) and torch.equal(i, ir),
+            f"dtw_scan N {n} L {Lx} r {r}: not bit-equal")
+    require(bool((got[0] == d2).all()),
+            f"search and scan N {n} L {Lx} r {r}: distances differ")
+    return (x, q, s, o, got), {"N": n, "L": Lx, "queries": nq, "r": r,
+                               "round_k": rk, "lb_rel_err": lb_err,
+                               "rounds_max": int(got[2].max()),
+                               "refined": int(got[3].sum()),
+                               "search": "bit-equal", "scan": "bit-equal"}
+
+
+def dtw_routes(torch, isax, kd, ref, gen):
+    """The edge runs (r 0, 16 and 40 at L 100; N < round_k; N not a
+    multiple of round_k) and one table row a general route: lb_keogh at
+    L 100, dtw_search and dtw_scan at r 40 (band in shared memory)."""
+    edges = []
+    for n, Lx, nq, r, rk in ((3000, 100, 8, 0, 32), (3000, 100, 8, 16, 32),
+                             (600, 100, 4, 40, 32), (20, L, 4, DTW_R, 32),
+                             (1000, L, 4, DTW_R, 16)):
+        inputs, rep = dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk)
+        edges.append(rep)
+        if r == 40:
+            x, q, s, o, got = inputs
+    require(kd.lb_route(100) == "general" and kd.dp_route(40) == "general"
+            and kd.dp_route(16) == "band", "dtw routes")
+    rows = []
+    n, Lx, nq, r = x.shape[0], 100, q.shape[0], 40
+    lb_ms = time_ms(torch, lambda: kd.lb_keogh(q, x, r=r))
+    lb_plain = time_ms(torch, lambda: ref.lb_keogh_ref(q, x, r), 3, 1)
+    bms, by = lb_bound(nq, n, Lx)
+    rows.append(route_row("lb_keogh", "general", DTW_SRC,
+                          DTW_REPLACES.format(49, "lb_keogh"),
+                          f"{nq} queries x {n} series, L {Lx}, r {r}",
+                          rel_err(torch, kd.lb_keogh(q, x, r=r),
+                                  ref.lb_keogh_ref(q, x, r)),
+                          lb_ms, lb_plain, bms, by,
+                          {"edges": "lb_keogh to 1e-5 relative"}))
+    refined = int(got[3].sum())
+    ms = time_ms(torch, lambda: kd.dtw_search(q, x, s, o, r=r, round_k=32),
+                 5, 1)
+    plain = time_ms(torch, lambda: ref.dtw_search_ref(q, x, s, o, r, 32),
+                    1, 0)
+    bms, by = dtw_bound(torch, refined, Lx, r,
+                        4 * refined * Lx + 12 * int(got[2].sum()) * 32)
+    rows.append(route_row("dtw_search", "general", DTW_SRC,
+                          DTW_REPLACES.format(122, "search_dtw"),
+                          f"{nq} queries x {n} series, L {Lx}, r {r}, "
+                          f"round_k 32, {refined} refined",
+                          0.0, ms, plain, bms, by,
+                          {"edges": "bit-equal to dtw_search_ref"}))
+    ms = time_ms(torch, lambda: kd.dtw_scan(q, x, r=r), 5, 1)
+    plain = time_ms(torch, lambda: ref.dtw_scan_ref(q, x, r), 1, 0)
+    bms, by = dtw_bound(torch, nq * n, Lx, r, 4 * (n + nq) * Lx)
+    rows.append(route_row("dtw_scan", "general", DTW_SRC,
+                          DTW_REPLACES.format(173, "search_dtw_bruteforce"),
+                          f"{nq} queries x {n} series, L {Lx}, r {r}",
+                          0.0, ms, plain, bms, by,
+                          {"edges": "bit-equal to dtw_scan_ref"}))
+    return edges, rows
+
+
+def dtw_path(torch, isax, kmods, ref, gen):
+    """Exact DTW 1-NN on the card: 2^22 random walks of length 256 made
+    from the seed, 256 queries (collection series + N(0, 0.1) noise),
+    band r 12 (5 % of L, the UCR Suite's usual Sakoe-Chiba setting),
+    round_k 32, through core.dtw.search_dtw, and the first 32 queries
+    through search_dtw_bruteforce over all 2^22 series; the launch counts
+    are these two calls'.  Holds: ids equal to the brute force's but
+    where two distances lie within 1e-5 relative, distances to 1e-5;
+    every reported distance equal to dtw_band_ref on its (query, id);
+    lb_keogh against lb_keogh_ref on the first group; the DP (through
+    core.dtw.dtw_band) bit for bit against dtw_band_ref on 4,096 sampled
+    pairs.  Then each group's LB, sort and refinement timed alone, the
+    rounds and candidates refined a query, and the table's rows."""
+    from repro_torch.core import dtw as cdtw
+    kd = kmods["dtw"]
+    t_phase = time.perf_counter()
+    raw = walks(torch, gen, DTW_N, L)
+    pick = torch.randint(0, DTW_N, (DTW_Q,), generator=gen, device=DEV)
+    queries = raw[pick] + 0.1 * torch.randn(DTW_Q, L, generator=gen,
+                                            device=DEV)
+    torch.cuda.synchronize()
+    alloc0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset(kmods)
+    t0 = time.perf_counter()
+    d, ids = cdtw.search_dtw(raw, queries, r=DTW_R, round_k=DTW_RK,
+                             device=DEV)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - alloc0
+    t0 = time.perf_counter()
+    bd, bi = cdtw.search_dtw_bruteforce(raw, queries[:DTW_BRUTE], r=DTW_R,
+                                        device=DEV)
+    torch.cuda.synchronize()
+    brute_s = time.perf_counter() - t0
+    routes = dict(kd.by_route)
+    launches = {k: sum(c for kr, c in routes.items()
+                       if kr.split("/")[0] == k)
+                for k in ("lb_keogh", "dtw_search", "dtw_scan")}
+    require(routes == {"lb_keogh/l256": DTW_Q // cdtw.GROUP,
+                       "dtw_search/band": DTW_Q // cdtw.GROUP,
+                       "dtw_scan/band": 1},
+            f"dtw launches by route {routes}")
+    require(d.shape == (DTW_Q,) and bool(torch.isfinite(d).all())
+            and bool((ids >= 0).all()), "dtw: an answer is missing")
+    # exact against the brute force
+    dg, ig = d[:DTW_BRUTE], ids[:DTW_BRUTE]
+    d_err = rel_err(torch, dg, bd)
+    mism = ig != bi
+    ties = int(mism.sum())
+    require(d_err <= 1e-5, f"dtw vs brute force: distances {d_err}")
+    require(not ties or bool(((dg[mism] - bd[mism]).abs()
+                              <= 1e-5 * bd[mism]).all()),
+            "dtw vs brute force: an id differs beyond a tie")
+    # every reported distance is its id's own
+    x = isax.znormalize(raw).contiguous()
+    del raw
+    qz = isax.znormalize(queries).contiguous()
+    own = torch.sqrt(ref.dtw_band_ref(qz, x[ids.long()], DTW_R))
+    own_err = float((own - d).abs().max())
+    require(bool((own == d).all()), f"dtw: a distance is not its id's own "
+            f"({own_err})")
+    # lb_keogh on the first group
+    g0 = qz[:cdtw.GROUP].contiguous()
+    lb = kd.lb_keogh(g0, x, r=DTW_R)
+    lb_ref = ref.lb_keogh_ref(g0, x, DTW_R)
+    lb_err = rel_err(torch, lb, lb_ref)
+    lb_abs = float((lb - lb_ref).abs().max())
+    require(lb_err <= 1e-5, f"lb_keogh vs plain: {lb_err}")
+    # the DP on sampled pairs, one dtw_band (a dtw_scan of one pair) each
+    pq = torch.randint(0, DTW_Q, (DTW_PAIRS,), generator=gen, device=DEV)
+    px = torch.randint(0, DTW_N, (DTW_PAIRS,), generator=gen, device=DEV)
+    t0 = time.perf_counter()
+    dk = torch.stack([cdtw.dtw_band(qz[a], x[b], DTW_R)
+                      for a, b in zip(pq.tolist(), px.tolist())])
+    pairs_s = time.perf_counter() - t0
+    dr = ref.dtw_band_ref(qz[pq], x[px], DTW_R)
+    require(torch.equal(dk, dr), f"DP on {DTW_PAIRS} pairs: not bit-equal "
+            f"({float((dk - dr).abs().max())})")
+    # the search's pieces, group by group, timed alone
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    parts = {"lb_ms": 0.0, "sort_ms": 0.0, "refine_ms": 0.0}
+    rounds, refined = [], []
+    for g in range(0, DTW_Q, cdtw.GROUP):
+        qg = qz[g:g + cdtw.GROUP]
+        e = [ev() for _ in range(4)]
+        e[0].record()
+        lbg = kd.lb_keogh(qg, x, r=DTW_R)
+        e[1].record()
+        s, o = torch.sort(lbg, dim=1, stable=True)
+        e[2].record()
+        bsf, best, ro, rf = kd.dtw_search(qg, x, s, o, r=DTW_R,
+                                          round_k=DTW_RK)
+        e[3].record()
+        torch.cuda.synchronize()
+        require(torch.equal(best, ids[g:g + cdtw.GROUP]),
+                "dtw: the timed group's ids differ from the search's")
+        for key, a, b in (("lb_ms", 0, 1), ("sort_ms", 1, 2),
+                          ("refine_ms", 2, 3)):
+            parts[key] += e[a].elapsed_time(e[b])
+        rounds += ro.tolist()
+        refined += rf.tolist()
+        if g == 0:
+            first = (qg, s, o, bsf, best, ro, rf)
+        del lbg, s, o
+    rounds_t = torch.tensor(rounds, dtype=torch.float64)
+    refined_t = torch.tensor(refined, dtype=torch.float64)
+    rep = {"phase": "dtw", "series": DTW_N, "L": L, "queries": DTW_Q,
+           "r": DTW_R, "round_k": DTW_RK, "group": cdtw.GROUP,
+           "search_dtw_ms": search_s * 1e3, **parts,
+           "bruteforce_queries": DTW_BRUTE, "bruteforce_ms": brute_s * 1e3,
+           "rounds": {"min": int(rounds_t.min()),
+                      "median": float(rounds_t.median()),
+                      "max": int(rounds_t.max())},
+           "refined_per_query": {"min": int(refined_t.min()),
+                                 "median": float(refined_t.median()),
+                                 "max": int(refined_t.max())},
+           "pruned_share": 1.0 - float(refined_t.mean()) / DTW_N,
+           "peak_bytes_search": peak, "ties_vs_bruteforce": ties,
+           "dist_rel_err_vs_bruteforce": d_err,
+           "own_distance": "bit-equal to dtw_band_ref",
+           "lb_rel_err": lb_err, "pairs": DTW_PAIRS,
+           "pairs_check": "bit-equal to dtw_band_ref", "pairs_s": pairs_s,
+           "launches": launches, "by_route": routes}
+    # table rows at the main path's launches
+    rows = []
+    ms = time_ms(torch, lambda: kd.lb_keogh(g0, x, r=DTW_R), 5, 1)
+    plain = time_ms(torch, lambda: ref.lb_keogh_ref(g0, x, DTW_R), 1, 0)
+    bms, by = lb_bound(cdtw.GROUP, DTW_N, L)
+    rows.append({"name": "lb_keogh", "route": "cuda", "source": DTW_SRC,
+                 "replaces": DTW_REPLACES.format(49, "lb_keogh"),
+                 "port_side": True,
+                 "shape": f"{cdtw.GROUP} queries x {DTW_N} series, L {L}, "
+                          f"r {DTW_R} (one group, the search's launch)",
+                 "max_abs_err": lb_abs, "ms": ms, "plain_ms": plain,
+                 "bound_ms": bms, "bound_by": by, "library_ms": None})
+    qg, s, o, bsf, best, ro, rf = first
+    n_ref = int(rf.sum())
+    ms = time_ms(torch, lambda: kd.dtw_search(qg, x, s, o, r=DTW_R,
+                                              round_k=DTW_RK), 3, 1)
+    bms, by = dtw_bound(torch, n_ref, L, DTW_R,
+                        4 * n_ref * L + 12 * int(ro.sum()) * DTW_RK)
+    # the plain version's loop of rounds is thousands of launches a
+    # round: timed on the group's four lightest queries, the kernel too
+    light = torch.argsort(ro, stable=True)[:4]
+    ql, sl, ol = qg[light].contiguous(), s[light].contiguous(), \
+        o[light].contiguous()
+    light_ms = time_ms(torch, lambda: kd.dtw_search(
+        ql, x, sl, ol, r=DTW_R, round_k=DTW_RK), 3, 1)
+    t0 = time.perf_counter()
+    got = ref.dtw_search_ref(ql, x, sl, ol, DTW_R, DTW_RK)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    kern = kd.dtw_search(ql, x, sl, ol, r=DTW_R, round_k=DTW_RK)
+    require(all(torch.equal(a, b) for a, b in zip(kern, got)),
+            "dtw_search on the lightest queries: not bit-equal")
+    rows.append({"name": "dtw_search", "route": "cuda", "source": DTW_SRC,
+                 "replaces": DTW_REPLACES.format(122, "search_dtw"),
+                 "port_side": True,
+                 "shape": f"{cdtw.GROUP} queries x {DTW_N} series, L {L}, "
+                          f"r {DTW_R}, round_k {DTW_RK}, {n_ref} refined, "
+                          f"{int(ro.max())} rounds at most (one group)",
+                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                 "plain_queries": 4, "ms_on_plain_queries": light_ms,
+                 "plain_rounds": ro[light].tolist(),
+                 "bound_ms": bms, "bound_by": by, "library_ms": None})
+    ms = time_ms(torch, lambda: kd.dtw_scan(qz[:DTW_BRUTE], x, r=DTW_R),
+                 2, 1)
+    one_ms = time_ms(torch, lambda: kd.dtw_scan(qz[:1], x, r=DTW_R), 3, 1)
+    plain = time_ms(torch, lambda: ref.dtw_scan_ref(qz[:1], x, DTW_R), 1, 1)
+    bms, by = dtw_bound(torch, DTW_BRUTE * DTW_N, L, DTW_R,
+                        4 * (DTW_N + DTW_BRUTE) * L)
+    rows.append({"name": "dtw_scan", "route": "cuda", "source": DTW_SRC,
+                 "replaces": DTW_REPLACES.format(173,
+                                                 "search_dtw_bruteforce"),
+                 "port_side": True,
+                 "shape": f"{DTW_BRUTE} queries x {DTW_N} series, L {L}, "
+                          f"r {DTW_R} (the brute force's launch)",
+                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                 "plain_queries": 1, "ms_on_plain_queries": one_ms,
+                 "bound_ms": bms, "bound_by": by, "library_ms": None})
+    del x, first, qg, s, o
+    torch.cuda.empty_cache()
+    edges, route_rows = dtw_routes(torch, isax, kd, ref, gen)
+    rep["edges"] = edges
+    rep["rows"] = rows + route_rows
+    rep["seconds"] = time.perf_counter() - t_phase
+    return rep, launches, rep["rows"]
+
+
+# ------------------------------------------------------------------ checker
+CHECKER_BUDGET, CHECKER_CLI_BUDGET = 8, 200
+
+
+def checker_path(torch, index, src):
+    """The port's race checker.  On the card: PlanCacheScenario over the
+    main cell's index (after the serve phase's adds and deletes) with
+    real captures, one CUDA graph a plan made, at buckets 1 and 8, k 10,
+    3 getters of one key, one of another, a late getter of the old epoch
+    and a publish dropping it, CHECKER_BUDGET random schedules: at most
+    one plan made a key, every call counted, nothing of the dropped
+    epoch kept, each plan's replay byte-equal to the facade's search of
+    the same rows.  A capture runs while every other scheduled thread is
+    parked (none makes a CUDA call), in the plan cache's own capture mode
+    ("thread_local").  Then `python -m repro_torch.analysis.checker
+    --budget 200` (every scenario, on the CPU) in a child process."""
+    from repro_torch.analysis.checker import PlanCacheScenario, explore
+    from repro_torch.analysis.schedules import RandomStrategy
+    t0 = time.perf_counter()
+    sc = PlanCacheScenario(name="plan_cache.card", n_getters=3, index=index,
+                           buckets=(1, 8), k=TOPK)
+    rep = explore(sc, RandomStrategy(seed=0), budget=CHECKER_BUDGET)
+    card_s = time.perf_counter() - t0
+    require(rep.ok, f"checker on the card: {rep.violations[:3]}")
+    require(rep.runs == CHECKER_BUDGET, f"checker ran {rep.runs} schedules")
+    t0 = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(src)}
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.checker", "--budget",
+         str(CHECKER_CLI_BUDGET)], capture_output=True, text=True, env=env,
+        cwd=str(src.parent), timeout=900)
+    cli_s = time.perf_counter() - t0
+    lines = cli.stdout.strip().splitlines()
+    total = next((ln for ln in lines if ln.startswith("total:")), "")
+    require(cli.returncode == 0 and "0 scenario(s) with violations" in total,
+            f"checker CLI exit {cli.returncode}: {cli.stdout[-2000:]} "
+            f"{cli.stderr[-2000:]}")
+    return {"phase": "checker",
+            "card": {"scenario": "PlanCacheScenario", "buckets": [1, 8],
+                     "k": TOPK, "getters": 3, "schedules": rep.runs,
+                     "distinct": rep.distinct, "steps": rep.steps,
+                     "violations": len(rep.violations),
+                     "capture_mode": "thread_local", "seconds": card_s},
+            "cli": {"budget": CHECKER_CLI_BUDGET, "total": total,
+                    "scenarios": [ln for ln in lines if " runs=" in ln],
+                    "seconds": cli_s}}
+
+
+# ----------------------------------------------------------------- fidelity
+FID_N, FID_THREADS = 1 << 16, 8
+
+
+def fidelity_path(torch, core_index, seed, smi):
+    """The host-faithful plane: build_index_host (words on the card,
+    BC -> TP on the host) over 2^16 seismic_like series of length 256
+    under RefreshExecutor, DoAllSplit, FaiBased and CasBased at 8
+    threads.  Holds: every id in the forest, each of its entries with
+    the word the one-pass build_index stores for it.  An id may sit there
+    twice: BC and TP apply each element at least once, and a helper that
+    re-executes a part inserts its pairs again (repro's build does the
+    same); the count is reported."""
+    import numpy as np
+    from repro_torch.core.baselines import CasBased, DoAllSplit, FaiBased
+    from repro_torch.core.refresh import RefreshExecutor
+    from repro_torch.data.synthetic import seismic_like
+    t_phase = time.perf_counter()
+    raw = seismic_like(FID_N, L, seed=seed)
+    idx = core_index.build_index(torch.as_tensor(raw, device=DEV))
+    keep = idx.perm >= 0
+    words = np.empty((FID_N, idx.words.shape[1]), np.uint8)
+    words[idx.perm[keep].cpu().numpy()] = idx.words[keep].cpu().numpy()
+    del idx
+    rep = {"phase": "fidelity", "series": FID_N, "L": L,
+           "threads": FID_THREADS, "leaf_capacity": 64, "nvidia_smi": smi}
+    for name, ex in (("refresh", RefreshExecutor(n_threads=FID_THREADS)),
+                     ("do_all_split", DoAllSplit(FID_THREADS)),
+                     ("fai_based", FaiBased(FID_THREADS)),
+                     ("cas_based", CasBased(FID_THREADS))):
+        t0 = time.perf_counter()
+        forest, _ = core_index.build_index_host(
+            raw, ex, leaf_capacity=64, n_threads=FID_THREADS, device=DEV)
+        secs = time.perf_counter() - t0
+        entries = [e for t in forest.values() for e in t.items()]
+        ids = np.array([pl for _, pl in entries])
+        counts = np.bincount(ids, minlength=FID_N)
+        require(len(counts) == FID_N and counts.min() >= 1,
+                f"fidelity {name}: {int((counts == 0).sum())} ids missing")
+        require(bool((np.stack([w for w, _ in entries])
+                      == words[ids]).all()),
+                f"fidelity {name}: a word differs from build_index's")
+        rep[name] = {"seconds": secs, "entries": len(entries),
+                     "ids_twice_or_more": int((counts > 1).sum()),
+                     "subtrees": len(forest)}
+    rep["seconds"] = time.perf_counter() - t_phase
+    return rep
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--series", type=int, default=1 << 24)
@@ -2789,6 +3210,7 @@ def main() -> int:
     leaf_gen = torch.Generator(device=DEV).manual_seed(args.seed + 3)
     serve_gen = torch.Generator(device=DEV).manual_seed(args.seed + 4)
     shard_gen = torch.Generator(device=DEV).manual_seed(args.seed + 5)
+    dtw_gen = torch.Generator(device=DEV).manual_seed(args.seed + 6)
     kmods = dict(ops.WRAPPERS)
     rows, launches = [], {}
     for name, check, args_ in (
@@ -2856,6 +3278,7 @@ def main() -> int:
                               ids, serve_gen)
     emit(report)
     launches |= {k: v for k, v in more.items() if k not in launches}
+    emit(checker_path(torch, index, src))
     del index, q, d, ids, queries
     torch.cuda.empty_cache()
     report, more = l96_path(torch, api, isax, kmods, more_gen)
@@ -2865,6 +3288,13 @@ def main() -> int:
     report, more = lifecycle_path(torch, api, isax, kmods, more_gen)
     emit(report)
     launches |= {k: v for k, v in more.items() if k not in launches}
+    torch.cuda.empty_cache()
+    report, more, dtw_rows = dtw_path(torch, isax, kmods, ref, dtw_gen)
+    emit(report)
+    launches |= more
+    rows += dtw_rows
+    torch.cuda.empty_cache()
+    emit(fidelity_path(torch, core_index, args.seed, smi))
     torch.cuda.empty_cache()
     attn, more = attention_phase(torch, ops, kmods, ref, gen)
     emit(attn)

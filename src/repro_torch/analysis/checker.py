@@ -1744,7 +1744,7 @@ def plan_cache_scenario(**kw) -> PlanCacheScenario:
     return PlanCacheScenario(**kw)
 
 
-# ---------------------------------------------------------------- driver
+# ----------------------------------------------------------- exploration
 @dataclass
 class ExploreReport:
     """Outcome of exploring one scenario under one strategy."""

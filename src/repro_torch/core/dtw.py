@@ -89,9 +89,7 @@ def _inputs(raw, queries, znorm: bool, device):
     """The collection and the queries as float32 tensors on the device
     (None: "cuda", raising without it), z-normalized if asked."""
     from repro_torch.api import resolve_device
-    dev = resolve_device(device) if device is not None else (
-        raw.device if isinstance(raw, torch.Tensor) and raw.is_cuda
-        else resolve_device(None))
+    dev = resolve_device(device)
     x = torch.as_tensor(raw, dtype=torch.float32, device=dev)
     qs = torch.as_tensor(queries, dtype=torch.float32, device=dev)
     if znorm:
@@ -105,9 +103,9 @@ def search_dtw(raw, queries, *, r: int = 8, round_k: int = 32,
     """Exact DTW 1-NN: LB_Keogh prune -> banded-DTW refine in LB order.
 
     raw: (N, L); queries: (Q, L), numpy or tensors.  Returns (dtw distance
-    (Q,) float32, id (Q,) int32, -1 where no candidate was taken) on the
-    device: `device`, else raw's CUDA device, else "cuda" (RuntimeError
-    without one; pass device="cpu" for the plain versions)."""
+    (Q,) float32, id (Q,) int32, -1 where no candidate was taken) on
+    `device` (None: "cuda", RuntimeError without one; pass device="cpu"
+    for the plain versions)."""
     x, qs = _inputs(raw, queries, znorm, device)
     dist, ids = [], []
     for g0 in range(0, qs.shape[0], GROUP):

@@ -62,7 +62,6 @@
 namespace {
 
 constexpr float kBig = 1e30f;
-constexpr int kMaxBandR = 16;      // the band route's largest radius
 constexpr int kLbThreads = 256;
 constexpr int kScanThreads = 128;
 constexpr int kScanThreadsGeneral = 64;

@@ -284,38 +284,44 @@ def lb_keogh_ref(q: torch.Tensor, x: torch.Tensor, r: int) -> torch.Tensor:
 
 def dtw_band_ref(q: torch.Tensor, x: torch.Tensor, r: int) -> torch.Tensor:
     """Squared banded-DTW distance of each pair of rows of q and x
-    (broadcast against each other; (..., L) -> (...,) float32)."""
+    (broadcast against each other; (..., L) -> (...,) float32).
+
+    Cell (i, k) of the band is column j = i - r + k.  It reads (i-1, k+1)
+    (up), (i-1, k) (diag) and (i, k-1) (left), so every cell of one
+    wavefront t = 2i + k depends only on the wavefronts t-1 and t-2: each
+    step forms one wavefront's cells at once, each as d + min(diag, up,
+    left), the cell (0, 0) as d, the others of row 0 as d + left (their
+    diag and up lie outside the band: BIG).  Wavefront t keeps the cells
+    of its parity of k, BIG elsewhere."""
     q, x = torch.broadcast_tensors(q, x)
     lead, L = q.shape[:-1], q.shape[-1]
     q = q.reshape(-1, L)
     x = x.reshape(-1, L)
     W = 2 * r + 1
-    xp = torch.nn.functional.pad(x, (r, r))        # xp[:, c + r] = x[:, c]
-    big = torch.full((q.shape[0],), BIG, dtype=torch.float32,
+    big = torch.full((q.shape[0], 1), BIG, dtype=torch.float32,
                      device=q.device)
-    prev = None
-    for i in range(L):
-        t = q[:, i:i + 1] - xp[:, i:i + W]           # columns i - r + k
-        d = t * t
-        if prev is None:
-            m = torch.full_like(d, BIG)
-        else:
-            up = torch.cat([prev[:, 1:], big[:, None]], dim=1)
-            m = torch.minimum(prev, up)
-        cur = torch.empty_like(d)
-        left = big
-        for k in range(W):
-            c = i - r + k
-            if c < 0 or c >= L:
-                v = big
-            elif i == 0 and c == 0:
-                v = d[:, k]
-            else:
-                v = d[:, k] + torch.minimum(m[:, k], left)
-            cur[:, k] = v
-            left = v
-        prev = cur
-    return prev[:, r].reshape(lead)
+    prev2 = prev1 = big.expand(-1, W).contiguous()
+    for t in range(2 * (L - 1) + r + 1):
+        # k of t's parity with i = (t - k) / 2 and j = (t + k) / 2 - r
+        # in [0, L): one run of every other k
+        k0 = max(t % 2, t - 2 * (L - 1), 2 * r - t)
+        k1 = min(W - 1, t, 2 * (L - 1) + 2 * r - t)
+        if (k0 - t) % 2:
+            k0 += 1
+        cur = big.expand(-1, W).clone()
+        if k0 <= k1:
+            ks = torch.arange(k0, k1 + 1, 2, device=q.device)
+            i = (t - ks) // 2
+            diff = q[:, i] - x[:, i - r + ks]
+            d = diff * diff
+            padded = torch.cat([big, prev1, big], dim=1)
+            up, left = padded[:, ks + 2], padded[:, ks]
+            v = d + torch.minimum(torch.minimum(prev2[:, ks], up), left)
+            if t == r:                     # cell (0, 0): k = r
+                v[:, (r - k0) // 2] = d[:, (r - k0) // 2]
+            cur[:, ks] = v
+        prev2, prev1 = prev1, cur
+    return prev1[:, r].reshape(lead)
 
 
 def dtw_search_ref(q: torch.Tensor, x: torch.Tensor,
