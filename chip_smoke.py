@@ -2798,8 +2798,7 @@ def rel_err(torch, a, b) -> float:
 def dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk):
     """Collection, queries (z-normalized) and the three kernels against
     their plain versions at one small shape: lb_keogh to 1e-5 relative,
-    dtw_search and dtw_scan bit for bit.  Returns the inputs and the
-    check's numbers."""
+    dtw_search and dtw_scan bit for bit.  Returns the check's numbers."""
     x = isax.znormalize(walks(torch, gen, n, Lx)).contiguous()
     pick = torch.randint(0, n, (nq,), generator=gen, device=DEV)
     q = isax.znormalize(x[pick] + 0.1 * torch.randn(
@@ -2818,83 +2817,49 @@ def dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk):
             f"dtw_scan N {n} L {Lx} r {r}: not bit-equal")
     require(bool((got[0] == d2).all()),
             f"search and scan N {n} L {Lx} r {r}: distances differ")
-    return (x, q, s, o, got), {"N": n, "L": Lx, "queries": nq, "r": r,
-                               "round_k": rk, "lb_rel_err": lb_err,
-                               "rounds_max": int(got[2].max()),
-                               "refined": int(got[3].sum()),
-                               "search": "bit-equal", "scan": "bit-equal"}
+    return {"N": n, "L": Lx, "queries": nq, "r": r, "round_k": rk,
+            "lb_rel_err": lb_err, "rounds_max": int(got[2].max()),
+            "refined": int(got[3].sum()), "search": "bit-equal",
+            "scan": "bit-equal"}
 
 
-def dtw_routes(torch, isax, kd, ref, gen):
-    """The edge runs (r 0, 16 and 40 at L 100; N < round_k; N not a
-    multiple of round_k) and one table row a general route: lb_keogh at
-    L 100, dtw_search and dtw_scan at r 40 (band in shared memory)."""
+def dtw_edges(torch, isax, kd, ref, gen):
+    """The edge runs: r 0, 16 and 40 (the general route) at L 100, N <
+    round_k, and N not a multiple of round_k."""
     edges = []
     for n, Lx, nq, r, rk in ((3000, 100, 8, 0, 32), (3000, 100, 8, 16, 32),
                              (600, 100, 4, 40, 32), (20, L, 4, DTW_R, 32),
                              (1000, L, 4, DTW_R, 16)):
-        inputs, rep = dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk)
-        edges.append(rep)
-        if r == 40:
-            x, q, s, o, got = inputs
+        edges.append(dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r,
+                               rk))
     require(kd.lb_route(100) == "general" and kd.dp_route(40) == "general"
             and kd.dp_route(16) == "band", "dtw routes")
-    rows = []
-    n, Lx, nq, r = x.shape[0], 100, q.shape[0], 40
-    lb_ms = time_ms(torch, lambda: kd.lb_keogh(q, x, r=r))
-    lb_plain = time_ms(torch, lambda: ref.lb_keogh_ref(q, x, r), 3, 1)
-    bms, by = lb_bound(nq, n, Lx)
-    rows.append(route_row("lb_keogh", "general", DTW_SRC,
-                          DTW_REPLACES.format(49, "lb_keogh"),
-                          f"{nq} queries x {n} series, L {Lx}, r {r}",
-                          rel_err(torch, kd.lb_keogh(q, x, r=r),
-                                  ref.lb_keogh_ref(q, x, r)),
-                          lb_ms, lb_plain, bms, by,
-                          {"edges": "lb_keogh to 1e-5 relative"}))
-    refined = int(got[3].sum())
-    ms = time_ms(torch, lambda: kd.dtw_search(q, x, s, o, r=r, round_k=32),
-                 5, 1)
-    plain = time_ms(torch, lambda: ref.dtw_search_ref(q, x, s, o, r, 32),
-                    1, 0)
-    bms, by = dtw_bound(torch, refined, Lx, r,
-                        4 * refined * Lx + 12 * int(got[2].sum()) * 32)
-    rows.append(route_row("dtw_search", "general", DTW_SRC,
-                          DTW_REPLACES.format(122, "search_dtw"),
-                          f"{nq} queries x {n} series, L {Lx}, r {r}, "
-                          f"round_k 32, {refined} refined",
-                          0.0, ms, plain, bms, by,
-                          {"edges": "bit-equal to dtw_search_ref"}))
-    ms = time_ms(torch, lambda: kd.dtw_scan(q, x, r=r), 5, 1)
-    plain = time_ms(torch, lambda: ref.dtw_scan_ref(q, x, r), 1, 0)
-    bms, by = dtw_bound(torch, nq * n, Lx, r, 4 * (n + nq) * Lx)
-    rows.append(route_row("dtw_scan", "general", DTW_SRC,
-                          DTW_REPLACES.format(173, "search_dtw_bruteforce"),
-                          f"{nq} queries x {n} series, L {Lx}, r {r}",
-                          0.0, ms, plain, bms, by,
-                          {"edges": "bit-equal to dtw_scan_ref"}))
-    return edges, rows
+    return edges
 
 
 def dtw_path(torch, isax, kmods, ref, gen):
     """Exact DTW 1-NN on the card: 2^22 random walks of length 256 made
-    from the seed, 256 queries (collection series + N(0, 0.1) noise),
-    band r 12 (5 % of L, the UCR Suite's usual Sakoe-Chiba setting),
-    round_k 32, through core.dtw.search_dtw, and the first 32 queries
-    through search_dtw_bruteforce over all 2^22 series; the launch counts
-    are these two calls'.  Holds: ids equal to the brute force's but
-    where two distances lie within 1e-5 relative, distances to 1e-5;
-    every reported distance equal to dtw_band_ref on its (query, id);
-    lb_keogh against lb_keogh_ref on the first group; the DP (through
-    core.dtw.dtw_band) bit for bit against dtw_band_ref on 4,096 sampled
-    pairs.  Then each group's LB, sort and refinement timed alone, the
-    rounds and candidates refined a query, and the table's rows."""
+    from the seed, 256 queries (z-normalized collection series + N(0,
+    0.1) noise), band r 12 (5 % of L, the UCR Suite's usual Sakoe-Chiba
+    setting), round_k 32, through core.dtw.search_dtw, and the first 32
+    queries through search_dtw_bruteforce over all 2^22 series; the
+    launch counts are these two calls'.  Holds: ids equal to the brute
+    force's but where two distances lie within 1e-5 relative, distances
+    to 1e-5; every reported distance equal to dtw_band_ref on its (query,
+    id); each group's refinement (bsf, id, rounds, candidates refined)
+    bit for bit against dtw_search_ref; lb_keogh against lb_keogh_ref on
+    the first group; the DP (through core.dtw.dtw_band) bit for bit
+    against dtw_band_ref on 4,096 sampled pairs.  Then each group's LB,
+    sort and refinement timed alone, the rounds and candidates refined a
+    query, and the table's rows: each kernel at the path's launch, and
+    its general route at the same shape."""
     from repro_torch.core import dtw as cdtw
     kd = kmods["dtw"]
     t_phase = time.perf_counter()
     raw = walks(torch, gen, DTW_N, L)
     pick = torch.randint(0, DTW_N, (DTW_Q,), generator=gen, device=DEV)
-    queries = raw[pick] + 0.1 * torch.randn(DTW_Q, L, generator=gen,
-                                            device=DEV)
+    queries = isax.znormalize(raw[pick]) + 0.1 * torch.randn(
+        DTW_Q, L, generator=gen, device=DEV)
     torch.cuda.synchronize()
     alloc0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -2944,6 +2909,7 @@ def dtw_path(torch, isax, kmods, ref, gen):
     lb_err = rel_err(torch, lb, lb_ref)
     lb_abs = float((lb - lb_ref).abs().max())
     require(lb_err <= 1e-5, f"lb_keogh vs plain: {lb_err}")
+    del lb
     # the DP on sampled pairs, one dtw_band (a dtw_scan of one pair) each
     pq = torch.randint(0, DTW_Q, (DTW_PAIRS,), generator=gen, device=DEV)
     px = torch.randint(0, DTW_N, (DTW_PAIRS,), generator=gen, device=DEV)
@@ -2954,10 +2920,11 @@ def dtw_path(torch, isax, kmods, ref, gen):
     dr = ref.dtw_band_ref(qz[pq], x[px], DTW_R)
     require(torch.equal(dk, dr), f"DP on {DTW_PAIRS} pairs: not bit-equal "
             f"({float((dk - dr).abs().max())})")
-    # the search's pieces, group by group, timed alone
+    # the search's pieces, group by group, timed alone; each group's
+    # refinement held against the plain version's
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
     parts = {"lb_ms": 0.0, "sort_ms": 0.0, "refine_ms": 0.0}
-    rounds, refined = [], []
+    rounds, refined, plain_ms = [], [], []
     for g in range(0, DTW_Q, cdtw.GROUP):
         qg = qz[g:g + cdtw.GROUP]
         e = [ev() for _ in range(4)]
@@ -2966,19 +2933,25 @@ def dtw_path(torch, isax, kmods, ref, gen):
         e[1].record()
         s, o = torch.sort(lbg, dim=1, stable=True)
         e[2].record()
-        bsf, best, ro, rf = kd.dtw_search(qg, x, s, o, r=DTW_R,
-                                          round_k=DTW_RK)
+        got = kd.dtw_search(qg, x, s, o, r=DTW_R, round_k=DTW_RK)
         e[3].record()
         torch.cuda.synchronize()
-        require(torch.equal(best, ids[g:g + cdtw.GROUP]),
+        require(torch.equal(got[1], ids[g:g + cdtw.GROUP]),
                 "dtw: the timed group's ids differ from the search's")
         for key, a, b in (("lb_ms", 0, 1), ("sort_ms", 1, 2),
                           ("refine_ms", 2, 3)):
             parts[key] += e[a].elapsed_time(e[b])
-        rounds += ro.tolist()
-        refined += rf.tolist()
+        t0 = time.perf_counter()
+        want = ref.dtw_search_ref(qg, x, s, o, DTW_R, DTW_RK)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"dtw_search, queries {g}..: not bit-equal to "
+                f"dtw_search_ref")
+        rounds += got[2].tolist()
+        refined += got[3].tolist()
         if g == 0:
-            first = (qg, s, o, bsf, best, ro, rf)
+            first = (qg, s, o, got)
         del lbg, s, o
     rounds_t = torch.tensor(rounds, dtype=torch.float64)
     refined_t = torch.tensor(refined, dtype=torch.float64)
@@ -2996,73 +2969,86 @@ def dtw_path(torch, isax, kmods, ref, gen):
            "peak_bytes_search": peak, "ties_vs_bruteforce": ties,
            "dist_rel_err_vs_bruteforce": d_err,
            "own_distance": "bit-equal to dtw_band_ref",
+           "search_check": "every group bit-equal to dtw_search_ref",
+           "plain_refine_ms": plain_ms,
            "lb_rel_err": lb_err, "pairs": DTW_PAIRS,
            "pairs_check": "bit-equal to dtw_band_ref", "pairs_s": pairs_s,
            "launches": launches, "by_route": routes}
-    # table rows at the main path's launches
+    # table rows at the main path's launches, each beside its general
+    # route at the same shape (held to the same plain version)
     rows = []
-    ms = time_ms(torch, lambda: kd.lb_keogh(g0, x, r=DTW_R), 5, 1)
+    shape = (f"{cdtw.GROUP} queries x {DTW_N} series, L {L}, r {DTW_R} "
+             f"(one group, the search's launch)")
     plain = time_ms(torch, lambda: ref.lb_keogh_ref(g0, x, DTW_R), 1, 0)
     bms, by = lb_bound(cdtw.GROUP, DTW_N, L)
-    rows.append({"name": "lb_keogh", "route": "cuda", "source": DTW_SRC,
-                 "replaces": DTW_REPLACES.format(49, "lb_keogh"),
-                 "port_side": True,
-                 "shape": f"{cdtw.GROUP} queries x {DTW_N} series, L {L}, "
-                          f"r {DTW_R} (one group, the search's launch)",
-                 "max_abs_err": lb_abs, "ms": ms, "plain_ms": plain,
-                 "bound_ms": bms, "bound_by": by, "library_ms": None})
-    qg, s, o, bsf, best, ro, rf = first
-    n_ref = int(rf.sum())
-    ms = time_ms(torch, lambda: kd.dtw_search(qg, x, s, o, r=DTW_R,
-                                              round_k=DTW_RK), 3, 1)
+    for route in ("l256", "general"):
+        ms = time_ms(torch, lambda: kd.lb_keogh(g0, x, r=DTW_R, route=route),
+                     5, 1)
+        lb = kd.lb_keogh(g0, x, r=DTW_R, route=route)
+        err = rel_err(torch, lb, lb_ref)
+        require(err <= 1e-5, f"lb_keogh {route} vs plain: {err}")
+        row = {"name": "lb_keogh", "route": "cuda", "source": DTW_SRC,
+               "replaces": DTW_REPLACES.format(49, "lb_keogh"),
+               "port_side": True, "shape": shape,
+               "max_abs_err": float((lb - lb_ref).abs().max()), "ms": ms,
+               "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+               "library_ms": None}
+        if route == "general":
+            row = route_row("lb_keogh", route, DTW_SRC, row["replaces"],
+                            shape, row["max_abs_err"], ms, plain, bms, by,
+                            {"main shape": "lb_keogh to 1e-5 relative"})
+        rows.append(row)
+        del lb
+    del lb_ref
+    qg, s, o, got = first
+    n_ref = int(got[3].sum())
     bms, by = dtw_bound(torch, n_ref, L, DTW_R,
-                        4 * n_ref * L + 12 * int(ro.sum()) * DTW_RK)
-    # the plain version's loop of rounds is thousands of launches a
-    # round: timed on the group's four lightest queries, the kernel too
-    light = torch.argsort(ro, stable=True)[:4]
-    ql, sl, ol = qg[light].contiguous(), s[light].contiguous(), \
-        o[light].contiguous()
-    light_ms = time_ms(torch, lambda: kd.dtw_search(
-        ql, x, sl, ol, r=DTW_R, round_k=DTW_RK), 3, 1)
-    t0 = time.perf_counter()
-    got = ref.dtw_search_ref(ql, x, sl, ol, DTW_R, DTW_RK)
-    torch.cuda.synchronize()
-    plain = (time.perf_counter() - t0) * 1e3
-    kern = kd.dtw_search(ql, x, sl, ol, r=DTW_R, round_k=DTW_RK)
-    require(all(torch.equal(a, b) for a, b in zip(kern, got)),
-            "dtw_search on the lightest queries: not bit-equal")
-    rows.append({"name": "dtw_search", "route": "cuda", "source": DTW_SRC,
-                 "replaces": DTW_REPLACES.format(122, "search_dtw"),
-                 "port_side": True,
-                 "shape": f"{cdtw.GROUP} queries x {DTW_N} series, L {L}, "
-                          f"r {DTW_R}, round_k {DTW_RK}, {n_ref} refined, "
-                          f"{int(ro.max())} rounds at most (one group)",
-                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
-                 "plain_queries": 4, "ms_on_plain_queries": light_ms,
-                 "plain_rounds": ro[light].tolist(),
-                 "bound_ms": bms, "bound_by": by, "library_ms": None})
-    ms = time_ms(torch, lambda: kd.dtw_scan(qz[:DTW_BRUTE], x, r=DTW_R),
-                 2, 1)
-    one_ms = time_ms(torch, lambda: kd.dtw_scan(qz[:1], x, r=DTW_R), 3, 1)
+                        4 * n_ref * L + 12 * int(got[2].sum()) * DTW_RK)
+    shape = (f"{cdtw.GROUP} queries x {DTW_N} series, L {L}, r {DTW_R}, "
+             f"round_k {DTW_RK}, {n_ref} refined, {int(got[2].max())} "
+             f"rounds at most (the first group)")
+    for route in ("band", "general"):
+        ms = time_ms(torch, lambda: kd.dtw_search(
+            qg, x, s, o, r=DTW_R, round_k=DTW_RK, route=route), 3, 1)
+        again = kd.dtw_search(qg, x, s, o, r=DTW_R, round_k=DTW_RK,
+                              route=route)
+        require(all(torch.equal(a, b) for a, b in zip(again, got)),
+                f"dtw_search {route}: not bit-equal on the first group")
+        row = route_row("dtw_search", route, DTW_SRC,
+                        DTW_REPLACES.format(122, "search_dtw"), shape, 0.0,
+                        ms, plain_ms[0], bms, by,
+                        {"main shape": "bit-equal to dtw_search_ref"})
+        rows.append(row if route == "general"
+                    else row | {"name": "dtw_search", "port_side": True})
+    del first, qg, s, o
+    torch.cuda.empty_cache()
+    qb = qz[:DTW_BRUTE].contiguous()
     plain = time_ms(torch, lambda: ref.dtw_scan_ref(qz[:1], x, DTW_R), 1, 1)
     bms, by = dtw_bound(torch, DTW_BRUTE * DTW_N, L, DTW_R,
                         4 * (DTW_N + DTW_BRUTE) * L)
-    rows.append({"name": "dtw_scan", "route": "cuda", "source": DTW_SRC,
-                 "replaces": DTW_REPLACES.format(173,
-                                                 "search_dtw_bruteforce"),
-                 "port_side": True,
-                 "shape": f"{DTW_BRUTE} queries x {DTW_N} series, L {L}, "
-                          f"r {DTW_R} (the brute force's launch)",
-                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
-                 "plain_queries": 1, "ms_on_plain_queries": one_ms,
-                 "bound_ms": bms, "bound_by": by, "library_ms": None})
-    del x, first, qg, s, o
+    shape = (f"{DTW_BRUTE} queries x {DTW_N} series, L {L}, r {DTW_R} "
+             f"(the brute force's launch)")
+    for route in ("band", "general"):
+        ms = time_ms(torch, lambda: kd.dtw_scan(qb, x, r=DTW_R, route=route),
+                     2, 1)
+        one_ms = time_ms(torch, lambda: kd.dtw_scan(qz[:1], x, r=DTW_R,
+                                                    route=route), 3, 1)
+        d2, i = kd.dtw_scan(qb, x, r=DTW_R, route=route)
+        require(torch.equal(torch.sqrt(d2), bd) and torch.equal(i, bi),
+                f"dtw_scan {route}: differs from the brute force's")
+        row = route_row("dtw_scan", route, DTW_SRC,
+                        DTW_REPLACES.format(173, "search_dtw_bruteforce"),
+                        shape, 0.0, ms, plain, bms, by,
+                        {"main shape": "equal to the brute force's answers"})
+        row |= {"plain_queries": 1, "ms_on_plain_queries": one_ms}
+        rows.append(row if route == "general"
+                    else row | {"name": "dtw_scan", "port_side": True})
+    del x, qz, qb
     torch.cuda.empty_cache()
-    edges, route_rows = dtw_routes(torch, isax, kd, ref, gen)
-    rep["edges"] = edges
-    rep["rows"] = rows + route_rows
+    rep["edges"] = dtw_edges(torch, isax, kd, ref, gen)
+    rep["rows"] = rows
     rep["seconds"] = time.perf_counter() - t_phase
-    return rep, launches, rep["rows"]
+    return rep, launches, rows
 
 
 # ------------------------------------------------------------------ checker

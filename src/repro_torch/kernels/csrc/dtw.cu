@@ -453,16 +453,16 @@ extern "C" int dtw_lb_keogh(const void* q, const void* x, long long N, int L,
 // The refinement of each query g < Qg: candidates order[g, :] (int64)
 // with ascending bounds slb[g, :], round_k (<= 1024) a round, `threads`
 // (round_k rounded up to a warp) a block.  Writes bsf (squared), best
-// (-1: none taken), rounds and refined, one each a query.  r <= 16 takes
-// the band route, r > 16 the general one.
+// (-1: none taken), rounds and refined, one each a query.  route: 0 the
+// band route (r <= 16), 1 the general one (any r).
 extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
-                          int r, int Qg, int round_k, int threads,
+                          int r, int Qg, int round_k, int threads, int route,
                           const void* slb, const void* order, void* bsf,
                           void* best, void* rounds, void* refined,
                           void* stream) {
   if (Qg == 0) return 0;
   if (r < 0 || round_k < 1 || round_k > threads || threads > 1024
-      || threads % 32)
+      || threads % 32 || (route == 0 && r > 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
@@ -473,7 +473,7 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
   int* bi = static_cast<int*>(best);
   int* ro = static_cast<int*>(rounds);
   int* rf = static_cast<int*>(refined);
-  switch (r) {
+  if (route == 0) switch (r) {
     DTW_BAND_CASES(search_launch, qq, xx, N, L, r, Qg, round_k, threads, lb,
                    od, b, bi, ro, rf, st)
   }
@@ -482,16 +482,18 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
 }
 
 // keys (Q,) uint64, each all ones on entry: min over series n of
-// (bits of the squared DTW of query g and series n) << 32 | n.
+// (bits of the squared DTW of query g and series n) << 32 | n.  route as
+// dtw_search's.
 extern "C" int dtw_scan(const void* q, const void* x, long long N, int L,
-                        int r, int Q, void* keys, void* stream) {
+                        int r, int Q, int route, void* keys, void* stream) {
   if (N == 0 || Q == 0) return 0;
-  if (r < 0 || N > 0xffffffffll) return (int)cudaErrorInvalidValue;
+  if (r < 0 || N > 0xffffffffll || (route == 0 && r > 16))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
   const float* xx = static_cast<const float*>(x);
   unsigned long long* k = static_cast<unsigned long long*>(keys);
-  switch (r) {
+  if (route == 0) switch (r) {
     DTW_BAND_CASES(scan_launch, qq, xx, N, L, r, Q, k, st)
   }
   return scan_launch<-1>(qq, xx, N, L, r, Q, k, st);

@@ -4,7 +4,7 @@ of a search, and the brute-force scan.
 On CUDA tensors `lb_keogh`, `dtw_search` and `dtw_scan` launch the
 kernels of `csrc/dtw.cu` (a port-side source with no Pallas original:
 repro's DTW is plain jnp), by the routes `lb_route` and `dp_route` pick
-from the shapes; on CPU tensors they run the plain versions
+from the shapes, or by the general route where the caller asks; on CPU tensors they run the plain versions
 `ref.lb_keogh_ref`, `ref.dtw_search_ref` and `ref.dtw_scan_ref`.  On any
 other device they raise.  `launches` counts the kernels' launches,
 `by_route` those of each (kernel, route).
@@ -32,9 +32,10 @@ _SCAN_THREADS = {"band": 128, "general": 64}
 _LB_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
 _SEARCH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7)
+                    + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 7)
 _SCAN_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                  + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+                  + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+_DP_CODES = {"band": 0, "general": 1}
 
 
 def lb_route(L: int) -> str:
@@ -48,6 +49,16 @@ def dp_route(r: int) -> str:
     template instance a radius), "general" for r > 16 (in shared
     memory)."""
     return "band" if r <= MAX_BAND_R else "general"
+
+
+def _pick(route, default: str, allowed: tuple, what: str) -> str:
+    """The route a caller asked for (None: the default), if it takes the
+    shape."""
+    if route is None:
+        return default
+    if route not in allowed:
+        raise ValueError(f"{what} takes the routes {allowed}, got {route!r}")
+    return route
 
 
 def lb_group(L: int) -> int:
@@ -83,20 +94,22 @@ def _check(q: torch.Tensor, x: torch.Tensor, r: int) -> None:
         raise RuntimeError(f"no DTW kernel for device {q.device}")
 
 
-def lb_keogh(q: torch.Tensor, x: torch.Tensor, *, r: int) -> torch.Tensor:
+def lb_keogh(q: torch.Tensor, x: torch.Tensor, *, r: int,
+             route: str | None = None) -> torch.Tensor:
     """The squared LB_Keogh of each query of q (Qg, L) against each series
     of x (N, L), band radius r: (Qg, N) float32.  One launch for each
-    `lb_group(L)` queries, each reading the collection once.
+    `lb_group(L)` queries, each reading the collection once, by `route`
+    (default `lb_route(L)`; "general" takes every L).
 
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if a launch fails."""
     _check(q, x, r)
+    L = q.shape[1]
+    route = _pick(route, lb_route(L), (lb_route(L), "general"), "lb_keogh")
     if q.device.type == "cpu":
         return lb_keogh_ref(q, x, r)
-    Qg, L = q.shape
-    N = x.shape[0]
+    Qg, N = q.shape[0], x.shape[0]
     out = torch.empty((Qg, N), dtype=torch.float32, device=x.device)
-    route = lb_route(L)
     fn = _build.entry("dtw", "dtw_lb_keogh", _LB_ARGTYPES)
     step = lb_group(L)
     with torch.cuda.device(x.device):
@@ -112,12 +125,13 @@ def lb_keogh(q: torch.Tensor, x: torch.Tensor, *, r: int) -> torch.Tensor:
 
 
 def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
-               order: torch.Tensor, *, r: int, round_k: int
-               ) -> Tuple[torch.Tensor, ...]:
+               order: torch.Tensor, *, r: int, round_k: int,
+               route: str | None = None) -> Tuple[torch.Tensor, ...]:
     """The refinement of a DTW 1-NN search for each query of q (Qg, L)
     over x (N, L), in one launch: candidates order (Qg, N) int64 in the
     order of their ascending bounds sorted_lb (Qg, N) float32, round_k
-    (<= 1024) a round, the loop of rounds on the device.  Returns (bsf
+    (<= 1024) a round, the loop of rounds on the device, by `route`
+    (default `dp_route(r)`; "general" takes every r).  Returns (bsf
     (Qg,) float32 squared distances, best (Qg,) int32 ids, -1 where no
     candidate was taken, rounds (Qg,) int32, refined (Qg,) int32: the
     candidates whose DTW was computed), as `ref.dtw_search_ref`.
@@ -140,7 +154,8 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
     if not isinstance(round_k, int) or not 1 <= round_k <= 1024:
         raise ValueError(f"round_k must be in [1, 1024], got {round_k!r}")
     threads = -(-round_k // 32) * 32
-    route = dp_route(r)
+    route = _pick(route, dp_route(r), (dp_route(r), "general"),
+                  "dtw_search")
     if route == "general" and 4 * (L + (2 * r + 1) * threads) > _SMEM:
         raise ValueError(f"band radius {r} with round_k {round_k} needs "
                          f"more shared memory than a block has")
@@ -155,19 +170,21 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
     fn = _build.entry("dtw", "dtw_search", _SEARCH_ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(q.data_ptr(), x.data_ptr(), N, L, r, Qg, round_k, threads,
-                  sorted_lb.data_ptr(), order.data_ptr(), bsf.data_ptr(),
-                  best.data_ptr(), rounds.data_ptr(), refined.data_ptr(),
+                  _DP_CODES[route], sorted_lb.data_ptr(), order.data_ptr(),
+                  bsf.data_ptr(), best.data_ptr(), rounds.data_ptr(),
+                  refined.data_ptr(),
                   torch.cuda.current_stream(dev).cuda_stream)
     _build.check("dtw", "dtw_search", code)
     _count("dtw_search", route)
     return bsf, best, rounds, refined
 
 
-def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int,
+             route: str | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Banded DTW of each query of q (Q, L) against every series of x
     (N >= 1, L), in one launch: (the least squared distance (Q,)
-    float32, its series (Q,) int32, the first on ties).
+    float32, its series (Q,) int32, the first on ties), by `route` as
+    `dtw_search`'s.
 
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if the launch fails."""
@@ -179,7 +196,7 @@ def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int
     if N >= 1 << 31 or Q > 65535:
         raise ValueError(f"dtw_scan takes N < 2^31 and Q <= 65535, got "
                          f"{N}, {Q}")
-    route = dp_route(r)
+    route = _pick(route, dp_route(r), (dp_route(r), "general"), "dtw_scan")
     if (route == "general"
             and 4 * (L + (2 * r + 1) * _SCAN_THREADS[route]) > _SMEM):
         raise ValueError(f"band radius {r} needs more shared memory than "
@@ -193,7 +210,7 @@ def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int
         fn = _build.entry("dtw", "dtw_scan", _SCAN_ARGTYPES)
         with torch.cuda.device(dev):
             code = fn(q.data_ptr(), x.data_ptr(), N, L, r, Q,
-                      keys.data_ptr(),
+                      _DP_CODES[route], keys.data_ptr(),
                       torch.cuda.current_stream(dev).cuda_stream)
         _build.check("dtw", "dtw_scan", code)
         _count("dtw_scan", route)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import isax
@@ -326,7 +327,8 @@ def dtw_band_ref(q: torch.Tensor, x: torch.Tensor, r: int) -> torch.Tensor:
 
 def dtw_search_ref(q: torch.Tensor, x: torch.Tensor,
                    sorted_lb: torch.Tensor, order: torch.Tensor, r: int,
-                   round_k: int) -> Tuple[torch.Tensor, ...]:
+                   round_k: int, max_pairs: int = 1 << 16
+                   ) -> Tuple[torch.Tensor, ...]:
     """The refinement of a DTW 1-NN search (repro's `search_dtw` loop) for
     each query of q (Qg, L) over x (N, L): candidates in the order of
     `order` (Qg, N) int64, whose lower bounds `sorted_lb` (Qg, N) are
@@ -336,36 +338,63 @@ def dtw_search_ref(q: torch.Tensor, x: torch.Tensor,
     at the padded end or when the next round's first bound is >= the
     best-so-far.  Returns (bsf (Qg,) float32 squared, best (Qg,) int32,
     -1 where no candidate was taken, rounds (Qg,) int32, refined (Qg,)
-    int32: the candidates whose DTW was computed)."""
+    int32: the candidates whose DTW was computed).
+
+    The distances come from `dtw_band_ref` a chunk of rounds at a time,
+    every candidate of the chunk and every query still running in one
+    call (the chunk doubles while a query runs on, up to `max_pairs`
+    pairs a call), and the rounds then run on the host over them; a
+    candidate the rule prunes counts as BIG whatever its distance, so
+    computing it changes nothing but the time."""
     Qg, N = sorted_lb.shape
-    end = -(-N // round_k) * round_k
-    bsf = torch.full((Qg,), BIG, dtype=torch.float32, device=x.device)
-    best = torch.full((Qg,), -1, dtype=torch.int32, device=x.device)
-    rounds = torch.zeros((Qg,), dtype=torch.int32, device=x.device)
-    refined = torch.zeros((Qg,), dtype=torch.int32, device=x.device)
-    for g in range(Qg):
-        cursor = 0
-        while cursor < end and bool(sorted_lb[g, cursor] < bsf[g]):
-            lbs = torch.full((round_k,), BIG, dtype=torch.float32,
-                             device=x.device)
-            ids = torch.zeros((round_k,), dtype=torch.int64,
-                              device=x.device)
-            n = min(round_k, N - cursor)
-            lbs[:n] = sorted_lb[g, cursor:cursor + n]
-            ids[:n] = order[g, cursor:cursor + n]
-            take = lbs < bsf[g]
-            d = torch.full((round_k,), BIG, dtype=torch.float32,
-                           device=x.device)
-            if bool(take.any()):
-                d[take] = dtw_band_ref(q[g], x[ids[take]], r)
-            k = int(torch.argmin(d))
-            if bool(d[k] < bsf[g]):
-                bsf[g] = d[k]
-                best[g] = int(ids[k])
-            rounds[g] += 1
-            refined[g] += int(take.sum())
-            cursor += round_k
-    return bsf, best, rounds, refined
+    n_rounds = -(-N // round_k)
+    big = np.float32(BIG)
+    bsf = np.full(Qg, big, np.float32)
+    best = np.full(Qg, -1, np.int64)
+    rounds = np.zeros(Qg, np.int64)
+    refined = np.zeros(Qg, np.int64)
+    first = sorted_lb[:, 0].cpu().numpy() if N else np.zeros(Qg)
+    running = [g for g in range(Qg) if n_rounds and first[g] < big]
+    span = 1
+    while running:
+        span = max(1, min(span, max_pairs // (len(running) * round_k)))
+        parts = []
+        for g in running:
+            a = int(rounds[g]) * round_k
+            parts.append((g, a, min(N, a + span * round_k)))
+        sel = torch.cat([order[g, a:b] for g, a, b in parts])
+        qi = torch.cat([torch.full((b - a,), g, dtype=torch.int64,
+                                   device=x.device) for g, a, b in parts])
+        dist = dtw_band_ref(q[qi], x[sel], r).cpu().numpy()
+        lbs = torch.cat([sorted_lb[g, a:b] for g, a, b in parts]
+                        ).cpu().numpy()
+        ids = sel.cpu().numpy()
+        at, still = 0, []
+        for g, a, b in parts:
+            stopped = False
+            for c in range(a, b, round_k):
+                j = at + c - a
+                if c > a and not lbs[j] < bsf[g]:
+                    stopped = True
+                    break
+                e = j + min(round_k, b - c)
+                take = lbs[j:e] < bsf[g]
+                d = np.where(take, dist[j:e], big)
+                k = int(np.argmin(d))
+                if d[k] < bsf[g]:
+                    bsf[g], best[g] = d[k], ids[j + k]
+                rounds[g] += 1
+                refined[g] += int(take.sum())
+            at += b - a
+            if not stopped and rounds[g] < n_rounds and np.float32(
+                    sorted_lb[g, b].item()) < bsf[g]:
+                still.append(g)
+        running, span = still, 2 * span
+    dev = x.device
+    return (torch.as_tensor(bsf, device=dev),
+            torch.as_tensor(best.astype(np.int32), device=dev),
+            torch.as_tensor(rounds.astype(np.int32), device=dev),
+            torch.as_tensor(refined.astype(np.int32), device=dev))
 
 
 def dtw_scan_ref(q: torch.Tensor, x: torch.Tensor,

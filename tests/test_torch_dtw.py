@@ -212,6 +212,57 @@ def test_search_ref_rounds_and_prune_rule():
     assert int(rounds[0]) == n_rounds_needed
 
 
+def _rounds_one_by_one(q, x, s, o, r, rk):
+    """The refinement's loop as its docstring states it: one query, one
+    round and one DP call at a time."""
+    Qg, N = s.shape
+    out = []
+    for g in range(Qg):
+        bsf, best, rounds, refined, cursor = ref.BIG, -1, 0, 0, 0
+        bsf = np.float32(bsf)
+        while cursor < N and float(s[g, cursor]) < bsf:
+            lbs = s[g, cursor:cursor + rk].numpy()
+            ids = o[g, cursor:cursor + rk].numpy()
+            take = lbs < bsf
+            d = np.full(len(lbs), np.float32(ref.BIG), np.float32)
+            if take.any():
+                d[take] = ref.dtw_band_ref(q[g], x[torch.as_tensor(
+                    ids[take])], r).numpy()
+            k = int(np.argmin(d))
+            if d[k] < bsf:
+                bsf, best = d[k], int(ids[k])
+            rounds += 1
+            refined += int(take.sum())
+            cursor += rk
+        out.append((float(bsf), best, rounds, refined))
+    return out
+
+
+@pytest.mark.parametrize("N,L,Q,r,rk,noise,max_pairs", [
+    (4000, 64, 8, 4, 16, 0.3, 1 << 16), (4000, 64, 8, 4, 8, 0.2, 96),
+    (4000, 64, 6, 6, 32, 0.4, 512), (1500, 48, 5, 3, 5, 0.25, 7),
+    (700, 40, 4, 0, 7, 0.3, 100), (20, 32, 3, 2, 32, 0.5, 1 << 16)])
+def test_search_ref_equals_a_round_by_round_loop(N, L, Q, r, rk, noise,
+                                                 max_pairs):
+    """dtw_search_ref takes its distances a chunk of rounds at a time,
+    for every query still running at once: the same bsf, id, rounds and
+    candidates refined as one round of one query at a time, whatever the
+    chunk (max_pairs down to one round)."""
+    rng = np.random.default_rng(N + L + rk)
+    x = isax.znormalize(torch.as_tensor(
+        np.cumsum(rng.standard_normal((N, L)), 1), dtype=torch.float32))
+    q = x[torch.as_tensor(rng.integers(0, N, Q))] + noise * torch.as_tensor(
+        rng.standard_normal((Q, L)), dtype=torch.float32)
+    s, o = torch.sort(ref.lb_keogh_ref(q, x, r), dim=1, stable=True)
+    bsf, best, rounds, refined = ref.dtw_search_ref(q, x, s, o, r, rk,
+                                                    max_pairs=max_pairs)
+    got = list(zip(bsf.tolist(), best.tolist(), rounds.tolist(),
+                   refined.tolist()))
+    assert got == _rounds_one_by_one(q, x, s, o, r, rk)
+    # r 0 (the bound is the distance) and N < round_k end in one round
+    assert max(rounds.tolist()) > 1 or r == 0 or N < rk
+
+
 def test_search_groups_queries():
     """More queries than a group: the groups' answers equal one query at
     a time."""

@@ -216,6 +216,22 @@ def test_dtw_wrappers_raise_on_what_the_kernel_does_not_take():
                      torch.zeros(9, 16, device="meta"), r=2)
 
 
+def test_dtw_wrappers_raise_on_a_route_the_shape_does_not_take():
+    q, x = torch.zeros(2, 16), torch.zeros(9, 16)
+    lb = torch.zeros(2, 9)
+    order = torch.zeros(2, 9, dtype=torch.int64)
+    for route in ("l256", "band", "fast"):
+        with pytest.raises(ValueError, match="routes"):
+            dtw.lb_keogh(q, x, r=2, route=route)
+    with pytest.raises(ValueError, match="routes"):
+        dtw.dtw_search(q, x, lb, order, r=17, round_k=4, route="band")
+    with pytest.raises(ValueError, match="routes"):
+        dtw.dtw_scan(q, x, r=20, route="band")
+    # the general route takes every radius, the band route up to 16
+    assert dtw.dtw_scan(q, x, r=2, route="general")[1].tolist() == [0, 0]
+    assert dtw.dtw_scan(q, x, r=16, route="band")[1].tolist() == [0, 0]
+
+
 def test_dtw_cpu_tensors_run_the_plain_version_and_count_nothing():
     from repro_torch.kernels import ref
     before = (dtw.launches, dict(dtw.by_route))
