@@ -15,6 +15,12 @@ Phases, each printing one JSON line:
              attention rows, dh 64 and 32, a ragged scan), drawn from a
              generator of their own so that the main phase's inputs stay
              what the seed alone makes them;
+             refine_topk (one round) is held at K 8, 6, 12 and 264,
+             leaves of 16, 32 and 64, f32 and bf16, alive shares 0, 0.05
+             (the sharded search's late rounds) and 0.5, bit for bit to the
+             same round folded slot by slot and within tolerance to its
+             plain version, and timed at the table's shape with half and
+             a twentieth of the slots alive;
              refine_search (the whole refinement of a search in one
              launch) is held against refine_search_ref on a real index of
              2^18 walks drawn from that generator, in f32 and bf16, and on
@@ -41,7 +47,8 @@ Phases, each printing one JSON line:
              fast route does not fit) against their plain versions:
              summarize strided at L 96 / w 16 (f32, bf16) and L 100 / w 10,
              lb_distance looped at w 32 and 10, refine_topk general at bf16
-             L 100 and at k 16,000, refine_search at k 5000 (2 CTAs an SM),
+             L 100 and at k 16,000 (each bit-equal to its round folded
+             slot by slot), refine_search at k 5000 (2 CTAs an SM),
              at leaves of 256 and K 64 (1 CTA an SM), at k 20,000 and bf16
              L 100 (general), ed_argmin general at L 100; one table row each;
   rounds     ops.refine_topk, repro's per-round kernel API, driven through
@@ -92,7 +99,8 @@ Phases, each printing one JSON line:
              reads, ms, peak memory beside the local search's, and
              launches (lb_distance 4, refine_topk 4 a round run), ids held
              to brute force (k 10) and to the local search but at ties,
-             the card's busy time and idle share over one k-10 search;
+             the card's busy time and idle share over one k-10 search,
+             with refine_topk's device ms a launch;
              the engine on it (EngineConfig(max_batch=64, sync_every=2,
              warm_ks=(10,))): submits of 1, 8, 64 rows byte-equal to the
              sharded facade, an add of 4,096 series (a mesh-wide epoch)
@@ -133,9 +141,11 @@ Phases, each printing one JSON line:
              to dtw_band_ref on its (query, id), lb_keogh to its plain
              version on a group, the DP bit for bit on 4,096 sampled
              pairs; LB, sort and refinement ms, rounds and candidates
-             refined a query, peak memory; edge runs (r 0, 16, 40 at
-             L 100, N < round_k, N not a multiple of round_k), each
-             kernel bit for bit (lb_keogh to 1e-5); table rows for
+             refined a query, peak memory; edge runs (the band route's
+             wavefront at r 0, 1, 12, 15, 16 and L 100, round_k 100 at
+             r 16 and 64 at r 0; r 40 at L 100; N < round_k, N not a
+             multiple of round_k), each kernel bit for bit (lb_keogh to
+             1e-5); table rows for
              lb_keogh, dtw_search and dtw_scan and their general routes;
   fidelity   build_index_host over 2^16 seismic_like series of length
              256 under RefreshExecutor, DoAllSplit, FaiBased and CasBased
@@ -210,6 +220,21 @@ def time_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def device_ms(torch, fn, reps: int = 40) -> float:
+    """Mean device time of fn()'s kernels a call over `reps` calls, by
+    torch.profiler (CUPTI): the kernels' own time, where CUDA events
+    around back-to-back calls would time the host between them."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in prof.key_averages()) / 1e3 / reps
 
 
 def require(ok: bool, what: str) -> None:
@@ -558,7 +583,85 @@ def fold_check(torch, dk, ek, dr, er, true_d, tol, what):
     return err, int(mism.sum())
 
 
-def check_refine(torch, isax, rk, ref, gen, NL=4096):
+TOPK_GRID_K = (8, 6, 12, 264)   # clusters of 8, 2, 4 and 8 CTAs a row
+TOPK_GRID_M = (16, 32, 64)
+TOPK_SHARES = (0.0, 0.05, 0.5)  # 0.05: the sharded path's late rounds
+
+
+def slot_by_slot(torch, rk, args, M_, k):
+    """One round folded one slot at a time (K launches of one slot each):
+    the order refine_topk folded in before its cluster redesign, whose
+    bits and ties one fold over all the slots must keep."""
+    qv, qsq, series, xn, ids, alive, bd, be = args
+    for j in range(ids.shape[1]):
+        bd, be = rk.refine_topk(qv, qsq, series, xn,
+                                ids[:, j:j + 1].contiguous(),
+                                alive[:, j:j + 1].contiguous(), bd, be,
+                                leaf_capacity=M_, k=k)
+    return bd, be
+
+
+def refine_topk_grid(torch, isax, rk, ref, gen, Qg=32, NL=512):
+    """refine_topk at K 8, 6, 12 and 264, leaves of 16, 32 and 64 rows,
+    f32 and bf16, alive shares 0, 0.05 and 0.5, each round folding into a
+    buffer carried from a round before: bit for bit against the same
+    round folded slot by slot, the buffer itself where no slot is alive,
+    and against the plain version within fold_check's tolerance."""
+    worst, cases = 0.0, 0
+    for M_ in TOPK_GRID_M:
+        x = isax.znormalize(walks(torch, gen, NL * M_, L))
+        qv = isax.znormalize(walks(torch, gen, Qg, L))
+        qsq = (qv * qv).sum(1)
+        for name, series in (("f32", x), ("bf16", x.to(torch.bfloat16))):
+            xn = (series.float() ** 2).sum(1)
+            tol = 1e-5 * (qsq.max() + xn.max()).item()
+
+            def true_d(e, series=series, xn=xn, qv=qv, qsq=qsq):
+                xs = series[e.long()].float()
+                return (qsq[:, None] + xn[e.long()]
+                        - 2 * torch.einsum("qkl,ql->qk", xs, qv)).clamp_min(0)
+            for K_ in TOPK_GRID_K:
+                what = f"refine_topk {name} K {K_} M {M_}"
+                require(rk.route(L, K_, M_, TOPK, series.dtype) == "ring",
+                        f"{what}: route")
+
+                def draw():
+                    return torch.rand(Qg, NL, generator=gen,
+                                      device=DEV).argsort(1)[:, :K_].to(
+                        torch.int32).contiguous()
+                bd, be = rk.refine_topk(
+                    qv, qsq, series, xn, draw(),
+                    torch.rand(Qg, K_, generator=gen, device=DEV) < 0.5,
+                    torch.full((Qg, TOPK), 1e30, device=DEV),
+                    torch.zeros((Qg, TOPK), dtype=torch.int32, device=DEV),
+                    leaf_capacity=M_, k=TOPK)
+                for share in TOPK_SHARES:
+                    alive = torch.rand(Qg, K_, generator=gen,
+                                       device=DEV) < share
+                    args = (qv, qsq, series, xn, draw(), alive, bd, be)
+                    dk, ek = rk.refine_topk(*args, leaf_capacity=M_, k=TOPK)
+                    ds, es = slot_by_slot(torch, rk, args, M_, TOPK)
+                    require(torch.equal(dk, ds) and torch.equal(ek, es),
+                            f"{what} alive {share}: not bit-equal to the "
+                            f"round folded slot by slot")
+                    require(share or (torch.equal(dk, bd)
+                                      and torch.equal(ek, be)),
+                            f"{what}: a round with no slot alive changed "
+                            f"the buffer")
+                    dr, er = ref.refine_topk_ref(*args, leaf_capacity=M_,
+                                                 k=TOPK)
+                    err, _ = fold_check(torch, dk, ek, dr, er, true_d, tol,
+                                        f"{what} alive {share}")
+                    worst = max(worst, err)
+                    cases += 1
+        del x, qv
+    return {"cases": cases, "K": TOPK_GRID_K, "leaves": TOPK_GRID_M,
+            "alive_shares": TOPK_SHARES, "max_abs_err": worst,
+            "check": "bit-equal to the round folded slot by slot; the "
+                     "plain version within tol"}
+
+
+def check_refine(torch, isax, rk, ref, gen, grid_gen, NL=4096):
     x = isax.znormalize(torch.randn(NL * M, L, generator=gen, device=DEV)
                         .cumsum_(1))
     qv = isax.znormalize(torch.randn(Q, L, generator=gen, device=DEV)
@@ -590,23 +693,36 @@ def check_refine(torch, isax, rk, ref, gen, NL=4096):
             swaps += s
             bd, be = dr, er
         n_alive = int(alive.sum())
-        ms = time_ms(torch, lambda: rk.refine_topk(*args, leaf_capacity=M,
-                                                   k=TOPK))
+        # the kernel's own time: a launch is shorter than the wrapper's
+        # host time, which CUDA events around calls would measure
+        ms = device_ms(torch, lambda: rk.refine_topk(*args, leaf_capacity=M,
+                                                     k=TOPK))
+        events = time_ms(torch, lambda: rk.refine_topk(
+            *args, leaf_capacity=M, k=TOPK))
         plain = time_ms(torch, lambda: ref.refine_topk_ref(
             *args, leaf_capacity=M, k=TOPK), 5)
         nbytes = (n_alive * M * (L * series.element_size() + 4)
                   + Q * (L * 4 + 4 + K * 5 + TOPK * 16))
         bms, by = bound_ms(nbytes, n_alive * M * L * 2)
-        rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
-                      "bound_by": by, "max_abs_err": max(errs),
-                      "near_tie_swaps": swaps, "tol": tol,
-                      "alive_slots": n_alive}
+        # a late round: about 1 slot in 20 alive
+        late = args[:5] + (torch.rand(Q, K, generator=grid_gen,
+                                      device=DEV) < 0.05,) + args[6:]
+        late_ms = device_ms(torch, lambda: rk.refine_topk(
+            *late, leaf_capacity=M, k=TOPK))
+        rows[name] = {"ms": ms, "events_ms": events, "plain_ms": plain,
+                      "bound_ms": bms, "bound_by": by,
+                      "max_abs_err": max(errs), "near_tie_swaps": swaps,
+                      "tol": tol, "alive_slots": n_alive,
+                      "late_round_ms": late_ms,
+                      "late_round_alive_slots": int(late[5].sum())}
+    rows["grid"] = refine_topk_grid(torch, isax, rk, ref, grid_gen)
     f = rows["f32"]
     return {"name": "refine_topk", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/refine.cu",
             "replaces": "src/repro/kernels/refine.py:139",
             "shape": f"Q={Q} K={K} M={M} L={L} k={TOPK}, ~half alive, f32",
-            "max_abs_err": f["max_abs_err"], "ms": f["ms"],
+            "max_abs_err": max(f["max_abs_err"], rows["grid"]["max_abs_err"]),
+            "ms": f["ms"],
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": None,
             "checks": rows}
@@ -1079,7 +1195,8 @@ def route_lb(torch, lbk, ref, gen, NL=1 << 16):
 
 def route_refine_topk(torch, isax, rk, ref, gen, NL=2048):
     """The general route of one round: bf16 rows of 100 (200 bytes, not
-    whole 16-byte pieces), and k 16,000 (buffers past shared memory)."""
+    whole 16-byte pieces), and k 16,000 (buffers past shared memory);
+    each bit-equal to the round folded slot by slot."""
     rows = {}
     for name, Lx, dtype, k, nq in (("bf16_L100_k10", 100, torch.bfloat16,
                                     TOPK, Q),
@@ -1091,7 +1208,7 @@ def route_refine_topk(torch, isax, rk, ref, gen, NL=2048):
         series = x.to(dtype)
         xn = (series.float() ** 2).sum(1)
         tol = 1e-5 * (qsq.max() + xn.max()).item()
-        require(rk.route(Lx, M, k, dtype) == "general", f"{name}: route")
+        require(rk.route(Lx, K, M, k, dtype) == "general", f"{name}: route")
 
         def true_d(e, series=series, xn=xn, qv=qv, qsq=qsq):
             xs = series[e.long()].float()
@@ -1105,14 +1222,17 @@ def route_refine_topk(torch, isax, rk, ref, gen, NL=2048):
         alive[:, 0] = True
         args = (qv, qsq, series, xn, ids, alive, bd, be)
         dk, ek = rk.refine_topk(*args, leaf_capacity=M, k=k)
+        ds, es = slot_by_slot(torch, rk, args, M, k)
+        require(torch.equal(dk, ds) and torch.equal(ek, es),
+                f"{name}: not bit-equal to the round folded slot by slot")
         dr, er = ref.refine_topk_ref(*args, leaf_capacity=M, k=k)
         err, swaps = fold_check(torch, dk, ek, dr, er, true_d, tol, name)
         rows[name] = {"max_abs_err": err, "near_tie_swaps": swaps,
-                      "tol": tol}
+                      "tol": tol, "slot_by_slot": "bit-equal"}
         if name == "bf16_L100_k10":
             n_alive = int(alive.sum())
-            ms = time_ms(torch, lambda: rk.refine_topk(*args, leaf_capacity=M,
-                                                       k=k))
+            ms = device_ms(torch, lambda: rk.refine_topk(
+                *args, leaf_capacity=M, k=k))
             plain = time_ms(torch, lambda: ref.refine_topk_ref(
                 *args, leaf_capacity=M, k=k), 5)
             bms, by = bound_ms(n_alive * M * (Lx * 2 + 4)
@@ -1250,9 +1370,11 @@ def keys_sorted(torch, isax, words) -> bool:
     return bool(prev.all())
 
 
-def profile_search(torch, index, queries):
+def profile_search(torch, index, queries, per_launch=()):
     """Device time of one search by kernel (torch.profiler over CUPTI) and
-    the device's idle share against that search's own wall time."""
+    the device's idle share against that search's own wall time; for each
+    name of `per_launch`, the mean device ms a launch of the kernels whose
+    name holds it."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1263,10 +1385,17 @@ def profile_search(torch, index, queries):
             for e in prof.key_averages() if e.self_device_time_total > 0}
     busy = sum(ms for ms, _ in kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:8]
+    mean = {}
+    for part in per_launch:
+        hits = [v for name, v in kern.items() if part in name]
+        n = sum(c for _, c in hits)
+        require(n > 0, f"profile: no launch of a kernel named *{part}*")
+        mean[part] = {"ms_per_launch": sum(ms for ms, _ in hits) / n,
+                      "launches": n}
     return {"busy_ms": busy, "wall_ms": wall_ms,
             "idle_share": 1 - busy / wall_ms if busy else None,
             "top": [{"kernel": name[:90], "ms": ms, "count": c}
-                    for name, (ms, c) in top]}
+                    for name, (ms, c) in top], "per_launch": mean}
 
 
 def main_path(torch, api, isax, search, kmods, ref, n, gen):
@@ -2551,7 +2680,7 @@ def sharded_path(torch, api, isax, kmods, index, queries, d, ids, gen):
     refine_topk once a shard a round), peak memory beside the local
     search's; the ids held to brute force (k 10) and to the local search,
     equal but at ties; the card's busy time over one k-10 search
-    (torch.profiler).  Then the engine on the sharded index
+    (torch.profiler), and refine_topk's device ms a launch in it.  Then the engine on the sharded index
     (EngineConfig(max_batch=64, sync_every=2, warm_ks=(10,))): submits
     of 1, 8 and 64 rows byte-equal to the sharded facade; an add of
     4,096 series (a mesh-wide epoch) and a submit that finds them; a
@@ -2562,7 +2691,7 @@ def sharded_path(torch, api, isax, kmods, index, queries, d, ids, gen):
     from repro_torch.runtime import make_mesh
     from repro_torch.serve import EngineConfig
     n = index.index.perm.shape[0]
-    rep = {"phase": "sharded", "series": n, "queries": Q, "slots": SHARDS,
+    rep = {"phase": "sharded", "series": n, "queries": Q, "ring": SHARDS,
            "device": "cuda:0",
            "cards_visible": torch.cuda.device_count()}
     if torch.cuda.device_count() >= SHARDS:
@@ -2636,7 +2765,8 @@ def sharded_path(torch, api, isax, kmods, index, queries, d, ids, gen):
     # where a sharded search's time goes: the card's busy time against
     # the wall (k 10, sync_every 1), outside the counted searches
     t0 = time.perf_counter()
-    rep["device_time"] = profile_search(torch, six, queries)
+    rep["device_time"] = profile_search(torch, six, queries,
+                                        ("topk_kernel",))
     rep["device_time"]["profiling_s"] = time.perf_counter() - t0
 
     # the engine on the sharded index: eager sharded plans
@@ -2824,12 +2954,17 @@ def dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk):
 
 
 def dtw_edges(torch, isax, kd, ref, gen):
-    """The edge runs: r 0, 16 and 40 (the general route) at L 100, N <
-    round_k, and N not a multiple of round_k."""
+    """The edge runs: the band route's wavefront at r 0, 1, 12, 15 and 16
+    (r + 1 lanes a pair: 32, 16, 2, 2 and 1 pairs a warp) at L 100, and
+    at round_k 100 with r 16 (more pairs than the block runs at once) and
+    round_k 64 with r 0; r 40 (the general route) at L 100; N < round_k,
+    and N not a multiple of round_k."""
     edges = []
-    for n, Lx, nq, r, rk in ((3000, 100, 8, 0, 32), (3000, 100, 8, 16, 32),
-                             (600, 100, 4, 40, 32), (20, L, 4, DTW_R, 32),
-                             (1000, L, 4, DTW_R, 16)):
+    for n, Lx, nq, r, rk in ((3000, 100, 8, 0, 32), (3000, 100, 8, 1, 32),
+                             (3000, 100, 8, 12, 32), (3000, 100, 8, 15, 32),
+                             (3000, 100, 8, 16, 32), (2000, 100, 4, 16, 100),
+                             (2000, 100, 4, 0, 64), (600, 100, 4, 40, 32),
+                             (20, L, 4, DTW_R, 32), (1000, L, 4, DTW_R, 16)):
         edges.append(dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r,
                                rk))
     require(kd.lb_route(100) == "general" and kd.dp_route(40) == "general"
@@ -3197,6 +3332,7 @@ def main() -> int:
     serve_gen = torch.Generator(device=DEV).manual_seed(args.seed + 4)
     shard_gen = torch.Generator(device=DEV).manual_seed(args.seed + 5)
     dtw_gen = torch.Generator(device=DEV).manual_seed(args.seed + 6)
+    topk_gen = torch.Generator(device=DEV).manual_seed(args.seed + 7)
     kmods = dict(ops.WRAPPERS)
     rows, launches = [], {}
     for name, check, args_ in (
@@ -3205,7 +3341,7 @@ def main() -> int:
             ("lb_distance", check_lb_distance, (kmods["lb_distance"],
                                                 ref, gen)),
             ("refine_topk", check_refine, (isax, kmods["refine_topk"],
-                                           ref, gen)),
+                                           ref, gen, topk_gen)),
             ("refine_search", check_refine_search, (
                 api, search, kmods["refine_search"], ref, edge_gen)),
             ("ed_argmin", check_ed_argmin, (isax, kmods["ed_argmin"],

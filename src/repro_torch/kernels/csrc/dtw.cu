@@ -24,19 +24,25 @@
 // share each read of a series, so with 32 queries the pass is bound by
 // the f32 rate, not by the collection's bytes.
 //
-// The DP: one thread a (query, candidate) pair.  Each thread walks the
-// rows of its pair in order; the band of the previous row lives in
-// registers (the "band" route, a template instance for each r <= 16:
-// 2 (2r + 1) registers for the band and the series window) or, for
-// r > 16, in shared memory, one column of it a thread (the "general"
-// route).  A warp's 32 threads run 32 pairs in step, so the left-to-right
-// chain of a row (each cell needs its left neighbour) never serialises a
-// warp, and no lane waits for another.  Cell (i, c = i - r + k):
+// The DP.  Cell (i, c = i - r + k) of the band, offset k in [0, 2r]:
 //   d = (q[i] - x[c])^2,  cur[k] = d + min(prev[k], prev[k + 1], cur[k-1])
 // with prev[k] = cost[i-1, i-1-r+k] (diag) and prev[k+1] (up), BIG = 1e30
 // for a cell outside [0, L), and row 0 the running sum from column 0, as
 // repro's dtw_band computes it; min is exact, so the result equals the
-// plain version (kernels/ref.py dtw_band_ref) bit for bit.
+// plain version (kernels/ref.py dtw_band_ref) bit for bit.  Two layouts:
+// - one thread a (query, candidate) pair (dtw_scan, and dtw_search's
+//   general route): each thread walks the rows of its pair in order; the
+//   band of the previous row lives in registers (a template instance for
+//   each r <= 16: 2 (2r + 1) registers for the band and the series window)
+//   or, for r > 16, in shared memory, one column of it a thread.  A warp's
+//   32 threads run 32 pairs in step, so the left-to-right chain of a row
+//   never serialises a warp, but a pair takes L (2r + 1) cells in series.
+// - a wavefront over r + 1 lanes of a warp a pair (dtw_search's band
+//   route, dtw_wave): cell (i, k) reads only cells of the wavefronts
+//   t - 1 and t - 2, t = 2i + k, so lane l holds offsets 2l and 2l + 1 and
+//   forms one row's two cells a step, its neighbours' cells coming by a
+//   shuffle a cell: a pair takes L + r steps, and a warp runs 32 / (r + 1)
+//   pairs side by side.  The series is staged in shared memory first.
 //
 // dtw_lb_keogh: each block first builds the group's envelopes (rolling
 // min and max of each query over +-r) in shared memory; then each warp
@@ -45,26 +51,41 @@
 // its lanes and across the warp by shuffles.  Lane g keeps query g's sum,
 // so a group holds at most 32 queries (the wrapper splits larger ones).
 //
-// dtw_search: one block a query, a thread a candidate of the round.  The
-// block reduces (d, position) to the round's first minimum with one
-// 64-bit min (the float's bits, non-negative, order as the floats),
-// updates the best-so-far, and thread 0 reads the next round's first
-// bound for the stop.
+// dtw_search, band route (r <= 16): a cluster of 8 CTAs a query computes 8
+// rounds at once, CTA u round u's candidates whose bound lies below the
+// best-so-far of the iteration's start, 32 / (r + 1) pairs a warp (a warp
+// with no candidate taken skips the DP; the taken ones are a prefix of the
+// round, the bounds ascending), each pair's series copied into shared
+// memory with cp.async and its next candidate brought into L2 meanwhile.
+// Then every CTA applies the 8 rounds in order, exactly as one round after
+// another: the rounds run the DP of more candidates (those a lower
+// best-so-far prunes) but answer the same.  General route: one block a
+// query, a thread a candidate.  A round's first minimum is one 64-bit min
+// over (d bits << 32 | position) (the float's bits, non-negative, order as
+// the floats); it updates the best-so-far, and the next round's first bound
+// decides the stop.
 //
 // dtw_scan: one thread a (query, series) pair, q in shared memory; the
 // pair's (d^2 bits << 32 | series) goes through a warp min to one
 // 64-bit atomicMin a warp, which gives the least distance and, among
 // equal ones, the first series.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr float kBig = 1e30f;
+constexpr size_t kWaveSmem = 200 * 1024;   // a band-route CTA's, at most
+constexpr int kSpec = 8;     // rounds a band-route iteration computes at once
 constexpr int kLbThreads = 256;
 constexpr int kScanThreads = 128;
 constexpr int kScanThreadsGeneral = 64;
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
+}
 
 __device__ __forceinline__ float cell_d(float qi, float xc) {
   const float t = __fsub_rn(qi, xc);
@@ -186,6 +207,96 @@ __device__ __forceinline__ float dtw_pair(const float* qs, const float* x,
   }
 }
 
+// The band route of dtw_search: one pair's banded DTW swept as a wavefront
+// over H = R + 1 lanes of a warp (see the top).  Lane ll of the pair holds
+// band offsets 2 ll (even) and 2 ll + 1 (odd); at step s it forms row i =
+// s - ll, the even cell, then the odd one.  Cell (i, k) reads (i, k - 1)
+// (left), (i - 1, k + 1) (up) and (i - 1, k) (diag), so:
+//   even, k = 2 ll:  diag and up are the lane's own cells of step s - 1;
+//                    left is lane ll - 1's odd cell of step s - 1 (a shuffle
+//                    from the lane below, which wraps lane 0 to lane 31);
+//   odd, k = 2 ll + 1: diag is the lane's own odd cell of step s - 1; left
+//                    is its even cell of this step; up is lane ll + 1's even
+//                    cell of this step (a shuffle from the lane above).
+// A cell outside the band or the matrix has d = BIG, so its value is BIG or
+// more, and a cell inside always reads a finite neighbour, which the min
+// keeps: the values inside equal dtw_band_ref's, whose outside cells are
+// BIG.  Offset 2R + 1, the odd cell of lane R, lies outside, and so do all
+// cells of a lane not in a live pair; so a pair reads nothing of its
+// neighbours but BIG.  Cell (0, 0), offset R, reads a diag of 0: d + 0 =
+// d.  Each cell is the same __fsub_rn, __fmul_rn, exact mins and __fadd_rn
+// on the same operands as dtw_band_ref's, so the order changes no bit.
+// Returns cell (L - 1, R) in lane R / 2 of the pair; calls after_ramp()
+// once the first R + 1 steps are issued.
+template <int R, typename F>
+__device__ __forceinline__ float dtw_wave(const float* __restrict__ qs,
+                                          const float* __restrict__ xr,
+                                          int L, int ll, int lane, bool live,
+                                          F&& after_ramp) {
+  constexpr bool kEvenFirst = R % 2 == 0;    // (0, 0) in the even cell
+  const bool odd_ok = live && ll < R;
+  const bool first_lane = ll == R / 2;
+  const int from = (lane + 31) & 31;
+  float e = kBig, o = kBig, res = kBig;
+  // steps where a cell of a live lane may lie outside the matrix: before
+  // every lane has reached row 1 and column 0, and from column L - 1 on
+  const int a = min(R + 1, L + R), b = max(a, L - 1);
+  auto edge = [&](int s) {
+    const int i = s - ll, c = s + ll - R;
+    const bool row = live && (unsigned)i < (unsigned)L;
+    const bool in_e = row && (unsigned)c < (unsigned)L;
+    const bool in_o = row && odd_ok && (unsigned)(c + 1) < (unsigned)L;
+    const float qi = row ? qs[i] : 0.f;
+    const float de = in_e ? cell_d(qi, xr[c]) : kBig;
+    const float dd = in_o ? cell_d(qi, xr[c + 1]) : kBig;
+    const bool first = i == 0 && first_lane;
+    const float ze = (first && kEvenFirst) ? 0.f : e;
+    const float zo = (first && !kEvenFirst) ? 0.f : o;
+    const float left = __shfl_sync(0xffffffffu, o, from);
+    const float ve = __fadd_rn(de, fminf(fminf(ze, o), left));
+    const float up = __shfl_down_sync(0xffffffffu, ve, 1);
+    const float vo = __fadd_rn(dd, fminf(fminf(zo, ve), up));
+    if (i == L - 1) res = kEvenFirst ? ve : vo;
+    e = ve;
+    o = vo;
+  };
+  int s = 0;
+  for (; s < a; ++s) edge(s);
+  after_ramp();
+  // rows 1 .. L - 2 of every lane, columns 0 .. L - 1: no test a cell
+#pragma unroll 4
+  for (; s < b; ++s) {
+    const int i = s - ll, c = s + ll - R;
+    const float qi = qs[i];
+    const float de = live ? cell_d(qi, xr[c]) : kBig;
+    const float dd = odd_ok ? cell_d(qi, xr[c + 1]) : kBig;
+    const float left = __shfl_sync(0xffffffffu, o, from);
+    const float ve = __fadd_rn(de, fminf(fminf(e, o), left));
+    const float up = __shfl_down_sync(0xffffffffu, ve, 1);
+    const float vo = __fadd_rn(dd, fminf(fminf(o, ve), up));
+    e = ve;
+    o = vo;
+  }
+  for (; s < L + R; ++s) edge(s);
+  return res;
+}
+
+// Copy L floats from src to dst (shared) with 4-byte cp.async, the lanes
+// of a pair taking every H-th value; cp_wait() waits for them.
+__device__ __forceinline__ void cp_row(float* dst, const float* src, int L,
+                                       int ll, int H) {
+  for (int c = ll; c < L; c += H)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+                 :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(
+                        dst + c))), "l"(src + c)
+                 : "memory");
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
 __device__ __forceinline__ unsigned long long warp_min_u64(
     unsigned long long v) {
 #pragma unroll
@@ -275,9 +386,9 @@ lb_keogh_kernel(const float* __restrict__ q, const float* __restrict__ x,
   }
 }
 
-// The refinement of query blockIdx.x of the group (see the top).
-template <int R>
-__global__ void search_kernel(const float* __restrict__ q,
+// dtw_search's general route: the refinement of query blockIdx.x of the
+// group, a thread a candidate, its band in shared memory (see the top).
+__global__ void search_general(const float* __restrict__ q,
                               const float* __restrict__ x, long long N,
                               int L, int r, int round_k,
                               const float* __restrict__ slb,
@@ -286,7 +397,7 @@ __global__ void search_kernel(const float* __restrict__ q,
                               int* rounds_out, int* refined_out) {
   extern __shared__ float sm[];
   float* qs = sm;                                  // L
-  float* band = sm + L;                            // general route
+  float* band = sm + L;                            // (2r + 1, threads)
   __shared__ unsigned long long wkey[32];
   __shared__ float s_bsf;
   __shared__ int s_go;
@@ -312,7 +423,7 @@ __global__ void search_kernel(const float* __restrict__ q,
     const bool take = b < bsf;
     float d = kBig;
     if (take) {
-      d = dtw_pair<R>(qs, x + ord[pos] * L, L, r, band + tid, blockDim.x);
+      d = dtw_band_smem(qs, x + ord[pos] * L, L, r, band + tid, blockDim.x);
     }
     const int n_take = __syncthreads_count(take);
     const unsigned long long key = warp_min_u64(pack(d, tid));
@@ -343,6 +454,174 @@ __global__ void search_kernel(const float* __restrict__ q,
   }
 }
 
+// dtw_search's band route (see the top): the refinement of query
+// blockIdx.x / kSpec of the group by a cluster of kSpec CTAs.  An iteration
+// computes kSpec rounds at once: CTA u the candidates of round u whose bound
+// lies below the best-so-far of the iteration's start (those of the round
+// itself and perhaps more: the best-so-far only falls), its warps P = 32 /
+// (R + 1) pairs each (dtw_wave).  After one cluster barrier, warp 0 of every
+// CTA applies the kSpec rounds in order as the loop of single rounds does:
+// the stop before each, the candidates below the best-so-far of the moment,
+// their first minimum; so the best-so-far, the id, the rounds and the
+// candidates refined are that loop's in every CTA.  Distances and bounds are
+// double-buffered by iteration parity, so no CTA overwrites what another
+// still reads.  Each pair's next candidate (its bound and id read during
+// this iteration) is brought into L2 once the DP has begun.
+template <int R>
+__global__ void __launch_bounds__(1024)
+wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
+            long long N, int L, int round_k, const float* __restrict__ slb,
+            const long long* __restrict__ order, float* bsf_out,
+            int* best_out, int* rounds_out, int* refined_out) {
+  constexpr int H = R + 1, P = 32 / H;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  extern __shared__ float sm[];
+  float* qs = sm;                        // L
+  float* rd = qs + L;                    // [2][round_k]: distances (BIG:
+  float* rl = rd + 2 * round_k;          // not computed) and bounds
+  float* xs = rl + 2 * round_k;          // (warps * P, L): the pairs' rows
+  __shared__ float s_nlb[2];             // CTA 0: the next iteration's first
+  __shared__ float s_bsf;                // bound
+  __shared__ int s_go;
+  const int g = blockIdx.x / kSpec, tid = threadIdx.x, lane = tid & 31;
+  const int warp = tid >> 5, warps = blockDim.x >> 5;
+  // the lane's pair in the warp (P: none) and its lane in the pair
+  const int slot = lane / H, ll = lane - slot * H;
+  float* xrow = xs + (long long)(warp * P + min(slot, P - 1)) * L;
+  for (int j = tid; j < L; j += blockDim.x) qs[j] = q[(long long)g * L + j];
+  const float* lb = slb + (long long)g * N;
+  const long long* ord = order + (long long)g * N;
+  const long long end = (N + round_k - 1) / round_k * round_k;
+  const long long step = (long long)kSpec * round_k;
+  const bool one_batch = warps * P >= round_k;
+  float bsf = kBig;
+  long long best = -1;
+  int rounds = 0, refined = 0, par = 0;
+  bool go = end > 0 && lb[0] < kBig;
+  float cb = kBig;                       // one batch: this pair's candidate
+  long long co = 0;                      // (bound, id), read an iteration
+  bool carried = false;                  // ahead
+  long long cursor = 0;
+  __syncthreads();
+  while (go) {
+    float* my_d = rd + par * round_k;
+    float* my_l = rl + par * round_k;
+    for (int base = 0; base < round_k; base += warps * P) {
+      const int j = base + warp * P + slot;    // the pair's candidate
+      const bool mine = slot < P && j < round_k;
+      const long long pos = cursor + (long long)rank * round_k + j;
+      const bool real = mine && pos < N;
+      float b = kBig;
+      long long o = 0;
+      if (carried) {
+        b = cb;
+        o = co;
+      } else if (real) {
+        b = lb[pos];
+        o = ord[pos];
+      }
+      const bool take = b < bsf;
+      const long long nxt = pos + step;        // its next iteration's
+      const bool more = mine && nxt < N;
+      const float nb = more ? lb[nxt] : kBig;
+      const long long no = more ? ord[nxt] : 0;
+      auto ahead = [&] {
+        if (nb < bsf) {
+          const float* nrow = x + no * L;
+          for (int c = 32 * ll; c < L; c += 32 * H) prefetch_l2(nrow + c);
+          if (ll == 0) prefetch_l2(nrow + L - 1);
+        }
+      };
+      float d = kBig;
+      if (__any_sync(0xffffffffu, take)) {
+        if (take) cp_row(xrow, x + o * L, L, ll, H);
+        cp_wait();
+        __syncwarp();
+        d = dtw_wave<R>(qs, xrow, L, ll, lane, take, ahead);
+        __syncwarp();           // the rows are read: the next batch may copy
+      } else {
+        ahead();
+      }
+      if (mine && ll == R / 2) {               // the pair's result lane
+        my_d[j] = take ? d : kBig;
+        my_l[j] = b;
+        if (rank == 0 && j == 0) s_nlb[par] = nb;
+      }
+      carried = one_batch;
+      cb = nb;
+      co = no;
+    }
+    cluster.sync();             // every CTA's round of the iteration is in
+    if (warp == 0) {
+      // the first candidate of each round, read ahead of the rounds
+      float dv[kSpec], lv[kSpec];
+#pragma unroll
+      for (int u = 0; u < kSpec; ++u) {
+        const bool in = lane < round_k;
+        dv[u] = in ? cluster.map_shared_rank(rd, u)[par * round_k + lane]
+                   : kBig;
+        lv[u] = in ? cluster.map_shared_rank(rl, u)[par * round_k + lane]
+                   : kBig;
+      }
+      const float nlb = cluster.map_shared_rank(s_nlb, 0)[par];
+      bool on = true;
+#pragma unroll
+      for (int u = 0; u < kSpec; ++u) {
+        const long long cu = cursor + (long long)u * round_k;
+        const float first = __shfl_sync(0xffffffffu, lv[u], 0);
+        if (u > 0) on = on && cu < end && first < bsf;   // the stop before
+        if (on) {
+          unsigned long long key = ~0ull;
+          int nt = 0;
+          for (int j0 = 0; j0 < round_k; j0 += 32) {
+            const int j = j0 + lane;
+            float dj = dv[u], lj = lv[u];
+            if (j0 > 0 && j < round_k) {
+              dj = cluster.map_shared_rank(rd, u)[par * round_k + j];
+              lj = cluster.map_shared_rank(rl, u)[par * round_k + j];
+            }
+            const bool t = j < round_k && lj < bsf;
+            const unsigned long long kj =
+                j < round_k ? pack(t ? dj : kBig, (unsigned)j) : ~0ull;
+            key = kj < key ? kj : key;
+            nt += __popc(__ballot_sync(0xffffffffu, t));
+          }
+          key = warp_min_u64(key);
+          const float dmin = __uint_as_float((unsigned)(key >> 32));
+          if (dmin < bsf) {
+            bsf = dmin;
+            if (rank == 0 && lane == 0)
+              best = ord[cu + (unsigned)(key & 0xffffffffu)];
+          }
+          ++rounds;
+          refined += nt;
+        }
+      }
+      // the stop before the next iteration's first round
+      const long long nc = cursor + step;
+      on = on && nc < end && nlb < bsf;
+      if (lane == 0) {
+        s_bsf = bsf;
+        s_go = on;
+      }
+    }
+    __syncthreads();
+    bsf = s_bsf;
+    go = s_go;
+    cursor += step;
+    par ^= 1;
+  }
+  cluster.sync();               // no CTA leaves while another reads it
+  if (rank == 0 && tid == 0) {
+    bsf_out[g] = bsf;
+    best_out[g] = (int)best;
+    rounds_out[g] = rounds;
+    refined_out[g] = refined;
+  }
+}
+
 // Query blockIdx.y against series blockIdx.x * blockDim.x + threadIdx.x.
 template <int R>
 __global__ void scan_kernel(const float* __restrict__ q,
@@ -364,23 +643,54 @@ __global__ void scan_kernel(const float* __restrict__ q,
   if ((tid & 31) == 0 && key != ~0ull) atomicMin(keys + g, key);
 }
 
-template <int R>
-int search_launch(const float* q, const float* x, long long N, int L, int r,
-                  int Qg, int round_k, int threads, const float* slb,
-                  const long long* order, float* bsf, int* best, int* rounds,
-                  int* refined, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (L + (R < 0 ? (2 * r + 1) * threads
-                                                  : 0));
+int general_launch(const float* q, const float* x, long long N, int L,
+                   int r, int Qg, int round_k, int threads, const float* slb,
+                   const long long* order, float* bsf, int* best, int* rounds,
+                   int* refined, cudaStream_t st) {
+  const size_t smem = sizeof(float) * (L + (2 * r + 1) * threads);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        search_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        search_general, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  search_kernel<R><<<Qg, threads, smem, st>>>(q, x, N, L, r, round_k, slb,
-                                              order, bsf, best, rounds,
-                                              refined);
+  search_general<<<Qg, threads, smem, st>>>(q, x, N, L, r, round_k, slb,
+                                            order, bsf, best, rounds,
+                                            refined);
   return (int)cudaGetLastError();
+}
+
+// The band route: clusters of kSpec CTAs a query, `threads` / 32 warps a
+// CTA (the wrapper's band_threads), the query, the rounds' distances and
+// bounds and the pairs' rows within kWaveSmem.
+template <int R>
+int wave_launch(const float* q, const float* x, long long N, int L, int r,
+                int Qg, int round_k, int threads, const float* slb,
+                const long long* order, float* bsf, int* best, int* rounds,
+                int* refined, cudaStream_t st) {
+  constexpr int P = 32 / (R + 1);
+  const size_t smem = sizeof(float) * ((size_t)L + 4 * (size_t)round_k
+                                       + (size_t)threads / 32 * P * L);
+  if (smem > kWaveSmem) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      wave_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kSpec;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)Qg * kSpec);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, wave_kernel<R>, q, x, N, L, round_k, slb,
+                         order, bsf, best, rounds, refined);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 template <int R>
@@ -451,18 +761,20 @@ extern "C" int dtw_lb_keogh(const void* q, const void* x, long long N, int L,
 }
 
 // The refinement of each query g < Qg: candidates order[g, :] (int64)
-// with ascending bounds slb[g, :], round_k (<= 1024) a round, `threads`
-// (round_k rounded up to a warp) a block.  Writes bsf (squared), best
-// (-1: none taken), rounds and refined, one each a query.  route: 0 the
-// band route (r <= 16), 1 the general one (any r).
+// with ascending bounds slb[g, :], round_k (<= 1024) a round.  Writes bsf
+// (squared), best (-1: none taken), rounds and refined, one each a query.
+// route: 0 the band route (r <= 16; `threads` from the wrapper's
+// band_threads), 1 the general one (any r; `threads` round_k rounded up to
+// a warp).
 extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
                           int r, int Qg, int round_k, int threads, int route,
                           const void* slb, const void* order, void* bsf,
                           void* best, void* rounds, void* refined,
                           void* stream) {
   if (Qg == 0) return 0;
-  if (r < 0 || round_k < 1 || round_k > threads || threads > 1024
-      || threads % 32 || (route == 0 && r > 16))
+  if (r < 0 || round_k < 1 || round_k > 1024 || threads < 32
+      || threads > 1024 || threads % 32 || (route == 0 && r > 16)
+      || (route != 0 && round_k > threads))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
@@ -474,11 +786,11 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
   int* ro = static_cast<int*>(rounds);
   int* rf = static_cast<int*>(refined);
   if (route == 0) switch (r) {
-    DTW_BAND_CASES(search_launch, qq, xx, N, L, r, Qg, round_k, threads, lb,
+    DTW_BAND_CASES(wave_launch, qq, xx, N, L, r, Qg, round_k, threads, lb,
                    od, b, bi, ro, rf, st)
   }
-  return search_launch<-1>(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b,
-                           bi, ro, rf, st);
+  return general_launch(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b, bi,
+                        ro, rf, st);
 }
 
 // keys (Q,) uint64, each all ones on entry: min over series n of

@@ -22,19 +22,36 @@
 // the reads; the fold is O((k + M)^2) compares on data already in shared
 // memory.
 //
-// refine_topk's design: one block per query row walks that row's K slots
-// in turn.  The query, its norm and the (k) buffer stay in shared memory.
-// A dead slot reads nothing.  For an alive slot the block's warps take the
-// leaf's M rows; a lane reads 16 bytes of a row at a time (4 floats or 8
-// halves) at the stored width, and the warp reduces q.x in float32 by
-// xor-shuffles, four rows at once (warp_d2).  d^2 = max((q_sq + |x|^2) - 2 q.x, 0), rounded step by
-// step as the plain version writes it.  The fold ranks the union of the
-// k buffer slots and the M candidates:
+// refine_topk's design (namespace `topk` below; redesigned from one block a
+// query row that walked its K slots one after another, each slot's leaf
+// read and then folded before the next): a persistent grid of as many CTAs
+// as the card holds at once, CTA b taking the rows b, b + grid, ..., a
+// window of rows at a time.  For a window, the CTA reads every (row, slot)'s
+// flag and leaf in one pass and lists the alive ones; a dead slot reads
+// nothing, and a row with no alive slot copies its buffer.  The listed
+// leaves (rows, then norms) and each row's query stream through a ring of
+// shared-memory stages by 1-D bulk copies completing on mbarriers, a few
+// chunks ahead across slots and rows, so a row's leaves are all in flight at
+// once and the next row's land while this one folds.  The warps reduce q.x
+// from shared memory (warp_d2): a lane reads 16 bytes of a row at a time (4
+// floats or 8 halves) at the stored width, and the warp reduces q.x in
+// float32 by xor-shuffles, four rows at once.  d^2 = max((q_sq + |x|^2) -
+// 2 q.x, 0), rounded step by step as the plain version writes it.  After a
+// row's last chunk the CTA gathers the candidates below the k-th best of
+// its (ascending) buffer in union (slot, row) order and folds them once
+// (fold); the others cannot enter.  The fold ranks the union of the k
+// buffer slots and the n gathered candidates:
 //   rank(e) = #{f : d_f < d_e or (d_f == d_e and f < e)},
-// with buffer slots before candidates, a permutation of 0..k+M-1, so the
-// thread of an element of rank < k writes it to that slot.  Folding the
-// slots one after another gives the ties of one global fold over all
-// K * M candidates, lower union index first, as `jax.lax.top_k` does.
+// with buffer slots before candidates, a permutation of 0..k+n-1, so the
+// thread of an element of rank < k writes it to that slot.  One fold over
+// all K * M candidates gives the ties of folding the slots one after
+// another, lower union index first, as `jax.lax.top_k` does.  (Two other
+// layouts measured no faster at the kernel table's shape, PERF.md: a
+// cluster of 8 CTAs a row, slot j on CTA j mod 8 with the fold over
+// distributed shared memory, which holds 8 CTAs and their shared memory
+// through each row's barriers and fold whatever its dead slots; and one
+// CTA a (row, slot) with the row's last slot folding from L2 after a
+// count, a chain of round trips a row.)
 //
 // refine_search's design (namespace `search` below): a persistent grid of
 // thread-block clusters of C CTAs, each cluster pulling queries from an
@@ -58,18 +75,21 @@
 // round parity, so no CTA overwrites what another still reads.
 //
 // Routes (the wrappers pick one from the shapes before any launch).
-// refine_topk: the shared-memory kernel above, or, where a row is not
-// whole 16-byte pieces or 4 (L + 2 M + 4 k) bytes outgrow shared memory,
-// refine_general, which reads values one at a time and keeps its buffers
-// in global scratch.  refine_search: search_kernel with its shared memory
-// laid out for 3 CTAs an SM, else for 2, else for 1 (the same code); or,
-// where a row is not whole 16-byte pieces or even one CTA cannot hold the
-// fixed parts beside two one-row stages, search_general: one CTA a query,
-// rows read where they lie, buffers in global scratch.  The general routes
-// share row_d2, so their two loops agree bit for bit with each other; the
-// fast routes share warp_d2.
+// refine_topk: the ring kernel above, or, where a row is not whole 16-byte
+// pieces or the fixed parts and two one-row stages outgrow shared memory
+// even at one CTA an SM, refine_general, which reads values one at a
+// time and keeps its buffers in global scratch.  refine_search: search_kernel
+// with its shared memory laid out for 3 CTAs an SM, else for 2, else for 1
+// (the same code); or, where a row is not whole 16-byte pieces or even one
+// CTA cannot hold the fixed parts beside two one-row stages, search_general:
+// one CTA a query, rows read where they lie, buffers in global scratch.
+// The general routes share row_d2, so their two loops agree bit for bit
+// with each other; the fast routes share warp_d2.
 
 #include <algorithm>
+#include <mutex>
+#include <tuple>
+#include <vector>
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -220,82 +240,13 @@ __device__ __forceinline__ void fold_sorted(const float* bd, const int* be,
   }
 }
 
-template <typename T>
-__global__ void refine_kernel(const float* __restrict__ q,
-                              const float* __restrict__ q_sq,
-                              const T* __restrict__ series,
-                              const float* __restrict__ sq_norms,
-                              const int* __restrict__ leaf_ids,
-                              const uint8_t* __restrict__ alive,
-                              const float* __restrict__ bsf_d,
-                              const int* __restrict__ bsf_e,
-                              float* __restrict__ out_d,
-                              int* __restrict__ out_e,
-                              int L, int K, int M, int k) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                              // L
-  float* cand_d = q_s + L;                        // M
-  int* cand_e = reinterpret_cast<int*>(cand_d + M);   // M
-  float* bd = cand_d + 2 * M;                     // the buffer: k + k
-  int* be = reinterpret_cast<int*>(bd + k);
-  float* nd = bd + 2 * k;                         // the next buffer
-  int* ne = reinterpret_cast<int*>(bd + 3 * k);
-
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < L; i += kThreads) q_s[i] = q[(long long)row * L + i];
-  for (int i = tid; i < k; i += kThreads) {
-    bd[i] = bsf_d[(long long)row * k + i];
-    be[i] = bsf_e[(long long)row * k + i];
-  }
-  const float qsq = q_sq[row];
-  __syncthreads();
-
-  for (int j = 0; j < K; ++j) {
-    if (!alive[(long long)row * K + j]) continue;  // uniform over the block
-    const long long first = (long long)leaf_ids[(long long)row * K + j] * M;
-    for (int r = warp; r < M; r += kUnroll * kWarps)
-      warp_d2<T>(series + first * L, L, r, M, q_s, qsq, sq_norms + first,
-                 cand_d, lane);
-    for (int r = tid; r < M; r += kThreads) cand_e[r] = (int)(first + r);
-    __syncthreads();
-    fold(bd, be, cand_d, cand_e, k, M, nd, ne, tid);
-    float* td = bd; bd = nd; nd = td;       // every thread swaps alike
-    int* te = be; be = ne; ne = te;
-    __syncthreads();
-  }
-
-  for (int i = tid; i < k; i += kThreads) {
-    out_d[(long long)row * k + i] = bd[i];
-    out_e[(long long)row * k + i] = be[i];
-  }
-}
-
-template <typename T>
-cudaError_t launch(const float* q, const float* q_sq, const void* series,
-                   const float* sq_norms, const int* ids, const uint8_t* alive,
-                   const float* bsf_d, const int* bsf_e, float* out_d,
-                   int* out_e, int Q, int L, int K, int M, int k,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)L + 2 * M + 4 * (size_t)k);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        refine_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  refine_kernel<T><<<Q, kThreads, smem, stream>>>(
-      q, q_sq, static_cast<const T*>(series), sq_norms, ids, alive, bsf_d,
-      bsf_e, out_d, out_e, L, K, M, k);
-  return cudaGetLastError();
-}
-
-
-// refine_topk's general route: any L and alignment, any k.  The block of
-// a query row works as refine_kernel does, but reads each row's values
-// one at a time (row_d2) and keeps the candidates and both buffers in
-// global scratch, (2 M + 4 k) words a row, so shared memory bounds
-// neither k nor M.  The fold is fold(), which takes any carried buffer.
+// refine_topk's general route: any L and alignment, any k.  One block a
+// query row walks the row's K slots in turn: for an alive slot its warps
+// take the leaf's M rows, each row's values read one at a time (row_d2),
+// and the block folds them into the buffer (fold) before the next slot.  The
+// candidates and both buffers live in global scratch, (2 M + 4 k) words a
+// row, so shared memory bounds neither k nor M.  Folding slot by slot gives
+// the ties of one fold over all K * M candidates.
 template <typename T>
 __global__ void refine_general(const float* __restrict__ q,
                                const float* __restrict__ q_sq,
@@ -644,11 +595,33 @@ inline uint32_t take(uint32_t& off, uint32_t bytes, uint32_t align) {
   return at;
 }
 
-// Shared memory: the fixed parts, then a ring of stages, each `rows` leaf
-// rows and their norms' window (rows + 6 floats at most), as many stages
-// as fit beside `blocks` - 1 other CTAs on the SM, up to kMaxStages; a
-// leaf that leaves no room for two stages is cut into chunks of `rows`
-// rows.
+// The ring of a layout (refine_search's or refine_topk's), after its fixed
+// parts at p.off_ring: stages of p.rows leaf rows of p.L values of `elem`
+// bytes and their norms' window (rows + 6 floats at most), as many as fit
+// beside `blocks` - 1 other CTAs on the SM, up to kMaxStages; a leaf that
+// leaves no room for two stages is cut into chunks of p.rows rows.  Sets
+// the ring's fields and *smem, the layout's bytes.
+template <typename P>
+inline cudaError_t place_ring(P& p, int blocks, int elem, size_t* smem) {
+  const long long row_bytes = (long long)p.L * elem;
+  const long long room =
+      (long long)std::min(kSmemMax, kSmemSM / blocks - 1024) - p.off_ring;
+  auto stage = [&](long long rows) {
+    return rows * row_bytes + (rows + 9) / 4 * 16;
+  };
+  long long rows = p.M;
+  while (rows > 1 && 2 * stage(rows) > room) rows = (rows + 1) / 2;
+  if (room < 0 || 2 * stage(rows) > room) return cudaErrorInvalidValue;
+  p.rows = (int)rows;
+  p.chunks = (int)((p.M + rows - 1) / rows);
+  p.stages = (int)std::min<long long>(kMaxStages, room / stage(rows));
+  p.stage_bytes = (uint32_t)stage(rows);
+  p.norm_off = (uint32_t)(rows * row_bytes);
+  *smem = p.off_ring + (size_t)p.stages * p.stage_bytes;
+  return cudaSuccess;
+}
+
+// Shared memory: the fixed parts, then place_ring's ring.
 inline cudaError_t layout(Params& p, int C, int blocks, int elem,
                           size_t* smem) {
   p.J = p.K / C;
@@ -669,22 +642,7 @@ inline cudaError_t layout(Params& p, int C, int blocks, int elem,
   p.off_leaf = take(off, 4u * kInfo * p.K, 4);
   p.off_cnt = take(off, 4u * p.n_it * kWarps, 4);
   p.off_ring = take(off, 0, 128);
-  const long long row_bytes = (long long)p.L * elem;
-  const long long room =
-      (long long)std::min(kSmemMax, kSmemSM / blocks - 1024) - p.off_ring;
-  auto stage = [&](long long rows) {
-    return rows * row_bytes + (rows + 9) / 4 * 16;
-  };
-  long long rows = p.M;
-  while (rows > 1 && 2 * stage(rows) > room) rows = (rows + 1) / 2;
-  if (room < 0 || 2 * stage(rows) > room) return cudaErrorInvalidValue;
-  p.rows = (int)rows;
-  p.chunks = (int)((p.M + rows - 1) / rows);
-  p.stages = (int)std::min<long long>(kMaxStages, room / stage(rows));
-  p.stage_bytes = (uint32_t)stage(rows);
-  p.norm_off = (uint32_t)(rows * row_bytes);
-  *smem = p.off_ring + (size_t)p.stages * p.stage_bytes;
-  return cudaSuccess;
+  return place_ring(p, blocks, elem, smem);
 }
 
 template <typename T>
@@ -850,13 +808,348 @@ inline long long general_words(int K, int M, int k) {
 
 }  // namespace search
 
+namespace topk {
+
+// refine_topk's ring route (see the top): shared memory for up to 4 CTAs
+// an SM; a window holds kThreads (row, slot) entries (K, where K is more).
+constexpr int kBlocksPerSM = 4;
+using search::kMaxStages;
+constexpr int kQRing = kMaxStages + 1;   // rows' queries in flight
+
+struct Params {
+  const float* q;
+  const float* q_sq;
+  const void* series;
+  const float* sq_norms;
+  const int* leaf_ids;
+  const uint8_t* alive;
+  const float* bsf_d;
+  const int* bsf_e;
+  float* out_d;
+  int* out_e;
+  int Q, L, K, M, k;
+  int W;            // rows a window: kThreads / K, at least 1
+  int rows;         // leaf rows a stage holds
+  int chunks;       // stages a leaf takes: ceil(M / rows)
+  int stages;
+  int n_it;         // ceil(K * M / kThreads)
+  uint32_t stage_bytes, norm_off;
+  uint32_t off_bar, off_q, off_flag, off_leaf, off_slot, off_of, off_first,
+      off_cnt, off_qs, off_lrow, off_wc, off_cand, off_bd, off_be, off_nd,
+      off_ne, off_ld, off_le, off_ring;
+};
+
+// Exclusive prefix, over the CTA, of one 0/1 flag a thread: returns this
+// thread's place and sets *total; wc holds kWarps + 1 ints.  Every thread
+// calls it.
+__device__ __forceinline__ int cta_place(bool f, int* wc, int tid,
+                                         int* total) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const unsigned b = __ballot_sync(0xffffffffu, f);
+  if (lane == 0) wc[warp] = __popc(b);
+  __syncthreads();
+  if (tid == 0) {
+    int run = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int n = wc[w];
+      wc[w] = run;
+      run += n;
+    }
+    wc[kWarps] = run;
+  }
+  __syncthreads();
+  const int at = wc[warp] + __popc(b & ((1u << lane) - 1));
+  *total = wc[kWarps];
+  __syncthreads();              // wc may be reused
+  return at;
+}
+
+// A persistent grid; CTA b takes rows b, b + grid, ..., a window of W
+// rows at a time.  Per window: every (row, slot)'s flag and leaf in one
+// pass, the alive ones listed in (row, slot) order; a row with no alive
+// slot copies its buffer.  Then the chunks of the listed leaves stream
+// through the ring, a few ahead, across slots and rows (a row's query with
+// its first chunk, into a ring of its own); after a row's last chunk the
+// CTA gathers the row's candidates below the k-th best of its buffer in
+// union (slot, row) order and folds them, once, while the next row's
+// chunks land.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+topk_kernel(const Params p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* series = static_cast<const T*>(p.series);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + p.off_bar);
+  float* qr = reinterpret_cast<float*>(smem + p.off_q);   // [kQRing][L]
+  int* w_flag = reinterpret_cast<int*>(smem + p.off_flag);  // [W][K]
+  int* w_leaf = reinterpret_cast<int*>(smem + p.off_leaf);  // listed
+  int* w_slot = reinterpret_cast<int*>(smem + p.off_slot);  // entries'
+  int* w_of = reinterpret_cast<int*>(smem + p.off_of);      // (row i)
+  int* w_first = reinterpret_cast<int*>(smem + p.off_first);  // [W]
+  int* w_cnt = reinterpret_cast<int*>(smem + p.off_cnt);      // [W]
+  int* w_qs = reinterpret_cast<int*>(smem + p.off_qs);  // [W]: q ring slot
+  int* s_lrow = reinterpret_cast<int*>(smem + p.off_lrow);  // [K]: leaves
+  int* wc = reinterpret_cast<int*>(smem + p.off_wc);
+  float* cand = reinterpret_cast<float*>(smem + p.off_cand);  // [K][M]
+  float* bd = reinterpret_cast<float*>(smem + p.off_bd);
+  int* be = reinterpret_cast<int*>(smem + p.off_be);
+  float* nd = reinterpret_cast<float*>(smem + p.off_nd);
+  int* ne = reinterpret_cast<int*>(smem + p.off_ne);
+  float* ld = reinterpret_cast<float*>(smem + p.off_ld);  // passing cands
+  int* le = reinterpret_cast<int*>(smem + p.off_le);
+  uint8_t* ring = smem + p.off_ring;
+  const int G = gridDim.x;
+
+  if (tid == 0) {
+    for (int i = 0; i < p.stages; ++i) sm90::mbar_init(&bar[i], 1);
+    sm90::fence_barrier_init();
+  }
+  long long base = 0;           // chunks of earlier windows, all consumed
+  int seq = 0;                  // rows streamed in earlier windows
+  for (int w0 = blockIdx.x; w0 < p.Q; w0 += G * p.W) {
+    // the window's (row, slot) entries t = i K + j, row w0 + i G, in
+    // passes of kThreads; the alive ones listed in that order
+    int n_listed = 0;
+    for (int t0 = 0; t0 < p.W * p.K; t0 += kThreads) {
+      const int t = t0 + tid, i = t / p.K, j = t % p.K;
+      const int row = w0 + i * G;
+      const bool in = t < p.W * p.K && row < p.Q;
+      const long long e = (long long)row * p.K + j;
+      const int leaf = in ? p.leaf_ids[e] : 0;
+      const bool f = in && p.alive[e] != 0;
+      if (t < p.W * p.K) w_flag[t] = f;
+      int n = 0;
+      const int at = n_listed + cta_place(f, wc, tid, &n);
+      if (f) {
+        w_leaf[at] = leaf;
+        w_slot[at] = j;
+        w_of[at] = i;
+      }
+      if (in && j == 0) w_first[i] = at;
+      n_listed += n;
+    }
+    // the rows' counts; the rows with one, numbered
+    const bool has = tid < p.W && w0 + tid * G < p.Q;
+    __syncthreads();
+    int cnt = 0;
+    if (has) {
+      const int last = tid + 1 < p.W && w0 + (tid + 1) * G < p.Q
+                           ? w_first[tid + 1] : n_listed;
+      cnt = last - w_first[tid];
+      w_cnt[tid] = cnt;
+    }
+    int n_rows = 0;
+    const int rs = cta_place(has && cnt > 0, wc, tid, &n_rows);
+    if (has && cnt > 0) w_qs[tid] = (seq + rs) % kQRing;
+    // rows with no alive slot: their buffers as they are
+    if (has && cnt == 0) {
+      const long long kr = (long long)(w0 + tid * G) * p.k;
+      for (int t = 0; t < p.k; ++t) {
+        p.out_d[kr + t] = p.bsf_d[kr + t];
+        p.out_e[kr + t] = p.bsf_e[kr + t];
+      }
+    }
+    __syncthreads();
+
+    // the chunks of the listed leaves, in order, through the ring
+    const long long NG = (long long)n_listed * p.chunks;
+    auto issue = [&](long long g) {       // thread 0
+      const int a = (int)(g / p.chunks), c = (int)(g % p.chunks);
+      const long long gg = base + g;
+      uint64_t* b = &bar[gg % p.stages];
+      uint8_t* dst = ring + (size_t)(gg % p.stages) * p.stage_bytes;
+      const int r0 = c * p.rows, nr = min(p.rows, p.M - r0);
+      const long long row0 = (long long)w_leaf[a] * p.M + r0;
+      // the norms as a 16-byte aligned window around the rows'
+      const long long lo = row0 & ~3ll, hi = (row0 + nr + 3) & ~3ll;
+      const uint32_t xb = (uint32_t)(nr * p.L * sizeof(T));
+      const uint32_t nb = (uint32_t)((hi - lo) * 4);
+      const int ri = w_of[a];
+      const bool with_q = c == 0 && a == w_first[ri];
+      const uint32_t qb = with_q ? (uint32_t)(p.L * 4) : 0u;
+      sm90::mbar_expect_tx(b, xb + nb + qb);
+      sm90::bulk_load(dst, series + row0 * p.L, xb, b);
+      sm90::bulk_load(dst + p.norm_off, p.sq_norms + lo, nb, b);
+      if (with_q)
+        sm90::bulk_load(qr + (size_t)w_qs[ri] * p.L,
+                        p.q + (long long)(w0 + ri * G) * p.L, qb, b);
+    };
+    if (tid == 0)
+      for (long long g = 0; g < NG && g < p.stages; ++g) issue(g);
+    long long g = 0;            // the next chunk to consume
+    for (int ri = 0; ri < p.W; ++ri) {
+      const int r = w0 + ri * G;
+      if (r >= p.Q) break;
+      const int n = w_cnt[ri];
+      if (n == 0) continue;
+      const long long kr = (long long)r * p.k;
+      // the buffer's loads wait beside the copies' (read at the fold)
+      for (int t = tid; t < p.k; t += kThreads) {
+        bd[t] = p.bsf_d[kr + t];
+        be[t] = p.bsf_e[kr + t];
+      }
+      for (int a = w_first[ri] + tid; a < w_first[ri] + n; a += kThreads)
+        s_lrow[w_slot[a]] = w_leaf[a];
+      const float qsq = p.q_sq[r];
+      const float* q_s = qr + (size_t)w_qs[ri] * p.L;
+      for (int a = w_first[ri]; a < w_first[ri] + n; ++a) {
+        const long long first = (long long)w_leaf[a] * p.M;
+        float* out = cand + w_slot[a] * p.M;
+        for (int c = 0; c < p.chunks; ++c, ++g) {
+          const long long gg = base + g;
+          sm90::mbar_wait(&bar[gg % p.stages],
+                          (uint32_t)((gg / p.stages) & 1));
+          const uint8_t* st = ring + (size_t)(gg % p.stages) * p.stage_bytes;
+          const int r0 = c * p.rows, nr = min(p.rows, p.M - r0);
+          const float* xn = reinterpret_cast<const float*>(st + p.norm_off)
+                            + ((first + r0) & 3);
+          for (int r1 = warp; r1 < nr; r1 += kUnroll * kWarps)
+            warp_d2<T>(reinterpret_cast<const T*>(st), p.L, r1, nr, q_s,
+                       qsq, xn, out + r0, lane);
+          __syncthreads();      // the stage is free, the distances written
+          if (tid == 0 && g + p.stages < NG) issue(g + p.stages);
+        }
+      }
+      // the row's candidates below the k-th best, in union (slot, row)
+      // order, then one fold
+      const float kth = bd[p.k - 1];
+      const int* fl = w_flag + ri * p.K;
+      int run = 0;
+      for (int it = 0; it < p.n_it; ++it) {
+        const int e2 = it * kThreads + tid;
+        bool ok = false;
+        float d = 0.f;
+        if (e2 < p.K * p.M && fl[e2 / p.M]) {
+          d = cand[e2];
+          ok = d < kth;
+        }
+        int n_pass = 0;
+        const int place = run + cta_place(ok, wc, tid, &n_pass);
+        if (ok) {
+          ld[place] = d;
+          le[place] = s_lrow[e2 / p.M] * p.M + e2 % p.M;
+        }
+        run += n_pass;
+      }
+      __syncthreads();
+      fold(bd, be, ld, le, p.k, run, nd, ne, tid);
+      __syncthreads();
+      for (int t = tid; t < p.k; t += kThreads) {
+        p.out_d[kr + t] = nd[t];
+        p.out_e[kr + t] = ne[t];
+      }
+      __syncthreads();          // bd, cand and the lists are free
+    }
+    base += NG;
+    seq += n_rows;
+    __syncthreads();            // the window's lists are read
+  }
+}
+
+// Shared memory: the fixed parts, then search::place_ring's ring.
+inline cudaError_t layout(Params& p, int blocks, int elem, size_t* smem) {
+  using search::take;
+  p.W = std::max(1, kThreads / p.K);
+  p.n_it = (p.K * p.M + kThreads - 1) / kThreads;
+  const uint32_t n_ent = (uint32_t)std::max(kThreads, p.K);
+  uint32_t off = 0;
+  p.off_bar = take(off, 8 * kMaxStages, 8);
+  p.off_q = take(off, 4u * kQRing * p.L, 16);
+  p.off_flag = take(off, 4u * n_ent, 4);
+  p.off_leaf = take(off, 4u * n_ent, 4);
+  p.off_slot = take(off, 4u * n_ent, 4);
+  p.off_of = take(off, 4u * n_ent, 4);
+  p.off_first = take(off, 4u * p.W, 4);
+  p.off_cnt = take(off, 4u * p.W, 4);
+  p.off_qs = take(off, 4u * p.W, 4);
+  p.off_lrow = take(off, 4u * p.K, 4);
+  p.off_wc = take(off, 4u * (kWarps + 1), 4);
+  p.off_cand = take(off, 4u * p.K * p.M, 16);
+  p.off_bd = take(off, 4u * p.k, 4);
+  p.off_be = take(off, 4u * p.k, 4);
+  p.off_nd = take(off, 4u * p.k, 4);
+  p.off_ne = take(off, 4u * p.k, 4);
+  p.off_ld = take(off, 4u * p.K * p.M, 4);
+  p.off_le = take(off, 4u * p.K * p.M, 4);
+  p.off_ring = take(off, 0, 128);
+  return search::place_ring(p, blocks, elem, smem);
+}
+
+// The card's SMs, and once a (device, shared memory size) the kernel's
+// shared memory limit raised to at least that size and the CTAs an SM
+// holds with it.  Cached, so a round's launch pays only the launch.
+template <typename T>
+cudaError_t card(size_t smem, int* sms, int* per_sm) {
+  static std::mutex mu;
+  static std::vector<std::tuple<int, size_t, int>> known;  // dev, smem, n
+  static size_t raised[64] = {};
+  static int count[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (count[dev] == 0) {
+    err = cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = count[dev];
+  if (smem == 0) return cudaSuccess;
+  for (const auto& e : known)
+    if (std::get<0>(e) == dev && std::get<1>(e) == smem) {
+      *per_sm = std::get<2>(e);
+      return cudaSuccess;
+    }
+  if (smem > raised[dev]) {
+    err = cudaFuncSetAttribute(topk_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    raised[dev] = smem;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, topk_kernel<T>,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (*per_sm < 1) return cudaErrorInvalidConfiguration;
+  known.emplace_back(dev, smem, *per_sm);
+  return cudaSuccess;
+}
+
+// Shared memory laid out for as many CTAs an SM as the rows need to be all
+// in flight at once (Q / SMs, rounded up, at most kBlocksPerSM), else the
+// most below that fit: fewer CTAs an SM give each more stages in flight.
+// A grid of as many CTAs as the card then holds, at most one a row.
+template <typename T>
+cudaError_t launch(Params p, cudaStream_t stream) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err = card<T>(0, &sms, &per_sm);
+  if (err != cudaSuccess) return err;
+  const int want = (int)std::min<long long>(
+      kBlocksPerSM, std::max<long long>(1, ((long long)p.Q + sms - 1) / sms));
+  size_t smem = 0;
+  err = cudaErrorInvalidValue;
+  for (int blocks = want; blocks >= 1; --blocks) {
+    err = layout(p, blocks, (int)sizeof(T), &smem);
+    if (err == cudaSuccess) break;
+  }
+  if (err != cudaSuccess) return err;
+  err = card<T>(smem, &sms, &per_sm);
+  if (err != cudaSuccess) return err;
+  const int grid = (int)std::min<long long>((long long)per_sm * sms, p.Q);
+  topk_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace topk
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  route 0 (the shared-
-// memory kernel): L a multiple of 16 / sizeof(dtype), the series and q
-// 16-byte aligned and 4 (L + 2 M + 4 k) bytes of shared memory at most
-// 232,448; route 1 (general): any shape, with scratch of Q (2 M + 4 k)
-// float32 words.  The wrapper checks.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  route 0 (the ring route,
+// topk_kernel): L * sizeof(dtype) a multiple of 16, the series, q and
+// sq_norms 16-byte aligned, sq_norms a multiple of 4 entries, and
+// topk::layout fitting at 4, 3, 2 or 1 CTAs an SM; route 1 (general): any
+// shape, with scratch of Q (2 M + 4 k) float32 words.  The wrapper checks.
 extern "C" int refine_topk(const void* q, const void* q_sq,
                            const void* series, int dtype,
                            const void* sq_norms, const void* leaf_ids,
@@ -877,13 +1170,27 @@ extern "C" int refine_topk(const void* q, const void* q_sq,
   float* sc = static_cast<float*>(scratch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) {
+    if (K < 1) return (int)cudaErrorInvalidValue;
+    topk::Params p = {};
+    p.q = qf;
+    p.q_sq = qs;
+    p.series = series;
+    p.sq_norms = xn;
+    p.leaf_ids = ids;
+    p.alive = al;
+    p.bsf_d = bd;
+    p.bsf_e = be;
+    p.out_d = od;
+    p.out_e = oe;
+    p.Q = Q;
+    p.L = L;
+    p.K = K;
+    p.M = M;
+    p.k = k;
     switch (dtype) {
-      case 0: return launch<float>(qf, qs, series, xn, ids, al, bd, be, od,
-                                   oe, Q, L, K, M, k, s);
-      case 1: return launch<__nv_bfloat16>(qf, qs, series, xn, ids, al, bd,
-                                           be, od, oe, Q, L, K, M, k, s);
-      case 2: return launch<__half>(qf, qs, series, xn, ids, al, bd, be, od,
-                                    oe, Q, L, K, M, k, s);
+      case 0: return (int)topk::launch<float>(p, s);
+      case 1: return (int)topk::launch<__nv_bfloat16>(p, s);
+      case 2: return (int)topk::launch<__half>(p, s);
     }
   } else if (route == 1 && sc != nullptr) {
     switch (dtype) {

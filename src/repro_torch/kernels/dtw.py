@@ -45,10 +45,23 @@ def lb_route(L: int) -> str:
 
 
 def dp_route(r: int) -> str:
-    """"band" for r <= 16 (the previous row's band in registers, one
-    template instance a radius), "general" for r > 16 (in shared
-    memory)."""
+    """"band" for r <= 16 (dtw_search: a pair's band swept as a wavefront
+    over r + 1 lanes of a warp; dtw_scan: the previous row's band in
+    registers; one template instance a radius), "general" for r > 16 (a
+    thread a pair, the band in shared memory)."""
     return "band" if r <= MAX_BAND_R else "general"
+
+
+def band_threads(r: int, L: int, round_k: int) -> int:
+    """Threads of each CTA of dtw_search's band route (a cluster of 8 a
+    query, one round each): a warp runs 32 // (r + 1) pairs, each with its
+    series in shared memory beside the query and the round's distances and
+    bounds (two of each a candidate); as many warps as a round's
+    candidates need, at most 32, and at most as many as fit in `_SMEM`
+    bytes (one at least: L <= 1024, round_k <= 1024)."""
+    P = 32 // (r + 1)
+    return 32 * min(32, -(-round_k // P),
+                    (_SMEM // 4 - L - 4 * round_k) // (P * L))
 
 
 def _pick(route, default: str, allowed: tuple, what: str) -> str:
@@ -153,9 +166,10 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
         raise ValueError("sorted_lb and order must be on x's device")
     if not isinstance(round_k, int) or not 1 <= round_k <= 1024:
         raise ValueError(f"round_k must be in [1, 1024], got {round_k!r}")
-    threads = -(-round_k // 32) * 32
     route = _pick(route, dp_route(r), (dp_route(r), "general"),
                   "dtw_search")
+    threads = (band_threads(r, L, round_k) if route == "band"
+               else -(-round_k // 32) * 32)
     if route == "general" and 4 * (L + (2 * r + 1) * threads) > _SMEM:
         raise ValueError(f"band radius {r} with round_k {round_k} needs "
                          f"more shared memory than a block has")

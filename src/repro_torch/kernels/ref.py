@@ -325,6 +325,68 @@ def dtw_band_ref(q: torch.Tensor, x: torch.Tensor, r: int) -> torch.Tensor:
     return prev1[:, r].reshape(lead)
 
 
+def dtw_wavefront_ref(q: torch.Tensor, x: torch.Tensor,
+                      r: int) -> torch.Tensor:
+    """`dtw_band_ref` in the order of dtw_search's band route (csrc/dtw.cu,
+    dtw_wave), for the tests: lane l of a pair holds band offsets 2l and
+    2l + 1 (l = 0..r), and step s forms row s - l's even cell, then its
+    odd one, so the cells come in wavefront order t = 2i + k.  A cell
+    outside the band or the matrix gets d = BIG (its value BIG or more),
+    offset 2r + 1 included, and cell (0, 0) a diag of 0.  Asserts that
+    each operand of a cell inside is the cell it should be (diag (i-1, k),
+    up (i-1, k+1), left (i, k-1)) and was formed at an earlier wavefront.
+    Pairs broadcast as in `dtw_band_ref`; returns (...,) float32."""
+    q, x = torch.broadcast_tensors(q, x)
+    lead, L = q.shape[:-1], q.shape[-1]
+    q = q.reshape(-1, L).float()
+    x = x.reshape(-1, L).float()
+    H, B = r + 1, q.shape[0]
+    ll = torch.arange(H)
+    big = torch.full((B, 1), BIG, dtype=torch.float32)
+    e = big.expand(-1, H).clone()          # each lane's even and odd cell
+    o = big.expand(-1, H).clone()
+
+    def cells(row, k):                     # (2, H): each lane's cell
+        return torch.stack([row, k])
+    none = torch.tensor([[-L - r - 9], [0]])     # a lane outside the pair
+    e_at, o_at = cells(-1 - ll, 2 * ll), cells(-1 - ll, 2 * ll + 1)
+    res = big[:, 0].clone()
+    for s in range(L + r):
+        i, c = s - ll, s + ll - r
+        row = (i >= 0) & (i < L)
+        in_e = row & (c >= 0) & (c < L)
+        in_o = row & (ll < r) & (c + 1 < L)
+        qi = q[:, i.clamp(0, L - 1)]
+        de = torch.where(in_e, (qi - x[:, c.clamp(0, L - 1)]) ** 2, BIG)
+        dd = torch.where(in_o, (qi - x[:, (c + 1).clamp(0, L - 1)]) ** 2,
+                         BIG)
+        first = (i == 0) & (ll == r // 2)
+        ze = torch.where(first & (r % 2 == 0), 0.0, e)
+        zo = torch.where(first & (r % 2 == 1), 0.0, o)
+        left = torch.cat([big, o[:, :-1]], dim=1)      # lane l - 1's odd
+        ve = de + torch.minimum(torch.minimum(ze, o), left)
+        up = torch.cat([ve[:, 1:], big], dim=1)        # lane l + 1's even
+        vo = dd + torch.minimum(torch.minimum(zo, ve), up)
+        # each operand read by a cell inside: (the cell it holds, the cell
+        # the rule reads, the lanes reading it, the reader's wavefront)
+        ve_at, vo_at = cells(i, 2 * ll), cells(i, 2 * ll + 1)
+        for held, want, lanes, t in (
+                (e_at, cells(i - 1, 2 * ll), in_e, 2 * s),
+                (o_at, cells(i - 1, 2 * ll + 1), in_e, 2 * s),
+                (torch.cat([none, o_at[:, :-1]], 1), cells(i, 2 * ll - 1),
+                 in_e & (ll > 0), 2 * s),
+                (o_at, cells(i - 1, 2 * ll + 1), in_o, 2 * s + 1),
+                (ve_at, cells(i, 2 * ll), in_o, 2 * s + 1),
+                (torch.cat([ve_at[:, 1:], none], 1), cells(i - 1, 2 * ll + 2),
+                 in_o, 2 * s + 1)):
+            assert bool((held == want)[:, lanes].all()), (s, held, want)
+            assert bool((2 * held[0] + held[1] < t)[lanes].all()), s
+        if int(i[r // 2]) == L - 1:
+            res = (ve if r % 2 == 0 else vo)[:, r // 2].clone()
+        e, o, e_at, o_at = ve, vo, ve_at, vo_at
+    return res.reshape(lead)
+
+
 def dtw_search_ref(q: torch.Tensor, x: torch.Tensor,
                    sorted_lb: torch.Tensor, order: torch.Tensor, r: int,
                    round_k: int, max_pairs: int = 1 << 16

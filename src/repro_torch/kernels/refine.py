@@ -1,10 +1,13 @@
 """One refinement round: gather + distances + prune + top-k fold.
 
 On CUDA tensors `refine_topk` launches a kernel of `csrc/refine.cu`, by
-the route `route` picks from the shapes; each reads only the alive
-leaves, at their stored width, and never materializes the (Q, K*M, L)
-gather.  On CPU tensors it runs the plain version `ref.refine_topk_ref`.
-`launches` counts the kernel's launches.
+the route `route` picks from the shapes (a persistent grid taking query
+rows in turn, each row's alive leaves streamed through a ring of bulk
+copies, one fold a row; or one block a row with its buffers in global
+scratch); each reads only the alive leaves, at their stored width, and
+never materializes the (Q, K*M, L) gather.  On CPU tensors it runs the
+plain version `ref.refine_topk_ref`.  `launches` counts the kernel's
+launches.
 Every round of a search in one launch is `refine_search.py`'s, whose
 input checks are the ones below.
 """
@@ -12,6 +15,7 @@ input checks are the ones below.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -23,29 +27,78 @@ launches = 0
 by_route: dict = {}                    # launches of each route
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_ROUTES = ("shared", "general")
+_ROUTES = ("ring", "general")
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 7
              + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
-_SMEM_MAX = 232448                     # the shared memory a block may take
+# csrc/refine.cu's layout constants
+_SMEM_MAX = 232448                     # shared memory a block may take
+_SMEM_SM = 233472                      # an SM's
+_THREADS, _WARPS = 256, 8
+_MAX_STAGES = 4
 
 
-def route(L: int, M: int, k: int, dtype: torch.dtype) -> str:
-    """The kernel route of one round: "shared" (rows in 16-byte pieces,
-    the query, candidates and buffers in shared memory) where a row is
-    whole 16-byte pieces and 4 (L + 2 M + 4 k) bytes fit in a block's
-    shared memory; "general" (values one at a time, the candidates and
-    buffers in global scratch) for every other shape.  A pure function of
-    the shapes; the wrapper realigns a row base that is not 16-byte
-    aligned."""
+def ring_fits(parts, L: int, M: int, elem: int, blocks: int) -> bool:
+    """Whether a layout of csrc/refine.cu fits `blocks` CTAs an SM: its
+    fixed parts ((bytes, alignment) in order), then two stages of at
+    least one leaf row and its norms' window.  The same arithmetic as the
+    source's `layout`, term for term."""
+    off = 0
+    for nbytes, align in parts:
+        off = -(-off // align) * align + nbytes
+    room = min(_SMEM_MAX, _SMEM_SM // blocks - 1024) - off
+
+    def stage(rows: int) -> int:
+        return rows * L * elem + (rows + 9) // 4 * 16
+    rows = M
+    while rows > 1 and 2 * stage(rows) > room:
+        rows = (rows + 1) // 2
+    return room >= 0 and 2 * stage(rows) <= room
+
+
+def _fits(L: int, K: int, M: int, k: int, elem: int, blocks: int) -> bool:
+    """Whether `topk::layout` lays refine_topk's shared memory out for
+    `blocks` CTAs an SM."""
+    n_ent, W = max(_THREADS, K), max(1, _THREADS // K)
+    return ring_fits(((8 * _MAX_STAGES, 8), (4 * (_MAX_STAGES + 1) * L, 16),
+                      (4 * n_ent, 4), (4 * n_ent, 4), (4 * n_ent, 4),
+                      (4 * n_ent, 4), (4 * W, 4), (4 * W, 4), (4 * W, 4),
+                      (4 * K, 4), (4 * (_WARPS + 1), 4), (4 * K * M, 16),
+                      (4 * k, 4), (4 * k, 4), (4 * k, 4), (4 * k, 4),
+                      (4 * K * M, 4), (4 * K * M, 4), (0, 128)),
+                     L, M, elem, blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def route(L: int, K: int, M: int, k: int, dtype: torch.dtype) -> str:
+    """The kernel route of one round: "ring" (a CTA a query row in turn,
+    all the row's alive leaves streamed through a ring of bulk copies
+    into shared memory, one fold a row) where a row is whole 16-byte
+    pieces and the layout fits at 4, 3, 2 or 1 CTAs an SM; "general"
+    (values one at a time, the candidates and buffers in global scratch)
+    for every other shape.  A pure function of the shapes (so cached: the
+    sharded search launches one a shard a round); the wrapper realigns a
+    base that is not 16-byte aligned."""
     elem = torch.finfo(dtype).bits // 8
-    if (L * elem) % 16 == 0 and 4 * (L + 2 * M + 4 * k) <= _SMEM_MAX:
-        return "shared"
+    # csrc lays the ring kernel out for 4, 3, 2 or 1 CTAs an SM, the first
+    # that fits; it fits for some iff it fits for one
+    if (L * elem) % 16 == 0 and _fits(L, K, M, k, elem, 1):
+        return "ring"
     return "general"
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:
     """t, or a fresh (16-byte aligned) copy where its base is not."""
     return t.clone() if t.data_ptr() % 16 else t
+
+
+def pad_norms(sq_norms: torch.Tensor) -> torch.Tensor:
+    """sq_norms, or a copy padded to a multiple of 4 entries: the fast
+    kernels copy a leaf's norms as a 16-byte aligned window, which must
+    not run past the end."""
+    if sq_norms.shape[0] % 4:
+        return torch.nn.functional.pad(sq_norms,
+                                       (0, 4 - sq_norms.shape[0] % 4))
+    return sq_norms
 
 
 def _dims(q, series, M: int, k: int, K: int):
@@ -125,8 +178,10 @@ def refine_topk(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
         raise RuntimeError(f"no refine_topk kernel for device {q.device}")
     Q, L = q.shape
     K = leaf_ids.shape[1]
-    how = route(L, M, k, series.dtype)
+    how = route(L, K, M, k, series.dtype)
     q, series = aligned(q), aligned(series)
+    if how == "ring":
+        sq_norms = pad_norms(aligned(sq_norms))
     out_d = torch.empty((Q, k), dtype=torch.float32, device=q.device)
     out_e = torch.empty((Q, k), dtype=torch.int32, device=q.device)
     if Q == 0:

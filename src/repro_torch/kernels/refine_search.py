@@ -20,7 +20,8 @@ import torch
 
 from . import _build
 from .ref import refine_search_ref
-from .refine import _DTYPES, _SMEM_MAX, _check_tensors, _dims, aligned
+from .refine import (_DTYPES, _MAX_STAGES, _THREADS, _WARPS,
+                     _check_tensors, _dims, aligned, pad_norms, ring_fits)
 
 launches = 0
 by_route: dict = {}                    # launches of each route
@@ -28,37 +29,28 @@ by_route: dict = {}                    # launches of each route
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 9
              + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
              + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
-# csrc/refine.cu, namespace search: the layout's constants
-_SMEM_SM = 233472                      # an SM's shared memory
-_THREADS, _WARPS = 256, 8
-_CLUSTER, _MAX_STAGES, _INFO = 8, 4, 4
+_CLUSTER, _INFO = 8, 4         # csrc/refine.cu, namespace search
 ROUTES = ("cta3", "cta2", "cta1", "general")
 
 
-def _fits(L: int, K: int, M: int, k: int, elem: int, blocks: int) -> bool:
-    """Whether `layout` in csrc/refine.cu lays shared memory out for
-    `blocks` CTAs an SM: the fixed parts, then two stages of at least one
-    leaf row and its norms.  The same arithmetic, term for term."""
+def cluster_size(K: int) -> int:
+    """CTAs a query: 8, cut to the largest power of two dividing K."""
     C = _CLUSTER
     while K % C:
         C //= 2
-    J, n_it = K // C, -(-K * M // _THREADS)
-    off = 0
-    for nbytes, align in ((8 * _MAX_STAGES, 8), (16, 16), (4 * L, 16),
-                          (8 * J * M, 16), (8 * J, 4), (4 * k, 4),
-                          (4 * k, 4), (4 * k, 4), (4 * k, 4),
-                          (4 * K * M, 4), (4 * K * M, 4), (4 * _INFO * K, 4),
-                          (4 * _INFO * K, 4), (4 * n_it * _WARPS, 4),
-                          (0, 128)):
-        off = -(-off // align) * align + nbytes
-    room = min(_SMEM_MAX, _SMEM_SM // blocks - 1024) - off
+    return C
 
-    def stage(rows: int) -> int:
-        return rows * L * elem + (rows + 9) // 4 * 16
-    rows = M
-    while rows > 1 and 2 * stage(rows) > room:
-        rows = (rows + 1) // 2
-    return room >= 0 and 2 * stage(rows) <= room
+
+def _fits(L: int, K: int, M: int, k: int, elem: int, blocks: int) -> bool:
+    """Whether `layout` in csrc/refine.cu (namespace search) lays shared
+    memory out for `blocks` CTAs an SM."""
+    J, n_it = K // cluster_size(K), -(-K * M // _THREADS)
+    return ring_fits(((8 * _MAX_STAGES, 8), (16, 16), (4 * L, 16),
+                      (8 * J * M, 16), (8 * J, 4), (4 * k, 4), (4 * k, 4),
+                      (4 * k, 4), (4 * k, 4), (4 * K * M, 4), (4 * K * M, 4),
+                      (4 * _INFO * K, 4), (4 * _INFO * K, 4),
+                      (4 * n_it * _WARPS, 4), (0, 128)),
+                     L, M, elem, blocks)
 
 
 def route(L: int, K: int, M: int, k: int, dtype: torch.dtype) -> str:
@@ -158,12 +150,8 @@ def refine_search(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
         raise RuntimeError(f"no refine_search kernel for device {q.device}")
     Q, L = q.shape
     how = route(L, K, M, k, series.dtype)
-    q, series, sq_norms = aligned(q), aligned(series), aligned(sq_norms)
-    if sq_norms.shape[0] % 4:
-        # the kernel copies a leaf's norms as a 16-byte aligned window,
-        # which must not run past the end
-        sq_norms = torch.nn.functional.pad(sq_norms,
-                                           (0, 4 - sq_norms.shape[0] % 4))
+    q, series = aligned(q), aligned(series)
+    sq_norms = pad_norms(aligned(sq_norms))
     dev = q.device
     out_d = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_e = torch.empty((Q, k), dtype=torch.int32, device=dev)

@@ -12,6 +12,8 @@ the DP repeats repro's arithmetic cell for cell, so banded DTW agrees to
 float32 rounding of the z-normalization (rtol 1e-5); the oracle is
 float64 (rtol 1e-5, repro's own)."""
 
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -330,6 +332,40 @@ def test_routes_cover_every_length(L):
 def test_dp_routes():
     assert [kdtw.dp_route(r) for r in (0, 12, 16, 17, 40)] == \
         ["band"] * 3 + ["general"] * 2
+
+
+@pytest.mark.parametrize("r", [0, 1, 12, 16])
+@pytest.mark.parametrize("L", [7, 100, 256])
+def test_wavefront_model_equals_the_band(r, L):
+    """The band route's order (ref.dtw_wavefront_ref: lane l of a pair
+    holds offsets 2l and 2l + 1, step s forms row s - l, every operand
+    asserted formed at an earlier wavefront) gives dtw_band_ref's bits,
+    and repro's dtw_band within the tolerance of the tests above."""
+    rng = np.random.default_rng(1000 * r + L)
+    q, x = (rng.standard_normal((3, L)).astype(np.float32)
+            for _ in range(2))
+    got = ref.dtw_wavefront_ref(_t(q), _t(x), r)
+    assert torch.equal(got, ref.dtw_band_ref(_t(q), _t(x), r))
+    for j in range(3):
+        want = float(J.dtw_band(jnp.asarray(q[j]), jnp.asarray(x[j]), r))
+        assert abs(float(got[j]) - want) <= 1e-5 * want
+
+
+@pytest.mark.parametrize("r", [0, 1, 12, 15, 16])
+def test_band_route_blocks(r):
+    """dtw_search's band-route CTA (band_threads): whole warps, 32 to
+    1024 threads, 32 // (r + 1) pairs a warp, never more warps than a
+    round's pairs need, the pairs' series, the query and the round's
+    distances and bounds (twice) within the CTA's shared memory; the dtw
+    cell's shape (r 12, round_k 32) takes 16 warps of 2 pairs."""
+    for L, round_k in itertools.product((1, 7, 100, 256, 1024),
+                                        (1, 16, 32, 100, 1024)):
+        t = kdtw.band_threads(r, L, round_k)
+        P = 32 // (r + 1)
+        assert t % 32 == 0 and 32 <= t <= 1024
+        assert t // 32 <= -(-round_k // P)
+        assert 4 * (L + 4 * round_k + t // 32 * P * L) <= 200 * 1024
+    assert kdtw.band_threads(12, 256, 32) == 512
 
 
 # --------------------------------------------- isax's distance helpers

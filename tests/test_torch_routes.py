@@ -50,11 +50,16 @@ def test_every_length_and_segment_count_has_a_route(L, w):
 def test_every_refinement_shape_has_a_route(L, k):
     for dtype, K, M in itertools.product(
             DTYPES + (torch.float16,), (1, 3, 8, 64, 264), (1, 16, 64, 256)):
-        r = refine.route(L, M, k, dtype)
-        assert r in ("shared", "general")
+        r = refine.route(L, K, M, k, dtype)
+        assert r in ("ring", "general")
         s = refine_search.route(L, K, M, k, dtype)
         assert s in refine_search.ROUTES
         elem = torch.finfo(dtype).bits // 8
+        if r == "ring":
+            # csrc's topk layout fits at 4, 3, 2 or 1 CTAs an SM
+            assert (L * elem) % 16 == 0
+            assert any(refine._fits(L, K, M, k, elem, b)
+                       for b in (4, 3, 2, 1))
         if s != "general":
             # a cta route is laid out only where csrc's layout fits
             assert (L * elem) % 16 == 0
@@ -67,13 +72,17 @@ def test_every_refinement_shape_has_a_route(L, k):
 def test_the_main_cell_keeps_the_fast_routes():
     for dtype in DTYPES:
         assert isax_summarize.route(256, 16, dtype) == "lanes"
-        assert refine.route(256, 64, 10, dtype) == "shared"
+        assert refine.route(256, 8, 64, 10, dtype) == "ring"
         assert refine_search.route(256, 8, 64, 10, dtype) == "cta3"
     assert lb_distance.route(16) == "tiled"
     assert ed_argmin.route(256) == "tensor"
     # the kernel phase's cluster cases stay on 3 CTAs an SM
     for M, K in ((16, 6), (32, 12), (64, 3), (8, 264)):
         assert refine_search.route(256, K, M, 10, torch.float32) == "cta3"
+    # and every refine_topk case of the kernel phase takes the slot route
+    for dtype, K, M in itertools.product(DTYPES, (8, 6, 12, 264),
+                                         (16, 32, 64)):
+        assert refine.route(256, K, M, 10, dtype) == "ring"
 
 
 def test_the_faulting_shapes_take_the_other_routes():
@@ -83,14 +92,50 @@ def test_the_faulting_shapes_take_the_other_routes():
     assert isax_summarize.route(384, 16, f32) == "strided"    # VPT 12
     for w in (10, 12, 32):
         assert lb_distance.route(w) == "looped"
-    assert refine.route(100, 64, 10, bf16) == "general"       # 200 bytes
-    assert refine.route(90, 64, 10, f32) == "general"         # 360 bytes
-    assert refine.route(256, 64, 14500, f32) == "general"     # > 227 KB
+    assert refine.route(100, 8, 64, 10, bf16) == "general"    # 200 bytes
+    assert refine.route(90, 8, 64, 10, f32) == "general"      # 360 bytes
+    assert refine.route(256, 8, 64, 14500, f32) == "general"  # > 227 KB
+    assert refine.route(256, 8, 64, 16000, f32) == "general"
     assert refine_search.route(100, 8, 64, 10, bf16) == "general"
     assert refine_search.route(256, 8, 64, 5000, f32) == "cta2"
     assert refine_search.route(256, 64, 256, 10, f32) == "cta1"
     assert refine_search.route(256, 8, 64, 20000, f32) == "general"
     assert ed_argmin.route(100) == "general"
+
+
+def test_refine_topk_ring_route_conditions():
+    """The ring route: rows of whole 16-byte pieces, and csrc's topk layout
+    (the fixed parts: 5 query rows, a window of 256 (row, slot) entries, a
+    row's K * M distances and their gathered candidates; then two stages
+    of a leaf row at least) within a CTA's shared memory at 4, 3, 2 or 1
+    CTAs an SM (fitting at more implies fitting at fewer).  Nothing else
+    decides it: no launch, no device."""
+    f32 = torch.float32
+    # the main cell and the late-round case: 4 CTAs an SM (a leaf of 64
+    # f32 rows of 256 is 64 KB, cut into stages of 16 rows)
+    assert refine._fits(256, 8, 64, 10, 4, 4)
+    for blocks in (1, 2, 3):
+        for K, M, k in ((8, 64, 10), (264, 64, 10), (3, 256, 10),
+                        (8, 64, 4290), (8, 64, 14500)):
+            if refine._fits(256, K, M, k, 4, blocks + 1):
+                assert refine._fits(256, K, M, k, 4, blocks)
+    # 264 slots of 64 rows: 203 KB of distances and candidates, one CTA an
+    # SM
+    assert not refine._fits(256, 264, 64, 10, 4, 2)
+    assert refine._fits(256, 264, 64, 10, 4, 1)
+    assert refine.route(256, 264, 64, 10, f32) == "ring"
+    # k grows the buffers past an SM: the general route
+    assert refine._fits(256, 8, 64, 4290, 4, 1)
+    assert not refine._fits(256, 8, 64, 14500, 4, 1)
+    assert refine.route(256, 8, 64, 14500, f32) == "general"
+    # bf16 rows of 100 values are 200 bytes: never the ring route,
+    # however small the layout
+    assert refine._fits(100, 8, 64, 10, 2, 4)
+    assert refine.route(100, 8, 64, 10, torch.bfloat16) == "general"
+    assert refine.route(100, 8, 64, 10, f32) == "ring"        # 400 bytes
+    # the route depends on the shapes alone
+    assert all(refine.route(256, 8, 64, 10, f32) == "ring"
+               for _ in range(3))
 
 
 @pytest.mark.parametrize("L,w", [(96, 16), (100, 10), (90, 5)])
