@@ -583,15 +583,15 @@ def fold_check(torch, dk, ek, dr, er, true_d, tol, what):
     return err, int(mism.sum())
 
 
-TOPK_GRID_K = (8, 6, 12, 264)   # clusters of 8, 2, 4 and 8 CTAs a row
+TOPK_GRID_K = (8, 6, 12, 264)
 TOPK_GRID_M = (16, 32, 64)
 TOPK_SHARES = (0.0, 0.05, 0.5)  # 0.05: the sharded path's late rounds
 
 
 def slot_by_slot(torch, rk, args, M_, k):
     """One round folded one slot at a time (K launches of one slot each):
-    the order refine_topk folded in before its cluster redesign, whose
-    bits and ties one fold over all the slots must keep."""
+    the order of a kernel that walks a row's slots in turn, whose bits and
+    ties the ring route's folds in union order must keep."""
     qv, qsq, series, xn, ids, alive, bd, be = args
     for j in range(ids.shape[1]):
         bd, be = rk.refine_topk(qv, qsq, series, xn,
@@ -603,10 +603,12 @@ def slot_by_slot(torch, rk, args, M_, k):
 
 def refine_topk_grid(torch, isax, rk, ref, gen, Qg=32, NL=512):
     """refine_topk at K 8, 6, 12 and 264, leaves of 16, 32 and 64 rows,
-    f32 and bf16, alive shares 0, 0.05 and 0.5, each round folding into a
-    buffer carried from a round before: bit for bit against the same
-    round folded slot by slot, the buffer itself where no slot is alive,
-    and against the plain version within fold_check's tolerance."""
+    f32 and bf16: a first round (half the slots alive, into an empty
+    buffer: every candidate passes), then alive shares 0, 0.05 and 0.5,
+    each folding into the first round's buffer: bit for bit against the
+    same round folded slot by slot, the buffer itself where no slot is
+    alive, and against the plain version within fold_check's
+    tolerance."""
     worst, cases = 0.0, 0
     for M_ in TOPK_GRID_M:
         x = isax.znormalize(walks(torch, gen, NL * M_, L))
@@ -626,26 +628,27 @@ def refine_topk_grid(torch, isax, rk, ref, gen, Qg=32, NL=512):
                         f"{what}: route")
 
                 def draw():
-                    return torch.rand(Qg, NL, generator=gen,
-                                      device=DEV).argsort(1)[:, :K_].to(
-                        torch.int32).contiguous()
-                bd, be = rk.refine_topk(
-                    qv, qsq, series, xn, draw(),
-                    torch.rand(Qg, K_, generator=gen, device=DEV) < 0.5,
-                    torch.full((Qg, TOPK), 1e30, device=DEV),
-                    torch.zeros((Qg, TOPK), dtype=torch.int32, device=DEV),
-                    leaf_capacity=M_, k=TOPK)
-                for share in TOPK_SHARES:
-                    alive = torch.rand(Qg, K_, generator=gen,
-                                       device=DEV) < share
-                    args = (qv, qsq, series, xn, draw(), alive, bd, be)
+                    return draw_leaves(torch, gen, Qg, NL, K_)
+                first = (qv, qsq, series, xn, draw(),
+                         torch.rand(Qg, K_, generator=gen, device=DEV) < 0.5,
+                         torch.full((Qg, TOPK), 1e30, device=DEV),
+                         torch.zeros((Qg, TOPK), dtype=torch.int32,
+                                     device=DEV))
+                bd, be = None, None
+                for share in ("first",) + TOPK_SHARES:
+                    if share == "first":    # into the empty buffer
+                        args = first
+                    else:
+                        alive = torch.rand(Qg, K_, generator=gen,
+                                           device=DEV) < share
+                        args = (qv, qsq, series, xn, draw(), alive, bd, be)
                     dk, ek = rk.refine_topk(*args, leaf_capacity=M_, k=TOPK)
                     ds, es = slot_by_slot(torch, rk, args, M_, TOPK)
                     require(torch.equal(dk, ds) and torch.equal(ek, es),
                             f"{what} alive {share}: not bit-equal to the "
                             f"round folded slot by slot")
-                    require(share or (torch.equal(dk, bd)
-                                      and torch.equal(ek, be)),
+                    require(share != 0.0 or (torch.equal(dk, bd)
+                                             and torch.equal(ek, be)),
                             f"{what}: a round with no slot alive changed "
                             f"the buffer")
                     dr, er = ref.refine_topk_ref(*args, leaf_capacity=M_,
@@ -654,18 +657,20 @@ def refine_topk_grid(torch, isax, rk, ref, gen, Qg=32, NL=512):
                                         f"{what} alive {share}")
                     worst = max(worst, err)
                     cases += 1
+                    if share == "first":
+                        bd, be = dk, ek
         del x, qv
     return {"cases": cases, "K": TOPK_GRID_K, "leaves": TOPK_GRID_M,
-            "alive_shares": TOPK_SHARES, "max_abs_err": worst,
+            "alive_shares": TOPK_SHARES,
+            "first_round": "half alive, into an empty buffer",
+            "max_abs_err": worst,
             "check": "bit-equal to the round folded slot by slot; the "
                      "plain version within tol"}
 
 
 def check_refine(torch, isax, rk, ref, gen, grid_gen, NL=4096):
-    x = isax.znormalize(torch.randn(NL * M, L, generator=gen, device=DEV)
-                        .cumsum_(1))
-    qv = isax.znormalize(torch.randn(Q, L, generator=gen, device=DEV)
-                         .cumsum_(1))
+    x = isax.znormalize(walks(torch, gen, NL * M, L))
+    qv = isax.znormalize(walks(torch, gen, Q, L))
     qsq = (qv * qv).sum(1)
     rows = {}
     for name, series in (("f32", x), ("bf16", x.to(torch.bfloat16))):
@@ -681,8 +686,7 @@ def check_refine(torch, isax, rk, ref, gen, grid_gen, NL=4096):
         be = torch.zeros((Q, TOPK), dtype=torch.int32, device=DEV)
         errs, swaps = [], 0
         for _ in range(2):                 # round 2 folds into a carry
-            ids = torch.rand(Q, NL, generator=gen, device=DEV).argsort(
-                1)[:, :K].to(torch.int32).contiguous()
+            ids = draw_leaves(torch, gen, Q, NL, K)
             alive = torch.rand(Q, K, generator=gen, device=DEV) < 0.5
             args = (qv, qsq, series, xn, ids, alive, bd, be)
             dk, ek = rk.refine_topk(*args, leaf_capacity=M, k=TOPK)
@@ -1125,6 +1129,12 @@ def walks(torch, gen, n, Lx):
     return torch.randn(n, Lx, generator=gen, device=DEV).cumsum_(1)
 
 
+def draw_leaves(torch, gen, nq, NL, K_):
+    """(nq, K_) int32 leaf ids, K_ distinct leaves of NL a row."""
+    return torch.rand(nq, NL, generator=gen, device=DEV).argsort(
+        1)[:, :K_].to(torch.int32).contiguous()
+
+
 def route_summarize(torch, isax, ks, ref, gen, n=1 << 20):
     """The strided route (any L and w) at L 96, w 16 in f32 and bf16 and
     at L 100, w 10, at the l96 path's launch of n rows: summarize_rows by
@@ -1216,8 +1226,7 @@ def route_refine_topk(torch, isax, rk, ref, gen, NL=2048):
                     - 2 * torch.einsum("qkl,ql->qk", xs, qv)).clamp_min(0)
         bd = torch.full((nq, k), 1e30, device=DEV)
         be = torch.zeros((nq, k), dtype=torch.int32, device=DEV)
-        ids = torch.rand(nq, NL, generator=gen, device=DEV).argsort(
-            1)[:, :K].to(torch.int32).contiguous()
+        ids = draw_leaves(torch, gen, nq, NL, K)
         alive = torch.rand(nq, K, generator=gen, device=DEV) < 0.5
         alive[:, 0] = True
         args = (qv, qsq, series, xn, ids, alive, bd, be)
@@ -2691,7 +2700,7 @@ def sharded_path(torch, api, isax, kmods, index, queries, d, ids, gen):
     from repro_torch.runtime import make_mesh
     from repro_torch.serve import EngineConfig
     n = index.index.perm.shape[0]
-    rep = {"phase": "sharded", "series": n, "queries": Q, "ring": SHARDS,
+    rep = {"phase": "sharded", "series": n, "queries": Q, "slots": SHARDS,
            "device": "cuda:0",
            "cards_visible": torch.cuda.device_count()}
     if torch.cuda.device_count() >= SHARDS:
@@ -2972,6 +2981,15 @@ def dtw_edges(torch, isax, kd, ref, gen):
     return edges
 
 
+def dtw_draws(torch, isax, gen):
+    """The dtw phase's collection (DTW_N random walks of length L) and its
+    DTW_Q queries: collection series z-normalized, then N(0, 0.1) noise."""
+    raw = walks(torch, gen, DTW_N, L)
+    pick = torch.randint(0, DTW_N, (DTW_Q,), generator=gen, device=DEV)
+    return raw, isax.znormalize(raw[pick]) + 0.1 * torch.randn(
+        DTW_Q, L, generator=gen, device=DEV)
+
+
 def dtw_path(torch, isax, kmods, ref, gen):
     """Exact DTW 1-NN on the card: 2^22 random walks of length 256 made
     from the seed, 256 queries (z-normalized collection series + N(0,
@@ -2991,10 +3009,7 @@ def dtw_path(torch, isax, kmods, ref, gen):
     from repro_torch.core import dtw as cdtw
     kd = kmods["dtw"]
     t_phase = time.perf_counter()
-    raw = walks(torch, gen, DTW_N, L)
-    pick = torch.randint(0, DTW_N, (DTW_Q,), generator=gen, device=DEV)
-    queries = isax.znormalize(raw[pick]) + 0.1 * torch.randn(
-        DTW_Q, L, generator=gen, device=DEV)
+    raw, queries = dtw_draws(torch, isax, gen)
     torch.cuda.synchronize()
     alloc0 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()

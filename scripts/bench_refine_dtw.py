@@ -1,24 +1,23 @@
 #!/usr/bin/env python3
-"""Time refine_topk and dtw_search at their paths' shapes on one NVIDIA GPU.
+"""Time refine_topk and dtw_search of one tree's src/ on one NVIDIA GPU,
+to compare two versions of the kernels in turns in one call:
 
     python3 scripts/bench_refine_dtw.py [--src DIR] [--reps R] [--seed S]
 
-refine_topk: one round at the shape of chip_smoke.py's kernel table (Q
-256 queries, K 8 slots of leaves of 64 rows of length 256, k 10, float32,
-about half the slots alive), folding into a buffer carried from a round
-before, and the same round with about 1 slot in 20 alive (a late round of
-the sharded search); each the mean of R x 20 launches by CUDA events
-(which count the host's time between launches where it is the longer)
-and the kernels' own device time by torch.profiler; then the device
-time at alive shares 0, 0.01, 0.05, 0.2, 0.5 and 1.
-dtw_search: the first group of chip_smoke.py's dtw phase (2^22 random
-walks of length 256 from the phase's seed, 32 queries noised after
-z-normalization, r 12, round_k 32), its LB_Keogh and sort made once; the
-mean of R launches.  Each result is held equal to the first launch's.
-Prints one JSON line with the card's name and power limit.  `--src`
-imports repro_torch from another tree's src/ (a `git archive` of another
-commit), so two versions can be timed in turns in one run on one card.
-Without CUDA it exits 1 before printing a result.
+`--src` imports repro_torch from another tree's src/ (a `git archive` of
+another commit); run it as parent, change, change, parent.  The inputs
+are drawn by chip_smoke.py's own helpers, so both trees see the same.
+refine_topk: Q 256 queries, leaves of 64 rows of length 256, k 10,
+float32, at K 8, 16 and 264 slots a row: a first round with every slot
+alive (every candidate passes the empty buffer), then rounds folding
+into a buffer carried from a half-alive first round with all, half and
+1 in 20 slots alive; each case the kernel's own device time over 20 x R
+launches (torch.profiler), held equal to its first launch.
+dtw_search: the first group of chip_smoke.py's dtw phase (its draws, 32
+queries, r 12, round_k 32), its LB_Keogh and sort made once; the mean of
+R launches by CUDA events, held equal to the first launch.
+Prints one JSON line with the card's name and power limit.  Without CUDA
+it exits 1 before printing a result.
 """
 
 from __future__ import annotations
@@ -30,69 +29,50 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+TOPK_K = (8, 16, 264)
+TOPK_CASES = (("first_all", 1.0), ("all", 1.0), ("half", 0.5),
+              ("late", 0.05))
 
 
-def refine_case(torch, isax, rk, cs, seed: int, reps: int) -> dict:
-    Q, K, M, L, k, NL = 256, 8, 64, 256, 10, 4096
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-
-    def walks(n):
-        return isax.znormalize(torch.randn(n, L, generator=gen,
-                                           device="cuda").cumsum_(1))
-    x, qv = walks(NL * M), walks(Q)
+def refine_case(torch, isax, rk, cs, gen, reps: int) -> dict:
+    Q, M, L, k, NL = cs.Q, cs.M, cs.L, cs.TOPK, 4096
+    x = isax.znormalize(cs.walks(torch, gen, NL * M, L))
+    qv = isax.znormalize(cs.walks(torch, gen, Q, L))
     qsq, xn = (qv * qv).sum(1), (x * x).sum(1)
-
-    def draw(share):
-        ids = torch.rand(Q, NL, generator=gen, device="cuda").argsort(
-            1)[:, :K].to(torch.int32).contiguous()
-        return ids, torch.rand(Q, K, generator=gen, device="cuda") < share
-    bd, be = rk.refine_topk(qv, qsq, x, xn, *draw(0.5),
-                            torch.full((Q, k), 1e30, device="cuda"),
-                            torch.zeros((Q, k), dtype=torch.int32,
-                                        device="cuda"),
-                            leaf_capacity=M, k=k)
-    out = {}
-    for name, share in (("half_alive", 0.5), ("late_round", 0.05)):
-        ids, alive = draw(share)
-        args = (qv, qsq, x, xn, ids, alive, bd, be)
-        want = rk.refine_topk(*args, leaf_capacity=M, k=k)
-        call = lambda: rk.refine_topk(*args, leaf_capacity=M, k=k)  # noqa
-        ms = cs.time_ms(torch, call, 20 * reps, 1)
-        dev = cs.device_ms(torch, call, 20 * reps)
-        got = call()
-        assert all(torch.equal(a, b) for a, b in zip(got, want)), name
-        out[name] = {"ms": ms, "device_ms": dev,
-                     "alive_slots": int(alive.sum()),
-                     "alive_rows": int(alive.any(1).sum())}
-    # the kernels' own time across alive shares (where the time goes)
-    out["device_ms_by_share"] = {}
-    for share in (0.0, 0.01, 0.05, 0.2, 0.5, 1.0):
-        ids, alive = draw(share)
-        args = (qv, qsq, x, xn, ids, alive, bd, be)
-        out["device_ms_by_share"][str(share)] = cs.device_ms(
-            torch, lambda: rk.refine_topk(*args, leaf_capacity=M, k=k),
-            20 * reps)
-    out["shape"] = f"Q={Q} K={K} M={M} L={L} k={k}, f32"
+    empty = (torch.full((Q, k), 1e30, device="cuda"),
+             torch.zeros((Q, k), dtype=torch.int32, device="cuda"))
+    out = {"shape": f"Q={Q} M={M} L={L} k={k}, f32"}
+    for K in TOPK_K:
+        def alive(share, K=K):
+            return torch.rand(Q, K, generator=gen, device="cuda") < share
+        carried = rk.refine_topk(qv, qsq, x, xn,
+                                 cs.draw_leaves(torch, gen, Q, NL, K),
+                                 alive(0.5), *empty, leaf_capacity=M, k=k)
+        for name, share in TOPK_CASES:
+            args = (qv, qsq, x, xn, cs.draw_leaves(torch, gen, Q, NL, K),
+                    alive(share),
+                    *(empty if name == "first_all" else carried))
+            call = lambda: rk.refine_topk(*args, leaf_capacity=M, k=k)  # noqa
+            want = call()
+            dev = cs.device_ms(torch, call, 20 * reps)
+            assert all(torch.equal(a, b) for a, b in zip(call(), want)), (
+                K, name)
+            out[f"K{K}_{name}"] = {"device_ms": dev,
+                                   "alive_slots": int(args[5].sum())}
     return out
 
 
-def dtw_case(torch, isax, kd, cs, seed: int, reps: int) -> dict:
-    # the draws of chip_smoke.py's dtw phase, from its generator
-    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
-    raw = cs.walks(torch, gen, cs.DTW_N, cs.L)
-    pick = torch.randint(0, cs.DTW_N, (cs.DTW_Q,), generator=gen,
-                         device="cuda")
-    queries = isax.znormalize(raw[pick]) + 0.1 * torch.randn(
-        cs.DTW_Q, cs.L, generator=gen, device="cuda")
+def dtw_case(torch, isax, kd, cs, gen, reps: int) -> dict:
+    raw, queries = cs.dtw_draws(torch, isax, gen)
     x = isax.znormalize(raw).contiguous()
     del raw
     qg = isax.znormalize(queries[:32]).contiguous()
     s, o = torch.sort(kd.lb_keogh(qg, x, r=cs.DTW_R), dim=1, stable=True)
-    want = kd.dtw_search(qg, x, s, o, r=cs.DTW_R, round_k=cs.DTW_RK)
-    ms = cs.time_ms(torch, lambda: kd.dtw_search(
-        qg, x, s, o, r=cs.DTW_R, round_k=cs.DTW_RK), reps, 1)
-    got = kd.dtw_search(qg, x, s, o, r=cs.DTW_R, round_k=cs.DTW_RK)
-    assert all(torch.equal(a, b) for a, b in zip(got, want)), "dtw_search"
+    call = lambda: kd.dtw_search(qg, x, s, o, r=cs.DTW_R,  # noqa: E731
+                                 round_k=cs.DTW_RK)
+    want = call()
+    ms = cs.time_ms(torch, call, reps, 1)
+    assert all(torch.equal(a, b) for a, b in zip(call(), want)), "dtw"
     return {"ms": ms, "rounds_max": int(want[2].max()),
             "refined": int(want[3].sum()),
             "shape": f"{qg.shape[0]} queries x {cs.DTW_N} series, L "
@@ -112,8 +92,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, args.src)
     sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs              # its timers and the dtw phase's draws
-    cs.DEV = "cuda"
+    import chip_smoke as cs              # its draws and timers
     from repro_torch.core import isax
     from repro_torch.kernels import _build, dtw, refine
     smi = subprocess.run(
@@ -121,11 +100,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     _build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
     rep = {"src": args.src, "card": smi,
-           "refine_topk": refine_case(torch, isax, refine, cs, args.seed,
+           "refine_topk": refine_case(torch, isax, refine, cs, gen,
                                       args.reps)}
     torch.cuda.empty_cache()
-    rep["dtw_search"] = dtw_case(torch, isax, dtw, cs, args.seed, args.reps)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 6)
+    rep["dtw_search"] = dtw_case(torch, isax, dtw, cs, gen, args.reps)
     print(json.dumps(rep), flush=True)
     return 0
 

@@ -19,39 +19,34 @@
 // Bound on this card: device memory, on the leaf bytes of the alive
 // slots (alive slots * M * (L * sizeof(T) + 4)).  Each leaf row is used
 // once per query, so the dot products (2 * L flops per row) cannot hide
-// the reads; the fold is O((k + M)^2) compares on data already in shared
+// the reads; a fold is O((k + 256)^2) compares on data already in shared
 // memory.
 //
-// refine_topk's design (namespace `topk` below; redesigned from one block a
-// query row that walked its K slots one after another, each slot's leaf
-// read and then folded before the next): a persistent grid of as many CTAs
-// as the card holds at once, CTA b taking the rows b, b + grid, ..., a
-// window of rows at a time.  For a window, the CTA reads every (row, slot)'s
-// flag and leaf in one pass and lists the alive ones; a dead slot reads
-// nothing, and a row with no alive slot copies its buffer.  The listed
-// leaves (rows, then norms) and each row's query stream through a ring of
-// shared-memory stages by 1-D bulk copies completing on mbarriers, a few
-// chunks ahead across slots and rows, so a row's leaves are all in flight at
-// once and the next row's land while this one folds.  The warps reduce q.x
-// from shared memory (warp_d2): a lane reads 16 bytes of a row at a time (4
-// floats or 8 halves) at the stored width, and the warp reduces q.x in
-// float32 by xor-shuffles, four rows at once.  d^2 = max((q_sq + |x|^2) -
-// 2 q.x, 0), rounded step by step as the plain version writes it.  After a
-// row's last chunk the CTA gathers the candidates below the k-th best of
-// its (ascending) buffer in union (slot, row) order and folds them once
+// refine_topk's design (namespace `topk` below): a persistent grid of as
+// many CTAs as the card holds at once, CTA b taking the rows b, b + grid,
+// ..., a window of rows at a time.  For a window, the CTA reads every (row,
+// slot)'s flag and leaf in one pass and lists the alive ones; a dead slot
+// reads nothing, and a row with no alive slot copies its buffer.  The
+// listed leaves (rows, then norms) and each row's query stream through a
+// ring of shared-memory stages by 1-D bulk copies completing on mbarriers,
+// a few chunks ahead across slots and rows, so a row's leaves are all in
+// flight at once and the next row's land while this one folds.  The warps
+// reduce q.x from shared memory (warp_d2): a lane reads 16 bytes of a row
+// at a time (4 floats or 8 halves) at the stored width, and the warp
+// reduces q.x in float32 by xor-shuffles, four rows at once.  d^2 =
+// max((q_sq + |x|^2) - 2 q.x, 0), rounded step by step as the plain
+// version writes it.  After a row's last chunk the CTA takes its K * M
+// distances in union (slot, row) order, kThreads at a time, and folds
+// those below the k-th best of the moment into the (ascending) buffer
 // (fold); the others cannot enter.  The fold ranks the union of the k
-// buffer slots and the n gathered candidates:
+// buffer slots and the n candidates:
 //   rank(e) = #{f : d_f < d_e or (d_f == d_e and f < e)},
 // with buffer slots before candidates, a permutation of 0..k+n-1, so the
-// thread of an element of rank < k writes it to that slot.  One fold over
-// all K * M candidates gives the ties of folding the slots one after
-// another, lower union index first, as `jax.lax.top_k` does.  (Two other
-// layouts measured no faster at the kernel table's shape, PERF.md: a
-// cluster of 8 CTAs a row, slot j on CTA j mod 8 with the fold over
-// distributed shared memory, which holds 8 CTAs and their shared memory
-// through each row's barriers and fold whatever its dead slots; and one
-// CTA a (row, slot) with the row's last slot folding from L2 after a
-// count, a chain of round trips a row.)
+// thread of an element of rank < k writes it to that slot.  Folds in
+// union order give the ties of one fold over all K * M candidates, lower
+// union index first, as `jax.lax.top_k` does, and a fold ranks at most
+// k + kThreads elements, however many candidates pass a first round's
+// empty buffer.
 //
 // refine_search's design (namespace `search` below): a persistent grid of
 // thread-block clusters of C CTAs, each cluster pulling queries from an
@@ -870,9 +865,9 @@ __device__ __forceinline__ int cta_place(bool f, int* wc, int tid,
 // slot copies its buffer.  Then the chunks of the listed leaves stream
 // through the ring, a few ahead, across slots and rows (a row's query with
 // its first chunk, into a ring of its own); after a row's last chunk the
-// CTA gathers the row's candidates below the k-th best of its buffer in
-// union (slot, row) order and folds them, once, while the next row's
-// chunks land.
+// CTA folds the row's candidates below the k-th best of the moment into its
+// buffer, kThreads of them in union (slot, row) order at a time, while the
+// next row's chunks land.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 topk_kernel(const Params p) {
@@ -896,7 +891,7 @@ topk_kernel(const Params p) {
   float* nd = reinterpret_cast<float*>(smem + p.off_nd);
   int* ne = reinterpret_cast<int*>(smem + p.off_ne);
   float* ld = reinterpret_cast<float*>(smem + p.off_ld);  // passing cands
-  int* le = reinterpret_cast<int*>(smem + p.off_le);
+  int* le = reinterpret_cast<int*>(smem + p.off_le);      // [kThreads]
   uint8_t* ring = smem + p.off_ring;
   const int G = gridDim.x;
 
@@ -1010,12 +1005,12 @@ topk_kernel(const Params p) {
           if (tid == 0 && g + p.stages < NG) issue(g + p.stages);
         }
       }
-      // the row's candidates below the k-th best, in union (slot, row)
-      // order, then one fold
-      const float kth = bd[p.k - 1];
+      // the row's candidates in union (slot, row) order, kThreads at a
+      // time: those below the k-th best of the moment folded in (fold),
+      // so a fold never ranks more than k + kThreads elements
       const int* fl = w_flag + ri * p.K;
-      int run = 0;
       for (int it = 0; it < p.n_it; ++it) {
+        const float kth = bd[p.k - 1];
         const int e2 = it * kThreads + tid;
         bool ok = false;
         float d = 0.f;
@@ -1024,21 +1019,23 @@ topk_kernel(const Params p) {
           ok = d < kth;
         }
         int n_pass = 0;
-        const int place = run + cta_place(ok, wc, tid, &n_pass);
+        const int place = cta_place(ok, wc, tid, &n_pass);
+        if (n_pass == 0) continue;      // uniform over the CTA
         if (ok) {
           ld[place] = d;
           le[place] = s_lrow[e2 / p.M] * p.M + e2 % p.M;
         }
-        run += n_pass;
+        __syncthreads();
+        fold(bd, be, ld, le, p.k, n_pass, nd, ne, tid);
+        __syncthreads();
+        float* td = bd; bd = nd; nd = td;   // every thread swaps alike
+        int* te = be; be = ne; ne = te;
       }
-      __syncthreads();
-      fold(bd, be, ld, le, p.k, run, nd, ne, tid);
-      __syncthreads();
       for (int t = tid; t < p.k; t += kThreads) {
-        p.out_d[kr + t] = nd[t];
-        p.out_e[kr + t] = ne[t];
+        p.out_d[kr + t] = bd[t];
+        p.out_e[kr + t] = be[t];
       }
-      __syncthreads();          // bd, cand and the lists are free
+      __syncthreads();          // the buffers, cand and the lists are free
     }
     base += NG;
     seq += n_rows;
@@ -1069,8 +1066,8 @@ inline cudaError_t layout(Params& p, int blocks, int elem, size_t* smem) {
   p.off_be = take(off, 4u * p.k, 4);
   p.off_nd = take(off, 4u * p.k, 4);
   p.off_ne = take(off, 4u * p.k, 4);
-  p.off_ld = take(off, 4u * p.K * p.M, 4);
-  p.off_le = take(off, 4u * p.K * p.M, 4);
+  p.off_ld = take(off, 4u * kThreads, 4);
+  p.off_le = take(off, 4u * kThreads, 4);
   p.off_ring = take(off, 0, 128);
   return search::place_ring(p, blocks, elem, smem);
 }

@@ -3,8 +3,8 @@
 On CUDA tensors `refine_topk` launches a kernel of `csrc/refine.cu`, by
 the route `route` picks from the shapes (a persistent grid taking query
 rows in turn, each row's alive leaves streamed through a ring of bulk
-copies, one fold a row; or one block a row with its buffers in global
-scratch); each reads only the alive leaves, at their stored width, and
+copies, their candidates folded 256 at a time; or one block a row with
+its buffers in global scratch); each reads only the alive leaves, at their stored width, and
 never materializes the (Q, K*M, L) gather.  On CPU tensors it runs the
 plain version `ref.refine_topk_ref`.  `launches` counts the kernel's
 launches.
@@ -64,7 +64,7 @@ def _fits(L: int, K: int, M: int, k: int, elem: int, blocks: int) -> bool:
                       (4 * n_ent, 4), (4 * W, 4), (4 * W, 4), (4 * W, 4),
                       (4 * K, 4), (4 * (_WARPS + 1), 4), (4 * K * M, 16),
                       (4 * k, 4), (4 * k, 4), (4 * k, 4), (4 * k, 4),
-                      (4 * K * M, 4), (4 * K * M, 4), (0, 128)),
+                      (4 * _THREADS, 4), (4 * _THREADS, 4), (0, 128)),
                      L, M, elem, blocks)
 
 
@@ -72,10 +72,10 @@ def _fits(L: int, K: int, M: int, k: int, elem: int, blocks: int) -> bool:
 def route(L: int, K: int, M: int, k: int, dtype: torch.dtype) -> str:
     """The kernel route of one round: "ring" (a CTA a query row in turn,
     all the row's alive leaves streamed through a ring of bulk copies
-    into shared memory, one fold a row) where a row is whole 16-byte
-    pieces and the layout fits at 4, 3, 2 or 1 CTAs an SM; "general"
-    (values one at a time, the candidates and buffers in global scratch)
-    for every other shape.  A pure function of the shapes (so cached: the
+    into shared memory, their candidates folded 256 at a time) where a
+    row is whole 16-byte pieces and the layout fits at 4, 3, 2 or 1 CTAs
+    an SM; "general" (values one at a time, the candidates and buffers in
+    global scratch) for every other shape.  A pure function of the shapes (so cached: the
     sharded search launches one a shard a round); the wrapper realigns a
     base that is not 16-byte aligned."""
     elem = torch.finfo(dtype).bits // 8

@@ -79,7 +79,7 @@ def test_the_main_cell_keeps_the_fast_routes():
     # the kernel phase's cluster cases stay on 3 CTAs an SM
     for M, K in ((16, 6), (32, 12), (64, 3), (8, 264)):
         assert refine_search.route(256, K, M, 10, torch.float32) == "cta3"
-    # and every refine_topk case of the kernel phase takes the slot route
+    # and every refine_topk case of the kernel phase takes the ring route
     for dtype, K, M in itertools.product(DTYPES, (8, 6, 12, 264),
                                          (16, 32, 64)):
         assert refine.route(256, K, M, 10, dtype) == "ring"
@@ -106,7 +106,7 @@ def test_the_faulting_shapes_take_the_other_routes():
 def test_refine_topk_ring_route_conditions():
     """The ring route: rows of whole 16-byte pieces, and csrc's topk layout
     (the fixed parts: 5 query rows, a window of 256 (row, slot) entries, a
-    row's K * M distances and their gathered candidates; then two stages
+    row's K * M distances and a fold's 256 candidates; then two stages
     of a leaf row at least) within a CTA's shared memory at 4, 3, 2 or 1
     CTAs an SM (fitting at more implies fitting at fewer).  Nothing else
     decides it: no launch, no device."""
@@ -119,10 +119,10 @@ def test_refine_topk_ring_route_conditions():
                         (8, 64, 4290), (8, 64, 14500)):
             if refine._fits(256, K, M, k, 4, blocks + 1):
                 assert refine._fits(256, K, M, k, 4, blocks)
-    # 264 slots of 64 rows: 203 KB of distances and candidates, one CTA an
-    # SM
-    assert not refine._fits(256, 264, 64, 10, 4, 2)
-    assert refine._fits(256, 264, 64, 10, 4, 1)
+    # 264 slots of 64 rows: 66 KB of distances beside a leaf's stages, two
+    # CTAs an SM
+    assert not refine._fits(256, 264, 64, 10, 4, 3)
+    assert refine._fits(256, 264, 64, 10, 4, 2)
     assert refine.route(256, 264, 64, 10, f32) == "ring"
     # k grows the buffers past an SM: the general route
     assert refine._fits(256, 8, 64, 4290, 4, 1)
