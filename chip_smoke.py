@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Drive repro_torch's kernel paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--series N] [--seed S]
+    python3 chip_smoke.py [--series N] [--seed S] [--only dtw]
+
+`--only dtw` runs the device, build and dtw phases alone, then the
+kernel table (the dtw rows), the nvidia-smi line and the device line.
 
 Phases, each printing one JSON line:
   device     nvidia-smi's name and power limit, torch's device name;
@@ -32,7 +35,9 @@ Phases, each printing one JSON line:
              held bit for bit to their plain versions, on real sorted
              summaries at three bounds and 8 and 4 bits, and through the
              IndexBuilder at 4 workers against the one-pass build at three
-             bounds in float32 and bfloat16 storage;
+             bounds in float32 and bfloat16 storage, and leaf_gather's
+             own device time a launch of a part (2048 rows, the
+             profiler) beside that part's bound;
   main       FreshIndex.build over N random walks of length 256 made on the
              card (default 2^24, 16 GiB of float32), then exact 10-NN of 256
              noisy collection series (sigma 0.1, the paper's hardest Fig. 6a
@@ -141,12 +146,23 @@ Phases, each printing one JSON line:
              to dtw_band_ref on its (query, id), lb_keogh to its plain
              version on a group, the DP bit for bit on 4,096 sampled
              pairs; LB, sort and refinement ms, rounds and candidates
-             refined a query, peak memory; edge runs (the band route's
-             wavefront at r 0, 1, 12, 15, 16 and L 100, round_k 100 at
-             r 16 and 64 at r 0; r 40 at L 100; N < round_k, N not a
-             multiple of round_k), each kernel bit for bit (lb_keogh to
-             1e-5); table rows for
-             lb_keogh, dtw_search and dtw_scan and their general routes;
+             refined a query, peak memory; then the same collection and
+             queries at r 25 (10 % of L: dtw_search's wide route of 2
+             cells a lane), its pieces timed, its first two groups bit
+             for bit against dtw_search_ref and its first 8 queries
+             against the brute force (the general scan route); lb_keogh
+             at L 1024 (2^20 series, 24 queries, r 51) and L 100 (2^22
+             series, r 5) against its plain version; edge runs (the band
+             route's wavefront at r 0, 1, 12, 15, 16 and L 100, round_k
+             100 at r 16 and 64 at r 0; the wide routes at r 17, 25, 31,
+             32, 40, 63, 64 and 127 and the general one at r 128, L 100
+             and L 300, N not a multiple of round_k; the scalar LB
+             at L 101; N < round_k), each kernel bit for bit (lb_keogh
+             to 1e-5); table rows for lb_keogh (L 256, its scalar route,
+             L 1024 and L 100), dtw_search (the band route, the wide
+             route at r 25 with the general route's time at that shape
+             beside it, the general route at r 12) and dtw_scan (band
+             and general);
   fidelity   build_index_host over 2^16 seismic_like series of length
              256 under RefreshExecutor, DoAllSplit, FaiBased and CasBased
              at 8 threads: every id in the forest with the one-pass
@@ -556,6 +572,15 @@ def check_leaf_gather(torch, isax, lgk, ref, gen, n=1 << 22,
     row_bytes = L * 4 + 16 * 4 + 16 + 4
     bms, by = bound_ms(n * (row_bytes + 8) + n * (row_bytes + 4), 0)
     checks["one_launch_share_of_bound"] = bms / checks["one_launch_ms"]
+    # one launch of the phase's: its own device time (the profiler) against
+    # the bound of its part's rows, where the phase's events wait on the
+    # host between launches
+    checks["device_ms_per_launch"] = device_ms(
+        torch, lambda: launch(0, part), 40)
+    checks["part_bound_ms"] = bound_ms(
+        part * (row_bytes + 8) + part * (row_bytes + 4), 0)[0]
+    checks["part_share_of_bound"] = (checks["part_bound_ms"]
+                                     / checks["device_ms_per_launch"])
     return {"name": "leaf_gather", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/leaf_stats.cu",
             "replaces": "none: a port-side kernel (the gathers of "
@@ -2904,6 +2929,19 @@ def sharded_recover(torch, api, isax, gen, n=1 << 22, nq=64):
 
 # ---------------------------------------------------------------------- dtw
 DTW_N, DTW_Q, DTW_R, DTW_RK, DTW_BRUTE, DTW_PAIRS = 1 << 22, 256, 12, 32, 32, 4096
+# the wide-band run: r 10 % of L, its first groups held to the plain
+# version, its first queries to the brute force
+DTW_WIDE_R, DTW_WIDE_GROUPS, DTW_WIDE_BRUTE = 25, 2, 8
+# the wider bands' runs (wave4, wave8: 20 % and 40 % of L) on the first
+# group, its first queries held to the brute force; their table rows on a
+# cut search: each query's first DTW_WIDER_CUT candidates by bound
+DTW_WIDER_R, DTW_WIDER_BRUTE, DTW_WIDER_CUT = (51, 102), 2, 1 << 15
+# lb_keogh at other lengths: (series, L, queries, r 5 % of L)
+DTW_LB_SHAPES = ((1 << 20, 1024, 24, 51), (1 << 22, 100, 32, 5))
+# pairs a dtw_band_ref call of dtw_search_ref takes on the card (its answer
+# is the same at any chunk; 2^20 pairs of 256 hold ~3 GiB and take ~16x
+# fewer host-driven DP sweeps than its default 2^16)
+DTW_REF_PAIRS = 1 << 20
 DTW_SRC = "src/repro_torch/kernels/csrc/dtw.cu"
 DTW_REPLACES = ("none: a port-side kernel (src/repro/core/dtw.py:{} {} is "
                 "plain jnp, no Pallas kernel)")
@@ -2915,16 +2953,67 @@ def dtw_cells(Lx: int, r: int) -> int:
     return sum(min(Lx - 1, i + r) - max(0, i - r) + 1 for i in range(Lx))
 
 
-def dtw_bound(torch, n_pairs: int, Lx: int, r: int, nbytes: float):
+def dtw_bound(cells: int, nbytes: float):
     """A DP cell is five f32 instructions (subtract, multiply, two mins,
     add; the multiply and the add kept apart), at the issue rate."""
-    return bound_ms(nbytes, n_pairs * dtw_cells(Lx, r) * 5, FP32_ISSUE)
+    return bound_ms(nbytes, cells * 5, FP32_ISSUE)
+
+
+def wave_step_cells(torch, Lx: int, r: int, cells: int):
+    """The band cells that dtw_search's wavefront (cells a lane) forms at
+    each of its L + r // cells steps: lane l forms row s - l's offsets
+    cells * l + m at step s."""
+    H, l0 = -(-(2 * r + 1) // cells), r // cells
+    s = torch.arange(Lx + l0)[:, None, None]
+    ll = torch.arange(H)[None, :, None]
+    m = torch.arange(cells)[None, None, :]
+    i, k, c = s - ll, cells * ll + m, s + (cells - 1) * ll - r + m
+    inside = (i >= 0) & (i < Lx) & (k <= 2 * r) & (c >= 0) & (c < Lx)
+    return inside.sum((1, 2))
+
+
+def needed_cells(torch, ref, q, x, sorted_lb, order, trace, r: int,
+                 round_k: int, cells: int, chunk: int = 1 << 18) -> int:
+    """The cells an early-abandoning refinement needs: for each candidate
+    that dtw_search_ref refined (its `trace`: each round's start and the
+    best-so-far there; the round's candidates below it are refined), the
+    cells of every step of the wavefront (cells a lane) up to and
+    including the first whose least cell reaches that best-so-far (all of
+    them where none does: the pair may improve it).  Each step's least
+    cell comes from ref.dtw_wavefront_ref(step_least=True) on the card,
+    `chunk` pairs a call.  Stopping at the first such step, against the
+    best-so-far of the round's start, no kernel of these rounds forms
+    fewer cells."""
+    N = x.shape[0]
+    qi, sid, cut = [], [], []
+    for g, (starts, bsf) in enumerate(trace):
+        pos = (torch.as_tensor(starts, device=DEV)[:, None]
+               + torch.arange(round_k, device=DEV))
+        bs = torch.as_tensor(bsf, device=DEV)[:, None].expand_as(pos)
+        take = (pos < N) & (sorted_lb[g, pos.clamp_max(N - 1)] < bs)
+        qi.append(torch.full((int(take.sum()),), g, device=DEV))
+        sid.append(order[g, pos[take]])
+        cut.append(bs[take])
+    qi, sid, cut = torch.cat(qi), torch.cat(sid), torch.cat(cut)
+    cum = wave_step_cells(torch, x.shape[1], r, cells).cumsum(0).to(DEV)
+    total = 0
+    for a in range(0, len(qi), chunk):
+        _, least = ref.dtw_wavefront_ref(q[qi[a:a + chunk]],
+                                         x[sid[a:a + chunk]], r, cells,
+                                         step_least=True)
+        hit = least >= cut[a:a + chunk, None]
+        hit[:, :r // cells] = False     # no cell yet: cell (0, 0) is the first
+        stop = torch.where(hit.any(1), hit.int().argmax(1),
+                           least.shape[1] - 1)
+        total += int(cum[stop].sum())
+    return total
 
 
 def lb_bound(nq: int, n: int, Lx: int):
-    """A point a query is five f32 instructions (two subtracts, two
-    maxes, an FMA); the series, the queries and the bounds move once."""
-    return bound_ms(4 * (n * Lx + nq * Lx + nq * n), nq * n * Lx * 5,
+    """A point a query is four f32 instructions, the fewest it needs (a
+    max, a min, a subtract and an FMA: e = x - min(max(x, lo), hi)); the
+    series, the queries and the bounds move once."""
+    return bound_ms(4 * (n * Lx + nq * Lx + nq * n), nq * n * Lx * 4,
                     FP32_ISSUE)
 
 
@@ -2963,22 +3052,292 @@ def dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk):
 
 
 def dtw_edges(torch, isax, kd, ref, gen):
-    """The edge runs: the band route's wavefront at r 0, 1, 12, 15 and 16
-    (r + 1 lanes a pair: 32, 16, 2, 2 and 1 pairs a warp) at L 100, and
-    at round_k 100 with r 16 (more pairs than the block runs at once) and
-    round_k 64 with r 0; r 40 (the general route) at L 100; N < round_k,
-    and N not a multiple of round_k."""
+    """The edge runs: the wave2 route at r 0, 1, 12, 15 and 16 (r + 1
+    lanes a pair: 32, 16, 2, 2 and 1 pairs a warp) at L 100, and at
+    round_k 100 with r 16 (more pairs than the block runs at once) and
+    round_k 64 with r 0; the wave routes at each end of their radii (r
+    17, 25 and 31: 2 cells a lane; 32, 40 and 63: 4; 64 and 127: 8) and
+    the general route at r 128, at L 100 (r 128: the band wider than the
+    series) and L 300, N not a multiple of round_k; the scalar LB_Keogh
+    route at L 101; N < round_k."""
     edges = []
+    wide = [(2999, 100, 4, r, 32) for r in (17, 25, 31, 32, 63, 64, 128)]
+    wide += [(1001, 300, 4, r, 32) for r in (17, 25, 31, 32, 63, 64, 127,
+                                             128)]
     for n, Lx, nq, r, rk in ((3000, 100, 8, 0, 32), (3000, 100, 8, 1, 32),
                              (3000, 100, 8, 12, 32), (3000, 100, 8, 15, 32),
                              (3000, 100, 8, 16, 32), (2000, 100, 4, 16, 100),
                              (2000, 100, 4, 0, 64), (600, 100, 4, 40, 32),
+                             *wide, (1001, 101, 4, 20, 32),
                              (20, L, 4, DTW_R, 32), (1000, L, 4, DTW_R, 16)):
         edges.append(dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r,
-                               rk))
-    require(kd.lb_route(100) == "general" and kd.dp_route(40) == "general"
-            and kd.dp_route(16) == "band", "dtw routes")
+                               rk) | {"route": kd.dp_route(r),
+                                      "lb_route": kd.lb_route(Lx)})
+    require(kd.lb_route(100) == kd.lb_route(L) == "vec"
+            and kd.lb_route(101) == "scalar"
+            and kd.dp_route(0) == kd.dp_route(31) == "wave2"
+            and kd.dp_route(32) == kd.dp_route(63) == "wave4"
+            and kd.dp_route(64) == kd.dp_route(127) == "wave8"
+            and kd.dp_route(128) == "general", "dtw routes")
     return edges
+
+
+def dtw_wide(torch, isax, kmods, ref, x, qz):
+    """The dtw phase's collection and queries at r DTW_WIDE_R (10 % of
+    L), through core.dtw.search_dtw (z-normalized already, znorm=False)
+    and the first DTW_WIDE_BRUTE queries through search_dtw_bruteforce;
+    the launch counts are these two calls'.  Holds: ids equal to the
+    brute force's but at ties, every distance its id's own, the first
+    DTW_WIDE_GROUPS groups' refinement bit for bit against
+    dtw_search_ref.  Then each group's pieces timed, and the table row
+    of the wave route at the first group, with the general route's time
+    at the same shape and the bound of the cells an abandoning DP needs
+    (needed_cells).  Returns (report, launches, row)."""
+    from repro_torch.core import dtw as cdtw
+    kd, r = kmods["dtw"], DTW_WIDE_R
+    route = kd.dp_route(r)
+    torch.cuda.synchronize()
+    reset(kmods)
+    t0 = time.perf_counter()
+    d, ids = cdtw.search_dtw(x, qz, r=r, round_k=DTW_RK, znorm=False,
+                             device=DEV)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bd, bi = cdtw.search_dtw_bruteforce(x, qz[:DTW_WIDE_BRUTE], r=r,
+                                        znorm=False, device=DEV)
+    torch.cuda.synchronize()
+    brute_s = time.perf_counter() - t0
+    routes = dict(kd.by_route)
+    groups = DTW_Q // cdtw.GROUP
+    require(routes == {f"lb_keogh/{kd.lb_route(L)}": groups,
+                       f"dtw_search/{route}": groups,
+                       f"dtw_scan/{kd.scan_route(r)}": 1},
+            f"dtw r {r} launches by route {routes}")
+    require(route == "wave2" and bool(torch.isfinite(d).all())
+            and bool((ids >= 0).all()), f"dtw r {r}: an answer is missing")
+    dg, ig = d[:DTW_WIDE_BRUTE], ids[:DTW_WIDE_BRUTE]
+    d_err = rel_err(torch, dg, bd)
+    mism = ig != bi
+    require(d_err <= 1e-5 and (not bool(mism.any()) or bool(
+        ((dg[mism] - bd[mism]).abs() <= 1e-5 * bd[mism]).all())),
+        f"dtw r {r} vs brute force: {d_err}, ids {ig.tolist()} "
+        f"{bi.tolist()}")
+    own = torch.sqrt(ref.dtw_band_ref(qz, x[ids.long()], r))
+    require(bool((own == d).all()), f"dtw r {r}: a distance is not its "
+            f"id's own")
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    parts = {"lb_ms": 0.0, "sort_ms": 0.0, "refine_ms": 0.0}
+    rounds, refined, plain_ms, trace = [], [], [], []
+    for g in range(0, DTW_Q, cdtw.GROUP):
+        qg = qz[g:g + cdtw.GROUP]
+        e = [ev() for _ in range(4)]
+        e[0].record()
+        lbg = kd.lb_keogh(qg, x, r=r)
+        e[1].record()
+        s, o = torch.sort(lbg, dim=1, stable=True)
+        e[2].record()
+        got = kd.dtw_search(qg, x, s, o, r=r, round_k=DTW_RK)
+        e[3].record()
+        torch.cuda.synchronize()
+        del lbg
+        require(torch.equal(got[1], ids[g:g + cdtw.GROUP]),
+                f"dtw r {r}: the timed group's ids differ from the search's")
+        for key, a, b in (("lb_ms", 0, 1), ("sort_ms", 1, 2),
+                          ("refine_ms", 2, 3)):
+            parts[key] += e[a].elapsed_time(e[b])
+        if g < DTW_WIDE_GROUPS * cdtw.GROUP:
+            t0 = time.perf_counter()
+            want = ref.dtw_search_ref(qg, x, s, o, r, DTW_RK,
+                                      max_pairs=DTW_REF_PAIRS,
+                                      trace=trace if g == 0 else None)
+            torch.cuda.synchronize()
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"dtw_search r {r}, queries {g}..: not bit-equal to "
+                    f"dtw_search_ref")
+        rounds += got[2].tolist()
+        refined += got[3].tolist()
+        if g == 0:
+            first = (qg, s, o, got)
+        else:
+            del s, o
+    qg, s, o, got = first
+    ms = time_ms(torch, lambda: kd.dtw_search(qg, x, s, o, r=r,
+                                              round_k=DTW_RK), 3, 1)
+    t0 = time.perf_counter()
+    gen_out = kd.dtw_search(qg, x, s, o, r=r, round_k=DTW_RK,
+                            route="general")
+    torch.cuda.synchronize()
+    general_ms = (time.perf_counter() - t0) * 1e3
+    require(all(torch.equal(a, b) for a, b in zip(gen_out, got)),
+            f"dtw_search r {r} general: not bit-equal on the first group")
+    n_ref = int(got[3].sum())
+    cells = needed_cells(torch, ref, qg, x, s, o, trace, r, DTW_RK,
+                         kd.wave_cells(route))
+    bms, by = dtw_bound(cells, 4 * n_ref * L
+                        + 12 * int(got[2].sum()) * DTW_RK)
+    shape = (f"{cdtw.GROUP} queries x {DTW_N} series, L {L}, r {r}, "
+             f"round_k {DTW_RK}, {n_ref} refined, {int(got[2].max())} "
+             f"rounds at most (the r {r} run's first group)")
+    row = route_row("dtw_search", f"{route}_r{r}", DTW_SRC,
+                    DTW_REPLACES.format(122, "search_dtw"), shape, 0.0, ms,
+                    plain_ms[0], bms, by,
+                    {"main shape": "bit-equal to dtw_search_ref",
+                     "general route": "bit-equal"})
+    row["general_ms"] = general_ms
+    row["needed_cells"] = cells
+    row["all_cells"] = n_ref * dtw_cells(L, r)
+    rounds_t = torch.tensor(rounds, dtype=torch.float64)
+    refined_t = torch.tensor(refined, dtype=torch.float64)
+    rep = {"r": r, "route": route, "search_dtw_ms": search_s * 1e3,
+           **parts, "bruteforce_queries": DTW_WIDE_BRUTE,
+           "bruteforce_ms": brute_s * 1e3, "ties_vs_bruteforce":
+           int(mism.sum()), "dist_rel_err_vs_bruteforce": d_err,
+           "rounds": {"min": int(rounds_t.min()),
+                      "median": float(rounds_t.median()),
+                      "max": int(rounds_t.max())},
+           "refined_per_query": {"min": int(refined_t.min()),
+                                 "median": float(refined_t.median()),
+                                 "max": int(refined_t.max())},
+           "pruned_share": 1.0 - float(refined_t.mean()) / DTW_N,
+           "first_group_ms": ms, "first_group_general_ms": general_ms,
+           "general_over_wave": general_ms / ms, "bound_ms": bms,
+           "needed_cells": cells, "all_cells": n_ref * dtw_cells(L, r),
+           "search_check": f"groups 0..{DTW_WIDE_GROUPS - 1} bit-equal to "
+                           f"dtw_search_ref", "plain_refine_ms": plain_ms,
+           "by_route": routes}
+    # the table row's launches: this run's (its name carries the radius)
+    launches = {row["name"]: routes.get(f"dtw_search/{route}", 0)}
+    return rep, launches, row
+
+
+def dtw_wider(torch, kd, ref, x, qz):
+    """The wave4 and wave8 routes at the dtw phase's size: the first group
+    (32 queries over the 2^22 x 256 collection) at each r of DTW_WIDER_R
+    (20 % and 40 % of L).  The whole group timed, each distance held to
+    its id's own (dtw_band_ref) and the first DTW_WIDER_BRUTE queries' to
+    the general scan's over every series; then the table row on a cut
+    search (each query's first DTW_WIDER_CUT candidates by bound, the
+    bounds past them at BIG, so no round reads them): the wave route
+    timed, the general route once beside it, both bit for bit against
+    dtw_search_ref, whose trace gives the bound of the cells an
+    abandoning DP needs (needed_cells).  Returns (reports, rows)."""
+    from repro_torch.core import dtw as cdtw
+    reps, rows = [], []
+    qg = qz[:cdtw.GROUP]
+    for r in DTW_WIDER_R:
+        route = kd.dp_route(r)
+        s, o = torch.sort(kd.lb_keogh(qg, x, r=r), dim=1, stable=True)
+        full = lambda: kd.dtw_search(qg, x, s, o, r=r,  # noqa: E731
+                                     round_k=DTW_RK)
+        got = full()
+        full_ms = time_ms(torch, full, 2, 0)
+        require(all(torch.equal(a, b) for a, b in zip(full(), got)),
+                f"dtw_search r {r}: launches differ")
+        own = ref.dtw_band_ref(qg, x[got[1].long()], r)
+        require(bool((got[1] >= 0).all()) and torch.equal(own, got[0]),
+                f"dtw r {r}: a distance is not its id's own")
+        t0 = time.perf_counter()
+        bd, bi = kd.dtw_scan(qg[:DTW_WIDER_BRUTE], x, r=r)
+        torch.cuda.synchronize()
+        brute_ms = (time.perf_counter() - t0) * 1e3
+        require(torch.equal(bd, got[0][:DTW_WIDER_BRUTE]),
+                f"dtw r {r} vs brute force: distances differ")
+        sc = s.clone()
+        sc[:, DTW_WIDER_CUT:] = ref.BIG
+        cut = lambda: kd.dtw_search(qg, x, sc, o, r=r,  # noqa: E731
+                                    round_k=DTW_RK)
+        cgot = cut()
+        ms = time_ms(torch, cut, 3, 0)
+        t0 = time.perf_counter()
+        gen_out = kd.dtw_search(qg, x, sc, o, r=r, round_k=DTW_RK,
+                                route="general")
+        torch.cuda.synchronize()
+        general_ms = (time.perf_counter() - t0) * 1e3
+        trace = []
+        t0 = time.perf_counter()
+        want = ref.dtw_search_ref(qg, x, sc, o, r, DTW_RK,
+                                  max_pairs=DTW_REF_PAIRS, trace=trace)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        require(all(torch.equal(a, b) for a, b in zip(cgot, want))
+                and all(torch.equal(a, b) for a, b in zip(gen_out, want)),
+                f"dtw_search r {r} cut: not bit-equal to dtw_search_ref")
+        n_ref = int(cgot[3].sum())
+        cells = needed_cells(torch, ref, qg, x, sc, o, trace, r, DTW_RK,
+                             kd.wave_cells(route))
+        bms, by = dtw_bound(cells, 4 * n_ref * L
+                            + 12 * int(cgot[2].sum()) * DTW_RK)
+        shape = (f"{qg.shape[0]} queries x {DTW_N} series, L {L}, r {r}, "
+                 f"round_k {DTW_RK}, each query's first {DTW_WIDER_CUT} "
+                 f"candidates by bound: {n_ref} refined, "
+                 f"{int(cgot[2].max())} rounds at most (the first group, "
+                 f"cut)")
+        row = route_row("dtw_search", f"{route}_r{r}", DTW_SRC,
+                        DTW_REPLACES.format(122, "search_dtw"), shape, 0.0,
+                        ms, plain_ms, bms, by,
+                        {"cut shape": "bit-equal to dtw_search_ref",
+                         "general route": "bit-equal"})
+        row |= {"general_ms": general_ms, "needed_cells": cells,
+                "all_cells": n_ref * dtw_cells(L, r),
+                "full_group_ms": full_ms}
+        rows.append(row)
+        rounds_t = got[2].double()
+        reps.append({"r": r, "route": route, "full_group_ms": full_ms,
+                     "full_rounds": {"min": int(rounds_t.min()),
+                                     "median": float(rounds_t.median()),
+                                     "max": int(rounds_t.max())},
+                     "full_refined": int(got[3].sum()),
+                     "bruteforce_queries": DTW_WIDER_BRUTE,
+                     "bruteforce_ms": brute_ms,
+                     "ties_vs_bruteforce": int(
+                         (bi != got[1][:DTW_WIDER_BRUTE]).sum()),
+                     "cut": DTW_WIDER_CUT, "cut_ms": ms,
+                     "cut_general_ms": general_ms,
+                     "general_over_wave": general_ms / ms,
+                     "cut_plain_ms": plain_ms, "cut_refined": n_ref,
+                     "cut_rounds_max": int(cgot[2].max()),
+                     "bound_ms": bms, "needed_cells": cells,
+                     "all_cells": n_ref * dtw_cells(L, r)})
+        del s, o, sc
+        torch.cuda.empty_cache()
+    return reps, rows
+
+
+def dtw_lb_lengths(torch, isax, kd, ref, gen):
+    """lb_keogh at the lengths other than the path's (DTW_LB_SHAPES: L
+    1024, 4 GiB, one launch of lb_group(1024) = 24 queries; L 100, 32),
+    each against lb_keogh_ref to 1e-5 relative, with its time beside its
+    bound.  Returns (reports, rows)."""
+    reps, rows = [], []
+    for n, Lx, nq, r in DTW_LB_SHAPES:
+        x = isax.znormalize(walks(torch, gen, n, Lx)).contiguous()
+        pick = torch.randint(0, n, (nq,), generator=gen, device=DEV)
+        q = isax.znormalize(isax.znormalize(x[pick]) + 0.1 * torch.randn(
+            nq, Lx, generator=gen, device=DEV)).contiguous()
+        require(nq <= kd.lb_group(Lx), f"lb_keogh L {Lx}: {nq} queries "
+                f"take more than one launch")
+        want = ref.lb_keogh_ref(q, x, r)
+        got = kd.lb_keogh(q, x, r=r)
+        err = rel_err(torch, got, want)
+        require(err <= 1e-5, f"lb_keogh L {Lx} vs plain: {err}")
+        ms = time_ms(torch, lambda: kd.lb_keogh(q, x, r=r), 5, 1)
+        plain = time_ms(torch, lambda: ref.lb_keogh_ref(q, x, r), 1, 0)
+        bms, by = lb_bound(nq, n, Lx)
+        shape = (f"{nq} queries x {n} series, L {Lx}, r {r} (one launch, "
+                 f"{kd.lb_route(Lx)} route)")
+        rows.append(route_row(
+            "lb_keogh", f"L{Lx}", DTW_SRC,
+            DTW_REPLACES.format(49, "lb_keogh"), shape,
+            float((got - want).abs().max()), ms, plain, bms, by,
+            {f"L {Lx}": "lb_keogh to 1e-5 relative"}))
+        reps.append({"L": Lx, "series": n, "queries": nq, "r": r,
+                     "route": kd.lb_route(Lx), "ms": ms, "bound_ms": bms,
+                     "over_bound": ms / bms, "rel_err": err})
+        del x, q, want, got
+        torch.cuda.empty_cache()
+    return reps, rows
 
 
 def dtw_draws(torch, isax, gen):
@@ -2996,7 +3355,8 @@ def dtw_path(torch, isax, kmods, ref, gen):
     0.1) noise), band r 12 (5 % of L, the UCR Suite's usual Sakoe-Chiba
     setting), round_k 32, through core.dtw.search_dtw, and the first 32
     queries through search_dtw_bruteforce over all 2^22 series; the
-    launch counts are these two calls'.  Holds: ids equal to the brute
+    launch counts are these two calls' (search_dtw is then timed again,
+    warm).  Holds: ids equal to the brute
     force's but where two distances lie within 1e-5 relative, distances
     to 1e-5; every reported distance equal to dtw_band_ref on its (query,
     id); each group's refinement (bsf, id, rounds, candidates refined)
@@ -3005,7 +3365,9 @@ def dtw_path(torch, isax, kmods, ref, gen):
     against dtw_band_ref on 4,096 sampled pairs.  Then each group's LB,
     sort and refinement timed alone, the rounds and candidates refined a
     query, and the table's rows: each kernel at the path's launch, and
-    its general route at the same shape."""
+    its other route at the same shape.  Then the wide-band run
+    (dtw_wide), the wider bands' (dtw_wider), lb_keogh at other lengths
+    (dtw_lb_lengths) and the edge runs (dtw_edges)."""
     from repro_torch.core import dtw as cdtw
     kd = kmods["dtw"]
     t_phase = time.perf_counter()
@@ -3029,8 +3391,19 @@ def dtw_path(torch, isax, kmods, ref, gen):
     launches = {k: sum(c for kr, c in routes.items()
                        if kr.split("/")[0] == k)
                 for k in ("lb_keogh", "dtw_search", "dtw_scan")}
-    require(routes == {"lb_keogh/l256": DTW_Q // cdtw.GROUP,
-                       "dtw_search/band": DTW_Q // cdtw.GROUP,
+    # the same search again, warm (the first call pays the allocator's
+    # growth and each kernel's first load)
+    t0 = time.perf_counter()
+    again = cdtw.search_dtw(raw, queries, r=DTW_R, round_k=DTW_RK,
+                            device=DEV)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    require(torch.equal(again[0], d) and torch.equal(again[1], ids),
+            "dtw: a second search answers differently")
+    del again
+    groups = DTW_Q // cdtw.GROUP
+    require(routes == {f"lb_keogh/{kd.lb_route(L)}": groups,
+                       f"dtw_search/{kd.dp_route(DTW_R)}": groups,
                        "dtw_scan/band": 1},
             f"dtw launches by route {routes}")
     require(d.shape == (DTW_Q,) and bool(torch.isfinite(d).all())
@@ -3074,7 +3447,7 @@ def dtw_path(torch, isax, kmods, ref, gen):
     # refinement held against the plain version's
     ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
     parts = {"lb_ms": 0.0, "sort_ms": 0.0, "refine_ms": 0.0}
-    rounds, refined, plain_ms = [], [], []
+    rounds, refined, plain_ms, trace = [], [], [], []
     for g in range(0, DTW_Q, cdtw.GROUP):
         qg = qz[g:g + cdtw.GROUP]
         e = [ev() for _ in range(4)]
@@ -3092,7 +3465,9 @@ def dtw_path(torch, isax, kmods, ref, gen):
                           ("refine_ms", 2, 3)):
             parts[key] += e[a].elapsed_time(e[b])
         t0 = time.perf_counter()
-        want = ref.dtw_search_ref(qg, x, s, o, DTW_R, DTW_RK)
+        want = ref.dtw_search_ref(qg, x, s, o, DTW_R, DTW_RK,
+                                  max_pairs=DTW_REF_PAIRS,
+                                  trace=trace if g == 0 else None)
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
         require(all(torch.equal(a, b) for a, b in zip(got, want)),
@@ -3107,7 +3482,8 @@ def dtw_path(torch, isax, kmods, ref, gen):
     refined_t = torch.tensor(refined, dtype=torch.float64)
     rep = {"phase": "dtw", "series": DTW_N, "L": L, "queries": DTW_Q,
            "r": DTW_R, "round_k": DTW_RK, "group": cdtw.GROUP,
-           "search_dtw_ms": search_s * 1e3, **parts,
+           "search_dtw_ms": search_s * 1e3,
+           "search_dtw_warm_ms": warm_s * 1e3, **parts,
            "bruteforce_queries": DTW_BRUTE, "bruteforce_ms": brute_s * 1e3,
            "rounds": {"min": int(rounds_t.min()),
                       "median": float(rounds_t.median()),
@@ -3131,7 +3507,7 @@ def dtw_path(torch, isax, kmods, ref, gen):
              f"(one group, the search's launch)")
     plain = time_ms(torch, lambda: ref.lb_keogh_ref(g0, x, DTW_R), 1, 0)
     bms, by = lb_bound(cdtw.GROUP, DTW_N, L)
-    for route in ("l256", "general"):
+    for route in (kd.lb_route(L), "scalar"):
         ms = time_ms(torch, lambda: kd.lb_keogh(g0, x, r=DTW_R, route=route),
                      5, 1)
         lb = kd.lb_keogh(g0, x, r=DTW_R, route=route)
@@ -3143,7 +3519,7 @@ def dtw_path(torch, isax, kmods, ref, gen):
                "max_abs_err": float((lb - lb_ref).abs().max()), "ms": ms,
                "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                "library_ms": None}
-        if route == "general":
+        if route == "scalar":
             row = route_row("lb_keogh", route, DTW_SRC, row["replaces"],
                             shape, row["max_abs_err"], ms, plain, bms, by,
                             {"main shape": "lb_keogh to 1e-5 relative"})
@@ -3152,12 +3528,17 @@ def dtw_path(torch, isax, kmods, ref, gen):
     del lb_ref
     qg, s, o, got = first
     n_ref = int(got[3].sum())
-    bms, by = dtw_bound(torch, n_ref, L, DTW_R,
-                        4 * n_ref * L + 12 * int(got[2].sum()) * DTW_RK)
+    main_route = kd.dp_route(DTW_R)
+    cells = needed_cells(torch, ref, qg, x, s, o, trace, DTW_R, DTW_RK,
+                         kd.wave_cells(main_route))
+    rep |= {"first_group_needed_cells": cells,
+            "first_group_all_cells": n_ref * dtw_cells(L, DTW_R)}
+    bms, by = dtw_bound(cells, 4 * n_ref * L
+                        + 12 * int(got[2].sum()) * DTW_RK)
     shape = (f"{cdtw.GROUP} queries x {DTW_N} series, L {L}, r {DTW_R}, "
              f"round_k {DTW_RK}, {n_ref} refined, {int(got[2].max())} "
              f"rounds at most (the first group)")
-    for route in ("band", "general"):
+    for route in (main_route, "general"):
         ms = time_ms(torch, lambda: kd.dtw_search(
             qg, x, s, o, r=DTW_R, round_k=DTW_RK, route=route), 3, 1)
         again = kd.dtw_search(qg, x, s, o, r=DTW_R, round_k=DTW_RK,
@@ -3174,7 +3555,7 @@ def dtw_path(torch, isax, kmods, ref, gen):
     torch.cuda.empty_cache()
     qb = qz[:DTW_BRUTE].contiguous()
     plain = time_ms(torch, lambda: ref.dtw_scan_ref(qz[:1], x, DTW_R), 1, 1)
-    bms, by = dtw_bound(torch, DTW_BRUTE * DTW_N, L, DTW_R,
+    bms, by = dtw_bound(DTW_BRUTE * DTW_N * dtw_cells(L, DTW_R),
                         4 * (DTW_N + DTW_BRUTE) * L)
     shape = (f"{DTW_BRUTE} queries x {DTW_N} series, L {L}, r {DTW_R} "
              f"(the brute force's launch)")
@@ -3193,8 +3574,17 @@ def dtw_path(torch, isax, kmods, ref, gen):
         row |= {"plain_queries": 1, "ms_on_plain_queries": one_ms}
         rows.append(row if route == "general"
                     else row | {"name": "dtw_scan", "port_side": True})
-    del x, qz, qb
+    del qb
     torch.cuda.empty_cache()
+    rep["wide"], more, row = dtw_wide(torch, isax, kmods, ref, x, qz)
+    launches = {**launches, **more}
+    rows.append(row)
+    rep["wider"], more_rows = dtw_wider(torch, kd, ref, x, qz)
+    rows += more_rows
+    del x, qz
+    torch.cuda.empty_cache()
+    rep["lb_lengths"], more_rows = dtw_lb_lengths(torch, isax, kd, ref, gen)
+    rows += more_rows
     rep["edges"] = dtw_edges(torch, isax, kd, ref, gen)
     rep["rows"] = rows
     rep["seconds"] = time.perf_counter() - t_phase
@@ -3302,6 +3692,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--series", type=int, default=1 << 24)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", choices=("dtw",), default=None,
+                    help="run the dtw phase alone")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -3349,6 +3741,10 @@ def main() -> int:
     dtw_gen = torch.Generator(device=DEV).manual_seed(args.seed + 6)
     topk_gen = torch.Generator(device=DEV).manual_seed(args.seed + 7)
     kmods = dict(ops.WRAPPERS)
+    if args.only == "dtw":
+        report, launches, rows = dtw_path(torch, isax, kmods, ref, dtw_gen)
+        emit(report)
+        return finish(torch, rows, launches, smi)
     rows, launches = [], {}
     for name, check, args_ in (
             ("summarize", check_summarize, (isax, kmods["summarize"],
@@ -3436,7 +3832,12 @@ def main() -> int:
     attn, more = attention_phase(torch, ops, kmods, ref, gen)
     emit(attn)
     launches |= more
-    # every kernel of the table was launched on some path
+    return finish(torch, rows, launches, smi)
+
+
+def finish(torch, rows, launches, smi) -> int:
+    """Every kernel of the table launched on some path; then the kernel
+    table, the nvidia-smi line and the device line."""
     missing = [r["name"] for r in rows
                if "/" not in r["name"] and not launches.get(r["name"])]
     require(not missing, f"no path launched {missing}")

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time refine_topk and dtw_search of one tree's src/ on one NVIDIA GPU,
-to compare two versions of the kernels in turns in one call:
+"""Time refine_topk, dtw_lb_keogh and dtw_search of one tree's src/ on
+one NVIDIA GPU, to compare two versions of the kernels in turns in one
+call:
 
     python3 scripts/bench_refine_dtw.py [--src DIR] [--reps R] [--seed S]
 
@@ -13,9 +14,15 @@ alive (every candidate passes the empty buffer), then rounds folding
 into a buffer carried from a half-alive first round with all, half and
 1 in 20 slots alive; each case the kernel's own device time over 20 x R
 launches (torch.profiler), held equal to its first launch.
-dtw_search: the first group of chip_smoke.py's dtw phase (its draws, 32
-queries, r 12, round_k 32), its LB_Keogh and sort made once; the mean of
-R launches by CUDA events, held equal to the first launch.
+lb_keogh: the first group of chip_smoke.py's dtw phase (its draws, 32
+queries x 2^22 series, L 256, r 12), the mean of 5 R launches by CUDA
+events, the bounds held equal to the first launch's.
+dtw_search: the same group at r 12 and at r 25 (chip_smoke.py's wide
+run), each with its LB_Keogh and sort made once; the mean of R launches
+by CUDA events, held equal to the first launch (a launch that takes
+over a second is timed once: the general route, which a tree without a
+wave route for r 25 takes), and the query with the most rounds alone
+(beside a launch under a second).
 Prints one JSON line with the card's name and power limit.  Without CUDA
 it exits 1 before printing a result.
 """
@@ -67,17 +74,44 @@ def dtw_case(torch, isax, kd, cs, gen, reps: int) -> dict:
     x = isax.znormalize(raw).contiguous()
     del raw
     qg = isax.znormalize(queries[:32]).contiguous()
-    s, o = torch.sort(kd.lb_keogh(qg, x, r=cs.DTW_R), dim=1, stable=True)
-    call = lambda: kd.dtw_search(qg, x, s, o, r=cs.DTW_R,  # noqa: E731
-                                 round_k=cs.DTW_RK)
-    want = call()
-    ms = cs.time_ms(torch, call, reps, 1)
-    assert all(torch.equal(a, b) for a, b in zip(call(), want)), "dtw"
-    return {"ms": ms, "rounds_max": int(want[2].max()),
-            "refined": int(want[3].sum()),
-            "shape": f"{qg.shape[0]} queries x {cs.DTW_N} series, L "
-                     f"{cs.L}, r {cs.DTW_R}, round_k {cs.DTW_RK} (the dtw "
-                     f"phase's first group)"}
+    shape = (f"{qg.shape[0]} queries x {cs.DTW_N} series, L {cs.L}, "
+             f"round_k {cs.DTW_RK} (the dtw phase's first group)")
+    lb = lambda: kd.lb_keogh(qg, x, r=cs.DTW_R)  # noqa: E731
+    first = lb()
+    out = {"lb_keogh": {"ms": cs.time_ms(torch, lb, 5 * reps, 1),
+                        "bound_ms": cs.lb_bound(32, cs.DTW_N, cs.L)[0],
+                        "r": cs.DTW_R, "shape": shape}}
+    assert torch.equal(lb(), first), "lb_keogh"
+    del first
+    for r in (cs.DTW_R, cs.DTW_WIDE_R):
+        s, o = torch.sort(kd.lb_keogh(qg, x, r=r), dim=1, stable=True)
+        call = lambda: kd.dtw_search(qg, x, s, o, r=r,  # noqa: E731
+                                     round_k=cs.DTW_RK)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        want = call()
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1])
+        if ms < 1000:
+            ms = cs.time_ms(torch, call, reps, 1)
+        assert all(torch.equal(a, b) for a, b in zip(call(), want)), r
+        out[f"dtw_search_r{r}"] = {"ms": ms, "r": r,
+                                   "rounds_max": int(want[2].max()),
+                                   "refined": int(want[3].sum()),
+                                   "shape": shape}
+        if ms < 1000:
+            # the query with the most rounds, alone: its launch's share
+            g = int(torch.argmax(want[2]))
+            one = lambda: kd.dtw_search(  # noqa: E731
+                qg[g:g + 1], x, s[g:g + 1].contiguous(),
+                o[g:g + 1].contiguous(), r=r, round_k=cs.DTW_RK)
+            assert all(torch.equal(a, b[g:g + 1])
+                       for a, b in zip(one(), want)), (r, g)
+            out[f"dtw_search_r{r}"]["slowest_alone_ms"] = cs.time_ms(
+                torch, one, reps, 1)
+        del s, o
+    return out
 
 
 def main() -> int:
@@ -106,7 +140,7 @@ def main() -> int:
                                       args.reps)}
     torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 6)
-    rep["dtw_search"] = dtw_case(torch, isax, dtw, cs, gen, args.reps)
+    rep |= dtw_case(torch, isax, dtw, cs, gen, args.reps)
     print(json.dumps(rep), flush=True)
     return 0
 

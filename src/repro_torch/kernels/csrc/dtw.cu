@@ -15,14 +15,17 @@
 // torch operations a DP row is 2r + 1 dependent small operations, so the
 // port runs the DP here.
 //
-// Bound on this card: the SMs' f32 rate.  A DP cell is a subtract, a
+// Bound on this card: the SMs' issue rate.  A DP cell is a subtract, a
 // multiply, two mins and an add (five f32 instructions, the multiply and
 // the add kept apart: __fmul_rn / __fadd_rn, because nvcc would contract
 // them into an FMA and change the bits against the plain version); a
 // series of L = 256 is 1 KB against L (2r + 1) cells.  An LB_Keogh point
-// is two subtracts, two maxes and an FMA a query; the group's queries
-// share each read of a series, so with 32 queries the pass is bound by
-// the f32 rate, not by the collection's bytes.
+// is a max, a min, a subtract and an FMA a query (e = x - min(max(x, lo),
+// hi), e^2 with the bits of max(x - hi, lo - x, 0)^2, as a CPU test holds);
+// the group's queries share each read of a series, so with 32 queries the
+// pass is bound by the issue rate (the two mins take the ALU pipe, half
+// the lanes of the FMA pipes, so four instructions a point fill both), not
+// by the collection's bytes.
 //
 // The DP.  Cell (i, c = i - r + k) of the band, offset k in [0, 2r]:
 //   d = (q[i] - x[c])^2,  cur[k] = d + min(prev[k], prev[k + 1], cur[k-1])
@@ -31,39 +34,48 @@
 // repro's dtw_band computes it; min is exact, so the result equals the
 // plain version (kernels/ref.py dtw_band_ref) bit for bit.  Two layouts:
 // - one thread a (query, candidate) pair (dtw_scan, and dtw_search's
-//   general route): each thread walks the rows of its pair in order; the
-//   band of the previous row lives in registers (a template instance for
-//   each r <= 16: 2 (2r + 1) registers for the band and the series window)
+//   general route, r > 127): each thread walks the rows of its pair in
+//   order; the band of the previous row lives in registers (dtw_scan's band
+//   route, a template instance for each r <= 16: 2 (2r + 1) registers for
+//   the band and the series window)
 //   or, for r > 16, in shared memory, one column of it a thread.  A warp's
 //   32 threads run 32 pairs in step, so the left-to-right chain of a row
 //   never serialises a warp, but a pair takes L (2r + 1) cells in series.
-// - a wavefront over r + 1 lanes of a warp a pair (dtw_search's band
-//   route, dtw_wave): cell (i, k) reads only cells of the wavefronts
-//   t - 1 and t - 2, t = 2i + k, so lane l holds offsets 2l and 2l + 1 and
-//   forms one row's two cells a step, its neighbours' cells coming by a
-//   shuffle a cell: a pair takes L + r steps, and a warp runs 32 / (r + 1)
-//   pairs side by side.  The series is staged in shared memory first.
+// - a wavefront over the lanes of a warp a pair (dtw_search's wave
+//   routes, r <= 127, dtw_wave): cell (i, k) reads only cells of the
+//   wavefronts t - 1 and t - 2, t = 2i + k.  Lane l holds C offsets, C l
+//   .. C l + C - 1, and at step s forms row s - l's C cells left to right,
+//   its neighbours' cells coming by two shuffles a step: a pair takes
+//   about L + r / C steps over H = ceil((2r + 1) / C) lanes, and a warp
+//   runs 32 / H pairs side by side.  C = 2, 4 or 8 (r <= 31, 63, 127) is
+//   the template, r a runtime argument.  The series is staged in shared
+//   memory first.
 //
 // dtw_lb_keogh: each block first builds the group's envelopes (rolling
-// min and max of each query over +-r) in shared memory; then each warp
-// takes ROWS series at a time, a lane holding every 32nd value of each,
-// and for each query sums e^2 (e the excursion outside the envelope) in
-// its lanes and across the warp by shuffles.  Lane g keeps query g's sum,
-// so a group holds at most 32 queries (the wrapper splits larger ones).
+// min and max of each query over +-r) in shared memory, (lo, hi) side by
+// side a point.  A lane then owns 4 whole series (consecutive lanes,
+// consecutive series) and walks their points 4 at a time, the next 4 of
+// each series read into registers (one 16-byte load a series, or four
+// 4-byte ones where L % 4 != 0) while these are summed: for each query,
+// two 16-byte loads of the envelope that every lane of the warp reads at
+// once (a broadcast) serve 4 points x 4 series, and each (query, series)
+// sum stays in one register: no sum crosses a lane, and the stores of a
+// query's 32 x 4 bounds are coalesced.  G query slots (8, 16, 24 or 32, a
+// template) hold a launch's queries; one kernel serves every L <= 1024.
 //
-// dtw_search, band route (r <= 16): a cluster of 8 CTAs a query computes 8
+// dtw_search, wave routes: a cluster of 8 CTAs a query computes 8
 // rounds at once, CTA u round u's candidates whose bound lies below the
-// best-so-far of the iteration's start, 32 / (r + 1) pairs a warp (a warp
-// with no candidate taken skips the DP; the taken ones are a prefix of the
+// best-so-far of the iteration's start, 32 / H pairs a warp (a warp with
+// no candidate taken skips the DP; the taken ones are a prefix of the
 // round, the bounds ascending), each pair's series copied into shared
 // memory with cp.async and its next candidate brought into L2 meanwhile.
 // Then every CTA applies the 8 rounds in order, exactly as one round after
 // another: the rounds run the DP of more candidates (those a lower
-// best-so-far prunes) but answer the same.  General route: one block a
-// query, a thread a candidate.  A round's first minimum is one 64-bit min
-// over (d bits << 32 | position) (the float's bits, non-negative, order as
-// the floats); it updates the best-so-far, and the next round's first bound
-// decides the stop.
+// best-so-far prunes) but answer the same.  General route (r > 127): one
+// block a query, a thread a candidate.  A round's first minimum is one
+// 64-bit min over (d bits << 32 | position) (the float's bits,
+// non-negative, order as the floats); it updates the best-so-far, and the
+// next round's first bound decides the stop.
 //
 // dtw_scan: one thread a (query, series) pair, q in shared memory; the
 // pair's (d^2 bits << 32 | series) goes through a warp min to one
@@ -77,9 +89,13 @@
 namespace {
 
 constexpr float kBig = 1e30f;
-constexpr size_t kWaveSmem = 200 * 1024;   // a band-route CTA's, at most
-constexpr int kSpec = 8;     // rounds a band-route iteration computes at once
+constexpr size_t kWaveSmem = 200 * 1024;   // a wavefront CTA's, at most
+constexpr int kSpec = 8;     // rounds a wavefront iteration computes at once
 constexpr int kLbThreads = 256;
+// series a lane of dtw_lb_keogh: 4 holds 32 x 4 sums in ~200 registers
+// (one block of 8 warps an SM); 2 gives 16 warps but two envelope loads
+// where 4 takes one, and was no faster on an H100
+constexpr int kLbSeries = 4;
 constexpr int kScanThreads = 128;
 constexpr int kScanThreadsGeneral = 64;
 
@@ -195,7 +211,8 @@ __device__ float dtw_band_smem(const float* __restrict__ qs,
   return band[R * stride];
 }
 
-// R >= 0: the band route of radius R; R < 0: the general route, radius r.
+// R >= 0: dtw_scan's band route of radius R; R < 0: a general route,
+// radius r.
 template <int R>
 __device__ __forceinline__ float dtw_pair(const float* qs, const float* x,
                                           int L, int r, float* band,
@@ -207,77 +224,125 @@ __device__ __forceinline__ float dtw_pair(const float* qs, const float* x,
   }
 }
 
-// The band route of dtw_search: one pair's banded DTW swept as a wavefront
-// over H = R + 1 lanes of a warp (see the top).  Lane ll of the pair holds
-// band offsets 2 ll (even) and 2 ll + 1 (odd); at step s it forms row i =
-// s - ll, the even cell, then the odd one.  Cell (i, k) reads (i, k - 1)
-// (left), (i - 1, k + 1) (up) and (i - 1, k) (diag), so:
-//   even, k = 2 ll:  diag and up are the lane's own cells of step s - 1;
-//                    left is lane ll - 1's odd cell of step s - 1 (a shuffle
-//                    from the lane below, which wraps lane 0 to lane 31);
-//   odd, k = 2 ll + 1: diag is the lane's own odd cell of step s - 1; left
-//                    is its even cell of this step; up is lane ll + 1's even
-//                    cell of this step (a shuffle from the lane above).
-// A cell outside the band or the matrix has d = BIG, so its value is BIG or
-// more, and a cell inside always reads a finite neighbour, which the min
-// keeps: the values inside equal dtw_band_ref's, whose outside cells are
-// BIG.  Offset 2R + 1, the odd cell of lane R, lies outside, and so do all
-// cells of a lane not in a live pair; so a pair reads nothing of its
-// neighbours but BIG.  Cell (0, 0), offset R, reads a diag of 0: d + 0 =
-// d.  Each cell is the same __fsub_rn, __fmul_rn, exact mins and __fadd_rn
-// on the same operands as dtw_band_ref's, so the order changes no bit.
-// Returns cell (L - 1, R) in lane R / 2 of the pair; calls after_ramp()
-// once the first R + 1 steps are issued.
-template <int R, typename F>
+// The wave routes of dtw_search: one pair's banded DTW as a wavefront over
+// H = ceil((2r + 1) / C) lanes, lane ll of the pair holding band offsets
+// k = C ll + m, m < C; at step s it forms row i = s - ll, cells m = 0 .. C
+// - 1 in order.  Cell (i, k) reads (i, k - 1) (left), (i - 1, k + 1) (up)
+// and (i - 1, k) (diag), so:
+//   diag, and up for m < C - 1: the lane's own cells of step s - 1;
+//   left, m > 0: its cell m - 1 of this step; m = 0: lane ll - 1's last
+//     cell of step s - 1 (a shuffle from the lane below, which wraps lane 0
+//     to lane 31);
+//   up, m = C - 1: lane ll + 1's first cell of this step (a shuffle from
+//     the lane above, once every lane has formed its cell 0).
+// 2r + 1 is odd and C even, so the last cell of a pair's top lane lies
+// outside the band: lane 0 of the next pair reads BIG or more from it, as
+// every cell outside the band or the matrix is (its d is BIG).  Cell (0, 0)
+// (lane r / C, cell r % C) reads a diag of 0.  Each cell is the same
+// __fsub_rn, __fmul_rn, exact mins and __fadd_rn on the same operands as
+// dtw_band_ref's (ref.dtw_wavefront_ref models this order), so no bit
+// changes.  Returns cell (L - 1, r), formed at the last step, L - 1 + r / C,
+// in lane r / C of the pair; calls after_ramp() once the steps with a row
+// or column edge at the start are issued.
+//
+// Early abandoning: a path's cells are formed at steps that never fall and
+// rise by at most one a move, from step r / C (cell (0, 0)) to the last,
+// so every path has a cell of every step between, and its cost is at least
+// that cell's.  Every 8 steps of the middle loop the pair's lanes take the
+// least cell of the step (pair_mask: the pair's lanes); once it is cutoff
+// or more for every pair of the warp, the DTW of each is cutoff or more
+// and the warp stops, returning BIG.  The caller's cutoff is the
+// best-so-far of the iteration, which no round applies a distance at or
+// above, so no answer or count changes.
+template <int C, typename F>
 __device__ __forceinline__ float dtw_wave(const float* __restrict__ qs,
                                           const float* __restrict__ xr,
-                                          int L, int ll, int lane, bool live,
+                                          int L, int r, int H, int ll,
+                                          int lane, bool live, float cutoff,
+                                          unsigned pair_mask,
                                           F&& after_ramp) {
-  constexpr bool kEvenFirst = R % 2 == 0;    // (0, 0) in the even cell
-  const bool odd_ok = live && ll < R;
-  const bool first_lane = ll == R / 2;
+  const int l0 = r / C, m0 = r % C;          // where offset r lives
   const int from = (lane + 31) & 31;
-  float e = kBig, o = kBig, res = kBig;
-  // steps where a cell of a live lane may lie outside the matrix: before
-  // every lane has reached row 1 and column 0, and from column L - 1 on
-  const int a = min(R + 1, L + R), b = max(a, L - 1);
+  bool ok[C];                                // offset inside the band
+#pragma unroll
+  for (int m = 0; m < C; ++m) ok[m] = live && C * ll + m <= 2 * r;
+  float v[C];
+#pragma unroll
+  for (int m = 0; m < C; ++m) v[m] = kBig;
+  float res = kBig;
+  // steps s: 0 .. L - 1 + l0.  Below a, some lane is on row 0 or before
+  // it, or reads a column below 0; from b on, some cell of a live lane may
+  // lie beyond row or column L - 1, and the result forms.
+  const int end = L + l0;
+  const int a = min(max(H, r), end);
+  const int b = max(a, min(min(L - r + 2 * r / C, L), end - 1));
   auto edge = [&](int s) {
-    const int i = s - ll, c = s + ll - R;
-    const bool row = live && (unsigned)i < (unsigned)L;
-    const bool in_e = row && (unsigned)c < (unsigned)L;
-    const bool in_o = row && odd_ok && (unsigned)(c + 1) < (unsigned)L;
+    const int i = s - ll, c0 = s + (C - 1) * ll - r;
+    const bool row = (unsigned)i < (unsigned)L;
     const float qi = row ? qs[i] : 0.f;
-    const float de = in_e ? cell_d(qi, xr[c]) : kBig;
-    const float dd = in_o ? cell_d(qi, xr[c + 1]) : kBig;
-    const bool first = i == 0 && first_lane;
-    const float ze = (first && kEvenFirst) ? 0.f : e;
-    const float zo = (first && !kEvenFirst) ? 0.f : o;
-    const float left = __shfl_sync(0xffffffffu, o, from);
-    const float ve = __fadd_rn(de, fminf(fminf(ze, o), left));
-    const float up = __shfl_down_sync(0xffffffffu, ve, 1);
-    const float vo = __fadd_rn(dd, fminf(fminf(zo, ve), up));
-    if (i == L - 1) res = kEvenFirst ? ve : vo;
-    e = ve;
-    o = vo;
+    const bool first = i == 0 && ll == l0;
+    float d[C], nv[C];
+#pragma unroll
+    for (int m = 0; m < C; ++m) {
+      const int c = c0 + m;
+      const bool in = row && ok[m] && (unsigned)c < (unsigned)L;
+      d[m] = in ? cell_d(qi, xr[c]) : kBig;
+    }
+    const float left = __shfl_sync(0xffffffffu, v[C - 1], from);
+    nv[0] = __fadd_rn(d[0], fminf(fminf((first && m0 == 0) ? 0.f : v[0],
+                                        v[1]), left));
+    const float up = __shfl_down_sync(0xffffffffu, nv[0], 1);
+#pragma unroll
+    for (int m = 1; m < C; ++m) {
+      const float diag = (first && m == m0) ? 0.f : v[m];
+      const float u = m + 1 < C ? v[m + 1] : up;
+      nv[m] = __fadd_rn(d[m], fminf(fminf(diag, u), nv[m - 1]));
+    }
+    if (i == L - 1 && ll == l0) {
+#pragma unroll
+      for (int m = 0; m < C; ++m)
+        if (m == m0) res = nv[m];
+    }
+#pragma unroll
+    for (int m = 0; m < C; ++m) v[m] = nv[m];
+  };
+  // rows 1 .. L - 1 of every lane, every cell inside the band within
+  // columns 0 .. L - 1: no test a cell but the lane's band mask
+  auto step = [&](int s) {
+    const int i = s - ll, c0 = s + (C - 1) * ll - r;
+    const float qi = qs[i];
+    float nv[C];
+    const float left = __shfl_sync(0xffffffffu, v[C - 1], from);
+    nv[0] = __fadd_rn(ok[0] ? cell_d(qi, xr[c0]) : kBig,
+                      fminf(fminf(v[0], v[1]), left));
+    const float up = __shfl_down_sync(0xffffffffu, nv[0], 1);
+#pragma unroll
+    for (int m = 1; m < C; ++m) {
+      const float u = m + 1 < C ? v[m + 1] : up;
+      nv[m] = __fadd_rn(ok[m] ? cell_d(qi, xr[c0 + m]) : kBig,
+                        fminf(fminf(v[m], u), nv[m - 1]));
+    }
+#pragma unroll
+    for (int m = 0; m < C; ++m) v[m] = nv[m];
   };
   int s = 0;
   for (; s < a; ++s) edge(s);
   after_ramp();
-  // rows 1 .. L - 2 of every lane, columns 0 .. L - 1: no test a cell
-#pragma unroll 4
-  for (; s < b; ++s) {
-    const int i = s - ll, c = s + ll - R;
-    const float qi = qs[i];
-    const float de = live ? cell_d(qi, xr[c]) : kBig;
-    const float dd = odd_ok ? cell_d(qi, xr[c + 1]) : kBig;
-    const float left = __shfl_sync(0xffffffffu, o, from);
-    const float ve = __fadd_rn(de, fminf(fminf(e, o), left));
-    const float up = __shfl_down_sync(0xffffffffu, ve, 1);
-    const float vo = __fadd_rn(dd, fminf(fminf(o, ve), up));
-    e = ve;
-    o = vo;
+  bool done = !live;
+  while (s + 8 <= b) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) step(s + u);
+    s += 8;
+    float least = v[0];                      // cells are >= 0: their bits
+#pragma unroll                               // order as the floats
+    for (int m = 1; m < C; ++m) least = fminf(least, v[m]);
+    const unsigned bits = __reduce_min_sync(pair_mask,
+                                            __float_as_uint(least));
+    done = done || __uint_as_float(bits) >= cutoff;
+    if (__all_sync(0xffffffffu, done)) return kBig;
   }
-  for (; s < L + R; ++s) edge(s);
+  for (; s < b; ++s) step(s);
+  for (; s < end; ++s) edge(s);
   return res;
 }
 
@@ -312,76 +377,113 @@ __device__ __forceinline__ unsigned long long pack(float d, unsigned idx) {
 }
 
 // ------------------------------------------------------------- kernels
-// Squared LB_Keogh: out[g * N + n] for the Qg <= 32 queries of q (Qg, L).
-// Lane j holds values j, j + 32, ... of a series, NV of them (L <= 32 NV);
-// a warp takes ROWS series at a time.
-template <int NV, int ROWS>
-__global__ void __launch_bounds__(kLbThreads)
+// Squared LB_Keogh: out[g * N + n] for the Qg <= G queries of q (Qg, L)
+// (see the top).  Lane j of a warp's task t owns series 128 t + j + 32 s,
+// s < kLbSeries; V = 4 reads 4 points of a series with one 16-byte load
+// (L % 4 == 0 and x 16-byte aligned), V = 1 with four 4-byte ones.  The
+// envelope rows are padded to Lp = a multiple of 4 points; a padded point
+// (x read as 0, lo = hi = 0) and a padded query slot (lo = hi = 0, never
+// stored) add e = 0, which leaves a sum's bits as they are.
+template <int G, int V>
+__global__ void __launch_bounds__(kLbThreads, 1)
 lb_keogh_kernel(const float* __restrict__ q, const float* __restrict__ x,
                 long long N, int L, int Qg, int R, float* __restrict__ out) {
-  extern __shared__ float sm[];
-  float* lo = sm;                  // (Qg, L)
-  float* hi = sm + Qg * L;
-  for (int e = threadIdx.x; e < Qg * L; e += blockDim.x) {
-    const int g = e / L, j = e - g * L;
-    const int a = j - R < 0 ? 0 : j - R;
-    const int b = j + R > L - 1 ? L - 1 : j + R;
-    float mn = __int_as_float(0x7f800000), mx = -mn;
-    for (int t = a; t <= b; ++t) {
-      const float v = q[g * L + t];
-      mn = fminf(mn, v);
-      mx = fmaxf(mx, v);
+  constexpr int S = kLbSeries;
+  extern __shared__ float4 env4[];       // (G, Lp / 2): (lo, hi, lo, hi)
+  float2* env = reinterpret_cast<float2*>(env4);
+  const int Lp = (L + 3) & ~3, row4 = Lp / 2;
+  for (int e = threadIdx.x; e < G * Lp; e += blockDim.x) {
+    const int g = e / Lp, j = e - g * Lp;
+    float mn = 0.f, mx = 0.f;
+    if (g < Qg && j < L) {
+      const int a = j - R < 0 ? 0 : j - R;
+      const int b = j + R > L - 1 ? L - 1 : j + R;
+      mn = __int_as_float(0x7f800000);
+      mx = -mn;
+      for (int t = a; t <= b; ++t) {
+        const float v = q[g * L + t];
+        mn = fminf(mn, v);
+        mx = fmaxf(mx, v);
+      }
     }
-    lo[e] = mn;
-    hi[e] = mx;
+    env[e] = make_float2(mn, mx);
   }
   __syncthreads();
   const int lane = threadIdx.x & 31;
+  const long long tasks = (N + 32 * S - 1) / (32 * S);
   const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
-  for (long long r0 = ((long long)blockIdx.x * (blockDim.x >> 5)
-                       + (threadIdx.x >> 5)) * ROWS;
-       r0 < N; r0 += warps * ROWS) {
-    float xv[ROWS][NV];
+  for (long long t = (long long)blockIdx.x * (blockDim.x >> 5)
+                     + (threadIdx.x >> 5);
+       t < tasks; t += warps) {
+    const long long n0 = t * 32 * S + lane;
+    const float* xs[S];
 #pragma unroll
-    for (int rr = 0; rr < ROWS; ++rr) {
+    for (int s = 0; s < S; ++s)
+      xs[s] = x + min(n0 + 32 * s, N - 1) * L;
+    auto load = [&](float (&v)[S][4], int j) {
 #pragma unroll
-      for (int t = 0; t < NV; ++t) {
-        const int j = lane + 32 * t;
-        xv[rr][t] = (r0 + rr < N && j < L)
-                        ? __ldg(x + (r0 + rr) * L + j) : 0.f;
+      for (int s = 0; s < S; ++s) {
+        if constexpr (V == 4) {
+          const float4 f = __ldg(reinterpret_cast<const float4*>(xs[s] + j));
+          v[s][0] = f.x;
+          v[s][1] = f.y;
+          v[s][2] = f.z;
+          v[s][3] = f.w;
+        } else {
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            v[s][p] = j + p < L ? __ldg(xs[s] + j + p) : 0.f;
+        }
       }
-    }
-    float res[ROWS];
+    };
+    float acc[G][S];
 #pragma unroll
-    for (int rr = 0; rr < ROWS; ++rr) res[rr] = 0.f;
-    for (int g = 0; g < Qg; ++g) {
-      float s[ROWS];
+    for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int rr = 0; rr < ROWS; ++rr) s[rr] = 0.f;
+      for (int s = 0; s < S; ++s) acc[g][s] = 0.f;
+    float xc[S][4], xn[S][4];
+    load(xc, 0);
+    for (int j = 0; j < Lp; j += 4) {
+      if (j + 4 < Lp) load(xn, j + 4);
+      // 2 points a pass over the queries, one 16-byte envelope load (the
+      // two points' lo and hi) a query for 2 points x S series: a loop body
+      // of ~1,000 instructions (4 points a pass, 2,048 of them, was slower
+      // on an H100)
+#pragma unroll 1
+      for (int h = 0; h < 4; h += 2) {
+        float xv[S][2];
 #pragma unroll
-      for (int t = 0; t < NV; ++t) {
-        const int j = lane + 32 * t;
-        if (j < L) {
-          const float l = lo[g * L + j], h = hi[g * L + j];
+        for (int s = 0; s < S; ++s) {
+          xv[s][0] = h ? xc[s][2] : xc[s][0];
+          xv[s][1] = h ? xc[s][3] : xc[s][1];
+        }
+        const float4* e4 = env4 + (j + h) / 2;
 #pragma unroll
-          for (int rr = 0; rr < ROWS; ++rr) {
-            const float e = fmaxf(fmaxf(xv[rr][t] - h, l - xv[rr][t]), 0.f);
-            s[rr] = fmaf(e, e, s[rr]);
-          }
+        for (int g = 0; g < G; ++g) {
+          const float4 a = e4[g * row4];
+          const float lo[2] = {a.x, a.z}, hi[2] = {a.y, a.w};
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+#pragma unroll
+            for (int s = 0; s < S; ++s) {
+              const float v = xv[s][p];
+              const float e = v - fminf(fmaxf(v, lo[p]), hi[p]);
+              acc[g][s] = fmaf(e, e, acc[g][s]);
+            }
         }
       }
 #pragma unroll
-      for (int rr = 0; rr < ROWS; ++rr) {
+      for (int s = 0; s < S; ++s)
 #pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          s[rr] += __shfl_xor_sync(0xffffffffu, s[rr], o);
-        if (lane == g) res[rr] = s[rr];
-      }
+        for (int p = 0; p < 4; ++p) xc[s][p] = xn[s][p];
     }
-    if (lane < Qg) {
 #pragma unroll
-      for (int rr = 0; rr < ROWS; ++rr)
-        if (r0 + rr < N) out[(long long)lane * N + r0 + rr] = res[rr];
+    for (int g = 0; g < G; ++g) {
+      if (g < Qg) {
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+          if (n0 + 32 * s < N) out[(long long)g * N + n0 + 32 * s] = acc[g][s];
+      }
     }
   }
 }
@@ -454,26 +556,27 @@ __global__ void search_general(const float* __restrict__ q,
   }
 }
 
-// dtw_search's band route (see the top): the refinement of query
+// dtw_search's wave routes (see the top): the refinement of query
 // blockIdx.x / kSpec of the group by a cluster of kSpec CTAs.  An iteration
 // computes kSpec rounds at once: CTA u the candidates of round u whose bound
 // lies below the best-so-far of the iteration's start (those of the round
 // itself and perhaps more: the best-so-far only falls), its warps P = 32 /
-// (R + 1) pairs each (dtw_wave).  After one cluster barrier, warp 0 of every
-// CTA applies the kSpec rounds in order as the loop of single rounds does:
-// the stop before each, the candidates below the best-so-far of the moment,
+// H pairs each (dtw_wave, C cells a lane).  After one cluster barrier, warp
+// 0 of every CTA applies the kSpec rounds in order as the loop of single
+// rounds does: the stop before each, the candidates below the best-so-far of the moment,
 // their first minimum; so the best-so-far, the id, the rounds and the
 // candidates refined are that loop's in every CTA.  Distances and bounds are
 // double-buffered by iteration parity, so no CTA overwrites what another
 // still reads.  Each pair's next candidate (its bound and id read during
 // this iteration) is brought into L2 once the DP has begun.
-template <int R>
+template <int C>
 __global__ void __launch_bounds__(1024)
 wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
-            long long N, int L, int round_k, const float* __restrict__ slb,
+            long long N, int L, int r, int round_k,
+            const float* __restrict__ slb,
             const long long* __restrict__ order, float* bsf_out,
             int* best_out, int* rounds_out, int* refined_out) {
-  constexpr int H = R + 1, P = 32 / H;
+  const int H = (2 * r + C) / C, P = 32 / H;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -489,6 +592,10 @@ wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
   const int warp = tid >> 5, warps = blockDim.x >> 5;
   // the lane's pair in the warp (P: none) and its lane in the pair
   const int slot = lane / H, ll = lane - slot * H;
+  // the lanes of the lane's pair (slot P: the lanes past the last pair)
+  const unsigned pair_mask =
+      ((slot + 1) * H >= 32 ? 0xffffffffu : (1u << (slot + 1) * H) - 1)
+      & ~((1u << slot * H) - 1);
   float* xrow = xs + (long long)(warp * P + min(slot, P - 1)) * L;
   for (int j = tid; j < L; j += blockDim.x) qs[j] = q[(long long)g * L + j];
   const float* lb = slb + (long long)g * N;
@@ -539,12 +646,13 @@ wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
         if (take) cp_row(xrow, x + o * L, L, ll, H);
         cp_wait();
         __syncwarp();
-        d = dtw_wave<R>(qs, xrow, L, ll, lane, take, ahead);
+        d = dtw_wave<C>(qs, xrow, L, r, H, ll, lane, take, bsf, pair_mask,
+                        ahead);
         __syncwarp();           // the rows are read: the next batch may copy
       } else {
         ahead();
       }
-      if (mine && ll == R / 2) {               // the pair's result lane
+      if (mine && ll == r / C) {               // the pair's result lane
         my_d[j] = take ? d : kBig;
         my_l[j] = b;
         if (rank == 0 && j == 0) s_nlb[par] = nb;
@@ -660,20 +768,22 @@ int general_launch(const float* q, const float* x, long long N, int L,
   return (int)cudaGetLastError();
 }
 
-// The band route: clusters of kSpec CTAs a query, `threads` / 32 warps a
-// CTA (the wrapper's band_threads), the query, the rounds' distances and
-// bounds and the pairs' rows within kWaveSmem.
-template <int R>
+// The wave routes, C cells a lane: clusters of kSpec CTAs a query,
+// `threads` / 32 warps a CTA (the wrapper's band_threads), the query, the
+// rounds' distances and bounds and the pairs' rows within kWaveSmem.
+template <int C>
 int wave_launch(const float* q, const float* x, long long N, int L, int r,
                 int Qg, int round_k, int threads, const float* slb,
                 const long long* order, float* bsf, int* best, int* rounds,
                 int* refined, cudaStream_t st) {
-  constexpr int P = 32 / (R + 1);
+  const int H = (2 * r + C) / C;
+  if (H > 32) return (int)cudaErrorInvalidValue;
+  const int P = 32 / H;
   const size_t smem = sizeof(float) * ((size_t)L + 4 * (size_t)round_k
                                        + (size_t)threads / 32 * P * L);
   if (smem > kWaveSmem) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      wave_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wave_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
@@ -688,8 +798,8 @@ int wave_launch(const float* q, const float* x, long long N, int L, int r,
   cfg.stream = st;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, wave_kernel<R>, q, x, N, L, round_k, slb,
-                         order, bsf, best, rounds, refined);
+  e = cudaLaunchKernelEx(&cfg, wave_kernel<C>, q, x, N, L, r, round_k,
+                         slb, order, bsf, best, rounds, refined);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -710,7 +820,46 @@ int scan_launch(const float* q, const float* x, long long N, int L, int r,
   return (int)cudaGetLastError();
 }
 
-// One case a band radius: the band route's template instances.
+// dtw_lb_keogh with G query slots: as many blocks as the card holds at
+// once (one an SM at 256 threads of about 200 registers), each warp taking
+// tasks of 32 x kLbSeries series in turn.
+template <int G, int V>
+int lb_launch(const float* q, const float* x, long long N, int L, int Qg,
+              int r, float* out, cudaStream_t st) {
+  const size_t smem = sizeof(float2) * G * (size_t)((L + 3) & ~3);
+  cudaError_t e = cudaFuncSetAttribute(
+      lb_keogh_kernel<G, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, per_sm = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, lb_keogh_kernel<G, V>, kLbThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long tasks = (N + 32 * kLbSeries - 1) / (32 * kLbSeries);
+  long long blocks = (tasks + kLbThreads / 32 - 1) / (kLbThreads / 32);
+  if (blocks > (long long)sms * (per_sm > 0 ? per_sm : 1))
+    blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  lb_keogh_kernel<G, V><<<(unsigned)blocks, kLbThreads, smem, st>>>(
+      q, x, N, L, Qg, r, out);
+  return (int)cudaGetLastError();
+}
+
+template <int V>
+int lb_slots(const float* q, const float* x, long long N, int L, int Qg,
+             int r, float* out, cudaStream_t st) {
+  switch ((Qg + 7) / 8) {
+    case 1: return lb_launch<8, V>(q, x, N, L, Qg, r, out, st);
+    case 2: return lb_launch<16, V>(q, x, N, L, Qg, r, out, st);
+    case 3: return lb_launch<24, V>(q, x, N, L, Qg, r, out, st);
+    default: return lb_launch<32, V>(q, x, N, L, Qg, r, out, st);
+  }
+}
+
+// One case a band radius: dtw_scan's band route's template instances.
 #define DTW_BAND_CASES(F, ...) \
   case 0: return F<0>(__VA_ARGS__);   case 1: return F<1>(__VA_ARGS__);   \
   case 2: return F<2>(__VA_ARGS__);   case 3: return F<3>(__VA_ARGS__);   \
@@ -724,48 +873,31 @@ int scan_launch(const float* q, const float* x, long long N, int L, int r,
 
 }  // namespace
 
-// route: 0 "l256" (L in (224, 256], 4 series a warp), 1 "general"
-// (L <= 1024).  q (Qg <= 32, L), x (N, L), out (Qg, N), all float32.
+// route: 0 "vec" (L % 4 == 0 and x 16-byte aligned: a 16-byte load a
+// series), 1 "scalar" (any L <= 1024).  q (Qg <= 32, L), x (N, L), out
+// (Qg, N), all float32; the wrapper keeps 8 Qg (L rounded up to 4) floats
+// of envelopes within what a block may ask for (lb_group).
 extern "C" int dtw_lb_keogh(const void* q, const void* x, long long N, int L,
                             int Qg, int r, int route, void* out,
                             void* stream) {
   if (N == 0 || Qg == 0) return 0;
-  if (Qg > 32 || L < 1 || L > 1024 || r < 0) return (int)cudaErrorInvalidValue;
+  if (Qg > 32 || L < 1 || L > 1024 || r < 0 || route < 0 || route > 1
+      || (route == 0 && (L % 4 || reinterpret_cast<uintptr_t>(x) % 16)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * 2 * Qg * L;
-  const int rows = route == 0 ? 4 : 1;
-  const long long warps_needed = (N + rows - 1) / rows;
-  long long blocks = (warps_needed + kLbThreads / 32 - 1) / (kLbThreads / 32);
-  if (blocks > 132 * 8) blocks = 132 * 8;
   const float* qq = static_cast<const float*>(q);
   const float* xx = static_cast<const float*>(x);
   float* o = static_cast<float*>(out);
-  cudaError_t e = cudaSuccess;
-  if (route == 0) {
-    if (L <= 224 || L > 256) return (int)cudaErrorInvalidValue;
-    e = cudaFuncSetAttribute(lb_keogh_kernel<8, 4>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    lb_keogh_kernel<8, 4><<<(unsigned)blocks, kLbThreads, smem, st>>>(
-        qq, xx, N, L, Qg, r, o);
-  } else {
-    e = cudaFuncSetAttribute(lb_keogh_kernel<32, 1>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    lb_keogh_kernel<32, 1><<<(unsigned)blocks, kLbThreads, smem, st>>>(
-        qq, xx, N, L, Qg, r, o);
-  }
-  return (int)cudaGetLastError();
+  return route == 0 ? lb_slots<4>(qq, xx, N, L, Qg, r, o, st)
+                    : lb_slots<1>(qq, xx, N, L, Qg, r, o, st);
 }
 
 // The refinement of each query g < Qg: candidates order[g, :] (int64)
 // with ascending bounds slb[g, :], round_k (<= 1024) a round.  Writes bsf
 // (squared), best (-1: none taken), rounds and refined, one each a query.
-// route: 0 the band route (r <= 16; `threads` from the wrapper's
-// band_threads), 1 the general one (any r; `threads` round_k rounded up to
-// a warp).
+// route: 0 the general route (any r; `threads` round_k rounded up to a
+// warp); 2, 4 and 8 the wave routes of as many cells a lane (r <= 31, 63
+// and 127; `threads` from the wrapper's band_threads).
 extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
                           int r, int Qg, int round_k, int threads, int route,
                           const void* slb, const void* order, void* bsf,
@@ -773,8 +905,9 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
                           void* stream) {
   if (Qg == 0) return 0;
   if (r < 0 || round_k < 1 || round_k > 1024 || threads < 32
-      || threads > 1024 || threads % 32 || (route == 0 && r > 16)
-      || (route != 0 && round_k > threads))
+      || threads > 1024 || threads % 32
+      || (route != 0 && route != 2 && route != 4 && route != 8)
+      || (route == 0 && round_k > threads))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
@@ -785,17 +918,22 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
   int* bi = static_cast<int*>(best);
   int* ro = static_cast<int*>(rounds);
   int* rf = static_cast<int*>(refined);
-  if (route == 0) switch (r) {
-    DTW_BAND_CASES(wave_launch, qq, xx, N, L, r, Qg, round_k, threads, lb,
-                   od, b, bi, ro, rf, st)
-  }
+  if (route == 2)
+    return wave_launch<2>(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b,
+                          bi, ro, rf, st);
+  if (route == 4)
+    return wave_launch<4>(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b,
+                          bi, ro, rf, st);
+  if (route == 8)
+    return wave_launch<8>(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b,
+                          bi, ro, rf, st);
   return general_launch(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b, bi,
                         ro, rf, st);
 }
 
 // keys (Q,) uint64, each all ones on entry: min over series n of
-// (bits of the squared DTW of query g and series n) << 32 | n.  route as
-// dtw_search's.
+// (bits of the squared DTW of query g and series n) << 32 | n.  route: 0
+// the band route (r <= 16), 1 the general one.
 extern "C" int dtw_scan(const void* q, const void* x, long long N, int L,
                         int r, int Q, int route, void* keys, void* stream) {
   if (N == 0 || Q == 0) return 0;

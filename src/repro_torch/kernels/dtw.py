@@ -3,8 +3,9 @@ of a search, and the brute-force scan.
 
 On CUDA tensors `lb_keogh`, `dtw_search` and `dtw_scan` launch the
 kernels of `csrc/dtw.cu` (a port-side source with no Pallas original:
-repro's DTW is plain jnp), by the routes `lb_route` and `dp_route` pick
-from the shapes, or by the general route where the caller asks; on CPU tensors they run the plain versions
+repro's DTW is plain jnp), by the routes `lb_route`, `dp_route` and
+`scan_route` pick from the shapes, or by another route that takes the
+shape where the caller asks; on CPU tensors they run the plain versions
 `ref.lb_keogh_ref`, `ref.dtw_search_ref` and `ref.dtw_scan_ref`.  On any
 other device they raise.  `launches` counts the kernels' launches,
 `by_route` those of each (kernel, route).
@@ -24,7 +25,11 @@ launches = 0
 by_route: dict = {}                    # launches of each "kernel/route"
 
 MAX_L = 1024                           # the longest series a kernel takes
-MAX_BAND_R = 16                        # the band route's largest radius
+MAX_BAND_R = 16                        # dtw_scan's band route's largest r
+# dtw_search's wave routes: cells a lane, and the largest radius each takes
+# (2r + 1 offsets over at most 32 lanes)
+WAVE_CELLS = {"wave2": 2, "wave4": 4, "wave8": 8}
+WAVE_MAX_R = {name: (32 * c - 1) // 2 for name, c in WAVE_CELLS.items()}
 GROUP = 32                             # queries of one lb_keogh launch
 _SMEM = 200 * 1024                     # shared memory a block may ask for
 _SCAN_THREADS = {"band": 128, "general": 64}
@@ -35,31 +40,52 @@ _SEARCH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                     + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 7)
 _SCAN_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
-_DP_CODES = {"band": 0, "general": 1}
+_DP_CODES = {"general": 0, **WAVE_CELLS}  # a wave route's: its cells a lane
+_SCAN_CODES = {"band": 0, "general": 1}
+_LB_CODES = {"vec": 0, "scalar": 1}
 
 
-def lb_route(L: int) -> str:
-    """"l256" for 224 < L <= 256 (a lane holds 8 values of each of 4
-    series a warp takes at once), "general" for every other L <= 1024."""
-    return "l256" if 224 < L <= 256 else "general"
+def lb_route(L: int, aligned: bool = True) -> str:
+    """"vec" where L % 4 == 0 and the collection is 16-byte aligned (a
+    lane reads 4 points of a series with one 16-byte load), "scalar" for
+    every other L <= 1024 (four 4-byte loads).  Both are one kernel: a
+    lane owns 4 whole series, each (query, series) sum in a register."""
+    return "vec" if L % 4 == 0 and aligned else "scalar"
 
 
 def dp_route(r: int) -> str:
-    """"band" for r <= 16 (dtw_search: a pair's band swept as a wavefront
-    over r + 1 lanes of a warp; dtw_scan: the previous row's band in
-    registers; one template instance a radius), "general" for r > 16 (a
-    thread a pair, the band in shared memory)."""
+    """dtw_search's route for band radius r: "wave2", "wave4" and "wave8"
+    for r <= 31, 63 and 127 (a pair's band swept as a wavefront over
+    ceil((2r + 1) / cells) lanes of a warp, 2, 4 and 8 cells a lane, r a
+    runtime argument, each pair abandoned once it cannot win); "general"
+    for r > 127 (a thread a pair, the band in shared memory)."""
+    for name, top in WAVE_MAX_R.items():
+        if r <= top:
+            return name
+    return "general"
+
+
+def scan_route(r: int) -> str:
+    """dtw_scan's route: "band" for r <= 16 (a thread a pair, the previous
+    row's band in registers, one template instance a radius), "general"
+    for r > 16 (the band in shared memory)."""
     return "band" if r <= MAX_BAND_R else "general"
 
 
-def band_threads(r: int, L: int, round_k: int) -> int:
-    """Threads of each CTA of dtw_search's band route (a cluster of 8 a
-    query, one round each): a warp runs 32 // (r + 1) pairs, each with its
-    series in shared memory beside the query and the round's distances and
-    bounds (two of each a candidate); as many warps as a round's
-    candidates need, at most 32, and at most as many as fit in `_SMEM`
-    bytes (one at least: L <= 1024, round_k <= 1024)."""
-    P = 32 // (r + 1)
+def wave_cells(route: str) -> int:
+    """Cells a lane of one of dtw_search's wave routes."""
+    return WAVE_CELLS[route]
+
+
+def band_threads(r: int, L: int, round_k: int, cells: int = 2) -> int:
+    """Threads of each CTA of dtw_search's wave routes (a cluster of 8 a
+    query, one round each): a pair takes ceil((2r + 1) / cells) lanes (r
+    + 1 at 2 cells), a warp runs 32 // lanes pairs, each with its series
+    in shared memory beside the query and the round's distances and
+    bounds (two of each a candidate); as many warps
+    as a round's candidates need, at most 32, and at most as many as fit in
+    `_SMEM` bytes (one at least: L <= 1024, round_k <= 1024)."""
+    P = 32 // -(-(2 * r + 1) // cells)
     return 32 * min(32, -(-round_k // P),
                     (_SMEM // 4 - L - 4 * round_k) // (P * L))
 
@@ -75,9 +101,12 @@ def _pick(route, default: str, allowed: tuple, what: str) -> str:
 
 
 def lb_group(L: int) -> int:
-    """Queries one lb_keogh launch takes: at most 32 (a lane keeps one
-    query's sum), and their envelopes must fit in shared memory."""
-    return max(1, min(GROUP, _SMEM // (8 * L)))
+    """Queries one lb_keogh launch takes: at most 32, a multiple of 8 (the
+    kernel's query slots come in 8s), their envelopes ((lo, hi) a point,
+    L rounded up to 4 points) within `_SMEM` bytes of shared memory: 32
+    up to L 800, 24 above."""
+    Lp = -(-L // 4) * 4
+    return max(8, min(GROUP, _SMEM // (8 * Lp)) // 8 * 8)
 
 
 def _count(kernel: str, route: str) -> None:
@@ -112,13 +141,14 @@ def lb_keogh(q: torch.Tensor, x: torch.Tensor, *, r: int,
     """The squared LB_Keogh of each query of q (Qg, L) against each series
     of x (N, L), band radius r: (Qg, N) float32.  One launch for each
     `lb_group(L)` queries, each reading the collection once, by `route`
-    (default `lb_route(L)`; "general" takes every L).
+    (default `lb_route(L, x 16-byte aligned)`; "scalar" takes every L).
 
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if a launch fails."""
     _check(q, x, r)
     L = q.shape[1]
-    route = _pick(route, lb_route(L), (lb_route(L), "general"), "lb_keogh")
+    default = lb_route(L, x.data_ptr() % 16 == 0)
+    route = _pick(route, default, (default, "scalar"), "lb_keogh")
     if q.device.type == "cpu":
         return lb_keogh_ref(q, x, r)
     Qg, N = q.shape[0], x.shape[0]
@@ -130,8 +160,7 @@ def lb_keogh(q: torch.Tensor, x: torch.Tensor, *, r: int,
         for g0 in range(0, Qg, step):
             n = min(step, Qg - g0)
             code = fn(q[g0:].data_ptr(), x.data_ptr(), N, L, n, r,
-                      0 if route == "l256" else 1, out[g0:].data_ptr(),
-                      stream)
+                      _LB_CODES[route], out[g0:].data_ptr(), stream)
             _build.check("dtw", "dtw_lb_keogh", code)
             _count("lb_keogh", route)
     return out
@@ -168,8 +197,8 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
         raise ValueError(f"round_k must be in [1, 1024], got {round_k!r}")
     route = _pick(route, dp_route(r), (dp_route(r), "general"),
                   "dtw_search")
-    threads = (band_threads(r, L, round_k) if route == "band"
-               else -(-round_k // 32) * 32)
+    threads = (-(-round_k // 32) * 32 if route == "general"
+               else band_threads(r, L, round_k, wave_cells(route)))
     if route == "general" and 4 * (L + (2 * r + 1) * threads) > _SMEM:
         raise ValueError(f"band radius {r} with round_k {round_k} needs "
                          f"more shared memory than a block has")
@@ -197,8 +226,8 @@ def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int,
              route: str | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Banded DTW of each query of q (Q, L) against every series of x
     (N >= 1, L), in one launch: (the least squared distance (Q,)
-    float32, its series (Q,) int32, the first on ties), by `route` as
-    `dtw_search`'s.
+    float32, its series (Q,) int32, the first on ties), by `route`
+    (default `scan_route(r)`; "general" takes every r).
 
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if the launch fails."""
@@ -210,7 +239,8 @@ def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int,
     if N >= 1 << 31 or Q > 65535:
         raise ValueError(f"dtw_scan takes N < 2^31 and Q <= 65535, got "
                          f"{N}, {Q}")
-    route = _pick(route, dp_route(r), (dp_route(r), "general"), "dtw_scan")
+    route = _pick(route, scan_route(r), (scan_route(r), "general"),
+                  "dtw_scan")
     if (route == "general"
             and 4 * (L + (2 * r + 1) * _SCAN_THREADS[route]) > _SMEM):
         raise ValueError(f"band radius {r} needs more shared memory than "
@@ -224,7 +254,7 @@ def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int,
         fn = _build.entry("dtw", "dtw_scan", _SCAN_ARGTYPES)
         with torch.cuda.device(dev):
             code = fn(q.data_ptr(), x.data_ptr(), N, L, r, Q,
-                      _DP_CODES[route], keys.data_ptr(),
+                      _SCAN_CODES[route], keys.data_ptr(),
                       torch.cuda.current_stream(dev).cuda_stream)
         _build.check("dtw", "dtw_scan", code)
         _count("dtw_scan", route)

@@ -325,72 +325,89 @@ def dtw_band_ref(q: torch.Tensor, x: torch.Tensor, r: int) -> torch.Tensor:
     return prev1[:, r].reshape(lead)
 
 
-def dtw_wavefront_ref(q: torch.Tensor, x: torch.Tensor,
-                      r: int) -> torch.Tensor:
-    """`dtw_band_ref` in the order of dtw_search's band route (csrc/dtw.cu,
-    dtw_wave), for the tests: lane l of a pair holds band offsets 2l and
-    2l + 1 (l = 0..r), and step s forms row s - l's even cell, then its
-    odd one, so the cells come in wavefront order t = 2i + k.  A cell
-    outside the band or the matrix gets d = BIG (its value BIG or more),
-    offset 2r + 1 included, and cell (0, 0) a diag of 0.  Asserts that
-    each operand of a cell inside is the cell it should be (diag (i-1, k),
-    up (i-1, k+1), left (i, k-1)) and was formed at an earlier wavefront.
-    Pairs broadcast as in `dtw_band_ref`; returns (...,) float32."""
+def dtw_wavefront_ref(q: torch.Tensor, x: torch.Tensor, r: int,
+                      cells: int = 2, step_least: bool = False):
+    """`dtw_band_ref` in the order of dtw_search's wavefront routes
+    (csrc/dtw.cu: dtw_wave, cells 2, and dtw_wave_wide, cells 2, 4 or 8),
+    for the tests.  Lane l of a pair (l < H = ceil((2r + 1) / cells))
+    holds band offsets cells * l + m, m < cells, and step s forms row s -
+    l's cells in order of m: cell 0 reads lane l - 1's last cell of step
+    s - 1 as its left, and the last cell reads lane l + 1's cell 0 of step
+    s as its up, as the kernel's two shuffles do.  A cell outside the band
+    or the matrix gets d = BIG (its value BIG or more), and cell (0, 0) a
+    diag of 0.  Steps run to L - 1 + r // cells, where cell (L - 1, r)
+    forms.  Asserts that each operand of a cell inside is the cell it
+    should be (diag (i-1, k), up (i-1, k+1), left (i, k-1)) and was formed
+    at an earlier wavefront (2i + k).  Pairs broadcast as in
+    `dtw_band_ref`; returns (...,) float32, and with `step_least` also
+    (..., steps) float32: each step's least cell inside the band and the
+    matrix (BIG where it forms none), which the wide routes' early
+    abandoning compares with the best-so-far.  The lane bookkeeping and
+    its asserts stay on the CPU; the cells are formed on q's device."""
     q, x = torch.broadcast_tensors(q, x)
     lead, L = q.shape[:-1], q.shape[-1]
     q = q.reshape(-1, L).float()
     x = x.reshape(-1, L).float()
-    H, B = r + 1, q.shape[0]
+    C, B, dev = cells, q.shape[0], q.device
+    H = -(-(2 * r + 1) // C)
+    l0, m0 = r // C, r % C                 # where offset r lives
     ll = torch.arange(H)
-    big = torch.full((B, 1), BIG, dtype=torch.float32)
-    e = big.expand(-1, H).clone()          # each lane's even and odd cell
-    o = big.expand(-1, H).clone()
+    big = torch.full((B, 1), BIG, dtype=torch.float32, device=dev)
 
-    def cells(row, k):                     # (2, H): each lane's cell
+    def cell(row, k):                      # (2, H): each lane's cell
         return torch.stack([row, k])
     none = torch.tensor([[-L - r - 9], [0]])     # a lane outside the pair
-    e_at, o_at = cells(-1 - ll, 2 * ll), cells(-1 - ll, 2 * ll + 1)
+    v = [big.expand(-1, H).clone() for _ in range(C)]
+    at = [cell(-1 - ll, C * ll + m) for m in range(C)]
     res = big[:, 0].clone()
-    for s in range(L + r):
-        i, c = s - ll, s + ll - r
+    least = torch.full((B, L + l0), BIG, dtype=torch.float32, device=dev)
+    for s in range(L + l0):
+        i, c0 = s - ll, s + (C - 1) * ll - r
         row = (i >= 0) & (i < L)
-        in_e = row & (c >= 0) & (c < L)
-        in_o = row & (ll < r) & (c + 1 < L)
-        qi = q[:, i.clamp(0, L - 1)]
-        de = torch.where(in_e, (qi - x[:, c.clamp(0, L - 1)]) ** 2, BIG)
-        dd = torch.where(in_o, (qi - x[:, (c + 1).clamp(0, L - 1)]) ** 2,
-                         BIG)
-        first = (i == 0) & (ll == r // 2)
-        ze = torch.where(first & (r % 2 == 0), 0.0, e)
-        zo = torch.where(first & (r % 2 == 1), 0.0, o)
-        left = torch.cat([big, o[:, :-1]], dim=1)      # lane l - 1's odd
-        ve = de + torch.minimum(torch.minimum(ze, o), left)
-        up = torch.cat([ve[:, 1:], big], dim=1)        # lane l + 1's even
-        vo = dd + torch.minimum(torch.minimum(zo, ve), up)
-        # each operand read by a cell inside: (the cell it holds, the cell
-        # the rule reads, the lanes reading it, the reader's wavefront)
-        ve_at, vo_at = cells(i, 2 * ll), cells(i, 2 * ll + 1)
-        for held, want, lanes, t in (
-                (e_at, cells(i - 1, 2 * ll), in_e, 2 * s),
-                (o_at, cells(i - 1, 2 * ll + 1), in_e, 2 * s),
-                (torch.cat([none, o_at[:, :-1]], 1), cells(i, 2 * ll - 1),
-                 in_e & (ll > 0), 2 * s),
-                (o_at, cells(i - 1, 2 * ll + 1), in_o, 2 * s + 1),
-                (ve_at, cells(i, 2 * ll), in_o, 2 * s + 1),
-                (torch.cat([ve_at[:, 1:], none], 1), cells(i - 1, 2 * ll + 2),
-                 in_o, 2 * s + 1)):
-            assert bool((held == want)[:, lanes].all()), (s, held, want)
-            assert bool((2 * held[0] + held[1] < t)[lanes].all()), s
-        if int(i[r // 2]) == L - 1:
-            res = (ve if r % 2 == 0 else vo)[:, r // 2].clone()
-        e, o, e_at, o_at = ve, vo, ve_at, vo_at
+        qi = q[:, i.clamp(0, L - 1).to(dev)]
+        first = (i == 0) & (ll == l0)
+        nv, nat = [], []
+        for m in range(C):
+            k, c = C * ll + m, c0 + m
+            inside = row & (k <= 2 * r) & (c >= 0) & (c < L)
+            on = inside.to(dev)
+            d = torch.where(on, (qi - x[:, c.clamp(0, L - 1).to(dev)]) ** 2,
+                            BIG)
+            diag = torch.where((first & (m == m0)).to(dev), 0.0, v[m])
+            if m + 1 < C:
+                up, up_at = v[m + 1], at[m + 1]
+            else:                          # lane l + 1's cell 0, this step
+                up = torch.cat([nv[0][:, 1:], big], dim=1)
+                up_at = torch.cat([nat[0][:, 1:], none], dim=1)
+            if m == 0:                     # lane l - 1's last, step s - 1
+                left = torch.cat([big, v[C - 1][:, :-1]], dim=1)
+                left_at = torch.cat([none, at[C - 1][:, :-1]], dim=1)
+            else:
+                left, left_at = nv[m - 1], nat[m - 1]
+            here = cell(i, k)
+            t = 2 * i + k
+            for held, want, lanes in (
+                    (at[m], cell(i - 1, k), inside & ~(first & (m == m0))),
+                    (up_at, cell(i - 1, k + 1), inside),
+                    (left_at, cell(i, k - 1), inside & (k > 0))):
+                assert bool((held == want)[:, lanes].all()), (s, m)
+                assert bool((2 * held[0] + held[1] < t)[lanes].all()), (s, m)
+            nv.append(d + torch.minimum(torch.minimum(diag, up), left))
+            nat.append(here)
+            least[:, s] = torch.minimum(least[:, s], torch.where(
+                on, nv[m], BIG).amin(dim=1))
+        if int(i[l0]) == L - 1:
+            res = nv[m0][:, l0].clone()
+        v, at = nv, nat
+    if step_least:
+        return res.reshape(lead), least.reshape(*lead, L + l0)
     return res.reshape(lead)
 
 
 def dtw_search_ref(q: torch.Tensor, x: torch.Tensor,
                    sorted_lb: torch.Tensor, order: torch.Tensor, r: int,
-                   round_k: int, max_pairs: int = 1 << 16
-                   ) -> Tuple[torch.Tensor, ...]:
+                   round_k: int, max_pairs: int = 1 << 16,
+                   trace: list | None = None) -> Tuple[torch.Tensor, ...]:
     """The refinement of a DTW 1-NN search (repro's `search_dtw` loop) for
     each query of q (Qg, L) over x (N, L): candidates in the order of
     `order` (Qg, N) int64, whose lower bounds `sorted_lb` (Qg, N) are
@@ -407,7 +424,12 @@ def dtw_search_ref(q: torch.Tensor, x: torch.Tensor,
     call (the chunk doubles while a query runs on, up to `max_pairs`
     pairs a call), and the rounds then run on the host over them; a
     candidate the rule prunes counts as BIG whatever its distance, so
-    computing it changes nothing but the time."""
+    computing it changes nothing but the time.
+
+    `trace`, a list, receives for each query (the position in the sorted
+    order where each of its rounds starts (int64), the best-so-far at
+    that start (float32)), as numpy arrays: a round refines its
+    candidates whose bound lies below that best-so-far."""
     Qg, N = sorted_lb.shape
     n_rounds = -(-N // round_k)
     big = np.float32(BIG)
@@ -416,6 +438,7 @@ def dtw_search_ref(q: torch.Tensor, x: torch.Tensor,
     rounds = np.zeros(Qg, np.int64)
     refined = np.zeros(Qg, np.int64)
     first = sorted_lb[:, 0].cpu().numpy() if N else np.zeros(Qg)
+    starts = [[] for _ in range(Qg)]
     running = [g for g in range(Qg) if n_rounds and first[g] < big]
     span = 1
     while running:
@@ -441,6 +464,7 @@ def dtw_search_ref(q: torch.Tensor, x: torch.Tensor,
                     break
                 e = j + min(round_k, b - c)
                 take = lbs[j:e] < bsf[g]
+                starts[g].append((c, bsf[g]))
                 d = np.where(take, dist[j:e], big)
                 k = int(np.argmin(d))
                 if d[k] < bsf[g]:
@@ -452,6 +476,10 @@ def dtw_search_ref(q: torch.Tensor, x: torch.Tensor,
                     sorted_lb[g, b].item()) < bsf[g]:
                 still.append(g)
         running, span = still, 2 * span
+    if trace is not None:
+        trace += [(np.array([c for c, _ in st], np.int64),
+                   np.array([b for _, b in st], np.float32))
+                  for st in starts]
     dev = x.device
     return (torch.as_tensor(bsf, device=dev),
             torch.as_tensor(best.astype(np.int32), device=dev),

@@ -2,10 +2,13 @@
 csrc/dtw.cu on the CPU) against repro's on the same seeded numpy inputs:
 tests/test_dtw.py's cases on both packages, envelope and LB_Keogh,
 banded DTW against repro's and the O(L^2) oracle, and both searches at
-round_k 16 and 32, N not a multiple of round_k, N < round_k, r = 0 and
-znorm=False: ids equal but where two distances lie within 1e-5 relative,
-distances to rtol 1e-5.  Then isax's four distance helpers against
-repro's on tests/test_isax.py's inputs.
+round_k 16 and 32, N not a multiple of round_k, N < round_k, r = 0, 16,
+25 and 40 and znorm=False: ids equal but where two distances lie within
+1e-5 relative, distances to rtol 1e-5.  The LB_Keogh kernel's clamp-form
+excursion against repro's form, bit for bit; the wavefront routes' lane
+schedule (ref.dtw_wavefront_ref, 2, 4 and 8 cells a lane) against the
+band, bit for bit.  Then isax's four distance helpers against repro's on
+tests/test_isax.py's inputs.
 
 Tolerances: the port sums LB_Keogh in another order than XLA (rtol 1e-5);
 the DP repeats repro's arithmetic cell for cell, so banded DTW agrees to
@@ -155,6 +158,8 @@ CASES = [
     (21, 32, 4, 3, 32, True),        # N < round_k
     (120, 40, 4, 0, 16, True),       # r = 0: squared ED
     (150, 40, 4, 16, 32, True),      # band wider than a warp
+    (150, 64, 4, 25, 32, True),      # wave2 at a wide band
+    (130, 64, 4, 40, 16, True),      # wave4: 4 cells a lane
     (150, 40, 4, 5, 16, False),      # raw values
 ]
 
@@ -214,15 +219,20 @@ def test_search_ref_rounds_and_prune_rule():
     assert int(rounds[0]) == n_rounds_needed
 
 
-def _rounds_one_by_one(q, x, s, o, r, rk):
+def _rounds_one_by_one(q, x, s, o, r, rk, starts=None):
     """The refinement's loop as its docstring states it: one query, one
-    round and one DP call at a time."""
+    round and one DP call at a time; `starts` receives each query's
+    (round start, best-so-far there) pairs."""
     Qg, N = s.shape
     out = []
     for g in range(Qg):
         bsf, best, rounds, refined, cursor = ref.BIG, -1, 0, 0, 0
         bsf = np.float32(bsf)
+        if starts is not None:
+            starts.append([])
         while cursor < N and float(s[g, cursor]) < bsf:
+            if starts is not None:
+                starts[g].append((cursor, float(bsf)))
             lbs = s[g, cursor:cursor + rk].numpy()
             ids = o[g, cursor:cursor + rk].numpy()
             take = lbs < bsf
@@ -249,18 +259,21 @@ def test_search_ref_equals_a_round_by_round_loop(N, L, Q, r, rk, noise,
     """dtw_search_ref takes its distances a chunk of rounds at a time,
     for every query still running at once: the same bsf, id, rounds and
     candidates refined as one round of one query at a time, whatever the
-    chunk (max_pairs down to one round)."""
+    chunk (max_pairs down to one round); its trace holds each round's
+    start and the best-so-far there, the loop's."""
     rng = np.random.default_rng(N + L + rk)
     x = isax.znormalize(torch.as_tensor(
         np.cumsum(rng.standard_normal((N, L)), 1), dtype=torch.float32))
     q = x[torch.as_tensor(rng.integers(0, N, Q))] + noise * torch.as_tensor(
         rng.standard_normal((Q, L)), dtype=torch.float32)
     s, o = torch.sort(ref.lb_keogh_ref(q, x, r), dim=1, stable=True)
-    bsf, best, rounds, refined = ref.dtw_search_ref(q, x, s, o, r, rk,
-                                                    max_pairs=max_pairs)
+    trace, starts = [], []
+    bsf, best, rounds, refined = ref.dtw_search_ref(
+        q, x, s, o, r, rk, max_pairs=max_pairs, trace=trace)
     got = list(zip(bsf.tolist(), best.tolist(), rounds.tolist(),
                    refined.tolist()))
-    assert got == _rounds_one_by_one(q, x, s, o, r, rk)
+    assert got == _rounds_one_by_one(q, x, s, o, r, rk, starts)
+    assert [list(zip(c.tolist(), b.tolist())) for c, b in trace] == starts
     # r 0 (the bound is the distance) and N < round_k end in one round
     assert max(rounds.tolist()) > 1 or r == 0 or N < rk
 
@@ -322,50 +335,130 @@ def test_scan_ref_first_index_on_ties():
     assert int(i[0]) == 2 and float(d2[0]) == 0.0
 
 
-@pytest.mark.parametrize("L", [1, 100, 224, 225, 256, 257, 1024])
+@pytest.mark.parametrize("L", [1, 100, 224, 225, 256, 257, 1023, 1024])
 def test_routes_cover_every_length(L):
-    assert kdtw.lb_route(L) == ("l256" if 224 < L <= 256 else "general")
-    assert 1 <= kdtw.lb_group(L) <= kdtw.GROUP
-    assert kdtw.lb_group(L) * 8 * L <= 200 * 1024
+    """One LB_Keogh kernel takes every L <= 1024: 16-byte loads where L %
+    4 == 0 and the collection is aligned, 4-byte ones otherwise; a
+    launch's queries are a multiple of 8 slots whose (lo, hi) envelopes
+    (L padded to 4 points) fit in 200 KiB."""
+    assert kdtw.lb_route(L) == ("vec" if L % 4 == 0 else "scalar")
+    assert kdtw.lb_route(L, aligned=False) == "scalar"
+    Lp = -(-L // 4) * 4
+    assert 8 <= kdtw.lb_group(L) <= kdtw.GROUP
+    assert kdtw.lb_group(L) % 8 == 0
+    assert kdtw.lb_group(L) * 8 * Lp <= 200 * 1024
+    assert kdtw.lb_group(L) == (32 if L <= 800 else 24)
 
 
 def test_dp_routes():
-    assert [kdtw.dp_route(r) for r in (0, 12, 16, 17, 40)] == \
-        ["band"] * 3 + ["general"] * 2
+    """dtw_search: the wave routes of 2, 4 and 8 cells a lane to r 31, 63
+    and 127 (at most 32 lanes a pair), the general route beyond; dtw_scan:
+    band to r 16, then general."""
+    rs = (0, 12, 16, 17, 25, 31, 32, 40, 63, 64, 100, 127, 128, 900)
+    assert [kdtw.dp_route(r) for r in rs] == (
+        ["wave2"] * 6 + ["wave4"] * 3 + ["wave8"] * 3 + ["general"] * 2)
+    assert [kdtw.scan_route(r) for r in rs] == \
+        ["band"] * 3 + ["general"] * 11
+    assert kdtw.WAVE_MAX_R == {"wave2": 31, "wave4": 63, "wave8": 127}
+    for r in rs:
+        route = kdtw.dp_route(r)
+        if route != "general":
+            assert -(-(2 * r + 1) // kdtw.wave_cells(route)) <= 32
 
 
-@pytest.mark.parametrize("r", [0, 1, 12, 16])
+@pytest.mark.parametrize("r", [0, 1, 12, 16, 17, 25, 31, 40, 63, 100])
 @pytest.mark.parametrize("L", [7, 100, 256])
 def test_wavefront_model_equals_the_band(r, L):
-    """The band route's order (ref.dtw_wavefront_ref: lane l of a pair
-    holds offsets 2l and 2l + 1, step s forms row s - l, every operand
-    asserted formed at an earlier wavefront) gives dtw_band_ref's bits,
-    and repro's dtw_band within the tolerance of the tests above."""
+    """The wavefront routes' order (ref.dtw_wavefront_ref with the cells a
+    lane of dp_route(r): lane l of a pair holds offsets cells * l ..
+    cells * l + cells - 1, step s forms row s - l, every operand asserted
+    the right cell and formed at an earlier wavefront) gives
+    dtw_band_ref's bits, and repro's dtw_band within the tolerance of the
+    tests above."""
     rng = np.random.default_rng(1000 * r + L)
     q, x = (rng.standard_normal((3, L)).astype(np.float32)
             for _ in range(2))
-    got = ref.dtw_wavefront_ref(_t(q), _t(x), r)
+    cells = kdtw.wave_cells(kdtw.dp_route(r))
+    got = ref.dtw_wavefront_ref(_t(q), _t(x), r, cells)
     assert torch.equal(got, ref.dtw_band_ref(_t(q), _t(x), r))
     for j in range(3):
         want = float(J.dtw_band(jnp.asarray(q[j]), jnp.asarray(x[j]), r))
         assert abs(float(got[j]) - want) <= 1e-5 * want
 
 
-@pytest.mark.parametrize("r", [0, 1, 12, 15, 16])
+@pytest.mark.parametrize("r,cells", [(17, 2), (25, 2), (31, 2), (40, 4),
+                                     (63, 4), (100, 8), (25, 4), (12, 8)])
+def test_every_path_costs_each_steps_least_cell(r, cells):
+    """The wide routes' early abandoning: from the step of cell (0, 0),
+    r // cells, to the last, each step's least cell inside the band and
+    the matrix is at most the DTW (every path has a cell of every step
+    between, and costs are non-negative), so a pair whose least cell of a
+    step reaches the best-so-far cannot improve it."""
+    rng = np.random.default_rng(7 * r + cells)
+    for L in (9, 64, 130):
+        q, x = (rng.standard_normal((4, L)).astype(np.float32)
+                for _ in range(2))
+        d, least = ref.dtw_wavefront_ref(_t(q), _t(x), r, cells,
+                                         step_least=True)
+        assert torch.equal(d, ref.dtw_band_ref(_t(q), _t(x), r))
+        l0 = r // cells
+        assert bool((least[:, l0:] <= d[:, None]).all())
+        assert bool((least[:, l0:] < ref.BIG).all())
+
+
+@pytest.mark.parametrize("r", [0, 1, 12, 15, 16, 17, 25, 31, 32, 63, 64,
+                               127])
 def test_band_route_blocks(r):
-    """dtw_search's band-route CTA (band_threads): whole warps, 32 to
-    1024 threads, 32 // (r + 1) pairs a warp, never more warps than a
-    round's pairs need, the pairs' series, the query and the round's
-    distances and bounds (twice) within the CTA's shared memory; the dtw
-    cell's shape (r 12, round_k 32) takes 16 warps of 2 pairs."""
+    """dtw_search's wave-route CTAs (band_threads): whole warps,
+    32 to 1024 threads, 32 // lanes pairs a warp (lanes = ceil((2r + 1) /
+    cells)), never more warps than a round's pairs need, the pairs'
+    series, the query and the round's distances and bounds (twice) within
+    the CTA's shared memory; the dtw cell's shape (r 12, round_k 32) takes
+    16 warps of 2 pairs, the wide run's (r 25) 32 warps of 1."""
+    cells = kdtw.wave_cells(kdtw.dp_route(r))
     for L, round_k in itertools.product((1, 7, 100, 256, 1024),
                                         (1, 16, 32, 100, 1024)):
-        t = kdtw.band_threads(r, L, round_k)
-        P = 32 // (r + 1)
+        t = kdtw.band_threads(r, L, round_k, cells)
+        P = 32 // -(-(2 * r + 1) // cells)
         assert t % 32 == 0 and 32 <= t <= 1024
         assert t // 32 <= -(-round_k // P)
         assert 4 * (L + 4 * round_k + t // 32 * P * L) <= 200 * 1024
     assert kdtw.band_threads(12, 256, 32) == 512
+    assert kdtw.band_threads(25, 256, 32, 2) == 1024
+
+
+def test_clamp_excursion_has_the_bits_of_repros_form():
+    """The LB_Keogh kernel's e = x - min(max(x, lo), hi) (csrc/dtw.cu,
+    lb_keogh_kernel: 4 instructions a point with the FMA) squares to the
+    bits of the form it replaced (and lb_keogh_ref's), max(x - hi, lo -
+    x, 0)^2 (5), and of repro's max(x - hi, 0)^2 + max(lo - x, 0)^2:
+    above, below and inside the envelope, x exactly at lo and at hi, +-0
+    in every operand, an envelope of one point (lo == hi), and values a
+    rounding apart."""
+    rng = np.random.default_rng(5)
+    lo = rng.standard_normal(4000).astype(np.float32)
+    hi = lo + np.abs(rng.standard_normal(4000)).astype(np.float32)
+    hi[:500] = lo[:500]
+    x = (rng.standard_normal(4000) * 2).astype(np.float32)
+    x[500:700], x[700:900] = lo[500:700], hi[700:900]
+    x[900:1000] = np.nextafter(lo[900:1000], np.float32(-np.inf))
+    x[1000:1100] = np.nextafter(hi[1000:1100], np.float32(np.inf))
+    zeros = np.array([0.0, -0.0], np.float32)
+    for a, b, c in itertools.product(zeros, repeat=3):
+        if not b > c:                   # lo <= hi: +-0 in any order
+            x, lo, hi = (np.append(x, a), np.append(lo, b),
+                         np.append(hi, c))
+    x, lo, hi = _t(x), _t(lo), _t(hi)
+    e = x - torch.minimum(torch.maximum(x, lo), hi)
+    old = torch.maximum(x - hi, lo - x).clamp_min(0.0)
+    assert torch.equal((e * e).view(torch.int32),
+                       (old * old).view(torch.int32))
+    # repro's own term a point (src/repro/core/dtw.py, lb_keogh)
+    jx, jlo, jhi = (jnp.asarray(a.numpy()) for a in (x, lo, hi))
+    above, below = jnp.maximum(jx - jhi, 0.0), jnp.maximum(jlo - jx, 0.0)
+    np.testing.assert_array_equal(
+        (e * e).view(torch.int32).numpy(),
+        np.asarray(above * above + below * below).view(np.int32))
 
 
 # --------------------------------------------- isax's distance helpers

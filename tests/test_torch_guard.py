@@ -223,8 +223,9 @@ def test_dtw_wrappers_raise_on_a_route_the_shape_does_not_take():
     for route in ("l256", "band", "fast"):
         with pytest.raises(ValueError, match="routes"):
             dtw.lb_keogh(q, x, r=2, route=route)
-    with pytest.raises(ValueError, match="routes"):
-        dtw.dtw_search(q, x, lb, order, r=17, round_k=4, route="band")
+    for route in ("band", "wave4"):     # no band route; r 17 is wave2's
+        with pytest.raises(ValueError, match="routes"):
+            dtw.dtw_search(q, x, lb, order, r=17, round_k=4, route=route)
     with pytest.raises(ValueError, match="routes"):
         dtw.dtw_scan(q, x, r=20, route="band")
     # the general route takes every radius, the band route up to 16
