@@ -147,22 +147,25 @@ Phases, each printing one JSON line:
              version on a group, the DP bit for bit on 4,096 sampled
              pairs; LB, sort and refinement ms, rounds and candidates
              refined a query, peak memory; then the same collection and
-             queries at r 25 (10 % of L: dtw_search's wide route of 2
-             cells a lane), its pieces timed, its first two groups bit
-             for bit against dtw_search_ref and its first 8 queries
-             against the brute force (the general scan route); lb_keogh
-             at L 1024 (2^20 series, 24 queries, r 51) and L 100 (2^22
-             series, r 5) against its plain version; edge runs (the band
-             route's wavefront at r 0, 1, 12, 15, 16 and L 100, round_k
-             100 at r 16 and 64 at r 0; the wide routes at r 17, 25, 31,
-             32, 40, 63, 64 and 127 and the general one at r 128, L 100
-             and L 300, N not a multiple of round_k; the scalar LB
-             at L 101; N < round_k), each kernel bit for bit (lb_keogh
-             to 1e-5); table rows for lb_keogh (L 256, its scalar route,
-             L 1024 and L 100), dtw_search (the band route, the wide
-             route at r 25 with the general route's time at that shape
-             beside it, the general route at r 12) and dtw_scan (band
-             and general);
+             queries at r 25 (10 % of L: dtw_search's wave2 route), its
+             pieces timed, its first two groups bit for bit against
+             dtw_search_ref and its first 32 queries against the brute
+             force (dtw_scan's wave16 route); the first group at r 51 and
+             102 (wave4, wave8; the brute force on all 32 queries, and a
+             cut search bit for bit); lb_keogh at L 1024 (2^20 series, 24
+             queries, r 51) and L 100 (2^22 series, r 5) against its
+             plain version; edge runs (r 0 to 255 at L 100 and 300, each
+             dtw_scan route that takes the radius; N 1, N not a multiple
+             of a tile or of round_k, N < round_k, 40 queries; r = L -
+             1, 2L and 900 at L 16; L 1024 at r 1023; round_k 100, 64,
+             256 and 1024; the scalar LB at L 101), each kernel bit for
+             bit (lb_keogh to 1e-5); table rows for lb_keogh (L 256, its
+             scalar route, L 1024 and L 100), dtw_search (each wave
+             route with the general route's time at its shape beside it,
+             the general route at r 12) and dtw_scan (band and general at
+             r 12, wave16 at r 12, 25, 51 and 102, wave8 and wave4 at r
+             25 and wave8 at r 102: the cells a lane; the general route
+             at r 25 on 8 queries beside wave16);
   fidelity   build_index_host over 2^16 seismic_like series of length
              256 under RefreshExecutor, DoAllSplit, FaiBased and CasBased
              at 8 threads: every id in the forest with the one-pass
@@ -2931,11 +2934,20 @@ def sharded_recover(torch, api, isax, gen, n=1 << 22, nq=64):
 DTW_N, DTW_Q, DTW_R, DTW_RK, DTW_BRUTE, DTW_PAIRS = 1 << 22, 256, 12, 32, 32, 4096
 # the wide-band run: r 10 % of L, its first groups held to the plain
 # version, its first queries to the brute force
-DTW_WIDE_R, DTW_WIDE_GROUPS, DTW_WIDE_BRUTE = 25, 2, 8
+DTW_WIDE_R, DTW_WIDE_GROUPS, DTW_WIDE_BRUTE = 25, 2, 32
 # the wider bands' runs (wave4, wave8: 20 % and 40 % of L) on the first
 # group, its first queries held to the brute force; their table rows on a
 # cut search: each query's first DTW_WIDER_CUT candidates by bound
-DTW_WIDER_R, DTW_WIDER_BRUTE, DTW_WIDER_CUT = (51, 102), 2, 1 << 15
+DTW_WIDER_R, DTW_WIDER_BRUTE, DTW_WIDER_CUT = (51, 102), 32, 1 << 15
+# dtw_scan's wave routes timed at each r on the brute force's queries:
+# the default (wave16) at every r but 12, where it stands beside the band
+# route, and the other cells a lane at r 25 and 102; and the general
+# route, which they replaced for 16 < r <= 255, timed once at r 25 on
+# DTW_GENERAL_Q queries
+DTW_SCAN_ROUTES = {DTW_R: ("wave16",), DTW_WIDE_R: ("wave16", "wave8",
+                                                    "wave4"),
+                   51: ("wave16",), 102: ("wave16", "wave8")}
+DTW_GENERAL_Q = 8
 # lb_keogh at other lengths: (series, L, queries, r 5 % of L)
 DTW_LB_SHAPES = ((1 << 20, 1024, 24, 51), (1 << 22, 100, 32, 5))
 # pairs a dtw_band_ref call of dtw_search_ref takes on the card (its answer
@@ -2957,6 +2969,38 @@ def dtw_bound(cells: int, nbytes: float):
     """A DP cell is five f32 instructions (subtract, multiply, two mins,
     add; the multiply and the add kept apart), at the issue rate."""
     return bound_ms(nbytes, cells * 5, FP32_ISSUE)
+
+
+def scan_rows(torch, kd, ref, x, q, r, want, launches):
+    """dtw_scan's table rows at radius r on the queries q (nq, L): each
+    route of DTW_SCAN_ROUTES[r] held to `want` (the brute force's
+    distances and ids: its squared distances' roots, bit for bit), then
+    timed (the mean of 2 launches by CUDA events); the bound counts every
+    band cell of every pair (the scan abandons none); plain ms is
+    ref.dtw_scan_ref on the first query alone; launches are `launches`'s
+    for the route (the path's run)."""
+    nq = q.shape[0]
+    bms, by = dtw_bound(nq * DTW_N * dtw_cells(L, r), 4 * (DTW_N + nq) * L)
+    plain = time_ms(torch, lambda: ref.dtw_scan_ref(q[:1], x, r), 1, 0)
+    shape = (f"{nq} queries x {DTW_N} series, L {L}, r {r} (the brute "
+             f"force's queries)")
+    rows = []
+    for route in DTW_SCAN_ROUTES[r]:
+        d2, i = kd.dtw_scan(q, x, r=r, route=route)
+        require(torch.equal(torch.sqrt(d2), want[0])
+                and torch.equal(i, want[1]),
+                f"dtw_scan {route} r {r}: differs from the brute force's")
+        ms = time_ms(torch, lambda: kd.dtw_scan(q, x, r=r, route=route), 2,
+                     0)
+        row = route_row("dtw_scan", f"{route}_r{r}", DTW_SRC,
+                        DTW_REPLACES.format(173, "search_dtw_bruteforce"),
+                        shape, 0.0, ms, plain, bms, by,
+                        {"brute force's queries": "bit-equal"})
+        row |= {"plain_queries": 1, "cells": kd.SCAN_CELLS[route],
+                "launches_on_path": launches.get(f"dtw_scan/{route}", 0)}
+        rows.append(row)
+        del d2, i
+    return rows
 
 
 def wave_step_cells(torch, Lx: int, r: int, cells: int):
@@ -3026,7 +3070,8 @@ def rel_err(torch, a, b) -> float:
 def dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk):
     """Collection, queries (z-normalized) and the three kernels against
     their plain versions at one small shape: lb_keogh to 1e-5 relative,
-    dtw_search and dtw_scan bit for bit.  Returns the check's numbers."""
+    dtw_search and dtw_scan (on every route that takes the radius, after
+    the clamp to L - 1) bit for bit.  Returns the check's numbers."""
     x = isax.znormalize(walks(torch, gen, n, Lx)).contiguous()
     pick = torch.randint(0, n, (nq,), generator=gen, device=DEV)
     q = isax.znormalize(x[pick] + 0.1 * torch.randn(
@@ -3039,16 +3084,18 @@ def dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk):
     want = ref.dtw_search_ref(q, x, s, o, r, rk)
     require(all(torch.equal(a, b) for a, b in zip(got, want)),
             f"dtw_search N {n} L {Lx} r {r} round_k {rk}: not bit-equal")
-    d2, i = kd.dtw_scan(q, x, r=r)
-    d2r, ir = ref.dtw_scan_ref(q, x, r)
-    require(torch.equal(d2, d2r) and torch.equal(i, ir),
-            f"dtw_scan N {n} L {Lx} r {r}: not bit-equal")
-    require(bool((got[0] == d2).all()),
+    d2r, ir = ref.dtw_scan_ref(q, x, min(r, Lx - 1))
+    routes = kd.scan_routes(min(r, Lx - 1))
+    for route in routes:
+        d2, i = kd.dtw_scan(q, x, r=r, route=route)
+        require(torch.equal(d2, d2r) and torch.equal(i, ir),
+                f"dtw_scan {route} N {n} L {Lx} r {r}: not bit-equal")
+    require(bool((got[0] == d2r).all()),
             f"search and scan N {n} L {Lx} r {r}: distances differ")
     return {"N": n, "L": Lx, "queries": nq, "r": r, "round_k": rk,
             "lb_rel_err": lb_err, "rounds_max": int(got[2].max()),
             "refined": int(got[3].sum()), "search": "bit-equal",
-            "scan": "bit-equal"}
+            "scan": "bit-equal", "scan_routes": list(routes)}
 
 
 def dtw_edges(torch, isax, kd, ref, gen):
@@ -3057,13 +3104,25 @@ def dtw_edges(torch, isax, kd, ref, gen):
     round_k 100 with r 16 (more pairs than the block runs at once) and
     round_k 64 with r 0; the wave routes at each end of their radii (r
     17, 25 and 31: 2 cells a lane; 32, 40 and 63: 4; 64 and 127: 8) and
-    the general route at r 128, at L 100 (r 128: the band wider than the
-    series) and L 300, N not a multiple of round_k; the scalar LB_Keogh
-    route at L 101; N < round_k."""
+    the general route at r 128, at L 100 (r 128 and 255: the band wider
+    than the series, taken as r 99 by wave8) and L 300, N not a multiple
+    of round_k; the scalar LB_Keogh
+    route at L 101; N < round_k.  Every dtw_scan route that takes each
+    radius runs there too (dtw_small), so the scan's wave routes meet
+    both ends of theirs (r 0 and 63, 127 and 255 at L 300; at L 100, r
+    past 99 is 99); then N 1, 40 queries (two of the scan's chunks), r =
+    L - 1, 2L and 900 at L 16, L 1024 at r 1023 (the general routes,
+    blocks of 16 threads), and dtw_search at r 128 with round_k 256 and
+    1024 (its general route in passes)."""
     edges = []
-    wide = [(2999, 100, 4, r, 32) for r in (17, 25, 31, 32, 63, 64, 128)]
-    wide += [(1001, 300, 4, r, 32) for r in (17, 25, 31, 32, 63, 64, 127,
-                                             128)]
+    wide = [(2999, 100, 4, r, 32) for r in (17, 25, 31, 32, 63, 64, 128,
+                                            255)]
+    wide += [(1001, 300, 4, r, 32) for r in (0, 17, 25, 31, 32, 63, 64,
+                                             127, 128, 255)]
+    wide += [(1, 100, 4, 25, 32), (600, 100, 40, 25, 32),
+             (300, 16, 4, 15, 32), (300, 16, 4, 32, 32),
+             (300, 16, 4, 900, 32), (64, 1024, 2, 1023, 64),
+             (3000, L, 4, 128, 256), (3000, L, 4, 128, 1024)]
     for n, Lx, nq, r, rk in ((3000, 100, 8, 0, 32), (3000, 100, 8, 1, 32),
                              (3000, 100, 8, 12, 32), (3000, 100, 8, 15, 32),
                              (3000, 100, 8, 16, 32), (2000, 100, 4, 16, 100),
@@ -3071,14 +3130,20 @@ def dtw_edges(torch, isax, kd, ref, gen):
                              *wide, (1001, 101, 4, 20, 32),
                              (20, L, 4, DTW_R, 32), (1000, L, 4, DTW_R, 16)):
         edges.append(dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r,
-                               rk) | {"route": kd.dp_route(r),
+                               rk) | {"route": kd.dp_route(min(r, Lx - 1)),
                                       "lb_route": kd.lb_route(Lx)})
     require(kd.lb_route(100) == kd.lb_route(L) == "vec"
             and kd.lb_route(101) == "scalar"
             and kd.dp_route(0) == kd.dp_route(31) == "wave2"
             and kd.dp_route(32) == kd.dp_route(63) == "wave4"
             and kd.dp_route(64) == kd.dp_route(127) == "wave8"
-            and kd.dp_route(128) == "general", "dtw routes")
+            and kd.dp_route(128) == "general"
+            and kd.scan_route(0) == kd.scan_route(16) == "band"
+            and kd.scan_route(17) == kd.scan_route(255) == "wave16"
+            and kd.scan_route(256) == "general", "dtw routes")
+    ran = {r for e in edges for r in e["scan_routes"]}
+    require(ran == {"band", "wave4", "wave8", "wave16", "general"},
+            f"the edge runs' scan routes {ran}")
     return edges
 
 
@@ -3092,7 +3157,10 @@ def dtw_wide(torch, isax, kmods, ref, x, qz):
     dtw_search_ref.  Then each group's pieces timed, and the table row
     of the wave route at the first group, with the general route's time
     at the same shape and the bound of the cells an abandoning DP needs
-    (needed_cells).  Returns (report, launches, row)."""
+    (needed_cells); then dtw_scan's rows at r on the brute force's
+    queries (scan_rows), its default route's with the general route
+    (which it replaced) and itself timed on the first DTW_GENERAL_Q
+    queries.  Returns (report, launches, rows)."""
     from repro_torch.core import dtw as cdtw
     kd, r = kmods["dtw"], DTW_WIDE_R
     route = kd.dp_route(r)
@@ -3209,7 +3277,25 @@ def dtw_wide(torch, isax, kmods, ref, x, qz):
            "by_route": routes}
     # the table row's launches: this run's (its name carries the radius)
     launches = {row["name"]: routes.get(f"dtw_search/{route}", 0)}
-    return rep, launches, row
+    scan = scan_rows(torch, kd, ref, x, qz[:DTW_WIDE_BRUTE].contiguous(), r,
+                     (bd, bi), routes)
+    q8 = qz[:DTW_GENERAL_Q].contiguous()
+    t0 = time.perf_counter()
+    gd, gi = kd.dtw_scan(q8, x, r=r, route="general")
+    torch.cuda.synchronize()
+    general_ms = (time.perf_counter() - t0) * 1e3
+    require(torch.equal(torch.sqrt(gd), bd[:DTW_GENERAL_Q])
+            and torch.equal(gi, bi[:DTW_GENERAL_Q]),
+            f"dtw_scan general r {r}: differs from the brute force's")
+    q8_ms = time_ms(torch, lambda: kd.dtw_scan(q8, x, r=r), 3, 1)
+    scan[0] |= {"ms_on_8_queries": q8_ms,
+                "replaced_general_ms_on_8_queries": general_ms}
+    rep["scan"] = {row["name"]: {k: row[k] for k in (
+        "ms", "bound_ms", "plain_ms", "launches_on_path")} for row in scan}
+    rep["scan"][scan[0]["name"]] |= {"ms_on_8_queries": q8_ms,
+                                     "general_ms_on_8_queries": general_ms}
+    launches |= {row["name"]: row["launches_on_path"] for row in scan}
+    return rep, launches, [row] + scan
 
 
 def dtw_wider(torch, kd, ref, x, qz):
@@ -3217,14 +3303,16 @@ def dtw_wider(torch, kd, ref, x, qz):
     (32 queries over the 2^22 x 256 collection) at each r of DTW_WIDER_R
     (20 % and 40 % of L).  The whole group timed, each distance held to
     its id's own (dtw_band_ref) and the first DTW_WIDER_BRUTE queries' to
-    the general scan's over every series; then the table row on a cut
+    the scan's over every series (dtw_scan's rows at r: scan_rows); then
+    the table row on a cut
     search (each query's first DTW_WIDER_CUT candidates by bound, the
     bounds past them at BIG, so no round reads them): the wave route
     timed, the general route once beside it, both bit for bit against
     dtw_search_ref, whose trace gives the bound of the cells an
-    abandoning DP needs (needed_cells).  Returns (reports, rows)."""
+    abandoning DP needs (needed_cells).  Returns (reports, launches,
+    rows)."""
     from repro_torch.core import dtw as cdtw
-    reps, rows = [], []
+    reps, rows, launches = [], [], {}
     qg = qz[:cdtw.GROUP]
     for r in DTW_WIDER_R:
         route = kd.dp_route(r)
@@ -3238,12 +3326,20 @@ def dtw_wider(torch, kd, ref, x, qz):
         own = ref.dtw_band_ref(qg, x[got[1].long()], r)
         require(bool((got[1] >= 0).all()) and torch.equal(own, got[0]),
                 f"dtw r {r}: a distance is not its id's own")
+        before = dict(kd.by_route)
+        qb = qg[:DTW_WIDER_BRUTE].contiguous()
         t0 = time.perf_counter()
-        bd, bi = kd.dtw_scan(qg[:DTW_WIDER_BRUTE], x, r=r)
+        bd, bi = kd.dtw_scan(qb, x, r=r)
         torch.cuda.synchronize()
         brute_ms = (time.perf_counter() - t0) * 1e3
         require(torch.equal(bd, got[0][:DTW_WIDER_BRUTE]),
                 f"dtw r {r} vs brute force: distances differ")
+        ran = {k: v - before.get(k, 0) for k, v in kd.by_route.items()
+               if v != before.get(k, 0)}
+        require(ran == {f"dtw_scan/{kd.scan_route(r)}": 1},
+                f"dtw r {r} brute force launches by route {ran}")
+        scan = scan_rows(torch, kd, ref, x, qb, r, (torch.sqrt(bd), bi), ran)
+        launches |= {row["name"]: row["launches_on_path"] for row in scan}
         sc = s.clone()
         sc[:, DTW_WIDER_CUT:] = ref.BIG
         cut = lambda: kd.dtw_search(qg, x, sc, o, r=r,  # noqa: E731
@@ -3299,10 +3395,14 @@ def dtw_wider(torch, kd, ref, x, qz):
                      "cut_plain_ms": plain_ms, "cut_refined": n_ref,
                      "cut_rounds_max": int(cgot[2].max()),
                      "bound_ms": bms, "needed_cells": cells,
-                     "all_cells": n_ref * dtw_cells(L, r)})
-        del s, o, sc
+                     "all_cells": n_ref * dtw_cells(L, r),
+                     "scan": {row["name"]: {k: row[k] for k in (
+                         "ms", "bound_ms", "plain_ms", "launches_on_path")}
+                         for row in scan}})
+        rows += scan
+        del s, o, sc, qb, bd, bi
         torch.cuda.empty_cache()
-    return reps, rows
+    return reps, launches, rows
 
 
 def dtw_lb_lengths(torch, isax, kd, ref, gen):
@@ -3560,8 +3660,9 @@ def dtw_path(torch, isax, kmods, ref, gen):
     shape = (f"{DTW_BRUTE} queries x {DTW_N} series, L {L}, r {DTW_R} "
              f"(the brute force's launch)")
     for route in ("band", "general"):
+        # the general route (~5 s a launch here) timed once
         ms = time_ms(torch, lambda: kd.dtw_scan(qb, x, r=DTW_R, route=route),
-                     2, 1)
+                     *((2, 1) if route == "band" else (1, 0)))
         one_ms = time_ms(torch, lambda: kd.dtw_scan(qz[:1], x, r=DTW_R,
                                                     route=route), 3, 1)
         d2, i = kd.dtw_scan(qb, x, r=DTW_R, route=route)
@@ -3574,12 +3675,20 @@ def dtw_path(torch, isax, kmods, ref, gen):
         row |= {"plain_queries": 1, "ms_on_plain_queries": one_ms}
         rows.append(row if route == "general"
                     else row | {"name": "dtw_scan", "port_side": True})
+        if route == "band":
+            band_ms = ms
+    # the wave route of 16 cells a lane beside the band route at r 12
+    more_rows = scan_rows(torch, kd, ref, x, qb, DTW_R, (bd, bi), {})
+    for row in more_rows:
+        row["band_ms"] = band_ms
+    rows += more_rows
     del qb
     torch.cuda.empty_cache()
-    rep["wide"], more, row = dtw_wide(torch, isax, kmods, ref, x, qz)
+    rep["wide"], more, more_rows = dtw_wide(torch, isax, kmods, ref, x, qz)
     launches = {**launches, **more}
-    rows.append(row)
-    rep["wider"], more_rows = dtw_wider(torch, kd, ref, x, qz)
+    rows += more_rows
+    rep["wider"], more, more_rows = dtw_wider(torch, kd, ref, x, qz)
+    launches |= more
     rows += more_rows
     del x, qz
     torch.cuda.empty_cache()

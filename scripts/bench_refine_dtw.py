@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time refine_topk, dtw_lb_keogh and dtw_search of one tree's src/ on
-one NVIDIA GPU, to compare two versions of the kernels in turns in one
-call:
+"""Time refine_topk, dtw_lb_keogh, dtw_search and dtw_scan of one tree's
+src/ on one NVIDIA GPU, to compare two versions of the kernels in turns
+in one call:
 
     python3 scripts/bench_refine_dtw.py [--src DIR] [--reps R] [--seed S]
 
@@ -23,6 +23,11 @@ by CUDA events, held equal to the first launch (a launch that takes
 over a second is timed once: the general route, which a tree without a
 wave route for r 25 takes), and the query with the most rounds alone
 (beside a launch under a second).
+dtw_scan: the brute force's launches, by each tree's default route, at
+r 12 on the group's 32 queries and at r 25 on its first 8 (the dtw
+phase's shapes before the brute forces took 32 queries), and the
+general route at r 25 on the 8, timed as dtw_search is (a launch over a
+second: once), each held equal to its first launch.
 Prints one JSON line with the card's name and power limit.  Without CUDA
 it exits 1 before printing a result.
 """
@@ -111,6 +116,22 @@ def dtw_case(torch, isax, kd, cs, gen, reps: int) -> dict:
             out[f"dtw_search_r{r}"]["slowest_alone_ms"] = cs.time_ms(
                 torch, one, reps, 1)
         del s, o
+    for r, nq, route in ((cs.DTW_R, 32, None), (cs.DTW_WIDE_R, 8, None),
+                         (cs.DTW_WIDE_R, 8, "general")):
+        qb = qg[:nq].contiguous()
+        call = lambda: kd.dtw_scan(qb, x, r=r, route=route)  # noqa: E731
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        want = call()
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1])
+        if ms < 1000:
+            ms = cs.time_ms(torch, call, reps, 1)
+        assert all(torch.equal(a, b) for a, b in zip(call(), want)), r
+        out[f"dtw_scan_r{r}_q{nq}" + ("_general" if route else "")] = {
+            "ms": ms, "r": r, "queries": nq,
+            "shape": f"{nq} queries x {cs.DTW_N} series, L {cs.L}"}
     return out
 
 

@@ -33,24 +33,25 @@
 // for a cell outside [0, L), and row 0 the running sum from column 0, as
 // repro's dtw_band computes it; min is exact, so the result equals the
 // plain version (kernels/ref.py dtw_band_ref) bit for bit.  Two layouts:
-// - one thread a (query, candidate) pair (dtw_scan, and dtw_search's
-//   general route, r > 127): each thread walks the rows of its pair in
-//   order; the band of the previous row lives in registers (dtw_scan's band
-//   route, a template instance for each r <= 16: 2 (2r + 1) registers for
-//   the band and the series window)
+// - one thread a (query, candidate) pair (dtw_scan's band and general
+//   routes, and dtw_search's general route, r > 127): each thread walks
+//   the rows of its pair in order; the band of the previous row lives in
+//   registers (dtw_scan's band route, a template instance for each r <=
+//   16: 2 (2r + 1) registers for the band and the series window)
 //   or, for r > 16, in shared memory, one column of it a thread.  A warp's
 //   32 threads run 32 pairs in step, so the left-to-right chain of a row
 //   never serialises a warp, but a pair takes L (2r + 1) cells in series.
 // - a wavefront over the lanes of a warp a pair (dtw_search's wave
-//   routes, r <= 127, dtw_wave): cell (i, k) reads only cells of the
-//   wavefronts t - 1 and t - 2, t = 2i + k.  Lane l holds C offsets, C l
-//   .. C l + C - 1, and at step s forms row s - l's C cells left to right,
-//   its neighbours' cells coming by two shuffles a step: a pair takes
-//   about L + r / C steps over H = ceil((2r + 1) / C) lanes, and a warp
-//   runs 32 / H pairs side by side.  C = 2, 4 or 8 (r <= 31, 63, 127) is
-//   the template, r a runtime argument.  The series is staged in shared
-//   memory first.
-//
+//   routes, r <= 127, dtw_wave; dtw_scan's wave routes, r <= 255,
+//   scan_pair): cell (i, k) reads only cells of the wavefronts t - 1 and
+//   t - 2, t = 2i + k.  Lane l holds C offsets, C l .. C l + C - 1, and at
+//   step s forms row s - l's C cells left to right, its neighbours' cells
+//   coming by two shuffles a step (wave_cells): a pair takes about L + r /
+//   C steps over H = ceil((2r + 1) / C) lanes, and a warp runs 32 / H
+//   pairs side by side.  C is the template, r a runtime argument: 2, 4 or
+//   8 (r <= 31, 63, 127) for dtw_search, 4, 8 or 16 for dtw_scan.  The
+//   series is staged in shared memory first.
+
 // dtw_lb_keogh: each block first builds the group's envelopes (rolling
 // min and max of each query over +-r) in shared memory, (lo, hi) side by
 // side a point.  A lane then owns 4 whole series (consecutive lanes,
@@ -77,10 +78,35 @@
 // non-negative, order as the floats); it updates the best-so-far, and the
 // next round's first bound decides the stop.
 //
-// dtw_scan: one thread a (query, series) pair, q in shared memory; the
-// pair's (d^2 bits << 32 | series) goes through a warp min to one
-// 64-bit atomicMin a warp, which gives the least distance and, among
-// equal ones, the first series.
+// dtw_scan, band and general routes: one thread a (query, series) pair, q
+// in shared memory; the pair's (d^2 bits << 32 | series) goes through a
+// warp min to one 64-bit atomicMin a warp, which gives the least distance
+// and, among equal ones, the first series.
+//
+// dtw_scan, wave routes (scan_wave_kernel): throughput, not latency: Q x N
+// pairs of one length, every pair's whole band computed (the brute force
+// is the search's oracle, so it abandons nothing), so the goal is f32
+// issue slots spent on cells.  A warp takes tiles of P = 32 / H series
+// in turn, stages a tile in shared memory (16-byte cp.async), and runs it
+// against every query of the launch's chunk (at most 32, their rows in
+// shared memory), so the collection leaves device memory once a chunk;
+// the next tile is brought into L2 meanwhile (a tile's DP, chunk x L
+// steps of ~5C + 6 instructions, dwarfs its copy of P L floats, so one
+// buffer does).  A step of a lane is C cells of
+// five f32 instructions each against two shuffles, one shared load of the
+// query and one of the series: the lane's columns move by one a step, so
+// it keeps them in a window of C registers, loads one new column a step,
+// and, its steps unrolled by C, rotates the window without moves.  No
+// cell is tested against the matrix's edges: the series' rows are staged
+// with a value on both sides (and the query's rows with one of the other
+// sign) whose squared difference from any value overflows, so a cell past
+// an edge costs infinity (no less than BIG, and never the min of a cell
+// inside); a pair starts at the step of its cell (0, 0) with that cell's
+// diag 0, all earlier cells lying outside.  Cells past the band (the
+// pair's top lane, from its cell ML = 2r + 1 - C (H - 1) on, a template)
+// read BIG as the left of cell ML and the up of the last cell, so they
+// stay BIG or more.  Each (warp, query) keeps its least key in a register
+// across its tiles: one 64-bit atomicMin a warp a query.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -96,8 +122,10 @@ constexpr int kLbThreads = 256;
 // (one block of 8 warps an SM); 2 gives 16 warps but two envelope loads
 // where 4 takes one, and was no faster on an H100
 constexpr int kLbSeries = 4;
-constexpr int kScanThreads = 128;
-constexpr int kScanThreadsGeneral = 64;
+// dtw_scan's wave routes: the staged rows' ends hold -kPoison, the query
+// rows' +kPoison, so a cell past an edge has (q - x)^2 = infinity
+constexpr float kPoison = 1e20f;
+constexpr int kScanWaveThreads = 512;      // a wave route's CTA, at most
 
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
@@ -224,6 +252,32 @@ __device__ __forceinline__ float dtw_pair(const float* qs, const float* x,
   }
 }
 
+// One wavefront step's cells of a lane (C band offsets): v holds the
+// lane's cells of the previous step and receives this step's, d[m] is cell
+// m's squared difference.  Cell 0 takes the lane below's last cell of the
+// previous step as its left (a shuffle; lane 0 reads lane 31), cell m > 0
+// the cell before it; the last cell takes the lane above's cell 0 of this
+// step as its up (a shuffle), cell m < C - 1 the lane's own cell m + 1 of
+// the previous step; diag is the lane's own cell m.  On a lane with `top`,
+// cell CUT's left and the last cell's up read BIG instead (CUT = C: none).
+template <int C, int CUT>
+__device__ __forceinline__ void wave_cells(float (&v)[C], const float (&d)[C],
+                                           int from, bool top) {
+  float nv[C];
+  const float left = __shfl_sync(0xffffffffu, v[C - 1], from);
+  nv[0] = __fadd_rn(d[0], fminf(fminf(v[0], v[1]), left));
+  float up = __shfl_down_sync(0xffffffffu, nv[0], 1);
+  if (CUT < C && top) up = kBig;
+#pragma unroll
+  for (int m = 1; m < C; ++m) {
+    const float u = m + 1 < C ? v[m + 1] : up;
+    const float l = (m == CUT && top) ? kBig : nv[m - 1];
+    nv[m] = __fadd_rn(d[m], fminf(fminf(v[m], u), l));
+  }
+#pragma unroll
+  for (int m = 0; m < C; ++m) v[m] = nv[m];
+}
+
 // The wave routes of dtw_search: one pair's banded DTW as a wavefront over
 // H = ceil((2r + 1) / C) lanes, lane ll of the pair holding band offsets
 // k = C ll + m, m < C; at step s it forms row i = s - ll, cells m = 0 .. C
@@ -311,19 +365,10 @@ __device__ __forceinline__ float dtw_wave(const float* __restrict__ qs,
   auto step = [&](int s) {
     const int i = s - ll, c0 = s + (C - 1) * ll - r;
     const float qi = qs[i];
-    float nv[C];
-    const float left = __shfl_sync(0xffffffffu, v[C - 1], from);
-    nv[0] = __fadd_rn(ok[0] ? cell_d(qi, xr[c0]) : kBig,
-                      fminf(fminf(v[0], v[1]), left));
-    const float up = __shfl_down_sync(0xffffffffu, nv[0], 1);
+    float d[C];
 #pragma unroll
-    for (int m = 1; m < C; ++m) {
-      const float u = m + 1 < C ? v[m + 1] : up;
-      nv[m] = __fadd_rn(ok[m] ? cell_d(qi, xr[c0 + m]) : kBig,
-                        fminf(fminf(v[m], u), nv[m - 1]));
-    }
-#pragma unroll
-    for (int m = 0; m < C; ++m) v[m] = nv[m];
+    for (int m = 0; m < C; ++m) d[m] = ok[m] ? cell_d(qi, xr[c0 + m]) : kBig;
+    wave_cells<C, C>(v, d, from, false);
   };
   int s = 0;
   for (; s < a; ++s) edge(s);
@@ -348,13 +393,21 @@ __device__ __forceinline__ float dtw_wave(const float* __restrict__ qs,
 
 // Copy L floats from src to dst (shared) with 4-byte cp.async, the lanes
 // of a pair taking every H-th value; cp_wait() waits for them.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                  "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                  "l"(src) : "memory");
+}
+
 __device__ __forceinline__ void cp_row(float* dst, const float* src, int L,
                                        int ll, int H) {
-  for (int c = ll; c < L; c += H)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-                 :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(
-                        dst + c))), "l"(src + c)
-                 : "memory");
+  for (int c = ll; c < L; c += H) cp_async4(dst + c, src + c);
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
@@ -362,12 +415,17 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
+// The least v over the first `width` lanes (a power of two, at most 32:
+// a block of fewer than 32 threads has only those).
 __device__ __forceinline__ unsigned long long warp_min_u64(
-    unsigned long long v) {
+    unsigned long long v, int width = 32) {
+  const unsigned mask = width >= 32 ? 0xffffffffu : (1u << width) - 1;
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    const unsigned long long w = __shfl_xor_sync(0xffffffffu, v, o);
-    v = w < v ? w : v;
+    if (o < width) {
+      const unsigned long long w = __shfl_xor_sync(mask, v, o);
+      v = w < v ? w : v;
+    }
   }
   return v;
 }
@@ -490,6 +548,12 @@ lb_keogh_kernel(const float* __restrict__ q, const float* __restrict__ x,
 
 // dtw_search's general route: the refinement of query blockIdx.x of the
 // group, a thread a candidate, its band in shared memory (see the top).
+// PASSES: a round's candidates in passes of blockDim.x (fewer than round_k
+// where the bands of as many threads do not fit; fewer than 32 where a
+// warp's do not), the round's first minimum over all its passes; without,
+// one pass of whole warps (the one-pass body as its own instance: folded
+// into the loop of passes it ran 9 % slower at r 12, PERF.md).
+template <bool PASSES>
 __global__ void search_general(const float* __restrict__ q,
                               const float* __restrict__ x, long long N,
                               int L, int r, int round_k,
@@ -519,21 +583,43 @@ __global__ void search_general(const float* __restrict__ q,
   long long cursor = 0;
   while (s_go) {
     bsf = s_bsf;
-    const long long pos = cursor + tid;
-    const bool real = tid < round_k && pos < N;
-    const float b = real ? lb[pos] : kBig;
-    const bool take = b < bsf;
-    float d = kBig;
-    if (take) {
-      d = dtw_band_smem(qs, x + ord[pos] * L, L, r, band + tid, blockDim.x);
+    unsigned long long key = ~0ull;
+    int n_take = 0;
+    if constexpr (PASSES) {
+      for (int base = 0; base < round_k; base += blockDim.x) {
+        const int j = base + tid;
+        const long long pos = cursor + j;
+        const bool real = j < round_k && pos < N;
+        const float b = real ? lb[pos] : kBig;
+        const bool take = b < bsf;
+        float d = kBig;
+        if (take) {
+          d = dtw_band_smem(qs, x + ord[pos] * L, L, r, band + tid,
+                            blockDim.x);
+        }
+        n_take += __syncthreads_count(take);
+        const unsigned long long kj = pack(d, (unsigned)j);
+        key = kj < key ? kj : key;
+      }
+      key = warp_min_u64(key, min(32, (int)blockDim.x));
+    } else {
+      const long long pos = cursor + tid;
+      const bool real = tid < round_k && pos < N;
+      const float b = real ? lb[pos] : kBig;
+      const bool take = b < bsf;
+      float d = kBig;
+      if (take) {
+        d = dtw_band_smem(qs, x + ord[pos] * L, L, r, band + tid,
+                          blockDim.x);
+      }
+      n_take = __syncthreads_count(take);
+      key = warp_min_u64(pack(d, tid));
     }
-    const int n_take = __syncthreads_count(take);
-    const unsigned long long key = warp_min_u64(pack(d, tid));
     if ((tid & 31) == 0) wkey[tid >> 5] = key;
     __syncthreads();
     if (tid == 0) {
       unsigned long long m = wkey[0];
-      for (int w = 1; w < (int)(blockDim.x >> 5); ++w)
+      for (int w = 1; w < (int)((blockDim.x + (PASSES ? 31 : 0)) >> 5); ++w)
         m = wkey[w] < m ? wkey[w] : m;
       const float dmin = __uint_as_float((unsigned)(m >> 32));
       if (dmin < bsf) {
@@ -730,8 +816,11 @@ wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
   }
 }
 
-// Query blockIdx.y against series blockIdx.x * blockDim.x + threadIdx.x.
-template <int R>
+// dtw_scan's band (R >= 0) and general routes: query blockIdx.y against
+// series blockIdx.x * blockDim.x + threadIdx.x.  SUB: blockDim.x below 32
+// (a power of two), where a warp's bands do not fit (its own instance: a
+// reduction over a run-time width cost the DP 29 % at r 25, PERF.md).
+template <int R, bool SUB = false>
 __global__ void scan_kernel(const float* __restrict__ q,
                             const float* __restrict__ x, long long N, int L,
                             int r, unsigned long long* keys) {
@@ -747,8 +836,126 @@ __global__ void scan_kernel(const float* __restrict__ q,
     key = pack(dtw_pair<R>(qs, x + n * L, L, r, band + tid, blockDim.x),
                (unsigned)n);
   }
-  key = warp_min_u64(key);
+  key = SUB ? warp_min_u64(key, blockDim.x) : warp_min_u64(key);
   if ((tid & 31) == 0 && key != ~0ull) atomicMin(keys + g, key);
+}
+
+// A wave route's pair (see the top): query row qp (qp[j]: the row of the
+// lane's step j) against series window xp (xp[j + m]: the column of the
+// lane's cell m at step j), both padded with values that make a cell past
+// an edge infinity.  Steps j = 0 .. L - 1 are the wavefront's steps l0 ..
+// L - 1 + l0; `first`: the lane of cell (0, 0), offset r = C l0 + m0.
+// Returns the lane's cell m0 after the last step: cell (L - 1, r) on the
+// lane `first`.  Cells from ML on of a lane with `top` lie past the band.
+template <int C, int ML>
+__device__ __forceinline__ float scan_pair(const float* __restrict__ qp,
+                                           const float* __restrict__ xp,
+                                           int L, int m0, bool first,
+                                           bool top, int from) {
+  float v[C], w[C];          // w[(u + m) % C]: cell m's column at step u
+#pragma unroll
+  for (int m = 0; m < C; ++m) v[m] = (first && m == m0) ? 0.f : kBig;
+#pragma unroll
+  for (int m = 0; m < C - 1; ++m) w[m] = xp[m];
+  // step j = j0 + u, u < C: one new column into the window, one query value
+  auto step = [&](int j0, int u) {
+    w[(u + C - 1) % C] = xp[j0 + u + C - 1];
+    const float qi = qp[j0 + u];
+    float d[C];
+#pragma unroll
+    for (int m = 0; m < C; ++m) d[m] = cell_d(qi, w[(u + m) % C]);
+    wave_cells<C, ML>(v, d, from, top);
+  };
+  int j0 = 0;
+  for (; j0 + C <= L; j0 += C) {
+#pragma unroll
+    for (int u = 0; u < C; ++u) step(j0, u);
+  }
+#pragma unroll
+  for (int u = 0; u < C - 1; ++u)
+    if (j0 + u < L) step(j0, u);
+  float res = v[0];
+#pragma unroll
+  for (int m = 1; m < C; ++m)
+    if (m == m0) res = v[m];
+  return res;
+}
+
+// dtw_scan's wave routes, C cells a lane (see the top): as many CTAs as
+// the card holds, each warp taking tiles of P series, t = its global warp
+// index and on by the grid's warps; the queries in chunks of qc.  Shared
+// memory: the chunk's query rows (qc, Lq), the query at offset H of a row,
+// +kPoison around it; then each warp's tile: `pad` floats, then P rows of
+// S floats, the series at the start of each, -kPoison elsewhere
+// (kernels/dtw.py scan_geometry chooses them).
+template <int C, int ML>
+__global__ void __launch_bounds__(kScanWaveThreads)
+scan_wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                 long long N, int L, int r, int Q, int qc, int pad, int S,
+                 int Lq, bool vec, unsigned long long* keys) {
+  const int H = (2 * r + C) / C, P = 32 / H, l0 = r / C, m0 = r % C;
+  extern __shared__ float4 sm4[];
+  float* qs = reinterpret_cast<float*>(sm4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5, T = pad + P * S;
+  float* xt = qs + qc * Lq + warp * T;               // the warp's tile
+  const int slot = lane / H, ll = lane - slot * H;   // slot P: idle lanes
+  const bool live = slot < P;
+  const bool top = live && ll == H - 1, first = live && ll == l0;
+  const int from = (lane + 31) & 31;
+  for (int e = lane; e < T; e += 32) xt[e] = -kPoison;
+  // the lane's window and query row, index 0 at step 0 (wavefront l0)
+  const float* xp = xt + pad + min(slot, P - 1) * S + l0 + (C - 1) * ll - r;
+  const long long tiles = (N + P - 1) / P;
+  const long long nw = (long long)gridDim.x * warps;
+  for (int c0 = 0; c0 < Q; c0 += qc) {
+    const int nq = min(qc, Q - c0);
+    __syncthreads();                     // the last chunk's rows are read
+    for (int e = tid; e < qc * Lq; e += blockDim.x) {
+      const int g = e / Lq, j = e - g * Lq - H;
+      qs[e] = g < nq && j >= 0 && j < L ? q[(long long)(c0 + g) * L + j]
+                                        : kPoison;
+    }
+    __syncthreads();
+    unsigned long long best = ~0ull;     // lane g: query c0 + g's
+    for (long long t = (long long)blockIdx.x * warps + warp; t < tiles;
+         t += nw) {
+      const long long n0 = t * P;
+      const int np = (int)min((long long)P, N - n0);
+      __syncwarp();                      // the last tile's rows are read
+      if (vec) {
+        const int row4 = L >> 2;
+        for (int e = lane; e < np * row4; e += 32) {
+          const int p = e / row4, c = (e - p * row4) << 2;
+          cp_async16(xt + pad + p * S + c, x + (n0 + p) * L + c);
+        }
+      } else {
+        for (int e = lane; e < np * L; e += 32) {
+          const int p = e / L, c = e - p * L;
+          cp_async4(xt + pad + p * S + c, x + (n0 + p) * L + c);
+        }
+      }
+      asm volatile("cp.async.commit_group;" ::: "memory");
+      if (t + nw < tiles) {              // the next tile, into L2
+        const long long n1 = (t + nw) * P;
+        const long long e1 = min((long long)P, N - n1) * L;
+        for (long long e = 32 * lane; e < e1; e += 32 * 32)
+          prefetch_l2(x + n1 * L + e);
+      }
+      cp_wait();
+      __syncwarp();
+      const bool real = live && slot < np;
+      for (int g = 0; g < nq; ++g) {
+        const float d = scan_pair<C, ML>(qs + g * Lq + H + l0 - ll, xp, L, m0,
+                                         first, top, from);
+        unsigned long long key =
+            real && ll == l0 ? pack(d, (unsigned)(n0 + slot)) : ~0ull;
+        key = warp_min_u64(key);
+        if (lane == g && key < best) best = key;
+      }
+    }
+    if (lane < nq && best != ~0ull) atomicMin(keys + c0 + lane, best);
+  }
 }
 
 int general_launch(const float* q, const float* x, long long N, int L,
@@ -756,15 +963,15 @@ int general_launch(const float* q, const float* x, long long N, int L,
                    const long long* order, float* bsf, int* best, int* rounds,
                    int* refined, cudaStream_t st) {
   const size_t smem = sizeof(float) * (L + (2 * r + 1) * threads);
+  auto kernel = round_k > threads || threads < 32 ? search_general<true>
+                                                  : search_general<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        search_general, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  search_general<<<Qg, threads, smem, st>>>(q, x, N, L, r, round_k, slb,
-                                            order, bsf, best, rounds,
-                                            refined);
+  kernel<<<Qg, threads, smem, st>>>(q, x, N, L, r, round_k, slb, order, bsf,
+                                    best, rounds, refined);
   return (int)cudaGetLastError();
 }
 
@@ -805,19 +1012,77 @@ int wave_launch(const float* q, const float* x, long long N, int L, int r,
 
 template <int R>
 int scan_launch(const float* q, const float* x, long long N, int L, int r,
-                int Q, unsigned long long* keys, cudaStream_t st) {
-  const int threads = R < 0 ? kScanThreadsGeneral : kScanThreads;
+                int Q, int threads, unsigned long long* keys,
+                cudaStream_t st) {
   const size_t smem = sizeof(float) * (L + (R < 0 ? (2 * r + 1) * threads
                                                   : 0));
+  auto kernel = scan_kernel<R, false>;
+  if constexpr (R < 0) {
+    if (threads < 32) kernel = scan_kernel<R, true>;
+  }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        scan_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)((N + threads - 1) / threads), (unsigned)Q);
-  scan_kernel<R><<<grid, threads, smem, st>>>(q, x, N, L, r, keys);
+  kernel<<<grid, threads, smem, st>>>(q, x, N, L, r, keys);
   return (int)cudaGetLastError();
+}
+
+// A wave route of dtw_scan: C cells a lane, ML (the top lane's cells in
+// the band) a template; the CTA's `threads` and the shared memory's layout
+// from the wrapper (scan_geometry), checked here against what the kernel
+// reads; as many CTAs as the card holds at once, at most one a warp's tile.
+template <int C, int ML>
+int scan_wave_launch(const float* q, const float* x, long long N, int L,
+                     int r, int Q, int threads, int qc, int pad, int S,
+                     int Lq, unsigned long long* keys, cudaStream_t st) {
+  const int H = (2 * r + C) / C, P = 32 / H, l0 = r / C;
+  const int warps = threads / 32;
+  const size_t smem = sizeof(float) * ((size_t)qc * Lq
+                                       + (size_t)warps * (pad + P * S));
+  if (threads % 32 || warps < 1 || threads > kScanWaveThreads || qc < 1
+      || qc > 32 || pad % 4 || S % 4 || Lq % 4 || pad < r - l0
+      || pad < l0 + C * H - H - r || S < L + pad || Lq < H + L + l0
+      || smem > kWaveSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      scan_wave_kernel<C, ML>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, scan_wave_kernel<C, ML>, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  const long long tiles = (N + P - 1) / P;
+  long long blocks = (tiles + warps - 1) / warps;
+  if (blocks > (long long)sms * (per_sm > 0 ? per_sm : 1))
+    blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const bool vec = L % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  scan_wave_kernel<C, ML><<<(unsigned)blocks, threads, smem, st>>>(
+      q, x, N, L, r, Q, qc, pad, S, Lq, vec, keys);
+  return (int)cudaGetLastError();
+}
+
+// The instance of scan_wave_launch<C, ML> for ml = 2r + 1 - C (H - 1)
+// (odd, 1 .. C - 1: 2r + 1 is odd and C even).
+template <int C, int ML = 1>
+int scan_wave(int ml, const float* q, const float* x, long long N, int L,
+              int r, int Q, int threads, int qc, int pad, int S, int Lq,
+              unsigned long long* keys, cudaStream_t st) {
+  if constexpr (ML < C) {
+    if (ml == ML)
+      return scan_wave_launch<C, ML>(q, x, N, L, r, Q, threads, qc, pad, S,
+                                     Lq, keys, st);
+    return scan_wave<C, ML + 2>(ml, q, x, N, L, r, Q, threads, qc, pad, S,
+                                Lq, keys, st);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
 }
 
 // dtw_lb_keogh with G query slots: as many blocks as the card holds at
@@ -895,19 +1160,22 @@ extern "C" int dtw_lb_keogh(const void* q, const void* x, long long N, int L,
 // The refinement of each query g < Qg: candidates order[g, :] (int64)
 // with ascending bounds slb[g, :], round_k (<= 1024) a round.  Writes bsf
 // (squared), best (-1: none taken), rounds and refined, one each a query.
-// route: 0 the general route (any r; `threads` round_k rounded up to a
-// warp); 2, 4 and 8 the wave routes of as many cells a lane (r <= 31, 63
-// and 127; `threads` from the wrapper's band_threads).
+// route: 0 the general route (any r; `threads` from the wrapper's
+// general_threads: a multiple of 32, or a power of two below it, a round
+// taken in passes of as many); 2, 4 and 8 the wave routes of as many cells
+// a lane (r <= 31, 63 and 127; `threads` from the wrapper's
+// band_threads).
 extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
                           int r, int Qg, int round_k, int threads, int route,
                           const void* slb, const void* order, void* bsf,
                           void* best, void* rounds, void* refined,
                           void* stream) {
   if (Qg == 0) return 0;
-  if (r < 0 || round_k < 1 || round_k > 1024 || threads < 32
-      || threads > 1024 || threads % 32
+  const bool whole = threads >= 32 && threads <= 1024 && threads % 32 == 0;
+  const bool part = threads >= 1 && threads < 32 && !(threads & (threads - 1));
+  if (r < 0 || round_k < 1 || round_k > 1024
       || (route != 0 && route != 2 && route != 4 && route != 8)
-      || (route == 0 && round_k > threads))
+      || !(whole || (route == 0 && part)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
@@ -933,20 +1201,41 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
 
 // keys (Q,) uint64, each all ones on entry: min over series n of
 // (bits of the squared DTW of query g and series n) << 32 | n.  route: 0
-// the band route (r <= 16), 1 the general one.
+// the band route (r <= 16), 1 the general one (any r <= L - 1; `threads`
+// from the wrapper's general_threads), 4, 8 and 16 the wave routes of as
+// many cells a lane (2r + 1 <= 32 C; `threads`, `qc`, `pad`, `S` and `Lq`
+// from the wrapper's scan_geometry).
 extern "C" int dtw_scan(const void* q, const void* x, long long N, int L,
-                        int r, int Q, int route, void* keys, void* stream) {
+                        int r, int Q, int route, int threads, int qc,
+                        int pad, int S, int Lq, void* keys, void* stream) {
   if (N == 0 || Q == 0) return 0;
-  if (r < 0 || N > 0xffffffffll || (route == 0 && r > 16))
+  if (r < 0 || L < 1 || L > 1024 || N > 0xffffffffll
+      || (route == 0 && (r > 16 || threads != 128))
+      || (route == 1 && (threads < 1 || threads > 1024
+                         || (threads & (threads - 1))))
+      || (route > 1 && (route != 4 && route != 8 && route != 16)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
   const float* xx = static_cast<const float*>(x);
   unsigned long long* k = static_cast<unsigned long long*>(keys);
   if (route == 0) switch (r) {
-    DTW_BAND_CASES(scan_launch, qq, xx, N, L, r, Q, k, st)
+    DTW_BAND_CASES(scan_launch, qq, xx, N, L, r, Q, threads, k, st)
   }
-  return scan_launch<-1>(qq, xx, N, L, r, Q, k, st);
+  if (route > 1) {
+    const int H = (2 * r + route) / route;
+    if (H > 32) return (int)cudaErrorInvalidValue;
+    const int ml = 2 * r + 1 - route * (H - 1);
+    if (route == 4)
+      return scan_wave<4>(ml, qq, xx, N, L, r, Q, threads, qc, pad, S, Lq, k,
+                          st);
+    if (route == 8)
+      return scan_wave<8>(ml, qq, xx, N, L, r, Q, threads, qc, pad, S, Lq, k,
+                          st);
+    return scan_wave<16>(ml, qq, xx, N, L, r, Q, threads, qc, pad, S, Lq, k,
+                         st);
+  }
+  return scan_launch<-1>(qq, xx, N, L, r, Q, threads, k, st);
 }
 
 extern "C" const char* dtw_lb_keogh_error(int code) {

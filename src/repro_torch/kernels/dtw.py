@@ -7,8 +7,10 @@ repro's DTW is plain jnp), by the routes `lb_route`, `dp_route` and
 `scan_route` pick from the shapes, or by another route that takes the
 shape where the caller asks; on CPU tensors they run the plain versions
 `ref.lb_keogh_ref`, `ref.dtw_search_ref` and `ref.dtw_scan_ref`.  On any
-other device they raise.  `launches` counts the kernels' launches,
-`by_route` those of each (kernel, route).
+other device they raise.  Each takes a band radius r >= L - 1 as L - 1
+(the band then holds every column of every row: the same cells, the
+same bits), so every radius has a route.  `launches` counts the
+kernels' launches, `by_route` those of each (kernel, route).
 """
 
 from __future__ import annotations
@@ -30,18 +32,25 @@ MAX_BAND_R = 16                        # dtw_scan's band route's largest r
 # (2r + 1 offsets over at most 32 lanes)
 WAVE_CELLS = {"wave2": 2, "wave4": 4, "wave8": 8}
 WAVE_MAX_R = {name: (32 * c - 1) // 2 for name, c in WAVE_CELLS.items()}
+# dtw_scan's wave routes, the same lane layout at 4, 8 and 16 cells a lane;
+# scan_route takes wave16 for 16 < r <= 255: the fewest issue slots a cell
+# on an H100 (PERF.md, the table of cells a lane)
+SCAN_CELLS = {"wave4": 4, "wave8": 8, "wave16": 16}
+SCAN_MAX_R = {name: (32 * c - 1) // 2 for name, c in SCAN_CELLS.items()}
 GROUP = 32                             # queries of one lb_keogh launch
 _SMEM = 200 * 1024                     # shared memory a block may ask for
-_SCAN_THREADS = {"band": 128, "general": 64}
+_SCAN_BAND_THREADS = 128
+_SCAN_GENERAL_THREADS = 64             # at most: fewer where the band is wide
+_SCAN_WAVE_WARPS = 16                  # a wave route's CTA, at most
 
 _LB_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
 _SEARCH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                     + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 7)
 _SCAN_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                  + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+                  + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2)
 _DP_CODES = {"general": 0, **WAVE_CELLS}  # a wave route's: its cells a lane
-_SCAN_CODES = {"band": 0, "general": 1}
+_SCAN_CODES = {"band": 0, "general": 1, **SCAN_CELLS}  # wave: cells a lane
 _LB_CODES = {"vec": 0, "scalar": 1}
 
 
@@ -66,10 +75,68 @@ def dp_route(r: int) -> str:
 
 
 def scan_route(r: int) -> str:
-    """dtw_scan's route: "band" for r <= 16 (a thread a pair, the previous
-    row's band in registers, one template instance a radius), "general"
-    for r > 16 (the band in shared memory)."""
-    return "band" if r <= MAX_BAND_R else "general"
+    """dtw_scan's route for band radius r (at most L - 1): "band" for r <=
+    16 (a thread a pair, the previous row's band in registers, one
+    template instance a radius), "wave16" for r <= 255 (each pair's
+    band a wavefront over the lanes of a warp, 16 cells a lane, r a
+    runtime argument), "general" beyond (a thread a pair, the band in
+    shared memory)."""
+    if r <= MAX_BAND_R:
+        return "band"
+    return "wave16" if r <= SCAN_MAX_R["wave16"] else "general"
+
+
+def scan_routes(r: int) -> tuple:
+    """Every route of dtw_scan that takes band radius r: its default
+    first, then each wave route whose lanes hold the band, then
+    "general" (any r)."""
+    wave = tuple(n for n, top in SCAN_MAX_R.items() if r <= top)
+    rest = (("band",) if r <= MAX_BAND_R else ()) + wave + ("general",)
+    return (scan_route(r),) + tuple(n for n in rest if n != scan_route(r))
+
+
+def scan_geometry(L: int, r: int, cells: int, Q: int) -> dict:
+    """The launch of a dtw_scan wave route of `cells` a lane (see
+    csrc/dtw.cu, scan_wave_kernel), in floats but for smem (bytes).
+
+    A pair takes H = ceil((2r + 1) / cells) lanes, a warp P = 32 // H
+    pairs: one series each, staged in the warp's tile, the P rows `stride`
+    apart after `pad` floats, the gaps (and the pad) filled with a value
+    whose squared difference from any query value overflows, so a cell
+    past a row's ends is no cheaper than BIG: a lane's cell m at its step
+    j reads column j + l0 + (cells - 1) ll - r + m, from r - l0 before the
+    row to l0 + cells H - H - r past it.  The row stride is stride = shift
+    mod 32 floats (shift = 32 / the power of two >= P, at least 4), so the
+    pairs' lanes read apart banks.  The queries of a chunk sit in rows of
+    `qstride` floats, each row at offset H, read from index l0 - (H - 1)
+    to l0 + L - 1 (the ends filled likewise).  `queries` (at most 32) a
+    chunk and `threads` (16 warps at most) a CTA share `_SMEM` bytes,
+    with 8 warps kept where the tiles allow."""
+    H = -(-(2 * r + 1) // cells)
+    P, l0 = 32 // H, r // cells
+    pad = -(-max(r - l0, l0 + cells * H - H - r, 0) // 4) * 4
+    shift = max(4, 32 >> (P - 1).bit_length())
+    stride = L + pad + (shift - (L + pad)) % 32
+    tile = pad + P * stride
+    qstride = -(-(H + L + l0) // 4) * 4
+    budget = _SMEM // 4
+    aim = max(1, min(8, (budget - qstride) // tile))
+    queries = max(1, min(Q, 32, (budget - aim * tile) // qstride))
+    warps = min(_SCAN_WAVE_WARPS, (budget - queries * qstride) // tile)
+    return {"lanes": H, "pairs": P, "pad": pad, "stride": stride,
+            "qstride": qstride, "queries": queries, "threads": 32 * warps,
+            "smem": 4 * (queries * qstride + warps * tile)}
+
+
+def general_threads(L: int, r: int, most: int) -> int:
+    """Threads of a general-route block (a thread a pair, its band of 2r +
+    1 floats in shared memory beside the query's L): at most `most`, a
+    multiple of 32 where a warp's bands fit in `_SMEM` bytes, else the
+    largest power of two whose do (16 at L 1024, r 1023)."""
+    fit = (_SMEM // 4 - L) // (2 * r + 1)
+    if fit >= 32:
+        return min(most, fit // 32 * 32)
+    return 1 << (fit.bit_length() - 1)
 
 
 def wave_cells(route: str) -> int:
@@ -117,7 +184,11 @@ def _count(kernel: str, route: str) -> None:
         by_route[key] = by_route.get(key, 0) + 1
 
 
-def _check(q: torch.Tensor, x: torch.Tensor, r: int) -> None:
+def _check(q: torch.Tensor, x: torch.Tensor, r: int) -> int:
+    """Raises on input no kernel takes; returns the band radius the
+    kernels take, min(r, L - 1): a band of radius L - 1 already holds
+    every column of every row, so a wider one reads the same cells with
+    the same operands (and LB_Keogh's envelope is the same)."""
     if q.dim() != 2 or x.dim() != 2 or q.shape[1] != x.shape[1]:
         raise ValueError(f"need q (Q, L) and x (N, L), got "
                          f"{tuple(q.shape)} and {tuple(x.shape)}")
@@ -134,6 +205,7 @@ def _check(q: torch.Tensor, x: torch.Tensor, r: int) -> None:
         raise ValueError(f"band radius r must be an int >= 0, got {r!r}")
     if q.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"no DTW kernel for device {q.device}")
+    return min(r, q.shape[1] - 1)
 
 
 def lb_keogh(q: torch.Tensor, x: torch.Tensor, *, r: int,
@@ -145,7 +217,7 @@ def lb_keogh(q: torch.Tensor, x: torch.Tensor, *, r: int,
 
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if a launch fails."""
-    _check(q, x, r)
+    r = _check(q, x, r)
     L = q.shape[1]
     default = lb_route(L, x.data_ptr() % 16 == 0)
     route = _pick(route, default, (default, "scalar"), "lb_keogh")
@@ -180,7 +252,7 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
 
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if the launch fails."""
-    _check(q, x, r)
+    r = _check(q, x, r)
     Qg, L = q.shape
     N = x.shape[0]
     if sorted_lb.shape != (Qg, N) or order.shape != (Qg, N):
@@ -197,11 +269,10 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
         raise ValueError(f"round_k must be in [1, 1024], got {round_k!r}")
     route = _pick(route, dp_route(r), (dp_route(r), "general"),
                   "dtw_search")
-    threads = (-(-round_k // 32) * 32 if route == "general"
+    # the general route takes a round's candidates `threads` at a time
+    threads = (general_threads(L, r, -(-round_k // 32) * 32)
+               if route == "general"
                else band_threads(r, L, round_k, wave_cells(route)))
-    if route == "general" and 4 * (L + (2 * r + 1) * threads) > _SMEM:
-        raise ValueError(f"band radius {r} with round_k {round_k} needs "
-                         f"more shared memory than a block has")
     if q.device.type == "cpu":
         return dtw_search_ref(q, x, sorted_lb, order, r, round_k)
     dev = x.device
@@ -227,11 +298,13 @@ def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int,
     """Banded DTW of each query of q (Q, L) against every series of x
     (N >= 1, L), in one launch: (the least squared distance (Q,)
     float32, its series (Q,) int32, the first on ties), by `route`
-    (default `scan_route(r)`; "general" takes every r).
+    (default `scan_route(r)`; any of `scan_routes(r)`: "general" takes
+    every r).  Every pair's whole band is computed: no pair is abandoned,
+    so the scan stays independent of the search's lower bounds.
 
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if the launch fails."""
-    _check(q, x, r)
+    r = _check(q, x, r)
     Q, L = q.shape
     N = x.shape[0]
     if N == 0:
@@ -239,12 +312,15 @@ def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int,
     if N >= 1 << 31 or Q > 65535:
         raise ValueError(f"dtw_scan takes N < 2^31 and Q <= 65535, got "
                          f"{N}, {Q}")
-    route = _pick(route, scan_route(r), (scan_route(r), "general"),
-                  "dtw_scan")
-    if (route == "general"
-            and 4 * (L + (2 * r + 1) * _SCAN_THREADS[route]) > _SMEM):
-        raise ValueError(f"band radius {r} needs more shared memory than "
-                         f"a block has")
+    routes = scan_routes(r)
+    route = _pick(route, routes[0], routes, "dtw_scan")
+    if route in SCAN_CELLS:
+        g = scan_geometry(L, r, SCAN_CELLS[route], Q)
+        shape = (g["threads"], g["queries"], g["pad"], g["stride"],
+                 g["qstride"])
+    else:
+        shape = (_SCAN_BAND_THREADS if route == "band" else
+                 general_threads(L, r, _SCAN_GENERAL_THREADS), 0, 0, 0, 0)
     if q.device.type == "cpu":
         return dtw_scan_ref(q, x, r)
     dev = x.device
@@ -254,7 +330,7 @@ def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int,
         fn = _build.entry("dtw", "dtw_scan", _SCAN_ARGTYPES)
         with torch.cuda.device(dev):
             code = fn(q.data_ptr(), x.data_ptr(), N, L, r, Q,
-                      _SCAN_CODES[route], keys.data_ptr(),
+                      _SCAN_CODES[route], *shape, keys.data_ptr(),
                       torch.cuda.current_stream(dev).cuda_stream)
         _build.check("dtw", "dtw_scan", code)
         _count("dtw_scan", route)

@@ -353,12 +353,13 @@ def test_routes_cover_every_length(L):
 def test_dp_routes():
     """dtw_search: the wave routes of 2, 4 and 8 cells a lane to r 31, 63
     and 127 (at most 32 lanes a pair), the general route beyond; dtw_scan:
-    band to r 16, then general."""
+    band to r 16, then the wave route of 16 cells a lane to r 255, then
+    general."""
     rs = (0, 12, 16, 17, 25, 31, 32, 40, 63, 64, 100, 127, 128, 900)
     assert [kdtw.dp_route(r) for r in rs] == (
         ["wave2"] * 6 + ["wave4"] * 3 + ["wave8"] * 3 + ["general"] * 2)
     assert [kdtw.scan_route(r) for r in rs] == \
-        ["band"] * 3 + ["general"] * 11
+        ["band"] * 3 + ["wave16"] * 10 + ["general"]
     assert kdtw.WAVE_MAX_R == {"wave2": 31, "wave4": 63, "wave8": 127}
     for r in rs:
         route = kdtw.dp_route(r)
@@ -425,6 +426,205 @@ def test_band_route_blocks(r):
         assert 4 * (L + 4 * round_k + t // 32 * P * L) <= 200 * 1024
     assert kdtw.band_threads(12, 256, 32) == 512
     assert kdtw.band_threads(25, 256, 32, 2) == 1024
+
+
+# ------------------------------------------- dtw_scan's wave routes (PR 24)
+_SCAN_LS = (1, 2, 3, 7, 16, 100, 255, 256, 257, 300, 511, 512, 1000, 1023,
+            1024)
+
+
+@pytest.mark.parametrize("route", ["wave4", "wave8", "wave16"])
+def test_scan_wave_geometry(route):
+    """Every radius a wave route of dtw_scan takes (2r + 1 offsets over at
+    most 32 lanes), at every length here (r clamped to L - 1): whole
+    warps, 32 to 512 threads, 1 to 32 queries a chunk, the chunk's query
+    rows and every warp's tile within 200 KiB; the tile's pads cover
+    every column a lane reads (r - l0 before a row, l0 + cells H - H - r
+    after it), the query rows every row index (l0 - (H - 1) .. l0 + L -
+    1), and the 16-byte copies stay aligned."""
+    C = kdtw.SCAN_CELLS[route]
+    assert kdtw.SCAN_MAX_R[route] == (32 * C - 1) // 2
+    for L in _SCAN_LS:
+        for r in range(min(kdtw.SCAN_MAX_R[route], L - 1) + 1):
+            for Q in (1, 5, 32, 40):
+                g = kdtw.scan_geometry(L, r, C, Q)
+                H, P, l0 = g["lanes"], g["pairs"], r // C
+                assert H == -(-(2 * r + 1) // C) <= 32 and P == 32 // H
+                assert g["smem"] <= 200 * 1024
+                assert g["smem"] == 4 * (g["queries"] * g["qstride"] + (
+                    g["threads"] // 32) * (g["pad"] + P * g["stride"]))
+                assert g["threads"] % 32 == 0 and 32 <= g["threads"] <= 512
+                assert 1 <= g["queries"] <= min(Q, 32)
+                assert g["pad"] >= max(r - l0, l0 + C * H - H - r)
+                assert g["stride"] >= L + g["pad"]
+                assert g["qstride"] >= H + L + l0
+                for k in ("pad", "stride", "qstride"):
+                    assert g[k] % 4 == 0
+
+
+def test_scan_wave_geometry_at_the_dtw_cell():
+    """At the dtw cell's length (L 256) the route of each radius the card
+    runs keeps 16 warps a CTA and a chunk of 32 queries, and the pairs'
+    lanes read 32 apart banks (the row stride apart by shift mod 32)."""
+    for r, C, H in ((25, 16, 4), (51, 16, 7), (102, 16, 13), (25, 8, 7),
+                    (25, 4, 13), (102, 8, 26)):
+        g = kdtw.scan_geometry(256, r, C, 32)
+        assert g["lanes"] == H
+        assert (g["threads"], g["queries"]) == (512, 32)
+        P = g["pairs"]
+        banks = {(p * g["stride"] + (C - 1) * ll) % 32
+                 for p in range(P) for ll in range(H)}
+        assert len(banks) == P * H
+
+
+@pytest.mark.parametrize("L", [1, 16, 300, 1024])
+def test_general_threads_fit_every_band(L):
+    """The general routes' blocks (a thread a pair, its band of 2r + 1
+    floats in shared memory): a multiple of 32 where a warp's bands fit,
+    else a power of two, at every r <= L - 1, within 200 KiB."""
+    for r in range(L):
+        for most in (32, 64, 256, 1024):
+            t = kdtw.general_threads(L, r, most)
+            assert 1 <= t <= most
+            assert t % 32 == 0 or (t < 32 and t & (t - 1) == 0)
+            assert 4 * (L + (2 * r + 1) * t) <= 200 * 1024
+    assert kdtw.general_threads(1024, 1023, 1024) == 16
+    assert kdtw.general_threads(256, 128, 256) == 192
+    assert kdtw.general_threads(256, 25, 64) == 64
+
+
+_POISON = np.float32(1e20)
+
+
+def _scan_warp(q, xs, r, cells):
+    """One warp of csrc/dtw.cu's scan_wave_kernel, lane by lane in numpy
+    float32: query q (L,) against the tile's series xs (n <= P, L), laid
+    out by scan_geometry with the kernel's pads, each lane's steps j = 0
+    .. L - 1 (its window xp[j + m], its query row qp[j]), the two
+    shuffles (lane 0 reading lane 31's last cell; lane 31's up its own),
+    the top lane's forced left at cell ML and up at its last cell, and
+    cell (0, 0)'s diag 0 on the live lanes only.  Returns each pair's
+    cell (L - 1, r), on its lane l0."""
+    C, L = cells, q.shape[0]
+    g = kdtw.scan_geometry(L, r, C, 1)
+    H, P, pad, S, Lq = (g[k] for k in ("lanes", "pairs", "pad", "stride",
+                                       "qstride"))
+    l0, m0 = r // C, r % C
+    ML = 2 * r + 1 - C * (H - 1)
+    assert ML % 2 == 1 and 1 <= ML < C
+    big = np.float32(ref.BIG)
+    tile = np.full(pad + P * S, -_POISON, np.float32)
+    for p in range(xs.shape[0]):
+        tile[pad + p * S:pad + p * S + L] = xs[p]
+    qrow = np.full(Lq, _POISON, np.float32)
+    qrow[H:H + L] = q
+    lane = np.arange(32)
+    slot, ll = lane // H, lane % H
+    live = slot < P
+    top = live & (ll == H - 1)
+    xp = pad + np.minimum(slot, P - 1) * S + l0 + (C - 1) * ll - r
+    qp = H + l0 - ll
+    v = np.full((32, C), big, np.float32)
+    v[live & (ll == l0), m0] = 0
+    with np.errstate(over="ignore"):
+        for j in range(L):
+            assert ((qp + j >= 0) & (qp + j < Lq)).all()
+            at = xp[:, None] + j + np.arange(C)
+            assert ((at >= 0) & (at < tile.size)).all()
+            t = qrow[qp + j][:, None] - tile[at]
+            d = t * t
+            nv = np.empty_like(v)
+            left = v[(lane + 31) % 32, C - 1]
+            nv[:, 0] = d[:, 0] + np.fmin(np.fmin(v[:, 0], v[:, 1]), left)
+            up = np.where(top, big, np.append(nv[1:, 0], nv[31, 0]))
+            for m in range(1, C):
+                lft = np.where(top, big, nv[:, m - 1]) if m == ML \
+                    else nv[:, m - 1]
+                u = v[:, m + 1] if m + 1 < C else up
+                nv[:, m] = d[:, m] + np.fmin(np.fmin(v[:, m], u), lft)
+            v = nv
+    return v[np.arange(xs.shape[0]) * H + l0, m0]
+
+
+@pytest.mark.parametrize("route", ["wave4", "wave8", "wave16"])
+@pytest.mark.parametrize("L", [1, 7, 100, 300])
+def test_scan_wave_program_equals_the_band(route, L):
+    """The wave routes' lane program (_scan_warp: no edge tests, a cell
+    past an edge infinite by the pads, the first step at cell (0, 0)'s
+    wavefront, the cells past the band held at BIG or more by two forced
+    operands, idle lanes and a tile short of P series) gives dtw_band_ref's
+    bits for every pair, at radii across the route's range, both ends
+    included (r clamped to L - 1, as the wrapper does)."""
+    C = kdtw.SCAN_CELLS[route]
+    top = kdtw.SCAN_MAX_R[route]
+    rng = np.random.default_rng(C * 1000 + L)
+    for r in sorted({0, 1, 3, 12, 17, 25, 40, top // 2, top - 1, top}):
+        r = min(r, L - 1)
+        P = kdtw.scan_geometry(L, r, C, 1)["pairs"]
+        for n in sorted({P, max(1, P - 1)}):
+            q = np.cumsum(rng.standard_normal(L)).astype(np.float32)
+            xs = np.cumsum(rng.standard_normal((n, L)), 1).astype(np.float32)
+            want = ref.dtw_band_ref(_t(q)[None], _t(xs), r).numpy()
+            assert np.array_equal(_scan_warp(q, xs, r, C), want), (r, n)
+
+
+@pytest.mark.parametrize("r", [0, 7, 17, 25, 51, 102, 127, 200, 255])
+def test_wavefront_model_at_16_cells_equals_the_band(r):
+    """ref.dtw_wavefront_ref at the scan's widest route, 16 cells a lane,
+    up to its largest radius: dtw_band_ref's bits (at L 300 r 255 too)."""
+    rng = np.random.default_rng(r)
+    for L in (7, 100) + ((300,) if r == 255 else ()):
+        q, x = (rng.standard_normal((2, L)).astype(np.float32)
+                for _ in range(2))
+        assert torch.equal(ref.dtw_wavefront_ref(_t(q), _t(x), r, 16),
+                           ref.dtw_band_ref(_t(q), _t(x), r))
+
+
+@pytest.mark.parametrize("L", [1, 2, 5, 16, 40])
+def test_band_past_the_series_is_the_whole_matrix(L):
+    """dtw_band_ref and the envelope at r >= L - 1 have the bits of r = L -
+    1 (every column of every row is in the band), so the wrappers' clamp
+    changes no answer; the wrappers on the CPU answer so at any r."""
+    rng = np.random.default_rng(L)
+    q, x = (np.cumsum(rng.standard_normal((3, L)), 1).astype(np.float32)
+            for _ in range(2))
+    want = ref.dtw_band_ref(_t(q), _t(x), L - 1)
+    lo, hi = ref.dtw_envelope(_t(q), L - 1)
+    for r in (L, 2 * L, 900):
+        assert torch.equal(ref.dtw_band_ref(_t(q), _t(x), r), want)
+        rlo, rhi = ref.dtw_envelope(_t(q), r)
+        assert torch.equal(rlo, lo) and torch.equal(rhi, hi)
+        d2, i = kdtw.dtw_scan(_t(q), _t(x), r=r)
+        assert torch.equal(d2, ref.dtw_scan_ref(_t(q), _t(x), L - 1)[0])
+        assert torch.equal(kdtw.lb_keogh(_t(q), _t(x), r=r),
+                           ref.lb_keogh_ref(_t(q), _t(x), L - 1))
+
+
+@pytest.mark.parametrize("N,L,Q,r,round_k", [
+    (40, 16, 2, 900, 32),        # the band past the series
+    (37, 16, 3, 15, 8),          # r = L - 1
+    (60, 256, 2, 128, 256),      # the general route in two passes
+    (70, 256, 2, 200, 1024),     # ... in six
+])
+def test_wide_bands_answer_as_repro(N, L, Q, r, round_k):
+    """Shapes the card's general route could not take before (a round's
+    bands past a block's shared memory, or r past the series): the port's
+    search_dtw and search_dtw_bruteforce on the CPU give repro's ids and
+    its distances to 1e-5."""
+    rng = np.random.default_rng(N + L + r)
+    X = np.cumsum(rng.standard_normal((N, L)), axis=1).astype(np.float32)
+    Qs = (X[rng.integers(0, N, Q)] + 0.3 * rng.standard_normal((Q, L))
+          ).astype(np.float32)
+    jd, ji = J.search_dtw(jnp.asarray(X), jnp.asarray(Qs), r=r,
+                          round_k=round_k)
+    jbd, jbi = J.search_dtw_bruteforce(jnp.asarray(X), jnp.asarray(Qs), r=r)
+    for (d, i), (wd, wi) in (
+            (T.search_dtw(X, Qs, r=r, round_k=round_k, device="cpu"),
+             (jd, ji)),
+            (T.search_dtw_bruteforce(X, Qs, r=r, device="cpu"),
+             (jbd, jbi))):
+        assert i.tolist() == np.asarray(wi).tolist()
+        np.testing.assert_allclose(d.numpy(), np.asarray(wd), rtol=1e-5)
 
 
 def test_clamp_excursion_has_the_bits_of_repros_form():

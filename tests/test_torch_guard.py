@@ -209,8 +209,14 @@ def test_dtw_wrappers_raise_on_what_the_kernel_does_not_take():
     for rk in (0, 1025):
         with pytest.raises(ValueError):
             dtw.dtw_search(q, x, lb, order, r=2, round_k=rk)
-    with pytest.raises(ValueError):                  # band too wide
-        dtw.dtw_search(q, x, lb, order, r=900, round_k=32)
+    # a band wider than the series is the whole matrix: answered as repro
+    # answers (every series is 0, the first wins)
+    from repro.core import dtw as J
+    jd, ji = J.search_dtw(x.numpy(), q.numpy(), r=900, round_k=32,
+                          znorm=False)
+    bsf, best, _, _ = dtw.dtw_search(q, x, lb, order, r=900, round_k=32)
+    assert torch.sqrt(bsf).tolist() == np.asarray(jd).tolist() == [0.0, 0.0]
+    assert best.tolist() == np.asarray(ji).tolist() == [0, 0]
     with pytest.raises(RuntimeError, match="meta"):
         dtw.lb_keogh(torch.zeros(2, 16, device="meta"),
                      torch.zeros(9, 16, device="meta"), r=2)
@@ -226,11 +232,19 @@ def test_dtw_wrappers_raise_on_a_route_the_shape_does_not_take():
     for route in ("band", "wave4"):     # no band route; r 17 is wave2's
         with pytest.raises(ValueError, match="routes"):
             dtw.dtw_search(q, x, lb, order, r=17, round_k=4, route=route)
+    q32, x32 = torch.zeros(2, 32), torch.zeros(9, 32)
     with pytest.raises(ValueError, match="routes"):
-        dtw.dtw_scan(q, x, r=20, route="band")
-    # the general route takes every radius, the band route up to 16
+        dtw.dtw_scan(q32, x32, r=20, route="band")
+    with pytest.raises(ValueError, match="routes"):  # 17 lanes of 4 cells
+        dtw.dtw_scan(torch.zeros(2, 300), torch.zeros(9, 300), r=64,
+                     route="wave4")
+    # the general route takes every radius, the band route up to 16 (a
+    # radius past L - 1 is L - 1: r 20 at L 16 is the band route's 15)
     assert dtw.dtw_scan(q, x, r=2, route="general")[1].tolist() == [0, 0]
     assert dtw.dtw_scan(q, x, r=16, route="band")[1].tolist() == [0, 0]
+    assert dtw.dtw_scan(q, x, r=20, route="band")[1].tolist() == [0, 0]
+    for route in ("wave4", "wave8", "wave16"):
+        assert dtw.dtw_scan(q32, x32, r=20, route=route)[1].tolist() == [0, 0]
 
 
 def test_dtw_cpu_tensors_run_the_plain_version_and_count_nothing():
