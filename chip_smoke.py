@@ -157,15 +157,16 @@ Phases, each printing one JSON line:
              plain version; edge runs (r 0 to 255 at L 100 and 300, each
              dtw_scan route that takes the radius; N 1, N not a multiple
              of a tile or of round_k, N < round_k, 40 queries; r = L -
-             1, 2L and 900 at L 16; L 1024 at r 1023; round_k 100, 64,
-             256 and 1024; the scalar LB at L 101), each kernel bit for
-             bit (lb_keogh to 1e-5); table rows for lb_keogh (L 256, its
-             scalar route, L 1024 and L 100), dtw_search (each wave
-             route with the general route's time at its shape beside it,
-             the general route at r 12) and dtw_scan (band and general at
-             r 12, wave16 at r 12, 25, 51 and 102, wave8 and wave4 at r
-             25 and wave8 at r 102: the cells a lane; the general route
-             at r 25 on 8 queries beside wave16);
+             1, 2L and 900 at L 16; L 1024 at r 1023; 40 and 64 queries
+             over a few tiles; round_k 100, 64, 256 and 1024; the scalar
+             LB at L 101), each kernel bit for bit (lb_keogh to 1e-5);
+             table rows for lb_keogh (L 256, its scalar route, L 1024 and
+             L 100), dtw_search (each wave route with the general route's
+             time at its shape beside it, the general route at r 12) and
+             dtw_scan (band and general at r 12, wave16 at r 12, 25, 51
+             and 102, each route's first query bit for bit against the
+             plain version's; the general route at r 25 on 8 queries
+             beside wave16);
   fidelity   build_index_host over 2^16 seismic_like series of length
              256 under RefreshExecutor, DoAllSplit, FaiBased and CasBased
              at 8 threads: every id in the forest with the one-pass
@@ -2935,18 +2936,14 @@ DTW_N, DTW_Q, DTW_R, DTW_RK, DTW_BRUTE, DTW_PAIRS = 1 << 22, 256, 12, 32, 32, 40
 # the wide-band run: r 10 % of L, its first groups held to the plain
 # version, its first queries to the brute force
 DTW_WIDE_R, DTW_WIDE_GROUPS, DTW_WIDE_BRUTE = 25, 2, 32
-# the wider bands' runs (wave4, wave8: 20 % and 40 % of L) on the first
-# group, its first queries held to the brute force; their table rows on a
-# cut search: each query's first DTW_WIDER_CUT candidates by bound
+# the wider bands' runs (dtw_search's wave4, wave8: 20 % and 40 % of L) on
+# the first group, its first queries held to the brute force; their table
+# rows on a cut search: each query's first DTW_WIDER_CUT candidates by bound
 DTW_WIDER_R, DTW_WIDER_BRUTE, DTW_WIDER_CUT = (51, 102), 32, 1 << 15
-# dtw_scan's wave routes timed at each r on the brute force's queries:
-# the default (wave16) at every r but 12, where it stands beside the band
-# route, and the other cells a lane at r 25 and 102; and the general
-# route, which they replaced for 16 < r <= 255, timed once at r 25 on
+# dtw_scan's wave route is timed at each r on the brute force's queries
+# (at r 12 beside the band route, which keeps r <= 16), and the general
+# route, which it replaced for 16 < r <= 255, once at r 25 on
 # DTW_GENERAL_Q queries
-DTW_SCAN_ROUTES = {DTW_R: ("wave16",), DTW_WIDE_R: ("wave16", "wave8",
-                                                    "wave4"),
-                   51: ("wave16",), 102: ("wave16", "wave8")}
 DTW_GENERAL_Q = 8
 # lb_keogh at other lengths: (series, L, queries, r 5 % of L)
 DTW_LB_SHAPES = ((1 << 20, 1024, 24, 51), (1 << 22, 100, 32, 5))
@@ -2971,36 +2968,44 @@ def dtw_bound(cells: int, nbytes: float):
     return bound_ms(nbytes, cells * 5, FP32_ISSUE)
 
 
-def scan_rows(torch, kd, ref, x, q, r, want, launches):
-    """dtw_scan's table rows at radius r on the queries q (nq, L): each
-    route of DTW_SCAN_ROUTES[r] held to `want` (the brute force's
-    distances and ids: its squared distances' roots, bit for bit), then
-    timed (the mean of 2 launches by CUDA events); the bound counts every
-    band cell of every pair (the scan abandons none); plain ms is
-    ref.dtw_scan_ref on the first query alone; launches are `launches`'s
-    for the route (the path's run)."""
-    nq = q.shape[0]
+def plain_scan(torch, ref, q1, x, r):
+    """ref.dtw_scan_ref of one query over the collection, timed once:
+    (ms, squared distance (1,), id (1,))."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d2, i = ref.dtw_scan_ref(q1, x, r)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, d2, i
+
+
+def scan_rows(torch, kd, ref, x, q, r, want, launches, plain=None):
+    """dtw_scan's table row of its wave route at radius r on the queries
+    q (nq, L): held to `want` (the brute force's distances and ids: its
+    squared distances' roots, bit for bit) and, on the first query, to
+    the plain version's (ref.dtw_scan_ref, bit for bit; `plain`: its
+    (ms, d2, i) where the caller has it, else run here and timed once),
+    then timed (the mean of 2 launches by CUDA events); the bound counts
+    every band cell of every pair (the scan abandons none); launches are
+    `launches`'s for the route (the path's run)."""
+    nq, route = q.shape[0], "wave16"
     bms, by = dtw_bound(nq * DTW_N * dtw_cells(L, r), 4 * (DTW_N + nq) * L)
-    plain = time_ms(torch, lambda: ref.dtw_scan_ref(q[:1], x, r), 1, 0)
+    plain_ms, pd2, pi = plain or plain_scan(torch, ref, q[:1], x, r)
     shape = (f"{nq} queries x {DTW_N} series, L {L}, r {r} (the brute "
              f"force's queries)")
-    rows = []
-    for route in DTW_SCAN_ROUTES[r]:
-        d2, i = kd.dtw_scan(q, x, r=r, route=route)
-        require(torch.equal(torch.sqrt(d2), want[0])
-                and torch.equal(i, want[1]),
-                f"dtw_scan {route} r {r}: differs from the brute force's")
-        ms = time_ms(torch, lambda: kd.dtw_scan(q, x, r=r, route=route), 2,
-                     0)
-        row = route_row("dtw_scan", f"{route}_r{r}", DTW_SRC,
-                        DTW_REPLACES.format(173, "search_dtw_bruteforce"),
-                        shape, 0.0, ms, plain, bms, by,
-                        {"brute force's queries": "bit-equal"})
-        row |= {"plain_queries": 1, "cells": kd.SCAN_CELLS[route],
-                "launches_on_path": launches.get(f"dtw_scan/{route}", 0)}
-        rows.append(row)
-        del d2, i
-    return rows
+    d2, i = kd.dtw_scan(q, x, r=r, route=route)
+    require(torch.equal(torch.sqrt(d2), want[0]) and torch.equal(i, want[1]),
+            f"dtw_scan {route} r {r}: differs from the brute force's")
+    require(torch.equal(d2[:1], pd2) and torch.equal(i[:1], pi),
+            f"dtw_scan {route} r {r}: differs from dtw_scan_ref")
+    ms = time_ms(torch, lambda: kd.dtw_scan(q, x, r=r, route=route), 2, 0)
+    row = route_row("dtw_scan", f"{route}_r{r}", DTW_SRC,
+                    DTW_REPLACES.format(173, "search_dtw_bruteforce"),
+                    shape, 0.0, ms, plain_ms, bms, by,
+                    {"brute force's queries": "bit-equal",
+                     "first query": "bit-equal to dtw_scan_ref"})
+    row |= {"plain_queries": 1, "cells": kd.SCAN_CELLS[route],
+            "launches_on_path": launches.get(f"dtw_scan/{route}", 0)}
+    return [row]
 
 
 def wave_step_cells(torch, Lx: int, r: int, cells: int):
@@ -3108,18 +3113,20 @@ def dtw_edges(torch, isax, kd, ref, gen):
     than the series, taken as r 99 by wave8) and L 300, N not a multiple
     of round_k; the scalar LB_Keogh
     route at L 101; N < round_k.  Every dtw_scan route that takes each
-    radius runs there too (dtw_small), so the scan's wave routes meet
-    both ends of theirs (r 0 and 63, 127 and 255 at L 300; at L 100, r
-    past 99 is 99); then N 1, 40 queries (two of the scan's chunks), r =
-    L - 1, 2L and 900 at L 16, L 1024 at r 1023 (the general routes,
-    blocks of 16 threads), and dtw_search at r 128 with round_k 256 and
-    1024 (its general route in passes)."""
+    radius runs there too (dtw_small), so the scan's wave route meets
+    both ends of its radii (r 17 and 255 at L 300; at L 100, r past
+    99 is 99); then N 1, 40 queries over 75 tiles and 64 over 125 (the
+    scan's chunks taken smaller to fill the card), r = L - 1, 2L and 900
+    at L 16, L 1024 at r 1023 (the general routes, blocks of 16
+    threads), and dtw_search at r 128 with round_k 256 and 1024 (its
+    general route in passes)."""
     edges = []
     wide = [(2999, 100, 4, r, 32) for r in (17, 25, 31, 32, 63, 64, 128,
                                             255)]
     wide += [(1001, 300, 4, r, 32) for r in (0, 17, 25, 31, 32, 63, 64,
                                              127, 128, 255)]
     wide += [(1, 100, 4, 25, 32), (600, 100, 40, 25, 32),
+             (1000, L, 64, 25, 32),
              (300, 16, 4, 15, 32), (300, 16, 4, 32, 32),
              (300, 16, 4, 900, 32), (64, 1024, 2, 1023, 64),
              (3000, L, 4, 128, 256), (3000, L, 4, 128, 1024)]
@@ -3142,7 +3149,7 @@ def dtw_edges(torch, isax, kd, ref, gen):
             and kd.scan_route(17) == kd.scan_route(255) == "wave16"
             and kd.scan_route(256) == "general", "dtw routes")
     ran = {r for e in edges for r in e["scan_routes"]}
-    require(ran == {"band", "wave4", "wave8", "wave16", "general"},
+    require(ran == {"band", "wave16", "general"},
             f"the edge runs' scan routes {ran}")
     return edges
 
@@ -3654,31 +3661,42 @@ def dtw_path(torch, isax, kmods, ref, gen):
     del first, qg, s, o
     torch.cuda.empty_cache()
     qb = qz[:DTW_BRUTE].contiguous()
-    plain = time_ms(torch, lambda: ref.dtw_scan_ref(qz[:1], x, DTW_R), 1, 1)
+    plain = plain_scan(torch, ref, qz[:1], x, DTW_R)
     bms, by = dtw_bound(DTW_BRUTE * DTW_N * dtw_cells(L, DTW_R),
                         4 * (DTW_N + DTW_BRUTE) * L)
     shape = (f"{DTW_BRUTE} queries x {DTW_N} series, L {L}, r {DTW_R} "
              f"(the brute force's launch)")
     for route in ("band", "general"):
-        # the general route (~5 s a launch here) timed once
-        ms = time_ms(torch, lambda: kd.dtw_scan(qb, x, r=DTW_R, route=route),
-                     *((2, 1) if route == "band" else (1, 0)))
+        call = lambda: kd.dtw_scan(qb, x, r=DTW_R, route=route)  # noqa: E731
+        if route == "band":
+            ms = time_ms(torch, call, 2, 1)
+            d2, i = call()
+        else:                            # ~5 s a launch here: timed once
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            d2, i = call()
+            e[1].record()
+            torch.cuda.synchronize()
+            ms = e[0].elapsed_time(e[1])
         one_ms = time_ms(torch, lambda: kd.dtw_scan(qz[:1], x, r=DTW_R,
                                                     route=route), 3, 1)
-        d2, i = kd.dtw_scan(qb, x, r=DTW_R, route=route)
         require(torch.equal(torch.sqrt(d2), bd) and torch.equal(i, bi),
                 f"dtw_scan {route}: differs from the brute force's")
+        require(torch.equal(d2[:1], plain[1]) and torch.equal(i[:1],
+                                                              plain[2]),
+                f"dtw_scan {route}: differs from dtw_scan_ref")
         row = route_row("dtw_scan", route, DTW_SRC,
                         DTW_REPLACES.format(173, "search_dtw_bruteforce"),
-                        shape, 0.0, ms, plain, bms, by,
-                        {"main shape": "equal to the brute force's answers"})
+                        shape, 0.0, ms, plain[0], bms, by,
+                        {"main shape": "equal to the brute force's answers",
+                         "first query": "bit-equal to dtw_scan_ref"})
         row |= {"plain_queries": 1, "ms_on_plain_queries": one_ms}
         rows.append(row if route == "general"
                     else row | {"name": "dtw_scan", "port_side": True})
         if route == "band":
             band_ms = ms
     # the wave route of 16 cells a lane beside the band route at r 12
-    more_rows = scan_rows(torch, kd, ref, x, qb, DTW_R, (bd, bi), {})
+    more_rows = scan_rows(torch, kd, ref, x, qb, DTW_R, (bd, bi), {}, plain)
     for row in more_rows:
         row["band_ms"] = band_ms
     rows += more_rows

@@ -27,7 +27,11 @@ dtw_scan: the brute force's launches, by each tree's default route, at
 r 12 on the group's 32 queries and at r 25 on its first 8 (the dtw
 phase's shapes before the brute forces took 32 queries), and the
 general route at r 25 on the 8, timed as dtw_search is (a launch over a
-second: once), each held equal to its first launch.
+second: once), each held equal to its first launch; then small
+collections (SMALL_N walks of L 256, z-normalized, 256 noisy queries, r
+25: a UCR-archive-sized scan), by the default and the general route, the
+mean of R launches each, held equal to each other, beside the bound
+chip_smoke.py gives the scan.
 Prints one JSON line with the card's name and power limit.  Without CUDA
 it exits 1 before printing a result.
 """
@@ -44,6 +48,7 @@ ROOT = Path(__file__).resolve().parents[1]
 TOPK_K = (8, 16, 264)
 TOPK_CASES = (("first_all", 1.0), ("all", 1.0), ("half", 0.5),
               ("late", 0.05))
+SMALL_N, SMALL_Q = (1000, 10000), 256
 
 
 def refine_case(torch, isax, rk, cs, gen, reps: int) -> dict:
@@ -132,6 +137,27 @@ def dtw_case(torch, isax, kd, cs, gen, reps: int) -> dict:
         out[f"dtw_scan_r{r}_q{nq}" + ("_general" if route else "")] = {
             "ms": ms, "r": r, "queries": nq,
             "shape": f"{nq} queries x {cs.DTW_N} series, L {cs.L}"}
+    del x, qg
+    r = cs.DTW_WIDE_R
+    for n in SMALL_N:
+        xs = isax.znormalize(cs.walks(torch, gen, n, cs.L)).contiguous()
+        pick = torch.randint(0, n, (SMALL_Q,), generator=gen, device="cuda")
+        qs = isax.znormalize(xs[pick] + 0.1 * torch.randn(
+            SMALL_Q, cs.L, generator=gen, device="cuda")).contiguous()
+        got = {}
+        for route in (None, "general"):
+            call = lambda: kd.dtw_scan(qs, xs, r=r, route=route)  # noqa
+            want = call()
+            got[route or kd.scan_route(r)] = {
+                "ms": cs.time_ms(torch, call, reps, 1)}
+            assert all(torch.equal(a, b) for a, b in zip(call(), want)), n
+            if route is None:
+                first = want
+        assert all(torch.equal(a, b) for a, b in zip(want, first)), n
+        out[f"dtw_scan_r{r}_n{n}"] = got | {
+            "bound_ms": cs.dtw_bound(SMALL_Q * n * cs.dtw_cells(cs.L, r),
+                                     4 * (n + SMALL_Q) * cs.L)[0],
+            "shape": f"{SMALL_Q} queries x {n} series, L {cs.L}, r {r}"}
     return out
 
 

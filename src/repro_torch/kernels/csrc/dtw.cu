@@ -42,14 +42,14 @@
 //   32 threads run 32 pairs in step, so the left-to-right chain of a row
 //   never serialises a warp, but a pair takes L (2r + 1) cells in series.
 // - a wavefront over the lanes of a warp a pair (dtw_search's wave
-//   routes, r <= 127, dtw_wave; dtw_scan's wave routes, r <= 255,
+//   routes, r <= 127, dtw_wave; dtw_scan's wave route, r <= 255,
 //   scan_pair): cell (i, k) reads only cells of the wavefronts t - 1 and
 //   t - 2, t = 2i + k.  Lane l holds C offsets, C l .. C l + C - 1, and at
 //   step s forms row s - l's C cells left to right, its neighbours' cells
 //   coming by two shuffles a step (wave_cells): a pair takes about L + r /
 //   C steps over H = ceil((2r + 1) / C) lanes, and a warp runs 32 / H
 //   pairs side by side.  C is the template, r a runtime argument: 2, 4 or
-//   8 (r <= 31, 63, 127) for dtw_search, 4, 8 or 16 for dtw_scan.  The
+//   8 (r <= 31, 63, 127) for dtw_search, 16 (r <= 255) for dtw_scan.  The
 //   series is staged in shared memory first.
 
 // dtw_lb_keogh: each block first builds the group's envelopes (rolling
@@ -83,13 +83,15 @@
 // warp min to one 64-bit atomicMin a warp, which gives the least distance
 // and, among equal ones, the first series.
 //
-// dtw_scan, wave routes (scan_wave_kernel): throughput, not latency: Q x N
+// dtw_scan, wave route (scan_wave_kernel): throughput, not latency: Q x N
 // pairs of one length, every pair's whole band computed (the brute force
 // is the search's oracle, so it abandons nothing), so the goal is f32
 // issue slots spent on cells.  A warp takes tiles of P = 32 / H series
 // in turn, stages a tile in shared memory (16-byte cp.async), and runs it
-// against every query of the launch's chunk (at most 32, their rows in
+// against every query of the CTA's chunk (at most 32, their rows in
 // shared memory), so the collection leaves device memory once a chunk;
+// where the tiles are too few to fill the card, the chunks are smaller
+// and the CTAs take (chunk, tiles) units in turn;
 // the next tile is brought into L2 meanwhile (a tile's DP, chunk x L
 // steps of ~5C + 6 instructions, dwarfs its copy of P L floats, so one
 // buffer does).  A step of a lane is C cells of
@@ -122,10 +124,10 @@ constexpr int kLbThreads = 256;
 // (one block of 8 warps an SM); 2 gives 16 warps but two envelope loads
 // where 4 takes one, and was no faster on an H100
 constexpr int kLbSeries = 4;
-// dtw_scan's wave routes: the staged rows' ends hold -kPoison, the query
+// dtw_scan's wave route: the staged rows' ends hold -kPoison, the query
 // rows' +kPoison, so a cell past an edge has (q - x)^2 = infinity
 constexpr float kPoison = 1e20f;
-constexpr int kScanWaveThreads = 512;      // a wave route's CTA, at most
+constexpr int kScanWaveThreads = 512;      // the scan wave route's CTA
 
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
@@ -881,9 +883,12 @@ __device__ __forceinline__ float scan_pair(const float* __restrict__ qp,
   return res;
 }
 
-// dtw_scan's wave routes, C cells a lane (see the top): as many CTAs as
-// the card holds, each warp taking tiles of P series, t = its global warp
-// index and on by the grid's warps; the queries in chunks of qc.  Shared
+// dtw_scan's wave route, C cells a lane (see the top): the work is units
+// u = c G + b of query chunk c (qc queries) and tile group b (G groups of
+// a CTA's warps' tiles: warp w takes tile b warps + w, P series each), a
+// CTA taking units blockIdx.x and on by the grid, so chunk by chunk: it
+// loads a chunk's rows when its next unit is in another chunk, and keeps
+// each (warp, query) least key in a register until then.  Shared
 // memory: the chunk's query rows (qc, Lq), the query at offset H of a row,
 // +kPoison around it; then each warp's tile: `pad` floats, then P rows of
 // S floats, the series at the start of each, -kPoison elsewhere
@@ -907,19 +912,34 @@ scan_wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
   // the lane's window and query row, index 0 at step 0 (wavefront l0)
   const float* xp = xt + pad + min(slot, P - 1) * S + l0 + (C - 1) * ll - r;
   const long long tiles = (N + P - 1) / P;
-  const long long nw = (long long)gridDim.x * warps;
-  for (int c0 = 0; c0 < Q; c0 += qc) {
-    const int nq = min(qc, Q - c0);
-    __syncthreads();                     // the last chunk's rows are read
-    for (int e = tid; e < qc * Lq; e += blockDim.x) {
-      const int g = e / Lq, j = e - g * Lq - H;
-      qs[e] = g < nq && j >= 0 && j < L ? q[(long long)(c0 + g) * L + j]
-                                        : kPoison;
+  const long long G = (tiles + warps - 1) / warps;
+  const long long units = G * ((Q + qc - 1) / qc);
+  int c0 = -1, nq = 0;                   // the chunk's first query, its size
+  unsigned long long best = ~0ull;       // lane g: query c0 + g's
+  long long c = blockIdx.x / G, b = blockIdx.x - c * G;   // unit c G + b
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    if (c * qc != c0) {                  // the same for the whole CTA
+      if (lane < nq && best != ~0ull) atomicMin(keys + c0 + lane, best);
+      best = ~0ull;
+      c0 = (int)(c * qc);
+      nq = min(qc, Q - c0);
+      __syncthreads();                   // the last chunk's rows are read
+      for (int e = tid; e < qc * Lq; e += blockDim.x) {
+        const int g = e / Lq, j = e - g * Lq - H;
+        qs[e] = g < nq && j >= 0 && j < L ? q[(long long)(c0 + g) * L + j]
+                                          : kPoison;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    unsigned long long best = ~0ull;     // lane g: query c0 + g's
-    for (long long t = (long long)blockIdx.x * warps + warp; t < tiles;
-         t += nw) {
+    const long long t = b * warps + warp;
+    // the next unit, without a 64-bit division (one a unit cost 1.6 % at
+    // r 25 on 8 queries, H100)
+    long long b1 = b + gridDim.x, c1 = c;
+    while (b1 >= G) {
+      b1 -= G;
+      ++c1;
+    }
+    if (t < tiles) {
       const long long n0 = t * P;
       const int np = (int)min((long long)P, N - n0);
       __syncwarp();                      // the last tile's rows are read
@@ -936,8 +956,9 @@ scan_wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
         }
       }
       asm volatile("cp.async.commit_group;" ::: "memory");
-      if (t + nw < tiles) {              // the next tile, into L2
-        const long long n1 = (t + nw) * P;
+      const long long t1 = b1 * warps + warp;
+      if (u + gridDim.x < units && t1 < tiles) {  // its tile, into L2
+        const long long n1 = t1 * P;
         const long long e1 = min((long long)P, N - n1) * L;
         for (long long e = 32 * lane; e < e1; e += 32 * 32)
           prefetch_l2(x + n1 * L + e);
@@ -954,8 +975,10 @@ scan_wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
         if (lane == g && key < best) best = key;
       }
     }
-    if (lane < nq && best != ~0ull) atomicMin(keys + c0 + lane, best);
+    b = b1;
+    c = c1;
   }
+  if (lane < nq && best != ~0ull) atomicMin(keys + c0 + lane, best);
 }
 
 int general_launch(const float* q, const float* x, long long N, int L,
@@ -1030,10 +1053,14 @@ int scan_launch(const float* q, const float* x, long long N, int L, int r,
   return (int)cudaGetLastError();
 }
 
-// A wave route of dtw_scan: C cells a lane, ML (the top lane's cells in
+// The wave route of dtw_scan: C cells a lane, ML (the top lane's cells in
 // the band) a template; the CTA's `threads` and the shared memory's layout
 // from the wrapper (scan_geometry), checked here against what the kernel
-// reads; as many CTAs as the card holds at once, at most one a warp's tile.
+// reads; as many CTAs as the card holds at once, at most one a unit.
+// Where the tile groups are fewer than that (a small collection), the
+// chunks are taken smaller, qn <= qc queries: the largest qn whose units
+// the card runs in rounds of qn queries within 1/32 of the fewest (a
+// chunk's rows are loaded again at each unit of another chunk).
 template <int C, int ML>
 int scan_wave_launch(const float* q, const float* x, long long N, int L,
                      int r, int Q, int threads, int qc, int pad, int S,
@@ -1058,13 +1085,23 @@ int scan_wave_launch(const float* q, const float* x, long long N, int L,
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &per_sm, scan_wave_kernel<C, ML>, threads, smem);
   if (e != cudaSuccess) return (int)e;
-  const long long tiles = (N + P - 1) / P;
-  long long blocks = (tiles + warps - 1) / warps;
-  if (blocks > (long long)sms * (per_sm > 0 ? per_sm : 1))
-    blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long held = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long G = ((N + P - 1) / P + warps - 1) / warps;
+  auto cost = [&](int k) {               // queries of the busiest CTA
+    return (G * ((Q + k - 1) / k) + held - 1) / held * k;
+  };
+  int qn = qc;
+  if (G < held) {
+    long long least = cost(qc);
+    for (int k = 1; k < qc; ++k) least = cost(k) < least ? cost(k) : least;
+    while (32 * cost(qn) > 33 * least) --qn;
+  }
+  const long long units = G * ((Q + qn - 1) / qn);
   const bool vec = L % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  scan_wave_kernel<C, ML><<<(unsigned)blocks, threads, smem, st>>>(
-      q, x, N, L, r, Q, qc, pad, S, Lq, vec, keys);
+  scan_wave_kernel<C, ML><<<(unsigned)(units < held ? units : held), threads,
+                            smem - sizeof(float) * (size_t)(qc - qn) * Lq,
+                            st>>>(q, x, N, L, r, Q, qn, pad, S, Lq, vec,
+                                  keys);
   return (int)cudaGetLastError();
 }
 
@@ -1202,9 +1239,9 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
 // keys (Q,) uint64, each all ones on entry: min over series n of
 // (bits of the squared DTW of query g and series n) << 32 | n.  route: 0
 // the band route (r <= 16), 1 the general one (any r <= L - 1; `threads`
-// from the wrapper's general_threads), 4, 8 and 16 the wave routes of as
-// many cells a lane (2r + 1 <= 32 C; `threads`, `qc`, `pad`, `S` and `Lq`
-// from the wrapper's scan_geometry).
+// from the wrapper's general_threads), 16 the wave route of as many cells
+// a lane (r <= 255; `threads`, `qc`, `pad`, `S` and `Lq` from the
+// wrapper's scan_geometry).
 extern "C" int dtw_scan(const void* q, const void* x, long long N, int L,
                         int r, int Q, int route, int threads, int qc,
                         int pad, int S, int Lq, void* keys, void* stream) {
@@ -1213,7 +1250,7 @@ extern "C" int dtw_scan(const void* q, const void* x, long long N, int L,
       || (route == 0 && (r > 16 || threads != 128))
       || (route == 1 && (threads < 1 || threads > 1024
                          || (threads & (threads - 1))))
-      || (route > 1 && (route != 4 && route != 8 && route != 16)))
+      || (route > 1 && route != 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
@@ -1222,18 +1259,11 @@ extern "C" int dtw_scan(const void* q, const void* x, long long N, int L,
   if (route == 0) switch (r) {
     DTW_BAND_CASES(scan_launch, qq, xx, N, L, r, Q, threads, k, st)
   }
-  if (route > 1) {
-    const int H = (2 * r + route) / route;
+  if (route == 16) {
+    const int H = (2 * r + 16) / 16;
     if (H > 32) return (int)cudaErrorInvalidValue;
-    const int ml = 2 * r + 1 - route * (H - 1);
-    if (route == 4)
-      return scan_wave<4>(ml, qq, xx, N, L, r, Q, threads, qc, pad, S, Lq, k,
-                          st);
-    if (route == 8)
-      return scan_wave<8>(ml, qq, xx, N, L, r, Q, threads, qc, pad, S, Lq, k,
-                          st);
-    return scan_wave<16>(ml, qq, xx, N, L, r, Q, threads, qc, pad, S, Lq, k,
-                         st);
+    return scan_wave<16>(2 * r + 1 - 16 * (H - 1), qq, xx, N, L, r, Q,
+                         threads, qc, pad, S, Lq, k, st);
   }
   return scan_launch<-1>(qq, xx, N, L, r, Q, threads, k, st);
 }

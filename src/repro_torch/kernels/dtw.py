@@ -32,16 +32,16 @@ MAX_BAND_R = 16                        # dtw_scan's band route's largest r
 # (2r + 1 offsets over at most 32 lanes)
 WAVE_CELLS = {"wave2": 2, "wave4": 4, "wave8": 8}
 WAVE_MAX_R = {name: (32 * c - 1) // 2 for name, c in WAVE_CELLS.items()}
-# dtw_scan's wave routes, the same lane layout at 4, 8 and 16 cells a lane;
-# scan_route takes wave16 for 16 < r <= 255: the fewest issue slots a cell
-# on an H100 (PERF.md, the table of cells a lane)
-SCAN_CELLS = {"wave4": 4, "wave8": 8, "wave16": 16}
+# dtw_scan's wave route, the same lane layout at 16 cells a lane, for 16 <
+# r <= 255: of 4, 8 and 16 cells a lane, 16 spent the fewest issue slots a
+# cell on an H100 at r 25 and 102 (PERF.md, the table of cells a lane)
+SCAN_CELLS = {"wave16": 16}
 SCAN_MAX_R = {name: (32 * c - 1) // 2 for name, c in SCAN_CELLS.items()}
 GROUP = 32                             # queries of one lb_keogh launch
 _SMEM = 200 * 1024                     # shared memory a block may ask for
 _SCAN_BAND_THREADS = 128
 _SCAN_GENERAL_THREADS = 64             # at most: fewer where the band is wide
-_SCAN_WAVE_WARPS = 16                  # a wave route's CTA, at most
+_SCAN_WAVE_WARPS = 16                  # the scan wave route's CTA, at most
 
 _LB_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
@@ -50,7 +50,7 @@ _SEARCH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
 _SCAN_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                   + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2)
 _DP_CODES = {"general": 0, **WAVE_CELLS}  # a wave route's: its cells a lane
-_SCAN_CODES = {"band": 0, "general": 1, **SCAN_CELLS}  # wave: cells a lane
+_SCAN_CODES = {"band": 0, "general": 1, **SCAN_CELLS}  # wave16: its cells
 _LB_CODES = {"vec": 0, "scalar": 1}
 
 
@@ -88,7 +88,7 @@ def scan_route(r: int) -> str:
 
 def scan_routes(r: int) -> tuple:
     """Every route of dtw_scan that takes band radius r: its default
-    first, then each wave route whose lanes hold the band, then
+    first, then the wave route where its lanes hold the band, then
     "general" (any r)."""
     wave = tuple(n for n, top in SCAN_MAX_R.items() if r <= top)
     rest = (("band",) if r <= MAX_BAND_R else ()) + wave + ("general",)
@@ -96,7 +96,7 @@ def scan_routes(r: int) -> tuple:
 
 
 def scan_geometry(L: int, r: int, cells: int, Q: int) -> dict:
-    """The launch of a dtw_scan wave route of `cells` a lane (see
+    """The launch of dtw_scan's wave route at `cells` a lane (see
     csrc/dtw.cu, scan_wave_kernel), in floats but for smem (bytes).
 
     A pair takes H = ceil((2r + 1) / cells) lanes, a warp P = 32 // H
@@ -111,7 +111,10 @@ def scan_geometry(L: int, r: int, cells: int, Q: int) -> dict:
     `qstride` floats, each row at offset H, read from index l0 - (H - 1)
     to l0 + L - 1 (the ends filled likewise).  `queries` (at most 32) a
     chunk and `threads` (16 warps at most) a CTA share `_SMEM` bytes,
-    with 8 warps kept where the tiles allow."""
+    with 8 warps kept where the tiles allow.  The launch may take the
+    chunks smaller (where the collection's tiles are too few to fill the
+    card, so that its CTAs share more (chunk, tiles) units), which only
+    frees shared memory."""
     H = -(-(2 * r + 1) // cells)
     P, l0 = 32 // H, r // cells
     pad = -(-max(r - l0, l0 + cells * H - H - r, 0) // 4) * 4

@@ -428,46 +428,42 @@ def test_band_route_blocks(r):
     assert kdtw.band_threads(25, 256, 32, 2) == 1024
 
 
-# ------------------------------------------- dtw_scan's wave routes (PR 24)
-_SCAN_LS = (1, 2, 3, 7, 16, 100, 255, 256, 257, 300, 511, 512, 1000, 1023,
-            1024)
-
-
-@pytest.mark.parametrize("route", ["wave4", "wave8", "wave16"])
-def test_scan_wave_geometry(route):
-    """Every radius a wave route of dtw_scan takes (2r + 1 offsets over at
-    most 32 lanes), at every length here (r clamped to L - 1): whole
-    warps, 32 to 512 threads, 1 to 32 queries a chunk, the chunk's query
-    rows and every warp's tile within 200 KiB; the tile's pads cover
-    every column a lane reads (r - l0 before a row, l0 + cells H - H - r
-    after it), the query rows every row index (l0 - (H - 1) .. l0 + L -
-    1), and the 16-byte copies stay aligned."""
-    C = kdtw.SCAN_CELLS[route]
-    assert kdtw.SCAN_MAX_R[route] == (32 * C - 1) // 2
-    for L in _SCAN_LS:
-        for r in range(min(kdtw.SCAN_MAX_R[route], L - 1) + 1):
-            for Q in (1, 5, 32, 40):
-                g = kdtw.scan_geometry(L, r, C, Q)
-                H, P, l0 = g["lanes"], g["pairs"], r // C
-                assert H == -(-(2 * r + 1) // C) <= 32 and P == 32 // H
-                assert g["smem"] <= 200 * 1024
-                assert g["smem"] == 4 * (g["queries"] * g["qstride"] + (
-                    g["threads"] // 32) * (g["pad"] + P * g["stride"]))
-                assert g["threads"] % 32 == 0 and 32 <= g["threads"] <= 512
-                assert 1 <= g["queries"] <= min(Q, 32)
-                assert g["pad"] >= max(r - l0, l0 + C * H - H - r)
-                assert g["stride"] >= L + g["pad"]
-                assert g["qstride"] >= H + L + l0
-                for k in ("pad", "stride", "qstride"):
-                    assert g[k] % 4 == 0
+# -------------------------------------------- dtw_scan's wave route (PR 24)
+@pytest.mark.parametrize("L", [1, 2, 3, 7, 16, 100, 255, 256, 257, 300,
+                               511, 512, 1000, 1023, 1024])
+def test_scan_wave_geometry(L):
+    """Every radius dtw_scan's wave route takes (2r + 1 offsets over at
+    most 32 lanes of 16 cells), at this length (r clamped to L - 1):
+    whole warps, 32 to 512 threads, 1 to 32 queries a chunk, the chunk's
+    query rows and every warp's tile within 200 KiB; the tile's pads
+    cover every column a lane reads (r - l0 before a row, l0 + cells H -
+    H - r after it), the query rows every row index (l0 - (H - 1) .. l0 +
+    L - 1), and the 16-byte copies stay aligned."""
+    assert kdtw.SCAN_CELLS == {"wave16": 16}
+    C = 16
+    assert kdtw.SCAN_MAX_R["wave16"] == (32 * C - 1) // 2 == 255
+    for r in range(min(255, L - 1) + 1):
+        for Q in (1, 5, 32, 40):
+            g = kdtw.scan_geometry(L, r, C, Q)
+            H, P, l0 = g["lanes"], g["pairs"], r // C
+            assert H == -(-(2 * r + 1) // C) <= 32 and P == 32 // H
+            assert g["smem"] <= 200 * 1024
+            assert g["smem"] == 4 * (g["queries"] * g["qstride"] + (
+                g["threads"] // 32) * (g["pad"] + P * g["stride"]))
+            assert g["threads"] % 32 == 0 and 32 <= g["threads"] <= 512
+            assert 1 <= g["queries"] <= min(Q, 32)
+            assert g["pad"] >= max(r - l0, l0 + C * H - H - r)
+            assert g["stride"] >= L + g["pad"]
+            assert g["qstride"] >= H + L + l0
+            for k in ("pad", "stride", "qstride"):
+                assert g[k] % 4 == 0
 
 
 def test_scan_wave_geometry_at_the_dtw_cell():
     """At the dtw cell's length (L 256) the route of each radius the card
     runs keeps 16 warps a CTA and a chunk of 32 queries, and the pairs'
     lanes read 32 apart banks (the row stride apart by shift mod 32)."""
-    for r, C, H in ((25, 16, 4), (51, 16, 7), (102, 16, 13), (25, 8, 7),
-                    (25, 4, 13), (102, 8, 26)):
+    for r, C, H in ((25, 16, 4), (51, 16, 7), (102, 16, 13)):
         g = kdtw.scan_geometry(256, r, C, 32)
         assert g["lanes"] == H
         assert (g["threads"], g["queries"]) == (512, 32)
@@ -546,26 +542,24 @@ def _scan_warp(q, xs, r, cells):
     return v[np.arange(xs.shape[0]) * H + l0, m0]
 
 
-@pytest.mark.parametrize("route", ["wave4", "wave8", "wave16"])
+@pytest.mark.parametrize("r", [0, 1, 3, 12, 17, 25, 40, 127, 254, 255])
 @pytest.mark.parametrize("L", [1, 7, 100, 300])
-def test_scan_wave_program_equals_the_band(route, L):
-    """The wave routes' lane program (_scan_warp: no edge tests, a cell
+def test_scan_wave_program_equals_the_band(r, L):
+    """The wave route's lane program (_scan_warp: no edge tests, a cell
     past an edge infinite by the pads, the first step at cell (0, 0)'s
     wavefront, the cells past the band held at BIG or more by two forced
     operands, idle lanes and a tile short of P series) gives dtw_band_ref's
     bits for every pair, at radii across the route's range, both ends
     included (r clamped to L - 1, as the wrapper does)."""
-    C = kdtw.SCAN_CELLS[route]
-    top = kdtw.SCAN_MAX_R[route]
-    rng = np.random.default_rng(C * 1000 + L)
-    for r in sorted({0, 1, 3, 12, 17, 25, 40, top // 2, top - 1, top}):
-        r = min(r, L - 1)
-        P = kdtw.scan_geometry(L, r, C, 1)["pairs"]
-        for n in sorted({P, max(1, P - 1)}):
-            q = np.cumsum(rng.standard_normal(L)).astype(np.float32)
-            xs = np.cumsum(rng.standard_normal((n, L)), 1).astype(np.float32)
-            want = ref.dtw_band_ref(_t(q)[None], _t(xs), r).numpy()
-            assert np.array_equal(_scan_warp(q, xs, r, C), want), (r, n)
+    C = kdtw.SCAN_CELLS["wave16"]
+    rng = np.random.default_rng(1000 * r + L)
+    r = min(r, L - 1)
+    P = kdtw.scan_geometry(L, r, C, 1)["pairs"]
+    for n in sorted({P, max(1, P - 1)}):
+        q = np.cumsum(rng.standard_normal(L)).astype(np.float32)
+        xs = np.cumsum(rng.standard_normal((n, L)), 1).astype(np.float32)
+        want = ref.dtw_band_ref(_t(q)[None], _t(xs), r).numpy()
+        assert np.array_equal(_scan_warp(q, xs, r, C), want), (r, n)
 
 
 @pytest.mark.parametrize("r", [0, 7, 17, 25, 51, 102, 127, 200, 255])

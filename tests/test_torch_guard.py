@@ -235,15 +235,18 @@ def test_dtw_wrappers_raise_on_a_route_the_shape_does_not_take():
     q32, x32 = torch.zeros(2, 32), torch.zeros(9, 32)
     with pytest.raises(ValueError, match="routes"):
         dtw.dtw_scan(q32, x32, r=20, route="band")
-    with pytest.raises(ValueError, match="routes"):  # 17 lanes of 4 cells
-        dtw.dtw_scan(torch.zeros(2, 300), torch.zeros(9, 300), r=64,
-                     route="wave4")
+    with pytest.raises(ValueError, match="routes"):  # 33 lanes of 16 cells
+        dtw.dtw_scan(torch.zeros(2, 300), torch.zeros(9, 300), r=256,
+                     route="wave16")
+    for route in ("wave4", "wave8"):    # dtw_search's cells, not the scan's
+        with pytest.raises(ValueError, match="routes"):
+            dtw.dtw_scan(q32, x32, r=20, route=route)
     # the general route takes every radius, the band route up to 16 (a
     # radius past L - 1 is L - 1: r 20 at L 16 is the band route's 15)
     assert dtw.dtw_scan(q, x, r=2, route="general")[1].tolist() == [0, 0]
     assert dtw.dtw_scan(q, x, r=16, route="band")[1].tolist() == [0, 0]
     assert dtw.dtw_scan(q, x, r=20, route="band")[1].tolist() == [0, 0]
-    for route in ("wave4", "wave8", "wave16"):
+    for route in ("wave16", "general"):
         assert dtw.dtw_scan(q32, x32, r=20, route=route)[1].tolist() == [0, 0]
 
 
