@@ -23,7 +23,9 @@ Phases, each printing one JSON line:
              (the sharded search's late rounds) and 0.5, bit for bit to the
              same round folded slot by slot and within tolerance to its
              plain version, and timed at the table's shape with half and
-             a twentieth of the slots alive;
+             a twentieth of the slots alive, and with every slot alive,
+             where repro's roofline_fraction (launch/roofline.py) of the
+             launch is printed beside its half-alive row;
              refine_search (the whole refinement of a search in one
              launch) is held against refine_search_ref on a real index of
              2^18 walks drawn from that generator, in f32 and bf16, and on
@@ -47,7 +49,8 @@ Phases, each printing one JSON line:
              leaves alive for any query, over the memory rate) beside the
              bytes the queries read one by one, refine_search's time, on
              its longest query alone too, and its plain version at this
-             size;
+             size; the deprecated free function core.search on the same
+             queries, byte-equal to FreshIndex.search;
   route      each kernel's other routes (the ones a shape takes where the
              fast route does not fit) against their plain versions:
              summarize strided at L 96 / w 16 (f32, bf16) and L 100 / w 10,
@@ -105,7 +108,8 @@ Phases, each printing one JSON line:
              launches (lb_distance 4, refine_topk 4 a round run), ids held
              to brute force (k 10) and to the local search but at ties,
              the card's busy time and idle share over one k-10 search,
-             with refine_topk's device ms a launch;
+             with refine_topk's device ms a launch; the deprecated
+             make_sharded_search at k 1, byte-equal to the facade's;
              the engine on it (EngineConfig(max_batch=64, sync_every=2,
              warm_ks=(10,))): submits of 1, 8, 64 rows byte-equal to the
              sharded facade, an add of 4,096 series (a mesh-wide epoch)
@@ -186,8 +190,11 @@ so the serve phase counts replays through each plan's `calls`.  The
 serve phase's facade searches run before its counts are set to 0 (or
 after they are read): the counts it requires are the engine's own, those
 of its warm-ups and captures, then the add's publish and captures, and
-the streams must leave them unchanged.  Then the kernel table, the
-nvidia-smi line and, last, the device line.  Any failure raises and
+the streams must leave them unchanged.  Every bound (bound_ms) is the
+work count of src/repro_torch/launch/roofline.py over the H100's peaks,
+and no kernel may read above BOUND_SLACK of its bound (a faster reading
+means a wrong count).  Then the kernel table, the nvidia-smi line and,
+last, the device line.  Any failure raises and
 exits non-zero; without CUDA, or without the repository's src/ beside
 this file, it exits 1 before printing a result.
 """
@@ -205,13 +212,12 @@ import time
 from pathlib import Path
 
 DEV = "cuda"
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
-F32_FLOPS = 67e12              # H100 SXM float32 outside the tensor cores
-BF16_FLOPS = 989e12            # H100 SXM bf16 tensor cores, dense
-TF32_FLOPS = 495e12            # H100 SXM tf32 tensor cores, dense
-# float32 instructions that are not FMAs (add, sub, max): one a lane a
-# clock, 132 SMs x 128 lanes x 1.98 GHz boost
-FP32_ISSUE = 132 * 128 * 1.98e9
+# repro_torch.launch.roofline, every kernel's work count and the card's
+# peaks: imported by main() once src/ is known to be beside this file
+rl = None
+# no kernel runs faster than its bound: a reading above this share of it
+# means its work count is wrong
+BOUND_SLACK = 1.05
 Q, K, M, L, TOPK = 256, 8, 64, 256, 10
 MAIN = ("summarize", "leaf_stats", "lb_distance", "refine_search")
 # granite-8b's attention (train_4k): 32 query heads, 8 KV heads of 128
@@ -222,9 +228,10 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS):
-    b, f = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
-    return max(b, f), ("bytes" if b >= f else "operations")
+def hold_bound(what: str, bms: float, ms: float) -> None:
+    """A time no shorter than its bound allows (BOUND_SLACK)."""
+    require(bms / ms <= BOUND_SLACK, f"{what}: {ms} ms, {bms / ms} of its "
+            f"bound {bms} ms: the work count is wrong")
 
 
 def time_ms(torch, fn, reps: int = 20, warm: int = 3) -> float:
@@ -288,6 +295,10 @@ def check_summarize(torch, isax, ks, ref, gen, rows_gen, n=1 << 20):
         out[name] = {"max_abs_err": err, "symbols_moved": int(dw.sum())}
     out["znorm_false_ms"] = time_ms(torch, lambda: ks.summarize(
         x, znorm=False))
+    out["znorm_false_bound_ms"], out["znorm_false_bound_by"] = \
+        rl.summarize_work(n, L, 16).bound()
+    hold_bound("summarize znorm=False", out["znorm_false_bound_ms"],
+               out["znorm_false_ms"])
     del x
     # the in-kernel z-norm, in the TPU kernel's one-pass E[x^2] - mu^2
     # form: its cancellation costs digits, hence 1e-4
@@ -310,17 +321,13 @@ def check_summarize(torch, isax, ks, ref, gen, rows_gen, n=1 << 20):
 
 def rows_row(torch, isax, ks, ref, raw, w, what):
     """summarize_rows on raw (n, L) held by hold_rows, timed beside its
-    plain version, and its bound: raw read once; the series, PAA, symbols
-    (int32) and norms written once; six float32 instructions a value (the
-    mean's add, the deviation's subtract and FMA, the scaling's subtract
-    and multiply, the norm's FMA) at the issue rate."""
+    plain version, and its bound (roofline.summarize_rows_work)."""
     n, Lx = raw.shape
     errs = hold_rows(torch, isax, ks, ref, raw, w, what)
     ms = time_ms(torch, lambda: ks.summarize_rows(raw, segments=w))
     plain = time_ms(torch, lambda: ref.summarize_rows_ref(raw, segments=w),
                     5)
-    bms, by = bound_ms(n * Lx * raw.element_size() + n * Lx * 4
-                       + n * w * 8 + n * 4, n * Lx * 6, FP32_ISSUE)
+    bms, by = rl.summarize_rows_work(n, Lx, w, raw.element_size()).bound()
     return {"shape": f"raw ({n}, {Lx}) {str(raw.dtype)[6:]}, w={w}, "
                      f"summarize_rows (two-pass z-norm; series, PAA, "
                      f"symbols, norms)",
@@ -421,10 +428,7 @@ def check_lb_distance(torch, lbk, ref, gen, NL=1 << 18):
                 f"the tiled and looped routes differ")
     ms = time_ms(torch, lambda: lbk.lb_distance(q, lo, hi))
     plain = time_ms(torch, lambda: ref.lb_distance_ref(q, lo, hi), 3)
-    # five float32 instructions a (query, leaf, segment) term: two
-    # subtractions, two max and one FMA, none of them a two-flop FMA
-    bms, by = bound_ms(Q * NL * 4 + (Q + 2 * NL) * 16 * 4, Q * NL * 16 * 5,
-                       FP32_ISSUE)
+    bms, by = rl.lb_distance_work(Q, NL, 16).bound()
     return {"name": "lb_distance", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/lb_distance.cu",
             "replaces": "src/repro/kernels/lb_distance.py:28",
@@ -494,11 +498,7 @@ def check_leaf_stats(torch, api, isax, index, lsk, lgk, ref, gen,
     ms = time_ms(torch, lambda: lsk.leaf_stats(paa, words, order, n, **kw))
     plain = time_ms(torch, lambda: ref.leaf_stats_ref(
         paa, words, order, n, M, 8, "prefix", (0, n // M)), 3)
-    # each row's order entry, PAA and symbols read once; each leaf's two
-    # edges and flag written once; min, max and a lookup a value are far
-    # below the issue rate
-    bms, by = bound_ms(n * (8 + 16 * 4 + 16) + n // M * (16 * 8 + 1),
-                       n * 16 * 4, FP32_ISSUE)
+    bms, by = rl.leaf_stats_work(n, 16, M).bound()
     return {"name": "leaf_stats", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/leaf_stats.cu",
             "replaces": "none: a port-side kernel (src/repro/core/index.py:88 "
@@ -573,16 +573,14 @@ def check_leaf_gather(torch, isax, lgk, ref, gen, n=1 << 22,
         out[4][a:b].copy_(rows)
     library_ms = time_ms(torch, lambda: [library(a, b) for a, b in parts], 3)
     checks["library_one_call_ms"] = time_ms(torch, lambda: library(0, n), 5)
-    row_bytes = L * 4 + 16 * 4 + 16 + 4
-    bms, by = bound_ms(n * (row_bytes + 8) + n * (row_bytes + 4), 0)
+    bms, by = rl.leaf_gather_work(n, L, 16).bound()
     checks["one_launch_share_of_bound"] = bms / checks["one_launch_ms"]
     # one launch of the phase's: its own device time (the profiler) against
     # the bound of its part's rows, where the phase's events wait on the
     # host between launches
     checks["device_ms_per_launch"] = device_ms(
         torch, lambda: launch(0, part), 40)
-    checks["part_bound_ms"] = bound_ms(
-        part * (row_bytes + 8) + part * (row_bytes + 4), 0)[0]
+    checks["part_bound_ms"] = rl.leaf_gather_work(part, L, 16).bound()[0]
     checks["part_share_of_bound"] = (checks["part_bound_ms"]
                                      / checks["device_ms_per_launch"])
     return {"name": "leaf_gather", "route": "cuda",
@@ -734,9 +732,8 @@ def check_refine(torch, isax, rk, ref, gen, grid_gen, NL=4096):
             *args, leaf_capacity=M, k=TOPK))
         plain = time_ms(torch, lambda: ref.refine_topk_ref(
             *args, leaf_capacity=M, k=TOPK), 5)
-        nbytes = (n_alive * M * (L * series.element_size() + 4)
-                  + Q * (L * 4 + 4 + K * 5 + TOPK * 16))
-        bms, by = bound_ms(nbytes, n_alive * M * L * 2)
+        bms, by = rl.refine_topk_work(Q, K, M, L, TOPK, n_alive,
+                                      series.element_size()).bound()
         # a late round: about 1 slot in 20 alive
         late = args[:5] + (torch.rand(Q, K, generator=grid_gen,
                                       device=DEV) < 0.05,) + args[6:]
@@ -748,6 +745,9 @@ def check_refine(torch, isax, rk, ref, gen, grid_gen, NL=4096):
                       "tol": tol, "alive_slots": n_alive,
                       "late_round_ms": late_ms,
                       "late_round_alive_slots": int(late[5].sum())}
+        if name == "f32":
+            all_alive = refine_all_alive(torch, rk, ref, args, true_d, tol,
+                                         ms)
     rows["grid"] = refine_topk_grid(torch, isax, rk, ref, grid_gen)
     f = rows["f32"]
     return {"name": "refine_topk", "route": "cuda",
@@ -758,7 +758,34 @@ def check_refine(torch, isax, rk, ref, gen, grid_gen, NL=4096):
             "ms": f["ms"],
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": None,
-            "checks": rows}
+            "all_alive": all_alive, "checks": rows}
+
+
+def refine_all_alive(torch, rk, ref, args, true_d, tol, half_ms):
+    """One round of the table's shape with every slot alive, folded into
+    the carried buffer of args (the half-alive round's), held to its
+    plain version and timed by the profiler: repro's roofline_fraction of
+    it (refine_analytic counts every slot alive) beside the port's bound
+    of the same launch, and the fraction refine_analytic's count would
+    give the half-alive launch (half_ms), which no card can reach."""
+    full = args[:5] + (torch.ones_like(args[5]),) + args[6:]
+    dk, ek = rk.refine_topk(*full, leaf_capacity=M, k=TOPK)
+    dr, er = ref.refine_topk_ref(*full, leaf_capacity=M, k=TOPK)
+    err, swaps = fold_check(torch, dk, ek, dr, er, true_d, tol,
+                            "refine all alive")
+    ms = device_ms(torch, lambda: rk.refine_topk(*full, leaf_capacity=M,
+                                                 k=TOPK))
+    shape = dict(Q=Q, K=K, M=M, L=L, k=TOPK, dtype_bytes=4)
+    frac = rl.roofline_fraction(ms / 1e3, **shape)
+    require(frac <= BOUND_SLACK, f"refine all alive: roofline_fraction "
+            f"{frac}, the work count is wrong")
+    bms, by = rl.refine_topk_work(Q, K, M, L, TOPK, Q * K).bound()
+    hold_bound("refine all alive", bms, ms)
+    return {"ms": ms, "roofline_fraction": frac, "bound_ms": bms,
+            "bound_by": by, "max_abs_err": err, "near_tie_swaps": swaps,
+            "alive_slots": Q * K,
+            "half_alive_analytic_fraction": rl.roofline_fraction(
+                half_ms / 1e3, **shape)}
 
 
 def refine_inputs(search, idx, queries, K=K, max_rounds=None, budget=None):
@@ -772,24 +799,12 @@ def refine_inputs(search, idx, queries, K=K, max_rounds=None, budget=None):
     return q, q_sq, order, sorted_lb
 
 
-def search_work(torch, idx, order, rounds, alive, K=K, k=TOPK):
-    """(bytes, flops, leaves, per-query leaf bytes) of the refinement of
-    these queries.  It needs each leaf that is alive for any query once:
-    its rows at the stored width and their norms; a query's alive slots
-    are the first `alive` entries of its queue (the queue ascends, the
-    k-th best never grows).  Besides, each query's queue entries of the
-    rounds it ran (id and bound), the queries and the buffers.  The flops
-    are those of every alive (query, leaf row) pair.  The last item is the
-    leaf bytes when every query reads its own alive leaves."""
-    Mi = idx.leaf_capacity
-    leaf_bytes = Mi * (idx.series.shape[1] * idx.series.element_size() + 4)
-    cols = torch.arange(order.shape[1], device=order.device)
-    leaves = int(order[cols < alive[:, None].long()].unique().numel())
-    slots = int(alive.sum())
-    Lx = idx.series.shape[1]
-    nbytes = (leaves * leaf_bytes + int(rounds.sum()) * K * 8
-              + order.shape[0] * (Lx * 4 + 4 + k * 8))
-    return nbytes, slots * Mi * Lx * 2, leaves, slots * leaf_bytes
+def search_work(idx, order, got, K=K, k=TOPK):
+    """roofline.search_work of a refinement's (d, e, rounds, alive) over
+    idx's queue `order`."""
+    return rl.search_work(order, got[2], got[3], M=idx.leaf_capacity,
+                          L=idx.series.shape[1],
+                          elem_bytes=idx.series.element_size(), K=K, k=k)
 
 
 def search_tol(torch, idx, q, q_sq):
@@ -865,13 +880,13 @@ def hold_loop(torch, search, rk, ref, idx, queries, K, what, k=TOPK):
     plain = (time.perf_counter() - t0) * 1e3
     tol, true_d = search_tol(torch, idx, q, q_sq)
     row = hold_search(torch, got, want, sorted_lb, true_d, tol, what, K)
-    nbytes, flops, leaves, _ = search_work(torch, idx, order, got[2], got[3],
-                                           K, k)
-    bms, by = bound_ms(nbytes, flops)
+    work = search_work(idx, order, got, K, k)
+    bms, by = work.work.bound()
     return dict(row, route=rk.route(idx.series.shape[1], K, M_, k,
                                     idx.series.dtype),
                 tol=tol, rounds=rounds_stats(got[2]),
-                alive_slots=int(got[3].sum()), alive_leaves=leaves, ms=ms,
+                alive_slots=int(got[3].sum()), alive_leaves=work.leaves,
+                ms=ms,
                 plain_ms=plain, bound_ms=bms, bound_by=by)
 
 
@@ -941,13 +956,11 @@ def matmul_tol(dr, qsq, xsq, rtol=1e-4):
 
 
 def ed_bound(n):
-    """The least time of the scan of n candidates at the check's accuracy:
-    the larger of reading x, q and the answers once and of the 3xTF32
-    products (three TF32 products of 2 * Q * n * L operations each); and
-    the same product as float32 FMAs, for the note."""
-    bms, by = bound_ms(n * L * 4 + Q * L * 4 + Q * 8, 6 * Q * n * L,
-                       TF32_FLOPS)
-    return bms, by, 2 * Q * n * L / F32_FLOPS * 1e3
+    """(bound ms, by, the float32 FMA floor ms) of the scan of Q queries
+    over n candidates (roofline.ed_argmin_work): the 3xTF32 products at
+    the check's accuracy, and the same products as float32 FMAs."""
+    bms, by = rl.ed_argmin_work(Q, n, L).bound()
+    return bms, by, rl.ed_argmin_work(Q, n, L, "general").ops_ms()
 
 
 def ed_check(torch, edk, ref, q, xin, name, tie=None):
@@ -1019,16 +1032,6 @@ def check_ed_argmin(torch, isax, edk, ref, gen, edge_gen, n=1 << 20):
             "library_call": "torch.mm(q, x.T) over chunks of 2^18 rows, "
                             "TF32 off: the product alone",
             "f32_fma_floor_ms": f32_floor, "checks": rows}
-
-
-def attention_work(torch, T, S, causal, window):
-    """(query, key) pairs the attention computes: the visible ones, and
-    all S keys for a row that sees none (it averages V)."""
-    t = torch.arange(T)
-    lo = (t - window + 1).clamp_min(0) if window else torch.zeros_like(t)
-    hi = t.clamp_max(S - 1) if causal else torch.full_like(t, S - 1)
-    seen = hi - lo + 1
-    return int(torch.where(seen > 0, seen, S).sum())
 
 
 def attention_inputs(torch, gen, B, Hq, Hkv, T, dh, dtype, S=None):
@@ -1124,10 +1127,9 @@ def check_flash(torch, fk, ref, gen, edge_gen):
             lib_err, lib_excess, _ = attention_excess(
                 torch, lib_fn(), ref.flash_attention_ref(
                     q.float(), k.float(), v.float()))
-            pairs = attention_work(torch, g["T"], g["T"], True, 0)
-            flops = 4 * g["dh"] * pairs * g["B"] * g["Hq"]
-            nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
-            bms, by = bound_ms(nbytes, flops, BF16_FLOPS)
+            work = rl.flash_attention_work(g["B"], g["Hq"], g["Hkv"],
+                                           g["T"], g["T"], g["dh"])
+            bms, by = work.bound()
         del q, k, v, ok
         torch.cuda.empty_cache()
     return {"name": "flash_attention", "route": "cuda",
@@ -1140,9 +1142,7 @@ def check_flash(torch, fk, ref, gen, edge_gen):
             "library_call": f"scaled_dot_product_attention(is_causal=True) "
                             f"via {how}",
             "library_max_abs_err": lib_err, "library_excess": lib_excess,
-            # the kernel's own floor: P.V twice (P_hi, P_lo), 6 dh a pair
-            "tensor_floor_ms": 1.5 * flops / BF16_FLOPS * 1e3,
-            "f32_fma_floor_ms": flops / F32_FLOPS * 1e3, "checks": rows}
+            **rl.flash_attention_floors(work), "checks": rows}
 
 
 # ------------------------------------------------------------------ routes
@@ -1223,8 +1223,7 @@ def route_lb(torch, lbk, ref, gen, NL=1 << 16):
         if w == 32:
             ms = time_ms(torch, lambda: lbk.lb_distance(q, lo, hi))
             plain = time_ms(torch, lambda: ref.lb_distance_ref(q, lo, hi), 3)
-            bms, by = bound_ms(Q * NL * 4 + (Q + 2 * NL) * w * 4,
-                               Q * NL * w * 5, FP32_ISSUE)
+            bms, by = rl.lb_distance_work(Q, NL, w).bound()
     return route_row("lb_distance", "looped",
                      "src/repro_torch/kernels/csrc/lb_distance.cu",
                      "src/repro/kernels/lb_distance.py:28",
@@ -1273,9 +1272,8 @@ def route_refine_topk(torch, isax, rk, ref, gen, NL=2048):
                 *args, leaf_capacity=M, k=k))
             plain = time_ms(torch, lambda: ref.refine_topk_ref(
                 *args, leaf_capacity=M, k=k), 5)
-            bms, by = bound_ms(n_alive * M * (Lx * 2 + 4)
-                               + nq * (Lx * 4 + 4 + K * 5 + k * 16),
-                               n_alive * M * Lx * 2)
+            bms, by = rl.refine_topk_work(nq, K, M, Lx, k, n_alive,
+                                          series.element_size()).bound()
     return route_row("refine_topk", "general",
                      "src/repro_torch/kernels/csrc/refine.cu",
                      "src/repro/kernels/refine.py:139",
@@ -1360,8 +1358,7 @@ def route_ed_argmin(torch, isax, edk, ref, gen, n=1 << 20):
         if name == "f32":
             ms = time_ms(torch, lambda: edk.ed_argmin(qn, xin), 5)
             plain = time_ms(torch, lambda: ref.ed_argmin_ref(qn, xin), 3)
-    bms, by = bound_ms((n + 5) * Lx * 4 + Q * Lx * 4 + Q * 8,
-                       2 * Q * (n + 5) * Lx)
+    bms, by = rl.ed_argmin_work(Q, n + 5, Lx, "general").bound()
     return route_row("ed_argmin", "general",
                      "src/repro_torch/kernels/csrc/ed_argmin.cu",
                      "src/repro/kernels/ed_argmin.py:35",
@@ -1489,6 +1486,7 @@ def main_path(torch, api, isax, search, kmods, ref, n, gen):
         reps.append((time.perf_counter() - t0) * 1e3)
     require(launches["refine_search"] == 1,
             f"the search launched refine_search {launches} times, not once")
+    deprecated = deprecated_search(torch, search, index, queries, d, ids)
     _, _, rounds = search.search_plan_impl(idx, queries, k=TOPK)
     device = profile_search(torch, index, queries)
     loop, row, loop_ctx = refine_report(torch, search, kmods["refine_search"],
@@ -1527,9 +1525,27 @@ def main_path(torch, api, isax, search, kmods, ref, n, gen):
             "search_ms_per_query": min(reps) / Q, "rounds": rounds,
             "launches": launches, "near_ties": ties,
             "search_rows_held": rows_held, "pq_sort_ms": sort_ms,
+            "deprecated_search": deprecated,
             "device_time": device,
             "refinement": loop}, launches, (index, q, d, ids, queries), row, \
         loop_ctx
+
+
+def deprecated_search(torch, search, index, queries, d, ids) -> str:
+    """The deprecated free function search (core.search.search) on the
+    main index's queries at k 10: it warns, and its distances and ids are
+    byte-equal to the facade's."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        dd, di = search.search(index.index, queries, k=TOPK,
+                               config=index.config)
+    require(any(w.category is DeprecationWarning
+                and "FreshIndex.search" in str(w.message) for w in seen),
+            "the deprecated search did not warn")
+    require(torch.equal(dd, d) and torch.equal(di, ids),
+            "the deprecated search differs from FreshIndex.search")
+    return "warned; byte-equal to FreshIndex.search at k 10"
 
 
 def refine_report(torch, search, rk, ref, idx, queries, rounds):
@@ -1553,9 +1569,8 @@ def refine_report(torch, search, rk, ref, idx, queries, rounds):
     tol, true_d = search_tol(torch, idx, q, q_sq)
     held = hold_search(torch, got, want, sorted_lb, true_d, tol,
                        "refine_search main")
-    nbytes, flops, leaves, own = search_work(torch, idx, order, got[2],
-                                             got[3])
-    bms, by = bound_ms(nbytes, flops)
+    work = search_work(idx, order, got)
+    bms, by = work.work.bound()
     # the schedule's own cost, and the longest query alone: what no order
     # of the queries can beat
     work_ms = time_ms(torch, lambda: rk.estimated_work(*args, M, TOPK, K), 5)
@@ -1568,11 +1583,12 @@ def refine_report(torch, search, rk, ref, idx, queries, rounds):
               "longest_query_alone_ms": alone,
               "longest_query_rounds": int(got[2][i]),
               "rounds_per_query": rounds_stats(got[2]),
-              "alive_slots": int(got[3].sum()), "alive_leaves": leaves,
-              "bytes": nbytes, "bound_ms": bms, "ms": ms,
-              "share_of_bound": bms / ms,
-              "per_query_leaf_bytes": own,
-              "per_query_leaf_ms_at_rate": own / HBM_BYTES_PER_S * 1e3,
+              "alive_slots": int(got[3].sum()),
+              "alive_leaves": work.leaves, "bytes": work.work.nbytes,
+              "bound_ms": bms, "ms": ms, "share_of_bound": bms / ms,
+              "per_query_leaf_bytes": work.own_leaf_bytes,
+              "per_query_leaf_ms_at_rate": rl.bound_ms(
+                  work.own_leaf_bytes, 0)[0],
               "plain_ms": plain, "tol": tol, **held}
     row = {"name": "refine_search", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/refine.cu",
@@ -2706,6 +2722,24 @@ def tie_mismatches(torch, d, ids, d_want, i_want, what) -> int:
     return int(mism.sum())
 
 
+def deprecated_sharded(torch, mesh, six, queries, want) -> str:
+    """The deprecated make_sharded_search at k 1, sync_every 1, over the
+    sharded facade's shards: it warns, and its answer is byte-equal to
+    the facade's `want` (dist, ids)."""
+    import warnings
+    from repro_torch.core import make_sharded_search
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        fn = make_sharded_search(mesh, k=1, sync_every=1, config=six.config)
+    require(any(w.category is DeprecationWarning
+                and "FreshIndex.shard" in str(w.message) for w in seen),
+            "make_sharded_search did not warn")
+    got = fn(six.shard_view(), queries)
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            "make_sharded_search at k 1 differs from the sharded facade")
+    return "warned; byte-equal to the sharded facade at k 1"
+
+
 def shard_counts(kmods) -> dict:
     return {name: kmods[name].launches for name in SHARD_KERNELS}
 
@@ -2798,8 +2832,12 @@ def sharded_path(torch, api, isax, kmods, index, queries, d, ids, gen):
                 entry["ties_vs_bruteforce"] = hold_answers(
                     torch, isax, index.index, queries, ds, is_,
                     "sharded k 10")
+            if k == 1 and sync == 1:
+                k1 = (ds[:, 0], is_[:, 0])
             rep["searches"][f"k{k}_sync{sync}"] = entry
     rep["local_peak_alloc_gib"] = local_peak / 2**30
+    rep["deprecated_make_sharded_search"] = deprecated_sharded(
+        torch, mesh, six, queries, k1)
     # where a sharded search's time goes: the card's busy time against
     # the wall (k 10, sync_every 1), outside the counted searches
     t0 = time.perf_counter()
@@ -2956,18 +2994,6 @@ DTW_REPLACES = ("none: a port-side kernel (src/repro/core/dtw.py:{} {} is "
                 "plain jnp, no Pallas kernel)")
 
 
-def dtw_cells(Lx: int, r: int) -> int:
-    """The band cells of one (query, series) pair: row i spans columns
-    max(0, i - r) .. min(L - 1, i + r)."""
-    return sum(min(Lx - 1, i + r) - max(0, i - r) + 1 for i in range(Lx))
-
-
-def dtw_bound(cells: int, nbytes: float):
-    """A DP cell is five f32 instructions (subtract, multiply, two mins,
-    add; the multiply and the add kept apart), at the issue rate."""
-    return bound_ms(nbytes, cells * 5, FP32_ISSUE)
-
-
 def plain_scan(torch, ref, q1, x, r):
     """ref.dtw_scan_ref of one query over the collection, timed once:
     (ms, squared distance (1,), id (1,))."""
@@ -2988,7 +3014,7 @@ def scan_rows(torch, kd, ref, x, q, r, want, launches, plain=None):
     every band cell of every pair (the scan abandons none); launches are
     `launches`'s for the route (the path's run)."""
     nq, route = q.shape[0], "wave16"
-    bms, by = dtw_bound(nq * DTW_N * dtw_cells(L, r), 4 * (DTW_N + nq) * L)
+    bms, by = rl.dtw_scan_work(nq, DTW_N, L, r).bound()
     plain_ms, pd2, pi = plain or plain_scan(torch, ref, q[:1], x, r)
     shape = (f"{nq} queries x {DTW_N} series, L {L}, r {r} (the brute "
              f"force's queries)")
@@ -3006,19 +3032,6 @@ def scan_rows(torch, kd, ref, x, q, r, want, launches, plain=None):
     row |= {"plain_queries": 1, "cells": kd.SCAN_CELLS[route],
             "launches_on_path": launches.get(f"dtw_scan/{route}", 0)}
     return [row]
-
-
-def wave_step_cells(torch, Lx: int, r: int, cells: int):
-    """The band cells that dtw_search's wavefront (cells a lane) forms at
-    each of its L + r // cells steps: lane l forms row s - l's offsets
-    cells * l + m at step s."""
-    H, l0 = -(-(2 * r + 1) // cells), r // cells
-    s = torch.arange(Lx + l0)[:, None, None]
-    ll = torch.arange(H)[None, :, None]
-    m = torch.arange(cells)[None, None, :]
-    i, k, c = s - ll, cells * ll + m, s + (cells - 1) * ll - r + m
-    inside = (i >= 0) & (i < Lx) & (k <= 2 * r) & (c >= 0) & (c < Lx)
-    return inside.sum((1, 2))
 
 
 def needed_cells(torch, ref, q, x, sorted_lb, order, trace, r: int,
@@ -3044,7 +3057,7 @@ def needed_cells(torch, ref, q, x, sorted_lb, order, trace, r: int,
         sid.append(order[g, pos[take]])
         cut.append(bs[take])
     qi, sid, cut = torch.cat(qi), torch.cat(sid), torch.cat(cut)
-    cum = wave_step_cells(torch, x.shape[1], r, cells).cumsum(0).to(DEV)
+    cum = rl.wave_step_cells(x.shape[1], r, cells).cumsum(0).to(DEV)
     total = 0
     for a in range(0, len(qi), chunk):
         _, least = ref.dtw_wavefront_ref(q[qi[a:a + chunk]],
@@ -3056,14 +3069,6 @@ def needed_cells(torch, ref, q, x, sorted_lb, order, trace, r: int,
                            least.shape[1] - 1)
         total += int(cum[stop].sum())
     return total
-
-
-def lb_bound(nq: int, n: int, Lx: int):
-    """A point a query is four f32 instructions, the fewest it needs (a
-    max, a min, a subtract and an FMA: e = x - min(max(x, lo), hi)); the
-    series, the queries and the bounds move once."""
-    return bound_ms(4 * (n * Lx + nq * Lx + nq * n), nq * n * Lx * 4,
-                    FP32_ISSUE)
 
 
 def rel_err(torch, a, b) -> float:
@@ -3250,8 +3255,8 @@ def dtw_wide(torch, isax, kmods, ref, x, qz):
     n_ref = int(got[3].sum())
     cells = needed_cells(torch, ref, qg, x, s, o, trace, r, DTW_RK,
                          kd.wave_cells(route))
-    bms, by = dtw_bound(cells, 4 * n_ref * L
-                        + 12 * int(got[2].sum()) * DTW_RK)
+    bms, by = rl.dtw_search_work(cells, n_ref, L, int(got[2].sum()),
+                                 DTW_RK).bound()
     shape = (f"{cdtw.GROUP} queries x {DTW_N} series, L {L}, r {r}, "
              f"round_k {DTW_RK}, {n_ref} refined, {int(got[2].max())} "
              f"rounds at most (the r {r} run's first group)")
@@ -3262,7 +3267,7 @@ def dtw_wide(torch, isax, kmods, ref, x, qz):
                      "general route": "bit-equal"})
     row["general_ms"] = general_ms
     row["needed_cells"] = cells
-    row["all_cells"] = n_ref * dtw_cells(L, r)
+    row["all_cells"] = n_ref * rl.dtw_cells(L, r)
     rounds_t = torch.tensor(rounds, dtype=torch.float64)
     refined_t = torch.tensor(refined, dtype=torch.float64)
     rep = {"r": r, "route": route, "search_dtw_ms": search_s * 1e3,
@@ -3278,7 +3283,7 @@ def dtw_wide(torch, isax, kmods, ref, x, qz):
            "pruned_share": 1.0 - float(refined_t.mean()) / DTW_N,
            "first_group_ms": ms, "first_group_general_ms": general_ms,
            "general_over_wave": general_ms / ms, "bound_ms": bms,
-           "needed_cells": cells, "all_cells": n_ref * dtw_cells(L, r),
+           "needed_cells": cells, "all_cells": n_ref * rl.dtw_cells(L, r),
            "search_check": f"groups 0..{DTW_WIDE_GROUPS - 1} bit-equal to "
                            f"dtw_search_ref", "plain_refine_ms": plain_ms,
            "by_route": routes}
@@ -3370,8 +3375,8 @@ def dtw_wider(torch, kd, ref, x, qz):
         n_ref = int(cgot[3].sum())
         cells = needed_cells(torch, ref, qg, x, sc, o, trace, r, DTW_RK,
                              kd.wave_cells(route))
-        bms, by = dtw_bound(cells, 4 * n_ref * L
-                            + 12 * int(cgot[2].sum()) * DTW_RK)
+        bms, by = rl.dtw_search_work(cells, n_ref, L, int(cgot[2].sum()),
+                                     DTW_RK).bound()
         shape = (f"{qg.shape[0]} queries x {DTW_N} series, L {L}, r {r}, "
                  f"round_k {DTW_RK}, each query's first {DTW_WIDER_CUT} "
                  f"candidates by bound: {n_ref} refined, "
@@ -3383,7 +3388,7 @@ def dtw_wider(torch, kd, ref, x, qz):
                         {"cut shape": "bit-equal to dtw_search_ref",
                          "general route": "bit-equal"})
         row |= {"general_ms": general_ms, "needed_cells": cells,
-                "all_cells": n_ref * dtw_cells(L, r),
+                "all_cells": n_ref * rl.dtw_cells(L, r),
                 "full_group_ms": full_ms}
         rows.append(row)
         rounds_t = got[2].double()
@@ -3402,7 +3407,7 @@ def dtw_wider(torch, kd, ref, x, qz):
                      "cut_plain_ms": plain_ms, "cut_refined": n_ref,
                      "cut_rounds_max": int(cgot[2].max()),
                      "bound_ms": bms, "needed_cells": cells,
-                     "all_cells": n_ref * dtw_cells(L, r),
+                     "all_cells": n_ref * rl.dtw_cells(L, r),
                      "scan": {row["name"]: {k: row[k] for k in (
                          "ms", "bound_ms", "plain_ms", "launches_on_path")}
                          for row in scan}})
@@ -3431,7 +3436,7 @@ def dtw_lb_lengths(torch, isax, kd, ref, gen):
         require(err <= 1e-5, f"lb_keogh L {Lx} vs plain: {err}")
         ms = time_ms(torch, lambda: kd.lb_keogh(q, x, r=r), 5, 1)
         plain = time_ms(torch, lambda: ref.lb_keogh_ref(q, x, r), 1, 0)
-        bms, by = lb_bound(nq, n, Lx)
+        bms, by = rl.lb_keogh_work(nq, n, Lx).bound()
         shape = (f"{nq} queries x {n} series, L {Lx}, r {r} (one launch, "
                  f"{kd.lb_route(Lx)} route)")
         rows.append(route_row(
@@ -3613,7 +3618,7 @@ def dtw_path(torch, isax, kmods, ref, gen):
     shape = (f"{cdtw.GROUP} queries x {DTW_N} series, L {L}, r {DTW_R} "
              f"(one group, the search's launch)")
     plain = time_ms(torch, lambda: ref.lb_keogh_ref(g0, x, DTW_R), 1, 0)
-    bms, by = lb_bound(cdtw.GROUP, DTW_N, L)
+    bms, by = rl.lb_keogh_work(cdtw.GROUP, DTW_N, L).bound()
     for route in (kd.lb_route(L), "scalar"):
         ms = time_ms(torch, lambda: kd.lb_keogh(g0, x, r=DTW_R, route=route),
                      5, 1)
@@ -3639,9 +3644,9 @@ def dtw_path(torch, isax, kmods, ref, gen):
     cells = needed_cells(torch, ref, qg, x, s, o, trace, DTW_R, DTW_RK,
                          kd.wave_cells(main_route))
     rep |= {"first_group_needed_cells": cells,
-            "first_group_all_cells": n_ref * dtw_cells(L, DTW_R)}
-    bms, by = dtw_bound(cells, 4 * n_ref * L
-                        + 12 * int(got[2].sum()) * DTW_RK)
+            "first_group_all_cells": n_ref * rl.dtw_cells(L, DTW_R)}
+    bms, by = rl.dtw_search_work(cells, n_ref, L, int(got[2].sum()),
+                                 DTW_RK).bound()
     shape = (f"{cdtw.GROUP} queries x {DTW_N} series, L {L}, r {DTW_R}, "
              f"round_k {DTW_RK}, {n_ref} refined, {int(got[2].max())} "
              f"rounds at most (the first group)")
@@ -3662,8 +3667,7 @@ def dtw_path(torch, isax, kmods, ref, gen):
     torch.cuda.empty_cache()
     qb = qz[:DTW_BRUTE].contiguous()
     plain = plain_scan(torch, ref, qz[:1], x, DTW_R)
-    bms, by = dtw_bound(DTW_BRUTE * DTW_N * dtw_cells(L, DTW_R),
-                        4 * (DTW_N + DTW_BRUTE) * L)
+    bms, by = rl.dtw_scan_work(DTW_BRUTE, DTW_N, L, DTW_R).bound()
     shape = (f"{DTW_BRUTE} queries x {DTW_N} series, L {L}, r {DTW_R} "
              f"(the brute force's launch)")
     for route in ("band", "general"):
@@ -3831,7 +3835,9 @@ def main() -> int:
         print(f"chip_smoke: no repro_torch under {src}", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    global rl
     from repro_torch import api
+    from repro_torch.launch import roofline as rl
     from repro_torch.core import index as core_index
     from repro_torch.core import isax, search
     from repro_torch.kernels import _build, ops, ref
@@ -3963,11 +3969,14 @@ def main() -> int:
 
 
 def finish(torch, rows, launches, smi) -> int:
-    """Every kernel of the table launched on some path; then the kernel
-    table, the nvidia-smi line and the device line."""
+    """Every kernel of the table launched on some path, and none faster
+    than its bound allows (hold_bound); then the kernel table, the
+    nvidia-smi line and the device line."""
     missing = [r["name"] for r in rows
                if "/" not in r["name"] and not launches.get(r["name"])]
     require(not missing, f"no path launched {missing}")
+    for r in rows:
+        hold_bound(r["name"], r["bound_ms"], r["ms"])
     emit({"kernels": [{k: r[k] for k in (
         "name", "route", "source", "replaces")} | {
         "launches": launches.get(r["name"], 0)} | {k: r[k] for k in (

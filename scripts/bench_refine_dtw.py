@@ -6,7 +6,8 @@ in one call:
     python3 scripts/bench_refine_dtw.py [--src DIR] [--reps R] [--seed S]
 
 `--src` imports repro_torch from another tree's src/ (a `git archive` of
-another commit); run it as parent, change, change, parent.  The inputs
+another commit that has src/repro_torch/launch/roofline.py, where the
+bounds come from); run it as parent, change, change, parent.  The inputs
 are drawn by chip_smoke.py's own helpers, so both trees see the same.
 refine_topk: Q 256 queries, leaves of 64 rows of length 256, k 10,
 float32, at K 8, 16 and 264 slots a row: a first round with every slot
@@ -30,8 +31,8 @@ general route at r 25 on the 8, timed as dtw_search is (a launch over a
 second: once), each held equal to its first launch; then small
 collections (SMALL_N walks of L 256, z-normalized, 256 noisy queries, r
 25: a UCR-archive-sized scan), by the default and the general route, the
-mean of R launches each, held equal to each other, beside the bound
-chip_smoke.py gives the scan.
+mean of R launches each, held equal to each other, beside the scan's
+bound (roofline.dtw_scan_work).
 Prints one JSON line with the card's name and power limit.  Without CUDA
 it exits 1 before printing a result.
 """
@@ -49,6 +50,8 @@ TOPK_K = (8, 16, 264)
 TOPK_CASES = (("first_all", 1.0), ("all", 1.0), ("half", 0.5),
               ("late", 0.05))
 SMALL_N, SMALL_Q = (1000, 10000), 256
+# repro_torch.launch.roofline of the tree under test, imported by main()
+rl = None
 
 
 def refine_case(torch, isax, rk, cs, gen, reps: int) -> dict:
@@ -89,7 +92,8 @@ def dtw_case(torch, isax, kd, cs, gen, reps: int) -> dict:
     lb = lambda: kd.lb_keogh(qg, x, r=cs.DTW_R)  # noqa: E731
     first = lb()
     out = {"lb_keogh": {"ms": cs.time_ms(torch, lb, 5 * reps, 1),
-                        "bound_ms": cs.lb_bound(32, cs.DTW_N, cs.L)[0],
+                        "bound_ms": rl.lb_keogh_work(32, cs.DTW_N,
+                                                     cs.L).bound()[0],
                         "r": cs.DTW_R, "shape": shape}}
     assert torch.equal(lb(), first), "lb_keogh"
     del first
@@ -155,8 +159,7 @@ def dtw_case(torch, isax, kd, cs, gen, reps: int) -> dict:
                 first = want
         assert all(torch.equal(a, b) for a, b in zip(want, first)), n
         out[f"dtw_scan_r{r}_n{n}"] = got | {
-            "bound_ms": cs.dtw_bound(SMALL_Q * n * cs.dtw_cells(cs.L, r),
-                                     4 * (n + SMALL_Q) * cs.L)[0],
+            "bound_ms": rl.dtw_scan_work(SMALL_Q, n, cs.L, r).bound()[0],
             "shape": f"{SMALL_Q} queries x {n} series, L {cs.L}, r {r}"}
     return out
 
@@ -174,6 +177,8 @@ def main() -> int:
     sys.path.insert(0, args.src)
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs              # its draws and timers
+    global rl
+    from repro_torch.launch import roofline as rl
     from repro_torch.core import isax
     from repro_torch.kernels import _build, dtw, refine
     smi = subprocess.run(

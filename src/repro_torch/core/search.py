@@ -22,6 +22,10 @@ The counterpart of `repro.core.search`'s local plan:
 A pending delta (rows added since the last compaction) is scanned exactly
 and merged in (`merge_delta_topk`, `snapshot_search_impl`).
 
+`run_search` resolves the knobs from `config=` / `tune=` as repro's does;
+`search` and `make_sharded_search` are repro's deprecated free functions,
+which warn.
+
 The sharded plan (`shard_index`, `build_sharded_plan` -> `ShardedPlan`,
 `sharded_view_search`) is repro's expeditive/standard search over leaf
 blocks on the slots of a mesh: one lower-bound launch and queue a shard,
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import math
 import threading
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -265,18 +270,50 @@ def squeeze_k(d: torch.Tensor, i: torch.Tensor, k: int):
 
 
 def run_search(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
-               round_leaves: int = 8, znorm: bool = True,
+               round_leaves: Optional[int] = None, znorm: bool = True,
                max_rounds: Optional[int] = None,
                pq_budget: Optional[int] = None, stop_eps: float = 0.0,
-               stop_leaves: Optional[int] = None
+               stop_leaves: Optional[int] = None, tune=None, config=None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """`search_plan_impl` with the k == 1 squeeze: (Q,) arrays for k == 1,
-    (Q, k) ascending otherwise."""
-    d, i, _ = search_plan_impl(idx, queries, k=k, round_leaves=round_leaves,
+    """Knob resolution and `search_plan_impl`, with the k == 1 squeeze:
+    (Q,) arrays for k == 1, (Q, k) ascending otherwise.
+
+    round_leaves / pq_budget resolve as repro's do: the explicit argument,
+    else the field of `config` (an IndexConfig) when set, else `tune` (a
+    fresh autotune TuneConfig), else 8 / uncapped.  `stop_eps` /
+    `stop_leaves` are the quality stop rules (defaults: exact)."""
+    t = tune
+    K = _resolve_knob(round_leaves, config, "round_leaves",
+                      t.round_leaves if t else 8)
+    pq_budget = _resolve_knob(pq_budget, config, "pq_budget",
+                              t.pq_budget if t else None)
+    d, i, _ = search_plan_impl(idx, queries, k=k, round_leaves=K,
                                znorm=znorm, max_rounds=max_rounds,
                                pq_budget=pq_budget, stop_eps=stop_eps,
                                stop_leaves=stop_leaves)
     return squeeze_k(d, i, k)
+
+
+def _warn_deprecated_free_function(old: str, new: str) -> None:
+    warnings.warn(
+        f"calling repro_torch.core.search.{old} directly is deprecated; use "
+        f"{new} instead (see the migration table in the README)",
+        DeprecationWarning, stacklevel=3)
+
+
+def search(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
+           round_leaves: Optional[int] = None, znorm: bool = True,
+           max_rounds: Optional[int] = None,
+           pq_budget: Optional[int] = None,
+           config=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """DEPRECATED free-function spelling of exact k-NN, repro's shim over
+    `run_search`.  New code: `FreshIndex.search(q, k=...)` for one-shot
+    batches, `FreshIndex.engine()` for serving loops."""
+    _warn_deprecated_free_function(
+        "search", "FreshIndex.search(q, k=...) or FreshIndex.engine()")
+    return run_search(idx, queries, k=k, round_leaves=round_leaves,
+                      znorm=znorm, max_rounds=max_rounds,
+                      pq_budget=pq_budget, config=config)
 
 
 def _bruteforce_topk(raw: torch.Tensor, queries: torch.Tensor, *, k: int,
@@ -693,6 +730,16 @@ def build_sharded_search(mesh: Mesh, **kwargs):
     return sharded_search
 
 
+def make_sharded_search(mesh: Mesh, **kwargs):
+    """DEPRECATED free-function spelling of the sharded search builder,
+    repro's shim over `build_sharded_search`.  New code:
+    `FreshIndex.shard(mesh)`, then `index.search(q, k=...)`."""
+    _warn_deprecated_free_function(
+        "make_sharded_search",
+        "FreshIndex.shard(mesh) then index.search(q, k=...)")
+    return build_sharded_search(mesh, **kwargs)
+
+
 def sharded_view_search(plan: ShardedPlan, shards,
                         delta_rows: Optional[torch.Tensor],
                         delta_alive: Optional[torch.Tensor], n_base: int,
@@ -711,3 +758,4 @@ def sharded_view_search(plan: ShardedPlan, shards,
     md, mi = merge_delta_topk(delta_rows, q, d, i, delta_alive, k=plan.k,
                               n_base=n_base, znorm=False)
     return md, mi, rounds
+

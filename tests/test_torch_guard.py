@@ -353,6 +353,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.runtime", "repro_torch.runtime.journal",
             "repro_torch.runtime.sharding", "repro_torch.runtime.elastic",
             "repro_torch.launch", "repro_torch.launch.mesh",
+            "repro_torch.launch.roofline",
             "repro_torch.serve", "repro_torch.serve.batcher",
             "repro_torch.serve.engine", "repro_torch.serve.plan_cache",
             "repro_torch.serve.result_cache",
@@ -362,6 +363,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "repro_torch.core", "repro_torch.core.isax",
             "repro_torch.core.index", "repro_torch.core.search",
             "repro_torch.data", "repro_torch.data.synthetic",
+            "repro_torch.data.tokens",
             "repro_torch.kernels", "repro_torch.kernels._build",
             "repro_torch.kernels.ref", "repro_torch.kernels.isax_summarize",
             "repro_torch.kernels.lb_distance", "repro_torch.kernels.refine",

@@ -116,3 +116,105 @@ def test_from_arrays_and_a_single_query(data, jax_indexes):
         index.search(queries[:, :128], k=1)
     with pytest.raises(KeyError):
         convert.flat_index_from_numpy({"series": np.zeros((1, 1))}, "cpu")
+
+
+# name, IndexConfig fields, TuneConfig (round_leaves, pq_budget), the
+# explicit round_leaves, and the (round_leaves, pq_budget) repro resolves
+KNOBS = [("defaults", {}, None, None, (8, None)),
+         ("config", dict(round_leaves=16, pq_budget=12), None, None,
+          (16, 12)),
+         ("tune", {}, (4, 10), None, (4, 10)),
+         ("config_over_tune", dict(round_leaves=16), (4, 10), None,
+          (16, 10)),
+         ("argument_over_config", dict(round_leaves=16, pq_budget=12), None,
+          2, (2, 12))]
+
+
+@pytest.mark.parametrize("name,cfg,tune,K_arg,want", KNOBS,
+                         ids=[kn[0] for kn in KNOBS])
+def test_run_search_resolves_config_and_tune_as_repro(
+        data, jax_indexes, monkeypatch, name, cfg, tune, K_arg, want):
+    """run_search takes config= and tune= and resolves round_leaves and
+    pq_budget as repro's: argument, config, tune, 8 / uncapped.  The ids
+    and distances are repro's run_search's; the knobs it resolved give
+    repro's rounds in repro's plan."""
+    from repro.core.search import run_search as jrun_search
+    from repro.kernels.autotune import TuneConfig as JTuneConfig
+    from repro_torch.kernels.autotune import TuneConfig
+    _, queries = data
+    jidx = jax_indexes["prefix", "float32"]
+    tidx = _carry(jidx)
+    seen = []
+    plan = search.search_plan_impl
+
+    def spy(*args, **kw):
+        seen.append((kw["round_leaves"], kw["pq_budget"]))
+        out = plan(*args, **kw)
+        seen.append(out[2])
+        return out
+    monkeypatch.setattr(search, "search_plan_impl", spy)
+    dt, it = search.run_search(
+        tidx, torch.from_numpy(queries), k=5, round_leaves=K_arg,
+        config=IndexConfig(**cfg), tune=TuneConfig(*tune) if tune else None)
+    dj, ij = jrun_search(
+        jidx, jnp.asarray(queries), k=5, round_leaves=K_arg,
+        config=JIndexConfig(**cfg), tune=JTuneConfig(*tune) if tune else None)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=1e-5)
+    assert seen[0] == want
+    _, _, rj = search_plan(jidx, jnp.asarray(queries), k=5,
+                           round_leaves=want[0], pq_budget=want[1])
+    assert seen[1] == int(rj)
+
+
+def test_deprecated_search_warns_and_answers_as_repro(data, jax_indexes):
+    """repro_torch.core.search.search warns (naming the facade) and
+    answers as run_search; its ids are repro's deprecated search's."""
+    from repro.core import search as jdeprecated
+    _, queries = data
+    jidx = jax_indexes["paabox", "float32"]
+    tidx = _carry(jidx)
+    q = torch.from_numpy(queries)
+    cfg = dict(round_leaves=4)
+    with pytest.warns(DeprecationWarning, match="FreshIndex"):
+        d, i = search.search(tidx, q, k=5, config=IndexConfig(**cfg))
+    with pytest.warns(DeprecationWarning, match="FreshIndex"):
+        d1, i1 = search.search(tidx, q, k=1)
+    d0, i0 = search.run_search(tidx, q, k=5, config=IndexConfig(**cfg))
+    assert torch.equal(d, d0) and torch.equal(i, i0)
+    assert torch.equal(d1, d0[:, 0]) and torch.equal(i1, i0[:, 0])
+    with pytest.warns(DeprecationWarning, match="FreshIndex"):
+        dj, ij = jdeprecated(jidx, jnp.asarray(queries), k=5,
+                             config=JIndexConfig(**cfg))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(d.numpy(), np.asarray(dj), rtol=1e-5)
+
+
+def test_deprecated_make_sharded_search_warns_and_answers_as_repro(
+        data, jax_indexes):
+    """repro_torch.core's make_sharded_search warns (naming the facade)
+    and returns build_sharded_search's function: on 2 CPU slots its
+    answer is build_sharded_search's, and its ids those of repro's
+    deprecated make_sharded_search on a 1-device mesh."""
+    import jax
+    from repro.core import make_sharded_search as jdeprecated
+    from repro.core.search import shard_index as jshard_index
+    from repro_torch.core import make_sharded_search
+    from repro_torch.runtime import make_mesh
+    _, queries = data
+    jidx = jax_indexes["prefix", "float32"]
+    tidx = _carry(jidx)
+    q = torch.from_numpy(queries)
+    mesh = make_mesh((2,), ("data",), ["cpu"] * 2)
+    shards = search.shard_index(tidx, mesh)
+    with pytest.warns(DeprecationWarning, match="FreshIndex.shard"):
+        fn = make_sharded_search(mesh, k=5, sync_every=2)
+    d, i = fn(shards, q)
+    d0, i0 = search.build_sharded_search(mesh, k=5, sync_every=2)(shards, q)
+    assert torch.equal(d, d0) and torch.equal(i, i0)
+    jmesh = jax.make_mesh((1,), ("data",))
+    with pytest.warns(DeprecationWarning, match="FreshIndex.shard"):
+        jfn = jdeprecated(jmesh, k=5, sync_every=2)
+    dj, ij = jfn(jshard_index(jidx, jmesh), jnp.asarray(queries))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(d.numpy(), np.asarray(dj), rtol=1e-5)
