@@ -39,7 +39,11 @@ Phases, each printing one JSON line:
              IndexBuilder at 4 workers against the one-pass build at three
              bounds in float32 and bfloat16 storage, and leaf_gather's
              own device time a launch of a part (2048 rows, the
-             profiler) beside that part's bound;
+             profiler) beside that part's bound; flash_attention at every
+             head width past the old set (96, 256, 40, 80, 320) and at
+             B * Hq 65,600;
+  grid       the kernels whose grid's y dimension takes query tiles, past
+             65,535 tiles (grid_strides);
   main       FreshIndex.build over N random walks of length 256 made on the
              card (default 2^24, 16 GiB of float32), then exact 10-NN of 256
              noisy collection series (sigma 0.1, the paper's hardest Fig. 6a
@@ -58,7 +62,10 @@ Phases, each printing one JSON line:
              L 100 and at k 16,000 (each bit-equal to its round folded
              slot by slot), refine_search at k 5000 (2 CTAs an SM),
              at leaves of 256 and K 64 (1 CTA an SM), at k 20,000 and bf16
-             L 100 (general), ed_argmin general at L 100; one table row each;
+             L 100 (general), ed_argmin general at L 100, flash_attention's
+             routes beside granite's (ATTN_ROWS: tc96, tc256, tc320,
+             tc512, simt96, simt256, wide in bf16 and f32, each with
+             SDPA's time and excess beside it); one table row each;
   rounds     ops.refine_topk, repro's per-round kernel API, driven through
              the global loop of rounds over the main cell's queue (the
              search before refine_search), held bit for bit against
@@ -170,14 +177,23 @@ Phases, each printing one JSON line:
              dtw_scan (band and general at r 12, wave16 at r 12, 25, 51
              and 102, each route's first query bit for bit against the
              plain version's; the general route at r 25 on 8 queries
-             beside wave16);
+             beside wave16); then the long series (DTW_LONG: 2^16 walks of
+             2,709 points at r 27 and 135, 2^14 of 8,192 at r 81, 32
+             queries each): search_dtw held to search_dtw_bruteforce, each
+             kernel's first query to its plain version, the ring routes'
+             (ring2, ring8, ring16) and the general route's rows beside
+             the chunked LB's; edge runs past the old limits (L 1,025,
+             round_k 2,048, 65,600 queries through the scan);
   fidelity   build_index_host over 2^16 seismic_like series of length
              256 under RefreshExecutor, DoAllSplit, FaiBased and CasBased
              at 8 threads: every id in the forest with the one-pass
              build's word, each executor's seconds;
   attention  ops.flash_attention at granite-8b's attention widths (B 1,
              Hq 32, Hkv 8, T = S = 4096, dh 128, bf16, causal), held
-             against the plain version.
+             against the plain version; then at each other route's shape
+             (ATTN_ROWS: Phi-3-mini's dh 96 and Gemma 7B's dh 256 on the
+             tensor cores, dh 320 and 512 with O in halves, float32 at dh
+             96 and 256, the wide route), its launches its table row's.
 refine_search is held under the (1 + eps) stop (inv_eps 1 / 1.25^2) on
 every route too: cta3 in the kernel phase, cta2, cta1 and general in the
 route phase.
@@ -1091,7 +1107,13 @@ def check_flash(torch, fk, ref, gen, edge_gen):
     V.  Then, drawn from edge_gen, the bf16 route (the tensor cores) at
     its edges under the same bf16 limit: the ragged T = S = 1000 with
     window 200, the empty rows, and dh 64 and 32 with GQA.  SDPA's own
-    excess under that limit at the granite shape is recorded, not held."""
+    excess under that limit at the granite shape is recorded, not held.
+    Then every head width repro answers beyond the old set, at T 1024
+    with GQA: in both dtypes dh 96 and 256 (their own instances), 40 and
+    80 (padded to the next instance), 320 (bf16: O in two halves; f32:
+    the wide route); in bf16 264 and 512 (halves), 100 and 520 (the wide
+    route); and B * Hq 65,600 at T 64, dh 64 (past the grid's old y
+    dimension)."""
     g = GRANITE
     bf16 = torch.bfloat16
     f32 = dict(B=1, Hq=8, Hkv=2, T=1024, dh=128, dtype=torch.float32)
@@ -1111,6 +1133,19 @@ def check_flash(torch, fk, ref, gen, edge_gen):
               edge_gen),
              ("bf16_1024_dh32", dict(f32, dh=32, dtype=bf16), True, 0,
               edge_gen))
+    # every head width repro answers: the instances of 96 and 256,
+    # 40 and 80 padded to the next instance, 320 (bf16: O in halves; f32:
+    # the wide route), in both dtypes; bf16 264 and 512 (halves), 100 and
+    # 520 (the wide route); then more heads than the grid's old y held
+    for dh in (96, 256, 40, 80, 320, 264, 512, 100, 520):
+        for dtype in ((bf16, torch.float32) if dh <= 320 else (bf16,)):
+            name = f"{'bf16' if dtype == bf16 else 'f32'}_1024_dh{dh}"
+            cases += ((name, dict(f32, dh=dh, dtype=dtype), True, 0,
+                       edge_gen),)
+    many = dict(B=1, Hq=65600, Hkv=65600, T=64, dh=64)
+    cases += (("bf16_bhq65600", dict(many, dtype=bf16), True, 0, edge_gen),
+              ("f32_bhq65600", dict(many, dtype=torch.float32), True, 0,
+               edge_gen))
     rows = {}
     for name, shape, causal, window, draw in cases:
         q, k, v = attention_inputs(torch, draw, **shape)
@@ -1143,6 +1178,70 @@ def check_flash(torch, fk, ref, gen, edge_gen):
                             f"via {how}",
             "library_max_abs_err": lib_err, "library_excess": lib_excess,
             **rl.flash_attention_floors(work), "checks": rows}
+
+
+# the timed attention rows of the routes beside granite's: Phi-3-mini's
+# widths (dh 96: hidden 3072 over 32 heads), Gemma 7B's (dh 256), dh 320
+# and 512 (O in two halves), float32 at 96 and 256, and the wide route
+# (bf16 rows of 200 bytes; f32 past 256), each (name, shape, dtype, model)
+_T1024 = dict(B=1, Hq=8, Hkv=2, T=1024)
+ATTN_ROWS = (("tc96", dict(B=1, Hq=32, Hkv=32, T=4096, dh=96), "bfloat16",
+              "Phi-3-mini"),
+             ("tc256", dict(B=1, Hq=16, Hkv=16, T=4096, dh=256), "bfloat16",
+              "Gemma 7B"),
+             ("tc320", dict(_T1024, dh=320), "bfloat16", None),
+             ("tc512", dict(_T1024, dh=512), "bfloat16", None),
+             ("simt96", dict(_T1024, dh=96), "float32", None),
+             ("simt256", dict(_T1024, dh=256), "float32", None),
+             ("wide_bf16", dict(_T1024, dh=100), "bfloat16", None),
+             ("wide_f32", dict(_T1024, dh=320), "float32", None))
+
+
+def route_flash(torch, fk, ref, gen):
+    """flash_attention's routes beside the granite row (ATTN_ROWS), causal:
+    each held to the float32 plain version under attention_check's limit,
+    timed beside its bound (rl.flash_attention_work at the inputs' type),
+    the plain version's time and SDPA's on the same inputs, with SDPA's
+    own excess under the same limit recorded, not held.  One table row
+    each, named by route (its launches: the attention phase's run)."""
+    rows = []
+    for route, shape, dtype, model in ATTN_ROWS:
+        dt = getattr(torch, dtype)
+        require(fk.route(dt, shape["dh"]) == route.split("_")[0],
+                f"flash_attention dh {shape['dh']} {dtype}: route "
+                f"{fk.route(dt, shape['dh'])}")
+        q, k, v = attention_inputs(torch, gen, dtype=dt, **shape)
+        out = fk.flash_attention(q, k, v)
+        err, rtol = attention_check(torch, out, ref, q, k, v, route)
+        ms = time_ms(torch, lambda: fk.flash_attention(q, k, v))
+        plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v), 3,
+                        1)
+        lib_fn, how = sdpa(torch, q, k, v)
+        lib = time_ms(torch, lib_fn)
+        lib_err, lib_excess, _ = attention_excess(
+            torch, lib_fn(), ref.flash_attention_ref(q.float(), k.float(),
+                                                     v.float()))
+        work = rl.flash_attention_work(shape["B"], shape["Hq"], shape["Hkv"],
+                                       shape["T"], shape["T"], shape["dh"],
+                                       elem_bytes=q.element_size())
+        bms, by = work.bound()
+        desc = (f"B {shape['B']}, Hq {shape['Hq']}, Hkv {shape['Hkv']}, "
+                f"T = S = {shape['T']}, dh {shape['dh']}, {dtype}, causal"
+                + (f" ({model}'s widths)" if model else ""))
+        row = route_row("flash_attention", route,
+                        "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:36", desc, err,
+                        ms, plain, bms, by,
+                        {"plain version": f"rtol {rtol} + atol 2e-5"})
+        row |= {"library_ms": lib,
+                "library_call": f"scaled_dot_product_attention("
+                                f"is_causal=True) via {how}",
+                "library_max_abs_err": lib_err,
+                "library_excess": lib_excess}
+        rows.append(row)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return rows
 
 
 # ------------------------------------------------------------------ routes
@@ -1366,6 +1465,106 @@ def route_ed_argmin(torch, isax, edk, ref, gen, n=1 << 20):
                      rows["f32"]["max_abs_err"], ms, plain, bms, by, rows)
 
 
+def grid_strides(torch, kmods, ref, gen):
+    """The kernels whose grid's y dimension takes query tiles, at more
+    tiles than it holds (65,535), which go in launches of at most as many
+    (each on its slice of the queries):
+    lb_distance's tiled route (128 queries a tile) at 65,535 x 128 + 100
+    queries over 16 leaves, its looped route (32 a tile) at 65,535 x 32 +
+    100 over 64, and ed_argmin's general route (32 a group, L 100) at
+    65,535 x 32 + 100 over 64 series; each against its plain version in
+    chunks of queries (the bounds to 1e-5, as route_lb holds them; the
+    scan's distances to matmul_tol, its ids counted where they differ)."""
+    lbk, edk = kmods["lb_distance"], kmods["ed_argmin"]
+    out = {}
+    for w, tile, NL in ((16, 128, 16), (10, 32, 64)):
+        Qn = 65535 * tile + 100
+        q = torch.randn(Qn, w, generator=gen, device=DEV)
+        lo = torch.randn(NL, w, generator=gen, device=DEV) - 0.5
+        hi = lo + torch.rand(NL, w, generator=gen, device=DEV)
+        dk = lbk.lb_distance(q, lo, hi)
+        err = 0.0
+        for a in range(0, Qn, 1 << 20):
+            dr = ref.lb_distance_ref(q[a:a + (1 << 20)], lo, hi)
+            require(torch.allclose(dk[a:a + (1 << 20)], dr, rtol=1e-5,
+                                   atol=1e-5),
+                    f"lb_distance {lbk.route(w)}, {Qn} queries: differs")
+            err = max(err, (dk[a:a + (1 << 20)] - dr).abs().max().item())
+        out[f"lb_distance/{lbk.route(w)}"] = {"queries": Qn, "leaves": NL,
+                                              "max_abs_err": err}
+        del q, dk
+    Qn, N, Lx = 65535 * 32 + 100, 64, 100
+    q = torch.randn(Qn, Lx, generator=gen, device=DEV)
+    xs = torch.randn(N, Lx, generator=gen, device=DEV)
+    require(edk.route(Lx) == "general", "ed_argmin L 100: route")
+    dk, ik = edk.ed_argmin(q, xs)
+    dr, ir = ref.ed_argmin_ref(q, xs)
+    qsq, xsq = (q * q).sum(1), (xs * xs).sum(1)
+    tie = ik != ir
+    # an id may differ only where the two distances agree (a near-tie)
+    require(bool((dk - dr).abs().le(matmul_tol(dr, qsq, xsq[ir.long()]))
+                 .all()),
+            f"ed_argmin general, {Qn} queries: differs")
+    out["ed_argmin/general"] = {"queries": Qn, "series": N, "L": Lx,
+                                "max_abs_err": (dk - dr).abs().max().item(),
+                                "ids_differing": int(tie.sum())}
+    return {"phase": "grid", **out}
+
+
+# flash_attention past 65,535 blocks of query rows, each route in two
+# launches: (route, dtype, dh), T = 65,535 blocks of its rows + 3 blocks,
+# one head, causal, window ATTN_LONG_WINDOW
+ATTN_LONG = (("wide", "bfloat16", 100), ("simt32", "float32", 32),
+             ("tc32", "bfloat16", 32))
+ATTN_LONG_WINDOW = 64
+
+
+def attention_rows_past_the_grid(torch, fk, ref, gen):
+    """flash_attention at more query blocks than the grid's y dimension
+    holds (ATTN_LONG: 1,048,608 rows on the wide route, 4,194,432 on the
+    FMAs, 8,388,864 on the tensor cores), causal under a window of 64:
+    two launches, the last 65,535 blocks first; rows at the start, on
+    each side of the launches' seam and at the end, 256 each, held under
+    the existing limits (attention_excess) to the plain version on the
+    rows and keys they see (rows t see keys t - 63 .. t, so a slice from
+    64 keys before its rows is exact)."""
+    out = {}
+    for name, dtype, dh in ATTN_LONG:
+        dtype = getattr(torch, dtype)
+        rows = fk.ROWS[name.rstrip("0123456789")]
+        T = fk.MAX_QBLOCKS * rows + 3 * rows
+        require(fk.route(dtype, dh) == name
+                and fk.query_launches(T, name) == 2,
+                f"flash_attention T {T} dh {dh}: route")
+        q, k, v = attention_inputs(torch, gen, 1, 1, 1, T, dh, dtype)
+        before = dict(fk.by_route)
+        o = fk.flash_attention(q, k, v, causal=True, window=ATTN_LONG_WINDOW)
+        require(fk.by_route.get(name, 0) - before.get(name, 0) == 2,
+                f"flash_attention T {T}: launches")
+        seam = (-(-T // rows) - fk.MAX_QBLOCKS) * rows
+        err = 0.0
+        for a in (0, max(0, seam - 128), T - 256):
+            lo = max(0, a - ATTN_LONG_WINDOW)
+            part = slice(lo, a + 256)
+            plain = ref.flash_attention_ref(
+                q[:, :, part].float(), k[:, :, part].float(),
+                v[:, :, part].float(), causal=True,
+                window=ATTN_LONG_WINDOW)[:, :, a - lo:]
+            got = o[:, :, a:a + 256]
+            require(bool(torch.isfinite(got).all()),
+                    f"flash_attention {name} T {T}: not finite")
+            e, excess, rtol = attention_excess(torch, got, plain)
+            require(excess <= 0, f"flash_attention {name} T {T} rows {a}..: "
+                    f"off by {e}, {excess} beyond rtol {rtol} + atol 2e-5")
+            err = max(err, e)
+        out[f"flash_attention/{name}_T{T}"] = {
+            "T": T, "dh": dh, "dtype": str(dtype), "launches": 2,
+            "seam_row": seam, "max_abs_err": err}
+        del q, k, v, o
+        torch.cuda.empty_cache()
+    return out
+
+
 def check_routes(torch, api, isax, search, kmods, ref, gen):
     """Each route a shape takes beside the main cell's, against its plain
     version; one kernel-table row each."""
@@ -1375,6 +1574,7 @@ def check_routes(torch, api, isax, search, kmods, ref, gen):
     rows += route_refine_search(torch, api, search, kmods["refine_search"],
                                 ref, gen)
     rows.append(route_ed_argmin(torch, isax, kmods["ed_argmin"], ref, gen))
+    rows += route_flash(torch, kmods["flash_attention"], ref, gen)
     return rows
 
 
@@ -1721,8 +1921,28 @@ def attention_phase(torch, ops, kmods, ref, gen):
     require(launches["flash_attention"] > 0,
             "flash_attention was not launched")
     err, _ = attention_check(torch, out, ref, q, k, v, "phase")
+    del q, k, v, out
+    # each other route's shape (ATTN_ROWS) through the same entry point,
+    # every count at 0 first; its launches are its table row's
+    routes = {}
+    for route, shape, dtype, _ in ATTN_ROWS:
+        q, k, v = attention_inputs(torch, gen, dtype=getattr(torch, dtype),
+                                   **shape)
+        fk = kmods["flash_attention"]
+        reset(kmods)
+        out = ops.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        name = f"flash_attention/{route}"
+        routes[name] = fk.by_route.get(route.split("_")[0], 0)
+        require(routes[name] > 0 and fk.launches == routes[name],
+                f"{name} was not launched ({dict(fk.by_route)})")
+        attention_check(torch, out, ref, q, k, v, f"phase {route}")
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    launches |= routes
     return {"phase": "attention", **g, "dtype": "bfloat16", "causal": True,
-            "wall_ms": wall, "max_abs_err": err, "launches": launches}, launches
+            "wall_ms": wall, "max_abs_err": err, "launches": launches,
+            "routes": {r[0]: r[1] for r in ATTN_ROWS}}, launches
 
 
 def reset(kmods) -> None:
@@ -2983,12 +3203,24 @@ DTW_WIDER_R, DTW_WIDER_BRUTE, DTW_WIDER_CUT = (51, 102), 32, 1 << 15
 # route, which it replaced for 16 < r <= 255, once at r 25 on
 # DTW_GENERAL_Q queries
 DTW_GENERAL_Q = 8
+# the long-series run: (series, L, radii), 32 queries each: the UCR
+# archive's HandOutlines length (2,709) over 2^16 walks (0.71 GB) at 1 %
+# and 5 % bands, and 8,192 points over 2^14 (0.54 GB) at 1 %
+DTW_LONG = ((1 << 16, 2709, (27, 135)), (1 << 14, 8192, (81,)))
+DTW_LONG_Q = 32
 # lb_keogh at other lengths: (series, L, queries, r 5 % of L)
 DTW_LB_SHAPES = ((1 << 20, 1024, 24, 51), (1 << 22, 100, 32, 5))
 # pairs a dtw_band_ref call of dtw_search_ref takes on the card (its answer
 # is the same at any chunk; 2^20 pairs of 256 hold ~3 GiB and take ~16x
 # fewer host-driven DP sweeps than its default 2^16)
 DTW_REF_PAIRS = 1 << 20
+# the long-query run: past the longest query a kernel stages in shared
+# memory (kernels.dtw.STAGE_L, 16,384 points), (series, L, queries, radii):
+# every route of both kernels that takes each radius, bit for bit
+DTW_LONGQ = (256, 16400, 4, (12, 40, 200))
+# the band past a block's shared memory (r > 25,599, the diag routes'
+# default): (series, L, queries, r)
+DTW_DEVBAND = (3, 25700, 2, 25650)
 DTW_SRC = "src/repro_torch/kernels/csrc/dtw.cu"
 DTW_REPLACES = ("none: a port-side kernel (src/repro/core/dtw.py:{} {} is "
                 "plain jnp, no Pallas kernel)")
@@ -3035,7 +3267,8 @@ def scan_rows(torch, kd, ref, x, q, r, want, launches, plain=None):
 
 
 def needed_cells(torch, ref, q, x, sorted_lb, order, trace, r: int,
-                 round_k: int, cells: int, chunk: int = 1 << 18) -> int:
+                 round_k: int, cells: int, chunk: int = 1 << 18,
+                 check: bool = True) -> int:
     """The cells an early-abandoning refinement needs: for each candidate
     that dtw_search_ref refined (its `trace`: each round's start and the
     best-so-far there; the round's candidates below it are refined), the
@@ -3045,7 +3278,8 @@ def needed_cells(torch, ref, q, x, sorted_lb, order, trace, r: int,
     cell comes from ref.dtw_wavefront_ref(step_least=True) on the card,
     `chunk` pairs a call.  Stopping at the first such step, against the
     best-so-far of the round's start, no kernel of these rounds forms
-    fewer cells."""
+    fewer cells.  `check=False`: the model without its bookkeeping's
+    asserts (ref.dtw_wavefront_ref), for the long series."""
     N = x.shape[0]
     qi, sid, cut = [], [], []
     for g, (starts, bsf) in enumerate(trace):
@@ -3062,7 +3296,7 @@ def needed_cells(torch, ref, q, x, sorted_lb, order, trace, r: int,
     for a in range(0, len(qi), chunk):
         _, least = ref.dtw_wavefront_ref(q[qi[a:a + chunk]],
                                          x[sid[a:a + chunk]], r, cells,
-                                         step_least=True)
+                                         step_least=True, check=check)
         hit = least >= cut[a:a + chunk, None]
         hit[:, :r // cells] = False     # no cell yet: cell (0, 0) is the first
         stop = torch.where(hit.any(1), hit.int().argmax(1),
@@ -3080,8 +3314,9 @@ def rel_err(torch, a, b) -> float:
 def dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk):
     """Collection, queries (z-normalized) and the three kernels against
     their plain versions at one small shape: lb_keogh to 1e-5 relative,
-    dtw_search and dtw_scan (on every route that takes the radius, after
-    the clamp to L - 1) bit for bit.  Returns the check's numbers."""
+    dtw_search (its default route and the diag route) and dtw_scan (on
+    every route that takes the radius, after the clamp to L - 1, diag
+    too) bit for bit.  Returns the check's numbers."""
     x = isax.znormalize(walks(torch, gen, n, Lx)).contiguous()
     pick = torch.randint(0, n, (nq,), generator=gen, device=DEV)
     q = isax.znormalize(x[pick] + 0.1 * torch.randn(
@@ -3094,8 +3329,12 @@ def dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk):
     want = ref.dtw_search_ref(q, x, s, o, r, rk)
     require(all(torch.equal(a, b) for a, b in zip(got, want)),
             f"dtw_search N {n} L {Lx} r {r} round_k {rk}: not bit-equal")
+    diag = kd.dtw_search(q, x, s, o, r=r, round_k=rk, route="diag")
+    require(all(torch.equal(a, b) for a, b in zip(diag, want)),
+            f"dtw_search diag N {n} L {Lx} r {r} round_k {rk}: not "
+            f"bit-equal")
     d2r, ir = ref.dtw_scan_ref(q, x, min(r, Lx - 1))
-    routes = kd.scan_routes(min(r, Lx - 1))
+    routes = kd.scan_routes(min(r, Lx - 1), Lx)
     for route in routes:
         d2, i = kd.dtw_scan(q, x, r=r, route=route)
         require(torch.equal(d2, d2r) and torch.equal(i, ir),
@@ -3105,6 +3344,7 @@ def dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk):
     return {"N": n, "L": Lx, "queries": nq, "r": r, "round_k": rk,
             "lb_rel_err": lb_err, "rounds_max": int(got[2].max()),
             "refined": int(got[3].sum()), "search": "bit-equal",
+            "search_routes": [kd.dp_route(min(r, Lx - 1), Lx, rk), "diag"],
             "scan": "bit-equal", "scan_routes": list(routes)}
 
 
@@ -3124,7 +3364,12 @@ def dtw_edges(torch, isax, kd, ref, gen):
     scan's chunks taken smaller to fill the card), r = L - 1, 2L and 900
     at L 16, L 1024 at r 1023 (the general routes, blocks of 16
     threads), and dtw_search at r 128 with round_k 256 and 1024 (its
-    general route in passes)."""
+    general route in passes).  Past the old limits: L 1,025 at r 3 and
+    40 (the ring routes: ring2, ring4 and the scan's ring16), round_k
+    2,048 at L 64 (the general route in two passes; rounds and candidates
+    refined equal to dtw_search_ref's, as every run's), and 65,600
+    queries through the scan (dtw_many_queries).  Every run holds the
+    diag routes of both kernels too."""
     edges = []
     wide = [(2999, 100, 4, r, 32) for r in (17, 25, 31, 32, 63, 64, 128,
                                             255)]
@@ -3140,9 +3385,12 @@ def dtw_edges(torch, isax, kd, ref, gen):
                              (3000, 100, 8, 16, 32), (2000, 100, 4, 16, 100),
                              (2000, 100, 4, 0, 64), (600, 100, 4, 40, 32),
                              *wide, (1001, 101, 4, 20, 32),
-                             (20, L, 4, DTW_R, 32), (1000, L, 4, DTW_R, 16)):
+                             (20, L, 4, DTW_R, 32), (1000, L, 4, DTW_R, 16),
+                             (2000, 1025, 8, 3, 32), (600, 1025, 4, 40, 32),
+                             (5000, 64, 8, 3, 2048)):
         edges.append(dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r,
-                               rk) | {"route": kd.dp_route(min(r, Lx - 1)),
+                               rk) | {"route": kd.dp_route(min(r, Lx - 1),
+                                                           Lx, rk),
                                       "lb_route": kd.lb_route(Lx)})
     require(kd.lb_route(100) == kd.lb_route(L) == "vec"
             and kd.lb_route(101) == "scalar"
@@ -3154,9 +3402,248 @@ def dtw_edges(torch, isax, kd, ref, gen):
             and kd.scan_route(17) == kd.scan_route(255) == "wave16"
             and kd.scan_route(256) == "general", "dtw routes")
     ran = {r for e in edges for r in e["scan_routes"]}
-    require(ran == {"band", "wave16", "general"},
+    require(ran == {"band", "wave16", "ring16", "general", "diag"},
             f"the edge runs' scan routes {ran}")
-    return edges
+    return edges + [dtw_many_queries(torch, kd, ref, gen)]
+
+
+def dtw_many_queries(torch, kd, ref, gen, nq=65600, n=64, Lx=16, r=3):
+    """dtw_scan of more queries than a grid dimension holds (65,600 at L
+    16 over 64 series) on its default (band) and general routes, which
+    take them in two launches of at most 65,535, and its diag route, each
+    bit for bit against dtw_scan_ref."""
+    x = walks(torch, gen, n, Lx)
+    q = x[torch.randint(0, n, (nq,), generator=gen, device=DEV)] \
+        + 0.1 * torch.randn(nq, Lx, generator=gen, device=DEV)
+    want = ref.dtw_scan_ref(q, x, r)
+    for route in kd.scan_routes(r, Lx):
+        got = kd.dtw_scan(q, x, r=r, route=route)
+        require(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                f"dtw_scan {route}, {nq} queries: not bit-equal")
+    return {"N": n, "L": Lx, "queries": nq, "r": r,
+            "scan_routes": list(kd.scan_routes(r, Lx)), "scan": "bit-equal"}
+
+
+def dtw_long_queries(torch, isax, kmods, ref, gen):
+    """The long-query run (DTW_LONGQ): L 16,400, past the longest query a
+    kernel stages (16,384), over 256 z-normalized walks, 4 queries
+    (collection series plus N(0, 0.1) noise), at r 12, 40 and 200.  At
+    each radius, one dtw_band_ref call gives every pair's distance, which
+    the plain versions read (ref.dtw_search_ref and ref.dtw_scan_ref,
+    d_pairs): lb_keogh to 1e-5 relative; dtw_search on its default route
+    (ring2, ring4, ring16: the query read from device memory), its
+    general route (LONGQ) and its diag route, bit for bit at round_k 32
+    (8 rounds, pruned and abandoned) and, but for diag, at round_k 256
+    (one round: nothing pruned or abandoned, the timed launch, whose
+    bound is every refined pair's cells; diag: the round_k 32 launch);
+    dtw_scan on every route that takes the radius (band or ring16,
+    general, diag), bit for bit, then timed on one more launch.  Each
+    route's time beside its bound; launches are this run's.  Returns (reports,
+    launches, rows)."""
+    kd = kmods["dtw"]
+    n, Lx, nq, radii = DTW_LONGQ
+    x = isax.znormalize(walks(torch, gen, n, Lx)).contiguous()
+    pick = torch.randint(0, n, (nq,), generator=gen, device=DEV)
+    q = isax.znormalize(x[pick] + 0.1 * torch.randn(
+        nq, Lx, generator=gen, device=DEV)).contiguous()
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+
+    def once(fn):                        # (fn(), its device ms)
+        e = [ev(), ev()]
+        e[0].record()
+        out = fn()
+        e[1].record()
+        torch.cuda.synchronize()
+        return out, e[0].elapsed_time(e[1])
+    reps, launches, rows = [], {}, []
+    for r in radii:
+        t_run = time.perf_counter()
+        tag = f"L{Lx}_r{r}"
+        reset(kmods)
+        lb = kd.lb_keogh(q, x, r=r)
+        lb_err = rel_err(torch, lb, ref.lb_keogh_ref(q, x, r))
+        require(lb_err <= 1e-5, f"lb_keogh L {Lx} r {r}: {lb_err}")
+        s, o = torch.sort(lb, dim=1, stable=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp = ref.dtw_band_ref(q[:, None], x[None], r)
+        torch.cuda.synchronize()
+        band_ms = (time.perf_counter() - t0) * 1e3
+        plain, want = {}, {}
+        for rk in (DTW_RK, n):
+            t0 = time.perf_counter()
+            want[rk] = ref.dtw_search_ref(q, x, s, o, r, rk, d_pairs=dp)
+            torch.cuda.synchronize()
+            plain[rk] = band_ms + (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        scan_want = ref.dtw_scan_ref(q, x, r, d_pairs=dp)
+        torch.cuda.synchronize()
+        scan_plain = band_ms + (time.perf_counter() - t0) * 1e3
+        require(bool((want[DTW_RK][0] == scan_want[0]).all()),
+                f"dtw L {Lx} r {r}: search and scan distances differ")
+        made, checks = [], {}
+        for route in dict.fromkeys((kd.dp_route(r, Lx, DTW_RK), "general",
+                                    "diag")):
+            # the last launch timed (the route's kernel loaded by then:
+            # the edge runs launch diag)
+            for rk in ((DTW_RK,) if route == "diag" else (DTW_RK, n)):
+                got, ms = once(lambda: kd.dtw_search(
+                    q, x, s, o, r=r, round_k=rk, route=route))
+                require(all(torch.equal(a, b)
+                            for a, b in zip(got, want[rk])),
+                        f"dtw_search {route} L {Lx} r {r} round_k {rk}: "
+                        f"not bit-equal to dtw_search_ref")
+            n_ref, n_rounds = int(got[3].sum()), int(got[2].sum())
+            bms, by = rl.dtw_search_work(n_ref * rl.dtw_cells(Lx, r), n_ref,
+                                         Lx, n_rounds, rk).bound()
+            checks[f"dtw_search/{route}"] = "bit-equal to dtw_search_ref"
+            made.append(route_row(
+                "dtw_search", f"{route}_{tag}", DTW_SRC,
+                DTW_REPLACES.format(122, "search_dtw"),
+                f"{nq} queries x {n} series, L {Lx}, r {r}, round_k {rk} "
+                f"({n_rounds} rounds, {n_ref} refined: none abandoned)",
+                0.0, ms, plain[rk], bms, by,
+                {"round_k 32 and 256" if route != "diag" else "round_k 32":
+                 "bit-equal to dtw_search_ref"}))
+        for route in kd.scan_routes(r, Lx):
+            got, ms = once(lambda: kd.dtw_scan(q, x, r=r, route=route))
+            require(torch.equal(got[0], scan_want[0])
+                    and torch.equal(got[1], scan_want[1]),
+                    f"dtw_scan {route} L {Lx} r {r}: not bit-equal to "
+                    f"dtw_scan_ref")
+            ms = time_ms(torch, lambda: kd.dtw_scan(q, x, r=r, route=route),
+                         1, 0)
+            bms, by = rl.dtw_scan_work(nq, n, Lx, r).bound()
+            checks[f"dtw_scan/{route}"] = "bit-equal to dtw_scan_ref"
+            made.append(route_row(
+                "dtw_scan", f"{route}_{tag}", DTW_SRC,
+                DTW_REPLACES.format(173, "search_dtw_bruteforce"),
+                f"{nq} queries x {n} series, L {Lx}, r {r}", 0.0, ms,
+                scan_plain, bms, by, {"all queries":
+                                      "bit-equal to dtw_scan_ref"}))
+        routes = dict(kd.by_route)
+        for row in made:
+            kernel, rt = row["name"].split("/")
+            launches[row["name"]] = routes.get(
+                f"{kernel}/{rt[:-len(tag) - 1]}", 0)
+        rows += made
+        reps.append({"series": n, "L": Lx, "queries": nq, "r": r,
+                     "lb_rel_err": lb_err, "band_ref_ms": band_ms,
+                     "checks": checks, "by_route": routes,
+                     "kernels": {row["name"]: {k: row[k] for k in (
+                         "ms", "bound_ms", "plain_ms")}
+                         | {"launches": launches[row["name"]]}
+                         for row in made},
+                     "seconds": time.perf_counter() - t_run})
+        del lb, s, o, dp
+    del x, q
+    torch.cuda.empty_cache()
+    return reps, launches, rows
+
+
+def dtw_device_band(torch, isax, kmods, ref, gen):
+    """A band past a block's shared memory (DTW_DEVBAND: L 25,700, r
+    25,650, 3 walks, 2 queries), through core.dtw.search_dtw and
+    search_dtw_bruteforce, every count at 0 first: both take the diag
+    routes (a pair a block, the band in device scratch).  Holds: ids
+    equal, distances equal to the brute force's; each kernel at its
+    launch held to its plain version (lb_keogh to 1e-5, dtw_search and
+    dtw_scan bit for bit against dtw_search_ref and dtw_scan_ref on one
+    dtw_band_ref call's distances), each launch timed once, beside its
+    bound (every refined pair's cells: the diag route abandons none).
+    Returns (report, launches, rows)."""
+    from repro_torch.core import dtw as cdtw
+    kd = kmods["dtw"]
+    n, Lx, nq, r = DTW_DEVBAND
+    t_run = time.perf_counter()
+    raw = walks(torch, gen, n, Lx)
+    pick = torch.randint(0, n, (nq,), generator=gen, device=DEV)
+    queries = isax.znormalize(raw[pick]) + 0.1 * torch.randn(
+        nq, Lx, generator=gen, device=DEV)
+    torch.cuda.synchronize()
+    reset(kmods)
+    t0 = time.perf_counter()
+    d, ids = cdtw.search_dtw(raw, queries, r=r, round_k=DTW_RK, device=DEV)
+    torch.cuda.synchronize()
+    search_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    bd, bi = cdtw.search_dtw_bruteforce(raw, queries, r=r, device=DEV)
+    torch.cuda.synchronize()
+    brute_ms = (time.perf_counter() - t0) * 1e3
+    routes = dict(kd.by_route)
+    chunks = -(-Lx // kd.lb_chunk(Lx))
+    require(routes == {f"lb_keogh/{kd.lb_route(Lx)}": chunks,
+                       "dtw_search/diag": 1, "dtw_scan/diag": 1},
+            f"dtw L {Lx} r {r}: launches by route {routes}")
+    require(bool(torch.isfinite(d).all()) and torch.equal(d, bd)
+            and torch.equal(ids, bi),
+            f"dtw L {Lx} r {r} vs brute force: {d.tolist()} {bd.tolist()}, "
+            f"ids {ids.tolist()} {bi.tolist()}")
+    x = isax.znormalize(raw).contiguous()
+    qz = isax.znormalize(queries).contiguous()
+    lb = kd.lb_keogh(qz, x, r=r)
+    lb_err = rel_err(torch, lb, ref.lb_keogh_ref(qz, x, r))
+    require(lb_err <= 1e-5, f"lb_keogh L {Lx} r {r}: {lb_err}")
+    s, o = torch.sort(lb, dim=1, stable=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp = ref.dtw_band_ref(qz[:, None], x[None], r)
+    torch.cuda.synchronize()
+    band_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = ref.dtw_search_ref(qz, x, s, o, r, DTW_RK, d_pairs=dp)
+    torch.cuda.synchronize()
+    search_plain = band_ms + (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    scan_want = ref.dtw_scan_ref(qz, x, r, d_pairs=dp)
+    torch.cuda.synchronize()
+    scan_plain = band_ms + (time.perf_counter() - t0) * 1e3
+    e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    e[0].record()
+    got = kd.dtw_search(qz, x, s, o, r=r, round_k=DTW_RK)
+    e[1].record()
+    d2, i2 = kd.dtw_scan(qz, x, r=r)
+    e[2].record()
+    torch.cuda.synchronize()
+    search_k_ms, scan_ms = e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2])
+    require(all(torch.equal(a, b) for a, b in zip(got, want)),
+            f"dtw_search diag L {Lx} r {r}: not bit-equal to dtw_search_ref")
+    require(torch.equal(d2, scan_want[0]) and torch.equal(i2, scan_want[1])
+            and torch.equal(torch.sqrt(d2), bd) and torch.equal(i2, bi),
+            f"dtw_scan diag L {Lx} r {r}: differs from dtw_scan_ref or the "
+            f"brute force's")
+    tag = f"L{Lx}_r{r}"
+    n_ref, n_rounds = int(got[3].sum()), int(got[2].sum())
+    cells = rl.dtw_cells(Lx, r)
+    shape = f"{nq} queries x {n} series, L {Lx}, r {r}"
+    rows = []
+    bms, by = rl.dtw_search_work(n_ref * cells, n_ref, Lx, n_rounds,
+                                 DTW_RK).bound()
+    rows.append(route_row(
+        "dtw_search", f"diag_{tag}", DTW_SRC,
+        DTW_REPLACES.format(122, "search_dtw"),
+        f"{shape}, round_k {DTW_RK}, {n_ref} refined", 0.0, search_k_ms,
+        search_plain, bms, by, {"all queries": "bit-equal to "
+                                "dtw_search_ref"}))
+    bms, by = rl.dtw_scan_work(nq, n, Lx, r).bound()
+    rows.append(route_row(
+        "dtw_scan", f"diag_{tag}", DTW_SRC,
+        DTW_REPLACES.format(173, "search_dtw_bruteforce"), shape, 0.0,
+        scan_ms, scan_plain, bms, by,
+        {"all queries": "bit-equal to dtw_scan_ref and the brute force"}))
+    launches = {f"{k}/diag_{tag}": routes.get(f"{k}/diag", 0)
+                for k in ("dtw_search", "dtw_scan")}
+    rep = {"series": n, "L": Lx, "queries": nq, "r": r,
+           "search_dtw_ms": search_ms, "bruteforce_ms": brute_ms,
+           "band_ref_ms": band_ms, "lb_rel_err": lb_err, "by_route": routes,
+           "cells_a_pair": cells, "refined": n_ref,
+           "kernels": {row["name"]: {k: row[k] for k in (
+               "ms", "bound_ms", "plain_ms")}
+               | {"launches": launches[row["name"]]} for row in rows},
+           "seconds": time.perf_counter() - t_run}
+    del raw, queries, x, qz, lb, s, o, dp
+    torch.cuda.empty_cache()
+    return rep, launches, rows
 
 
 def dtw_wide(torch, isax, kmods, ref, x, qz):
@@ -3417,6 +3904,162 @@ def dtw_wider(torch, kd, ref, x, qz):
     return reps, launches, rows
 
 
+def dtw_long(torch, isax, kmods, ref, gen):
+    """The long-series run (DTW_LONG): for each (series, L, radii), random
+    walks made from the seed and DTW_LONG_Q queries (collection series
+    z-normalized, then N(0, 0.1) noise), through core.dtw.search_dtw and
+    search_dtw_bruteforce at each radius, every count at 0 first (the
+    launches by route are these two calls').  Holds: ids equal to the
+    brute force's but at ties, distances to 1e-5; then each kernel at the
+    search's launch (the group's LB in lb_chunk(L) launches, its
+    refinement, the brute force's scan), its first query against its
+    plain version (LB to 1e-5, the scan bit for bit; the refinement, on a
+    ring route at every radius here (ring16 at r 135), of the whole group
+    bit for bit, whose trace gives the cells an abandoning DP needs, its
+    bound), and its time beside its bound.  Returns (reports, launches,
+    rows)."""
+    from repro_torch.core import dtw as cdtw
+    kd = kmods["dtw"]
+    reps, launches, rows = [], {}, []
+    for n, Lx, radii in DTW_LONG:
+        raw = walks(torch, gen, n, Lx)
+        pick = torch.randint(0, n, (DTW_LONG_Q,), generator=gen, device=DEV)
+        queries = isax.znormalize(raw[pick]) + 0.1 * torch.randn(
+            DTW_LONG_Q, Lx, generator=gen, device=DEV)
+        x = isax.znormalize(raw).contiguous()
+        qz = isax.znormalize(queries).contiguous()
+        for r in radii:
+            t_run = time.perf_counter()
+            torch.cuda.synchronize()
+            reset(kmods)
+            t0 = time.perf_counter()
+            d, ids = cdtw.search_dtw(raw, queries, r=r, round_k=DTW_RK,
+                                     device=DEV)
+            torch.cuda.synchronize()
+            search_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            bd, bi = cdtw.search_dtw_bruteforce(raw, queries, r=r,
+                                                device=DEV)
+            torch.cuda.synchronize()
+            brute_ms = (time.perf_counter() - t0) * 1e3
+            routes = dict(kd.by_route)
+            names = {"lb_keogh": kd.lb_route(Lx),
+                     "dtw_search": kd.dp_route(r, Lx, DTW_RK),
+                     "dtw_scan": kd.scan_route(r, Lx)}
+            chunks = -(-Lx // kd.lb_chunk(Lx))
+            require(routes == {f"lb_keogh/{names['lb_keogh']}": chunks,
+                               f"dtw_search/{names['dtw_search']}": 1,
+                               f"dtw_scan/{names['dtw_scan']}": 1},
+                    f"dtw L {Lx} r {r}: launches by route {routes}")
+            d_err = rel_err(torch, d, bd)
+            mism = ids != bi
+            require(bool(torch.isfinite(d).all()) and d_err <= 1e-5
+                    and (not bool(mism.any()) or bool(
+                        ((d[mism] - bd[mism]).abs() <= 1e-5 * bd[mism])
+                        .all())),
+                    f"dtw L {Lx} r {r} vs brute force: {d_err}, ids "
+                    f"{ids.tolist()} {bi.tolist()}")
+            # each kernel at the search's launch, its first query held to
+            # its plain version
+            tag = f"L{Lx}_r{r}"
+            lb = kd.lb_keogh(qz, x, r=r)
+            t0 = time.perf_counter()
+            lb_want = ref.lb_keogh_ref(qz[:1], x, r)
+            torch.cuda.synchronize()
+            lb_plain = (time.perf_counter() - t0) * 1e3
+            lb_err = rel_err(torch, lb[:1], lb_want)
+            require(lb_err <= 1e-5, f"lb_keogh L {Lx} r {r}: {lb_err}")
+            lb_ms = time_ms(torch, lambda: kd.lb_keogh(qz, x, r=r), 3, 1)
+            s, o = torch.sort(lb, dim=1, stable=True)
+            del lb
+            got = kd.dtw_search(qz, x, s, o, r=r, round_k=DTW_RK)
+            require(torch.equal(got[1], ids),
+                    f"dtw L {Lx} r {r}: the group's ids differ")
+            # a ring route abandons pairs: the whole group against the
+            # plain version, whose trace gives the cells it needs
+            trace = []
+            nq = DTW_LONG_Q
+            t0 = time.perf_counter()
+            want = ref.dtw_search_ref(qz, x, s, o, r, DTW_RK,
+                                      max_pairs=DTW_REF_PAIRS, trace=trace)
+            torch.cuda.synchronize()
+            search_plain = (time.perf_counter() - t0) * 1e3
+            require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                    f"dtw_search L {Lx} r {r}: not bit-equal to "
+                    f"dtw_search_ref")
+            search_k_ms = time_ms(torch, lambda: kd.dtw_search(
+                qz, x, s, o, r=r, round_k=DTW_RK), 3, 1)
+            n_ref, n_rounds = int(got[3].sum()), int(got[2].sum())
+            cells = needed_cells(torch, ref, qz, x, s, o, trace, r, DTW_RK,
+                                 kd.wave_cells(names["dtw_search"]),
+                                 check=False)
+            del s, o
+            scan_plain, pd2, pi = plain_scan(torch, ref, qz[:1], x, r)
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            e[0].record()
+            d2, i2 = kd.dtw_scan(qz, x, r=r)
+            e[1].record()
+            torch.cuda.synchronize()
+            scan_ms = e[0].elapsed_time(e[1])
+            require(torch.equal(torch.sqrt(d2), bd) and torch.equal(i2, bi)
+                    and torch.equal(d2[:1], pd2) and torch.equal(i2[:1], pi),
+                    f"dtw_scan L {Lx} r {r}: differs from the brute force's "
+                    f"or dtw_scan_ref")
+            shape = (f"{DTW_LONG_Q} queries x {n} series, L {Lx}, r {r}")
+            made = []
+            if r == radii[0]:            # the LB's work does not depend on r
+                bms, by = rl.lb_keogh_work(DTW_LONG_Q, n, Lx).bound()
+                made.append(route_row(
+                    "lb_keogh", f"{names['lb_keogh']}_L{Lx}", DTW_SRC,
+                    DTW_REPLACES.format(49, "lb_keogh"),
+                    f"{shape} ({chunks} column chunks of "
+                    f"{kd.lb_chunk(Lx)})", float(lb_err), lb_ms, lb_plain,
+                    bms, by, {"first query": "lb_keogh_ref to 1e-5 "
+                              "relative"}) | {"plain_queries": 1})
+                launches[made[-1]["name"]] = routes[
+                    f"lb_keogh/{names['lb_keogh']}"]
+            bms, by = rl.dtw_search_work(cells, n_ref, Lx, n_rounds,
+                                         DTW_RK).bound()
+            made.append(route_row(
+                "dtw_search", f"{names['dtw_search']}_{tag}", DTW_SRC,
+                DTW_REPLACES.format(122, "search_dtw"),
+                f"{shape}, round_k {DTW_RK}, {n_ref} refined", 0.0,
+                search_k_ms, search_plain, bms, by,
+                {"plain version": f"the first {nq} queries bit-equal to "
+                                  f"dtw_search_ref"}) | {
+                    "needed_cells": cells, "plain_queries": nq})
+            bms, by = rl.dtw_scan_work(DTW_LONG_Q, n, Lx, r).bound()
+            made.append(route_row(
+                "dtw_scan", f"{names['dtw_scan']}_{tag}", DTW_SRC,
+                DTW_REPLACES.format(173, "search_dtw_bruteforce"), shape,
+                0.0, scan_ms, scan_plain, bms, by,
+                {"brute force": "bit-equal", "first query":
+                 "bit-equal to dtw_scan_ref"}) | {"plain_queries": 1})
+            for kernel in ("dtw_search", "dtw_scan"):
+                launches[f"{kernel}/{names[kernel]}_{tag}"] = routes[
+                    f"{kernel}/{names[kernel]}"]
+            rows += made
+            reps.append({"series": n, "L": Lx, "r": r,
+                         "bytes": 4 * n * Lx, "queries": DTW_LONG_Q,
+                         "routes": names, "search_dtw_ms": search_ms,
+                         "bruteforce_ms": brute_ms,
+                         "ties_vs_bruteforce": int(mism.sum()),
+                         "dist_rel_err_vs_bruteforce": d_err,
+                         "rounds_max": int(got[2].max()),
+                         "refined": n_ref, "by_route": routes,
+                         "seconds": time.perf_counter() - t_run,
+                         "kernels": {row["name"]: {
+                             k: row[k] for k in ("ms", "bound_ms",
+                                                 "plain_ms")}
+                             | {"launches": launches[row["name"]]}
+                             for row in made}})
+            del got, want, d2, i2
+            torch.cuda.empty_cache()
+        del raw, queries, x, qz
+        torch.cuda.empty_cache()
+    return reps, launches, rows
+
+
 def dtw_lb_lengths(torch, isax, kd, ref, gen):
     """lb_keogh at the lengths other than the path's (DTW_LB_SHAPES: L
     1024, 4 GiB, one launch of lb_group(1024) = 24 queries; L 100, 32),
@@ -3479,7 +4122,10 @@ def dtw_path(torch, isax, kmods, ref, gen):
     query, and the table's rows: each kernel at the path's launch, and
     its other route at the same shape.  Then the wide-band run
     (dtw_wide), the wider bands' (dtw_wider), lb_keogh at other lengths
-    (dtw_lb_lengths) and the edge runs (dtw_edges)."""
+    (dtw_lb_lengths), the long series' (dtw_long), the edge runs
+    (dtw_edges), the long queries' (dtw_long_queries, past the longest
+    query a kernel stages) and a band past shared memory
+    (dtw_device_band, the diag routes)."""
     from repro_torch.core import dtw as cdtw
     kd = kmods["dtw"]
     t_phase = time.perf_counter()
@@ -3716,7 +4362,18 @@ def dtw_path(torch, isax, kmods, ref, gen):
     torch.cuda.empty_cache()
     rep["lb_lengths"], more_rows = dtw_lb_lengths(torch, isax, kd, ref, gen)
     rows += more_rows
+    rep["long"], more, more_rows = dtw_long(torch, isax, kmods, ref, gen)
+    launches |= more
+    rows += more_rows
     rep["edges"] = dtw_edges(torch, isax, kd, ref, gen)
+    rep["long_queries"], more, more_rows = dtw_long_queries(
+        torch, isax, kmods, ref, gen)
+    launches |= more
+    rows += more_rows
+    rep["device_band"], more, more_rows = dtw_device_band(
+        torch, isax, kmods, ref, gen)
+    launches |= more
+    rows += more_rows
     rep["rows"] = rows
     rep["seconds"] = time.perf_counter() - t_phase
     return rep, launches, rows
@@ -3903,6 +4560,12 @@ def main() -> int:
         rows.append(r)
         emit({"phase": "kernel", **r, "launches": kmods[name].launches,
               "result": "PASS"})
+    torch.cuda.empty_cache()
+    emit(grid_strides(torch, kmods, ref, more_gen))
+    torch.cuda.empty_cache()
+    emit({"phase": "grid", **attention_rows_past_the_grid(
+        torch, kmods["flash_attention"], ref,
+        torch.Generator(device=DEV).manual_seed(args.seed + 8))})
     torch.cuda.empty_cache()
     for r in check_routes(torch, api, isax, search, kmods, ref,
                           more_gen):

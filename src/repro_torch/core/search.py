@@ -20,7 +20,9 @@ The counterpart of `repro.core.search`'s local plan:
   re-rank     the winners' distances recomputed in direct form.
 
 A pending delta (rows added since the last compaction) is scanned exactly
-and merged in (`merge_delta_topk`, `snapshot_search_impl`).
+and merged in (`merge_delta_topk`, `snapshot_search_impl`).  repro's pure
+plans `search_plan` and `snapshot_search` take its keywords and run
+these.
 
 `run_search` resolves the knobs from `config=` / `tune=` as repro's does;
 `search` and `make_sharded_search` are repro's deprecated free functions,
@@ -428,6 +430,56 @@ def snapshot_search_impl(idx: FlatIndex, delta: torch.Tensor,
         round_leaves=round_leaves, znorm=znorm, max_rounds=max_rounds,
         pq_budget=pq_budget, stop_eps=stop_eps, stop_leaves=stop_leaves)
     return d, i, batch_rounds(rounds)
+
+
+_BACKENDS = ("ref", "pallas")
+
+
+def _check_backend(backend: str) -> None:
+    """repro's `backend` names how its round executes on the TPU (jnp or
+    the Pallas kernels); the port runs the same kernels either way, so the
+    knob is checked as repro checks it and changes nothing."""
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {_BACKENDS}, "
+                         f"got {backend!r}")
+
+
+def search_plan(idx: FlatIndex, queries: torch.Tensor, *, k: int = 1,
+                round_leaves: int = 8, znorm: bool = True,
+                max_rounds: Optional[int] = None, backend: str = "ref",
+                pq_budget: Optional[int] = None, stop_eps: float = 0.0,
+                stop_leaves: Optional[int] = None, dma_depth: int = 1,
+                block_q: int = 1
+                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """repro's pure plan `search_plan` under its keywords: (dist, ids,
+    rounds) of `search_plan_impl`.  `backend`, `dma_depth` and `block_q`
+    pick repro's TPU kernel structure, never what it returns; the port's
+    one refinement kernel answers for each."""
+    _check_backend(backend)
+    return search_plan_impl(idx, queries, k=k, round_leaves=round_leaves,
+                            znorm=znorm, max_rounds=max_rounds,
+                            pq_budget=pq_budget, stop_eps=stop_eps,
+                            stop_leaves=stop_leaves)
+
+
+def snapshot_search(idx: FlatIndex, delta: torch.Tensor,
+                    queries: torch.Tensor,
+                    delta_alive: Optional[torch.Tensor] = None, *, k: int,
+                    n_base: int, round_leaves: int = 8, znorm: bool = True,
+                    max_rounds: Optional[int] = None, backend: str = "ref",
+                    pq_budget: Optional[int] = None, stop_eps: float = 0.0,
+                    stop_leaves: Optional[int] = None, dma_depth: int = 1,
+                    block_q: int = 1
+                    ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """repro's pure plan `snapshot_search` under its keywords: (dist,
+    ids, rounds) of `snapshot_search_impl` (see `search_plan` for the
+    kernel-structure knobs)."""
+    _check_backend(backend)
+    return snapshot_search_impl(idx, delta, queries, delta_alive, k=k,
+                                n_base=n_base, round_leaves=round_leaves,
+                                znorm=znorm, max_rounds=max_rounds,
+                                pq_budget=pq_budget, stop_eps=stop_eps,
+                                stop_leaves=stop_leaves)
 
 
 def view_search_device(core: FlatIndex, delta_rows: Optional[torch.Tensor],

@@ -49,8 +49,12 @@
 //   coming by two shuffles a step (wave_cells): a pair takes about L + r /
 //   C steps over H = ceil((2r + 1) / C) lanes, and a warp runs 32 / H
 //   pairs side by side.  C is the template, r a runtime argument: 2, 4 or
-//   8 (r <= 31, 63, 127) for dtw_search, 16 (r <= 255) for dtw_scan.  The
-//   series is staged in shared memory first.
+//   8 (r <= 31, 63, 127) for dtw_search (and 16, r <= 255, past L 1,024),
+//   16 (r <= 255) for dtw_scan.  The series is staged in shared memory
+//   first, or goes through a ring of columns past L 1,024.
+// - a block a pair, an anti-diagonal a step (the diag routes of both
+//   kernels, dtw_diag): every r and L, the default where a band of 2r + 1
+//   floats passes a block's shared memory (r > 25,599).
 
 // dtw_lb_keogh: each block first builds the group's envelopes (rolling
 // min and max of each query over +-r) in shared memory, (lo, hi) side by
@@ -62,7 +66,10 @@
 // once (a broadcast) serve 4 points x 4 series, and each (query, series)
 // sum stays in one register: no sum crosses a lane, and the stores of a
 // query's 32 x 4 bounds are coalesced.  G query slots (8, 16, 24 or 32, a
-// template) hold a launch's queries; one kernel serves every L <= 1024.
+// template) hold a launch's queries; one kernel serves every L: past 1,024
+// points the wrapper sums a series in column chunks of 800, a launch each,
+// every chunk's envelopes in shared memory and each lane's sums going on
+// from those the last chunk stored (the same adds in the same order).
 //
 // dtw_search, wave routes: a cluster of 8 CTAs a query computes 8
 // rounds at once, CTA u round u's candidates whose bound lies below the
@@ -72,16 +79,23 @@
 // memory with cp.async and its next candidate brought into L2 meanwhile.
 // Then every CTA applies the 8 rounds in order, exactly as one round after
 // another: the rounds run the DP of more candidates (those a lower
-// best-so-far prunes) but answer the same.  General route (r > 127): one
-// block a query, a thread a candidate.  A round's first minimum is one
+// best-so-far prunes) but answer the same.  General route (r > 127, and
+// r > 255 past L 1,024): one block a query, a thread a candidate.  A
+// round's first minimum is one
 // 64-bit min over (d bits << 32 | position) (the float's bits,
 // non-negative, order as the floats); it updates the best-so-far, and the
-// next round's first bound decides the stop.
+// next round's first bound decides the stop.  A round_k past 1,024 takes
+// the general route, in passes of at most 1,024 candidates.  Past L 1,024
+// the wave routes' pairs keep a ring of columns in place of the whole row
+// (dtw_wave's RING; ring16 too, r <= 255), and a query past kStageL points
+// is read from device memory, so no route's shared memory grows with L
+// but the general route's bands (the diag route takes over past them).
 //
 // dtw_scan, band and general routes: one thread a (query, series) pair, q
-// in shared memory; the pair's (d^2 bits << 32 | series) goes through a
-// warp min to one 64-bit atomicMin a warp, which gives the least distance
-// and, among equal ones, the first series.
+// in shared memory (to kStageL points); the pair's (d^2 bits << 32 |
+// series) goes through a warp min to one 64-bit atomicMin a warp, which
+// gives the least distance and, among equal ones, the first series.  The
+// grid's y dimension takes 65,535 queries a launch (any Q, in launches).
 //
 // dtw_scan, wave route (scan_wave_kernel): throughput, not latency: Q x N
 // pairs of one length, every pair's whole band computed (the brute force
@@ -108,7 +122,9 @@
 // pair's top lane, from its cell ML = 2r + 1 - C (H - 1) on, a template)
 // read BIG as the left of cell ML and the up of the last cell, so they
 // stay BIG or more.  Each (warp, query) keeps its least key in a register
-// across its tiles: one 64-bit atomicMin a warp a query.
+// across its tiles: one 64-bit atomicMin a warp a query.  Past L 1,024
+// (scan_ring_kernel) a pair's series goes through a ring of columns and the
+// queries come from device memory, the same cells in the same order.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -128,9 +144,41 @@ constexpr int kLbSeries = 4;
 // rows' +kPoison, so a cell past an edge has (q - x)^2 = infinity
 constexpr float kPoison = 1e20f;
 constexpr int kScanWaveThreads = 512;      // the scan wave route's CTA
+constexpr int kRingChunk = 32;   // columns a ring fill copies (RING)
+// the longest series the wave routes stage whole; past it, the ring routes
+// (kernels/dtw.py WHOLE_L)
+constexpr int kWholeL = 1024;
+constexpr int kMaxRoundK = 1024;  // the wave routes' round (MAX_ROUND_K)
+// the longest query a kernel stages in shared memory (64
+// KB); a longer one is read from device memory, a value a row
+constexpr int kStageL = 16384;
 
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" :: "l"(p));
+}
+
+// Copy L floats from src to dst (shared) with 4-byte cp.async, the lanes
+// of a pair taking every H-th value; cp_wait() waits for them.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                  "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+                  "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_row(float* dst, const float* src, int L,
+                                       int ll, int H) {
+  for (int c = ll; c < L; c += H) cp_async4(dst + c, src + c);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
 __device__ __forceinline__ float cell_d(float qi, float xc) {
@@ -310,15 +358,49 @@ __device__ __forceinline__ void wave_cells(float (&v)[C], const float (&d)[C],
 // and the warp stops, returning BIG.  The caller's cutoff is the
 // best-so-far of the iteration, which no round applies a distance at or
 // above, so no answer or count changes.
-template <int C, typename F>
+//
+// RING: the pair's series is not staged whole but through a ring of W
+// floats (a power of two; column c at xr[c & (W - 1)]), which the pair's
+// lanes fill from xg (the series in device memory) kRingChunk columns at a
+// time with 4-byte cp.async, one chunk in flight while the steps run: a
+// step's lanes read at most span = (C - 1)(H - 1) + C columns from s - r
+// on, so W >= span + 2 kRingChunk + 8 holds every column a block of 8
+// steps reads beside the chunk in flight (ring_size), and shared memory
+// stops growing with L.
+template <int C, bool RING = false, typename F>
 __device__ __forceinline__ float dtw_wave(const float* __restrict__ qs,
-                                          const float* __restrict__ xr,
+                                          float* __restrict__ xr,
                                           int L, int r, int H, int ll,
                                           int lane, bool live, float cutoff,
                                           unsigned pair_mask,
-                                          F&& after_ramp) {
+                                          F&& after_ramp,
+                                          const float* __restrict__ xg =
+                                              nullptr,
+                                          int W = 0) {
   const int l0 = r / C, m0 = r % C;          // where offset r lives
   const int from = (lane + 31) & 31;
+  const int wmask = RING ? W - 1 : -1;
+  // RING: columns [0, ready) have landed, [ready, hi) are in flight
+  int ready = 0, hi = 0;
+  const int reach = (C - 1) * (H - 1) + C - 1 - r;   // a step's last column
+  // every column that steps up to s_last read is landed (warp-uniform)
+  auto ensure = [&](int s_last) {
+    if constexpr (RING) {
+      const int col = min(s_last + reach, L - 1);
+      while (ready <= col) {
+        cp_wait();
+        __syncwarp();             // landed for every lane; older slots read
+        ready = hi;
+        if (hi < L) {
+          if (live)
+            for (int c = hi + ll; c < min(hi + kRingChunk, L); c += H)
+              cp_async4(xr + (c & wmask), xg + c);
+          asm volatile("cp.async.commit_group;" ::: "memory");
+          hi += kRingChunk;
+        }
+      }
+    }
+  };
   bool ok[C];                                // offset inside the band
 #pragma unroll
   for (int m = 0; m < C; ++m) ok[m] = live && C * ll + m <= 2 * r;
@@ -342,7 +424,7 @@ __device__ __forceinline__ float dtw_wave(const float* __restrict__ qs,
     for (int m = 0; m < C; ++m) {
       const int c = c0 + m;
       const bool in = row && ok[m] && (unsigned)c < (unsigned)L;
-      d[m] = in ? cell_d(qi, xr[c]) : kBig;
+      d[m] = in ? cell_d(qi, xr[c & wmask]) : kBig;
     }
     const float left = __shfl_sync(0xffffffffu, v[C - 1], from);
     nv[0] = __fadd_rn(d[0], fminf(fminf((first && m0 == 0) ? 0.f : v[0],
@@ -369,14 +451,19 @@ __device__ __forceinline__ float dtw_wave(const float* __restrict__ qs,
     const float qi = qs[i];
     float d[C];
 #pragma unroll
-    for (int m = 0; m < C; ++m) d[m] = ok[m] ? cell_d(qi, xr[c0 + m]) : kBig;
+    for (int m = 0; m < C; ++m)
+      d[m] = ok[m] ? cell_d(qi, xr[(c0 + m) & wmask]) : kBig;
     wave_cells<C, C>(v, d, from, false);
   };
   int s = 0;
-  for (; s < a; ++s) edge(s);
+  for (; s < a; ++s) {
+    ensure(s);
+    edge(s);
+  }
   after_ramp();
   bool done = !live;
   while (s + 8 <= b) {
+    ensure(s + 7);
 #pragma unroll
     for (int u = 0; u < 8; ++u) step(s + u);
     s += 8;
@@ -388,33 +475,24 @@ __device__ __forceinline__ float dtw_wave(const float* __restrict__ qs,
     done = done || __uint_as_float(bits) >= cutoff;
     if (__all_sync(0xffffffffu, done)) return kBig;
   }
-  for (; s < b; ++s) step(s);
-  for (; s < end; ++s) edge(s);
+  for (; s < b; ++s) {
+    ensure(s);
+    step(s);
+  }
+  for (; s < end; ++s) {
+    ensure(s);
+    edge(s);
+  }
   return res;
 }
 
-// Copy L floats from src to dst (shared) with 4-byte cp.async, the lanes
-// of a pair taking every H-th value; cp_wait() waits for them.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;"
-               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-                  "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-                  "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_row(float* dst, const float* src, int L,
-                                       int ll, int H) {
-  for (int c = ll; c < L; c += H) cp_async4(dst + c, src + c);
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
+// The ring of a RING pair (see dtw_wave): the least power of two of at
+// least span + 2 kRingChunk + 8 floats.
+__host__ __device__ __forceinline__ int ring_size(int C, int H) {
+  const int need = (C - 1) * (H - 1) + C + 2 * kRingChunk + 8;
+  int w = 1;
+  while (w < need) w <<= 1;
+  return w;
 }
 
 // The least v over the first `width` lanes (a power of two, at most 32:
@@ -447,17 +525,19 @@ __device__ __forceinline__ unsigned long long pack(float d, unsigned idx) {
 template <int G, int V>
 __global__ void __launch_bounds__(kLbThreads, 1)
 lb_keogh_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                long long N, int L, int Qg, int R, float* __restrict__ out) {
+                long long N, int L, int Qg, int R, int j0, int Lc, bool acc_in,
+                float* __restrict__ out) {
   constexpr int S = kLbSeries;
   extern __shared__ float4 env4[];       // (G, Lp / 2): (lo, hi, lo, hi)
   float2* env = reinterpret_cast<float2*>(env4);
-  const int Lp = (L + 3) & ~3, row4 = Lp / 2;
+  const int Lp = (Lc + 3) & ~3, row4 = Lp / 2;
   for (int e = threadIdx.x; e < G * Lp; e += blockDim.x) {
     const int g = e / Lp, j = e - g * Lp;
     float mn = 0.f, mx = 0.f;
-    if (g < Qg && j < L) {
-      const int a = j - R < 0 ? 0 : j - R;
-      const int b = j + R > L - 1 ? L - 1 : j + R;
+    if (g < Qg && j < Lc) {
+      const int jj = j0 + j;             // the column in the series
+      const int a = jj - R < 0 ? 0 : jj - R;
+      const int b = jj + R > L - 1 ? L - 1 : jj + R;
       mn = __int_as_float(0x7f800000);
       mx = -mn;
       for (int t = a; t <= b; ++t) {
@@ -479,7 +559,7 @@ lb_keogh_kernel(const float* __restrict__ q, const float* __restrict__ x,
     const float* xs[S];
 #pragma unroll
     for (int s = 0; s < S; ++s)
-      xs[s] = x + min(n0 + 32 * s, N - 1) * L;
+      xs[s] = x + min(n0 + 32 * s, N - 1) * L + j0;
     auto load = [&](float (&v)[S][4], int j) {
 #pragma unroll
       for (int s = 0; s < S; ++s) {
@@ -492,15 +572,17 @@ lb_keogh_kernel(const float* __restrict__ q, const float* __restrict__ x,
         } else {
 #pragma unroll
           for (int p = 0; p < 4; ++p)
-            v[s][p] = j + p < L ? __ldg(xs[s] + j + p) : 0.f;
+            v[s][p] = j + p < Lc ? __ldg(xs[s] + j + p) : 0.f;
         }
       }
     };
-    float acc[G][S];
-#pragma unroll
+    float acc[G][S];                     // a later chunk goes on from
+#pragma unroll                           // the sums the last one stored
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int s = 0; s < S; ++s) acc[g][s] = 0.f;
+      for (int s = 0; s < S; ++s)
+        acc[g][s] = acc_in && g < Qg && n0 + 32 * s < N
+                        ? out[(long long)g * N + n0 + 32 * s] : 0.f;
     float xc[S][4], xn[S][4];
     load(xc, 0);
     for (int j = 0; j < Lp; j += 4) {
@@ -555,7 +637,10 @@ lb_keogh_kernel(const float* __restrict__ q, const float* __restrict__ x,
 // warp's do not), the round's first minimum over all its passes; without,
 // one pass of whole warps (the one-pass body as its own instance: folded
 // into the loop of passes it ran 9 % slower at r 12, PERF.md).
-template <bool PASSES>
+// LONGQ: a query past kStageL points, read from device memory (its own
+// instance: a query pointer to either memory cost the staged instance 8 %
+// at r 12, H100).
+template <bool PASSES, bool LONGQ = false>
 __global__ void search_general(const float* __restrict__ q,
                               const float* __restrict__ x, long long N,
                               int L, int r, int round_k,
@@ -564,13 +649,18 @@ __global__ void search_general(const float* __restrict__ q,
                               float* bsf_out, int* best_out,
                               int* rounds_out, int* refined_out) {
   extern __shared__ float sm[];
-  float* qs = sm;                                  // L
-  float* band = sm + L;                            // (2r + 1, threads)
+  // the query (L, staged but for LONGQ), then the bands (2r + 1, threads)
+  float* band = sm + (LONGQ ? 0 : L);
   __shared__ unsigned long long wkey[32];
   __shared__ float s_bsf;
   __shared__ int s_go;
   const int g = blockIdx.x, tid = threadIdx.x;
-  for (int j = tid; j < L; j += blockDim.x) qs[j] = q[(long long)g * L + j];
+  const float* qs = sm;
+  if constexpr (LONGQ) {
+    qs = q + (long long)g * L;
+  } else {
+    for (int j = tid; j < L; j += blockDim.x) sm[j] = q[(long long)g * L + j];
+  }
   const float* lb = slb + (long long)g * N;
   const long long* ord = order + (long long)g * N;
   const long long end = (N + round_k - 1) / round_k * round_k;
@@ -657,8 +747,13 @@ __global__ void search_general(const float* __restrict__ q,
 // double-buffered by iteration parity, so no CTA overwrites what another
 // still reads.  Each pair's next candidate (its bound and id read during
 // this iteration) is brought into L2 once the DP has begun.
-template <int C>
-__global__ void __launch_bounds__(1024)
+//
+// RING (L > 1024): each pair's series goes through a ring of ring_size(C,
+// H) floats that dtw_wave fills as the front advances, in place of the
+// whole row, and the query is read from device memory where L >
+// kStageL, so the CTA's shared memory no longer grows with L.
+template <int C, bool RING>
+__global__ void __launch_bounds__(C < 16 ? 1024 : 512)
 wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
             long long N, int L, int r, int round_k,
             const float* __restrict__ slb,
@@ -669,10 +764,12 @@ wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   extern __shared__ float sm[];
-  float* qs = sm;                        // L
-  float* rd = qs + L;                    // [2][round_k]: distances (BIG:
+  const bool stage = !RING || L <= kStageL;
+  const int row = RING ? ring_size(C, H) : L;    // floats a pair's row takes
+  float* qsm = sm;                       // L (staged)
+  float* rd = qsm + (stage ? L : 0);     // [2][round_k]: distances (BIG:
   float* rl = rd + 2 * round_k;          // not computed) and bounds
-  float* xs = rl + 2 * round_k;          // (warps * P, L): the pairs' rows
+  float* xs = rl + 2 * round_k;          // (warps * P, row): the pairs' rows
   __shared__ float s_nlb[2];             // CTA 0: the next iteration's first
   __shared__ float s_bsf;                // bound
   __shared__ int s_go;
@@ -684,8 +781,10 @@ wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
   const unsigned pair_mask =
       ((slot + 1) * H >= 32 ? 0xffffffffu : (1u << (slot + 1) * H) - 1)
       & ~((1u << slot * H) - 1);
-  float* xrow = xs + (long long)(warp * P + min(slot, P - 1)) * L;
-  for (int j = tid; j < L; j += blockDim.x) qs[j] = q[(long long)g * L + j];
+  float* xrow = xs + (long long)(warp * P + min(slot, P - 1)) * row;
+  const float* qs = stage ? qsm : q + (long long)g * L;
+  if (stage)
+    for (int j = tid; j < L; j += blockDim.x) qsm[j] = q[(long long)g * L + j];
   const float* lb = slb + (long long)g * N;
   const long long* ord = order + (long long)g * N;
   const long long end = (N + round_k - 1) / round_k * round_k;
@@ -731,11 +830,16 @@ wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
       };
       float d = kBig;
       if (__any_sync(0xffffffffu, take)) {
-        if (take) cp_row(xrow, x + o * L, L, ll, H);
-        cp_wait();
-        __syncwarp();
-        d = dtw_wave<C>(qs, xrow, L, r, H, ll, lane, take, bsf, pair_mask,
-                        ahead);
+        if constexpr (RING) {
+          d = dtw_wave<C, true>(qs, xrow, L, r, H, ll, lane, take, bsf,
+                                pair_mask, ahead, x + o * L, row);
+        } else {
+          if (take) cp_row(xrow, x + o * L, L, ll, H);
+          cp_wait();
+          __syncwarp();
+          d = dtw_wave<C>(qs, xrow, L, r, H, ll, lane, take, bsf, pair_mask,
+                          ahead);
+        }
         __syncwarp();           // the rows are read: the next batch may copy
       } else {
         ahead();
@@ -822,16 +926,23 @@ wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
 // series blockIdx.x * blockDim.x + threadIdx.x.  SUB: blockDim.x below 32
 // (a power of two), where a warp's bands do not fit (its own instance: a
 // reduction over a run-time width cost the DP 29 % at r 25, PERF.md).
-template <int R, bool SUB = false>
+// LONGQ: a query past kStageL points, read from device memory (its own
+// instance: a query pointer to either memory cost the staged one 13-15 %,
+// H100).
+template <int R, bool SUB = false, bool LONGQ = false>
 __global__ void scan_kernel(const float* __restrict__ q,
                             const float* __restrict__ x, long long N, int L,
                             int r, unsigned long long* keys) {
   extern __shared__ float sm[];
-  float* qs = sm;
-  float* band = sm + L;
   const int g = blockIdx.y, tid = threadIdx.x;
-  for (int j = tid; j < L; j += blockDim.x) qs[j] = q[(long long)g * L + j];
-  __syncthreads();
+  const float* qs = sm;
+  float* band = sm + (LONGQ ? 0 : L);
+  if constexpr (LONGQ) {
+    qs = q + (long long)g * L;
+  } else {
+    for (int j = tid; j < L; j += blockDim.x) sm[j] = q[(long long)g * L + j];
+    __syncthreads();
+  }
   const long long n = (long long)blockIdx.x * blockDim.x + tid;
   unsigned long long key = ~0ull;
   if (n < N) {
@@ -840,6 +951,111 @@ __global__ void scan_kernel(const float* __restrict__ q,
   }
   key = SUB ? warp_min_u64(key, blockDim.x) : warp_min_u64(key);
   if ((tid & 31) == 0 && key != ~0ull) atomicMin(keys + g, key);
+}
+
+// The diag routes' DP: the squared banded DTW of q (L) and x (L), both in
+// device memory, by the whole block, one anti-diagonal t = i + c of the
+// matrix a step: its cells depend only on those of t - 1 (up (i - 1, c),
+// left (i, c - 1)) and t - 2 (diag (i - 1, c - 1)), so the block's threads
+// form them at once, then meet at a barrier.  The band lives in a (2r + 3
+// floats of device scratch, L1 and L2 holding it), one value an offset
+// e = i - c in [-r, r] and BIG beyond each end: a step writes the offsets
+// of t's parity and reads those of the other (t - 1's cells, left and up)
+// and its own (t - 2's, diag), so one array serves, updated in place.  A
+// cell outside the matrix is never written: it reads as BIG.  Each cell
+// is dtw_band_ref's __fsub_rn, __fmul_rn, exact mins and __fadd_rn on the
+// same operands, so the bits are the same.  Every thread returns cell (L -
+// 1, L - 1).
+__device__ float dtw_diag(const float* __restrict__ q,
+                          const float* __restrict__ x, int L, int r,
+                          float* a) {
+  float* A = a + r + 1;                  // A[e], e in [-r - 1, r + 1]
+  __syncthreads();                       // the last pair's result is read
+  for (int e = threadIdx.x; e < 2 * r + 3; e += blockDim.x) a[e] = kBig;
+  __syncthreads();
+  for (int t = 0; t <= 2 * L - 2; ++t) {
+    // t's cells: the offsets of t's parity in [-hi, hi], hi = min(r, t,
+    // 2L - 2 - t) (ternaries: nvcc's max() of two negative ints read r)
+    int hi = r < t ? r : t;
+    hi = hi < 2 * L - 2 - t ? hi : 2 * L - 2 - t;
+    for (int e = -hi + ((t - hi) & 1) + 2 * (int)threadIdx.x; e <= hi;
+         e += 2 * (int)blockDim.x) {
+      const float d = cell_d(q[(t + e) >> 1], x[(t - e) >> 1]);
+      A[e] = t == 0 ? d
+                    : __fadd_rn(d, fminf(fminf(A[e], A[e - 1]), A[e + 1]));
+    }
+    __syncthreads();
+  }
+  return A[0];
+}
+
+// dtw_scan's diag route (any L and r, the default where a band passes a
+// block's shared memory: kernels/dtw.py general_band_fits): each block
+// takes pairs (query g, series n) blockIdx.x and on by the grid, a pair
+// by the whole block (dtw_diag, its 2r + 3 floats of scratch at a +
+// blockIdx.x (2r + 3)), one 64-bit atomicMin a pair.
+__global__ void scan_diag(const float* __restrict__ q,
+                          const float* __restrict__ x, long long N, int L,
+                          int r, long long pairs, float* a,
+                          unsigned long long* keys) {
+  float* ab = a + (long long)blockIdx.x * (2 * r + 3);
+  for (long long p = blockIdx.x; p < pairs; p += gridDim.x) {
+    const long long g = p / N, n = p - g * N;
+    const float d = dtw_diag(q + g * L, x + n * L, L, r, ab);
+    if (threadIdx.x == 0) atomicMin(keys + g, pack(d, (unsigned)n));
+  }
+}
+
+// dtw_search's diag route (any L, r and round_k, the default where a band
+// passes a block's shared memory): the refinement of query blockIdx.x by
+// the whole block, a round's candidates below the best-so-far of its
+// start in order, each pair by dtw_diag; the round's first minimum (the
+// least distance, the first on ties) replaces the best-so-far where it is
+// lower, and the next round's first bound decides the stop, as in
+// search_general.
+__global__ void search_diag(const float* __restrict__ q,
+                            const float* __restrict__ x, long long N, int L,
+                            int r, int round_k,
+                            const float* __restrict__ slb,
+                            const long long* __restrict__ order,
+                            float* bsf_out, int* best_out, int* rounds_out,
+                            int* refined_out, float* a) {
+  const int g = blockIdx.x;
+  float* ab = a + (long long)g * (2 * r + 3);
+  const float* qg = q + (long long)g * L;
+  const float* lb = slb + (long long)g * N;
+  const long long* ord = order + (long long)g * N;
+  const long long end = (N + round_k - 1) / round_k * round_k;
+  float bsf = kBig;
+  long long best = -1;
+  int rounds = 0, refined = 0;
+  bool go = end > 0 && lb[0] < kBig;
+  for (long long cursor = 0; go; cursor += round_k) {
+    float dmin = kBig;
+    long long at = -1;
+    for (long long pos = cursor; pos < cursor + round_k && pos < N; ++pos) {
+      if (lb[pos] < bsf) {
+        const float d = dtw_diag(qg, x + ord[pos] * L, L, r, ab);
+        ++refined;
+        if (d < dmin) {
+          dmin = d;
+          at = pos;
+        }
+      }
+    }
+    if (dmin < bsf) {
+      bsf = dmin;
+      best = ord[at];
+    }
+    ++rounds;
+    go = cursor + round_k < end && lb[cursor + round_k] < bsf;
+  }
+  if (threadIdx.x == 0) {
+    bsf_out[g] = bsf;
+    best_out[g] = (int)best;
+    rounds_out[g] = rounds;
+    refined_out[g] = refined;
+  }
 }
 
 // A wave route's pair (see the top): query row qp (qp[j]: the row of the
@@ -981,13 +1197,157 @@ scan_wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
   if (lane < nq && best != ~0ull) atomicMin(keys + c0 + lane, best);
 }
 
+// scan_pair for L > 1024 (scan_ring_kernel): the lane's columns come from
+// its pair's ring xr (column c at xr[c & (W - 1)], W = ring_size(C, H)),
+// which the pair's lanes (`fill`) fill kRingChunk columns at a time from
+// the series xg in device memory, one chunk in flight while the steps run
+// (4-byte cp.async; -kPoison for a column outside [0, L), as the staged
+// tile's pads), and the query values from qg in device memory (+kPoison
+// outside [0, L), as the staged rows' pads).  The cells, their order and
+// the window of C registers are scan_pair's, so the bits are too.  A step
+// j reads columns j + l0 - r to j + l0 - r + reach (every lane of the
+// pair), so W >= span + 2 kRingChunk + 8 keeps every column a block of C
+// steps reads beside the chunk in flight.
+template <int C, int ML>
+__device__ __forceinline__ float scan_pair_ring(
+    const float* __restrict__ qg, const float* __restrict__ xg,
+    float* __restrict__ xr, int W, int L, int r, int H, int ll, int m0,
+    bool first, bool top, bool fill, int from) {
+  const int l0 = r / C, wmask = W - 1;
+  const int c_lo = l0 - r, cl = l0 + (C - 1) * ll - r;
+  const int reach = (C - 1) * (H - 1) + C - 1;
+  const int c_end = L - 1 + c_lo + reach;    // the last column a step reads
+  int ready = c_lo, hi = c_lo;               // landed below ready, then
+  auto ensure = [&](int j_last) {            // in flight below hi
+    const int col = min(j_last + c_lo + reach, c_end);
+    while (ready <= col) {
+      cp_wait();
+      __syncwarp();             // landed for every lane; older slots read
+      ready = hi;
+      if (hi <= c_end) {
+        if (fill)
+          for (int c = hi + ll; c < hi + kRingChunk; c += H) {
+            if ((unsigned)c < (unsigned)L) cp_async4(xr + (c & wmask), xg + c);
+            else xr[c & wmask] = -kPoison;
+          }
+        asm volatile("cp.async.commit_group;" ::: "memory");
+        hi += kRingChunk;
+      }
+    }
+  };
+  float v[C], w[C];          // w[(u + m) % C]: cell m's column at step u
+#pragma unroll
+  for (int m = 0; m < C; ++m) v[m] = (first && m == m0) ? 0.f : kBig;
+  ensure(0);
+#pragma unroll
+  for (int m = 0; m < C - 1; ++m) w[m] = xr[(cl + m) & wmask];
+  auto step = [&](int j0, int u) {
+    const int j = j0 + u, qj = j + l0 - ll;
+    w[(u + C - 1) % C] = xr[(cl + j + C - 1) & wmask];
+    const float qi = (unsigned)qj < (unsigned)L ? __ldg(qg + qj) : kPoison;
+    float d[C];
+#pragma unroll
+    for (int m = 0; m < C; ++m) d[m] = cell_d(qi, w[(u + m) % C]);
+    wave_cells<C, ML>(v, d, from, top);
+  };
+  int j0 = 0;
+  for (; j0 + C <= L; j0 += C) {
+    ensure(j0 + C - 1);
+#pragma unroll
+    for (int u = 0; u < C; ++u) step(j0, u);
+  }
+  ensure(L - 1);
+#pragma unroll
+  for (int u = 0; u < C - 1; ++u)
+    if (j0 + u < L) step(j0, u);
+  float res = v[0];
+#pragma unroll
+  for (int m = 1; m < C; ++m)
+    if (m == m0) res = v[m];
+  return res;
+}
+
+// dtw_scan's wave route for L > 1024: scan_wave_kernel's units, warps,
+// pairs and lanes, with each pair's series through a ring of W floats
+// (scan_pair_ring) in place of the staged tile, and the queries read
+// from device memory (L1 and L2 hold a chunk's rows) in place of the
+// staged rows, so shared memory (warps x P x W floats) no longer grows
+// with L.  A tile's series leave device memory once a query of the chunk.
+template <int C, int ML>
+__global__ void __launch_bounds__(kScanWaveThreads)
+scan_ring_kernel(const float* __restrict__ q, const float* __restrict__ x,
+                 long long N, int L, int r, int Q, int qc, int W,
+                 unsigned long long* keys) {
+  const int H = (2 * r + C) / C, P = 32 / H, l0 = r / C, m0 = r % C;
+  extern __shared__ float4 sm4[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
+  const int slot = lane / H, ll = lane - slot * H;   // slot P: idle lanes
+  const bool live = slot < P;
+  const bool top = live && ll == H - 1, first = live && ll == l0;
+  const int from = (lane + 31) & 31;
+  float* xr = reinterpret_cast<float*>(sm4)
+              + (warp * P + min(slot, P - 1)) * W;
+  const long long tiles = (N + P - 1) / P;
+  const long long G = (tiles + warps - 1) / warps;
+  const long long units = G * ((Q + qc - 1) / qc);
+  int c0 = -1, nq = 0;
+  unsigned long long best = ~0ull;       // lane g: query c0 + g's
+  long long c = blockIdx.x / G, b = blockIdx.x - c * G;
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    if (c * qc != c0) {
+      if (lane < nq && best != ~0ull) atomicMin(keys + c0 + lane, best);
+      best = ~0ull;
+      c0 = (int)(c * qc);
+      nq = min(qc, Q - c0);
+    }
+    const long long t = b * warps + warp;
+    long long b1 = b + gridDim.x, c1 = c;
+    while (b1 >= G) {
+      b1 -= G;
+      ++c1;
+    }
+    if (t < tiles) {
+      const long long n0 = t * P;
+      const int np = (int)min((long long)P, N - n0);
+      const long long t1 = b1 * warps + warp;
+      if (u + gridDim.x < units && t1 < tiles) {  // its tile, into L2
+        const long long n1 = t1 * P;
+        const long long e1 = min((long long)P, N - n1) * L;
+        for (long long e = 32 * lane; e < e1; e += 32 * 32)
+          prefetch_l2(x + n1 * L + e);
+      }
+      const float* xg = x + min(n0 + min(slot, P - 1), N - 1) * L;
+      const bool real = live && slot < np;
+      for (int g = 0; g < nq; ++g) {
+        const float d = scan_pair_ring<C, ML>(
+            q + (long long)(c0 + g) * L, xg, xr, W, L, r, H, ll, m0, first,
+            top, live, from);
+        unsigned long long key =
+            real && ll == l0 ? pack(d, (unsigned)(n0 + slot)) : ~0ull;
+        key = warp_min_u64(key);
+        if (lane == g && key < best) best = key;
+      }
+    }
+    b = b1;
+    c = c1;
+  }
+  if (lane < nq && best != ~0ull) atomicMin(keys + c0 + lane, best);
+}
+
 int general_launch(const float* q, const float* x, long long N, int L,
                    int r, int Qg, int round_k, int threads, const float* slb,
                    const long long* order, float* bsf, int* best, int* rounds,
                    int* refined, cudaStream_t st) {
-  const size_t smem = sizeof(float) * (L + (2 * r + 1) * threads);
-  auto kernel = round_k > threads || threads < 32 ? search_general<true>
-                                                  : search_general<false>;
+  const bool longq = L > kStageL;
+  const size_t smem = sizeof(float) * ((longq ? 0 : L)
+                                       + (size_t)(2 * r + 1) * threads);
+  if (smem > kWaveSmem) return (int)cudaErrorInvalidValue;
+  const bool passes = round_k > threads || threads < 32;
+  auto kernel = passes ? (longq ? search_general<true, true>
+                                : search_general<true>)
+                       : (longq ? search_general<false, true>
+                                : search_general<false>);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1001,19 +1361,24 @@ int general_launch(const float* q, const float* x, long long N, int L,
 // The wave routes, C cells a lane: clusters of kSpec CTAs a query,
 // `threads` / 32 warps a CTA (the wrapper's band_threads), the query, the
 // rounds' distances and bounds and the pairs' rows within kWaveSmem.
-template <int C>
+// RING: L > 1024, the pairs' rows through rings (wave_kernel).  At 16
+// cells a lane (ring16 only) a CTA holds 512 threads at most.
+template <int C, bool RING>
 int wave_launch(const float* q, const float* x, long long N, int L, int r,
                 int Qg, int round_k, int threads, const float* slb,
                 const long long* order, float* bsf, int* best, int* rounds,
                 int* refined, cudaStream_t st) {
   const int H = (2 * r + C) / C;
-  if (H > 32) return (int)cudaErrorInvalidValue;
+  if (H > 32 || round_k > kMaxRoundK || threads > (C < 16 ? 1024 : 512))
+    return (int)cudaErrorInvalidValue;
   const int P = 32 / H;
-  const size_t smem = sizeof(float) * ((size_t)L + 4 * (size_t)round_k
-                                       + (size_t)threads / 32 * P * L);
+  const size_t row = RING ? ring_size(C, H) : L;
+  const size_t qf = !RING || L <= kStageL ? L : 0;
+  const size_t smem = sizeof(float) * (qf + 4 * (size_t)round_k
+                                       + (size_t)threads / 32 * P * row);
   if (smem > kWaveSmem) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      wave_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wave_kernel<C, RING>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
@@ -1028,29 +1393,40 @@ int wave_launch(const float* q, const float* x, long long N, int L, int r,
   cfg.stream = st;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, wave_kernel<C>, q, x, N, L, r, round_k,
+  e = cudaLaunchKernelEx(&cfg, wave_kernel<C, RING>, q, x, N, L, r, round_k,
                          slb, order, bsf, best, rounds, refined);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+// The grid's y dimension takes 65,535 queries: more go in launches of as
+// many, each on its slice of q and keys.
 template <int R>
 int scan_launch(const float* q, const float* x, long long N, int L, int r,
                 int Q, int threads, unsigned long long* keys,
                 cudaStream_t st) {
-  const size_t smem = sizeof(float) * (L + (R < 0 ? (2 * r + 1) * threads
-                                                  : 0));
-  auto kernel = scan_kernel<R, false>;
+  const bool longq = L > kStageL;
+  const size_t smem = sizeof(float) * ((longq ? 0 : L)
+                                       + (R < 0 ? (2 * r + 1) * threads : 0));
+  if (smem > kWaveSmem) return (int)cudaErrorInvalidValue;
+  auto kernel = longq ? scan_kernel<R, false, true> : scan_kernel<R, false>;
   if constexpr (R < 0) {
-    if (threads < 32) kernel = scan_kernel<R, true>;
+    if (threads < 32)
+      kernel = longq ? scan_kernel<R, true, true> : scan_kernel<R, true>;
   }
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((unsigned)((N + threads - 1) / threads), (unsigned)Q);
-  kernel<<<grid, threads, smem, st>>>(q, x, N, L, r, keys);
-  return (int)cudaGetLastError();
+  for (int g0 = 0; g0 < Q; g0 += 65535) {
+    const dim3 grid((unsigned)((N + threads - 1) / threads),
+                    (unsigned)(Q - g0 < 65535 ? Q - g0 : 65535));
+    kernel<<<grid, threads, smem, st>>>(q + (long long)g0 * L, x, N, L, r,
+                                        keys + g0);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 // The wave route of dtw_scan: C cells a lane, ML (the top lane's cells in
@@ -1061,7 +1437,9 @@ int scan_launch(const float* q, const float* x, long long N, int L, int r,
 // chunks are taken smaller, qn <= qc queries: the largest qn whose units
 // the card runs in rounds of qn queries within 1/32 of the fewest (a
 // chunk's rows are loaded again at each unit of another chunk).
-template <int C, int ML>
+// RING (L > 1024): scan_ring_kernel, S the ring's floats (ring_size), pad
+// and Lq 0.
+template <int C, int ML, bool RING>
 int scan_wave_launch(const float* q, const float* x, long long N, int L,
                      int r, int Q, int threads, int qc, int pad, int S,
                      int Lq, unsigned long long* keys, cudaStream_t st) {
@@ -1070,20 +1448,24 @@ int scan_wave_launch(const float* q, const float* x, long long N, int L,
   const size_t smem = sizeof(float) * ((size_t)qc * Lq
                                        + (size_t)warps * (pad + P * S));
   if (threads % 32 || warps < 1 || threads > kScanWaveThreads || qc < 1
-      || qc > 32 || pad % 4 || S % 4 || Lq % 4 || pad < r - l0
-      || pad < l0 + C * H - H - r || S < L + pad || Lq < H + L + l0
-      || smem > kWaveSmem)
+      || qc > 32 || smem > kWaveSmem)
     return (int)cudaErrorInvalidValue;
+  if (RING ? (pad || Lq || S != ring_size(C, H))
+           : (pad % 4 || S % 4 || Lq % 4 || pad < r - l0
+              || pad < l0 + C * H - H - r || S < L + pad || Lq < H + L + l0))
+    return (int)cudaErrorInvalidValue;
+  const void* fn;
+  if constexpr (RING) fn = (const void*)scan_ring_kernel<C, ML>;
+  else fn = (const void*)scan_wave_kernel<C, ML>;
   cudaError_t e = cudaFuncSetAttribute(
-      scan_wave_kernel<C, ML>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int dev = 0, sms = 0, per_sm = 0;
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, scan_wave_kernel<C, ML>, threads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                      smem);
   if (e != cudaSuccess) return (int)e;
   const long long held = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const long long G = ((N + P - 1) / P + warps - 1) / warps;
@@ -1097,11 +1479,17 @@ int scan_wave_launch(const float* q, const float* x, long long N, int L,
     while (32 * cost(qn) > 33 * least) --qn;
   }
   const long long units = G * ((Q + qn - 1) / qn);
-  const bool vec = L % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  scan_wave_kernel<C, ML><<<(unsigned)(units < held ? units : held), threads,
-                            smem - sizeof(float) * (size_t)(qc - qn) * Lq,
-                            st>>>(q, x, N, L, r, Q, qn, pad, S, Lq, vec,
-                                  keys);
+  const unsigned grid = (unsigned)(units < held ? units : held);
+  if constexpr (RING) {
+    scan_ring_kernel<C, ML><<<grid, threads, smem, st>>>(q, x, N, L, r, Q,
+                                                        qn, S, keys);
+  } else {
+    const bool vec = L % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    scan_wave_kernel<C, ML><<<grid, threads,
+                              smem - sizeof(float) * (size_t)(qc - qn) * Lq,
+                              st>>>(q, x, N, L, r, Q, qn, pad, S, Lq, vec,
+                                    keys);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1113,8 +1501,12 @@ int scan_wave(int ml, const float* q, const float* x, long long N, int L,
               unsigned long long* keys, cudaStream_t st) {
   if constexpr (ML < C) {
     if (ml == ML)
-      return scan_wave_launch<C, ML>(q, x, N, L, r, Q, threads, qc, pad, S,
-                                     Lq, keys, st);
+      return L > kWholeL ? scan_wave_launch<C, ML, true>(q, x, N, L, r, Q,
+                                                      threads, qc, pad, S,
+                                                      Lq, keys, st)
+                      : scan_wave_launch<C, ML, false>(q, x, N, L, r, Q,
+                                                       threads, qc, pad, S,
+                                                       Lq, keys, st);
     return scan_wave<C, ML + 2>(ml, q, x, N, L, r, Q, threads, qc, pad, S,
                                 Lq, keys, st);
   } else {
@@ -1127,8 +1519,10 @@ int scan_wave(int ml, const float* q, const float* x, long long N, int L,
 // tasks of 32 x kLbSeries series in turn.
 template <int G, int V>
 int lb_launch(const float* q, const float* x, long long N, int L, int Qg,
-              int r, float* out, cudaStream_t st) {
-  const size_t smem = sizeof(float2) * G * (size_t)((L + 3) & ~3);
+              int r, int j0, int Lc, bool acc_in, float* out,
+              cudaStream_t st) {
+  const size_t smem = sizeof(float2) * G * (size_t)((Lc + 3) & ~3);
+  if (smem > kWaveSmem) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       lb_keogh_kernel<G, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -1146,18 +1540,22 @@ int lb_launch(const float* q, const float* x, long long N, int L, int Qg,
   if (blocks > (long long)sms * (per_sm > 0 ? per_sm : 1))
     blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
   lb_keogh_kernel<G, V><<<(unsigned)blocks, kLbThreads, smem, st>>>(
-      q, x, N, L, Qg, r, out);
+      q, x, N, L, Qg, r, j0, Lc, acc_in, out);
   return (int)cudaGetLastError();
 }
 
 template <int V>
 int lb_slots(const float* q, const float* x, long long N, int L, int Qg,
-             int r, float* out, cudaStream_t st) {
+             int r, int j0, int Lc, bool acc_in, float* out,
+             cudaStream_t st) {
   switch ((Qg + 7) / 8) {
-    case 1: return lb_launch<8, V>(q, x, N, L, Qg, r, out, st);
-    case 2: return lb_launch<16, V>(q, x, N, L, Qg, r, out, st);
-    case 3: return lb_launch<24, V>(q, x, N, L, Qg, r, out, st);
-    default: return lb_launch<32, V>(q, x, N, L, Qg, r, out, st);
+    case 1: return lb_launch<8, V>(q, x, N, L, Qg, r, j0, Lc, acc_in, out, st);
+    case 2: return lb_launch<16, V>(q, x, N, L, Qg, r, j0, Lc, acc_in, out,
+                                    st);
+    case 3: return lb_launch<24, V>(q, x, N, L, Qg, r, j0, Lc, acc_in, out,
+                                    st);
+    default: return lb_launch<32, V>(q, x, N, L, Qg, r, j0, Lc, acc_in, out,
+                                     st);
   }
 }
 
@@ -1176,43 +1574,52 @@ int lb_slots(const float* q, const float* x, long long N, int L, int Qg,
 }  // namespace
 
 // route: 0 "vec" (L % 4 == 0 and x 16-byte aligned: a 16-byte load a
-// series), 1 "scalar" (any L <= 1024).  q (Qg <= 32, L), x (N, L), out
-// (Qg, N), all float32; the wrapper keeps 8 Qg (L rounded up to 4) floats
-// of envelopes within what a block may ask for (lb_group).
+// series), 1 "scalar" (any L).  q (Qg <= 32, L), x (N, L), out (Qg, N),
+// all float32.  One launch sums the columns [j0, j0 + Lc) (j0 a multiple
+// of 4), onto the sums out holds where acc_in: the wrapper takes a long
+// series in chunks whose 8 Qg (Lc rounded up to 4) floats of envelopes
+// fit what a block may ask for (lb_plan), each chunk going on from the
+// last one's sums in the same order, so the bits are one pass's.
 extern "C" int dtw_lb_keogh(const void* q, const void* x, long long N, int L,
-                            int Qg, int r, int route, void* out,
-                            void* stream) {
+                            int Qg, int r, int route, int j0, int Lc,
+                            int acc_in, void* out, void* stream) {
   if (N == 0 || Qg == 0) return 0;
-  if (Qg > 32 || L < 1 || L > 1024 || r < 0 || route < 0 || route > 1
+  if (Qg > 32 || L < 1 || r < 0 || route < 0 || route > 1 || j0 < 0
+      || j0 % 4 || Lc < 1 || j0 + Lc > L
       || (route == 0 && (L % 4 || reinterpret_cast<uintptr_t>(x) % 16)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
   const float* xx = static_cast<const float*>(x);
   float* o = static_cast<float*>(out);
-  return route == 0 ? lb_slots<4>(qq, xx, N, L, Qg, r, o, st)
-                    : lb_slots<1>(qq, xx, N, L, Qg, r, o, st);
+  return route == 0
+             ? lb_slots<4>(qq, xx, N, L, Qg, r, j0, Lc, acc_in != 0, o, st)
+             : lb_slots<1>(qq, xx, N, L, Qg, r, j0, Lc, acc_in != 0, o, st);
 }
 
 // The refinement of each query g < Qg: candidates order[g, :] (int64)
 // with ascending bounds slb[g, :], round_k (<= 1024) a round.  Writes bsf
 // (squared), best (-1: none taken), rounds and refined, one each a query.
-// route: 0 the general route (any r; `threads` from the wrapper's
-// general_threads: a multiple of 32, or a power of two below it, a round
-// taken in passes of as many); 2, 4 and 8 the wave routes of as many cells
-// a lane (r <= 31, 63 and 127; `threads` from the wrapper's
-// band_threads).
+// route: 0 the general route (any r whose bands fit shared memory;
+// `threads` from the wrapper's general_threads: a multiple of 32, or a
+// power of two below it, a round taken in passes of as many); 1 the diag
+// route (any r and round_k; `threads` whole warps, diag, device scratch
+// of Qg (2r + 3) floats); 2, 4 and 8 the wave routes of as many cells a
+// lane (r <= 31, 63 and 127; `threads` from the wrapper's band_threads),
+// their ring forms past L 1,024, and 16 (ring16: L > 1,024, r <= 255).
 extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
                           int r, int Qg, int round_k, int threads, int route,
                           const void* slb, const void* order, void* bsf,
                           void* best, void* rounds, void* refined,
-                          void* stream) {
+                          void* diag, void* stream) {
   if (Qg == 0) return 0;
   const bool whole = threads >= 32 && threads <= 1024 && threads % 32 == 0;
   const bool part = threads >= 1 && threads < 32 && !(threads & (threads - 1));
-  if (r < 0 || round_k < 1 || round_k > 1024
-      || (route != 0 && route != 2 && route != 4 && route != 8)
-      || !(whole || (route == 0 && part)))
+  const bool wave = route == 2 || route == 4 || route == 8
+                    || (route == 16 && L > kWholeL);
+  if (r < 0 || L < 1 || round_k < 1 || (wave && round_k > kMaxRoundK)
+      || !(route == 0 || route == 1 || wave)
+      || !(whole || (route == 0 && part)) || (route == 1 && !diag))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
@@ -1223,34 +1630,48 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
   int* bi = static_cast<int*>(best);
   int* ro = static_cast<int*>(rounds);
   int* rf = static_cast<int*>(refined);
-  if (route == 2)
-    return wave_launch<2>(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b,
-                          bi, ro, rf, st);
-  if (route == 4)
-    return wave_launch<4>(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b,
-                          bi, ro, rf, st);
-  if (route == 8)
-    return wave_launch<8>(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b,
-                          bi, ro, rf, st);
+  const bool ring = L > kWholeL;
+#define DTW_WAVE(C)                                                        \
+  return ring ? wave_launch<C, true>(qq, xx, N, L, r, Qg, round_k, threads, \
+                                     lb, od, b, bi, ro, rf, st)            \
+              : wave_launch<C, false>(qq, xx, N, L, r, Qg, round_k,        \
+                                      threads, lb, od, b, bi, ro, rf, st)
+  if (route == 2) DTW_WAVE(2);
+  if (route == 4) DTW_WAVE(4);
+  if (route == 8) DTW_WAVE(8);
+#undef DTW_WAVE
+  if (route == 16)
+    return wave_launch<16, true>(qq, xx, N, L, r, Qg, round_k, threads, lb,
+                                 od, b, bi, ro, rf, st);
+  if (route == 1) {
+    search_diag<<<Qg, threads, 0, st>>>(qq, xx, N, L, r, round_k, lb, od, b,
+                                        bi, ro, rf, static_cast<float*>(diag));
+    return (int)cudaGetLastError();
+  }
   return general_launch(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b, bi,
                         ro, rf, st);
 }
 
 // keys (Q,) uint64, each all ones on entry: min over series n of
 // (bits of the squared DTW of query g and series n) << 32 | n.  route: 0
-// the band route (r <= 16), 1 the general one (any r <= L - 1; `threads`
-// from the wrapper's general_threads), 16 the wave route of as many cells
+// the band route (r <= 16), 1 the general one (any r <= L - 1 whose bands
+// fit shared memory; `threads` from the wrapper's general_threads), 2 the
+// diag route (any r; `threads` whole warps, `blocks` blocks, diag: device
+// scratch of blocks (2r + 3) floats), 16 the wave route of as many cells
 // a lane (r <= 255; `threads`, `qc`, `pad`, `S` and `Lq` from the
 // wrapper's scan_geometry).
 extern "C" int dtw_scan(const void* q, const void* x, long long N, int L,
                         int r, int Q, int route, int threads, int qc,
-                        int pad, int S, int Lq, void* keys, void* stream) {
+                        int pad, int S, int Lq, void* keys, void* diag,
+                        int blocks, void* stream) {
   if (N == 0 || Q == 0) return 0;
-  if (r < 0 || L < 1 || L > 1024 || N > 0xffffffffll
+  if (r < 0 || L < 1 || N > 0xffffffffll
       || (route == 0 && (r > 16 || threads != 128))
       || (route == 1 && (threads < 1 || threads > 1024
                          || (threads & (threads - 1))))
-      || (route > 1 && route != 16))
+      || (route == 2 && (threads < 32 || threads > 1024 || threads % 32
+                         || blocks < 1 || !diag))
+      || (route > 2 && route != 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
@@ -1264,6 +1685,11 @@ extern "C" int dtw_scan(const void* q, const void* x, long long N, int L,
     if (H > 32) return (int)cudaErrorInvalidValue;
     return scan_wave<16>(2 * r + 1 - 16 * (H - 1), qq, xx, N, L, r, Q,
                          threads, qc, pad, S, Lq, k, st);
+  }
+  if (route == 2) {
+    scan_diag<<<blocks, threads, 0, st>>>(qq, xx, N, L, r, (long long)Q * N,
+                                          static_cast<float*>(diag), k);
+    return (int)cudaGetLastError();
   }
   return scan_launch<-1>(qq, xx, N, L, r, Q, threads, k, st);
 }

@@ -370,12 +370,19 @@ cudaError_t launch_general(const float* q, const void* xs, float* scratch,
   split_queries<<<q_pad, 128, 0, stream>>>(q, qh, ql, qq, Q, L);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((N + kGThreads - 1) / kGThreads),
-            (unsigned)((Q + kGQ - 1) / kGQ));
-  ed_general<T><<<grid, kGThreads, 0, stream>>>(
-      q, static_cast<const T*>(xs), qq, keys, Q, N, L);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  // the grid's y dimension takes 65,535 query groups: more go in launches
+  // of as many, each on its slice of the queries, their norms and keys
+  constexpr int kSlice = 65535 * kGQ;
+  for (int q0 = 0; q0 < Q; q0 += kSlice) {
+    const int nq = Q - q0 < kSlice ? Q - q0 : kSlice;
+    dim3 grid((unsigned)((N + kGThreads - 1) / kGThreads),
+              (unsigned)((nq + kGQ - 1) / kGQ));
+    ed_general<T><<<grid, kGThreads, 0, stream>>>(
+        q + (long long)q0 * L, static_cast<const T*>(xs), qq + q0,
+        keys + q0, nq, N, L);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   unpack_kernel<<<(Q + 255) / 256, 256, 0, stream>>>(keys, d, idx, Q);
   return cudaGetLastError();
 }

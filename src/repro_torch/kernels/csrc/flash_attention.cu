@@ -8,7 +8,15 @@
 // Replaces the Pallas kernel `_flash_kernel` of
 // src/repro/kernels/flash_attention.py (wrapper `flash_attention`).
 //
-// Two routes, by dtype:
+// Routes, by dtype and head width: bfloat16 takes the tensor cores and
+// float32 the FMAs, each in instances of width 32, 64, 96, 128 and 256 that
+// take every narrower dh whose rows are whole 16-byte pieces (padded with
+// zeros in shared memory); bfloat16 past 256, to 512, takes instances of
+// width 320, 384, 448 and 512 whose blocks each compute one half of O's
+// columns (wgmma's N is at most 256), the scores for both; every other dh
+// (rows not of whole 16-byte pieces, f32 past 256, bf16 past 512) takes
+// the wide route.  The grid's x dimension is the
+// head b * Hq + h (any B Hq), its y dimension the query block.
 //
 // * bfloat16: `tc::flash_tc_kernel`, on the tensor cores (wgmma, TMA).
 //   Bound on this card: operations.  At B = 1, Hq = 32, Hkv = 8,
@@ -52,6 +60,9 @@
 //   shared memory (transposed) into the P.V product, where a thread owns
 //   4 rows x dh/16 columns of O.  Its floor at the shape above would be
 //   2.05 ms (the same 1.37e11 flops at 67 TFLOP/s).
+//
+// * any other dh, either dtype: `wide::wide_kernel` (float32 FMAs, no TMA
+//   and no tiles in shared memory; see there).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,6 +70,10 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+
+// query blocks a launch: the grid's y dimension takes at most 65,535, so a
+// longer T goes in launches of as many, each told its first block (qb0)
+constexpr int kMaxQBlocks = 65535;
 
 namespace simt {
 
@@ -68,19 +83,20 @@ constexpr int kThreads = 256;      // 16 row groups x 16 threads
 constexpr int kLd = 64 + 4;        // padded row of a transposed tile
 constexpr float kNegInf = -1e30f;  // the mask value of repro and ref.py
 
-// Copy rows [r0, r0 + 64) of a (rows_n, DH) matrix into shared memory as
-// float32, transposed (dst[d * kLd + row]) or not (dst[row * (DH + 4) + d]);
-// rows >= rows_n read as zeros.
+// Copy rows [r0, r0 + 64) of a (rows_n, dh) matrix into shared memory as
+// float32 rows of DH >= dh, transposed (dst[d * kLd + row]) or not
+// (dst[row * (DH + 4) + d]); rows >= rows_n and columns >= dh read as
+// zeros (dh % 4 == 0: 16-byte loads).
 template <int DH, bool kTranspose>
 __device__ __forceinline__ void load_tile(const float* __restrict__ m,
                                           long long r0, long long rows_n,
-                                          float* dst, int tid) {
+                                          int dh, float* dst, int tid) {
   constexpr int kChunks = DH / 4;                 // 16-byte loads per row
   for (int e = tid; e < 64 * kChunks; e += kThreads) {
     const int row = e / kChunks, c = (e % kChunks) * 4;
     float4 raw = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + row < rows_n)
-      raw = *reinterpret_cast<const float4*>(m + (r0 + row) * DH + c);
+    if (r0 + row < rows_n && c < dh)
+      raw = *reinterpret_cast<const float4*>(m + (r0 + row) * dh + c);
     const float v[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -90,12 +106,16 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ m,
   }
 }
 
+// The instance of width DH takes any dh <= DH (a multiple of 4): the
+// columns past dh are zeros in shared memory, which change neither Q.K^T
+// nor the written columns of O.  Block (x, y): head b * Hq + h = x (any
+// B Hq), query block qb0 + gridDim.y - 1 - y.
 template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int Hq,
-             int Hkv, int Tq, int S, int causal, int window,
-             float scale) {
+             int Hkv, int Tq, int S, int dh, int causal, int window,
+             float scale, int qb0) {
   constexpr int kCpt = DH / 16;                    // O columns per thread
   extern __shared__ __align__(16) float smem[];
   float* q_t = smem;                               // [DH][kLd]
@@ -106,14 +126,14 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int qb = gridDim.x - 1 - blockIdx.x;       // heaviest blocks first
+  const int qb = qb0 + gridDim.y - 1 - blockIdx.y;  // heaviest blocks first
   const int q0 = qb * kBQ;
-  const int bh = blockIdx.y;                       // b * Hq + h
+  const int bh = blockIdx.x;                       // b * Hq + h
   const int b = bh / Hq, h = bh % Hq;
   const int kvh = b * Hkv + h / (Hq / Hkv);
-  const float* qp = q + (long long)bh * Tq * DH;
-  const float* kp = k + (long long)kvh * S * DH;
-  const float* vp = v + (long long)kvh * S * DH;
+  const float* qp = q + (long long)bh * Tq * dh;
+  const float* kp = k + (long long)kvh * S * dh;
+  const float* vp = v + (long long)kvh * S * dh;
 
   // the visible keys of row r are [lo(r), hi(r)]; both grow with r
   const int q_last = min(q0 + kBQ, Tq) - 1;
@@ -125,7 +145,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int hi = causal ? min(S - 1, r) : S - 1;
     if (lo > hi) any_empty = 1;
   }
-  load_tile<DH, true>(qp, q0, Tq, q_t, tid);
+  load_tile<DH, true>(qp, q0, Tq, dh, q_t, tid);
   __syncthreads();
   const int n_tiles = (S + kBKV - 1) / kBKV;
   int t_begin = 0, t_end = n_tiles;
@@ -148,8 +168,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int tile = t_begin; tile < t_end; ++tile) {
     const int k0 = tile * kBKV;
     __syncthreads();                     // the last tile's P.V is done
-    load_tile<DH, true>(kp, k0, S, k_t, tid);
-    load_tile<DH, false>(vp, k0, S, v_s, tid);
+    load_tile<DH, true>(kp, k0, S, dh, k_t, tid);
+    load_tile<DH, false>(vp, k0, S, dh, v_s, tid);
     __syncthreads();
 
     float s[4][4];
@@ -228,15 +248,16 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty * 4 + i;
     if (r >= Tq) continue;
-    float* orow = o + ((long long)bh * Tq + r) * DH + tx * kCpt;
+    float* orow = o + ((long long)bh * Tq + r) * dh + tx * kCpt;
 #pragma unroll
-    for (int c = 0; c < kCpt; ++c) orow[c] = acc[i][c] / l[i];
+    for (int c = 0; c < kCpt; ++c)
+      if (tx * kCpt + c < dh) orow[c] = acc[i][c] / l[i];
   }
 }
 
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Tq, int S, int causal,
+                   int B, int Hq, int Hkv, int Tq, int S, int dh, int causal,
                    int window, float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * (size_t)DH * kLd + (size_t)kBKV * (DH + 4) +
@@ -245,12 +266,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       flash_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((Tq + kBQ - 1) / kBQ), (unsigned)(B * Hq));
-  flash_kernel<DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Tq, S,
-      causal, window, scale);
-  return cudaGetLastError();
+  for (int hi = (Tq + kBQ - 1) / kBQ; hi > 0; hi -= kMaxQBlocks) {
+    const int n = hi < kMaxQBlocks ? hi : kMaxQBlocks;
+    dim3 grid((unsigned)((long long)B * Hq), (unsigned)n);
+    flash_kernel<DH><<<grid, kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Tq,
+        S, dh, causal, window, scale, hi - n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 
@@ -261,7 +287,6 @@ namespace tc {
 using namespace sm90;
 
 constexpr int kBM = 128;           // query rows per block
-constexpr int kBN = 128;           // keys per K/V tile
 constexpr int kStages = 2;         // K/V tiles in flight
 constexpr int kThreads = 384;      // warpgroups 0, 1 consume, 2 loads
 constexpr int kConsumers = 256;
@@ -269,22 +294,37 @@ constexpr int kTurn = 2;           // named barriers 2, 3: whose turn to issue
 constexpr float kNegInf = -1e30f;  // the mask value of repro and ref.py
 constexpr float kLog2e = 1.4426950408889634f;
 
-// A (rows x DH) bf16 tile in shared memory, as TMA writes it: kPieces
-// column pieces of kSpan bytes per row, each (rows x kSpan) and swizzled.
-template <int DH>
+// The tiles of the instance (DK, DV): Q and K rows of DK bf16 values, V
+// and O rows of DV (DK, or half of it past 256: a block then computes one
+// half of O's columns, grid z, each half taking all of Q.K^T), in shared
+// memory as TMA writes them: column pieces of kSpan (Q, K) or kVSpan (V)
+// bytes a row (128, or 64 where the row is not a multiple of 128 bytes),
+// each (rows x span) and swizzled.  Key tiles of kBN rows: 128, or 32
+// past DK 128, where two stages of 128-key K and V tiles would pass the
+// block's shared memory and a 64 x 256 f32 O tile takes 128 registers a
+// thread beside S's and P's (at 64 keys ptxas spilled 124 bytes a thread
+// at DK 256; at 32, none).
+template <int DK, int DV = DK>
 struct Tile {
-  static constexpr int kSpan = DH * 2 < 128 ? DH * 2 : 128;
-  static constexpr int kPieces = DH * 2 / kSpan;       // 2 for dh 128
+  static constexpr int kBN = DK > 128 ? 32 : 128;
+  static constexpr int kSpan = DK * 2 % 128 == 0 ? 128 : 64;
+  static constexpr int kPieces = DK * 2 / kSpan;       // 2 for dh 128
   static constexpr int kPieceElems = kSpan / 2;
   static constexpr int kSteps = kSpan / 32;            // k16 steps a piece
   static constexpr uint32_t kSwizzle = kSpan == 128 ? 1u : 2u;
+  static constexpr int kVSpan = DV * 2 % 128 == 0 ? 128 : 64;
+  static constexpr int kVPieces = DV * 2 / kVSpan;
+  static constexpr int kVPieceElems = kVSpan / 2;
+  static constexpr uint32_t kVSwizzle = kVSpan == 128 ? 1u : 2u;
   static constexpr int kQPiece = kBM * kSpan;
-  static constexpr int kKVPiece = kBN * kSpan;
+  static constexpr int kKPiece = kBN * kSpan;
+  static constexpr int kVPiece = kBN * kVSpan;
   static constexpr int kQBytes = kQPiece * kPieces;
-  static constexpr int kKVBytes = kKVPiece * kPieces;
+  static constexpr int kKBytes = kKPiece * kPieces;
+  static constexpr int kVBytes = kVPiece * kVPieces;
   static constexpr int kBars = 1 + 3 * kStages;
   static constexpr int kSmem =
-      1024 + kQBytes + 2 * kStages * kKVBytes + 8 * kBars;
+      1024 + kQBytes + kStages * (kKBytes + kVBytes) + 8 * kBars;
 };
 
 // O (64 x DH) += P (64 x 16, registers) . V (16 x DH, shared, MN-major)
@@ -304,10 +344,55 @@ __device__ __forceinline__ void pv_mma<64>(float (&o)[32],
   wgmma_m64n64k16_rs_bf16_mn(o, a, dv);
 }
 template <>
+__device__ __forceinline__ void pv_mma<96>(float (&o)[48],
+                                           const uint32_t (&a)[4],
+                                           uint64_t dv) {
+  wgmma_m64n96k16_rs_bf16_mn(o, a, dv);
+}
+template <>
+__device__ __forceinline__ void pv_mma<160>(float (&o)[80],
+                                            const uint32_t (&a)[4],
+                                            uint64_t dv) {
+  wgmma_m64n160k16_rs_bf16_mn(o, a, dv);
+}
+template <>
+__device__ __forceinline__ void pv_mma<192>(float (&o)[96],
+                                            const uint32_t (&a)[4],
+                                            uint64_t dv) {
+  wgmma_m64n192k16_rs_bf16_mn(o, a, dv);
+}
+template <>
+__device__ __forceinline__ void pv_mma<224>(float (&o)[112],
+                                            const uint32_t (&a)[4],
+                                            uint64_t dv) {
+  wgmma_m64n224k16_rs_bf16_mn(o, a, dv);
+}
+template <>
 __device__ __forceinline__ void pv_mma<128>(float (&o)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t dv) {
   wgmma_m64n128k16_rs_bf16_mn(o, a, dv);
+}
+template <>
+__device__ __forceinline__ void pv_mma<256>(float (&o)[128],
+                                            const uint32_t (&a)[4],
+                                            uint64_t dv) {
+  wgmma_m64n256k16_rs_bf16_mn(o, a, dv);
+}
+
+// S (64 x BN, f32) (+)= Q (64 x 16, shared) . K (BN x 16, shared)^T
+template <int BN>
+__device__ __forceinline__ void qk_mma(float (&s)[BN / 2], uint64_t da,
+                                       uint64_t db, int accumulate);
+template <>
+__device__ __forceinline__ void qk_mma<32>(float (&s)[16], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  wgmma_m64n32k16_ss_bf16(s, da, db, accumulate);
+}
+template <>
+__device__ __forceinline__ void qk_mma<128>(float (&s)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+  wgmma_m64n128k16_ss_bf16(s, da, db, accumulate);
 }
 
 // 2^x on the SFU in one instruction; a subnormal result is flushed to
@@ -329,27 +414,35 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-template <int DH>
+// The instance (DK, DV) takes any dh <= DK (a multiple of 8, so that a
+// row is whole 16-byte pieces for TMA): the maps are dh wide and their
+// boxes DK (DV for V), so TMA fills the columns past dh with zeros, which
+// change neither Q.K^T nor the written columns of O.  Block (x, y, z):
+// head b * Hq + h = x (any B Hq), query block y, O's columns z DV ..
+// (z + 1) DV - 1.
+template <int DK, int DV = DK>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                 const __grid_constant__ CUtensorMap map_k,
                 const __grid_constant__ CUtensorMap map_v,
                 __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Tq, int S,
-                int causal, int window, float scale_log2) {
-  using C = Tile<DH>;
+                int dh, int causal, int window, float scale_log2, int qb0) {
+  using C = Tile<DK, DV>;
+  constexpr int kBN = C::kBN;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = align1024(smem_raw);
-  uint8_t* k_s = q_s + C::kQBytes;                  // [kStages][kKVBytes]
-  uint8_t* v_s = k_s + kStages * C::kKVBytes;       // [kStages][kKVBytes]
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * C::kKVBytes);
+  uint8_t* k_s = q_s + C::kQBytes;                  // [kStages][kKBytes]
+  uint8_t* v_s = k_s + kStages * C::kKBytes;        // [kStages][kVBytes]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * C::kVBytes);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + kStages;
   uint64_t* empty = v_full + kStages;
 
-  const int qb = gridDim.x - 1 - blockIdx.x;       // heaviest blocks first
+  const int qb = qb0 + gridDim.y - 1 - blockIdx.y;  // heaviest blocks first
   const int q0 = qb * kBM;
-  const int bh = blockIdx.y;                       // b * Hq + h
+  const int bh = blockIdx.x;                       // b * Hq + h
   const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+  const int c0 = blockIdx.z * DV;                  // O's first column here
 
   // Row r sees keys [lo(r), hi(r)]; both grow with r, and so does
   // lo(r) - hi(r), so a row of the block sees no key iff its last does.
@@ -384,16 +477,16 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       uint32_t phase = 0;
       for (int t = t_begin; t < t_end; ++t) {
         mbar_wait(&empty[stage], phase ^ 1);
-        uint8_t* kd = k_s + stage * C::kKVBytes;
-        uint8_t* vd = v_s + stage * C::kKVBytes;
-        mbar_expect_tx(&k_full[stage], C::kKVBytes);
+        uint8_t* kd = k_s + stage * C::kKBytes;
+        uint8_t* vd = v_s + stage * C::kVBytes;
+        mbar_expect_tx(&k_full[stage], C::kKBytes);
         for (int p = 0; p < C::kPieces; ++p)
-          tma_load_3d(kd + p * C::kKVPiece, &map_k, &k_full[stage],
+          tma_load_3d(kd + p * C::kKPiece, &map_k, &k_full[stage],
                       p * C::kPieceElems, t * kBN, kvh);
-        mbar_expect_tx(&v_full[stage], C::kKVBytes);
-        for (int p = 0; p < C::kPieces; ++p)
-          tma_load_3d(vd + p * C::kKVPiece, &map_v, &v_full[stage],
-                      p * C::kPieceElems, t * kBN, kvh);
+        mbar_expect_tx(&v_full[stage], C::kVBytes);
+        for (int p = 0; p < C::kVPieces; ++p)
+          tma_load_3d(vd + p * C::kVPiece, &map_v, &v_full[stage],
+                      c0 + p * C::kVPieceElems, t * kBN, kvh);
         if (++stage == kStages) { stage = 0; phase ^= 1; }
       }
     }
@@ -406,9 +499,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     const int row0 = wr_lo + warp * 16 + g, row1 = row0 + 8;
     const uint32_t q_base = smem_u32(q_s) + wg * 64 * C::kSpan;
 
-    float acc[DH / 2];
+    float acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
     mbar_wait(q_full, 0);
 
@@ -487,7 +580,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     // then P as the A operand of k16 step kk: keys k0 + 16 kk + [0, 16)
     auto rescale_and_split = [&]() {
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         acc[4 * j] *= alpha0;
         acc[4 * j + 1] *= alpha0;
         acc[4 * j + 2] *= alpha1;
@@ -501,28 +594,29 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                  p_lo[kk][i]);
     };
     auto issue_s = [&]() {
-      const uint32_t k_base = smem_u32(k_s + stage * C::kKVBytes);
+      const uint32_t k_base = smem_u32(k_s + stage * C::kKBytes);
 #pragma unroll
-      for (int ks = 0; ks < DH / 16; ++ks) {
+      for (int ks = 0; ks < DK / 16; ++ks) {
         const int p = ks / C::kSteps, off = (ks % C::kSteps) * 32;
-        wgmma_m64n128k16_ss_bf16(
+        qk_mma<kBN>(
             s,
             make_desc(q_base + p * C::kQPiece + off, 16, 8 * C::kSpan,
                       C::kSwizzle),
-            make_desc(k_base + p * C::kKVPiece + off, 16, 8 * C::kSpan,
+            make_desc(k_base + p * C::kKPiece + off, 16, 8 * C::kSpan,
                       C::kSwizzle),
             ks > 0);
       }
       wgmma_commit();
     };
     auto issue_pv = [&]() {
-      const uint32_t v_base = smem_u32(v_s + pv_stage * C::kKVBytes);
+      const uint32_t v_base = smem_u32(v_s + pv_stage * C::kVBytes);
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk) {
-        const uint64_t dv = make_desc(v_base + kk * 16 * C::kSpan,
-                                      C::kKVPiece, 8 * C::kSpan, C::kSwizzle);
-        pv_mma<DH>(acc, p_hi[kk], dv);
-        pv_mma<DH>(acc, p_lo[kk], dv);
+        const uint64_t dv = make_desc(v_base + kk * 16 * C::kVSpan,
+                                      C::kVPiece, 8 * C::kVSpan,
+                                      C::kVSwizzle);
+        pv_mma<DV>(acc, p_hi[kk], dv);
+        pv_mma<DV>(acc, p_lo[kk], dv);
       }
       wgmma_commit();
     };
@@ -585,10 +679,11 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-    __nv_bfloat16* o0 = o + ((long long)bh * Tq + row0) * DH + 2 * t4;
-    __nv_bfloat16* o1 = o0 + 8 * DH;
+    __nv_bfloat16* o0 = o + ((long long)bh * Tq + row0) * dh + c0 + 2 * t4;
+    __nv_bfloat16* o1 = o0 + 8 * dh;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
+      if (c0 + 8 * j >= dh) break;                 // padded columns
       if (row0 < Tq)
         *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
             __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
@@ -599,76 +694,278 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
-template <int DH>
+template <int DK, int DV = DK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Tq, int S, int causal,
+                   int B, int Hq, int Hkv, int Tq, int S, int dh, int causal,
                    int window, float scale, cudaStream_t stream) {
-  using C = Tile<DH>;
-  const CUtensorMapSwizzle swizzle = C::kSpan == 128
-                                         ? CU_TENSOR_MAP_SWIZZLE_128B
-                                         : CU_TENSOR_MAP_SWIZZLE_64B;
-  const cuuint64_t dq[3] = {DH, (cuuint64_t)Tq, (cuuint64_t)B * Hq};
-  const cuuint64_t dkv[3] = {DH, (cuuint64_t)S, (cuuint64_t)B * Hkv};
+  using C = Tile<DK, DV>;
+  auto swizzle = [](int span) {
+    return span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : CU_TENSOR_MAP_SWIZZLE_64B;
+  };
+  const cuuint64_t dq[3] = {(cuuint64_t)dh, (cuuint64_t)Tq,
+                            (cuuint64_t)B * Hq};
+  const cuuint64_t dkv[3] = {(cuuint64_t)dh, (cuuint64_t)S,
+                             (cuuint64_t)B * Hkv};
   const cuuint32_t bq[3] = {C::kPieceElems, kBM, 1};
-  const cuuint32_t bkv[3] = {C::kPieceElems, kBN, 1};
+  const cuuint32_t bk[3] = {C::kPieceElems, C::kBN, 1};
+  const cuuint32_t bv[3] = {C::kVPieceElems, C::kBN, 1};
   CUtensorMap mq, mk, mv;
   cudaError_t err;
   if ((err = make_map(&mq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q, 3, dq, bq,
-                      swizzle)) != cudaSuccess ||
+                      swizzle(C::kSpan))) != cudaSuccess ||
       (err = make_map(&mk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k, 3, dkv,
-                      bkv, swizzle)) != cudaSuccess ||
+                      bk, swizzle(C::kSpan))) != cudaSuccess ||
       (err = make_map(&mv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, v, 3, dkv,
-                      bkv, swizzle)) != cudaSuccess)
+                      bv, swizzle(C::kVSpan))) != cudaSuccess)
     return err;
-  err = cudaFuncSetAttribute(flash_tc_kernel<DH>,
+  err = cudaFuncSetAttribute(flash_tc_kernel<DK, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              C::kSmem);
   if (err != cudaSuccess) return err;
-  dim3 grid((unsigned)((Tq + kBM - 1) / kBM), (unsigned)(B * Hq));
-  flash_tc_kernel<DH><<<grid, kThreads, C::kSmem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Tq, S, causal,
-      window, scale * kLog2e);
-  return cudaGetLastError();
+  for (int hi = (Tq + kBM - 1) / kBM; hi > 0; hi -= kMaxQBlocks) {
+    const int n = hi < kMaxQBlocks ? hi : kMaxQBlocks;
+    dim3 grid((unsigned)((long long)B * Hq), (unsigned)n,
+              (unsigned)((dh + DV - 1) / DV));
+    flash_tc_kernel<DK, DV><<<grid, kThreads, C::kSmem, stream>>>(
+        mq, mk, mv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Tq, S, dh,
+        causal, window, scale * kLog2e, hi - n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace tc
 
+namespace wide {
+
+// The route of every head width the padded instances do not take (dh past
+// 256, or a bf16 dh that is not a multiple of 8, whose rows are not whole
+// 16-byte pieces for TMA; an f32 dh not a multiple of 4), either dtype,
+// without TMA: a block owns 16 query rows of one head (4 a warp) and 64
+// columns of O (grid z: the column chunks of dh), and walks 32-key tiles
+// with the online softmax, lane j holding key j.  Its scores are dot
+// products over the whole dh, taken kDC columns at a time through shared
+// memory (the block's query rows and the tile's keys copied with
+// consecutive threads on consecutive values, each key row padded to kDC
+// + 1 so that the lanes' reads of a column fall in distinct banks); the
+// row max and sum are warp reductions, and P.V takes each key's weight by
+// a shuffle against the lanes' columns of V (consecutive lanes,
+// consecutive columns).  Every product and sum is float32 (expf, as the
+// plain version).  Bound: the issue rate of float32 FMAs; each column
+// chunk of O computes the scores again.
+constexpr int kRows = 16;          // query rows a block: 4 a warp
+constexpr int kKeys = 32;          // keys a tile: one a lane
+constexpr int kCols = 64;          // O columns a block: two a lane
+constexpr int kDC = 64;            // dh columns a pass of the scores
+constexpr int kThreads = 128;
+constexpr float kNegInf = -1e30f;  // the mask value of repro and ref.py
+
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
+            int Tq, int S, int dh, int causal, int window, float scale,
+            int qb0) {
+  __shared__ float q_s[kRows][kDC + 1];
+  __shared__ float k_s[kKeys][kDC + 1];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x;                       // b * Hq + h
+  const int q0 = (qb0 + gridDim.y - 1 - blockIdx.y) * kRows;
+  const int c0 = blockIdx.z * kCols;
+  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+  const T* qp = q + (long long)bh * Tq * dh;
+  const T* kp = k + (long long)kvh * S * dh;
+  const T* vp = v + (long long)kvh * S * dh;
+  // a row of the block sees no key iff its last does (see tc::)
+  const int q_last = min(q0 + kRows, Tq) - 1;
+  const int lo_last = window > 0 ? max(0, q_last - window + 1) : 0;
+  const int hi_last = causal ? min(S - 1, q_last) : S - 1;
+  int t_begin = 0, t_end = (S + kKeys - 1) / kKeys;
+  if (lo_last <= hi_last) {
+    t_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / kKeys;
+    t_end = hi_last / kKeys + 1;
+  }
+  float m[4], l[4], acc[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    acc[i][0] = acc[i][1] = 0.f;
+  }
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int k0 = tile * kKeys, kpos = k0 + lane;
+    float sc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int d0 = 0; d0 < dh; d0 += kDC) {
+      __syncthreads();                   // the last pass's values are read
+      for (int e = tid; e < kRows * kDC; e += kThreads) {
+        const int row = e / kDC, d = d0 + e % kDC;
+        const int r = min(q0 + row, Tq - 1);
+        q_s[row][e % kDC] = d < dh ? ld(qp + (long long)r * dh + d) : 0.f;
+      }
+      for (int e = tid; e < kKeys * kDC; e += kThreads) {
+        const int key = e / kDC, d = d0 + e % kDC;
+        k_s[key][e % kDC] = d < dh && k0 + key < S
+                                ? ld(kp + (long long)(k0 + key) * dh + d)
+                                : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int d = 0; d < kDC; ++d) {
+        const float kv = k_s[lane][d];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          sc[i] = fmaf(q_s[4 * warp + i][d], kv, sc[i]);
+      }
+    }
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + 4 * warp + i;
+      float x = __fmul_rn(sc[i], scale);
+      if (kpos >= S) x = -INFINITY;
+      else if ((causal && r < kpos) || (window > 0 && kpos <= r - window))
+        x = kNegInf;
+      float mx = x;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = expf(m[i] - m_new);
+      p[i] = expf(x - m_new);
+      float sum = p[i];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+      acc[i][0] *= alpha;
+      acc[i][1] *= alpha;
+    }
+    const int n = min(kKeys, S - k0);
+    const int ca = c0 + lane, cb = ca + 32;
+    for (int j = 0; j < n; ++j) {
+      const T* vr = vp + (long long)(k0 + j) * dh;
+      const float va = ca < dh ? ld(vr + ca) : 0.f;
+      const float vb = cb < dh ? ld(vr + cb) : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float pj = __shfl_sync(0xffffffffu, p[i], j);
+        acc[i][0] = fmaf(pj, va, acc[i][0]);
+        acc[i][1] = fmaf(pj, vb, acc[i][1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + 4 * warp + i;
+    if (r >= Tq) continue;
+    T* orow = o + ((long long)bh * Tq + r) * dh;
+    if (c0 + lane < dh) st(orow + c0 + lane, acc[i][0] / l[i]);
+    if (c0 + 32 + lane < dh) st(orow + c0 + 32 + lane, acc[i][1] / l[i]);
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int Hq, int Hkv, int Tq, int S, int dh, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  const int chunks = (dh + kCols - 1) / kCols;
+  if (chunks > 65535) return cudaErrorInvalidValue;
+  for (int hi = (Tq + kRows - 1) / kRows; hi > 0; hi -= kMaxQBlocks) {
+    const int n = hi < kMaxQBlocks ? hi : kMaxQBlocks;
+    dim3 grid((unsigned)((long long)B * Hq), (unsigned)n, (unsigned)chunks);
+    wide_kernel<T><<<grid, kThreads, 0, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Tq, S, dh,
+        causal, window, scale, hi - n);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace wide
+
 namespace {
 
-// dtype 1 (bfloat16) takes the tensor cores, dtype 0 (float32) the FMAs.
+// dtype 1 (bfloat16) takes the tensor cores, dtype 0 (float32) the FMAs;
+// the instance of width DH takes dh <= DH.
 template <int DH>
 cudaError_t launch_route(int dtype, const void* q, const void* k,
                          const void* v, void* o, int B, int Hq, int Hkv,
-                         int Tq, int S, int causal, int window, float scale,
-                         cudaStream_t stream) {
+                         int Tq, int S, int dh, int causal, int window,
+                         float scale, cudaStream_t stream) {
   if (dtype == 1)
-    return tc::launch<DH>(q, k, v, o, B, Hq, Hkv, Tq, S, causal, window,
+    return tc::launch<DH>(q, k, v, o, B, Hq, Hkv, Tq, S, dh, causal, window,
                           scale, stream);
-  return simt::launch<DH>(q, k, v, o, B, Hq, Hkv, Tq, S, causal, window,
+  return simt::launch<DH>(q, k, v, o, B, Hq, Hkv, Tq, S, dh, causal, window,
                           scale, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (the FMA route), 1 = bfloat16 (the tensor-core
-// route); q, k, v and o alike.  dh in {32, 64, 128}; Hq a multiple of Hkv;
+// dtype: 0 = float32, 1 = bfloat16; q, k, v and o alike.  inst: the padded
+// instance (32, 64, 96, 128 or 256: the tensor cores for bfloat16, dh a
+// multiple of 8; the FMAs for float32, dh a multiple of 4; and for
+// bfloat16 only 320, 384, 448 or 512, O in two halves of columns; dh <=
+// inst), or 0, the wide route (any dh, either dtype).  Hq a multiple of Hkv;
 // tensors contiguous and 16-byte aligned (the wrapper checks).  window 0
-// means no window.
+// means no window.  Any B Hq (the grid's x) and any T (blocks of 128 query
+// rows on the tensor cores, 64 on the FMAs, 16 on the wide route: the
+// grid's y takes 65,535 of them, and more go in launches of as many, the
+// last blocks, the heaviest under a causal mask, first).
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int dtype, int B, int Hq, int Hkv,
-                               int Tq, int S, int dh, int causal, int window,
-                               float scale, void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Tq <= 0 || S <= 0)
+                               int Tq, int S, int dh, int inst, int causal,
+                               int window, float scale, void* stream) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Tq <= 0 || S <= 0
+      || dh <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  switch (dh) {
+  if (inst == 0)
+    return dtype == 1
+               ? (int)wide::launch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Tq,
+                                                  S, dh, causal, window,
+                                                  scale, s)
+               : (int)wide::launch<float>(q, k, v, o, B, Hq, Hkv, Tq, S, dh,
+                                          causal, window, scale, s);
+  if (dh > inst || dh % (dtype == 1 ? 8 : 4)) return (int)cudaErrorInvalidValue;
+  switch (inst) {
     case 32: return (int)launch_route<32>(dtype, q, k, v, o, B, Hq, Hkv, Tq,
-                                          S, causal, window, scale, s);
+                                          S, dh, causal, window, scale, s);
     case 64: return (int)launch_route<64>(dtype, q, k, v, o, B, Hq, Hkv, Tq,
-                                          S, causal, window, scale, s);
+                                          S, dh, causal, window, scale, s);
+    case 96: return (int)launch_route<96>(dtype, q, k, v, o, B, Hq, Hkv, Tq,
+                                          S, dh, causal, window, scale, s);
     case 128: return (int)launch_route<128>(dtype, q, k, v, o, B, Hq, Hkv,
-                                            Tq, S, causal, window, scale, s);
+                                            Tq, S, dh, causal, window, scale,
+                                            s);
+    case 256: return (int)launch_route<256>(dtype, q, k, v, o, B, Hq, Hkv,
+                                            Tq, S, dh, causal, window, scale,
+                                            s);
+  }
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  switch (inst) {                      // O's columns in two halves
+    case 320: return (int)tc::launch<320, 160>(q, k, v, o, B, Hq, Hkv, Tq, S,
+                                               dh, causal, window, scale, s);
+    case 384: return (int)tc::launch<384, 192>(q, k, v, o, B, Hq, Hkv, Tq, S,
+                                               dh, causal, window, scale, s);
+    case 448: return (int)tc::launch<448, 224>(q, k, v, o, B, Hq, Hkv, Tq, S,
+                                               dh, causal, window, scale, s);
+    case 512: return (int)tc::launch<512, 256>(q, k, v, o, B, Hq, Hkv, Tq, S,
+                                               dh, causal, window, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -173,18 +173,31 @@ __global__ void lb_looped(const float* __restrict__ q_paa,
     if (qi < nq) out[(long long)(q0 + qi) * NL + l] = acc[qi] * scale;
 }
 
+// The grid's y dimension takes 65,535 query tiles: more go in launches of
+// as many (`tile` queries each), each on its slice of the queries and of
+// out.
+constexpr int kMaxTiles = 65535;
+
 template <int W>
 cudaError_t launch(const float* q, const float* lo, const float* hi,
                    float* out, int Q, long long NL, float scale,
                    cudaStream_t stream) {
-  dim3 grid((unsigned)((NL + kTL - 1) / kTL), (unsigned)((Q + kTQ - 1) / kTQ));
-  if (NL % 4 == 0)
-    lb_kernel<W, true><<<grid, kThreads, 0, stream>>>(q, lo, hi, out, Q, NL,
-                                                       scale);
-  else
-    lb_kernel<W, false><<<grid, kThreads, 0, stream>>>(q, lo, hi, out, Q, NL,
-                                                        scale);
-  return cudaGetLastError();
+  for (int q0 = 0; q0 < Q; q0 += kMaxTiles * kTQ) {
+    const int nq = Q - q0 < kMaxTiles * kTQ ? Q - q0 : kMaxTiles * kTQ;
+    dim3 grid((unsigned)((NL + kTL - 1) / kTL),
+              (unsigned)((nq + kTQ - 1) / kTQ));
+    const float* qs = q + (long long)q0 * W;
+    float* os = out + (long long)q0 * NL;
+    if (NL % 4 == 0)
+      lb_kernel<W, true><<<grid, kThreads, 0, stream>>>(qs, lo, hi, os, nq,
+                                                         NL, scale);
+    else
+      lb_kernel<W, false><<<grid, kThreads, 0, stream>>>(qs, lo, hi, os, nq,
+                                                          NL, scale);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -205,10 +218,17 @@ extern "C" int lb_distance(const void* q_paa, const void* leaf_lo,
   float* o = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1 && W >= 1) {
-    dim3 grid((unsigned)((NL + kTL - 1) / kTL),
-              (unsigned)((Q + kLQ - 1) / kLQ));
-    lb_looped<<<grid, kTL, 0, s>>>(q, lo, hi, o, Q, NL, W, scale);
-    return (int)cudaGetLastError();
+    for (int q0 = 0; q0 < Q; q0 += kMaxTiles * kLQ) {
+      const int nq = Q - q0 < kMaxTiles * kLQ ? Q - q0 : kMaxTiles * kLQ;
+      dim3 grid((unsigned)((NL + kTL - 1) / kTL),
+                (unsigned)((nq + kLQ - 1) / kLQ));
+      lb_looped<<<grid, kTL, 0, s>>>(q + (long long)q0 * W, lo, hi,
+                                     o + (long long)q0 * NL, nq, NL, W,
+                                     scale);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
   }
   if (route == 0) {
     switch (W) {

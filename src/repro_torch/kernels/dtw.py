@@ -26,17 +26,26 @@ from .ref import dtw_scan_ref, dtw_search_ref, lb_keogh_ref
 launches = 0
 by_route: dict = {}                    # launches of each "kernel/route"
 
-MAX_L = 1024                           # the longest series a kernel takes
+WHOLE_L = 1024         # the longest series the wave routes stage whole
 MAX_BAND_R = 16                        # dtw_scan's band route's largest r
 # dtw_search's wave routes: cells a lane, and the largest radius each takes
 # (2r + 1 offsets over at most 32 lanes)
 WAVE_CELLS = {"wave2": 2, "wave4": 4, "wave8": 8}
 WAVE_MAX_R = {name: (32 * c - 1) // 2 for name, c in WAVE_CELLS.items()}
+# the same lanes for L > WHOLE_L, each pair's series through a ring of
+# columns that the warp refills as the front advances (ring_size), and
+# ring16 (16 cells a lane, r <= 255) there too
+RING_CELLS = {"ring2": 2, "ring4": 4, "ring8": 8, "ring16": 16}
+RING_MAX_R = {name: (32 * c - 1) // 2 for name, c in RING_CELLS.items()}
+MAX_ROUND_K = 1024     # the wave routes' round; the general route's passes
 # dtw_scan's wave route, the same lane layout at 16 cells a lane, for 16 <
 # r <= 255: of 4, 8 and 16 cells a lane, 16 spent the fewest issue slots a
 # cell on an H100 at r 25 and 102 (PERF.md, the table of cells a lane)
 SCAN_CELLS = {"wave16": 16}
 SCAN_MAX_R = {name: (32 * c - 1) // 2 for name, c in SCAN_CELLS.items()}
+SCAN_RING_CELLS = {"ring16": 16}       # the same for L > WHOLE_L
+RING_CHUNK = 32                        # columns a ring fill copies
+STAGE_L = 16384        # the longest query a kernel stages in shared memory
 GROUP = 32                             # queries of one lb_keogh launch
 _SMEM = 200 * 1024                     # shared memory a block may ask for
 _SCAN_BAND_THREADS = 128
@@ -44,55 +53,84 @@ _SCAN_GENERAL_THREADS = 64             # at most: fewer where the band is wide
 _SCAN_WAVE_WARPS = 16                  # the scan wave route's CTA, at most
 
 _LB_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+                + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
 _SEARCH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                    + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 7)
+                    + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 8)
 _SCAN_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                  + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2)
-_DP_CODES = {"general": 0, **WAVE_CELLS}  # a wave route's: its cells a lane
-_SCAN_CODES = {"band": 0, "general": 1, **SCAN_CELLS}  # wave16: its cells
+                  + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
+                  + [ctypes.c_int, ctypes.c_void_p])
+_DIAG_BLOCKS_SM = 32                   # resident blocks an SM, at most
+# a wave or ring route's code: its cells a lane (the kernel takes the ring
+# where L > WHOLE_L)
+_DP_CODES = {"general": 0, "diag": 1, **WAVE_CELLS, **RING_CELLS}
+_SCAN_CODES = {"band": 0, "general": 1, "diag": 2, **SCAN_CELLS,
+               **SCAN_RING_CELLS}
 _LB_CODES = {"vec": 0, "scalar": 1}
 
 
 def lb_route(L: int, aligned: bool = True) -> str:
     """"vec" where L % 4 == 0 and the collection is 16-byte aligned (a
     lane reads 4 points of a series with one 16-byte load), "scalar" for
-    every other L <= 1024 (four 4-byte loads).  Both are one kernel: a
-    lane owns 4 whole series, each (query, series) sum in a register."""
+    every other L (four 4-byte loads).  Both are one kernel: a lane owns
+    4 whole series, each (query, series) sum in a register."""
     return "vec" if L % 4 == 0 and aligned else "scalar"
 
 
-def dp_route(r: int) -> str:
-    """dtw_search's route for band radius r: "wave2", "wave4" and "wave8"
-    for r <= 31, 63 and 127 (a pair's band swept as a wavefront over
-    ceil((2r + 1) / cells) lanes of a warp, 2, 4 and 8 cells a lane, r a
-    runtime argument, each pair abandoned once it cannot win); "general"
-    for r > 127 (a thread a pair, the band in shared memory)."""
-    for name, top in WAVE_MAX_R.items():
-        if r <= top:
-            return name
-    return "general"
+def dp_route(r: int, L: int = 256, round_k: int = 32) -> str:
+    """dtw_search's route for band radius r, length L and round_k:
+    "wave2", "wave4" and "wave8" for r <= 31, 63 and 127 (a pair's band
+    swept as a wavefront over ceil((2r + 1) / cells) lanes of a warp, 2,
+    4 and 8 cells a lane, r a runtime argument, each pair abandoned once
+    it cannot win, its series staged whole), "ring2", "ring4", "ring8"
+    and "ring16" for r <= 31, 63, 127 and 255 at L > 1024 (the series
+    through a ring of columns); "general" for the rest or round_k > 1024
+    (a thread a pair, the band in shared memory, a round in passes of at
+    most 1024); "diag" where that band passes shared memory
+    (general_band_fits: a block a pair)."""
+    if round_k <= MAX_ROUND_K:
+        names = WAVE_MAX_R if L <= WHOLE_L else RING_MAX_R
+        for name, top in names.items():
+            if r <= top:
+                return name
+    return "general" if general_band_fits(L, r) else "diag"
 
 
-def scan_route(r: int) -> str:
-    """dtw_scan's route for band radius r (at most L - 1): "band" for r <=
-    16 (a thread a pair, the previous row's band in registers, one
-    template instance a radius), "wave16" for r <= 255 (each pair's
-    band a wavefront over the lanes of a warp, 16 cells a lane, r a
-    runtime argument), "general" beyond (a thread a pair, the band in
-    shared memory)."""
+def scan_route(r: int, L: int = 256) -> str:
+    """dtw_scan's route for band radius r (at most L - 1) and length L:
+    "band" for r <= 16 (a thread a pair, the previous row's band in
+    registers, one template instance a radius), "wave16" for r <= 255
+    (each pair's band a wavefront over the lanes of a warp, 16 cells a
+    lane, r a runtime argument), "ring16" for the same radii at L > 1024
+    (the series through a ring of columns, the queries read from device
+    memory), "general" beyond (a thread a pair, the band in shared
+    memory), "diag" where that band passes shared memory
+    (general_band_fits: a block a pair, an anti-diagonal a step)."""
     if r <= MAX_BAND_R:
         return "band"
-    return "wave16" if r <= SCAN_MAX_R["wave16"] else "general"
+    if r > SCAN_MAX_R["wave16"]:
+        return "general" if general_band_fits(L, r) else "diag"
+    return "wave16" if L <= WHOLE_L else "ring16"
 
 
-def scan_routes(r: int) -> tuple:
-    """Every route of dtw_scan that takes band radius r: its default
-    first, then the wave route where its lanes hold the band, then
-    "general" (any r)."""
-    wave = tuple(n for n, top in SCAN_MAX_R.items() if r <= top)
-    rest = (("band",) if r <= MAX_BAND_R else ()) + wave + ("general",)
-    return (scan_route(r),) + tuple(n for n in rest if n != scan_route(r))
+def scan_routes(r: int, L: int = 256) -> tuple:
+    """Every route of dtw_scan that takes band radius r at length L: its
+    default first, then the wave (or ring) route where its lanes hold
+    the band, "general" where its band fits shared memory, then "diag"
+    (any r)."""
+    wave = tuple(("wave16" if L <= WHOLE_L else "ring16")
+                 for n, top in SCAN_MAX_R.items() if r <= top)
+    rest = ((("band",) if r <= MAX_BAND_R else ()) + wave
+            + (("general",) if general_band_fits(L, r) else ()) + ("diag",))
+    first = scan_route(r, L)
+    return (first,) + tuple(n for n in rest if n != first)
+
+
+def ring_size(cells: int, lanes: int) -> int:
+    """Floats of a pair's ring on a ring route (csrc/dtw.cu ring_size): the
+    least power of two of at least span + 2 RING_CHUNK + 8, where a step's
+    lanes read span = (cells - 1)(lanes - 1) + cells columns."""
+    need = (cells - 1) * (lanes - 1) + cells + 2 * RING_CHUNK + 8
+    return 1 << (need - 1).bit_length()
 
 
 def scan_geometry(L: int, r: int, cells: int, Q: int) -> dict:
@@ -114,9 +152,21 @@ def scan_geometry(L: int, r: int, cells: int, Q: int) -> dict:
     with 8 warps kept where the tiles allow.  The launch may take the
     chunks smaller (where the collection's tiles are too few to fill the
     card, so that its CTAs share more (chunk, tiles) units), which only
-    frees shared memory."""
+    frees shared memory.
+
+    At L > 1024 (the "ring16" route) a pair's series goes through a ring
+    of `stride` = ring_size(cells, H) floats in place of a row, and the
+    queries are read from device memory: pad and qstride are 0, and the
+    CTA's warps (16 at most, fewer where their P rings each pass `_SMEM`
+    bytes: 8 at r <= 3) hold P rings each."""
     H = -(-(2 * r + 1) // cells)
     P, l0 = 32 // H, r // cells
+    if L > WHOLE_L:
+        W = ring_size(cells, H)
+        warps = min(_SCAN_WAVE_WARPS, _SMEM // (4 * P * W))
+        return {"lanes": H, "pairs": P, "pad": 0, "stride": W,
+                "qstride": 0, "queries": max(1, min(Q, 32)),
+                "threads": 32 * warps, "smem": 4 * warps * P * W}
     pad = -(-max(r - l0, l0 + cells * H - H - r, 0) // 4) * 4
     shift = max(4, 32 >> (P - 1).bit_length())
     stride = L + pad + (shift - (L + pad)) % 32
@@ -131,33 +181,55 @@ def scan_geometry(L: int, r: int, cells: int, Q: int) -> dict:
             "smem": 4 * (queries * qstride + warps * tile)}
 
 
+def general_band_fits(L: int, r: int) -> bool:
+    """Whether a general-route pair's band of 2r + 1 floats fits in a
+    block's shared memory beside the query (staged where L <= STAGE_L):
+    every r up to L - 1 at L <= STAGE_L, r <= 25,599 beyond.  Where it
+    does not, the diag routes take the shape."""
+    return 2 * r + 1 <= _SMEM // 4 - (L if L <= STAGE_L else 0)
+
+
 def general_threads(L: int, r: int, most: int) -> int:
     """Threads of a general-route block (a thread a pair, its band of 2r +
-    1 floats in shared memory beside the query's L): at most `most`, a
-    multiple of 32 where a warp's bands fit in `_SMEM` bytes, else the
-    largest power of two whose do (16 at L 1024, r 1023)."""
-    fit = (_SMEM // 4 - L) // (2 * r + 1)
+    1 floats in shared memory beside the query's L, where L <= STAGE_L;
+    a longer query is read from device memory), where one band fits
+    (general_band_fits): at most `most`, a multiple of 32 where a warp's
+    bands fit in `_SMEM` bytes, else the largest power of two whose do
+    (16 at L 1024, r 1023)."""
+    fit = (_SMEM // 4 - (L if L <= STAGE_L else 0)) // (2 * r + 1)
     if fit >= 32:
         return min(most, fit // 32 * 32)
     return 1 << (fit.bit_length() - 1)
 
 
+def diag_threads(r: int) -> int:
+    """Threads of a diag-route block (a pair a block, an anti-diagonal a
+    step: at most r + 1 cells): a warp for each 32 of them, 1024 at
+    most."""
+    return min(1024, 32 * -(-(r + 1) // 32))
+
+
 def wave_cells(route: str) -> int:
-    """Cells a lane of one of dtw_search's wave routes."""
-    return WAVE_CELLS[route]
+    """Cells a lane of one of dtw_search's wave or ring routes."""
+    return {**WAVE_CELLS, **RING_CELLS}[route]
 
 
 def band_threads(r: int, L: int, round_k: int, cells: int = 2) -> int:
     """Threads of each CTA of dtw_search's wave routes (a cluster of 8 a
-    query, one round each): a pair takes ceil((2r + 1) / cells) lanes (r
-    + 1 at 2 cells), a warp runs 32 // lanes pairs, each with its series
-    in shared memory beside the query and the round's distances and
-    bounds (two of each a candidate); as many warps
-    as a round's candidates need, at most 32, and at most as many as fit in
-    `_SMEM` bytes (one at least: L <= 1024, round_k <= 1024)."""
-    P = 32 // -(-(2 * r + 1) // cells)
-    return 32 * min(32, -(-round_k // P),
-                    (_SMEM // 4 - L - 4 * round_k) // (P * L))
+    query, one round each): a pair takes H = ceil((2r + 1) / cells) lanes
+    (r + 1 at 2 cells), a warp runs 32 // H pairs, each with its series
+    in shared memory (whole to L 1024, else a ring of ring_size(cells, H)
+    floats) beside the query (where L <= STAGE_L) and the round's
+    distances and bounds (two of each a candidate); as many warps as a
+    round's candidates need, at most 32 (16 at 16 cells a lane, whose
+    lanes hold more registers), and at most as many as fit in `_SMEM`
+    bytes (one at least: round_k <= 1024)."""
+    H = -(-(2 * r + 1) // cells)
+    P = 32 // H
+    row = L if L <= WHOLE_L else ring_size(cells, H)
+    qf = L if L <= STAGE_L else 0
+    return 32 * min(32 if cells < 16 else 16, -(-round_k // P),
+                    (_SMEM // 4 - qf - 4 * round_k) // (P * row))
 
 
 def _pick(route, default: str, allowed: tuple, what: str) -> str:
@@ -174,9 +246,19 @@ def lb_group(L: int) -> int:
     """Queries one lb_keogh launch takes: at most 32, a multiple of 8 (the
     kernel's query slots come in 8s), their envelopes ((lo, hi) a point,
     L rounded up to 4 points) within `_SMEM` bytes of shared memory: 32
-    up to L 800, 24 above."""
+    up to L 800, 24 to L 1024; 32 above, in column chunks (lb_chunk)."""
+    if L > WHOLE_L:
+        return GROUP
     Lp = -(-L // 4) * 4
     return max(8, min(GROUP, _SMEM // (8 * Lp)) // 8 * 8)
+
+
+def lb_chunk(L: int) -> int:
+    """Columns one lb_keogh launch sums: all L to L 1024; above, 800 (a
+    multiple of 4, whose envelopes of 32 queries fill `_SMEM` bytes), each
+    chunk's launch going on from the sums the last one stored, in the
+    same order, so the bits are one pass's."""
+    return L if L <= WHOLE_L else _SMEM // (8 * GROUP) // 4 * 4
 
 
 def _count(kernel: str, route: str) -> None:
@@ -201,9 +283,8 @@ def _check(q: torch.Tensor, x: torch.Tensor, r: int) -> int:
         raise ValueError("q and x must be contiguous")
     if q.device != x.device:
         raise ValueError("q and x must share a device")
-    if not 1 <= q.shape[1] <= MAX_L:
-        raise ValueError(f"series length must be in [1, {MAX_L}], got "
-                         f"{q.shape[1]}")
+    if q.shape[1] < 1:
+        raise ValueError("series length must be at least 1")
     if not isinstance(r, int) or r < 0:
         raise ValueError(f"band radius r must be an int >= 0, got {r!r}")
     if q.device.type not in ("cpu", "cuda"):
@@ -214,9 +295,10 @@ def _check(q: torch.Tensor, x: torch.Tensor, r: int) -> int:
 def lb_keogh(q: torch.Tensor, x: torch.Tensor, *, r: int,
              route: str | None = None) -> torch.Tensor:
     """The squared LB_Keogh of each query of q (Qg, L) against each series
-    of x (N, L), band radius r: (Qg, N) float32.  One launch for each
-    `lb_group(L)` queries, each reading the collection once, by `route`
-    (default `lb_route(L, x 16-byte aligned)`; "scalar" takes every L).
+    of x (N, L), band radius r: (Qg, N) float32, any L.  One launch for
+    each `lb_group(L)` queries and `lb_chunk(L)` columns, each reading
+    its columns of the collection once, by `route` (default
+    `lb_route(L, x 16-byte aligned)`; "scalar" takes every L).
 
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if a launch fails."""
@@ -229,15 +311,17 @@ def lb_keogh(q: torch.Tensor, x: torch.Tensor, *, r: int,
     Qg, N = q.shape[0], x.shape[0]
     out = torch.empty((Qg, N), dtype=torch.float32, device=x.device)
     fn = _build.entry("dtw", "dtw_lb_keogh", _LB_ARGTYPES)
-    step = lb_group(L)
+    step, chunk = lb_group(L), lb_chunk(L)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         for g0 in range(0, Qg, step):
             n = min(step, Qg - g0)
-            code = fn(q[g0:].data_ptr(), x.data_ptr(), N, L, n, r,
-                      _LB_CODES[route], out[g0:].data_ptr(), stream)
-            _build.check("dtw", "dtw_lb_keogh", code)
-            _count("lb_keogh", route)
+            for j0 in range(0, L, chunk):
+                code = fn(q[g0:].data_ptr(), x.data_ptr(), N, L, n, r,
+                          _LB_CODES[route], j0, min(chunk, L - j0), j0 > 0,
+                          out[g0:].data_ptr(), stream)
+                _build.check("dtw", "dtw_lb_keogh", code)
+                _count("lb_keogh", route)
     return out
 
 
@@ -246,9 +330,11 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
                route: str | None = None) -> Tuple[torch.Tensor, ...]:
     """The refinement of a DTW 1-NN search for each query of q (Qg, L)
     over x (N, L), in one launch: candidates order (Qg, N) int64 in the
-    order of their ascending bounds sorted_lb (Qg, N) float32, round_k
-    (<= 1024) a round, the loop of rounds on the device, by `route`
-    (default `dp_route(r)`; "general" takes every r).  Returns (bsf
+    order of their ascending bounds sorted_lb (Qg, N) float32, round_k a
+    round, the loop of rounds on the device, by `route` (default
+    `dp_route(r, L, round_k)`; "general" takes every L and round_k, a
+    round in passes of at most 1024 candidates, and every r whose band
+    fits shared memory; "diag" takes every shape).  Returns (bsf
     (Qg,) float32 squared distances, best (Qg,) int32 ids, -1 where no
     candidate was taken, rounds (Qg,) int32, refined (Qg,) int32: the
     candidates whose DTW was computed), as `ref.dtw_search_ref`.
@@ -268,16 +354,25 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
         raise ValueError("sorted_lb and order must be contiguous")
     if sorted_lb.device != x.device or order.device != x.device:
         raise ValueError("sorted_lb and order must be on x's device")
-    if not isinstance(round_k, int) or not 1 <= round_k <= 1024:
-        raise ValueError(f"round_k must be in [1, 1024], got {round_k!r}")
-    route = _pick(route, dp_route(r), (dp_route(r), "general"),
-                  "dtw_search")
-    # the general route takes a round's candidates `threads` at a time
-    threads = (general_threads(L, r, -(-round_k // 32) * 32)
-               if route == "general"
-               else band_threads(r, L, round_k, wave_cells(route)))
+    if not isinstance(round_k, int) or round_k < 1:
+        raise ValueError(f"round_k must be an int >= 1, got {round_k!r}")
+    default = dp_route(r, L, round_k)
+    routes = ((default,) + (("general",) if general_band_fits(L, r) else ())
+              + ("diag",))
+    route = _pick(route, default, tuple(dict.fromkeys(routes)), "dtw_search")
     if q.device.type == "cpu":
         return dtw_search_ref(q, x, sorted_lb, order, r, round_k)
+    # the general route takes a round's candidates `threads` at a time;
+    # the diag route's blocks each a band of scratch (2r + 3 floats)
+    diag = None
+    if route == "general":
+        threads = general_threads(L, r, min(1024, -(-round_k // 32) * 32))
+    elif route == "diag":
+        threads = diag_threads(r)
+        diag = torch.empty((Qg, 2 * r + 3), dtype=torch.float32,
+                           device=x.device)
+    else:
+        threads = band_threads(r, L, round_k, wave_cells(route))
     dev = x.device
     bsf = torch.empty((Qg,), dtype=torch.float32, device=dev)
     best, rounds, refined = (torch.empty((Qg,), dtype=torch.int32,
@@ -289,8 +384,8 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
         code = fn(q.data_ptr(), x.data_ptr(), N, L, r, Qg, round_k, threads,
                   _DP_CODES[route], sorted_lb.data_ptr(), order.data_ptr(),
                   bsf.data_ptr(), best.data_ptr(), rounds.data_ptr(),
-                  refined.data_ptr(),
-                  torch.cuda.current_stream(dev).cuda_stream)
+                  refined.data_ptr(), diag.data_ptr() if diag is not None
+                  else None, torch.cuda.current_stream(dev).cuda_stream)
     _build.check("dtw", "dtw_search", code)
     _count("dtw_search", route)
     return bsf, best, rounds, refined
@@ -299,10 +394,10 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
 def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int,
              route: str | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Banded DTW of each query of q (Q, L) against every series of x
-    (N >= 1, L), in one launch: (the least squared distance (Q,)
-    float32, its series (Q,) int32, the first on ties), by `route`
-    (default `scan_route(r)`; any of `scan_routes(r)`: "general" takes
-    every r).  Every pair's whole band is computed: no pair is abandoned,
+    (N >= 1, L), in one launch, any Q and L: (the least squared distance
+    (Q,) float32, its series (Q,) int32, the first on ties), by `route`
+    (default `scan_route(r, L)`; any of `scan_routes(r, L)`: "diag"
+    takes every r).  Every pair's whole band is computed: no pair is abandoned,
     so the scan stays independent of the search's lower bounds.
 
     Raises ValueError/TypeError on input the kernel does not take, and
@@ -312,20 +407,30 @@ def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int,
     N = x.shape[0]
     if N == 0:
         raise ValueError("dtw_scan needs at least one series")
-    if N >= 1 << 31 or Q > 65535:
-        raise ValueError(f"dtw_scan takes N < 2^31 and Q <= 65535, got "
-                         f"{N}, {Q}")
-    routes = scan_routes(r)
+    if N >= 1 << 31:
+        raise ValueError(f"dtw_scan takes N < 2^31, got {N}")
+    routes = scan_routes(r, L)
     route = _pick(route, routes[0], routes, "dtw_scan")
-    if route in SCAN_CELLS:
-        g = scan_geometry(L, r, SCAN_CELLS[route], Q)
+    if q.device.type == "cpu":
+        return dtw_scan_ref(q, x, r)
+    cells = {**SCAN_CELLS, **SCAN_RING_CELLS}.get(route)
+    if cells:
+        g = scan_geometry(L, r, cells, Q)
         shape = (g["threads"], g["queries"], g["pad"], g["stride"],
                  g["qstride"])
+    elif route == "diag":
+        shape = (diag_threads(r), 0, 0, 0, 0)
     else:
         shape = (_SCAN_BAND_THREADS if route == "band" else
                  general_threads(L, r, _SCAN_GENERAL_THREADS), 0, 0, 0, 0)
-    if q.device.type == "cpu":
-        return dtw_scan_ref(q, x, r)
+    # the diag route: as many blocks as the card holds at once (at most one
+    # a pair), each a band of scratch (2r + 3 floats)
+    diag, blocks = None, 0
+    if route == "diag":
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        blocks = min(Q * N, sms * min(_DIAG_BLOCKS_SM, 2048 // shape[0]))
+        diag = torch.empty((max(blocks, 1), 2 * r + 3), dtype=torch.float32,
+                           device=x.device)
     dev = x.device
     # all ones: above every (distance bits << 32 | series) key
     keys = torch.full((Q,), -1, dtype=torch.int64, device=dev)
@@ -334,7 +439,8 @@ def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int,
         with torch.cuda.device(dev):
             code = fn(q.data_ptr(), x.data_ptr(), N, L, r, Q,
                       _SCAN_CODES[route], *shape, keys.data_ptr(),
-                      torch.cuda.current_stream(dev).cuda_stream)
+                      diag.data_ptr() if diag is not None else None,
+                      blocks, torch.cuda.current_stream(dev).cuda_stream)
         _build.check("dtw", "dtw_scan", code)
         _count("dtw_scan", route)
     d2 = (keys >> 32).to(torch.int32).view(torch.float32)

@@ -42,7 +42,9 @@ def ed_argmin(q: torch.Tensor, xs: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q: (Q, L) float32, xs: (N, L) float32 or bfloat16 -> ((Q,) float32
     min d^2, (Q,) int32 argmin), d^2 in matmul form, ties to the lowest
-    index.
+    index; any Q (the tensor-core route's grid takes query groups in x,
+    the general route's in y, 65,535 groups of 32 a launch, so more
+    queries take more launches).
 
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if a launch fails.

@@ -2,11 +2,17 @@
 
 On CUDA tensors `flash_attention` launches a kernel of
 `csrc/flash_attention.cu`, which streams K/V tiles with an online
-softmax and never materializes the (T, S) scores: bfloat16 inputs go to
-the tensor cores (wgmma fed by TMA, P carried as two bf16 halves),
-float32 inputs to float32 FMAs.  On CPU tensors it runs the plain
-version `ref.flash_attention_ref`.  `launches` counts the kernels'
-launches.  There is no gradient: repro's kernel has none.
+softmax and never materializes the (T, S) scores, by the route `route`
+picks from the dtype and the head width: bfloat16 inputs go to the
+tensor cores (wgmma fed by TMA, P carried as two bf16 halves), float32
+inputs to float32 FMAs, each in instances of width 32, 64, 96, 128 and
+256 that take every narrower dh (padded with zeros in shared memory),
+and bfloat16 to dh 512 in instances whose blocks each compute one half
+of O's columns; a wider dh, or one whose rows are not whole 16-byte
+pieces, takes the "wide" route (float32 FMAs, no TMA).  On CPU tensors
+it runs the plain version `ref.flash_attention_ref`.  `launches` counts
+the kernels' launches, `by_route` those of each route.  There is no
+gradient: repro's kernel has none.
 """
 
 from __future__ import annotations
@@ -19,11 +25,41 @@ from . import _build
 from .ref import flash_attention_ref
 
 launches = 0
+by_route: dict = {}                    # launches of each route
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float,
-                                                           ctypes.c_void_p])
+INSTANCES = (32, 64, 96, 128, 256)     # the widths of the padded instances
+# bfloat16 past 256 (wgmma's N is at most 256): instances whose blocks each
+# compute one half of O's columns
+HALVES = (320, 384, 448, 512)
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float,
+                                                            ctypes.c_void_p])
+ROWS = {"tc": 128, "simt": 64, "wide": 16}   # query rows a block, by route
+MAX_QBLOCKS = 65535                          # the grid's y dimension
+
+
+def route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel route of head width dh: "tc<w>" (bfloat16, the tensor
+    cores) or "simt<w>" (float32 FMAs), w the narrowest instance of
+    INSTANCES (and for bfloat16 of HALVES) at least dh, where a row is
+    whole 16-byte pieces (a multiple of 8 bf16 or 4 f32 values: TMA's,
+    and the FMA route's float4 loads); "wide" for every other dh (any
+    width, either dtype, no TMA)."""
+    bf16 = dtype == torch.bfloat16
+    widths = INSTANCES + (HALVES if bf16 else ())
+    if dh > widths[-1] or dh % (8 if bf16 else 4):
+        return "wide"
+    width = next(w for w in widths if w >= dh)
+    return f"{'tc' if bf16 else 'simt'}{width}"
+
+
+def query_launches(T: int, name: str) -> int:
+    """Launches of route `name` at T query rows: a block takes ROWS of
+    them (by the route's kind), and a launch's grid at most MAX_QBLOCKS
+    blocks in its y dimension, so a longer T takes more launches (the
+    last blocks, the heaviest under a causal mask, first)."""
+    blocks = -(-T // ROWS[name.rstrip("0123456789")])
+    return -(-blocks // MAX_QBLOCKS)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -31,7 +67,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Hq, T, dh); k, v: (B, Hkv, S, dh), one dtype, float32 or
     bfloat16 -> (B, Hq, T, dh) in q's dtype.  Query head h reads KV head
     h // (Hq // Hkv); scores are scaled by dh^-0.5; `window` > 0 keeps the
-    keys s with s > t - window.
+    keys s with s > t - window.  Any dh, T and B * Hq, by `route(dtype,
+    dh)`, in `query_launches(T, route)` launches.
 
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if a launch fails.
@@ -66,23 +103,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise RuntimeError(f"no flash_attention kernel for device "
                            f"{q.device}")
-    if dh not in _HEAD_DIMS:
-        raise ValueError(f"the flash_attention kernel takes dh in "
-                         f"{_HEAD_DIMS}, got {dh}")
-    if B * Hq > 65535:
-        raise ValueError(f"the flash_attention kernel's grid takes "
-                         f"B * Hq <= 65535, got {B * Hq}")
+    name = route(q.dtype, dh)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the flash_attention kernels read 16-byte pieces "
                          "(by TMA for bfloat16): q, k, v must be 16-byte "
                          "aligned")
     out = torch.empty_like(q)
     fn = _build.entry("flash_attention", "flash_attention", _ARGTYPES)
+    width = 0 if name == "wide" else int(name[2:] if name[:2] == "tc"
+                                         else name[4:])
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  _DTYPES[q.dtype], B, Hq, Hkv, T, S, dh, int(causal),
+                  _DTYPES[q.dtype], B, Hq, Hkv, T, S, dh, width, int(causal),
                   int(window), dh ** -0.5,
                   torch.cuda.current_stream().cuda_stream)
     _build.check("flash_attention", "flash_attention", code)
-    launches += 1
+    n = query_launches(T, name)
+    with _build.COUNT_LOCK:
+        launches += n
+        by_route[name] = by_route.get(name, 0) + n
     return out

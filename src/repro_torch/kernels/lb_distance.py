@@ -37,7 +37,9 @@ def route(w: int) -> str:
 def lb_distance(q_paa: torch.Tensor, leaf_lo: torch.Tensor,
                 leaf_hi: torch.Tensor, *,
                 series_len: int = isax.SERIES_LEN) -> torch.Tensor:
-    """(Q, w) x (NL, w) x (NL, w) float32 -> (Q, NL) squared lower bounds.
+    """(Q, w) x (NL, w) x (NL, w) float32 -> (Q, NL) squared lower bounds,
+    any Q (the grid's y dimension takes 65,535 query tiles a launch: more
+    go in more launches, each on its slice of the queries).
 
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if a launch fails.

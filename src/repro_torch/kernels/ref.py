@@ -293,15 +293,19 @@ def dtw_band_ref(q: torch.Tensor, x: torch.Tensor, r: int) -> torch.Tensor:
     step forms one wavefront's cells at once, each as d + min(diag, up,
     left), the cell (0, 0) as d, the others of row 0 as d + left (their
     diag and up lie outside the band: BIG).  Wavefront t keeps the cells
-    of its parity of k, BIG elsewhere."""
+    of its parity of k, BIG elsewhere.  A wavefront's cells are every
+    other k of one run, whose rows i fall and columns j rise by one a
+    cell: strided views of three rows of W + 2 values (BIG at both ends),
+    of x and of q reversed, so a step is a few element-wise operations."""
     q, x = torch.broadcast_tensors(q, x)
     lead, L = q.shape[:-1], q.shape[-1]
     q = q.reshape(-1, L)
     x = x.reshape(-1, L)
+    qr = q.flip(1)                         # qr[:, L - 1 - i] = q[:, i]
     W = 2 * r + 1
-    big = torch.full((q.shape[0], 1), BIG, dtype=torch.float32,
-                     device=q.device)
-    prev2 = prev1 = big.expand(-1, W).contiguous()
+    # wavefronts t - 2, t - 1 and t, offset k at index k + 1
+    rows = [torch.full((q.shape[0], W + 2), BIG, dtype=torch.float32,
+                       device=q.device) for _ in range(3)]
     for t in range(2 * (L - 1) + r + 1):
         # k of t's parity with i = (t - k) / 2 and j = (t + k) / 2 - r
         # in [0, L): one run of every other k
@@ -309,24 +313,27 @@ def dtw_band_ref(q: torch.Tensor, x: torch.Tensor, r: int) -> torch.Tensor:
         k1 = min(W - 1, t, 2 * (L - 1) + 2 * r - t)
         if (k0 - t) % 2:
             k0 += 1
-        cur = big.expand(-1, W).clone()
+        prev2, prev1, cur = rows
+        cur.fill_(BIG)
         if k0 <= k1:
-            ks = torch.arange(k0, k1 + 1, 2, device=q.device)
-            i = (t - ks) // 2
-            diff = q[:, i] - x[:, i - r + ks]
+            n = (k1 - k0) // 2 + 1
+            a = L - 1 - (t - k0) // 2      # q's rows i from (t - k0) / 2 down
+            j0 = (t + k0) // 2 - r         # x's columns from j0 up
+            diff = qr[:, a:a + n] - x[:, j0:j0 + n]
             d = diff * diff
-            padded = torch.cat([big, prev1, big], dim=1)
-            up, left = padded[:, ks + 2], padded[:, ks]
+            ks = slice(k0 + 1, k1 + 2, 2)
+            up, left = prev1[:, k0 + 2:k1 + 3:2], prev1[:, k0:k1 + 1:2]
             v = d + torch.minimum(torch.minimum(prev2[:, ks], up), left)
             if t == r:                     # cell (0, 0): k = r
                 v[:, (r - k0) // 2] = d[:, (r - k0) // 2]
             cur[:, ks] = v
-        prev2, prev1 = prev1, cur
-    return prev1[:, r].reshape(lead)
+        rows = [prev1, cur, prev2]
+    return rows[1][:, r + 1].reshape(lead)
 
 
 def dtw_wavefront_ref(q: torch.Tensor, x: torch.Tensor, r: int,
-                      cells: int = 2, step_least: bool = False):
+                      cells: int = 2, step_least: bool = False,
+                      check: bool = True):
     """`dtw_band_ref` in the order of dtw_search's wavefront routes
     (csrc/dtw.cu: dtw_wave, cells 2, and dtw_wave_wide, cells 2, 4 or 8),
     for the tests.  Lane l of a pair (l < H = ceil((2r + 1) / cells))
@@ -343,7 +350,10 @@ def dtw_wavefront_ref(q: torch.Tensor, x: torch.Tensor, r: int,
     (..., steps) float32: each step's least cell inside the band and the
     matrix (BIG where it forms none), which the wide routes' early
     abandoning compares with the best-so-far.  The lane bookkeeping and
-    its asserts stay on the CPU; the cells are formed on q's device."""
+    its asserts stay on the CPU; the cells are formed on q's device.
+    `check=False` skips the bookkeeping and its asserts (they depend on L,
+    r and cells alone; the tests run them), for a long series on the
+    card, where each assert is a read of the device."""
     q, x = torch.broadcast_tensors(q, x)
     lead, L = q.shape[:-1], q.shape[-1]
     q = q.reshape(-1, L).float()
@@ -375,25 +385,29 @@ def dtw_wavefront_ref(q: torch.Tensor, x: torch.Tensor, r: int,
                             BIG)
             diag = torch.where((first & (m == m0)).to(dev), 0.0, v[m])
             if m + 1 < C:
-                up, up_at = v[m + 1], at[m + 1]
+                up = v[m + 1]
             else:                          # lane l + 1's cell 0, this step
                 up = torch.cat([nv[0][:, 1:], big], dim=1)
-                up_at = torch.cat([nat[0][:, 1:], none], dim=1)
             if m == 0:                     # lane l - 1's last, step s - 1
                 left = torch.cat([big, v[C - 1][:, :-1]], dim=1)
-                left_at = torch.cat([none, at[C - 1][:, :-1]], dim=1)
             else:
-                left, left_at = nv[m - 1], nat[m - 1]
-            here = cell(i, k)
-            t = 2 * i + k
-            for held, want, lanes in (
-                    (at[m], cell(i - 1, k), inside & ~(first & (m == m0))),
-                    (up_at, cell(i - 1, k + 1), inside),
-                    (left_at, cell(i, k - 1), inside & (k > 0))):
-                assert bool((held == want)[:, lanes].all()), (s, m)
-                assert bool((2 * held[0] + held[1] < t)[lanes].all()), (s, m)
+                left = nv[m - 1]
+            if check:
+                up_at = at[m + 1] if m + 1 < C else torch.cat(
+                    [nat[0][:, 1:], none], dim=1)
+                left_at = torch.cat([none, at[C - 1][:, :-1]], dim=1) \
+                    if m == 0 else nat[m - 1]
+                t = 2 * i + k
+                for held, want, lanes in (
+                        (at[m], cell(i - 1, k),
+                         inside & ~(first & (m == m0))),
+                        (up_at, cell(i - 1, k + 1), inside),
+                        (left_at, cell(i, k - 1), inside & (k > 0))):
+                    assert bool((held == want)[:, lanes].all()), (s, m)
+                    assert bool((2 * held[0] + held[1] < t)[lanes].all()), \
+                        (s, m)
+                nat.append(cell(i, k))
             nv.append(d + torch.minimum(torch.minimum(diag, up), left))
-            nat.append(here)
             least[:, s] = torch.minimum(least[:, s], torch.where(
                 on, nv[m], BIG).amin(dim=1))
         if int(i[l0]) == L - 1:
@@ -407,7 +421,9 @@ def dtw_wavefront_ref(q: torch.Tensor, x: torch.Tensor, r: int,
 def dtw_search_ref(q: torch.Tensor, x: torch.Tensor,
                    sorted_lb: torch.Tensor, order: torch.Tensor, r: int,
                    round_k: int, max_pairs: int = 1 << 16,
-                   trace: list | None = None) -> Tuple[torch.Tensor, ...]:
+                   trace: list | None = None,
+                   d_pairs: torch.Tensor | None = None
+                   ) -> Tuple[torch.Tensor, ...]:
     """The refinement of a DTW 1-NN search (repro's `search_dtw` loop) for
     each query of q (Qg, L) over x (N, L): candidates in the order of
     `order` (Qg, N) int64, whose lower bounds `sorted_lb` (Qg, N) are
@@ -424,7 +440,9 @@ def dtw_search_ref(q: torch.Tensor, x: torch.Tensor,
     call (the chunk doubles while a query runs on, up to `max_pairs`
     pairs a call), and the rounds then run on the host over them; a
     candidate the rule prunes counts as BIG whatever its distance, so
-    computing it changes nothing but the time.
+    computing it changes nothing but the time.  `d_pairs` (Qg, N): every
+    pair's dtw_band_ref distance where the caller has it (series by id),
+    read in place of those calls.
 
     `trace`, a list, receives for each query (the position in the sorted
     order where each of its rounds starts (int64), the best-so-far at
@@ -450,7 +468,8 @@ def dtw_search_ref(q: torch.Tensor, x: torch.Tensor,
         sel = torch.cat([order[g, a:b] for g, a, b in parts])
         qi = torch.cat([torch.full((b - a,), g, dtype=torch.int64,
                                    device=x.device) for g, a, b in parts])
-        dist = dtw_band_ref(q[qi], x[sel], r).cpu().numpy()
+        dist = (dtw_band_ref(q[qi], x[sel], r) if d_pairs is None
+                else d_pairs[qi, sel]).cpu().numpy()
         lbs = torch.cat([sorted_lb[g, a:b] for g, a, b in parts]
                         ).cpu().numpy()
         ids = sel.cpu().numpy()
@@ -487,11 +506,19 @@ def dtw_search_ref(q: torch.Tensor, x: torch.Tensor,
             torch.as_tensor(refined.astype(np.int32), device=dev))
 
 
-def dtw_scan_ref(q: torch.Tensor, x: torch.Tensor,
-                 r: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def dtw_scan_ref(q: torch.Tensor, x: torch.Tensor, r: int,
+                 d_pairs: torch.Tensor | None = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Banded DTW of each query of q (Q, L) against every series of x
     (N >= 1, L): (the least squared distance (Q,) float32, its series
-    (Q,) int32, the first on ties)."""
-    d = torch.stack([dtw_band_ref(q[g], x, r) for g in range(q.shape[0])])
+    (Q,) int32, the first on ties).  The queries go through dtw_band_ref
+    as many at once as keep a call to 2^16 pairs (one at least): each
+    pair's cells are the same operations whatever the call.  `d_pairs`
+    (Q, N): those distances where the caller has them."""
+    step = max(1, (1 << 16) // x.shape[0])
+    d = d_pairs if d_pairs is not None else torch.cat(
+        [dtw_band_ref(q[g:g + step, None], x[None], r)
+         for g in range(0, q.shape[0], step)]
+        or [x.new_empty((0, x.shape[0]))])
     i = torch.argmin(d, dim=1)
     return d.gather(1, i[:, None])[:, 0], i.to(torch.int32)

@@ -220,14 +220,16 @@ def attention_pairs(T: int, S: int, causal: bool, window: int) -> int:
 
 
 def flash_attention_work(B: int, Hq: int, Hkv: int, T: int, S: int,
-                         dh: int, causal: bool = True,
-                         window: int = 0) -> Work:
-    """`flash_attention` in bf16: q, k, v read and the output written
-    once; 4 dh flops a computed (query, key) pair (Q.K and P.V) a query
-    head, at the bf16 tensor-core rate."""
-    nbytes = 2 * (2 * B * Hq * T * dh + 2 * B * Hkv * S * dh)
+                         dh: int, causal: bool = True, window: int = 0,
+                         elem_bytes: int = 2) -> Work:
+    """`flash_attention` in bf16 (elem_bytes 2) or float32 (4): q, k, v
+    read and the output written once; 4 dh flops a computed (query, key)
+    pair (Q.K and P.V) a query head, at the bf16 tensor-core rate, or the
+    float32 rate outside the tensor cores for float32 inputs."""
+    nbytes = elem_bytes * (2 * B * Hq * T * dh + 2 * B * Hkv * S * dh)
     pairs = attention_pairs(T, S, causal, window)
-    return Work(nbytes, 4 * dh * pairs * B * Hq, BF16_FLOPS)
+    return Work(nbytes, 4 * dh * pairs * B * Hq,
+                BF16_FLOPS if elem_bytes == 2 else F32_FLOPS)
 
 
 def flash_attention_floors(work: Work) -> Dict[str, float]:

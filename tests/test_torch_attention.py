@@ -183,3 +183,64 @@ def test_p_in_two_bf16_halves_holds_the_card_limit_with_gqa(causal, window):
     assert _excess(_attention_bf16_p(q, k, v, **kw), q, k, v, **kw) <= 0
     assert _excess(_attention_bf16_p(q, k, v, split=False, **kw), q, k, v,
                    **kw) > 0
+
+
+# ------------------------------------------- every head width repro takes
+@pytest.mark.parametrize("dh", [40, 80, 96, 256, 320])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_every_head_width_matches_pallas(dh, bf16):
+    """Head widths outside the kernel's old set (32, 64, 128): 96
+    (Phi-3-mini), 256 (Gemma 7B), 40 and 80 (padded to the next instance
+    on the card) and 320 (the wide route), with GQA, against repro's
+    kernel in interpret mode at the tolerances above."""
+    oj, ot = _both(_qkv(1, 4, 2, 128, dh, seed=dh), bf16=bf16)
+    tol = 2e-2 if bf16 else 2e-5
+    np.testing.assert_allclose(ot, oj, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dh", [8, 40, 80, 96, 100, 136, 256])
+def test_zero_columns_change_nothing(dh):
+    """The padded instances' premise: q, k, v padded with zero columns to
+    the instance's width (scores still scaled by the real dh^-0.5) give
+    the scores and the real columns of O to float32 rounding (the sums
+    only gain zero terms), and zeros past them."""
+    from repro_torch.kernels import flash_attention as fa
+    width = next((w for w in fa.INSTANCES if w >= dh), dh)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 2, 64, dh, seed=dh))
+    pad = [torch.nn.functional.pad(t, (0, width - dh)) for t in (q, k, v)]
+    want = ref.flash_attention_ref(q, k, v, causal=True, window=24)
+    s = torch.einsum("bhtd,bhsd->bhts", pad[0],
+                     pad[1].repeat_interleave(2, 1)) * dh ** -0.5
+    s0 = torch.einsum("bhtd,bhsd->bhts", q,
+                      k.repeat_interleave(2, 1)) * dh ** -0.5
+    np.testing.assert_allclose(s.numpy(), s0.numpy(), rtol=1e-6, atol=1e-6)
+    got = _attention_scaled(*pad, dh ** -0.5, causal=True, window=24)
+    assert torch.equal(got[..., dh:], torch.zeros_like(got[..., dh:]))
+    np.testing.assert_allclose(got[..., :dh].numpy(), want.numpy(),
+                               rtol=2e-6, atol=2e-6)
+
+
+def _attention_scaled(q, k, v, scale, causal=True, window=0):
+    """The plain attention with the scale given (the padded width's own
+    would be width^-0.5)."""
+    G = q.shape[1] // k.shape[1]
+    k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    T, S = q.shape[2], k.shape[2]
+    s = torch.einsum("bhtd,bhsd->bhts", q, k) * scale
+    t, j = torch.arange(T)[:, None], torch.arange(S)[None]
+    seen = (t >= j) if causal else torch.ones(T, S, dtype=torch.bool)
+    if window:
+        seen &= j > t - window
+    p = torch.softmax(s.masked_fill(~seen, ref.NEG_INF), -1)
+    return torch.einsum("bhts,bhsd->bhtd", p, v)
+
+
+def test_many_heads_answer_on_the_cpu():
+    """B * Hq past 65,535 (the grid's old y limit): the port answers, as
+    repro's kernel does, here through the plain version at T 4."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 65600, 65600, 4, 8,
+                                                    seed=2))
+    out = ops.flash_attention(q, k, v)
+    want = ref.flash_attention_ref(q[:, :64], k[:, :64], v[:, :64])
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    assert torch.equal(out[:, :64], want)

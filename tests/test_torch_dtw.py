@@ -562,6 +562,183 @@ def test_scan_wave_program_equals_the_band(r, L):
         assert np.array_equal(_scan_warp(q, xs, r, C), want), (r, n)
 
 
+class _Ring:
+    """A pair's ring of columns on a ring route (csrc/dtw.cu: dtw_wave's
+    and scan_pair_ring's `ensure`), in numpy: W = ring_size(cells, lanes)
+    slots, column c in slot c & (W - 1), fills of RING_CHUNK columns with
+    one in flight, a fill landing only at the next `ensure` that waits.
+    `read` asserts a slot holds the column asked for and no fill in
+    flight targets it, and returns the value there."""
+
+    def __init__(self, series, cells, lanes, first, last, poison=None):
+        self.x, self.first, self.last = series, first, last
+        self.W = kdtw.ring_size(cells, lanes)
+        self.held = np.full(self.W, np.iinfo(np.int64).min)
+        self.val = np.zeros(self.W, np.float32)
+        self.poison = poison
+        self.ready = self.hi = first
+        self.flight = []
+        self.reads = 0
+
+    def ensure(self, col):
+        col = min(col, self.last)
+        while self.ready <= col:
+            for c in self.flight:                    # cp.async.wait_group 0
+                self.held[c % self.W] = c
+                inside = 0 <= c < len(self.x)
+                self.val[c % self.W] = self.x[c] if inside else self.poison
+            self.flight = []
+            self.ready = self.hi
+            if self.hi <= self.last:
+                self.flight = [c for c in range(self.hi,
+                                                self.hi + kdtw.RING_CHUNK)
+                               if self.poison is not None
+                               or 0 <= c < len(self.x)]
+                self.hi += kdtw.RING_CHUNK
+
+    def read(self, cols):
+        cols = np.asarray(cols)
+        slots = cols % self.W
+        assert (self.held[slots] == cols).all(), "a column not yet landed"
+        busy = {c % self.W for c in self.flight}
+        assert not busy & set(slots.tolist()), "a slot with a fill in flight"
+        self.reads += cols.size
+        return self.val[slots]
+
+
+def _scan_ring_reads(x, r, cells=16):
+    """scan_pair_ring's reads of one pair's series x (L,), step by step
+    (steps in blocks of `cells`, `ensure` before each block, each lane's
+    one new column a step after its first cells - 1), held to the values
+    the staged tile's row gives at the same place (x, -poison past its
+    ends): the ring's reads equal the whole row's."""
+    L, C = len(x), cells
+    H = -(-(2 * r + 1) // C)
+    l0 = r // C
+    c_lo, reach = l0 - r, (C - 1) * (H - 1) + C - 1
+    ring = _Ring(x, C, H, c_lo, L - 1 + c_lo + reach, poison=-_POISON)
+    cl = l0 + (C - 1) * np.arange(H) - r
+    pad = max(r - l0, l0 + C * H - H - r, 0)
+    row = np.full(pad + L + pad + C, -_POISON, np.float32)
+    row[pad:pad + L] = x
+
+    def whole(cols):
+        return row[pad + cols]
+
+    ring.ensure(c_lo + reach)
+    for m in range(C - 1):
+        assert np.array_equal(ring.read(cl + m), whole(cl + m))
+    for j0 in range(0, L, C):
+        ring.ensure(min(j0 + C - 1, L - 1) + c_lo + reach)
+        for j in range(j0, min(j0 + C, L)):
+            cols = cl + j + C - 1
+            assert np.array_equal(ring.read(cols), whole(cols))
+    return ring.reads
+
+
+def _wave_ring_reads(x, r, cells):
+    """dtw_wave's reads of one pair's series x (L,) on a ring route, in
+    its loop order (the edge steps one at a time, the middle in blocks of
+    8, `ensure` before each), each lane's cells inside the band and the
+    series: the ring's reads equal x at those columns."""
+    L, C = len(x), cells
+    H = -(-(2 * r + 1) // C)
+    l0 = r // C
+    reach = (C - 1) * (H - 1) + C - 1 - r
+    ring = _Ring(x, C, H, 0, L - 1)
+    end = L + l0
+    a = min(max(H, r), end)
+    b = max(a, min(min(L - r + 2 * r // C, L), end - 1))
+    ll = np.arange(H)[:, None]
+    m = np.arange(C)[None]
+    band = (C * ll + m <= 2 * r)
+
+    def step(s):
+        rows = s - ll
+        cols = s + (C - 1) * ll - r + m
+        take = band & (rows >= 0) & (rows < L) & (cols >= 0) & (cols < L)
+        assert np.array_equal(ring.read(cols[take]), x[cols[take]])
+
+    s = 0
+    while s < end:
+        n = 8 if a <= s and s + 8 <= b else 1
+        ring.ensure(s + n - 1 + reach)
+        for u in range(n):
+            step(s + u)
+        s += n
+    return ring.reads
+
+
+@pytest.mark.parametrize("L", [1025, 2709, 8192])
+def test_ring_windows_read_what_the_whole_rows_read(L):
+    """The ring routes' column windows (L > 1024: dtw_search's ring2 /
+    ring4 / ring8, dtw_scan's ring16) at lengths past what a block stages
+    whole: every column a lane reads has landed in its slot and is not
+    being overwritten, and equals the whole row's value there, for radii
+    across each route's range; the rings are those ring_size gives, a
+    few KB, whatever L."""
+    rng = np.random.default_rng(L)
+    x = rng.standard_normal(L).astype(np.float32)
+    for r in (17, 27, 81, 135, 255):
+        assert _scan_ring_reads(x, r) >= L
+        H = -(-(2 * r + 1) // 16)
+        assert kdtw.ring_size(16, H) <= 1024
+    for route, rs in (("ring2", (0, 12, 27, 31)), ("ring4", (40, 63)),
+                      ("ring8", (81, 127)), ("ring16", (128, 135, 255))):
+        for r in rs:
+            assert kdtw.dp_route(r, L) == route
+            assert _wave_ring_reads(x, r, kdtw.wave_cells(route)) > 0
+
+
+def _diag_program(q, x, r):
+    """A numpy model of the diag routes' DP (csrc/dtw.cu dtw_diag): one
+    array of 2r + 3 float32 values, slot e + r + 1 for offset e = i - c,
+    BIG at both ends; anti-diagonal t = i + c a step, its cells (the
+    offsets of t's parity) formed from the slots of offsets e - 1 (up), e
+    + 1 (left) and e (diag) and written in place.  Asserts that each slot
+    read holds the cell it should (written at step t - 1, or t - 2 for
+    diag) or was never written where that cell lies outside the band or
+    the matrix (so it reads BIG).  Returns cell (L - 1, L - 1)."""
+    L = len(q)
+    a = np.full(2 * r + 3, ref.BIG, np.float32)
+    held = np.full(2 * r + 3, -1)          # the step that wrote each slot
+    for t in range(2 * L - 1):
+        hi = min(r, t, 2 * L - 2 - t)
+        e = np.arange(-hi + ((t - hi) & 1), hi + 1, 2)
+        i, c = (t + e) // 2, (t - e) // 2
+        assert (i >= 0).all() and (c >= 0).all() and (i < L).all() \
+            and (c < L).all() and (np.abs(e) <= r).all()
+        for de, ni, nc, back in ((-1, i - 1, c, 1), (1, i, c - 1, 1),
+                                 (0, i - 1, c - 1, 2)):
+            inside = (ni >= 0) & (nc >= 0) & (np.abs(ni - nc) <= r)
+            got = held[e + de + r + 1]
+            assert (got[inside] == t - back).all()
+            assert (got[~inside] == -1).all()
+        d = (q[i] - x[c]) * (q[i] - x[c])
+        if t:
+            d = d + np.minimum(np.minimum(a[e + r + 1], a[e + r]),
+                               a[e + r + 2])
+        a[e + r + 1] = d
+        held[e + r + 1] = t
+    return a[r + 1]
+
+
+@pytest.mark.parametrize("L", [1, 2, 7, 100])
+def test_diag_program_equals_the_band(L):
+    """The diag routes' anti-diagonal program (_diag_program: one array
+    of offsets updated in place, every read the cell it should) gives
+    dtw_band_ref's bits at every radius to past the series, and repro's
+    dtw_band within the tolerance of the tests above."""
+    rng = np.random.default_rng(L)
+    for r in sorted({0, 1, 3, 12, L // 2, L - 1, L + 5}):
+        q, x = (rng.standard_normal(L).astype(np.float32) for _ in range(2))
+        got = _diag_program(q, x, r)
+        want = ref.dtw_band_ref(_t(q[None]), _t(x[None]), min(r, L - 1))
+        assert np.float32(got).tobytes() == want.numpy().tobytes()
+        jr = float(J.dtw_band(jnp.asarray(q), jnp.asarray(x), min(r, L - 1)))
+        assert abs(float(got) - jr) <= 1e-5 * jr
+
+
 @pytest.mark.parametrize("r", [0, 7, 17, 25, 51, 102, 127, 200, 255])
 def test_wavefront_model_at_16_cells_equals_the_band(r):
     """ref.dtw_wavefront_ref at the scan's widest route, 16 cells a lane,
@@ -727,3 +904,123 @@ def test_mindist_at_reduced_depth_is_looser():
         if prev is not None:
             assert np.all(lb <= prev + 1e-5)
         prev = lb
+
+
+# ------------------------------------------- every shape repro answers
+def _walks(rng, N, L, Q, noise=0.1):
+    X = np.cumsum(rng.standard_normal((N, L)), axis=1).astype(np.float32)
+    Qs = (X[rng.integers(0, N, Q)] + noise * rng.standard_normal((Q, L))
+          ).astype(np.float32)
+    return X, Qs
+
+
+@pytest.mark.parametrize("L", [1025, 1100, 2709])
+@pytest.mark.parametrize("band", ["r3", "5%"])
+def test_long_series_answer_as_repro(L, band):
+    """Series past 1,024 points, which the kernels once refused (the UCR
+    archive's longest are 2,709 and 2,844): both searches on the CPU give
+    repro's ids (but at ties) and its distances to rtol 1e-5, at r 3 and
+    at the UCR Suite's 5 % band."""
+    r = 3 if band == "r3" else L // 20
+    rng = np.random.default_rng(L + r)
+    X, Qs = _walks(rng, 24, L, 3)
+    jd, ji = J.search_dtw(jnp.asarray(X), jnp.asarray(Qs), r=r, round_k=8)
+    d, i = T.search_dtw(X, Qs, r=r, round_k=8, device="cpu")
+    _same_answers(d, i, jd, ji)
+    jd, ji = J.search_dtw_bruteforce(jnp.asarray(X), jnp.asarray(Qs), r=r)
+    d, i = T.search_dtw_bruteforce(X, Qs, r=r, device="cpu")
+    _same_answers(d, i, jd, ji)
+
+
+def test_a_round_past_1024_candidates_answers_as_repro():
+    """round_k 2,048 (a round in two passes of 1,024 on the card) at L 64
+    over 3,000 series: repro's ids and distances, and the rounds and
+    candidates refined those of a round-by-round loop."""
+    rng = np.random.default_rng(2048)
+    X, Qs = _walks(rng, 3000, 64, 2)
+    jd, ji = J.search_dtw(jnp.asarray(X), jnp.asarray(Qs), r=3,
+                          round_k=2048)
+    d, i = T.search_dtw(X, Qs, r=3, round_k=2048, device="cpu")
+    _same_answers(d, i, jd, ji)
+    q, x = isax.znormalize(_t(Qs)), isax.znormalize(_t(X))
+    s, o = torch.sort(kdtw.lb_keogh(q, x, r=3), dim=1, stable=True)
+    bsf, best, rounds, refined = kdtw.dtw_search(q, x, s, o, r=3,
+                                                 round_k=2048)
+    got = list(zip(bsf.tolist(), best.tolist(), rounds.tolist(),
+                   refined.tolist()))
+    assert got == _rounds_one_by_one(q, x, s, o, 3, 2048)
+
+
+def test_more_queries_than_a_grid_dimension_answer_as_repro():
+    """65,537 queries (one past the grid's y limit, which the scan's band
+    route now strides over) at L 4 over 2 series: the brute force's ids
+    and distances equal repro's."""
+    rng = np.random.default_rng(65537)
+    X = rng.standard_normal((2, 4)).astype(np.float32)
+    Qs = rng.standard_normal((65537, 4)).astype(np.float32)
+    jd, ji = J.search_dtw_bruteforce(jnp.asarray(X), jnp.asarray(Qs), r=1)
+    d, i = T.search_dtw_bruteforce(X, Qs, r=1, device="cpu")
+    _same_answers(d, i, jd, ji)
+
+
+def test_plain_versions_read_given_pair_distances():
+    """ref.dtw_search_ref and ref.dtw_scan_ref answer the same, bit for
+    bit, from every pair's dtw_band_ref distance given (d_pairs) as from
+    their own calls: chip_smoke.py gives one such call to both."""
+    rng = np.random.default_rng(5)
+    q = _t(rng.standard_normal((3, 20)).astype(np.float32))
+    x = _t(rng.standard_normal((40, 20)).astype(np.float32))
+    dp = ref.dtw_band_ref(q[:, None], x[None], 4)
+    s, o = torch.sort(ref.lb_keogh_ref(q, x, 4), dim=1, stable=True)
+    for rk in (1, 4, 7, 40):
+        got = ref.dtw_search_ref(q, x, s, o, 4, rk, d_pairs=dp)
+        want = ref.dtw_search_ref(q, x, s, o, 4, rk)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = ref.dtw_scan_ref(q, x, 4, d_pairs=dp)
+    want = ref.dtw_scan_ref(q, x, 4)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _band_by_gathers(q, x, r):
+    """dtw_band_ref as it was written before its strided views: each
+    wavefront's cells gathered by index from q, x and the padded last
+    wavefront, the same operations on the same operands."""
+    q, x = torch.broadcast_tensors(q, x)
+    lead, L = q.shape[:-1], q.shape[-1]
+    q, x = q.reshape(-1, L), x.reshape(-1, L)
+    W = 2 * r + 1
+    big = torch.full((q.shape[0], 1), ref.BIG, dtype=torch.float32)
+    prev2 = prev1 = big.expand(-1, W).contiguous()
+    for t in range(2 * (L - 1) + r + 1):
+        k0 = max(t % 2, t - 2 * (L - 1), 2 * r - t)
+        k1 = min(W - 1, t, 2 * (L - 1) + 2 * r - t)
+        if (k0 - t) % 2:
+            k0 += 1
+        cur = big.expand(-1, W).clone()
+        if k0 <= k1:
+            ks = torch.arange(k0, k1 + 1, 2)
+            i = (t - ks) // 2
+            diff = q[:, i] - x[:, i - r + ks]
+            d = diff * diff
+            padded = torch.cat([big, prev1, big], dim=1)
+            up, left = padded[:, ks + 2], padded[:, ks]
+            v = d + torch.minimum(torch.minimum(prev2[:, ks], up), left)
+            if t == r:
+                v[:, (r - k0) // 2] = d[:, (r - k0) // 2]
+            cur[:, ks] = v
+        prev2, prev1 = prev1, cur
+    return prev1[:, r].reshape(lead)
+
+
+@pytest.mark.parametrize("L,r", [(1, 0), (2, 1), (5, 3), (7, 6), (100, 0),
+                                 (100, 7), (100, 99), (256, 12),
+                                 (300, 255)])
+def test_band_ref_views_equal_the_gathers(L, r):
+    """dtw_band_ref's strided views give the bits of the gathers it
+    replaced, pairs by rows and broadcast."""
+    rng = np.random.default_rng(31 * L + r)
+    q, x = (_t(rng.standard_normal((4, L)).astype(np.float32))
+            for _ in range(2))
+    assert torch.equal(ref.dtw_band_ref(q, x, r), _band_by_gathers(q, x, r))
+    assert torch.equal(ref.dtw_band_ref(q[:, None], x[None], r),
+                       _band_by_gathers(q[:, None], x[None], r))

@@ -188,9 +188,7 @@ def test_dtw_wrappers_raise_on_what_the_kernel_does_not_take():
                               (q, x.bfloat16(), TypeError),
                               (q, torch.zeros(9, 8), ValueError),
                               (q[0], x, ValueError),
-                              (q, x.t().contiguous().t(), ValueError),
-                              (torch.zeros(2, 1025), torch.zeros(3, 1025),
-                               ValueError)):
+                              (q, x.t().contiguous().t(), ValueError)):
         for call in (lambda: dtw.lb_keogh(bad_q, bad_x, r=2),
                      lambda: dtw.dtw_scan(bad_q, bad_x, r=2)):
             with pytest.raises(err):
@@ -206,12 +204,28 @@ def test_dtw_wrappers_raise_on_what_the_kernel_does_not_take():
                       ((lb.t().contiguous().t(), order), ValueError)):
         with pytest.raises(err):
             dtw.dtw_search(q, x, *args, r=2, round_k=4)
-    for rk in (0, 1025):
-        with pytest.raises(ValueError):
-            dtw.dtw_search(q, x, lb, order, r=2, round_k=rk)
+    with pytest.raises(ValueError):
+        dtw.dtw_search(q, x, lb, order, r=2, round_k=0)
     # a band wider than the series is the whole matrix: answered as repro
     # answers (every series is 0, the first wins)
     from repro.core import dtw as J
+    # a series past 1,024 points and a round past 1,024 candidates, which
+    # the kernels once refused: answered as repro answers
+    rng = np.random.default_rng(1025)
+    xl = np.cumsum(rng.standard_normal((3, 1025)), 1).astype(np.float32)
+    ql = (xl[[2, 0]] + 0.1 * rng.standard_normal((2, 1025))
+          ).astype(np.float32)
+    jd, ji = J.search_dtw_bruteforce(xl, ql, r=2, znorm=False)
+    d2, i = dtw.dtw_scan(torch.from_numpy(ql), torch.from_numpy(xl), r=2)
+    assert i.tolist() == np.asarray(ji).tolist() == [2, 0]
+    np.testing.assert_allclose(torch.sqrt(d2).numpy(), np.asarray(jd),
+                               rtol=1e-5)
+    jd, ji = J.search_dtw(x.numpy(), q.numpy(), r=2, round_k=1025,
+                          znorm=False)
+    bsf, best, rounds, _ = dtw.dtw_search(q, x, lb, order, r=2,
+                                          round_k=1025)
+    assert best.tolist() == np.asarray(ji).tolist() == [0, 0]
+    assert rounds.tolist() == [1, 1]
     jd, ji = J.search_dtw(x.numpy(), q.numpy(), r=900, round_k=32,
                           znorm=False)
     bsf, best, _, _ = dtw.dtw_search(q, x, lb, order, r=900, round_k=32)

@@ -20,8 +20,9 @@ from repro.api import FreshIndex as JFreshIndex
 from repro.api import IndexConfig as JIndexConfig
 from repro.kernels import ops as jops
 from repro_torch.api import FreshIndex, IndexConfig
-from repro_torch.kernels import (ed_argmin, isax_summarize, lb_distance,
-                                 refine, refine_search)
+from repro_torch.kernels import (dtw, ed_argmin, flash_attention,
+                                 isax_summarize, lb_distance, refine,
+                                 refine_search)
 from repro_torch.data.synthetic import query_workload, random_walk
 
 torch.set_num_threads(2)
@@ -173,3 +174,158 @@ def test_search_at_the_new_shapes_answers_repros_ids(L, w, dtype):
         np.testing.assert_array_equal(i.numpy(), np.asarray(ij))
         np.testing.assert_allclose(d.numpy(), np.asarray(dj), rtol=1e-5,
                                    atol=1e-5)
+
+
+# ------------------------------------------------------ DTW and attention
+DTW_LENGTHS = (1, 7, 100, 256, 1000, 1024, 1025, 1100, 2709, 8192, 16384,
+               16385, 40000)
+
+
+@pytest.mark.parametrize("L", DTW_LENGTHS)
+def test_every_dtw_shape_has_a_route(L):
+    """Every L, r (clamped to L - 1, as the wrappers do), round_k and Q
+    repro answers gets a route of each DTW kernel, whose launch geometry
+    fits a block: the LB in launches of lb_group(L) queries and
+    lb_chunk(L) columns (envelopes within 200 KiB); the search's wave
+    routes to L 1024, its ring routes above (a few KB of ring a pair,
+    whatever L; ring16 to r 255), the general route past them or
+    round_k 1024, the diag route where a band passes shared memory; the
+    scan's band, wave16 / ring16, general and diag routes, the chunk's
+    queries at most 32 and the grid's query dimension in launches of
+    65,535 (any Q)."""
+    G, chunk = dtw.lb_group(L), dtw.lb_chunk(L)
+    assert G % 8 == 0 and 8 <= G <= 32 and 1 <= chunk <= L
+    assert chunk == L or chunk % 4 == 0
+    assert G * 8 * (-(-chunk // 4) * 4) <= 200 * 1024
+    assert dtw.lb_route(L) in ("vec", "scalar")
+    for r in sorted({0, 1, 12, 16, 17, 27, 31, 81, 127, 128, 255, 256,
+                     1000, 25599, 25600, 39999}):
+        r = min(r, L - 1)
+        for round_k in (1, 32, 1024, 1025, 2048):
+            route = dtw.dp_route(r, L, round_k)
+            if route == "general":
+                assert r > (127 if L <= 1024 else 255) or round_k > 1024
+                assert dtw.general_band_fits(L, r)
+                t = dtw.general_threads(L, r, min(1024, -(-round_k // 32)
+                                                  * 32))
+                assert 1 <= t <= 1024
+            elif route == "diag":
+                assert not dtw.general_band_fits(L, r)
+                assert dtw.diag_threads(r) == 1024
+            else:
+                assert route[:4] == ("wave" if L <= 1024 else "ring")
+                assert round_k <= 1024 and r <= {
+                    **dtw.WAVE_MAX_R, **dtw.RING_MAX_R}[route]
+                t = dtw.band_threads(r, L, round_k, dtw.wave_cells(route))
+                assert t % 32 == 0 and 32 <= t <= (
+                    1024 if dtw.wave_cells(route) < 16 else 512)
+        scan = dtw.scan_route(r, L)
+        assert scan == dtw.scan_routes(r, L)[0]
+        assert "diag" in dtw.scan_routes(r, L)
+        assert ("general" in dtw.scan_routes(r, L)) == \
+            dtw.general_band_fits(L, r)
+        if {"wave16", "ring16"} & set(dtw.scan_routes(r, L)):
+            assert {"wave16", "ring16"} & set(dtw.scan_routes(r, L)) == {
+                "wave16" if L <= 1024 else "ring16"}
+            for Q in (1, 32, 65600):
+                g = dtw.scan_geometry(L, r, 16, Q)
+                assert g["smem"] <= 200 * 1024 and 1 <= g["queries"] <= 32
+                assert 32 <= g["threads"] <= 512
+        elif scan == "general":
+            assert 1 <= dtw.general_threads(L, r, 64) <= 64
+
+
+def test_dtw_shapes_before_the_rings_keep_their_routes():
+    """Every shape the card routed before the ring routes (L <= 1024,
+    round_k <= 1024) keeps its route and geometry."""
+    for L in (7, 100, 256, 1024):
+        for r in range(0, min(L, 300), 7):
+            assert dtw.dp_route(r, L, 32) == dtw.dp_route(r)
+            assert dtw.dp_route(r, L, 1024) == dtw.dp_route(r)
+            assert dtw.scan_route(r, L) == dtw.scan_route(r)
+            assert dtw.scan_routes(r, L) == dtw.scan_routes(r)
+    assert dtw.dp_route(12) == "wave2" and dtw.scan_route(12) == "band"
+    assert dtw.scan_route(25) == "wave16" and dtw.dp_route(200) == "general"
+    assert dtw.band_threads(12, 256, 32) == 512
+    assert dtw.lb_group(1024) == 24 and dtw.lb_chunk(1024) == 1024
+    assert dtw.scan_geometry(256, 25, 16, 32)["threads"] == 512
+    # past them
+    assert dtw.dp_route(27, 2709) == "ring2"
+    assert dtw.dp_route(81, 8192) == "ring8"
+    assert dtw.dp_route(135, 2709) == "ring16"
+    assert dtw.dp_route(255, 1025) == "ring16"
+    assert dtw.dp_route(256, 1025) == "general"
+    assert dtw.band_threads(135, 2709, 32, 16) == 512
+    assert dtw.dp_route(12, 64, 2048) == "general"
+    assert dtw.scan_route(27, 2709) == "ring16"
+    assert dtw.scan_route(135, 2709) == "ring16"
+    assert dtw.scan_route(16, 65600) == "band"
+    assert (dtw.lb_group(2709), dtw.lb_chunk(2709)) == (32, 800)
+    # a band of 2r + 1 floats past a block's shared memory (r above
+    # 25,599, so L above 25,600): the diag routes, a pair a block, its
+    # band in device scratch; below, the general routes in shared memory
+    # as before
+    assert dtw.general_band_fits(60000, 25599)
+    assert dtw.general_threads(60000, 25599, 64) == 1
+    assert not dtw.general_band_fits(60000, 25600)
+    assert dtw.dp_route(25600, 60000) == dtw.scan_route(25600, 60000) \
+        == "diag"
+    assert dtw.dp_route(25650, 25700, 2048) == "diag"
+    assert dtw.scan_routes(25599, 60000) == ("general", "diag")
+    assert dtw.scan_routes(25600, 60000) == ("diag",)
+    assert dtw.diag_threads(0) == 32 and dtw.diag_threads(40) == 64
+    assert all(dtw.general_band_fits(L, L - 1) for L in (1, 1024, 16384))
+
+
+def test_every_head_width_has_an_attention_route():
+    """Each dtype's route of every head width to 600: the narrowest
+    padded instance at least dh (to 256, and for bf16 the instances of
+    halved O to 512) where a row is whole 16-byte pieces (8 bf16 or 4 f32
+    values), else the wide route."""
+    for dh, (dtype, align, name, top) in itertools.product(
+            range(1, 601), ((torch.bfloat16, 8, "tc", 512),
+                            (torch.float32, 4, "simt", 256))):
+        r = flash_attention.route(dtype, dh)
+        widths = flash_attention.INSTANCES + (
+            flash_attention.HALVES if name == "tc" else ())
+        if dh <= top and dh % align == 0:
+            width = int(r[len(name):])
+            assert r.startswith(name) and width in widths
+            assert width >= dh
+            assert all(w < dh for w in widths if w < width)
+        else:
+            assert r == "wide"
+
+
+def test_the_attention_shapes_before_keep_their_routes():
+    bf16, f32 = torch.bfloat16, torch.float32
+    for dh in (32, 64, 128):
+        assert flash_attention.route(bf16, dh) == f"tc{dh}"
+        assert flash_attention.route(f32, dh) == f"simt{dh}"
+    assert flash_attention.route(bf16, 96) == "tc96"
+    assert flash_attention.route(bf16, 256) == "tc256"
+    assert flash_attention.route(bf16, 40) == "tc64"
+    assert flash_attention.route(bf16, 80) == "tc96"
+    assert flash_attention.route(bf16, 100) == "wide"     # 200-byte rows
+    assert flash_attention.route(f32, 100) == "simt128"
+    assert flash_attention.route(bf16, 320) == "tc320"    # O in halves
+    assert flash_attention.route(bf16, 264) == "tc320"
+    assert flash_attention.route(bf16, 512) == "tc512"
+    assert flash_attention.route(bf16, 520) == "wide"
+    assert flash_attention.route(f32, 320) == "wide"
+
+
+@pytest.mark.parametrize("name,rows", [("tc128", 128), ("tc512", 128),
+                                       ("simt96", 64), ("wide", 16)])
+def test_attention_takes_any_number_of_query_rows(name, rows):
+    """Every T launches: the grid's y dimension takes 65,535 blocks of a
+    route's query rows, and a longer T goes in more launches (one to
+    65,535 blocks, two past them: 1,048,576 + 16 rows on the wide route,
+    4,194,304 + 64 on the FMAs, 8,388,480 + 128 on the tensor cores)."""
+    top = flash_attention.MAX_QBLOCKS * rows
+    assert flash_attention.ROWS[name.rstrip("0123456789")] == rows
+    assert flash_attention.query_launches(1, name) == 1
+    assert flash_attention.query_launches(4096, name) == 1
+    assert flash_attention.query_launches(top, name) == 1
+    assert flash_attention.query_launches(top + 1, name) == 2
+    assert flash_attention.query_launches(2 * top + 1, name) == 3
