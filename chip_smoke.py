@@ -62,10 +62,16 @@ Phases, each printing one JSON line:
              L 100 and at k 16,000 (each bit-equal to its round folded
              slot by slot), refine_search at k 5000 (2 CTAs an SM),
              at leaves of 256 and K 64 (1 CTA an SM), at k 20,000 and bf16
-             L 100 (general), ed_argmin general at L 100, flash_attention's
+             L 100 (general), ed_argmin at L 100 f32 (TMA), L 100 bf16
+             and L 235 f32 (the staged loader), each beside one torch.mm
+             at its shape, the staged loader bit-equal to TMA at L 256
+             and L 100 and held at odd rows and bases; flash_attention's
              routes beside granite's (ATTN_ROWS: tc96, tc256, tc320,
-             tc512, simt96, simt256, wide in bf16 and f32, each with
-             SDPA's time and excess beside it); one table row each;
+             tc512, simt96, simt256, staged128 at dh 100 beside its TMA
+             twin tc128 at dh 104 (T 1024, and on granite's heads at T
+             4096), simt320, wide at dh 576, each by
+             device time with SDPA's time and excess beside it); one
+             table row each;
   rounds     ops.refine_topk, repro's per-round kernel API, driven through
              the global loop of rounds over the main cell's queue (the
              search before refine_search), held bit for bit against
@@ -193,7 +199,9 @@ Phases, each printing one JSON line:
              against the plain version; then at each other route's shape
              (ATTN_ROWS: Phi-3-mini's dh 96 and Gemma 7B's dh 256 on the
              tensor cores, dh 320 and 512 with O in halves, float32 at dh
-             96 and 256, the wide route), its launches its table row's.
+             96, 256 and 320 (halves), the staged route at dh 100 and its
+             TMA twin at 104, the wide route at 576), its launches its
+             table row's.
 refine_search is held under the (1 + eps) stop (inv_eps 1 / 1.25^2) on
 every route too: cta3 in the kernel phase, cta2, cta1 and general in the
 route phase.
@@ -972,11 +980,10 @@ def matmul_tol(dr, qsq, xsq, rtol=1e-4):
 
 
 def ed_bound(n):
-    """(bound ms, by, the float32 FMA floor ms) of the scan of Q queries
-    over n candidates (roofline.ed_argmin_work): the 3xTF32 products at
-    the check's accuracy, and the same products as float32 FMAs."""
-    bms, by = rl.ed_argmin_work(Q, n, L).bound()
-    return bms, by, rl.ed_argmin_work(Q, n, L, "general").ops_ms()
+    """(bound ms, by) of the scan of Q queries over n candidates
+    (roofline.ed_argmin_work): the 3xTF32 products at the check's
+    accuracy."""
+    return rl.ed_argmin_work(Q, n, L).bound()
 
 
 def ed_check(torch, edk, ref, q, xin, name, tie=None):
@@ -1036,7 +1043,7 @@ def check_ed_argmin(torch, isax, edk, ref, gen, edge_gen, n=1 << 20):
     for name, xin in (("f32", x), ("bf16", x.to(torch.bfloat16))):
         rows[f"ragged_{name}"] = ed_check(torch, edk, ref, q, xin,
                                           f"ragged {name} Q {qr} N {nr}")
-    bms, by, f32_floor = ed_bound(n)
+    bms, by = ed_bound(n)
     return {"name": "ed_argmin", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ed_argmin.cu",
             "replaces": "src/repro/kernels/ed_argmin.py:35",
@@ -1047,7 +1054,7 @@ def check_ed_argmin(torch, isax, edk, ref, gen, edge_gen, n=1 << 20):
             "library_ms": lib,
             "library_call": "torch.mm(q, x.T) over chunks of 2^18 rows, "
                             "TF32 off: the product alone",
-            "f32_fma_floor_ms": f32_floor, "checks": rows}
+            "checks": rows}
 
 
 def attention_inputs(torch, gen, B, Hq, Hkv, T, dh, dtype, S=None):
@@ -1098,6 +1105,27 @@ def attention_check(torch, out, ref, q, k, v, what, **kw):
     return err, rtol
 
 
+def staged_equal(torch, fk, gen):
+    """The bf16 staged route (TMA over copies of q, k and v whose rows are
+    padded to 16-byte pieces) bit-equal to the TMA route over the tensors
+    themselves on the same inputs (dh a multiple of 8, where both take the
+    shape) at dh 104 (tc128) and 320 (tc320, O in halves), causal and with
+    a window of 200 over a ragged T = S = 1000: the copies hold every row
+    whole.  Returns the check."""
+    out = {}
+    for dh, causal, window, T in ((104, True, 0, 1024), (320, True, 0, 1024),
+                                  (104, True, 200, 1000)):
+        q, k, v = attention_inputs(torch, gen, 1, 8, 2, T, dh,
+                                   torch.bfloat16)
+        tma = fk.route(torch.bfloat16, dh)
+        a = fk.launch(q, k, v, tma, causal=causal, window=window)
+        b = fk.launch(q, k, v, "staged" + tma[2:], causal=causal,
+                      window=window)
+        require(torch.equal(a, b), f"flash_attention dh {dh}: staged != TMA")
+        out[f"dh{dh}_T{T}_window{window}"] = "bit-equal"
+    return out
+
+
 def check_flash(torch, fk, ref, gen, edge_gen):
     """granite-8b's attention in bf16 (causal, then window 1024), held to
     the bf16 rounding of the float32 plain version; float32 cases at 2e-5:
@@ -1110,10 +1138,16 @@ def check_flash(torch, fk, ref, gen, edge_gen):
     excess under that limit at the granite shape is recorded, not held.
     Then every head width repro answers beyond the old set, at T 1024
     with GQA: in both dtypes dh 96 and 256 (their own instances), 40 and
-    80 (padded to the next instance), 320 (bf16: O in two halves; f32:
-    the wide route); in bf16 264 and 512 (halves), 100 and 520 (the wide
-    route); and B * Hq 65,600 at T 64, dh 64 (past the grid's old y
-    dimension)."""
+    80 (padded to the next instance), 320 (O in two halves of columns),
+    100 and 36 (bf16: the staged route; f32: padded), 101 (odd: bf16 rows
+    read by 2-byte loads, f32 by values), 300 (bf16 staged halves); in
+    bf16 102, 264 and 512 (halves), 445 and 510 (staged halves) and 520
+    (the wide route), and dh 100 at T 999; in f32 257, 301 and 512
+    (halves); the staged route at its edges (the ragged T = S = 1000 with
+    window 200 and the empty rows, at dh 100 and 101, and the f32 halves
+    there at dh 320 and 301); and B * Hq 65,600 at T 64, dh 64 (past the
+    grid's old y dimension).  Last, the staged route bit-equal to TMA on
+    the same inputs at dh 104 and 320 (bf16)."""
     g = GRANITE
     bf16 = torch.bfloat16
     f32 = dict(B=1, Hq=8, Hkv=2, T=1024, dh=128, dtype=torch.float32)
@@ -1133,15 +1167,34 @@ def check_flash(torch, fk, ref, gen, edge_gen):
               edge_gen),
              ("bf16_1024_dh32", dict(f32, dh=32, dtype=bf16), True, 0,
               edge_gen))
-    # every head width repro answers: the instances of 96 and 256,
-    # 40 and 80 padded to the next instance, 320 (bf16: O in halves; f32:
-    # the wide route), in both dtypes; bf16 264 and 512 (halves), 100 and
-    # 520 (the wide route); then more heads than the grid's old y held
-    for dh in (96, 256, 40, 80, 320, 264, 512, 100, 520):
-        for dtype in ((bf16, torch.float32) if dh <= 320 else (bf16,)):
+    # every head width repro answers: the instances of 96 and 256, 40 and
+    # 80 padded to the next instance, 320 (O in halves), 100 / 36 / 101
+    # (bf16 staged), 300 in both dtypes; bf16 102, 264, 512 (halves), 445
+    # and 510 (staged halves) and 520 (the wide route); f32 257, 301, 512
+    # (halves); then the staged
+    # producer and the f32 halves at their edges, and more heads than the
+    # grid's old y held
+    both = (bf16, torch.float32)
+    for dh, dtypes in ((96, both), (256, both), (40, both), (80, both),
+                       (320, both), (264, (bf16,)), (512, both),
+                       (100, both), (520, (bf16,)), (36, both),
+                       (101, both), (102, (bf16,)), (300, both),
+                       (445, (bf16,)), (510, (bf16,)),
+                       (257, (torch.float32,)), (301, (torch.float32,))):
+        for dtype in dtypes:
             name = f"{'bf16' if dtype == bf16 else 'f32'}_1024_dh{dh}"
             cases += ((name, dict(f32, dh=dh, dtype=dtype), True, 0,
                        edge_gen),)
+    cases += (("bf16_999_dh100", dict(f32, T=999, dh=100, dtype=bf16), True,
+               0, edge_gen),)
+    for dh, dtype in ((100, bf16), (101, bf16), (320, torch.float32),
+                      (301, torch.float32)):
+        tag = f"{'bf16' if dtype == bf16 else 'f32'}_dh{dh}"
+        cases += ((f"{tag}_1000_window200",
+                   dict(f32, T=1000, dh=dh, dtype=dtype), True, 200,
+                   edge_gen),
+                  (f"{tag}_empty_rows", dict(empty, dh=dh, dtype=dtype),
+                   False, 32, edge_gen))
     many = dict(B=1, Hq=65600, Hkv=65600, T=64, dh=64)
     cases += (("bf16_bhq65600", dict(many, dtype=bf16), True, 0, edge_gen),
               ("f32_bhq65600", dict(many, dtype=torch.float32), True, 0,
@@ -1167,6 +1220,7 @@ def check_flash(torch, fk, ref, gen, edge_gen):
             bms, by = work.bound()
         del q, k, v, ok
         torch.cuda.empty_cache()
+    rows["staged_equals_tma"] = staged_equal(torch, fk, edge_gen)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:36",
@@ -1182,9 +1236,13 @@ def check_flash(torch, fk, ref, gen, edge_gen):
 
 # the timed attention rows of the routes beside granite's: Phi-3-mini's
 # widths (dh 96: hidden 3072 over 32 heads), Gemma 7B's (dh 256), dh 320
-# and 512 (O in two halves), float32 at 96 and 256, and the wide route
-# (bf16 rows of 200 bytes; f32 past 256), each (name, shape, dtype, model)
+# and 512 (O in two halves), float32 at 96 and 256, the staged route
+# (bf16 rows of 200 bytes) beside its TMA twin at dh 104, at T 1024 and
+# on granite-8b's heads (Hq 32, Hkv 8, T 4096), where the padded copy's
+# share is that of a model, float32 halves at dh 320, and the wide route
+# (past 512), each (name, shape, dtype, model)
 _T1024 = dict(B=1, Hq=8, Hkv=2, T=1024)
+_T4096 = dict(B=1, Hq=32, Hkv=8, T=4096)
 ATTN_ROWS = (("tc96", dict(B=1, Hq=32, Hkv=32, T=4096, dh=96), "bfloat16",
               "Phi-3-mini"),
              ("tc256", dict(B=1, Hq=16, Hkv=16, T=4096, dh=256), "bfloat16",
@@ -1193,17 +1251,23 @@ ATTN_ROWS = (("tc96", dict(B=1, Hq=32, Hkv=32, T=4096, dh=96), "bfloat16",
              ("tc512", dict(_T1024, dh=512), "bfloat16", None),
              ("simt96", dict(_T1024, dh=96), "float32", None),
              ("simt256", dict(_T1024, dh=256), "float32", None),
-             ("wide_bf16", dict(_T1024, dh=100), "bfloat16", None),
-             ("wide_f32", dict(_T1024, dh=320), "float32", None))
+             ("staged128", dict(_T1024, dh=100), "bfloat16", None),
+             ("tc128_dh104", dict(_T1024, dh=104), "bfloat16", None),
+             ("staged128_T4096", dict(_T4096, dh=100), "bfloat16", None),
+             ("tc128_dh104_T4096", dict(_T4096, dh=104), "bfloat16", None),
+             ("simt320", dict(_T1024, dh=320), "float32", None),
+             ("wide", dict(_T1024, dh=576), "bfloat16", None))
 
 
 def route_flash(torch, fk, ref, gen):
     """flash_attention's routes beside the granite row (ATTN_ROWS), causal:
     each held to the float32 plain version under attention_check's limit,
-    timed beside its bound (rl.flash_attention_work at the inputs' type),
-    the plain version's time and SDPA's on the same inputs, with SDPA's
-    own excess under the same limit recorded, not held.  One table row
-    each, named by route (its launches: the attention phase's run)."""
+    timed (device time, with the CUDA events' beside it) beside its bound
+    (rl.flash_attention_work at the inputs' type), the plain version's
+    time and SDPA's on the same inputs, with SDPA's own excess under the
+    same limit recorded, not held; the staged route's device time over
+    its TMA twin's.  One table row each, named by route (its launches:
+    the attention phase's run)."""
     rows = []
     for route, shape, dtype, model in ATTN_ROWS:
         dt = getattr(torch, dtype)
@@ -1213,11 +1277,15 @@ def route_flash(torch, fk, ref, gen):
         q, k, v = attention_inputs(torch, gen, dtype=dt, **shape)
         out = fk.flash_attention(q, k, v)
         err, rtol = attention_check(torch, out, ref, q, k, v, route)
-        ms = time_ms(torch, lambda: fk.flash_attention(q, k, v))
+        # device time (the profiler): at T 1024 a launch takes tens of
+        # microseconds, and CUDA events around back-to-back calls time the
+        # host's wrapper between them
+        call = lambda: fk.flash_attention(q, k, v)  # noqa: E731
+        ms, event_ms = device_ms(torch, call), time_ms(torch, call)
         plain = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v), 3,
                         1)
         lib_fn, how = sdpa(torch, q, k, v)
-        lib = time_ms(torch, lib_fn)
+        lib, lib_event = device_ms(torch, lib_fn), time_ms(torch, lib_fn)
         lib_err, lib_excess, _ = attention_excess(
             torch, lib_fn(), ref.flash_attention_ref(q.float(), k.float(),
                                                      v.float()))
@@ -1237,10 +1305,18 @@ def route_flash(torch, fk, ref, gen):
                 "library_call": f"scaled_dot_product_attention("
                                 f"is_causal=True) via {how}",
                 "library_max_abs_err": lib_err,
-                "library_excess": lib_excess}
+                "library_excess": lib_excess, "event_ms": event_ms,
+                "library_event_ms": lib_event}
         rows.append(row)
         del q, k, v, out
         torch.cuda.empty_cache()
+    # the staged route beside its TMA twin (dh 104, the same shape)
+    named = {r["name"]: r for r in rows}
+    for tail in ("", "_T4096"):
+        staged = named[f"flash_attention/staged128{tail}"]
+        twin = named[f"flash_attention/tc128_dh104{tail}"]
+        staged["checks"]["device_ms_over_tma_twin"] = (staged["ms"]
+                                                       / twin["ms"])
     return rows
 
 
@@ -1439,30 +1515,104 @@ def route_refine_search(torch, api, search, rk, ref, gen, n=1 << 18):
     return out
 
 
-def route_ed_argmin(torch, isax, edk, ref, gen, n=1 << 20):
-    """The general route (float32 FMAs, any L) at L 100, f32 and bf16
-    candidates, with the duplicated-row tie of check_ed_argmin."""
-    Lx = 100
-    x = isax.znormalize(walks(torch, gen, n + 5, Lx))
-    q = isax.znormalize(walks(torch, gen, Q, Lx))
-    j1, j2 = n // 3, n // 2 + 1
-    x[j2] = x[j1]
-    require(edk.route(Lx) == "general", "ed_argmin L 100: route")
-    rows = {}
+# ed_argmin's rows beside the scan's: (L, dtype, the route it takes), q
+# (Q, L) against 2^20 + 5 candidates; L 100 float32 rows are 400 bytes
+# (TMA), bfloat16 ones 200 and L 235 float32 ones 940 (cp.async)
+ED_ROWS = ((100, "float32", "tensor"), (100, "bfloat16", "staged"),
+           (235, "float32", "staged"))
+
+
+def ed_staged_equal(torch, edk, gen, n, Lx):
+    """The staged loader's (d^2, id) bit-equal to TMA's on the same inputs
+    (L * the element size a multiple of 16), f32 and bf16: the cp.async
+    copies land where TMA's swizzle puts each value.  Returns a check."""
+    q = walks(torch, gen, Q, Lx)
+    x = walks(torch, gen, n, Lx)
+    out = {}
     for name, xin in (("f32", x), ("bf16", x.to(torch.bfloat16))):
-        qn = q.clone()
-        qn[0] = xin[j1].float()
-        rows[name] = ed_check(torch, edk, ref, qn, xin, f"L100 {name}",
-                              tie=j1)
-        if name == "f32":
-            ms = time_ms(torch, lambda: edk.ed_argmin(qn, xin), 5)
-            plain = time_ms(torch, lambda: ref.ed_argmin_ref(qn, xin), 3)
-    bms, by = rl.ed_argmin_work(Q, n + 5, Lx, "general").bound()
-    return route_row("ed_argmin", "general",
-                     "src/repro_torch/kernels/csrc/ed_argmin.cu",
-                     "src/repro/kernels/ed_argmin.py:35",
-                     f"q ({Q}, 100) f32, xs ({n + 5}, 100) f32",
-                     rows["f32"]["max_abs_err"], ms, plain, bms, by, rows)
+        a = edk.launch(q, xin, "tensor")
+        b = edk.launch(q, xin, "staged")
+        require(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                f"ed_argmin L {Lx} {name}: staged != tensor")
+        out[name] = "bit-equal"
+    return {"L": Lx, "series": n, **out}
+
+
+def ed_odd_bases(torch, isax, edk, ref, gen, n=(1 << 16) + 3):
+    """The staged loader's other copies, each through ed_argmin against
+    the plain version (ed_check): bf16 rows of odd L (2-byte loads), a
+    bf16 base 2 bytes off a 4-byte boundary at even L (the same), and an
+    f32 base 4 bytes off a 16-byte boundary at L 256 (which TMA cannot
+    take), each with the duplicated-row tie."""
+    rows = {}
+    for name, Lx, dtype, off in (("bf16_L235", 235, torch.bfloat16, 0),
+                                 ("bf16_L100_base2", 100, torch.bfloat16, 1),
+                                 ("f32_L256_base4", 256, torch.float32, 1)):
+        x = isax.znormalize(walks(torch, gen, n, Lx)).to(dtype)
+        buf = torch.empty(n * Lx + off, dtype=dtype, device=DEV)
+        xin = buf[off:].view(n, Lx)
+        xin.copy_(x)
+        j1, j2 = n // 3, n // 2 + 1
+        xin[j2] = xin[j1]
+        q = isax.znormalize(walks(torch, gen, Q, Lx))
+        q[0] = xin[j1].float()
+        require(edk.route(Lx, dtype, xin.data_ptr() % 16 == 0) == "staged",
+                f"ed_argmin {name}: route")
+        rows[name] = ed_check(torch, edk, ref, q, xin, name, tie=j1)
+        del x, buf, xin
+    return rows
+
+
+def route_ed_argmin(torch, isax, edk, ref, gen, n=1 << 20):
+    """ed_argmin's rows beside the scan's (ED_ROWS), each with the
+    duplicated-row tie of check_ed_argmin, timed beside its plain version
+    and one torch.mm(q, x.T) in float32 at the same shape (TF32 off; a
+    bfloat16 x converted once, outside the timing); then the staged
+    loader bit-equal to TMA at L 256 (2^16 rows) and at L 100, and its
+    odd rows and bases held to the plain version (ed_odd_bases).  One
+    table row each of ED_ROWS."""
+    out = []
+    for Lx, dtype, how in ED_ROWS:
+        dt = getattr(torch, dtype)
+        x = isax.znormalize(walks(torch, gen, n + 5, Lx))
+        q = isax.znormalize(walks(torch, gen, Q, Lx))
+        j1, j2 = n // 3, n // 2 + 1
+        x[j2] = x[j1]
+        xin = x.to(dt)
+        require(edk.route(Lx, dt) == how, f"ed_argmin L {Lx} {dtype}: route")
+        q[0] = xin[j1].float()
+        checks = {"plain version": ed_check(torch, edk, ref, q, xin,
+                                            f"L{Lx} {dtype}", tie=j1)}
+        ms = time_ms(torch, lambda: edk.ed_argmin(q, xin), 5)
+        plain = time_ms(torch, lambda: ref.ed_argmin_ref(q, xin), 3)
+        xf = xin.float()
+        lib = time_ms(torch, lambda: torch.mm(q, xf.T), 5)
+        if how == "tensor":
+            # the staged loader on the same inputs: the same bits
+            b = edk.launch(q, xin, "staged")
+            d, i = edk.ed_argmin(q, xin)
+            require(torch.equal(b[0], d) and torch.equal(b[1], i),
+                    f"ed_argmin L {Lx}: staged != tensor")
+            checks["staged_equals_tensor"] = "bit-equal"
+        bms, by = rl.ed_argmin_work(Q, n + 5, Lx, xin.element_size()).bound()
+        name = f"{how}_L{Lx}" + ("_bf16" if dtype == "bfloat16" else "")
+        row = route_row("ed_argmin", name,
+                        "src/repro_torch/kernels/csrc/ed_argmin.cu",
+                        "src/repro/kernels/ed_argmin.py:35",
+                        f"q ({Q}, {Lx}) f32, xs ({n + 5}, {Lx}) {dtype}",
+                        checks["plain version"]["max_abs_err"], ms, plain,
+                        bms, by, checks)
+        row |= {"library_ms": lib,
+                "library_call": "torch.mm(q, x.float().T), TF32 off: the "
+                                "product alone"}
+        out.append(row)
+        del x, xin, xf
+        torch.cuda.empty_cache()
+    out[0]["checks"]["staged_equals_tensor_L256"] = ed_staged_equal(
+        torch, edk, gen, 1 << 16, 256)
+    out[0]["checks"]["staged_odd_rows_and_bases"] = ed_odd_bases(
+        torch, isax, edk, ref, gen)
+    return out
 
 
 def grid_strides(torch, kmods, ref, gen):
@@ -1471,8 +1621,9 @@ def grid_strides(torch, kmods, ref, gen):
     (each on its slice of the queries):
     lb_distance's tiled route (128 queries a tile) at 65,535 x 128 + 100
     queries over 16 leaves, its looped route (32 a tile) at 65,535 x 32 +
-    100 over 64, and ed_argmin's general route (32 a group, L 100) at
-    65,535 x 32 + 100 over 64 series; each against its plain version in
+    100 over 64, and ed_argmin (query groups on the grid's x) at 65,535 x
+    32 + 100 queries over 64 series on its staged route (L 101); each
+    against its plain version in
     chunks of queries (the bounds to 1e-5, as route_lb holds them; the
     scan's distances to matmul_tol, its ids counted where they differ)."""
     lbk, edk = kmods["lb_distance"], kmods["ed_argmin"]
@@ -1493,10 +1644,10 @@ def grid_strides(torch, kmods, ref, gen):
         out[f"lb_distance/{lbk.route(w)}"] = {"queries": Qn, "leaves": NL,
                                               "max_abs_err": err}
         del q, dk
-    Qn, N, Lx = 65535 * 32 + 100, 64, 100
+    Qn, N, Lx = 65535 * 32 + 100, 64, 101
     q = torch.randn(Qn, Lx, generator=gen, device=DEV)
     xs = torch.randn(N, Lx, generator=gen, device=DEV)
-    require(edk.route(Lx) == "general", "ed_argmin L 100: route")
+    require(edk.route(Lx) == "staged", "ed_argmin L 101: route")
     dk, ik = edk.ed_argmin(q, xs)
     dr, ir = ref.ed_argmin_ref(q, xs)
     qsq, xsq = (q * q).sum(1), (xs * xs).sum(1)
@@ -1504,8 +1655,8 @@ def grid_strides(torch, kmods, ref, gen):
     # an id may differ only where the two distances agree (a near-tie)
     require(bool((dk - dr).abs().le(matmul_tol(dr, qsq, xsq[ir.long()]))
                  .all()),
-            f"ed_argmin general, {Qn} queries: differs")
-    out["ed_argmin/general"] = {"queries": Qn, "series": N, "L": Lx,
+            f"ed_argmin staged, {Qn} queries: differs")
+    out["ed_argmin/staged"] = {"queries": Qn, "series": N, "L": Lx,
                                 "max_abs_err": (dk - dr).abs().max().item(),
                                 "ids_differing": int(tie.sum())}
     return {"phase": "grid", **out}
@@ -1514,15 +1665,16 @@ def grid_strides(torch, kmods, ref, gen):
 # flash_attention past 65,535 blocks of query rows, each route in two
 # launches: (route, dtype, dh), T = 65,535 blocks of its rows + 3 blocks,
 # one head, causal, window ATTN_LONG_WINDOW
-ATTN_LONG = (("wide", "bfloat16", 100), ("simt32", "float32", 32),
-             ("tc32", "bfloat16", 32))
+ATTN_LONG = (("wide", "bfloat16", 520), ("simt32", "float32", 32),
+             ("tc32", "bfloat16", 32), ("staged32", "bfloat16", 30))
 ATTN_LONG_WINDOW = 64
 
 
 def attention_rows_past_the_grid(torch, fk, ref, gen):
     """flash_attention at more query blocks than the grid's y dimension
-    holds (ATTN_LONG: 1,048,608 rows on the wide route, 4,194,432 on the
-    FMAs, 8,388,864 on the tensor cores), causal under a window of 64:
+    holds (ATTN_LONG: 1,048,608 rows on the wide route at dh 520,
+    4,194,432 on the FMAs, 8,388,864 on the tensor cores fed by TMA and
+    by the staged producer), causal under a window of 64:
     two launches, the last 65,535 blocks first; rows at the start, on
     each side of the launches' seam and at the end, 256 each, held under
     the existing limits (attention_excess) to the plain version on the
@@ -1533,13 +1685,16 @@ def attention_rows_past_the_grid(torch, fk, ref, gen):
         dtype = getattr(torch, dtype)
         rows = fk.ROWS[name.rstrip("0123456789")]
         T = fk.MAX_QBLOCKS * rows + 3 * rows
+        # two launches of the attention kernel (and the staged route's
+        # padding before them)
+        launches = 2 + name.startswith("staged")
         require(fk.route(dtype, dh) == name
-                and fk.query_launches(T, name) == 2,
+                and fk.query_launches(T, name) == launches,
                 f"flash_attention T {T} dh {dh}: route")
         q, k, v = attention_inputs(torch, gen, 1, 1, 1, T, dh, dtype)
         before = dict(fk.by_route)
         o = fk.flash_attention(q, k, v, causal=True, window=ATTN_LONG_WINDOW)
-        require(fk.by_route.get(name, 0) - before.get(name, 0) == 2,
+        require(fk.by_route.get(name, 0) - before.get(name, 0) == launches,
                 f"flash_attention T {T}: launches")
         seam = (-(-T // rows) - fk.MAX_QBLOCKS) * rows
         err = 0.0
@@ -1558,7 +1713,7 @@ def attention_rows_past_the_grid(torch, fk, ref, gen):
                     f"off by {e}, {excess} beyond rtol {rtol} + atol 2e-5")
             err = max(err, e)
         out[f"flash_attention/{name}_T{T}"] = {
-            "T": T, "dh": dh, "dtype": str(dtype), "launches": 2,
+            "T": T, "dh": dh, "dtype": str(dtype), "launches": launches,
             "seam_row": seam, "max_abs_err": err}
         del q, k, v, o
         torch.cuda.empty_cache()
@@ -1573,7 +1728,7 @@ def check_routes(torch, api, isax, search, kmods, ref, gen):
             route_refine_topk(torch, isax, kmods["refine_topk"], ref, gen)]
     rows += route_refine_search(torch, api, search, kmods["refine_search"],
                                 ref, gen)
-    rows.append(route_ed_argmin(torch, isax, kmods["ed_argmin"], ref, gen))
+    rows += route_ed_argmin(torch, isax, kmods["ed_argmin"], ref, gen)
     rows += route_flash(torch, kmods["flash_attention"], ref, gen)
     return rows
 
@@ -1898,7 +2053,7 @@ def scan_phase(torch, ops, kmods, ref, index, q, d, ids, search_ms):
            "library_ms": time_ms(torch, lambda: [
                torch.mm(q, series[s:s + chunk].T)
                for s in range(0, n, chunk)], 3)}
-    row["bound_ms"], row["bound_by"], row["f32_fma_floor_ms"] = ed_bound(n)
+    row["bound_ms"], row["bound_by"] = ed_bound(n)
     return {"phase": "scan", "series": n, "queries": Q,
             "scan_ms": reps[0], "scan_ms_repeats": reps,
             "search_ms_best": search_ms, "d2_max_abs_err": err.max().item(),

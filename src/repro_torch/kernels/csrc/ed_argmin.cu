@@ -6,7 +6,8 @@
 // Replaces the Pallas kernel `_ed_kernel` of
 // src/repro/kernels/ed_argmin.py (wrapper `ed_argmin`).
 //
-// Bound on this card: operations, at the accuracy the check asks for.
+// Bound on this card: operations, at the accuracy the check asks for,
+// for every L and either route.
 // d^2 of two z-normalized rows of 256 cancels |q|^2 + |x|^2 = 512 down to
 // d^2, so q.x must keep about seven digits.  One TF32 product keeps about
 // three (a 10-bit mantissa): too few for rtol 1e-4.  Three TF32 products
@@ -17,22 +18,24 @@
 // TF32 tensor peak; reading the 16 GiB of candidates takes 5.1 ms at
 // 3.35 TB/s.  (As float32 FMAs outside the tensor cores the same product
 // would take 32.8 ms at 67 TFLOP/s.)  Candidates stored in bfloat16 are
-// exact in TF32, so that route needs x_hi alone: two products.
+// exact in TF32, so they need x_hi alone: two products.
 //
 // Design: the TPU kernel walks candidate blocks on a sequential grid axis
 // and carries (min, argmin) in its output tile.  Here a block owns a
 // group of kBQ = 256 queries and a contiguous range of candidate tiles of
 // kBM = 128 rows (about one block per SM).  A first small kernel splits
-// the queries into q_hi and q_lo (scratch from the wrapper) and sums
-// |q|^2.  In the main kernel warpgroup 2 is the producer: one thread keeps
-// TMA loads of kKC = 32-column chunks of the candidate tile and of q_hi
-// and q_lo in a two-stage ring in shared memory (mbarriers for full and
-// empty).  Warpgroups 0 and 1 each own 64 candidates of the tile: per
-// chunk they read their candidates' values from shared memory into the
-// wgmma's A registers, split them into x_hi and x_lo there, and run
-// wgmma m64n256k8 with the queries as B (K-major in shared memory, as
-// stored), all three products into one float32 accumulator.  The same
-// values give |x|^2.  The epilogue forms, per (candidate, query), the key
+// the queries into q_hi and q_lo (scratch from the wrapper, rows padded
+// with zeros to a whole number of kKC-column chunks, so that their TMA
+// maps always have 16-byte strides) and sums |q|^2.  In the main kernel
+// warpgroup 2 is the producer: it keeps kKC = 32-column chunks of the
+// candidate tile and of q_hi and q_lo in a two-stage ring in shared
+// memory (mbarriers for full and empty).  Warpgroups 0 and 1 each own 64
+// candidates of the tile: per chunk they read their candidates' values
+// from shared memory into the wgmma's A registers, split them into x_hi
+// and x_lo there, and run wgmma m64n256k8 with the queries as B (K-major
+// in shared memory, as stored), all three products into one float32
+// accumulator.  The same values give |x|^2.  The epilogue forms, per
+// (candidate, query), the key
 //   (float_bits(d^2) << 32) | index,
 // which for d^2 >= 0 (the clamp turns -0.0 into +0.0) orders by least
 // d^2, then lowest index: the JAX tie rule.  A thread holds two
@@ -44,12 +47,36 @@
 // run.  A last small kernel unpacks the keys.  Identical rows give
 // identical d^2 (the duplicated-row check): every candidate's products,
 // |x|^2 and d^2 go through the same instructions in the same order,
-// wherever it lies.  A ragged N is masked: rows past N arrive as TMA's
-// zeros and never form a key.  A ragged Q pads the scratch with zero
-// rows, whose keys are never written.
+// wherever it lies.  A ragged N is masked: rows past N arrive as zeros
+// and never form a key.  A ragged Q pads the scratch with zero rows,
+// whose keys are never written.
 //
-// That is route 0, for L a multiple of 8 and 16-byte aligned rows.  Any
-// other shape takes route 1, ed_general below: float32 FMAs, the same keys.
+// Two loaders fill the same ring, in the same layout, for the same
+// consumers (route, by the candidates' rows):
+// * "tensor" (route 0): rows of whole 16-byte pieces (L a multiple of 4
+//   in float32, of 8 in bfloat16) on a 16-byte aligned base.  One thread
+//   keeps TMA loads in flight, boxes of kKC x kBM whose columns past L
+//   (and rows past N) TMA fills with zeros (L 100 reads 4 chunks of 32).
+// * "staged" (route 1): any other L or base.  TMA cannot take a row
+//   whose stride is not a multiple of 16 bytes, and a padded copy of the
+//   candidates would double their memory (16 GiB at the main cell), so
+//   the producer warpgroup's 128 threads write each chunk themselves, in
+//   16-byte units (consecutive threads, consecutive units of a row: one
+//   coalesced read a warp) each at the byte TMA's 128- or 64-byte
+//   swizzle would put it (XChunk::kSpan), so the consumers read it as
+//   before.  A unit goes by cp.async pieces as wide as its row's
+//   alignment allows (copy16: one 16-byte copy on an aligned row, else
+//   two of 8 or four of 4; zeros past L and N by a source size short of
+//   the piece), so that a whole chunk is in flight at once; a cp.async
+//   costs about the same whatever its width, so rows of narrower pieces
+//   cost more (at L 235 half the rows go in 4-byte pieces).  A bfloat16
+//   row that is not 4-byte aligned is read by 2-byte loads and stored by
+//   st.shared.  Each thread arrives on the chunk's full barrier once its copies land
+//   (cp.async.mbarrier.arrive.noinc, after a wait where it stored
+//   itself: 128 arrivals, beside the one thread that arms the queries'
+//   TMA bytes).  The consumers read the candidates with ld.shared, the
+//   generic proxy these writes are in, so no proxy fence is needed.
+// The queries keep TMA on both.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,9 +116,9 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
 template <typename T>
 __device__ __forceinline__ float x_at(const uint8_t* chunk, int row,
                                       int col) {
-  const uint32_t off = row * XChunk<T>::kSpan + col * (int)sizeof(T);
   return to_float(*reinterpret_cast<const T*>(
-      chunk + (off ^ (((off >> 7) & XChunk<T>::kMask) << 4))));
+      chunk + swizzled(row * XChunk<T>::kSpan + col * (int)sizeof(T),
+                       XChunk<T>::kMask)));
 }
 
 __device__ __forceinline__ unsigned long long umin64(unsigned long long a,
@@ -112,19 +139,20 @@ __device__ __forceinline__ void fold_half(unsigned long long (&k)[64],
   }
 }
 
-// q (Q, L) -> q_hi, q_lo (Qpad, L) tf32 values and |q|^2 (Qpad); rows past
-// Q are zeros.  One block of 128 threads per row.
+// q (Q, L) -> q_hi, q_lo (Qpad, Lp) tf32 values and |q|^2 (Qpad), Lp = L
+// rounded up to kKC; rows past Q and columns past L are zeros.  One block
+// of 128 threads per row.
 __global__ void split_queries(const float* __restrict__ q,
                               float* __restrict__ qh, float* __restrict__ ql,
-                              float* __restrict__ qq, int Q, int L) {
+                              float* __restrict__ qq, int Q, int L, int Lp) {
   __shared__ float part[4];
   const int row = blockIdx.x;
   float acc = 0.f;
-  for (int c = threadIdx.x; c < L; c += blockDim.x) {
-    const float v = row < Q ? q[(long long)row * L + c] : 0.f;
+  for (int c = threadIdx.x; c < Lp; c += blockDim.x) {
+    const float v = row < Q && c < L ? q[(long long)row * L + c] : 0.f;
     const float hi = __uint_as_float(tf32_rna(v));
-    qh[(long long)row * L + c] = hi;
-    ql[(long long)row * L + c] = __uint_as_float(tf32_rna(v - hi));
+    qh[(long long)row * Lp + c] = hi;
+    ql[(long long)row * Lp + c] = __uint_as_float(tf32_rna(v - hi));
     acc = fmaf(v, v, acc);
   }
 #pragma unroll
@@ -135,12 +163,45 @@ __global__ void split_queries(const float* __restrict__ q,
   if (threadIdx.x == 0) qq[row] = (part[0] + part[1]) + (part[2] + part[3]);
 }
 
+// The staged loader: producer thread pt's (0..127) share of the (kBM x
+// kKC) chunk of candidate rows [n0, n0 + kBM) and columns [c0, c0 + kKC),
+// zeros past N and L.  Unit i of the thread, u = pt + 128 i, is the
+// 16-byte piece u % P of row u / P (P = kSpan / 16 a row: consecutive
+// threads, consecutive bytes), copied by copy16 (cp.async pieces as wide
+// as the row's alignment allows, the whole chunk in flight at once) to
+// the bytes TMA's swizzle gives it (x_at reads it there).  Returns
+// whether any unit was stored synchronously (a bfloat16 row not 4-byte
+// aligned).
 template <typename T>
+__device__ __forceinline__ bool stage_chunk(uint8_t* dst, const T* xs,
+                                            long long n0, int c0, int N,
+                                            int L, int pt) {
+  using X = XChunk<T>;
+  constexpr int kPer = X::kSpan / 16;              // pieces a row
+  constexpr int kVals = 16 / (int)sizeof(T);
+  constexpr int kEach = kBM * kPer / 128;          // pieces a thread
+  const uint32_t base = smem_u32(dst);
+  bool sync = false;
+#pragma unroll
+  for (int i = 0; i < kEach; ++i) {
+    const int u = pt + 128 * i, row = u / kPer, col = u % kPer * kVals;
+    const int valid = n0 + row < N ? (L - c0 - col) * (int)sizeof(T) : 0;
+    sync |= copy16(base + swizzled(row * X::kSpan + u % kPer * 16, X::kMask),
+                   reinterpret_cast<const uint8_t*>(
+                       xs + (n0 + row) * L + c0 + col),
+                   valid > 16 ? 16 : valid, xs);
+  }
+  return sync;
+}
+
+// kStaged: the staged route (stage_chunk, from xs); else the tensor route
+// (TMA reads the candidates through map_x).
+template <typename T, bool kStaged>
 __global__ void __launch_bounds__(kThreads, 1)
 ed_tc_kernel(const __grid_constant__ CUtensorMap map_x,
              const __grid_constant__ CUtensorMap map_qh,
              const __grid_constant__ CUtensorMap map_ql,
-             const float* __restrict__ qq,
+             const T* __restrict__ xs, const float* __restrict__ qq,
              unsigned long long* __restrict__ keys,
              int Q, int N, int L, int tiles_per_block) {
   using X = XChunk<T>;
@@ -160,7 +221,8 @@ ed_tc_kernel(const __grid_constant__ CUtensorMap map_x,
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
+      // staged: one arrival a producer thread, and the queries' TMA bytes
+      mbar_init(&full[s], kStaged ? 1 + kThreads - kConsumers : 1);
       mbar_init(&empty[s], kConsumers);
     }
     fence_barrier_init();
@@ -168,8 +230,35 @@ ed_tc_kernel(const __grid_constant__ CUtensorMap map_x,
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {                 // the producer
-    regs_dec<40>();
-    if (threadIdx.x == kConsumers) {
+    regs_dec<kStaged ? 56 : 40>();
+    if constexpr (kStaged) {                       // staged: all 128
+      const int pt = threadIdx.x - kConsumers;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = t_begin; t < t_end; ++t)
+        for (int c = 0; c < n_chunks; ++c) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          if (pt == 0) {
+            mbar_expect_tx(&full[stage], 2 * kQChunk);
+            tma_load_2d(qh_s + stage * kQChunk, &map_qh, &full[stage],
+                        c * kKC, q0);
+            tma_load_2d(ql_s + stage * kQChunk, &map_ql, &full[stage],
+                        c * kKC, q0);
+          }
+          if (stage_chunk<T>(x_s + stage * X::kBytes, xs, (long long)t * kBM,
+                             c * kKC, N, L, pt)) {
+            // a thread that stored some pieces itself may have copies in
+            // flight too: commit and wait for them all, then arrive (the
+            // arrive releases the st.shared)
+            cp_async_commit();
+            cp_async_wait<0>();
+            mbar_arrive(&full[stage]);
+          } else {
+            cp_async_arrive(&full[stage]);       // once its copies land
+          }
+          if (++stage == kStages) { stage = 0; phase ^= 1; }
+        }
+    } else if (threadIdx.x == kConsumers) {        // TMA: one thread
       int stage = 0;
       uint32_t phase = 0;
       for (int t = t_begin; t < t_end; ++t)
@@ -186,7 +275,7 @@ ed_tc_kernel(const __grid_constant__ CUtensorMap map_x,
         }
     }
   } else {                                         // the consumers
-    regs_inc<232>();
+    regs_inc<kStaged ? 224 : 232>();
     qq_s[threadIdx.x] = qq[q0 + threadIdx.x];
     named_sync(1, kConsumers);
     const int wg = threadIdx.x / 128;
@@ -306,88 +395,8 @@ __global__ void unpack_kernel(const unsigned long long* __restrict__ keys,
   idx[i] = (int)(unsigned)(k & 0xffffffffull);
 }
 
-// The general route: any L and alignment, float32 FMAs outside the
-// tensor cores.  Thread t of a block owns candidate t of the block's 256
-// and the block's kGQ queries: it reads its row once, value by value,
-// into |x|^2 and kGQ running dot products (the queries' values are read
-// by all threads at once, a broadcast), then forms each query's key as
-// the tensor-core route does, takes the least over its warp and merges it
-// by atomicMin.
-constexpr int kGQ = 32;              // queries per block of the general route
-constexpr int kGThreads = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(kGThreads) ed_general(
-    const float* __restrict__ q, const T* __restrict__ xs,
-    const float* __restrict__ qq, unsigned long long* __restrict__ keys,
-    int Q, int N, int L) {
-  const long long c = (long long)blockIdx.x * kGThreads + threadIdx.x;
-  const int q0 = blockIdx.y * kGQ;
-  const int nq = min(kGQ, Q - q0);
-  const float* qb = q + (long long)q0 * L;
-  float acc[kGQ];
-#pragma unroll
-  for (int i = 0; i < kGQ; ++i) acc[i] = 0.f;
-  float xsq = 0.f;
-  if (c < N) {
-    const T* x = xs + c * L;
-    for (int j = 0; j < L; ++j) {
-      const float v = to_float(x[j]);
-      xsq = fmaf(v, v, xsq);
-#pragma unroll
-      for (int i = 0; i < kGQ; ++i)
-        if (i < nq) acc[i] = fmaf(v, qb[(long long)i * L + j], acc[i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kGQ; ++i) {
-    unsigned long long key = ~0ull;
-    if (c < N && i < nq) {
-      const float d2 = fmaxf(__fsub_rn(__fadd_rn(qq[q0 + i], xsq),
-                                       __fmul_rn(2.f, acc[i])), 0.f) + 0.f;
-      key = ((unsigned long long)__float_as_uint(d2) << 32) |
-            (unsigned long long)(unsigned)c;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      key = umin64(key, __shfl_xor_sync(0xffffffffu, key, off));
-    if ((threadIdx.x & 31) == 0 && key != ~0ull)
-      atomicMin(&keys[q0 + i], key);
-  }
-}
-
-template <typename T>
-cudaError_t launch_general(const float* q, const void* xs, float* scratch,
-                           unsigned long long* keys, float* d, int* idx,
-                           int Q, int N, int L, cudaStream_t stream) {
-  const int q_pad = (Q + kBQ - 1) / kBQ * kBQ;
-  float* qh = scratch;
-  float* ql = qh + (size_t)q_pad * L;
-  float* qq = ql + (size_t)q_pad * L;
-  cudaError_t err =
-      cudaMemsetAsync(keys, 0xff, sizeof(unsigned long long) * Q, stream);
-  if (err != cudaSuccess) return err;
-  split_queries<<<q_pad, 128, 0, stream>>>(q, qh, ql, qq, Q, L);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // the grid's y dimension takes 65,535 query groups: more go in launches
-  // of as many, each on its slice of the queries, their norms and keys
-  constexpr int kSlice = 65535 * kGQ;
-  for (int q0 = 0; q0 < Q; q0 += kSlice) {
-    const int nq = Q - q0 < kSlice ? Q - q0 : kSlice;
-    dim3 grid((unsigned)((N + kGThreads - 1) / kGThreads),
-              (unsigned)((nq + kGQ - 1) / kGQ));
-    ed_general<T><<<grid, kGThreads, 0, stream>>>(
-        q + (long long)q0 * L, static_cast<const T*>(xs), qq + q0,
-        keys + q0, nq, N, L);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  unpack_kernel<<<(Q + 255) / 256, 256, 0, stream>>>(keys, d, idx, Q);
-  return cudaGetLastError();
-}
-
-template <typename T>
+// kStaged as ed_tc_kernel's.
+template <typename T, bool kStaged>
 cudaError_t launch(const float* q, const void* xs, float* scratch,
                    unsigned long long* keys, float* d, int* idx, int Q, int N,
                    int L, cudaStream_t stream) {
@@ -399,35 +408,37 @@ cudaError_t launch(const float* q, const void* xs, float* scratch,
   if (err != cudaSuccess) return err;
   const int q_groups = (Q + kBQ - 1) / kBQ;
   const int q_pad = q_groups * kBQ;
+  const int lp = (L + kKC - 1) / kKC * kKC;
   float* qh = scratch;
-  float* ql = qh + (size_t)q_pad * L;
-  float* qq = ql + (size_t)q_pad * L;
+  float* ql = qh + (size_t)q_pad * lp;
+  float* qq = ql + (size_t)q_pad * lp;
 
   const cuuint64_t dx[2] = {(cuuint64_t)L, (cuuint64_t)N};
-  const cuuint64_t dq[2] = {(cuuint64_t)L, (cuuint64_t)q_pad};
+  const cuuint64_t dq[2] = {(cuuint64_t)lp, (cuuint64_t)q_pad};
   const cuuint32_t bx[2] = {kKC, kBM};
   const cuuint32_t bq[2] = {kKC, kBQ};
-  CUtensorMap mx, mqh, mql;
-  if ((err = make_map(&mx,
-                      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                      sizeof(T), xs, 2, dx, bx,
-                      X::kSpan == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                      : CU_TENSOR_MAP_SWIZZLE_64B)) !=
-          cudaSuccess ||
+  CUtensorMap mx{}, mqh, mql;                      // mx: the tensor route's
+  if ((!kStaged &&
+       (err = make_map(&mx,
+                       sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                       sizeof(T), xs, 2, dx, bx,
+                       X::kSpan == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                       : CU_TENSOR_MAP_SWIZZLE_64B)) !=
+           cudaSuccess) ||
       (err = make_map(&mqh, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, qh, 2, dq, bq,
                       CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
       (err = make_map(&mql, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ql, 2, dq, bq,
                       CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess)
     return err;
-  err = cudaFuncSetAttribute(ed_tc_kernel<T>,
+  err = cudaFuncSetAttribute(ed_tc_kernel<T, kStaged>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              X::kSmem);
   if (err != cudaSuccess) return err;
 
   err = cudaMemsetAsync(keys, 0xff, sizeof(unsigned long long) * Q, stream);
   if (err != cudaSuccess) return err;
-  split_queries<<<q_pad, 128, 0, stream>>>(q, qh, ql, qq, Q, L);
+  split_queries<<<q_pad, 128, 0, stream>>>(q, qh, ql, qq, Q, L, lp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // about one block per SM, each over a contiguous range of tiles
@@ -437,8 +448,8 @@ cudaError_t launch(const float* q, const void* xs, float* scratch,
   const int per = (n_tiles + ranges - 1) / ranges;
   ranges = (n_tiles + per - 1) / per;
   dim3 grid((unsigned)q_groups, (unsigned)ranges);
-  ed_tc_kernel<T><<<grid, kThreads, X::kSmem, stream>>>(mx, mqh, mql, qq,
-                                                        keys, Q, N, L, per);
+  ed_tc_kernel<T, kStaged><<<grid, kThreads, X::kSmem, stream>>>(
+      mx, mqh, mql, static_cast<const T*>(xs), qq, keys, Q, N, L, per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   unpack_kernel<<<(Q + 255) / 256, 256, 0, stream>>>(keys, d, idx, Q);
@@ -447,38 +458,38 @@ cudaError_t launch(const float* q, const void* xs, float* scratch,
 
 }  // namespace
 
-// dtype of xs: 0 = float32, 1 = bfloat16; q is float32.  route 0 (the
-// tensor cores): L a multiple of 8 and q, xs 16-byte aligned; route 1
-// (general): any L and alignment.  N < 2^31 (the wrapper checks);
-// scratch is 2 * Qpad * L + Qpad floats with Qpad = Q rounded up to 256,
-// keys is (Q,) 64-bit.  Q >= 1 and N >= 1.
+// dtype of xs: 0 = float32, 1 = bfloat16; q is float32 (any alignment:
+// the kernel reads it into scratch).  route 0 (tensor, TMA): L * the
+// element size a multiple of 16 and xs 16-byte aligned; route 1 (staged,
+// cp.async): any L and alignment.  N < 2^31 (the wrapper checks); scratch
+// is 2 * Qpad * Lp + Qpad floats with Qpad = Q rounded up to 256 and Lp =
+// L rounded up to 32; keys is (Q,) 64-bit.  Q >= 1 and N >= 1.
 extern "C" int ed_argmin(const void* q, const void* xs, int dtype,
                          void* scratch, void* keys, void* out_d,
                          void* out_idx, int Q, int N, int L, int route,
                          void* stream) {
-  if (Q <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  if (Q <= 0 || N <= 0 || L <= 0 || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   float* sc = static_cast<float*>(scratch);
   unsigned long long* k = static_cast<unsigned long long*>(keys);
   float* d = static_cast<float*>(out_d);
   int* i = static_cast<int*>(out_idx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int elem = dtype == 0 ? 4 : 2;
   if (route == 0) {
-    switch (dtype) {
-      case 0: return (int)launch<float>(qf, xs, sc, k, d, i, Q, N, L, s);
-      case 1:
-        return (int)launch<__nv_bfloat16>(qf, xs, sc, k, d, i, Q, N, L, s);
-    }
-  } else if (route == 1) {
-    switch (dtype) {
-      case 0:
-        return (int)launch_general<float>(qf, xs, sc, k, d, i, Q, N, L, s);
-      case 1:
-        return (int)launch_general<__nv_bfloat16>(qf, xs, sc, k, d, i, Q, N,
-                                                  L, s);
-    }
+    if ((long long)L * elem % 16 || reinterpret_cast<uintptr_t>(xs) % 16)
+      return (int)cudaErrorInvalidValue;
+    return dtype == 0
+               ? (int)launch<float, false>(qf, xs, sc, k, d, i, Q, N, L, s)
+               : (int)launch<__nv_bfloat16, false>(qf, xs, sc, k, d, i, Q, N,
+                                                   L, s);
   }
-  return (int)cudaErrorInvalidValue;
+  if (route != 1) return (int)cudaErrorInvalidValue;
+  return dtype == 0
+             ? (int)launch<float, true>(qf, xs, sc, k, d, i, Q, N, L, s)
+             : (int)launch<__nv_bfloat16, true>(qf, xs, sc, k, d, i, Q, N, L,
+                                                s);
 }
 
 extern "C" const char* ed_argmin_error(int code) {

@@ -10,13 +10,26 @@
 //
 // Routes, by dtype and head width: bfloat16 takes the tensor cores and
 // float32 the FMAs, each in instances of width 32, 64, 96, 128 and 256 that
-// take every narrower dh whose rows are whole 16-byte pieces (padded with
-// zeros in shared memory); bfloat16 past 256, to 512, takes instances of
-// width 320, 384, 448 and 512 whose blocks each compute one half of O's
-// columns (wgmma's N is at most 256), the scores for both; every other dh
-// (rows not of whole 16-byte pieces, f32 past 256, bf16 past 512) takes
-// the wide route.  The grid's x dimension is the
-// head b * Hq + h (any B Hq), its y dimension the query block.
+// take every narrower dh (padded with zeros in shared memory), and past
+// 256, to 512, in instances of width 320, 384, 448 and 512 whose blocks
+// each compute one half of O's columns (wgmma's N is at most 256; the
+// float32 tiles would pass shared memory), the scores for both.  A
+// bfloat16 row that is not whole 16-byte pieces (dh % 8 != 0), which
+// TMA cannot stride over, takes the staged route: `pad_rows` first copies
+// q, k and v into rows padded to 16-byte pieces, and TMA reads the
+// copies.  Only a dh past 512 takes the wide route.  The grid's x
+// dimension is the head b * Hq + h (any B Hq), its y dimension the query
+// block (the float32 halves: see simt::half_kernel).
+//
+// Why a padded copy, for attention: a producer that wrote the tiles
+// itself (cp.async into the swizzled layout, or one bulk copy of the rows
+// and a layout pass through shared memory) took over twice the TMA
+// route's device time on the same inputs on an H100; without the layout
+// pass's shared-memory stores it matched TMA, so the cost lies in the
+// consumers' wgmma reading tiles the generic proxy wrote.  The copies
+// cost one read and one write of q, k and v (about 5 MB at dh 100, T
+// 1024, Hq 8).  The scan (ed_argmin.cu) reads its staged tiles with
+// ld.shared, and stages them itself.
 //
 // * bfloat16: `tc::flash_tc_kernel`, on the tensor cores (wgmma, TMA).
 //   Bound on this card: operations.  At B = 1, Hq = 32, Hkv = 8,
@@ -61,7 +74,7 @@
 //   4 rows x dh/16 columns of O.  Its floor at the shape above would be
 //   2.05 ms (the same 1.37e11 flops at 67 TFLOP/s).
 //
-// * any other dh, either dtype: `wide::wide_kernel` (float32 FMAs, no TMA
+// * dh past 512, either dtype: `wide::wide_kernel` (float32 FMAs, no TMA
 //   and no tiles in shared memory; see there).
 
 #include <cuda_bf16.h>
@@ -70,6 +83,7 @@
 #include <stdint.h>
 
 #include "sm90.cuh"
+
 
 // query blocks a launch: the grid's y dimension takes at most 65,535, so a
 // longer T goes in launches of as many, each told its first block (qb0)
@@ -86,11 +100,21 @@ constexpr float kNegInf = -1e30f;  // the mask value of repro and ref.py
 // Copy rows [r0, r0 + 64) of a (rows_n, dh) matrix into shared memory as
 // float32 rows of DH >= dh, transposed (dst[d * kLd + row]) or not
 // (dst[row * (DH + 4) + d]); rows >= rows_n and columns >= dh read as
-// zeros (dh % 4 == 0: 16-byte loads).
-template <int DH, bool kTranspose>
+// zeros.  kVec: dh % 4 == 0, 16-byte loads; else value by value.
+template <int DH, bool kTranspose, bool kVec>
 __device__ __forceinline__ void load_tile(const float* __restrict__ m,
                                           long long r0, long long rows_n,
                                           int dh, float* dst, int tid) {
+  if (!kVec) {
+    for (int e = tid; e < 64 * DH; e += kThreads) {
+      const int row = e / DH, c = e % DH;
+      const float v =
+          r0 + row < rows_n && c < dh ? m[(r0 + row) * dh + c] : 0.f;
+      if (kTranspose) dst[c * kLd + row] = v;
+      else dst[row * (DH + 4) + c] = v;
+    }
+    return;
+  }
   constexpr int kChunks = DH / 4;                 // 16-byte loads per row
   for (int e = tid; e < 64 * kChunks; e += kThreads) {
     const int row = e / kChunks, c = (e % kChunks) * 4;
@@ -106,11 +130,11 @@ __device__ __forceinline__ void load_tile(const float* __restrict__ m,
   }
 }
 
-// The instance of width DH takes any dh <= DH (a multiple of 4): the
-// columns past dh are zeros in shared memory, which change neither Q.K^T
-// nor the written columns of O.  Block (x, y): head b * Hq + h = x (any
-// B Hq), query block qb0 + gridDim.y - 1 - y.
-template <int DH>
+// The instance of width DH takes any dh <= DH (kVec: a multiple of 4):
+// the columns past dh are zeros in shared memory, which change neither
+// Q.K^T nor the written columns of O.  Block (x, y): head b * Hq + h = x
+// (any B Hq), query block qb0 + gridDim.y - 1 - y.
+template <int DH, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ o, int Hq,
@@ -145,7 +169,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int hi = causal ? min(S - 1, r) : S - 1;
     if (lo > hi) any_empty = 1;
   }
-  load_tile<DH, true>(qp, q0, Tq, dh, q_t, tid);
+  load_tile<DH, true, kVec>(qp, q0, Tq, dh, q_t, tid);
   __syncthreads();
   const int n_tiles = (S + kBKV - 1) / kBKV;
   int t_begin = 0, t_end = n_tiles;
@@ -168,8 +192,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int tile = t_begin; tile < t_end; ++tile) {
     const int k0 = tile * kBKV;
     __syncthreads();                     // the last tile's P.V is done
-    load_tile<DH, true>(kp, k0, S, dh, k_t, tid);
-    load_tile<DH, false>(vp, k0, S, dh, v_s, tid);
+    load_tile<DH, true, kVec>(kp, k0, S, dh, k_t, tid);
+    load_tile<DH, false, kVec>(vp, k0, S, dh, v_s, tid);
     __syncthreads();
 
     float s[4][4];
@@ -255,21 +279,22 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Tq, int S, int dh, int causal,
-                   int window, float scale, cudaStream_t stream) {
+template <int DH, bool kVec>
+cudaError_t launch_vec(const void* q, const void* k, const void* v, void* o,
+                       int B, int Hq, int Hkv, int Tq, int S, int dh,
+                       int causal, int window, float scale,
+                       cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (2 * (size_t)DH * kLd + (size_t)kBKV * (DH + 4) +
                        (size_t)kBKV * kLd);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<DH, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   for (int hi = (Tq + kBQ - 1) / kBQ; hi > 0; hi -= kMaxQBlocks) {
     const int n = hi < kMaxQBlocks ? hi : kMaxQBlocks;
     dim3 grid((unsigned)((long long)B * Hq), (unsigned)n);
-    flash_kernel<DH><<<grid, kThreads, smem, stream>>>(
+    flash_kernel<DH, kVec><<<grid, kThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Tq,
         S, dh, causal, window, scale, hi - n);
@@ -279,6 +304,264 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaSuccess;
 }
 
+template <int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int B, int Hq, int Hkv, int Tq, int S, int dh, int causal,
+                   int window, float scale, cudaStream_t stream) {
+  return dh % 4 == 0
+             ? launch_vec<DH, true>(q, k, v, o, B, Hq, Hkv, Tq, S, dh,
+                                    causal, window, scale, stream)
+             : launch_vec<DH, false>(q, k, v, o, B, Hq, Hkv, Tq, S, dh,
+                                     causal, window, scale, stream);
+}
+
+// float32 past dh 256, to 512: O in two halves of DV = DH / 2 columns, a
+// block each, both computing the whole scores (as the bfloat16 HALVES
+// do).  The transposed tiles of flash_kernel would not fit (Q and K of 64
+// rows at DH 320 are 87 KB each), so a block streams the scores' columns:
+// kHC = 64 columns of the block's 64 query rows and of a 64-key tile a
+// chunk, both row-major (rows of kHLd = 68 floats, 4 words past a
+// multiple of 32, so that the 16 key rows a warp reads fall in distinct
+// banks), then the tile's V (64 x DV) for P.V, all by cp.async (16-byte
+// copies where dh % 4 == 0, else 4-byte ones; zeros past dh, T and S) in
+// a pipeline of stages: each tile's chunks, then its P.V; the next
+// stage's copies fly while a stage computes (two chunk buffers; V and P
+// one each).  Thread (tx, ty) owns query rows 4 ty .. 4 ty + 3 against
+// keys tx + 16 j (the scores), and O's columns 2 tx + 32 g, + 1 (P.V,
+// P through shared memory as in flash_kernel): every read of a chunk, V
+// and P is conflict-free.  A block takes a pair of query blocks, the
+// i-th heaviest and the i-th lightest under a causal mask, so that every
+// block has about the same number of tiles (the grid's x: the pairs,
+// the two halves and the heads, one launch for any T).  Every product
+// and sum is float32 (expf, as the plain version).
+constexpr int kHC = 64;            // score columns a chunk
+constexpr int kHLd = kHC + 4;      // a chunk's row, in floats
+
+template <int DH>
+struct Half {
+  static constexpr int kDV = DH / 2;               // O columns a block
+  static constexpr int kG = kDV / 32;              // float2 columns a thread
+  static constexpr int kChunk = 64 * kHLd;         // floats of a chunk
+  static constexpr int kSmem = 4 * (4 * kChunk + 64 * kDV + kBKV * kLd);
+};
+
+// Rows [r0, r0 + 64) of a (rows_n, dh) matrix, columns [c0, c0 + W), into
+// dst (rows of `ld` floats) by cp.async: zeros past rows_n and dh.
+template <int W, bool kVec>
+__device__ __forceinline__ void copy_rows(float* dst, int ld,
+                                          const float* __restrict__ m,
+                                          long long r0, long long rows_n,
+                                          int dh, int c0, int tid) {
+  constexpr int kVals = kVec ? 4 : 1;
+  constexpr int kPer = W / kVals;                  // copies a row
+  const uint32_t base = sm90::smem_u32(dst);
+#pragma unroll 8
+  for (int u = tid; u < 64 * kPer; u += kThreads) {
+    const int row = u / kPer, col = (u % kPer) * kVals;
+    const bool ok = r0 + row < rows_n && c0 + col < dh;
+    const float* src = ok ? m + (r0 + row) * dh + c0 + col : m;
+    sm90::cp_async<4 * kVals>(base + 4 * (row * ld + col), src,
+                              ok ? 4 * kVals : 0);
+  }
+}
+
+template <int DH, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
+half_kernel(const float* __restrict__ q, const float* __restrict__ k,
+            const float* __restrict__ v, float* __restrict__ o, int Hq,
+            int Hkv, int Tq, int S, int dh, int causal, int window,
+            float scale) {
+  using H = Half<DH>;
+  constexpr int kG = H::kG;
+  extern __shared__ __align__(16) float smem[];
+  float* qk = smem;                        // [2][Q chunk, K chunk]
+  float* v_s = qk + 4 * H::kChunk;         // [kBKV][kDV]
+  float* p_t = v_s + kBKV * H::kDV;        // [kBKV][kLd]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int nqb = (Tq + kBQ - 1) / kBQ;
+  const int pairs = (nqb + 1) / 2;
+  const int pair = blockIdx.x % pairs;
+  const int half = (blockIdx.x / pairs) % 2;
+  const int bh = blockIdx.x / pairs / 2;           // b * Hq + h
+  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+  const int c0 = half * H::kDV;
+  const float* qp = q + (long long)bh * Tq * dh;
+  const float* kp = k + (long long)kvh * S * dh;
+  const float* vp = v + (long long)kvh * S * dh;
+  const int nc = (dh + kHC - 1) / kHC;             // chunks a tile
+
+  for (int part = 0; part < 2; ++part) {
+    const int qb = part == 0 ? nqb - 1 - pair : pair;
+    if (part == 1 && qb >= nqb - 1 - pair) break;  // the middle block
+    const int q0 = qb * kBQ;
+    // a row of the block sees no key iff its last does (see tc::)
+    const int q_last = min(q0 + kBQ, Tq) - 1;
+    const int lo_last = window > 0 ? max(0, q_last - window + 1) : 0;
+    const int hi_last = causal ? min(S - 1, q_last) : S - 1;
+    int t_begin = 0, t_end = (S + kBKV - 1) / kBKV;
+    if (lo_last <= hi_last) {
+      t_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / kBKV;
+      t_end = hi_last / kBKV + 1;
+    }
+    const int total = (t_end - t_begin) * (nc + 1);
+    // stage st: tile t_begin + st / (nc + 1); its chunk st % (nc + 1), or
+    // its P.V where that is nc; chunk buffers alternate chunk by chunk
+    auto issue = [&](int st) {
+      if (st < total) {
+        const int tile = t_begin + st / (nc + 1), c = st % (nc + 1);
+        const long long k0 = (long long)tile * kBKV;
+        if (c < nc) {
+          float* buf = qk + ((tile - t_begin) * nc + c) % 2 * 2 * H::kChunk;
+          copy_rows<kHC, kVec>(buf, kHLd, qp, q0, Tq, dh, c * kHC, tid);
+          copy_rows<kHC, kVec>(buf + H::kChunk, kHLd, kp, k0, S, dh,
+                               c * kHC, tid);
+        } else {
+          copy_rows<H::kDV, kVec>(v_s, H::kDV, vp, k0, S, dh, c0, tid);
+        }
+      }
+      sm90::cp_async_commit();
+    };
+
+    float m[4], l[4], acc[4][2 * kG], s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < 2 * kG; ++c) acc[i][c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    }
+    issue(0);
+    for (int st = 0; st < total; ++st) {
+      sm90::cp_async_wait<0>();
+      __syncthreads();                   // stage st landed; st - 1 is done
+      issue(st + 1);
+      const int tile = t_begin + st / (nc + 1), c = st % (nc + 1);
+      const int k0 = tile * kBKV;
+      if (c < nc) {                      // 32 columns of the scores
+        const float* qc =
+            qk + ((tile - t_begin) * nc + c) % 2 * 2 * H::kChunk;
+        const float* kc = qc + H::kChunk;
+#pragma unroll
+        for (int d = 0; d < kHC; d += 4) {
+          float4 a[4], b[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            a[i] = *reinterpret_cast<const float4*>(qc + (4 * ty + i) * kHLd
+                                                    + d);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            b[j] = *reinterpret_cast<const float4*>(kc + (tx + 16 * j) * kHLd
+                                                    + d);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+              s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+              s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+              s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+            }
+        }
+        if (c + 1 < nc) continue;
+        // the tile's scores are whole: the online softmax, P to p_t
+        float p[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = q0 + 4 * ty + i;
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int kpos = k0 + tx + 16 * j;
+            float x = __fmul_rn(s[i][j], scale);
+            if (kpos >= S) x = -INFINITY;
+            else if ((causal && r < kpos) ||
+                     (window > 0 && kpos <= r - window))
+              x = kNegInf;
+            p[i][j] = x;
+            mx = fmaxf(mx, x);
+            s[i][j] = 0.f;
+          }
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          const float m_new = fmaxf(m[i], mx);
+          const float alpha = expf(m[i] - m_new);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            p[i][j] = expf(p[i][j] - m_new);
+            sum += p[i][j];
+          }
+#pragma unroll
+          for (int off = 8; off > 0; off >>= 1)
+            sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          l[i] = l[i] * alpha + sum;
+          m[i] = m_new;
+#pragma unroll
+          for (int cc = 0; cc < 2 * kG; ++cc) acc[i][cc] *= alpha;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<float4*>(p_t + (tx + 16 * j) * kLd + 4 * ty) =
+              make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
+      } else {                           // O += P . V
+#pragma unroll 4
+        for (int j = 0; j < kBKV; ++j) {
+          const float4 pv =
+              *reinterpret_cast<const float4*>(p_t + j * kLd + 4 * ty);
+          const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+          for (int g = 0; g < kG; ++g) {
+            const float2 vv = *reinterpret_cast<const float2*>(
+                v_s + j * H::kDV + 2 * tx + 32 * g);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              acc[i][2 * g] = fmaf(pr[i], vv.x, acc[i][2 * g]);
+              acc[i][2 * g + 1] = fmaf(pr[i], vv.y, acc[i][2 * g + 1]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + 4 * ty + i;
+      if (r >= Tq) continue;
+      float* orow = o + ((long long)bh * Tq + r) * dh + c0;
+#pragma unroll
+      for (int g = 0; g < kG; ++g)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 2 * tx + 32 * g + e;
+          if (c0 + col < dh) orow[col] = acc[i][2 * g + e] / l[i];
+        }
+    }
+    __syncthreads();                     // the buffers pass to the next part
+  }
+}
+
+template <int DH>
+cudaError_t launch_half(const void* q, const void* k, const void* v,
+                        void* o, int B, int Hq, int Hkv, int Tq, int S,
+                        int dh, int causal, int window, float scale,
+                        cudaStream_t stream) {
+  const long long blocks =
+      (long long)B * Hq * 2 * (((Tq + kBQ - 1) / kBQ + 1) / 2);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto kernel = dh % 4 == 0 ? half_kernel<DH, true> : half_kernel<DH, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Half<DH>::kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, kThreads, Half<DH>::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Tq, S,
+      dh, causal, window, scale);
+  return cudaGetLastError();
+}
 
 }  // namespace simt
 
@@ -322,7 +605,7 @@ struct Tile {
   static constexpr int kQBytes = kQPiece * kPieces;
   static constexpr int kKBytes = kKPiece * kPieces;
   static constexpr int kVBytes = kVPiece * kVPieces;
-  static constexpr int kBars = 1 + 3 * kStages;
+  static constexpr int kBars = 1 + 4 * kStages;
   static constexpr int kSmem =
       1024 + kQBytes + kStages * (kKBytes + kVBytes) + 8 * kBars;
 };
@@ -414,12 +697,13 @@ __device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-// The instance (DK, DV) takes any dh <= DK (a multiple of 8, so that a
-// row is whole 16-byte pieces for TMA): the maps are dh wide and their
-// boxes DK (DV for V), so TMA fills the columns past dh with zeros, which
-// change neither Q.K^T nor the written columns of O.  Block (x, y, z):
-// head b * Hq + h = x (any B Hq), query block y, O's columns z DV ..
-// (z + 1) DV - 1.
+// The instance (DK, DV) takes any dh <= DK: the maps are dh wide and
+// their boxes DK (DV for V), so TMA fills the columns past dh with zeros,
+// which change neither Q.K^T nor the written columns of O.  The maps' rows
+// are those of q, k and v, or (the staged route, dh not a multiple of 8)
+// of their copies with rows padded to 16-byte pieces (pad_rows).  Block
+// (x, y, z): head b * Hq + h = x (any B Hq), query block y, O's columns z
+// DV .. (z + 1) DV - 1.
 template <int DK, int DV = DK>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -436,7 +720,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kStages * C::kVBytes);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + kStages;
-  uint64_t* empty = v_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
 
   const int qb = qb0 + gridDim.y - 1 - blockIdx.y;  // heaviest blocks first
   const int q0 = qb * kBM;
@@ -460,7 +745,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
-      mbar_init(&empty[s], kConsumers);
+      mbar_init(&k_empty[s], kConsumers);
+      mbar_init(&v_empty[s], kConsumers);
     }
     fence_barrier_init();
   }
@@ -476,13 +762,14 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       int stage = 0;
       uint32_t phase = 0;
       for (int t = t_begin; t < t_end; ++t) {
-        mbar_wait(&empty[stage], phase ^ 1);
         uint8_t* kd = k_s + stage * C::kKBytes;
         uint8_t* vd = v_s + stage * C::kVBytes;
+        mbar_wait(&k_empty[stage], phase ^ 1);
         mbar_expect_tx(&k_full[stage], C::kKBytes);
         for (int p = 0; p < C::kPieces; ++p)
           tma_load_3d(kd + p * C::kKPiece, &map_k, &k_full[stage],
                       p * C::kPieceElems, t * kBN, kvh);
+        mbar_wait(&v_empty[stage], phase ^ 1);
         mbar_expect_tx(&v_full[stage], C::kVBytes);
         for (int p = 0; p < C::kVPieces; ++p)
           tma_load_3d(vd + p * C::kVPiece, &map_v, &v_full[stage],
@@ -628,7 +915,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       if (++stage == kStages) { stage = 0; phase ^= 1; }
     };
     auto release_pv = [&]() {
-      mbar_arrive(&empty[pv_stage]);
+      mbar_arrive(&v_empty[pv_stage]);
       if (++pv_stage == kStages) { pv_stage = 0; pv_phase ^= 1; }
     };
 
@@ -641,6 +928,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     their_turn();
     wgmma_wait<0>();
     fence_operands(s);
+    mbar_arrive(&k_empty[stage]);       // K_i is read: its stage may refill
     exponentiate(t_begin);
     rescale_and_split();
     next_stage();
@@ -656,6 +944,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       their_turn();
       wgmma_wait<1>();                   // S_i is done, P.V may run on
       fence_operands(s);
+      mbar_arrive(&k_empty[stage]);
       exponentiate(tile);
       wgmma_wait<0>();
       fence_operands(acc);
@@ -681,23 +970,65 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
     __nv_bfloat16* o0 = o + ((long long)bh * Tq + row0) * dh + c0 + 2 * t4;
     __nv_bfloat16* o1 = o0 + 8 * dh;
+    // columns c0 + 8 j + 2 t4 and the next: a bf16x2 store where both lie
+    // inside dh and dh is even (4-byte aligned); else value by value
+    auto store = [&](__nv_bfloat16* p, float a, float b, int left) {
+      if (left >= 2 && dh % 2 == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+      } else {
+        if (left >= 1) p[0] = __float2bfloat16_rn(a);
+        if (left >= 2) p[1] = __float2bfloat16_rn(b);
+      }
+    };
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j) {
       if (c0 + 8 * j >= dh) break;                 // padded columns
+      const int left = dh - (c0 + 8 * j + 2 * t4);
       if (row0 < Tq)
-        *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
-            __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+        store(o0 + 8 * j, acc[4 * j] * inv0, acc[4 * j + 1] * inv0, left);
       if (row1 < Tq)
-        *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * j) = __floats2bfloat162_rn(
-            acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+        store(o1 + 8 * j, acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1,
+              left);
     }
   }
 }
 
+// The staged route's copies of q, k and v (rows, dh), one launch, each
+// row padded to ld = dh rounded up to 8 values: a row of whole 16-byte
+// pieces that TMA takes.  The copies lie back to back in `out` (q's
+// rows_q rows, then k's and v's rows_kv each), so row R of them is row R
+// of the three inputs in that order.  A thread writes 16-byte pieces
+// (consecutive threads, consecutive pieces), each read by load16 (the
+// widest loads the row's alignment allows; no read past the values' own
+// 16-byte blocks).  The pad's values are never read: the maps stop at dh.
+__global__ void pad_rows(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         __nv_bfloat16* __restrict__ out, long long rows_q,
+                         long long rows_kv, int dh, int ld) {
+  const int per = ld / 8;                          // pieces a row
+  const long long pieces = (rows_q + 2 * rows_kv) * per;
+  for (long long u = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       u < pieces; u += (long long)gridDim.x * blockDim.x) {
+    const long long r = u / per;
+    const int col = (int)(u % per) * 8;
+    const int valid = (dh - col) * 2;
+    const __nv_bfloat16* src =
+        r < rows_q ? q + r * dh
+                   : r < rows_q + rows_kv ? k + (r - rows_q) * dh
+                                          : v + (r - rows_q - rows_kv) * dh;
+    *reinterpret_cast<uint4*>(out + r * ld + col) =
+        load16(reinterpret_cast<const uint8_t*>(src + col),
+               valid > 16 ? 16 : valid);
+  }
+}
+
+// q, k, v: the rows the maps read, ld elements apart (dh, or the staged
+// route's padded copies); o: (B, Hq, T, dh).
 template <int DK, int DV = DK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Tq, int S, int dh, int causal,
-                   int window, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, int ld,
+                   void* o, int B, int Hq, int Hkv, int Tq, int S, int dh,
+                   int causal, int window, float scale, cudaStream_t stream) {
   using C = Tile<DK, DV>;
   auto swizzle = [](int span) {
     return span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -713,11 +1044,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   CUtensorMap mq, mk, mv;
   cudaError_t err;
   if ((err = make_map(&mq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q, 3, dq, bq,
-                      swizzle(C::kSpan))) != cudaSuccess ||
+                      swizzle(C::kSpan), ld)) != cudaSuccess ||
       (err = make_map(&mk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k, 3, dkv,
-                      bk, swizzle(C::kSpan))) != cudaSuccess ||
+                      bk, swizzle(C::kSpan), ld)) != cudaSuccess ||
       (err = make_map(&mv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, v, 3, dkv,
-                      bv, swizzle(C::kVSpan))) != cudaSuccess)
+                      bv, swizzle(C::kVSpan), ld)) != cudaSuccess)
     return err;
   err = cudaFuncSetAttribute(flash_tc_kernel<DK, DV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -736,14 +1067,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaSuccess;
 }
 
+// The staged route: pad q, k, v into scratch, then the instance on the
+// copies.
+template <int DK, int DV = DK>
+cudaError_t launch_staged(const void* q, const void* k, const void* v,
+                          void* scratch, void* o, int B, int Hq, int Hkv,
+                          int Tq, int S, int dh, int causal, int window,
+                          float scale, cudaStream_t stream) {
+  const int ld = (dh + 7) / 8 * 8;
+  const long long rows_q = (long long)B * Hq * Tq;
+  const long long rows_kv = (long long)B * Hkv * S;
+  const long long pieces = (rows_q + 2 * rows_kv) * (ld / 8);
+  const long long blocks = (pieces + 255) / 256;
+  auto* out = static_cast<__nv_bfloat16*>(scratch);
+  pad_rows<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), out, rows_q, rows_kv, dh, ld);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch<DK, DV>(out, out + rows_q * ld, out + (rows_q + rows_kv) * ld,
+                        ld, o, B, Hq, Hkv, Tq, S, dh, causal, window, scale,
+                        stream);
+}
+
 }  // namespace tc
 
 namespace wide {
 
-// The route of every head width the padded instances do not take (dh past
-// 256, or a bf16 dh that is not a multiple of 8, whose rows are not whole
-// 16-byte pieces for TMA; an f32 dh not a multiple of 4), either dtype,
-// without TMA: a block owns 16 query rows of one head (4 a warp) and 64
+// The route of every head width the instances do not take (dh past 512),
+// either dtype, without TMA: a block owns 16 query rows of one head (4 a warp) and 64
 // columns of O (grid z: the column chunks of dh), and walks 32-key tiles
 // with the online softmax, lane j holding key j.  Its scores are dot
 // products over the whole dh, taken kDC columns at a time through shared
@@ -899,36 +1252,64 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 namespace {
 
-// dtype 1 (bfloat16) takes the tensor cores, dtype 0 (float32) the FMAs;
-// the instance of width DH takes dh <= DH.
+// dtype 1 (bfloat16) takes the tensor cores (scratch: the staged route's
+// padded copies, or null), dtype 0 (float32) the FMAs; the instance of
+// width DH takes dh <= DH.
 template <int DH>
 cudaError_t launch_route(int dtype, const void* q, const void* k,
-                         const void* v, void* o, int B, int Hq, int Hkv,
-                         int Tq, int S, int dh, int causal, int window,
-                         float scale, cudaStream_t stream) {
+                         const void* v, void* scratch, void* o, int B, int Hq,
+                         int Hkv, int Tq, int S, int dh, int causal,
+                         int window, float scale, cudaStream_t stream) {
   if (dtype == 1)
-    return tc::launch<DH>(q, k, v, o, B, Hq, Hkv, Tq, S, dh, causal, window,
-                          scale, stream);
+    return scratch ? tc::launch_staged<DH>(q, k, v, scratch, o, B, Hq, Hkv,
+                                           Tq, S, dh, causal, window, scale,
+                                           stream)
+                   : tc::launch<DH>(q, k, v, dh, o, B, Hq, Hkv, Tq, S, dh,
+                                    causal, window, scale, stream);
   return simt::launch<DH>(q, k, v, o, B, Hq, Hkv, Tq, S, dh, causal, window,
                           scale, stream);
+}
+
+// The instances past 256, O's columns in two halves: the tensor cores
+// (bfloat16) or the FMAs (float32).
+template <int DH>
+cudaError_t launch_halves(int dtype, const void* q, const void* k,
+                          const void* v, void* scratch, void* o, int B,
+                          int Hq, int Hkv, int Tq, int S, int dh, int causal,
+                          int window, float scale, cudaStream_t stream) {
+  if (dtype == 1)
+    return scratch
+               ? tc::launch_staged<DH, DH / 2>(q, k, v, scratch, o, B, Hq,
+                                               Hkv, Tq, S, dh, causal,
+                                               window, scale, stream)
+               : tc::launch<DH, DH / 2>(q, k, v, dh, o, B, Hq, Hkv, Tq, S,
+                                        dh, causal, window, scale, stream);
+  return simt::launch_half<DH>(q, k, v, o, B, Hq, Hkv, Tq, S, dh, causal,
+                               window, scale, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; q, k, v and o alike.  inst: the padded
-// instance (32, 64, 96, 128 or 256: the tensor cores for bfloat16, dh a
-// multiple of 8; the FMAs for float32, dh a multiple of 4; and for
-// bfloat16 only 320, 384, 448 or 512, O in two halves of columns; dh <=
-// inst), or 0, the wide route (any dh, either dtype).  Hq a multiple of Hkv;
-// tensors contiguous and 16-byte aligned (the wrapper checks).  window 0
-// means no window.  Any B Hq (the grid's x) and any T (blocks of 128 query
-// rows on the tensor cores, 64 on the FMAs, 16 on the wide route: the
-// grid's y takes 65,535 of them, and more go in launches of as many, the
-// last blocks, the heaviest under a causal mask, first).
+// instance, dh <= inst: 32, 64, 96, 128 or 256 (the tensor cores for
+// bfloat16, the FMAs for float32), or 320, 384, 448 or 512 (O in two
+// halves of columns, a block each); or 0, the wide route (any dh, either
+// dtype).  scratch (bfloat16 instances): null, TMA on q, k and v (dh a
+// multiple of 8); else the staged route, any dh: (B Hq T + 2 B Hkv S)
+// (dh rounded up to 8) bfloat16 values for the padded copies.  A float32
+// instance reads 16-byte pieces where dh % 4 == 0, else values.  Hq a
+// multiple of Hkv; tensors contiguous and 16-byte aligned (the wrapper
+// checks).  window 0 means no window.  Any B Hq and any T: blocks of 128
+// query rows on the tensor cores, 64 on the FMAs, 16 on the wide route,
+// the heads on the grid's x and the query blocks on its y, which takes
+// 65,535 of them (more go in launches of as many, the last blocks, the
+// heaviest under a causal mask, first); the float32 halves put (head,
+// half, pair of query blocks) on the grid's x, one launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int dtype, int B, int Hq, int Hkv,
-                               int Tq, int S, int dh, int inst, int causal,
-                               int window, float scale, void* stream) {
+                               void* o, void* scratch, int dtype, int B,
+                               int Hq, int Hkv, int Tq, int S, int dh,
+                               int inst, int causal, int window, float scale,
+                               void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Tq <= 0 || S <= 0
       || dh <= 0)
     return (int)cudaErrorInvalidValue;
@@ -941,31 +1322,37 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                                   scale, s)
                : (int)wide::launch<float>(q, k, v, o, B, Hq, Hkv, Tq, S, dh,
                                           causal, window, scale, s);
-  if (dh > inst || dh % (dtype == 1 ? 8 : 4)) return (int)cudaErrorInvalidValue;
+  if (dh > inst || (dtype == 1 && !scratch && dh % 8) ||
+      (dtype == 0 && scratch))
+    return (int)cudaErrorInvalidValue;
   switch (inst) {
-    case 32: return (int)launch_route<32>(dtype, q, k, v, o, B, Hq, Hkv, Tq,
-                                          S, dh, causal, window, scale, s);
-    case 64: return (int)launch_route<64>(dtype, q, k, v, o, B, Hq, Hkv, Tq,
-                                          S, dh, causal, window, scale, s);
-    case 96: return (int)launch_route<96>(dtype, q, k, v, o, B, Hq, Hkv, Tq,
-                                          S, dh, causal, window, scale, s);
-    case 128: return (int)launch_route<128>(dtype, q, k, v, o, B, Hq, Hkv,
-                                            Tq, S, dh, causal, window, scale,
-                                            s);
-    case 256: return (int)launch_route<256>(dtype, q, k, v, o, B, Hq, Hkv,
-                                            Tq, S, dh, causal, window, scale,
-                                            s);
-  }
-  if (dtype != 1) return (int)cudaErrorInvalidValue;
-  switch (inst) {                      // O's columns in two halves
-    case 320: return (int)tc::launch<320, 160>(q, k, v, o, B, Hq, Hkv, Tq, S,
-                                               dh, causal, window, scale, s);
-    case 384: return (int)tc::launch<384, 192>(q, k, v, o, B, Hq, Hkv, Tq, S,
-                                               dh, causal, window, scale, s);
-    case 448: return (int)tc::launch<448, 224>(q, k, v, o, B, Hq, Hkv, Tq, S,
-                                               dh, causal, window, scale, s);
-    case 512: return (int)tc::launch<512, 256>(q, k, v, o, B, Hq, Hkv, Tq, S,
-                                               dh, causal, window, scale, s);
+    case 32: return (int)launch_route<32>(dtype, q, k, v, scratch, o, B, Hq,
+                                          Hkv, Tq, S, dh, causal, window,
+                                          scale, s);
+    case 64: return (int)launch_route<64>(dtype, q, k, v, scratch, o, B, Hq,
+                                          Hkv, Tq, S, dh, causal, window,
+                                          scale, s);
+    case 96: return (int)launch_route<96>(dtype, q, k, v, scratch, o, B, Hq,
+                                          Hkv, Tq, S, dh, causal, window,
+                                          scale, s);
+    case 128: return (int)launch_route<128>(dtype, q, k, v, scratch, o, B,
+                                            Hq, Hkv, Tq, S, dh, causal,
+                                            window, scale, s);
+    case 256: return (int)launch_route<256>(dtype, q, k, v, scratch, o, B,
+                                            Hq, Hkv, Tq, S, dh, causal,
+                                            window, scale, s);
+    case 320: return (int)launch_halves<320>(dtype, q, k, v, scratch, o, B,
+                                             Hq, Hkv, Tq, S, dh, causal,
+                                             window, scale, s);
+    case 384: return (int)launch_halves<384>(dtype, q, k, v, scratch, o, B,
+                                             Hq, Hkv, Tq, S, dh, causal,
+                                             window, scale, s);
+    case 448: return (int)launch_halves<448>(dtype, q, k, v, scratch, o, B,
+                                             Hq, Hkv, Tq, S, dh, causal,
+                                             window, scale, s);
+    case 512: return (int)launch_halves<512>(dtype, q, k, v, scratch, o, B,
+                                             Hq, Hkv, Tq, S, dh, causal,
+                                             window, scale, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the tensor-core kernels (ed_argmin.cu,
 // flash_attention.cu) and the refinement loop (refine.cu): shared-memory
-// barriers (mbarrier), TMA tile loads and 1-D bulk copies,
-// wgmma descriptors and instructions, warpgroup register hand-over, and the
-// host-side encoding of TMA tensor maps.  sm_90a only.
+// barriers (mbarrier), TMA tile loads and 1-D bulk copies, the loads and
+// swizzled stores of rows TMA cannot take, wgmma descriptors and
+// instructions, warpgroup register hand-over, and the host-side encoding
+// of TMA tensor maps.  sm_90a only.
 //
 // Layout conventions.  A tile that TMA writes with a 128- or 64-byte
 // swizzle is a stack of rows of `span` bytes (128 or 64), with the 16-byte
@@ -105,6 +106,131 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ------------------------------------------------------------- cp.async
+// Copy kBytes (4, 8 or 16) from global to shared memory, asynchronously:
+// `bytes` of them read from src, the rest zeros (0: all zeros, src unread
+// but a valid address).  Both addresses kBytes-aligned.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         uint32_t bytes) {
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+                 :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;"
+                 :: "r"(dst), "l"(src), "n"(kBytes), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's committed groups run.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
+}
+
+// ------------------------------------------- loads for rows TMA cannot take
+// The 16 bytes at src (2-byte aligned at least) as four words, by the
+// widest loads its alignment allows (one 16-byte load where src is
+// 16-byte aligned; else 8-, 4- or 2-byte ones), the bytes from `valid` on
+// zeros (valid <= 0: no load at all; valid a multiple of 2).  A load
+// reads only pieces that start before `valid`, each inside the aligned
+// 16-byte block that holds its first byte, so no read strays past the
+// block of the last valid byte.
+__device__ __forceinline__ uint4 load16(const uint8_t* src, int valid) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (valid <= 0) return make_uint4(0u, 0u, 0u, 0u);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  if ((a & 15) == 0) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(src));
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if ((a & 7) == 0) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+      if (8 * p < valid) {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(src + 8 * p));
+        w[2 * p] = v.x;
+        w[2 * p + 1] = v.y;
+      }
+  } else if ((a & 3) == 0) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+      if (4 * p < valid)
+        w[p] = __ldg(reinterpret_cast<const uint32_t*>(src + 4 * p));
+  } else {
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+      if (2 * p < valid)
+        w[p / 2] |= (uint32_t)__ldg(reinterpret_cast<const unsigned short*>(
+                        src + 2 * p)) << (16 * (p % 2));
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (4 * k >= valid) w[k] = 0u;
+    else if (4 * k + 2 == valid) w[k] &= 0xffffu;
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t dst, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};"
+               :: "r"(dst), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// The 16 bytes at src (2-byte aligned at least) to dst in shared memory
+// (16-byte aligned), the bytes from `valid` on zeros.  Where src is
+// 4-byte aligned, by cp.async of the widest pieces its alignment allows
+// (16, 8 or 4 bytes), each reading only the valid part of its piece (the
+// rest zero-filled; a piece with none reads nothing, from `safe`, any
+// valid address), so that all of a tile's bytes are in flight at once;
+// else by load16 and one st.shared.  Returns whether it stored
+// synchronously.
+__device__ __forceinline__ bool copy16(uint32_t dst, const uint8_t* src,
+                                       int valid, const void* safe) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  if (a & 3) {
+    st_shared_v4(dst, load16(src, valid));
+    return true;
+  }
+  auto piece = [&](int p, int w) {
+    const int n = valid - p;
+    return n <= 0 ? 0u : (uint32_t)(n < w ? n : w);
+  };
+  if ((a & 15) == 0) {
+    const uint32_t n = piece(0, 16);
+    cp_async<16>(dst, n ? src : safe, n);
+  } else if ((a & 7) == 0) {
+#pragma unroll
+    for (int p = 0; p < 16; p += 8) {
+      const uint32_t n = piece(p, 8);
+      cp_async<8>(dst + p, n ? src + p : safe, n);
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < 16; p += 4) {
+      const uint32_t n = piece(p, 4);
+      cp_async<4>(dst + p, n ? src + p : safe, n);
+    }
+  }
+  return false;
+}
+
+// One arrival on `bar` once every cp.async this thread issued before it
+// has landed; the barrier's count includes it (noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// The byte of offset `off` in a tile that TMA writes with the 128-byte
+// (mask 7) or 64-byte (mask 3) swizzle (the layout conventions above).
+__device__ __forceinline__ uint32_t swizzled(uint32_t off, uint32_t mask) {
+  return off ^ (((off >> 7) & mask) << 4);
 }
 
 // ----------------------------------------------------- warpgroup control
@@ -559,18 +685,21 @@ inline cudaError_t encode_tiled(EncodeTiled* fn) {
   return cudaSuccess;
 }
 
-// A TMA map over a dense row-major tensor of `rank` dimensions: `dims` and
+// A TMA map over a row-major tensor of `rank` dimensions: `dims` and
 // `box` innermost first, in elements; rows past the edge read as zeros.
+// Rows lie `ld` elements apart (0: dims[0], a dense tensor).
 inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
                             uint32_t elem_bytes, const void* base,
                             uint32_t rank, const cuuint64_t* dims,
-                            const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+                            const cuuint32_t* box, CUtensorMapSwizzle swizzle,
+                            cuuint64_t ld = 0) {
   EncodeTiled fn;
   cudaError_t err = encode_tiled(&fn);
   if (err != cudaSuccess) return err;
   cuuint64_t strides[4];
   cuuint64_t s = elem_bytes;
-  for (uint32_t i = 0; i + 1 < rank; ++i) strides[i] = (s *= dims[i]);
+  for (uint32_t i = 0; i + 1 < rank; ++i)
+    strides[i] = (s *= i == 0 && ld ? ld : dims[i]);
   const cuuint32_t steps[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims,
                         strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -4,9 +4,11 @@ On CUDA tensors `ed_argmin` launches the kernel of `csrc/ed_argmin.cu`,
 which streams the candidates at their stored width through the tensor
 cores (three TF32 products for float32 candidates, two for bfloat16 ones,
 which are exact in TF32) and never materializes the (Q, N) distance
-matrix; a row length that is not a multiple of 8 takes the kernel's
-general route (`route`), float32 FMAs; on CPU tensors it runs the plain
-version `ref.ed_argmin_ref`.  `launches` counts the kernel's launches.
+matrix.  Its producer loads the candidates by TMA where their rows are
+whole 16-byte pieces on an aligned base, else with cp.async into the
+same layout (`route`), for every L and alignment, without a copy of the
+candidates; on CPU tensors it runs the plain version `ref.ed_argmin_ref`.
+`launches` counts the kernel's launches, `by_route` those of each route.
 """
 
 from __future__ import annotations
@@ -18,38 +20,47 @@ import torch
 
 from . import _build
 from .ref import ed_argmin_ref
-from .refine import aligned
 
 launches = 0
 by_route: dict = {}                    # launches of each route
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ROUTES = ("tensor", "general")
+ROUTES = ("tensor", "staged")
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [
     ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_QUERY_GROUP = 256                     # queries per block of the kernel
+QUERY_GROUP = 256                      # queries per block of the kernel
+CHUNK = 32                             # columns a chunk of the kernel's ring
 
 
-def route(L: int) -> str:
-    """The kernel route for rows of length L: "tensor" (TMA loads, the
-    tensor cores) where L is a multiple of 8, so rows lie on 16-byte
-    boundaries; "general" (float32 FMAs, values one at a time) for any
-    other L.  The wrapper realigns a base that is not 16-byte aligned."""
-    return "tensor" if L % 8 == 0 else "general"
+def route(L: int, dtype: torch.dtype = torch.float32,
+          aligned: bool = True) -> str:
+    """The loader of the candidates, rows of length L in `dtype` on a base
+    16-byte aligned or not: "tensor" (TMA) where a row is whole 16-byte
+    pieces (L a multiple of 4 in float32, of 8 in bfloat16) and the base
+    aligned, so TMA can take it; "staged" (cp.async, into the same layout)
+    for any other.  Both run the same tensor-core products."""
+    elem = torch.finfo(dtype).bits // 8
+    return "tensor" if aligned and (L * elem) % 16 == 0 else "staged"
+
+
+def scratch_floats(Q: int, L: int) -> int:
+    """The kernel's scratch: q_hi and q_lo (Qpad, Lp) and |q|^2 (Qpad,),
+    Qpad = Q rounded up to QUERY_GROUP, Lp = L rounded up to CHUNK (zero
+    columns, so that the queries' TMA maps have 16-byte strides)."""
+    q_pad = -(-Q // QUERY_GROUP) * QUERY_GROUP
+    return 2 * q_pad * (-(-L // CHUNK) * CHUNK) + q_pad
 
 
 def ed_argmin(q: torch.Tensor, xs: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q: (Q, L) float32, xs: (N, L) float32 or bfloat16 -> ((Q,) float32
     min d^2, (Q,) int32 argmin), d^2 in matmul form, ties to the lowest
-    index; any Q (the tensor-core route's grid takes query groups in x,
-    the general route's in y, 65,535 groups of 32 a launch, so more
-    queries take more launches).
+    index; any Q and L (query groups on the grid's x), by `route(L,
+    xs.dtype, base aligned)`.
 
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if a launch fails.
     """
-    global launches
     if q.dim() != 2 or xs.dim() != 2 or q.shape[1] != xs.shape[1]:
         raise ValueError(f"need q (Q, L) and xs (N, L), got "
                          f"{tuple(q.shape)}, {tuple(xs.shape)}")
@@ -72,11 +83,22 @@ def ed_argmin(q: torch.Tensor, xs: torch.Tensor
         return ed_argmin_ref(q, xs)
     if q.device.type != "cuda":
         raise RuntimeError(f"no ed_argmin kernel for device {q.device}")
-    how = route(L)
-    q, xs = aligned(q), aligned(xs)
-    q_pad = -(-Q // _QUERY_GROUP) * _QUERY_GROUP
-    # q_hi, q_lo (q_pad, L) and |q|^2 (q_pad,), written by the kernel
-    scratch = torch.empty((2 * q_pad * L + q_pad,), dtype=torch.float32,
+    return launch(q, xs, route(L, xs.dtype, xs.data_ptr() % 16 == 0))
+
+
+def launch(q: torch.Tensor, xs: torch.Tensor, how: str
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on CUDA tensors q, xs that `ed_argmin` has checked, by
+    route `how`: "staged" takes any shape, "tensor" those that route()
+    gives it (ValueError for another).  Counts the launch."""
+    global launches
+    (Q, L), N = q.shape, xs.shape[0]
+    if how not in ROUTES or (
+            how == "tensor"
+            and route(L, xs.dtype, xs.data_ptr() % 16 == 0) != how):
+        raise ValueError(f"ed_argmin cannot take route {how!r} at L {L}, "
+                         f"{xs.dtype}, base {xs.data_ptr() % 16} mod 16")
+    scratch = torch.empty((scratch_floats(Q, L),), dtype=torch.float32,
                           device=q.device)
     keys = torch.empty((Q,), dtype=torch.int64, device=q.device)
     out_d = torch.empty((Q,), dtype=torch.float32, device=q.device)
@@ -85,7 +107,7 @@ def ed_argmin(q: torch.Tensor, xs: torch.Tensor
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), xs.data_ptr(), _DTYPES[xs.dtype],
                   scratch.data_ptr(), keys.data_ptr(), out_d.data_ptr(),
-                  out_i.data_ptr(), Q, N, L, _ROUTES.index(how),
+                  out_i.data_ptr(), Q, N, L, ROUTES.index(how),
                   torch.cuda.current_stream().cuda_stream)
     _build.check("ed_argmin", "ed_argmin", code)
     launches += 1

@@ -4,15 +4,17 @@ On CUDA tensors `flash_attention` launches a kernel of
 `csrc/flash_attention.cu`, which streams K/V tiles with an online
 softmax and never materializes the (T, S) scores, by the route `route`
 picks from the dtype and the head width: bfloat16 inputs go to the
-tensor cores (wgmma fed by TMA, P carried as two bf16 halves), float32
-inputs to float32 FMAs, each in instances of width 32, 64, 96, 128 and
-256 that take every narrower dh (padded with zeros in shared memory),
-and bfloat16 to dh 512 in instances whose blocks each compute one half
-of O's columns; a wider dh, or one whose rows are not whole 16-byte
-pieces, takes the "wide" route (float32 FMAs, no TMA).  On CPU tensors
-it runs the plain version `ref.flash_attention_ref`.  `launches` counts
-the kernels' launches, `by_route` those of each route.  There is no
-gradient: repro's kernel has none.
+tensor cores (wgmma, P carried as two bf16 halves), float32 inputs to
+float32 FMAs, each in instances of width 32, 64, 96, 128 and 256 that
+take every narrower dh (padded with zeros in shared memory), and to dh
+512 in instances whose blocks each compute one half of O's columns.  A
+bfloat16 instance reads its tiles by TMA, from q, k and v where a row is
+whole 16-byte pieces ("tc<w>"), else from copies whose rows a first
+kernel pads to them ("staged<w>"); only a dh past 512 takes the "wide"
+route (float32 FMAs, no TMA).  On CPU tensors it runs the plain version
+`ref.flash_attention_ref`.  `launches` counts the kernels' launches,
+`by_route` those of each route.  There is no gradient: repro's kernel
+has none.
 """
 
 from __future__ import annotations
@@ -29,37 +31,50 @@ by_route: dict = {}                    # launches of each route
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 INSTANCES = (32, 64, 96, 128, 256)     # the widths of the padded instances
-# bfloat16 past 256 (wgmma's N is at most 256): instances whose blocks each
-# compute one half of O's columns
+# past 256 (wgmma's N is at most 256, and float32 tiles pass shared
+# memory): instances whose blocks each compute one half of O's columns
 HALVES = (320, 384, 448, 512)
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float,
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                             ctypes.c_void_p])
-ROWS = {"tc": 128, "simt": 64, "wide": 16}   # query rows a block, by route
+# query rows a block, by route kind: "tc" and "staged" (TMA over padded
+# copies) on the tensor cores, "simt" on the FMAs, "wide"
+ROWS = {"tc": 128, "staged": 128, "simt": 64, "wide": 16}
 MAX_QBLOCKS = 65535                          # the grid's y dimension
 
 
 def route(dtype: torch.dtype, dh: int) -> str:
-    """The kernel route of head width dh: "tc<w>" (bfloat16, the tensor
-    cores) or "simt<w>" (float32 FMAs), w the narrowest instance of
-    INSTANCES (and for bfloat16 of HALVES) at least dh, where a row is
-    whole 16-byte pieces (a multiple of 8 bf16 or 4 f32 values: TMA's,
-    and the FMA route's float4 loads); "wide" for every other dh (any
-    width, either dtype, no TMA)."""
-    bf16 = dtype == torch.bfloat16
-    widths = INSTANCES + (HALVES if bf16 else ())
-    if dh > widths[-1] or dh % (8 if bf16 else 4):
+    """The kernel route of head width dh: w the narrowest instance of
+    INSTANCES + HALVES at least dh; for bfloat16 "tc<w>" (the tensor
+    cores fed by TMA) where a row is whole 16-byte pieces (dh a multiple
+    of 8), else "staged<w>" (the same instance, TMA reading copies whose
+    rows are padded to 16-byte pieces); for float32 "simt<w>" (FMAs;
+    16-byte loads where dh % 4 == 0); "wide" past 512 (either dtype, no
+    TMA)."""
+    widths = INSTANCES + HALVES
+    if dh > widths[-1]:
         return "wide"
     width = next(w for w in widths if w >= dh)
-    return f"{'tc' if bf16 else 'simt'}{width}"
+    if dtype != torch.bfloat16:
+        return f"simt{width}"
+    return f"{'tc' if dh % 8 == 0 else 'staged'}{width}"
+
+
+def _kind(name: str) -> str:
+    return name.rstrip("0123456789")
 
 
 def query_launches(T: int, name: str) -> int:
     """Launches of route `name` at T query rows: a block takes ROWS of
     them (by the route's kind), and a launch's grid at most MAX_QBLOCKS
     blocks in its y dimension, so a longer T takes more launches (the
-    last blocks, the heaviest under a causal mask, first)."""
-    blocks = -(-T // ROWS[name.rstrip("0123456789")])
-    return -(-blocks // MAX_QBLOCKS)
+    last blocks, the heaviest under a causal mask, first); the float32
+    halves (simt past 256) put pairs of query blocks on the grid's x,
+    one launch for any T; a staged route launches its padding first."""
+    kind = _kind(name)
+    if kind == "simt" and int(name[4:]) > INSTANCES[-1]:
+        return 1
+    blocks = -(-T // ROWS[kind])
+    return -(-blocks // MAX_QBLOCKS) + (kind == "staged")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -73,7 +88,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if a launch fails.
     """
-    global launches
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"need q (B, Hq, T, dh) and k, v (B, Hkv, S, dh), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -103,17 +117,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise RuntimeError(f"no flash_attention kernel for device "
                            f"{q.device}")
-    name = route(q.dtype, dh)
+    return launch(q, k, v, route(q.dtype, dh), causal=causal,
+                  window=window)
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
+           *, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """The kernel of route `name` on CUDA tensors that `flash_attention`
+    has checked: the route(q.dtype, dh) gives, or another that takes the
+    shape (a "staged<w>" for the "tc<w>" of the same width, to hold the
+    padded copies to the tensors themselves; ValueError for one that does
+    not).  Counts the launches."""
+    global launches
+    B, Hq, T, dh = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    kind, want = _kind(name), route(q.dtype, dh)
+    ok = name == want or (kind == "staged" and want == f"tc{name[6:]}")
+    if not ok:
+        raise ValueError(f"flash_attention cannot take route {name!r} at "
+                         f"dh {dh}, {q.dtype} (its route: {want!r})")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the flash_attention kernels read 16-byte pieces "
                          "(by TMA for bfloat16): q, k, v must be 16-byte "
                          "aligned")
     out = torch.empty_like(q)
+    scratch = None
+    if kind == "staged":
+        # rows padded to whole 16-byte pieces, which TMA takes
+        scratch = torch.empty(((B * Hq * T + 2 * B * Hkv * S)
+                               * -(-dh // 8) * 8,), dtype=q.dtype,
+                              device=q.device)
     fn = _build.entry("flash_attention", "flash_attention", _ARGTYPES)
-    width = 0 if name == "wide" else int(name[2:] if name[:2] == "tc"
-                                         else name[4:])
+    width = 0 if kind == "wide" else int(name[len(kind):])
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr() if scratch is not None else None,
                   _DTYPES[q.dtype], B, Hq, Hkv, T, S, dh, width, int(causal),
                   int(window), dh ** -0.5,
                   torch.cuda.current_stream().cuda_stream)

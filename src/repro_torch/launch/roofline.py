@@ -192,18 +192,16 @@ def search_work(order: torch.Tensor, rounds: torch.Tensor,
                       slots * leaf_bytes)
 
 
-def ed_argmin_work(nq: int, n: int, L: int, route: str = "tensor") -> Work:
-    """The exact 1-NN scan of nq queries over n float32 rows: the rows,
-    the queries and the (nq,) answers moved once.  The "tensor" route
-    computes each product as three TF32 products (3xTF32, the check's
-    accuracy), 6 nq n L operations at the tf32 rate; the "general" route
-    one float32 FMA a term, 2 nq n L flops."""
-    nbytes = n * L * 4 + nq * L * 4 + nq * 8
-    if route == "tensor":
-        return Work(nbytes, 6 * nq * n * L, TF32_FLOPS)
-    if route == "general":
-        return Work(nbytes, 2 * nq * n * L, F32_FLOPS)
-    raise ValueError(f"route must be 'tensor' or 'general', got {route!r}")
+def ed_argmin_work(nq: int, n: int, L: int, elem_bytes: int = 4) -> Work:
+    """The exact 1-NN scan of nq queries over n rows stored in float32
+    (elem_bytes 4) or bfloat16 (2): the rows, the queries and the (nq,)
+    answers moved once.  The products at the check's accuracy on the
+    tensor cores, every route's: three TF32 products a term for float32
+    rows (3xTF32), 6 nq n L operations at the tf32 rate, and two for
+    bfloat16 rows, which are exact in TF32, 4 nq n L."""
+    nbytes = n * L * elem_bytes + nq * L * 4 + nq * 8
+    products = 3 if elem_bytes == 4 else 2
+    return Work(nbytes, 2 * products * nq * n * L, TF32_FLOPS)
 
 
 # -------------------------------------------------------------- attention

@@ -186,19 +186,20 @@ def test_p_in_two_bf16_halves_holds_the_card_limit_with_gqa(causal, window):
 
 
 # ------------------------------------------- every head width repro takes
-@pytest.mark.parametrize("dh", [40, 80, 96, 256, 320])
+@pytest.mark.parametrize("dh", [40, 80, 96, 256, 320, 100, 36])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_every_head_width_matches_pallas(dh, bf16):
     """Head widths outside the kernel's old set (32, 64, 128): 96
     (Phi-3-mini), 256 (Gemma 7B), 40 and 80 (padded to the next instance
-    on the card) and 320 (the wide route), with GQA, against repro's
-    kernel in interpret mode at the tolerances above."""
+    on the card), 320 (O in halves), and 100 and 36 (bfloat16 rows of
+    200 and 72 bytes: the staged producer on the card), with GQA, against
+    repro's kernel in interpret mode at the tolerances above."""
     oj, ot = _both(_qkv(1, 4, 2, 128, dh, seed=dh), bf16=bf16)
     tol = 2e-2 if bf16 else 2e-5
     np.testing.assert_allclose(ot, oj, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("dh", [8, 40, 80, 96, 100, 136, 256])
+@pytest.mark.parametrize("dh", [8, 36, 40, 80, 96, 100, 136, 256])
 def test_zero_columns_change_nothing(dh):
     """The padded instances' premise: q, k, v padded with zero columns to
     the instance's width (scores still scaled by the real dh^-0.5) give
@@ -244,3 +245,51 @@ def test_many_heads_answer_on_the_cpu():
     want = ref.flash_attention_ref(q[:, :64], k[:, :64], v[:, :64])
     assert out.shape == q.shape and bool(torch.isfinite(out).all())
     assert torch.equal(out[:, :64], want)
+
+
+# ---------------------------------------------- the staged route's copies
+def _pad_rows(q, k, v, ld):
+    """csrc/flash_attention.cu pad_rows on (rows, dh) matrices q, k and v
+    (k and v of one shape), thread by thread: 16-byte pieces u of the
+    copies back to back (row R = u // P of q's rows, then k's, then v's;
+    columns 8 (u % P) .., P = ld / 8), each the values load16 reads
+    from its input's row (those before dh; zeros past it), written once
+    into one (rows_q + 2 rows_kv, ld) buffer.  Asserts no piece is
+    written twice and every piece is 16-byte aligned in the buffer."""
+    rows_q, dh = q.shape
+    rows_kv = k.shape[0]
+    per = ld // 8
+    out = np.full((rows_q + 2 * rows_kv, ld), np.nan, np.float32)
+    for u in range((rows_q + 2 * rows_kv) * per):
+        r, col = u // per, u % per * 8
+        src = (q[r] if r < rows_q else k[r - rows_q]
+               if r < rows_q + rows_kv else v[r - rows_q - rows_kv])
+        assert ((r * ld + col) * 2) % 16 == 0
+        assert np.isnan(out[r, col:col + 8]).all(), "a piece written twice"
+        valid = max(min((dh - col) * 2, 16), 0)
+        piece = np.zeros(8, np.float32)
+        piece[:valid // 2] = src[col:col + valid // 2]
+        out[r, col:col + 8] = piece
+    return out
+
+
+@pytest.mark.parametrize("dh", [1, 30, 36, 90, 100, 101, 102, 250, 300,
+                                 445, 509])
+def test_padded_copies_hold_every_row_whole(dh):
+    """The staged route (bfloat16 rows that are not whole 16-byte pieces)
+    copies q, k and v into rows of ld = dh rounded up to 8 values, whole
+    16-byte pieces that TMA takes, back to back in one buffer: every
+    value at its row and column, the pad zeros, each piece written once; the maps over the copies (dh
+    wide, rows ld apart) then read what maps over the tensors would, and
+    the head strides (T ld, S ld values) are multiples of 16 bytes at any
+    T and S."""
+    ld = -(-dh // 8) * 8
+    assert (ld * 2) % 16 == 0 and ld - dh < 8
+    rng = np.random.default_rng(dh)
+    q = rng.standard_normal((37, dh)).astype(np.float32)
+    k, v = rng.standard_normal((2, 11, dh)).astype(np.float32)
+    out = _pad_rows(q, k, v, ld)
+    np.testing.assert_array_equal(out[:, :dh], np.concatenate([q, k, v]))
+    assert not out[:, dh:].any()
+    for rows_n in (1, 999, 1024):
+        assert (rows_n * ld * 2) % 16 == 0

@@ -120,9 +120,13 @@ TABLE = [
      0.004524169552238806, "bytes"),
     ("ed_argmin", rl.ed_argmin_work(256, 1 << 24, 256),
      13.327413670012122, "operations"),
-    ("ed_argmin/general", rl.ed_argmin_work(256, (1 << 20) + 5, 100,
-                                            "general"),
-     0.8013036895522389, "operations"),
+    ("ed_argmin/tensor_L100", rl.ed_argmin_work(256, (1 << 20) + 5, 100),
+     0.32537786181818185, "operations"),
+    ("ed_argmin/staged_L100_bf16", rl.ed_argmin_work(256, (1 << 20) + 5,
+                                                     100, 2),
+     0.21691857454545455, "operations"),
+    ("ed_argmin/staged_L235", rl.ed_argmin_work(256, (1 << 20) + 5, 235),
+     0.7646379752727273, "operations"),
     ("flash_attention", rl.flash_attention_work(1, 32, 8, 4096, 4096, 128),
      0.13900152467542973, "operations"),
     ("leaf_stats", rl.leaf_stats_work(1 << 24, 16, 64),

@@ -43,7 +43,8 @@ def test_every_length_and_segment_count_has_a_route(L, w):
     for dtype in DTYPES:
         assert isax_summarize.route(L, w, dtype) in ("lanes", "strided")
     assert lb_distance.route(w) in ("tiled", "looped")
-    assert ed_argmin.route(L) in ("tensor", "general")
+    for dtype, aligned in itertools.product(DTYPES, (True, False)):
+        assert ed_argmin.route(L, dtype, aligned) in ed_argmin.ROUTES
 
 
 @pytest.mark.parametrize("k", [1, 10, 4290, 5000, 14500, 20000])
@@ -101,7 +102,25 @@ def test_the_faulting_shapes_take_the_other_routes():
     assert refine_search.route(256, 8, 64, 5000, f32) == "cta2"
     assert refine_search.route(256, 64, 256, 10, f32) == "cta1"
     assert refine_search.route(256, 8, 64, 20000, f32) == "general"
-    assert ed_argmin.route(100) == "general"
+    # rows TMA cannot take go to the staged loader, never to a plain version
+    assert ed_argmin.route(100) == "tensor"                   # 400 bytes
+    assert ed_argmin.route(100, bf16) == "staged"             # 200 bytes
+    assert ed_argmin.route(235) == "staged"                   # 940 bytes
+    assert ed_argmin.route(256, f32, aligned=False) == "staged"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_every_scan_length_takes_a_tensor_core_loader(dtype, aligned):
+    """ed_argmin at every L from 1 to 600: TMA where a row is whole
+    16-byte pieces on an aligned base, the staged cp.async loader
+    otherwise; both feed the same tensor-core products, and no length
+    falls to another route."""
+    elem = torch.finfo(dtype).bits // 8
+    for L in range(1, 601):
+        r = ed_argmin.route(L, dtype, aligned)
+        assert r in ed_argmin.ROUTES == ("tensor", "staged")
+        assert (r == "tensor") == (aligned and (L * elem) % 16 == 0)
 
 
 def test_refine_topk_ring_route_conditions():
@@ -278,23 +297,27 @@ def test_dtw_shapes_before_the_rings_keep_their_routes():
 
 
 def test_every_head_width_has_an_attention_route():
-    """Each dtype's route of every head width to 600: the narrowest
-    padded instance at least dh (to 256, and for bf16 the instances of
-    halved O to 512) where a row is whole 16-byte pieces (8 bf16 or 4 f32
-    values), else the wide route."""
-    for dh, (dtype, align, name, top) in itertools.product(
-            range(1, 601), ((torch.bfloat16, 8, "tc", 512),
-                            (torch.float32, 4, "simt", 256))):
+    """Each dtype's route of every head width to 640: the narrowest
+    instance at least dh (to 256, then the instances of halved O to
+    512), on the tensor cores for bfloat16 (by TMA, "tc", where a row is
+    whole 16-byte pieces, else by TMA over copies whose rows are padded
+    to them, "staged")
+    and on the FMAs for float32 ("simt"); the wide route only past 512."""
+    widths = flash_attention.INSTANCES + flash_attention.HALVES
+    for dh, dtype in itertools.product(range(1, 641),
+                                       (torch.bfloat16, torch.float32)):
         r = flash_attention.route(dtype, dh)
-        widths = flash_attention.INSTANCES + (
-            flash_attention.HALVES if name == "tc" else ())
-        if dh <= top and dh % align == 0:
-            width = int(r[len(name):])
-            assert r.startswith(name) and width in widths
-            assert width >= dh
-            assert all(w < dh for w in widths if w < width)
-        else:
+        if dh > 512:
             assert r == "wide"
+            continue
+        if dtype == torch.bfloat16:
+            name = "tc" if dh % 8 == 0 else "staged"
+        else:
+            name = "simt"
+        width = int(r[len(name):])
+        assert r.startswith(name) and width in widths
+        assert width >= dh
+        assert all(w < dh for w in widths if w < width)
 
 
 def test_the_attention_shapes_before_keep_their_routes():
@@ -306,13 +329,15 @@ def test_the_attention_shapes_before_keep_their_routes():
     assert flash_attention.route(bf16, 256) == "tc256"
     assert flash_attention.route(bf16, 40) == "tc64"
     assert flash_attention.route(bf16, 80) == "tc96"
-    assert flash_attention.route(bf16, 100) == "wide"     # 200-byte rows
+    assert flash_attention.route(bf16, 100) == "staged128"   # 200-byte rows
+    assert flash_attention.route(bf16, 36) == "staged64"     # 72-byte rows
     assert flash_attention.route(f32, 100) == "simt128"
     assert flash_attention.route(bf16, 320) == "tc320"    # O in halves
     assert flash_attention.route(bf16, 264) == "tc320"
     assert flash_attention.route(bf16, 512) == "tc512"
     assert flash_attention.route(bf16, 520) == "wide"
-    assert flash_attention.route(f32, 320) == "wide"
+    assert flash_attention.route(f32, 320) == "simt320"   # O in halves
+    assert flash_attention.route(f32, 257) == "simt320"
 
 
 @pytest.mark.parametrize("name,rows", [("tc128", 128), ("tc512", 128),
@@ -329,3 +354,26 @@ def test_attention_takes_any_number_of_query_rows(name, rows):
     assert flash_attention.query_launches(top, name) == 1
     assert flash_attention.query_launches(top + 1, name) == 2
     assert flash_attention.query_launches(2 * top + 1, name) == 3
+
+
+def test_a_staged_route_pads_once_then_launches_as_its_twin():
+    """The staged routes (bf16 rows not whole 16-byte pieces) launch the
+    padding kernel once, then the tensor-core instance as the TMA route
+    of the same width does: 65,535 blocks of 128 query rows a launch."""
+    top = flash_attention.MAX_QBLOCKS * flash_attention.ROWS["staged"]
+    assert flash_attention.ROWS["staged"] == flash_attention.ROWS["tc"]
+    for T in (1, 4096, top, top + 1, 2 * top + 1):
+        assert flash_attention.query_launches(T, "staged128") == \
+            flash_attention.query_launches(T, "tc128") + 1
+
+
+@pytest.mark.parametrize("name", ["simt320", "simt384", "simt448",
+                                  "simt512"])
+def test_float32_halves_take_any_t_in_one_launch(name):
+    """The float32 instances past 256 put (head, half of O, pair of query
+    blocks) on the grid's x, which takes 2^31 - 1 blocks: one launch at
+    any T, where the other routes' grid y takes 65,535 query blocks."""
+    top = flash_attention.MAX_QBLOCKS * flash_attention.ROWS["simt"]
+    for T in (1, 4096, top, top + 1, 4 * top + 1):
+        assert flash_attention.query_launches(T, name) == 1
+    assert flash_attention.query_launches(top + 1, "simt256") == 2
