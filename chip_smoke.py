@@ -10,6 +10,9 @@ Phases, each printing one JSON line:
   device     nvidia-smi's name and power limit, torch's device name;
   build      nvcc builds of the seven kernel sources under
              src/repro_torch/kernels/csrc;
+  ptxas      the registers, spills and wgmma warnings ptxas reports for
+             the attention instances at dh 256 (tc256 in bf16, tf256 in
+             TF32), each required to spill nothing;
   kernel     each CUDA kernel against its plain PyTorch version on the card,
              at its path's shapes, with its time, the plain version's time,
              a PyTorch library call's time where one computes the same
@@ -67,7 +70,7 @@ Phases, each printing one JSON line:
              at its shape, the staged loader bit-equal to TMA at L 256
              and L 100 and held at odd rows and bases; flash_attention's
              routes beside granite's (ATTN_ROWS: tc96, tc256, tc320,
-             tc512, simt96, simt256, staged128 at dh 100 beside its TMA
+             tc512, simt96, tf256, staged128 at dh 100 beside its TMA
              twin tc128 at dh 104 (T 1024, and on granite's heads at T
              4096), simt320, wide at dh 576, each by
              device time with SDPA's time and excess beside it); one
@@ -199,9 +202,9 @@ Phases, each printing one JSON line:
              against the plain version; then at each other route's shape
              (ATTN_ROWS: Phi-3-mini's dh 96 and Gemma 7B's dh 256 on the
              tensor cores, dh 320 and 512 with O in halves, float32 at dh
-             96, 256 and 320 (halves), the staged route at dh 100 and its
-             TMA twin at 104, the wide route at 576), its launches its
-             table row's.
+             96 (FMAs), 256 (TF32) and 320 (halves), the staged route at
+             dh 100 and its TMA twin at 104, the wide route at 576), its
+             launches its table row's.
 refine_search is held under the (1 + eps) stop (inv_eps 1 / 1.25^2) on
 every route too: cta3 in the kernel phase, cta2, cta1 and general in the
 route phase.
@@ -229,6 +232,7 @@ import argparse
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -291,6 +295,55 @@ def device_ms(torch, fn, reps: int = 40) -> float:
 def require(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+# the attention instances whose registers and spills the ptxas phase
+# prints, by a piece of their mangled names: bf16 dh 256 on 64-key tiles,
+# and float32 dh 129-256 in TF32
+ATTN_PTXAS = {"tc256": "flash_tc_kernelILi256ELi256E",
+              "tf256": "flash_tf_kernel"}
+
+
+def ptxas_entries(log: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads",
+    "warnings"}} from nvcc's -Xptxas -v output (registers: the count
+    ptxas reports at the kernel's entry, before any setmaxnreg)."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {"warnings": []})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    for ln in log.splitlines():
+        if "wgmma" in ln:
+            for name, e in out.items():
+                if name in ln:
+                    e["warnings"].append(ln.strip())
+    return out
+
+
+def attention_ptxas(log: str) -> dict:
+    """The ATTN_PTXAS instances' registers, spills and wgmma warnings in
+    flash_attention.cu's build log; each must spill nothing."""
+    entries = ptxas_entries(log)
+    out = {}
+    for route, piece in ATTN_PTXAS.items():
+        found = [v for k, v in entries.items() if piece in k]
+        require(len(found) == 1, f"ptxas: no single {route} kernel in the "
+                f"build log ({sorted(entries)})")
+        out[route] = found[0]
+        require(found[0].get("spill_stores") == 0
+                and found[0].get("spill_loads") == 0,
+                f"ptxas: {route} spills: {found[0]}")
+    return out
 
 
 # ----------------------------------------------------------------- kernels
@@ -1137,17 +1190,20 @@ def check_flash(torch, fk, ref, gen, edge_gen):
     window 200, the empty rows, and dh 64 and 32 with GQA.  SDPA's own
     excess under that limit at the granite shape is recorded, not held.
     Then every head width repro answers beyond the old set, at T 1024
-    with GQA: in both dtypes dh 96 and 256 (their own instances), 40 and
-    80 (padded to the next instance), 320 (O in two halves of columns),
-    100 and 36 (bf16: the staged route; f32: padded), 101 (odd: bf16 rows
-    read by 2-byte loads, f32 by values), 300 (bf16 staged halves); in
-    bf16 102, 264 and 512 (halves), 445 and 510 (staged halves) and 520
-    (the wide route), and dh 100 at T 999; in f32 257, 301 and 512
-    (halves); the staged route at its edges (the ragged T = S = 1000 with
-    window 200 and the empty rows, at dh 100 and 101, and the f32 halves
-    there at dh 320 and 301); and B * Hq 65,600 at T 64, dh 64 (past the
-    grid's old y dimension).  Last, the staged route bit-equal to TMA on
-    the same inputs at dh 104 and 320 (bf16)."""
+    with GQA: in both dtypes dh 96 and 256 (their own instances; f32 256
+    the TF32 route), 40 and 80 (padded to the next instance), 320 (O in
+    two halves of columns), 100 and 36 (bf16: the staged route; f32:
+    padded), 101 (odd: bf16 rows read by 2-byte loads, f32 by values), 300
+    (bf16 staged halves); in bf16 102, 264 and 512 (halves), 445 and 510
+    (staged halves) and 520 (the wide route), and dh 100 at T 999; in f32
+    160, 200 and 255 (the TF32 route at rows that are not whole 16-byte
+    pieces or not 32-column chunks: K's copy padded, V^T's rows cut), 257,
+    301 and 512 (halves); the staged route at its edges (the ragged T = S
+    = 1000 with window 200 and the empty rows, at dh 100 and 101, the
+    TF32 route there at dh 256, and the f32 halves at dh 320 and 301); and
+    B * Hq 65,600 at T 64, dh 64 (past the grid's old y dimension).  Last,
+    the staged route bit-equal to TMA on the same inputs at dh 104 and
+    320 (bf16)."""
     g = GRANITE
     bf16 = torch.bfloat16
     f32 = dict(B=1, Hq=8, Hkv=2, T=1024, dh=128, dtype=torch.float32)
@@ -1180,6 +1236,8 @@ def check_flash(torch, fk, ref, gen, edge_gen):
                        (100, both), (520, (bf16,)), (36, both),
                        (101, both), (102, (bf16,)), (300, both),
                        (445, (bf16,)), (510, (bf16,)),
+                       (160, (torch.float32,)), (200, (torch.float32,)),
+                       (255, (torch.float32,)),
                        (257, (torch.float32,)), (301, (torch.float32,))):
         for dtype in dtypes:
             name = f"{'bf16' if dtype == bf16 else 'f32'}_1024_dh{dh}"
@@ -1187,8 +1245,8 @@ def check_flash(torch, fk, ref, gen, edge_gen):
                        edge_gen),)
     cases += (("bf16_999_dh100", dict(f32, T=999, dh=100, dtype=bf16), True,
                0, edge_gen),)
-    for dh, dtype in ((100, bf16), (101, bf16), (320, torch.float32),
-                      (301, torch.float32)):
+    for dh, dtype in ((100, bf16), (101, bf16), (256, torch.float32),
+                      (320, torch.float32), (301, torch.float32)):
         tag = f"{'bf16' if dtype == bf16 else 'f32'}_dh{dh}"
         cases += ((f"{tag}_1000_window200",
                    dict(f32, T=1000, dh=dh, dtype=dtype), True, 200,
@@ -1236,7 +1294,8 @@ def check_flash(torch, fk, ref, gen, edge_gen):
 
 # the timed attention rows of the routes beside granite's: Phi-3-mini's
 # widths (dh 96: hidden 3072 over 32 heads), Gemma 7B's (dh 256), dh 320
-# and 512 (O in two halves), float32 at 96 and 256, the staged route
+# and 512 (O in two halves), float32 at 96 (FMAs) and 256 (the tensor
+# cores in TF32), the staged route
 # (bf16 rows of 200 bytes) beside its TMA twin at dh 104, at T 1024 and
 # on granite-8b's heads (Hq 32, Hkv 8, T 4096), where the padded copy's
 # share is that of a model, float32 halves at dh 320, and the wide route
@@ -1250,7 +1309,7 @@ ATTN_ROWS = (("tc96", dict(B=1, Hq=32, Hkv=32, T=4096, dh=96), "bfloat16",
              ("tc320", dict(_T1024, dh=320), "bfloat16", None),
              ("tc512", dict(_T1024, dh=512), "bfloat16", None),
              ("simt96", dict(_T1024, dh=96), "float32", None),
-             ("simt256", dict(_T1024, dh=256), "float32", None),
+             ("tf256", dict(_T1024, dh=256), "float32", None),
              ("staged128", dict(_T1024, dh=100), "bfloat16", None),
              ("tc128_dh104", dict(_T1024, dh=104), "bfloat16", None),
              ("staged128_T4096", dict(_T4096, dh=100), "bfloat16", None),
@@ -4672,6 +4731,9 @@ def main() -> int:
           "ptxas": {k: [ln.strip() for ln in v["ptxas"].splitlines()
                         if "Used" in ln or "spill" in ln]
                     for k, v in rep.items()}})
+    if rep["flash_attention"]["ptxas"]:        # built here, not cached
+        emit({"phase": "ptxas", "attention": attention_ptxas(
+            rep["flash_attention"]["ptxas"])})
 
     gen = torch.Generator(device=DEV).manual_seed(args.seed)
     # the edge cases draw from their own generator, so that the main phase

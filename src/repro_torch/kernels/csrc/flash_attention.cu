@@ -8,18 +8,19 @@
 // Replaces the Pallas kernel `_flash_kernel` of
 // src/repro/kernels/flash_attention.py (wrapper `flash_attention`).
 //
-// Routes, by dtype and head width: bfloat16 takes the tensor cores and
-// float32 the FMAs, each in instances of width 32, 64, 96, 128 and 256 that
-// take every narrower dh (padded with zeros in shared memory), and past
-// 256, to 512, in instances of width 320, 384, 448 and 512 whose blocks
-// each compute one half of O's columns (wgmma's N is at most 256; the
-// float32 tiles would pass shared memory), the scores for both.  A
-// bfloat16 row that is not whole 16-byte pieces (dh % 8 != 0), which
-// TMA cannot stride over, takes the staged route: `pad_rows` first copies
-// q, k and v into rows padded to 16-byte pieces, and TMA reads the
-// copies.  Only a dh past 512 takes the wide route.  The grid's x
-// dimension is the head b * Hq + h (any B Hq), its y dimension the query
-// block (the float32 halves: see simt::half_kernel).
+// Routes, by dtype and head width: bfloat16 takes the tensor cores in
+// instances of width 32, 64, 96, 128 and 256 that take every narrower dh
+// (padded with zeros in shared memory), and past 256, to 512, in
+// instances of width 320, 384, 448 and 512 whose blocks each compute one
+// half of O's columns (wgmma's N is at most 256), the scores for both.  A
+// bfloat16 row that is not whole 16-byte pieces (dh % 8 != 0), which TMA
+// cannot stride over, takes the staged route: `pad_rows` first copies q,
+// k and v into rows padded to 16-byte pieces, and TMA reads the copies.
+// float32 takes the FMAs to dh 128 (instances 32 to 128) and past 256
+// (halves, to 512), and the tensor cores from 129 to 256 (`tf256`, three
+// TF32 products a term).  Only a dh past 512 takes the wide route.  The
+// grid's x dimension is the head b * Hq + h (any B Hq), its y dimension
+// the query block (the float32 halves: see simt::half_kernel).
 //
 // Why a padded copy, for attention: a producer that wrote the tiles
 // itself (cp.async into the swizzled layout, or one bulk copy of the rows
@@ -45,34 +46,67 @@
 //   where the terms of an output cancel; P_hi + P_lo errs by ~2^-17.
 //   Design: a block owns 128 query rows of one head; warpgroups 0 and 1
 //   each own 64 of them, warpgroup 2 is the producer, whose one thread
-//   keeps TMA loads of 128-key K and V tiles of the KV head h // G in a
-//   two-stage ring in shared memory (mbarriers for full and empty).  Per
-//   round a consumer warpgroup issues S_i = Q.K_i^T as wgmma from shared
-//   memory (f32 accumulators) and then O += P_hi.V + P_lo.V of the last
-//   round as wgmma with P from registers and V from shared memory (V's
-//   rows are the k of that product: the MN-major form).  It runs the
-//   mask, max, exp and sum of S_i's online softmax while that P.V is
-//   still on the tensor cores (the exponentials as single SFU
-//   instructions), and only then rescales O by exp2(m_old - m_new) and
-//   splits the new P.  The two warpgroups take
+//   keeps TMA loads of K and V tiles of the KV head h // G in a two-stage
+//   ring in shared memory (mbarriers for full and empty).  Per round a
+//   consumer warpgroup issues S_i = Q.K_i^T as wgmma from shared memory
+//   (f32 accumulators) and then O += P_hi.V + P_lo.V of the last round as
+//   wgmma with P from registers and V from shared memory (V's rows are the
+//   k of that product: the MN-major form).  It runs the mask, max, exp
+//   and sum of S_i's online softmax while that P.V is still on the tensor
+//   cores (the exponentials as single SFU instructions), and only then
+//   rescales O and splits the new P.  On tiles of 64 keys or fewer O and l
+//   share a stale row max, which moves only where a tile's max passes it
+//   by more than 8 (log2 units): P <= 2^8, exact in real arithmetic, and
+//   most tiles after the first skip the rescale of O (`online::Rows`; on
+//   the H100 7 % off dh 320 and 512, where at 128-key tiles the vote and
+//   branch it takes cost more than they save).  The two warpgroups take
 //   turns to issue (named barriers), so that one's softmax overlaps the
-//   other's products.  Keys past S score -inf, masked keys -1e30, as in
-//   the plain version; the mask is applied only to tiles that cross an
-//   edge.  Tiles outside every row's visible range are skipped unless a
-//   row of the block sees no key; blocks start with the last query
-//   blocks, which have the most causal work.  The producer warpgroup
-//   gives its registers to the consumers (setmaxnreg).
+//   other's products.
+//   Keys past S score -inf, masked keys -1e30, as in the plain version;
+//   the mask is applied only to tiles that cross an edge.  Tiles outside
+//   every row's visible range are skipped unless a row of the block sees
+//   no key; blocks start with the last query blocks, which have the most
+//   causal work.  The producer warpgroup gives its registers to the
+//   consumers (setmaxnreg).  Key tiles: 128 keys to dh 128, 64 at 256
+//   (Gemma 7B's width: 2 stages of 64-key K and V tiles beside Q take 192
+//   KB, and a 64 x 256 f32 O tile 128 registers a thread beside S's and
+//   P's 64), 32 for the halves past 256.
 //
-// * float32: `simt::flash_kernel`, float32 FMAs outside the tensor cores.
-//   The check holds it at 2e-5, which neither bf16 operands nor a single
-//   tf32 product reach.  A block of 256 threads owns 64 query rows of one
-//   head and streams 64-key tiles of K and V through shared memory with
-//   the same online softmax: Q and K tiles transposed so that each thread
-//   reads float4 columns for its 4 x 4 block of scores, the 16 threads of
-//   a row group meeting by shuffles for the row max and sum, P through
-//   shared memory (transposed) into the P.V product, where a thread owns
-//   4 rows x dh/16 columns of O.  Its floor at the shape above would be
-//   2.05 ms (the same 1.37e11 flops at 67 TFLOP/s).
+// * float32 from dh 129 to 256: `tf::flash_tf_kernel`, on the tensor
+//   cores in TF32.  The check holds it at 2e-5, which a single tf32
+//   product (10 mantissa bits, ~2^-11 a term) misses; three keep float32's
+//   accuracy (3xTF32, as ed_argmin.cu): with x = x_hi + x_lo, x_hi =
+//   tf32(x), a.b = a_hi.b_hi + a_hi.b_lo + a_lo.b_hi up to ~2^-21
+//   relative, for S = Q.K^T and for O += P.V.  Bound: operations, 12 dh
+//   flops a pair at the 495 TFLOP/s tf32 peak; at B 1, Hq 8, Hkv 2, T =
+//   S = 1024, dh 256, causal, 0.026 ms (as float32 FMAs the same products
+//   at 4 dh flops a pair would take 0.064 ms at 67 TFLOP/s).  TF32 wgmma
+//   reads shared-memory operands K-major only, and V is MN-major for P.V,
+//   so a first small kernel (`split_kv`) writes K_hi, K_lo (keys x dh)
+//   and V^T_hi, V^T_lo (dh x keys) into scratch, rows of whole 16-byte
+//   pieces for TMA; it permutes the keys of V^T within each group of 8 so
+//   that the S accumulator's fragments are P's A fragments as they lie.
+//   Design: a block owns 64 query rows of one head; Q lives in shared
+//   memory (64 KB) and each consumer thread splits its A fragments from
+//   it in registers.  Warpgroups 0 and 1 take alternate key tiles of 64
+//   (split-K inside the block: half the rows a block of 128 would have,
+//   so the heaviest causal block's work halves), each with its own ring
+//   of 16 KB stages that one producer thread keeps filled by TMA: K by 32
+//   columns of dh (hi and lo), V^T by 16 keys (hi, then lo).  The same
+//   online softmax as the bfloat16 kernel's; at the end warpgroup 1
+//   hands its O, max and sum to warpgroup 0 through shared memory, which
+//   merges and writes the rows.
+//
+// * float32 to dh 128 and past 256: `simt::flash_kernel` and
+//   `simt::half_kernel`, float32 FMAs outside the tensor cores.  A block
+//   of 256 threads owns 64 query rows of one head and streams 64-key
+//   tiles of K and V through shared memory with the same online softmax:
+//   Q and K tiles transposed so that each thread reads float4 columns for
+//   its 4 x 4 block of scores, the 16 threads of a row group meeting by
+//   shuffles for the row max and sum, P through shared memory
+//   (transposed) into the P.V product, where a thread owns 4 rows x dh/16
+//   columns of O.  Bound: the float32 FMA rate; its products at granite's
+//   shape would take 2.05 ms (1.37e11 flops at 67 TFLOP/s).
 //
 // * dh past 512, either dtype: `wide::wide_kernel` (float32 FMAs, no TMA
 //   and no tiles in shared memory; see there).
@@ -565,31 +599,176 @@ cudaError_t launch_half(const void* q, const void* k, const void* v,
 
 }  // namespace simt
 
+// ------------------------------------------------------ online softmax
+// The online softmax of the tensor-core kernels (tc, tf), on a score tile
+// that a wgmma accumulator holds: a thread's two rows (row0, and row1 =
+// row0 + 8), s[4j + e] the score of row (e < 2 ? row0 : row1) and key k0 +
+// 8j + 2 t4 + (e & 1), t4 = lane % 4 (the quad of lanes that share a row).
+namespace online {
+
+constexpr float kNegInf = -1e30f;  // the mask value of repro and ref.py
+constexpr float kLog2e = 1.4426950408889634f;
+// A row's max moves only where a tile's passes it by more than this (log2
+// units): every P is then at most 2^8
+constexpr float kLazy = 8.f;
+
+// 2^x on the SFU in one instruction; a subnormal result is flushed to
+// zero (a weight below 2^-126 of the row's largest adds nothing to a
+// float32 sum).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A thread's two rows: the max m that O and l are scaled to, this
+// thread's share of l, and the factor that rescales O at the last tile.
+// O and l share a stale max: m moves only where a tile's max exceeds it by
+// more than kLazy, so that most tiles after the first leave O as it is;
+// in real arithmetic the result is the same for any m both carry.
+struct Rows {
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  float alpha0 = 1.f, alpha1 = 1.f;
+
+  // s (BN keys from k0) scaled into log2 units by scale_log2 and masked
+  // (keys past S -inf, masked keys -1e30, as the plain version; only on a
+  // tile that crosses S, the diagonal or the window's start for rows
+  // r_lo .. r_lo + 63), then p = exp2(x - m) left in s, alpha0 / alpha1
+  // (1 where m stayed) and l updated.  A tile that is not `live` leaves
+  // p = 0 and m, l as they were (by selects: a round a consumer runs only
+  // to keep its loop's count uniform).  Returns whether any row of the
+  // warp moved its max: only then must the caller rescale O by alpha.
+  template <int BN>
+  __device__ __forceinline__ bool tile(float (&s)[BN / 2], int k0, int r_lo,
+                                       int row0, int row1, int t4, int S,
+                                       int causal, int window,
+                                       float scale_log2, bool live = true,
+                                       float lazy = kLazy) {
+    const bool edge = k0 + BN > S || (causal && k0 + BN - 1 > r_lo) ||
+                      (window > 0 && k0 <= r_lo + 63 - window);
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e < 2 ? row0 : row1;
+          const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
+          float x = s[4 * j + e] * scale_log2;
+          if (kpos >= S) x = -INFINITY;
+          else if ((causal && r < kpos) || (window > 0 && kpos <= r - window))
+            x = kNegInf;
+          s[4 * j + e] = x;
+          if (e < 2) mx0 = fmaxf(mx0, x);
+          else mx1 = fmaxf(mx1, x);
+        }
+    } else {                   // scaled in the exponent's FMA below
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (e < 2) mx0 = fmaxf(mx0, s[4 * j + e]);
+          else mx1 = fmaxf(mx1, s[4 * j + e]);
+        }
+      mx0 *= scale_log2;
+      mx1 *= scale_log2;
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    // a tile's max is finite or -1e30 (every tile run holds a key < S),
+    // so the first live tile always moves m off -inf
+    const float mn0 = live && mx0 > m0 + lazy ? mx0 : m0;
+    const float mn1 = live && mx1 > m1 + lazy ? mx1 : m1;
+    const bool moved = __any_sync(0xffffffffu, mn0 != m0 || mn1 != m1);
+    alpha0 = mn0 == m0 ? 1.f : exp2_ftz(m0 - mn0);
+    alpha1 = mn1 == m1 ? 1.f : exp2_ftz(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    const float c = edge ? 1.f : scale_log2;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2_ftz(fmaf(s[4 * j + e], c, e < 2 ? -mn0 : -mn1));
+        s[4 * j + e] = live ? p : 0.f;
+        if (e < 2) sum0 += s[4 * j + e];
+        else sum1 += s[4 * j + e];
+      }
+    l0 = l0 * alpha0 + sum0;               // this thread's share of l
+    l1 = l1 * alpha1 + sum1;
+    return moved;
+  }
+
+  // O (64 x 2N accumulators, the same row layout) by alpha
+  template <int N>
+  __device__ __forceinline__ void rescale(float (&acc)[N]) const {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      acc[4 * j] *= alpha0;
+      acc[4 * j + 1] *= alpha0;
+      acc[4 * j + 2] *= alpha1;
+      acc[4 * j + 3] *= alpha1;
+    }
+  }
+
+  // l of each row: the four lanes of the quad meet
+  __device__ __forceinline__ void sum_quad() {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+  }
+};
+
+}  // namespace online
+
+// x, hidden from the compiler: a value computed from it inside a loop is
+// not hoisted out of the loop (as 64-bit descriptors that would each hold
+// two registers for the whole loop)
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  uint32_t y;
+  asm volatile("mov.b32 %0, %1;" : "=r"(y) : "r"(x));
+  return y;
+}
+
 namespace tc {
 
 using namespace sm90;
+using namespace online;
 
 constexpr int kBM = 128;           // query rows per block
 constexpr int kStages = 2;         // K/V tiles in flight
 constexpr int kThreads = 384;      // warpgroups 0, 1 consume, 2 loads
 constexpr int kConsumers = 256;
 constexpr int kTurn = 2;           // named barriers 2, 3: whose turn to issue
-constexpr float kNegInf = -1e30f;  // the mask value of repro and ref.py
-constexpr float kLog2e = 1.4426950408889634f;
 
 // The tiles of the instance (DK, DV): Q and K rows of DK bf16 values, V
 // and O rows of DV (DK, or half of it past 256: a block then computes one
 // half of O's columns, grid z, each half taking all of Q.K^T), in shared
 // memory as TMA writes them: column pieces of kSpan (Q, K) or kVSpan (V)
 // bytes a row (128, or 64 where the row is not a multiple of 128 bytes),
-// each (rows x span) and swizzled.  Key tiles of kBN rows: 128, or 32
-// past DK 128, where two stages of 128-key K and V tiles would pass the
-// block's shared memory and a 64 x 256 f32 O tile takes 128 registers a
-// thread beside S's and P's (at 64 keys ptxas spilled 124 bytes a thread
-// at DK 256; at 32, none).
+// each (rows x span) and swizzled.  Key tiles of kBN rows: 128 to DK
+// 128; past it two stages of 128-key K and V tiles would pass the block's
+// shared memory, and a 64 x 256 f32 O tile takes 128 registers a thread
+// beside S's and P's: 64 at DK 256 (Gemma 7B's width; 192 KB of tiles,
+// and the consumers take 240 registers, the producer 24), 32 for the
+// halves (Q alone takes up to 128 KB there).
 template <int DK, int DV = DK>
 struct Tile {
-  static constexpr int kBN = DK > 128 ? 32 : 128;
+  static constexpr int kBN = DK == 256 && DV == 256 ? 64
+                             : DK > 128              ? 32
+                                                     : 128;
+  static constexpr uint32_t kConsumerRegs = kBN == 64 ? 240 : 232;
+  static constexpr uint32_t kProducerRegs = kBN == 64 ? 24 : 40;
+  // the stale max (online::Rows) where a tile is 64 keys or fewer, whose
+  // rescale of O costs most a key; at 128 keys the vote and branch it
+  // takes cost more than the rescale they skip (measured on the H100)
+  static constexpr bool kLazy = kBN <= 64;
   static constexpr int kSpan = DK * 2 % 128 == 0 ? 128 : 64;
   static constexpr int kPieces = DK * 2 / kSpan;       // 2 for dh 128
   static constexpr int kPieceElems = kSpan / 2;
@@ -673,18 +852,14 @@ __device__ __forceinline__ void qk_mma<32>(float (&s)[16], uint64_t da,
   wgmma_m64n32k16_ss_bf16(s, da, db, accumulate);
 }
 template <>
+__device__ __forceinline__ void qk_mma<64>(float (&s)[32], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  wgmma_m64n64k16_ss_bf16(s, da, db, accumulate);
+}
+template <>
 __device__ __forceinline__ void qk_mma<128>(float (&s)[64], uint64_t da,
                                             uint64_t db, int accumulate) {
   wgmma_m64n128k16_ss_bf16(s, da, db, accumulate);
-}
-
-// 2^x on the SFU in one instruction; a subnormal result is flushed to
-// zero (a weight below 2^-126 of the row's largest adds nothing to a
-// float32 sum).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // (a, b) -> bf16x2 hi = rn(a, b) and lo = rn((a, b) - hi), a in the low half
@@ -753,7 +928,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   __syncthreads();
 
   if (threadIdx.x >= kConsumers) {                 // the producer
-    regs_dec<40>();
+    regs_dec<C::kProducerRegs>();
     if (threadIdx.x == kConsumers) {
       mbar_expect_tx(q_full, C::kQBytes);
       for (int p = 0; p < C::kPieces; ++p)
@@ -778,7 +953,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       }
     }
   } else {                                         // the consumers
-    regs_inc<232>();
+    regs_inc<C::kConsumerRegs>();
     const int wg = threadIdx.x / 128;
     const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
     const int g = lane / 4, t4 = lane % 4;
@@ -789,90 +964,34 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     float acc[DV / 2];
 #pragma unroll
     for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
-    float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+    Rows rows;
     mbar_wait(q_full, 0);
 
     // Round i issues S_i = Q.K_i^T and then P_{i-1}.V_{i-1} (P of the last
     // round's softmax), and runs the max, exp and sum of S_i's softmax
     // while that P.V is still on the tensor cores; only the rescale of O
-    // and the new P wait for it.  The two warpgroups take turns to issue
-    // (named barriers kTurn + wg, 256 threads each), so that one's softmax
-    // overlaps the other's products.  The first round has no P.V and the
-    // last no S: the loop is peeled so that no wgmma lies on a divergent
-    // path (which would serialize them).
+    // (where a row's max moved) and the new P wait for it.  The two
+    // warpgroups take turns to issue (named barriers kTurn + wg, 256
+    // threads each), so that one's softmax overlaps the other's products.
+    // The first round has no P.V and the last no S: the loop is peeled so
+    // that no wgmma lies on a divergent path (which would serialize them).
     uint32_t p_hi[kBN / 16][4], p_lo[kBN / 16][4];
     float s[kBN / 2];
-    float alpha0 = 1.f, alpha1 = 1.f;
+    bool moved = false;
     int stage = 0, pv_stage = 0;
     uint32_t phase = 0, pv_phase = 0;
     // s <- exp2(s * scale_log2 - m), masked, with m, l and alpha updated
+    // (m moving with every larger max where the tiles are 128 keys)
     auto exponentiate = [&](int tile) {
-      // s[4j + e]: row row0 (e < 2) or row1, key k0 + 8j + 2 t4 + (e & 1)
-      const int k0 = tile * kBN;
-      const bool edge = k0 + kBN > S || (causal && k0 + kBN - 1 > wr_lo) ||
-                        (window > 0 && k0 <= wr_lo + 63 - window);
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-      if (edge) {
-#pragma unroll
-        for (int j = 0; j < kBN / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = e < 2 ? row0 : row1;
-            const int kpos = k0 + 8 * j + 2 * t4 + (e & 1);
-            float x = s[4 * j + e] * scale_log2;
-            if (kpos >= S) x = -INFINITY;
-            else if ((causal && r < kpos) || (window > 0 && kpos <= r - window))
-              x = kNegInf;
-            s[4 * j + e] = x;
-            if (e < 2) mx0 = fmaxf(mx0, x);
-            else mx1 = fmaxf(mx1, x);
-          }
-      } else {                 // scaled in the exponent's FMA below
-#pragma unroll
-        for (int j = 0; j < kBN / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (e < 2) mx0 = fmaxf(mx0, s[4 * j + e]);
-            else mx1 = fmaxf(mx1, s[4 * j + e]);
-          }
-        mx0 *= scale_log2;
-        mx1 *= scale_log2;
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      alpha0 = exp2_ftz(m0 - mn0);
-      alpha1 = exp2_ftz(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      const float c = edge ? 1.f : scale_log2;
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p =
-              exp2_ftz(fmaf(s[4 * j + e], c, e < 2 ? -mn0 : -mn1));
-          s[4 * j + e] = p;
-          if (e < 2) sum0 += p;
-          else sum1 += p;
-        }
-      l0 = l0 * alpha0 + sum0;               // this thread's share of l
-      l1 = l1 * alpha1 + sum1;
+      moved = rows.tile<kBN>(s, tile * kBN, wr_lo, row0, row1, t4, S, causal,
+                             window, scale_log2, true,
+                             C::kLazy ? kLazy : 0.f);
     };
-    // O, which holds the rounds before this one at the old max, rescaled;
-    // then P as the A operand of k16 step kk: keys k0 + 16 kk + [0, 16)
+    // O, which holds the rounds before this one at the old max, rescaled
+    // (on narrow tiles only where a row's max moved); then P as the A
+    // operand of k16 step kk: keys k0 + 16 kk + [0, 16)
     auto rescale_and_split = [&]() {
-#pragma unroll
-      for (int j = 0; j < DV / 8; ++j) {
-        acc[4 * j] *= alpha0;
-        acc[4 * j + 1] *= alpha0;
-        acc[4 * j + 2] *= alpha1;
-        acc[4 * j + 3] *= alpha1;
-      }
+      if (moved || !C::kLazy) rows.rescale(acc);
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
 #pragma unroll
@@ -882,26 +1001,28 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     };
     auto issue_s = [&]() {
       const uint32_t k_base = smem_u32(k_s + stage * C::kKBytes);
+      // each step's descriptor is the base's plus its offset (>> 4); at
+      // 64-key tiles Q's base is opaque, or the 16 descriptors would stay
+      // live across the loop, where registers are short (elsewhere they
+      // may)
+      const uint64_t qd = make_desc(C::kBN == 64 ? opaque(q_base) : q_base,
+                                    16, 8 * C::kSpan, C::kSwizzle);
+      const uint64_t kd = make_desc(k_base, 16, 8 * C::kSpan, C::kSwizzle);
 #pragma unroll
       for (int ks = 0; ks < DK / 16; ++ks) {
         const int p = ks / C::kSteps, off = (ks % C::kSteps) * 32;
-        qk_mma<kBN>(
-            s,
-            make_desc(q_base + p * C::kQPiece + off, 16, 8 * C::kSpan,
-                      C::kSwizzle),
-            make_desc(k_base + p * C::kKPiece + off, 16, 8 * C::kSpan,
-                      C::kSwizzle),
-            ks > 0);
+        qk_mma<kBN>(s, qd + ((p * C::kQPiece + off) >> 4),
+                    kd + ((p * C::kKPiece + off) >> 4), ks > 0);
       }
       wgmma_commit();
     };
     auto issue_pv = [&]() {
       const uint32_t v_base = smem_u32(v_s + pv_stage * C::kVBytes);
+      const uint64_t dv0 = make_desc(v_base, C::kVPiece, 8 * C::kVSpan,
+                                     C::kVSwizzle);
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk) {
-        const uint64_t dv = make_desc(v_base + kk * 16 * C::kVSpan,
-                                      C::kVPiece, 8 * C::kVSpan,
-                                      C::kVSwizzle);
+        const uint64_t dv = dv0 + (kk * 16 * C::kVSpan >> 4);
         pv_mma<DV>(acc, p_hi[kk], dv);
         pv_mma<DV>(acc, p_lo[kk], dv);
       }
@@ -962,12 +1083,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     fence_operands(acc);
     release_pv();
 
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-    }
-    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+    rows.sum_quad();
+    const float inv0 = 1.f / rows.l0, inv1 = 1.f / rows.l1;
     __nv_bfloat16* o0 = o + ((long long)bh * Tq + row0) * dh + c0 + 2 * t4;
     __nv_bfloat16* o1 = o0 + 8 * dh;
     // columns c0 + 8 j + 2 t4 and the next: a bf16x2 store where both lie
@@ -1092,6 +1209,408 @@ cudaError_t launch_staged(const void* q, const void* k, const void* v,
 }
 
 }  // namespace tc
+
+namespace tf {
+
+using namespace sm90;
+using namespace online;
+
+constexpr int kDH = 256;           // the instance's width: any dh <= 256
+constexpr int kBM = 64;            // query rows a block, both consumers'
+constexpr int kBN = 64;            // keys a tile
+constexpr int kThreads = 384;      // warpgroups 0, 1 consume, 2 loads
+constexpr int kConsumers = 256;
+constexpr int kRing = 5;           // stages of each consumer's ring
+constexpr int kStage = 16384;      // bytes a stage
+constexpr int kKCols = 32;         // dh columns a K stage (hi, then lo)
+constexpr int kVKeys = 16;         // keys a V stage (hi or lo)
+constexpr int kKPiece = kBN * kKCols * 4;          // K_hi (or K_lo) of one
+constexpr int kQBytes = kBM * kDH * 4;
+constexpr int kSmem = 1024 + kQBytes + 2 * kRing * kStage + 2 * 2 * kRing * 8;
+static_assert(2 * kKPiece == kStage && kVKeys * kDH * 4 == kStage, "");
+
+// The padded copies of K and V that the tensor cores read, for `heads`
+// KV heads of S rows: K_hi and K_lo (heads, S, dhp), dhp = dh rounded up
+// to 4 (rows of whole 16-byte pieces; columns dh .. dhp - 1 zeros), and
+// V^T_hi and V^T_lo (heads, dh, sp), sp = S rounded up to 8, the keys of
+// each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7 (keys past S zeros):
+// the S accumulator gives a thread keys 2 t4 and 2 t4 + 1 of each group of
+// 8, which are the keys t4 and t4 + 4 of the tf32 A fragment once V^T's
+// keys are so permuted (the same permutation of the contraction index in
+// both operands changes nothing of P.V).  hi = tf32_rna(x), lo = x - hi.
+// A block of 256 threads takes 32 keys x 32 columns through shared memory
+// (coalesced reads of K and V, and of V^T's writes).
+__device__ __forceinline__ int key_at(int l) {     // V^T position -> key
+  return (l & ~7) | ((l & 7) < 4 ? 2 * (l & 3) : 2 * (l & 3) + 1);
+}
+
+__global__ void split_kv(const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ khi,
+                         float* __restrict__ klo, float* __restrict__ vhi,
+                         float* __restrict__ vlo, int heads, int S, int dh,
+                         int dhp, int sp) {
+  __shared__ float tile[32][33];
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int k0 = blockIdx.x * 32, d0 = blockIdx.y * 32;
+  for (int h = blockIdx.z; h < heads; h += gridDim.z) {
+    const long long kv0 = (long long)h * S;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = k0 + ty + 8 * i, d = d0 + tx;
+      const bool in = key < S && d < dh;
+      if (key < S && d < dhp) {
+        const float x = in ? k[(kv0 + key) * dh + d] : 0.f;
+        const float hi = __uint_as_float(tf32_rna(x));
+        khi[(kv0 + key) * dhp + d] = hi;
+        klo[(kv0 + key) * dhp + d] = x - hi;
+      }
+      tile[ty + 8 * i][tx] = in ? v[(kv0 + key) * dh + d] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int d = d0 + ty + 8 * i, col = k0 + tx;
+      if (d < dh && col < sp) {
+        const float x = tile[key_at(tx)][ty + 8 * i];
+        const float hi = __uint_as_float(tf32_rna(x));
+        const long long at = ((long long)h * dh + d) * sp + col;
+        vhi[at] = hi;
+        vlo[at] = x - hi;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Q's tile in shared memory: row r in 64 16-byte units, unit 4 G + t (G
+// the group of 16 dh columns, t < 4) holding columns 16 G + t, + 4, + 8
+// and + 12 (a thread's A values of the group's two k8 steps: one 16-byte
+// load a row) and stored at unit (4 G + t) ^ (4 (r & 1)), so that the
+// loads of a quarter warp (rows g, g + 1, every t) fall in distinct banks.
+__device__ __forceinline__ int q_unit(int r, int G, int t) {
+  return r * (kDH / 4) + ((4 * G + t) ^ ((r & 1) << 2));
+}
+
+// (a0..a3) -> tf32 hi = rna(a) and lo = a - hi (the tensor core reads lo
+// truncated to tf32)
+__device__ __forceinline__ void split4(float a0, float a1, float a2,
+                                       float a3, uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  const float a[4] = {a0, a1, a2, a3};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = tf32_rna(a[i]);
+    lo[i] = __float_as_uint(a[i] - __uint_as_float(hi[i]));
+  }
+}
+
+// The instance takes any dh <= 256: Q's columns past dh are zeros in
+// shared memory, K's past dhp TMA fills with zeros, V^T has dh rows (its
+// box of 256 rows is zero-filled past them).  Block (x, y): head b * Hq +
+// h = x (any B Hq), query block qb0 + gridDim.y - 1 - y.  Consumer
+// warpgroup w takes the key tiles t_begin + w, + 2, ..., fed by producer
+// thread kConsumers + 32 w through ring w.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tf_kernel(const __grid_constant__ CUtensorMap map_kh,
+                const __grid_constant__ CUtensorMap map_kl,
+                const __grid_constant__ CUtensorMap map_vh,
+                const __grid_constant__ CUtensorMap map_vl,
+                const float* __restrict__ q, float* __restrict__ o, int Hq,
+                int Hkv, int Tq, int S, int dh, int causal, int window,
+                float scale_log2, int qb0) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align1024(smem_raw);
+  float* q_s = reinterpret_cast<float*>(base);
+  uint8_t* rings = base + kQBytes;                 // [2][kRing][kStage]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rings + 2 * kRing * kStage);
+
+  const int qb = qb0 + gridDim.y - 1 - blockIdx.y;  // heaviest blocks first
+  const int q0 = qb * kBM;
+  const int bh = blockIdx.x;                       // b * Hq + h
+  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+
+  // a row of the block sees no key iff its last does (see tc::)
+  const int q_last = min(q0 + kBM, Tq) - 1;
+  const int lo_last = window > 0 ? max(0, q_last - window + 1) : 0;
+  const int hi_last = causal ? min(S - 1, q_last) : S - 1;
+  int t_begin = 0, t_end = (S + kBN - 1) / kBN;
+  if (lo_last <= hi_last) {
+    t_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / kBN;
+    t_end = hi_last / kBN + 1;
+  }
+
+  // consumer w takes tiles t_begin + w, + 2, ...; both run as many rounds
+  // (a count uniform over the block: a wgmma inside a loop whose count
+  // differs by warpgroup lies on a path ptxas takes for divergent, and
+  // it serializes them)
+  const int rounds = (t_end - t_begin + 1) / 2;
+
+  // ring w: full barriers bars[2 w kRing ..], empty ones the next kRing
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * kRing; ++i) {
+      mbar_init(&bars[i / kRing * 2 * kRing + i % kRing], 1);
+      mbar_init(&bars[i / kRing * 2 * kRing + kRing + i % kRing], 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {                 // the producers
+    regs_dec<40>();
+    const int w = (threadIdx.x - kConsumers) / 32;
+    if (w < 2 && threadIdx.x % 32 == 0) {
+      uint8_t* ring = rings + w * kRing * kStage;
+      uint64_t* full = bars + 2 * w * kRing;
+      uint64_t* empty = full + kRing;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int it = 0; it < rounds; ++it) {
+        // past the last tile (warpgroup 1 when the count is odd) the last
+        // again, which that round does not count
+        const int t = min(t_begin + 2 * it + w, t_end - 1);
+        // K by 32 columns of dh (hi, lo), then V^T by 16 keys (hi, lo)
+        for (int c = 0; c < kDH / kKCols + 2 * kBN / kVKeys; ++c) {
+          uint8_t* dst = ring + stage * kStage;
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], kStage);
+          if (c < kDH / kKCols) {
+            tma_load_3d(dst, &map_kh, &full[stage], c * kKCols, t * kBN,
+                        kvh);
+            tma_load_3d(dst + kKPiece, &map_kl, &full[stage], c * kKCols,
+                        t * kBN, kvh);
+          } else {
+            const int j = c - kDH / kKCols;
+            tma_load_3d(dst, j % 2 ? &map_vl : &map_vh, &full[stage],
+                        t * kBN + j / 2 * kVKeys, 0, kvh);
+          }
+          if (++stage == kRing) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  regs_inc<232>();
+  const int tid = threadIdx.x;
+  {
+    const float* qp = q + ((long long)bh * Tq + q0) * dh;
+    const int rows_n = min(kBM, Tq - q0);
+#pragma unroll 16
+    for (int e = tid; e < kBM * kDH; e += kConsumers) {
+      const int r = e / kDH, d = e % kDH;
+      q_s[4 * q_unit(r, d / 16, d % 4) + d % 16 / 4] =
+          r < rows_n && d < dh ? qp[(long long)r * dh + d] : 0.f;
+    }
+  }
+  named_sync(1, kConsumers);
+
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int r0 = warp * 16 + g, r1 = r0 + 8;        // the tile's rows
+  const int row0 = q0 + r0, row1 = q0 + r1;
+  const float4* q4 = reinterpret_cast<const float4*>(q_s);
+  // q_unit(r0, G, t4) = q_unit(r0, G % 2, t4) + 8 (G / 2)
+  const float4* q_even = q4 + q_unit(r0, 0, t4);
+  const float4* q_odd = q4 + q_unit(r0, 1, t4);
+  uint8_t* ring = rings + wg * kRing * kStage;
+  uint64_t* full = bars + 2 * wg * kRing;
+  uint64_t* empty = full + kRing;
+  int stage = 0, last = 0;
+  uint32_t phase = 0;
+  auto next_stage = [&]() {
+    last = stage;
+    if (++stage == kRing) { stage = 0; phase ^= 1; }
+  };
+
+  float acc[kDH / 2];
+#pragma unroll
+  for (int i = 0; i < kDH / 2; ++i) acc[i] = 0.f;
+  float s[kBN / 2];
+  Rows rows;
+  // Each group of wgmmas is committed on its own; after the next group
+  // is issued, a wait leaves it alone in flight, so that the A registers
+  // of the one before are free again and a stage is released once the
+  // last group reading it is done.
+  for (int it = 0; it < rounds; ++it) {
+    const int tile = t_begin + 2 * it + wg;
+    // S = Q.K^T: a K stage is two groups of 16 dh columns, each two k8
+    // steps of three products (Q_hi.K_hi + Q_lo.K_hi + Q_hi.K_lo)
+#pragma unroll
+    for (int c = 0; c < kDH / kKCols; ++c) {
+      mbar_wait_warp(&full[stage], phase);
+      const uint32_t kb = smem_u32(ring + stage * kStage);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int G = 2 * c + h;
+        // rows r0 and r0 + 8 at unit 4 G + t4: one of two bases (the
+        // swizzle flips G's low bit) and a constant offset, so that no
+        // address of the 16 groups stays live across the loop
+        const float4* qg = (G & 1 ? q_odd : q_even) + 8 * (G / 2);
+        const float4 x0 = qg[0], x1 = qg[8 * (kDH / 4)];
+        uint32_t ah[2][4], al[2][4];
+        split4(x0.x, x1.x, x0.y, x1.y, ah[0], al[0]);   // columns 16 G ..
+        split4(x0.z, x1.z, x0.w, x1.w, ah[1], al[1]);   // 16 G + 8 ..
+        fence_operands(s);
+        wgmma_fence();
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ks = 2 * h + e;                    // k8 step of the stage
+          const uint64_t dk0 = make_desc(kb, 16, 1024, 1);
+          const uint64_t dkh = dk0 + (32 * ks >> 4);
+          const uint64_t dkl = dk0 + ((kKPiece + 32 * ks) >> 4);
+          wgmma_m64n64k8_rs_tf32(s, ah[e], dkh, c > 0 || h > 0 || e > 0);
+          wgmma_m64n64k8_rs_tf32(s, al[e], dkh, 1);
+          wgmma_m64n64k8_rs_tf32(s, ah[e], dkl, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (h == 0 && c > 0) mbar_arrive(&empty[last]);
+      }
+      next_stage();
+    }
+    wgmma_wait<0>();
+    fence_operands(s);
+    mbar_arrive(&empty[last]);
+
+    if (rows.tile<kBN>(s, min(tile, t_end - 1) * kBN, q0, row0, row1, t4, S,
+                       causal, window, scale_log2, tile < t_end))
+      rows.rescale(acc);
+
+    // O += P.V: per 16 keys, the V^T_hi stage (P_hi and P_lo), then the
+    // V^T_lo stage (P_hi); A of k8 slice kk is P at keys 8 kk + 2 t4 and
+    // + 1, which V^T's permuted keys put at t4 and t4 + 4
+#pragma unroll
+    for (int j = 0; j < kBN / kVKeys; ++j) {
+      uint32_t ph[2][4], pl[2][4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kk = 2 * j + e;
+        split4(s[4 * kk], s[4 * kk + 2], s[4 * kk + 1], s[4 * kk + 3], ph[e],
+               pl[e]);
+      }
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {           // V^T_hi, V^T_lo
+        mbar_wait_warp(&full[stage], phase);
+        const uint32_t vb = smem_u32(ring + stage * kStage);
+        fence_operands(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const uint64_t dv = make_desc(vb, 16, 512, 2) + (32 * e >> 4);
+          wgmma_m64n256k8_rs_tf32(acc, ph[e], dv, 1);
+          if (part == 0) wgmma_m64n256k8_rs_tf32(acc, pl[e], dv, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (j > 0 || part > 0) mbar_arrive(&empty[last]);
+        next_stage();
+      }
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    mbar_arrive(&empty[last]);
+  }
+
+  // Warpgroup 1 hands its O, max and l to warpgroup 0 through ring 1,
+  // whose stages it alone read and whose copies have all landed.
+  rows.sum_quad();
+  float* xo = reinterpret_cast<float*>(rings + kRing * kStage);
+  float4* xm = reinterpret_cast<float4*>(xo + 128 * (kDH / 2));
+  const int i = tid % 128;
+  if (wg == 1) {
+#pragma unroll
+    for (int e = 0; e < kDH / 2; ++e) xo[e * 128 + i] = acc[e];
+    xm[i] = make_float4(rows.m0, rows.m1, rows.l0, rows.l1);
+    named_arrive(2, kConsumers);
+    return;
+  }
+  named_sync(2, kConsumers);
+  // warpgroup 1 took no tile where its max is -inf: its weight is 0
+  const float4 x = xm[i];
+  const float m0 = fmaxf(rows.m0, x.x), m1 = fmaxf(rows.m1, x.y);
+  const float a0 = exp2_ftz(rows.m0 - m0), a1 = exp2_ftz(rows.m1 - m1);
+  const float b0 = exp2_ftz(x.x - m0), b1 = exp2_ftz(x.y - m1);
+  const float inv0 = 1.f / (rows.l0 * a0 + x.z * b0);
+  const float inv1 = 1.f / (rows.l1 * a1 + x.w * b1);
+  float* o0 = o + ((long long)bh * Tq + row0) * dh + 2 * t4;
+  float* o1 = o0 + 8 * dh;
+  // columns 8 j + 2 t4 and the next: one 8-byte store where both lie
+  // inside dh and dh is even (8-byte aligned); else value by value
+  auto store = [&](float* p, float u, float w, int left) {
+    if (left >= 2 && dh % 2 == 0) {
+      *reinterpret_cast<float2*>(p) = make_float2(u, w);
+    } else {
+      if (left >= 1) p[0] = u;
+      if (left >= 2) p[1] = w;
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < kDH / 8; ++j) {
+    if (8 * j >= dh) break;                        // padded columns
+    const int left = dh - (8 * j + 2 * t4);
+    const float* y = xo + 4 * j * 128 + i;
+    if (row0 < Tq)
+      store(o0 + 8 * j, (acc[4 * j] * a0 + y[0] * b0) * inv0,
+            (acc[4 * j + 1] * a0 + y[128] * b0) * inv0, left);
+    if (row1 < Tq)
+      store(o1 + 8 * j, (acc[4 * j + 2] * a1 + y[256] * b1) * inv1,
+            (acc[4 * j + 3] * a1 + y[384] * b1) * inv1, left);
+  }
+}
+
+// q, k, v: (B, Hq, Tq, dh) and (B, Hkv, S, dh) float32; scratch: the
+// padded copies, 2 B Hkv (S dhp + dh sp) floats (split_kv); o like q.
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   float* scratch, float* o, int B, int Hq, int Hkv, int Tq,
+                   int S, int dh, int causal, int window, float scale,
+                   cudaStream_t stream) {
+  const int dhp = (dh + 3) / 4 * 4, sp = (S + 7) / 8 * 8;
+  const int heads = B * Hkv;
+  float* khi = scratch;
+  float* klo = khi + (long long)heads * S * dhp;
+  float* vhi = klo + (long long)heads * S * dhp;
+  float* vlo = vhi + (long long)heads * dh * sp;
+  const dim3 pgrid((unsigned)((sp + 31) / 32), (unsigned)((dhp + 31) / 32),
+                   (unsigned)(heads < 65535 ? heads : 65535));
+  split_kv<<<pgrid, 256, 0, stream>>>(k, v, khi, klo, vhi, vlo, heads, S, dh,
+                                      dhp, sp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dk[3] = {(cuuint64_t)dhp, (cuuint64_t)S,
+                            (cuuint64_t)heads};
+  const cuuint64_t dv[3] = {(cuuint64_t)sp, (cuuint64_t)dh,
+                            (cuuint64_t)heads};
+  const cuuint32_t bk[3] = {kKCols, kBN, 1};
+  const cuuint32_t bv[3] = {kVKeys, kDH, 1};
+  CUtensorMap mkh, mkl, mvh, mvl;
+  if ((err = make_map(&mkh, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, khi, 3, dk,
+                      bk, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
+      (err = make_map(&mkl, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, klo, 3, dk,
+                      bk, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
+      (err = make_map(&mvh, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, vhi, 3, dv,
+                      bv, CU_TENSOR_MAP_SWIZZLE_64B)) != cudaSuccess ||
+      (err = make_map(&mvl, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, vlo, 3, dv,
+                      bv, CU_TENSOR_MAP_SWIZZLE_64B)) != cudaSuccess)
+    return err;
+  err = cudaFuncSetAttribute(flash_tf_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+  if (err != cudaSuccess) return err;
+  for (int hi = (Tq + kBM - 1) / kBM; hi > 0; hi -= kMaxQBlocks) {
+    const int n = hi < kMaxQBlocks ? hi : kMaxQBlocks;
+    dim3 grid((unsigned)((long long)B * Hq), (unsigned)n);
+    flash_tf_kernel<<<grid, kThreads, kSmem, stream>>>(
+        mkh, mkl, mvh, mvl, q, o, Hq, Hkv, Tq, S, dh, causal, window,
+        scale * kLog2e, hi - n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace tf
 
 namespace wide {
 
@@ -1253,8 +1772,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 namespace {
 
 // dtype 1 (bfloat16) takes the tensor cores (scratch: the staged route's
-// padded copies, or null), dtype 0 (float32) the FMAs; the instance of
-// width DH takes dh <= DH.
+// padded copies, or null), dtype 0 (float32) the FMAs to 128 and the
+// tensor cores in TF32 at 256 (scratch: split_kv's copies); the instance
+// of width DH takes dh <= DH.
 template <int DH>
 cudaError_t launch_route(int dtype, const void* q, const void* k,
                          const void* v, void* scratch, void* o, int B, int Hq,
@@ -1266,8 +1786,15 @@ cudaError_t launch_route(int dtype, const void* q, const void* k,
                                            stream)
                    : tc::launch<DH>(q, k, v, dh, o, B, Hq, Hkv, Tq, S, dh,
                                     causal, window, scale, stream);
-  return simt::launch<DH>(q, k, v, o, B, Hq, Hkv, Tq, S, dh, causal, window,
-                          scale, stream);
+  if constexpr (DH == tf::kDH)
+    return tf::launch(static_cast<const float*>(q),
+                      static_cast<const float*>(k),
+                      static_cast<const float*>(v),
+                      static_cast<float*>(scratch), static_cast<float*>(o), B,
+                      Hq, Hkv, Tq, S, dh, causal, window, scale, stream);
+  else
+    return simt::launch<DH>(q, k, v, o, B, Hq, Hkv, Tq, S, dh, causal,
+                            window, scale, stream);
 }
 
 // The instances past 256, O's columns in two halves: the tensor cores
@@ -1292,15 +1819,18 @@ cudaError_t launch_halves(int dtype, const void* q, const void* k,
 
 // dtype: 0 = float32, 1 = bfloat16; q, k, v and o alike.  inst: the padded
 // instance, dh <= inst: 32, 64, 96, 128 or 256 (the tensor cores for
-// bfloat16, the FMAs for float32), or 320, 384, 448 or 512 (O in two
-// halves of columns, a block each); or 0, the wide route (any dh, either
-// dtype).  scratch (bfloat16 instances): null, TMA on q, k and v (dh a
-// multiple of 8); else the staged route, any dh: (B Hq T + 2 B Hkv S)
-// (dh rounded up to 8) bfloat16 values for the padded copies.  A float32
-// instance reads 16-byte pieces where dh % 4 == 0, else values.  Hq a
-// multiple of Hkv; tensors contiguous and 16-byte aligned (the wrapper
-// checks).  window 0 means no window.  Any B Hq and any T: blocks of 128
-// query rows on the tensor cores, 64 on the FMAs, 16 on the wide route,
+// bfloat16; for float32 the FMAs to 128, at 256 the tensor cores in
+// TF32), or 320, 384, 448 or 512 (O in two halves of columns, a block
+// each); or 0, the wide route (any dh, either dtype).  scratch (bfloat16
+// instances): null, TMA on q, k and v (dh a multiple of 8); else the
+// staged route, any dh: (B Hq T + 2 B Hkv S) (dh rounded up to 8)
+// bfloat16 values for the padded copies.  scratch (float32): null but at
+// 256, where it is split_kv's 2 B Hkv (S dhp + dh sp) floats (dhp = dh
+// rounded up to 4, sp = S rounded up to 8).  A float32 FMA instance reads
+// 16-byte pieces where dh % 4 == 0, else values.  Hq a multiple of Hkv;
+// tensors contiguous and 16-byte aligned (the wrapper checks).  window 0
+// means no window.  Any B Hq and any T: blocks of 128 query rows on the
+// bfloat16 tensor cores, 64 in TF32 and on the FMAs, 16 on the wide route,
 // the heads on the grid's x and the query blocks on its y, which takes
 // 65,535 of them (more go in launches of as many, the last blocks, the
 // heaviest under a causal mask, first); the float32 halves put (head,
@@ -1323,7 +1853,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                : (int)wide::launch<float>(q, k, v, o, B, Hq, Hkv, Tq, S, dh,
                                           causal, window, scale, s);
   if (dh > inst || (dtype == 1 && !scratch && dh % 8) ||
-      (dtype == 0 && scratch))
+      (dtype == 0 && (scratch != nullptr) != (inst == tf::kDH)))
     return (int)cudaErrorInvalidValue;
   switch (inst) {
     case 32: return (int)launch_route<32>(dtype, q, k, v, scratch, o, B, Hq,

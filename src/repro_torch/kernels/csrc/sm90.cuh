@@ -50,20 +50,40 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                :: "r"(smem_u32(bar)) : "memory");
 }
 
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t addr,
+                                                  uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  return done;
+}
+
 // Wait until the phase of parity `parity` has completed.  A barrier that
 // has not completed after ~2^36 cycles (half a minute) traps: a fault in
 // the protocol ends the kernel with an error instead of hanging the card.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
   long long t0 = 0;
   for (int i = 0;; ++i) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    if (done) return;
+    if (mbar_try_wait(addr, parity)) return;
+    if (i == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 36)) __trap();
+  }
+}
+
+// mbar_wait for a whole warp, whose lanes leave together (the exit is a
+// vote): ptxas then takes the code after it for converged, where after a
+// loop each lane leaves on its own it serializes the wgmma that follow
+// (where no bar.sync lies between).
+__device__ __forceinline__ void mbar_wait_warp(uint64_t* bar,
+                                               uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  long long t0 = 0;
+  for (int i = 0;; ++i) {
+    if (__all_sync(0xffffffffu, mbar_try_wait(addr, parity))) return;
     if (i == 0) t0 = clock64();
     else if (clock64() - t0 > (1ll << 36)) __trap();
   }
@@ -338,6 +358,27 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss_bf16(
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 64, f32) (+)= A (64 x 16, bf16, shared, K-major) . B (64 x 16,
+// bf16, shared, K-major)^T.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_bf16(
+    float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10,"
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21,"
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
@@ -650,6 +691,28 @@ __device__ __forceinline__ void wgmma_m64n256k8_rs_tf32(float (&d)[128],
         "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
         "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate));
+}
+
+// D (64 x 64, f32) (+)= A (64 x 8, tf32, registers) . B (64 x 8, tf32,
+// shared, K-major)^T.
+__device__ __forceinline__ void wgmma_m64n64k8_rs_tf32(float (&d)[32],
+    const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10,"
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21,"
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"(accumulate));
 }

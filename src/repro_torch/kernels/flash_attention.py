@@ -2,19 +2,25 @@
 
 On CUDA tensors `flash_attention` launches a kernel of
 `csrc/flash_attention.cu`, which streams K/V tiles with an online
-softmax and never materializes the (T, S) scores, by the route `route`
-picks from the dtype and the head width: bfloat16 inputs go to the
-tensor cores (wgmma, P carried as two bf16 halves), float32 inputs to
-float32 FMAs, each in instances of width 32, 64, 96, 128 and 256 that
-take every narrower dh (padded with zeros in shared memory), and to dh
-512 in instances whose blocks each compute one half of O's columns.  A
-bfloat16 instance reads its tiles by TMA, from q, k and v where a row is
-whole 16-byte pieces ("tc<w>"), else from copies whose rows a first
-kernel pads to them ("staged<w>"); only a dh past 512 takes the "wide"
-route (float32 FMAs, no TMA).  On CPU tensors it runs the plain version
-`ref.flash_attention_ref`.  `launches` counts the kernels' launches,
-`by_route` those of each route.  There is no gradient: repro's kernel
-has none.
+softmax (on the tiles of 64 and 32 keys past dh 128, O and l on a stale
+row max that moves only where a tile's max passes it by more than 8 in
+log2 units) and never materializes the (T, S) scores, by the route
+`route` picks from the dtype and the head width, in instances of width
+32, 64, 96, 128 and 256 that take every narrower dh (padded with zeros),
+and to dh 512 in instances whose blocks each compute one half of O's
+columns. bfloat16 inputs go to the tensor cores (wgmma, P carried as two
+bf16 halves), which read their tiles by TMA, from q, k and v where a row
+is whole 16-byte pieces ("tc<w>"), else from copies whose rows a first
+kernel pads to them ("staged<w>"); at 256 on 64-key tiles. float32
+inputs go to float32 FMAs ("simt<w>") to dh 128 and past 256, and from
+dh 129 to 256 to the tensor cores in TF32 ("tf256"): three TF32 products
+a term (hi = tf32(x), lo = x - hi) keep float32's accuracy, on copies of
+K and V split into hi and lo (V transposed) that a first kernel writes;
+they are bound by the TF32 rate. Only a dh past 512 takes the "wide"
+route (float32 FMAs, no TMA). On CPU tensors it runs the plain version
+`ref.flash_attention_ref`. `launches` counts the kernels' launches,
+`by_route` those of each route. There is no gradient: repro's kernel has
+none.
 """
 
 from __future__ import annotations
@@ -37,8 +43,9 @@ HALVES = (320, 384, 448, 512)
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                             ctypes.c_void_p])
 # query rows a block, by route kind: "tc" and "staged" (TMA over padded
-# copies) on the tensor cores, "simt" on the FMAs, "wide"
-ROWS = {"tc": 128, "staged": 128, "simt": 64, "wide": 16}
+# copies) on the tensor cores in bf16, "tf" in TF32, "simt" on the FMAs,
+# "wide"
+ROWS = {"tc": 128, "staged": 128, "tf": 64, "simt": 64, "wide": 16}
 MAX_QBLOCKS = 65535                          # the grid's y dimension
 
 
@@ -47,15 +54,17 @@ def route(dtype: torch.dtype, dh: int) -> str:
     INSTANCES + HALVES at least dh; for bfloat16 "tc<w>" (the tensor
     cores fed by TMA) where a row is whole 16-byte pieces (dh a multiple
     of 8), else "staged<w>" (the same instance, TMA reading copies whose
-    rows are padded to 16-byte pieces); for float32 "simt<w>" (FMAs;
-    16-byte loads where dh % 4 == 0); "wide" past 512 (either dtype, no
-    TMA)."""
+    rows are padded to 16-byte pieces); for float32 "tf256" from dh 129
+    to 256 (the tensor cores in TF32, three products a term, over split
+    copies of K and V: bound by the TF32 rate), else "simt<w>" (float32
+    FMAs, bound by their rate; 16-byte loads where dh % 4 == 0); "wide"
+    past 512 (either dtype, no TMA)."""
     widths = INSTANCES + HALVES
     if dh > widths[-1]:
         return "wide"
     width = next(w for w in widths if w >= dh)
     if dtype != torch.bfloat16:
-        return f"simt{width}"
+        return f"{'tf' if 128 < dh <= 256 else 'simt'}{width}"
     return f"{'tc' if dh % 8 == 0 else 'staged'}{width}"
 
 
@@ -69,12 +78,20 @@ def query_launches(T: int, name: str) -> int:
     blocks in its y dimension, so a longer T takes more launches (the
     last blocks, the heaviest under a causal mask, first); the float32
     halves (simt past 256) put pairs of query blocks on the grid's x,
-    one launch for any T; a staged route launches its padding first."""
+    one launch for any T; a staged route launches its padding first, the
+    TF32 route its split of K and V."""
     kind = _kind(name)
     if kind == "simt" and int(name[4:]) > INSTANCES[-1]:
         return 1
     blocks = -(-T // ROWS[kind])
-    return -(-blocks // MAX_QBLOCKS) + (kind == "staged")
+    return -(-blocks // MAX_QBLOCKS) + (kind in ("staged", "tf"))
+
+
+def tf32_scratch(B: int, Hkv: int, S: int, dh: int) -> int:
+    """float32 values of the TF32 route's copies: K_hi and K_lo (B Hkv, S,
+    dh rounded up to 4) and V^T_hi and V^T_lo (B Hkv, dh, S rounded up to
+    8), about four times K's size."""
+    return 2 * B * Hkv * (S * -(-dh // 4) * 4 + dh * -(-S // 8) * 8)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -83,7 +100,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bfloat16 -> (B, Hq, T, dh) in q's dtype.  Query head h reads KV head
     h // (Hq // Hkv); scores are scaled by dh^-0.5; `window` > 0 keeps the
     keys s with s > t - window.  Any dh, T and B * Hq, by `route(dtype,
-    dh)`, in `query_launches(T, route)` launches.
+    dh)`, in `query_launches(T, route)` launches.  The TF32 route (float32
+    at dh 129 to 256) takes scratch of four times K's size for its split
+    copies of K and V (`tf32_scratch`: 8 MB at B 1, Hkv 2, S 1024, dh
+    256; about 1 GB at S 32,768 with Hkv 8); the staged route (bfloat16
+    rows not whole 16-byte pieces) one padded copy of q, k and v.
 
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if a launch fails.
@@ -147,6 +168,9 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
         scratch = torch.empty(((B * Hq * T + 2 * B * Hkv * S)
                                * -(-dh // 8) * 8,), dtype=q.dtype,
                               device=q.device)
+    elif kind == "tf":
+        scratch = torch.empty((tf32_scratch(B, Hkv, S, dh),),
+                              dtype=torch.float32, device=q.device)
     fn = _build.entry("flash_attention", "flash_attention", _ARGTYPES)
     width = 0 if kind == "wide" else int(name[len(kind):])
     with torch.cuda.device(q.device):

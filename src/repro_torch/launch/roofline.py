@@ -222,12 +222,15 @@ def flash_attention_work(B: int, Hq: int, Hkv: int, T: int, S: int,
                          elem_bytes: int = 2) -> Work:
     """`flash_attention` in bf16 (elem_bytes 2) or float32 (4): q, k, v
     read and the output written once; 4 dh flops a computed (query, key)
-    pair (Q.K and P.V) a query head, at the bf16 tensor-core rate, or the
-    float32 rate outside the tensor cores for float32 inputs."""
+    pair (Q.K and P.V) a query head at the bf16 tensor-core rate.  The
+    float32 products at the check's accuracy on the tensor cores, as
+    `ed_argmin_work` counts float32 rows: three TF32 products a term
+    (3xTF32), 12 dh flops a pair at the tf32 rate."""
     nbytes = elem_bytes * (2 * B * Hq * T * dh + 2 * B * Hkv * S * dh)
-    pairs = attention_pairs(T, S, causal, window)
-    return Work(nbytes, 4 * dh * pairs * B * Hq,
-                BF16_FLOPS if elem_bytes == 2 else F32_FLOPS)
+    flops = 4 * dh * attention_pairs(T, S, causal, window) * B * Hq
+    if elem_bytes == 2:
+        return Work(nbytes, flops, BF16_FLOPS)
+    return Work(nbytes, 3 * flops, TF32_FLOPS)
 
 
 def flash_attention_floors(work: Work) -> Dict[str, float]:

@@ -11,7 +11,10 @@ The CUDA kernel's bf16 route feeds P to the tensor cores as two bf16
 operands, P = P_hi + P_lo.  `_attention_bf16_p` repeats that arithmetic
 with plain torch, so that the choice is held here, on the CPU, to the
 limit chip_smoke.py holds a bf16 output to: 2^-8 |plain| + 2e-5 around
-the float32 plain version.
+the float32 plain version.  `_tiled` repeats the tensor-core kernels'
+loop (64-key tiles, a stale row max moved only past +8 in log2 units),
+with three TF32 products a term for the float32 route at dh 129-256;
+`_split_kv` that route's copies of K and V, lane by lane.
 """
 
 import jax.numpy as jnp
@@ -293,3 +296,260 @@ def test_padded_copies_hold_every_row_whole(dh):
     assert not out[:, dh:].any()
     for rows_n in (1, 999, 1024):
         assert (rows_n * ld * 2) % 16 == 0
+
+
+# ------------------------------- the tensor-core loop at head width 256
+def _tf32(x, mode):
+    """float32 x as TF32 (10 mantissa bits): "rna" rounds to the nearest,
+    ties away from zero (cvt.rna.tf32.f32, the kernels' hi), "trunc"
+    masks the low 13 bits (how the tensor core reads a float32 operand)."""
+    b = x.contiguous().view(torch.int32)
+    if mode == "rna":
+        b = b + 0x1000
+    return (b & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b):
+    """a @ b in three TF32 products (3xTF32): hi = rna(x), lo = x - hi,
+    each operand read truncated; a_hi.b_hi + a_lo.b_hi + a_hi.b_lo."""
+    ah, bh = _tf32(a, "rna"), _tf32(b, "rna")
+    t = lambda x: _tf32(x, "trunc")  # noqa: E731
+    return t(ah) @ t(bh) + t(a - ah) @ t(bh) + t(ah) @ t(b - bh)
+
+
+def _mm1(a, b):
+    """a @ b in one TF32 product, each operand read truncated."""
+    return _tf32(a, "trunc") @ _tf32(b, "trunc")
+
+
+def _mm_bf16_p(p, v):
+    """P.V as the bf16 kernel issues it: P as two bf16 halves."""
+    hi = p.to(torch.bfloat16).float()
+    return (hi + (p - hi).to(torch.bfloat16).float()) @ v
+
+
+def _tiled(q, k, v, qk, pv, causal=True, window=0, bn=64, lazy=8.0):
+    """The tensor-core kernels' loop (csrc/flash_attention.cu, tc and tf)
+    on float32 q (B, Hq, T, dh) and k, v (B, Hkv, S, dh): tiles of bn
+    keys, scores qk(q, K^T) in log2 units (dh^-0.5 log2 e), masked keys
+    -1e30; a row's max m moves only where a tile's max exceeds it by more
+    than `lazy` (online::Rows), p = exp2(x - m), O = O alpha + pv(p, V),
+    l = l alpha + sum p.  Returns (O / l, the tiles at which each row's
+    max moved, the largest p)."""
+    B, Hq, T, dh = q.shape
+    G = Hq // k.shape[1]
+    k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    S = k.shape[2]
+    c = dh ** -0.5 * np.log2(np.e)
+    t = torch.arange(T)[:, None]
+    m = torch.full((B, Hq, T, 1), -np.inf)
+    l = torch.zeros(B, Hq, T, 1)
+    o = torch.zeros(B, Hq, T, dh)
+    moved = torch.zeros(B, Hq, T, dtype=torch.int64)
+    p_max = 0.0
+    for k0 in range(0, S, bn):
+        j = torch.arange(k0, min(k0 + bn, S))[None]
+        x = qk(q, k[:, :, k0:k0 + bn].transpose(-1, -2)) * c
+        seen = (t >= j) if causal else torch.ones(T, j.shape[1],
+                                                  dtype=torch.bool)
+        if window:
+            seen &= j > t - window
+        x = x.masked_fill(~seen, ref.NEG_INF)
+        mx = x.amax(-1, keepdim=True)
+        up = mx > m + lazy
+        mn = torch.where(up, mx, m)
+        alpha = torch.exp2(m - mn)
+        p = torch.exp2(x - mn)
+        o = o * alpha + pv(p, v[:, :, k0:k0 + bn])
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = mn
+        moved += up[..., 0]
+        p_max = max(p_max, p.max().item())
+    return o / l, moved, p_max
+
+
+def _excess_f32(out, q, k, v, **kw):
+    """How far out lies beyond rtol + atol 2e-5 around the float32 plain
+    version (<= 0: within), chip_smoke.py's float32 limit."""
+    plain = ref.flash_attention_ref(q, k, v, **kw)
+    return ((out - plain).abs() - 2e-5 * plain.abs() - 2e-5).max().item()
+
+
+def test_3xtf32_holds_the_float32_limit_where_one_tf32_product_does_not():
+    """The float32 route at dh 129-256 (tf256) on the tensor cores:
+    three TF32 products a term for S = Q.K^T and for O += P.V hold the
+    float32 limit at dh 256, T 1024, causal, GQA, on normal draws (as
+    chip_smoke.py draws them); one TF32 product a term misses it by far."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 4, 2, 1024, 256,
+                                                    seed=256))
+    out, moved, p_max = _tiled(q, k, v, _mm3, _mm3)
+    assert _excess_f32(out, q, k, v) <= 0
+    assert p_max <= 2 ** 8
+    one, _, _ = _tiled(q, k, v, _mm1, _mm1)
+    assert _excess_f32(one, q, k, v) > 1e-4
+
+
+@pytest.mark.parametrize("case", ["rising", "window", "empty", "gqa"])
+def test_the_stale_max_holds_the_bf16_limit(case):
+    """O and l on a stale row max that moves only where a tile's max
+    passes it by more than 8 (log2 units), so every P <= 2^8, with P.V in
+    two bf16 halves, held to the float32 plain version under the bf16
+    limit (2^-8 |o| + 2e-5): a row whose max rises past the threshold on
+    every tile (scores growing by 12.8 a tile of 64 keys), a window over
+    a ragged T = S = 200, rows that see no key (T 256 over S 64, window
+    32, not causal: the mean of V), and GQA on normal draws, where the
+    max stays after the first tile on most rows."""
+    kw = dict(causal=True, window=0)
+    if case == "rising":
+        T, dh = 512, 64
+        rng = np.random.default_rng(5)
+        q = np.zeros((1, 2, T, dh), np.float32)
+        k = 0.1 * rng.standard_normal((1, 2, T, dh)).astype(np.float32)
+        q[..., 0] = 1.0
+        # slope 0.2 a key in log2 units: 64 * 0.2 = 12.8 > 8 a tile
+        k[..., 0] = 0.2 * np.arange(T) / (dh ** -0.5 * np.log2(np.e))
+        v = rng.standard_normal((1, 2, T, dh)).astype(np.float32)
+        q, k, v = (_bf16(a) for a in (q, k, v))
+    elif case == "window":
+        q, k, v = (_bf16(a) for a in _qkv(1, 4, 2, 200, 64, seed=7))
+        kw = dict(causal=True, window=40)
+    elif case == "empty":
+        q, k, v = (_bf16(a) for a in _qkv(1, 2, 2, 256, 64, S=64, seed=9))
+        kw = dict(causal=False, window=32)
+    else:
+        q, k, v = (_bf16(a) for a in _qkv(2, 4, 2, 256, 96, seed=12))
+    out, moved, p_max = _tiled(q.float(), k.float(), v.float(),
+                               lambda a, b: a @ b, _mm_bf16_p, **kw)
+    assert _excess(out.to(torch.bfloat16), q, k, v, **kw) <= 0
+    assert p_max <= 2 ** 8
+    tiles = -(-k.shape[2] // 64)
+    if case == "rising":
+        # each row's every full tile it sees moves its max
+        full = torch.arange(63, 512, 64)
+        assert torch.equal(moved[..., full],
+                           (full // 64 + 1).expand_as(moved[..., full]))
+    elif case == "empty":
+        assert bool((moved == 1).all())
+    else:
+        assert bool((moved < tiles).any()) and int(moved.min()) >= 1
+
+
+# ------------------------------------------- the TF32 route's split copies
+def _key_at(pos):
+    """csrc/flash_attention.cu tf::key_at: the key at V^T position pos,
+    keys 0, 2, 4, 6, 1, 3, 5, 7 of each group of 8."""
+    pos = np.asarray(pos)
+    low = pos & 7
+    return (pos & ~7) | np.where(low < 4, 2 * (low & 3), 2 * (low & 3) + 1)
+
+
+def _split_kv(k, v):
+    """tf::split_kv on (heads, S, dh) float32 k and v, block by block and
+    lane by lane (blocks of 32 keys x 32 columns, threads (tx, ty) of 32
+    x 8, four rows each): K_hi, K_lo (heads, S, dhp) and V^T_hi, V^T_lo
+    (heads, dh, sp), each element written once (the buffers start as NaN,
+    as scratch may)."""
+    heads, S, dh = k.shape
+    dhp, sp = -(-dh // 4) * 4, -(-S // 8) * 8
+    khi, klo = (np.full((heads, S, dhp), np.nan, np.float32) for _ in "kl")
+    vhi, vlo = (np.full((heads, dh, sp), np.nan, np.float32) for _ in "kl")
+    tx = np.arange(32)
+
+    def rna(x):
+        return _tf32(torch.from_numpy(np.ascontiguousarray(x)),
+                     "rna").numpy()
+
+    def put(buf, idx, vals):
+        assert np.isnan(buf[idx]).all(), "written twice"
+        buf[idx] = vals
+    for h in range(heads):
+        for k0 in range(0, sp, 32):
+            for d0 in range(0, dhp, 32):
+                tile = np.zeros((32, 32), np.float32)
+                for ty in range(8):
+                    for i in range(4):
+                        key, d = k0 + ty + 8 * i, d0 + tx
+                        ok = (d < dh) & (key < S)
+                        x = np.where(ok, k[h, min(key, S - 1),
+                                           np.minimum(d, dh - 1)], 0)
+                        x = x.astype(np.float32)
+                        w = d < dhp
+                        hi = rna(x)
+                        if key < S:
+                            put(khi, (h, key, d[w]), hi[w])
+                            put(klo, (h, key, d[w]), (x - hi)[w])
+                        tile[ty + 8 * i] = np.where(ok, v[h, min(key, S - 1),
+                                                         np.minimum(d,
+                                                                    dh - 1)],
+                                                    0)
+                for ty in range(8):
+                    for i in range(4):
+                        d, col = d0 + ty + 8 * i, k0 + tx
+                        w = (d < dh) & (col < sp)
+                        if not w.any():
+                            continue
+                        x = tile[_key_at(tx), ty + 8 * i]
+                        hi = rna(x)
+                        put(vhi, (h, d, col[w]), hi[w])
+                        put(vlo, (h, d, col[w]), (x - hi)[w])
+    return khi, klo, vhi, vlo
+
+
+@pytest.mark.parametrize("S,dh", [(64, 256), (45, 130), (100, 255)])
+def test_split_copies_hold_k_and_the_permuted_v(S, dh):
+    """The TF32 route's prep kernel: K_hi + K_lo = K exactly, K_hi
+    representable in TF32, columns dh .. dhp - 1 zeros (rows of whole
+    16-byte pieces for TMA); V^T_hi + V^T_lo at row d, position c is V
+    at key key_at(c), zeros past S (to sp, S rounded up to 8); every
+    element written once."""
+    rng = np.random.default_rng(S + dh)
+    k, v = rng.standard_normal((2, 2, S, dh)).astype(np.float32)
+    khi, klo, vhi, vlo = _split_kv(k, v)
+    dhp, sp = khi.shape[2], vhi.shape[2]
+    assert dhp % 4 == 0 and sp % 8 == 0 and dhp - dh < 4 and sp - S < 8
+    assert not np.isnan(khi).any() and not np.isnan(vhi).any()
+    np.testing.assert_array_equal((khi + klo)[..., :dh], k)
+    assert not khi[..., dh:].any() and not klo[..., dh:].any()
+    assert not (khi.view(np.int32) & 0x1FFF).any()
+    keys = _key_at(np.arange(sp))
+    want = np.zeros((2, dh, sp), np.float32)
+    inside = keys < S
+    want[:, :, inside] = v[:, keys[inside], :].transpose(0, 2, 1)
+    np.testing.assert_array_equal(vhi + vlo, want)
+
+
+def test_accumulator_fragments_times_permuted_v_give_p_v():
+    """P.V on the TF32 route takes P's A fragments straight from the S
+    accumulator: a thread holds keys 8 j + 2 t4 and + 1 of rows g and g +
+    8 (per warp of 16 rows), and the tf32 A fragment of k8 slice j wants
+    keys t4 and t4 + 4: (s[4j], s[4j + 2], s[4j + 1], s[4j + 3]) at (g,
+    t4), (g + 8, t4), (g, t4 + 4), (g + 8, t4 + 4).  With V^T's keys
+    permuted by the split copy, the product of those A tiles with V^T's
+    slices is P @ V."""
+    rng = np.random.default_rng(3)
+    S, dh = 64, 130
+    p = rng.random((64, S))
+    v = rng.standard_normal((1, S, dh)).astype(np.float32)
+    _, _, vhi, vlo = _split_kv(v, v)
+    vt = (vhi + vlo)[0].astype(np.float64)            # (dh, sp)
+    acc = np.empty((4, 32, S // 2))                   # warp, lane, s[]
+    for w in range(4):
+        for lane in range(32):
+            g, t4 = lane // 4, lane % 4
+            for j in range(S // 8):
+                for e in range(4):
+                    acc[w, lane, 4 * j + e] = p[16 * w + g + 8 * (e >= 2),
+                                                8 * j + 2 * t4 + (e & 1)]
+    o = np.zeros((64, dh))
+    for kk in range(S // 8):
+        a = np.empty((64, 8))
+        for w in range(4):
+            for lane in range(32):
+                g, t4 = lane // 4, lane % 4
+                s = acc[w, lane]
+                r = 16 * w + g
+                a[r, t4], a[r + 8, t4] = s[4 * kk], s[4 * kk + 2]
+                a[r, t4 + 4], a[r + 8, t4 + 4] = s[4 * kk + 1], s[4 * kk + 3]
+        o += a @ vt[:, 8 * kk:8 * kk + 8].T
+    np.testing.assert_allclose(o, p @ v[0].astype(np.float64), rtol=1e-12,
+                               atol=1e-12)

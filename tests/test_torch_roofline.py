@@ -129,6 +129,9 @@ TABLE = [
      0.7646379752727273, "operations"),
     ("flash_attention", rl.flash_attention_work(1, 32, 8, 4096, 4096, 128),
      0.13900152467542973, "operations"),
+    ("flash_attention/tf256", rl.flash_attention_work(1, 8, 2, 1024, 1024,
+                                                      256, elem_bytes=4),
+     0.02605552484848485, "operations"),
     ("leaf_stats", rl.leaf_stats_work(1 << 24, 16, 64),
      0.4508094280597015, "bytes"),
     ("leaf_gather", rl.leaf_gather_work(1 << 22, 256, 16),
@@ -164,6 +167,9 @@ def test_work_counts_give_the_chip_runs_bounds(name, work, bms, by):
     (rl.lb_distance_work(256, 1 << 18, 16), 3, 0.160),
     (rl.ed_argmin_work(256, 1 << 24, 256), 2, 13.33),
     (rl.flash_attention_work(1, 32, 8, 4096, 4096, 128), 3, 0.139),
+    # float32 attention as 3xTF32 at the tf32 rate (0.064 at the FMA rate)
+    (rl.flash_attention_work(1, 8, 2, 1024, 1024, 256, elem_bytes=4), 3,
+     0.026),
     (rl.lb_keogh_work(32, 1 << 22, 256), 2, 4.11),
     (rl.dtw_scan_work(32, 1 << 22, 256, 25), 1, 248.9),
     (rl.leaf_stats_work(1 << 24, 16, 64), 3, 0.451),

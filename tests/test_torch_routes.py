@@ -301,8 +301,9 @@ def test_every_head_width_has_an_attention_route():
     instance at least dh (to 256, then the instances of halved O to
     512), on the tensor cores for bfloat16 (by TMA, "tc", where a row is
     whole 16-byte pieces, else by TMA over copies whose rows are padded
-    to them, "staged")
-    and on the FMAs for float32 ("simt"); the wide route only past 512."""
+    to them, "staged"); for float32 on the tensor cores in TF32 from dh
+    129 to 256 ("tf") and on the FMAs below and above ("simt"); the wide
+    route only past 512."""
     widths = flash_attention.INSTANCES + flash_attention.HALVES
     for dh, dtype in itertools.product(range(1, 641),
                                        (torch.bfloat16, torch.float32)):
@@ -313,7 +314,7 @@ def test_every_head_width_has_an_attention_route():
         if dtype == torch.bfloat16:
             name = "tc" if dh % 8 == 0 else "staged"
         else:
-            name = "simt"
+            name = "tf" if 128 < dh <= 256 else "simt"
         width = int(r[len(name):])
         assert r.startswith(name) and width in widths
         assert width >= dh
@@ -325,6 +326,8 @@ def test_the_attention_shapes_before_keep_their_routes():
     for dh in (32, 64, 128):
         assert flash_attention.route(bf16, dh) == f"tc{dh}"
         assert flash_attention.route(f32, dh) == f"simt{dh}"
+    for dh in (129, 160, 200, 255, 256):      # float32 in TF32 (was simt256)
+        assert flash_attention.route(f32, dh) == "tf256"
     assert flash_attention.route(bf16, 96) == "tc96"
     assert flash_attention.route(bf16, 256) == "tc256"
     assert flash_attention.route(bf16, 40) == "tc64"
@@ -338,6 +341,23 @@ def test_the_attention_shapes_before_keep_their_routes():
     assert flash_attention.route(bf16, 520) == "wide"
     assert flash_attention.route(f32, 320) == "simt320"   # O in halves
     assert flash_attention.route(f32, 257) == "simt320"
+
+
+def test_the_tf32_route_splits_once_then_launches_blocks_of_64_rows():
+    """The float32 route at dh 129-256 launches its split of K and V
+    once, then the kernel on blocks of 64 query rows, 65,535 blocks a
+    launch; its scratch is K_hi, K_lo, V^T_hi and V^T_lo: four times K's
+    size where dh is a multiple of 4 and S of 8."""
+    assert flash_attention.ROWS["tf"] == 64
+    top = flash_attention.MAX_QBLOCKS * 64
+    for T, want in ((1, 2), (4096, 2), (top, 2), (top + 1, 3),
+                    (2 * top + 1, 4)):
+        assert flash_attention.query_launches(T, "tf256") == want
+    assert flash_attention.tf32_scratch(1, 2, 1024, 256) == 4 * 2 * 1024 * 256
+    assert flash_attention.tf32_scratch(1, 8, 32768, 256) * 4 == 2 ** 30
+    # dh 255 pads K's rows to 256, S 1001 V^T's to 1008
+    assert flash_attention.tf32_scratch(1, 1, 1001, 255) == \
+        2 * (1001 * 256 + 255 * 1008)
 
 
 @pytest.mark.parametrize("name,rows", [("tc128", 128), ("tc512", 128),
@@ -376,4 +396,4 @@ def test_float32_halves_take_any_t_in_one_launch(name):
     top = flash_attention.MAX_QBLOCKS * flash_attention.ROWS["simt"]
     for T in (1, 4096, top, top + 1, 4 * top + 1):
         assert flash_attention.query_launches(T, name) == 1
-    assert flash_attention.query_launches(top + 1, "simt256") == 2
+    assert flash_attention.query_launches(top + 1, "simt128") == 2
