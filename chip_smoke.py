@@ -8,11 +8,13 @@ kernel table (the dtw rows), the nvidia-smi line and the device line.
 
 Phases, each printing one JSON line:
   device     nvidia-smi's name and power limit, torch's device name;
-  build      nvcc builds of the seven kernel sources under
+  build      nvcc builds of the eight kernel sources under
              src/repro_torch/kernels/csrc;
   ptxas      the registers, spills and wgmma warnings ptxas reports for
-             the attention instances at dh 256 (tc256 in bf16, tf256 in
-             TF32), each required to spill nothing;
+             the attention instances at dh 96 and 256 (tc96 and tc256 in
+             bf16, tf256 in TF32), and the registers and spills of every
+             dtw_scan ring instance (16 to 24 cells a lane), each required
+             to spill nothing;
   kernel     each CUDA kernel against its plain PyTorch version on the card,
              at its path's shapes, with its time, the plain version's time,
              a PyTorch library call's time where one computes the same
@@ -190,9 +192,15 @@ Phases, each printing one JSON line:
              2,709 points at r 27 and 135, 2^14 of 8,192 at r 81, 32
              queries each): search_dtw held to search_dtw_bruteforce, each
              kernel's first query to its plain version, the ring routes'
-             (ring2, ring8, ring16) and the general route's rows beside
-             the chunked LB's; edge runs past the old limits (L 1,025,
-             round_k 2,048, 65,600 queries through the scan);
+             (ring2, ring8, ring16; the scan's ring16, ring18, ring22)
+             and the general route's rows beside the chunked LB's, each
+             scan row with its cells a lane and busy lanes of 32 and,
+             where its radius takes another width, the ring at 16 cells
+             a lane beside it, bit for bit; edge runs past the old limits
+             (L 1,025, round_k 2,048, 65,600 queries through the scan);
+             every template instance of the scan's ring routes (C / 2 a
+             width of C cells a lane) forced once at L 1,025, bit for bit
+             against dtw_scan_ref;
   fidelity   build_index_host over 2^16 seismic_like series of length
              256 under RefreshExecutor, DoAllSplit, FaiBased and CasBased
              at 8 threads: every id in the forest with the one-pass
@@ -298,9 +306,10 @@ def require(ok: bool, what: str) -> None:
 
 
 # the attention instances whose registers and spills the ptxas phase
-# prints, by a piece of their mangled names: bf16 dh 256 on 64-key tiles,
-# and float32 dh 129-256 in TF32
-ATTN_PTXAS = {"tc256": "flash_tc_kernelILi256ELi256E",
+# prints, by a piece of their mangled names: bf16 dh 96 (Phi-3-mini's
+# width), bf16 dh 256 on 64-key tiles, and float32 dh 129-256 in TF32
+ATTN_PTXAS = {"tc96": "flash_tc_kernelILi96ELi96E",
+              "tc256": "flash_tc_kernelILi256ELi256E",
               "tf256": "flash_tf_kernel"}
 
 
@@ -344,6 +353,24 @@ def attention_ptxas(log: str) -> dict:
                 and found[0].get("spill_loads") == 0,
                 f"ptxas: {route} spills: {found[0]}")
     return out
+
+
+def dtw_ptxas(log: str, widths) -> dict:
+    """dtw_scan's ring instances (scan_ring_kernel<C, ML>: C / 2 of each
+    width C of `widths`) in dtw.cu's build log: each must spill nothing.
+    Returns each width's instances and most registers."""
+    found = {}
+    for name, e in ptxas_entries(log).items():
+        m = re.search(r"scan_ring_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            require(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
+                    f"ptxas: scan_ring_kernel<{m[1]}, {m[2]}> spills: {e}")
+            found.setdefault(int(m[1]), []).append(e.get("registers", 0))
+    counts = {c: len(v) for c, v in found.items()}
+    require(counts == {c: c // 2 for c in widths},
+            f"ptxas: ring instances {counts}")
+    return {f"ring{c}": {"instances": len(v), "registers_max": max(v),
+                         "spill_bytes": 0} for c, v in sorted(found.items())}
 
 
 # ----------------------------------------------------------------- kernels
@@ -3450,6 +3477,16 @@ def plain_scan(torch, ref, q1, x, r):
     return (time.perf_counter() - t0) * 1e3, d2, i
 
 
+def scan_layout(kd, route: str, r: int) -> dict:
+    """A dtw_scan wave or ring route's lanes at radius r: its cells a lane
+    and the busy lanes of a warp (H P of 32); {} for the other routes."""
+    cells = {**kd.SCAN_CELLS, **kd.SCAN_RING_CELLS}.get(route)
+    if cells is None:
+        return {}
+    H, P = kd.scan_lanes(r, cells)
+    return {"cells": cells, "busy_lanes": H * P}
+
+
 def scan_rows(torch, kd, ref, x, q, r, want, launches, plain=None):
     """dtw_scan's table row of its wave route at radius r on the queries
     q (nq, L): held to `want` (the brute force's distances and ids: its
@@ -3475,7 +3512,7 @@ def scan_rows(torch, kd, ref, x, q, r, want, launches, plain=None):
                     shape, 0.0, ms, plain_ms, bms, by,
                     {"brute force's queries": "bit-equal",
                      "first query": "bit-equal to dtw_scan_ref"})
-    row |= {"plain_queries": 1, "cells": kd.SCAN_CELLS[route],
+    row |= {"plain_queries": 1, **scan_layout(kd, route, r),
             "launches_on_path": launches.get(f"dtw_scan/{route}", 0)}
     return [row]
 
@@ -3579,11 +3616,12 @@ def dtw_edges(torch, isax, kd, ref, gen):
     at L 16, L 1024 at r 1023 (the general routes, blocks of 16
     threads), and dtw_search at r 128 with round_k 256 and 1024 (its
     general route in passes).  Past the old limits: L 1,025 at r 3 and
-    40 (the ring routes: ring2, ring4 and the scan's ring16), round_k
-    2,048 at L 64 (the general route in two passes; rounds and candidates
-    refined equal to dtw_search_ref's, as every run's), and 65,600
-    queries through the scan (dtw_many_queries).  Every run holds the
-    diag routes of both kernels too."""
+    40 (the ring routes: ring2, ring4 and every width of the scan's,
+    ring16 to ring24), round_k 2,048 at L 64 (the general route in two
+    passes; rounds and candidates refined equal to dtw_search_ref's, as
+    every run's), and 65,600 queries through the scan
+    (dtw_many_queries).  Every run holds the diag routes of both kernels
+    too."""
     edges = []
     wide = [(2999, 100, 4, r, 32) for r in (17, 25, 31, 32, 63, 64, 128,
                                             255)]
@@ -3616,9 +3654,43 @@ def dtw_edges(torch, isax, kd, ref, gen):
             and kd.scan_route(17) == kd.scan_route(255) == "wave16"
             and kd.scan_route(256) == "general", "dtw routes")
     ran = {r for e in edges for r in e["scan_routes"]}
-    require(ran == {"band", "wave16", "ring16", "general", "diag"},
-            f"the edge runs' scan routes {ran}")
+    require(ran == {"band", "wave16", "general", "diag",
+                    *kd.SCAN_RING_CELLS}, f"the edge runs' scan routes {ran}")
     return edges + [dtw_many_queries(torch, kd, ref, gen)]
+
+
+def dtw_ring_instances(torch, isax, kd, ref, gen, n=64, Lx=1025, nq=2):
+    """Every template instance of dtw_scan's ring routes, bit for bit
+    against dtw_scan_ref: a width of C cells a lane is C / 2 instances,
+    one for each count of the top lane's cells inside the band, ML = 2r +
+    1 - C (H - 1) (odd, 1 .. C - 1), each met at r = (C + ML - 1) / 2
+    (H = 2 lanes a pair), at L 1,025 over n z-normalized walks, nq
+    queries, the route forced.  Draws from its own generator (seeded from
+    gen's seed, whose state it leaves as it was).  Returns the check."""
+    g = torch.Generator(device=DEV).manual_seed(gen.initial_seed() + 1)
+    x = isax.znormalize(walks(torch, g, n, Lx)).contiguous()
+    q = isax.znormalize(x[:nq] + 0.1 * torch.randn(
+        nq, Lx, generator=g, device=DEV)).contiguous()
+    by_r = {}
+    for C in kd.SCAN_RING_WIDTHS:
+        for ml in range(1, C, 2):
+            by_r.setdefault((C + ml - 1) // 2, []).append(C)
+    ran = 0
+    for r, widths in sorted(by_r.items()):
+        want = ref.dtw_scan_ref(q, x, r)
+        for C in widths:
+            H, _ = kd.scan_lanes(r, C)
+            require(H == 2, f"ring{C} r {r}: {H} lanes a pair")
+            got = kd.dtw_scan(q, x, r=r, route=f"ring{C}")
+            require(torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1]),
+                    f"dtw_scan ring{C} r {r} (ML {2 * r + 1 - C}): not "
+                    f"bit-equal to dtw_scan_ref")
+            ran += 1
+    require(ran == sum(C // 2 for C in kd.SCAN_RING_WIDTHS),
+            f"ring instances: {ran} run")
+    return {"N": n, "L": Lx, "queries": nq, "instances": ran,
+            "radii": sorted(by_r), "scan": "bit-equal"}
 
 
 def dtw_many_queries(torch, kd, ref, gen, nq=65600, n=64, Lx=16, r=3):
@@ -3650,8 +3722,9 @@ def dtw_long_queries(torch, isax, kmods, ref, gen):
     (8 rounds, pruned and abandoned) and, but for diag, at round_k 256
     (one round: nothing pruned or abandoned, the timed launch, whose
     bound is every refined pair's cells; diag: the round_k 32 launch);
-    dtw_scan on every route that takes the radius (band or ring16,
-    general, diag), bit for bit, then timed on one more launch.  Each
+    dtw_scan on every route that takes the radius (band, the ring widths
+    16 to 24, general, diag), bit for bit, then timed on one more launch,
+    each wave or ring row with its cells a lane and busy lanes.  Each
     route's time beside its bound; launches are this run's.  Returns (reports,
     launches, rows)."""
     kd = kmods["dtw"]
@@ -3734,7 +3807,8 @@ def dtw_long_queries(torch, isax, kmods, ref, gen):
                 DTW_REPLACES.format(173, "search_dtw_bruteforce"),
                 f"{nq} queries x {n} series, L {Lx}, r {r}", 0.0, ms,
                 scan_plain, bms, by, {"all queries":
-                                      "bit-equal to dtw_scan_ref"}))
+                                      "bit-equal to dtw_scan_ref"})
+                | scan_layout(kd, route, r))
         routes = dict(kd.by_route)
         for row in made:
             kernel, rt = row["name"].split("/")
@@ -4130,7 +4204,9 @@ def dtw_long(torch, isax, kmods, ref, gen):
     plain version (LB to 1e-5, the scan bit for bit; the refinement, on a
     ring route at every radius here (ring16 at r 135), of the whole group
     bit for bit, whose trace gives the cells an abandoning DP needs, its
-    bound), and its time beside its bound.  Returns (reports, launches,
+    bound), and its time beside its bound (the scan's row with its cells a
+    lane and busy lanes, and the ring at 16 cells a lane beside it where
+    the radius takes another width).  Returns (reports, launches,
     rows)."""
     from repro_torch.core import dtw as cdtw
     kd = kmods["dtw"]
@@ -4219,6 +4295,20 @@ def dtw_long(torch, isax, kmods, ref, gen):
                     and torch.equal(d2[:1], pd2) and torch.equal(i2[:1], pi),
                     f"dtw_scan L {Lx} r {r}: differs from the brute force's "
                     f"or dtw_scan_ref")
+            # the ring at 16 cells a lane (the layout before the widths by
+            # radius) beside it, bit for bit, one launch timed
+            beside = {}
+            if names["dtw_scan"] != "ring16":
+                e[0].record()
+                d16, i16 = kd.dtw_scan(qz, x, r=r, route="ring16")
+                e[1].record()
+                torch.cuda.synchronize()
+                require(torch.equal(d16, d2) and torch.equal(i16, i2),
+                        f"dtw_scan ring16 L {Lx} r {r}: differs from "
+                        f"{names['dtw_scan']}")
+                beside = {"ring16_ms": e[0].elapsed_time(e[1]),
+                          "ring16": scan_layout(kd, "ring16", r)}
+                del d16, i16
             shape = (f"{DTW_LONG_Q} queries x {n} series, L {Lx}, r {r}")
             made = []
             if r == radii[0]:            # the LB's work does not depend on r
@@ -4248,7 +4338,8 @@ def dtw_long(torch, isax, kmods, ref, gen):
                 DTW_REPLACES.format(173, "search_dtw_bruteforce"), shape,
                 0.0, scan_ms, scan_plain, bms, by,
                 {"brute force": "bit-equal", "first query":
-                 "bit-equal to dtw_scan_ref"}) | {"plain_queries": 1})
+                 "bit-equal to dtw_scan_ref"}) | {"plain_queries": 1}
+                | scan_layout(kd, names["dtw_scan"], r) | beside)
             for kernel in ("dtw_search", "dtw_scan"):
                 launches[f"{kernel}/{names[kernel]}_{tag}"] = routes[
                     f"{kernel}/{names[kernel]}"]
@@ -4580,6 +4671,7 @@ def dtw_path(torch, isax, kmods, ref, gen):
     launches |= more
     rows += more_rows
     rep["edges"] = dtw_edges(torch, isax, kd, ref, gen)
+    rep["ring_instances"] = dtw_ring_instances(torch, isax, kd, ref, gen)
     rep["long_queries"], more, more_rows = dtw_long_queries(
         torch, isax, kmods, ref, gen)
     launches |= more
@@ -4731,9 +4823,16 @@ def main() -> int:
           "ptxas": {k: [ln.strip() for ln in v["ptxas"].splitlines()
                         if "Used" in ln or "spill" in ln]
                     for k, v in rep.items()}})
-    if rep["flash_attention"]["ptxas"]:        # built here, not cached
-        emit({"phase": "ptxas", "attention": attention_ptxas(
-            rep["flash_attention"]["ptxas"])})
+    # (only what was built here, not cached)
+    ptx = {}
+    if rep["flash_attention"]["ptxas"]:
+        ptx["attention"] = attention_ptxas(rep["flash_attention"]["ptxas"])
+    if rep["dtw"]["ptxas"] and rep["dtw_ring"]["ptxas"]:
+        ptx["dtw_scan"] = dtw_ptxas(
+            rep["dtw"]["ptxas"] + rep["dtw_ring"]["ptxas"],
+            ops.WRAPPERS["dtw"].SCAN_RING_WIDTHS)
+    if ptx:
+        emit({"phase": "ptxas", **ptx})
 
     gen = torch.Generator(device=DEV).manual_seed(args.seed)
     # the edge cases draw from their own generator, so that the main phase

@@ -11,14 +11,25 @@ imported, so its kernels are built from its own sources into its own
 build directory.  Each group runs the `chip_smoke.py` function that makes
 those table rows, checks included:
 
-    attention      route_flash: every ATTN_ROWS row of the tree
+    attention      route_flash: every ATTN_ROWS row of the tree, and
+                   granite-8b's row (GRANITE, bf16, causal: the kernel
+                   phase's) by device time
     refine_search  route_refine_search: cta2, cta1, general
     ed_argmin      route_ed_argmin: L 100 f32 and bf16, L 235
     dtw_long       dtw_long_queries: L 16,400 at r 12, 40 and 200
+    dtw_scan       dtw_scan on the tree's default route at the long
+                   series' shapes (DTW_LONG: 32 queries over 2^16 walks
+                   of 2,709 points at r 27 and 135, 2^14 of 8,192 at r
+                   81) and at the dtw cell's wider bands (32 queries
+                   over 2^22 walks of 256 at r 25, 51 and 102: wave16),
+                   one launch timed after one; rows named by shape, each
+                   with its route and a hash of its answers (the trees'
+                   hashes must agree)
 
 Prints one JSON line: the tag, the card (`nvidia-smi`'s name and power
-limit) and each row's ms.  Run parent, change, change, parent and compare
-each row's medians.  Needs a CUDA card; exits 1 without one.
+limit) and each row's ms (and the dtw_scan rows' routes and hashes).  Run
+parent, change, change, parent and compare each row's medians.  Needs a
+CUDA card; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -29,7 +40,31 @@ import os
 import subprocess
 import sys
 
-GROUPS = ("attention", "refine_search", "ed_argmin", "dtw_long")
+GROUPS = ("attention", "refine_search", "ed_argmin", "dtw_long",
+          "dtw_scan")
+
+
+def scan_rows(torch, cs, isax, kd, gen):
+    """The dtw_scan group's rows: ({name: ms}, {name: {route, hash}})."""
+    ms, detail = {}, {}
+    for n, Lx, radii in (*cs.DTW_LONG, (1 << 22, 256, (25, 51, 102))):
+        raw = cs.walks(torch, gen, n, Lx)
+        pick = torch.randint(0, n, (32,), generator=gen, device=cs.DEV)
+        noise = 0.1 * torch.randn(32, Lx, generator=gen, device=cs.DEV)
+        q = isax.znormalize(isax.znormalize(raw[pick]) + noise).contiguous()
+        x = isax.znormalize(raw).contiguous()
+        del raw
+        for r in radii:
+            d2, i = kd.dtw_scan(q, x, r=r)
+            name = f"dtw_scan/L{Lx}_r{r}"
+            ms[name] = cs.time_ms(torch, lambda: kd.dtw_scan(q, x, r=r), 1,
+                                  0)
+            key = ((d2.view(torch.int32).long() << 32) | i.long()).tolist()
+            detail[name] = {"route": kd.scan_route(r, Lx),
+                            "hash": hex(hash(tuple(key)) & (2 ** 64 - 1))}
+        del x, q
+        torch.cuda.empty_cache()
+    return ms, detail
 
 
 def main() -> int:
@@ -73,11 +108,24 @@ def main() -> int:
                                    gen(2))
     if "dtw_long" in groups:
         rows += cs.dtw_long_queries(torch, isax, kmods, ref, gen(6))[2]
+    extra = {}
+    if "attention" in groups:
+        q, k, v = cs.attention_inputs(torch, gen(2), dtype=torch.bfloat16,
+                                      **cs.GRANITE)
+        fk = kmods["flash_attention"]
+        rows.append({"name": "flash_attention/granite", "ms": cs.device_ms(
+            torch, lambda: fk.flash_attention(q, k, v))})
+        del q, k, v
+    if "dtw_scan" in groups:
+        ms, extra["dtw_scan"] = scan_rows(torch, cs, isax, kmods["dtw"],
+                                          gen(6))
+        rows += [{"name": n, "ms": t} for n, t in ms.items()]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(json.dumps({"tag": args.tag, "device": smi,
-                      "ms": {r["name"]: r["ms"] for r in rows}}), flush=True)
+                      "ms": {r["name"]: r["ms"] for r in rows}, **extra}),
+          flush=True)
     return 0
 
 

@@ -50,8 +50,9 @@
 //   C steps over H = ceil((2r + 1) / C) lanes, and a warp runs 32 / H
 //   pairs side by side.  C is the template, r a runtime argument: 2, 4 or
 //   8 (r <= 31, 63, 127) for dtw_search (and 16, r <= 255, past L 1,024),
-//   16 (r <= 255) for dtw_scan.  The series is staged in shared memory
-//   first, or goes through a ring of columns past L 1,024.
+//   16 (r <= 255) for dtw_scan, and past L 1,024 16 to 24 by radius.  The
+//   series is staged in shared memory first, or goes through a ring of
+//   columns past L 1,024.
 // - a block a pair, an anti-diagonal a step (the diag routes of both
 //   kernels, dtw_diag): every r and L, the default where a band of 2r + 1
 //   floats passes a block's shared memory (r > 25,599).
@@ -124,7 +125,13 @@
 // stay BIG or more.  Each (warp, query) keeps its least key in a register
 // across its tiles: one 64-bit atomicMin a warp a query.  Past L 1,024
 // (scan_ring_kernel) a pair's series goes through a ring of columns and the
-// queries come from device memory, the same cells in the same order.
+// queries come from device memory, the same cells in the same order, at C
+// cells a lane chosen by radius (kernels/dtw.py scan_ring_cells: of the
+// even widths 16 to 24, the one that puts the largest share of the warp's
+// lane cells on band cells, the narrowest on ties): at 16 alone, r 135
+// took H = 17 lanes a pair and left 15 of 32 idle, where 18 cells give H
+// = 16 and P = 2.  A cell's instructions are the same at every width, so
+// its bits are too; each width is C / 2 template instances (ML).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -953,6 +960,7 @@ __global__ void scan_kernel(const float* __restrict__ q,
   if ((tid & 31) == 0 && key != ~0ull) atomicMin(keys + g, key);
 }
 
+#ifndef DTW_SCAN_WIDE_RINGS
 // The diag routes' DP: the squared banded DTW of q (L) and x (L), both in
 // device memory, by the whole block, one anti-diagonal t = i + c of the
 // matrix a step: its cells depend only on those of t - 1 (up (i - 1, c),
@@ -1057,6 +1065,8 @@ __global__ void search_diag(const float* __restrict__ q,
     refined_out[g] = refined;
   }
 }
+
+#endif  // DTW_SCAN_WIDE_RINGS
 
 // A wave route's pair (see the top): query row qp (qp[j]: the row of the
 // lane's step j) against series window xp (xp[j + m]: the column of the
@@ -1256,10 +1266,18 @@ __device__ __forceinline__ float scan_pair_ring(
 #pragma unroll
     for (int u = 0; u < C; ++u) step(j0, u);
   }
+  // the last L % C steps one at a time, the window moved down by C - 1
+  // moves a step (w[m]: cell m's column, as at u = 0), so that the
+  // kernel holds one unrolled block of C steps where it held two (each
+  // width is C / 2 instances to build); the moves, at most C - 1 steps of
+  // more than 1,024, cost under 0.5 %
   ensure(L - 1);
+#pragma unroll 1
+  for (; j0 < L; ++j0) {
+    step(j0, 0);
 #pragma unroll
-  for (int u = 0; u < C - 1; ++u)
-    if (j0 + u < L) step(j0, u);
+    for (int m = 0; m < C - 1; ++m) w[m] = w[m + 1];
+  }
   float res = v[0];
 #pragma unroll
   for (int m = 1; m < C; ++m)
@@ -1335,6 +1353,7 @@ scan_ring_kernel(const float* __restrict__ q, const float* __restrict__ x,
   if (lane < nq && best != ~0ull) atomicMin(keys + c0 + lane, best);
 }
 
+#ifndef DTW_SCAN_WIDE_RINGS
 int general_launch(const float* q, const float* x, long long N, int L,
                    int r, int Qg, int round_k, int threads, const float* slb,
                    const long long* order, float* bsf, int* best, int* rounds,
@@ -1357,6 +1376,7 @@ int general_launch(const float* q, const float* x, long long N, int L,
                                     best, rounds, refined);
   return (int)cudaGetLastError();
 }
+#endif  // DTW_SCAN_WIDE_RINGS
 
 // The wave routes, C cells a lane: clusters of kSpec CTAs a query,
 // `threads` / 32 warps a CTA (the wrapper's band_threads), the query, the
@@ -1493,25 +1513,55 @@ int scan_wave_launch(const float* q, const float* x, long long N, int L,
   return (int)cudaGetLastError();
 }
 
-// The instance of scan_wave_launch<C, ML> for ml = 2r + 1 - C (H - 1)
-// (odd, 1 .. C - 1: 2r + 1 is odd and C even).
-template <int C, int ML = 1>
+// The instance of scan_wave_launch<C, ML, RING> for ml = 2r + 1 - C (H -
+// 1) (odd, 1 .. C - 1: 2r + 1 is odd and C even): C / 2 instances a width.
+template <int C, bool RING, int ML = 1>
 int scan_wave(int ml, const float* q, const float* x, long long N, int L,
               int r, int Q, int threads, int qc, int pad, int S, int Lq,
               unsigned long long* keys, cudaStream_t st) {
   if constexpr (ML < C) {
     if (ml == ML)
-      return L > kWholeL ? scan_wave_launch<C, ML, true>(q, x, N, L, r, Q,
-                                                      threads, qc, pad, S,
-                                                      Lq, keys, st)
-                      : scan_wave_launch<C, ML, false>(q, x, N, L, r, Q,
-                                                       threads, qc, pad, S,
-                                                       Lq, keys, st);
-    return scan_wave<C, ML + 2>(ml, q, x, N, L, r, Q, threads, qc, pad, S,
-                                Lq, keys, st);
+      return scan_wave_launch<C, ML, RING>(q, x, N, L, r, Q, threads, qc,
+                                           pad, S, Lq, keys, st);
+    return scan_wave<C, RING, ML + 2>(ml, q, x, N, L, r, Q, threads, qc, pad,
+                                      S, Lq, keys, st);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+}
+
+// The wave route (L <= kWholeL, C = 16) or the ring route of C cells a
+// lane (L > kWholeL, kernels/dtw.py scan_ring_cells) at radius r: C = 16
+// here, and 18, 20, 22 or 24 in the build of dtw_ring.cu (which defines
+// DTW_SCAN_WIDE_RINGS), so that nvcc compiles the two sets of instances
+// at once.
+int scan_wave_route(int C, const float* q, const float* x, long long N,
+                    int L, int r, int Q, int threads, int qc, int pad, int S,
+                    int Lq, unsigned long long* keys, cudaStream_t st) {
+  const int H = (2 * r + C) / C;
+  if (H > 32 || (L <= kWholeL && C != 16)) return (int)cudaErrorInvalidValue;
+  const int ml = 2 * r + 1 - C * (H - 1);
+#define DTW_SCAN_RING(W)                                                   \
+  case W:                                                                  \
+    return scan_wave<W, true>(ml, q, x, N, L, r, Q, threads, qc, pad, S, Lq, \
+                              keys, st)
+  switch (C) {
+#ifdef DTW_SCAN_WIDE_RINGS
+    DTW_SCAN_RING(18);
+    DTW_SCAN_RING(20);
+    DTW_SCAN_RING(22);
+    DTW_SCAN_RING(24);
+#else
+    case 16:
+      return L > kWholeL
+                 ? scan_wave<16, true>(ml, q, x, N, L, r, Q, threads, qc, pad,
+                                       S, Lq, keys, st)
+                 : scan_wave<16, false>(ml, q, x, N, L, r, Q, threads, qc,
+                                        pad, S, Lq, keys, st);
+#endif
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DTW_SCAN_RING
 }
 
 // dtw_lb_keogh with G query slots: as many blocks as the card holds at
@@ -1573,6 +1623,28 @@ int lb_slots(const float* q, const float* x, long long N, int L, int Qg,
 
 }  // namespace
 
+#ifdef DTW_SCAN_WIDE_RINGS
+// dtw_scan's ring route at C = route = 18, 20, 22 or 24 cells a lane (L >
+// 1,024; r <= 255), dtw_scan's arguments (`threads`, `qc` and `S` from the
+// wrapper's scan_geometry; pad, Lq, diag and blocks unused).
+extern "C" int dtw_scan_ring(const void* q, const void* x, long long N,
+                             int L, int r, int Q, int route, int threads,
+                             int qc, int pad, int S, int Lq, void* keys,
+                             void* diag, int blocks, void* stream) {
+  if (N == 0 || Q == 0) return 0;
+  if (r < 0 || L <= kWholeL || N > 0xffffffffll)
+    return (int)cudaErrorInvalidValue;
+  return scan_wave_route(route, static_cast<const float*>(q),
+                         static_cast<const float*>(x), N, L, r, Q, threads,
+                         qc, pad, S, Lq,
+                         static_cast<unsigned long long*>(keys),
+                         static_cast<cudaStream_t>(stream));
+}
+
+extern "C" const char* dtw_scan_ring_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+#else
 // route: 0 "vec" (L % 4 == 0 and x 16-byte aligned: a 16-byte load a
 // series), 1 "scalar" (any L).  q (Qg <= 32, L), x (N, L), out (Qg, N),
 // all float32.  One launch sums the columns [j0, j0 + Lc) (j0 a multiple
@@ -1659,7 +1731,8 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
 // diag route (any r; `threads` whole warps, `blocks` blocks, diag: device
 // scratch of blocks (2r + 3) floats), 16 the wave route of as many cells
 // a lane (r <= 255; `threads`, `qc`, `pad`, `S` and `Lq` from the
-// wrapper's scan_geometry).
+// wrapper's scan_geometry) and its ring form past L 1,024 (the ring
+// route's wider forms are dtw_ring.cu's dtw_scan_ring).
 extern "C" int dtw_scan(const void* q, const void* x, long long N, int L,
                         int r, int Q, int route, int threads, int qc,
                         int pad, int S, int Lq, void* keys, void* diag,
@@ -1680,12 +1753,9 @@ extern "C" int dtw_scan(const void* q, const void* x, long long N, int L,
   if (route == 0) switch (r) {
     DTW_BAND_CASES(scan_launch, qq, xx, N, L, r, Q, threads, k, st)
   }
-  if (route == 16) {
-    const int H = (2 * r + 16) / 16;
-    if (H > 32) return (int)cudaErrorInvalidValue;
-    return scan_wave<16>(2 * r + 1 - 16 * (H - 1), qq, xx, N, L, r, Q,
-                         threads, qc, pad, S, Lq, k, st);
-  }
+  if (route == 16)
+    return scan_wave_route(16, qq, xx, N, L, r, Q, threads, qc, pad, S, Lq,
+                           k, st);
   if (route == 2) {
     scan_diag<<<blocks, threads, 0, st>>>(qq, xx, N, L, r, (long long)Q * N,
                                           static_cast<float*>(diag), k);
@@ -1705,3 +1775,4 @@ extern "C" const char* dtw_search_error(int code) {
 extern "C" const char* dtw_scan_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif  // DTW_SCAN_WIDE_RINGS

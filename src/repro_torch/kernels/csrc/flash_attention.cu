@@ -43,7 +43,8 @@
 //   plain version at 2^-8 |o| + 2e-5, and the output's own rounding takes
 //   up to 2^-9 |o| of that.  Rounding P to bf16 (as repro's TPU kernel
 //   does) errs by 2^-9 relative per term, which is more than the rest
-//   where the terms of an output cancel; P_hi + P_lo errs by ~2^-17.
+//   where the terms of an output cancel; P_hi + P_lo errs by ~2^-16
+//   (P_hi is P's upper half, P_lo the rest rounded: split2).
 //   Design: a block owns 128 query rows of one head; warpgroups 0 and 1
 //   each own 64 of them, warpgroup 2 is the producer, whose one thread
 //   keeps TMA loads of K and V tiles of the KV head h // G in a two-stage
@@ -862,13 +863,20 @@ __device__ __forceinline__ void qk_mma<128>(float (&s)[64], uint64_t da,
   wgmma_m64n128k16_ss_bf16(s, da, db, accumulate);
 }
 
-// (a, b) -> bf16x2 hi = rn(a, b) and lo = rn((a, b) - hi), a in the low half
+// (a, b) -> the bf16x2 A operands P_hi and P_lo, a in the low half of
+// each: hi the upper halves of a and b (one PRMT), whose float32 values
+// are a and b with the lower 16 bits cleared, so that lo = rn((a, b) -
+// hi) rounds remainders float32 holds exactly: one conversion (F2FP) a
+// pair, where rounding hi too took two and hi back to float32 between
+// them; |error| <= 2^-16 p (2^-17 with hi rounded), far inside the check
+// (the CPU model: tests/test_torch_attention.py _attention_bf16_p).
 __device__ __forceinline__ void split2(float a, float b, uint32_t& hi,
                                        uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
+  const uint32_t ua = __float_as_uint(a), ub = __float_as_uint(b);
+  hi = __byte_perm(ua, ub, 0x7632);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(
+      a - __uint_as_float(ua & 0xffff0000u),
+      b - __uint_as_float(ub & 0xffff0000u));
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 

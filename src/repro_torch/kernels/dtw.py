@@ -2,7 +2,8 @@
 of a search, and the brute-force scan.
 
 On CUDA tensors `lb_keogh`, `dtw_search` and `dtw_scan` launch the
-kernels of `csrc/dtw.cu` (a port-side source with no Pallas original:
+kernels of `csrc/dtw.cu` (and `csrc/dtw_ring.cu`, the scan's wider ring
+instances; port-side sources with no Pallas original:
 repro's DTW is plain jnp), by the routes `lb_route`, `dp_route` and
 `scan_route` pick from the shapes, or by another route that takes the
 shape where the caller asks; on CPU tensors they run the plain versions
@@ -43,7 +44,10 @@ MAX_ROUND_K = 1024     # the wave routes' round; the general route's passes
 # cell on an H100 at r 25 and 102 (PERF.md, the table of cells a lane)
 SCAN_CELLS = {"wave16": 16}
 SCAN_MAX_R = {name: (32 * c - 1) // 2 for name, c in SCAN_CELLS.items()}
-SCAN_RING_CELLS = {"ring16": 16}       # the same for L > WHOLE_L
+# the same for L > WHOLE_L, the series through rings, at cells a lane
+# chosen by radius (scan_ring_cells): each width takes every r <= 255
+SCAN_RING_WIDTHS = (16, 18, 20, 22, 24)
+SCAN_RING_CELLS = {f"ring{c}": c for c in SCAN_RING_WIDTHS}
 RING_CHUNK = 32                        # columns a ring fill copies
 STAGE_L = 16384        # the longest query a kernel stages in shared memory
 GROUP = 32                             # queries of one lb_keogh launch
@@ -95,30 +99,57 @@ def dp_route(r: int, L: int = 256, round_k: int = 32) -> str:
     return "general" if general_band_fits(L, r) else "diag"
 
 
+def scan_lanes(r: int, cells: int) -> Tuple[int, int]:
+    """(lanes a pair H = ceil((2r + 1) / cells), pairs a warp P = 32 //
+    H) of dtw_scan's wave and ring routes: H P of a warp's 32 lanes
+    are busy."""
+    H = -(-(2 * r + 1) // cells)
+    return H, 32 // H
+
+
+def scan_ring_cells(r: int) -> int:
+    """The cells a lane C of dtw_scan's ring route at band radius r (17 <=
+    r <= 255 on the default route): of SCAN_RING_WIDTHS, the one that puts
+    the largest share of a warp's lane cells on band cells, P (2r + 1) /
+    (32 C) (H, P = scan_lanes(r, C)), the narrowest on ties.  A cell
+    takes the same instructions at every width, so the share sets the
+    route's speed: idle lanes and the top lane's cells past the band both
+    lower it.  At 16 alone it was 0.79 on average over r 17-255 and 0.50
+    at worst, 120 radii leaving 5 or more lanes idle (r 135: H 17, P 1);
+    with the widths to 24 it is 0.92 on average and 0.75 at worst, at
+    least 25 lanes busy at every radius (r 135: 18 cells, H 16, P 2; r
+    81: 22 cells, H 8, P 4)."""
+    def share(c):
+        H, P = scan_lanes(r, c)
+        return P * (2 * r + 1) / (32 * c)
+    return max(SCAN_RING_WIDTHS, key=lambda c: (share(c), -c))
+
+
 def scan_route(r: int, L: int = 256) -> str:
     """dtw_scan's route for band radius r (at most L - 1) and length L:
     "band" for r <= 16 (a thread a pair, the previous row's band in
     registers, one template instance a radius), "wave16" for r <= 255
     (each pair's band a wavefront over the lanes of a warp, 16 cells a
-    lane, r a runtime argument), "ring16" for the same radii at L > 1024
+    lane, r a runtime argument), "ring<c>" for the same radii at L > 1024
     (the series through a ring of columns, the queries read from device
-    memory), "general" beyond (a thread a pair, the band in shared
-    memory), "diag" where that band passes shared memory
-    (general_band_fits: a block a pair, an anti-diagonal a step)."""
+    memory; c = scan_ring_cells(r) cells a lane), "general" beyond (a
+    thread a pair, the band in shared memory), "diag" where that band
+    passes shared memory (general_band_fits: a block a pair, an
+    anti-diagonal a step)."""
     if r <= MAX_BAND_R:
         return "band"
     if r > SCAN_MAX_R["wave16"]:
         return "general" if general_band_fits(L, r) else "diag"
-    return "wave16" if L <= WHOLE_L else "ring16"
+    return "wave16" if L <= WHOLE_L else f"ring{scan_ring_cells(r)}"
 
 
 def scan_routes(r: int, L: int = 256) -> tuple:
     """Every route of dtw_scan that takes band radius r at length L: its
-    default first, then the wave (or ring) route where its lanes hold
-    the band, "general" where its band fits shared memory, then "diag"
-    (any r)."""
-    wave = tuple(("wave16" if L <= WHOLE_L else "ring16")
-                 for n, top in SCAN_MAX_R.items() if r <= top)
+    default first, then the wave route (L <= 1024) or every ring width
+    (above) where the lanes hold the band, "general" where its band fits
+    shared memory, then "diag" (any r)."""
+    wave = () if r > SCAN_MAX_R["wave16"] else (
+        ("wave16",) if L <= WHOLE_L else tuple(SCAN_RING_CELLS))
     rest = ((("band",) if r <= MAX_BAND_R else ()) + wave
             + (("general",) if general_band_fits(L, r) else ()) + ("diag",))
     first = scan_route(r, L)
@@ -154,13 +185,13 @@ def scan_geometry(L: int, r: int, cells: int, Q: int) -> dict:
     card, so that its CTAs share more (chunk, tiles) units), which only
     frees shared memory.
 
-    At L > 1024 (the "ring16" route) a pair's series goes through a ring
-    of `stride` = ring_size(cells, H) floats in place of a row, and the
-    queries are read from device memory: pad and qstride are 0, and the
-    CTA's warps (16 at most, fewer where their P rings each pass `_SMEM`
-    bytes: 8 at r <= 3) hold P rings each."""
-    H = -(-(2 * r + 1) // cells)
-    P, l0 = 32 // H, r // cells
+    At L > 1024 (the "ring<cells>" routes) a pair's series goes through
+    a ring of `stride` = ring_size(cells, H) floats in place of a row, and
+    the queries are read from device memory: pad and qstride are 0, and
+    the CTA's warps (16 at most, fewer where their P rings each pass
+    `_SMEM` bytes: 8 at r <= 3) hold P rings each."""
+    H, P = scan_lanes(r, cells)
+    l0 = r // cells
     if L > WHOLE_L:
         W = ring_size(cells, H)
         warps = min(_SCAN_WAVE_WARPS, _SMEM // (4 * P * W))
@@ -435,13 +466,17 @@ def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int,
     # all ones: above every (distance bits << 32 | series) key
     keys = torch.full((Q,), -1, dtype=torch.int64, device=dev)
     if Q:
-        fn = _build.entry("dtw", "dtw_scan", _SCAN_ARGTYPES)
+        # the ring route's wider forms are a library of their own
+        # (csrc/dtw_ring.cu), built beside dtw.cu's
+        src, name = (("dtw_ring", "dtw_scan_ring") if cells and cells > 16
+                     else ("dtw", "dtw_scan"))
+        fn = _build.entry(src, name, _SCAN_ARGTYPES)
         with torch.cuda.device(dev):
             code = fn(q.data_ptr(), x.data_ptr(), N, L, r, Q,
                       _SCAN_CODES[route], *shape, keys.data_ptr(),
                       diag.data_ptr() if diag is not None else None,
                       blocks, torch.cuda.current_stream(dev).cuda_stream)
-        _build.check("dtw", "dtw_scan", code)
+        _build.check(src, name, code)
         _count("dtw_scan", route)
     d2 = (keys >> 32).to(torch.int32).view(torch.float32)
     return d2, (keys & 0xFFFFFFFF).to(torch.int32)

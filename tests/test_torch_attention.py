@@ -123,11 +123,18 @@ def test_heads_that_do_not_group_raise():
 
 
 # ----------------------------------------------- the kernel's arithmetic
+def _trunc_bf16(x):
+    """float32 x with its lower 16 bits cleared: the bf16 its upper half
+    is (rounded toward zero), as a PRMT of the upper halves takes it."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
 def _attention_bf16_p(q, k, v, causal=True, window=0, split=True):
     """Attention as the bf16 kernel computes it: scores and softmax in
-    float32, P.V from P as two bf16 operands P_hi + P_lo (split) or P
-    rounded once to bf16 (as repro's kernel does), sums in float32, the
-    output rounded to bf16."""
+    float32, P.V from P as two bf16 operands P_hi + P_lo (split, as
+    csrc/flash_attention.cu split2: P_hi the upper half of P, P_lo = P -
+    P_hi rounded) or P rounded once to bf16 (as repro's kernel does), sums
+    in float32, the output rounded to bf16."""
     B, Hq, T, dh = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     s = torch.einsum("bkgtd,bksd->bkgts",
@@ -139,7 +146,7 @@ def _attention_bf16_p(q, k, v, causal=True, window=0, split=True):
         seen &= j > t - window
     p = torch.exp(s.masked_fill(~seen, ref.NEG_INF)
                   - s.masked_fill(~seen, ref.NEG_INF).amax(-1, keepdim=True))
-    hi = p.to(torch.bfloat16).float()
+    hi = _trunc_bf16(p) if split else p.to(torch.bfloat16).float()
     lo = (p - hi).to(torch.bfloat16).float() if split else 0 * hi
     o = sum(torch.einsum("bkgts,bksd->bkgtd", part, v.float())
             for part in (hi, lo)) / p.sum(-1, keepdim=True)
@@ -161,7 +168,7 @@ def test_p_in_two_bf16_halves_holds_the_card_limit_where_one_does_not():
     """Keys in pairs that nearly coincide and values in pairs v, -v: each
     row's output is a small remainder of terms that cancel.  One bf16 P
     errs by 2^-9 of each term, far beyond the limit on that remainder;
-    P_hi + P_lo errs by ~2^-17 and stays within it."""
+    P_hi + P_lo errs by at most 2^-16 and stays within it."""
     rng = np.random.default_rng(21)
     T, dh = 64, 32
     k = rng.standard_normal((1, 1, T, dh)).astype(np.float32)
@@ -186,6 +193,38 @@ def test_p_in_two_bf16_halves_holds_the_card_limit_with_gqa(causal, window):
     assert _excess(_attention_bf16_p(q, k, v, **kw), q, k, v, **kw) <= 0
     assert _excess(_attention_bf16_p(q, k, v, split=False, **kw), q, k, v,
                    **kw) > 0
+
+
+def test_the_split_holds_the_card_limit_at_phi3_width():
+    """At Phi-3-mini's head width (dh 96, Hq = Hkv, causal, T 512: the
+    tc96 instance's shape) the split stays within 2^-8 |plain| + 2e-5,
+    where one bf16 P misses the limit."""
+    q, k, v = (_bf16(a) for a in _qkv(1, 4, 4, 512, 96, seed=96))
+    assert _excess(_attention_bf16_p(q, k, v), q, k, v) <= 0
+    assert _excess(_attention_bf16_p(q, k, v, split=False), q, k, v) > 0
+
+
+def test_truncated_high_half_bounds_the_split_error():
+    """split2, element by element on P in (2^-40, 2^8] (the stale max lets
+    P reach 2^8): P_hi has P's upper 16 bits, P - P_hi is exact in
+    float32, P_hi and P_lo are bf16 values, and |P - (P_hi + P_lo)| <=
+    2^-16 P (2^-17 P where P_hi is rounded too)."""
+    rng = np.random.default_rng(3)
+    p = torch.from_numpy(np.exp2(rng.uniform(-40, 8, 1 << 16))
+                         .astype(np.float32))
+    hi = _trunc_bf16(p)
+    assert torch.equal(hi, hi.to(torch.bfloat16).float())
+    assert bool((p.view(torch.int32) >> 16 == hi.view(torch.int32) >> 16)
+                .all())
+    assert torch.equal((p - hi).double(), p.double() - hi.double())
+    lo = (p - hi).to(torch.bfloat16).float()
+    assert torch.equal(lo, lo.to(torch.bfloat16).float())
+    err = (p.double() - hi.double() - lo.double()).abs() / p.double()
+    assert float(err.max()) <= 2 ** -16
+    hr = p.to(torch.bfloat16).float()
+    lr = (p - hr).to(torch.bfloat16).float()
+    err_r = (p.double() - hr.double() - lr.double()).abs() / p.double()
+    assert float(err_r.max()) <= 2 ** -17
 
 
 # ------------------------------------------- every head width repro takes

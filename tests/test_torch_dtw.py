@@ -528,18 +528,27 @@ def _scan_warp(q, xs, r, cells):
             at = xp[:, None] + j + np.arange(C)
             assert ((at >= 0) & (at < tile.size)).all()
             t = qrow[qp + j][:, None] - tile[at]
-            d = t * t
-            nv = np.empty_like(v)
-            left = v[(lane + 31) % 32, C - 1]
-            nv[:, 0] = d[:, 0] + np.fmin(np.fmin(v[:, 0], v[:, 1]), left)
-            up = np.where(top, big, np.append(nv[1:, 0], nv[31, 0]))
-            for m in range(1, C):
-                lft = np.where(top, big, nv[:, m - 1]) if m == ML \
-                    else nv[:, m - 1]
-                u = v[:, m + 1] if m + 1 < C else up
-                nv[:, m] = d[:, m] + np.fmin(np.fmin(v[:, m], u), lft)
-            v = nv
+            v = _wave_step(v, t * t, top, ML)
     return v[np.arange(xs.shape[0]) * H + l0, m0]
+
+
+def _wave_step(v, d, top, ML):
+    """One step of a warp's 32 lanes (csrc/dtw.cu wave_cells): v (32, C)
+    their cells of the last step, d (32, C) this step's squared
+    differences; cell 0's left the lane below's last cell (lane 0 reading
+    lane 31), the last cell's up the lane above's cell 0 of this step
+    (lane 31 its own), on a `top` lane the left of cell ML and that up
+    BIG.  Returns this step's cells."""
+    C, lane, big = v.shape[1], np.arange(32), np.float32(ref.BIG)
+    nv = np.empty_like(v)
+    left = v[(lane + 31) % 32, C - 1]
+    nv[:, 0] = d[:, 0] + np.fmin(np.fmin(v[:, 0], v[:, 1]), left)
+    up = np.where(top, big, np.append(nv[1:, 0], nv[31, 0]))
+    for m in range(1, C):
+        lft = np.where(top, big, nv[:, m - 1]) if m == ML else nv[:, m - 1]
+        u = v[:, m + 1] if m + 1 < C else up
+        nv[:, m] = d[:, m] + np.fmin(np.fmin(v[:, m], u), lft)
+    return nv
 
 
 @pytest.mark.parametrize("r", [0, 1, 3, 12, 17, 25, 40, 127, 254, 255])
@@ -672,22 +681,132 @@ def _wave_ring_reads(x, r, cells):
 @pytest.mark.parametrize("L", [1025, 2709, 8192])
 def test_ring_windows_read_what_the_whole_rows_read(L):
     """The ring routes' column windows (L > 1024: dtw_search's ring2 /
-    ring4 / ring8, dtw_scan's ring16) at lengths past what a block stages
-    whole: every column a lane reads has landed in its slot and is not
-    being overwritten, and equals the whole row's value there, for radii
-    across each route's range; the rings are those ring_size gives, a
-    few KB, whatever L."""
+    ring4 / ring8, dtw_scan's ring routes at 16 cells a lane and at the
+    width each radius takes) at lengths past what a block stages whole:
+    every column a lane reads has landed in its slot and is not being
+    overwritten, and equals the whole row's value there, for radii across
+    each route's range; the rings are those ring_size gives, a few KB,
+    whatever L."""
     rng = np.random.default_rng(L)
     x = rng.standard_normal(L).astype(np.float32)
     for r in (17, 27, 81, 135, 255):
-        assert _scan_ring_reads(x, r) >= L
-        H = -(-(2 * r + 1) // 16)
-        assert kdtw.ring_size(16, H) <= 1024
+        for C in sorted({16, kdtw.scan_ring_cells(r)}):
+            assert _scan_ring_reads(x, r, C) >= L
+            H = -(-(2 * r + 1) // C)
+            assert kdtw.ring_size(C, H) <= 1024
     for route, rs in (("ring2", (0, 12, 27, 31)), ("ring4", (40, 63)),
                       ("ring8", (81, 127)), ("ring16", (128, 135, 255))):
         for r in rs:
             assert kdtw.dp_route(r, L) == route
             assert _wave_ring_reads(x, r, kdtw.wave_cells(route)) > 0
+
+
+def _scan_ring_warp(q, xs, r, cells):
+    """One warp of csrc/dtw.cu's scan_ring_kernel (L > 1024), lane by lane
+    in numpy float32: query q (L,) from device memory (+poison outside [0,
+    L)) against the tile's series xs (n <= P, L), each pair's columns
+    through its own ring (_Ring: -poison outside [0, L), `ensure` before
+    each block of `cells` steps; idle lanes read the last pair's ring and
+    slots past n the last series, as the kernel's clamps do), the cells of
+    _wave_step.  Returns each series' cell (L - 1, r), on its lane l0."""
+    C, L, n = cells, q.shape[0], xs.shape[0]
+    H, P = kdtw.scan_lanes(r, C)
+    l0, m0 = r // C, r % C
+    ML = 2 * r + 1 - C * (H - 1)
+    assert ML % 2 == 1 and 1 <= ML < C
+    lane = np.arange(32)
+    slot, ll = lane // H, lane % H
+    live = slot < P
+    top = live & (ll == H - 1)
+    c_lo, reach = l0 - r, (C - 1) * (H - 1) + C - 1
+    rings = [_Ring(xs[min(p, n - 1)], C, H, c_lo, L - 1 + c_lo + reach,
+                   poison=-_POISON) for p in range(P)]
+    pair = np.minimum(slot, P - 1)
+    cl = l0 + (C - 1) * ll - r
+    qpad = np.concatenate([np.full(H + r, _POISON, np.float32), q,
+                           np.full(H + r, _POISON, np.float32)])
+
+    def ensure(j_last):
+        for ring in rings:
+            ring.ensure(min(j_last, L - 1) + c_lo + reach)
+
+    def window(cols):                 # (32, k) columns -> their values
+        out = np.empty(cols.shape, np.float32)
+        for p, ring in enumerate(rings):
+            at = pair == p
+            out[at] = ring.read(cols[at].ravel()).reshape(cols[at].shape)
+        return out
+    v = np.full((32, C), np.float32(ref.BIG), np.float32)
+    v[live & (ll == l0), m0] = 0
+    with np.errstate(over="ignore"):
+        for j0 in range(0, L, C):
+            ensure(j0 + C - 1)
+            for j in range(j0, min(j0 + C, L)):
+                qi = qpad[H + r + j + l0 - ll]
+                t = qi[:, None] - window(cl[:, None] + j + np.arange(C))
+                v = _wave_step(v, t * t, top, ML)
+    return v[np.arange(n) * H + l0, m0]
+
+
+@pytest.mark.parametrize("r", [17, 27, 40, 81, 135, 200, 255])
+def test_scan_ring_program_equals_the_band(r):
+    """The ring route's lane program at the cells a lane its radius takes
+    (scan_ring_cells: 18 at r 17 and 135, 22 at r 40 and 81, 16 at r 27,
+    200 and 255) and at 16 (the layout before the widths), past L 1,024:
+    every pair's cell (L - 1, r) has dtw_band_ref's bits, for a full tile
+    of P series and one short of it (a slot past the collection)."""
+    L = 1031
+    rng = np.random.default_rng(r)
+    q = np.cumsum(rng.standard_normal(L)).astype(np.float32)
+    for C in sorted({kdtw.scan_ring_cells(r), 16}):
+        P = kdtw.scan_lanes(r, C)[1]
+        for n in sorted({P, max(1, P - 1)}):
+            xs = np.cumsum(rng.standard_normal((n, L)), 1).astype(np.float32)
+            want = ref.dtw_band_ref(_t(q)[None], _t(xs), r).numpy()
+            assert np.array_equal(_scan_ring_warp(q, xs, r, C), want), \
+                (r, C, n)
+
+
+def test_ring_widths_compute_each_band_cell_once():
+    """For every r in 17-255 at L > 1,024, the ring route's geometry
+    (scan_ring_cells, scan_lanes, scan_geometry): a pair's lanes hold
+    band offset k as lane k // C's cell k % C and, over the kernel's
+    steps j = 0 .. L - 1, form row j + l0 - ll on lane ll, so every band
+    cell of the matrix is formed exactly once a pair; the cells past the
+    band lie on the top lane only (ML .. C - 1); at least 25 of a warp's
+    32 lanes are busy (30.5 on average); the pairs' rings fit the CTA's
+    shared memory."""
+    L = 1100
+    busy = []
+    for r in range(17, 256):
+        C = kdtw.scan_ring_cells(r)
+        H, P = kdtw.scan_lanes(r, C)
+        l0 = r // C
+        assert C in kdtw.SCAN_RING_WIDTHS and H * P <= 32
+        assert C * (H - 1) < 2 * r + 1 <= C * H       # the top lane in it
+        busy.append(H * P)
+        g = kdtw.scan_geometry(L, r, C, 32)
+        assert (g["lanes"], g["pairs"]) == (H, P)
+        assert g["smem"] == 4 * (g["threads"] // 32) * P * g["stride"] \
+            <= 200 * 1024
+        ll, m = np.meshgrid(np.arange(H), np.arange(C), indexing="ij")
+        k = (C * ll + m).ravel()
+        band = k <= 2 * r
+        assert band.sum() == 2 * r + 1 and len(set(k)) == H * C
+        assert (~band == ((ll.ravel() == H - 1)
+                          & (m.ravel() >= 2 * r + 1 - C * (H - 1)))).all()
+        j = np.arange(L)[:, None]
+        i = j + l0 - ll.ravel()[None]                  # the row a step
+        c = i - r + k[None]
+        inside = (i >= 0) & (i < L) & (c >= 0) & (c < L) & band[None]
+        cells = (i[inside] * (2 * r + 1) + k[None].repeat(L, 0)[inside])
+        assert len(np.unique(cells)) == cells.size == _band_cells(L, r)
+    assert min(busy) >= 25 and np.mean(busy) >= 30.5
+
+
+def _band_cells(L, r):
+    """Cells of an L x L matrix within the band |i - c| <= r."""
+    return sum(min(L - 1, i + r) - max(0, i - r) + 1 for i in range(L))
 
 
 def _diag_program(q, x, r):

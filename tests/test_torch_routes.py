@@ -243,13 +243,17 @@ def test_every_dtw_shape_has_a_route(L):
         assert "diag" in dtw.scan_routes(r, L)
         assert ("general" in dtw.scan_routes(r, L)) == \
             dtw.general_band_fits(L, r)
-        if {"wave16", "ring16"} & set(dtw.scan_routes(r, L)):
-            assert {"wave16", "ring16"} & set(dtw.scan_routes(r, L)) == {
-                "wave16" if L <= 1024 else "ring16"}
-            for Q in (1, 32, 65600):
-                g = dtw.scan_geometry(L, r, 16, Q)
-                assert g["smem"] <= 200 * 1024 and 1 <= g["queries"] <= 32
-                assert 32 <= g["threads"] <= 512
+        cells = {**dtw.SCAN_CELLS, **dtw.SCAN_RING_CELLS}
+        waves = set(cells) & set(dtw.scan_routes(r, L))
+        if waves:
+            assert waves == ({"wave16"} if L <= 1024
+                             else set(dtw.SCAN_RING_CELLS))
+            for route in waves:
+                for Q in (1, 32, 65600):
+                    g = dtw.scan_geometry(L, r, cells[route], Q)
+                    assert g["smem"] <= 200 * 1024
+                    assert 1 <= g["queries"] <= 32
+                    assert 32 <= g["threads"] <= 512
         elif scan == "general":
             assert 1 <= dtw.general_threads(L, r, 64) <= 64
 
@@ -277,7 +281,7 @@ def test_dtw_shapes_before_the_rings_keep_their_routes():
     assert dtw.band_threads(135, 2709, 32, 16) == 512
     assert dtw.dp_route(12, 64, 2048) == "general"
     assert dtw.scan_route(27, 2709) == "ring16"
-    assert dtw.scan_route(135, 2709) == "ring16"
+    assert dtw.scan_route(135, 2709) == "ring18"    # 16 cells a lane: 17
     assert dtw.scan_route(16, 65600) == "band"
     assert (dtw.lb_group(2709), dtw.lb_chunk(2709)) == (32, 800)
     # a band of 2r + 1 floats past a block's shared memory (r above
@@ -294,6 +298,47 @@ def test_dtw_shapes_before_the_rings_keep_their_routes():
     assert dtw.scan_routes(25600, 60000) == ("diag",)
     assert dtw.diag_threads(0) == 32 and dtw.diag_threads(40) == 64
     assert all(dtw.general_band_fits(L, L - 1) for L in (1, 1024, 16384))
+
+
+def test_ring_scan_cells_by_radius():
+    """dtw_scan past L 1,024 takes its cells a lane by radius
+    (scan_ring_cells): of the even widths 16-24, the one that puts the
+    largest share of a warp's lane cells on band cells, P (2r + 1) / (32
+    C), the narrowest on ties.  Over r 17-255 that share is 0.92 on
+    average and 0.75 at worst (0.79 and 0.50 at 16 cells alone), and
+    every radius keeps at least 25 of 32 lanes busy (at 16 cells alone
+    17 at r 135 and 128-143), 30.5 on average (26.4 at 16 alone); the
+    long cell's radii: r 27 stays at 16 cells (H 4, P 8: 32 busy), r 81
+    takes 22 (H 8, P 4: 32, from 22) and r 135 18 (H 16, P 2: 32, from
+    17); r 255 stays at 16 (H 32).  At L <= 1,024 the wave route keeps
+    16 cells."""
+    def lanes_busy(r, c):
+        H, P = dtw.scan_lanes(r, c)
+        return H * P
+
+    def share(r, c):
+        return dtw.scan_lanes(r, c)[1] * (2 * r + 1) / (32 * c)
+    busy, at16, shares = {}, {}, []
+    for r in range(17, 256):
+        C = dtw.scan_ring_cells(r)
+        busy[r], at16[r] = lanes_busy(r, C), lanes_busy(r, 16)
+        assert busy[r] >= 25
+        assert share(r, C) == max(share(r, c) for c in dtw.SCAN_RING_WIDTHS)
+        assert share(r, C) >= share(r, 16)
+        shares.append((share(r, C), share(r, 16)))
+        assert dtw.scan_route(r, 2709) == f"ring{C}"
+        assert dtw.scan_route(r, 1024) == "wave16"
+    assert min(busy.values()) == 25 and min(at16.values()) == 17
+    assert round(sum(busy.values()) / len(busy), 1) == 30.5
+    assert round(sum(at16.values()) / len(at16), 1) == 26.4
+    new, old = np.array(shares).T
+    assert (round(new.mean(), 2), round(new.min(), 2)) == (0.92, 0.75)
+    assert (round(old.mean(), 2), round(old.min(), 2)) == (0.79, 0.5)
+    assert [dtw.scan_route(r, 2709) for r in (27, 81, 135, 255)] == [
+        "ring16", "ring22", "ring18", "ring16"]
+    assert [busy[r] for r in (27, 81, 135, 255)] == [32, 32, 32, 32]
+    assert [at16[r] for r in (27, 81, 135, 255)] == [32, 22, 17, 32]
+    assert dtw.scan_ring_cells(17) == 18 and dtw.scan_lanes(17, 16) == (3, 10)
 
 
 def test_every_head_width_has_an_attention_route():
