@@ -355,22 +355,34 @@ def attention_ptxas(log: str) -> dict:
     return out
 
 
-def dtw_ptxas(log: str, widths) -> dict:
+def dtw_ptxas(log: str, widths, diag_rows) -> dict:
     """dtw_scan's ring instances (scan_ring_kernel<C, ML>: C / 2 of each
-    width C of `widths`) in dtw.cu's build log: each must spill nothing.
-    Returns each width's instances and most registers."""
-    found = {}
+    width C of `widths`) and the diag routes' (scan_strips<K> and
+    search_strips<K>, K of `diag_rows`) in dtw.cu's build log: each must
+    spill nothing.  Returns each ring width's instances and most
+    registers, and each diag instance's registers."""
+    found, diag = {}, {}
     for name, e in ptxas_entries(log).items():
         m = re.search(r"scan_ring_kernelILi(\d+)ELi(\d+)E", name)
         if m:
             require(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
                     f"ptxas: scan_ring_kernel<{m[1]}, {m[2]}> spills: {e}")
             found.setdefault(int(m[1]), []).append(e.get("registers", 0))
+        m = re.search(r"(scan|search)_stripsILi(\d+)E", name)
+        if m:
+            require(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
+                    f"ptxas: {m[1]}_strips<{m[2]}> spills: {e}")
+            diag[f"{m[1]}_strips<{m[2]}>"] = {
+                "registers": e.get("registers", 0), "spill_bytes": 0}
     counts = {c: len(v) for c, v in found.items()}
     require(counts == {c: c // 2 for c in widths},
             f"ptxas: ring instances {counts}")
+    require(sorted(diag) == sorted(f"{k}_strips<{K}>" for K in diag_rows
+                                   for k in ("scan", "search")),
+            f"ptxas: diag instances {sorted(diag)}")
     return {f"ring{c}": {"instances": len(v), "registers_max": max(v),
-                         "spill_bytes": 0} for c, v in sorted(found.items())}
+                         "spill_bytes": 0} for c, v in sorted(found.items())
+            } | diag
 
 
 # ----------------------------------------------------------------- kernels
@@ -3462,6 +3474,9 @@ DTW_LONGQ = (256, 16400, 4, (12, 40, 200))
 # the band past a block's shared memory (r > 25,599, the diag routes'
 # default): (series, L, queries, r)
 DTW_DEVBAND = (3, 25700, 2, 25650)
+# the full window, r = L - 1, where the general routes are the default:
+# (series, L, queries)
+DTW_FULL = (256, 1024, 4)
 DTW_SRC = "src/repro_torch/kernels/csrc/dtw.cu"
 DTW_REPLACES = ("none: a port-side kernel (src/repro/core/dtw.py:{} {} is "
                 "plain jnp, no Pallas kernel)")
@@ -3833,7 +3848,8 @@ def dtw_device_band(torch, isax, kmods, ref, gen):
     """A band past a block's shared memory (DTW_DEVBAND: L 25,700, r
     25,650, 3 walks, 2 queries), through core.dtw.search_dtw and
     search_dtw_bruteforce, every count at 0 first: both take the diag
-    routes (a pair a block, the band in device scratch).  Holds: ids
+    routes (strips of rows, each a warp's, a pair's strips on many SMs at
+    once; their geometry in the report).  Holds: ids
     equal, distances equal to the brute force's; each kernel at its
     launch held to its plain version (lb_keogh to 1e-5, dtw_search and
     dtw_scan bit for bit against dtw_search_ref and dtw_scan_ref on one
@@ -3922,6 +3938,10 @@ def dtw_device_band(torch, isax, kmods, ref, gen):
     launches = {f"{k}/diag_{tag}": routes.get(f"{k}/diag", 0)
                 for k in ("dtw_search", "dtw_scan")}
     rep = {"series": n, "L": Lx, "queries": nq, "r": r,
+           "geometry": {
+               "search": kd.diag_search_geometry(nq, n, Lx, r, DTW_RK),
+               "scan": kd.diag_scan_geometry(nq, n, Lx, r),
+               "held": kd._diag_held(x.device, kd.diag_rows(r))},
            "search_dtw_ms": search_ms, "bruteforce_ms": brute_ms,
            "band_ref_ms": band_ms, "lb_rel_err": lb_err, "by_route": routes,
            "cells_a_pair": cells, "refined": n_ref,
@@ -3930,6 +3950,102 @@ def dtw_device_band(torch, isax, kmods, ref, gen):
                | {"launches": launches[row["name"]]} for row in rows},
            "seconds": time.perf_counter() - t_run}
     del raw, queries, x, qz, lb, s, o, dp
+    torch.cuda.empty_cache()
+    return rep, launches, rows
+
+
+def dtw_full_window(torch, isax, kmods, ref, gen):
+    """Both kernels at the full window (DTW_FULL: 4 queries x 256
+    z-normalized walks, L 1,024, r 1,023), where the general routes are
+    the default, on the general and the diag route: each launch timed once
+    by CUDA events and held bit for bit to dtw_search_ref (round_k 32) or
+    dtw_scan_ref on one dtw_band_ref call's distances, beside its bound
+    (every refined pair's cells: neither route abandons; the scan's every
+    pair's).  A row each; no default moves.  Draws from its own generator
+    (seeded from gen's seed), whose state it leaves as it was.  Returns
+    (report, launches, rows)."""
+    kd = kmods["dtw"]
+    n, Lx, nq = DTW_FULL
+    r = Lx - 1
+    t_run = time.perf_counter()
+    g = torch.Generator(device=DEV).manual_seed(gen.initial_seed() + 2)
+    x = isax.znormalize(walks(torch, g, n, Lx)).contiguous()
+    pick = torch.randint(0, n, (nq,), generator=g, device=DEV)
+    q = isax.znormalize(x[pick] + 0.1 * torch.randn(
+        nq, Lx, generator=g, device=DEV)).contiguous()
+    require(kd.dp_route(r, Lx, DTW_RK) == kd.scan_route(r, Lx) == "general",
+            "dtw full window: the general routes are not the default")
+    s, o = torch.sort(kd.lb_keogh(q, x, r=r), dim=1, stable=True)
+    torch.cuda.synchronize()
+    # one dtw_band_ref call serves both plain versions: its time is in each
+    t0 = time.perf_counter()
+    dp = ref.dtw_band_ref(q[:, None], x[None], r)
+    torch.cuda.synchronize()
+    band_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = ref.dtw_search_ref(q, x, s, o, r, DTW_RK, d_pairs=dp)
+    torch.cuda.synchronize()
+    search_plain = band_ms + (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    scan_want = ref.dtw_scan_ref(q, x, r, d_pairs=dp)
+    torch.cuda.synchronize()
+    scan_plain = band_ms + (time.perf_counter() - t0) * 1e3
+
+    def once(fn):                        # (fn(), its device ms)
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        out = fn()
+        e[1].record()
+        torch.cuda.synchronize()
+        return out, e[0].elapsed_time(e[1])
+    shape = f"{nq} queries x {n} series, L {Lx}, r {r}"
+    before = dict(kd.by_route)
+    rows, checks = [], {}
+    for route in ("general", "diag"):
+        got, ms = once(lambda: kd.dtw_search(q, x, s, o, r=r, round_k=DTW_RK,
+                                             route=route))
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"dtw_search {route} full window: not bit-equal to "
+                f"dtw_search_ref")
+        n_ref, n_rounds = int(got[3].sum()), int(got[2].sum())
+        bms, by = rl.dtw_search_work(n_ref * rl.dtw_cells(Lx, r), n_ref, Lx,
+                                     n_rounds, DTW_RK).bound()
+        checks[f"dtw_search/{route}"] = "bit-equal to dtw_search_ref"
+        rows.append(route_row(
+            "dtw_search", f"{route}_full", DTW_SRC,
+            DTW_REPLACES.format(122, "search_dtw"),
+            f"{shape}, round_k {DTW_RK} ({n_rounds} rounds, {n_ref} "
+            f"refined)", 0.0, ms, search_plain, bms, by,
+            {"all queries": "bit-equal to dtw_search_ref"}))
+    for route in ("general", "diag"):
+        got, ms = once(lambda: kd.dtw_scan(q, x, r=r, route=route))
+        require(torch.equal(got[0], scan_want[0])
+                and torch.equal(got[1], scan_want[1]),
+                f"dtw_scan {route} full window: not bit-equal to "
+                f"dtw_scan_ref")
+        bms, by = rl.dtw_scan_work(nq, n, Lx, r).bound()
+        checks[f"dtw_scan/{route}"] = "bit-equal to dtw_scan_ref"
+        rows.append(route_row(
+            "dtw_scan", f"{route}_full", DTW_SRC,
+            DTW_REPLACES.format(173, "search_dtw_bruteforce"), shape, 0.0,
+            ms, scan_plain, bms, by,
+            {"all queries": "bit-equal to dtw_scan_ref"}))
+    after = dict(kd.by_route)
+    launches = {}
+    for row in rows:
+        kernel, rt = row["name"].split("/")
+        key = f"{kernel}/{rt[:-len('_full')]}"
+        launches[row["name"]] = after.get(key, 0) - before.get(key, 0)
+    rep = {"series": n, "L": Lx, "queries": nq, "r": r, "checks": checks,
+           "band_ref_ms": band_ms,
+           "geometry": {"search": kd.diag_search_geometry(nq, n, Lx, r,
+                                                          DTW_RK),
+                        "scan": kd.diag_scan_geometry(nq, n, Lx, r)},
+           "kernels": {row["name"]: {k: row[k] for k in (
+               "ms", "bound_ms", "plain_ms")}
+               | {"launches": launches[row["name"]]} for row in rows},
+           "seconds": time.perf_counter() - t_run}
+    del x, q, s, o, dp
     torch.cuda.empty_cache()
     return rep, launches, rows
 
@@ -4429,8 +4545,9 @@ def dtw_path(torch, isax, kmods, ref, gen):
     (dtw_wide), the wider bands' (dtw_wider), lb_keogh at other lengths
     (dtw_lb_lengths), the long series' (dtw_long), the edge runs
     (dtw_edges), the long queries' (dtw_long_queries, past the longest
-    query a kernel stages) and a band past shared memory
-    (dtw_device_band, the diag routes)."""
+    query a kernel stages), a band past shared memory
+    (dtw_device_band, the diag routes) and the full window, r = L - 1,
+    on the general and the diag routes (dtw_full_window)."""
     from repro_torch.core import dtw as cdtw
     kd = kmods["dtw"]
     t_phase = time.perf_counter()
@@ -4680,6 +4797,10 @@ def dtw_path(torch, isax, kmods, ref, gen):
         torch, isax, kmods, ref, gen)
     launches |= more
     rows += more_rows
+    rep["full_window"], more, more_rows = dtw_full_window(
+        torch, isax, kmods, ref, gen)
+    launches |= more
+    rows += more_rows
     rep["rows"] = rows
     rep["seconds"] = time.perf_counter() - t_phase
     return rep, launches, rows
@@ -4828,9 +4949,10 @@ def main() -> int:
     if rep["flash_attention"]["ptxas"]:
         ptx["attention"] = attention_ptxas(rep["flash_attention"]["ptxas"])
     if rep["dtw"]["ptxas"] and rep["dtw_ring"]["ptxas"]:
-        ptx["dtw_scan"] = dtw_ptxas(
+        ptx["dtw"] = dtw_ptxas(
             rep["dtw"]["ptxas"] + rep["dtw_ring"]["ptxas"],
-            ops.WRAPPERS["dtw"].SCAN_RING_WIDTHS)
+            ops.WRAPPERS["dtw"].SCAN_RING_WIDTHS,
+            ops.WRAPPERS["dtw"].DIAG_ROWS)
     if ptx:
         emit({"phase": "ptxas", **ptx})
 

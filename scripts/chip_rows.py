@@ -25,6 +25,13 @@ those table rows, checks included:
                    one launch timed after one; rows named by shape, each
                    with its route and a hash of its answers (the trees'
                    hashes must agree)
+    dtw_band       the diag routes of dtw_search (round_k 32) and
+                   dtw_scan at the device band (DTW_DEVBAND: L 25,700, r
+                   25,650, their default) and at the long queries'
+                   shape (DTW_LONGQ: L 16,400, r 12, 40 and 200, the
+                   route forced), one launch timed after one, each with a
+                   hash of its answers (the trees' must agree); rows named
+                   `<kernel>/diag_L<L>_r<r>_band`
 
 Prints one JSON line: the tag, the card (`nvidia-smi`'s name and power
 limit) and each row's ms (and the dtw_scan rows' routes and hashes).  Run
@@ -41,7 +48,7 @@ import subprocess
 import sys
 
 GROUPS = ("attention", "refine_search", "ed_argmin", "dtw_long",
-          "dtw_scan")
+          "dtw_scan", "dtw_band")
 
 
 def scan_rows(torch, cs, isax, kd, gen):
@@ -63,6 +70,42 @@ def scan_rows(torch, cs, isax, kd, gen):
             detail[name] = {"route": kd.scan_route(r, Lx),
                             "hash": hex(hash(tuple(key)) & (2 ** 64 - 1))}
         del x, q
+        torch.cuda.empty_cache()
+    return ms, detail
+
+
+def band_rows(torch, cs, isax, kd, gen):
+    """The dtw_band group's rows: ({name: ms}, {name: {route, hash}})."""
+    ms, detail = {}, {}
+    n, Lx, nq, r = cs.DTW_DEVBAND
+    raw = cs.walks(torch, gen, n, Lx)
+    pick = torch.randint(0, n, (nq,), generator=gen, device=cs.DEV)
+    noise = 0.1 * torch.randn(nq, Lx, generator=gen, device=cs.DEV)
+    shapes = [(isax.znormalize(isax.znormalize(raw[pick]) + noise)
+               .contiguous(), isax.znormalize(raw).contiguous(), (r,))]
+    n, Lx, nq, radii = cs.DTW_LONGQ
+    x = isax.znormalize(cs.walks(torch, gen, n, Lx)).contiguous()
+    pick = torch.randint(0, n, (nq,), generator=gen, device=cs.DEV)
+    q = isax.znormalize(x[pick] + 0.1 * torch.randn(
+        nq, Lx, generator=gen, device=cs.DEV)).contiguous()
+    shapes.append((q, x, radii))
+    for q, x, radii in shapes:
+        Lx = x.shape[1]
+        for r in radii:
+            s, o = torch.sort(kd.lb_keogh(q, x, r=r), dim=1, stable=True)
+            for kernel, call in (
+                    ("dtw_search", lambda: kd.dtw_search(
+                        q, x, s, o, r=r, round_k=cs.DTW_RK, route="diag")),
+                    ("dtw_scan", lambda: kd.dtw_scan(q, x, r=r,
+                                                     route="diag"))):
+                out = call()
+                name = f"{kernel}/diag_L{Lx}_r{r}_band"
+                ms[name] = cs.time_ms(torch, call, 1, 0)
+                key = tuple(v for t in out for v in t.tolist())
+                detail[name] = {"route": "diag",
+                                "hash": hex(hash(key) & (2 ** 64 - 1))}
+            del s, o
+        del q, x
         torch.cuda.empty_cache()
     return ms, detail
 
@@ -118,6 +161,10 @@ def main() -> int:
         del q, k, v
     if "dtw_scan" in groups:
         ms, extra["dtw_scan"] = scan_rows(torch, cs, isax, kmods["dtw"],
+                                          gen(6))
+        rows += [{"name": n, "ms": t} for n, t in ms.items()]
+    if "dtw_band" in groups:
+        ms, extra["dtw_band"] = band_rows(torch, cs, isax, kmods["dtw"],
                                           gen(6))
         rows += [{"name": n, "ms": t} for n, t in ms.items()]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -53,9 +53,13 @@
 //   16 (r <= 255) for dtw_scan, and past L 1,024 16 to 24 by radius.  The
 //   series is staged in shared memory first, or goes through a ring of
 //   columns past L 1,024.
-// - a block a pair, an anti-diagonal a step (the diag routes of both
-//   kernels, dtw_diag): every r and L, the default where a band of 2r + 1
-//   floats passes a block's shared memory (r > 25,599).
+// - strips of rows a pair, a warp a strip (the diag routes of both
+//   kernels, strip_dp): every r and L, the default where a band of 2r + 1
+//   floats passes a block's shared memory (r > 25,599).  A pair's rows in
+//   strips of 32 K (K rows a lane), each swept column by column as a
+//   skewed wavefront over the lanes, a strip handing its last row to the
+//   next through device scratch: a pair's strips run on many warps of
+//   many SMs at once (see "the diag routes" below).
 
 // dtw_lb_keogh: each block first builds the group's envelopes (rolling
 // min and max of each query over +-r) in shared memory, (lo, hi) side by
@@ -90,7 +94,8 @@
 // the wave routes' pairs keep a ring of columns in place of the whole row
 // (dtw_wave's RING; ring16 too, r <= 255), and a query past kStageL points
 // is read from device memory, so no route's shared memory grows with L
-// but the general route's bands (the diag route takes over past them).
+// but the general route's bands (the diag route, which keeps none, takes
+// over past them).
 //
 // dtw_scan, band and general routes: one thread a (query, series) pair, q
 // in shared memory (to kStageL points); the pair's (d^2 bits << 32 |
@@ -961,104 +966,458 @@ __global__ void scan_kernel(const float* __restrict__ q,
 }
 
 #ifndef DTW_SCAN_WIDE_RINGS
-// The diag routes' DP: the squared banded DTW of q (L) and x (L), both in
-// device memory, by the whole block, one anti-diagonal t = i + c of the
-// matrix a step: its cells depend only on those of t - 1 (up (i - 1, c),
-// left (i, c - 1)) and t - 2 (diag (i - 1, c - 1)), so the block's threads
-// form them at once, then meet at a barrier.  The band lives in a (2r + 3
-// floats of device scratch, L1 and L2 holding it), one value an offset
-// e = i - c in [-r, r] and BIG beyond each end: a step writes the offsets
-// of t's parity and reads those of the other (t - 1's cells, left and up)
-// and its own (t - 2's, diag), so one array serves, updated in place.  A
-// cell outside the matrix is never written: it reads as BIG.  Each cell
-// is dtw_band_ref's __fsub_rn, __fmul_rn, exact mins and __fadd_rn on the
-// same operands, so the bits are the same.  Every thread returns cell (L -
-// 1, L - 1).
-__device__ float dtw_diag(const float* __restrict__ q,
-                          const float* __restrict__ x, int L, int r,
-                          float* a) {
-  float* A = a + r + 1;                  // A[e], e in [-r - 1, r + 1]
-  __syncthreads();                       // the last pair's result is read
-  for (int e = threadIdx.x; e < 2 * r + 3; e += blockDim.x) a[e] = kBig;
-  __syncthreads();
-  for (int t = 0; t <= 2 * L - 2; ++t) {
-    // t's cells: the offsets of t's parity in [-hi, hi], hi = min(r, t,
-    // 2L - 2 - t) (ternaries: nvcc's max() of two negative ints read r)
-    int hi = r < t ? r : t;
-    hi = hi < 2 * L - 2 - t ? hi : 2 * L - 2 - t;
-    for (int e = -hi + ((t - hi) & 1) + 2 * (int)threadIdx.x; e <= hi;
-         e += 2 * (int)blockDim.x) {
-      const float d = cell_d(q[(t + e) >> 1], x[(t - e) >> 1]);
-      A[e] = t == 0 ? d
-                    : __fadd_rn(d, fminf(fminf(A[e], A[e - 1]), A[e + 1]));
+// ------------------------------------------------------ the diag routes
+// Strips of rows (see the top): a pair's matrix in strips of S = 32 K rows, K
+// rows a lane (kernels/dtw.py diag_rows), each strip a warp's.  Strip s (rows
+// s S ..) spans the columns lo = max(0, s S - r) .. hi = min(L - 1, s S + S -
+// 1 + r).  The warp sweeps them as a skewed wavefront, steps j = lo .. hi +
+// 31 in whole chunks of 32 (steps past hi read columns past the band: BIG):
+// lane l is at column j - l and forms its rows i0 = s S + K l .. i0 + K - 1
+// there, top to bottom, each cell from the cell above (the row before, this
+// step; the lane's first row takes lane l - 1's last row of the step before,
+// one shuffle), its left (the lane's own cell of the step before) and its
+// diagonal (the up of the step before).  The query's K values sit in
+// registers and the series' value is one 4-byte load a lane a step (L1, two
+// steps ahead): no shared memory, no block barrier.  Lane 0's first row reads
+// the strip above's last row, which that strip's lane 31 stored as it went:
+// one 64-bit entry a column (the float's bits, the strip's tag above them) in
+// its pair's row of device scratch (column c at c - lo, the strip's first
+// column).  The warp reads them 32 columns at a time, a column a lane, the
+// next 32 loaded while these are used, and spins until each entry it needs
+// carries the tag of the strip above: one store is seen whole, so the tag is
+// the flag and no fence is needed.  Each strip writes the row over the
+// entries of the strip above as it goes: it stores column c at entry c - lo
+// after it has read the strip above's entry there, that strip's column c -
+// (its lo - the lo above) <= c, so no entry is overwritten unread (the tests
+// run the hand-over in random orders of chunks).
+//
+// Strips are taken in dependency order by an atomic ticket: pairs in
+// batches of `slots` (a scratch slot each), chains of strips (one warp
+// running them in order; one strip a chain but in dtw_scan at a narrow
+// band) chain-major within a batch, so a strip waits only on a strip
+// taken earlier, by a warp that is already running, and a slot's next
+// pair only on its last one (`done`, a count a slot): every wait is one
+// warp's spin, so no schedule deadlocks, even where not every CTA is
+// resident at once.
+//
+// The cells are dtw_band_ref's __fsub_rn, __fmul_rn, exact mins and
+// __fadd_rn on the same operands.  A chunk of 32 steps whose cells all
+// lie inside the band and the matrix (`inner`: most of a wide band) runs
+// without tests; elsewhere a cell outside the band is set to BIG, and a
+// row or column outside the matrix reads a poisoned value (the query's
+// +kPoison, the series' -kPoison: their squared difference is infinity).
+// Each cell inside so reads its neighbours inside and BIG or more
+// elsewhere, cell (0, 0) a diagonal of 0, and any order of the steps gives
+// the plain version's bits.  ref.dtw_strip_ref models this program: its
+// steps, chunks, entries, offsets and tags.
+constexpr int kDiagScanThreads = 256;     // scan_strips' CTA (8 warps)
+// search_strips' CTA: 16 warps, one CTA an SM (at 1024 threads the 64
+// registers a thread spilled)
+constexpr int kDiagSearchThreads = 512;
+constexpr unsigned kAll = 0xffffffffu;
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+// Strong (relaxed, device scope) 64-bit loads and stores: served by L2,
+// never a stale L1 line, and a concurrent store is seen whole or not.
+__device__ __forceinline__ unsigned long long ld_strong(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void st_strong(unsigned long long* p,
+                                          unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" :: "l"(p), "l"(v));
+}
+
+// A spin that has waited kStuckNs since `t0` (the global timer's ns)
+// traps: every wait is on a warp already running, so only a fault can
+// wait that long, and a failed launch raises where a hung one would hold
+// the card.
+constexpr unsigned long long kStuckNs = 20ull * 1000 * 1000 * 1000;
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ void stuck(unsigned long long t0) {
+  if (now_ns() - t0 > kStuckNs) __trap();
+}
+
+// Every lane's entry e (read from p; `want` false: none needed) carries
+// `tag`: spins until they do.  While waiting only the lane of the highest
+// column wanted polls (the strip above stores its columns in order), the
+// sleeps growing to 256 ns, so that a waiting warp costs L2 one load a
+// poll, not 32; once that entry is in, the lanes still short reload.
+__device__ __forceinline__ void settle(unsigned long long& e,
+                                       const unsigned long long* p,
+                                       bool want, unsigned tag) {
+  auto in = [&] { return !want || (unsigned)(e >> 32) == tag; };
+  if (__all_sync(kAll, in())) return;
+  const int lane = threadIdx.x & 31;
+  const int top = 31 - __clz(__ballot_sync(kAll, want));
+  const unsigned long long t0 = now_ns();
+  unsigned nap = 32;
+  for (;;) {
+    __nanosleep(nap);
+    nap = nap < 256 ? 2 * nap : 256;
+    stuck(t0);
+    if (lane == top && !in()) e = ld_strong(p);
+    if (!__shfl_sync(kAll, in(), top)) continue;
+    if (!in()) e = ld_strong(p);
+    if (__all_sync(kAll, in())) return;
+  }
+}
+
+// The count at p (the same for every lane) reaches `want`.
+__device__ __forceinline__ void await_count(const unsigned long long* p,
+                                            unsigned long long want) {
+  const unsigned long long t0 = now_ns();
+  unsigned nap = 32;
+  while (!__all_sync(kAll, ld_strong(p) >= want)) {
+    __nanosleep(nap);
+    nap = nap < 1024 ? 2 * nap : 1024;
+    stuck(t0);
+  }
+}
+
+// The columns of the strip whose first row is s0: [strip_lo, strip_hi]
+// (written with ternaries: nvcc's max() of such negative ints once read r
+// on the card).
+__device__ __forceinline__ int strip_lo(int s0, int r) {
+  return s0 - r > 0 ? s0 - r : 0;
+}
+
+__device__ __forceinline__ int strip_hi(int s0, int S, int r, int L) {
+  return s0 + S - 1 + r < L - 1 ? s0 + S - 1 + r : L - 1;
+}
+
+// Strip s of the pair (q, x), K rows a lane (see above).  `in`: the strip
+// above's last row (null for s = 0), its entries tagged in_tag; `out`:
+// where this strip's last row goes (null for the pair's last strip),
+// tagged out_tag.  Returns cell (L - 1, L - 1) on the lane that holds row
+// L - 1 (on the pair's last strip), BIG on the others.
+template <int K>
+__device__ float strip_dp(const float* __restrict__ q,
+                          const float* __restrict__ x, int L, int r, int s,
+                          const unsigned long long* in, unsigned in_tag,
+                          unsigned long long* out, unsigned out_tag) {
+  constexpr int W = 32, S = W * K;    // lanes, rows
+  const int lane = threadIdx.x & (W - 1);
+  const int s0 = s * S, lo = strip_lo(s0, r), hi = strip_hi(s0, S, r, L);
+  const int ilo = strip_lo(s0 - S, r), ihi = strip_hi(s0 - S, S, r, L);
+  const int i0 = s0 + K * lane;
+  float qv[K], v[K];
+#pragma unroll
+  for (int a = 0; a < K; ++a) {
+    const float qa = __ldg(q + (i0 + a < L ? i0 + a : L - 1));
+    qv[a] = i0 + a < L ? qa : kPoison;
+    v[a] = kBig;
+  }
+  const bool full = s0 + S <= L;
+  const int la = L - 1 - i0;          // row L - 1's place on its lane
+  float res = kBig;
+  // lane 0's diagonal at its first column lo: the row above at lo - 1
+  // (cell (0, 0): 0); every other lane's first cell lies outside the band
+  float dprev = kBig;
+  if (in == nullptr) {
+    if (lane == 0) dprev = 0.f;
+  } else if (lo - 1 >= ilo && lo - 1 <= ihi) {
+    unsigned long long e = ld_strong(in + (lo - 1 - ilo));
+    settle(e, in + (lo - 1 - ilo), true, in_tag);
+    if (lane == 0) dprev = __uint_as_float((unsigned)e);
+  }
+  auto from_above = [&](int c) {
+    return in != nullptr && c >= ilo && c <= ihi;
+  };
+  const int jend = hi + W - 1;        // lane W - 1's last column is hi
+  unsigned long long nx = 0;          // the entry of column j0 + lane
+  if (from_above(lo + lane)) nx = ld_strong(in + (lo + lane - ilo));
+  const bool store = out != nullptr && lane == W - 1;
+  // the step of column L - 1 on the lane of row L - 1 (-1: not this strip)
+  const int jres = s0 + S >= L ? L - 1 + (L - 1 - s0) / K : -1;
+  // step j (u of its chunk, xc the lane's series value): lane 0 takes its
+  // up from the chunk's upc.  BAND: a cell outside the band is set to
+  // BIG; RARE: columns past the matrix (poisoned), the result and the ends
+  // of the stored row too
+  auto step = [&](int j, int u, float upc, float xc, auto band, auto rare) {
+    constexpr bool BAND = decltype(band)::value;
+    constexpr bool RARE = decltype(rare)::value;
+    const int c = j - lane;
+    const float below = __shfl_up_sync(kAll, v[K - 1], 1);
+    const float top = __shfl_sync(kAll, upc, u);
+    float up = lane == 0 ? top : below;
+    float diag = dprev;
+    dprev = up;
+    const int e = i0 + r - c;         // row i0's offset in the band, i - c + r
+#pragma unroll
+    for (int a = 0; a < K; ++a) {
+      float nv = __fadd_rn(cell_d(qv[a], xc), fminf(fminf(diag, v[a]), up));
+      if constexpr (BAND) {
+        if ((unsigned)(e + a) > (unsigned)(2 * r)) nv = kBig;
+      }
+      diag = v[a];
+      up = nv;
+      v[a] = nv;
     }
-    __syncthreads();
+    if constexpr (RARE) {
+      if (c == L - 1) {
+#pragma unroll
+        for (int a = 0; a < K; ++a)
+          if (a == la) res = v[a];
+      }
+    }
+    if (store && (!RARE || (c >= lo && c <= hi)))
+      st_strong(out + (c - lo),
+                (static_cast<unsigned long long>(out_tag) << 32)
+                    | __float_as_uint(v[K - 1]));
+  };
+  // a chunk's W steps, whole (steps past the strip's last read columns
+  // past its band: BIG; their stores, where not RARE, land in the row's 32
+  // entries of padding), each lane's series value loaded two steps ahead
+  auto chunk = [&](int j0, float upc, auto band, auto rare) {
+    constexpr bool RARE = decltype(rare)::value;
+    auto xat = [&](int j) {
+      const int c = j - lane;
+      if constexpr (RARE) {    // a clamped address: never read past x
+        const float xc = __ldg(x + (c < 0 ? 0 : c < L ? c : L - 1));
+        return (unsigned)c < (unsigned)L ? xc : -kPoison;
+      } else {
+        return __ldg(x + c);
+      }
+    };
+    float xa = xat(j0), xb = xat(j0 + 1);
+#pragma unroll 8
+    for (int u = 0; u < W; ++u) {
+      const float xc = xa;
+      xa = xb;
+      if (u + 2 < W) xb = xat(j0 + u + 2);
+      step(j0 + u, u, upc, xc, band, rare);
+    }
+  };
+  for (int j0 = lo; j0 <= jend; j0 += W) {
+    float upc = kBig;                 // the row above at column j0 + lane
+    if (in != nullptr) {
+      const int c = j0 + lane;
+      const bool want = from_above(c);
+      settle(nx, in + (c - ilo), want, in_tag);
+      if (want) upc = __uint_as_float((unsigned)nx);
+      if (from_above(c + W)) nx = ld_strong(in + (c + W - ilo));
+    }
+    // the chunk's columns j0 - W + 1 .. j0 + W - 1 inside the matrix
+    const bool cols = j0 >= W - 1 && j0 + W - 1 <= L - 1;
+    // every cell of steps j0 .. j0 + W - 1 inside the band too: rows s0 ..
+    // s0 + S - 1, offsets i - c from s0 - j0 - W + 1 to s0 + S - 1 - j0 +
+    // W - 1
+    const bool inner = cols && full && s0 + S + W - 2 - j0 <= r
+                       && j0 + W - 1 - s0 <= r;
+    // no result here, and lane W - 1's columns (j0 - W + 1 ..) from lo on
+    // (the same for every lane: the paths' shuffles name the whole warp)
+    const bool plain = cols && (jres < j0 || jres > j0 + W - 1)
+                       && (out == nullptr || j0 - (W - 1) >= lo);
+    if (inner)
+      chunk(j0, upc, Flag<false>(), Flag<false>());
+    else if (plain)
+      chunk(j0, upc, Flag<true>(), Flag<false>());
+    else
+      chunk(j0, upc, Flag<true>(), Flag<true>());
   }
-  return A[0];
+  return res;
 }
 
-// dtw_scan's diag route (any L and r, the default where a band passes a
-// block's shared memory: kernels/dtw.py general_band_fits): each block
-// takes pairs (query g, series n) blockIdx.x and on by the grid, a pair
-// by the whole block (dtw_diag, its 2r + 3 floats of scratch at a +
-// blockIdx.x (2r + 3)), one 64-bit atomicMin a pair.
-__global__ void scan_diag(const float* __restrict__ q,
-                          const float* __restrict__ x, long long N, int L,
-                          int r, long long pairs, float* a,
-                          unsigned long long* keys) {
-  float* ab = a + (long long)blockIdx.x * (2 * r + 3);
-  for (long long p = blockIdx.x; p < pairs; p += gridDim.x) {
-    const long long g = p / N, n = p - g * N;
-    const float d = dtw_diag(q + g * L, x + n * L, L, r, ab);
-    if (threadIdx.x == 0) atomicMin(keys + g, pack(d, (unsigned)n));
+// A ticket t of a batch of `slots` pairs (of `pairs`), `chains` chains
+// of strips each, chain-major within the batch: (batch b, chain h, slot
+// p), pair b slots + p.
+__device__ __forceinline__ void strip_ticket(unsigned long long t,
+                                             long long pairs, int slots,
+                                             int chains, long long& b,
+                                             int& h, int& p) {
+  const long long per = (long long)slots * chains;
+  b = (long long)t / per;
+  const long long rem = (long long)t - b * per;
+  const long long in_b = pairs - b * slots < slots ? pairs - b * slots
+                                                   : slots;
+  h = (int)(rem / in_b);
+  p = (int)(rem - h * in_b);
+}
+
+// The strips of chain h of a pair (q, x) in slot row `row` (`width`
+// entries), one after another on one warp: strips h G .. h G + G - 1 of
+// its ns, tags from tag0 (strip s: tag0 + s).  A strip of a chain finds
+// the strip above's row whole when the warp ran that strip too.
+// Returns cell (L - 1, L - 1) on the lane of row L - 1 (the pair's last
+// strip), BIG elsewhere.
+template <int K>
+__device__ float strip_chain(const float* __restrict__ q,
+                             const float* __restrict__ x, int L, int r,
+                             int h, int G, int ns,
+                             unsigned long long* row, int width,
+                             unsigned tag0) {
+  float d = kBig;
+  const int end = h * G + G < ns ? h * G + G : ns;
+  for (int s = h * G; s < end; ++s)
+    d = strip_dp<K>(q, x, L, r, s, s > 0 ? row : nullptr, tag0 + s - 1,
+                    s + 1 < ns ? row : nullptr, tag0 + s);
+  return d;
+}
+
+// dtw_scan's diag route: the Q N pairs (query g, series n) = pair g N + n,
+// their strips in chains of G (a ticket each: one warp runs a chain's
+// strips in order, kernels/dtw.py diag_scan_geometry: all of a pair's
+// where the band is narrow, else 1) in one ticket space over a persistent
+// grid (as many CTAs as the card holds, diag_grid).  Scratch sc: the
+// ticket, `done` (slots), then each slot's row of `width` entries;
+// zeroed by the wrapper.  A pair's last strip gives its distance to the
+// query's 64-bit atomicMin on (d bits << 32 | series).
+template <int K>
+__global__ void __launch_bounds__(kDiagScanThreads, K < 8 ? 3 : 2)
+scan_strips(const float* __restrict__ q, const float* __restrict__ x,
+            long long N, int L, int r, long long pairs, int slots,
+            int width, int G, unsigned long long* sc,
+            unsigned long long* keys) {
+  constexpr int S = 32 * K;
+  const int ns = (L + S - 1) / S, chains = (ns + G - 1) / G;
+  const int lane = threadIdx.x & 31;
+  unsigned long long* ticket = sc;
+  unsigned long long* done = sc + 1;
+  unsigned long long* rows = done + slots;
+  const unsigned long long total = (unsigned long long)pairs * chains;
+  for (;;) {
+    unsigned long long t = 0;
+    if (lane == 0) t = atomicAdd(ticket, 1ull);
+    t = __shfl_sync(kAll, t, 0);
+    if (t >= total) break;
+    long long b;
+    int h, p;
+    strip_ticket(t, pairs, slots, chains, b, h, p);
+    const long long pair = b * slots + p, g = pair / N, n = pair - g * N;
+    if (h == 0 && b > 0) await_count(done + p, (unsigned long long)b);
+    const float d = strip_chain<K>(q + g * L, x + n * L, L, r, h, G, ns,
+                                   rows + (long long)p * width, width,
+                                   (unsigned)(b * ns) + 1);
+    if (h == chains - 1) {
+      if (lane == (L - 1) % S / K) atomicMin(keys + g, pack(d, (unsigned)n));
+      __syncwarp();
+      if (lane == 0) st_strong(done + p, (unsigned long long)b + 1);
+    }
   }
 }
 
-// dtw_search's diag route (any L, r and round_k, the default where a band
-// passes a block's shared memory): the refinement of query blockIdx.x by
-// the whole block, a round's candidates below the best-so-far of its
-// start in order, each pair by dtw_diag; the round's first minimum (the
-// least distance, the first on ties) replaces the best-so-far where it is
-// lower, and the next round's first bound decides the stop, as in
-// search_general.
-__global__ void search_diag(const float* __restrict__ q,
-                            const float* __restrict__ x, long long N, int L,
-                            int r, int round_k,
-                            const float* __restrict__ slb,
-                            const long long* __restrict__ order,
-                            float* bsf_out, int* best_out, int* rounds_out,
-                            int* refined_out, float* a) {
-  const int g = blockIdx.x;
-  float* ab = a + (long long)g * (2 * r + 3);
+// dtw_search's diag route: the refinement of query blockIdx.x / (cluster
+// size) of the group by a cluster of CTAs (16 where the card holds one,
+// else 8: kernels/dtw.py diag_cluster).  A round: warp 0 of CTA 0 lists
+// the candidates whose bound lies below the best-so-far of the round's
+// start (`take`, in order), then after a cluster barrier every warp takes
+// their strips by ticket (a strip a ticket: a round's few pairs need their
+// strips spread over the cluster's warps; batches of `slots` pairs, each
+// a scratch slot); the pair's last strip gives (d bits << 32 | its
+// place in the round) to the round's 64-bit atomicMin, whose least is the
+// round's first minimum, read after a second barrier.  Then, in every
+// thread alike, as in search_general: the best-so-far and its id, the
+// rounds, the candidates refined, and the stop at the next round's first
+// bound.  Scratch (a query's per_query entries, zeroed): the ticket, the
+// count taken, the rounds' keys by parity, `done` (slots), the list
+// (min(round_k, N)), then each slot's row of `width` entries.  Tags
+// go on across the rounds (`base`: the batches of the rounds before), so
+// no entry of an earlier round passes for this one's.
+template <int K>
+__global__ void __launch_bounds__(kDiagSearchThreads, 1)
+search_strips(const float* __restrict__ q, const float* __restrict__ x,
+              long long N, int L, int r, int round_k,
+              const float* __restrict__ slb,
+              const long long* __restrict__ order, float* bsf_out,
+              int* best_out, int* rounds_out, int* refined_out,
+              unsigned long long* scratch, int slots, int width,
+              long long per_query) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int S = 32 * K;
+  const int rank = (int)cluster.block_rank();
+  const int g = blockIdx.x / (int)cluster.num_blocks();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ns = (L + S - 1) / S;
+  const long long listed = N < round_k ? N : round_k;
+  unsigned long long* sc = scratch + (long long)g * per_query;
+  unsigned long long* ticket = sc;
+  unsigned long long* taken = sc + 1;
+  unsigned long long* rkey = sc + 2;
+  unsigned long long* done = sc + 4;
+  unsigned long long* list = done + slots;
+  unsigned long long* rows = list + listed;
   const float* qg = q + (long long)g * L;
   const float* lb = slb + (long long)g * N;
   const long long* ord = order + (long long)g * N;
   const long long end = (N + round_k - 1) / round_k * round_k;
   float bsf = kBig;
-  long long best = -1;
-  int rounds = 0, refined = 0;
+  long long best = -1, base = 0;
+  int rounds = 0, refined = 0, par = 0;
   bool go = end > 0 && lb[0] < kBig;
   for (long long cursor = 0; go; cursor += round_k) {
-    float dmin = kBig;
-    long long at = -1;
-    for (long long pos = cursor; pos < cursor + round_k && pos < N; ++pos) {
-      if (lb[pos] < bsf) {
-        const float d = dtw_diag(qg, x + ord[pos] * L, L, r, ab);
-        ++refined;
-        if (d < dmin) {
-          dmin = d;
-          at = pos;
-        }
+    if (rank == 0 && warp == 0) {
+      const int here = (int)(N - cursor < round_k ? N - cursor : round_k);
+      long long n_take = 0;
+      for (int j0 = 0; j0 < here; j0 += 32) {
+        const int j = j0 + lane;
+        const bool take = j < here && lb[cursor + j] < bsf;
+        const unsigned m = __ballot_sync(kAll, take);
+        if (take)
+          st_strong(list + n_take + __popc(m & ((1u << lane) - 1)),
+                    (unsigned long long)j);
+        n_take += __popc(m);
+      }
+      if (lane == 0) {
+        st_strong(ticket, 0);
+        st_strong(taken, (unsigned long long)n_take);
+        st_strong(rkey + par, ~0ull);
       }
     }
+    cluster.sync();
+    const long long nt = (long long)ld_strong(taken);
+    const unsigned long long total = (unsigned long long)nt * ns;
+    for (;;) {
+      unsigned long long t = 0;
+      if (lane == 0) t = atomicAdd(ticket, 1ull);
+      t = __shfl_sync(kAll, t, 0);
+      if (t >= total) break;
+      long long b;
+      int s, p;
+      strip_ticket(t, nt, slots, ns, b, s, p);
+      const unsigned j = (unsigned)ld_strong(list + b * slots + p);
+      if (s == 0 && b > 0)
+        await_count(done + p, (unsigned long long)(base + b));
+      unsigned long long* row = rows + (long long)p * width;
+      const unsigned tag = (unsigned)((base + b) * ns + s) + 1;
+      const float d = strip_dp<K>(qg, x + ord[cursor + j] * L, L, r, s,
+                                  s > 0 ? row : nullptr, tag - 1,
+                                  s + 1 < ns ? row : nullptr, tag);
+      if (s == ns - 1) {
+        if (lane == (L - 1) % S / K) atomicMin(rkey + par, pack(d, j));
+        __syncwarp();
+        if (lane == 0)
+          st_strong(done + p, (unsigned long long)(base + b) + 1);
+      }
+    }
+    cluster.sync();
+    const unsigned long long key = ld_strong(rkey + par);
+    const float dmin = __uint_as_float((unsigned)(key >> 32));
     if (dmin < bsf) {
       bsf = dmin;
-      best = ord[at];
+      best = ord[cursor + (unsigned)(key & 0xffffffffu)];
     }
     ++rounds;
+    refined += (int)nt;
+    base += (nt + slots - 1) / slots;
     go = cursor + round_k < end && lb[cursor + round_k] < bsf;
+    par ^= 1;
   }
-  if (threadIdx.x == 0) {
+  if (rank == 0 && threadIdx.x == 0) {
     bsf_out[g] = bsf;
     best_out[g] = (int)best;
     rounds_out[g] = rounds;
@@ -1376,6 +1735,119 @@ int general_launch(const float* q, const float* x, long long N, int L,
                                     best, rounds, refined);
   return (int)cudaGetLastError();
 }
+
+// The diag routes at K rows a lane, the wrapper's geometry
+// (kernels/dtw.py diag_scan_geometry, diag_search_geometry) checked
+// against what the kernels read: `width` entries hold a strip's columns,
+// min(L, 2r + 32 K), and 32 of padding, and every tag of a launch fits in
+// 31 bits.
+bool diag_fits(int L, int r, int K, int slots, int width,
+               long long batches) {
+  const int ns = (L + 32 * K - 1) / (32 * K);
+  const long long cols = 2LL * r + 32 * K < L ? 2LL * r + 32 * K : L;
+  return slots >= 1 && width >= cols + 32 && batches * ns < 0x7fffffffLL;
+}
+
+template <int K>
+int diag_scan_launch(const float* q, const float* x, long long N, int L,
+                     int r, int Q, int slots, int width, int G, int blocks,
+                     unsigned long long* sc, unsigned long long* keys,
+                     cudaStream_t st) {
+  const long long pairs = (long long)Q * N;
+  if (blocks < 1 || G < 1
+      || !diag_fits(L, r, K, slots, width, (pairs + slots - 1) / slots))
+    return (int)cudaErrorInvalidValue;
+  scan_strips<K><<<blocks, kDiagScanThreads, 0, st>>>(
+      q, x, N, L, r, pairs, slots, width, G, sc, keys);
+  return (int)cudaGetLastError();
+}
+
+// Clusters of `cluster` CTAs (16: a non-portable size), one a query; a
+// query's scratch is 4 + slots + min(round_k, N) + slots width entries.
+template <int K>
+int diag_search_launch(const float* q, const float* x, long long N, int L,
+                       int r, int Qg, int round_k, int slots, int width,
+                       int cluster, const float* slb, const long long* order,
+                       float* bsf, int* best, int* rounds, int* refined,
+                       unsigned long long* sc, cudaStream_t st) {
+  const long long listed = N < round_k ? N : round_k;
+  if ((cluster != 8 && cluster != 16)
+      || !diag_fits(L, r, K, slots, width, N + 1))
+    return (int)cudaErrorInvalidValue;
+  const long long per_query = 4 + slots + listed + (long long)slots * width;
+  cudaError_t e = cudaSuccess;
+  if (cluster > 8)
+    e = cudaFuncSetAttribute(search_strips<K>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)Qg * cluster);
+  cfg.blockDim = dim3(kDiagSearchThreads);
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, search_strips<K>, q, x, N, L, r, round_k, slb,
+                         order, bsf, best, rounds, refined, sc, slots, width,
+                         per_query);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// What the card holds at once at K rows a lane: out[0] scan_strips<K>
+// CTAs (SMs x CTAs an SM), out[1] and out[2] clusters of 16 and of 8
+// search_strips<K> CTAs (0: that size does not launch here).
+template <int K>
+int diag_held(int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, scan_strips<K>, kDiagScanThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = sms * per_sm;
+  for (int i = 0; i < 2; ++i) {
+    const int cluster = i == 0 ? 16 : 8;
+    if (cluster > 8)
+      e = cudaFuncSetAttribute(search_strips<K>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cluster);
+    cfg.blockDim = dim3(kDiagSearchThreads);
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(&n, search_strips<K>, &cfg);
+    if (e != cudaSuccess) {         // this size does not launch: 0
+      cudaGetLastError();
+      n = 0;
+      e = cudaSuccess;
+    }
+    out[1 + i] = n;
+  }
+  return 0;
+}
+
+// One case a diag instance: K = 4 or 8 rows a lane.
+#define DTW_DIAG_ROWS(F, K, ...)                                           \
+  switch (K) {                                                             \
+    case 4: return F<4>(__VA_ARGS__);                                      \
+    case 8: return F<8>(__VA_ARGS__);                                      \
+    default: return (int)cudaErrorInvalidValue;                            \
+  }
 #endif  // DTW_SCAN_WIDE_RINGS
 
 // The wave routes, C cells a lane: clusters of kSpec CTAs a query,
@@ -1626,11 +2098,12 @@ int lb_slots(const float* q, const float* x, long long N, int L, int Qg,
 #ifdef DTW_SCAN_WIDE_RINGS
 // dtw_scan's ring route at C = route = 18, 20, 22 or 24 cells a lane (L >
 // 1,024; r <= 255), dtw_scan's arguments (`threads`, `qc` and `S` from the
-// wrapper's scan_geometry; pad, Lq, diag and blocks unused).
+// wrapper's scan_geometry; pad, Lq, the diag route's and diag unused).
 extern "C" int dtw_scan_ring(const void* q, const void* x, long long N,
                              int L, int r, int Q, int route, int threads,
-                             int qc, int pad, int S, int Lq, void* keys,
-                             void* diag, int blocks, void* stream) {
+                             int qc, int pad, int S, int Lq, int rows,
+                             int slots, int width, int chain, int blocks,
+                             void* keys, void* diag, void* stream) {
   if (N == 0 || Q == 0) return 0;
   if (r < 0 || L <= kWholeL || N > 0xffffffffll)
     return (int)cudaErrorInvalidValue;
@@ -1675,12 +2148,16 @@ extern "C" int dtw_lb_keogh(const void* q, const void* x, long long N, int L,
 // route: 0 the general route (any r whose bands fit shared memory;
 // `threads` from the wrapper's general_threads: a multiple of 32, or a
 // power of two below it, a round taken in passes of as many); 1 the diag
-// route (any r and round_k; `threads` whole warps, diag, device scratch
-// of Qg (2r + 3) floats); 2, 4 and 8 the wave routes of as many cells a
-// lane (r <= 31, 63 and 127; `threads` from the wrapper's band_threads),
-// their ring forms past L 1,024, and 16 (ring16: L > 1,024, r <= 255).
+// route (any r and round_k: strips of `rows` rows a lane, `slots` pairs
+// in flight a query, rows of `width` entries, clusters of `cluster` CTAs,
+// diag: Qg queries' scratch, zeroed; kernels/dtw.py
+// diag_search_geometry; `threads` unused); 2, 4 and 8 the wave routes of
+// as many cells a lane
+// (r <= 31, 63 and 127; `threads` from the wrapper's band_threads), their
+// ring forms past L 1,024, and 16 (ring16: L > 1,024, r <= 255).
 extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
                           int r, int Qg, int round_k, int threads, int route,
+                          int rows, int slots, int width, int cluster,
                           const void* slb, const void* order, void* bsf,
                           void* best, void* rounds, void* refined,
                           void* diag, void* stream) {
@@ -1691,7 +2168,8 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
                     || (route == 16 && L > kWholeL);
   if (r < 0 || L < 1 || round_k < 1 || (wave && round_k > kMaxRoundK)
       || !(route == 0 || route == 1 || wave)
-      || !(whole || (route == 0 && part)) || (route == 1 && !diag))
+      || !(route == 1 || whole || (route == 0 && part))
+      || (route == 1 && !diag))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
@@ -1716,9 +2194,9 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
     return wave_launch<16, true>(qq, xx, N, L, r, Qg, round_k, threads, lb,
                                  od, b, bi, ro, rf, st);
   if (route == 1) {
-    search_diag<<<Qg, threads, 0, st>>>(qq, xx, N, L, r, round_k, lb, od, b,
-                                        bi, ro, rf, static_cast<float*>(diag));
-    return (int)cudaGetLastError();
+    DTW_DIAG_ROWS(diag_search_launch, rows, qq, xx, N, L, r, Qg, round_k,
+                  slots, width, cluster, lb, od, b, bi, ro, rf,
+                  static_cast<unsigned long long*>(diag), st)
   }
   return general_launch(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b, bi,
                         ro, rf, st);
@@ -1728,23 +2206,24 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
 // (bits of the squared DTW of query g and series n) << 32 | n.  route: 0
 // the band route (r <= 16), 1 the general one (any r <= L - 1 whose bands
 // fit shared memory; `threads` from the wrapper's general_threads), 2 the
-// diag route (any r; `threads` whole warps, `blocks` blocks, diag: device
-// scratch of blocks (2r + 3) floats), 16 the wave route of as many cells
-// a lane (r <= 255; `threads`, `qc`, `pad`, `S` and `Lq` from the
-// wrapper's scan_geometry) and its ring form past L 1,024 (the ring
+// diag route (any r: strips of `rows` rows a lane, `slots` pairs in
+// flight, rows of `width` entries, chains of `chain` strips, `blocks`
+// CTAs, diag: the scratch, zeroed; kernels/dtw.py diag_scan_geometry), 16
+// the wave route of as
+// many cells a lane (r <= 255; `threads`, `qc`, `pad`, `S` and `Lq` from
+// the wrapper's scan_geometry) and its ring form past L 1,024 (the ring
 // route's wider forms are dtw_ring.cu's dtw_scan_ring).
 extern "C" int dtw_scan(const void* q, const void* x, long long N, int L,
                         int r, int Q, int route, int threads, int qc,
-                        int pad, int S, int Lq, void* keys, void* diag,
-                        int blocks, void* stream) {
+                        int pad, int S, int Lq, int rows, int slots,
+                        int width, int chain, int blocks, void* keys,
+                        void* diag, void* stream) {
   if (N == 0 || Q == 0) return 0;
   if (r < 0 || L < 1 || N > 0xffffffffll
       || (route == 0 && (r > 16 || threads != 128))
       || (route == 1 && (threads < 1 || threads > 1024
                          || (threads & (threads - 1))))
-      || (route == 2 && (threads < 32 || threads > 1024 || threads % 32
-                         || blocks < 1 || !diag))
-      || (route > 2 && route != 16))
+      || (route == 2 && !diag) || (route > 2 && route != 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
@@ -1757,11 +2236,22 @@ extern "C" int dtw_scan(const void* q, const void* x, long long N, int L,
     return scan_wave_route(16, qq, xx, N, L, r, Q, threads, qc, pad, S, Lq,
                            k, st);
   if (route == 2) {
-    scan_diag<<<blocks, threads, 0, st>>>(qq, xx, N, L, r, (long long)Q * N,
-                                          static_cast<float*>(diag), k);
-    return (int)cudaGetLastError();
+    DTW_DIAG_ROWS(diag_scan_launch, rows, qq, xx, N, L, r, Q, slots, width,
+                  chain, blocks, static_cast<unsigned long long*>(diag), k,
+                  st)
   }
   return scan_launch<-1>(qq, xx, N, L, r, Q, threads, k, st);
+}
+
+// What the card holds at once of the diag routes' kernels at `rows` rows
+// a lane (out: 3 ints, see diag_held), for kernels/dtw.py's diag_grid and
+// diag_cluster.
+extern "C" int dtw_diag_held(int rows, void* out) {
+  DTW_DIAG_ROWS(diag_held, rows, static_cast<int*>(out))
+}
+
+extern "C" const char* dtw_diag_held_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 extern "C" const char* dtw_lb_keogh_error(int code) {

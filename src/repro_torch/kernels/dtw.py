@@ -59,11 +59,16 @@ _SCAN_WAVE_WARPS = 16                  # the scan wave route's CTA, at most
 _LB_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
 _SEARCH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                    + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 8)
+                    + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 8)
 _SCAN_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                  + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 2
-                  + [ctypes.c_int, ctypes.c_void_p])
-_DIAG_BLOCKS_SM = 32                   # resident blocks an SM, at most
+                  + [ctypes.c_int] * 14 + [ctypes.c_void_p] * 3)
+# the diag routes (csrc/dtw.cu strip_dp): the rows a lane built, the
+# scan's CTA (8 warps), the pairs in flight at most, and the device
+# scratch a launch's strip rows may take (beyond one pair a query)
+DIAG_ROWS = (4, 8)
+_DIAG_SCAN_THREADS = 256
+_DIAG_SLOTS = 4096
+_DIAG_SCRATCH = 256 << 20
 # a wave or ring route's code: its cells a lane (the kernel takes the ring
 # where L > WHOLE_L)
 _DP_CODES = {"general": 0, "diag": 1, **WAVE_CELLS, **RING_CELLS}
@@ -90,7 +95,8 @@ def dp_route(r: int, L: int = 256, round_k: int = 32) -> str:
     through a ring of columns); "general" for the rest or round_k > 1024
     (a thread a pair, the band in shared memory, a round in passes of at
     most 1024); "diag" where that band passes shared memory
-    (general_band_fits: a block a pair)."""
+    (general_band_fits: strips of rows, a warp a strip, a cluster of CTAs
+    a query)."""
     if round_k <= MAX_ROUND_K:
         names = WAVE_MAX_R if L <= WHOLE_L else RING_MAX_R
         for name, top in names.items():
@@ -134,8 +140,8 @@ def scan_route(r: int, L: int = 256) -> str:
     (the series through a ring of columns, the queries read from device
     memory; c = scan_ring_cells(r) cells a lane), "general" beyond (a
     thread a pair, the band in shared memory), "diag" where that band
-    passes shared memory (general_band_fits: a block a pair, an
-    anti-diagonal a step)."""
+    passes shared memory (general_band_fits: strips of rows, a warp a
+    strip, over the whole card)."""
     if r <= MAX_BAND_R:
         return "band"
     if r > SCAN_MAX_R["wave16"]:
@@ -233,11 +239,123 @@ def general_threads(L: int, r: int, most: int) -> int:
     return 1 << (fit.bit_length() - 1)
 
 
-def diag_threads(r: int) -> int:
-    """Threads of a diag-route block (a pair a block, an anti-diagonal a
-    step: at most r + 1 cells): a warp for each 32 of them, 1024 at
-    most."""
-    return min(1024, 32 * -(-(r + 1) // 32))
+def diag_rows(r: int) -> int:
+    """Rows a lane of the diag routes at band radius r (a strip is 32 of
+    them a warp): 4 to r 255, 8 beyond.  More rows a lane share a step's
+    shuffles and load among more cells but lengthen its chain of dependent
+    cells; and a strip of S rows sweeps min(L, 2r + S) + 31 steps for its
+    S (2r + 1) band cells at most, so a narrow band wants short strips."""
+    return 4 if r <= 255 else 8
+
+
+def diag_strips(L: int, rows: int) -> int:
+    """Strips a pair of length L at `rows` rows a lane: ceil(L / 32 rows)."""
+    return -(-L // (32 * rows))
+
+
+def diag_width(L: int, r: int, rows: int) -> int:
+    """Entries of a strip's last row: its columns, at most min(L, 2r + 32
+    rows), and 32 of padding (a chunk's steps run whole, past the strip's
+    last column)."""
+    return min(L, 2 * r + 32 * rows) + 32
+
+
+def diag_chain(L: int, r: int, rows: int) -> int:
+    """Strips a ticket of dtw_scan's diag route (a chain, one warp running
+    them in order): all of a pair's where a strip overlaps the next for
+    less than half its steps (min(L, 2r + S) + 31 steps against S + 94, the
+    lag at which the strip below can run beside it; S = 32 rows), else 1,
+    each strip on its own warp as soon as the one above is far enough
+    ahead.  dtw_search takes 1 always: a round's few pairs need their
+    strips spread over the cluster's warps."""
+    S = 32 * rows
+    thin = min(L, 2 * r + S) + 31 <= 2 * (S + 94)
+    return diag_strips(L, rows) if thin else 1
+
+
+def _diag_slots(pairs: int, width: int, budget: int) -> int:
+    """Pairs in flight: each a slot of a strip row of `width` 8-byte
+    entries and a done count, at most _DIAG_SLOTS and within `budget`
+    bytes (one at least)."""
+    return max(1, min(pairs, _DIAG_SLOTS, budget // (8 * width + 8)))
+
+
+def diag_scan_geometry(Q: int, N: int, L: int, r: int) -> dict:
+    """The launch of dtw_scan's diag route (csrc/dtw.cu scan_strips): rows
+    a lane, strips a pair, `chain` strips a ticket (diag_chain), `width`
+    entries a strip row, `slots` pairs in flight (batches of as many
+    pairs, chain-major: `tickets` chains in all), and the scratch: a
+    ticket, a done count a slot and each slot's row, `entries` 8-byte
+    entries (`bytes`), zeroed."""
+    rows = diag_rows(r)
+    strips = diag_strips(L, rows)
+    chain = diag_chain(L, r, rows)
+    width = diag_width(L, r, rows)
+    slots = _diag_slots(Q * N, width, _DIAG_SCRATCH)
+    entries = 1 + slots + slots * width
+    return {"rows": rows, "strips": strips, "width": width, "chain": chain,
+            "slots": slots, "tickets": Q * N * -(-strips // chain),
+            "entries": entries, "bytes": 8 * entries}
+
+
+def diag_grid(tickets: int, held: int) -> int:
+    """CTAs of dtw_scan's diag route: as many as the card holds at once
+    (`held`, from the card), no more than the strips' warps need (8 a
+    CTA), one at least."""
+    warps = _DIAG_SCAN_THREADS // 32
+    return max(1, min(held, -(-tickets // warps)))
+
+
+def diag_search_geometry(Qg: int, N: int, L: int, r: int,
+                         round_k: int) -> dict:
+    """The launch of dtw_search's diag route (csrc/dtw.cu search_strips):
+    rows a lane, strips a pair (a strip a ticket: a round's few pairs
+    need their strips spread over the cluster's warps),
+    `width` entries a strip row, `slots` pairs of a round in flight a query
+    (the Qg queries' scratch within _DIAG_SCRATCH bytes), and a query's
+    scratch, `per_query` 8-byte entries: the ticket, the count taken, two
+    round keys, a done count a slot, the round's list (min(round_k, N))
+    and each slot's row; `bytes` in all, zeroed."""
+    rows = diag_rows(r)
+    width = diag_width(L, r, rows)
+    listed = min(round_k, N)
+    slots = _diag_slots(listed, width, _DIAG_SCRATCH // max(Qg, 1))
+    per_query = 4 + slots + listed + slots * width
+    return {"rows": rows, "strips": diag_strips(L, rows), "width": width,
+            "slots": slots, "per_query": per_query,
+            "bytes": 8 * Qg * per_query}
+
+
+def diag_cluster(held16: int, held8: int) -> int:
+    """CTAs a query of dtw_search's diag route: 16 where the card holds a
+    cluster of 16 (a non-portable size; `held16`, from the card), else 8.
+    Raises RuntimeError where it holds neither."""
+    if held16 > 0:
+        return 16
+    if held8 > 0:
+        return 8
+    raise RuntimeError("dtw_search diag: the card holds no cluster of 8 "
+                       "CTAs of 512 threads")
+
+
+_DIAG_HELD: dict = {}
+
+
+def _diag_held(device: torch.device, rows: int) -> Tuple[int, int, int]:
+    """(scan CTAs, clusters of 16, clusters of 8) that `device` holds at
+    once of the diag kernels at `rows` rows a lane (csrc/dtw.cu
+    diag_held), asked once a device and width."""
+    key = (device.index, rows)
+    held = _DIAG_HELD.get(key)
+    if held is None:
+        fn = _build.entry("dtw", "dtw_diag_held",
+                          [ctypes.c_int, ctypes.c_void_p])
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            code = fn(rows, ctypes.addressof(out))
+        _build.check("dtw", "dtw_diag_held", code)
+        held = _DIAG_HELD[key] = tuple(out)
+    return held
 
 
 def wave_cells(route: str) -> int:
@@ -393,30 +511,33 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
     route = _pick(route, default, tuple(dict.fromkeys(routes)), "dtw_search")
     if q.device.type == "cpu":
         return dtw_search_ref(q, x, sorted_lb, order, r, round_k)
-    # the general route takes a round's candidates `threads` at a time;
-    # the diag route's blocks each a band of scratch (2r + 3 floats)
-    diag = None
-    if route == "general":
-        threads = general_threads(L, r, min(1024, -(-round_k // 32) * 32))
-    elif route == "diag":
-        threads = diag_threads(r)
-        diag = torch.empty((Qg, 2 * r + 3), dtype=torch.float32,
-                           device=x.device)
-    else:
-        threads = band_threads(r, L, round_k, wave_cells(route))
     dev = x.device
     bsf = torch.empty((Qg,), dtype=torch.float32, device=dev)
     best, rounds, refined = (torch.empty((Qg,), dtype=torch.int32,
                                          device=dev) for _ in range(3))
     if Qg == 0:
         return bsf, best, rounds, refined
+    # the general route takes a round's candidates `threads` at a time;
+    # the diag route its strips by its geometry, in zeroed scratch
+    diag, dg, threads = None, (0, 0, 0, 0), 0
+    if route == "general":
+        threads = general_threads(L, r, min(1024, -(-round_k // 32) * 32))
+    elif route == "diag":
+        g = diag_search_geometry(Qg, N, L, r, round_k)
+        dg = (g["rows"], g["slots"], g["width"],
+              diag_cluster(*_diag_held(dev, g["rows"])[1:]))
+        diag = torch.zeros((Qg, g["per_query"]), dtype=torch.int64,
+                           device=dev)
+    else:
+        threads = band_threads(r, L, round_k, wave_cells(route))
     fn = _build.entry("dtw", "dtw_search", _SEARCH_ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(q.data_ptr(), x.data_ptr(), N, L, r, Qg, round_k, threads,
-                  _DP_CODES[route], sorted_lb.data_ptr(), order.data_ptr(),
-                  bsf.data_ptr(), best.data_ptr(), rounds.data_ptr(),
-                  refined.data_ptr(), diag.data_ptr() if diag is not None
-                  else None, torch.cuda.current_stream(dev).cuda_stream)
+                  _DP_CODES[route], *dg, sorted_lb.data_ptr(),
+                  order.data_ptr(), bsf.data_ptr(), best.data_ptr(),
+                  rounds.data_ptr(), refined.data_ptr(),
+                  diag.data_ptr() if diag is not None else None,
+                  torch.cuda.current_stream(dev).cuda_stream)
     _build.check("dtw", "dtw_search", code)
     _count("dtw_search", route)
     return bsf, best, rounds, refined
@@ -445,24 +566,25 @@ def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int,
     if q.device.type == "cpu":
         return dtw_scan_ref(q, x, r)
     cells = {**SCAN_CELLS, **SCAN_RING_CELLS}.get(route)
+    dev = x.device
+    # the diag route: its strips by its geometry over as many CTAs as the
+    # card holds, in zeroed scratch
+    diag, dg = None, (0, 0, 0, 0, 0)
     if cells:
         g = scan_geometry(L, r, cells, Q)
         shape = (g["threads"], g["queries"], g["pad"], g["stride"],
                  g["qstride"])
     elif route == "diag":
-        shape = (diag_threads(r), 0, 0, 0, 0)
+        shape = (_DIAG_SCAN_THREADS, 0, 0, 0, 0)
+        if Q:
+            g = diag_scan_geometry(Q, N, L, r)
+            dg = (g["rows"], g["slots"], g["width"], g["chain"],
+                  diag_grid(g["tickets"], _diag_held(dev, g["rows"])[0]))
+            diag = torch.zeros((g["entries"],), dtype=torch.int64,
+                               device=dev)
     else:
         shape = (_SCAN_BAND_THREADS if route == "band" else
                  general_threads(L, r, _SCAN_GENERAL_THREADS), 0, 0, 0, 0)
-    # the diag route: as many blocks as the card holds at once (at most one
-    # a pair), each a band of scratch (2r + 3 floats)
-    diag, blocks = None, 0
-    if route == "diag":
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        blocks = min(Q * N, sms * min(_DIAG_BLOCKS_SM, 2048 // shape[0]))
-        diag = torch.empty((max(blocks, 1), 2 * r + 3), dtype=torch.float32,
-                           device=x.device)
-    dev = x.device
     # all ones: above every (distance bits << 32 | series) key
     keys = torch.full((Q,), -1, dtype=torch.int64, device=dev)
     if Q:
@@ -473,9 +595,9 @@ def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int,
         fn = _build.entry(src, name, _SCAN_ARGTYPES)
         with torch.cuda.device(dev):
             code = fn(q.data_ptr(), x.data_ptr(), N, L, r, Q,
-                      _SCAN_CODES[route], *shape, keys.data_ptr(),
+                      _SCAN_CODES[route], *shape, *dg, keys.data_ptr(),
                       diag.data_ptr() if diag is not None else None,
-                      blocks, torch.cuda.current_stream(dev).cuda_stream)
+                      torch.cuda.current_stream(dev).cuda_stream)
         _build.check(src, name, code)
         _count("dtw_scan", route)
     d2 = (keys >> 32).to(torch.int32).view(torch.float32)

@@ -809,53 +809,107 @@ def _band_cells(L, r):
     return sum(min(L - 1, i + r) - max(0, i - r) + 1 for i in range(L))
 
 
-def _diag_program(q, x, r):
-    """A numpy model of the diag routes' DP (csrc/dtw.cu dtw_diag): one
-    array of 2r + 3 float32 values, slot e + r + 1 for offset e = i - c,
-    BIG at both ends; anti-diagonal t = i + c a step, its cells (the
-    offsets of t's parity) formed from the slots of offsets e - 1 (up), e
-    + 1 (left) and e (diag) and written in place.  Asserts that each slot
-    read holds the cell it should (written at step t - 1, or t - 2 for
-    diag) or was never written where that cell lies outside the band or
-    the matrix (so it reads BIG).  Returns cell (L - 1, L - 1)."""
-    L = len(q)
-    a = np.full(2 * r + 3, ref.BIG, np.float32)
-    held = np.full(2 * r + 3, -1)          # the step that wrote each slot
-    for t in range(2 * L - 1):
-        hi = min(r, t, 2 * L - 2 - t)
-        e = np.arange(-hi + ((t - hi) & 1), hi + 1, 2)
-        i, c = (t + e) // 2, (t - e) // 2
-        assert (i >= 0).all() and (c >= 0).all() and (i < L).all() \
-            and (c < L).all() and (np.abs(e) <= r).all()
-        for de, ni, nc, back in ((-1, i - 1, c, 1), (1, i, c - 1, 1),
-                                 (0, i - 1, c - 1, 2)):
-            inside = (ni >= 0) & (nc >= 0) & (np.abs(ni - nc) <= r)
-            got = held[e + de + r + 1]
-            assert (got[inside] == t - back).all()
-            assert (got[~inside] == -1).all()
-        d = (q[i] - x[c]) * (q[i] - x[c])
-        if t:
-            d = d + np.minimum(np.minimum(a[e + r + 1], a[e + r]),
-                               a[e + r + 2])
-        a[e + r + 1] = d
-        held[e + r + 1] = t
-    return a[r + 1]
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+@pytest.mark.parametrize("L", [1, 2, 7, 31, 33, 64, 100, 256, 300])
+def test_strip_model_equals_the_band(L, rows):
+    """The diag routes' strip program (ref.dtw_strip_ref: strips of 32
+    rows rows, each a skewed wavefront over a warp's lanes, a strip's last
+    row handed on through an explicit buffer of tagged entries at the
+    kernel's offsets, every read of it checked) gives dtw_band_ref's bits
+    at every radius to past the series, strip heights that divide L (L 64
+    and 256) and that do not, and repro's dtw_band within the tolerance of
+    the tests above; its chunks run inner (no tests), plain and with every
+    test (`counts`), as the kernel's do."""
+    rng = np.random.default_rng(L * 10 + rows)
+    counts = {}
+    for r in sorted({0, 1, 12, L // 2, L - 1, L + 5}):
+        q, x = (rng.standard_normal((2, L)).astype(np.float32)
+                for _ in range(2))
+        got = ref.dtw_strip_ref(_t(q), _t(x), r, rows, counts=counts)
+        want = ref.dtw_band_ref(_t(q), _t(x), min(r, L - 1))
+        assert got.numpy().tobytes() == want.numpy().tobytes()
+        if rows == 4:
+            jr = np.array([float(J.dtw_band(jnp.asarray(a), jnp.asarray(b),
+                                            min(r, L - 1)))
+                           for a, b in zip(q, x)])
+            np.testing.assert_allclose(got.numpy(), jr, rtol=1e-5)
+    assert counts["rare"] > 0
+    if L >= 100:
+        assert counts["plain"] > 0
+    if L >= 256:
+        assert counts["inner"] > 0
 
 
-@pytest.mark.parametrize("L", [1, 2, 7, 100])
-def test_diag_program_equals_the_band(L):
-    """The diag routes' anti-diagonal program (_diag_program: one array
-    of offsets updated in place, every read the cell it should) gives
-    dtw_band_ref's bits at every radius to past the series, and repro's
-    dtw_band within the tolerance of the tests above."""
-    rng = np.random.default_rng(L)
-    for r in sorted({0, 1, 3, 12, L // 2, L - 1, L + 5}):
-        q, x = (rng.standard_normal(L).astype(np.float32) for _ in range(2))
-        got = _diag_program(q, x, r)
-        want = ref.dtw_band_ref(_t(q[None]), _t(x[None]), min(r, L - 1))
-        assert np.float32(got).tobytes() == want.numpy().tobytes()
-        jr = float(J.dtw_band(jnp.asarray(q), jnp.asarray(x), min(r, L - 1)))
-        assert abs(float(got) - jr) <= 1e-5 * jr
+def _strip_schedule(L, r, rows, rng):
+    """The diag routes' hand-over of strip rows (csrc/dtw.cu strip_dp) run
+    in a random order of chunks: every strip of a pair live at once (as
+    many warps), each step a random strip among those whose chunk can
+    start, i.e. every entry of the strip above it reads there (the columns
+    j0 .. j0 + 31 of that strip's span, and at the first chunk lo - 1)
+    carries that strip's tag; then the chunk's 32 steps store lane 31's
+    columns (tag s + 1, at column - lo, past hi into the padding where the
+    kernel's chunk is plain) into the pair's one row, over the strip
+    above's entries.  Returns the chunks run; asserts that no order
+    deadlocks, i.e. that no strip rewrites an entry that the strip below
+    it has yet to read."""
+    S = 32 * rows
+    strips = -(-L // S)
+    width = kdtw.diag_width(L, r, rows)
+    tag = np.zeros(width, np.int64)
+
+    def span(s0):
+        return max(0, s0 - r), min(L - 1, s0 + S - 1 + r)
+    nxt = []                                # each strip's next chunk
+    for s in range(strips):
+        lo, hi = span(s * S)
+        nxt.append(lo)
+    runs = 0
+    while True:
+        ready = []
+        for s in range(strips):
+            lo, hi = span(s * S)
+            j0 = nxt[s]
+            if j0 > hi + 31:
+                continue
+            if s > 0:
+                ilo, ihi = span(s * S - S)
+                need = [c for c in range(j0, j0 + 32) if ilo <= c <= ihi]
+                if j0 == lo and ilo <= lo - 1 <= ihi:
+                    need.append(lo - 1)
+                if not all(tag[c - ilo] == s for c in need):
+                    continue
+            ready.append(s)
+        if not ready:
+            break
+        s = ready[rng.integers(len(ready))]
+        lo, hi = span(s * S)
+        j0 = nxt[s]
+        cols = j0 >= 31 and j0 + 31 <= L - 1
+        jres = L - 1 + (L - 1 - s * S) // rows if s * S + S >= L else -1
+        plain = cols and not j0 <= jres <= j0 + 31 and (
+            s + 1 == strips or j0 - 31 >= lo)
+        if s + 1 < strips:
+            for c in range(j0 - 31, j0 + 1):
+                if plain or lo <= c <= hi:
+                    tag[c - lo] = s + 1
+        nxt[s] = j0 + 32
+        runs += 1
+    assert all(nxt[s] > span(s * S)[1] + 31 for s in range(strips)), nxt
+    return runs
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+@pytest.mark.parametrize("L,r", [(300, 0), (300, 12), (300, 40),
+                                 (300, 150), (300, 299), (1000, 100)])
+def test_strips_hand_on_rows_in_any_order(L, r, rows):
+    """The strip rows' hand-over (_strip_schedule) finishes under 20
+    random orders of chunks: no strip waits on an entry that a strip
+    below has already rewritten (one row a pair, each strip writing over
+    the entries it has read), at narrow and wide bands, the matrix's ends
+    included."""
+    rng = np.random.default_rng(L + r + rows)
+    for _ in range(20):
+        assert _strip_schedule(L, r, rows, rng) > 0
 
 
 @pytest.mark.parametrize("r", [0, 7, 17, 25, 51, 102, 127, 200, 255])

@@ -230,7 +230,12 @@ def test_every_dtw_shape_has_a_route(L):
                 assert 1 <= t <= 1024
             elif route == "diag":
                 assert not dtw.general_band_fits(L, r)
-                assert dtw.diag_threads(r) == 1024
+                g = dtw.diag_search_geometry(32, 1 << 20, L, r, round_k)
+                assert g["rows"] == 8
+                assert g["strips"] == -(-L // 256)
+                assert 1 <= g["slots"] <= min(round_k, 1 << 20)
+                assert g["bytes"] <= dtw._DIAG_SCRATCH + 8 * 32 * (
+                    4 + 1 + min(round_k, 1 << 20) + g["width"])
             else:
                 assert route[:4] == ("wave" if L <= 1024 else "ring")
                 assert round_k <= 1024 and r <= {
@@ -296,8 +301,60 @@ def test_dtw_shapes_before_the_rings_keep_their_routes():
     assert dtw.dp_route(25650, 25700, 2048) == "diag"
     assert dtw.scan_routes(25599, 60000) == ("general", "diag")
     assert dtw.scan_routes(25600, 60000) == ("diag",)
-    assert dtw.diag_threads(0) == 32 and dtw.diag_threads(40) == 64
+    assert dtw.diag_rows(0) == dtw.diag_rows(255) == 4
+    assert dtw.diag_rows(256) == dtw.diag_rows(25600) == 8
     assert all(dtw.general_band_fits(L, L - 1) for L in (1, 1024, 16384))
+
+
+def test_diag_geometry():
+    """The diag routes' launch geometry (kernels.dtw.diag_*, pure): strips
+    of 32 rows-a-lane rows a pair, a strip row's entries (its columns and
+    32 of padding), chains (a pair's strips on one warp where a strip
+    overlaps the next for less than half its steps), the pairs in flight
+    and the scratch within its budget, the scan's grid and the search's
+    cluster, at the device band's shape, the long queries' and the full
+    window's, and past every cap."""
+    assert dtw.DIAG_ROWS == (4, 8)
+    assert dtw.diag_strips(25700, 8) == 101 and dtw.diag_strips(1, 4) == 1
+    assert dtw.diag_strips(16400, 4) == 129 and dtw.diag_strips(256, 8) == 1
+    assert dtw.diag_width(25700, 25650, 8) == 25700 + 32
+    assert dtw.diag_width(16400, 12, 4) == 24 + 128 + 32
+    # a strip of a narrow band barely overlaps the next: one warp a pair
+    assert dtw.diag_chain(16400, 12, 4) == dtw.diag_chain(16400, 40, 4) \
+        == 129
+    assert dtw.diag_chain(16400, 200, 4) == 1
+    assert dtw.diag_chain(25700, 25650, 8) == dtw.diag_chain(1024, 1023, 8) \
+        == 1
+    # the device band: 2 queries x 3 series
+    g = dtw.diag_scan_geometry(2, 3, 25700, 25650)
+    assert (g["rows"], g["strips"], g["chain"], g["slots"]) == (8, 101, 1, 6)
+    assert g["tickets"] == 6 * 101 and g["width"] == 25732
+    assert g["entries"] == 1 + 6 + 6 * 25732 and g["bytes"] == 8 * g["entries"]
+    g = dtw.diag_search_geometry(2, 3, 25700, 25650, 32)
+    assert (g["rows"], g["strips"], g["slots"]) == (8, 101, 3)
+    assert g["per_query"] == 4 + 3 + 3 + 3 * 25732
+    assert g["bytes"] == 8 * 2 * g["per_query"]
+    # the long queries at r 12: a chain a pair, every pair in flight
+    g = dtw.diag_scan_geometry(4, 256, 16400, 12)
+    assert (g["rows"], g["chain"], g["slots"], g["tickets"]) == \
+        (4, 129, 1024, 1024)
+    # caps: pairs in flight and scratch
+    g = dtw.diag_scan_geometry(65600, 64, 16, 3)
+    assert g["slots"] == dtw._DIAG_SLOTS
+    g = dtw.diag_scan_geometry(32, 1000, 60000, 30000)
+    assert 1 <= g["slots"] < 32000
+    assert g["bytes"] <= dtw._DIAG_SCRATCH + 8 * (1 + 1 + g["width"])
+    g = dtw.diag_search_geometry(32, 1000, 60000, 30000, 1000)
+    assert g["slots"] >= 1
+    assert g["bytes"] <= dtw._DIAG_SCRATCH + 8 * 32 * (4 + 1 + 1000
+                                                      + g["width"])
+    # the scan's grid: what the card holds, no more than the warps needed
+    assert dtw.diag_grid(6 * 101, 528) == 76
+    assert dtw.diag_grid(10 ** 6, 528) == 528 and dtw.diag_grid(1, 528) == 1
+    # the search's cluster: 16 where the card holds one, else 8
+    assert dtw.diag_cluster(7, 15) == 16 and dtw.diag_cluster(0, 15) == 8
+    with pytest.raises(RuntimeError):
+        dtw.diag_cluster(0, 0)
 
 
 def test_ring_scan_cells_by_radius():
