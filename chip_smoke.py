@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive repro_torch's kernel paths on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--series N] [--seed S] [--only dtw]
+    python3 chip_smoke.py [--series N] [--seed S] [--only dtw|dtw_wide]
 
-`--only dtw` runs the device, build and dtw phases alone, then the
-kernel table (the dtw rows), the nvidia-smi line and the device line.
+`--only dtw` runs the device, build, dtw and dtw_wide phases alone
+(`--only dtw_wide` the last alone), then the kernel table (their rows),
+the nvidia-smi line and the device line.
 
 Phases, each printing one JSON line:
   device     nvidia-smi's name and power limit, torch's device name;
@@ -13,8 +14,10 @@ Phases, each printing one JSON line:
   ptxas      the registers, spills and wgmma warnings ptxas reports for
              the attention instances at dh 96 and 256 (tc96 and tc256 in
              bf16, tf256 in TF32), and the registers and spills of every
-             dtw_scan ring instance (16 to 24 cells a lane), each required
-             to spill nothing;
+             dtw_scan ring instance (16 to 24 cells a lane) and of the
+             strip instances (scan_strips, search_strips, scan_chain and
+             search_spread at 4 and 8 rows a lane), each required to
+             spill nothing;
   kernel     each CUDA kernel against its plain PyTorch version on the card,
              at its path's shapes, with its time, the plain version's time,
              a PyTorch library call's time where one computes the same
@@ -183,17 +186,17 @@ Phases, each printing one JSON line:
              over a few tiles; round_k 100, 64, 256 and 1024; the scalar
              LB at L 101), each kernel bit for bit (lb_keogh to 1e-5);
              table rows for lb_keogh (L 256, its scalar route, L 1024 and
-             L 100), dtw_search (each wave route with the general route's
-             time at its shape beside it, the general route at r 12) and
-             dtw_scan (band and general at r 12, wave16 at r 12, 25, 51
+             L 100), dtw_search (each wave route with the spread route's
+             time at its shape beside it, the spread route at r 12) and
+             dtw_scan (band and chain at r 12, wave16 at r 12, 25, 51
              and 102, each route's first query bit for bit against the
-             plain version's; the general route at r 25 on 8 queries
+             plain version's; the chain route at r 25 on 8 queries
              beside wave16); then the long series (DTW_LONG: 2^16 walks of
              2,709 points at r 27 and 135, 2^14 of 8,192 at r 81, 32
              queries each): search_dtw held to search_dtw_bruteforce, each
              kernel's first query to its plain version, the ring routes'
              (ring2, ring8, ring16; the scan's ring16, ring18, ring22)
-             and the general route's rows beside the chunked LB's, each
+             rows beside the chunked LB's, each
              scan row with its cells a lane and busy lanes of 32 and,
              where its radius takes another width, the ring at 16 cells
              a lane beside it, bit for bit; edge runs past the old limits
@@ -201,6 +204,16 @@ Phases, each printing one JSON line:
              every template instance of the scan's ring routes (C / 2 a
              width of C cells a lane) forced once at L 1,025, bit for bit
              against dtw_scan_ref;
+  dtw_wide   the shapes the spread and chain routes took over (past the
+             wave routes' radii and round_k 1,024): search_dtw and the
+             brute force at a cell's size (DTW_WIDE_CELLS: 32 queries over
+             2^16 walks of 2,709 points at r 271; the brute force at L
+             1,024, r 512), held to each other, each kernel at the path's
+             launch on its default route and diag, the first query bit
+             for bit against the plain versions; then the sweep
+             (DTW_SWEEP: 4 queries x 256 walks at L 256, r 128-255; L
+             1,024, r 128-1,023; L 2,709, r 271; L 256, r 12, round_k
+             2,048): every route of each kernel, bit for bit, timed;
   fidelity   build_index_host over 2^16 seismic_like series of length
              256 under RefreshExecutor, DoAllSplit, FaiBased and CasBased
              at 8 threads: every id in the forest with the one-pass
@@ -216,8 +229,8 @@ Phases, each printing one JSON line:
 refine_search is held under the (1 + eps) stop (inv_eps 1 / 1.25^2) on
 every route too: cta3 in the kernel phase, cta2, cta1 and general in the
 route phase.
-Each of main, rounds, scan, approx, sharded, serve, l96, lifecycle, dtw
-and attention sets every launch count to 0 before it and requires each
+Each of main, rounds, scan, approx, sharded, serve, l96, lifecycle, dtw,
+dtw_wide and attention sets every launch count to 0 before it and requires each
 kernel (and route) of its path to have launched, and every kernel of
 the table to have launched on some path; a graph replay passes through
 no wrapper,
@@ -357,10 +370,11 @@ def attention_ptxas(log: str) -> dict:
 
 def dtw_ptxas(log: str, widths, diag_rows) -> dict:
     """dtw_scan's ring instances (scan_ring_kernel<C, ML>: C / 2 of each
-    width C of `widths`) and the diag routes' (scan_strips<K> and
-    search_strips<K>, K of `diag_rows`) in dtw.cu's build log: each must
-    spill nothing.  Returns each ring width's instances and most
-    registers, and each diag instance's registers."""
+    width C of `widths`) and the strip routes' (the diag routes'
+    scan_strips<K> and search_strips<K>, the chain route's scan_chain<K>
+    and the spread route's search_spread<K>, K of `diag_rows`) in dtw.cu's
+    build log: each must spill nothing.  Returns each ring width's
+    instances and most registers, and each strip instance's registers."""
     found, diag = {}, {}
     for name, e in ptxas_entries(log).items():
         m = re.search(r"scan_ring_kernelILi(\d+)ELi(\d+)E", name)
@@ -368,18 +382,20 @@ def dtw_ptxas(log: str, widths, diag_rows) -> dict:
             require(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
                     f"ptxas: scan_ring_kernel<{m[1]}, {m[2]}> spills: {e}")
             found.setdefault(int(m[1]), []).append(e.get("registers", 0))
-        m = re.search(r"(scan|search)_stripsILi(\d+)E", name)
+        m = re.search(r"(scan_strips|search_strips|scan_chain|"
+                      r"search_spread)ILi(\d+)E", name)
         if m:
             require(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
-                    f"ptxas: {m[1]}_strips<{m[2]}> spills: {e}")
-            diag[f"{m[1]}_strips<{m[2]}>"] = {
+                    f"ptxas: {m[1]}<{m[2]}> spills: {e}")
+            diag[f"{m[1]}<{m[2]}>"] = {
                 "registers": e.get("registers", 0), "spill_bytes": 0}
     counts = {c: len(v) for c, v in found.items()}
     require(counts == {c: c // 2 for c in widths},
             f"ptxas: ring instances {counts}")
-    require(sorted(diag) == sorted(f"{k}_strips<{K}>" for K in diag_rows
-                                   for k in ("scan", "search")),
-            f"ptxas: diag instances {sorted(diag)}")
+    require(sorted(diag) == sorted(
+        f"{k}<{K}>" for K in diag_rows for k in (
+            "scan_strips", "search_strips", "scan_chain", "search_spread")),
+        f"ptxas: strip instances {sorted(diag)}")
     return {f"ring{c}": {"instances": len(v), "registers_max": max(v),
                          "spill_bytes": 0} for c, v in sorted(found.items())
             } | diag
@@ -3452,10 +3468,9 @@ DTW_WIDE_R, DTW_WIDE_GROUPS, DTW_WIDE_BRUTE = 25, 2, 32
 # rows on a cut search: each query's first DTW_WIDER_CUT candidates by bound
 DTW_WIDER_R, DTW_WIDER_BRUTE, DTW_WIDER_CUT = (51, 102), 32, 1 << 15
 # dtw_scan's wave route is timed at each r on the brute force's queries
-# (at r 12 beside the band route, which keeps r <= 16), and the general
-# route, which it replaced for 16 < r <= 255, once at r 25 on
-# DTW_GENERAL_Q queries
-DTW_GENERAL_Q = 8
+# (at r 12 beside the band route, which keeps r <= 16), and the chain
+# route once at r 25 on DTW_OTHER_Q queries
+DTW_OTHER_Q = 8
 # the long-series run: (series, L, radii), 32 queries each: the UCR
 # archive's HandOutlines length (2,709) over 2^16 walks (0.71 GB) at 1 %
 # and 5 % bands, and 8,192 points over 2^14 (0.54 GB) at 1 %
@@ -3474,9 +3489,26 @@ DTW_LONGQ = (256, 16400, 4, (12, 40, 200))
 # the band past a block's shared memory (r > 25,599, the diag routes'
 # default): (series, L, queries, r)
 DTW_DEVBAND = (3, 25700, 2, 25650)
-# the full window, r = L - 1, where the general routes are the default:
+# the full window, r = L - 1, where spread and chain are the defaults:
 # (series, L, queries)
 DTW_FULL = (256, 1024, 4)
+# the dtw_wide phase: the shapes the spread and chain routes take (past
+# the wave routes' radii at L <= 1,024, a 10 % band at HandOutlines'
+# length, and round_k past 1,024), at the full window's size (DTW_FULL: 4
+# queries x 256 z-normalized walks): (L, r, round_k)
+DTW_SWEEP = ((256, 128, 32), (256, 192, 32), (256, 255, 32),
+             (1024, 128, 32), (1024, 256, 32), (1024, 512, 32),
+             (1024, 1023, 32), (2709, 271, 32), (256, 12, 2048))
+# and at a cell's size: the long cell's 2^16 walks and 32 queries at a 10 %
+# band of HandOutlines' 2,709 points (both kernels) and at L 1,024, r 512
+# (the scan); (series, L, r, the search too), the first DTW_WIDE_PLAIN
+# queries held bit for bit to the plain versions
+DTW_WIDE_CELLS = ((1 << 16, 2709, 271, True), (1 << 16, 1024, 512, False))
+DTW_WIDE_Q, DTW_WIDE_PLAIN = 32, 1
+# dtw_scan's chain and diag routes on few pairs, where the default turns
+# from diag to chain (kernels.dtw.CHAIN_PAIRS): (queries, series), L 2,709,
+# r 271
+DTW_FEW = ((1, 128), (2, 256), (4, 256), (8, 256))
 DTW_SRC = "src/repro_torch/kernels/csrc/dtw.cu"
 DTW_REPLACES = ("none: a port-side kernel (src/repro/core/dtw.py:{} {} is "
                 "plain jnp, no Pallas kernel)")
@@ -3580,9 +3612,9 @@ def rel_err(torch, a, b) -> float:
 def dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk):
     """Collection, queries (z-normalized) and the three kernels against
     their plain versions at one small shape: lb_keogh to 1e-5 relative,
-    dtw_search (its default route and the diag route) and dtw_scan (on
-    every route that takes the radius, after the clamp to L - 1, diag
-    too) bit for bit.  Returns the check's numbers."""
+    dtw_search and dtw_scan on every route that takes the radius (after
+    the clamp to L - 1: the default, spread or chain, diag) bit for bit.
+    Returns the check's numbers."""
     x = isax.znormalize(walks(torch, gen, n, Lx)).contiguous()
     pick = torch.randint(0, n, (nq,), generator=gen, device=DEV)
     q = isax.znormalize(x[pick] + 0.1 * torch.randn(
@@ -3595,10 +3627,12 @@ def dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk):
     want = ref.dtw_search_ref(q, x, s, o, r, rk)
     require(all(torch.equal(a, b) for a, b in zip(got, want)),
             f"dtw_search N {n} L {Lx} r {r} round_k {rk}: not bit-equal")
-    diag = kd.dtw_search(q, x, s, o, r=r, round_k=rk, route="diag")
-    require(all(torch.equal(a, b) for a, b in zip(diag, want)),
-            f"dtw_search diag N {n} L {Lx} r {r} round_k {rk}: not "
-            f"bit-equal")
+    search_routes = kd.dp_routes(min(r, Lx - 1), Lx, rk)
+    for route in search_routes[1:]:
+        other = kd.dtw_search(q, x, s, o, r=r, round_k=rk, route=route)
+        require(all(torch.equal(a, b) for a, b in zip(other, want)),
+                f"dtw_search {route} N {n} L {Lx} r {r} round_k {rk}: not "
+                f"bit-equal")
     d2r, ir = ref.dtw_scan_ref(q, x, min(r, Lx - 1))
     routes = kd.scan_routes(min(r, Lx - 1), Lx)
     for route in routes:
@@ -3610,7 +3644,7 @@ def dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r, rk):
     return {"N": n, "L": Lx, "queries": nq, "r": r, "round_k": rk,
             "lb_rel_err": lb_err, "rounds_max": int(got[2].max()),
             "refined": int(got[3].sum()), "search": "bit-equal",
-            "search_routes": [kd.dp_route(min(r, Lx - 1), Lx, rk), "diag"],
+            "search_routes": list(search_routes),
             "scan": "bit-equal", "scan_routes": list(routes)}
 
 
@@ -3620,7 +3654,7 @@ def dtw_edges(torch, isax, kd, ref, gen):
     round_k 100 with r 16 (more pairs than the block runs at once) and
     round_k 64 with r 0; the wave routes at each end of their radii (r
     17, 25 and 31: 2 cells a lane; 32, 40 and 63: 4; 64 and 127: 8) and
-    the general route at r 128, at L 100 (r 128 and 255: the band wider
+    the spread route at r 128, at L 100 (r 128 and 255: the band wider
     than the series, taken as r 99 by wave8) and L 300, N not a multiple
     of round_k; the scalar LB_Keogh
     route at L 101; N < round_k.  Every dtw_scan route that takes each
@@ -3628,15 +3662,15 @@ def dtw_edges(torch, isax, kd, ref, gen):
     both ends of its radii (r 17 and 255 at L 300; at L 100, r past
     99 is 99); then N 1, 40 queries over 75 tiles and 64 over 125 (the
     scan's chunks taken smaller to fill the card), r = L - 1, 2L and 900
-    at L 16, L 1024 at r 1023 (the general routes, blocks of 16
-    threads), and dtw_search at r 128 with round_k 256 and 1024 (its
-    general route in passes).  Past the old limits: L 1,025 at r 3 and
-    40 (the ring routes: ring2, ring4 and every width of the scan's,
-    ring16 to ring24), round_k 2,048 at L 64 (the general route in two
-    passes; rounds and candidates refined equal to dtw_search_ref's, as
-    every run's), and 65,600 queries through the scan
-    (dtw_many_queries).  Every run holds the diag routes of both kernels
-    too."""
+    at L 16, L 1024 at r 1023 (the spread route and the scan's chain and
+    diag routes), and dtw_search at r 128 with round_k 256 and 1024 (the
+    spread route, rounds at once).  Past the old limits: L 1,025 at r 3
+    and 40 (the ring routes: ring2, ring4 and every width of the scan's,
+    ring16 to ring24), round_k 2,048 at L 64 (the spread route, a round
+    of more than 1,024; rounds and candidates refined equal to
+    dtw_search_ref's, as every run's), and 65,600 queries through the
+    scan (dtw_many_queries).  Every run holds the diag routes of both
+    kernels too, and the scan's chain route at every radius."""
     edges = []
     wide = [(2999, 100, 4, r, 32) for r in (17, 25, 31, 32, 63, 64, 128,
                                             255)]
@@ -3664,12 +3698,12 @@ def dtw_edges(torch, isax, kd, ref, gen):
             and kd.dp_route(0) == kd.dp_route(31) == "wave2"
             and kd.dp_route(32) == kd.dp_route(63) == "wave4"
             and kd.dp_route(64) == kd.dp_route(127) == "wave8"
-            and kd.dp_route(128) == "general"
+            and kd.dp_route(128) == "spread"
             and kd.scan_route(0) == kd.scan_route(16) == "band"
             and kd.scan_route(17) == kd.scan_route(255) == "wave16"
-            and kd.scan_route(256) == "general", "dtw routes")
+            and kd.scan_route(256) == "chain", "dtw routes")
     ran = {r for e in edges for r in e["scan_routes"]}
-    require(ran == {"band", "wave16", "general", "diag",
+    require(ran == {"band", "wave16", "chain", "diag",
                     *kd.SCAN_RING_CELLS}, f"the edge runs' scan routes {ran}")
     return edges + [dtw_many_queries(torch, kd, ref, gen)]
 
@@ -3710,9 +3744,9 @@ def dtw_ring_instances(torch, isax, kd, ref, gen, n=64, Lx=1025, nq=2):
 
 def dtw_many_queries(torch, kd, ref, gen, nq=65600, n=64, Lx=16, r=3):
     """dtw_scan of more queries than a grid dimension holds (65,600 at L
-    16 over 64 series) on its default (band) and general routes, which
-    take them in two launches of at most 65,535, and its diag route, each
-    bit for bit against dtw_scan_ref."""
+    16 over 64 series) on its default (band) route, which takes them in
+    two launches of at most 65,535, and its wave, chain and diag routes,
+    each bit for bit against dtw_scan_ref."""
     x = walks(torch, gen, n, Lx)
     q = x[torch.randint(0, n, (nq,), generator=gen, device=DEV)] \
         + 0.1 * torch.randn(nq, Lx, generator=gen, device=DEV)
@@ -3733,12 +3767,12 @@ def dtw_long_queries(torch, isax, kmods, ref, gen):
     the plain versions read (ref.dtw_search_ref and ref.dtw_scan_ref,
     d_pairs): lb_keogh to 1e-5 relative; dtw_search on its default route
     (ring2, ring4, ring16: the query read from device memory), its
-    general route (LONGQ) and its diag route, bit for bit at round_k 32
+    spread route and its diag route, bit for bit at round_k 32
     (8 rounds, pruned and abandoned) and, but for diag, at round_k 256
     (one round: nothing pruned or abandoned, the timed launch, whose
     bound is every refined pair's cells; diag: the round_k 32 launch);
     dtw_scan on every route that takes the radius (band, the ring widths
-    16 to 24, general, diag), bit for bit, then timed on one more launch,
+    16 to 24, chain, diag), bit for bit, then timed on one more launch,
     each wave or ring row with its cells a lane and busy lanes.  Each
     route's time beside its bound; launches are this run's.  Returns (reports,
     launches, rows)."""
@@ -3784,7 +3818,7 @@ def dtw_long_queries(torch, isax, kmods, ref, gen):
         require(bool((want[DTW_RK][0] == scan_want[0]).all()),
                 f"dtw L {Lx} r {r}: search and scan distances differ")
         made, checks = [], {}
-        for route in dict.fromkeys((kd.dp_route(r, Lx, DTW_RK), "general",
+        for route in dict.fromkeys((kd.dp_route(r, Lx, DTW_RK), "spread",
                                     "diag")):
             # the last launch timed (the route's kernel loaded by then:
             # the edge runs launch diag)
@@ -3956,14 +3990,14 @@ def dtw_device_band(torch, isax, kmods, ref, gen):
 
 def dtw_full_window(torch, isax, kmods, ref, gen):
     """Both kernels at the full window (DTW_FULL: 4 queries x 256
-    z-normalized walks, L 1,024, r 1,023), where the general routes are
-    the default, on the general and the diag route: each launch timed once
-    by CUDA events and held bit for bit to dtw_search_ref (round_k 32) or
-    dtw_scan_ref on one dtw_band_ref call's distances, beside its bound
-    (every refined pair's cells: neither route abandons; the scan's every
-    pair's).  A row each; no default moves.  Draws from its own generator
-    (seeded from gen's seed), whose state it leaves as it was.  Returns
-    (report, launches, rows)."""
+    z-normalized walks, L 1,024, r 1,023), where the spread and chain
+    routes are the defaults, on the default and the diag route: each
+    launch timed once by CUDA events (after one untimed) and held bit for
+    bit to dtw_search_ref (round_k 32) or dtw_scan_ref on one dtw_band_ref
+    call's distances, beside its bound (every refined pair's cells: no
+    route abandons; the scan's every pair's).  A row each.  Draws from
+    its own generator (seeded from gen's seed), whose state it leaves as
+    it was.  Returns (report, launches, rows)."""
     kd = kmods["dtw"]
     n, Lx, nq = DTW_FULL
     r = Lx - 1
@@ -3973,8 +4007,11 @@ def dtw_full_window(torch, isax, kmods, ref, gen):
     pick = torch.randint(0, n, (nq,), generator=g, device=DEV)
     q = isax.znormalize(x[pick] + 0.1 * torch.randn(
         nq, Lx, generator=g, device=DEV)).contiguous()
-    require(kd.dp_route(r, Lx, DTW_RK) == kd.scan_route(r, Lx) == "general",
-            "dtw full window: the general routes are not the default")
+    search_route = kd.dp_route(r, Lx, DTW_RK)
+    scan_route = kd.scan_route(r, Lx, nq, n)
+    require(search_route == "spread" and scan_route == "chain",
+            "dtw full window: the spread and chain routes are not the "
+            "defaults")
     s, o = torch.sort(kd.lb_keogh(q, x, r=r), dim=1, stable=True)
     torch.cuda.synchronize()
     # one dtw_band_ref call serves both plain versions: its time is in each
@@ -3992,6 +4029,7 @@ def dtw_full_window(torch, isax, kmods, ref, gen):
     scan_plain = band_ms + (time.perf_counter() - t0) * 1e3
 
     def once(fn):                        # (fn(), its device ms)
+        fn()
         e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         e[0].record()
         out = fn()
@@ -4001,7 +4039,7 @@ def dtw_full_window(torch, isax, kmods, ref, gen):
     shape = f"{nq} queries x {n} series, L {Lx}, r {r}"
     before = dict(kd.by_route)
     rows, checks = [], {}
-    for route in ("general", "diag"):
+    for route in (search_route, "diag"):
         got, ms = once(lambda: kd.dtw_search(q, x, s, o, r=r, round_k=DTW_RK,
                                              route=route))
         require(all(torch.equal(a, b) for a, b in zip(got, want)),
@@ -4017,7 +4055,7 @@ def dtw_full_window(torch, isax, kmods, ref, gen):
             f"{shape}, round_k {DTW_RK} ({n_rounds} rounds, {n_ref} "
             f"refined)", 0.0, ms, search_plain, bms, by,
             {"all queries": "bit-equal to dtw_search_ref"}))
-    for route in ("general", "diag"):
+    for route in (scan_route, "diag"):
         got, ms = once(lambda: kd.dtw_scan(q, x, r=r, route=route))
         require(torch.equal(got[0], scan_want[0])
                 and torch.equal(got[1], scan_want[1]),
@@ -4040,13 +4078,283 @@ def dtw_full_window(torch, isax, kmods, ref, gen):
            "band_ref_ms": band_ms,
            "geometry": {"search": kd.diag_search_geometry(nq, n, Lx, r,
                                                           DTW_RK),
-                        "scan": kd.diag_scan_geometry(nq, n, Lx, r)},
+                        "scan": kd.diag_scan_geometry(nq, n, Lx, r),
+                        "spread": kd.spread_search_geometry(nq, n, Lx, r,
+                                                            DTW_RK),
+                        "chain": kd.chain_scan_geometry(Lx, r)},
            "kernels": {row["name"]: {k: row[k] for k in (
                "ms", "bound_ms", "plain_ms")}
                | {"launches": launches[row["name"]]} for row in rows},
            "seconds": time.perf_counter() - t_run}
     del x, q, s, o, dp
     torch.cuda.empty_cache()
+    return rep, launches, rows
+
+
+def dtw_wide_cell(torch, isax, kd, ref, gen, n, Lx, r, search):
+    """One cell row set of the dtw_wide phase (DTW_WIDE_CELLS): n random
+    walks of Lx points and DTW_WIDE_Q queries (collection series
+    z-normalized, then N(0, 0.1) noise), through core.dtw.search_dtw (if
+    `search`) and search_dtw_bruteforce at r, the launches by route read
+    just after; ids equal to the brute force's but at ties, distances to
+    1e-5.  Then each kernel at the path's launch: on its default route and
+    on diag, each timed on one launch after the check, the first
+    DTW_WIDE_PLAIN queries bit for bit against dtw_search_ref and
+    dtw_scan_ref (one dtw_band_ref call serves both), beside its bound.
+    Returns (report, the path's launches by route, rows)."""
+    from repro_torch.core import dtw as cdtw
+    t_run = time.perf_counter()
+    raw = walks(torch, gen, n, Lx)
+    pick = torch.randint(0, n, (DTW_WIDE_Q,), generator=gen, device=DEV)
+    queries = isax.znormalize(raw[pick]) + 0.1 * torch.randn(
+        DTW_WIDE_Q, Lx, generator=gen, device=DEV)
+    torch.cuda.synchronize()
+    before = dict(kd.by_route)
+    rep = {"series": n, "L": Lx, "queries": DTW_WIDE_Q, "r": r}
+    if search:
+        t0 = time.perf_counter()
+        d, ids = cdtw.search_dtw(raw, queries, r=r, round_k=DTW_RK,
+                                 device=DEV)
+        torch.cuda.synchronize()
+        rep["search_dtw_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    bd, bi = cdtw.search_dtw_bruteforce(raw, queries, r=r, device=DEV)
+    torch.cuda.synchronize()
+    rep["bruteforce_ms"] = (time.perf_counter() - t0) * 1e3
+    ran = {k: v - before.get(k, 0) for k, v in kd.by_route.items()
+           if v != before.get(k, 0)}
+    search_route = kd.dp_route(r, Lx, DTW_RK)
+    scan_route = kd.scan_route(r, Lx, DTW_WIDE_Q, n)
+    want_ran = {f"dtw_scan/{scan_route}": 1}
+    if search:
+        want_ran |= {f"lb_keogh/{kd.lb_route(Lx)}": -(-Lx // kd.lb_chunk(Lx)),
+                     f"dtw_search/{search_route}": 1}
+        d_err, mism = rel_err(torch, d, bd), ids != bi
+        require(bool(torch.isfinite(d).all()) and d_err <= 1e-5
+                and bool(((d[mism] - bd[mism]).abs()
+                          <= 1e-5 * bd[mism]).all()),
+                f"dtw L {Lx} r {r} vs brute force: {d_err}, ids "
+                f"{ids.tolist()} {bi.tolist()}")
+        rep["ties_vs_bruteforce"] = int(mism.sum())
+    require(ran == want_ran, f"dtw L {Lx} r {r} launches by route {ran}")
+    rep["by_route"] = ran
+    x = isax.znormalize(raw).contiguous()
+    qz = isax.znormalize(queries).contiguous()
+    del raw, queries
+    k = DTW_WIDE_PLAIN
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dp = ref.dtw_band_ref(qz[:k, None], x[None], r)
+    torch.cuda.synchronize()
+    band_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    scan_want = ref.dtw_scan_ref(qz[:k], x, r, d_pairs=dp)
+    torch.cuda.synchronize()
+    scan_plain = band_ms + (time.perf_counter() - t0) * 1e3
+    rows, tag = [], f"L{Lx}_r{r}_cell"
+    shape = f"{DTW_WIDE_Q} queries x {n} series, L {Lx}, r {r}"
+    checks = f"queries 0..{k - 1} bit-equal to the plain version"
+
+    def once(fn):                        # (fn(), its device ms)
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        out = fn()
+        e[1].record()
+        torch.cuda.synchronize()
+        return out, e[0].elapsed_time(e[1])
+    if search:
+        s, o = torch.sort(kd.lb_keogh(qz, x, r=r), dim=1, stable=True)
+        t0 = time.perf_counter()
+        want = ref.dtw_search_ref(qz[:k], x, s[:k].contiguous(),
+                                  o[:k].contiguous(), r, DTW_RK, d_pairs=dp)
+        torch.cuda.synchronize()
+        search_plain = band_ms + (time.perf_counter() - t0) * 1e3
+        for route in (search_route, "diag"):
+            call = lambda: kd.dtw_search(  # noqa: E731
+                qz, x, s, o, r=r, round_k=DTW_RK, route=route)
+            got = call()
+            require(torch.equal(got[1], ids) and all(
+                torch.equal(a[:k], b) for a, b in zip(got, want)),
+                f"dtw_search {route} L {Lx} r {r}: differs from the search "
+                f"or dtw_search_ref")
+            _, ms = once(call)
+            n_ref, n_rounds = int(got[3].sum()), int(got[2].sum())
+            bms, by = rl.dtw_search_work(n_ref * rl.dtw_cells(Lx, r), n_ref,
+                                         Lx, n_rounds, DTW_RK).bound()
+            rows.append(route_row(
+                "dtw_search", f"{route}_{tag}", DTW_SRC,
+                DTW_REPLACES.format(122, "search_dtw"),
+                f"{shape}, round_k {DTW_RK} ({n_rounds} rounds, {n_ref} "
+                f"refined, {int(got[2].max())} at most)", 0.0, ms,
+                search_plain, bms, by, {f"search_dtw's ids": "equal",
+                                        "plain version": checks})
+                | {"rounds": n_rounds, "refined": n_ref})
+        del s, o
+    for route in (scan_route, "diag"):
+        call = lambda: kd.dtw_scan(qz, x, r=r, route=route)  # noqa: E731
+        d2, i2 = call()
+        require(torch.equal(torch.sqrt(d2), bd) and torch.equal(i2, bi)
+                and torch.equal(d2[:k], scan_want[0])
+                and torch.equal(i2[:k], scan_want[1]),
+                f"dtw_scan {route} L {Lx} r {r}: differs from the brute "
+                f"force's or dtw_scan_ref")
+        _, ms = once(call)
+        bms, by = rl.dtw_scan_work(DTW_WIDE_Q, n, Lx, r).bound()
+        rows.append(route_row(
+            "dtw_scan", f"{route}_{tag}", DTW_SRC,
+            DTW_REPLACES.format(173, "search_dtw_bruteforce"), shape, 0.0,
+            ms, scan_plain, bms, by,
+            {"search_dtw_bruteforce": "equal", "plain version": checks})
+            | {"share_of_bound": bms / ms})
+    rep["band_ref_ms"] = band_ms
+    rep["kernels"] = {row["name"]: {k: row[k] for k in (
+        "ms", "bound_ms", "plain_ms")} for row in rows}
+    rep["seconds"] = time.perf_counter() - t_run
+    del x, qz, dp, bd, bi
+    torch.cuda.empty_cache()
+    return rep, ran, rows
+
+
+def dtw_sweep(torch, isax, kd, ref, gen):
+    """The dtw_wide phase's sweep (DTW_SWEEP, 4 queries x 256 z-normalized
+    walks each): at each shape every route of each kernel that takes it
+    (the default, the spread or chain route, diag), held bit for bit to
+    dtw_search_ref or dtw_scan_ref on one dtw_band_ref call's distances,
+    then timed (the mean of 10 launches after one), beside its bound;
+    each row with its rounds and candidates refined (the search's) and
+    its launches in the sweep.  Returns (reports, rows)."""
+    n, _, nq = DTW_FULL
+    reps, rows = [], []
+    for Lx, r, rk in DTW_SWEEP:
+        x = isax.znormalize(walks(torch, gen, n, Lx)).contiguous()
+        pick = torch.randint(0, n, (nq,), generator=gen, device=DEV)
+        q = isax.znormalize(x[pick] + 0.1 * torch.randn(
+            nq, Lx, generator=gen, device=DEV)).contiguous()
+        s, o = torch.sort(kd.lb_keogh(q, x, r=r), dim=1, stable=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dp = ref.dtw_band_ref(q[:, None], x[None], r)
+        torch.cuda.synchronize()
+        band_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        want = ref.dtw_search_ref(q, x, s, o, r, rk, d_pairs=dp)
+        torch.cuda.synchronize()
+        search_plain = band_ms + (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        scan_want = ref.dtw_scan_ref(q, x, r, d_pairs=dp)
+        torch.cuda.synchronize()
+        scan_plain = band_ms + (time.perf_counter() - t0) * 1e3
+        tag = f"L{Lx}_r{r}" + (f"_rk{rk}" if rk != DTW_RK else "")
+        shape = f"{nq} queries x {n} series, L {Lx}, r {r}"
+        n_ref, n_rounds = int(want[3].sum()), int(want[2].sum())
+        rep = {"L": Lx, "r": r, "round_k": rk, "rounds": n_rounds,
+               "refined": n_ref, "band_ref_ms": band_ms, "ms": {}}
+        for kernel, routes, call, held, bound, plain in (
+                ("dtw_search", kd.dp_routes(r, Lx, rk),
+                 lambda rt: kd.dtw_search(q, x, s, o, r=r, round_k=rk,
+                                          route=rt),
+                 lambda got: all(torch.equal(a, b)
+                                 for a, b in zip(got, want)),
+                 rl.dtw_search_work(n_ref * rl.dtw_cells(Lx, r), n_ref, Lx,
+                                    n_rounds, rk), search_plain),
+                ("dtw_scan", kd.scan_routes(r, Lx, nq, n),
+                 lambda rt: kd.dtw_scan(q, x, r=r, route=rt),
+                 lambda got: torch.equal(got[0], scan_want[0])
+                 and torch.equal(got[1], scan_want[1]),
+                 rl.dtw_scan_work(nq, n, Lx, r), scan_plain)):
+            bms, by = bound.bound()
+            for route in routes:
+                if route.startswith("ring") and route != routes[0]:
+                    continue                 # the ring widths: their own rows
+                before = dict(kd.by_route)
+                require(held(call(route)), f"{kernel} {route} {shape}, "
+                        f"round_k {rk}: not bit-equal to the plain version")
+                ms = time_ms(torch, lambda: call(route), 10, 0)
+                key = f"{kernel}/{route}"
+                row = route_row(
+                    kernel, f"{route}_{tag}", DTW_SRC, DTW_REPLACES.format(
+                        *((122, "search_dtw") if kernel == "dtw_search"
+                          else (173, "search_dtw_bruteforce"))),
+                    shape + (f", round_k {rk} ({n_rounds} rounds, {n_ref} "
+                             f"refined)" if kernel == "dtw_search" else ""),
+                    0.0, ms, plain, bms, by,
+                    {"all queries": "bit-equal to the plain version"})
+                row |= {"default": route == routes[0],
+                        "sweep_launches": kd.by_route.get(key, 0)
+                        - before.get(key, 0)}
+                rows.append(row)
+                rep["ms"][key] = ms
+        for kernel in ("dtw_search", "dtw_scan"):
+            mine = {k: v for k, v in rep["ms"].items()
+                    if k.startswith(kernel + "/")}
+            default = next(iter(mine))
+            rep[f"{kernel}_default_over_fastest"] = (
+                mine[default] / min(mine.values()))
+        reps.append(rep)
+        del x, q, s, o, dp
+        torch.cuda.empty_cache()
+    return reps, rows
+
+
+def dtw_few_pairs(torch, isax, kd, gen, Lx=2709, r=271):
+    """dtw_scan's chain and diag routes on DTW_FEW's few pairs (the first Q
+    queries and N series of 256 z-normalized walks of Lx points, noisy
+    collection series as queries), each held equal to the other and timed
+    (the mean of 5 launches after one), beside the default route
+    (scan_route by the pairs, CHAIN_PAIRS).  Returns the reports."""
+    x = isax.znormalize(walks(torch, gen, 256, Lx)).contiguous()
+    pick = torch.randint(0, 256, (8,), generator=gen, device=DEV)
+    q = isax.znormalize(x[pick] + 0.1 * torch.randn(
+        8, Lx, generator=gen, device=DEV)).contiguous()
+    reps = []
+    for nq, n in DTW_FEW:
+        qq, xx = q[:nq].contiguous(), x[:n].contiguous()
+        ms = {}
+        for route in ("chain", "diag"):
+            call = lambda: kd.dtw_scan(qq, xx, r=r, route=route)  # noqa
+            got = call()
+            if route == "chain":
+                first = got
+            require(torch.equal(got[0], first[0])
+                    and torch.equal(got[1], first[1]),
+                    f"dtw_scan {route}, {nq} x {n} pairs: chain and diag "
+                    f"differ")
+            ms[route] = time_ms(torch, call, 5, 0)
+        reps.append({"queries": nq, "series": n, "pairs": nq * n, "L": Lx,
+                     "r": r, "chain_ms": ms["chain"], "diag_ms": ms["diag"],
+                     "default": kd.scan_route(r, Lx, nq, n)})
+    del x, q
+    torch.cuda.empty_cache()
+    return reps
+
+
+def dtw_wide_path(torch, isax, kmods, ref, gen):
+    """The dtw_wide phase: the shapes past the wave routes' radii and
+    round_k 1,024, the spread and chain routes' defaults.  Every count at
+    0 first, the cells' paths (DTW_WIDE_CELLS,
+    dtw_wide_cell: search_dtw and search_dtw_bruteforce, then each kernel
+    at the path's launch on its default route and diag), the counts read
+    after each; then the sweep (dtw_sweep: every route of each kernel at
+    each DTW_SWEEP shape, bit for bit, timed) and the scan on few pairs
+    (dtw_few_pairs).  Returns (report, launches, rows)."""
+    kd = kmods["dtw"]
+    t_phase = time.perf_counter()
+    reset(kmods)
+    rep, launches, rows = {"phase": "dtw_wide", "cells": []}, {}, []
+    for n, Lx, r, search in DTW_WIDE_CELLS:
+        cell, ran, more = dtw_wide_cell(torch, isax, kd, ref, gen, n, Lx, r,
+                                        search)
+        rep["cells"].append(cell)
+        for row in more:
+            kernel, rt = row["name"].split("/")
+            launches[row["name"]] = ran.get(
+                f"{kernel}/{rt[:-len(f'_L{Lx}_r{r}_cell')]}", 0)
+        rows += more
+    rep["sweep"], more = dtw_sweep(torch, isax, kd, ref, gen)
+    rows += more
+    rep["few_pairs"] = dtw_few_pairs(torch, isax, kd, gen)
+    rep["rows"] = rows
+    rep["seconds"] = time.perf_counter() - t_phase
     return rep, launches, rows
 
 
@@ -4058,12 +4366,12 @@ def dtw_wide(torch, isax, kmods, ref, x, qz):
     brute force's but at ties, every distance its id's own, the first
     DTW_WIDE_GROUPS groups' refinement bit for bit against
     dtw_search_ref.  Then each group's pieces timed, and the table row
-    of the wave route at the first group, with the general route's time
+    of the wave route at the first group, with the spread route's time
     at the same shape and the bound of the cells an abandoning DP needs
     (needed_cells); then dtw_scan's rows at r on the brute force's
-    queries (scan_rows), its default route's with the general route
-    (which it replaced) and itself timed on the first DTW_GENERAL_Q
-    queries.  Returns (report, launches, rows)."""
+    queries (scan_rows), its default route's and the chain route's timed
+    on the first DTW_OTHER_Q queries.  Returns (report, launches,
+    rows)."""
     from repro_torch.core import dtw as cdtw
     kd, r = kmods["dtw"], DTW_WIDE_R
     route = kd.dp_route(r)
@@ -4137,12 +4445,11 @@ def dtw_wide(torch, isax, kmods, ref, x, qz):
     ms = time_ms(torch, lambda: kd.dtw_search(qg, x, s, o, r=r,
                                               round_k=DTW_RK), 3, 1)
     t0 = time.perf_counter()
-    gen_out = kd.dtw_search(qg, x, s, o, r=r, round_k=DTW_RK,
-                            route="general")
+    other = kd.dtw_search(qg, x, s, o, r=r, round_k=DTW_RK, route="spread")
     torch.cuda.synchronize()
-    general_ms = (time.perf_counter() - t0) * 1e3
-    require(all(torch.equal(a, b) for a, b in zip(gen_out, got)),
-            f"dtw_search r {r} general: not bit-equal on the first group")
+    spread_ms = (time.perf_counter() - t0) * 1e3
+    require(all(torch.equal(a, b) for a, b in zip(other, got)),
+            f"dtw_search r {r} spread: not bit-equal on the first group")
     n_ref = int(got[3].sum())
     cells = needed_cells(torch, ref, qg, x, s, o, trace, r, DTW_RK,
                          kd.wave_cells(route))
@@ -4155,8 +4462,8 @@ def dtw_wide(torch, isax, kmods, ref, x, qz):
                     DTW_REPLACES.format(122, "search_dtw"), shape, 0.0, ms,
                     plain_ms[0], bms, by,
                     {"main shape": "bit-equal to dtw_search_ref",
-                     "general route": "bit-equal"})
-    row["general_ms"] = general_ms
+                     "spread route": "bit-equal"})
+    row["spread_ms"] = spread_ms
     row["needed_cells"] = cells
     row["all_cells"] = n_ref * rl.dtw_cells(L, r)
     rounds_t = torch.tensor(rounds, dtype=torch.float64)
@@ -4172,8 +4479,8 @@ def dtw_wide(torch, isax, kmods, ref, x, qz):
                                  "median": float(refined_t.median()),
                                  "max": int(refined_t.max())},
            "pruned_share": 1.0 - float(refined_t.mean()) / DTW_N,
-           "first_group_ms": ms, "first_group_general_ms": general_ms,
-           "general_over_wave": general_ms / ms, "bound_ms": bms,
+           "first_group_ms": ms, "first_group_spread_ms": spread_ms,
+           "spread_over_wave": spread_ms / ms, "bound_ms": bms,
            "needed_cells": cells, "all_cells": n_ref * rl.dtw_cells(L, r),
            "search_check": f"groups 0..{DTW_WIDE_GROUPS - 1} bit-equal to "
                            f"dtw_search_ref", "plain_refine_ms": plain_ms,
@@ -4182,21 +4489,20 @@ def dtw_wide(torch, isax, kmods, ref, x, qz):
     launches = {row["name"]: routes.get(f"dtw_search/{route}", 0)}
     scan = scan_rows(torch, kd, ref, x, qz[:DTW_WIDE_BRUTE].contiguous(), r,
                      (bd, bi), routes)
-    q8 = qz[:DTW_GENERAL_Q].contiguous()
+    q8 = qz[:DTW_OTHER_Q].contiguous()
     t0 = time.perf_counter()
-    gd, gi = kd.dtw_scan(q8, x, r=r, route="general")
+    cd, ci = kd.dtw_scan(q8, x, r=r, route="chain")
     torch.cuda.synchronize()
-    general_ms = (time.perf_counter() - t0) * 1e3
-    require(torch.equal(torch.sqrt(gd), bd[:DTW_GENERAL_Q])
-            and torch.equal(gi, bi[:DTW_GENERAL_Q]),
-            f"dtw_scan general r {r}: differs from the brute force's")
+    chain_ms = (time.perf_counter() - t0) * 1e3
+    require(torch.equal(torch.sqrt(cd), bd[:DTW_OTHER_Q])
+            and torch.equal(ci, bi[:DTW_OTHER_Q]),
+            f"dtw_scan chain r {r}: differs from the brute force's")
     q8_ms = time_ms(torch, lambda: kd.dtw_scan(q8, x, r=r), 3, 1)
-    scan[0] |= {"ms_on_8_queries": q8_ms,
-                "replaced_general_ms_on_8_queries": general_ms}
+    scan[0] |= {"ms_on_8_queries": q8_ms, "chain_ms_on_8_queries": chain_ms}
     rep["scan"] = {row["name"]: {k: row[k] for k in (
         "ms", "bound_ms", "plain_ms", "launches_on_path")} for row in scan}
     rep["scan"][scan[0]["name"]] |= {"ms_on_8_queries": q8_ms,
-                                     "general_ms_on_8_queries": general_ms}
+                                     "chain_ms_on_8_queries": chain_ms}
     launches |= {row["name"]: row["launches_on_path"] for row in scan}
     return rep, launches, [row] + scan
 
@@ -4210,7 +4516,7 @@ def dtw_wider(torch, kd, ref, x, qz):
     the table row on a cut
     search (each query's first DTW_WIDER_CUT candidates by bound, the
     bounds past them at BIG, so no round reads them): the wave route
-    timed, the general route once beside it, both bit for bit against
+    timed, the spread route once beside it, both bit for bit against
     dtw_search_ref, whose trace gives the bound of the cells an
     abandoning DP needs (needed_cells).  Returns (reports, launches,
     rows)."""
@@ -4250,10 +4556,10 @@ def dtw_wider(torch, kd, ref, x, qz):
         cgot = cut()
         ms = time_ms(torch, cut, 3, 0)
         t0 = time.perf_counter()
-        gen_out = kd.dtw_search(qg, x, sc, o, r=r, round_k=DTW_RK,
-                                route="general")
+        other = kd.dtw_search(qg, x, sc, o, r=r, round_k=DTW_RK,
+                              route="spread")
         torch.cuda.synchronize()
-        general_ms = (time.perf_counter() - t0) * 1e3
+        spread_ms = (time.perf_counter() - t0) * 1e3
         trace = []
         t0 = time.perf_counter()
         want = ref.dtw_search_ref(qg, x, sc, o, r, DTW_RK,
@@ -4261,7 +4567,7 @@ def dtw_wider(torch, kd, ref, x, qz):
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         require(all(torch.equal(a, b) for a, b in zip(cgot, want))
-                and all(torch.equal(a, b) for a, b in zip(gen_out, want)),
+                and all(torch.equal(a, b) for a, b in zip(other, want)),
                 f"dtw_search r {r} cut: not bit-equal to dtw_search_ref")
         n_ref = int(cgot[3].sum())
         cells = needed_cells(torch, ref, qg, x, sc, o, trace, r, DTW_RK,
@@ -4277,8 +4583,8 @@ def dtw_wider(torch, kd, ref, x, qz):
                         DTW_REPLACES.format(122, "search_dtw"), shape, 0.0,
                         ms, plain_ms, bms, by,
                         {"cut shape": "bit-equal to dtw_search_ref",
-                         "general route": "bit-equal"})
-        row |= {"general_ms": general_ms, "needed_cells": cells,
+                         "spread route": "bit-equal"})
+        row |= {"spread_ms": spread_ms, "needed_cells": cells,
                 "all_cells": n_ref * rl.dtw_cells(L, r),
                 "full_group_ms": full_ms}
         rows.append(row)
@@ -4293,8 +4599,8 @@ def dtw_wider(torch, kd, ref, x, qz):
                      "ties_vs_bruteforce": int(
                          (bi != got[1][:DTW_WIDER_BRUTE]).sum()),
                      "cut": DTW_WIDER_CUT, "cut_ms": ms,
-                     "cut_general_ms": general_ms,
-                     "general_over_wave": general_ms / ms,
+                     "cut_spread_ms": spread_ms,
+                     "spread_over_wave": spread_ms / ms,
                      "cut_plain_ms": plain_ms, "cut_refined": n_ref,
                      "cut_rounds_max": int(cgot[2].max()),
                      "bound_ms": bms, "needed_cells": cells,
@@ -4547,7 +4853,7 @@ def dtw_path(torch, isax, kmods, ref, gen):
     (dtw_edges), the long queries' (dtw_long_queries, past the longest
     query a kernel stages), a band past shared memory
     (dtw_device_band, the diag routes) and the full window, r = L - 1,
-    on the general and the diag routes (dtw_full_window)."""
+    on the spread, chain and diag routes (dtw_full_window)."""
     from repro_torch.core import dtw as cdtw
     kd = kmods["dtw"]
     t_phase = time.perf_counter()
@@ -4680,8 +4986,8 @@ def dtw_path(torch, isax, kmods, ref, gen):
            "lb_rel_err": lb_err, "pairs": DTW_PAIRS,
            "pairs_check": "bit-equal to dtw_band_ref", "pairs_s": pairs_s,
            "launches": launches, "by_route": routes}
-    # table rows at the main path's launches, each beside its general
-    # route at the same shape (held to the same plain version)
+    # table rows at the main path's launches, each beside another route
+    # at the same shape (held to the same plain version)
     rows = []
     shape = (f"{cdtw.GROUP} queries x {DTW_N} series, L {L}, r {DTW_R} "
              f"(one group, the search's launch)")
@@ -4718,7 +5024,7 @@ def dtw_path(torch, isax, kmods, ref, gen):
     shape = (f"{cdtw.GROUP} queries x {DTW_N} series, L {L}, r {DTW_R}, "
              f"round_k {DTW_RK}, {n_ref} refined, {int(got[2].max())} "
              f"rounds at most (the first group)")
-    for route in (main_route, "general"):
+    for route in (main_route, "spread"):
         ms = time_ms(torch, lambda: kd.dtw_search(
             qg, x, s, o, r=DTW_R, round_k=DTW_RK, route=route), 3, 1)
         again = kd.dtw_search(qg, x, s, o, r=DTW_R, round_k=DTW_RK,
@@ -4729,7 +5035,7 @@ def dtw_path(torch, isax, kmods, ref, gen):
                         DTW_REPLACES.format(122, "search_dtw"), shape, 0.0,
                         ms, plain_ms[0], bms, by,
                         {"main shape": "bit-equal to dtw_search_ref"})
-        rows.append(row if route == "general"
+        rows.append(row if route == "spread"
                     else row | {"name": "dtw_search", "port_side": True})
     del first, qg, s, o
     torch.cuda.empty_cache()
@@ -4738,12 +5044,12 @@ def dtw_path(torch, isax, kmods, ref, gen):
     bms, by = rl.dtw_scan_work(DTW_BRUTE, DTW_N, L, DTW_R).bound()
     shape = (f"{DTW_BRUTE} queries x {DTW_N} series, L {L}, r {DTW_R} "
              f"(the brute force's launch)")
-    for route in ("band", "general"):
+    for route in ("band", "chain"):
         call = lambda: kd.dtw_scan(qb, x, r=DTW_R, route=route)  # noqa: E731
         if route == "band":
             ms = time_ms(torch, call, 2, 1)
             d2, i = call()
-        else:                            # ~5 s a launch here: timed once
+        else:                            # ~1 s a launch here: timed once
             e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             e[0].record()
             d2, i = call()
@@ -4763,7 +5069,7 @@ def dtw_path(torch, isax, kmods, ref, gen):
                         {"main shape": "equal to the brute force's answers",
                          "first query": "bit-equal to dtw_scan_ref"})
         row |= {"plain_queries": 1, "ms_on_plain_queries": one_ms}
-        rows.append(row if route == "general"
+        rows.append(row if route == "chain"
                     else row | {"name": "dtw_scan", "port_side": True})
         if route == "band":
             band_ms = ms
@@ -4907,8 +5213,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--series", type=int, default=1 << 24)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", choices=("dtw",), default=None,
-                    help="run the dtw phase alone")
+    ap.add_argument("--only", choices=("dtw", "dtw_wide"), default=None,
+                    help="run the dtw and dtw_wide phases alone, or the "
+                         "dtw_wide phase")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -4968,11 +5275,19 @@ def main() -> int:
     shard_gen = torch.Generator(device=DEV).manual_seed(args.seed + 5)
     dtw_gen = torch.Generator(device=DEV).manual_seed(args.seed + 6)
     topk_gen = torch.Generator(device=DEV).manual_seed(args.seed + 7)
+    wide_gen = torch.Generator(device=DEV).manual_seed(args.seed + 9)
     kmods = dict(ops.WRAPPERS)
-    if args.only == "dtw":
-        report, launches, rows = dtw_path(torch, isax, kmods, ref, dtw_gen)
+    if args.only:
+        rows, launches = [], {}
+        if args.only == "dtw":
+            report, launches, rows = dtw_path(torch, isax, kmods, ref,
+                                              dtw_gen)
+            emit(report)
+            torch.cuda.empty_cache()
+        report, more, more_rows = dtw_wide_path(torch, isax, kmods, ref,
+                                                wide_gen)
         emit(report)
-        return finish(torch, rows, launches, smi)
+        return finish(torch, rows + more_rows, launches | more, smi)
     rows, launches = [], {}
     for name, check, args_ in (
             ("summarize", check_summarize, (isax, kmods["summarize"],
@@ -5057,6 +5372,11 @@ def main() -> int:
     launches |= {k: v for k, v in more.items() if k not in launches}
     torch.cuda.empty_cache()
     report, more, dtw_rows = dtw_path(torch, isax, kmods, ref, dtw_gen)
+    emit(report)
+    launches |= more
+    rows += dtw_rows
+    torch.cuda.empty_cache()
+    report, more, dtw_rows = dtw_wide_path(torch, isax, kmods, ref, wide_gen)
     emit(report)
     launches |= more
     rows += dtw_rows

@@ -21,18 +21,18 @@ events, the bounds held equal to the first launch's.
 dtw_search: the same group at r 12 and at r 25 (chip_smoke.py's wide
 run), each with its LB_Keogh and sort made once; the mean of R launches
 by CUDA events, held equal to the first launch (a launch that takes
-over a second is timed once: the general route, which a tree without a
-wave route for r 25 takes), and the query with the most rounds alone
-(beside a launch under a second).
+over a second is timed once: a tree without a wave route for r 25 took
+a route of a thread a pair, since deleted), and the query with the most
+rounds alone (beside a launch under a second).
 dtw_scan: the brute force's launches, by each tree's default route, at
 r 12 on the group's 32 queries and at r 25 on its first 8 (the dtw
-phase's shapes before the brute forces took 32 queries), and the
-general route at r 25 on the 8, timed as dtw_search is (a launch over a
-second: once), each held equal to its first launch; then small
-collections (SMALL_N walks of L 256, z-normalized, 256 noisy queries, r
-25: a UCR-archive-sized scan), by the default and the general route, the
-mean of R launches each, held equal to each other, beside the scan's
-bound (roofline.dtw_scan_work).
+phase's shapes before the brute forces took 32 queries), and the diag
+route at r 25 on the 8, timed as dtw_search is (a launch over a second:
+once), each held equal to its first launch; then small collections
+(SMALL_N walks of L 256, z-normalized, 256 noisy queries, r 25: a
+UCR-archive-sized scan), by the default and the diag route, the mean of
+R launches each, held equal to each other, beside the scan's bound
+(roofline.dtw_scan_work).
 Prints one JSON line with the card's name and power limit.  Without CUDA
 it exits 1 before printing a result.
 """
@@ -126,7 +126,7 @@ def dtw_case(torch, isax, kd, cs, gen, reps: int) -> dict:
                 torch, one, reps, 1)
         del s, o
     for r, nq, route in ((cs.DTW_R, 32, None), (cs.DTW_WIDE_R, 8, None),
-                         (cs.DTW_WIDE_R, 8, "general")):
+                         (cs.DTW_WIDE_R, 8, "diag")):
         qb = qg[:nq].contiguous()
         call = lambda: kd.dtw_scan(qb, x, r=r, route=route)  # noqa: E731
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -138,7 +138,7 @@ def dtw_case(torch, isax, kd, cs, gen, reps: int) -> dict:
         if ms < 1000:
             ms = cs.time_ms(torch, call, reps, 1)
         assert all(torch.equal(a, b) for a, b in zip(call(), want)), r
-        out[f"dtw_scan_r{r}_q{nq}" + ("_general" if route else "")] = {
+        out[f"dtw_scan_r{r}_q{nq}" + (f"_{route}" if route else "")] = {
             "ms": ms, "r": r, "queries": nq,
             "shape": f"{nq} queries x {cs.DTW_N} series, L {cs.L}"}
     del x, qg
@@ -149,7 +149,7 @@ def dtw_case(torch, isax, kd, cs, gen, reps: int) -> dict:
         qs = isax.znormalize(xs[pick] + 0.1 * torch.randn(
             SMALL_Q, cs.L, generator=gen, device="cuda")).contiguous()
         got = {}
-        for route in (None, "general"):
+        for route in (None, "diag"):
             call = lambda: kd.dtw_scan(qs, xs, r=r, route=route)  # noqa
             want = call()
             got[route or kd.scan_route(r)] = {

@@ -32,6 +32,18 @@ those table rows, checks included:
                    route forced), one launch timed after one, each with a
                    hash of its answers (the trees' must agree); rows named
                    `<kernel>/diag_L<L>_r<r>_band`
+    dtw_wide       dtw_search (round_k 32, or as stated) and dtw_scan on
+                   the tree's default routes at the shapes the general
+                   routes took before the spread and chain routes
+                   (WIDE_SWEEP: 4 queries x 256 walks at L 256, r 128,
+                   192, 255; L 1,024, r 128, 256, 512, 1,023; L 2,709, r
+                   271; L 256, r 12, round_k 2,048) and at a cell's size
+                   (WIDE_CELLS: 32 queries x 2^16 walks at L 2,709, r 271,
+                   both kernels; L 1,024, r 512, the scan), one launch
+                   timed after one (a launch past 2 s timed alone), each
+                   with its route and a hash of its answers (the trees'
+                   must agree); rows named `<kernel>/L<L>_r<r>[_rk<k>]`
+                   and `.._cell`
 
 Prints one JSON line: the tag, the card (`nvidia-smi`'s name and power
 limit) and each row's ms (and the dtw_scan rows' routes and hashes).  Run
@@ -48,7 +60,14 @@ import subprocess
 import sys
 
 GROUPS = ("attention", "refine_search", "ed_argmin", "dtw_long",
-          "dtw_scan", "dtw_band")
+          "dtw_scan", "dtw_band", "dtw_wide")
+# the dtw_wide group's shapes: (series, queries, L, r, round_k, search)
+WIDE_SWEEP = tuple((256, 4, L, r, k, True) for L, r, k in (
+    (256, 128, 32), (256, 192, 32), (256, 255, 32), (1024, 128, 32),
+    (1024, 256, 32), (1024, 512, 32), (1024, 1023, 32), (2709, 271, 32),
+    (256, 12, 2048)))
+WIDE_CELLS = ((1 << 16, 32, 2709, 271, 32, True),
+              (1 << 16, 32, 1024, 512, 32, False))
 
 
 def scan_rows(torch, cs, isax, kd, gen):
@@ -110,6 +129,47 @@ def band_rows(torch, cs, isax, kd, gen):
     return ms, detail
 
 
+def wide_rows(torch, cs, isax, kd, gen):
+    """The dtw_wide group's rows: ({name: ms}, {name: {route, hash}})."""
+    ms, detail = {}, {}
+
+    def timed(call):                     # one launch after one, or alone
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out = call()
+        b.record()
+        torch.cuda.synchronize()
+        first = a.elapsed_time(b)
+        return out, (first if first > 2000 else cs.time_ms(torch, call, 1,
+                                                            0))
+    for n, nq, Lx, r, rk, search in WIDE_SWEEP + WIDE_CELLS:
+        raw = cs.walks(torch, gen, n, Lx)
+        pick = torch.randint(0, n, (nq,), generator=gen, device=cs.DEV)
+        noise = 0.1 * torch.randn(nq, Lx, generator=gen, device=cs.DEV)
+        q = isax.znormalize(isax.znormalize(raw[pick]) + noise).contiguous()
+        x = isax.znormalize(raw).contiguous()
+        del raw
+        tag = (f"L{Lx}_r{r}" + (f"_rk{rk}" if rk != 32 else "")
+               + ("_cell" if n > 256 else ""))
+        calls = [("dtw_scan", lambda: kd.dtw_scan(q, x, r=r))]
+        if search:
+            s, o = torch.sort(kd.lb_keogh(q, x, r=r), dim=1, stable=True)
+            calls.insert(0, ("dtw_search", lambda: kd.dtw_search(
+                q, x, s, o, r=r, round_k=rk)))
+        for kernel, call in calls:
+            before = dict(kd.by_route)
+            out, t = timed(call)
+            name = f"{kernel}/{tag}"
+            ms[name] = t
+            key = tuple(v for a in out for v in a.tolist())
+            detail[name] = {"route": [k for k, v in kd.by_route.items()
+                                      if v != before.get(k, 0)],
+                            "hash": hex(hash(key) & (2 ** 64 - 1))}
+        del x, q
+        torch.cuda.empty_cache()
+    return ms, detail
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("tree")
@@ -165,6 +225,10 @@ def main() -> int:
         rows += [{"name": n, "ms": t} for n, t in ms.items()]
     if "dtw_band" in groups:
         ms, extra["dtw_band"] = band_rows(torch, cs, isax, kmods["dtw"],
+                                          gen(6))
+        rows += [{"name": n, "ms": t} for n, t in ms.items()]
+    if "dtw_wide" in groups:
+        ms, extra["dtw_wide"] = wide_rows(torch, cs, isax, kmods["dtw"],
                                           gen(6))
         rows += [{"name": n, "ms": t} for n, t in ms.items()]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -32,15 +32,13 @@
 // with prev[k] = cost[i-1, i-1-r+k] (diag) and prev[k+1] (up), BIG = 1e30
 // for a cell outside [0, L), and row 0 the running sum from column 0, as
 // repro's dtw_band computes it; min is exact, so the result equals the
-// plain version (kernels/ref.py dtw_band_ref) bit for bit.  Two layouts:
-// - one thread a (query, candidate) pair (dtw_scan's band and general
-//   routes, and dtw_search's general route, r > 127): each thread walks
-//   the rows of its pair in order; the band of the previous row lives in
-//   registers (dtw_scan's band route, a template instance for each r <=
-//   16: 2 (2r + 1) registers for the band and the series window)
-//   or, for r > 16, in shared memory, one column of it a thread.  A warp's
-//   32 threads run 32 pairs in step, so the left-to-right chain of a row
-//   never serialises a warp, but a pair takes L (2r + 1) cells in series.
+// plain version (kernels/ref.py dtw_band_ref) bit for bit.  Three layouts:
+// - one thread a (query, candidate) pair (dtw_scan's band route, r <= 16):
+//   each thread walks the rows of its pair in order, the band of the
+//   previous row in registers (a template instance for each r: 2 (2r + 1)
+//   registers for the band and the series window).  A warp's 32 threads
+//   run 32 pairs in step, so the left-to-right chain of a row never
+//   serialises a warp, but a pair takes L (2r + 1) cells in series.
 // - a wavefront over the lanes of a warp a pair (dtw_search's wave
 //   routes, r <= 127, dtw_wave; dtw_scan's wave route, r <= 255,
 //   scan_pair): cell (i, k) reads only cells of the wavefronts t - 1 and
@@ -53,13 +51,18 @@
 //   16 (r <= 255) for dtw_scan, and past L 1,024 16 to 24 by radius.  The
 //   series is staged in shared memory first, or goes through a ring of
 //   columns past L 1,024.
-// - strips of rows a pair, a warp a strip (the diag routes of both
-//   kernels, strip_dp): every r and L, the default where a band of 2r + 1
-//   floats passes a block's shared memory (r > 25,599).  A pair's rows in
-//   strips of 32 K (K rows a lane), each swept column by column as a
-//   skewed wavefront over the lanes, a strip handing its last row to the
-//   next through device scratch: a pair's strips run on many warps of
-//   many SMs at once (see "the diag routes" below).
+// - strips of rows a pair, a warp a strip (strip_dp): every r and L, past
+//   the wave routes' radii (r > 127 at L <= 1,024, r > 255 above) and
+//   round_k 1,024.  A pair's rows in strips of 32 K (K rows a lane), each
+//   swept column by column as a skewed wavefront over the lanes, a strip
+//   handing its last row to the next: in dtw_scan's chain route through a
+//   warp's own shared memory (a warp runs a pair's strips in order), in
+//   dtw_search's spread route through the shared memory of the CTA whose
+//   warps run a pair's strips, and in the diag routes of both kernels (the
+//   default where a pair's row passes shared memory, or the scan's pairs
+//   are too few to fill the card) through device scratch, a pair's strips
+//   on many warps of many SMs at once (see "the diag routes" and "the
+//   chain and spread routes" below).
 
 // dtw_lb_keogh: each block first builds the group's envelopes (rolling
 // min and max of each query over +-r) in shared memory, (lo, hi) side by
@@ -84,24 +87,25 @@
 // memory with cp.async and its next candidate brought into L2 meanwhile.
 // Then every CTA applies the 8 rounds in order, exactly as one round after
 // another: the rounds run the DP of more candidates (those a lower
-// best-so-far prunes) but answer the same.  General route (r > 127, and
-// r > 255 past L 1,024): one block a query, a thread a candidate.  A
-// round's first minimum is one
-// 64-bit min over (d bits << 32 | position) (the float's bits,
+// best-so-far prunes) but answer the same.  A round's first minimum is
+// one 64-bit min over (d bits << 32 | position) (the float's bits,
 // non-negative, order as the floats); it updates the best-so-far, and the
-// next round's first bound decides the stop.  A round_k past 1,024 takes
-// the general route, in passes of at most 1,024 candidates.  Past L 1,024
-// the wave routes' pairs keep a ring of columns in place of the whole row
+// next round's first bound decides the stop.  Past the wave routes' radii
+// (r > 127, and r > 255 past L 1,024) and round_k 1,024 the spread route
+// takes the search: strips of rows, up to kSpec rounds at once over a
+// query's CTAs (see "the chain and spread routes").  Past L 1,024 the
+// wave routes' pairs keep a ring of columns in place of the whole row
 // (dtw_wave's RING; ring16 too, r <= 255), and a query past kStageL points
 // is read from device memory, so no route's shared memory grows with L
-// but the general route's bands (the diag route, which keeps none, takes
-// over past them).
+// but the strips' rows (the diag route, which keeps them in device
+// scratch, takes over past them).
 //
-// dtw_scan, band and general routes: one thread a (query, series) pair, q
-// in shared memory (to kStageL points); the pair's (d^2 bits << 32 |
-// series) goes through a warp min to one 64-bit atomicMin a warp, which
-// gives the least distance and, among equal ones, the first series.  The
-// grid's y dimension takes 65,535 queries a launch (any Q, in launches).
+// dtw_scan, band route: one thread a (query, series) pair, q in shared
+// memory (to kStageL points); the pair's (d^2 bits << 32 | series) goes
+// through a warp min to one 64-bit atomicMin a warp, which gives the
+// least distance and, among equal ones, the first series.  The grid's y
+// dimension takes 65,535 queries a launch (any Q, in launches).  Past r
+// 255 the chain route (a warp a pair, strips of rows) takes the scan.
 //
 // dtw_scan, wave route (scan_wave_kernel): throughput, not latency: Q x N
 // pairs of one length, every pair's whole band computed (the brute force
@@ -141,6 +145,10 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
@@ -259,59 +267,6 @@ __device__ float dtw_band_regs(const float* __restrict__ qs,
     }
   }
   return band[R];
-}
-
-// The same with the band in shared memory: band[k * stride] is this
-// thread's column k (stride = the block's threads), any radius.
-__device__ float dtw_band_smem(const float* __restrict__ qs,
-                               const float* __restrict__ x, int L, int R,
-                               float* band, int stride) {
-  const int W = 2 * R + 1;
-  {
-    const float qi = qs[0];
-    float left = kBig;
-    for (int k = 0; k < W; ++k) {
-      const int c = k - R;
-      float v = kBig;
-      if (c >= 0 && c < L) {
-        const float d = cell_d(qi, __ldg(x + c));
-        v = (c == 0) ? d : __fadd_rn(d, left);
-      }
-      band[k * stride] = v;
-      left = v;
-    }
-  }
-  for (int i = 1; i < L; ++i) {
-    const float qi = qs[i];
-    float left = kBig;
-    float diag = band[0];
-    for (int k = 0; k < W; ++k) {
-      const int c = i - R + k;
-      const float up = (k + 1 < W) ? band[(k + 1) * stride] : kBig;
-      float v = kBig;
-      if (c >= 0 && c < L) {
-        const float m = fminf(fminf(diag, up), left);
-        v = __fadd_rn(cell_d(qi, __ldg(x + c)), m);
-      }
-      band[k * stride] = v;
-      left = v;
-      diag = up;
-    }
-  }
-  return band[R * stride];
-}
-
-// R >= 0: dtw_scan's band route of radius R; R < 0: a general route,
-// radius r.
-template <int R>
-__device__ __forceinline__ float dtw_pair(const float* qs, const float* x,
-                                          int L, int r, float* band,
-                                          int stride) {
-  if constexpr (R >= 0) {
-    return dtw_band_regs<R>(qs, x, L);
-  } else {
-    return dtw_band_smem(qs, x, L, r, band, stride);
-  }
 }
 
 // One wavefront step's cells of a lane (C band offsets): v holds the
@@ -526,6 +481,53 @@ __device__ __forceinline__ unsigned long long pack(float d, unsigned idx) {
   return (static_cast<unsigned long long>(__float_as_uint(d)) << 32) | idx;
 }
 
+// Queries a chunk of a scan whose CTAs take (chunk, tile group) units (G
+// tile groups, Q queries, at most qc a chunk, `held` CTAs at once): qc,
+// or where the tile groups are fewer than the CTAs, the largest qn whose
+// units the card runs in rounds of qn queries within 1/32 of the fewest (a
+// chunk's rows are loaded again at each unit of another chunk).
+inline int chunk_queries(long long G, int Q, int qc, long long held) {
+  auto cost = [&](int k) {               // queries of the busiest CTA
+    return (G * ((Q + k - 1) / k) + held - 1) / held * k;
+  };
+  int qn = qc;
+  if (G < held) {
+    long long least = cost(qc);
+    for (int k = 1; k < qc; ++k) least = cost(k) < least ? cost(k) : least;
+    while (32 * cost(qn) > 33 * least) --qn;
+  }
+  return qn;
+}
+
+// What the card holds at once of kernel `fn` at `threads` a CTA and `smem`
+// bytes of dynamic shared memory (SMs x CTAs an SM), asked once a (device,
+// kernel, smem), the kernel's dynamic shared memory raised to kWaveSmem
+// at its first: a launch's host work is most of a small call's time.
+inline int held_ctas(const void* fn, int threads, size_t smem, int& held) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, size_t>, int> memo;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(dev, fn, smem);
+  const auto it = memo.find(key);
+  if (it != memo.end()) {
+    held = it->second;
+    return 0;
+  }
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kWaveSmem);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                      smem);
+  if (e != cudaSuccess) return (int)e;
+  held = memo[key] = sms * per_sm;
+  return 0;
+}
+
 // ------------------------------------------------------------- kernels
 // Squared LB_Keogh: out[g * N + n] for the Qg <= G queries of q (Qg, L)
 // (see the top).  Lane j of a warp's task t owns series 128 t + j + 32 s,
@@ -639,110 +641,6 @@ lb_keogh_kernel(const float* __restrict__ q, const float* __restrict__ x,
           if (n0 + 32 * s < N) out[(long long)g * N + n0 + 32 * s] = acc[g][s];
       }
     }
-  }
-}
-
-// dtw_search's general route: the refinement of query blockIdx.x of the
-// group, a thread a candidate, its band in shared memory (see the top).
-// PASSES: a round's candidates in passes of blockDim.x (fewer than round_k
-// where the bands of as many threads do not fit; fewer than 32 where a
-// warp's do not), the round's first minimum over all its passes; without,
-// one pass of whole warps (the one-pass body as its own instance: folded
-// into the loop of passes it ran 9 % slower at r 12, PERF.md).
-// LONGQ: a query past kStageL points, read from device memory (its own
-// instance: a query pointer to either memory cost the staged instance 8 %
-// at r 12, H100).
-template <bool PASSES, bool LONGQ = false>
-__global__ void search_general(const float* __restrict__ q,
-                              const float* __restrict__ x, long long N,
-                              int L, int r, int round_k,
-                              const float* __restrict__ slb,
-                              const long long* __restrict__ order,
-                              float* bsf_out, int* best_out,
-                              int* rounds_out, int* refined_out) {
-  extern __shared__ float sm[];
-  // the query (L, staged but for LONGQ), then the bands (2r + 1, threads)
-  float* band = sm + (LONGQ ? 0 : L);
-  __shared__ unsigned long long wkey[32];
-  __shared__ float s_bsf;
-  __shared__ int s_go;
-  const int g = blockIdx.x, tid = threadIdx.x;
-  const float* qs = sm;
-  if constexpr (LONGQ) {
-    qs = q + (long long)g * L;
-  } else {
-    for (int j = tid; j < L; j += blockDim.x) sm[j] = q[(long long)g * L + j];
-  }
-  const float* lb = slb + (long long)g * N;
-  const long long* ord = order + (long long)g * N;
-  const long long end = (N + round_k - 1) / round_k * round_k;
-  float bsf = kBig;
-  long long best = -1;
-  int rounds = 0, refined = 0;
-  if (tid == 0) {
-    s_bsf = kBig;
-    s_go = end > 0 && lb[0] < kBig;
-  }
-  __syncthreads();
-  long long cursor = 0;
-  while (s_go) {
-    bsf = s_bsf;
-    unsigned long long key = ~0ull;
-    int n_take = 0;
-    if constexpr (PASSES) {
-      for (int base = 0; base < round_k; base += blockDim.x) {
-        const int j = base + tid;
-        const long long pos = cursor + j;
-        const bool real = j < round_k && pos < N;
-        const float b = real ? lb[pos] : kBig;
-        const bool take = b < bsf;
-        float d = kBig;
-        if (take) {
-          d = dtw_band_smem(qs, x + ord[pos] * L, L, r, band + tid,
-                            blockDim.x);
-        }
-        n_take += __syncthreads_count(take);
-        const unsigned long long kj = pack(d, (unsigned)j);
-        key = kj < key ? kj : key;
-      }
-      key = warp_min_u64(key, min(32, (int)blockDim.x));
-    } else {
-      const long long pos = cursor + tid;
-      const bool real = tid < round_k && pos < N;
-      const float b = real ? lb[pos] : kBig;
-      const bool take = b < bsf;
-      float d = kBig;
-      if (take) {
-        d = dtw_band_smem(qs, x + ord[pos] * L, L, r, band + tid,
-                          blockDim.x);
-      }
-      n_take = __syncthreads_count(take);
-      key = warp_min_u64(pack(d, tid));
-    }
-    if ((tid & 31) == 0) wkey[tid >> 5] = key;
-    __syncthreads();
-    if (tid == 0) {
-      unsigned long long m = wkey[0];
-      for (int w = 1; w < (int)((blockDim.x + (PASSES ? 31 : 0)) >> 5); ++w)
-        m = wkey[w] < m ? wkey[w] : m;
-      const float dmin = __uint_as_float((unsigned)(m >> 32));
-      if (dmin < bsf) {
-        bsf = dmin;
-        best = ord[cursor + (unsigned)(m & 0xffffffffu)];
-      }
-      ++rounds;
-      refined += n_take;
-      s_bsf = bsf;
-      s_go = cursor + round_k < end && lb[cursor + round_k] < bsf;
-    }
-    cursor += round_k;
-    __syncthreads();
-  }
-  if (tid == 0) {
-    bsf_out[g] = bsf;
-    best_out[g] = (int)best;
-    rounds_out[g] = rounds;
-    refined_out[g] = refined;
   }
 }
 
@@ -934,21 +832,17 @@ wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
   }
 }
 
-// dtw_scan's band (R >= 0) and general routes: query blockIdx.y against
-// series blockIdx.x * blockDim.x + threadIdx.x.  SUB: blockDim.x below 32
-// (a power of two), where a warp's bands do not fit (its own instance: a
-// reduction over a run-time width cost the DP 29 % at r 25, PERF.md).
-// LONGQ: a query past kStageL points, read from device memory (its own
-// instance: a query pointer to either memory cost the staged one 13-15 %,
-// H100).
-template <int R, bool SUB = false, bool LONGQ = false>
+// dtw_scan's band route (radius R): query blockIdx.y against series
+// blockIdx.x * blockDim.x + threadIdx.x.  LONGQ: a query past kStageL
+// points, read from device memory (its own instance: a query pointer to
+// either memory cost the staged one 13-15 %, H100).
+template <int R, bool LONGQ = false>
 __global__ void scan_kernel(const float* __restrict__ q,
                             const float* __restrict__ x, long long N, int L,
-                            int r, unsigned long long* keys) {
+                            unsigned long long* keys) {
   extern __shared__ float sm[];
   const int g = blockIdx.y, tid = threadIdx.x;
   const float* qs = sm;
-  float* band = sm + (LONGQ ? 0 : L);
   if constexpr (LONGQ) {
     qs = q + (long long)g * L;
   } else {
@@ -957,11 +851,8 @@ __global__ void scan_kernel(const float* __restrict__ q,
   }
   const long long n = (long long)blockIdx.x * blockDim.x + tid;
   unsigned long long key = ~0ull;
-  if (n < N) {
-    key = pack(dtw_pair<R>(qs, x + n * L, L, r, band + tid, blockDim.x),
-               (unsigned)n);
-  }
-  key = SUB ? warp_min_u64(key, blockDim.x) : warp_min_u64(key);
+  if (n < N) key = pack(dtw_band_regs<R>(qs, x + n * L, L), (unsigned)n);
+  key = warp_min_u64(key);
   if ((tid & 31) == 0 && key != ~0ull) atomicMin(keys + g, key);
 }
 
@@ -989,7 +880,12 @@ __global__ void scan_kernel(const float* __restrict__ q,
 // entries of the strip above as it goes: it stores column c at entry c - lo
 // after it has read the strip above's entry there, that strip's column c -
 // (its lo - the lo above) <= c, so no entry is overwritten unread (the tests
-// run the hand-over in random orders of chunks).
+// run the hand-over in random orders of chunks), and stores no column past
+// its hi: where the strip below starts at the same column (lo 0 for the
+// first strips), the entries past hi are that strip's own columns, which
+// it needs none of ours to store, and a late store of ours there would
+// leave it a stale tag (the strip below it then waited for ever: a chunk
+// whose stores pass hi takes the tested path).
 //
 // Strips are taken in dependency order by an atomic ticket: pairs in
 // batches of `slots` (a scratch slot each), chains of strips (one warp
@@ -1035,51 +931,122 @@ __device__ __forceinline__ void st_strong(unsigned long long* p,
   asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" :: "l"(p), "l"(v));
 }
 
-// A spin that has waited kStuckNs since `t0` (the global timer's ns)
-// traps: every wait is on a warp already running, so only a fault can
-// wait that long, and a failed launch raises where a hung one would hold
-// the card.
-constexpr unsigned long long kStuckNs = 20ull * 1000 * 1000 * 1000;
+// A spin that has waited kStuckClocks since `t0` (clock64: the SM's own
+// clock, about 20 s at the H100's 1.98 GHz) traps: every wait is on a warp
+// already running, so only a fault can wait that long, and a failed launch
+// raises where a hung one would hold the card.  clock64 only counts up on
+// the warp's SM; the global timer need not, and a step back would read as
+// an endless wait.
+constexpr long long kStuckClocks = 40ll * 1000 * 1000 * 1000;
 
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
+__device__ __forceinline__ void stuck(long long t0) {
+  if (clock64() - t0 > kStuckClocks) __trap();
 }
 
-__device__ __forceinline__ void stuck(unsigned long long t0) {
-  if (now_ns() - t0 > kStuckNs) __trap();
+// Shared-memory forms of ld_strong / st_strong (relaxed, CTA scope): a
+// 64-bit entry another warp of the CTA stores is seen whole or not.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Every lane's entry e (read from p; `want` false: none needed) carries
+__device__ __forceinline__ unsigned long long ld_cta(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.cta.shared.u64 %0, [%1];" : "=l"(v)
+               : "r"(smem_addr(p)));
+  return v;
+}
+
+__device__ __forceinline__ void st_cta(unsigned long long* p,
+                                       unsigned long long v) {
+  asm volatile("st.relaxed.cta.shared.u64 [%0], %1;" :: "r"(smem_addr(p)),
+               "l"(v));
+}
+
+// Every lane's entry e (read by ld(); `want` false: none needed) carries
 // `tag`: spins until they do.  While waiting only the lane of the highest
 // column wanted polls (the strip above stores its columns in order), the
-// sleeps growing to 256 ns, so that a waiting warp costs L2 one load a
+// sleeps growing to `most` ns, so that a waiting warp costs one load a
 // poll, not 32; once that entry is in, the lanes still short reload.
-__device__ __forceinline__ void settle(unsigned long long& e,
-                                       const unsigned long long* p,
-                                       bool want, unsigned tag) {
+template <class Ld>
+__device__ __forceinline__ void settle_entry(unsigned long long& e, Ld&& ld,
+                                             bool want, unsigned tag,
+                                             unsigned most) {
   auto in = [&] { return !want || (unsigned)(e >> 32) == tag; };
   if (__all_sync(kAll, in())) return;
   const int lane = threadIdx.x & 31;
   const int top = 31 - __clz(__ballot_sync(kAll, want));
-  const unsigned long long t0 = now_ns();
+  const long long t0 = clock64();
   unsigned nap = 32;
   for (;;) {
     __nanosleep(nap);
-    nap = nap < 256 ? 2 * nap : 256;
+    nap = nap < most ? 2 * nap : most;
     stuck(t0);
-    if (lane == top && !in()) e = ld_strong(p);
+    if (lane == top && !in()) e = ld();
     if (!__shfl_sync(kAll, in(), top)) continue;
-    if (!in()) e = ld_strong(p);
+    if (!in()) e = ld();
     if (__all_sync(kAll, in())) return;
   }
 }
 
+// The rows strip_dp hands on (the strip above's last row, read by the strip
+// below), one type a route:
+// - DevRow (the diag routes): a pair's row in device scratch, 64-bit
+//   entries (tag << 32 | the float's bits), strips on any warps of any SMs;
+// - CtaRow (dtw_search's spread route): the same entries in the shared
+//   memory of the CTA whose warps run the pair's strips;
+// - WarpRow (dtw_scan's chain route): plain floats in a warp's own slice of
+//   shared memory, which only that warp writes and reads, one strip after
+//   another: no tag and no wait, a __syncwarp at each strip's and chunk's
+//   start (fence) ordering one lane's stores before the others' loads.
+// ld(i) reads entry i, settle(e, i, want, tag) waits until e carries the
+// tag, val(e) is its float, st(i, tag, v) stores v at entry i.
+struct DevRow {
+  using Entry = unsigned long long;
+  unsigned long long* p;
+  __device__ Entry ld(int i) const { return ld_strong(p + i); }
+  __device__ void settle(Entry& e, int i, bool want, unsigned tag) const {
+    const unsigned long long* a = p + i;
+    settle_entry(e, [a] { return ld_strong(a); }, want, tag, 256);
+  }
+  __device__ static float val(Entry e) { return __uint_as_float((unsigned)e); }
+  __device__ void st(int i, unsigned tag, float v) const {
+    st_strong(p + i, (static_cast<unsigned long long>(tag) << 32)
+                         | __float_as_uint(v));
+  }
+  __device__ static void fence() {}
+};
+
+struct CtaRow {
+  using Entry = unsigned long long;
+  unsigned long long* p;
+  __device__ Entry ld(int i) const { return ld_cta(p + i); }
+  __device__ void settle(Entry& e, int i, bool want, unsigned tag) const {
+    const unsigned long long* a = p + i;
+    settle_entry(e, [a] { return ld_cta(a); }, want, tag, 64);
+  }
+  __device__ static float val(Entry e) { return __uint_as_float((unsigned)e); }
+  __device__ void st(int i, unsigned tag, float v) const {
+    st_cta(p + i, (static_cast<unsigned long long>(tag) << 32)
+                      | __float_as_uint(v));
+  }
+  __device__ static void fence() {}
+};
+
+struct WarpRow {
+  using Entry = float;
+  float* p;
+  __device__ Entry ld(int i) const { return p[i]; }
+  __device__ void settle(Entry&, int, bool, unsigned) const {}
+  __device__ static float val(Entry e) { return e; }
+  __device__ void st(int i, unsigned, float v) const { p[i] = v; }
+  __device__ static void fence() { __syncwarp(); }
+};
+
 // The count at p (the same for every lane) reaches `want`.
 __device__ __forceinline__ void await_count(const unsigned long long* p,
                                             unsigned long long want) {
-  const unsigned long long t0 = now_ns();
+  const long long t0 = clock64();
   unsigned nap = 32;
   while (!__all_sync(kAll, ld_strong(p) >= want)) {
     __nanosleep(nap);
@@ -1099,48 +1066,62 @@ __device__ __forceinline__ int strip_hi(int s0, int S, int r, int L) {
   return s0 + S - 1 + r < L - 1 ? s0 + S - 1 + r : L - 1;
 }
 
-// Strip s of the pair (q, x), K rows a lane (see above).  `in`: the strip
-// above's last row (null for s = 0), its entries tagged in_tag; `out`:
-// where this strip's last row goes (null for the pair's last strip),
-// tagged out_tag.  Returns cell (L - 1, L - 1) on the lane that holds row
-// L - 1 (on the pair's last strip), BIG on the others.
-template <int K>
+// Strip s of the pair (q, x), K rows a lane (see above), its rows handed
+// on through rows of a Row type above: `in`, the strip above's last row,
+// its entries tagged in_tag (in.p null for s = 0); `out`, where this
+// strip's last row goes, tagged out_tag (out.p null for the pair's last
+// strip).  Returns cell (L - 1, L - 1) on the lane that holds row L - 1
+// (on the pair's last strip), BIG on the others.
+//
+// SHIFT: a cell outside the band is made BIG or more by a max with its
+// mask (0 inside, BIG outside) in place of a test: along a lane the mask
+// of row a at a step is that of row a - 1 at the step before (the column
+// moves on by one), so the masks shift through K registers, one new a
+// step, and a cell of a chunk with tests costs one instruction for the
+// band where the test took three.  An inside cell reads at least one
+// inside neighbour, finite and below BIG, so a neighbour outside at BIG
+// or more (not BIG exactly) changes no bit.
+template <int K, bool SHIFT = false, class Row>
 __device__ float strip_dp(const float* __restrict__ q,
                           const float* __restrict__ x, int L, int r, int s,
-                          const unsigned long long* in, unsigned in_tag,
-                          unsigned long long* out, unsigned out_tag) {
+                          Row in, unsigned in_tag, Row out,
+                          unsigned out_tag) {
   constexpr int W = 32, S = W * K;    // lanes, rows
   const int lane = threadIdx.x & (W - 1);
   const int s0 = s * S, lo = strip_lo(s0, r), hi = strip_hi(s0, S, r, L);
   const int ilo = strip_lo(s0 - S, r), ihi = strip_hi(s0 - S, S, r, L);
   const int i0 = s0 + K * lane;
-  float qv[K], v[K];
+  float qv[K], v[K], mk[K];     // mk (SHIFT): each row's band mask
 #pragma unroll
   for (int a = 0; a < K; ++a) {
     const float qa = __ldg(q + (i0 + a < L ? i0 + a : L - 1));
     qv[a] = i0 + a < L ? qa : kPoison;
     v[a] = kBig;
   }
+  auto mask = [&](int e) {            // offset e in the band: 0, else BIG
+    return (unsigned)e > (unsigned)(2 * r) ? kBig : 0.f;
+  };
   const bool full = s0 + S <= L;
   const int la = L - 1 - i0;          // row L - 1's place on its lane
   float res = kBig;
   // lane 0's diagonal at its first column lo: the row above at lo - 1
   // (cell (0, 0): 0); every other lane's first cell lies outside the band
   float dprev = kBig;
-  if (in == nullptr) {
+  Row::fence();                       // the strip above's row is in
+  if (in.p == nullptr) {
     if (lane == 0) dprev = 0.f;
   } else if (lo - 1 >= ilo && lo - 1 <= ihi) {
-    unsigned long long e = ld_strong(in + (lo - 1 - ilo));
-    settle(e, in + (lo - 1 - ilo), true, in_tag);
-    if (lane == 0) dprev = __uint_as_float((unsigned)e);
+    typename Row::Entry e = in.ld(lo - 1 - ilo);
+    in.settle(e, lo - 1 - ilo, true, in_tag);
+    if (lane == 0) dprev = Row::val(e);
   }
   auto from_above = [&](int c) {
-    return in != nullptr && c >= ilo && c <= ihi;
+    return in.p != nullptr && c >= ilo && c <= ihi;
   };
   const int jend = hi + W - 1;        // lane W - 1's last column is hi
-  unsigned long long nx = 0;          // the entry of column j0 + lane
-  if (from_above(lo + lane)) nx = ld_strong(in + (lo + lane - ilo));
-  const bool store = out != nullptr && lane == W - 1;
+  typename Row::Entry nx = 0;         // the entry of column j0 + lane
+  if (from_above(lo + lane)) nx = in.ld(lo + lane - ilo);
+  const bool store = out.p != nullptr && lane == W - 1;
   // the step of column L - 1 on the lane of row L - 1 (-1: not this strip)
   const int jres = s0 + S >= L ? L - 1 + (L - 1 - s0) / K : -1;
   // step j (u of its chunk, xc the lane's series value): lane 0 takes its
@@ -1157,10 +1138,17 @@ __device__ float strip_dp(const float* __restrict__ q,
     float diag = dprev;
     dprev = up;
     const int e = i0 + r - c;         // row i0's offset in the band, i - c + r
+    if constexpr (BAND && SHIFT) {    // row a's mask: row a - 1's before
+#pragma unroll
+      for (int a = K - 1; a > 0; --a) mk[a] = mk[a - 1];
+      mk[0] = mask(e);
+    }
 #pragma unroll
     for (int a = 0; a < K; ++a) {
       float nv = __fadd_rn(cell_d(qv[a], xc), fminf(fminf(diag, v[a]), up));
-      if constexpr (BAND) {
+      if constexpr (BAND && SHIFT) {
+        nv = fmaxf(nv, mk[a]);
+      } else if constexpr (BAND) {
         if ((unsigned)(e + a) > (unsigned)(2 * r)) nv = kBig;
       }
       diag = v[a];
@@ -1175,15 +1163,18 @@ __device__ float strip_dp(const float* __restrict__ q,
       }
     }
     if (store && (!RARE || (c >= lo && c <= hi)))
-      st_strong(out + (c - lo),
-                (static_cast<unsigned long long>(out_tag) << 32)
-                    | __float_as_uint(v[K - 1]));
+      out.st(c - lo, out_tag, v[K - 1]);
   };
   // a chunk's W steps, whole (steps past the strip's last read columns
-  // past its band: BIG; their stores, where not RARE, land in the row's 32
-  // entries of padding), each lane's series value loaded two steps ahead
+  // past its band: BIG), each lane's series value loaded two steps ahead
   auto chunk = [&](int j0, float upc, auto band, auto rare) {
     constexpr bool RARE = decltype(rare)::value;
+    if constexpr (decltype(band)::value && SHIFT) {
+      // the masks of the step before j0, which the first step shifts
+      const int e = i0 + r - (j0 - 1 - lane);
+#pragma unroll
+      for (int a = 0; a < K; ++a) mk[a] = mask(e + a);
+    }
     auto xat = [&](int j) {
       const int c = j - lane;
       if constexpr (RARE) {    // a clamped address: never read past x
@@ -1204,12 +1195,13 @@ __device__ float strip_dp(const float* __restrict__ q,
   };
   for (int j0 = lo; j0 <= jend; j0 += W) {
     float upc = kBig;                 // the row above at column j0 + lane
-    if (in != nullptr) {
+    Row::fence();                     // the chunk before's loads are done
+    if (in.p != nullptr) {
       const int c = j0 + lane;
       const bool want = from_above(c);
-      settle(nx, in + (c - ilo), want, in_tag);
-      if (want) upc = __uint_as_float((unsigned)nx);
-      if (from_above(c + W)) nx = ld_strong(in + (c + W - ilo));
+      in.settle(nx, c - ilo, want, in_tag);
+      if (want) upc = Row::val(nx);
+      if (from_above(c + W)) nx = in.ld(c + W - ilo);
     }
     // the chunk's columns j0 - W + 1 .. j0 + W - 1 inside the matrix
     const bool cols = j0 >= W - 1 && j0 + W - 1 <= L - 1;
@@ -1218,10 +1210,14 @@ __device__ float strip_dp(const float* __restrict__ q,
     // W - 1
     const bool inner = cols && full && s0 + S + W - 2 - j0 <= r
                        && j0 + W - 1 - s0 <= r;
-    // no result here, and lane W - 1's columns (j0 - W + 1 ..) from lo on
-    // (the same for every lane: the paths' shuffles name the whole warp)
+    // no result here, and lane W - 1's columns (j0 - W + 1 .. j0) inside
+    // lo .. hi: a strip stores only its own columns, since where the strip
+    // below starts at the same column, the entries past hi are that
+    // strip's own, which it may store first, needing none of ours (the
+    // same for every lane: the paths' shuffles name the whole warp)
     const bool plain = cols && (jres < j0 || jres > j0 + W - 1)
-                       && (out == nullptr || j0 - (W - 1) >= lo);
+                       && (out.p == nullptr
+                           || (j0 - (W - 1) >= lo && j0 <= hi));
     if (inner)
       chunk(j0, upc, Flag<false>(), Flag<false>());
     else if (plain)
@@ -1248,23 +1244,23 @@ __device__ __forceinline__ void strip_ticket(unsigned long long t,
   p = (int)(rem - h * in_b);
 }
 
-// The strips of chain h of a pair (q, x) in slot row `row` (`width`
-// entries), one after another on one warp: strips h G .. h G + G - 1 of
-// its ns, tags from tag0 (strip s: tag0 + s).  A strip of a chain finds
-// the strip above's row whole when the warp ran that strip too.
-// Returns cell (L - 1, L - 1) on the lane of row L - 1 (the pair's last
-// strip), BIG elsewhere.
-template <int K>
+// The strips of chain h of a pair (q, x) through `row` (a Row type),
+// one after another on one warp: strips h G .. h G + G - 1 of its ns,
+// tags from tag0 (strip s: tag0 + s).  A strip of a chain finds the strip
+// above's row whole when the warp ran that strip too.  Returns cell (L -
+// 1, L - 1) on the lane of row L - 1 (the pair's last strip), BIG
+// elsewhere.
+template <int K, bool SHIFT = false, class Row>
 __device__ float strip_chain(const float* __restrict__ q,
                              const float* __restrict__ x, int L, int r,
-                             int h, int G, int ns,
-                             unsigned long long* row, int width,
+                             int h, int G, int ns, Row row,
                              unsigned tag0) {
   float d = kBig;
   const int end = h * G + G < ns ? h * G + G : ns;
   for (int s = h * G; s < end; ++s)
-    d = strip_dp<K>(q, x, L, r, s, s > 0 ? row : nullptr, tag0 + s - 1,
-                    s + 1 < ns ? row : nullptr, tag0 + s);
+    d = strip_dp<K, SHIFT>(q, x, L, r, s, s > 0 ? row : Row{nullptr},
+                           tag0 + s - 1, s + 1 < ns ? row : Row{nullptr},
+                           tag0 + s);
   return d;
 }
 
@@ -1300,7 +1296,7 @@ scan_strips(const float* __restrict__ q, const float* __restrict__ x,
     const long long pair = b * slots + p, g = pair / N, n = pair - g * N;
     if (h == 0 && b > 0) await_count(done + p, (unsigned long long)b);
     const float d = strip_chain<K>(q + g * L, x + n * L, L, r, h, G, ns,
-                                   rows + (long long)p * width, width,
+                                   DevRow{rows + (long long)p * width},
                                    (unsigned)(b * ns) + 1);
     if (h == chains - 1) {
       if (lane == (L - 1) % S / K) atomicMin(keys + g, pack(d, (unsigned)n));
@@ -1320,7 +1316,7 @@ scan_strips(const float* __restrict__ q, const float* __restrict__ x,
 // a scratch slot); the pair's last strip gives (d bits << 32 | its
 // place in the round) to the round's 64-bit atomicMin, whose least is the
 // round's first minimum, read after a second barrier.  Then, in every
-// thread alike, as in search_general: the best-so-far and its id, the
+// thread alike, as the loop of rounds: the best-so-far and its id, the
 // rounds, the candidates refined, and the stop at the next round's first
 // bound.  Scratch (a query's per_query entries, zeroed): the ticket, the
 // count taken, the rounds' keys by parity, `done` (slots), the list
@@ -1392,11 +1388,11 @@ search_strips(const float* __restrict__ q, const float* __restrict__ x,
       const unsigned j = (unsigned)ld_strong(list + b * slots + p);
       if (s == 0 && b > 0)
         await_count(done + p, (unsigned long long)(base + b));
-      unsigned long long* row = rows + (long long)p * width;
+      const DevRow row{rows + (long long)p * width};
       const unsigned tag = (unsigned)((base + b) * ns + s) + 1;
       const float d = strip_dp<K>(qg, x + ord[cursor + j] * L, L, r, s,
-                                  s > 0 ? row : nullptr, tag - 1,
-                                  s + 1 < ns ? row : nullptr, tag);
+                                  s > 0 ? row : DevRow{nullptr}, tag - 1,
+                                  s + 1 < ns ? row : DevRow{nullptr}, tag);
       if (s == ns - 1) {
         if (lane == (L - 1) % S / K) atomicMin(rkey + par, pack(d, j));
         __syncwarp();
@@ -1422,6 +1418,265 @@ search_strips(const float* __restrict__ q, const float* __restrict__ x,
     best_out[g] = (int)best;
     rounds_out[g] = rounds;
     refined_out[g] = refined;
+  }
+}
+
+// ------------------------------------------- the chain and spread routes
+// The diag routes' strips with the hand-over kept on the SM: every pair's
+// strips run in one CTA, their rows in its shared memory, so no strip reads
+// device scratch or waits on another SM.
+//
+// dtw_scan's chain route (scan_chain): throughput over many independent
+// pairs.  A warp takes one pair and runs its strips in order, each strip's
+// last row handed to the next through the warp's own slice of shared memory
+// as plain floats (WarpRow: the warp writes the row and then reads it, no
+// tag, no spin, no ticket).  Persistent CTAs take (query chunk, series tile)
+// units as scan_wave_kernel does, a tile a series a warp: warp w of unit (c,
+// b) runs series b warps + w against each query of chunk c in turn, so a
+// series leaves device memory once a chunk (its next unit's series brought
+// into L2 meanwhile), and keeps each query's least key in a register (lane
+// g: query c0 + g's) until the CTA moves to another chunk: one 64-bit
+// atomicMin a (warp, query) a chunk.
+// scan_chain's CTA: 8 warps, two CTAs an SM at either rows a lane (3 at
+// 4 rows held 80 registers and spilled; 4 rows run only where forced, r <=
+// 255 being the wave and ring routes')
+constexpr int kChainThreads = 256;
+
+template <int K>
+__global__ void __launch_bounds__(kChainThreads, 2)
+scan_chain(const float* __restrict__ q, const float* __restrict__ x,
+           long long N, int L, int r, int Q, int qc, int width,
+           unsigned long long* keys) {
+  constexpr int S = 32 * K;
+  extern __shared__ float chain_rows[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const WarpRow row{chain_rows + warp * width};
+  const int ns = (L + S - 1) / S, at = (L - 1) % S / K;
+  const long long G = (N + warps - 1) / warps;
+  const long long units = G * ((Q + qc - 1) / qc);
+  int c0 = -1, nq = 0;                   // the chunk's first query, its size
+  unsigned long long best = ~0ull;       // lane g: query c0 + g's
+  long long c = blockIdx.x / G, b = blockIdx.x - c * G;   // unit c G + b
+  for (long long u = blockIdx.x; u < units; u += gridDim.x) {
+    if (c * qc != c0) {                  // the same for the whole CTA
+      if (lane < nq && best != ~0ull) atomicMin(keys + c0 + lane, best);
+      best = ~0ull;
+      c0 = (int)(c * qc);
+      nq = min(qc, Q - c0);
+    }
+    const long long n = b * warps + warp;
+    long long b1 = b + gridDim.x, c1 = c;
+    while (b1 >= G) {
+      b1 -= G;
+      ++c1;
+    }
+    const long long n1 = b1 * warps + warp;
+    if (u + gridDim.x < units && n1 < N)   // its next series, into L2
+      for (int e = 32 * lane; e < L; e += 32 * 32)
+        prefetch_l2(x + n1 * L + e);
+    if (n < N) {
+      for (int g = 0; g < nq; ++g) {
+        const float d = strip_chain<K, true>(q + (long long)(c0 + g) * L,
+                                             x + n * L, L, r, 0, ns, ns,
+                                             row, 1);
+        const float dn = __shfl_sync(kAll, d, at);
+        const unsigned long long key = pack(dn, (unsigned)n);
+        if (lane == g && key < best) best = key;
+      }
+    }
+    b = b1;
+    c = c1;
+  }
+  if (lane < nq && best != ~0ull) atomicMin(keys + c0 + lane, best);
+}
+
+// dtw_search's spread route (search_spread): few pairs a round, so latency.
+// One persistent cooperative launch (every CTA resident at once): the CTAs
+// form groups of `per`, a group a query at a time (queries g = group, group
+// + groups, ..).  An iteration computes `spec` rounds at once (the window
+// of spec round_k candidates from the cursor), as the wave routes compute
+// kSpec: every candidate of the window whose bound lies below the
+// best-so-far of the iteration's start is taken, window position j by CTA j
+// % per of the group.  A CTA's warps take its pairs' strips by a ticket in
+// shared memory (a strip a ticket, pairs in batches of `slots`, strip-major
+// within a batch, as the diag routes take theirs, so a strip waits only on
+// a strip taken earlier by a running warp of its CTA), a pair's rows handed
+// on in the CTA's shared memory (CtaRow: tagged entries, slot p's row for
+// the batch's pair p, `done` counts in shared memory for its next pair); a
+// pair's last strip writes its distance to `dist` (the query's row of the
+// iteration's parity, at j).  After a barrier over the group's CTAs (a
+// count in device memory: every CTA is resident, so no wait deadlocks),
+// warp 0 of every CTA applies the spec rounds in order exactly as the loop
+// of single rounds does (the stop before each, the candidates below the
+// best-so-far of the moment, their first minimum), reading `dist` from L2,
+// so the best-so-far, the id, the rounds and the candidates refined are
+// that loop's in every CTA; the group's CTA 0 writes them.  Tags and done
+// counts go on across iterations and queries (`base`: the batches before).
+constexpr int kSpreadThreads = 512;       // 16 warps, one CTA an SM
+constexpr int kSpreadSlots = 16;          // pairs in flight a CTA, at most
+
+__device__ __forceinline__ unsigned ld_cta32(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.relaxed.cta.shared.u32 %0, [%1];" : "=r"(v)
+               : "r"(smem_addr(p)));
+  return v;
+}
+
+__device__ __forceinline__ void group_barrier(unsigned* bar,
+                                              unsigned target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1u);
+    const long long t0 = clock64();
+    unsigned nap = 32, v;
+    for (;;) {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v)
+                   : "l"(bar) : "memory");
+      if (v >= target) break;
+      __nanosleep(nap);
+      nap = nap < 256 ? 2 * nap : 256;
+      stuck(t0);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+template <int K>
+__global__ void __launch_bounds__(kSpreadThreads, 1)
+search_spread(const float* __restrict__ q, const float* __restrict__ x,
+              long long N, int L, int r, int round_k, int Qg, int spec,
+              int per, int slots, int width, const float* __restrict__ slb,
+              const long long* __restrict__ order, float* bsf_out,
+              int* best_out, int* rounds_out, int* refined_out, float* dist,
+              long long wdist, unsigned* bar) {
+  constexpr int S = 32 * K;
+  extern __shared__ unsigned long long spread_rows[];   // slots x width
+  __shared__ unsigned s_done[kSpreadSlots];
+  __shared__ unsigned s_ticket;
+  __shared__ float s_bsf;
+  __shared__ int s_go;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = gridDim.x / per, grp = blockIdx.x / per;
+  const int cta = blockIdx.x - grp * per;
+  const int ns = (L + S - 1) / S, at = (L - 1) % S / K;
+  const long long W = (long long)spec * round_k;
+  const long long end = (N + round_k - 1) / round_k * round_k;
+  // tags start at 1: no entry left in shared memory by an earlier kernel
+  // passes for a strip's
+  for (int e = threadIdx.x; e < slots * width; e += blockDim.x)
+    spread_rows[e] = 0;
+  if (threadIdx.x < slots) s_done[threadIdx.x] = 0;
+  unsigned it = 0, base = 0;
+  for (int g = grp; g < Qg; g += groups) {
+    const float* qg = q + (long long)g * L;
+    const float* lb = slb + (long long)g * N;
+    const long long* ord = order + (long long)g * N;
+    float* dg = dist + (long long)g * 2 * wdist;
+    float bsf = kBig;
+    long long best = -1;
+    int rounds = 0, refined = 0, par = 0;
+    bool go = end > 0 && lb[0] < kBig;
+    for (long long cursor = 0; go; cursor += W) {
+      // this CTA's window positions j = cta + per i, i < mine
+      const long long here = N - cursor < W ? N - cursor : W;
+      const long long mine = here > cta ? (here - cta + per - 1) / per : 0;
+      const unsigned long long total = (unsigned long long)mine * ns;
+      float* dj = dg + par * wdist;
+      if (threadIdx.x == 0) s_ticket = 0;
+      __syncthreads();
+      for (;;) {
+        unsigned t = 0;
+        if (lane == 0) t = atomicAdd(&s_ticket, 1u);
+        t = __shfl_sync(kAll, t, 0);
+        if (t >= total) break;
+        long long b;
+        int h, p;                            // strip h of the batch's pair p
+        strip_ticket(t, mine, slots, ns, b, h, p);
+        const long long j = cta + (long long)per * (b * slots + p);
+        const bool take = lb[cursor + j] < bsf;
+        const unsigned nb = base + (unsigned)b;   // the slot's pairs before
+        if (take || h == ns - 1) {
+          // the slot's pair of the batch before is done with the row (a
+          // pair not taken passes the slot on at its last strip; the
+          // iteration's first batch finds every slot free)
+          if ((h == 0 || !take) && b > 0) {
+            const long long t0 = clock64();
+            unsigned nap = 32;
+            while (!__all_sync(kAll, ld_cta32(s_done + p) >= nb)) {
+              __nanosleep(nap);
+              nap = nap < 256 ? 2 * nap : 256;
+              stuck(t0);
+            }
+            __threadfence_block();
+          }
+        }
+        float d = kBig;
+        if (take) {
+          const CtaRow row{spread_rows + (long long)p * width};
+          d = strip_dp<K>(qg, x + ord[cursor + j] * L, L, r, h,
+                          h > 0 ? row : CtaRow{nullptr}, nb * ns + h,
+                          h + 1 < ns ? row : CtaRow{nullptr}, nb * ns + h + 1);
+        }
+        if (h == ns - 1) {
+          if (take && lane == at) dj[j] = d;
+          __syncwarp();
+          __threadfence_block();
+          if (lane == 0)
+            asm volatile("st.relaxed.cta.shared.u32 [%0], %1;"
+                         :: "r"(smem_addr(s_done + p)), "r"(nb + 1)
+                         : "memory");
+        }
+      }
+      base += (unsigned)((mine + slots - 1) / slots);
+      group_barrier(bar + grp, ++it * (unsigned)per);
+      if (warp == 0) {
+        bool on = true;
+        for (int u = 0; u < spec; ++u) {
+          const long long cu = cursor + (long long)u * round_k;
+          if (u > 0) on = on && cu < end && lb[cu] < bsf;  // the stop before
+          if (!on) break;
+          unsigned long long key = ~0ull;
+          int nt = 0;
+          for (int j0 = 0; j0 < round_k; j0 += 32) {
+            const int j = j0 + lane;
+            const long long pos = cu + j;
+            const bool t = j < round_k && pos < N && lb[pos] < bsf;
+            const unsigned long long kj =
+                t ? pack(__ldcg(dj + (pos - cursor)), (unsigned)j) : ~0ull;
+            key = kj < key ? kj : key;
+            nt += __popc(__ballot_sync(kAll, t));
+          }
+          key = warp_min_u64(key);
+          const float dmin = __uint_as_float((unsigned)(key >> 32));
+          if (dmin < bsf) {
+            bsf = dmin;
+            best = ord[cu + (unsigned)(key & 0xffffffffu)];
+          }
+          ++rounds;
+          refined += nt;
+        }
+        // the stop before the next iteration's first round
+        const long long nc = cursor + W;
+        on = on && nc < end && lb[nc] < bsf;
+        if (lane == 0) {
+          s_bsf = bsf;
+          s_go = on;
+        }
+      }
+      __syncthreads();
+      bsf = s_bsf;
+      go = s_go;
+      par ^= 1;
+    }
+    if (cta == 0 && threadIdx.x == 0) {
+      bsf_out[g] = bsf;
+      best_out[g] = (int)best;
+      rounds_out[g] = rounds;
+      refined_out[g] = refined;
+    }
   }
 }
 
@@ -1713,39 +1968,16 @@ scan_ring_kernel(const float* __restrict__ q, const float* __restrict__ x,
 }
 
 #ifndef DTW_SCAN_WIDE_RINGS
-int general_launch(const float* q, const float* x, long long N, int L,
-                   int r, int Qg, int round_k, int threads, const float* slb,
-                   const long long* order, float* bsf, int* best, int* rounds,
-                   int* refined, cudaStream_t st) {
-  const bool longq = L > kStageL;
-  const size_t smem = sizeof(float) * ((longq ? 0 : L)
-                                       + (size_t)(2 * r + 1) * threads);
-  if (smem > kWaveSmem) return (int)cudaErrorInvalidValue;
-  const bool passes = round_k > threads || threads < 32;
-  auto kernel = passes ? (longq ? search_general<true, true>
-                                : search_general<true>)
-                       : (longq ? search_general<false, true>
-                                : search_general<false>);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kernel<<<Qg, threads, smem, st>>>(q, x, N, L, r, round_k, slb, order, bsf,
-                                    best, rounds, refined);
-  return (int)cudaGetLastError();
-}
-
 // The diag routes at K rows a lane, the wrapper's geometry
 // (kernels/dtw.py diag_scan_geometry, diag_search_geometry) checked
 // against what the kernels read: `width` entries hold a strip's columns,
-// min(L, 2r + 32 K), and 32 of padding, and every tag of a launch fits in
+// min(L, 2r + 32 K), and every tag of a launch fits in
 // 31 bits.
 bool diag_fits(int L, int r, int K, int slots, int width,
                long long batches) {
   const int ns = (L + 32 * K - 1) / (32 * K);
   const long long cols = 2LL * r + 32 * K < L ? 2LL * r + 32 * K : L;
-  return slots >= 1 && width >= cols + 32 && batches * ns < 0x7fffffffLL;
+  return slots >= 1 && width >= cols && batches * ns < 0x7fffffffLL;
 }
 
 template <int K>
@@ -1795,6 +2027,79 @@ int diag_search_launch(const float* q, const float* x, long long N, int L,
   e = cudaLaunchKernelEx(&cfg, search_strips<K>, q, x, N, L, r, round_k, slb,
                          order, bsf, best, rounds, refined, sc, slots, width,
                          per_query);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+// dtw_scan's chain route at K rows a lane: 8 warps a CTA, each warp's row
+// of `width` floats in shared memory (a strip's columns, as diag_fits
+// checks), as many CTAs as the card holds at once, at most one
+// a unit, the chunks taken smaller where the tile groups are few.
+template <int K>
+int chain_launch(const float* q, const float* x, long long N, int L, int r,
+                 int Q, int width, unsigned long long* keys,
+                 cudaStream_t st) {
+  const int warps = kChainThreads / 32;
+  const size_t smem = sizeof(float) * (size_t)warps * width;
+  if (!diag_fits(L, r, K, 1, width, 1) || smem > kWaveSmem)
+    return (int)cudaErrorInvalidValue;
+  int held = 0;
+  const int e = held_ctas((const void*)scan_chain<K>, kChainThreads, smem,
+                          held);
+  if (e != 0) return e;
+  if (held < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long G = (N + warps - 1) / warps;
+  const int qn = chunk_queries(G, Q, Q < 32 ? Q : 32, held);
+  const long long units = G * ((Q + qn - 1) / qn);
+  const unsigned grid = (unsigned)(units < held ? units : held);
+  scan_chain<K><<<grid, kChainThreads, smem, st>>>(q, x, N, L, r, Q, qn,
+                                                    width, keys);
+  return (int)cudaGetLastError();
+}
+
+// dtw_search's spread route at K rows a lane: one cooperative launch of as
+// many CTAs as the card holds at once (each `slots` rows of `width`
+// entries), in groups of per = held / min(Qg, held) CTAs; dist holds each
+// query's two rows of wdist >= min(spec round_k, N) floats, bar a count
+// for each group (Qg of them suffice), zeroed here.  Every tag of the
+// launch fits in 31 bits: a CTA's batches are at most 2 N + 1 a query of
+// its group.
+template <int K>
+int spread_launch(const float* q, const float* x, long long N, int L, int r,
+                  int Qg, int round_k, int spec, int slots, int width,
+                  const float* slb, const long long* order, float* bsf,
+                  int* best, int* rounds, int* refined, float* dist,
+                  long long wdist, unsigned* bar, cudaStream_t st) {
+  const int ns = (L + 32 * K - 1) / (32 * K);
+  const size_t smem = sizeof(unsigned long long) * (size_t)slots * width;
+  const long long window = (long long)spec * round_k;
+  if (slots > kSpreadSlots || spec < 1
+      || wdist < (window < N ? window : N) || smem > kWaveSmem
+      || !diag_fits(L, r, K, slots, width, 1))
+    return (int)cudaErrorInvalidValue;
+  int held = 0;
+  const int code = held_ctas((const void*)search_spread<K>, kSpreadThreads,
+                             smem, held);
+  if (code != 0) return code;
+  if (held < 1) return (int)cudaErrorInvalidConfiguration;
+  const int groups = Qg < held ? Qg : held, per = held / groups;
+  const long long each = (Qg + groups - 1) / groups;   // queries a group
+  if (!diag_fits(L, r, K, slots, width, each * (2 * N + 1) + 1))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaMemsetAsync(bar, 0, sizeof(unsigned) * groups, st);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(groups * per));
+  cfg.blockDim = dim3(kSpreadThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, search_spread<K>, q, x, N, L, r, round_k, Qg,
+                         spec, per, slots, width, slb, order, bsf, best,
+                         rounds, refined, dist, wdist, bar);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -1890,21 +2195,14 @@ int wave_launch(const float* q, const float* x, long long N, int L, int r,
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
-// The grid's y dimension takes 65,535 queries: more go in launches of as
-// many, each on its slice of q and keys.
+// dtw_scan's band route of radius R: the grid's y dimension takes 65,535
+// queries, more go in launches of as many, each on its slice of q and keys.
 template <int R>
-int scan_launch(const float* q, const float* x, long long N, int L, int r,
-                int Q, int threads, unsigned long long* keys,
-                cudaStream_t st) {
+int scan_launch(const float* q, const float* x, long long N, int L, int Q,
+                int threads, unsigned long long* keys, cudaStream_t st) {
   const bool longq = L > kStageL;
-  const size_t smem = sizeof(float) * ((longq ? 0 : L)
-                                       + (R < 0 ? (2 * r + 1) * threads : 0));
-  if (smem > kWaveSmem) return (int)cudaErrorInvalidValue;
-  auto kernel = longq ? scan_kernel<R, false, true> : scan_kernel<R, false>;
-  if constexpr (R < 0) {
-    if (threads < 32)
-      kernel = longq ? scan_kernel<R, true, true> : scan_kernel<R, true>;
-  }
+  const size_t smem = sizeof(float) * (longq ? 0 : L);
+  auto kernel = longq ? scan_kernel<R, true> : scan_kernel<R>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1913,7 +2211,7 @@ int scan_launch(const float* q, const float* x, long long N, int L, int r,
   for (int g0 = 0; g0 < Q; g0 += 65535) {
     const dim3 grid((unsigned)((N + threads - 1) / threads),
                     (unsigned)(Q - g0 < 65535 ? Q - g0 : 65535));
-    kernel<<<grid, threads, smem, st>>>(q + (long long)g0 * L, x, N, L, r,
+    kernel<<<grid, threads, smem, st>>>(q + (long long)g0 * L, x, N, L,
                                         keys + g0);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
@@ -1924,11 +2222,8 @@ int scan_launch(const float* q, const float* x, long long N, int L, int r,
 // The wave route of dtw_scan: C cells a lane, ML (the top lane's cells in
 // the band) a template; the CTA's `threads` and the shared memory's layout
 // from the wrapper (scan_geometry), checked here against what the kernel
-// reads; as many CTAs as the card holds at once, at most one a unit.
-// Where the tile groups are fewer than that (a small collection), the
-// chunks are taken smaller, qn <= qc queries: the largest qn whose units
-// the card runs in rounds of qn queries within 1/32 of the fewest (a
-// chunk's rows are loaded again at each unit of another chunk).
+// reads; as many CTAs as the card holds at once, at most one a unit, the
+// chunks taken smaller where the tile groups are few (chunk_queries).
 // RING (L > 1024): scan_ring_kernel, S the ring's floats (ring_size), pad
 // and Lq 0.
 template <int C, int ML, bool RING>
@@ -1949,27 +2244,12 @@ int scan_wave_launch(const float* q, const float* x, long long N, int L,
   const void* fn;
   if constexpr (RING) fn = (const void*)scan_ring_kernel<C, ML>;
   else fn = (const void*)scan_wave_kernel<C, ML>;
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (e == cudaSuccess) e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
-                                                      smem);
-  if (e != cudaSuccess) return (int)e;
-  const long long held = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  int ctas = 0;
+  const int e = held_ctas(fn, threads, smem, ctas);
+  if (e != 0) return e;
+  const long long held = ctas > 0 ? ctas : 1;
   const long long G = ((N + P - 1) / P + warps - 1) / warps;
-  auto cost = [&](int k) {               // queries of the busiest CTA
-    return (G * ((Q + k - 1) / k) + held - 1) / held * k;
-  };
-  int qn = qc;
-  if (G < held) {
-    long long least = cost(qc);
-    for (int k = 1; k < qc; ++k) least = cost(k) < least ? cost(k) : least;
-    while (32 * cost(qn) > 33 * least) --qn;
-  }
+  const int qn = chunk_queries(G, Q, qc, held);
   const long long units = G * ((Q + qn - 1) / qn);
   const unsigned grid = (unsigned)(units < held ? units : held);
   if constexpr (RING) {
@@ -2045,22 +2325,13 @@ int lb_launch(const float* q, const float* x, long long N, int L, int Qg,
               cudaStream_t st) {
   const size_t smem = sizeof(float2) * G * (size_t)((Lc + 3) & ~3);
   if (smem > kWaveSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      lb_keogh_kernel<G, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  int dev = 0, sms = 0, per_sm = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, lb_keogh_kernel<G, V>, kLbThreads, smem);
-  if (e != cudaSuccess) return (int)e;
+  int held = 0;
+  const int e = held_ctas((const void*)lb_keogh_kernel<G, V>, kLbThreads,
+                          smem, held);
+  if (e != 0) return e;
   const long long tasks = (N + 32 * kLbSeries - 1) / (32 * kLbSeries);
   long long blocks = (tasks + kLbThreads / 32 - 1) / (kLbThreads / 32);
-  if (blocks > (long long)sms * (per_sm > 0 ? per_sm : 1))
-    blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > (held > 0 ? held : 1)) blocks = held > 0 ? held : 1;
   lb_keogh_kernel<G, V><<<(unsigned)blocks, kLbThreads, smem, st>>>(
       q, x, N, L, Qg, r, j0, Lc, acc_in, out);
   return (int)cudaGetLastError();
@@ -2143,18 +2414,15 @@ extern "C" int dtw_lb_keogh(const void* q, const void* x, long long N, int L,
 }
 
 // The refinement of each query g < Qg: candidates order[g, :] (int64)
-// with ascending bounds slb[g, :], round_k (<= 1024) a round.  Writes bsf
-// (squared), best (-1: none taken), rounds and refined, one each a query.
-// route: 0 the general route (any r whose bands fit shared memory;
-// `threads` from the wrapper's general_threads: a multiple of 32, or a
-// power of two below it, a round taken in passes of as many); 1 the diag
-// route (any r and round_k: strips of `rows` rows a lane, `slots` pairs
-// in flight a query, rows of `width` entries, clusters of `cluster` CTAs,
-// diag: Qg queries' scratch, zeroed; kernels/dtw.py
+// with ascending bounds slb[g, :], round_k a round.  Writes bsf (squared),
+// best (-1: none taken), rounds and refined, one each a query.  route: 1
+// the diag route (any r and round_k: strips of `rows` rows a lane, `slots`
+// pairs in flight a query, rows of `width` entries, clusters of `cluster`
+// CTAs, diag: Qg queries' scratch, zeroed; kernels/dtw.py
 // diag_search_geometry; `threads` unused); 2, 4 and 8 the wave routes of
-// as many cells a lane
-// (r <= 31, 63 and 127; `threads` from the wrapper's band_threads), their
-// ring forms past L 1,024, and 16 (ring16: L > 1,024, r <= 255).
+// as many cells a lane (r <= 31, 63 and 127, round_k <= 1024; `threads`
+// from the wrapper's band_threads), their ring forms past L 1,024, and 16
+// (ring16: L > 1,024, r <= 255).  The spread route is dtw_search_spread.
 extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
                           int r, int Qg, int round_k, int threads, int route,
                           int rows, int slots, int width, int cluster,
@@ -2163,13 +2431,10 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
                           void* diag, void* stream) {
   if (Qg == 0) return 0;
   const bool whole = threads >= 32 && threads <= 1024 && threads % 32 == 0;
-  const bool part = threads >= 1 && threads < 32 && !(threads & (threads - 1));
   const bool wave = route == 2 || route == 4 || route == 8
                     || (route == 16 && L > kWholeL);
   if (r < 0 || L < 1 || round_k < 1 || (wave && round_k > kMaxRoundK)
-      || !(route == 0 || route == 1 || wave)
-      || !(route == 1 || whole || (route == 0 && part))
-      || (route == 1 && !diag))
+      || !(route == 1 || wave) || (wave && !whole) || (route == 1 && !diag))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
@@ -2193,26 +2458,21 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
   if (route == 16)
     return wave_launch<16, true>(qq, xx, N, L, r, Qg, round_k, threads, lb,
                                  od, b, bi, ro, rf, st);
-  if (route == 1) {
-    DTW_DIAG_ROWS(diag_search_launch, rows, qq, xx, N, L, r, Qg, round_k,
-                  slots, width, cluster, lb, od, b, bi, ro, rf,
-                  static_cast<unsigned long long*>(diag), st)
-  }
-  return general_launch(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b, bi,
-                        ro, rf, st);
+  DTW_DIAG_ROWS(diag_search_launch, rows, qq, xx, N, L, r, Qg, round_k,
+                slots, width, cluster, lb, od, b, bi, ro, rf,
+                static_cast<unsigned long long*>(diag), st)
 }
 
 // keys (Q,) uint64, each all ones on entry: min over series n of
 // (bits of the squared DTW of query g and series n) << 32 | n.  route: 0
-// the band route (r <= 16), 1 the general one (any r <= L - 1 whose bands
-// fit shared memory; `threads` from the wrapper's general_threads), 2 the
-// diag route (any r: strips of `rows` rows a lane, `slots` pairs in
-// flight, rows of `width` entries, chains of `chain` strips, `blocks`
-// CTAs, diag: the scratch, zeroed; kernels/dtw.py diag_scan_geometry), 16
-// the wave route of as
-// many cells a lane (r <= 255; `threads`, `qc`, `pad`, `S` and `Lq` from
-// the wrapper's scan_geometry) and its ring form past L 1,024 (the ring
-// route's wider forms are dtw_ring.cu's dtw_scan_ring).
+// the band route (r <= 16), 2 the diag route (any r: strips of `rows` rows
+// a lane, `slots` pairs in flight, rows of `width` entries, chains of
+// `chain` strips, `blocks` CTAs, diag: the scratch, zeroed;
+// kernels/dtw.py diag_scan_geometry), 16 the wave route of as many cells a
+// lane (r <= 255; `threads`, `qc`, `pad`, `S` and `Lq` from the wrapper's
+// scan_geometry) and its ring form past L 1,024 (the ring route's wider
+// forms are dtw_ring.cu's dtw_scan_ring).  The chain route is
+// dtw_scan_chain.
 extern "C" int dtw_scan(const void* q, const void* x, long long N, int L,
                         int r, int Q, int route, int threads, int qc,
                         int pad, int S, int Lq, int rows, int slots,
@@ -2221,26 +2481,68 @@ extern "C" int dtw_scan(const void* q, const void* x, long long N, int L,
   if (N == 0 || Q == 0) return 0;
   if (r < 0 || L < 1 || N > 0xffffffffll
       || (route == 0 && (r > 16 || threads != 128))
-      || (route == 1 && (threads < 1 || threads > 1024
-                         || (threads & (threads - 1))))
-      || (route == 2 && !diag) || (route > 2 && route != 16))
+      || (route == 2 && !diag) || !(route == 0 || route == 2 || route == 16))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
   const float* xx = static_cast<const float*>(x);
   unsigned long long* k = static_cast<unsigned long long*>(keys);
   if (route == 0) switch (r) {
-    DTW_BAND_CASES(scan_launch, qq, xx, N, L, r, Q, threads, k, st)
+    DTW_BAND_CASES(scan_launch, qq, xx, N, L, Q, threads, k, st)
   }
   if (route == 16)
     return scan_wave_route(16, qq, xx, N, L, r, Q, threads, qc, pad, S, Lq,
                            k, st);
-  if (route == 2) {
-    DTW_DIAG_ROWS(diag_scan_launch, rows, qq, xx, N, L, r, Q, slots, width,
-                  chain, blocks, static_cast<unsigned long long*>(diag), k,
-                  st)
-  }
-  return scan_launch<-1>(qq, xx, N, L, r, Q, threads, k, st);
+  DTW_DIAG_ROWS(diag_scan_launch, rows, qq, xx, N, L, r, Q, slots, width,
+                chain, blocks, static_cast<unsigned long long*>(diag), k, st)
+}
+
+// dtw_scan's chain route (see dtw_scan's keys): strips of `rows` rows a
+// lane, each warp's row of `width` floats (kernels/dtw.py
+// chain_scan_geometry).
+extern "C" int dtw_scan_chain(const void* q, const void* x, long long N,
+                              int L, int r, int Q, int rows, int width,
+                              void* keys, void* stream) {
+  if (N == 0 || Q == 0) return 0;
+  if (r < 0 || L < 1 || N > 0xffffffffll) return (int)cudaErrorInvalidValue;
+  DTW_DIAG_ROWS(chain_launch, rows, static_cast<const float*>(q),
+                static_cast<const float*>(x), N, L, r, Q, width,
+                static_cast<unsigned long long*>(keys),
+                static_cast<cudaStream_t>(stream))
+}
+
+// dtw_search's spread route (see dtw_search's outputs): strips of `rows`
+// rows a lane, `spec` rounds an iteration, `slots` pairs in flight a CTA
+// with rows of `width` entries; dist (Qg, 2,
+// wdist) float32 and bar (Qg,) 32-bit scratch (kernels/dtw.py
+// spread_search_geometry).
+extern "C" int dtw_search_spread(const void* q, const void* x, long long N,
+                                 int L, int r, int Qg, int round_k, int rows,
+                                 int spec, int slots, int width,
+                                 const void* slb, const void* order,
+                                 void* bsf, void* best, void* rounds,
+                                 void* refined, void* dist, long long wdist,
+                                 void* bar, void* stream) {
+  if (Qg == 0) return 0;
+  if (r < 0 || L < 1 || round_k < 1 || slots < 1 || !dist || !bar)
+    return (int)cudaErrorInvalidValue;
+  DTW_DIAG_ROWS(spread_launch, rows, static_cast<const float*>(q),
+                static_cast<const float*>(x), N, L, r, Qg, round_k, spec,
+                slots, width, static_cast<const float*>(slb),
+                static_cast<const long long*>(order),
+                static_cast<float*>(bsf), static_cast<int*>(best),
+                static_cast<int*>(rounds), static_cast<int*>(refined),
+                static_cast<float*>(dist), wdist,
+                static_cast<unsigned*>(bar),
+                static_cast<cudaStream_t>(stream))
+}
+
+extern "C" const char* dtw_scan_chain_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+extern "C" const char* dtw_search_spread_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 // What the card holds at once of the diag routes' kernels at `rows` rows

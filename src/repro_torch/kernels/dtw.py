@@ -38,7 +38,7 @@ WAVE_MAX_R = {name: (32 * c - 1) // 2 for name, c in WAVE_CELLS.items()}
 # ring16 (16 cells a lane, r <= 255) there too
 RING_CELLS = {"ring2": 2, "ring4": 4, "ring8": 8, "ring16": 16}
 RING_MAX_R = {name: (32 * c - 1) // 2 for name, c in RING_CELLS.items()}
-MAX_ROUND_K = 1024     # the wave routes' round; the general route's passes
+MAX_ROUND_K = 1024     # the wave routes' round
 # dtw_scan's wave route, the same lane layout at 16 cells a lane, for 16 <
 # r <= 255: of 4, 8 and 16 cells a lane, 16 spent the fewest issue slots a
 # cell on an H100 at r 25 and 102 (PERF.md, the table of cells a lane)
@@ -53,7 +53,6 @@ STAGE_L = 16384        # the longest query a kernel stages in shared memory
 GROUP = 32                             # queries of one lb_keogh launch
 _SMEM = 200 * 1024                     # shared memory a block may ask for
 _SCAN_BAND_THREADS = 128
-_SCAN_GENERAL_THREADS = 64             # at most: fewer where the band is wide
 _SCAN_WAVE_WARPS = 16                  # the scan wave route's CTA, at most
 
 _LB_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
@@ -62,6 +61,11 @@ _SEARCH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                     + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 8)
 _SCAN_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                   + [ctypes.c_int] * 14 + [ctypes.c_void_p] * 3)
+_CHAIN_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+_SPREAD_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                    + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 7
+                    + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
 # the diag routes (csrc/dtw.cu strip_dp): the rows a lane built, the
 # scan's CTA (8 warps), the pairs in flight at most, and the device
 # scratch a launch's strip rows may take (beyond one pair a query)
@@ -69,11 +73,24 @@ DIAG_ROWS = (4, 8)
 _DIAG_SCAN_THREADS = 256
 _DIAG_SLOTS = 4096
 _DIAG_SCRATCH = 256 << 20
+# the chain and spread routes (csrc/dtw.cu scan_chain, search_spread): the
+# strips of the diag routes with every pair's rows in one CTA's shared
+# memory.  The scan's CTA (8 warps, a warp's row of floats each); the
+# search's (16 warps, one an SM, as many pairs in flight at most); and the
+# rounds an iteration of the search computes at once, at most (as the wave
+# routes' kSpec)
+_CHAIN_THREADS = 256
+_SPREAD_WARPS = 16
+SPEC = 8
+# dtw_scan's chain route (a warp a pair) is the default past r 255 from
+# 1,024 pairs, about half the warps an H100 holds: on fewer, most of the
+# card waits on a few chains, and the diag route (a pair's strips on many
+# warps) is faster (chip_smoke.py's dtw_wide phase times both)
+CHAIN_PAIRS = 1024
 # a wave or ring route's code: its cells a lane (the kernel takes the ring
 # where L > WHOLE_L)
-_DP_CODES = {"general": 0, "diag": 1, **WAVE_CELLS, **RING_CELLS}
-_SCAN_CODES = {"band": 0, "general": 1, "diag": 2, **SCAN_CELLS,
-               **SCAN_RING_CELLS}
+_DP_CODES = {"diag": 1, **WAVE_CELLS, **RING_CELLS}
+_SCAN_CODES = {"band": 0, "diag": 2, **SCAN_CELLS, **SCAN_RING_CELLS}
 _LB_CODES = {"vec": 0, "scalar": 1}
 
 
@@ -92,17 +109,26 @@ def dp_route(r: int, L: int = 256, round_k: int = 32) -> str:
     4 and 8 cells a lane, r a runtime argument, each pair abandoned once
     it cannot win, its series staged whole), "ring2", "ring4", "ring8"
     and "ring16" for r <= 31, 63, 127 and 255 at L > 1024 (the series
-    through a ring of columns); "general" for the rest or round_k > 1024
-    (a thread a pair, the band in shared memory, a round in passes of at
-    most 1024); "diag" where that band passes shared memory
-    (general_band_fits: strips of rows, a warp a strip, a cluster of CTAs
-    a query)."""
+    through a ring of columns); "spread" for the rest or round_k > 1024
+    (strips of rows, a round's strips spread over a query's CTAs, a
+    pair's rows handed on in its CTA's shared memory, spec rounds at
+    once); "diag" where a pair's row passes shared memory (spread_fits:
+    the same strips, their rows in device scratch)."""
     if round_k <= MAX_ROUND_K:
         names = WAVE_MAX_R if L <= WHOLE_L else RING_MAX_R
         for name, top in names.items():
             if r <= top:
                 return name
-    return "general" if general_band_fits(L, r) else "diag"
+    return "spread" if spread_fits(L, r) else "diag"
+
+
+def dp_routes(r: int, L: int = 256, round_k: int = 32) -> tuple:
+    """Every route of dtw_search that takes band radius r at length L
+    and round_k: its default first, then "spread" where a pair's row
+    fits shared memory, then "diag" (any shape)."""
+    rest = (("spread",) if spread_fits(L, r) else ()) + ("diag",)
+    first = dp_route(r, L, round_k)
+    return (first,) + tuple(n for n in rest if n != first)
 
 
 def scan_lanes(r: int, cells: int) -> Tuple[int, int]:
@@ -131,34 +157,38 @@ def scan_ring_cells(r: int) -> int:
     return max(SCAN_RING_WIDTHS, key=lambda c: (share(c), -c))
 
 
-def scan_route(r: int, L: int = 256) -> str:
-    """dtw_scan's route for band radius r (at most L - 1) and length L:
-    "band" for r <= 16 (a thread a pair, the previous row's band in
-    registers, one template instance a radius), "wave16" for r <= 255
-    (each pair's band a wavefront over the lanes of a warp, 16 cells a
-    lane, r a runtime argument), "ring<c>" for the same radii at L > 1024
-    (the series through a ring of columns, the queries read from device
-    memory; c = scan_ring_cells(r) cells a lane), "general" beyond (a
-    thread a pair, the band in shared memory), "diag" where that band
-    passes shared memory (general_band_fits: strips of rows, a warp a
-    strip, over the whole card)."""
+def scan_route(r: int, L: int = 256, Q: int | None = None,
+               N: int | None = None) -> str:
+    """dtw_scan's route for band radius r (at most L - 1), length L and Q
+    queries over N series (None: many): "band" for r <= 16 (a thread a
+    pair, the previous row's band in registers, one template instance a
+    radius), "wave16" for r <= 255 (each pair's band a wavefront over the
+    lanes of a warp, 16 cells a lane, r a runtime argument), "ring<c>"
+    for the same radii at L > 1024 (the series through a ring of columns,
+    the queries read from device memory; c = scan_ring_cells(r) cells a
+    lane); beyond, "chain" from CHAIN_PAIRS pairs Q N where a warp's row
+    fits beside 8 (chain_fits: strips of rows, a warp a pair, its rows
+    handed on in the warp's shared memory), else "diag" (the same strips
+    spread over the whole card, their rows in device scratch)."""
     if r <= MAX_BAND_R:
         return "band"
     if r > SCAN_MAX_R["wave16"]:
-        return "general" if general_band_fits(L, r) else "diag"
+        many = Q is None or N is None or Q * N >= CHAIN_PAIRS
+        return "chain" if many and chain_fits(L, r) else "diag"
     return "wave16" if L <= WHOLE_L else f"ring{scan_ring_cells(r)}"
 
 
-def scan_routes(r: int, L: int = 256) -> tuple:
-    """Every route of dtw_scan that takes band radius r at length L: its
-    default first, then the wave route (L <= 1024) or every ring width
-    (above) where the lanes hold the band, "general" where its band fits
-    shared memory, then "diag" (any r)."""
+def scan_routes(r: int, L: int = 256, Q: int | None = None,
+                N: int | None = None) -> tuple:
+    """Every route of dtw_scan that takes band radius r at length L (Q
+    queries over N series): its default first, then the wave route (L <=
+    1024) or every ring width (above) where the lanes hold the band,
+    "chain" where a warp's row fits, then "diag" (any r)."""
     wave = () if r > SCAN_MAX_R["wave16"] else (
         ("wave16",) if L <= WHOLE_L else tuple(SCAN_RING_CELLS))
     rest = ((("band",) if r <= MAX_BAND_R else ()) + wave
-            + (("general",) if general_band_fits(L, r) else ()) + ("diag",))
-    first = scan_route(r, L)
+            + (("chain",) if chain_fits(L, r) else ()) + ("diag",))
+    first = scan_route(r, L, Q, N)
     return (first,) + tuple(n for n in rest if n != first)
 
 
@@ -218,27 +248,6 @@ def scan_geometry(L: int, r: int, cells: int, Q: int) -> dict:
             "smem": 4 * (queries * qstride + warps * tile)}
 
 
-def general_band_fits(L: int, r: int) -> bool:
-    """Whether a general-route pair's band of 2r + 1 floats fits in a
-    block's shared memory beside the query (staged where L <= STAGE_L):
-    every r up to L - 1 at L <= STAGE_L, r <= 25,599 beyond.  Where it
-    does not, the diag routes take the shape."""
-    return 2 * r + 1 <= _SMEM // 4 - (L if L <= STAGE_L else 0)
-
-
-def general_threads(L: int, r: int, most: int) -> int:
-    """Threads of a general-route block (a thread a pair, its band of 2r +
-    1 floats in shared memory beside the query's L, where L <= STAGE_L;
-    a longer query is read from device memory), where one band fits
-    (general_band_fits): at most `most`, a multiple of 32 where a warp's
-    bands fit in `_SMEM` bytes, else the largest power of two whose do
-    (16 at L 1024, r 1023)."""
-    fit = (_SMEM // 4 - (L if L <= STAGE_L else 0)) // (2 * r + 1)
-    if fit >= 32:
-        return min(most, fit // 32 * 32)
-    return 1 << (fit.bit_length() - 1)
-
-
 def diag_rows(r: int) -> int:
     """Rows a lane of the diag routes at band radius r (a strip is 32 of
     them a warp): 4 to r 255, 8 beyond.  More rows a lane share a step's
@@ -255,9 +264,9 @@ def diag_strips(L: int, rows: int) -> int:
 
 def diag_width(L: int, r: int, rows: int) -> int:
     """Entries of a strip's last row: its columns, at most min(L, 2r + 32
-    rows), and 32 of padding (a chunk's steps run whole, past the strip's
-    last column)."""
-    return min(L, 2 * r + 32 * rows) + 32
+    rows).  A strip stores no step past its last column: where the strip
+    below starts at the same column, those entries are its own."""
+    return min(L, 2 * r + 32 * rows)
 
 
 def diag_chain(L: int, r: int, rows: int) -> int:
@@ -336,6 +345,62 @@ def diag_cluster(held16: int, held8: int) -> int:
         return 8
     raise RuntimeError("dtw_search diag: the card holds no cluster of 8 "
                        "CTAs of 512 threads")
+
+
+def chain_fits(L: int, r: int) -> bool:
+    """Whether dtw_scan's chain route takes (L, r): a warp's row of
+    diag_width floats, 8 warps a CTA, within `_SMEM` bytes (every r to L
+    6,400; r <= 3,072 at any L)."""
+    w = diag_width(L, r, diag_rows(r))
+    return 4 * (_CHAIN_THREADS // 32) * w <= _SMEM
+
+
+def chain_scan_geometry(L: int, r: int) -> dict:
+    """The launch of dtw_scan's chain route (csrc/dtw.cu scan_chain): rows
+    a lane, strips a pair (one warp runs them all), `width` floats a
+    warp's row, the CTA's threads and shared memory (bytes)."""
+    rows = diag_rows(r)
+    width = diag_width(L, r, rows)
+    return {"rows": rows, "strips": diag_strips(L, rows), "width": width,
+            "threads": _CHAIN_THREADS,
+            "smem": 4 * (_CHAIN_THREADS // 32) * width}
+
+
+def spread_fits(L: int, r: int) -> bool:
+    """Whether dtw_search's spread route takes (L, r): one pair's row of
+    diag_width 8-byte entries within `_SMEM` bytes (every r to L 25,600;
+    r <= 12,672 at any L)."""
+    return 8 * diag_width(L, r, diag_rows(r)) <= _SMEM
+
+
+def spread_spec(N: int, round_k: int) -> int:
+    """Rounds an iteration of dtw_search's spread route computes at once:
+    SPEC, or the search's rounds where fewer.  Each iteration takes every
+    candidate of its window below the best-so-far of its start, so a
+    later round's candidates that a lower best-so-far would prune run
+    too; in return a round of few pairs (the full window's 4 queries at
+    round_k 32) no longer leaves most of the card idle."""
+    return max(1, min(SPEC, -(-N // round_k)))
+
+
+def spread_search_geometry(Qg: int, N: int, L: int, r: int,
+                           round_k: int) -> dict:
+    """The launch of dtw_search's spread route (csrc/dtw.cu
+    search_spread): rows a lane, strips a pair (each a ticket: a round's
+    strips spread over the warps), `spec` rounds an iteration
+    (spread_spec), `width` entries a strip row, `slots` pairs in flight a
+    CTA (16, its warps, fewer where their rows pass `_SMEM` bytes) and its
+    shared memory (bytes), and the scratch: `wdist` floats a query's row
+    of distances (two a query, by iteration parity) and a barrier count a
+    query."""
+    rows = diag_rows(r)
+    strips = diag_strips(L, rows)
+    width = diag_width(L, r, rows)
+    slots = max(1, min(_SPREAD_WARPS, _SMEM // (8 * width)))
+    spec = spread_spec(N, round_k)
+    return {"rows": rows, "strips": strips, "spec": spec,
+            "width": width, "slots": slots, "smem": 8 * slots * width,
+            "wdist": max(1, min(spec * round_k, N))}
 
 
 _DIAG_HELD: dict = {}
@@ -481,9 +546,9 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
     over x (N, L), in one launch: candidates order (Qg, N) int64 in the
     order of their ascending bounds sorted_lb (Qg, N) float32, round_k a
     round, the loop of rounds on the device, by `route` (default
-    `dp_route(r, L, round_k)`; "general" takes every L and round_k, a
-    round in passes of at most 1024 candidates, and every r whose band
-    fits shared memory; "diag" takes every shape).  Returns (bsf
+    `dp_route(r, L, round_k)`; any of `dp_routes(r, L, round_k)`:
+    "spread" takes every L, r and round_k whose row fits shared memory,
+    "diag" every shape).  Returns (bsf
     (Qg,) float32 squared distances, best (Qg,) int32 ids, -1 where no
     candidate was taken, rounds (Qg,) int32, refined (Qg,) int32: the
     candidates whose DTW was computed), as `ref.dtw_search_ref`.
@@ -505,10 +570,8 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
         raise ValueError("sorted_lb and order must be on x's device")
     if not isinstance(round_k, int) or round_k < 1:
         raise ValueError(f"round_k must be an int >= 1, got {round_k!r}")
-    default = dp_route(r, L, round_k)
-    routes = ((default,) + (("general",) if general_band_fits(L, r) else ())
-              + ("diag",))
-    route = _pick(route, default, tuple(dict.fromkeys(routes)), "dtw_search")
+    routes = dp_routes(r, L, round_k)
+    route = _pick(route, routes[0], routes, "dtw_search")
     if q.device.type == "cpu":
         return dtw_search_ref(q, x, sorted_lb, order, r, round_k)
     dev = x.device
@@ -517,12 +580,27 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
                                          device=dev) for _ in range(3))
     if Qg == 0:
         return bsf, best, rounds, refined
-    # the general route takes a round's candidates `threads` at a time;
-    # the diag route its strips by its geometry, in zeroed scratch
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == "spread":
+        # its geometry; two rows of distances a query, then a barrier count
+        # a query (which the launch zeroes)
+        g = spread_search_geometry(Qg, N, L, r, round_k)
+        scratch = torch.empty((Qg * (2 * g["wdist"] + 1),),
+                              dtype=torch.float32, device=dev)
+        fn = _build.entry("dtw", "dtw_search_spread", _SPREAD_ARGTYPES)
+        with torch.cuda.device(dev):
+            code = fn(q.data_ptr(), x.data_ptr(), N, L, r, Qg, round_k,
+                      g["rows"], g["spec"], g["slots"], g["width"],
+                      sorted_lb.data_ptr(), order.data_ptr(),
+                      bsf.data_ptr(), best.data_ptr(), rounds.data_ptr(),
+                      refined.data_ptr(), scratch.data_ptr(), g["wdist"],
+                      scratch.data_ptr() + 8 * Qg * g["wdist"], stream)
+        _build.check("dtw", "dtw_search_spread", code)
+        _count("dtw_search", route)
+        return bsf, best, rounds, refined
+    # the diag route takes its strips by its geometry, in zeroed scratch
     diag, dg, threads = None, (0, 0, 0, 0), 0
-    if route == "general":
-        threads = general_threads(L, r, min(1024, -(-round_k // 32) * 32))
-    elif route == "diag":
+    if route == "diag":
         g = diag_search_geometry(Qg, N, L, r, round_k)
         dg = (g["rows"], g["slots"], g["width"],
               diag_cluster(*_diag_held(dev, g["rows"])[1:]))
@@ -536,8 +614,7 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
                   _DP_CODES[route], *dg, sorted_lb.data_ptr(),
                   order.data_ptr(), bsf.data_ptr(), best.data_ptr(),
                   rounds.data_ptr(), refined.data_ptr(),
-                  diag.data_ptr() if diag is not None else None,
-                  torch.cuda.current_stream(dev).cuda_stream)
+                  diag.data_ptr() if diag is not None else None, stream)
     _build.check("dtw", "dtw_search", code)
     _count("dtw_search", route)
     return bsf, best, rounds, refined
@@ -561,33 +638,40 @@ def dtw_scan(q: torch.Tensor, x: torch.Tensor, *, r: int,
         raise ValueError("dtw_scan needs at least one series")
     if N >= 1 << 31:
         raise ValueError(f"dtw_scan takes N < 2^31, got {N}")
-    routes = scan_routes(r, L)
+    routes = scan_routes(r, L, Q, N)
     route = _pick(route, routes[0], routes, "dtw_scan")
     if q.device.type == "cpu":
         return dtw_scan_ref(q, x, r)
     cells = {**SCAN_CELLS, **SCAN_RING_CELLS}.get(route)
     dev = x.device
-    # the diag route: its strips by its geometry over as many CTAs as the
-    # card holds, in zeroed scratch
-    diag, dg = None, (0, 0, 0, 0, 0)
-    if cells:
-        g = scan_geometry(L, r, cells, Q)
-        shape = (g["threads"], g["queries"], g["pad"], g["stride"],
-                 g["qstride"])
-    elif route == "diag":
-        shape = (_DIAG_SCAN_THREADS, 0, 0, 0, 0)
-        if Q:
+    # all ones: above every (distance bits << 32 | series) key
+    keys = torch.full((Q,), -1, dtype=torch.int64, device=dev)
+    if Q and route == "chain":
+        g = chain_scan_geometry(L, r)
+        fn = _build.entry("dtw", "dtw_scan_chain", _CHAIN_ARGTYPES)
+        with torch.cuda.device(dev):
+            code = fn(q.data_ptr(), x.data_ptr(), N, L, r, Q, g["rows"],
+                      g["width"], keys.data_ptr(),
+                      torch.cuda.current_stream(dev).cuda_stream)
+        _build.check("dtw", "dtw_scan_chain", code)
+        _count("dtw_scan", route)
+    elif Q:
+        # the diag route: its strips by its geometry over as many CTAs as
+        # the card holds, in zeroed scratch
+        diag, dg = None, (0, 0, 0, 0, 0)
+        if cells:
+            g = scan_geometry(L, r, cells, Q)
+            shape = (g["threads"], g["queries"], g["pad"], g["stride"],
+                     g["qstride"])
+        elif route == "diag":
+            shape = (_DIAG_SCAN_THREADS, 0, 0, 0, 0)
             g = diag_scan_geometry(Q, N, L, r)
             dg = (g["rows"], g["slots"], g["width"], g["chain"],
                   diag_grid(g["tickets"], _diag_held(dev, g["rows"])[0]))
             diag = torch.zeros((g["entries"],), dtype=torch.int64,
                                device=dev)
-    else:
-        shape = (_SCAN_BAND_THREADS if route == "band" else
-                 general_threads(L, r, _SCAN_GENERAL_THREADS), 0, 0, 0, 0)
-    # all ones: above every (distance bits << 32 | series) key
-    keys = torch.full((Q,), -1, dtype=torch.int64, device=dev)
-    if Q:
+        else:
+            shape = (_SCAN_BAND_THREADS, 0, 0, 0, 0)
         # the ring route's wider forms are a library of their own
         # (csrc/dtw_ring.cu), built beside dtw.cu's
         src, name = (("dtw_ring", "dtw_scan_ring") if cells and cells > 16

@@ -418,110 +418,187 @@ def dtw_wavefront_ref(q: torch.Tensor, x: torch.Tensor, r: int,
     return res.reshape(lead)
 
 
+class StripRow:
+    """The row a pair's strips hand on (csrc/dtw.cu strip_dp), for the
+    strip model: `width` entries, each a float a pair (`val`, (B, width))
+    and the tag of the strip that wrote it (`tag`: the kernel's tagged
+    entries; for the chain route's plain floats, the model's own record of
+    the writer, which the kernel does not keep)."""
+
+    def __init__(self, B: int, width: int):
+        self.val = np.zeros((B, width), np.float32)
+        self.tag = np.zeros(width, np.int64)
+
+
+def dtw_strip_steps(qn, xn, r: int, rows: int, s: int, row: StripRow,
+                    res, counts: dict | None = None, base: int = 0,
+                    hand: str = "tag"):
+    """Strip s's program (csrc/dtw.cu strip_dp) on the pairs qn, xn (B, L)
+    numpy float32, a chunk at a time: a generator that yields, before the
+    strip's first read of the row and before each chunk, the row's entries
+    it then needs (offsets into `row`, each to carry the tag base + s, the
+    strip above's), and runs once resumed; res (B,) receives cell (L - 1,
+    L - 1) from the lane of row L - 1.  The strip stores its last row's
+    columns at column - lo with tag base + s + 1.  `hand`: "tag" (the diag
+    and spread routes: a chunk's entries are read when it starts, the
+    next chunk's loaded ahead and read again there if not yet in) or "warp"
+    (the chain route: one warp runs the strips in order and reads each
+    entry once, the next chunk's ahead, asserting it then carries the tag:
+    no entry is overwritten unread)."""
+    B, L = qn.shape
+    K = rows
+    S = 32 * K
+    strips, width = -(-L // S), row.tag.shape[0]
+    big, poison = np.float32(BIG), np.float32(1e20)
+    lane = np.arange(32)
+    want = base + s                              # the strip above's tag
+
+    def span(s0):
+        return max(0, s0 - r), min(L - 1, s0 + S - 1 + r)
+    s0 = s * S
+    lo, hi = span(s0)
+    ilo, ihi = span(s0 - S)
+    i = s0 + K * lane[:, None] + np.arange(K)             # (32, K)
+    qv = np.where(i < L, qn[:, np.minimum(i, L - 1)], poison)
+    v = np.full((B, 32, K), big, np.float32)
+    la = L - 1 - i[:, 0]                 # row L - 1's place on its lane
+
+    def inr(c):
+        c = np.asarray(c)
+        return (s > 0) & (c >= ilo) & (c <= ihi)
+
+    def read(c):                         # the row above at columns c
+        c = np.asarray(c)
+        o = np.clip(c - ilo, 0, width - 1)
+        assert (row.tag[o][inr(c)] == want).all(), (s, c)
+        return np.where(inr(c), row.val[:, o], big)
+    dprev = np.full((B, 32), big, np.float32)
+    if s == 0:
+        dprev[:, 0] = 0.0
+    elif ilo <= lo - 1 <= ihi:
+        yield [lo - 1 - ilo]
+        dprev[:, 0] = read([lo - 1])[:, 0]
+    jend = hi + 31
+    jres = L - 1 + (L - 1 - s0) // K if s0 + S >= L else -1
+    ahead = None                         # ("warp") this chunk's row, read
+    for j0 in range(lo, jend + 1, 32):
+        cj = j0 + lane
+        need = [int(c) - ilo for c in cj[inr(cj)]]
+        if need:
+            yield need
+        if hand == "warp" and s > 0:
+            upc = ahead if ahead is not None else read(cj)
+            ahead = read(cj + 32)    # loaded ahead, used as read
+        else:
+            upc = read(cj)
+        cols = j0 >= 31 and j0 + 31 <= L - 1
+        inner = (cols and s0 + S <= L and s0 + S + 30 - j0 <= r
+                 and j0 + 31 - s0 <= r)
+        plain = inner or (cols and not j0 <= jres <= j0 + 31
+                          and (s + 1 == strips
+                               or (j0 - 31 >= lo and j0 <= hi)))
+        if counts is not None:
+            kind = "inner" if inner else "plain" if plain else "rare"
+            counts[kind] = counts.get(kind, 0) + 1
+        for u in range(32):
+            c = j0 + u - lane
+            if plain:
+                assert c.min() >= 0 and c.max() < L
+                xc = xn[:, c]
+            else:
+                xc = np.where((c >= 0) & (c < L),
+                              xn[:, np.clip(c, 0, L - 1)], -poison)
+            up = np.concatenate([upc[:, u:u + 1], v[:, :-1, K - 1]],
+                                axis=1)
+            diag, dprev = dprev, up
+            e = i[:, 0] + r - c
+            for a in range(K):
+                d = qv[:, :, a] - xc
+                d = d * d
+                nv = d + np.minimum(np.minimum(diag, v[:, :, a]), up)
+                inside = (e + a >= 0) & (e + a <= 2 * r)
+                if inner:
+                    assert inside.all()
+                else:
+                    nv = np.where(inside, nv, big)
+                diag, up = v[:, :, a].copy(), nv
+                v[:, :, a] = nv
+            hit = (c == L - 1) & (la >= 0) & (la < K)
+            assert not (plain and hit.any())
+            for ln in np.nonzero(hit)[0]:
+                res[:] = v[:, ln, la[ln]]
+            cw = j0 + u - 31              # lane 31's column
+            # a chunk without tests (plain) stores every step's column
+            assert not (plain and s + 1 < strips) or lo <= cw <= hi
+            if s + 1 < strips and lo <= cw <= hi:
+                assert 0 <= cw - lo < width
+                row.val[:, cw - lo] = v[:, 31, K - 1]
+                row.tag[cw - lo] = want + 1
+
+
 def dtw_strip_ref(q: torch.Tensor, x: torch.Tensor, r: int,
-                  rows: int = 4, counts: dict | None = None) -> torch.Tensor:
-    """`dtw_band_ref` in the order of the diag routes' strip program
-    (csrc/dtw.cu strip_dp), for the tests: K = `rows` rows a lane on the
-    32 lanes of a warp, strips of S = 32 K rows.  Strip s (rows s S ..)
-    spans the columns lo = max(0, s S - r) .. hi = min(L - 1, s S + S - 1
-    + r) and runs steps j = lo .. in whole chunks of 32 (j0, j0 + 32, .. to
-    hi + 31, the last one past it, its cells past the band): at step j
-    lane l is at column j - l and forms its rows top to bottom, the first
-    from lane l - 1's last row of the step before (lane 0: the strip
-    above's last row, read a chunk at a time), each row's diagonal the up
-    of the step before.  A chunk whose cells all lie inside the band and
-    the matrix (`inner`) is formed without tests and asserts that they
-    do; elsewhere a cell outside the band is BIG and a row or column
+                  rows: int = 4, counts: dict | None = None,
+                  hand: str = "tag", rng=None, row: StripRow | None = None,
+                  base: int = 0) -> torch.Tensor:
+    """`dtw_band_ref` in the order of the strip program of the diag, chain
+    and spread routes (csrc/dtw.cu strip_dp), for the tests: K = `rows`
+    rows a lane on the 32 lanes of a warp, strips of S = 32 K rows.  Strip
+    s (rows s S ..) spans the columns lo = max(0, s S - r) .. hi = min(L -
+    1, s S + S - 1 + r) and runs steps j = lo .. in whole chunks of 32 (j0,
+    j0 + 32, .. to hi + 31, the last one past it, its cells past the band):
+    at step j lane l is at column j - l and forms its rows top to bottom,
+    the first from lane l - 1's last row of the step before (lane 0: the
+    strip above's last row, read a chunk at a time), each row's diagonal
+    the up of the step before.  A chunk whose cells all lie inside the
+    band and the matrix (`inner`) is formed without tests and asserts that
+    they do; elsewhere a cell outside the band is BIG and a row or column
     outside the matrix reads the kernel's poisoned values (+1e20 for the
     query, -1e20 for the series); a chunk the kernel runs without the
     column, result and store tests (`plain`) asserts that none would
-    fire.  Lane 31 stores its last row's columns into the pair's row at
-    column - lo, each entry with the strip's tag (s + 1), over the strip
-    above's; a `plain` chunk's steps past hi store into the row's 32
-    entries of padding.  The strip below reads the strip above's entries
+    fire, and stores only columns lo .. hi.  Lane 31 stores its last row's
+    columns lo .. hi into the pair's row at column - lo, each entry with
+    the strip's tag (base + s + 1), over the strip above's, and nothing
+    past hi (where the strip below starts at the same column, those
+    entries are its own).  The strip below reads the strip above's entries
     at column - its lo, asserting every entry it reads carries that
-    strip's tag: the offsets are the kernel's.  Pairs broadcast as in
-    `dtw_band_ref`; returns (...,) float32, cell (L - 1, L - 1) from the
-    lane that holds row L - 1 at the step of column L - 1; `counts`, a
-    dict, adds up the chunks of each kind ("inner", "plain", "rare").
-    Runs on the CPU (numpy)."""
+    strip's tag: the offsets are the kernel's (dtw_strip_steps).  The
+    strips run one after another (`rng` None: the diag route's chains and
+    the chain route's warp, `hand` "warp" for the latter's plain floats)
+    or, with `rng` (a numpy Generator), as the strips of a pair on many
+    warps: each chunk of a random strip among those whose entries carry
+    the tags they need (asserting that no order deadlocks).  `row`, `base`:
+    a row already used, and the tags of the pairs it held before (a slot's
+    next pair).  Pairs broadcast as in `dtw_band_ref`; returns (...,)
+    float32; `counts`, a dict, adds up the chunks of each kind ("inner",
+    "plain", "rare").  Runs on the CPU (numpy)."""
     q, x = torch.broadcast_tensors(q, x)
     lead, L = q.shape[:-1], q.shape[-1]
     qn = q.reshape(-1, L).float().cpu().numpy()
     xn = x.reshape(-1, L).float().cpu().numpy()
-    B, K = qn.shape[0], rows
-    S = 32 * K
-    big, poison = np.float32(BIG), np.float32(1e20)
-    strips, width = -(-L // S), min(L, 2 * r + S) + 32
-    val = np.zeros((B, width), np.float32)      # the pair's strip row
-    tag = np.zeros(width, np.int64)
-    lane = np.arange(32)
-    res = np.full(B, big, np.float32)
-
-    def span(s0):
-        return max(0, s0 - r), min(L - 1, s0 + S - 1 + r)
-    with np.errstate(over="ignore"):
-        for s in range(strips):
-            s0 = s * S
-            lo, hi = span(s0)
-            ilo, ihi = span(s0 - S)
-            i = s0 + K * lane[:, None] + np.arange(K)          # (32, K)
-            qv = np.where(i < L, qn[:, np.minimum(i, L - 1)], poison)
-            v = np.full((B, 32, K), big, np.float32)
-            la = L - 1 - i[:, 0]              # row L - 1's place on its lane
-
-            def above(c):                     # the strip above's row at c
-                c = np.asarray(c)
-                inr = (s > 0) & (c >= ilo) & (c <= ihi)
-                o = np.clip(c - ilo, 0, width - 1)
-                assert (tag[o][inr] == s).all(), (s, c)
-                return np.where(inr, val[:, o], big)
-            dprev = np.full((B, 32), big, np.float32)
-            dprev[:, 0] = 0.0 if s == 0 else above([lo - 1])[:, 0]
-            jend = hi + 31
-            jres = L - 1 + (L - 1 - s0) // K if s0 + S >= L else -1
-            for j0 in range(lo, jend + 1, 32):
-                upc = above(j0 + lane)
-                cols = j0 >= 31 and j0 + 31 <= L - 1
-                inner = (cols and s0 + S <= L and s0 + S + 30 - j0 <= r
-                         and j0 + 31 - s0 <= r)
-                plain = inner or (cols and not j0 <= jres <= j0 + 31
-                                  and (s + 1 == strips or j0 - 31 >= lo))
-                if counts is not None:
-                    kind = "inner" if inner else "plain" if plain else "rare"
-                    counts[kind] = counts.get(kind, 0) + 1
-                for u in range(32):
-                    c = j0 + u - lane
-                    if plain:
-                        assert c.min() >= 0 and c.max() < L
-                        xc = xn[:, c]
-                    else:
-                        xc = np.where((c >= 0) & (c < L),
-                                      xn[:, np.clip(c, 0, L - 1)], -poison)
-                    up = np.concatenate([upc[:, u:u + 1], v[:, :-1, K - 1]],
-                                        axis=1)
-                    diag, dprev = dprev, up
-                    e = i[:, 0] + r - c
-                    for a in range(K):
-                        d = qv[:, :, a] - xc
-                        d = d * d
-                        nv = d + np.minimum(np.minimum(diag, v[:, :, a]), up)
-                        inside = (e + a >= 0) & (e + a <= 2 * r)
-                        if inner:
-                            assert inside.all()
-                        else:
-                            nv = np.where(inside, nv, big)
-                        diag, up = v[:, :, a].copy(), nv
-                        v[:, :, a] = nv
-                    hit = (c == L - 1) & (la >= 0) & (la < K)
-                    assert not (plain and hit.any())
-                    for ln in np.nonzero(hit)[0]:
-                        res = v[:, ln, la[ln]].copy()
-                    cw = j0 + u - 31              # lane 31's column
-                    if s + 1 < strips and (plain or lo <= cw <= hi):
-                        assert 0 <= cw - lo < width
-                        val[:, cw - lo] = v[:, 31, K - 1]
-                        tag[cw - lo] = s + 1
+    B, S = qn.shape[0], 32 * rows
+    strips = -(-L // S)
+    if row is None:
+        row = StripRow(B, min(L, 2 * r + S))
+    res = np.full(B, np.float32(BIG), np.float32)
+    runs = [dtw_strip_steps(qn, xn, r, rows, s, row, res, counts, base,
+                            hand) for s in range(strips)]
+    with np.errstate(over="ignore"):     # the poisoned cells overflow
+        if rng is None:
+            for s, run in enumerate(runs):
+                for need in run:
+                    assert (row.tag[need] == base + s).all(), (s, need)
+            return torch.as_tensor(res).reshape(lead)
+        wants = [next(run, None) for run in runs]   # each strip's next reads
+        live = list(range(strips))
+        while live:
+            ready = [s for s in live if wants[s] is None
+                     or (row.tag[wants[s]] == base + s).all()]
+            assert ready, "no strip can go on: the hand-over deadlocks"
+            s = ready[rng.integers(len(ready))]
+            if wants[s] is None:
+                live.remove(s)
+                continue
+            wants[s] = next(runs[s], None)
     return torch.as_tensor(res).reshape(lead)
 
 

@@ -352,18 +352,18 @@ def test_routes_cover_every_length(L):
 
 def test_dp_routes():
     """dtw_search: the wave routes of 2, 4 and 8 cells a lane to r 31, 63
-    and 127 (at most 32 lanes a pair), the general route beyond; dtw_scan:
+    and 127 (at most 32 lanes a pair), the spread route beyond; dtw_scan:
     band to r 16, then the wave route of 16 cells a lane to r 255, then
-    general."""
+    chain."""
     rs = (0, 12, 16, 17, 25, 31, 32, 40, 63, 64, 100, 127, 128, 900)
     assert [kdtw.dp_route(r) for r in rs] == (
-        ["wave2"] * 6 + ["wave4"] * 3 + ["wave8"] * 3 + ["general"] * 2)
+        ["wave2"] * 6 + ["wave4"] * 3 + ["wave8"] * 3 + ["spread"] * 2)
     assert [kdtw.scan_route(r) for r in rs] == \
-        ["band"] * 3 + ["wave16"] * 10 + ["general"]
+        ["band"] * 3 + ["wave16"] * 10 + ["chain"]
     assert kdtw.WAVE_MAX_R == {"wave2": 31, "wave4": 63, "wave8": 127}
     for r in rs:
         route = kdtw.dp_route(r)
-        if route != "general":
+        if route != "spread":
             assert -(-(2 * r + 1) // kdtw.wave_cells(route)) <= 32
 
 
@@ -473,20 +473,52 @@ def test_scan_wave_geometry_at_the_dtw_cell():
         assert len(banks) == P * H
 
 
-@pytest.mark.parametrize("L", [1, 16, 300, 1024])
-def test_general_threads_fit_every_band(L):
-    """The general routes' blocks (a thread a pair, its band of 2r + 1
-    floats in shared memory): a multiple of 32 where a warp's bands fit,
-    else a power of two, at every r <= L - 1, within 200 KiB."""
-    for r in range(L):
-        for most in (32, 64, 256, 1024):
-            t = kdtw.general_threads(L, r, most)
-            assert 1 <= t <= most
-            assert t % 32 == 0 or (t < 32 and t & (t - 1) == 0)
-            assert 4 * (L + (2 * r + 1) * t) <= 200 * 1024
-    assert kdtw.general_threads(1024, 1023, 1024) == 16
-    assert kdtw.general_threads(256, 128, 256) == 192
-    assert kdtw.general_threads(256, 25, 64) == 64
+@pytest.mark.parametrize("L", [1, 16, 300, 1024, 2709, 8192])
+def test_strip_routes_fit_every_band(L):
+    """The chain and spread routes' geometry (pure functions) at every r
+    <= L - 1 (every 7th past 1,024): a strip row holds the strip's columns
+    (diag_width); the spread route, where a row fits (spread_fits: every
+    r to L 25,600), keeps 1 to 16 pairs in flight a
+    CTA within 200 KiB of shared memory, 1 to SPEC rounds an iteration,
+    and a distance row a query of min(spec
+    round_k, N) floats; the chain route, where 8 warps' rows of floats fit
+    200 KiB (chain_fits: every r to L 6,400, r <= 3,072 at any L), 8
+    warps a CTA."""
+    assert kdtw.spread_fits(L, L - 1) == (L <= 25600)
+    assert kdtw.chain_fits(L, L - 1) == (L <= 6400)
+    for r in range(0, L, 1 if L <= 1024 else 7):
+        rows = kdtw.diag_rows(r)
+        cols = min(L, 2 * r + 32 * rows)
+        for Qg, N, rk in ((1, 1, 1), (4, 256, 32), (32, 1 << 16, 32),
+                          (8, 5000, 2048), (40, 1000, 16)):
+            g = kdtw.spread_search_geometry(Qg, N, L, r, rk)
+            assert g["rows"] == rows and g["width"] == cols
+            assert g["strips"] == -(-L // (32 * rows))
+            assert 1 <= g["slots"] <= 16
+            assert g["smem"] == 8 * g["slots"] * g["width"] <= 200 * 1024
+            assert 1 <= g["spec"] <= min(kdtw.SPEC, -(-N // rk))
+            assert g["wdist"] == min(g["spec"] * rk, N)
+        c = kdtw.chain_scan_geometry(L, r)
+        assert c["width"] == cols and c["threads"] == 256
+        assert (c["smem"] <= 200 * 1024) == kdtw.chain_fits(L, r)
+
+
+@pytest.mark.parametrize("N", [0, 1, 100, 256, 1 << 16])
+def test_spread_spec_and_chain_pairs(N):
+    """spread_spec: SPEC rounds an iteration, the search's rounds where
+    fewer (one at a round past N); the scan takes the chain route past r
+    255 from CHAIN_PAIRS pairs (the full window's 4 x 256 and up), diag
+    below and where a warp's row does not fit."""
+    assert kdtw.SPEC == 8 and kdtw.CHAIN_PAIRS == 1024
+    for rk in (1, 16, 32, 1024, 2048, 1 << 20):
+        assert kdtw.spread_spec(N, rk) == max(1, min(8, -(-N // rk)))
+    Q = max(1, -(-kdtw.CHAIN_PAIRS // max(N, 1)))
+    for L, r in ((1024, 256), (1024, 1023), (2709, 271), (8192, 819)):
+        assert kdtw.scan_route(r, L, Q, N) == (
+            "chain" if Q * N >= 1024 else "diag")
+        assert kdtw.scan_route(r, L, 1, N) == (
+            "chain" if N >= 1024 else "diag")
+    assert kdtw.scan_route(3073, 60000, 32, 1 << 16) == "diag"
 
 
 _POISON = np.float32(1e20)
@@ -847,11 +879,14 @@ def _strip_schedule(L, r, rows, rng):
     start, i.e. every entry of the strip above it reads there (the columns
     j0 .. j0 + 31 of that strip's span, and at the first chunk lo - 1)
     carries that strip's tag; then the chunk's 32 steps store lane 31's
-    columns (tag s + 1, at column - lo, past hi into the padding where the
-    kernel's chunk is plain) into the pair's one row, over the strip
-    above's entries.  Returns the chunks run; asserts that no order
-    deadlocks, i.e. that no strip rewrites an entry that the strip below
-    it has yet to read."""
+    columns lo .. hi (tag s + 1, at column - lo) into the pair's one row,
+    over the strip above's entries.  Returns the chunks run; asserts that
+    no order deadlocks, i.e. that no strip rewrites an entry that the
+    strip below it has yet to read, and that no step stores past its
+    strip's columns: where two strips start at the same column, a store
+    past the upper one's last column would land on the lower one's own
+    entries, which it may write first (it needs none of the upper one's
+    columns there), and leave them a stale tag."""
     S = 32 * rows
     strips = -(-L // S)
     width = kdtw.diag_width(L, r, rows)
@@ -884,14 +919,10 @@ def _strip_schedule(L, r, rows, rng):
         s = ready[rng.integers(len(ready))]
         lo, hi = span(s * S)
         j0 = nxt[s]
-        cols = j0 >= 31 and j0 + 31 <= L - 1
-        jres = L - 1 + (L - 1 - s * S) // rows if s * S + S >= L else -1
-        plain = cols and not j0 <= jres <= j0 + 31 and (
-            s + 1 == strips or j0 - 31 >= lo)
         if s + 1 < strips:
-            for c in range(j0 - 31, j0 + 1):
-                if plain or lo <= c <= hi:
-                    tag[c - lo] = s + 1
+            for c in range(max(lo, j0 - 31), min(hi, j0) + 1):
+                assert 0 <= c - lo < width
+                tag[c - lo] = s + 1
         nxt[s] = j0 + 32
         runs += 1
     assert all(nxt[s] > span(s * S)[1] + 31 for s in range(strips)), nxt
@@ -900,7 +931,8 @@ def _strip_schedule(L, r, rows, rng):
 
 @pytest.mark.parametrize("rows", [1, 4])
 @pytest.mark.parametrize("L,r", [(300, 0), (300, 12), (300, 40),
-                                 (300, 150), (300, 299), (1000, 100)])
+                                 (300, 150), (300, 299), (1000, 100),
+                                 (1000, 200)])
 def test_strips_hand_on_rows_in_any_order(L, r, rows):
     """The strip rows' hand-over (_strip_schedule) finishes under 20
     random orders of chunks: no strip waits on an entry that a strip
@@ -910,6 +942,136 @@ def test_strips_hand_on_rows_in_any_order(L, r, rows):
     rng = np.random.default_rng(L + r + rows)
     for _ in range(20):
         assert _strip_schedule(L, r, rows, rng) > 0
+
+
+# ------------------------------------------- the chain and spread routes
+# the radii the general routes took before: r 128, 255 and 256 (where the
+# strips go from 4 to 8 rows a lane), 512 and the full window, L - 1
+HAND_RADII = (128, 255, 256, 512, "full")
+HAND_LENGTHS = (7, 300, 1024, 2709)
+
+
+def _hand_shapes():
+    for L in HAND_LENGTHS:
+        for r in sorted({L - 1 if r == "full" else min(r, L - 1)
+                         for r in HAND_RADII}):
+            yield L, r
+
+
+@pytest.mark.parametrize("L,r", list(_hand_shapes()))
+def test_chain_hand_over_equals_the_band(L, r):
+    """dtw_scan's chain route (csrc/dtw.cu scan_chain): one warp runs a
+    pair's strips in order through its own row of plain floats in shared
+    memory, each strip reading an entry once (the next chunk's ahead of
+    it) and writing over entries it has read: ref.dtw_strip_ref with
+    hand "warp" asserts that every entry read then holds the strip
+    above's value, and gives dtw_band_ref's bits at the rows a lane of
+    the route (diag_rows)."""
+    rng = np.random.default_rng(L + 7 * r)
+    q, x = (rng.standard_normal((2, L)).astype(np.float32)
+            for _ in range(2))
+    got = ref.dtw_strip_ref(_t(q), _t(x), r, kdtw.diag_rows(r),
+                            hand="warp")
+    want = ref.dtw_band_ref(_t(q), _t(x), r)
+    assert got.numpy().tobytes() == want.numpy().tobytes()
+
+
+@pytest.mark.parametrize("L,r", list(_hand_shapes()))
+def test_spread_strips_hand_on_rows_in_any_order(L, r):
+    """dtw_search's spread route: a pair's strips on the warps of one CTA,
+    their rows handed on through tagged entries in its shared memory (as
+    the diag routes' in device scratch), each chunk run in a random order
+    among the strips whose entries carry the tags they need: no order
+    deadlocks and every one gives dtw_band_ref's bits; then the slot's
+    next pair through the same row (its tags after the first pair's, the
+    row not cleared) the same."""
+    rng = np.random.default_rng(3 * L + r)
+    rows = kdtw.diag_rows(r)
+    q, x = (rng.standard_normal((2, 2, L)).astype(np.float32)
+            for _ in range(2))
+    want = ref.dtw_band_ref(_t(q), _t(x), r).numpy()
+    strips = kdtw.diag_strips(L, rows)
+    for _ in range(2 if L < 2709 else 1):
+        row = ref.StripRow(2, kdtw.diag_width(L, r, rows))
+        for b in range(2 if L < 2709 else 1):
+            got = ref.dtw_strip_ref(_t(q[b]), _t(x[b]), r, rows, rng=rng,
+                                    row=row, base=b * strips)
+            assert got.numpy().tobytes() == want[b].tobytes()
+
+
+def _spread_rounds(sorted_lb, order, d_pairs, round_k, spec, per):
+    """dtw_search's spread route's loop (csrc/dtw.cu search_spread) for
+    each query, over given pair distances: an iteration takes every
+    candidate of its window of spec round_k positions whose bound lies
+    below the best-so-far of its start (position j by CTA j % per), then
+    applies the spec rounds in order as the loop of single rounds: the
+    stop before each, the candidates below the best-so-far of the moment
+    (each asserted computed), their first minimum.  Returns (bsf, best,
+    rounds, refined, distances computed) a query."""
+    big = np.float32(ref.BIG)
+    out = []
+    for lb, ord_, dq in zip(sorted_lb.numpy(), order.numpy(),
+                            d_pairs.numpy()):
+        N = len(lb)
+        W = spec * round_k
+        end = -(-N // round_k) * round_k
+        bsf, best, rounds, refined, done = big, -1, 0, 0, 0
+        go = end > 0 and lb[0] < bsf
+        cursor = 0
+        while go:
+            here = min(W, N - cursor)
+            have = {}
+            for c in range(per):
+                for j in range(c, here, per):
+                    if lb[cursor + j] < bsf:
+                        have[j] = dq[ord_[cursor + j]]
+            done += len(have)
+            on = True
+            for u in range(spec):
+                cu = cursor + u * round_k
+                if u > 0:
+                    on = on and cu < end and lb[cu] < bsf
+                if not on:
+                    break
+                key, nt = (big, round_k), 0
+                for j in range(round_k):
+                    pos = cu + j
+                    if pos < N and lb[pos] < bsf:
+                        key = min(key, (have[pos - cursor], j))
+                        nt += 1
+                if key[0] < bsf:
+                    bsf, best = key[0], int(ord_[cu + key[1]])
+                rounds += 1
+                refined += nt
+            cursor += W
+            go = on and cursor < end and lb[cursor] < bsf
+        out.append((float(bsf), best, rounds, refined, done))
+    return out
+
+
+@pytest.mark.parametrize("N,rk,spec,per,noise", [
+    (300, 32, 8, 33, 0.3), (300, 32, 1, 4, 0.3), (301, 16, 3, 5, 0.5),
+    (200, 7, 8, 2, 0.2), (37, 64, 8, 3, 0.4), (500, 5, 2, 1, 0.6)])
+def test_spread_rounds_equal_the_loop_of_rounds(N, rk, spec, per, noise):
+    """The spread route's speculative iterations (_spread_rounds) give
+    dtw_search_ref's bsf, id, rounds and candidates refined whatever the
+    rounds an iteration (spec) and the CTAs a query (per); every distance
+    a round reads was computed at its iteration's start, and the
+    iterations compute at least the loop's candidates."""
+    rng = np.random.default_rng(N + rk + spec)
+    L, r, Q = 48, 6, 4
+    x = isax.znormalize(torch.as_tensor(
+        np.cumsum(rng.standard_normal((N, L)), 1), dtype=torch.float32))
+    q = x[torch.as_tensor(rng.integers(0, N, Q))] + noise * torch.as_tensor(
+        rng.standard_normal((Q, L)), dtype=torch.float32)
+    s, o = torch.sort(ref.lb_keogh_ref(q, x, r), dim=1, stable=True)
+    dp = ref.dtw_band_ref(q[:, None], x[None], r)
+    want = ref.dtw_search_ref(q, x, s, o, r, rk, d_pairs=dp)
+    got = _spread_rounds(s, o, dp, rk, spec, per)
+    assert [g[:4] for g in got] == list(zip(*(w.tolist() for w in want)))
+    assert all(g[4] >= g[3] for g in got)
+    if spec == 1:
+        assert all(g[4] == g[3] for g in got)
 
 
 @pytest.mark.parametrize("r", [0, 7, 17, 25, 51, 102, 127, 200, 255])
@@ -947,12 +1109,15 @@ def test_band_past_the_series_is_the_whole_matrix(L):
 @pytest.mark.parametrize("N,L,Q,r,round_k", [
     (40, 16, 2, 900, 32),        # the band past the series
     (37, 16, 3, 15, 8),          # r = L - 1
-    (60, 256, 2, 128, 256),      # the general route in two passes
-    (70, 256, 2, 200, 1024),     # ... in six
+    (60, 256, 2, 128, 256),      # a round of 256 (the spread route)
+    (70, 256, 2, 200, 1024),     # ... of 1024
+    (50, 256, 3, 128, 32),       # the spread and chain routes' radii
+    (45, 300, 2, 255, 16),
+    (40, 600, 2, 512, 32),
 ])
 def test_wide_bands_answer_as_repro(N, L, Q, r, round_k):
-    """Shapes the card's general route could not take before (a round's
-    bands past a block's shared memory, or r past the series): the port's
+    """Wide bands (past the wave routes' radii: the spread and chain
+    routes on the card; r past the series) and wide rounds: the port's
     search_dtw and search_dtw_bruteforce on the CPU give repro's ids and
     its distances to 1e-5."""
     rng = np.random.default_rng(N + L + r)

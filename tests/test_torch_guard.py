@@ -255,12 +255,12 @@ def test_dtw_wrappers_raise_on_a_route_the_shape_does_not_take():
     for route in ("wave4", "wave8"):    # dtw_search's cells, not the scan's
         with pytest.raises(ValueError, match="routes"):
             dtw.dtw_scan(q32, x32, r=20, route=route)
-    # the general route takes every radius, the band route up to 16 (a
+    # the chain route takes every radius, the band route up to 16 (a
     # radius past L - 1 is L - 1: r 20 at L 16 is the band route's 15)
-    assert dtw.dtw_scan(q, x, r=2, route="general")[1].tolist() == [0, 0]
+    assert dtw.dtw_scan(q, x, r=2, route="chain")[1].tolist() == [0, 0]
     assert dtw.dtw_scan(q, x, r=16, route="band")[1].tolist() == [0, 0]
     assert dtw.dtw_scan(q, x, r=20, route="band")[1].tolist() == [0, 0]
-    for route in ("wave16", "general"):
+    for route in ("wave16", "chain"):
         assert dtw.dtw_scan(q32, x32, r=20, route=route)[1].tolist() == [0, 0]
 
 

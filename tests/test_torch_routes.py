@@ -207,9 +207,9 @@ def test_every_dtw_shape_has_a_route(L):
     fits a block: the LB in launches of lb_group(L) queries and
     lb_chunk(L) columns (envelopes within 200 KiB); the search's wave
     routes to L 1024, its ring routes above (a few KB of ring a pair,
-    whatever L; ring16 to r 255), the general route past them or
-    round_k 1024, the diag route where a band passes shared memory; the
-    scan's band, wave16 / ring16, general and diag routes, the chunk's
+    whatever L; ring16 to r 255), the spread route past them or
+    round_k 1024, the diag route where a strip row passes shared memory; the
+    scan's band, wave16 / ring16, chain and diag routes, the chunk's
     queries at most 32 and the grid's query dimension in launches of
     65,535 (any Q)."""
     G, chunk = dtw.lb_group(L), dtw.lb_chunk(L)
@@ -222,14 +222,13 @@ def test_every_dtw_shape_has_a_route(L):
         r = min(r, L - 1)
         for round_k in (1, 32, 1024, 1025, 2048):
             route = dtw.dp_route(r, L, round_k)
-            if route == "general":
+            if route == "spread":
                 assert r > (127 if L <= 1024 else 255) or round_k > 1024
-                assert dtw.general_band_fits(L, r)
-                t = dtw.general_threads(L, r, min(1024, -(-round_k // 32)
-                                                  * 32))
-                assert 1 <= t <= 1024
+                assert dtw.spread_fits(L, r)
+                g = dtw.spread_search_geometry(32, 1 << 20, L, r, round_k)
+                assert 1 <= g["slots"] <= 16 and g["smem"] <= 200 * 1024
             elif route == "diag":
-                assert not dtw.general_band_fits(L, r)
+                assert not dtw.spread_fits(L, r)
                 g = dtw.diag_search_geometry(32, 1 << 20, L, r, round_k)
                 assert g["rows"] == 8
                 assert g["strips"] == -(-L // 256)
@@ -246,8 +245,7 @@ def test_every_dtw_shape_has_a_route(L):
         scan = dtw.scan_route(r, L)
         assert scan == dtw.scan_routes(r, L)[0]
         assert "diag" in dtw.scan_routes(r, L)
-        assert ("general" in dtw.scan_routes(r, L)) == \
-            dtw.general_band_fits(L, r)
+        assert ("chain" in dtw.scan_routes(r, L)) == dtw.chain_fits(L, r)
         cells = {**dtw.SCAN_CELLS, **dtw.SCAN_RING_CELLS}
         waves = set(cells) & set(dtw.scan_routes(r, L))
         if waves:
@@ -259,8 +257,8 @@ def test_every_dtw_shape_has_a_route(L):
                     assert g["smem"] <= 200 * 1024
                     assert 1 <= g["queries"] <= 32
                     assert 32 <= g["threads"] <= 512
-        elif scan == "general":
-            assert 1 <= dtw.general_threads(L, r, 64) <= 64
+        elif scan == "chain":
+            assert dtw.chain_scan_geometry(L, r)["smem"] <= 200 * 1024
 
 
 def test_dtw_shapes_before_the_rings_keep_their_routes():
@@ -273,7 +271,7 @@ def test_dtw_shapes_before_the_rings_keep_their_routes():
             assert dtw.scan_route(r, L) == dtw.scan_route(r)
             assert dtw.scan_routes(r, L) == dtw.scan_routes(r)
     assert dtw.dp_route(12) == "wave2" and dtw.scan_route(12) == "band"
-    assert dtw.scan_route(25) == "wave16" and dtw.dp_route(200) == "general"
+    assert dtw.scan_route(25) == "wave16" and dtw.dp_route(200) == "spread"
     assert dtw.band_threads(12, 256, 32) == 512
     assert dtw.lb_group(1024) == 24 and dtw.lb_chunk(1024) == 1024
     assert dtw.scan_geometry(256, 25, 16, 32)["threads"] == 512
@@ -282,34 +280,33 @@ def test_dtw_shapes_before_the_rings_keep_their_routes():
     assert dtw.dp_route(81, 8192) == "ring8"
     assert dtw.dp_route(135, 2709) == "ring16"
     assert dtw.dp_route(255, 1025) == "ring16"
-    assert dtw.dp_route(256, 1025) == "general"
+    assert dtw.dp_route(256, 1025) == "spread"
     assert dtw.band_threads(135, 2709, 32, 16) == 512
-    assert dtw.dp_route(12, 64, 2048) == "general"
+    assert dtw.dp_route(12, 64, 2048) == "spread"
     assert dtw.scan_route(27, 2709) == "ring16"
     assert dtw.scan_route(135, 2709) == "ring18"    # 16 cells a lane: 17
     assert dtw.scan_route(16, 65600) == "band"
     assert (dtw.lb_group(2709), dtw.lb_chunk(2709)) == (32, 800)
-    # a band of 2r + 1 floats past a block's shared memory (r above
-    # 25,599, so L above 25,600): the diag routes, a pair a block, its
-    # band in device scratch; below, the general routes in shared memory
-    # as before
-    assert dtw.general_band_fits(60000, 25599)
-    assert dtw.general_threads(60000, 25599, 64) == 1
-    assert not dtw.general_band_fits(60000, 25600)
+    # a strip row past a block's shared memory: the diag routes, the
+    # rows in device scratch; below, the search's spread route (and the
+    # scan's chain route) with the rows in shared memory
     assert dtw.dp_route(25600, 60000) == dtw.scan_route(25600, 60000) \
         == "diag"
     assert dtw.dp_route(25650, 25700, 2048) == "diag"
-    assert dtw.scan_routes(25599, 60000) == ("general", "diag")
+    assert dtw.dp_route(12672, 60000) == "spread"
+    assert dtw.dp_route(12673, 60000) == "diag"
+    assert dtw.scan_routes(3072, 60000) == ("chain", "diag")
+    assert dtw.scan_routes(3073, 60000) == ("diag",)
     assert dtw.scan_routes(25600, 60000) == ("diag",)
     assert dtw.diag_rows(0) == dtw.diag_rows(255) == 4
     assert dtw.diag_rows(256) == dtw.diag_rows(25600) == 8
-    assert all(dtw.general_band_fits(L, L - 1) for L in (1, 1024, 16384))
+    assert all(dtw.spread_fits(L, L - 1) for L in (1, 1024, 16384))
 
 
 def test_diag_geometry():
     """The diag routes' launch geometry (kernels.dtw.diag_*, pure): strips
-    of 32 rows-a-lane rows a pair, a strip row's entries (its columns and
-    32 of padding), chains (a pair's strips on one warp where a strip
+    of 32 rows-a-lane rows a pair, a strip row's entries (its columns),
+    chains (a pair's strips on one warp where a strip
     overlaps the next for less than half its steps), the pairs in flight
     and the scratch within its budget, the scan's grid and the search's
     cluster, at the device band's shape, the long queries' and the full
@@ -317,8 +314,8 @@ def test_diag_geometry():
     assert dtw.DIAG_ROWS == (4, 8)
     assert dtw.diag_strips(25700, 8) == 101 and dtw.diag_strips(1, 4) == 1
     assert dtw.diag_strips(16400, 4) == 129 and dtw.diag_strips(256, 8) == 1
-    assert dtw.diag_width(25700, 25650, 8) == 25700 + 32
-    assert dtw.diag_width(16400, 12, 4) == 24 + 128 + 32
+    assert dtw.diag_width(25700, 25650, 8) == 25700
+    assert dtw.diag_width(16400, 12, 4) == 24 + 128
     # a strip of a narrow band barely overlaps the next: one warp a pair
     assert dtw.diag_chain(16400, 12, 4) == dtw.diag_chain(16400, 40, 4) \
         == 129
@@ -328,11 +325,11 @@ def test_diag_geometry():
     # the device band: 2 queries x 3 series
     g = dtw.diag_scan_geometry(2, 3, 25700, 25650)
     assert (g["rows"], g["strips"], g["chain"], g["slots"]) == (8, 101, 1, 6)
-    assert g["tickets"] == 6 * 101 and g["width"] == 25732
-    assert g["entries"] == 1 + 6 + 6 * 25732 and g["bytes"] == 8 * g["entries"]
+    assert g["tickets"] == 6 * 101 and g["width"] == 25700
+    assert g["entries"] == 1 + 6 + 6 * 25700 and g["bytes"] == 8 * g["entries"]
     g = dtw.diag_search_geometry(2, 3, 25700, 25650, 32)
     assert (g["rows"], g["strips"], g["slots"]) == (8, 101, 3)
-    assert g["per_query"] == 4 + 3 + 3 + 3 * 25732
+    assert g["per_query"] == 4 + 3 + 3 + 3 * 25700
     assert g["bytes"] == 8 * 2 * g["per_query"]
     # the long queries at r 12: a chain a pair, every pair in flight
     g = dtw.diag_scan_geometry(4, 256, 16400, 12)
