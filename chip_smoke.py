@@ -14,10 +14,12 @@ Phases, each printing one JSON line:
   ptxas      the registers, spills and wgmma warnings ptxas reports for
              the attention instances at dh 96 and 256 (tc96 and tc256 in
              bf16, tf256 in TF32), and the registers and spills of every
-             dtw_scan ring instance (16 to 24 cells a lane) and of the
-             strip instances (scan_strips, search_strips, scan_chain and
-             search_spread at 4 and 8 rows a lane), each required to
-             spill nothing;
+             dtw_scan ring instance (16 to 24 cells a lane), of the strip
+             instances (scan_strips, search_strips, scan_chain and
+             search_spread at 4 and 8 rows a lane), of dtw_search's ring
+             instances (search_ring, 2 to 16 cells a lane) and of
+             LB_Keogh's past L 1,024 (lb_envelope, lb_long at 8, 16 and 32
+             query slots), each required to spill nothing;
   kernel     each CUDA kernel against its plain PyTorch version on the card,
              at its path's shapes, with its time, the plain version's time,
              a PyTorch library call's time where one computes the same
@@ -195,8 +197,9 @@ Phases, each printing one JSON line:
              2,709 points at r 27 and 135, 2^14 of 8,192 at r 81, 32
              queries each): search_dtw held to search_dtw_bruteforce, each
              kernel's first query to its plain version, the ring routes'
-             (ring2, ring8, ring16; the scan's ring16, ring18, ring22)
-             rows beside the chunked LB's, each
+             (ring2, ring6, ring10, the spread and diag routes' times
+             beside each; the scan's ring16, ring18, ring22) rows beside
+             the LB's (the envelopes, then the sums), each
              scan row with its cells a lane and busy lanes of 32 and,
              where its radius takes another width, the ring at 16 cells
              a lane beside it, bit for bit; edge runs past the old limits
@@ -368,15 +371,27 @@ def attention_ptxas(log: str) -> dict:
     return out
 
 
-def dtw_ptxas(log: str, widths, diag_rows) -> dict:
+def dtw_ptxas(log: str, widths, diag_rows, search_widths) -> dict:
     """dtw_scan's ring instances (scan_ring_kernel<C, ML>: C / 2 of each
-    width C of `widths`) and the strip routes' (the diag routes'
+    width C of `widths`), the strip routes' (the diag routes'
     scan_strips<K> and search_strips<K>, the chain route's scan_chain<K>
-    and the spread route's search_spread<K>, K of `diag_rows`) in dtw.cu's
-    build log: each must spill nothing.  Returns each ring width's
-    instances and most registers, and each strip instance's registers."""
+    and the spread route's search_spread<K>, K of `diag_rows`), dtw_search's
+    ring instances (search_ring<C>, C of `search_widths`) and LB_Keogh's
+    past L 1,024 (lb_envelope, lb_long<G, V> at 8, 16 and 32 query slots,
+    V 4 and 1) in dtw.cu's build log: each must spill nothing.  Returns
+    each scan ring width's instances and most registers, and each other
+    instance's registers."""
     found, diag = {}, {}
     for name, e in ptxas_entries(log).items():
+        m = re.search(r"(search_ring|lb_long)ILi(\d+)E(?:Li(\d+)E)?|"
+                      r"(lb_envelope)", name)
+        if m:
+            what = m[4] or (f"{m[1]}<{m[2]}>" if m[3] is None
+                            else f"{m[1]}<{m[2]}, {m[3]}>")
+            require(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
+                    f"ptxas: {what} spills: {e}")
+            diag[what] = {"registers": e.get("registers", 0),
+                          "spill_bytes": 0}
         m = re.search(r"scan_ring_kernelILi(\d+)ELi(\d+)E", name)
         if m:
             require(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
@@ -393,9 +408,11 @@ def dtw_ptxas(log: str, widths, diag_rows) -> dict:
     require(counts == {c: c // 2 for c in widths},
             f"ptxas: ring instances {counts}")
     require(sorted(diag) == sorted(
-        f"{k}<{K}>" for K in diag_rows for k in (
-            "scan_strips", "search_strips", "scan_chain", "search_spread")),
-        f"ptxas: strip instances {sorted(diag)}")
+        [f"{k}<{K}>" for K in diag_rows for k in (
+            "scan_strips", "search_strips", "scan_chain", "search_spread")]
+        + [f"search_ring<{C}>" for C in search_widths] + ["lb_envelope"]
+        + [f"lb_long<{G}, {V}>" for G in (8, 16, 32) for V in (1, 4)]),
+        f"ptxas: strip, search ring and LB instances {sorted(diag)}")
     return {f"ring{c}": {"instances": len(v), "registers_max": max(v),
                          "spill_bytes": 0} for c, v in sorted(found.items())
             } | diag
@@ -3476,6 +3493,11 @@ DTW_OTHER_Q = 8
 # and 5 % bands, and 8,192 points over 2^14 (0.54 GB) at 1 %
 DTW_LONG = ((1 << 16, 2709, (27, 135)), (1 << 14, 8192, (81,)))
 DTW_LONG_Q = 32
+# the cells a lane at which the long series' dtw_search rows count the
+# cells an abandoning DP needs (their bound): each radius's width before
+# the widths by radius (search_ring_cells), so that the yardstick stays
+# put as the route changes; the route's own count is printed beside it
+DTW_LONG_CELLS = {27: 2, 135: 16, 81: 8}
 # lb_keogh at other lengths: (series, L, queries, r 5 % of L)
 DTW_LB_SHAPES = ((1 << 20, 1024, 24, 51), (1 << 22, 100, 32, 5))
 # pairs a dtw_band_ref call of dtw_search_ref takes on the card (its answer
@@ -3564,21 +3586,24 @@ def scan_rows(torch, kd, ref, x, q, r, want, launches, plain=None):
     return [row]
 
 
-def needed_cells(torch, ref, q, x, sorted_lb, order, trace, r: int,
-                 round_k: int, cells: int, chunk: int = 1 << 18,
+def needed_cells(torch, ref, kd, q, x, sorted_lb, order, trace, r: int,
+                 round_k: int, route: str, chunk: int = 1 << 18,
                  check: bool = True) -> int:
-    """The cells an early-abandoning refinement needs: for each candidate
+    """The cells dtw_search's `route` needs at least: for each candidate
     that dtw_search_ref refined (its `trace`: each round's start and the
-    best-so-far there; the round's candidates below it are refined), the
-    cells of every step of the wavefront (cells a lane) up to and
+    best-so-far there; the round's candidates below it are refined), on a
+    wave or ring route (an early-abandoning wavefront of
+    kd.wave_cells(route) cells a lane) the cells of every step up to and
     including the first whose least cell reaches that best-so-far (all of
-    them where none does: the pair may improve it).  Each step's least
-    cell comes from ref.dtw_wavefront_ref(step_least=True) on the card,
-    `chunk` pairs a call.  Stopping at the first such step, against the
+    them where none does: the pair may improve it), on a strip route
+    (spread, diag: no abandoning) every band cell.  Each step's least cell
+    comes from ref.dtw_wavefront_ref(step_least=True) on the card, `chunk`
+    pairs a call.  Stopping at the first such step, against the
     best-so-far of the round's start, no kernel of these rounds forms
     fewer cells.  `check=False`: the model without its bookkeeping's
     asserts (ref.dtw_wavefront_ref), for the long series."""
     N = x.shape[0]
+    cells = {**kd.WAVE_CELLS, **kd.RING_CELLS}.get(route)
     qi, sid, cut = [], [], []
     for g, (starts, bsf) in enumerate(trace):
         pos = (torch.as_tensor(starts, device=DEV)[:, None]
@@ -3589,6 +3614,8 @@ def needed_cells(torch, ref, q, x, sorted_lb, order, trace, r: int,
         sid.append(order[g, pos[take]])
         cut.append(bs[take])
     qi, sid, cut = torch.cat(qi), torch.cat(sid), torch.cat(cut)
+    if cells is None:
+        return len(qi) * rl.dtw_cells(x.shape[1], r)
     cum = rl.wave_step_cells(x.shape[1], r, cells).cumsum(0).to(DEV)
     total = 0
     for a in range(0, len(qi), chunk):
@@ -3601,6 +3628,16 @@ def needed_cells(torch, ref, q, x, sorted_lb, order, trace, r: int,
                            least.shape[1] - 1)
         total += int(cum[stop].sum())
     return total
+
+
+def lb_launches(kd, Lx: int, groups: int = 1) -> dict:
+    """lb_keogh's launches by route for `groups` groups of queries at
+    length Lx: one a group to L 1,024; past it two, the envelopes and the
+    sums."""
+    out = {f"lb_keogh/{kd.lb_route(Lx)}": groups}
+    if Lx > kd.WHOLE_L:
+        out["lb_keogh/envelope"] = groups
+    return out
 
 
 def rel_err(torch, a, b) -> float:
@@ -3665,11 +3702,12 @@ def dtw_edges(torch, isax, kd, ref, gen):
     at L 16, L 1024 at r 1023 (the spread route and the scan's chain and
     diag routes), and dtw_search at r 128 with round_k 256 and 1024 (the
     spread route, rounds at once).  Past the old limits: L 1,025 at r 3
-    and 40 (the ring routes: ring2, ring4 and every width of the scan's,
-    ring16 to ring24), round_k 2,048 at L 64 (the spread route, a round
-    of more than 1,024; rounds and candidates refined equal to
-    dtw_search_ref's, as every run's), and 65,600 queries through the
-    scan (dtw_many_queries).  Every run holds the diag routes of both
+    and 40 (the ring routes: every width of the search's, 2 to 16 cells a
+    lane, and of the scan's, 16 to 24) and r 0 (the search's rings fill
+    shared memory before 32 warps do), round_k 2,048 at L 64 (the spread
+    route, a round of more than 1,024; rounds and candidates refined
+    equal to dtw_search_ref's, as every run's), and 65,600 queries
+    through the scan (dtw_many_queries).  Every run holds the diag routes of both
     kernels too, and the scan's chain route at every radius."""
     edges = []
     wide = [(2999, 100, 4, r, 32) for r in (17, 25, 31, 32, 63, 64, 128,
@@ -3688,6 +3726,7 @@ def dtw_edges(torch, isax, kd, ref, gen):
                              *wide, (1001, 101, 4, 20, 32),
                              (20, L, 4, DTW_R, 32), (1000, L, 4, DTW_R, 16),
                              (2000, 1025, 8, 3, 32), (600, 1025, 4, 40, 32),
+                             (2000, 1025, 8, 0, 32),
                              (5000, 64, 8, 3, 2048)):
         edges.append(dtw_small(torch, isax, kd, ref, gen, n, Lx, nq, r,
                                rk) | {"route": kd.dp_route(min(r, Lx - 1),
@@ -3765,17 +3804,18 @@ def dtw_long_queries(torch, isax, kmods, ref, gen):
     (collection series plus N(0, 0.1) noise), at r 12, 40 and 200.  At
     each radius, one dtw_band_ref call gives every pair's distance, which
     the plain versions read (ref.dtw_search_ref and ref.dtw_scan_ref,
-    d_pairs): lb_keogh to 1e-5 relative; dtw_search on its default route
-    (ring2, ring4, ring16: the query read from device memory), its
-    spread route and its diag route, bit for bit at round_k 32
-    (8 rounds, pruned and abandoned) and, but for diag, at round_k 256
-    (one round: nothing pruned or abandoned, the timed launch, whose
-    bound is every refined pair's cells; diag: the round_k 32 launch);
-    dtw_scan on every route that takes the radius (band, the ring widths
-    16 to 24, chain, diag), bit for bit, then timed on one more launch,
-    each wave or ring row with its cells a lane and busy lanes.  Each
-    route's time beside its bound; launches are this run's.  Returns (reports,
-    launches, rows)."""
+    d_pairs): lb_keogh to 1e-5 relative; dtw_search on every route that
+    takes the radius (dp_routes: the default, every ring width whose
+    lanes hold the band, the query read from device memory; spread;
+    diag), bit for bit at round_k 32 (8 rounds, pruned and abandoned) and
+    at round_k 256 (one round: nothing pruned or abandoned, the timed
+    launch, whose bound is every refined pair's cells), a table row for
+    the default, spread and diag, the other ring widths' times in the
+    report; dtw_scan on every route that takes the radius (band, the ring
+    widths 16 to 24, chain, diag), bit for bit, then timed on one more
+    launch, each wave or ring row with its cells a lane and busy lanes.
+    Each route's time beside its bound; launches are this run's.  Returns
+    (reports, launches, rows)."""
     kd = kmods["dtw"]
     n, Lx, nq, radii = DTW_LONGQ
     x = isax.znormalize(walks(torch, gen, n, Lx)).contiguous()
@@ -3817,30 +3857,32 @@ def dtw_long_queries(torch, isax, kmods, ref, gen):
         scan_plain = band_ms + (time.perf_counter() - t0) * 1e3
         require(bool((want[DTW_RK][0] == scan_want[0]).all()),
                 f"dtw L {Lx} r {r}: search and scan distances differ")
-        made, checks = [], {}
-        for route in dict.fromkeys((kd.dp_route(r, Lx, DTW_RK), "spread",
-                                    "diag")):
+        made, checks, widths = [], {}, {}
+        search_routes = kd.dp_routes(r, Lx, DTW_RK)
+        for route in search_routes:
             # the last launch timed (the route's kernel loaded by then:
-            # the edge runs launch diag)
-            for rk in ((DTW_RK,) if route == "diag" else (DTW_RK, n)):
+            # the edge runs launch each)
+            for rk in (DTW_RK, n):
                 got, ms = once(lambda: kd.dtw_search(
                     q, x, s, o, r=r, round_k=rk, route=route))
                 require(all(torch.equal(a, b)
                             for a, b in zip(got, want[rk])),
                         f"dtw_search {route} L {Lx} r {r} round_k {rk}: "
                         f"not bit-equal to dtw_search_ref")
+            checks[f"dtw_search/{route}"] = "bit-equal to dtw_search_ref"
+            widths[route] = ms
+            if route not in (search_routes[0], "spread", "diag"):
+                continue
             n_ref, n_rounds = int(got[3].sum()), int(got[2].sum())
             bms, by = rl.dtw_search_work(n_ref * rl.dtw_cells(Lx, r), n_ref,
                                          Lx, n_rounds, rk).bound()
-            checks[f"dtw_search/{route}"] = "bit-equal to dtw_search_ref"
             made.append(route_row(
                 "dtw_search", f"{route}_{tag}", DTW_SRC,
                 DTW_REPLACES.format(122, "search_dtw"),
                 f"{nq} queries x {n} series, L {Lx}, r {r}, round_k {rk} "
                 f"({n_rounds} rounds, {n_ref} refined: none abandoned)",
                 0.0, ms, plain[rk], bms, by,
-                {"round_k 32 and 256" if route != "diag" else "round_k 32":
-                 "bit-equal to dtw_search_ref"}))
+                {"round_k 32 and 256": "bit-equal to dtw_search_ref"}))
         for route in kd.scan_routes(r, Lx):
             got, ms = once(lambda: kd.dtw_scan(q, x, r=r, route=route))
             require(torch.equal(got[0], scan_want[0])
@@ -3867,6 +3909,8 @@ def dtw_long_queries(torch, isax, kmods, ref, gen):
         reps.append({"series": n, "L": Lx, "queries": nq, "r": r,
                      "lb_rel_err": lb_err, "band_ref_ms": band_ms,
                      "checks": checks, "by_route": routes,
+                     "search_ms_round_k_256": widths,
+                     "search_fastest": min(widths, key=widths.get),
                      "kernels": {row["name"]: {k: row[k] for k in (
                          "ms", "bound_ms", "plain_ms")}
                          | {"launches": launches[row["name"]]}
@@ -3909,9 +3953,8 @@ def dtw_device_band(torch, isax, kmods, ref, gen):
     torch.cuda.synchronize()
     brute_ms = (time.perf_counter() - t0) * 1e3
     routes = dict(kd.by_route)
-    chunks = -(-Lx // kd.lb_chunk(Lx))
-    require(routes == {f"lb_keogh/{kd.lb_route(Lx)}": chunks,
-                       "dtw_search/diag": 1, "dtw_scan/diag": 1},
+    require(routes == {**lb_launches(kd, Lx), "dtw_search/diag": 1,
+                       "dtw_scan/diag": 1},
             f"dtw L {Lx} r {r}: launches by route {routes}")
     require(bool(torch.isfinite(d).all()) and torch.equal(d, bd)
             and torch.equal(ids, bi),
@@ -4127,8 +4170,7 @@ def dtw_wide_cell(torch, isax, kd, ref, gen, n, Lx, r, search):
     scan_route = kd.scan_route(r, Lx, DTW_WIDE_Q, n)
     want_ran = {f"dtw_scan/{scan_route}": 1}
     if search:
-        want_ran |= {f"lb_keogh/{kd.lb_route(Lx)}": -(-Lx // kd.lb_chunk(Lx)),
-                     f"dtw_search/{search_route}": 1}
+        want_ran |= {**lb_launches(kd, Lx), f"dtw_search/{search_route}": 1}
         d_err, mism = rel_err(torch, d, bd), ids != bi
         require(bool(torch.isfinite(d).all()) and d_err <= 1e-5
                 and bool(((d[mism] - bd[mism]).abs()
@@ -4451,8 +4493,8 @@ def dtw_wide(torch, isax, kmods, ref, x, qz):
     require(all(torch.equal(a, b) for a, b in zip(other, got)),
             f"dtw_search r {r} spread: not bit-equal on the first group")
     n_ref = int(got[3].sum())
-    cells = needed_cells(torch, ref, qg, x, s, o, trace, r, DTW_RK,
-                         kd.wave_cells(route))
+    cells = needed_cells(torch, ref, kd, qg, x, s, o, trace, r, DTW_RK,
+                         route)
     bms, by = rl.dtw_search_work(cells, n_ref, L, int(got[2].sum()),
                                  DTW_RK).bound()
     shape = (f"{cdtw.GROUP} queries x {DTW_N} series, L {L}, r {r}, "
@@ -4570,8 +4612,8 @@ def dtw_wider(torch, kd, ref, x, qz):
                 and all(torch.equal(a, b) for a, b in zip(other, want)),
                 f"dtw_search r {r} cut: not bit-equal to dtw_search_ref")
         n_ref = int(cgot[3].sum())
-        cells = needed_cells(torch, ref, qg, x, sc, o, trace, r, DTW_RK,
-                             kd.wave_cells(route))
+        cells = needed_cells(torch, ref, kd, qg, x, sc, o, trace, r,
+                             DTW_RK, route)
         bms, by = rl.dtw_search_work(cells, n_ref, L, int(cgot[2].sum()),
                                      DTW_RK).bound()
         shape = (f"{qg.shape[0]} queries x {DTW_N} series, L {L}, r {r}, "
@@ -4621,15 +4663,17 @@ def dtw_long(torch, isax, kmods, ref, gen):
     search_dtw_bruteforce at each radius, every count at 0 first (the
     launches by route are these two calls').  Holds: ids equal to the
     brute force's but at ties, distances to 1e-5; then each kernel at the
-    search's launch (the group's LB in lb_chunk(L) launches, its
-    refinement, the brute force's scan), its first query against its
-    plain version (LB to 1e-5, the scan bit for bit; the refinement, on a
-    ring route at every radius here (ring16 at r 135), of the whole group
-    bit for bit, whose trace gives the cells an abandoning DP needs, its
-    bound), and its time beside its bound (the scan's row with its cells a
-    lane and busy lanes, and the ring at 16 cells a lane beside it where
-    the radius takes another width).  Returns (reports, launches,
-    rows)."""
+    search's launch (the group's LB, two launches: the envelopes, then the
+    sums; its refinement; the brute force's scan), its first query against
+    its plain version (LB to 1e-5, the scan bit for bit; the refinement,
+    on a ring route at every radius here, of the whole group bit for bit,
+    whose trace gives the cells an abandoning DP needs at DTW_LONG_CELLS
+    cells a lane, its bound, and at the route's own width), and its time
+    beside its bound: the refinement's with the spread and diag routes'
+    times at the same launch beside it (each bit for bit against the same
+    plain version), the scan's with its cells a lane and busy lanes, and
+    the ring at 16 cells a lane beside it where the radius takes another
+    width.  Returns (reports, launches, rows)."""
     from repro_torch.core import dtw as cdtw
     kd = kmods["dtw"]
     reps, launches, rows = [], {}, []
@@ -4658,8 +4702,7 @@ def dtw_long(torch, isax, kmods, ref, gen):
             names = {"lb_keogh": kd.lb_route(Lx),
                      "dtw_search": kd.dp_route(r, Lx, DTW_RK),
                      "dtw_scan": kd.scan_route(r, Lx)}
-            chunks = -(-Lx // kd.lb_chunk(Lx))
-            require(routes == {f"lb_keogh/{names['lb_keogh']}": chunks,
+            require(routes == {**lb_launches(kd, Lx),
                                f"dtw_search/{names['dtw_search']}": 1,
                                f"dtw_scan/{names['dtw_scan']}": 1},
                     f"dtw L {Lx} r {r}: launches by route {routes}")
@@ -4701,10 +4744,26 @@ def dtw_long(torch, isax, kmods, ref, gen):
                     f"dtw_search_ref")
             search_k_ms = time_ms(torch, lambda: kd.dtw_search(
                 qz, x, s, o, r=r, round_k=DTW_RK), 3, 1)
+            # the strip routes at the same launch, held to the same plain
+            # version
+            beside = {}
+            for route in ("spread", "diag"):
+                other = kd.dtw_search(qz, x, s, o, r=r, round_k=DTW_RK,
+                                      route=route)
+                require(all(torch.equal(a, b) for a, b in zip(other, want)),
+                        f"dtw_search {route} L {Lx} r {r}: not bit-equal "
+                        f"to dtw_search_ref")
+                beside[f"{route}_ms"] = time_ms(torch, lambda: kd.dtw_search(
+                    qz, x, s, o, r=r, round_k=DTW_RK, route=route), 2, 0)
             n_ref, n_rounds = int(got[3].sum()), int(got[2].sum())
-            cells = needed_cells(torch, ref, qz, x, s, o, trace, r, DTW_RK,
-                                 kd.wave_cells(names["dtw_search"]),
-                                 check=False)
+            cells, own = (needed_cells(torch, ref, kd, qz, x, s, o, trace, r,
+                                       DTW_RK, route, check=False)
+                          for route in (f"ring{DTW_LONG_CELLS[r]}",
+                                        names["dtw_search"]))
+            beside |= {"needed_cells": cells,
+                       "route_needed_cells": own,
+                       "route_bound_ms": rl.dtw_search_work(
+                           own, n_ref, Lx, n_rounds, DTW_RK).bound()[0]}
             del s, o
             scan_plain, pd2, pi = plain_scan(torch, ref, qz[:1], x, r)
             e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -4719,7 +4778,7 @@ def dtw_long(torch, isax, kmods, ref, gen):
                     f"or dtw_scan_ref")
             # the ring at 16 cells a lane (the layout before the widths by
             # radius) beside it, bit for bit, one launch timed
-            beside = {}
+            scan_beside = {}
             if names["dtw_scan"] != "ring16":
                 e[0].record()
                 d16, i16 = kd.dtw_scan(qz, x, r=r, route="ring16")
@@ -4728,22 +4787,23 @@ def dtw_long(torch, isax, kmods, ref, gen):
                 require(torch.equal(d16, d2) and torch.equal(i16, i2),
                         f"dtw_scan ring16 L {Lx} r {r}: differs from "
                         f"{names['dtw_scan']}")
-                beside = {"ring16_ms": e[0].elapsed_time(e[1]),
-                          "ring16": scan_layout(kd, "ring16", r)}
+                scan_beside = {"ring16_ms": e[0].elapsed_time(e[1]),
+                               "ring16": scan_layout(kd, "ring16", r)}
                 del d16, i16
             shape = (f"{DTW_LONG_Q} queries x {n} series, L {Lx}, r {r}")
             made = []
             if r == radii[0]:            # the LB's work does not depend on r
                 bms, by = rl.lb_keogh_work(DTW_LONG_Q, n, Lx).bound()
+                g = kd.lb_long_geometry(DTW_LONG_Q, n, Lx)
                 made.append(route_row(
                     "lb_keogh", f"{names['lb_keogh']}_L{Lx}", DTW_SRC,
                     DTW_REPLACES.format(49, "lb_keogh"),
-                    f"{shape} ({chunks} column chunks of "
-                    f"{kd.lb_chunk(Lx)})", float(lb_err), lb_ms, lb_plain,
-                    bms, by, {"first query": "lb_keogh_ref to 1e-5 "
-                              "relative"}) | {"plain_queries": 1})
-                launches[made[-1]["name"]] = routes[
-                    f"lb_keogh/{names['lb_keogh']}"]
+                    f"{shape} (the envelopes, then the sums at "
+                    f"{g['slots']} queries a unit)", float(lb_err), lb_ms,
+                    lb_plain, bms, by, {"first query": "lb_keogh_ref to "
+                                        "1e-5 relative"})
+                    | {"plain_queries": 1, "geometry": g})
+                launches[made[-1]["name"]] = sum(lb_launches(kd, Lx).values())
             bms, by = rl.dtw_search_work(cells, n_ref, Lx, n_rounds,
                                          DTW_RK).bound()
             made.append(route_row(
@@ -4752,8 +4812,10 @@ def dtw_long(torch, isax, kmods, ref, gen):
                 f"{shape}, round_k {DTW_RK}, {n_ref} refined", 0.0,
                 search_k_ms, search_plain, bms, by,
                 {"plain version": f"the first {nq} queries bit-equal to "
-                                  f"dtw_search_ref"}) | {
-                    "needed_cells": cells, "plain_queries": nq})
+                                  f"dtw_search_ref",
+                 "spread and diag routes": "bit-equal to dtw_search_ref"})
+                | {"plain_queries": nq, "bound_cells_a_lane":
+                   DTW_LONG_CELLS[r]} | beside)
             bms, by = rl.dtw_scan_work(DTW_LONG_Q, n, Lx, r).bound()
             made.append(route_row(
                 "dtw_scan", f"{names['dtw_scan']}_{tag}", DTW_SRC,
@@ -4761,7 +4823,7 @@ def dtw_long(torch, isax, kmods, ref, gen):
                 0.0, scan_ms, scan_plain, bms, by,
                 {"brute force": "bit-equal", "first query":
                  "bit-equal to dtw_scan_ref"}) | {"plain_queries": 1}
-                | scan_layout(kd, names["dtw_scan"], r) | beside)
+                | scan_layout(kd, names["dtw_scan"], r) | scan_beside)
             for kernel in ("dtw_search", "dtw_scan"):
                 launches[f"{kernel}/{names[kernel]}_{tag}"] = routes[
                     f"{kernel}/{names[kernel]}"]
@@ -4774,6 +4836,7 @@ def dtw_long(torch, isax, kmods, ref, gen):
                          "dist_rel_err_vs_bruteforce": d_err,
                          "rounds_max": int(got[2].max()),
                          "refined": n_ref, "by_route": routes,
+                         "search": beside,
                          "seconds": time.perf_counter() - t_run,
                          "kernels": {row["name"]: {
                              k: row[k] for k in ("ms", "bound_ms",
@@ -5015,8 +5078,8 @@ def dtw_path(torch, isax, kmods, ref, gen):
     qg, s, o, got = first
     n_ref = int(got[3].sum())
     main_route = kd.dp_route(DTW_R)
-    cells = needed_cells(torch, ref, qg, x, s, o, trace, DTW_R, DTW_RK,
-                         kd.wave_cells(main_route))
+    cells = needed_cells(torch, ref, kd, qg, x, s, o, trace, DTW_R, DTW_RK,
+                         main_route)
     rep |= {"first_group_needed_cells": cells,
             "first_group_all_cells": n_ref * rl.dtw_cells(L, DTW_R)}
     bms, by = rl.dtw_search_work(cells, n_ref, L, int(got[2].sum()),
@@ -5259,7 +5322,8 @@ def main() -> int:
         ptx["dtw"] = dtw_ptxas(
             rep["dtw"]["ptxas"] + rep["dtw_ring"]["ptxas"],
             ops.WRAPPERS["dtw"].SCAN_RING_WIDTHS,
-            ops.WRAPPERS["dtw"].DIAG_ROWS)
+            ops.WRAPPERS["dtw"].DIAG_ROWS,
+            ops.WRAPPERS["dtw"].SEARCH_RING_WIDTHS)
     if ptx:
         emit({"phase": "ptxas", **ptx})
 

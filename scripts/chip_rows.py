@@ -16,7 +16,19 @@ those table rows, checks included:
                    phase's) by device time
     refine_search  route_refine_search: cta2, cta1, general
     ed_argmin      route_ed_argmin: L 100 f32 and bf16, L 235
-    dtw_long       dtw_long_queries: L 16,400 at r 12, 40 and 200
+    dtw_long       dtw_long_queries: L 16,400 at r 12, 40 and 200; then
+                   (long_rows) dtw_search at that shape at round_k 256
+                   on every route that takes the radius (the default,
+                   every ring width, spread, diag; a ring width the
+                   tree's dp_routes leaves out forced), and at the long
+                   cell (DTW_LONG: 32 queries over 2^16 walks of 2,709
+                   points at r 27 and 135, 2^14 of 8,192 at r 81, round_k
+                   32) on the same routes, with lb_keogh's launches and
+                   core.dtw.search_dtw's wall time (the median of 3); the
+                   mean of 5 launches after one, rows named
+                   `<kernel>/<route>_L<L>_r<r>` (`search_dtw/L<L>_r<r>`),
+                   each with its route and a hash of its answers (the
+                   trees' must agree)
     dtw_scan       dtw_scan on the tree's default route at the long
                    series' shapes (DTW_LONG: 32 queries over 2^16 walks
                    of 2,709 points at r 27 and 135, 2^14 of 8,192 at r
@@ -43,7 +55,9 @@ those table rows, checks included:
                    timed after one (a launch past 2 s timed alone), each
                    with its route and a hash of its answers (the trees'
                    must agree); rows named `<kernel>/L<L>_r<r>[_rk<k>]`
-                   and `.._cell`
+                   and `.._cell`; a launch under 100 ms timed as the
+                   mean of 5 (sub-millisecond launches of a few pairs
+                   vary by tens of percent one at a time)
 
 Prints one JSON line: the tag, the card (`nvidia-smi`'s name and power
 limit) and each row's ms (and the dtw_scan rows' routes and hashes).  Run
@@ -58,6 +72,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 GROUPS = ("attention", "refine_search", "ed_argmin", "dtw_long",
           "dtw_scan", "dtw_band", "dtw_wide")
@@ -89,6 +104,89 @@ def scan_rows(torch, cs, isax, kd, gen):
             detail[name] = {"route": kd.scan_route(r, Lx),
                             "hash": hex(hash(tuple(key)) & (2 ** 64 - 1))}
         del x, q
+        torch.cuda.empty_cache()
+    return ms, detail
+
+
+def ring_names(kd, r: int) -> list:
+    """The tree's ring routes of dtw_search that take radius r (at most 32
+    lanes a pair: ceil((2r + 1) / cells) <= 32), narrowest first."""
+    cells = sorted(kd.RING_CELLS.values())
+    return [f"ring{c}" for c in cells if -(-(2 * r + 1) // c) <= 32]
+
+
+def long_rows(torch, cs, isax, kd, gen):
+    """The dtw_long group's route rows (see the top): ({name: ms}, {name:
+    {route, hash}})."""
+    from repro_torch.core import dtw as cdtw
+    ms, detail = {}, {}
+
+    def key(out):
+        return hex(hash(tuple(v for a in out for v in a.tolist()))
+                   & (2 ** 64 - 1))
+
+    def search_rows(q, x, s, o, r, rk, tag):
+        Lx = x.shape[1]
+        routes = list(dict.fromkeys((*kd.dp_routes(r, Lx, rk),
+                                     *ring_names(kd, r))))
+        plain_routes = kd.dp_routes
+        kd.dp_routes = lambda *a: tuple(routes)    # a ring width forced
+        try:
+            for route in routes:
+                call = lambda: kd.dtw_search(  # noqa: E731
+                    q, x, s, o, r=r, round_k=rk, route=route)
+                out = call()
+                name = f"dtw_search/{route}_{tag}"
+                ms[name] = cs.time_ms(torch, call, 5, 0)
+                detail[name] = {"route": route, "hash": key(out),
+                                "default": route == routes[0]}
+        finally:
+            kd.dp_routes = plain_routes
+
+    n, Lx, nq, radii = cs.DTW_LONGQ
+    x = isax.znormalize(cs.walks(torch, gen, n, Lx)).contiguous()
+    pick = torch.randint(0, n, (nq,), generator=gen, device=cs.DEV)
+    q = isax.znormalize(x[pick] + 0.1 * torch.randn(
+        nq, Lx, generator=gen, device=cs.DEV)).contiguous()
+    for r in radii:
+        s, o = torch.sort(kd.lb_keogh(q, x, r=r), dim=1, stable=True)
+        search_rows(q, x, s, o, r, n, f"L{Lx}_r{r}_rk{n}")
+        del s, o
+    del q, x
+    torch.cuda.empty_cache()
+    for n, Lx, radii in cs.DTW_LONG:
+        raw = cs.walks(torch, gen, n, Lx)
+        pick = torch.randint(0, n, (cs.DTW_LONG_Q,), generator=gen,
+                             device=cs.DEV)
+        queries = isax.znormalize(raw[pick]) + 0.1 * torch.randn(
+            cs.DTW_LONG_Q, Lx, generator=gen, device=cs.DEV)
+        x = isax.znormalize(raw).contiguous()
+        q = isax.znormalize(queries).contiguous()
+        for r in radii:
+            tag = f"L{Lx}_r{r}"
+            call = lambda: kd.lb_keogh(q, x, r=r)  # noqa: E731
+            lb = call()
+            name = f"lb_keogh/{kd.lb_route(Lx)}_{tag}"
+            ms[name] = cs.time_ms(torch, call, 3, 0)
+            detail[name] = {"route": kd.lb_route(Lx),
+                            "hash": key((lb.view(torch.int32).flatten(),))}
+            s, o = torch.sort(lb, dim=1, stable=True)
+            del lb
+            search_rows(q, x, s, o, r, cs.DTW_RK, tag)
+            del s, o
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = cdtw.search_dtw(raw, queries, r=r, round_k=cs.DTW_RK,
+                                      device=cs.DEV)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            name = f"search_dtw/{tag}"
+            ms[name] = sorted(walls)[1]
+            detail[name] = {"route": kd.dp_route(r, Lx, cs.DTW_RK),
+                            "hash": key(out)}
+        del raw, queries, x, q
         torch.cuda.empty_cache()
     return ms, detail
 
@@ -140,8 +238,8 @@ def wide_rows(torch, cs, isax, kd, gen):
         b.record()
         torch.cuda.synchronize()
         first = a.elapsed_time(b)
-        return out, (first if first > 2000 else cs.time_ms(torch, call, 1,
-                                                            0))
+        return out, (first if first > 2000 else cs.time_ms(
+            torch, call, 5 if first < 100 else 1, 0))
     for n, nq, Lx, r, rk, search in WIDE_SWEEP + WIDE_CELLS:
         raw = cs.walks(torch, gen, n, Lx)
         pick = torch.randint(0, n, (nq,), generator=gen, device=cs.DEV)
@@ -200,7 +298,7 @@ def main() -> int:
 
     def gen(seed):
         return torch.Generator(device=cs.DEV).manual_seed(seed)
-    rows = []
+    rows, extra = [], {}
     if "attention" in groups:
         rows += cs.route_flash(torch, kmods["flash_attention"], ref, gen(2))
     if "refine_search" in groups:
@@ -211,7 +309,9 @@ def main() -> int:
                                    gen(2))
     if "dtw_long" in groups:
         rows += cs.dtw_long_queries(torch, isax, kmods, ref, gen(6))[2]
-    extra = {}
+        ms, extra["dtw_long"] = long_rows(torch, cs, isax, kmods["dtw"],
+                                          gen(6))
+        rows += [{"name": n, "ms": t} for n, t in ms.items()]
     if "attention" in groups:
         q, k, v = cs.attention_inputs(torch, gen(2), dtype=torch.bfloat16,
                                       **cs.GRANITE)

@@ -47,10 +47,10 @@
 //   coming by two shuffles a step (wave_cells): a pair takes about L + r /
 //   C steps over H = ceil((2r + 1) / C) lanes, and a warp runs 32 / H
 //   pairs side by side.  C is the template, r a runtime argument: 2, 4 or
-//   8 (r <= 31, 63, 127) for dtw_search (and 16, r <= 255, past L 1,024),
-//   16 (r <= 255) for dtw_scan, and past L 1,024 16 to 24 by radius.  The
-//   series is staged in shared memory first, or goes through a ring of
-//   columns past L 1,024.
+//   8 (r <= 31, 63, 127) for dtw_search (and past L 1,024 every even
+//   width to 16, r <= 255, by radius), 16 (r <= 255) for dtw_scan, and
+//   past L 1,024 16 to 24 by radius.  The series is staged in shared
+//   memory first, or goes through a ring of columns past L 1,024.
 // - strips of rows a pair, a warp a strip (strip_dp): every r and L, past
 //   the wave routes' radii (r > 127 at L <= 1,024, r > 255 above) and
 //   round_k 1,024.  A pair's rows in strips of 32 K (K rows a lane), each
@@ -74,10 +74,10 @@
 // once (a broadcast) serve 4 points x 4 series, and each (query, series)
 // sum stays in one register: no sum crosses a lane, and the stores of a
 // query's 32 x 4 bounds are coalesced.  G query slots (8, 16, 24 or 32, a
-// template) hold a launch's queries; one kernel serves every L: past 1,024
-// points the wrapper sums a series in column chunks of 800, a launch each,
-// every chunk's envelopes in shared memory and each lane's sums going on
-// from those the last chunk stored (the same adds in the same order).
+// template) hold a launch's queries, to 1,024 points; past them the
+// envelopes go to device memory first and lb_long sums every column in
+// one launch, 2 series a lane, its units spread over the card (see
+// "dtw_lb_keogh past kWholeL").
 //
 // dtw_search, wave routes: a cluster of 8 CTAs a query computes 8
 // rounds at once, CTA u round u's candidates whose bound lies below the
@@ -94,11 +94,12 @@
 // (r > 127, and r > 255 past L 1,024) and round_k 1,024 the spread route
 // takes the search: strips of rows, up to kSpec rounds at once over a
 // query's CTAs (see "the chain and spread routes").  Past L 1,024 the
-// wave routes' pairs keep a ring of columns in place of the whole row
-// (dtw_wave's RING; ring16 too, r <= 255), and a query past kStageL points
-// is read from device memory, so no route's shared memory grows with L
-// but the strips' rows (the diag route, which keeps them in device
-// scratch, takes over past them).
+// ring routes (search_ring) take the search: the same wavefront, each
+// pair's series through a ring of columns (dtw_wave's RING), a round's
+// pairs spread over the card as the spread route's strips, and a query
+// past kStageL points is read from device memory, so no route's shared
+// memory grows with L but the strips' rows (the diag route, which keeps
+// them in device scratch, takes over past them).
 //
 // dtw_scan, band route: one thread a (query, series) pair, q in shared
 // memory (to kStageL points); the pair's (d^2 bits << 32 | series) goes
@@ -333,7 +334,10 @@ __device__ __forceinline__ void wave_cells(float (&v)[C], const float (&d)[C],
 // step's lanes read at most span = (C - 1)(H - 1) + C columns from s - r
 // on, so W >= span + 2 kRingChunk + 8 holds every column a block of 8
 // steps reads beside the chunk in flight (ring_size), and shared memory
-// stops growing with L.
+// stops growing with L.  A lane's columns move on by one a step, so it
+// keeps its C columns in registers and loads one a step (after C - 1 at
+// the first step), each once it has landed and before any fill could
+// reach its slot again.
 template <int C, bool RING = false, typename F>
 __device__ __forceinline__ float dtw_wave(const float* __restrict__ qs,
                                           float* __restrict__ xr,
@@ -381,17 +385,33 @@ __device__ __forceinline__ float dtw_wave(const float* __restrict__ qs,
   const int end = L + l0;
   const int a = min(max(H, r), end);
   const int b = max(a, min(min(L - r + 2 * r / C, L), end - 1));
+  // RING: w[m] holds column c0 + m of the lane's step, one new column
+  // loaded a step (the lane's columns move on by one), where the staged
+  // row is read a column a cell
+  float w[C];
+  auto col = [&](int c0, int m) {
+    if constexpr (RING) return w[m];
+    else return xr[(c0 + m) & wmask];
+  };
+  auto slide = [&](int c0) {
+    if constexpr (RING) {
+#pragma unroll
+      for (int m = 0; m + 1 < C; ++m) w[m] = w[m + 1];
+      w[C - 1] = xr[(c0 + C - 1) & wmask];
+    }
+  };
   auto edge = [&](int s) {
     const int i = s - ll, c0 = s + (C - 1) * ll - r;
     const bool row = (unsigned)i < (unsigned)L;
     const float qi = row ? qs[i] : 0.f;
     const bool first = i == 0 && ll == l0;
     float d[C], nv[C];
+    slide(c0);
 #pragma unroll
     for (int m = 0; m < C; ++m) {
       const int c = c0 + m;
       const bool in = row && ok[m] && (unsigned)c < (unsigned)L;
-      d[m] = in ? cell_d(qi, xr[c & wmask]) : kBig;
+      d[m] = in ? cell_d(qi, col(c0, m)) : kBig;
     }
     const float left = __shfl_sync(0xffffffffu, v[C - 1], from);
     nv[0] = __fadd_rn(d[0], fminf(fminf((first && m0 == 0) ? 0.f : v[0],
@@ -417,12 +437,19 @@ __device__ __forceinline__ float dtw_wave(const float* __restrict__ qs,
     const int i = s - ll, c0 = s + (C - 1) * ll - r;
     const float qi = qs[i];
     float d[C];
+    slide(c0);
 #pragma unroll
     for (int m = 0; m < C; ++m)
-      d[m] = ok[m] ? cell_d(qi, xr[(c0 + m) & wmask]) : kBig;
+      d[m] = ok[m] ? cell_d(qi, col(c0, m)) : kBig;
     wave_cells<C, C>(v, d, from, false);
   };
   int s = 0;
+  if constexpr (RING) {      // step 0's first C - 1 columns (slide adds one)
+    ensure(0);
+#pragma unroll
+    for (int m = 0; m + 1 < C; ++m)
+      w[m + 1] = xr[((C - 1) * ll - r + m) & wmask];
+  }
   for (; s < a; ++s) {
     ensure(s);
     edge(s);
@@ -539,19 +566,17 @@ inline int held_ctas(const void* fn, int threads, size_t smem, int& held) {
 template <int G, int V>
 __global__ void __launch_bounds__(kLbThreads, 1)
 lb_keogh_kernel(const float* __restrict__ q, const float* __restrict__ x,
-                long long N, int L, int Qg, int R, int j0, int Lc, bool acc_in,
-                float* __restrict__ out) {
+                long long N, int L, int Qg, int R, float* __restrict__ out) {
   constexpr int S = kLbSeries;
   extern __shared__ float4 env4[];       // (G, Lp / 2): (lo, hi, lo, hi)
   float2* env = reinterpret_cast<float2*>(env4);
-  const int Lp = (Lc + 3) & ~3, row4 = Lp / 2;
+  const int Lp = (L + 3) & ~3, row4 = Lp / 2;
   for (int e = threadIdx.x; e < G * Lp; e += blockDim.x) {
     const int g = e / Lp, j = e - g * Lp;
     float mn = 0.f, mx = 0.f;
-    if (g < Qg && j < Lc) {
-      const int jj = j0 + j;             // the column in the series
-      const int a = jj - R < 0 ? 0 : jj - R;
-      const int b = jj + R > L - 1 ? L - 1 : jj + R;
+    if (g < Qg && j < L) {
+      const int a = j - R < 0 ? 0 : j - R;
+      const int b = j + R > L - 1 ? L - 1 : j + R;
       mn = __int_as_float(0x7f800000);
       mx = -mn;
       for (int t = a; t <= b; ++t) {
@@ -573,7 +598,7 @@ lb_keogh_kernel(const float* __restrict__ q, const float* __restrict__ x,
     const float* xs[S];
 #pragma unroll
     for (int s = 0; s < S; ++s)
-      xs[s] = x + min(n0 + 32 * s, N - 1) * L + j0;
+      xs[s] = x + min(n0 + 32 * s, N - 1) * L;
     auto load = [&](float (&v)[S][4], int j) {
 #pragma unroll
       for (int s = 0; s < S; ++s) {
@@ -586,17 +611,15 @@ lb_keogh_kernel(const float* __restrict__ q, const float* __restrict__ x,
         } else {
 #pragma unroll
           for (int p = 0; p < 4; ++p)
-            v[s][p] = j + p < Lc ? __ldg(xs[s] + j + p) : 0.f;
+            v[s][p] = j + p < L ? __ldg(xs[s] + j + p) : 0.f;
         }
       }
     };
-    float acc[G][S];                     // a later chunk goes on from
-#pragma unroll                           // the sums the last one stored
+    float acc[G][S];
+#pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int s = 0; s < S; ++s)
-        acc[g][s] = acc_in && g < Qg && n0 + 32 * s < N
-                        ? out[(long long)g * N + n0 + 32 * s] : 0.f;
+      for (int s = 0; s < S; ++s) acc[g][s] = 0.f;
     float xc[S][4], xn[S][4];
     load(xc, 0);
     for (int j = 0; j < Lp; j += 4) {
@@ -656,14 +679,10 @@ lb_keogh_kernel(const float* __restrict__ q, const float* __restrict__ x,
 // candidates refined are that loop's in every CTA.  Distances and bounds are
 // double-buffered by iteration parity, so no CTA overwrites what another
 // still reads.  Each pair's next candidate (its bound and id read during
-// this iteration) is brought into L2 once the DP has begun.
-//
-// RING (L > 1024): each pair's series goes through a ring of ring_size(C,
-// H) floats that dtw_wave fills as the front advances, in place of the
-// whole row, and the query is read from device memory where L >
-// kStageL, so the CTA's shared memory no longer grows with L.
-template <int C, bool RING>
-__global__ void __launch_bounds__(C < 16 ? 1024 : 512)
+// this iteration) is brought into L2 once the DP has begun.  L <= kWholeL:
+// past it, search_ring takes the search.
+template <int C>
+__global__ void __launch_bounds__(1024)
 wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
             long long N, int L, int r, int round_k,
             const float* __restrict__ slb,
@@ -674,12 +693,10 @@ wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   extern __shared__ float sm[];
-  const bool stage = !RING || L <= kStageL;
-  const int row = RING ? ring_size(C, H) : L;    // floats a pair's row takes
-  float* qsm = sm;                       // L (staged)
-  float* rd = qsm + (stage ? L : 0);     // [2][round_k]: distances (BIG:
+  float* qs = sm;                        // L
+  float* rd = qs + L;                    // [2][round_k]: distances (BIG:
   float* rl = rd + 2 * round_k;          // not computed) and bounds
-  float* xs = rl + 2 * round_k;          // (warps * P, row): the pairs' rows
+  float* xs = rl + 2 * round_k;          // (warps * P, L): the pairs' rows
   __shared__ float s_nlb[2];             // CTA 0: the next iteration's first
   __shared__ float s_bsf;                // bound
   __shared__ int s_go;
@@ -691,10 +708,8 @@ wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
   const unsigned pair_mask =
       ((slot + 1) * H >= 32 ? 0xffffffffu : (1u << (slot + 1) * H) - 1)
       & ~((1u << slot * H) - 1);
-  float* xrow = xs + (long long)(warp * P + min(slot, P - 1)) * row;
-  const float* qs = stage ? qsm : q + (long long)g * L;
-  if (stage)
-    for (int j = tid; j < L; j += blockDim.x) qsm[j] = q[(long long)g * L + j];
+  float* xrow = xs + (long long)(warp * P + min(slot, P - 1)) * L;
+  for (int j = tid; j < L; j += blockDim.x) qs[j] = q[(long long)g * L + j];
   const float* lb = slb + (long long)g * N;
   const long long* ord = order + (long long)g * N;
   const long long end = (N + round_k - 1) / round_k * round_k;
@@ -740,16 +755,11 @@ wave_kernel(const float* __restrict__ q, const float* __restrict__ x,
       };
       float d = kBig;
       if (__any_sync(0xffffffffu, take)) {
-        if constexpr (RING) {
-          d = dtw_wave<C, true>(qs, xrow, L, r, H, ll, lane, take, bsf,
-                                pair_mask, ahead, x + o * L, row);
-        } else {
-          if (take) cp_row(xrow, x + o * L, L, ll, H);
-          cp_wait();
-          __syncwarp();
-          d = dtw_wave<C>(qs, xrow, L, r, H, ll, lane, take, bsf, pair_mask,
-                          ahead);
-        }
+        if (take) cp_row(xrow, x + o * L, L, ll, H);
+        cp_wait();
+        __syncwarp();
+        d = dtw_wave<C>(qs, xrow, L, r, H, ll, lane, take, bsf, pair_mask,
+                        ahead);
         __syncwarp();           // the rows are read: the next batch may copy
       } else {
         ahead();
@@ -1544,6 +1554,52 @@ __device__ __forceinline__ void group_barrier(unsigned* bar,
   __syncthreads();
 }
 
+// Warp 0 of a CTA of a search's group (the spread and ring routes): the
+// rounds u < sp of the window at `cursor` applied in order exactly as the
+// loop of single rounds does (the stop before each, the candidates below
+// the best-so-far of the moment, their first minimum), window position j's
+// distance read from dw[j] (written this iteration by the group's CTAs:
+// from L2), so the best-so-far, the id, the rounds and the candidates
+// refined are that loop's in every CTA.  Returns the stop before the next
+// window's first round: whether the search goes on.
+__device__ __forceinline__ bool apply_rounds(const float* __restrict__ lb,
+                                             const long long* __restrict__ ord,
+                                             const float* dw, long long N,
+                                             int round_k, int sp,
+                                             long long cursor, float& bsf,
+                                             long long& best, int& rounds,
+                                             int& refined) {
+  const int lane = threadIdx.x & 31;
+  const long long end = (N + round_k - 1) / round_k * round_k;
+  bool on = true;
+  for (int u = 0; u < sp; ++u) {
+    const long long cu = cursor + (long long)u * round_k;
+    if (u > 0) on = on && cu < end && lb[cu] < bsf;  // the stop before
+    if (!on) break;
+    unsigned long long key = ~0ull;
+    int nt = 0;
+    for (int j0 = 0; j0 < round_k; j0 += 32) {
+      const int j = j0 + lane;
+      const long long pos = cu + j;
+      const bool t = j < round_k && pos < N && lb[pos] < bsf;
+      const unsigned long long kj =
+          t ? pack(__ldcg(dw + (pos - cursor)), (unsigned)j) : ~0ull;
+      key = kj < key ? kj : key;
+      nt += __popc(__ballot_sync(kAll, t));
+    }
+    key = warp_min_u64(key);
+    const float dmin = __uint_as_float((unsigned)(key >> 32));
+    if (dmin < bsf) {
+      bsf = dmin;
+      best = ord[cu + (unsigned)(key & 0xffffffffu)];
+    }
+    ++rounds;
+    refined += nt;
+  }
+  const long long nc = cursor + (long long)sp * round_k;
+  return on && nc < end && lb[nc] < bsf;
+}
+
 template <int K>
 __global__ void __launch_bounds__(kSpreadThreads, 1)
 search_spread(const float* __restrict__ q, const float* __restrict__ x,
@@ -1633,34 +1689,312 @@ search_spread(const float* __restrict__ q, const float* __restrict__ x,
       base += (unsigned)((mine + slots - 1) / slots);
       group_barrier(bar + grp, ++it * (unsigned)per);
       if (warp == 0) {
-        bool on = true;
-        for (int u = 0; u < spec; ++u) {
-          const long long cu = cursor + (long long)u * round_k;
-          if (u > 0) on = on && cu < end && lb[cu] < bsf;  // the stop before
-          if (!on) break;
-          unsigned long long key = ~0ull;
-          int nt = 0;
-          for (int j0 = 0; j0 < round_k; j0 += 32) {
-            const int j = j0 + lane;
-            const long long pos = cu + j;
-            const bool t = j < round_k && pos < N && lb[pos] < bsf;
-            const unsigned long long kj =
-                t ? pack(__ldcg(dj + (pos - cursor)), (unsigned)j) : ~0ull;
-            key = kj < key ? kj : key;
-            nt += __popc(__ballot_sync(kAll, t));
-          }
-          key = warp_min_u64(key);
-          const float dmin = __uint_as_float((unsigned)(key >> 32));
-          if (dmin < bsf) {
-            bsf = dmin;
-            best = ord[cu + (unsigned)(key & 0xffffffffu)];
-          }
-          ++rounds;
-          refined += nt;
+        const bool on = apply_rounds(lb, ord, dj, N, round_k, spec, cursor,
+                                     bsf, best, rounds, refined);
+        if (lane == 0) {
+          s_bsf = bsf;
+          s_go = on;
         }
-        // the stop before the next iteration's first round
-        const long long nc = cursor + W;
-        on = on && nc < end && lb[nc] < bsf;
+      }
+      __syncthreads();
+      bsf = s_bsf;
+      go = s_go;
+      par ^= 1;
+    }
+    if (cta == 0 && threadIdx.x == 0) {
+      bsf_out[g] = bsf;
+      best_out[g] = (int)best;
+      rounds_out[g] = rounds;
+      refined_out[g] = refined;
+    }
+  }
+}
+
+// ------------------------------------------- dtw_lb_keogh past kWholeL
+// Two launches (kernels/dtw.py lb_long_geometry).  lb_envelope writes
+// each query's envelope once, (lo, hi) a point in rows of Lp = L rounded
+// up to 4 points (padded points and query slots past Qg: (0, 0)), a thread
+// a point, its window read through L1.  lb_long sums: a unit is
+// kLbLongWarps tasks of 32 x kLbLongSeries series (a warp a task, a lane
+// kLbLongSeries series, consecutive lanes consecutive series) against G
+// queries; (task group, query group) units over a persistent grid, a task
+// group's query groups in adjacent units so that its series leave device
+// memory about once (L2 serves the others).  A block stages its G
+// envelope rows kLbChunk columns at a time in shared memory (a copy from
+// L2), and each lane keeps its G x kLbLongSeries sums in registers over
+// all L columns in order, 4 points at a time as lb_keogh_kernel: the same
+// adds in the same order, so the bits are one pass's (the column-chunk
+// launches before, 11 at L 8,192, stored and reloaded the sums, and every
+// block rebuilt its chunk's envelopes at 2r + 1 loads a point).  A lane
+// reads 4 points of a series with one 16-byte load: V = 4 where L % 4 ==
+// 0 and x is aligned; V = 1 (any L) loads the aligned 16 bytes that hold
+// them, point 0 at a = the row's float offset mod 4, and takes points a ..
+// a + 3 of two such loads (the second carried to the next step): four
+// 4-byte loads, each 32 lines for the warp, took twice the time of the
+// sums at L 2,709.  An aligned 16-byte load never crosses a page, so one
+// that holds a point of x cannot fault; a load past the row's last point
+// is not issued.  With 8 to 32 query slots and 2 series a lane the units
+// fill the card from 2^14 series, where 32 slots and 4 series a lane made
+// 128 warps (16 blocks on 132 SMs).
+constexpr int kLbLongWarps = 4;
+constexpr int kLbLongSeries = 2;
+constexpr int kLbChunk = 256;          // envelope columns a block stages
+
+__global__ void lb_envelope(const float* __restrict__ q, int L, int Qg,
+                            int rows, int R, float2* __restrict__ env) {
+  const int Lp = (L + 3) & ~3;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (long long)rows * Lp) return;
+  const int g = (int)(e / Lp), j = (int)(e - (long long)g * Lp);
+  float mn = 0.f, mx = 0.f;
+  if (g < Qg && j < L) {
+    const int a = j - R < 0 ? 0 : j - R;
+    const int b = j + R > L - 1 ? L - 1 : j + R;
+    const float* qg = q + (long long)g * L;
+    mn = __int_as_float(0x7f800000);
+    mx = -mn;
+    for (int t = a; t <= b; ++t) {
+      const float v = __ldg(qg + t);
+      mn = fminf(mn, v);
+      mx = fmaxf(mx, v);
+    }
+  }
+  env[e] = make_float2(mn, mx);
+}
+
+// Points a .. a + 3 of the 8 in (A, B), a in 0 .. 3 (a lane's own).
+__device__ __forceinline__ void funnel(const float4& A, const float4& B,
+                                       int a, float (&v)[4]) {
+  const bool a0 = a == 0, a1 = a == 1, a2 = a == 2;
+  v[0] = a0 ? A.x : a1 ? A.y : a2 ? A.z : A.w;
+  v[1] = a0 ? A.y : a1 ? A.z : a2 ? A.w : B.x;
+  v[2] = a0 ? A.z : a1 ? A.w : a2 ? B.x : B.y;
+  v[3] = a0 ? A.w : a1 ? B.x : a2 ? B.y : B.z;
+}
+
+template <int G, int V>
+__global__ void __launch_bounds__(32 * kLbLongWarps)
+lb_long(const float* __restrict__ x, long long N, int L, int Qg,
+        const float2* __restrict__ env, float* __restrict__ out) {
+  constexpr int S = kLbLongSeries, row4 = kLbChunk / 2;
+  extern __shared__ float4 lb_env4[];    // (G, row4): (lo, hi, lo, hi)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int Lp = (L + 3) & ~3;
+  const long long tasks = (N + 32 * S - 1) / (32 * S);
+  const long long tgroups = (tasks + kLbLongWarps - 1) / kLbLongWarps;
+  const int qgroups = (Qg + G - 1) / G;
+  for (long long u = blockIdx.x; u < tgroups * qgroups; u += gridDim.x) {
+    const long long tg = u / qgroups;
+    const int g0 = (int)(u - tg * qgroups) * G;
+    const long long t = tg * kLbLongWarps + warp;
+    const bool live = t < tasks;           // the warp's
+    const long long n0 = t * 32 * S + lane;
+    // the series' rows as aligned 16-byte pieces, point 0 at a[s] of the
+    // first (V = 4: a = 0)
+    const float4* xq[S];
+    int a[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float* row = x + min(n0 + 32 * s, N - 1) * L;
+      a[s] = V == 4 ? 0 : (int)((reinterpret_cast<uintptr_t>(row) >> 2) & 3);
+      xq[s] = reinterpret_cast<const float4*>(row - a[s]);
+    }
+    // piece k of each series, or zeros where it holds no point of the row
+    auto piece = [&](float4 (&f)[S], int k) {
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+        f[s] = 4 * k - a[s] < L ? __ldg(xq[s] + k)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+    };
+    float acc[G][S];
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int s = 0; s < S; ++s) acc[g][s] = 0.f;
+    // pieces j / 4 (fa), j / 4 + 1 (fb, V = 1) and the next one (fn)
+    float4 fa[S], fb[S], fn[S];
+    if (live) {
+      piece(fa, 0);
+      if constexpr (V == 1) piece(fb, 1);
+    }
+    for (int c0 = 0; c0 < Lp; c0 += kLbChunk) {
+      const int n4 = (Lp - c0 < kLbChunk ? Lp - c0 : kLbChunk) / 2;
+      __syncthreads();                     // the last chunk's rows are read
+      for (int e = threadIdx.x; e < G * n4; e += blockDim.x) {
+        const int g = e / n4, k = e - g * n4;
+        lb_env4[g * row4 + k] = reinterpret_cast<const float4*>(
+            env + (long long)(g0 + g) * Lp + c0)[k];
+      }
+      __syncthreads();
+      if (!live) continue;
+      for (int j = c0; j < c0 + 2 * n4; j += 4) {
+        if (j + 4 < Lp) piece(fn, j / 4 + (V == 1 ? 2 : 1));
+        float xc[S][4];
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          if constexpr (V == 4) {
+            xc[s][0] = fa[s].x;
+            xc[s][1] = fa[s].y;
+            xc[s][2] = fa[s].z;
+            xc[s][3] = fa[s].w;
+          } else {
+            funnel(fa[s], fb[s], a[s], xc[s]);
+#pragma unroll
+            for (int p = 0; p < 4; ++p)
+              if (j + p >= L) xc[s][p] = 0.f;  // a padded point adds 0
+          }
+        }
+#pragma unroll 1
+        for (int h = 0; h < 4; h += 2) {
+          float xv[S][2];
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            xv[s][0] = h ? xc[s][2] : xc[s][0];
+            xv[s][1] = h ? xc[s][3] : xc[s][1];
+          }
+          const float4* e4 = lb_env4 + (j - c0 + h) / 2;
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            const float4 e2 = e4[g * row4];
+            const float lo[2] = {e2.x, e2.z}, hi[2] = {e2.y, e2.w};
+#pragma unroll
+            for (int p = 0; p < 2; ++p)
+#pragma unroll
+              for (int s = 0; s < S; ++s) {
+                const float v = xv[s][p];
+                const float e = v - fminf(fmaxf(v, lo[p]), hi[p]);
+                acc[g][s] = fmaf(e, e, acc[g][s]);
+              }
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          if constexpr (V == 4) {
+            fa[s] = fn[s];
+          } else {
+            fa[s] = fb[s];
+            fb[s] = fn[s];
+          }
+        }
+      }
+    }
+    if (live) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (g0 + g < Qg) {
+#pragma unroll
+          for (int s = 0; s < S; ++s)
+            if (n0 + 32 * s < N)
+              out[(long long)(g0 + g) * N + n0 + 32 * s] = acc[g][s];
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------- dtw_search past kWholeL
+// The ring routes (kernels/dtw.py ring_search_geometry): the wave routes'
+// wavefront (dtw_wave: C cells a lane, the pair's series through a ring of
+// W = ring_size(C, H) floats, early abandoning) in the spread route's
+// frame: one cooperative launch of as many CTAs as the card holds (one an
+// SM: 1,024 threads at 2 cells a lane, 512 beyond, where at 1,024 the 64
+// registers a thread spilled; fewer where the rings pass kWaveSmem), a
+// query's group of `per` CTAs, window position j of an iteration to CTA
+// j % per, so that a round's pairs spread over the card whatever the
+// rounds and queries (a cluster of kSpec CTAs a query, each a round, left
+// 128 of 132 SMs idle at L 16,400 with 4 queries of one round, and ran
+// the long cell's 32 queries in two waves).  A CTA's warps take its
+// positions P pairs each,
+// in batches, each pair the candidate below the best-so-far of the
+// iteration's start, its DP abandoned against it, the next batch's series
+// brought into L2 once the DP has begun; a pair's distance goes to the
+// query's row of the iteration's parity (`dist`, at j).  After a barrier
+// over the group, warp 0 of every CTA applies the rounds (apply_rounds).
+// The first iteration computes one round, the later ones spec: before the
+// first round the best-so-far is BIG, so the first iteration's pairs can
+// abandon nothing and every speculative round is paid in full.  The
+// query is staged in shared memory (to kStageL points) beside the rings.
+__host__ __device__ constexpr int ring_threads(int C) {
+  return C <= 2 ? 1024 : 512;
+}
+
+template <int C>
+__global__ void __launch_bounds__(C <= 2 ? 1024 : 512, 1)
+search_ring(const float* __restrict__ q, const float* __restrict__ x,
+            long long N, int L, int r, int round_k, int Qg, int spec,
+            int per, const float* __restrict__ slb,
+            const long long* __restrict__ order, float* bsf_out,
+            int* best_out, int* rounds_out, int* refined_out, float* dist,
+            long long wdist, unsigned* bar) {
+  const int H = (2 * r + C) / C, P = 32 / H, W = ring_size(C, H);
+  extern __shared__ float ring_sm[];     // the query (staged), the rings
+  __shared__ float s_bsf;
+  __shared__ int s_go;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int groups = gridDim.x / per, grp = blockIdx.x / per;
+  const int cta = blockIdx.x - grp * per;
+  const bool stage = L <= kStageL;
+  // the lane's pair in the warp (P: none) and its lane in the pair
+  const int slot = lane / H, ll = lane - slot * H;
+  const unsigned pair_mask =
+      ((slot + 1) * H >= 32 ? 0xffffffffu : (1u << (slot + 1) * H) - 1)
+      & ~((1u << slot * H) - 1);
+  float* xr = ring_sm + (stage ? L : 0)
+              + (long long)(warp * P + (slot < P ? slot : P - 1)) * W;
+  const long long end = (N + round_k - 1) / round_k * round_k;
+  const long long slots = (long long)warps * P;
+  unsigned it = 0;
+  for (int g = grp; g < Qg; g += groups) {
+    const float* qg = q + (long long)g * L;
+    if (stage) {
+      __syncthreads();                   // the last query's row is read
+      for (int j = threadIdx.x; j < L; j += blockDim.x) ring_sm[j] = qg[j];
+      __syncthreads();
+    }
+    const float* qs = stage ? ring_sm : qg;
+    const float* lb = slb + (long long)g * N;
+    const long long* ord = order + (long long)g * N;
+    float* dg = dist + (long long)g * 2 * wdist;
+    float bsf = kBig;
+    long long best = -1;
+    int rounds = 0, refined = 0, par = 0, sp = 1;
+    bool go = end > 0 && lb[0] < kBig;
+    for (long long cursor = 0; go; cursor += (long long)sp * round_k,
+                                   sp = spec) {
+      // this CTA's window positions j = cta + per i, i < mine
+      const long long win = (long long)sp * round_k;
+      const long long here = N - cursor < win ? N - cursor : win;
+      const long long mine = here > cta ? (here - cta + per - 1) / per : 0;
+      float* dj = dg + par * wdist;
+      for (long long i0 = 0; i0 < mine; i0 += slots) {
+        const long long i = i0 + warp * P + slot;
+        const bool in = slot < P && i < mine;
+        const long long j = cta + (long long)per * i;
+        const bool take = in && lb[cursor + j] < bsf;
+        if (!__any_sync(kAll, take)) continue;
+        const long long o = take ? ord[cursor + j] : 0;
+        auto ahead = [&] {
+          const long long i2 = i + slots;
+          if (in && i2 < mine) {
+            const long long p2 = cursor + cta + (long long)per * i2;
+            if (lb[p2] < bsf) {
+              const float* nrow = x + ord[p2] * L;
+              for (int c = 32 * ll; c < L; c += 32 * H) prefetch_l2(nrow + c);
+              if (ll == 0) prefetch_l2(nrow + L - 1);
+            }
+          }
+        };
+        const float d = dtw_wave<C, true>(qs, xr, L, r, H, ll, lane, take,
+                                          bsf, pair_mask, ahead, x + o * L,
+                                          W);
+        __syncwarp();           // the ring is read: the next batch may copy
+        if (take && ll == r / C) dj[j] = d;
+      }
+      group_barrier(bar + grp, ++it * (unsigned)per);
+      if (warp == 0) {
+        const bool on = apply_rounds(lb, ord, dj, N, round_k, sp, cursor,
+                                     bsf, best, rounds, refined);
         if (lane == 0) {
           s_bsf = bsf;
           s_go = on;
@@ -2103,6 +2437,82 @@ int spread_launch(const float* q, const float* x, long long N, int L, int r,
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+// dtw_lb_keogh past kWholeL with G query slots a unit (lb_long): the
+// envelopes of rows = Qg rounded up to G into env (rows x Lp float2), then
+// as many lb_long blocks as the card holds at once, at most one a unit.
+template <int G, int V>
+int lb_long_launch(const float* q, const float* x, long long N, int L,
+                   int Qg, int r, float2* env, float* out, cudaStream_t st) {
+  const int Lp = (L + 3) & ~3, rows = (Qg + G - 1) / G * G;
+  const long long points = (long long)rows * Lp;
+  lb_envelope<<<(unsigned)((points + 255) / 256), 256, 0, st>>>(
+      q, L, Qg, rows, r, env);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int threads = 32 * kLbLongWarps;
+  const size_t smem = sizeof(float2) * G * (size_t)kLbChunk;
+  int held = 0;
+  const int code = held_ctas((const void*)lb_long<G, V>, threads, smem,
+                             held);
+  if (code != 0) return code;
+  const long long tasks = (N + 32 * kLbLongSeries - 1) / (32 * kLbLongSeries);
+  const long long units = (tasks + kLbLongWarps - 1) / kLbLongWarps
+                          * (rows / G);
+  const long long blocks = units < held ? units : (held > 0 ? held : 1);
+  lb_long<G, V><<<(unsigned)blocks, threads, smem, st>>>(x, N, L, Qg, env,
+                                                          out);
+  return (int)cudaGetLastError();
+}
+
+// dtw_search's ring route at C cells a lane: one cooperative launch of as
+// many CTAs as the card holds at once (`threads` each, at most
+// ring_threads(C), fewer where the staged query and warps x P rings of
+// ring_size(C, H) floats would pass kWaveSmem: kernels/dtw.py
+// ring_search_geometry), in
+// groups of per = held / min(Qg, held) CTAs; dist holds each query's two
+// rows of wdist >= min(spec round_k, N) floats, bar a count a group (Qg
+// of them suffice), zeroed here.
+template <int C>
+int ring_launch(const float* q, const float* x, long long N, int L, int r,
+                int Qg, int round_k, int threads, int spec, const float* slb,
+                const long long* order, float* bsf, int* best, int* rounds,
+                int* refined, float* dist, long long wdist, unsigned* bar,
+                cudaStream_t st) {
+  const int H = (2 * r + C) / C;
+  const long long window = (long long)spec * round_k;
+  if (H > 32 || L <= kWholeL || spec < 1 || threads < 32
+      || threads % 32 || threads > ring_threads(C)
+      || wdist < (window < N ? window : N))
+    return (int)cudaErrorInvalidValue;
+  const int P = 32 / H;
+  const size_t smem = sizeof(float) * ((L <= kStageL ? (size_t)L : 0)
+                                       + (size_t)threads / 32 * P
+                                             * ring_size(C, H));
+  if (smem > kWaveSmem) return (int)cudaErrorInvalidValue;
+  int held = 0;
+  const int code = held_ctas((const void*)search_ring<C>, threads, smem,
+                             held);
+  if (code != 0) return code;
+  if (held < 1) return (int)cudaErrorInvalidConfiguration;
+  const int groups = Qg < held ? Qg : held, per = held / groups;
+  cudaError_t e = cudaMemsetAsync(bar, 0, sizeof(unsigned) * groups, st);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeCooperative;
+  attr.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(groups * per));
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, search_ring<C>, q, x, N, L, r, round_k, Qg,
+                         spec, per, slb, order, bsf, best, rounds, refined,
+                         dist, wdist, bar);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
 // What the card holds at once at K rows a lane: out[0] scan_strips<K>
 // CTAs (SMs x CTAs an SM), out[1] and out[2] clusters of 16 and of 8
 // search_strips<K> CTAs (0: that size does not launch here).
@@ -2155,27 +2565,24 @@ int diag_held(int* out) {
   }
 #endif  // DTW_SCAN_WIDE_RINGS
 
-// The wave routes, C cells a lane: clusters of kSpec CTAs a query,
-// `threads` / 32 warps a CTA (the wrapper's band_threads), the query, the
-// rounds' distances and bounds and the pairs' rows within kWaveSmem.
-// RING: L > 1024, the pairs' rows through rings (wave_kernel).  At 16
-// cells a lane (ring16 only) a CTA holds 512 threads at most.
-template <int C, bool RING>
+// The wave routes, C cells a lane (L <= kWholeL): clusters of kSpec CTAs
+// a query, `threads` / 32 warps a CTA (the wrapper's band_threads), the
+// query, the rounds' distances and bounds and the pairs' rows within
+// kWaveSmem.
+template <int C>
 int wave_launch(const float* q, const float* x, long long N, int L, int r,
                 int Qg, int round_k, int threads, const float* slb,
                 const long long* order, float* bsf, int* best, int* rounds,
                 int* refined, cudaStream_t st) {
   const int H = (2 * r + C) / C;
-  if (H > 32 || round_k > kMaxRoundK || threads > (C < 16 ? 1024 : 512))
+  if (H > 32 || L > kWholeL || round_k > kMaxRoundK || threads > 1024)
     return (int)cudaErrorInvalidValue;
   const int P = 32 / H;
-  const size_t row = RING ? ring_size(C, H) : L;
-  const size_t qf = !RING || L <= kStageL ? L : 0;
-  const size_t smem = sizeof(float) * (qf + 4 * (size_t)round_k
-                                       + (size_t)threads / 32 * P * row);
+  const size_t smem = sizeof(float) * (L + 4 * (size_t)round_k
+                                       + (size_t)threads / 32 * P * L);
   if (smem > kWaveSmem) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      wave_kernel<C, RING>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      wave_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr;
@@ -2190,7 +2597,7 @@ int wave_launch(const float* q, const float* x, long long N, int L, int r,
   cfg.stream = st;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, wave_kernel<C, RING>, q, x, N, L, r, round_k,
+  e = cudaLaunchKernelEx(&cfg, wave_kernel<C>, q, x, N, L, r, round_k,
                          slb, order, bsf, best, rounds, refined);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
@@ -2316,14 +2723,13 @@ int scan_wave_route(int C, const float* q, const float* x, long long N,
 #undef DTW_SCAN_RING
 }
 
-// dtw_lb_keogh with G query slots: as many blocks as the card holds at
-// once (one an SM at 256 threads of about 200 registers), each warp taking
-// tasks of 32 x kLbSeries series in turn.
+// dtw_lb_keogh with G query slots (L <= kWholeL): as many blocks as the
+// card holds at once (one an SM at 256 threads of about 200 registers),
+// each warp taking tasks of 32 x kLbSeries series in turn.
 template <int G, int V>
 int lb_launch(const float* q, const float* x, long long N, int L, int Qg,
-              int r, int j0, int Lc, bool acc_in, float* out,
-              cudaStream_t st) {
-  const size_t smem = sizeof(float2) * G * (size_t)((Lc + 3) & ~3);
+              int r, float* out, cudaStream_t st) {
+  const size_t smem = sizeof(float2) * G * (size_t)((L + 3) & ~3);
   if (smem > kWaveSmem) return (int)cudaErrorInvalidValue;
   int held = 0;
   const int e = held_ctas((const void*)lb_keogh_kernel<G, V>, kLbThreads,
@@ -2333,22 +2739,18 @@ int lb_launch(const float* q, const float* x, long long N, int L, int Qg,
   long long blocks = (tasks + kLbThreads / 32 - 1) / (kLbThreads / 32);
   if (blocks > (held > 0 ? held : 1)) blocks = held > 0 ? held : 1;
   lb_keogh_kernel<G, V><<<(unsigned)blocks, kLbThreads, smem, st>>>(
-      q, x, N, L, Qg, r, j0, Lc, acc_in, out);
+      q, x, N, L, Qg, r, out);
   return (int)cudaGetLastError();
 }
 
 template <int V>
 int lb_slots(const float* q, const float* x, long long N, int L, int Qg,
-             int r, int j0, int Lc, bool acc_in, float* out,
-             cudaStream_t st) {
+             int r, float* out, cudaStream_t st) {
   switch ((Qg + 7) / 8) {
-    case 1: return lb_launch<8, V>(q, x, N, L, Qg, r, j0, Lc, acc_in, out, st);
-    case 2: return lb_launch<16, V>(q, x, N, L, Qg, r, j0, Lc, acc_in, out,
-                                    st);
-    case 3: return lb_launch<24, V>(q, x, N, L, Qg, r, j0, Lc, acc_in, out,
-                                    st);
-    default: return lb_launch<32, V>(q, x, N, L, Qg, r, j0, Lc, acc_in, out,
-                                     st);
+    case 1: return lb_launch<8, V>(q, x, N, L, Qg, r, out, st);
+    case 2: return lb_launch<16, V>(q, x, N, L, Qg, r, out, st);
+    case 3: return lb_launch<24, V>(q, x, N, L, Qg, r, out, st);
+    default: return lb_launch<32, V>(q, x, N, L, Qg, r, out, st);
   }
 }
 
@@ -2390,27 +2792,21 @@ extern "C" const char* dtw_scan_ring_error(int code) {
 }
 #else
 // route: 0 "vec" (L % 4 == 0 and x 16-byte aligned: a 16-byte load a
-// series), 1 "scalar" (any L).  q (Qg <= 32, L), x (N, L), out (Qg, N),
-// all float32.  One launch sums the columns [j0, j0 + Lc) (j0 a multiple
-// of 4), onto the sums out holds where acc_in: the wrapper takes a long
-// series in chunks whose 8 Qg (Lc rounded up to 4) floats of envelopes
-// fit what a block may ask for (lb_plan), each chunk going on from the
-// last one's sums in the same order, so the bits are one pass's.
+// series), 1 "scalar" (any L).  q (Qg <= 32, L <= kWholeL), x (N, L), out
+// (Qg, N), all float32.  Past kWholeL points, dtw_lb_long.
 extern "C" int dtw_lb_keogh(const void* q, const void* x, long long N, int L,
-                            int Qg, int r, int route, int j0, int Lc,
-                            int acc_in, void* out, void* stream) {
+                            int Qg, int r, int route, void* out,
+                            void* stream) {
   if (N == 0 || Qg == 0) return 0;
-  if (Qg > 32 || L < 1 || r < 0 || route < 0 || route > 1 || j0 < 0
-      || j0 % 4 || Lc < 1 || j0 + Lc > L
+  if (Qg > 32 || L < 1 || L > kWholeL || r < 0 || route < 0 || route > 1
       || (route == 0 && (L % 4 || reinterpret_cast<uintptr_t>(x) % 16)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qq = static_cast<const float*>(q);
   const float* xx = static_cast<const float*>(x);
   float* o = static_cast<float*>(out);
-  return route == 0
-             ? lb_slots<4>(qq, xx, N, L, Qg, r, j0, Lc, acc_in != 0, o, st)
-             : lb_slots<1>(qq, xx, N, L, Qg, r, j0, Lc, acc_in != 0, o, st);
+  return route == 0 ? lb_slots<4>(qq, xx, N, L, Qg, r, o, st)
+                    : lb_slots<1>(qq, xx, N, L, Qg, r, o, st);
 }
 
 // The refinement of each query g < Qg: candidates order[g, :] (int64)
@@ -2420,9 +2816,9 @@ extern "C" int dtw_lb_keogh(const void* q, const void* x, long long N, int L,
 // pairs in flight a query, rows of `width` entries, clusters of `cluster`
 // CTAs, diag: Qg queries' scratch, zeroed; kernels/dtw.py
 // diag_search_geometry; `threads` unused); 2, 4 and 8 the wave routes of
-// as many cells a lane (r <= 31, 63 and 127, round_k <= 1024; `threads`
-// from the wrapper's band_threads), their ring forms past L 1,024, and 16
-// (ring16: L > 1,024, r <= 255).  The spread route is dtw_search_spread.
+// as many cells a lane (L <= 1,024, r <= 31, 63 and 127, round_k <= 1024;
+// `threads` from the wrapper's band_threads).  The spread route is
+// dtw_search_spread, the ring routes (L > 1,024) dtw_search_ring.
 extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
                           int r, int Qg, int round_k, int threads, int route,
                           int rows, int slots, int width, int cluster,
@@ -2431,8 +2827,7 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
                           void* diag, void* stream) {
   if (Qg == 0) return 0;
   const bool whole = threads >= 32 && threads <= 1024 && threads % 32 == 0;
-  const bool wave = route == 2 || route == 4 || route == 8
-                    || (route == 16 && L > kWholeL);
+  const bool wave = route == 2 || route == 4 || route == 8;
   if (r < 0 || L < 1 || round_k < 1 || (wave && round_k > kMaxRoundK)
       || !(route == 1 || wave) || (wave && !whole) || (route == 1 && !diag))
     return (int)cudaErrorInvalidValue;
@@ -2445,19 +2840,15 @@ extern "C" int dtw_search(const void* q, const void* x, long long N, int L,
   int* bi = static_cast<int*>(best);
   int* ro = static_cast<int*>(rounds);
   int* rf = static_cast<int*>(refined);
-  const bool ring = L > kWholeL;
-#define DTW_WAVE(C)                                                        \
-  return ring ? wave_launch<C, true>(qq, xx, N, L, r, Qg, round_k, threads, \
-                                     lb, od, b, bi, ro, rf, st)            \
-              : wave_launch<C, false>(qq, xx, N, L, r, Qg, round_k,        \
-                                      threads, lb, od, b, bi, ro, rf, st)
-  if (route == 2) DTW_WAVE(2);
-  if (route == 4) DTW_WAVE(4);
-  if (route == 8) DTW_WAVE(8);
-#undef DTW_WAVE
-  if (route == 16)
-    return wave_launch<16, true>(qq, xx, N, L, r, Qg, round_k, threads, lb,
-                                 od, b, bi, ro, rf, st);
+  if (route == 2)
+    return wave_launch<2>(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b,
+                          bi, ro, rf, st);
+  if (route == 4)
+    return wave_launch<4>(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b,
+                          bi, ro, rf, st);
+  if (route == 8)
+    return wave_launch<8>(qq, xx, N, L, r, Qg, round_k, threads, lb, od, b,
+                          bi, ro, rf, st);
   DTW_DIAG_ROWS(diag_search_launch, rows, qq, xx, N, L, r, Qg, round_k,
                 slots, width, cluster, lb, od, b, bi, ro, rf,
                 static_cast<unsigned long long*>(diag), st)
@@ -2535,6 +2926,76 @@ extern "C" int dtw_search_spread(const void* q, const void* x, long long N,
                 static_cast<float*>(dist), wdist,
                 static_cast<unsigned*>(bar),
                 static_cast<cudaStream_t>(stream))
+}
+
+// dtw_search's ring routes (see dtw_search's outputs): L > 1,024, C =
+// `cells` (2 to 16, even) cells a lane, `threads` a CTA, the first
+// iteration one round and the later ones spec; dist (Qg, 2,
+// wdist) float32 and bar (Qg,) 32-bit scratch (kernels/dtw.py
+// ring_search_geometry).
+extern "C" int dtw_search_ring(const void* q, const void* x, long long N,
+                               int L, int r, int Qg, int round_k, int cells,
+                               int threads, int spec, const void* slb,
+                               const void* order, void* bsf, void* best,
+                               void* rounds, void* refined, void* dist,
+                               long long wdist, void* bar, void* stream) {
+  if (Qg == 0) return 0;
+  if (r < 0 || round_k < 1 || !dist || !bar) return (int)cudaErrorInvalidValue;
+#define DTW_RING_ARGS                                                        \
+  static_cast<const float*>(q), static_cast<const float*>(x), N, L, r, Qg,   \
+      round_k, threads, spec, static_cast<const float*>(slb),                \
+      static_cast<const long long*>(order), static_cast<float*>(bsf),       \
+      static_cast<int*>(best), static_cast<int*>(rounds),                    \
+      static_cast<int*>(refined), static_cast<float*>(dist), wdist,         \
+      static_cast<unsigned*>(bar), static_cast<cudaStream_t>(stream)
+  switch (cells) {
+    case 2: return ring_launch<2>(DTW_RING_ARGS);
+    case 4: return ring_launch<4>(DTW_RING_ARGS);
+    case 6: return ring_launch<6>(DTW_RING_ARGS);
+    case 8: return ring_launch<8>(DTW_RING_ARGS);
+    case 10: return ring_launch<10>(DTW_RING_ARGS);
+    case 12: return ring_launch<12>(DTW_RING_ARGS);
+    case 14: return ring_launch<14>(DTW_RING_ARGS);
+    case 16: return ring_launch<16>(DTW_RING_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DTW_RING_ARGS
+}
+
+// dtw_lb_keogh past L 1,024 (route as dtw_lb_keogh's): q (Qg <= 32, L), x
+// (N, L), env (Qg rounded up to `slots`, L rounded up to 4) float2
+// scratch, out (Qg, N); `slots` (8, 16 or 32) queries a unit
+// (kernels/dtw.py lb_long_geometry).  Two launches: the envelopes, then
+// the sums.
+extern "C" int dtw_lb_long(const void* q, const void* x, long long N, int L,
+                           int Qg, int r, int route, int slots, void* env,
+                           void* out, void* stream) {
+  if (N == 0 || Qg == 0) return 0;
+  if (Qg > 32 || L <= kWholeL || r < 0 || route < 0 || route > 1 || !env
+      || (route == 0 && (L % 4 || reinterpret_cast<uintptr_t>(x) % 16)))
+    return (int)cudaErrorInvalidValue;
+  const float* qq = static_cast<const float*>(q);
+  const float* xx = static_cast<const float*>(x);
+  float2* en = static_cast<float2*>(env);
+  float* o = static_cast<float*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define DTW_LB_LONG(G)                                                       \
+  if (slots == G)                                                            \
+    return route == 0 ? lb_long_launch<G, 4>(qq, xx, N, L, Qg, r, en, o, st) \
+                      : lb_long_launch<G, 1>(qq, xx, N, L, Qg, r, en, o, st);
+  DTW_LB_LONG(8)
+  DTW_LB_LONG(16)
+  DTW_LB_LONG(32)
+#undef DTW_LB_LONG
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* dtw_search_ring_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+extern "C" const char* dtw_lb_long_error(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 extern "C" const char* dtw_scan_chain_error(int code) {

@@ -33,11 +33,13 @@ MAX_BAND_R = 16                        # dtw_scan's band route's largest r
 # (2r + 1 offsets over at most 32 lanes)
 WAVE_CELLS = {"wave2": 2, "wave4": 4, "wave8": 8}
 WAVE_MAX_R = {name: (32 * c - 1) // 2 for name, c in WAVE_CELLS.items()}
-# the same lanes for L > WHOLE_L, each pair's series through a ring of
-# columns that the warp refills as the front advances (ring_size), and
-# ring16 (16 cells a lane, r <= 255) there too
-RING_CELLS = {"ring2": 2, "ring4": 4, "ring8": 8, "ring16": 16}
-RING_MAX_R = {name: (32 * c - 1) // 2 for name, c in RING_CELLS.items()}
+# dtw_search past L 1,024 (csrc/dtw.cu search_ring): the same wavefront,
+# each pair's series through a ring of columns that the warp refills as the
+# front advances (ring_size), in the spread route's frame, at every even
+# width to 16 cells a lane (r <= 255), chosen by radius (search_ring_cells)
+SEARCH_RING_WIDTHS = (2, 4, 6, 8, 10, 12, 14, 16)
+RING_CELLS = {f"ring{c}": c for c in SEARCH_RING_WIDTHS}
+MAX_RING_R = (32 * 16 - 1) // 2                 # 255
 MAX_ROUND_K = 1024     # the wave routes' round
 # dtw_scan's wave route, the same lane layout at 16 cells a lane, for 16 <
 # r <= 255: of 4, 8 and 16 cells a lane, 16 spent the fewest issue slots a
@@ -51,12 +53,26 @@ SCAN_RING_CELLS = {f"ring{c}": c for c in SCAN_RING_WIDTHS}
 RING_CHUNK = 32                        # columns a ring fill copies
 STAGE_L = 16384        # the longest query a kernel stages in shared memory
 GROUP = 32                             # queries of one lb_keogh launch
+# lb_keogh past L 1024 (csrc/dtw.cu lb_long): the queries a unit it is
+# built for, series a lane, warps a block (a task of 32 LB_LANE_SERIES
+# series each) and the envelope columns a block stages at once
+# (kLbLongWarps, kLbLongSeries, kLbChunk); and the warps (tasks times
+# query groups) at which a launch takes more queries a unit: 8 an SM of
+# an H100's 132 (lb_slots)
+LB_SLOTS_ALL = (32, 16, 8)
+LB_LANE_SERIES, LB_WARPS, LB_CHUNK = 2, 4, 256
+LB_FILL_WARPS = 1024
 _SMEM = 200 * 1024                     # shared memory a block may ask for
 _SCAN_BAND_THREADS = 128
 _SCAN_WAVE_WARPS = 16                  # the scan wave route's CTA, at most
 
 _LB_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+_LB_LONG_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                     + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
+_RING_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
+                  + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 7
+                  + [ctypes.c_longlong] + [ctypes.c_void_p] * 2)
 _SEARCH_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
                     + [ctypes.c_int] * 10 + [ctypes.c_void_p] * 8)
 _SCAN_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
@@ -87,9 +103,8 @@ SPEC = 8
 # card waits on a few chains, and the diag route (a pair's strips on many
 # warps) is faster (chip_smoke.py's dtw_wide phase times both)
 CHAIN_PAIRS = 1024
-# a wave or ring route's code: its cells a lane (the kernel takes the ring
-# where L > WHOLE_L)
-_DP_CODES = {"diag": 1, **WAVE_CELLS, **RING_CELLS}
+# a wave route's code: its cells a lane
+_DP_CODES = {"diag": 1, **WAVE_CELLS}
 _SCAN_CODES = {"band": 0, "diag": 2, **SCAN_CELLS, **SCAN_RING_CELLS}
 _LB_CODES = {"vec": 0, "scalar": 1}
 
@@ -104,31 +119,91 @@ def lb_route(L: int, aligned: bool = True) -> str:
 
 def dp_route(r: int, L: int = 256, round_k: int = 32) -> str:
     """dtw_search's route for band radius r, length L and round_k:
-    "wave2", "wave4" and "wave8" for r <= 31, 63 and 127 (a pair's band
-    swept as a wavefront over ceil((2r + 1) / cells) lanes of a warp, 2,
-    4 and 8 cells a lane, r a runtime argument, each pair abandoned once
-    it cannot win, its series staged whole), "ring2", "ring4", "ring8"
-    and "ring16" for r <= 31, 63, 127 and 255 at L > 1024 (the series
-    through a ring of columns); "spread" for the rest or round_k > 1024
-    (strips of rows, a round's strips spread over a query's CTAs, a
+    "wave2", "wave4" and "wave8" for r <= 31, 63 and 127 at L <= 1024 (a
+    pair's band swept as a wavefront over ceil((2r + 1) / cells) lanes of
+    a warp, 2, 4 and 8 cells a lane, r a runtime argument, each pair
+    abandoned once it cannot win, its series staged whole); past L 1024,
+    "ring<c>" for r <= 255 (the same wavefront, the series through a ring
+    of columns, a round's pairs spread over the card: c =
+    search_ring_cells(r) cells a lane); "spread" for the rest or round_k >
+    1024 (strips of rows, a round's strips spread over a query's CTAs, a
     pair's rows handed on in its CTA's shared memory, spec rounds at
     once); "diag" where a pair's row passes shared memory (spread_fits:
     the same strips, their rows in device scratch)."""
     if round_k <= MAX_ROUND_K:
-        names = WAVE_MAX_R if L <= WHOLE_L else RING_MAX_R
-        for name, top in names.items():
-            if r <= top:
-                return name
+        if L > WHOLE_L:
+            if r <= MAX_RING_R:
+                return f"ring{search_ring_cells(r)}"
+        else:
+            for name, top in WAVE_MAX_R.items():
+                if r <= top:
+                    return name
     return "spread" if spread_fits(L, r) else "diag"
 
 
 def dp_routes(r: int, L: int = 256, round_k: int = 32) -> tuple:
     """Every route of dtw_search that takes band radius r at length L
-    and round_k: its default first, then "spread" where a pair's row
+    and round_k: its default first, then past L 1024 every ring width
+    whose lanes hold the band (ring_widths), "spread" where a pair's row
     fits shared memory, then "diag" (any shape)."""
-    rest = (("spread",) if spread_fits(L, r) else ()) + ("diag",)
+    rings = tuple(f"ring{c}" for c in ring_widths(r)) if L > WHOLE_L else ()
+    rest = rings + (("spread",) if spread_fits(L, r) else ()) + ("diag",)
     first = dp_route(r, L, round_k)
     return (first,) + tuple(n for n in rest if n != first)
+
+
+def ring_widths(r: int) -> tuple:
+    """The widths of SEARCH_RING_WIDTHS (cells a lane) that take band
+    radius r: at most 32 lanes a pair, ceil((2r + 1) / cells) <= 32."""
+    return tuple(c for c in SEARCH_RING_WIDTHS
+                 if -(-(2 * r + 1) // c) <= 32)
+
+
+def search_ring_cells(r: int) -> int:
+    """The cells a lane C of dtw_search's ring route at band radius r <=
+    255: of ring_widths(r), the one of least C (1 + 1 / P) (H, P =
+    scan_lanes(r, C)), the narrowest on ties.  The search waits on each
+    DP: a pair's DP is about L + H dependent steps of C cells each, so C
+    is its latency; where a round's pairs pass the card's pair slots, a
+    pair costs a warp's lanes C / P a step (the scan's measure, which
+    weighs the lanes a pair leaves idle).  The sum picks the narrowest
+    width at every radius: H 17 to 32 lanes (P 1) past r 15, 2 to 13
+    pairs a warp below.  On an H100 the narrowest was the fastest width
+    at L 16,400 (r 12, 40, 200) and at the long cell's r 81 and 135, and
+    at its r 27 as fast as 4 cells, run to run (PERF.md)."""
+    def cost(c):
+        return c * (1 + 1 / scan_lanes(r, c)[1])
+    return min(ring_widths(r), key=lambda c: (cost(c), c))
+
+
+def ring_threads(cells: int) -> int:
+    """Threads of a CTA of dtw_search's ring route (csrc/dtw.cu
+    ring_threads): 1,024 at 2 cells a lane, 512 beyond (at 1,024 threads
+    the 64 registers a thread spilled at 4 and 6), one CTA an SM."""
+    return 1024 if cells <= 2 else 512
+
+
+def ring_search_geometry(Qg: int, N: int, L: int, r: int, round_k: int,
+                         cells: int) -> dict:
+    """The launch of dtw_search's ring route at `cells` a lane (csrc/dtw.cu
+    search_ring): a pair's `lanes` H and a warp's `pairs` P (scan_lanes),
+    each pair's `ring` of ring_size(cells, H) floats, the CTA's `threads`
+    (ring_threads, fewer where its rings and the query pass `_SMEM` bytes:
+    at r <= 6, 2 cells a lane, a warp's P rings take 8-16 KB) and shared
+    memory (bytes: the query where L <= STAGE_L and every pair's ring),
+    `spec` rounds an iteration (spread_spec) but the first, which
+    computes one (before it the best-so-far is BIG, so its pairs abandon
+    nothing), and the scratch: `wdist` floats a query's row of distances
+    (two a query, by iteration parity) and a barrier count a query."""
+    H, P = scan_lanes(r, cells)
+    W = ring_size(cells, H)
+    qf = L if L <= STAGE_L else 0
+    warps = max(1, min(ring_threads(cells) // 32,
+                       (_SMEM // 4 - qf) // (P * W)))
+    spec = spread_spec(N, round_k)
+    return {"lanes": H, "pairs": P, "ring": W, "threads": 32 * warps,
+            "smem": 4 * (qf + warps * P * W), "spec": spec,
+            "wdist": max(1, min(spec * round_k, N))}
 
 
 def scan_lanes(r: int, cells: int) -> Tuple[int, int]:
@@ -429,21 +504,17 @@ def wave_cells(route: str) -> int:
 
 
 def band_threads(r: int, L: int, round_k: int, cells: int = 2) -> int:
-    """Threads of each CTA of dtw_search's wave routes (a cluster of 8 a
-    query, one round each): a pair takes H = ceil((2r + 1) / cells) lanes
-    (r + 1 at 2 cells), a warp runs 32 // H pairs, each with its series
-    in shared memory (whole to L 1024, else a ring of ring_size(cells, H)
-    floats) beside the query (where L <= STAGE_L) and the round's
-    distances and bounds (two of each a candidate); as many warps as a
-    round's candidates need, at most 32 (16 at 16 cells a lane, whose
-    lanes hold more registers), and at most as many as fit in `_SMEM`
-    bytes (one at least: round_k <= 1024)."""
+    """Threads of each CTA of dtw_search's wave routes (L <= 1024, a
+    cluster of 8 a query, one round each): a pair takes H = ceil((2r + 1)
+    / cells) lanes (r + 1 at 2 cells), a warp runs 32 // H pairs, each
+    with its series staged whole in shared memory beside the query and the
+    round's distances and bounds (two of each a candidate); as many warps
+    as a round's candidates need, at most 32, and at most as many as fit
+    in `_SMEM` bytes (one at least: round_k <= 1024)."""
     H = -(-(2 * r + 1) // cells)
     P = 32 // H
-    row = L if L <= WHOLE_L else ring_size(cells, H)
-    qf = L if L <= STAGE_L else 0
-    return 32 * min(32 if cells < 16 else 16, -(-round_k // P),
-                    (_SMEM // 4 - qf - 4 * round_k) // (P * row))
+    return 32 * min(32, -(-round_k // P),
+                    (_SMEM // 4 - L - 4 * round_k) // (P * L))
 
 
 def _pick(route, default: str, allowed: tuple, what: str) -> str:
@@ -460,19 +531,46 @@ def lb_group(L: int) -> int:
     """Queries one lb_keogh launch takes: at most 32, a multiple of 8 (the
     kernel's query slots come in 8s), their envelopes ((lo, hi) a point,
     L rounded up to 4 points) within `_SMEM` bytes of shared memory: 32
-    up to L 800, 24 to L 1024; 32 above, in column chunks (lb_chunk)."""
+    up to L 800, 24 to L 1024; 32 above (lb_long_geometry)."""
     if L > WHOLE_L:
         return GROUP
     Lp = -(-L // 4) * 4
     return max(8, min(GROUP, _SMEM // (8 * Lp)) // 8 * 8)
 
 
-def lb_chunk(L: int) -> int:
-    """Columns one lb_keogh launch sums: all L to L 1024; above, 800 (a
-    multiple of 4, whose envelopes of 32 queries fill `_SMEM` bytes), each
-    chunk's launch going on from the sums the last one stored, in the
-    same order, so the bits are one pass's."""
-    return L if L <= WHOLE_L else _SMEM // (8 * GROUP) // 4 * 4
+def lb_slots(Qg: int, N: int) -> int:
+    """Queries a unit of lb_keogh past L 1024 for Qg <= 32 queries over N
+    series: of LB_SLOTS_ALL, the most (each series read once for more
+    queries, L2 serving the other query groups) whose warps, a task of 32
+    LB_LANE_SERIES series each query group, reach LB_FILL_WARPS; else
+    the fewest, and never more than Qg rounded up to 8.  On an H100, 32
+    took 1.20 ms where 8 took 1.72 at 2^16 series of 2,709 points (1,024
+    warps against 4,096), and 8 took 1.29 ms where 32 took 2.18 at 2^14
+    of 8,192 (1,024 warps against 256)."""
+    tasks = -(-N // (32 * LB_LANE_SERIES))
+    fits = [G for G in LB_SLOTS_ALL if G < Qg + 8]
+    for G in fits:
+        if tasks * -(-Qg // G) >= LB_FILL_WARPS:
+            return G
+    return fits[-1]
+
+
+def lb_long_geometry(Qg: int, N: int, L: int) -> dict:
+    """The launches of lb_keogh past L 1024 (csrc/dtw.cu lb_envelope,
+    lb_long) for Qg <= 32 queries over N series: `slots` queries a unit
+    (lb_slots), the envelope scratch (`rows` = Qg rounded up to slots,
+    `Lp` = L rounded up to 4 points, a (lo, hi) pair of floats each:
+    `env_bytes`), `tasks` of 32 LB_LANE_SERIES series (a warp's), `units`
+    of LB_WARPS tasks against one group of `slots` queries (a block's
+    turn), the block's `threads` and the shared memory it stages the
+    envelopes of LB_CHUNK columns in (`smem`, bytes)."""
+    G = lb_slots(Qg, N)
+    rows = -(-Qg // G) * G
+    Lp = -(-L // 4) * 4
+    tasks = -(-N // (32 * LB_LANE_SERIES))
+    return {"slots": G, "rows": rows, "Lp": Lp, "env_bytes": 8 * rows * Lp,
+            "tasks": tasks, "units": -(-tasks // LB_WARPS) * (rows // G),
+            "threads": 32 * LB_WARPS, "smem": 8 * G * LB_CHUNK}
 
 
 def _count(kernel: str, route: str) -> None:
@@ -510,9 +608,10 @@ def lb_keogh(q: torch.Tensor, x: torch.Tensor, *, r: int,
              route: str | None = None) -> torch.Tensor:
     """The squared LB_Keogh of each query of q (Qg, L) against each series
     of x (N, L), band radius r: (Qg, N) float32, any L.  One launch for
-    each `lb_group(L)` queries and `lb_chunk(L)` columns, each reading
-    its columns of the collection once, by `route` (default
-    `lb_route(L, x 16-byte aligned)`; "scalar" takes every L).
+    each `lb_group(L)` queries, reading the collection once, by `route`
+    (default `lb_route(L, x 16-byte aligned)`; "scalar" takes every L);
+    past L 1024 two, the envelopes into scratch ("lb_keogh/envelope") and
+    the sums (lb_long_geometry).
 
     Raises ValueError/TypeError on input the kernel does not take, and
     RuntimeError if a launch fails."""
@@ -524,18 +623,30 @@ def lb_keogh(q: torch.Tensor, x: torch.Tensor, *, r: int,
         return lb_keogh_ref(q, x, r)
     Qg, N = q.shape[0], x.shape[0]
     out = torch.empty((Qg, N), dtype=torch.float32, device=x.device)
-    fn = _build.entry("dtw", "dtw_lb_keogh", _LB_ARGTYPES)
-    step, chunk = lb_group(L), lb_chunk(L)
+    step = lb_group(L)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for g0 in range(0, Qg, step):
-            n = min(step, Qg - g0)
-            for j0 in range(0, L, chunk):
-                code = fn(q[g0:].data_ptr(), x.data_ptr(), N, L, n, r,
-                          _LB_CODES[route], j0, min(chunk, L - j0), j0 > 0,
+        if L <= WHOLE_L:
+            fn = _build.entry("dtw", "dtw_lb_keogh", _LB_ARGTYPES)
+            for g0 in range(0, Qg, step):
+                code = fn(q[g0:].data_ptr(), x.data_ptr(), N, L,
+                          min(step, Qg - g0), r, _LB_CODES[route],
                           out[g0:].data_ptr(), stream)
                 _build.check("dtw", "dtw_lb_keogh", code)
                 _count("lb_keogh", route)
+            return out
+        fn = _build.entry("dtw", "dtw_lb_long", _LB_LONG_ARGTYPES)
+        for g0 in range(0, Qg, step):
+            n = min(step, Qg - g0)
+            g = lb_long_geometry(n, N, L)
+            env = torch.empty((g["env_bytes"] // 4,), dtype=torch.float32,
+                              device=x.device)
+            code = fn(q[g0:].data_ptr(), x.data_ptr(), N, L, n, r,
+                      _LB_CODES[route], g["slots"], env.data_ptr(),
+                      out[g0:].data_ptr(), stream)
+            _build.check("dtw", "dtw_lb_long", code)
+            _count("lb_keogh", "envelope")
+            _count("lb_keogh", route)
     return out
 
 
@@ -581,21 +692,27 @@ def dtw_search(q: torch.Tensor, x: torch.Tensor, sorted_lb: torch.Tensor,
     if Qg == 0:
         return bsf, best, rounds, refined
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if route == "spread":
+    if route == "spread" or route in RING_CELLS:
         # its geometry; two rows of distances a query, then a barrier count
         # a query (which the launch zeroes)
-        g = spread_search_geometry(Qg, N, L, r, round_k)
+        if route == "spread":
+            g = spread_search_geometry(Qg, N, L, r, round_k)
+            name, argtypes = "dtw_search_spread", _SPREAD_ARGTYPES
+            shape = (g["rows"], g["spec"], g["slots"], g["width"])
+        else:
+            g = ring_search_geometry(Qg, N, L, r, round_k, RING_CELLS[route])
+            name, argtypes = "dtw_search_ring", _RING_ARGTYPES
+            shape = (RING_CELLS[route], g["threads"], g["spec"])
         scratch = torch.empty((Qg * (2 * g["wdist"] + 1),),
                               dtype=torch.float32, device=dev)
-        fn = _build.entry("dtw", "dtw_search_spread", _SPREAD_ARGTYPES)
+        fn = _build.entry("dtw", name, argtypes)
         with torch.cuda.device(dev):
             code = fn(q.data_ptr(), x.data_ptr(), N, L, r, Qg, round_k,
-                      g["rows"], g["spec"], g["slots"], g["width"],
-                      sorted_lb.data_ptr(), order.data_ptr(),
+                      *shape, sorted_lb.data_ptr(), order.data_ptr(),
                       bsf.data_ptr(), best.data_ptr(), rounds.data_ptr(),
                       refined.data_ptr(), scratch.data_ptr(), g["wdist"],
                       scratch.data_ptr() + 8 * Qg * g["wdist"], stream)
-        _build.check("dtw", "dtw_search_spread", code)
+        _build.check("dtw", name, code)
         _count("dtw_search", route)
         return bsf, best, rounds, refined
     # the diag route takes its strips by its geometry, in zeroed scratch

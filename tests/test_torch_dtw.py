@@ -680,8 +680,13 @@ def _scan_ring_reads(x, r, cells=16):
 def _wave_ring_reads(x, r, cells):
     """dtw_wave's reads of one pair's series x (L,) on a ring route, in
     its loop order (the edge steps one at a time, the middle in blocks of
-    8, `ensure` before each), each lane's cells inside the band and the
-    series: the ring's reads equal x at those columns."""
+    8, `ensure` before each): each lane keeps a window of its step's C
+    columns c0 .. c0 + C - 1 (c0 = s + (C - 1) ll - r), C - 1 of them read
+    after the first `ensure` and one more a step (a column outside [0, L)
+    is not read here: the kernel reads its slot and masks the cell).
+    Every column read had landed and had no fill in flight (_Ring), and
+    every cell inside the band and the series finds x at its column in
+    the window."""
     L, C = len(x), cells
     H = -(-(2 * r + 1) // C)
     l0 = r // C
@@ -690,16 +695,30 @@ def _wave_ring_reads(x, r, cells):
     end = L + l0
     a = min(max(H, r), end)
     b = max(a, min(min(L - r + 2 * r // C, L), end - 1))
-    ll = np.arange(H)[:, None]
+    lanes = np.arange(H)
+    ll = lanes[:, None]
     m = np.arange(C)[None]
     band = (C * ll + m <= 2 * r)
+    win = np.full((H, C), np.nan, np.float32)
+
+    def load(cols):
+        got = np.full(cols.shape, np.nan, np.float32)
+        inside = (cols >= 0) & (cols < L)
+        got[inside] = ring.read(cols[inside])
+        return got
 
     def step(s):
+        c0 = s + (C - 1) * lanes - r
+        win[:, :-1] = win[:, 1:]
+        win[:, -1] = load(c0 + C - 1)
         rows = s - ll
-        cols = s + (C - 1) * ll - r + m
+        cols = c0[:, None] + m
         take = band & (rows >= 0) & (rows < L) & (cols >= 0) & (cols < L)
-        assert np.array_equal(ring.read(cols[take]), x[cols[take]])
+        assert np.array_equal(win[take], x[cols[take]])
 
+    ring.ensure(reach)
+    for k in range(C - 1):
+        win[:, k + 1] = load((C - 1) * lanes - r + k)
     s = 0
     while s < end:
         n = 8 if a <= s and s + 8 <= b else 1
@@ -712,13 +731,13 @@ def _wave_ring_reads(x, r, cells):
 
 @pytest.mark.parametrize("L", [1025, 2709, 8192])
 def test_ring_windows_read_what_the_whole_rows_read(L):
-    """The ring routes' column windows (L > 1024: dtw_search's ring2 /
-    ring4 / ring8, dtw_scan's ring routes at 16 cells a lane and at the
-    width each radius takes) at lengths past what a block stages whole:
-    every column a lane reads has landed in its slot and is not being
-    overwritten, and equals the whole row's value there, for radii across
-    each route's range; the rings are those ring_size gives, a few KB,
-    whatever L."""
+    """The ring routes' column windows (L > 1024: dtw_search's ring
+    routes, the width each radius takes and the widest, 16; dtw_scan's
+    ring routes at 16 cells a lane and at the width each radius takes) at
+    lengths past what a block stages whole: every column a lane reads has
+    landed in its slot and is not being overwritten, and equals the whole
+    row's value there, for radii across each route's range; the rings are
+    those ring_size gives, a few KB, whatever L."""
     rng = np.random.default_rng(L)
     x = rng.standard_normal(L).astype(np.float32)
     for r in (17, 27, 81, 135, 255):
@@ -726,11 +745,12 @@ def test_ring_windows_read_what_the_whole_rows_read(L):
             assert _scan_ring_reads(x, r, C) >= L
             H = -(-(2 * r + 1) // C)
             assert kdtw.ring_size(C, H) <= 1024
-    for route, rs in (("ring2", (0, 12, 27, 31)), ("ring4", (40, 63)),
-                      ("ring8", (81, 127)), ("ring16", (128, 135, 255))):
-        for r in rs:
-            assert kdtw.dp_route(r, L) == route
-            assert _wave_ring_reads(x, r, kdtw.wave_cells(route)) > 0
+    for r in (0, 12, 27, 31, 32, 40, 81, 127, 135, 200, 255):
+        C = kdtw.search_ring_cells(r)
+        assert kdtw.dp_route(r, L) == f"ring{C}"
+        for c in sorted({C, 16}):
+            assert _wave_ring_reads(x, r, c) >= L
+            assert kdtw.ring_size(c, -(-(2 * r + 1) // c)) <= 1024
 
 
 def _scan_ring_warp(q, xs, r, cells):
@@ -1074,6 +1094,98 @@ def test_spread_rounds_equal_the_loop_of_rounds(N, rk, spec, per, noise):
         assert all(g[4] == g[3] for g in got)
 
 
+def _ring_rounds(sorted_lb, order, d_pairs, round_k, spec, per, slots,
+                 rng):
+    """dtw_search's ring route's loop (csrc/dtw.cu search_ring) for each
+    query, over given pair distances: the first iteration's window is one
+    round of round_k positions, the later ones' spec rounds; window position
+    j goes to CTA j % per, whose positions i (j = cta + per i) its warps
+    take in batches of `slots` pairs, each pair the candidate below the
+    best-so-far of the iteration's start; a pair's DP is abandoned against
+    that best-so-far, so a distance at or above it may come back as BIG
+    (here at random: a warp stops once every pair of it can no longer
+    win).  Then the rounds are applied in order as the loop of single
+    rounds (apply_rounds): the stop before each, the candidates below the
+    best-so-far of the moment (each asserted computed), their first
+    minimum.  Returns (bsf, best, rounds, refined, distances computed) a
+    query."""
+    big = np.float32(ref.BIG)
+    out = []
+    for lb, ord_, dq in zip(sorted_lb.numpy(), order.numpy(),
+                            d_pairs.numpy()):
+        N = len(lb)
+        end = -(-N // round_k) * round_k
+        bsf, best, rounds, refined, done = big, -1, 0, 0, 0
+        go = end > 0 and lb[0] < bsf
+        cursor, sp = 0, 1
+        while go:
+            win = sp * round_k
+            here = min(win, N - cursor)
+            have = {}
+            for cta in range(per):
+                mine = len(range(cta, here, per))
+                for i0 in range(0, mine, slots):
+                    for i in range(i0, min(i0 + slots, mine)):
+                        j = cta + per * i
+                        if lb[cursor + j] < bsf:
+                            d = dq[ord_[cursor + j]]
+                            have[j] = big if d >= bsf and rng.random() < 0.5 \
+                                else d
+            done += len(have)
+            on = True
+            for u in range(sp):
+                cu = cursor + u * round_k
+                if u > 0:
+                    on = on and cu < end and lb[cu] < bsf
+                if not on:
+                    break
+                key, nt = (big, round_k), 0
+                for j in range(round_k):
+                    pos = cu + j
+                    if pos < N and lb[pos] < bsf:
+                        key = min(key, (have[pos - cursor], j))
+                        nt += 1
+                if key[0] < bsf:
+                    bsf, best = key[0], int(ord_[cu + key[1]])
+                rounds += 1
+                refined += nt
+            cursor += win
+            sp = spec
+            go = on and cursor < end and lb[cursor] < bsf
+        out.append((float(bsf), best, rounds, refined, done))
+    return out
+
+
+@pytest.mark.parametrize("N,rk,spec,per,slots,noise", [
+    (300, 32, 8, 33, 16, 0.3), (300, 32, 1, 4, 32, 0.3),
+    (301, 16, 3, 5, 2, 0.5), (200, 7, 8, 2, 1, 0.2), (37, 64, 8, 3, 4, 0.4),
+    (500, 5, 2, 1, 8, 0.6), (4096, 32, 8, 4, 16, 0.1)])
+def test_ring_rounds_equal_the_loop_of_rounds(N, rk, spec, per, slots,
+                                              noise):
+    """The ring route's iterations (_ring_rounds: the first of one round,
+    since before it the best-so-far is BIG and no DP can be abandoned,
+    the rest of spec rounds, a round's positions over a query's `per`
+    CTAs in batches of their pair slots, abandoned DPs coming back as
+    BIG) give dtw_search_ref's bsf, id, rounds and candidates refined
+    whatever spec, per and the slots; every distance a round reads was
+    computed at its iteration's start, and the iterations compute at
+    least the loop's candidates.  The geometry's spec is spread_spec's."""
+    rng = np.random.default_rng(N + rk + spec)
+    L, r, Q = 48, 6, 4
+    x = isax.znormalize(torch.as_tensor(
+        np.cumsum(rng.standard_normal((N, L)), 1), dtype=torch.float32))
+    q = x[torch.as_tensor(rng.integers(0, N, Q))] + noise * torch.as_tensor(
+        rng.standard_normal((Q, L)), dtype=torch.float32)
+    s, o = torch.sort(ref.lb_keogh_ref(q, x, r), dim=1, stable=True)
+    dp = ref.dtw_band_ref(q[:, None], x[None], r)
+    want = ref.dtw_search_ref(q, x, s, o, r, rk, d_pairs=dp)
+    g = kdtw.ring_search_geometry(Q, N, 1100, r, rk, 2)
+    assert g["spec"] == kdtw.spread_spec(N, rk)
+    got = _ring_rounds(s, o, dp, rk, spec, per, slots, rng)
+    assert [t[:4] for t in got] == list(zip(*(w.tolist() for w in want)))
+    assert all(t[4] >= t[3] for t in got)
+
+
 @pytest.mark.parametrize("r", [0, 7, 17, 25, 51, 102, 127, 200, 255])
 def test_wavefront_model_at_16_cells_equals_the_band(r):
     """ref.dtw_wavefront_ref at the scan's widest route, 16 cells a lane,
@@ -1168,6 +1280,164 @@ def test_clamp_excursion_has_the_bits_of_repros_form():
     np.testing.assert_array_equal(
         (e * e).view(torch.int32).numpy(),
         np.asarray(above * above + below * below).view(np.int32))
+
+
+def _fma32(e, acc):
+    """fmaf(e, e, acc) of float32 arrays, in float64 (e * e exact there)
+    rounded once more to float32: the same arithmetic wherever it is used
+    below, so two sums agree bit for bit iff their addends and order do."""
+    return (e.astype(np.float64) ** 2 + acc.astype(np.float64)).astype(
+        np.float32)
+
+
+def _lb_long_program(q, x, r, slots, base, grid):
+    """csrc/dtw.cu's lb_envelope and lb_long (LB_Keogh past L 1,024) in
+    numpy, step for step: the envelopes in rows of Lp points, Qg rounded
+    up to `slots` rows ((0, 0) past a query's L and past Qg); `grid`
+    blocks taking (task group, query group) units in turn (unit u by block
+    u % grid), LB_WARPS tasks a unit, 32 lanes of LB_LANE_SERIES series a
+    task; each series read as aligned 16-byte pieces of the collection
+    laid out from float offset `base` (the row's point 0 at its offset
+    mod 4 in the first), a piece loaded only where it holds a point of
+    the row, each one loaded holding a float of the collection, 4 points
+    a step through the funnel, 0 past L; the sums in registers over every
+    column in order, 2 points a pass.  Returns (out (Qg, N), the columns
+    each (query, series) sum took, in order)."""
+    Qg, L = q.shape
+    N = x.shape[0]
+    G, S, W = slots, kdtw.LB_LANE_SERIES, kdtw.LB_WARPS
+    Lp = -(-L // 4) * 4
+    rows = -(-Qg // G) * G
+    lo, hi = (t.numpy() for t in ref.dtw_envelope(_t(q), r))
+    env = np.zeros((rows, Lp, 2), np.float32)
+    env[:Qg, :L, 0], env[:Qg, :L, 1] = lo, hi
+    flat = np.zeros(base + N * L + 8, np.float32)
+    flat[base:base + N * L] = x.ravel()
+    tasks = -(-N // (32 * S))
+    units = -(-tasks // W) * (rows // G)
+    out = np.full((Qg, N), np.nan, np.float32)
+    took = [[[] for _ in range(N)] for _ in range(Qg)]
+    lanes = np.arange(32)
+    for b in range(grid):
+        for u in range(b, units, grid):
+            tg, g0 = u // (rows // G), u % (rows // G) * G
+            for w in range(W):
+                t = tg * W + w
+                if t >= tasks:
+                    continue
+                n0 = t * 32 * S + lanes
+                ns = [np.minimum(n0 + 32 * s, N - 1) for s in range(S)]
+                starts = [base + n * L for n in ns]
+                a = [st % 4 for st in starts]
+                acc = np.zeros((G, S, 32), np.float32)
+
+                def piece(s, k):
+                    first = 4 * k - a[s]             # the row's point there
+                    at = starts[s] - a[s] + 4 * k    # aligned float offset
+                    assert (at % 4 == 0).all()
+                    got = np.zeros((32, 4), np.float32)
+                    live = first < L
+                    assert (at[live] < base + N * L).all()
+                    for p in range(4):
+                        got[live, p] = flat[at[live] + p]
+                    return got
+                pa = [piece(s, 0) for s in range(S)]
+                pb = [piece(s, 1) for s in range(S)]
+                for j in range(0, Lp, 4):
+                    xc = np.zeros((S, 32, 4), np.float32)
+                    for s in range(S):
+                        both = np.concatenate([pa[s], pb[s]], 1)
+                        for p in range(4):
+                            xc[s, :, p] = both[lanes, a[s] + p]
+                            if j + p >= L:
+                                xc[s, :, p] = 0
+                    for h in (0, 2):
+                        for g in range(G):
+                            for p in (h, h + 1):
+                                elo, ehi = env[g0 + g, j + p]
+                                for s in range(S):
+                                    v = xc[s, :, p]
+                                    e = v - np.minimum(np.maximum(v, elo),
+                                                       ehi)
+                                    acc[g, s] = _fma32(e, acc[g, s])
+                                    for n in (n0 + 32 * s):
+                                        if g0 + g < Qg and n < N:
+                                            took[g0 + g][n].append(j + p)
+                    pa = pb
+                    pb = [piece(s, j // 4 + 2) for s in range(S)]
+                for g in range(G):
+                    for s in range(S):
+                        for lane, n in enumerate(n0 + 32 * s):
+                            if g0 + g < Qg and n < N:
+                                assert np.isnan(out[g0 + g, n])
+                                out[g0 + g, n] = acc[g, s, lane]
+    return out, took
+
+
+@pytest.mark.parametrize("L,N,Qg,base,grid", [
+    (1025, 70, 5, 0, 3), (1031, 129, 9, 1, 2), (1100, 64, 32, 3, 5),
+    (1027, 200, 17, 2, 1)])
+def test_lb_long_program_keeps_one_pass(L, N, Qg, base, grid):
+    """LB_Keogh past L 1,024 (lb_long_program, the kernels' loops in
+    numpy) at each query-slot count lb_slots may take: every (query,
+    series) sum written once, its addends every column 0 .. Lp - 1 in
+    order (the padded points adding 0), so its bits are a one-pass sum's
+    over the same excursions (ref.lb_keogh_ref's order of points, its e^2
+    bits by test_clamp_excursion_has_the_bits_of_repros_form), whatever
+    the blocks, units and the collection's alignment; and within 1e-5 of
+    ref.lb_keogh_ref and repro's lb_keogh.  The launch geometry: the
+    envelope scratch, the units and the staged envelopes within shared
+    memory for every slot count."""
+    rng = np.random.default_rng(L + N)
+    x = np.cumsum(rng.standard_normal((N, L)), 1).astype(np.float32)
+    q = np.cumsum(rng.standard_normal((Qg, L)), 1).astype(np.float32)
+    r = L // 20
+    lo, hi = (t.numpy() for t in ref.dtw_envelope(_t(q), r))
+    Lp = -(-L // 4) * 4
+    want = ref.lb_keogh_ref(_t(q), _t(x), r).numpy()
+    jwant = np.stack([np.asarray(J.lb_keogh(jnp.asarray(qi), jnp.asarray(x),
+                                            r)) for qi in q])
+    for G in kdtw.LB_SLOTS_ALL:
+        if G >= Qg + 8:
+            continue
+        got, took = _lb_long_program(q, x, r, G, base, grid)
+        assert all(t == list(range(Lp)) for row in took for t in row)
+        one = np.zeros((Qg, N), np.float32)
+        for j in range(L):
+            e = x[None, :, j] - np.minimum(np.maximum(
+                x[None, :, j], lo[:, j, None]), hi[:, j, None])
+            one = _fma32(e, one)
+        assert got.tobytes() == one.tobytes()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got, jwant, rtol=1e-5, atol=1e-5)
+        g = kdtw.lb_long_geometry(Qg, N, L)
+        assert g["slots"] == kdtw.lb_slots(Qg, N) in kdtw.LB_SLOTS_ALL
+        assert g["rows"] % g["slots"] == 0 and Qg <= g["rows"] < Qg + 32
+        assert g["env_bytes"] == 8 * g["rows"] * Lp
+        assert g["units"] == -(-g["tasks"] // kdtw.LB_WARPS) * (
+            g["rows"] // g["slots"])
+        assert 8 * G * kdtw.LB_CHUNK <= 200 * 1024
+
+
+def test_lb_slots_fill_the_card():
+    """lb_slots: the most queries a unit whose warps reach LB_FILL_WARPS
+    (the long cell's 32 queries over 2^16 series: 32, 1,024 warps; over
+    2^14: 8, 1,024 warps), never more than Qg rounded up to 8."""
+    assert kdtw.LB_SLOTS_ALL == (32, 16, 8) and kdtw.LB_FILL_WARPS == 1024
+    assert kdtw.lb_slots(32, 1 << 16) == 32
+    assert kdtw.lb_slots(32, 1 << 15) == 16
+    assert kdtw.lb_slots(32, 1 << 14) == 8
+    assert kdtw.lb_slots(32, 1 << 22) == 32
+    assert kdtw.lb_slots(4, 256) == kdtw.lb_slots(8, 1 << 20) == 8
+    assert kdtw.lb_slots(9, 1 << 20) == kdtw.lb_slots(17, 1 << 20) == 16
+    assert kdtw.lb_slots(25, 1 << 20) == 32
+    for Qg in range(1, 33):
+        for N in (1, 100, 1 << 14, 1 << 16, 1 << 20):
+            G = kdtw.lb_slots(Qg, N)
+            tasks = -(-N // (32 * kdtw.LB_LANE_SERIES))
+            assert G < Qg + 8
+            more = [c for c in kdtw.LB_SLOTS_ALL if G < c < Qg + 8]
+            assert all(tasks * -(-Qg // c) < kdtw.LB_FILL_WARPS for c in more)
 
 
 # --------------------------------------------- isax's distance helpers
@@ -1267,6 +1537,25 @@ def test_long_series_answer_as_repro(L, band):
     _same_answers(d, i, jd, ji)
     jd, ji = J.search_dtw_bruteforce(jnp.asarray(X), jnp.asarray(Qs), r=r)
     d, i = T.search_dtw_bruteforce(X, Qs, r=r, device="cpu")
+    _same_answers(d, i, jd, ji)
+
+
+@pytest.mark.parametrize("L,r", [(1100, 27), (1100, 81), (1031, 135)])
+def test_ring_radii_past_1024_answer_as_repro(L, r):
+    """The radii of the long cell's ring routes past L 1,024 (r 27, 81 and
+    135: 2, 6 and 10 cells a lane on the card) at small L: lb_keogh within
+    1e-5 of repro's, and search_dtw's ids (but at ties) and distances
+    (rtol 1e-5) equal to repro's, both on the CPU."""
+    rng = np.random.default_rng(L + r)
+    X, Qs = _walks(rng, 24, L, 5)
+    q, x = isax.znormalize(_t(Qs)), isax.znormalize(_t(X))
+    jlb = np.stack([np.asarray(J.lb_keogh(jnp.asarray(qi),
+                                          jnp.asarray(x.numpy()), r))
+                    for qi in q.numpy()])
+    np.testing.assert_allclose(kdtw.lb_keogh(q, x, r=r).numpy(), jlb,
+                               rtol=1e-5, atol=1e-5)
+    jd, ji = J.search_dtw(jnp.asarray(X), jnp.asarray(Qs), r=r, round_k=8)
+    d, i = T.search_dtw(X, Qs, r=r, round_k=8, device="cpu")
     _same_answers(d, i, jd, ji)
 
 

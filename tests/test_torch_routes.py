@@ -204,18 +204,22 @@ DTW_LENGTHS = (1, 7, 100, 256, 1000, 1024, 1025, 1100, 2709, 8192, 16384,
 def test_every_dtw_shape_has_a_route(L):
     """Every L, r (clamped to L - 1, as the wrappers do), round_k and Q
     repro answers gets a route of each DTW kernel, whose launch geometry
-    fits a block: the LB in launches of lb_group(L) queries and
-    lb_chunk(L) columns (envelopes within 200 KiB); the search's wave
-    routes to L 1024, its ring routes above (a few KB of ring a pair,
-    whatever L; ring16 to r 255), the spread route past them or
-    round_k 1024, the diag route where a strip row passes shared memory; the
-    scan's band, wave16 / ring16, chain and diag routes, the chunk's
-    queries at most 32 and the grid's query dimension in launches of
-    65,535 (any Q)."""
-    G, chunk = dtw.lb_group(L), dtw.lb_chunk(L)
-    assert G % 8 == 0 and 8 <= G <= 32 and 1 <= chunk <= L
-    assert chunk == L or chunk % 4 == 0
-    assert G * 8 * (-(-chunk // 4) * 4) <= 200 * 1024
+    fits a block: the LB in launches of lb_group(L) queries (envelopes
+    within 200 KiB to L 1,024; past it, the envelopes in device scratch
+    and no shared memory); the search's wave routes to L 1024, its ring
+    routes above (a few KB of ring a pair, whatever L; ring16 to r 255),
+    the spread route past them or round_k 1024, the diag route where a
+    strip row passes shared memory; the scan's band, wave16 / ring16,
+    chain and diag routes, the chunk's queries at most 32 and the grid's
+    query dimension in launches of 65,535 (any Q)."""
+    G = dtw.lb_group(L)
+    assert G % 8 == 0 and 8 <= G <= 32
+    if L <= 1024:
+        assert G * 8 * (-(-L // 4) * 4) <= 200 * 1024
+    else:
+        g = dtw.lb_long_geometry(G, 1 << 16, L)
+        assert g["slots"] in (8, 16, 32) and g["rows"] % g["slots"] == 0
+        assert g["rows"] >= G and g["env_bytes"] == 8 * g["rows"] * g["Lp"]
     assert dtw.lb_route(L) in ("vec", "scalar")
     for r in sorted({0, 1, 12, 16, 17, 27, 31, 81, 127, 128, 255, 256,
                      1000, 25599, 25600, 39999}):
@@ -235,13 +239,20 @@ def test_every_dtw_shape_has_a_route(L):
                 assert 1 <= g["slots"] <= min(round_k, 1 << 20)
                 assert g["bytes"] <= dtw._DIAG_SCRATCH + 8 * 32 * (
                     4 + 1 + min(round_k, 1 << 20) + g["width"])
-            else:
-                assert route[:4] == ("wave" if L <= 1024 else "ring")
-                assert round_k <= 1024 and r <= {
-                    **dtw.WAVE_MAX_R, **dtw.RING_MAX_R}[route]
+            elif L <= 1024:
+                assert route[:4] == "wave" and round_k <= 1024
+                assert r <= dtw.WAVE_MAX_R[route]
                 t = dtw.band_threads(r, L, round_k, dtw.wave_cells(route))
-                assert t % 32 == 0 and 32 <= t <= (
-                    1024 if dtw.wave_cells(route) < 16 else 512)
+                assert t % 32 == 0 and 32 <= t <= 1024
+            else:
+                assert route == f"ring{dtw.search_ring_cells(r)}"
+                assert round_k <= 1024 and r <= dtw.MAX_RING_R
+                g = dtw.ring_search_geometry(32, 1 << 20, L, r, round_k,
+                                             dtw.wave_cells(route))
+                assert g["threads"] % 32 == 0
+                assert 32 <= g["threads"] <= dtw.ring_threads(
+                    dtw.wave_cells(route))
+                assert g["lanes"] <= 32 and g["smem"] <= 200 * 1024
         scan = dtw.scan_route(r, L)
         assert scan == dtw.scan_routes(r, L)[0]
         assert "diag" in dtw.scan_routes(r, L)
@@ -273,20 +284,27 @@ def test_dtw_shapes_before_the_rings_keep_their_routes():
     assert dtw.dp_route(12) == "wave2" and dtw.scan_route(12) == "band"
     assert dtw.scan_route(25) == "wave16" and dtw.dp_route(200) == "spread"
     assert dtw.band_threads(12, 256, 32) == 512
-    assert dtw.lb_group(1024) == 24 and dtw.lb_chunk(1024) == 1024
+    assert dtw.lb_group(1024) == 24 and dtw.lb_group(100) == 32
     assert dtw.scan_geometry(256, 25, 16, 32)["threads"] == 512
-    # past them
+    # past them: dtw_search's ring routes at the cells a lane their radius
+    # takes (search_ring_cells; ring2 / ring8 / ring16 before), over
+    # persistent CTAs of 512 threads past 2 cells a lane (each query's
+    # cluster of 8 CTAs of band_threads before: 512 at ring16)
     assert dtw.dp_route(27, 2709) == "ring2"
-    assert dtw.dp_route(81, 8192) == "ring8"
-    assert dtw.dp_route(135, 2709) == "ring16"
+    assert dtw.dp_route(81, 8192) == "ring6"
+    assert dtw.dp_route(135, 2709) == "ring10"
     assert dtw.dp_route(255, 1025) == "ring16"
     assert dtw.dp_route(256, 1025) == "spread"
-    assert dtw.band_threads(135, 2709, 32, 16) == 512
+    assert dtw.ring_search_geometry(32, 1 << 16, 2709, 135, 32,
+                                    10)["threads"] == 512
     assert dtw.dp_route(12, 64, 2048) == "spread"
     assert dtw.scan_route(27, 2709) == "ring16"
     assert dtw.scan_route(135, 2709) == "ring18"    # 16 cells a lane: 17
     assert dtw.scan_route(16, 65600) == "band"
-    assert (dtw.lb_group(2709), dtw.lb_chunk(2709)) == (32, 800)
+    # the LB past L 1,024: 32 queries a launch pair (the envelopes, then
+    # the sums over every column: 4 launches of 800 columns before)
+    assert dtw.lb_group(2709) == 32
+    assert dtw.lb_long_geometry(32, 1 << 16, 2709)["Lp"] == 2712
     # a strip row past a block's shared memory: the diag routes, the
     # rows in device scratch; below, the search's spread route (and the
     # scan's chain route) with the rows in shared memory
@@ -496,3 +514,44 @@ def test_float32_halves_take_any_t_in_one_launch(name):
     for T in (1, 4096, top, top + 1, 4 * top + 1):
         assert flash_attention.query_launches(T, name) == 1
     assert flash_attention.query_launches(top + 1, "simt128") == 2
+
+
+def test_ring_search_cells_by_radius():
+    """dtw_search past L 1,024 takes its cells a lane by radius
+    (search_ring_cells): of the even widths 2-16 whose lanes hold the
+    band (at most 32 a pair), the least C (1 + 1 / P), a DP's chain (C a
+    step) plus a busy card's cost a pair (C / P, the scan's measure of
+    idle lanes), the narrowest on ties.  That is the narrowest width at
+    every radius 0-255: the lanes of a pair past r 15 are 17 to 32.  The
+    long cell's radii: r 27 keeps 2 cells (H 28), r 81 takes 6 (H 28,
+    where ring8 left 11 of 32 lanes idle), r 135 10 (H 28, where ring16
+    left 15 idle); the long queries' r 12, 40, 200 take 2, 4, 14.  Every
+    width's CTA fits shared memory at every radius it takes, the query
+    staged or not."""
+    def cost(r, c):
+        return c * (1 + 1 / dtw.scan_lanes(r, c)[1])
+    for r in range(256):
+        widths = dtw.ring_widths(r)
+        C = dtw.search_ring_cells(r)
+        assert C == widths[0] and widths[-1] == 16
+        assert cost(r, C) == min(cost(r, c) for c in widths)
+        H, P = dtw.scan_lanes(r, C)
+        assert H * P <= 32 and (C == 2 or dtw.scan_lanes(r, C - 2)[0] > 32)
+        if r > 15:
+            assert P == 1 and 17 <= H <= 32
+        assert dtw.dp_route(r, 2709) == f"ring{C}"
+        assert dtw.dp_routes(r, 2709)[:len(widths)] == tuple(
+            f"ring{c}" for c in widths)
+        for c in widths:
+            for L in (1025, 16384, 16385):
+                g = dtw.ring_search_geometry(4, 256, L, r, 256, c)
+                assert g["smem"] <= 200 * 1024 and g["threads"] % 32 == 0
+                assert 32 <= g["threads"] <= dtw.ring_threads(c)
+                assert g["ring"] == dtw.ring_size(c, g["lanes"]) <= 1024
+    assert [dtw.search_ring_cells(r) for r in (27, 81, 135)] == [2, 6, 10]
+    assert [dtw.scan_lanes(r, c)[0] for r, c in ((27, 2), (81, 6), (135, 10),
+                                                 (81, 8), (135, 16))] \
+        == [28, 28, 28, 21, 17]
+    assert [dtw.search_ring_cells(r) for r in (12, 40, 200, 255)] == \
+        [2, 4, 14, 16]
+    assert dtw.ring_threads(2) == 1024 and dtw.ring_threads(4) == 512
