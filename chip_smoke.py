@@ -19,7 +19,9 @@ Phases, each printing one JSON line:
              search_spread at 4 and 8 rows a lane), of dtw_search's ring
              instances (search_ring, 2 to 16 cells a lane) and of
              LB_Keogh's past L 1,024 (lb_envelope, lb_long at 8, 16 and 32
-             query slots), each required to spill nothing;
+             query slots), and of refine_search's search_kernel and
+             search_general at each storage type, each required to spill
+             nothing;
   kernel     each CUDA kernel against its plain PyTorch version on the card,
              at its path's shapes, with its time, the plain version's time,
              a PyTorch library call's time where one computes the same
@@ -70,11 +72,14 @@ Phases, each printing one JSON line:
              summarize strided at L 96 / w 16 (f32, bf16) and L 100 / w 10,
              lb_distance looped at w 32 and 10, refine_topk general at bf16
              L 100 and at k 16,000 (each bit-equal to its round folded
-             slot by slot), refine_search at k 5000 (2 CTAs an SM),
-             at leaves of 256 and K 64 (1 CTA an SM), at k 20,000 and bf16
-             L 100 (general), ed_argmin at L 100 f32 (TMA), L 100 bf16
-             and L 235 f32 (the staged loader), each beside one torch.mm
-             at its shape, the staged loader bit-equal to TMA at L 256
+             slot by slot), refine_search at k 5000 and 20,000 (the
+             buffer spread over the cluster), at leaves of 256 and K 64
+             (k 10) and bf16 L 100 (general), k 5000, leaves of 256, k
+             2000 and bf16 storage at k 5000 each bit-equal to the loop of
+             refine_topk ring launches, an index storing each walk three
+             times at k 5000 and 20,000, ed_argmin at L 100 f32 (TMA), L
+             100 bf16 and L 235 f32 (the staged loader), each beside one
+             torch.mm at its shape, the staged loader bit-equal to TMA at L 256
              and L 100 and held at odd rows and bases; flash_attention's
              routes beside granite's (ATTN_ROWS: tc96, tc256, tc320,
              tc512, simt96, tf256, staged128 at dh 100 beside its TMA
@@ -230,8 +235,8 @@ Phases, each printing one JSON line:
              dh 100 and its TMA twin at 104, the wide route at 576), its
              launches its table row's.
 refine_search is held under the (1 + eps) stop (inv_eps 1 / 1.25^2) on
-every route too: cta3 in the kernel phase, cta2, cta1 and general in the
-route phase.
+every route too: cta3 in the kernel phase, spread3 (k 5000), spread2 (k
+20,000), cta2 (leaves of 256) and general in the route phase.
 Each of main, rounds, scan, approx, sharded, serve, l96, lifecycle, dtw,
 dtw_wide and attention sets every launch count to 0 before it and requires each
 kernel (and route) of its path to have launched, and every kernel of
@@ -368,6 +373,22 @@ def attention_ptxas(log: str) -> dict:
         require(found[0].get("spill_stores") == 0
                 and found[0].get("spill_loads") == 0,
                 f"ptxas: {route} spills: {found[0]}")
+    return out
+
+
+def refine_ptxas(log: str) -> dict:
+    """refine_search's instances in refine.cu's build log (search_kernel
+    and search_general at float32, bfloat16 and float16): each must
+    spill nothing.  Returns each one's registers."""
+    out = {}
+    for name, e in ptxas_entries(log).items():
+        m = re.search(r"(search_kernel|search_general)I(\w+?)E", name)
+        if m:
+            what = f"{m[1]}<{m[2]}>"
+            require(e.get("spill_stores") == 0 and e.get("spill_loads") == 0,
+                    f"ptxas: {what} spills: {e}")
+            out[what] = {"registers": e.get("registers", 0), "spill_bytes": 0}
+    require(len(out) == 6, f"ptxas: refine_search instances {sorted(out)}")
     return out
 
 
@@ -1031,12 +1052,15 @@ def hold_loop(torch, search, rk, ref, idx, queries, K, what, k=TOPK):
     row = hold_search(torch, got, want, sorted_lb, true_d, tol, what, K)
     work = search_work(idx, order, got, K, k)
     bms, by = work.work.bound()
+    # what the queries read one by one, at the memory rate: beside the
+    # longest query's rounds, the cost of a serial chain of rounds
+    own_ms = rl.bound_ms(work.own_leaf_bytes, 0)[0]
     return dict(row, route=rk.route(idx.series.shape[1], K, M_, k,
                                     idx.series.dtype),
                 tol=tol, rounds=rounds_stats(got[2]),
                 alive_slots=int(got[3].sum()), alive_leaves=work.leaves,
-                ms=ms,
-                plain_ms=plain, bound_ms=bms, bound_by=by)
+                ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                own_leaf_ms=own_ms)
 
 
 def hold_eps(torch, search, rk, ref, idx, queries, K_, k_, what, eps=0.25):
@@ -1588,24 +1612,46 @@ def route_refine_topk(torch, isax, rk, ref, gen, NL=2048):
                      rows)
 
 
+def topk_equal(torch, search, rk, topk, idx, queries, K_, k_, what):
+    """refine_search's (d, e, rounds, alive) bit-equal to the global loop
+    of refine_topk ring launches over the same queue (topk_loop): the
+    fold by selection and merge against the ring route's pairwise rank,
+    on distances of the same code (warp_d2)."""
+    M_, Lx, dt = idx.leaf_capacity, idx.series.shape[1], idx.series.dtype
+    require(topk.route(Lx, K_, M_, k_, dt) == "ring",
+            f"{what}: refine_topk takes {topk.route(Lx, K_, M_, k_, dt)}")
+    q, q_sq, order, sorted_lb = refine_inputs(search, idx, queries, K_)
+    args = (q, q_sq, idx.series, idx.sq_norms, order, sorted_lb)
+    got = run_loop(torch, rk, args, K_, M_, k_)
+    loop = topk_loop(torch, topk, args, K_, M_, k_)
+    require(all(torch.equal(a, b) for a, b in zip(got, loop)),
+            f"{what}: not bit-equal to the loop of refine_topk launches")
+    return "bit-equal (buffers, rounds, alive)"
+
+
 def route_refine_search(torch, api, search, rk, ref, gen, n=1 << 18):
     """refine_search's other routes against refine_search_ref (hold_loop)
-    on real indexes of n walks: k 5000 (shared memory for 2 CTAs an SM),
-    leaves of 256 and K 64 at k 10 (1 CTA an SM), k 20,000 (the general
-    route, buffers in global scratch), and bf16 rows of 100 with w 10 (the
-    general route, rows not whole 16-byte pieces)."""
+    on real indexes of n walks: k 5000 and k 20,000 (the buffer spread
+    over the cluster), leaves of 256 and K 64 at k 10 (K * M = 16,384
+    candidates a round), and bf16 rows of 100 with w 10 (the general
+    route, rows not whole 16-byte pieces).  Beside them: k 5000 and
+    leaves of 256 bit-equal to the loop of refine_topk ring launches
+    (topk_equal), as are k 2000 on the same leaves and k 5000 in bf16
+    storage; an index storing each walk three times (every distance a
+    three-way tie) at k 5000 (also bit-equal to that loop) and k
+    20,000."""
+    from repro_torch.kernels import refine as topk
     raw = walks(torch, gen, n, L)
     pick = torch.randint(0, n, (Q,), generator=gen, device=DEV)
     queries = raw[pick] + 0.1 * torch.randn(Q, L, generator=gen, device=DEV)
     f32 = api.FreshIndex.build(raw, device=DEV).index
     wide = api.FreshIndex.build(raw, api.IndexConfig(leaf_capacity=256),
                                 device=DEV).index
-    del raw
     rows = {}
     for name, idx, K_, k_, nq, want in (
-            ("k5000", f32, K, 5000, 16, "cta2"),
-            ("M256_K64", wide, 64, TOPK, 64, "cta1"),
-            ("k20000", f32, K, 20000, 16, "general")):
+            ("k5000", f32, K, 5000, 16, "spread3"),
+            ("M256_K64", wide, 64, TOPK, 64, "cta2"),
+            ("k20000", f32, K, 20000, 16, "spread2")):
         got = rk.route(L, K_, idx.leaf_capacity, k_, idx.series.dtype)
         require(got == want, f"refine_search {name}: route {got}")
         rows[name] = hold_loop(torch, search, rk, ref, idx, queries[:nq], K_,
@@ -1615,7 +1661,36 @@ def route_refine_search(torch, api, search, rk, ref, gen, n=1 << 18):
                                        f"refine_search {name} eps")
         require(rows[f"{name}_eps"]["route"] == want,
                 f"refine_search {name} eps: route")
+        if k_ <= 5000:
+            rows[name]["topk_loop"] = topk_equal(
+                torch, search, rk, topk, idx, queries[:nq], K_, k_,
+                f"refine_search {name}")
+    rows["k2000"] = hold_loop(torch, search, rk, ref, f32, queries[:16], K,
+                              "refine_search k 2000", 2000)
+    rows["k2000"]["topk_loop"] = topk_equal(
+        torch, search, rk, topk, f32, queries[:16], K, 2000,
+        "refine_search k 2000")
     del f32, wide
+    bf16 = api.FreshIndex.build(raw, api.IndexConfig(dtype="bfloat16"),
+                                device=DEV).index
+    rows["bf16_k5000"] = hold_loop(torch, search, rk, ref, bf16, queries[:16],
+                                   K, "refine_search bf16 k 5000", 5000)
+    rows["bf16_k5000"]["topk_loop"] = topk_equal(
+        torch, search, rk, topk, bf16, queries[:16], K, 5000,
+        "refine_search bf16 k 5000")
+    del bf16
+    # each walk stored three times: every distance a three-way tie, the
+    # k-th value's ties past any room a fold could keep for them
+    third = n // 3
+    ties = api.FreshIndex.build(raw[:third].repeat(3, 1), device=DEV).index
+    for name, k_ in (("ties_k5000", 5000), ("ties_k20000", 20000)):
+        rows[name] = hold_loop(torch, search, rk, ref, ties,
+                               raw[pick[:16] % third], K,
+                               f"refine_search {name}", k_)
+    rows["ties_k5000"]["topk_loop"] = topk_equal(
+        torch, search, rk, topk, ties, raw[pick[:16] % third], K, 5000,
+        "refine_search ties k 5000")
+    del ties, raw
     raw = walks(torch, gen, n // 4, 100)
     pick = torch.randint(0, n // 4, (64,), generator=gen, device=DEV)
     queries = raw[pick] + 0.1 * torch.randn(64, 100, generator=gen,
@@ -1630,19 +1705,22 @@ def route_refine_search(torch, api, search, rk, ref, gen, n=1 << 18):
     rows["bf16_L100_eps"] = hold_eps(torch, search, rk, ref, idx, queries, K,
                                      TOPK, "refine_search bf16 L 100 eps")
     out = []
-    for name, route, shape in (
-            ("k5000", "cta2", f"{n} walks, Q=16 K={K} M={M} L={L} k=5000"),
-            ("M256_K64", "cta1", f"{n} walks, Q=64 K=64 M=256 L={L} k=10"),
-            ("k20000", "general", f"{n} walks, Q=16 K={K} M={M} L={L} "
-                                  f"k=20000")):
+    for name, shape in (
+            ("k5000", f"{n} walks, Q=16 K={K} M={M} L={L} k=5000"),
+            ("M256_K64", f"{n} walks, Q=64 K=64 M=256 L={L} k=10"),
+            ("k20000", f"{n} walks, Q=16 K={K} M={M} L={L} k=20000")):
         r = rows[name]
-        out.append(route_row("refine_search", route,
+        out.append(route_row("refine_search", f"{r['route']}_{name}",
                              "src/repro_torch/kernels/csrc/refine.cu",
                              "src/repro/kernels/refine.py:139", shape,
                              r["max_abs_err"], r["ms"], r["plain_ms"],
                              r["bound_ms"], r["bound_by"],
-                             rows if route == "general" else
-                             {name: r, f"{name}_eps": rows[f"{name}_eps"]}))
+                             {name: r, f"{name}_eps": rows[f"{name}_eps"]}
+                             | ({} if name != "k20000" else {
+                                 n_: rows[n_] for n_ in (
+                                     "k2000", "bf16_k5000", "ties_k5000",
+                                     "ties_k20000", "bf16_L100",
+                                     "bf16_L100_eps")})))
     return out
 
 
@@ -2086,35 +2164,48 @@ def refine_report(torch, search, rk, ref, idx, queries, rounds):
     return report, row, (args, got)
 
 
-def rounds_phase(torch, ops, kmods, args, got):
-    """ops.refine_topk, repro's per-round kernel API, driven through the
-    global loop of rounds over the main cell's queue, as the search ran
-    before refine_search: the same buffers and rounds bit for bit."""
+def topk_loop(torch, topk, args, K_=K, M_=M, k_=TOPK):
+    """The global loop of rounds over a refinement's queue, as repro's
+    while_loop runs it, each round one refine_topk launch (`topk`: the
+    refine module or ops): (d, e, rounds, alive), as refine_search returns
+    them, for its buffers to be held to bit for bit."""
     q, q_sq, series, sq_norms, order, sorted_lb = args
-    for mod in kmods.values():
-        mod.launches = 0
-    bd = torch.full((Q, TOPK), 1e30, device=DEV)
-    be = torch.zeros((Q, TOPK), dtype=torch.int32, device=DEV)
-    rounds = torch.zeros(Q, dtype=torch.int32, device=DEV)
-    t0 = time.perf_counter()
+    nq = q.shape[0]
+    bd = torch.full((nq, k_), 1e30, device=DEV)
+    be = torch.zeros((nq, k_), dtype=torch.int32, device=DEV)
+    rounds = torch.zeros(nq, dtype=torch.int32, device=DEV)
+    n_alive = torch.zeros(nq, dtype=torch.int32, device=DEV)
     cursor = 0
     while cursor < order.shape[1] and bool(
             (sorted_lb[:, cursor] < bd[:, -1]).any()):
         rounds += (sorted_lb[:, cursor] < bd[:, -1]).to(torch.int32)
-        alive = (sorted_lb[:, cursor:cursor + K] < bd[:, -1:]).contiguous()
-        bd, be = ops.refine_topk(q, q_sq, series, sq_norms,
-                                 order[:, cursor:cursor + K].contiguous(),
-                                 alive, bd, be, leaf_capacity=M, k=TOPK)
-        cursor += K
+        alive = (sorted_lb[:, cursor:cursor + K_] < bd[:, -1:]).contiguous()
+        n_alive += alive.sum(1, dtype=torch.int32)
+        bd, be = topk.refine_topk(q, q_sq, series, sq_norms,
+                                  order[:, cursor:cursor + K_].contiguous(),
+                                  alive, bd, be, leaf_capacity=M_, k=k_)
+        cursor += K_
+    return bd, be, rounds, n_alive
+
+
+def rounds_phase(torch, ops, kmods, args, got):
+    """ops.refine_topk, repro's per-round kernel API, driven through the
+    global loop of rounds over the main cell's queue, as the search ran
+    before refine_search: the same buffers and rounds bit for bit."""
+    for mod in kmods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    bd, be, rounds, n_alive = topk_loop(torch, ops, args)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     launches = {"refine_topk": kmods["refine_topk"].launches}
-    require(launches["refine_topk"] == cursor // K > 0,
-            f"refine_topk launches {launches} for {cursor // K} rounds")
+    n_rounds = int(rounds.max())       # the global loop's rounds
+    require(launches["refine_topk"] == n_rounds > 0,
+            f"refine_topk launches {launches} for {n_rounds} rounds")
     require(torch.equal(bd, got[0]) and torch.equal(be, got[1])
-            and torch.equal(rounds, got[2]),
+            and torch.equal(rounds, got[2]) and torch.equal(n_alive, got[3]),
             "the loop of refine_topk rounds and refine_search differ")
-    return {"phase": "rounds", "rounds": cursor // K, "wall_ms": wall,
+    return {"phase": "rounds", "rounds": n_rounds, "wall_ms": wall,
             "launches": launches}, launches
 
 
@@ -5318,6 +5409,8 @@ def main() -> int:
     ptx = {}
     if rep["flash_attention"]["ptxas"]:
         ptx["attention"] = attention_ptxas(rep["flash_attention"]["ptxas"])
+    if rep["refine"]["ptxas"]:
+        ptx["refine_search"] = refine_ptxas(rep["refine"]["ptxas"])
     if rep["dtw"]["ptxas"] and rep["dtw_ring"]["ptxas"]:
         ptx["dtw"] = dtw_ptxas(
             rep["dtw"]["ptxas"] + rep["dtw_ring"]["ptxas"],

@@ -14,7 +14,18 @@ those table rows, checks included:
     attention      route_flash: every ATTN_ROWS row of the tree, and
                    granite-8b's row (GRANITE, bf16, causal: the kernel
                    phase's) by device time
-    refine_search  route_refine_search: cta2, cta1, general
+    refine_search  route_refine_search: the rows at k 5000, at leaves of
+                   256 with K 64 and at k 20,000 by the tree's routes,
+                   each with its checks, and the general route's bf16 L
+                   100 case (`refine_search/general_bf16_L100`)
+    refine_main    refine_search at the main cell (2^24 walks of 256,
+                   leaves of 64, K 8, k 10, 256 collection series plus
+                   N(0, 0.1) noise), the mean of 3 launches after one,
+                   with its route and a hash of its answers (the trees'
+                   must agree)
+    refine_topk    bench_refine_dtw.refine_case on the tree's refine_topk:
+                   K 8, 16 and 264, a first round all alive and rounds
+                   with all, half and 1 in 20 slots alive, device ms
     ed_argmin      route_ed_argmin: L 100 f32 and bf16, L 235
     dtw_long       dtw_long_queries: L 16,400 at r 12, 40 and 200; then
                    (long_rows) dtw_search at that shape at round_k 256
@@ -68,14 +79,16 @@ CUDA card; exits 1 without one.
 from __future__ import annotations
 
 import argparse
+import hashlib
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 import time
 
-GROUPS = ("attention", "refine_search", "ed_argmin", "dtw_long",
-          "dtw_scan", "dtw_band", "dtw_wide")
+GROUPS = ("attention", "refine_search", "refine_main", "refine_topk",
+          "ed_argmin", "dtw_long", "dtw_scan", "dtw_band", "dtw_wide")
 # the dtw_wide group's shapes: (series, queries, L, r, round_k, search)
 WIDE_SWEEP = tuple((256, 4, L, r, k, True) for L, r, k in (
     (256, 128, 32), (256, 192, 32), (256, 255, 32), (1024, 128, 32),
@@ -83,6 +96,29 @@ WIDE_SWEEP = tuple((256, 4, L, r, k, True) for L, r, k in (
     (256, 12, 2048)))
 WIDE_CELLS = ((1 << 16, 32, 2709, 271, 32, True),
               (1 << 16, 32, 1024, 512, 32, False))
+
+
+def main_rows(torch, cs, api, search, rk, gen):
+    """refine_search at the main cell by the tree's route: the mean of 3
+    launches after one, and (route, hash of the buffers and rounds)."""
+    n = 1 << 24
+    raw = cs.walks(torch, gen, n, cs.L)
+    pick = torch.randint(0, n, (cs.Q,), generator=gen, device=cs.DEV)
+    queries = raw[pick] + 0.1 * torch.randn(cs.Q, cs.L, generator=gen,
+                                            device=cs.DEV)
+    idx = api.FreshIndex.build(raw, device=cs.DEV).index
+    del raw
+    q, q_sq, order, sorted_lb = cs.refine_inputs(search, idx, queries)
+    args = (q, q_sq, idx.series, idx.sq_norms, order, sorted_lb)
+    kw = dict(leaf_capacity=cs.M, k=cs.TOPK, round_leaves=cs.K)
+    d, e, rounds = rk.refine_search(*args, **kw)
+    h = hashlib.sha256()
+    for t in (d, e, rounds):
+        h.update(t.cpu().numpy().tobytes())
+    ms = cs.time_ms(torch, lambda: rk.refine_search(*args, **kw), 3, warm=1)
+    route = rk.route(cs.L, cs.K, cs.M, cs.TOPK, idx.series.dtype)
+    return {"refine_search/main": ms}, {"route": route,
+                                        "hash": h.hexdigest()[:16]}
 
 
 def scan_rows(torch, cs, isax, kd, gen):
@@ -302,8 +338,28 @@ def main() -> int:
     if "attention" in groups:
         rows += cs.route_flash(torch, kmods["flash_attention"], ref, gen(2))
     if "refine_search" in groups:
-        rows += cs.route_refine_search(torch, api, search,
-                                       kmods["refine_search"], ref, gen(2))
+        got = cs.route_refine_search(torch, api, search,
+                                     kmods["refine_search"], ref, gen(2))
+        rows += got
+        # the general route's bf16 L 100 case, among a row's checks
+        rows += [{"name": "refine_search/general_bf16_L100",
+                  "ms": r["checks"]["bf16_L100"]["ms"]}
+                 for r in got if "bf16_L100" in r["checks"]][:1]
+    if "refine_main" in groups:
+        ms, extra["refine_main"] = main_rows(torch, cs, api, search,
+                                             kmods["refine_search"], gen(0))
+        rows += [{"name": n, "ms": t} for n, t in ms.items()]
+        torch.cuda.empty_cache()
+    if "refine_topk" in groups:
+        spec = importlib.util.spec_from_file_location(
+            "bench_refine_dtw", os.path.join(os.path.dirname(
+                os.path.abspath(__file__)), "bench_refine_dtw.py"))
+        bench = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(bench)
+        got = bench.refine_case(torch, isax, kmods["refine_topk"], cs,
+                                gen(0), 3)
+        rows += [{"name": f"refine_topk/{n}", "ms": v["device_ms"]}
+                 for n, v in got.items() if isinstance(v, dict)]
     if "ed_argmin" in groups:
         rows += cs.route_ed_argmin(torch, isax, kmods["ed_argmin"], ref,
                                    gen(2))

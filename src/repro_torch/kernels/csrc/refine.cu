@@ -19,8 +19,8 @@
 // Bound on this card: device memory, on the leaf bytes of the alive
 // slots (alive slots * M * (L * sizeof(T) + 4)).  Each leaf row is used
 // once per query, so the dot products (2 * L flops per row) cannot hide
-// the reads; a fold is O((k + 256)^2) compares on data already in shared
-// memory.
+// the reads; refine_topk's fold is O((k + 256)^2) compares on data
+// already in shared memory, refine_search's O((k + n) log) a round.
 //
 // refine_topk's design (namespace `topk` below): a persistent grid of as
 // many CTAs as the card holds at once, CTA b taking the rows b, b + grid,
@@ -60,26 +60,45 @@
 // unread.  The queue entries of the next rounds wait in shared memory, read a
 // few rounds ahead.  The warps reduce q.x from shared memory through
 // refine_topk's own code (warp_d2), so the distances, the buffers and the
-// round counts are refine_topk's bit for bit.  After one cluster barrier a
-// round, every CTA reads all K slots' distances over distributed shared
-// memory and folds them itself, in union order, so all CTAs hold the same
-// buffer and take the same stop, and no cluster barrier is left waiting.  The
-// fold first asks each slot's minimum (the common late round changes
-// nothing), then ranks only the candidates below the k-th best with the rule
-// above (fold); the others cannot enter.  Distances are double-buffered by
-// round parity, so no CTA overwrites what another still reads.
+// round counts are refine_topk's bit for bit.
+//
+// The fold is by selection and merge, O(k + n) where a pairwise rank is
+// O((k + n)^2).  Each CTA lists its own candidates below the k-th best as
+// 64-bit keys (distance bits, -0.0 as +0.0, then the union index, so keys
+// order as the rank rule orders candidates) and sorts them (sort_keys):
+// its run, of which only the first k can enter (a later key has k
+// candidates before it).  After one cluster barrier every CTA gathers the
+// C runs over distributed shared memory and merges them (a key's place:
+// its place in its run plus the keys below it in the others).  Then
+// merge_fold: buffer slot i goes to rank i + #{candidates below it}, the
+// s-th candidate to s + #{buffer slots at or below it}, ranks below k
+// written; the rank rule's ranks, so the same buffer bit for bit.  The
+// buffer lives in one of two layouts (the wrapper picks by k):
+//   whole: every CTA holds the buffer and folds it alike, so all take the
+//     same stop with one cluster barrier a round;
+//   spread: CTA c holds the slots [c S, (c + 1) S), S = ceil(k / C), and
+//     folds its own slots and the candidates whose place falls in its
+//     slice, writing each rank to the CTA that holds it; a second cluster
+//     barrier ends the fold and every CTA reads the new k-th best from the
+//     last slice.  A k whose double buffer (16 k bytes) outgrows one CTA
+//     thus runs on a cluster.
+// Candidates, runs and buffers are double-buffered by round parity or by
+// the barriers, so no CTA overwrites what another still reads.
 //
 // Routes (the wrappers pick one from the shapes before any launch).
 // refine_topk: the ring kernel above, or, where a row is not whole 16-byte
 // pieces or the fixed parts and two one-row stages outgrow shared memory
 // even at one CTA an SM, refine_general, which reads values one at a
-// time and keeps its buffers in global scratch.  refine_search: search_kernel
-// with its shared memory laid out for 3 CTAs an SM, else for 2, else for 1
-// (the same code); or, where a row is not whole 16-byte pieces or even one
-// CTA cannot hold the fixed parts beside two one-row stages, search_general:
-// one CTA a query, rows read where they lie, buffers in global scratch.
-// The general routes share row_d2, so their two loops agree bit for bit
-// with each other; the fast routes share warp_d2.
+// time and keeps its buffers in global scratch.  refine_search:
+// search_kernel with the buffer whole (cta3 / cta2 / cta1: shared memory
+// laid out for 3, 2 or 1 CTAs an SM) or spread (spread3 / spread2 /
+// spread1; the first choice from k 1,536, refine_search.py's SPREAD_K),
+// at the most CTAs an SM whose ring stages hold 16 leaf rows;
+// or, where a row is not whole 16-byte pieces or neither layout fits
+// even at one CTA an SM, search_general: one CTA a query, rows read where
+// they lie, distances, keys and buffers in global scratch, the same
+// sort_keys and merge_fold.  The general routes share row_d2, so their two
+// loops agree bit for bit with each other; the fast routes share warp_d2.
 
 #include <algorithm>
 #include <mutex>
@@ -198,43 +217,6 @@ __device__ __forceinline__ float row_d2(const T* row, int L, const float* q,
   return fmaxf(__fsub_rn(__fadd_rn(qsq, xn), __fmul_rn(2.f, dot)), 0.f);
 }
 
-// fold() for an ascending buffer, in O(k n + n^2) instead of O((k + n)^2):
-// buffer slot i has rank i + #{candidates below it} (a candidate equal to
-// it comes later in union order), and candidate c has rank #{buffer
-// slots <= it} (by binary search) + #{candidates below it, or equal and
-// before it}.  The same ranks as fold's rule, so the same result.
-__device__ __forceinline__ void fold_sorted(const float* bd, const int* be,
-                                            const float* cd, const int* ce,
-                                            int k, int n, float* nd, int* ne,
-                                            int tid) {
-  for (int i = tid; i < k; i += kThreads) {
-    const float d = bd[i];
-    int rank = i;
-    for (int c = 0; c < n && rank < k; ++c) rank += cd[c] < d;
-    if (rank < k) {
-      nd[rank] = d;
-      ne[rank] = be[i];
-    }
-  }
-  for (int c = tid; c < n; c += kThreads) {
-    const float d = cd[c];
-    int lo = 0, hi = k;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (bd[mid] <= d) lo = mid + 1; else hi = mid;
-    }
-    int rank = lo;
-    for (int f = 0; f < n && rank < k; ++f) {
-      const float df = cd[f];
-      rank += (df < d) | ((df == d) & (f < c));
-    }
-    if (rank < k) {
-      nd[rank] = d;
-      ne[rank] = ce[c];
-    }
-  }
-}
-
 // refine_topk's general route: any L and alignment, any k.  One block a
 // query row walks the row's K slots in turn: for an alive slot its warps
 // take the leaf's M rows, each row's values read one at a time (row_d2),
@@ -316,9 +298,151 @@ constexpr int kCluster = 8;
 constexpr int kBlocksPerSM = 3;
 constexpr int kMaxStages = 4;
 constexpr int kInfo = 4;             // rounds of queue entries in smem
+constexpr int kMisc = 4;             // ints: query, counts by parity
 constexpr int kSmemMax = 232448;     // what a block may take on sm_90
 constexpr int kSmemSM = 233472;      // an SM's, 1 KB of it per block kept
 constexpr float kBig = 1e30f;
+
+// A candidate of a fold as one 64-bit key: its distance's bits on top
+// (-0.0 as +0.0, so that the unsigned order of the bits is the float order
+// of distances >= 0), then its union index u = slot * M + row, then the
+// sign of a -0.0.  Keys are distinct and order as (d, u): the rank rule's
+// order among candidates.  key_d gives the distance's own bits back.
+__device__ __forceinline__ uint32_t dist_bits(float d) {
+  const uint32_t b = __float_as_uint(d);
+  return b == 0x80000000u ? 0u : b;
+}
+__device__ __forceinline__ uint64_t cand_key(float d, int u) {
+  return ((uint64_t)dist_bits(d) << 32) | ((uint32_t)u << 1) |
+         (__float_as_uint(d) >> 31);
+}
+__device__ __forceinline__ float key_d(uint64_t x) {
+  return (x & 1) ? -0.f : __uint_as_float((uint32_t)(x >> 32));
+}
+__device__ __forceinline__ int key_u(uint64_t x) {
+  return (int)((uint32_t)x >> 1);
+}
+
+// #{sorted keys a[0 .. n) below x}
+__device__ __forceinline__ int keys_before(const uint64_t* a, int n,
+                                           uint64_t x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// #{ascending floats b[0 .. n) at or below d}
+__device__ __forceinline__ int floats_upto(const float* b, int n, float d) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (b[mid] <= d) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__host__ __device__ inline int pow2_at_least(int n) {
+  int P = 1;
+  while (P < n) P <<= 1;
+  return P;
+}
+
+// Sorts the n distinct keys at a ascending, in place (a has room for the
+// next power of two above n): up to kThreads by rank (a thread a key),
+// above by a bitonic network.  Every thread calls it, after a barrier
+// that completes a; it ends on one.
+__device__ void sort_keys(uint64_t* a, int n, int tid) {
+  if (n <= 1) return;
+  if (n <= kThreads) {
+    const uint64_t x = tid < n ? a[tid] : 0ull;
+    int r = 0;
+    if (tid < n)
+      for (int f = 0; f < n; ++f) r += a[f] < x;
+    __syncthreads();
+    if (tid < n) a[r] = x;
+    __syncthreads();
+    return;
+  }
+  const int P = pow2_at_least(n);
+  for (int i = n + tid; i < P; i += kThreads) a[i] = ~0ull;
+  __syncthreads();
+  for (int size = 2; size <= P; size <<= 1)
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int t = tid; t < P / 2; t += kThreads) {
+        const int i = 2 * t - (t & (stride - 1)), j = i + stride;
+        const uint64_t x = a[i], y = a[j];
+        if ((x > y) == ((i & size) == 0)) {
+          a[i] = y;
+          a[j] = x;
+        }
+      }
+      __syncthreads();
+    }
+}
+
+// The fold by merge: the ascending buffer, spread in slices of S slots over
+// CB CTAs (this CTA's, number br, the slots [i0, i0 + nb) at bd / be), and
+// the n candidates below the k-th best, sorted as keys at gs (at most k of
+// them: a later one has k candidates before it).  Buffer slot i goes to
+// rank i + #{candidates below it}; the s-th candidate to rank s + #{buffer
+// slots at or below it}, computed by the CTA whose slice holds the last of
+// those slots (first[c]: slice c's first distance, INFINITY if it is
+// empty; the first CTA if none is).  These are the rank rule's ranks,
+// buffer slots before candidates at a tie, so put(p, d, e) receives each
+// rank p < k once, from one CTA.  leaf_r: the round's leaves by slot.
+template <typename Put>
+__device__ __forceinline__ void merge_fold(
+    const float* bd, const int* be, int i0, int nb, const uint64_t* gs,
+    int n, const float* first, int CB, int br, const int* leaf_r, int M,
+    int k, Put put, int tid) {
+  for (int t = tid; t < nb; t += kThreads) {
+    const float d = bd[t];
+    const int p = i0 + t + keys_before(gs, n, (uint64_t)dist_bits(d) << 32);
+    if (p < k) put(p, d, be[t]);
+  }
+  for (int s = tid; s < n; s += kThreads) {
+    const uint64_t x = gs[s];
+    const float d = key_d(x);
+    if (CB > 1 && ((br > 0 && !(first[br] <= d)) ||
+                   (br + 1 < CB && first[br + 1] <= d)))
+      continue;                 // another CTA's slice takes it
+    const int p = s + i0 + floats_upto(bd, nb, d);
+    if (p < k) {
+      const int u = key_u(x);
+      put(p, d, leaf_r[u / M] * M + u % M);
+    }
+  }
+}
+
+// Lists the candidates below the k-th best among the n distances at cand
+// (element e: slot slot_of(e), union index union_of(e)) as keys at out,
+// counting them into *count (0 on entry).  Warp by warp in any order: the
+// keys are sorted afterwards.
+template <typename Alive, typename Union>
+__device__ __forceinline__ void list_passing(const float* cand, int n,
+                                             float kth, Alive alive,
+                                             Union union_of, uint64_t* out,
+                                             int* count, int tid) {
+  const int lane = tid & 31;
+  for (int e0 = 0; e0 < n; e0 += kThreads) {
+    const int e = e0 + tid;
+    bool ok = false;
+    float d = 0.f;
+    if (e < n && alive(e)) {
+      d = cand[e];
+      ok = d < kth;
+    }
+    const unsigned b = __ballot_sync(0xffffffffu, ok);
+    int at = 0;
+    if (lane == 0 && b) at = atomicAdd(count, __popc(b));
+    at = __shfl_sync(0xffffffffu, at, 0);
+    if (ok)
+      out[at + __popc(b & ((1u << lane) - 1))] = cand_key(d, union_of(e));
+  }
+}
 
 struct Params {
   const float* q;
@@ -337,17 +461,24 @@ struct Params {
   float inv_eps;    // the stop rule's scale: a slot is alive while its
                     // lower bound is below kth * inv_eps (1.0f: exact)
   int J;            // own slots a round: K / C
+  int spread;       // the buffer in slices over the cluster (else whole
+                    // in every CTA)
+  int S;            // buffer slots a CTA holds: ceil(k / C) spread, else k
+  int P;            // keys a parity of the own candidates has room for
   int rows;         // leaf rows a stage holds
   int chunks;       // stages a leaf takes: ceil(M / rows)
   int stages;
-  int n_it;         // ceil(K * M / kThreads)
   uint32_t stage_bytes, norm_off;
-  uint32_t off_bar, off_misc, off_q, off_cand, off_min, off_bd, off_be,
-      off_nd, off_ne, off_ld, off_le, off_lb, off_leaf, off_cnt, off_ring;
+  uint32_t off_bar, off_misc, off_first, off_q, off_cand, off_keys, off_g,
+      off_gs, off_bd, off_be, off_nd, off_ne, off_lb, off_leaf, off_ring;
 };
 
+// Registers for kBlocksPerSM CTAs an SM (80 a thread): unbounded, the
+// fold's code took 128, which left the cta3 layout 2 CTAs an SM and the
+// main cell 12 % slower (PERF.md).
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+search_kernel(const Params p) {
   extern __shared__ __align__(128) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -355,27 +486,46 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const T* series = static_cast<const T*>(p.series);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + p.off_bar);
-  int* misc = reinterpret_cast<int*>(smem + p.off_misc);   // query, count
+  // [0] the query, [1 + parity] own passing candidates
+  int* misc = reinterpret_cast<int*>(smem + p.off_misc);
+  float* first = reinterpret_cast<float*>(smem + p.off_first);  // [C]
   float* q_s = reinterpret_cast<float*>(smem + p.off_q);
-  float* cand = reinterpret_cast<float*>(smem + p.off_cand);   // [2][J][M]
-  int* smin = reinterpret_cast<int*>(smem + p.off_min);  // [2][J] f32 bits
+  float* cand = reinterpret_cast<float*>(smem + p.off_cand);   // [J][M]
+  // own passing candidates by round parity, sorted: the CTA's run
+  uint64_t* keys = reinterpret_cast<uint64_t*>(smem + p.off_keys);
+  uint64_t* gk = reinterpret_cast<uint64_t*>(smem + p.off_g);   // runs
+  uint64_t* gs = reinterpret_cast<uint64_t*>(smem + p.off_gs);  // merged
   float* bd = reinterpret_cast<float*>(smem + p.off_bd);
   int* be = reinterpret_cast<int*>(smem + p.off_be);
   float* nd = reinterpret_cast<float*>(smem + p.off_nd);
   int* ne = reinterpret_cast<int*>(smem + p.off_ne);
-  float* ld = reinterpret_cast<float*>(smem + p.off_ld);  // passing cands
-  int* le = reinterpret_cast<int*>(smem + p.off_le);
   // the queue entries of rounds r .. r + kInfo - 1, round i at i % kInfo
   float* s_lb = reinterpret_cast<float*>(smem + p.off_lb);
   int* s_leaf = reinterpret_cast<int*>(smem + p.off_leaf);
-  int* cnt = reinterpret_cast<int*>(smem + p.off_cnt);
   uint8_t* ring = smem + p.off_ring;
+  // the buffer's slices: CB of them, this CTA's the br-th
+  const int CB = p.spread ? C : 1, br = p.spread ? rank : 0;
+  const int i0 = br * p.S, nb = max(0, min(p.S, p.k - i0));
+  const int JM = p.J * p.M;
 
   if (tid == 0) {
     for (int i = 0; i < p.stages; ++i) sm90::mbar_init(&bar[i], 1);
     sm90::fence_barrier_init();
   }
   __syncthreads();
+
+  // rank pos < k of the new buffer to the CTA that holds it
+  auto put = [&](int pos, float d, int e) {
+    const int o = pos / p.S, at = pos - o * p.S;
+    float* td = nd;
+    int* te = ne;
+    if (o != br) {
+      td = cluster.map_shared_rank(nd, o);
+      te = cluster.map_shared_rank(ne, o);
+    }
+    td[at] = d;
+    te[at] = e;
+  };
 
   const int cap = p.cols / p.K;
   const long long own_chunks = (long long)cap * p.J * p.chunks;
@@ -394,7 +544,7 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
     const int* idrow = p.order + (long long)qi * p.cols;
     for (int i = tid; i < p.L; i += kThreads)
       q_s[i] = p.q[(long long)qi * p.L + i];
-    for (int i = tid; i < p.k; i += kThreads) {
+    for (int i = tid; i < nb; i += kThreads) {
       bd[i] = kBig;
       be[i] = 0;
     }
@@ -405,7 +555,7 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
     const float qsq = p.q_sq[qi];
     __syncthreads();
 
-    float kth = kBig;           // bd[k - 1], the same in every thread
+    float kth = kBig;           // the buffer's k-th best, in every thread
     // what a lower bound is tested against: kth * inv_eps, the float32
     // product repro forms (bsf_d[:, -1] * inv_eps); non-increasing as kth
     float bound = kth * p.inv_eps;
@@ -432,10 +582,10 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
           // the norms as a 16-byte aligned window around the rows'
           const long long w0 = row0 & ~3ll, w1 = (row0 + nr + 3) & ~3ll;
           const uint32_t xb = (uint32_t)(nr * p.L * sizeof(T));
-          const uint32_t nb = (uint32_t)((w1 - w0) * 4);
-          sm90::mbar_expect_tx(b, xb + nb);
+          const uint32_t wb = (uint32_t)((w1 - w0) * 4);
+          sm90::mbar_expect_tx(b, xb + wb);
           sm90::bulk_load(dst, series + row0 * p.L, xb, b);
-          sm90::bulk_load(dst + p.norm_off, p.sq_norms + w0, nb, b);
+          sm90::bulk_load(dst + p.norm_off, p.sq_norms + w0, wb, b);
         }
         ++issued;
       }
@@ -446,11 +596,12 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
       const int par = r & 1;
       const float* lb_r = s_lb + r % kInfo * p.K;
       const int* leaf_r = s_leaf + r % kInfo * p.K;
-      float* my_cand = cand + par * p.J * p.M;
-      for (int i = tid; i < p.J; i += kThreads)
-        smin[par * p.J + i] = __float_as_int(kBig);
-      if (tid == 0)
+      uint64_t* own = keys + par * p.P;
+      if (tid == 0) {
         for (int j = 0; j < p.K; ++j) n_alive += lb_r[j] < bound;
+        // read by the others two barriers ago at the latest
+        misc[1 + par] = 0;
+      }
       // round r + kInfo's entry of slot tid, read meanwhile (any slots
       // past kThreads are read when they are stored)
       float nlb = kBig;
@@ -468,7 +619,7 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
       for (int pp = 0; pp < p.J; ++pp) {
         const int j = rank + C * pp;
         const bool alive = lb_r[j] < bound;
-        const long long first = (long long)leaf_r[j] * p.M;
+        const long long first_row = (long long)leaf_r[j] * p.M;
         const long long s = (long long)r * p.J + pp;
         for (int c = 0; c < p.chunks; ++c) {
           const long long g = s * p.chunks + c;
@@ -482,14 +633,10 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
                   ring + (size_t)(gg % p.stages) * p.stage_bytes;
               const int r0 = c * p.rows, nr = min(p.rows, p.M - r0);
               const float* xn = reinterpret_cast<const float*>(st + p.norm_off)
-                                + ((first + r0) & 3);
-              for (int r1 = warp; r1 < nr; r1 += kUnroll * kWarps) {
-                const float least = warp_d2<T>(
-                    reinterpret_cast<const T*>(st), p.L, r1, nr, q_s, qsq, xn,
-                    my_cand + pp * p.M + r0, lane);
-                if (lane == 0)
-                  atomicMin(&smin[par * p.J + pp], __float_as_int(least));
-              }
+                                + ((first_row + r0) & 3);
+              for (int r1 = warp; r1 < nr; r1 += kUnroll * kWarps)
+                warp_d2<T>(reinterpret_cast<const T*>(st), p.L, r1, nr, q_s,
+                           qsq, xn, cand + pp * p.M + r0, lane);
             }
           } else if (alive) {
             __trap();           // an alive slot is always issued
@@ -498,57 +645,77 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
         }
       }
 
-      cluster.sync();           // every CTA's distances of round r are in
-      bool any = false;         // an alive slot's minimum below the k-th?
-      for (int j = tid; j < p.K; j += kThreads)
-        if (lb_r[j] < bound) {
-          const int* m = cluster.map_shared_rank(smin, j % C);
-          any |= __int_as_float(m[par * p.J + j / C]) < kth;
+      // the own candidates below the k-th best, sorted: this CTA's run
+      list_passing(
+          cand, JM, kth,
+          [&](int e) { return lb_r[rank + C * (e / p.M)] < bound; },
+          [&](int e) { return (rank + C * (e / p.M)) * p.M + e % p.M; },
+          own, &misc[1 + par], tid);
+      __syncthreads();
+      sort_keys(own, misc[1 + par], tid);
+      cluster.sync();           // every CTA's run of round r is in
+      // the runs' offsets in the gathered list, in every thread (lane c
+      // reads run c's count, the warp scans them): a run's first k keys
+      // (a later one has k candidates before it)
+      int off[kCluster + 1];
+      {
+        int n = lane < C
+                    ? min(*cluster.map_shared_rank(&misc[1 + par], lane), p.k)
+                    : 0;
+#pragma unroll
+        for (int d = 1; d < kCluster; d <<= 1) {
+          const int v = __shfl_up_sync(0xffffffffu, n, d);
+          if (lane >= d) n += v;
         }
-      if (__syncthreads_or(any)) {
-        const int KM = p.K * p.M;
-        // the candidates below the k-th best, in union (slot, row) order
-        for (int pass2 = 0; pass2 < 2; ++pass2) {
-          for (int it = 0; it < p.n_it; ++it) {
-            const int e = it * kThreads + tid;
-            bool ok = false;
-            float d = 0.f;
-            int j = 0;
-            if (e < KM) {
-              j = e / p.M;
-              if (lb_r[j] < bound) {
-                const float* rc = cluster.map_shared_rank(cand, j % C);
-                d = rc[(par * p.J + j / C) * p.M + e % p.M];
-                ok = d < kth;
-              }
+        off[0] = 0;
+#pragma unroll
+        for (int c = 0; c < kCluster; ++c)
+          off[c + 1] = __shfl_sync(0xffffffffu, n, c);
+      }
+      const int tot = off[kCluster];   // the same in every CTA
+      if (tot > 0) {
+        if (CB > 1 && tid < C)
+          first[tid] = min(p.S, p.k - tid * p.S) > 0
+                           ? *cluster.map_shared_rank(bd, tid) : INFINITY;
+        // the run of gathered key g, and where it starts
+        auto run_of = [&](int g, int& start) {
+          int c = 0;
+          start = 0;
+#pragma unroll
+          for (int i = 1; i < kCluster; ++i)
+            if (i < C && g >= off[i]) {
+              c = i;
+              start = off[i];
             }
-            const unsigned b = __ballot_sync(0xffffffffu, ok);
-            if (!pass2) {
-              if (lane == 0) cnt[it * kWarps + warp] = __popc(b);
-            } else if (ok) {
-              const int at = cnt[it * kWarps + warp] +
-                             __popc(b & ((1u << lane) - 1));
-              ld[at] = d;
-              le[at] = leaf_r[j] * p.M + e % p.M;
-            }
-          }
-          __syncthreads();
-          if (!pass2 && tid == 0) {       // exclusive prefix of the counts
-            int run = 0;
-            for (int i = 0; i < p.n_it * kWarps; ++i) {
-              const int n = cnt[i];
-              cnt[i] = run;
-              run += n;
-            }
-            misc[1] = run;
-          }
-          __syncthreads();
+          return c;
+        };
+        for (int g = tid; g < tot; g += kThreads) {
+          int start = 0;
+          const int c = run_of(g, start);
+          gk[g] = cluster.map_shared_rank(own, c)[g - start];
         }
-        fold(bd, be, ld, le, p.k, misc[1], nd, ne, tid);
         __syncthreads();
+        // the runs merged: a key's place is its place in its run plus the
+        // keys below it in the others
+        for (int g = tid; g < tot; g += kThreads) {
+          int start = 0;
+          const int c = run_of(g, start);
+          const uint64_t x = gk[g];
+          int at = g - start;
+#pragma unroll
+          for (int c2 = 0; c2 < kCluster; ++c2)
+            if (c2 < C && c2 != c)
+              at += keys_before(gk + off[c2], off[c2 + 1] - off[c2], x);
+          gs[at] = x;
+        }
+        __syncthreads();
+        merge_fold(bd, be, i0, nb, gs, min(tot, p.k), first, CB, br, leaf_r,
+                   p.M, p.k, put, tid);
+        if (CB > 1) cluster.sync(); else __syncthreads();
         float* td = bd; bd = nd; nd = td;   // every thread swaps alike
         int* te = be; be = ne; ne = te;
-        kth = bd[p.k - 1];
+        const int o = (p.k - 1) / p.S, at = p.k - 1 - o * p.S;
+        kth = o == br ? bd[at] : cluster.map_shared_rank(bd, o)[at];
         bound = kth * p.inv_eps;
       }
       __syncthreads();          // this round's entries are read
@@ -569,15 +736,14 @@ __global__ void __launch_bounds__(kThreads, 1) search_kernel(const Params p) {
       sm90::mbar_wait(&bar[gg % p.stages], (uint32_t)((gg / p.stages) & 1));
     }
     fetched += issued;
-    if (rank == 0) {
-      for (int i = tid; i < p.k; i += kThreads) {
-        p.out_d[(long long)qi * p.k + i] = bd[i];
-        p.out_e[(long long)qi * p.k + i] = be[i];
+    if (CB > 1 || rank == 0)
+      for (int i = tid; i < nb; i += kThreads) {
+        p.out_d[(long long)qi * p.k + i0 + i] = bd[i];
+        p.out_e[(long long)qi * p.k + i0 + i] = be[i];
       }
-      if (tid == 0) {
-        p.rounds[qi] = r;
-        p.alive[qi] = n_alive;
-      }
+    if (rank == 0 && tid == 0) {
+      p.rounds[qi] = r;
+      p.alive[qi] = n_alive;
     }
     __syncthreads();
   }
@@ -616,34 +782,44 @@ inline cudaError_t place_ring(P& p, int blocks, int elem, size_t* smem) {
   return cudaSuccess;
 }
 
-// Shared memory: the fixed parts, then place_ring's ring.
-inline cudaError_t layout(Params& p, int C, int blocks, int elem,
-                          size_t* smem) {
+// Shared memory: the fixed parts, then place_ring's ring.  The runs of
+// the C CTAs take at most min(K M, C min(J M, k)) keys together.
+inline cudaError_t layout(Params& p, int C, int blocks, bool spread,
+                          int elem, size_t* smem) {
   p.J = p.K / C;
-  p.n_it = (p.K * p.M + kThreads - 1) / kThreads;
+  const long long JM = (long long)p.J * p.M;
+  if ((long long)p.K * p.M >= (1ll << 30)) return cudaErrorInvalidValue;
+  p.spread = spread;
+  p.S = spread ? (p.k + C - 1) / C : p.k;
+  p.P = pow2_at_least((int)JM);
+  const long long runs = std::min<long long>(
+      (long long)p.K * p.M, C * std::min<long long>(JM, p.k));
+  if (16ll * p.P + 16 * runs + 16ll * p.S > kSmemMax)
+    return cudaErrorInvalidValue;
   uint32_t off = 0;
   p.off_bar = take(off, 8 * kMaxStages, 8);
-  p.off_misc = take(off, 16, 16);
+  p.off_misc = take(off, 4 * kMisc, 16);
+  p.off_first = take(off, 4 * kCluster, 4);
   p.off_q = take(off, 4u * p.L, 16);
-  p.off_cand = take(off, 4u * 2 * p.J * p.M, 16);
-  p.off_min = take(off, 4u * 2 * p.J, 4);
-  p.off_bd = take(off, 4u * p.k, 4);
-  p.off_be = take(off, 4u * p.k, 4);
-  p.off_nd = take(off, 4u * p.k, 4);
-  p.off_ne = take(off, 4u * p.k, 4);
-  p.off_ld = take(off, 4u * p.K * p.M, 4);
-  p.off_le = take(off, 4u * p.K * p.M, 4);
+  p.off_cand = take(off, 4u * (uint32_t)JM, 16);
+  p.off_keys = take(off, 16u * p.P, 16);
+  p.off_g = take(off, 8u * (uint32_t)runs, 16);
+  p.off_gs = take(off, 8u * (uint32_t)runs, 16);
+  p.off_bd = take(off, 4u * p.S, 4);
+  p.off_be = take(off, 4u * p.S, 4);
+  p.off_nd = take(off, 4u * p.S, 4);
+  p.off_ne = take(off, 4u * p.S, 4);
   p.off_lb = take(off, 4u * kInfo * p.K, 4);
   p.off_leaf = take(off, 4u * kInfo * p.K, 4);
-  p.off_cnt = take(off, 4u * p.n_it * kWarps, 4);
   p.off_ring = take(off, 0, 128);
   return place_ring(p, blocks, elem, smem);
 }
 
 template <typename T>
-cudaError_t launch(Params p, int C, int blocks, cudaStream_t stream) {
+cudaError_t launch(Params p, int C, int blocks, bool spread,
+                   cudaStream_t stream) {
   size_t smem = 0;
-  cudaError_t err = layout(p, C, blocks, (int)sizeof(T), &smem);
+  cudaError_t err = layout(p, C, blocks, spread, (int)sizeof(T), &smem);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(search_kernel<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -670,16 +846,26 @@ cudaError_t launch(Params p, int C, int blocks, cudaStream_t stream) {
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// Words of global scratch a CTA of the general route takes: the
+// distances (K M, rounded up to an even count), the passing candidates'
+// keys (2 words each, room for the power of two at or above K M) and both
+// buffers (4 k); even, so that every CTA's keys stay 8-byte aligned.
+inline long long general_words(int K, int M, int k) {
+  const long long KM = (long long)K * M;
+  long long P = 1;
+  while (P < KM) P <<= 1;
+  return (KM + 1) / 2 * 2 + 2 * P + (4 * (long long)k + 1) / 2 * 2;
+}
+
 // The general route: one CTA a query (no cluster), any L, alignment, k
 // and K * M.  Rows are read from device memory where they lie, one value
-// a load (row_d2), and the candidates, both buffers, the passing
-// candidates and the warp counts live in global scratch, `per` words a
-// CTA; so shared memory bounds nothing.  A round runs as in search_kernel:
-// every alive slot's distances, then, if one is below the k-th best, the
-// passing candidates in union (slot, row) order, folded by fold_sorted
-// into the buffer, which stays ascending.  The rounds, the alive count
-// and the buffer follow the rule of the fast route and of
-// refine_search_ref.
+// a load (row_d2), and the distances, the passing candidates' keys and
+// both buffers live in global scratch, `per` words a CTA; so shared memory
+// bounds nothing.  A round runs as in search_kernel: every alive slot's
+// distances, then, if one is below the k-th best, the passing candidates
+// sorted as keys (sort_keys) and folded by merge_fold into the buffer,
+// which stays ascending.  The rounds, the alive count and the buffer
+// follow the rule of the fast routes and of refine_search_ref.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) search_general(const Params p,
                                                            float* scratch,
@@ -689,13 +875,11 @@ __global__ void __launch_bounds__(kThreads) search_general(const Params p,
   const T* series = static_cast<const T*>(p.series);
   const int KM = p.K * p.M;
   float* cand = scratch + (long long)blockIdx.x * per;     // K * M
-  float* bd = cand + KM;
+  uint64_t* keys = reinterpret_cast<uint64_t*>(cand + (KM + 1) / 2 * 2);
+  float* bd = reinterpret_cast<float*>(keys + pow2_at_least(KM));
   int* be = reinterpret_cast<int*>(bd + p.k);
   float* nd = bd + 2 * p.k;
   int* ne = reinterpret_cast<int*>(bd + 3 * p.k);
-  float* ld = bd + 4 * p.k;                                 // K * M
-  int* le = reinterpret_cast<int*>(ld + KM);                // K * M
-  int* cnt = reinterpret_cast<int*>(ld + 2 * KM);           // n_it * kWarps
   const int cap = p.cols / p.K;
 
   for (;;) {
@@ -721,8 +905,10 @@ __global__ void __launch_bounds__(kThreads) search_general(const Params p,
     while (r < cap && lbrow[(long long)r * p.K] < bound) {
       const float* lb_r = lbrow + (long long)r * p.K;
       const int* leaf_r = idrow + (long long)r * p.K;
-      if (tid == 0)
+      if (tid == 0) {
         for (int j = 0; j < p.K; ++j) n_alive += lb_r[j] < bound;
+        misc[1] = 0;
+      }
       bool any = false;
       for (int e = warp; e < KM; e += kWarps) {
         const int j = e / p.M;
@@ -736,42 +922,19 @@ __global__ void __launch_bounds__(kThreads) search_general(const Params p,
         }
       }
       if (__syncthreads_or(any)) {
-        for (int pass2 = 0; pass2 < 2; ++pass2) {
-          for (int it = 0; it < p.n_it; ++it) {
-            const int e = it * kThreads + tid;
-            bool ok = false;
-            float d = 0.f;
-            int j = 0;
-            if (e < KM) {
-              j = e / p.M;
-              if (lb_r[j] < bound) {
-                d = cand[e];
-                ok = d < kth;
-              }
-            }
-            const unsigned b = __ballot_sync(0xffffffffu, ok);
-            if (!pass2) {
-              if (lane == 0) cnt[it * kWarps + warp] = __popc(b);
-            } else if (ok) {
-              const int at = cnt[it * kWarps + warp] +
-                             __popc(b & ((1u << lane) - 1));
-              ld[at] = d;
-              le[at] = leaf_r[j] * p.M + e % p.M;
-            }
-          }
-          __syncthreads();
-          if (!pass2 && tid == 0) {       // exclusive prefix of the counts
-            int run = 0;
-            for (int i = 0; i < p.n_it * kWarps; ++i) {
-              const int n = cnt[i];
-              cnt[i] = run;
-              run += n;
-            }
-            misc[1] = run;
-          }
-          __syncthreads();
-        }
-        fold_sorted(bd, be, ld, le, p.k, misc[1], nd, ne, tid);
+        list_passing(
+            cand, KM, kth, [&](int e) { return lb_r[e / p.M] < bound; },
+            [](int e) { return e; }, keys, &misc[1], tid);
+        __syncthreads();
+        const int n = misc[1];
+        sort_keys(keys, n, tid);
+        merge_fold(bd, be, 0, p.k, keys, min(n, p.k), nullptr, 1, 0, leaf_r,
+                   p.M, p.k,
+                   [&](int pos, float d, int e) {
+                     nd[pos] = d;
+                     ne[pos] = e;
+                   },
+                   tid);
         __syncthreads();
         float* td = bd; bd = nd; nd = td;   // every thread swaps alike
         int* te = be; be = ne; ne = te;
@@ -792,13 +955,6 @@ __global__ void __launch_bounds__(kThreads) search_general(const Params p,
     }
     __syncthreads();
   }
-}
-
-// Words of global scratch a CTA of the general route takes.
-inline long long general_words(int K, int M, int k) {
-  const long long KM = (long long)K * M;
-  const long long n_it = (KM + kThreads - 1) / kThreads;
-  return 3 * KM + 4 * (long long)k + n_it * kWarps;
 }
 
 }  // namespace search
@@ -1215,10 +1371,12 @@ extern "C" const char* refine_topk_error(int code) {
 // 1/(1+eps)^2 (1.0f: the exact search): a slot is alive while its lower
 // bound lies below the k-th best times inv_eps, candidates still fold
 // against the k-th best itself.
-// route 0: search_kernel, clusters of C CTAs a query, its shared memory
-// laid out for `ctas` (3, 2 or 1) CTAs an SM; L * sizeof(dtype) a
-// multiple of 16 and series, q and sq_norms 16-byte aligned.  route 1:
-// search_general over `ctas` CTAs, each with `per` words of `scratch`.
+// route 0: search_kernel, clusters of C CTAs a query, the buffer whole in
+// every CTA, its shared memory laid out for `ctas` (3, 2 or 1) CTAs an SM;
+// route 2: the same with the buffer in slices over the cluster (C > 1);
+// both with L * sizeof(dtype) a multiple of 16 and series, q and sq_norms
+// 16-byte aligned.  route 1: search_general over `ctas` CTAs, each with
+// `per` words of `scratch`.
 // The wrapper checks the shapes and picks the route.
 extern "C" int refine_search(const void* q, const void* q_sq,
                              const void* series, int dtype,
@@ -1252,19 +1410,22 @@ extern "C" int refine_search(const void* q, const void* q_sq,
   p.cols = cols;
   p.inv_eps = inv_eps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == 0) {
+  if (route == 0 || route == 2) {
     if (ctas > search::kBlocksPerSM) return (int)cudaErrorInvalidValue;
     int C = search::kCluster;
     while (K % C) C /= 2;
+    const bool spread = route == 2;
+    if (spread && C == 1) return (int)cudaErrorInvalidValue;
     switch (dtype) {
-      case 0: return (int)search::launch<float>(p, C, ctas, s);
-      case 1: return (int)search::launch<__nv_bfloat16>(p, C, ctas, s);
-      case 2: return (int)search::launch<__half>(p, C, ctas, s);
+      case 0: return (int)search::launch<float>(p, C, ctas, spread, s);
+      case 1:
+        return (int)search::launch<__nv_bfloat16>(p, C, ctas, spread, s);
+      case 2: return (int)search::launch<__half>(p, C, ctas, spread, s);
     }
   } else if (route == 1) {
-    if (scratch == nullptr || per < search::general_words(K, M, k))
+    if (scratch == nullptr || per < search::general_words(K, M, k) ||
+        (long long)K * M >= (1ll << 30))
       return (int)cudaErrorInvalidValue;
-    p.n_it = (K * M + kThreads - 1) / kThreads;
     float* sc = static_cast<float*>(scratch);
     switch (dtype) {
       case 0:

@@ -179,6 +179,62 @@ def refine_topk_ref(q: torch.Tensor, q_sq: torch.Tensor,
     return d[:, :k].contiguous(), torch.gather(alle, 1, pos[:, :k])
 
 
+def select_merge_fold(bd: torch.Tensor, be: torch.Tensor,
+                      cd: torch.Tensor, ce: torch.Tensor, k: int, *,
+                      leaf_capacity: int = 1, runs: int = 1,
+                      slices: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """refine_search's fold, step by step as its kernel takes it.
+
+    bd / be: (Q, k) ascending buffer; cd / ce: (Q, n) candidates in union
+    (slot, row) order.  The candidates below the k-th best are cut into
+    `runs` runs as a cluster's CTAs hold them (slot j of leaf_capacity
+    rows on CTA j mod runs); each run is sorted by (d, union index), -0.0
+    equal to +0.0, and keeps its first k; the runs merge into one sorted
+    list, of which the first k remain.  Then the merge ranks: buffer slot
+    i goes to i + #{candidates below it}, the s-th candidate to s +
+    #{buffer slots at or below it}, each computed as the CTA that holds
+    the buffer's slice (`slices` slices of ceil(k / slices) slots) computes
+    it; ranks below k are written.  The ranks are those of the rank rule
+    (ties to the lower union index, buffer slots first), so the result is
+    `refine_topk_ref`'s fold bit for bit, whatever runs and slices.
+    """
+    Q, n = cd.shape
+    out_d = torch.full((Q, k), float("nan"), dtype=torch.float32)
+    out_e = torch.full((Q, k), -1, dtype=torch.int32)
+    u_all = torch.arange(n)
+    run_of = (u_all // leaf_capacity) % runs
+    S = -(-k // slices)
+    for i in range(Q):
+        b, e, d_all = bd[i].cpu(), be[i].cpu(), cd[i].cpu()
+        ok = d_all < b[-1]
+        kept = []
+        for c in range(runs):
+            u = ((run_of == c) & ok).nonzero()[:, 0]
+            kept.append(u[torch.sort(d_all[u], stable=True).indices][:k])
+        u = torch.cat(kept).sort().values
+        u = u[torch.sort(d_all[u], stable=True).indices][:k]
+        d = d_all[u]
+        first = [b[c * S] if c * S < k else torch.tensor(float("inf"))
+                 for c in range(slices)]
+        for c in range(slices):
+            i0, nb = c * S, max(0, min(S, k - c * S))
+            bs = b[i0:i0 + nb]
+            p = i0 + torch.arange(nb) + torch.searchsorted(d, bs)
+            w = p < k
+            out_d[i, p[w]], out_e[i, p[w]] = bs[w], e[i0:i0 + nb][w]
+            mine = torch.ones(len(d), dtype=torch.bool)
+            if c > 0:
+                mine &= first[c] <= d
+            if c + 1 < slices:
+                mine &= ~(first[c + 1] <= d)
+            s = mine.nonzero()[:, 0]
+            p = s + i0 + torch.searchsorted(bs, d[s], right=True)
+            w = p < k
+            out_d[i, p[w]] = d[s[w]]
+            out_e[i, p[w]] = ce[i].cpu()[u[s[w]]]
+    return out_d.to(bd.device), out_e.to(bd.device)
+
+
 def refine_search_ref(q: torch.Tensor, q_sq: torch.Tensor,
                       series: torch.Tensor, sq_norms: torch.Tensor,
                       order: torch.Tensor, sorted_lb: torch.Tensor, *,

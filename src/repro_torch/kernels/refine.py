@@ -37,11 +37,12 @@ _THREADS, _WARPS = 256, 8
 _MAX_STAGES = 4
 
 
-def ring_fits(parts, L: int, M: int, elem: int, blocks: int) -> bool:
-    """Whether a layout of csrc/refine.cu fits `blocks` CTAs an SM: its
-    fixed parts ((bytes, alignment) in order), then two stages of at
-    least one leaf row and its norms' window.  The same arithmetic as the
-    source's `layout`, term for term."""
+def ring_rows(parts, L: int, M: int, elem: int, blocks: int) -> int:
+    """The leaf rows a stage of a layout of csrc/refine.cu holds at
+    `blocks` CTAs an SM (0: it does not fit): its fixed parts ((bytes,
+    alignment) in order), then two stages of at least one leaf row and its
+    norms' window, the leaf halved until two fit.  The same arithmetic as
+    the source's `layout` and `place_ring`, term for term."""
     off = 0
     for nbytes, align in parts:
         off = -(-off // align) * align + nbytes
@@ -52,7 +53,13 @@ def ring_fits(parts, L: int, M: int, elem: int, blocks: int) -> bool:
     rows = M
     while rows > 1 and 2 * stage(rows) > room:
         rows = (rows + 1) // 2
-    return room >= 0 and 2 * stage(rows) <= room
+    return rows if room >= 0 and 2 * stage(rows) <= room else 0
+
+
+def ring_fits(parts, L: int, M: int, elem: int, blocks: int) -> bool:
+    """Whether a layout of csrc/refine.cu fits `blocks` CTAs an SM
+    (ring_rows)."""
+    return ring_rows(parts, L, M, elem, blocks) > 0
 
 
 def _fits(L: int, K: int, M: int, k: int, elem: int, blocks: int) -> bool:

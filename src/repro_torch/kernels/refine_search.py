@@ -4,11 +4,27 @@
 the (1 + eps) stop of the quality rules, `inv_eps`), which gives the
 buffer of repro's global loop of `refine_topk` rounds.  On CUDA
 tensors it launches the `refine_search` kernel of `csrc/refine.cu`, by the
-route `route` picks from the shapes (thread-block clusters of 8 CTAs a
-query, cut to a divisor of K, shared memory for 3, 2 or 1 CTAs an SM; or
-one CTA a query with its buffers in global scratch), taking the queries
-heaviest first; on CPU tensors it runs the plain version
-`ref.refine_search_ref`.  `launches` counts the kernel's launches.
+route `route` picks from the shapes, taking the queries heaviest first;
+on CPU tensors it runs the plain version `ref.refine_search_ref`.
+`launches` counts the kernel's launches, `by_route` each route's.
+
+A round folds its candidates below the k-th best into the buffer by
+selection and merge (`ref.select_merge_fold` is its plain model): each
+CTA of a query's cluster sorts its own candidates as keys and keeps the
+first k, every CTA merges the cluster's runs, and buffer slots and
+candidates take their ranks by binary search.  The routes:
+
+    cta3 / cta2 / cta1        clusters of 8 CTAs a query (cut to a divisor
+                              of K), the buffer whole in every CTA, shared
+                              memory for 3 / 2 / 1 CTAs an SM
+    spread3 / spread2 /       the same with the buffer in slices of
+      spread1                 ceil(k / C) slots over the cluster, each CTA
+                              folding its own slice (from k = SPREAD_K,
+                              and where the whole buffer does not fit)
+    general                   one CTA a query, rows read one value at a
+                              time, buffers in global scratch: rows that
+                              are not whole 16-byte pieces, and shapes
+                              past both layouts
 """
 
 from __future__ import annotations
@@ -20,8 +36,8 @@ import torch
 
 from . import _build
 from .ref import refine_search_ref
-from .refine import (_DTYPES, _MAX_STAGES, _THREADS, _WARPS,
-                     _check_tensors, _dims, aligned, pad_norms, ring_fits)
+from .refine import (_DTYPES, _MAX_STAGES, _SMEM_MAX, _check_tensors, _dims,
+                     aligned, pad_norms, ring_rows)
 
 launches = 0
 by_route: dict = {}                    # launches of each route
@@ -29,8 +45,17 @@ by_route: dict = {}                    # launches of each route
 _ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 9
              + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
              + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p])
-_CLUSTER, _INFO = 8, 4         # csrc/refine.cu, namespace search
-ROUTES = ("cta3", "cta2", "cta1", "general")
+_CLUSTER, _INFO, _MISC = 8, 4, 4      # csrc/refine.cu, namespace search
+ROUTES = ("cta3", "cta2", "cta1", "spread3", "spread2", "spread1",
+          "general")
+_CODES = {"cta": 0, "general": 1, "spread": 2}   # refine_search's route
+# from this k the buffer goes in slices over the cluster first: at k 1,024
+# the whole buffer ran 0.4-8 % faster, at k 2,000 the spread one 5-7 %
+# (PERF.md, scripts/refine_fold_routes.py)
+SPREAD_K = 1536
+# the fewest leaf rows a ring stage should hold: stages of 8 rows (3 CTAs
+# an SM at leaves of 256, K 64) ran 1.8x the time of 32 (2 an SM)
+MIN_STAGE_ROWS = 16
 
 
 def cluster_size(K: int) -> int:
@@ -41,38 +66,74 @@ def cluster_size(K: int) -> int:
     return C
 
 
-def _fits(L: int, K: int, M: int, k: int, elem: int, blocks: int) -> bool:
-    """Whether `layout` in csrc/refine.cu (namespace search) lays shared
-    memory out for `blocks` CTAs an SM."""
-    J, n_it = K // cluster_size(K), -(-K * M // _THREADS)
-    return ring_fits(((8 * _MAX_STAGES, 8), (16, 16), (4 * L, 16),
-                      (8 * J * M, 16), (8 * J, 4), (4 * k, 4), (4 * k, 4),
-                      (4 * k, 4), (4 * k, 4), (4 * K * M, 4), (4 * K * M, 4),
-                      (4 * _INFO * K, 4), (4 * _INFO * K, 4),
-                      (4 * n_it * _WARPS, 4), (0, 128)),
+def _pow2(n: int) -> int:
+    P = 1
+    while P < n:
+        P *= 2
+    return P
+
+
+def stage_rows(L: int, K: int, M: int, k: int, elem: int, blocks: int,
+               spread: bool = False) -> int:
+    """The leaf rows a ring stage holds where `layout` in csrc/refine.cu
+    (namespace search) lays shared memory out for `blocks` CTAs an SM, the
+    buffer whole in each CTA or (spread) in slices over the cluster; 0
+    where it does not fit."""
+    C = cluster_size(K)
+    if spread and C == 1:
+        return 0
+    J, KM = K // C, K * M
+    if KM >= 1 << 30:
+        return 0
+    S = -(-k // C) if spread else k
+    P, runs = _pow2(J * M), min(KM, C * min(J * M, k))
+    if 16 * P + 16 * runs + 16 * S > _SMEM_MAX:
+        return 0
+    return ring_rows(((8 * _MAX_STAGES, 8), (4 * _MISC, 16),
+                      (4 * _CLUSTER, 4), (4 * L, 16), (4 * J * M, 16),
+                      (16 * P, 16), (8 * runs, 16), (8 * runs, 16),
+                      (4 * S, 4), (4 * S, 4), (4 * S, 4), (4 * S, 4),
+                      (4 * _INFO * K, 4), (4 * _INFO * K, 4), (0, 128)),
                      L, M, elem, blocks)
 
 
+def _fits(L: int, K: int, M: int, k: int, elem: int, blocks: int,
+          spread: bool = False) -> bool:
+    """Whether that layout fits `blocks` CTAs an SM (stage_rows)."""
+    return stage_rows(L, K, M, k, elem, blocks, spread) > 0
+
+
 def route(L: int, K: int, M: int, k: int, dtype: torch.dtype) -> str:
-    """The kernel route of a search's refinement: search_kernel with its
-    shared memory laid out for 3 CTAs an SM ("cta3", the first choice),
-    else 2 ("cta2"), else 1 ("cta1"), where a row is whole 16-byte pieces;
-    else search_general ("general": one CTA a query, values read one at a
-    time, buffers in global scratch), which takes every shape.  A pure
-    function of the shapes; the wrapper realigns a base that is not
-    16-byte aligned."""
+    """The kernel route of a search's refinement (the module's table):
+    where a row is whole 16-byte pieces, search_kernel with the buffer
+    spread over the cluster from k = SPREAD_K (where the cluster has more
+    than one CTA), else whole in every CTA, at the most CTAs an SM (3, 2,
+    1) whose ring stages hold MIN_STAGE_ROWS leaf rows (or the whole
+    leaf), else at the most that fit; then the other buffer layout the
+    same way; else search_general ("general"), which takes every shape.
+    A pure function of the shapes; the wrapper realigns a base that is
+    not 16-byte aligned."""
     elem = torch.finfo(dtype).bits // 8
     if (L * elem) % 16 == 0:
-        for blocks in (3, 2, 1):
-            if _fits(L, K, M, k, elem, blocks):
-                return f"cta{blocks}"
+        first = k >= SPREAD_K and cluster_size(K) > 1
+        for spread in (first, not first):
+            rows = {b: stage_rows(L, K, M, k, elem, b, spread)
+                    for b in (3, 2, 1)}
+            fit = [b for b in (3, 2, 1) if rows[b]]
+            if fit:
+                b = next((b for b in fit
+                          if rows[b] >= min(M, MIN_STAGE_ROWS)), fit[0])
+                return f"{'spread' if spread else 'cta'}{b}"
     return "general"
 
 
 def general_words(K: int, M: int, k: int) -> int:
     """Float32 words of global scratch a CTA of the general route takes:
-    the candidates, both buffers, the passing candidates, warp counts."""
-    return 3 * K * M + 4 * k + -(-K * M // _THREADS) * _WARPS
+    the distances (K M, made even), the passing candidates' 64-bit keys
+    (room for the power of two at or above K M) and both buffers (4 k,
+    made even), as csrc/refine.cu's general_words."""
+    KM = K * M
+    return -(-KM // 2) * 2 + 2 * _pow2(KM) + -(-4 * k // 2) * 2
 
 
 def _check(q, q_sq, series, sq_norms, order, sorted_lb, M: int, k: int,
@@ -139,7 +200,6 @@ def refine_search(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
        Raises ValueError/TypeError on input the kernel does not take,
        and RuntimeError if a launch fails.
     """
-    global launches
     M, K = leaf_capacity, round_leaves
     _check(q, q_sq, series, sq_norms, order, sorted_lb, M, k, K, alive_out)
     if q.device.type == "cpu":
@@ -148,8 +208,32 @@ def refine_search(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
                                  inv_eps=inv_eps, alive_out=alive_out)
     if q.device.type != "cuda":
         raise RuntimeError(f"no refine_search kernel for device {q.device}")
+    return launch(q, q_sq, series, sq_norms, order, sorted_lb,
+                  route(q.shape[1], K, M, k, series.dtype), leaf_capacity=M,
+                  k=k, round_leaves=K, inv_eps=inv_eps, alive_out=alive_out)
+
+
+def launch(q, q_sq, series, sq_norms, order, sorted_lb, how: str, *,
+           leaf_capacity: int, k: int, round_leaves: int,
+           inv_eps: float = 1.0, alive_out: Optional[torch.Tensor] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`refine_search` on CUDA tensors by the route `how` (one of ROUTES
+    whose layout fits the shapes), whatever `route` would pick: the
+    comparison of two routes on the card.  Counts the launch."""
+    global launches
+    M, K = leaf_capacity, round_leaves
+    _check(q, q_sq, series, sq_norms, order, sorted_lb, M, k, K, alive_out)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"no refine_search kernel for device {q.device}")
     Q, L = q.shape
-    how = route(L, K, M, k, series.dtype)
+    if how not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {how!r}")
+    kind = how.rstrip("123")
+    elem = torch.finfo(series.dtype).bits // 8
+    if kind != "general" and ((L * elem) % 16 or not _fits(
+            L, K, M, k, elem, int(how[-1]), kind == "spread")):
+        raise ValueError(f"route {how} does not take L {L}, K {K}, M {M}, "
+                         f"k {k}, {series.dtype}")
     q, series = aligned(q), aligned(series)
     sq_norms = pad_norms(aligned(sq_norms))
     dev = q.device
@@ -166,13 +250,13 @@ def refine_search(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
                           K, inv_eps)
     schedule = torch.argsort(work, descending=True,
                              stable=True).to(torch.int32)
-    if how == "general":
+    if kind == "general":
         ctas = min(Q, 2 * torch.cuda.get_device_properties(
             dev).multi_processor_count)
         per = general_words(K, M, k)
         scratch = torch.empty((ctas, per), dtype=torch.float32, device=dev)
     else:
-        ctas, per, scratch = int(how[3:]), 0, None
+        ctas, per, scratch = int(how[-1]), 0, None
     fn = _build.entry("refine", "refine_search", _ARGTYPES)
     with torch.cuda.device(dev):
         code = fn(q.data_ptr(), q_sq.data_ptr(), series.data_ptr(),
@@ -180,7 +264,7 @@ def refine_search(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
                   order.data_ptr(), sorted_lb.data_ptr(), schedule.data_ptr(),
                   out_d.data_ptr(), out_e.data_ptr(), rounds.data_ptr(),
                   alive.data_ptr(), counter.data_ptr(), Q, L, K, M, k,
-                  order.shape[1], inv_eps, int(how == "general"), ctas,
+                  order.shape[1], inv_eps, _CODES[kind], ctas,
                   None if scratch is None else scratch.data_ptr(), per,
                   torch.cuda.current_stream().cuda_stream)
     _build.check("refine", "refine_search", code)

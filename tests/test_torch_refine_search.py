@@ -11,6 +11,12 @@ CPU, where the wrapper runs `ref.refine_search_ref`:
 * each query's own round count is the count repro's `search_plan_impl`
   (ref backend) returns for that query searched alone, and their maximum
   is repro's count for the batch;
+* the loop folded as the kernel folds (`ref.select_merge_fold`: a
+  cluster's runs, the buffer whole or in slices) has the global loop's
+  bits, on this index and on one that stores each walk three times;
+* at k near the collection's size the port's search answers repro's
+  ids (but where two distances lie within 1e-5 relative), and each
+  query runs repro's rounds;
 * the wrapper raises on shapes, dtypes and devices its kernel does not
   take.  The CUDA kernel is held against the same plain version on the
   card by chip_smoke.py.
@@ -25,6 +31,7 @@ from repro.api import FreshIndex as JFreshIndex
 from repro.api import IndexConfig as JIndexConfig
 from repro.core.search import search_plan
 from repro_torch import convert
+from repro_torch.api import FreshIndex, IndexConfig
 from repro_torch.core import search
 from repro_torch.data.synthetic import query_workload, random_walk
 from repro_torch.kernels import ref, refine, refine_search
@@ -256,3 +263,82 @@ def test_cpu_tensors_run_the_plain_version_and_count_nothing(indexes,
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert torch.equal(alive, want_alive)
     assert (refine_search.launches, refine.launches) == before
+
+
+def _fold_loop(q, q_sq, idx, order, sorted_lb, k, runs, slices, K=K):
+    """The global loop of rounds with refine_search's fold
+    (`ref.select_merge_fold`, the kernel's cut, runs and slices) in place
+    of `refine_topk_ref`'s: the candidates are refine_topk_ref's own
+    distances, in union order."""
+    Q, M = q.shape[0], idx.leaf_capacity
+    bsf_d = torch.full((Q, k), ref.BIG)
+    bsf_e = torch.zeros((Q, k), dtype=torch.int32)
+    rounds = torch.zeros(Q, dtype=torch.int32)
+    cursor = 0
+    while cursor < order.shape[1] and bool(
+            (sorted_lb[:, cursor] < bsf_d[:, -1]).any()):
+        rounds += (sorted_lb[:, cursor] < bsf_d[:, -1]).to(torch.int32)
+        alive = sorted_lb[:, cursor:cursor + K] < bsf_d[:, -1:]
+        entry = (order[:, cursor:cursor + K].long()[..., None] * M
+                 + torch.arange(M)).reshape(Q, -1)
+        dots = torch.einsum("qnl,ql->qn", idx.series[entry].float(), q)
+        d2 = (q_sq[:, None] + idx.sq_norms[entry] - 2.0 * dots).clamp_min(0)
+        d2 = torch.where(alive.repeat_interleave(M, dim=1), d2,
+                         torch.full_like(d2, ref.BIG))
+        bsf_d, bsf_e = ref.select_merge_fold(
+            bsf_d, bsf_e, d2, entry.to(torch.int32), k, leaf_capacity=M,
+            runs=runs, slices=slices)
+        cursor += K
+    return bsf_d, bsf_e, rounds
+
+
+@pytest.mark.parametrize("k", [10, 500])
+@pytest.mark.parametrize("layout", [(8, 1), (8, 8)])
+@pytest.mark.parametrize("stored", [1, 3])
+def test_the_kernels_fold_gives_the_global_loops_bits(walks, queries, k,
+                                                      layout, stored):
+    """The loop folded as the kernel folds (a cluster's 8 runs, the
+    buffer whole or in 8 slices) equals refine_search_ref bit for bit,
+    also on an index storing each walk three times (every distance a
+    three-way tie)."""
+    runs, slices = layout
+    coll = np.concatenate([walks[:700]] * 3) if stored == 3 else walks
+    jidx = JFreshIndex.build(coll, JIndexConfig(leaf_capacity=M,
+                                                backend="ref")).index
+    idx, q, q_sq, order, sorted_lb = _queue(jidx, queries)
+    d, e, rounds = ref.refine_search_ref(
+        q, q_sq, idx.series, idx.sq_norms, order, sorted_lb,
+        leaf_capacity=M, k=k, round_leaves=K)
+    fd, fe, frounds = _fold_loop(q, q_sq, idx, order, sorted_lb, k, runs,
+                                 slices)
+    assert torch.equal(fd.view(torch.int32), d.view(torch.int32))
+    assert torch.equal(fe, e) and torch.equal(frounds, rounds)
+
+
+@pytest.mark.parametrize("k", [500, 1999])
+def test_search_at_large_k_answers_repros_ids_and_rounds(walks, queries,
+                                                         indexes, k):
+    """FreshIndex.search at k near the collection's size: repro's ids,
+    and each query's rounds those of repro's search_plan (ref backend)
+    for the query alone."""
+    ix = FreshIndex.build(walks, IndexConfig(leaf_capacity=M), device="cpu")
+    jx = JFreshIndex.build(walks, JIndexConfig(leaf_capacity=M,
+                                               backend="ref"))
+    d, i = (a.numpy() for a in ix.search(queries, k=k, round_leaves=K))
+    dj, ij = (np.asarray(a) for a in jx.search(jnp.asarray(queries), k=k,
+                                               round_leaves=K))
+    np.testing.assert_allclose(d, dj, rtol=1e-5, atol=1e-5)
+    # ids equal but where two of repro's distances lie within 1e-5
+    # relative (each package's sums round apart): the port's id is one of
+    # those at its distance
+    for r, s in zip(*np.nonzero(i != ij)):
+        near = np.abs(dj[r] - d[r, s]) <= 1e-5 * d[r, s]
+        assert near.sum() >= 2 and i[r, s] in ij[r][near]
+    idx, q, q_sq, order, sorted_lb = _queue(indexes["float32"], queries)
+    _, _, rounds = refine_search.refine_search(
+        q, q_sq, idx.series, idx.sq_norms, order, sorted_lb, leaf_capacity=M,
+        k=k, round_leaves=K)
+    alone = [int(search_plan(indexes["float32"], jnp.asarray(queries[j:j + 1]),
+                             k=k, round_leaves=K, backend="ref")[2])
+             for j in range(len(queries))]
+    assert rounds.tolist() == alone

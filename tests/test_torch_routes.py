@@ -63,9 +63,19 @@ def test_every_refinement_shape_has_a_route(L, k):
             assert any(refine._fits(L, K, M, k, elem, b)
                        for b in (4, 3, 2, 1))
         if s != "general":
-            # a cta route is laid out only where csrc's layout fits
+            # a cluster route is laid out only where csrc's layout fits,
+            # the buffer spread only over a cluster of more than one CTA
             assert (L * elem) % 16 == 0
-            assert refine_search._fits(L, K, M, k, elem, int(s[3:]))
+            spread = s.startswith("spread")
+            assert refine_search._fits(L, K, M, k, elem, int(s[-1]), spread)
+            assert not spread or refine_search.cluster_size(K) > 1
+            # the buffer is spread first from SPREAD_K on, the other
+            # layout taken only where the first fits nowhere
+            first = (k >= refine_search.SPREAD_K
+                     and refine_search.cluster_size(K) > 1)
+            assert spread == first or not any(
+                refine_search._fits(L, K, M, k, elem, b, first)
+                for b in (1, 2, 3))
         if (L * elem) % 16:
             assert r == s == "general"
         assert refine_search.general_words(K, M, k) >= 3 * K * M + 4 * k
@@ -99,9 +109,15 @@ def test_the_faulting_shapes_take_the_other_routes():
     assert refine.route(256, 8, 64, 14500, f32) == "general"  # > 227 KB
     assert refine.route(256, 8, 64, 16000, f32) == "general"
     assert refine_search.route(100, 8, 64, 10, bf16) == "general"
-    assert refine_search.route(256, 8, 64, 5000, f32) == "cta2"
-    assert refine_search.route(256, 64, 256, 10, f32) == "cta1"
-    assert refine_search.route(256, 8, 64, 20000, f32) == "general"
+    # large k spreads the buffer over the cluster; leaves of 256 at K 64
+    # keep no K * M arrays of passing candidates and lay out for 2 CTAs
+    # (3 fit, but with stages of 8 rows)
+    assert refine_search.route(256, 8, 64, 5000, f32) == "spread3"
+    assert refine_search.route(256, 64, 256, 10, f32) == "cta2"
+    assert refine_search.stage_rows(256, 64, 256, 10, 4, 3) == 8
+    assert refine_search.route(256, 8, 64, 20000, f32) == "spread2"
+    # past both layouts (K * M keys of passing candidates beside k): general
+    assert refine_search.route(256, 64, 256, 5000, f32) == "general"
     # rows TMA cannot take go to the staged loader, never to a plain version
     assert ed_argmin.route(100) == "tensor"                   # 400 bytes
     assert ed_argmin.route(100, bf16) == "staged"             # 200 bytes
