@@ -71,12 +71,13 @@ Phases, each printing one JSON line:
              fast route does not fit) against their plain versions:
              summarize strided at L 96 / w 16 (f32, bf16) and L 100 / w 10,
              lb_distance looped at w 32 and 10, refine_topk general at bf16
-             L 100 and at k 16,000 (each bit-equal to its round folded
-             slot by slot), refine_search at k 5000 and 20,000 (the
-             buffer spread over the cluster), at leaves of 256 and K 64
-             (k 10) and bf16 L 100 (general), k 5000, leaves of 256, k
-             2000 and bf16 storage at k 5000 each bit-equal to the loop of
-             refine_topk ring launches, an index storing each walk three
+             L 100, f32 L 235 and at k 16,000 (each timed, each bit-equal
+             to its round folded slot by slot), refine_search at k 5000
+             and 20,000 (the buffer spread over the cluster), at leaves of
+             256 and K 64 (k 10) and bf16 L 100 (general, bit-equal to the
+             loop of refine_topk general launches), k 5000, leaves of 256,
+             k 2000 and bf16 storage at k 5000 each bit-equal to the loop
+             of refine_topk ring launches, an index storing each walk three
              times at k 5000 and 20,000, ed_argmin at L 100 f32 (TMA), L
              100 bf16 and L 235 f32 (the staged loader), each beside one
              torch.mm at its shape, the staged loader bit-equal to TMA at L 256
@@ -84,9 +85,10 @@ Phases, each printing one JSON line:
              routes beside granite's (ATTN_ROWS: tc96, tc256, tc320,
              tc512, simt96, tf256, staged128 at dh 100 beside its TMA
              twin tc128 at dh 104 (T 1024, and on granite's heads at T
-             4096), simt320, wide at dh 576, each by
-             device time with SDPA's time and excess beside it); one
-             table row each;
+             4096), simt320, O in chunks at dh 576 (tcc192, tfc192 beside
+             the FMAs' simtc320, and tcc192 at DeepSeek-V2-Lite's 16 heads
+             over one latent of 576 at T 4096), each by device time with
+             SDPA's time and excess beside it); one table row each;
   rounds     ops.refine_topk, repro's per-round kernel API, driven through
              the global loop of rounds over the main cell's queue (the
              search before refine_search), held bit for bit against
@@ -232,8 +234,8 @@ Phases, each printing one JSON line:
              (ATTN_ROWS: Phi-3-mini's dh 96 and Gemma 7B's dh 256 on the
              tensor cores, dh 320 and 512 with O in halves, float32 at dh
              96 (FMAs), 256 (TF32) and 320 (halves), the staged route at
-             dh 100 and its TMA twin at 104, the wide route at 576), its
-             launches its table row's.
+             dh 100 and its TMA twin at 104, O in chunks at 576 in both
+             dtypes and at T 4096), its launches its table row's.
 refine_search is held under the (1 + eps) stop (inv_eps 1 / 1.25^2) on
 every route too: cta3 in the kernel phase, spread3 (k 5000), spread2 (k
 20,000), cta2 (leaves of 256) and general in the route phase.
@@ -328,10 +330,15 @@ def require(ok: bool, what: str) -> None:
 
 # the attention instances whose registers and spills the ptxas phase
 # prints, by a piece of their mangled names: bf16 dh 96 (Phi-3-mini's
-# width), bf16 dh 256 on 64-key tiles, and float32 dh 129-256 in TF32
+# width), bf16 dh 256 on 64-key tiles, float32 dh 129-256 in TF32, and O
+# in chunks past dh 512 (bf16 with Q whole in shared memory, float32)
 ATTN_PTXAS = {"tc96": "flash_tc_kernelILi96ELi96E",
               "tc256": "flash_tc_kernelILi256ELi256E",
-              "tf256": "flash_tf_kernel"}
+              "tf256": "flash_tf_kernel",
+              "tcc192": "chunk_kernelILi192ELb0E",
+              "tcc256": "chunk_kernelILi256ELb0E",
+              "tfc192": "tfc_kernelILi192E",
+              "tfc256": "tfc_kernelILi256E"}
 
 
 def ptxas_entries(log: str) -> dict:
@@ -1275,6 +1282,25 @@ def staged_equal(torch, fk, gen):
     return out
 
 
+def stream_q_equal(torch, fk, gen):
+    """The bfloat16 chunks with Q streamed beside K (the layout every dh
+    past 704 takes) bit-equal to Q whole in shared memory on the same
+    inputs at dh 576, causal and with a window of 200 over a ragged T = S
+    = 1000: the same products in the same order.  Returns the check."""
+    out = {}
+    for causal, window, T in ((True, 0, 1024), (True, 200, 1000)):
+        q, k, v = attention_inputs(torch, gen, 1, 8, 2, T, 576,
+                                   torch.bfloat16)
+        name = fk.route(torch.bfloat16, 576)
+        a = fk.launch(q, k, v, name, causal=causal, window=window)
+        b = fk.launch(q, k, v, name, causal=causal, window=window,
+                      stream_q=True)
+        require(torch.equal(a, b), "flash_attention dh 576: Q streamed != "
+                "Q whole")
+        out[f"dh576_T{T}_window{window}"] = "bit-equal"
+    return out
+
+
 def check_flash(torch, fk, ref, gen, edge_gen):
     """granite-8b's attention in bf16 (causal, then window 1024), held to
     the bf16 rounding of the float32 plain version; float32 cases at 2e-5:
@@ -1290,16 +1316,20 @@ def check_flash(torch, fk, ref, gen, edge_gen):
     the TF32 route), 40 and 80 (padded to the next instance), 320 (O in
     two halves of columns), 100 and 36 (bf16: the staged route; f32:
     padded), 101 (odd: bf16 rows read by 2-byte loads, f32 by values), 300
-    (bf16 staged halves); in bf16 102, 264 and 512 (halves), 445 and 510
-    (staged halves) and 520 (the wide route), and dh 100 at T 999; in f32
-    160, 200 and 255 (the TF32 route at rows that are not whole 16-byte
-    pieces or not 32-column chunks: K's copy padded, V^T's rows cut), 257,
-    301 and 512 (halves); the staged route at its edges (the ragged T = S
-    = 1000 with window 200 and the empty rows, at dh 100 and 101, the
-    TF32 route there at dh 256, and the f32 halves at dh 320 and 301); and
-    B * Hq 65,600 at T 64, dh 64 (past the grid's old y dimension).  Last,
-    the staged route bit-equal to TMA on the same inputs at dh 104 and
-    320 (bf16)."""
+    (bf16 staged halves), 520 and 576 (O in chunks: tcc192 and tfc192)
+    and 1,024 (tcc256, tfc256); in bf16 102, 264 and 512 (halves), 445
+    and 510 (staged halves), 521 (staged chunks), 640 and 2,048 (tcc256,
+    the latter with Q streamed), and dh 100 at T 999; in f32 160, 200 and
+    255 (the TF32 route at rows that are not whole 16-byte pieces or not
+    32-column chunks: K's copy padded, V^T's rows cut), 257, 301 and 512
+    (halves), 578 and 1,028 (chunks on the FMAs: rows not whole 16-byte
+    pieces, and past the TF32 chunks' 1,024); the staged route at its
+    edges (the ragged T = S = 1000 with window 200 and the empty rows, at
+    dh 100 and 101, the TF32 route there at dh 256, the f32 halves at dh
+    320 and 301, and the chunks at 576 in both dtypes); and B * Hq 65,600
+    at T 64, dh 64 (past the grid's old y dimension).  Last, the staged
+    route bit-equal to TMA on the same inputs at dh 104 and 320 (bf16), and
+    the bf16 chunks with Q streamed bit-equal to Q whole at dh 576."""
     g = GRANITE
     bf16 = torch.bfloat16
     f32 = dict(B=1, Hq=8, Hkv=2, T=1024, dh=128, dtype=torch.float32)
@@ -1322,19 +1352,23 @@ def check_flash(torch, fk, ref, gen, edge_gen):
     # every head width repro answers: the instances of 96 and 256, 40 and
     # 80 padded to the next instance, 320 (O in halves), 100 / 36 / 101
     # (bf16 staged), 300 in both dtypes; bf16 102, 264, 512 (halves), 445
-    # and 510 (staged halves) and 520 (the wide route); f32 257, 301, 512
-    # (halves); then the staged
-    # producer and the f32 halves at their edges, and more heads than the
-    # grid's old y held
+    # and 510 (staged halves); 520, 576 and 1,024 in both dtypes (O in
+    # chunks), bf16 521 (staged chunks), 640 and 2,048 (Q streamed); f32
+    # 257, 301, 512 (halves), 578 and 1,028 (chunks on the FMAs); then the
+    # staged producer, the f32 halves and the chunks at their edges, and
+    # more heads than the grid's old y held
     both = (bf16, torch.float32)
+    f32_only = (torch.float32,)
     for dh, dtypes in ((96, both), (256, both), (40, both), (80, both),
                        (320, both), (264, (bf16,)), (512, both),
-                       (100, both), (520, (bf16,)), (36, both),
+                       (100, both), (520, both), (576, both), (1024, both),
+                       (521, (bf16,)), (640, (bf16,)), (2048, (bf16,)),
+                       (36, both),
                        (101, both), (102, (bf16,)), (300, both),
                        (445, (bf16,)), (510, (bf16,)),
-                       (160, (torch.float32,)), (200, (torch.float32,)),
-                       (255, (torch.float32,)),
-                       (257, (torch.float32,)), (301, (torch.float32,))):
+                       (160, f32_only), (200, f32_only), (255, f32_only),
+                       (257, f32_only), (301, f32_only), (578, f32_only),
+                       (1028, f32_only)):
         for dtype in dtypes:
             name = f"{'bf16' if dtype == bf16 else 'f32'}_1024_dh{dh}"
             cases += ((name, dict(f32, dh=dh, dtype=dtype), True, 0,
@@ -1342,7 +1376,8 @@ def check_flash(torch, fk, ref, gen, edge_gen):
     cases += (("bf16_999_dh100", dict(f32, T=999, dh=100, dtype=bf16), True,
                0, edge_gen),)
     for dh, dtype in ((100, bf16), (101, bf16), (256, torch.float32),
-                      (320, torch.float32), (301, torch.float32)):
+                      (320, torch.float32), (301, torch.float32), (576, bf16),
+                      (576, torch.float32)):
         tag = f"{'bf16' if dtype == bf16 else 'f32'}_dh{dh}"
         cases += ((f"{tag}_1000_window200",
                    dict(f32, T=1000, dh=dh, dtype=dtype), True, 200,
@@ -1375,6 +1410,7 @@ def check_flash(torch, fk, ref, gen, edge_gen):
         del q, k, v, ok
         torch.cuda.empty_cache()
     rows["staged_equals_tma"] = staged_equal(torch, fk, edge_gen)
+    rows["stream_q_equals_whole"] = stream_q_equal(torch, fk, edge_gen)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:36",
@@ -1394,8 +1430,12 @@ def check_flash(torch, fk, ref, gen, edge_gen):
 # cores in TF32), the staged route
 # (bf16 rows of 200 bytes) beside its TMA twin at dh 104, at T 1024 and
 # on granite-8b's heads (Hq 32, Hkv 8, T 4096), where the padded copy's
-# share is that of a model, float32 halves at dh 320, and the wide route
-# (past 512), each (name, shape, dtype, model)
+# share is that of a model, float32 halves at dh 320, and O in chunks
+# past 512 at dh 576 in bf16 (tcc192) and f32 (tfc192; the FMAs' simtc320
+# timed beside it), and at DeepSeek-V2-Lite's MLA in its absorbed form
+# (16 heads over one shared latent of 512 + 64 = 576 columns, T 4096:
+# this API takes V as wide as K, so O has 576 columns where the model's
+# has 512), each (name, shape, dtype, model)
 _T1024 = dict(B=1, Hq=8, Hkv=2, T=1024)
 _T4096 = dict(B=1, Hq=32, Hkv=8, T=4096)
 ATTN_ROWS = (("tc96", dict(B=1, Hq=32, Hkv=32, T=4096, dh=96), "bfloat16",
@@ -1411,7 +1451,10 @@ ATTN_ROWS = (("tc96", dict(B=1, Hq=32, Hkv=32, T=4096, dh=96), "bfloat16",
              ("staged128_T4096", dict(_T4096, dh=100), "bfloat16", None),
              ("tc128_dh104_T4096", dict(_T4096, dh=104), "bfloat16", None),
              ("simt320", dict(_T1024, dh=320), "float32", None),
-             ("wide", dict(_T1024, dh=576), "bfloat16", None))
+             ("tcc192", dict(_T1024, dh=576), "bfloat16", None),
+             ("tfc192", dict(_T1024, dh=576), "float32", None),
+             ("tcc192_T4096", dict(B=1, Hq=16, Hkv=1, T=4096, dh=576),
+              "bfloat16", "DeepSeek-V2-Lite's absorbed MLA"))
 
 
 def route_flash(torch, fk, ref, gen):
@@ -1448,6 +1491,19 @@ def route_flash(torch, fk, ref, gen):
                                        shape["T"], shape["T"], shape["dh"],
                                        elem_bytes=q.element_size())
         bms, by = work.bound()
+        name = route.split("_")[0]
+        more = {}
+        if name[:3] in ("tcc", "tfc"):   # O in chunks: the route's floor
+            more = rl.flash_attention_floors(
+                work, -(-shape["dh"] // int(name[3:])))
+            # the other design measured: Q streamed beside K (bf16), the
+            # FMAs' chunks (f32)
+            other = (dict(stream_q=True), name) if name[:3] == "tcc" else (
+                {}, f"simtc{fk.SIMT_CHUNK}")
+            more["other_route"] = other[1] + (" (Q streamed)" if other[0]
+                                              else "")
+            more["other_route_ms"] = device_ms(torch, lambda: fk.launch(
+                q, k, v, other[1], **other[0]), 10)
         desc = (f"B {shape['B']}, Hq {shape['Hq']}, Hkv {shape['Hkv']}, "
                 f"T = S = {shape['T']}, dh {shape['dh']}, {dtype}, causal"
                 + (f" ({model}'s widths)" if model else ""))
@@ -1461,7 +1517,7 @@ def route_flash(torch, fk, ref, gen):
                                 f"is_causal=True) via {how}",
                 "library_max_abs_err": lib_err,
                 "library_excess": lib_excess, "event_ms": event_ms,
-                "library_event_ms": lib_event}
+                "library_event_ms": lib_event, **more}
         rows.append(row)
         del q, k, v, out
         torch.cuda.empty_cache()
@@ -1561,15 +1617,23 @@ def route_lb(torch, lbk, ref, gen, NL=1 << 16):
                      rows["w32"]["max_abs_err"], ms, plain, bms, by, rows)
 
 
+# refine_topk's general route: (name, L, dtype, k, queries) of its rows;
+# f32 L 235 is the sharded search's round at the UCR Strawberry length
+# (940-byte rows), k 16,000 a buffer past shared memory
+TOPK_GENERAL = (("general", 100, "bfloat16", TOPK, Q),
+                ("general_L235", 235, "float32", TOPK, Q),
+                ("general_k16000", L, "float32", 16000, 4))
+
+
 def route_refine_topk(torch, isax, rk, ref, gen, NL=2048):
-    """The general route of one round: bf16 rows of 100 (200 bytes, not
-    whole 16-byte pieces), and k 16,000 (buffers past shared memory);
-    each bit-equal to the round folded slot by slot."""
-    rows = {}
-    for name, Lx, dtype, k, nq in (("bf16_L100_k10", 100, torch.bfloat16,
-                                    TOPK, Q),
-                                   ("f32_L256_k16000", L, torch.float32,
-                                    16000, 4)):
+    """The general route of one round (TOPK_GENERAL): bf16 rows of 100
+    (200 bytes, not whole 16-byte pieces), f32 rows of 235 (940 bytes),
+    and k 16,000 (buffers past shared memory); each bit-equal to the round
+    folded slot by slot, against the plain version, and timed by device
+    time beside its bound.  One table row each."""
+    out = []
+    for name, Lx, dtype, k, nq in TOPK_GENERAL:
+        dtype = getattr(torch, dtype)
         x = isax.znormalize(walks(torch, gen, NL * M, Lx))
         qv = isax.znormalize(walks(torch, gen, nq, Lx))
         qsq = (qv * qv).sum(1)
@@ -1594,31 +1658,35 @@ def route_refine_topk(torch, isax, rk, ref, gen, NL=2048):
                 f"{name}: not bit-equal to the round folded slot by slot")
         dr, er = ref.refine_topk_ref(*args, leaf_capacity=M, k=k)
         err, swaps = fold_check(torch, dk, ek, dr, er, true_d, tol, name)
-        rows[name] = {"max_abs_err": err, "near_tie_swaps": swaps,
-                      "tol": tol, "slot_by_slot": "bit-equal"}
-        if name == "bf16_L100_k10":
-            n_alive = int(alive.sum())
-            ms = device_ms(torch, lambda: rk.refine_topk(
-                *args, leaf_capacity=M, k=k))
-            plain = time_ms(torch, lambda: ref.refine_topk_ref(
-                *args, leaf_capacity=M, k=k), 5)
-            bms, by = rl.refine_topk_work(nq, K, M, Lx, k, n_alive,
-                                          series.element_size()).bound()
-    return route_row("refine_topk", "general",
-                     "src/repro_torch/kernels/csrc/refine.cu",
-                     "src/repro/kernels/refine.py:139",
-                     f"Q={Q} K={K} M={M} L=100 k={TOPK}, bf16, ~half alive",
-                     rows["bf16_L100_k10"]["max_abs_err"], ms, plain, bms, by,
-                     rows)
+        n_alive = int(alive.sum())
+        ms = device_ms(torch, lambda: rk.refine_topk(
+            *args, leaf_capacity=M, k=k))
+        plain = time_ms(torch, lambda: ref.refine_topk_ref(
+            *args, leaf_capacity=M, k=k), 5)
+        bms, by = rl.refine_topk_work(nq, K, M, Lx, k, n_alive,
+                                      series.element_size()).bound()
+        out.append(route_row(
+            "refine_topk", name, "src/repro_torch/kernels/csrc/refine.cu",
+            "src/repro/kernels/refine.py:139",
+            f"Q={nq} K={K} M={M} L={Lx} k={k}, {str(dtype)[6:]}, ~half "
+            f"alive", err, ms, plain, bms, by,
+            {name: {"max_abs_err": err, "near_tie_swaps": swaps, "tol": tol,
+                    "slot_by_slot": "bit-equal", "alive": n_alive}}))
+        del x, series, qv
+        torch.cuda.empty_cache()
+    return out
 
 
-def topk_equal(torch, search, rk, topk, idx, queries, K_, k_, what):
+def topk_equal(torch, search, rk, topk, idx, queries, K_, k_, what,
+               want="ring"):
     """refine_search's (d, e, rounds, alive) bit-equal to the global loop
-    of refine_topk ring launches over the same queue (topk_loop): the
-    fold by selection and merge against the ring route's pairwise rank,
-    on distances of the same code (warp_d2)."""
+    of refine_topk launches over the same queue (topk_loop), of the ring
+    route (the fold by selection and merge against the ring route's
+    pairwise rank, on distances of the same code, warp_d2) or of the
+    general route (want "general": both general routes, one fold a round,
+    on distances of row_d2)."""
     M_, Lx, dt = idx.leaf_capacity, idx.series.shape[1], idx.series.dtype
-    require(topk.route(Lx, K_, M_, k_, dt) == "ring",
+    require(topk.route(Lx, K_, M_, k_, dt) == want,
             f"{what}: refine_topk takes {topk.route(Lx, K_, M_, k_, dt)}")
     q, q_sq, order, sorted_lb = refine_inputs(search, idx, queries, K_)
     args = (q, q_sq, idx.series, idx.sq_norms, order, sorted_lb)
@@ -1637,9 +1705,9 @@ def route_refine_search(torch, api, search, rk, ref, gen, n=1 << 18):
     route, rows not whole 16-byte pieces).  Beside them: k 5000 and
     leaves of 256 bit-equal to the loop of refine_topk ring launches
     (topk_equal), as are k 2000 on the same leaves and k 5000 in bf16
-    storage; an index storing each walk three times (every distance a
-    three-way tie) at k 5000 (also bit-equal to that loop) and k
-    20,000."""
+    storage, and bf16 L 100 to the loop of refine_topk general launches;
+    an index storing each walk three times (every distance a three-way
+    tie) at k 5000 (also bit-equal to that loop) and k 20,000."""
     from repro_torch.kernels import refine as topk
     raw = walks(torch, gen, n, L)
     pick = torch.randint(0, n, (Q,), generator=gen, device=DEV)
@@ -1702,6 +1770,9 @@ def route_refine_search(torch, api, search, rk, ref, gen, n=1 << 18):
             "refine_search bf16 L 100: route")
     rows["bf16_L100"] = hold_loop(torch, search, rk, ref, idx, queries, K,
                                   "refine_search bf16 L 100")
+    rows["bf16_L100"]["topk_loop"] = topk_equal(
+        torch, search, rk, topk, idx, queries, K, TOPK,
+        "refine_search bf16 L 100", want="general")
     rows["bf16_L100_eps"] = hold_eps(torch, search, rk, ref, idx, queries, K,
                                      TOPK, "refine_search bf16 L 100 eps")
     out = []
@@ -1874,16 +1945,16 @@ def grid_strides(torch, kmods, ref, gen):
 # flash_attention past 65,535 blocks of query rows, each route in two
 # launches: (route, dtype, dh), T = 65,535 blocks of its rows + 3 blocks,
 # one head, causal, window ATTN_LONG_WINDOW
-ATTN_LONG = (("wide", "bfloat16", 520), ("simt32", "float32", 32),
+ATTN_LONG = (("tcc192", "bfloat16", 520), ("simt32", "float32", 32),
              ("tc32", "bfloat16", 32), ("staged32", "bfloat16", 30))
 ATTN_LONG_WINDOW = 64
 
 
 def attention_rows_past_the_grid(torch, fk, ref, gen):
     """flash_attention at more query blocks than the grid's y dimension
-    holds (ATTN_LONG: 1,048,608 rows on the wide route at dh 520,
-    4,194,432 on the FMAs, 8,388,864 on the tensor cores fed by TMA and
-    by the staged producer), causal under a window of 64:
+    holds (ATTN_LONG: 4,194,432 rows on the bf16 chunks at dh 520 and on
+    the FMAs, 8,388,864 on the tensor cores fed by TMA and by the staged
+    producer), causal under a window of 64:
     two launches, the last 65,535 blocks first; rows at the start, on
     each side of the launches' seam and at the end, 256 each, held under
     the existing limits (attention_excess) to the plain version on the
@@ -1933,8 +2004,8 @@ def check_routes(torch, api, isax, search, kmods, ref, gen):
     """Each route a shape takes beside the main cell's, against its plain
     version; one kernel-table row each."""
     rows = [route_summarize(torch, isax, kmods["summarize"], ref, gen),
-            route_lb(torch, kmods["lb_distance"], ref, gen),
-            route_refine_topk(torch, isax, kmods["refine_topk"], ref, gen)]
+            route_lb(torch, kmods["lb_distance"], ref, gen)]
+    rows += route_refine_topk(torch, isax, kmods["refine_topk"], ref, gen)
     rows += route_refine_search(torch, api, search, kmods["refine_search"],
                                 ref, gen)
     rows += route_ed_argmin(torch, isax, kmods["ed_argmin"], ref, gen)

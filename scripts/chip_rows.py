@@ -25,7 +25,22 @@ those table rows, checks included:
                    must agree)
     refine_topk    bench_refine_dtw.refine_case on the tree's refine_topk:
                    K 8, 16 and 264, a first round all alive and rounds
-                   with all, half and 1 in 20 slots alive, device ms
+                   with all, half and 1 in 20 slots alive, device ms; and
+                   the general route's rows (TOPK_GENERAL: bf16 L 100 and
+                   f32 L 235 at k 10 over Q 256, f32 L 256 at k 16,000
+                   over Q 4; K 8, leaves of 64, about half the slots
+                   alive, a first round into the empty buffer), device
+                   ms, rows `refine_topk/general_<case>`, each with a hash
+                   of its buffers (trees whose row_d2 reads a row in other
+                   pieces sum it in another order)
+    attention_wide flash_attention at dh 576 by the tree's default route,
+                   beside SDPA on the same inputs (ATTN_WIDE: bf16 and
+                   f32 at B 1, Hq 8, Hkv 2, T = S = 1024, and bf16 at B 1,
+                   Hq 16, Hkv 1, T = S = 4096, DeepSeek-V2-Lite's absorbed
+                   MLA), causal, device ms, rows
+                   `flash_attention/<case>` and `sdpa/<case>`, each with
+                   the route and a hash of the output (the trees' must
+                   agree where their routes compute alike)
     ed_argmin      route_ed_argmin: L 100 f32 and bf16, L 235
     dtw_long       dtw_long_queries: L 16,400 at r 12, 40 and 200; then
                    (long_rows) dtw_search at that shape at round_k 256
@@ -87,8 +102,20 @@ import subprocess
 import sys
 import time
 
-GROUPS = ("attention", "refine_search", "refine_main", "refine_topk",
-          "ed_argmin", "dtw_long", "dtw_scan", "dtw_band", "dtw_wide")
+GROUPS = ("attention", "attention_wide", "refine_search", "refine_main",
+          "refine_topk", "ed_argmin", "dtw_long", "dtw_scan", "dtw_band",
+          "dtw_wide")
+# refine_topk's general route: (case, L, dtype, k, queries), K 8, M 64
+TOPK_GENERAL = (("bf16_L100", 100, "bfloat16", 10, 256),
+                ("f32_L235", 235, "float32", 10, 256),
+                ("f32_L256_k16000", 256, "float32", 16000, 4))
+# flash_attention past dh 512: (case, shape, dtype)
+ATTN_WIDE = (("dh576_bf16", dict(B=1, Hq=8, Hkv=2, T=1024, dh=576),
+              "bfloat16"),
+             ("dh576_f32", dict(B=1, Hq=8, Hkv=2, T=1024, dh=576),
+              "float32"),
+             ("dh576_T4096_Hq16", dict(B=1, Hq=16, Hkv=1, T=4096, dh=576),
+              "bfloat16"))
 # the dtw_wide group's shapes: (series, queries, L, r, round_k, search)
 WIDE_SWEEP = tuple((256, 4, L, r, k, True) for L, r, k in (
     (256, 128, 32), (256, 192, 32), (256, 255, 32), (1024, 128, 32),
@@ -119,6 +146,59 @@ def main_rows(torch, cs, api, search, rk, gen):
     route = rk.route(cs.L, cs.K, cs.M, cs.TOPK, idx.series.dtype)
     return {"refine_search/main": ms}, {"route": route,
                                         "hash": h.hexdigest()[:16]}
+
+
+def topk_general_rows(torch, cs, isax, rk, gen, NL=2048):
+    """The refine_topk group's general rows: ({name: ms}, {name: {route,
+    hash}}), each a first round into the empty buffer with about half
+    the slots alive."""
+    ms, detail = {}, {}
+    K, M = 8, 64
+    for case, Lx, dtype, k, nq in TOPK_GENERAL:
+        dtype = getattr(torch, dtype)
+        x = isax.znormalize(cs.walks(torch, gen, NL * M, Lx)).to(dtype)
+        qv = isax.znormalize(cs.walks(torch, gen, nq, Lx))
+        qsq = (qv * qv).sum(1)
+        xn = (x.float() ** 2).sum(1)
+        ids = cs.draw_leaves(torch, gen, nq, NL, K)
+        alive = torch.rand(nq, K, generator=gen, device=cs.DEV) < 0.5
+        alive[:, 0] = True
+        args = (qv, qsq, x, xn, ids, alive,
+                torch.full((nq, k), 1e30, device=cs.DEV),
+                torch.zeros((nq, k), dtype=torch.int32, device=cs.DEV))
+        call = lambda: rk.refine_topk(*args, leaf_capacity=M,  # noqa: E731
+                                      k=k)
+        d, e = call()
+        name = f"refine_topk/general_{case}"
+        ms[name] = cs.device_ms(torch, call)
+        h = hashlib.sha256(d.cpu().numpy().tobytes()
+                           + e.cpu().numpy().tobytes())
+        detail[name] = {"route": rk.route(Lx, K, M, k, dtype),
+                        "hash": h.hexdigest()[:16]}
+        del x, args
+        torch.cuda.empty_cache()
+    return ms, detail
+
+
+def attention_wide_rows(torch, cs, fk, gen):
+    """The attention_wide group's rows: ({name: ms}, {name: {route,
+    hash}})."""
+    ms, detail = {}, {}
+    for case, shape, dtype in ATTN_WIDE:
+        dt = getattr(torch, dtype)
+        q, k, v = cs.attention_inputs(torch, gen, dtype=dt, **shape)
+        call = lambda: fk.flash_attention(q, k, v)  # noqa: E731
+        out = call()
+        name = f"flash_attention/{case}"
+        ms[name] = cs.device_ms(torch, call, 10)
+        detail[name] = {"route": fk.route(dt, shape["dh"]), "hash":
+                        hashlib.sha256(out.float().cpu().numpy().tobytes())
+                        .hexdigest()[:16]}
+        lib, _ = cs.sdpa(torch, q, k, v)
+        ms[f"sdpa/{case}"] = cs.device_ms(torch, lib, 10)
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    return ms, detail
 
 
 def scan_rows(torch, cs, isax, kd, gen):
@@ -360,6 +440,13 @@ def main() -> int:
                                 gen(0), 3)
         rows += [{"name": f"refine_topk/{n}", "ms": v["device_ms"]}
                  for n, v in got.items() if isinstance(v, dict)]
+        ms, extra["refine_topk"] = topk_general_rows(
+            torch, cs, isax, kmods["refine_topk"], gen(4))
+        rows += [{"name": n, "ms": t} for n, t in ms.items()]
+    if "attention_wide" in groups:
+        ms, extra["attention_wide"] = attention_wide_rows(
+            torch, cs, kmods["flash_attention"], gen(5))
+        rows += [{"name": n, "ms": t} for n, t in ms.items()]
     if "ed_argmin" in groups:
         rows += cs.route_ed_argmin(torch, isax, kmods["ed_argmin"], ref,
                                    gen(2))

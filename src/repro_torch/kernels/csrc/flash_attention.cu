@@ -10,17 +10,19 @@
 //
 // Routes, by dtype and head width: bfloat16 takes the tensor cores in
 // instances of width 32, 64, 96, 128 and 256 that take every narrower dh
-// (padded with zeros in shared memory), and past 256, to 512, in
-// instances of width 320, 384, 448 and 512 whose blocks each compute one
-// half of O's columns (wgmma's N is at most 256), the scores for both.  A
-// bfloat16 row that is not whole 16-byte pieces (dh % 8 != 0), which TMA
-// cannot stride over, takes the staged route: `pad_rows` first copies q,
-// k and v into rows padded to 16-byte pieces, and TMA reads the copies.
-// float32 takes the FMAs to dh 128 (instances 32 to 128) and past 256
-// (halves, to 512), and the tensor cores from 129 to 256 (`tf256`, three
-// TF32 products a term).  Only a dh past 512 takes the wide route.  The
-// grid's x dimension is the head b * Hq + h (any B Hq), its y dimension
-// the query block (the float32 halves: see simt::half_kernel).
+// (padded with zeros in shared memory), past 256, to 512, in instances of
+// width 320, 384, 448 and 512 whose blocks each compute one half of O's
+// columns (wgmma's N is at most 256), the scores for both, and past 512
+// in chunks of O of 192 or 256 columns whose scores are taken over dh in
+// 64-column pieces (chunk::).  A bfloat16 row that is not whole 16-byte
+// pieces (dh % 8 != 0), which TMA cannot stride over, takes the staged
+// route: `pad_rows` first copies q, k and v into rows padded to 16-byte
+// pieces, and TMA reads the copies.  float32 takes the FMAs to dh 128
+// (instances 32 to 128) and past 256 (halves to 512, chunks of 320
+// columns past it), and the tensor cores from 129 to 256 (`tf256`, three
+// TF32 products a term).  The grid's x dimension is the head b * Hq + h
+// (any B Hq), its y dimension the query block (the float32 halves and
+// chunks: see simt::half_kernel).
 //
 // Why a padded copy, for attention: a producer that wrote the tiles
 // itself (cp.async into the swizzled layout, or one bulk copy of the rows
@@ -107,10 +109,14 @@
 //   shuffles for the row max and sum, P through shared memory
 //   (transposed) into the P.V product, where a thread owns 4 rows x dh/16
 //   columns of O.  Bound: the float32 FMA rate; its products at granite's
-//   shape would take 2.05 ms (1.37e11 flops at 67 TFLOP/s).
+//   shape would take 2.05 ms (1.37e11 flops at 67 TFLOP/s).  Past 256,
+//   `half_kernel` computes O in chunks of columns (two to dh 640).
 //
-// * dh past 512, either dtype: `wide::wide_kernel` (float32 FMAs, no TMA
-//   and no tiles in shared memory; see there).
+// * bfloat16 past dh 512: `chunk::chunk_kernel` (tensor cores, TMA; O in
+//   chunks of at most 256 columns, the scores over dh in 64-column pieces;
+//   see there).  float32 past dh 512: `tfc::tfc_kernel` (tf::'s products
+//   over chunks of O; see there) where dh % 4 == 0, else
+//   `simt::half_kernel`.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -350,10 +356,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                                      causal, window, scale, stream);
 }
 
-// float32 past dh 256, to 512: O in two halves of DV = DH / 2 columns, a
-// block each, both computing the whole scores (as the bfloat16 HALVES
-// do).  The transposed tiles of flash_kernel would not fit (Q and K of 64
-// rows at DH 320 are 87 KB each), so a block streams the scores' columns:
+// float32 past dh 256: O in chunks of DV columns, a block each, all
+// computing the whole scores (as the bfloat16 halves and chunks do): two
+// halves to dh 512 (DV = dh / 2 rounded up to an instance: 160 to 256),
+// past it, where a row is not whole 16-byte pieces (tfc:: takes the
+// others), max(2, ceil(dh / 320)) chunks of 320 (wider chunks spill: at
+// 384 to 512 columns a thread's O passed its 255 registers).  The transposed tiles of
+// flash_kernel would not fit (Q and K of 64 rows at dh 320 are 87 KB
+// each), so a block streams the scores' columns:
 // kHC = 64 columns of the block's 64 query rows and of a 64-key tile a
 // chunk, both row-major (rows of kHLd = 68 floats, 4 words past a
 // multiple of 32, so that the 16 key rows a warp reads fall in distinct
@@ -367,14 +377,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // and P is conflict-free.  A block takes a pair of query blocks, the
 // i-th heaviest and the i-th lightest under a causal mask, so that every
 // block has about the same number of tiles (the grid's x: the pairs,
-// the two halves and the heads, one launch for any T).  Every product
+// the chunks of O and the heads, one launch for any T).  Every product
 // and sum is float32 (expf, as the plain version).
 constexpr int kHC = 64;            // score columns a chunk
 constexpr int kHLd = kHC + 4;      // a chunk's row, in floats
 
-template <int DH>
+template <int DV>
 struct Half {
-  static constexpr int kDV = DH / 2;               // O columns a block
+  static constexpr int kDV = DV;                   // O columns a block
   static constexpr int kG = kDV / 32;              // float2 columns a thread
   static constexpr int kChunk = 64 * kHLd;         // floats of a chunk
   static constexpr int kSmem = 4 * (4 * kChunk + 64 * kDV + kBKV * kLd);
@@ -400,13 +410,13 @@ __device__ __forceinline__ void copy_rows(float* dst, int ld,
   }
 }
 
-template <int DH, bool kVec>
+template <int DV, bool kVec>
 __global__ void __launch_bounds__(kThreads, 1)
 half_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ v, float* __restrict__ o, int Hq,
             int Hkv, int Tq, int S, int dh, int causal, int window,
-            float scale) {
-  using H = Half<DH>;
+            float scale, int chunks) {
+  using H = Half<DV>;
   constexpr int kG = H::kG;
   extern __shared__ __align__(16) float smem[];
   float* qk = smem;                        // [2][Q chunk, K chunk]
@@ -418,8 +428,8 @@ half_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int nqb = (Tq + kBQ - 1) / kBQ;
   const int pairs = (nqb + 1) / 2;
   const int pair = blockIdx.x % pairs;
-  const int half = (blockIdx.x / pairs) % 2;
-  const int bh = blockIdx.x / pairs / 2;           // b * Hq + h
+  const int half = (blockIdx.x / pairs) % chunks;  // O's chunk
+  const int bh = blockIdx.x / pairs / chunks;      // b * Hq + h
   const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
   const int c0 = half * H::kDV;
   const float* qp = q + (long long)bh * Tq * dh;
@@ -579,22 +589,24 @@ half_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int DH>
+// O in `chunks` chunks of DV columns (ceil(dh / DV)), one launch.
+template <int DV>
 cudaError_t launch_half(const void* q, const void* k, const void* v,
                         void* o, int B, int Hq, int Hkv, int Tq, int S,
                         int dh, int causal, int window, float scale,
                         cudaStream_t stream) {
+  const int chunks = (dh + DV - 1) / DV;
   const long long blocks =
-      (long long)B * Hq * 2 * (((Tq + kBQ - 1) / kBQ + 1) / 2);
+      (long long)B * Hq * chunks * (((Tq + kBQ - 1) / kBQ + 1) / 2);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  auto kernel = dh % 4 == 0 ? half_kernel<DH, true> : half_kernel<DH, false>;
+  auto kernel = dh % 4 == 0 ? half_kernel<DV, true> : half_kernel<DV, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Half<DH>::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Half<DV>::kSmem);
   if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)blocks, kThreads, Half<DH>::kSmem, stream>>>(
+  kernel<<<(unsigned)blocks, kThreads, Half<DV>::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Tq, S,
-      dh, causal, window, scale);
+      dh, causal, window, scale, chunks);
   return cudaGetLastError();
 }
 
@@ -1620,162 +1632,683 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
 }  // namespace tf
 
-namespace wide {
+namespace chunk {
 
-// The route of every head width the instances do not take (dh past 512),
-// either dtype, without TMA: a block owns 16 query rows of one head (4 a warp) and 64
-// columns of O (grid z: the column chunks of dh), and walks 32-key tiles
-// with the online softmax, lane j holding key j.  Its scores are dot
-// products over the whole dh, taken kDC columns at a time through shared
-// memory (the block's query rows and the tile's keys copied with
-// consecutive threads on consecutive values, each key row padded to kDC
-// + 1 so that the lanes' reads of a column fall in distinct banks); the
-// row max and sum are warp reductions, and P.V takes each key's weight by
-// a shuffle against the lanes' columns of V (consecutive lanes,
-// consecutive columns).  Every product and sum is float32 (expf, as the
-// plain version).  Bound: the issue rate of float32 FMAs; each column
-// chunk of O computes the scores again.
-constexpr int kRows = 16;          // query rows a block: 4 a warp
-constexpr int kKeys = 32;          // keys a tile: one a lane
-constexpr int kCols = 64;          // O columns a block: two a lane
-constexpr int kDC = 64;            // dh columns a pass of the scores
-constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;  // the mask value of repro and ref.py
+using namespace sm90;
+using namespace online;
 
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void st(float* p, float v) { *p = v; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+// The bfloat16 route past dh 512 ("tcc<DV>", "stagedc<DV>"): O in chunks
+// of DV = 192 or 256 columns (wgmma's N is at most 256; grid z), each
+// chunk's blocks computing all of Q.K^T over dh, in pieces of 64 columns
+// (128 bytes, one 128-byte swizzle span) like a GEMM's main loop, so that
+// no tile holds a whole row of dh.  A block owns 64 query rows of one
+// head; warpgroups 0 and 1 take alternate key tiles of 64 (as tf::, so
+// that the 64 rows' Q is shared), each from its own ring: kKStages stages
+// of one K piece (64 keys x 64 columns, with the Q piece of the same
+// columns where Q is streamed) and one stage of the tile's V (64 keys x
+// DV), which producer thread kConsumers + 32 w keeps filled by TMA.  Q
+// lives in shared memory whole (ceil(dh / 64) pieces of 8 KB, loaded once)
+// where the layout fits (to dh 704 at DV 256, 832 at 192), else each
+// stage carries its Q piece again (kStreamQ: any dh, Q read again from L2
+// for every key tile).  Per tile a consumer issues S (+)= Q_p.K_p^T piece
+// by piece, freeing each stage once the next piece's wgmma is issued,
+// then the online softmax of tf:: and tc:: (the stale max, kLazy), P as
+// P_hi + P_lo (split2) and O += P.V as wgmma with P from registers; that
+// P.V runs on while the next tile's first piece is issued.  At the end
+// warpgroup 1 hands its O, max and sum to warpgroup 0 through its ring,
+// which merges and writes the chunk's columns.  Bound: operations, as
+// tc::; this route's own floor counts the scores once a chunk and P.V
+// twice (P_hi, P_lo): flash_attention_floors in launch/roofline.py.
+constexpr int kBM = 64;            // query rows a block, both consumers'
+constexpr int kBN = 64;            // keys a tile
+constexpr int kPC = 64;            // columns a piece: 128 bytes of bf16
+constexpr int kThreads = 384;      // warpgroups 0, 1 consume, 2 loads
+constexpr int kConsumers = 256;
+constexpr int kKStages = 4;        // K-piece stages of a consumer's ring
+constexpr int kPiece = kBN * kPC * 2;   // 8 KB: a box of 64 rows x 64 columns
+constexpr int kHandOver = 128 * 16;     // warpgroup 1's max and sum
+constexpr int kBarsPerRing = 2 * kKStages + 2;
+constexpr int kSmemMax = 232448;   // what a block may take on sm_90
+static_assert(kBM == kBN, "a Q piece and a K piece share one TMA box");
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, T* __restrict__ o, int Hq, int Hkv,
-            int Tq, int S, int dh, int causal, int window, float scale,
-            int qb0) {
-  __shared__ float q_s[kRows][kDC + 1];
-  __shared__ float k_s[kKeys][kDC + 1];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+template <int DV, bool kStreamQ>
+struct Layout {
+  static constexpr int kSStage = (kStreamQ ? 2 : 1) * kPiece;
+  static constexpr int kVStage = DV / kPC * kPiece;
+  static constexpr int kRing = kKStages * kSStage + kVStage;
+  static_assert(kRing >= 128 * (DV / 2) * 4, "the hand-over of O fits");
+  static constexpr uint32_t kConsumerRegs = 232;
+  static constexpr uint32_t kProducerRegs = 40;
+  // bytes a block takes at head width dh: [Q][ring 0][ring 1][max, sum]
+  // [barriers], after up to 1 KB of alignment
+  static int smem(int dh) {
+    const int q = kStreamQ ? 0 : (dh + kPC - 1) / kPC * kPiece;
+    return 1024 + q + 2 * kRing + kHandOver + 8 * (2 * kBarsPerRing + 1);
+  }
+};
+
+// Block (x, y, z): head b * Hq + h = x (any B Hq), query block qb0 +
+// gridDim.y - 1 - y, O's columns z DV .. (z + 1) DV - 1.  The maps read
+// q, k, v (or the staged route's padded copies) in boxes of 64 columns by
+// 64 rows, zeros past dh, T and S.
+template <int DV, bool kStreamQ>
+__global__ void __launch_bounds__(kThreads, 1)
+chunk_kernel(const __grid_constant__ CUtensorMap map_q,
+             const __grid_constant__ CUtensorMap map_k,
+             const __grid_constant__ CUtensorMap map_v,
+             __nv_bfloat16* __restrict__ o, int Hq, int Hkv, int Tq, int S,
+             int dh, int causal, int window, float scale_log2, int qb0) {
+  using C = Layout<DV, kStreamQ>;
+  const int nP = (dh + kPC - 1) / kPC;             // pieces of dh
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = align1024(smem_raw);
+  uint8_t* rings = q_s + (kStreamQ ? 0 : nP * kPiece);
+  float4* xm = reinterpret_cast<float4*>(rings + 2 * C::kRing);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(rings + 2 * C::kRing +
+                                               kHandOver);
+  uint64_t* q_full = bars + 2 * kBarsPerRing;
+
+  const int qb = qb0 + gridDim.y - 1 - blockIdx.y;  // heaviest blocks first
+  const int q0 = qb * kBM;
   const int bh = blockIdx.x;                       // b * Hq + h
-  const int q0 = (qb0 + gridDim.y - 1 - blockIdx.y) * kRows;
-  const int c0 = blockIdx.z * kCols;
   const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
-  const T* qp = q + (long long)bh * Tq * dh;
-  const T* kp = k + (long long)kvh * S * dh;
-  const T* vp = v + (long long)kvh * S * dh;
+  const int c0 = blockIdx.z * DV;                  // O's first column here
+
   // a row of the block sees no key iff its last does (see tc::)
-  const int q_last = min(q0 + kRows, Tq) - 1;
+  const int q_last = min(q0 + kBM, Tq) - 1;
   const int lo_last = window > 0 ? max(0, q_last - window + 1) : 0;
   const int hi_last = causal ? min(S - 1, q_last) : S - 1;
-  int t_begin = 0, t_end = (S + kKeys - 1) / kKeys;
+  int t_begin = 0, t_end = (S + kBN - 1) / kBN;
   if (lo_last <= hi_last) {
-    t_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / kKeys;
-    t_end = hi_last / kKeys + 1;
+    t_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / kBN;
+    t_end = hi_last / kBN + 1;
   }
-  float m[4], l[4], acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-    acc[i][0] = acc[i][1] = 0.f;
+  // consumer w takes tiles t_begin + w, + 2, ...; both run as many rounds
+  // (a count uniform over the block, as in tf::)
+  const int rounds = (t_end - t_begin + 1) / 2;
+
+  // ring w: full[kKStages], empty[kKStages], v_full, v_empty from
+  // bars + w kBarsPerRing
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 2; ++w) {
+      uint64_t* b = bars + w * kBarsPerRing;
+      for (int s = 0; s < kKStages; ++s) {
+        mbar_init(&b[s], 1);
+        mbar_init(&b[kKStages + s], 128);
+      }
+      mbar_init(&b[2 * kKStages], 1);
+      mbar_init(&b[2 * kKStages + 1], 128);
+    }
+    mbar_init(q_full, 1);
+    fence_barrier_init();
   }
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const int k0 = tile * kKeys, kpos = k0 + lane;
-    float sc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d0 = 0; d0 < dh; d0 += kDC) {
-      __syncthreads();                   // the last pass's values are read
-      for (int e = tid; e < kRows * kDC; e += kThreads) {
-        const int row = e / kDC, d = d0 + e % kDC;
-        const int r = min(q0 + row, Tq - 1);
-        q_s[row][e % kDC] = d < dh ? ld(qp + (long long)r * dh + d) : 0.f;
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {                 // the producers
+    regs_dec<C::kProducerRegs>();
+    const int w = (threadIdx.x - kConsumers) / 32;
+    if (w < 2 && threadIdx.x % 32 == 0) {
+      uint8_t* ring = rings + w * C::kRing;
+      uint64_t* full = bars + w * kBarsPerRing;
+      if (!kStreamQ && w == 0) {
+        mbar_expect_tx(q_full, nP * kPiece);
+        for (int p = 0; p < nP; ++p)
+          tma_load_3d(q_s + p * kPiece, &map_q, q_full, p * kPC, q0, bh);
       }
-      for (int e = tid; e < kKeys * kDC; e += kThreads) {
-        const int key = e / kDC, d = d0 + e % kDC;
-        k_s[key][e % kDC] = d < dh && k0 + key < S
-                                ? ld(kp + (long long)(k0 + key) * dh + d)
-                                : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < kDC; ++d) {
-        const float kv = k_s[lane][d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          sc[i] = fmaf(q_s[4 * warp + i][d], kv, sc[i]);
+      int stage = 0;
+      uint32_t phase = 0, v_phase = 0;
+      for (int it = 0; it < rounds; ++it) {
+        // past the last tile (warpgroup 1 when the count is odd) the last
+        // again, which that round does not count
+        const int t = min(t_begin + 2 * it + w, t_end - 1);
+        for (int p = 0; p < nP; ++p) {
+          uint8_t* dst = ring + stage * C::kSStage;
+          mbar_wait(&full[kKStages + stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], C::kSStage);
+          tma_load_3d(dst, &map_k, &full[stage], p * kPC, t * kBN, kvh);
+          if (kStreamQ)
+            tma_load_3d(dst + kPiece, &map_q, &full[stage], p * kPC, q0, bh);
+          if (++stage == kKStages) { stage = 0; phase ^= 1; }
+        }
+        uint8_t* vd = ring + kKStages * C::kSStage;
+        mbar_wait(&full[2 * kKStages + 1], v_phase ^ 1);
+        mbar_expect_tx(&full[2 * kKStages], C::kVStage);
+        for (int c = 0; c < DV / kPC; ++c)
+          tma_load_3d(vd + c * kPiece, &map_v, &full[2 * kKStages],
+                      c0 + c * kPC, t * kBN, kvh);
+        v_phase ^= 1;
       }
     }
-    float p[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + 4 * warp + i;
-      float x = __fmul_rn(sc[i], scale);
-      if (kpos >= S) x = -INFINITY;
-      else if ((causal && r < kpos) || (window > 0 && kpos <= r - window))
-        x = kNegInf;
-      float mx = x;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      p[i] = expf(x - m_new);
-      float sum = p[i];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-      acc[i][0] *= alpha;
-      acc[i][1] *= alpha;
-    }
-    const int n = min(kKeys, S - k0);
-    const int ca = c0 + lane, cb = ca + 32;
-    for (int j = 0; j < n; ++j) {
-      const T* vr = vp + (long long)(k0 + j) * dh;
-      const float va = ca < dh ? ld(vr + ca) : 0.f;
-      const float vb = cb < dh ? ld(vr + cb) : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pj = __shfl_sync(0xffffffffu, p[i], j);
-        acc[i][0] = fmaf(pj, va, acc[i][0]);
-        acc[i][1] = fmaf(pj, vb, acc[i][1]);
-      }
-    }
+    return;
   }
+
+  // the consumers
+  regs_inc<C::kConsumerRegs>();
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  uint8_t* ring = rings + wg * C::kRing;
+  uint64_t* full = bars + wg * kBarsPerRing;
+  uint64_t* empty = full + kKStages;
+  uint64_t* v_full = full + 2 * kKStages;
+  uint64_t* v_empty = v_full + 1;
+  const uint32_t ring_u32 = smem_u32(ring), q_u32 = smem_u32(q_s);
+  const uint64_t dv0 = make_desc(ring_u32 + kKStages * C::kSStage, kPiece,
+                                 8 * 128, 1);
+
+  float acc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + 4 * warp + i;
-    if (r >= Tq) continue;
-    T* orow = o + ((long long)bh * Tq + r) * dh;
-    if (c0 + lane < dh) st(orow + c0 + lane, acc[i][0] / l[i]);
-    if (c0 + 32 + lane < dh) st(orow + c0 + 32 + lane, acc[i][1] / l[i]);
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+  float s[kBN / 2];
+  uint32_t p_hi[kBN / 16][4], p_lo[kBN / 16][4];
+  Rows rows;
+  if (!kStreamQ) mbar_wait_warp(q_full, 0);
+  int stage = 0, last = 0;
+  uint32_t phase = 0, v_phase = 0;
+  for (int it = 0; it < rounds; ++it) {
+    const int tile = t_begin + 2 * it + wg;
+    // S = Q.K^T, a piece of 64 columns of dh a stage; after a piece is
+    // issued the one before it is done (its stage freed), and at the
+    // first piece the last tile's P.V (its V stage freed)
+    for (int p = 0; p < nP; ++p) {
+      mbar_wait_warp(&full[stage], phase);
+      const uint32_t sb = ring_u32 + stage * C::kSStage;
+      const uint64_t da = make_desc(kStreamQ ? sb + kPiece
+                                             : q_u32 + p * kPiece,
+                                    16, 8 * 128, 1);
+      const uint64_t db = make_desc(sb, 16, 8 * 128, 1);
+      fence_operands(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kPC / 16; ++kk)
+        tc::qk_mma<kBN>(s, da + (32 * kk >> 4), db + (32 * kk >> 4),
+                        p > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (p > 0) {
+        mbar_arrive(&empty[last]);
+      } else if (it > 0) {
+        fence_operands(acc);
+        mbar_arrive(v_empty);
+      }
+      last = stage;
+      if (++stage == kKStages) { stage = 0; phase ^= 1; }
+    }
+    wgmma_wait<0>();
+    fence_operands(s);
+    mbar_arrive(&empty[last]);
+
+    if (rows.tile<kBN>(s, min(tile, t_end - 1) * kBN, q0, row0, row1, t4, S,
+                       causal, window, scale_log2, tile < t_end))
+      rows.rescale(acc);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        tc::split2(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1], p_hi[kk][i],
+                   p_lo[kk][i]);
+
+    // O += P_hi.V + P_lo.V: V's rows are the k of the product (MN-major)
+    mbar_wait_warp(v_full, v_phase);
+    v_phase ^= 1;
+    fence_operands(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint64_t dv = dv0 + (kk * 16 * 128 >> 4);
+      tc::pv_mma<DV>(acc, p_hi[kk], dv);
+      tc::pv_mma<DV>(acc, p_lo[kk], dv);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_operands(acc);
+
+  // Warpgroup 1 hands its O, max and l to warpgroup 0 through ring 1,
+  // whose stages it alone read and whose copies have all landed.
+  rows.sum_quad();
+  float* xo = reinterpret_cast<float*>(rings + C::kRing);
+  const int i = tid % 128;
+  if (wg == 1) {
+#pragma unroll
+    for (int e = 0; e < DV / 2; ++e) xo[e * 128 + i] = acc[e];
+    xm[i] = make_float4(rows.m0, rows.m1, rows.l0, rows.l1);
+    named_arrive(2, kConsumers);
+    return;
+  }
+  named_sync(2, kConsumers);
+  // warpgroup 1 took no tile where its max is -inf: its weight is 0
+  const float4 x = xm[i];
+  const float m0 = fmaxf(rows.m0, x.x), m1 = fmaxf(rows.m1, x.y);
+  const float a0 = exp2_ftz(rows.m0 - m0), a1 = exp2_ftz(rows.m1 - m1);
+  const float b0 = exp2_ftz(x.x - m0), b1 = exp2_ftz(x.y - m1);
+  const float inv0 = 1.f / (rows.l0 * a0 + x.z * b0);
+  const float inv1 = 1.f / (rows.l1 * a1 + x.w * b1);
+  __nv_bfloat16* o0 = o + ((long long)bh * Tq + row0) * dh + c0 + 2 * t4;
+  __nv_bfloat16* o1 = o0 + 8 * dh;
+  // columns c0 + 8 j + 2 t4 and the next: a bf16x2 store where both lie
+  // inside dh and dh is even (4-byte aligned); else value by value
+  auto store = [&](__nv_bfloat16* p, float u, float w, int left) {
+    if (left >= 2 && dh % 2 == 0) {
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(u, w);
+    } else {
+      if (left >= 1) p[0] = __float2bfloat16_rn(u);
+      if (left >= 2) p[1] = __float2bfloat16_rn(w);
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j) {
+    if (c0 + 8 * j >= dh) break;                   // padded columns
+    const int left = dh - (c0 + 8 * j + 2 * t4);
+    const float* y = xo + 4 * j * 128 + i;
+    if (row0 < Tq)
+      store(o0 + 8 * j, (acc[4 * j] * a0 + y[0] * b0) * inv0,
+            (acc[4 * j + 1] * a0 + y[128] * b0) * inv0, left);
+    if (row1 < Tq)
+      store(o1 + 8 * j, (acc[4 * j + 2] * a1 + y[256] * b1) * inv1,
+            (acc[4 * j + 3] * a1 + y[384] * b1) * inv1, left);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Hq, int Hkv, int Tq, int S, int dh, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  const int chunks = (dh + kCols - 1) / kCols;
-  if (chunks > 65535) return cudaErrorInvalidValue;
-  for (int hi = (Tq + kRows - 1) / kRows; hi > 0; hi -= kMaxQBlocks) {
+// q, k, v: the rows the maps read, ld elements apart (dh, or the staged
+// route's padded copies); o: (B, Hq, T, dh).  Q lives in shared memory
+// whole where that layout fits (stream_q 0), else is streamed beside K.
+template <int DV, bool kStreamQ>
+cudaError_t launch_as(const void* q, const void* k, const void* v, int ld,
+                      void* o, int B, int Hq, int Hkv, int Tq, int S, int dh,
+                      int causal, int window, float scale,
+                      cudaStream_t stream) {
+  using C = Layout<DV, kStreamQ>;
+  const int smem = C::smem(dh);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  const cuuint64_t dq[3] = {(cuuint64_t)dh, (cuuint64_t)Tq,
+                            (cuuint64_t)B * Hq};
+  const cuuint64_t dkv[3] = {(cuuint64_t)dh, (cuuint64_t)S,
+                             (cuuint64_t)B * Hkv};
+  const cuuint32_t box[3] = {kPC, kBN, 1};
+  CUtensorMap mq, mk, mv;
+  cudaError_t err;
+  if ((err = make_map(&mq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, q, 3, dq, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B, ld)) != cudaSuccess ||
+      (err = make_map(&mk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, k, 3, dkv,
+                      box, CU_TENSOR_MAP_SWIZZLE_128B, ld)) != cudaSuccess ||
+      (err = make_map(&mv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, v, 3, dkv,
+                      box, CU_TENSOR_MAP_SWIZZLE_128B, ld)) != cudaSuccess)
+    return err;
+  err = cudaFuncSetAttribute(chunk_kernel<DV, kStreamQ>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const int chunks = (dh + DV - 1) / DV;
+  for (int hi = (Tq + kBM - 1) / kBM; hi > 0; hi -= kMaxQBlocks) {
     const int n = hi < kMaxQBlocks ? hi : kMaxQBlocks;
     dim3 grid((unsigned)((long long)B * Hq), (unsigned)n, (unsigned)chunks);
-    wide_kernel<T><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), Hq, Hkv, Tq, S, dh,
-        causal, window, scale, hi - n);
-    const cudaError_t err = cudaGetLastError();
+    chunk_kernel<DV, kStreamQ><<<grid, kThreads, smem, stream>>>(
+        mq, mk, mv, static_cast<__nv_bfloat16*>(o), Hq, Hkv, Tq, S, dh,
+        causal, window, scale * kLog2e, hi - n);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-}  // namespace wide
+template <int DV>
+cudaError_t launch(const void* q, const void* k, const void* v, int ld,
+                   void* o, int B, int Hq, int Hkv, int Tq, int S, int dh,
+                   int causal, int window, float scale, int stream_q,
+                   cudaStream_t stream) {
+  if (!stream_q && Layout<DV, false>::smem(dh) <= kSmemMax)
+    return launch_as<DV, false>(q, k, v, ld, o, B, Hq, Hkv, Tq, S, dh,
+                                causal, window, scale, stream);
+  return launch_as<DV, true>(q, k, v, ld, o, B, Hq, Hkv, Tq, S, dh, causal,
+                             window, scale, stream);
+}
+
+// The staged route: q, k, v padded into scratch (tc::pad_rows), then the
+// chunks on the copies.
+template <int DV>
+cudaError_t launch_staged(const void* q, const void* k, const void* v,
+                          void* scratch, void* o, int B, int Hq, int Hkv,
+                          int Tq, int S, int dh, int causal, int window,
+                          float scale, int stream_q, cudaStream_t stream) {
+  const int ld = (dh + 7) / 8 * 8;
+  const long long rows_q = (long long)B * Hq * Tq;
+  const long long rows_kv = (long long)B * Hkv * S;
+  const long long pieces = (rows_q + 2 * rows_kv) * (ld / 8);
+  const long long blocks = (pieces + 255) / 256;
+  auto* out = static_cast<__nv_bfloat16*>(scratch);
+  tc::pad_rows<<<(unsigned)(blocks < 8192 ? blocks : 8192), 256, 0,
+                 stream>>>(static_cast<const __nv_bfloat16*>(q),
+                           static_cast<const __nv_bfloat16*>(k),
+                           static_cast<const __nv_bfloat16*>(v), out, rows_q,
+                           rows_kv, dh, ld);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch<DV>(out, out + rows_q * ld, out + (rows_q + rows_kv) * ld, ld,
+                    o, B, Hq, Hkv, Tq, S, dh, causal, window, scale, stream_q,
+                    stream);
+}
+
+}  // namespace chunk
+
+namespace tfc {
+
+using namespace sm90;
+using namespace online;
+
+// The float32 route past dh 512 where a row is whole 16-byte pieces
+// ("tfc<DV>"): the tensor cores in TF32, three products a term (as tf::),
+// with O in chunks of DV = 192 or 256 columns (grid z), each chunk's
+// blocks computing all of Q.K^T.  tf::split_kv first copies K and V into
+// K_hi, K_lo and V^T_hi, V^T_lo (keys permuted in groups of 8); Q is read
+// as it is.  A block owns 128 query rows of one head, 64 a consumer
+// warpgroup, both on every key tile of 64 (as tc::, so that a stage of K
+// serves both); one producer thread keeps a ring of kStages stages filled
+// by TMA: per tile ceil(dh / 32) stages of Q (128 rows) and K_hi, K_lo
+// (64 keys) over 32 columns of dh, then 4 stages of V^T_hi and V^T_lo (16
+// keys, the chunk's DV rows).  A consumer splits its A fragments of Q
+// from the stage into hi and lo (split4) and issues S (+)= Q_hi.K_hi +
+// Q_lo.K_hi + Q_hi.K_lo, four k8 steps a stage, each stage freed once the
+// next is issued; then the online softmax (the stale max), and O +=
+// P_hi.V_hi + P_lo.V_hi + P_hi.V_lo with P from registers.  Bound:
+// operations at the TF32 rate; this route's own floor counts the scores
+// once a chunk.  The stages of Q and K (32 KB a tile column) are read
+// from L2 again for every key tile and chunk.
+constexpr int kBM = 128;           // query rows a block: 64 a consumer
+constexpr int kBN = 64;            // keys a tile
+constexpr int kThreads = 384;      // warpgroups 0, 1 consume, 2 loads
+constexpr int kConsumers = 256;
+constexpr int kStages = 6;
+constexpr int kStage = 32768;      // bytes a stage
+constexpr int kKCols = 32;         // dh columns an S stage
+constexpr int kVKeys = 16;         // keys a V stage
+constexpr int kQPiece = kBM * kKCols * 4;          // 16 KB
+constexpr int kKPiece = kBN * kKCols * 4;          // 8 KB: K_hi or K_lo
+constexpr int kSmem = 1024 + kStages * kStage + 2 * kStages * 8;
+static_assert(kQPiece + 2 * kKPiece == kStage, "an S stage");
+
+template <int DV> struct PV;
+template <> struct PV<192> {
+  static __device__ __forceinline__ void mma(float (&o)[96],
+                                             const uint32_t (&a)[4],
+                                             uint64_t d) {
+    wgmma_m64n192k8_rs_tf32(o, a, d, 1);
+  }
+};
+template <> struct PV<256> {
+  static __device__ __forceinline__ void mma(float (&o)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t d) {
+    wgmma_m64n256k8_rs_tf32(o, a, d, 1);
+  }
+};
+
+// Block (x, y, z): head b * Hq + h = x (any B Hq), query block qb0 +
+// gridDim.y - 1 - y, O's columns z DV .. (z + 1) DV - 1.  dh % 4 == 0 (Q's
+// rows are TMA's).
+template <int DV>
+__global__ void __launch_bounds__(kThreads, 1)
+tfc_kernel(const __grid_constant__ CUtensorMap map_q,
+           const __grid_constant__ CUtensorMap map_kh,
+           const __grid_constant__ CUtensorMap map_kl,
+           const __grid_constant__ CUtensorMap map_vh,
+           const __grid_constant__ CUtensorMap map_vl,
+           float* __restrict__ o, int Hq, int Hkv, int Tq, int S, int dh,
+           int causal, int window, float scale_log2, int qb0) {
+  static_assert(2 * DV * kVKeys * 4 <= kStage, "a V stage");
+  constexpr int kVHalf = DV * kVKeys * 4;          // V^T_hi (or _lo)
+  const int nC = (dh + kKCols - 1) / kKCols;       // S stages a tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStage);
+  uint64_t* empty = full + kStages;
+
+  const int qb = qb0 + gridDim.y - 1 - blockIdx.y;  // heaviest blocks first
+  const int q0 = qb * kBM;
+  const int bh = blockIdx.x;                       // b * Hq + h
+  const int kvh = (bh / Hq) * Hkv + (bh % Hq) / (Hq / Hkv);
+  const int c0 = blockIdx.z * DV;                  // O's first column here
+
+  // a row of the block sees no key iff its last does (see tc::)
+  const int q_last = min(q0 + kBM, Tq) - 1;
+  const int lo_last = window > 0 ? max(0, q_last - window + 1) : 0;
+  const int hi_last = causal ? min(S - 1, q_last) : S - 1;
+  int t_begin = 0, t_end = (S + kBN - 1) / kBN;
+  if (lo_last <= hi_last) {
+    t_begin = (window > 0 ? max(0, q0 - window + 1) : 0) / kBN;
+    t_end = hi_last / kBN + 1;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {                 // the producer
+    regs_dec<40>();
+    if (threadIdx.x == kConsumers) {
+      int stage = 0;
+      uint32_t phase = 0;
+      auto next = [&](uint32_t bytes) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], bytes);
+        return ring + stage * kStage;
+      };
+      auto advance = [&]() {
+        if (++stage == kStages) { stage = 0; phase ^= 1; }
+      };
+      for (int t = t_begin; t < t_end; ++t) {
+        for (int c = 0; c < nC; ++c) {
+          uint8_t* dst = next(kStage);
+          tma_load_3d(dst, &map_q, &full[stage], c * kKCols, q0, bh);
+          tma_load_3d(dst + kQPiece, &map_kh, &full[stage], c * kKCols,
+                      t * kBN, kvh);
+          tma_load_3d(dst + kQPiece + kKPiece, &map_kl, &full[stage],
+                      c * kKCols, t * kBN, kvh);
+          advance();
+        }
+        for (int j = 0; j < kBN / kVKeys; ++j) {
+          uint8_t* dst = next(2 * kVHalf);
+          tma_load_3d(dst, &map_vh, &full[stage], t * kBN + j * kVKeys, c0,
+                      kvh);
+          tma_load_3d(dst + kVHalf, &map_vl, &full[stage],
+                      t * kBN + j * kVKeys, c0, kvh);
+          advance();
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumers
+  regs_inc<232>();
+  const int tid = threadIdx.x, wg = tid / 128;
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wr_lo = q0 + wg * 64;                  // this warpgroup's rows
+  const int r0 = wg * 64 + warp * 16 + g;          // its row in a Q stage
+  const int row0 = q0 + r0, row1 = row0 + 8;
+  const uint32_t ring_u32 = smem_u32(ring);
+  // Q (r, c) of a stage: row r of 128 bytes, its 16-byte unit c / 4
+  // swizzled by r % 8 (TMA's 128-byte swizzle); rows r0 and r0 + 8 share
+  // the swizzle
+  const float* q_lane = reinterpret_cast<const float*>(ring) + r0 * kKCols +
+                        t4;
+  auto q_at = [&](const float* qs, int unit, int row8) {
+    return qs[row8 * 8 * kKCols + ((unit ^ (g & 7)) << 2)];
+  };
+
+  float acc[DV / 2];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
+  float s[kBN / 2];
+  Rows rows;
+  int stage = 0, last = 0;
+  uint32_t phase = 0;
+  auto next_stage = [&]() {
+    last = stage;
+    if (++stage == kStages) { stage = 0; phase ^= 1; }
+  };
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    // S = Q.K^T: a stage is 32 columns of dh, two groups of two k8 steps
+    // of three products each (as tf::); a wait leaves one group in
+    // flight, so that a stage is freed once the group after its last is
+    // issued
+    for (int c = 0; c < nC; ++c) {
+      mbar_wait_warp(&full[stage], phase);
+      const float* qs = q_lane + stage * (kStage / 4);
+      const uint32_t kb = ring_u32 + stage * kStage + kQPiece;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {      // two groups of two k8 steps
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int u = 4 * h + 2 * e;   // the step's first 16-byte unit
+          tf::split4(q_at(qs, u, 0), q_at(qs, u, 1), q_at(qs, u + 1, 0),
+                     q_at(qs, u + 1, 1), ah[e], al[e]);
+        }
+        fence_operands(s);
+        wgmma_fence();
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int ks = 2 * h + e;      // k8 step of the stage
+          const uint64_t dkh = make_desc(kb, 16, 1024, 1) + (32 * ks >> 4);
+          const uint64_t dkl = make_desc(kb + kKPiece, 16, 1024, 1) +
+                               (32 * ks >> 4);
+          wgmma_m64n64k8_rs_tf32(s, ah[e], dkh, c > 0 || ks > 0);
+          wgmma_m64n64k8_rs_tf32(s, al[e], dkh, 1);
+          wgmma_m64n64k8_rs_tf32(s, ah[e], dkl, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (h == 0 && c > 0) mbar_arrive(&empty[last]);
+      }
+      next_stage();
+    }
+    wgmma_wait<0>();
+    fence_operands(s);
+    mbar_arrive(&empty[last]);
+
+    if (rows.tile<kBN>(s, tile * kBN, wr_lo, row0, row1, t4, S, causal,
+                       window, scale_log2))
+      rows.rescale(acc);
+
+    // O += P.V: per 16 keys a stage of V^T_hi and V^T_lo; A of k8 slice
+    // kk is P at keys 8 kk + 2 t4 and + 1, which V^T's permuted keys put
+    // at t4 and t4 + 4
+#pragma unroll
+    for (int j = 0; j < kBN / kVKeys; ++j) {
+      uint32_t ph[2][4], pl[2][4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kk = 2 * j + e;
+        tf::split4(s[4 * kk], s[4 * kk + 2], s[4 * kk + 1], s[4 * kk + 3],
+                   ph[e], pl[e]);
+      }
+      mbar_wait_warp(&full[stage], phase);
+      const uint32_t vb = ring_u32 + stage * kStage;
+      fence_operands(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint64_t dvh = make_desc(vb, 16, 512, 2) + (32 * e >> 4);
+        const uint64_t dvl = make_desc(vb + kVHalf, 16, 512, 2) +
+                             (32 * e >> 4);
+        PV<DV>::mma(acc, ph[e], dvh);
+        PV<DV>::mma(acc, pl[e], dvh);
+        PV<DV>::mma(acc, ph[e], dvl);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (j > 0) mbar_arrive(&empty[last]);
+      next_stage();
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    mbar_arrive(&empty[last]);
+  }
+
+  rows.sum_quad();
+  const float inv0 = 1.f / rows.l0, inv1 = 1.f / rows.l1;
+  float* o0 = o + ((long long)bh * Tq + row0) * dh + c0 + 2 * t4;
+  float* o1 = o0 + 8 * dh;
+  // columns c0 + 8 j + 2 t4 and the next: one 8-byte store (dh % 4 == 0)
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j) {
+    if (c0 + 8 * j >= dh) break;                   // padded columns
+    if (row0 < Tq)
+      *reinterpret_cast<float2*>(o0 + 8 * j) =
+          make_float2(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+    if (row1 < Tq)
+      *reinterpret_cast<float2*>(o1 + 8 * j) =
+          make_float2(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+  }
+}
+
+// q, k, v: (B, Hq, Tq, dh) and (B, Hkv, S, dh) float32, dh % 4 == 0;
+// scratch: split_kv's copies (tf::launch's); o like q.
+template <int DV>
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   float* scratch, float* o, int B, int Hq, int Hkv, int Tq,
+                   int S, int dh, int causal, int window, float scale,
+                   cudaStream_t stream) {
+  if (dh % 4) return cudaErrorInvalidValue;
+  const int dhp = dh, sp = (S + 7) / 8 * 8;
+  const int heads = B * Hkv;
+  float* khi = scratch;
+  float* klo = khi + (long long)heads * S * dhp;
+  float* vhi = klo + (long long)heads * S * dhp;
+  float* vlo = vhi + (long long)heads * dh * sp;
+  const dim3 pgrid((unsigned)((sp + 31) / 32), (unsigned)((dhp + 31) / 32),
+                   (unsigned)(heads < 65535 ? heads : 65535));
+  tf::split_kv<<<pgrid, 256, 0, stream>>>(k, v, khi, klo, vhi, vlo, heads, S,
+                                          dh, dhp, sp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dq[3] = {(cuuint64_t)dh, (cuuint64_t)Tq,
+                            (cuuint64_t)B * Hq};
+  const cuuint64_t dk[3] = {(cuuint64_t)dhp, (cuuint64_t)S,
+                            (cuuint64_t)heads};
+  const cuuint64_t dv[3] = {(cuuint64_t)sp, (cuuint64_t)dh,
+                            (cuuint64_t)heads};
+  const cuuint32_t bq[3] = {kKCols, kBM, 1};
+  const cuuint32_t bk[3] = {kKCols, kBN, 1};
+  const cuuint32_t bv[3] = {kVKeys, DV, 1};
+  CUtensorMap mq, mkh, mkl, mvh, mvl;
+  if ((err = make_map(&mq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, q, 3, dq, bq,
+                      CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
+      (err = make_map(&mkh, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, khi, 3, dk,
+                      bk, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
+      (err = make_map(&mkl, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, klo, 3, dk,
+                      bk, CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
+      (err = make_map(&mvh, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, vhi, 3, dv,
+                      bv, CU_TENSOR_MAP_SWIZZLE_64B)) != cudaSuccess ||
+      (err = make_map(&mvl, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, vlo, 3, dv,
+                      bv, CU_TENSOR_MAP_SWIZZLE_64B)) != cudaSuccess)
+    return err;
+  err = cudaFuncSetAttribute(tfc_kernel<DV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+  if (err != cudaSuccess) return err;
+  const int chunks = (dh + DV - 1) / DV;
+  for (int hi = (Tq + kBM - 1) / kBM; hi > 0; hi -= kMaxQBlocks) {
+    const int n = hi < kMaxQBlocks ? hi : kMaxQBlocks;
+    dim3 grid((unsigned)((long long)B * Hq), (unsigned)n, (unsigned)chunks);
+    tfc_kernel<DV><<<grid, kThreads, kSmem, stream>>>(
+        mq, mkh, mkl, mvh, mvl, o, Hq, Hkv, Tq, S, dh, causal, window,
+        scale * kLog2e, hi - n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace tfc
 
 namespace {
 
@@ -1806,7 +2339,7 @@ cudaError_t launch_route(int dtype, const void* q, const void* k,
 }
 
 // The instances past 256, O's columns in two halves: the tensor cores
-// (bfloat16) or the FMAs (float32).
+// (bfloat16) or the FMAs (float32, simt::launch_half at DV = DH / 2).
 template <int DH>
 cudaError_t launch_halves(int dtype, const void* q, const void* k,
                           const void* v, void* scratch, void* o, int B,
@@ -1819,49 +2352,95 @@ cudaError_t launch_halves(int dtype, const void* q, const void* k,
                                                window, scale, stream)
                : tc::launch<DH, DH / 2>(q, k, v, dh, o, B, Hq, Hkv, Tq, S,
                                         dh, causal, window, scale, stream);
-  return simt::launch_half<DH>(q, k, v, o, B, Hq, Hkv, Tq, S, dh, causal,
-                               window, scale, stream);
+  return simt::launch_half<DH / 2>(q, k, v, o, B, Hq, Hkv, Tq, S, dh, causal,
+                                   window, scale, stream);
+}
+
+// Past dh 512, O in chunks of DV columns: bfloat16 on the tensor cores
+// (chunk::, DV 192 or 256; scratch: the staged route's copies, or null),
+// float32 on them in TF32 (tfc::, DV 192 or 256, dh % 4 == 0; scratch:
+// split_kv's copies) or on the FMAs (simt::launch_half, DV 320).
+template <int DV>
+cudaError_t launch_chunks(int dtype, const void* q, const void* k,
+                          const void* v, void* scratch, void* o, int B,
+                          int Hq, int Hkv, int Tq, int S, int dh, int causal,
+                          int window, float scale, int stream_q,
+                          cudaStream_t stream) {
+  if constexpr (DV <= 256) {
+    if (dtype == 0)
+      return scratch ? tfc::launch<DV>(static_cast<const float*>(q),
+                                       static_cast<const float*>(k),
+                                       static_cast<const float*>(v),
+                                       static_cast<float*>(scratch),
+                                       static_cast<float*>(o), B, Hq, Hkv, Tq,
+                                       S, dh, causal, window, scale, stream)
+                     : cudaErrorInvalidValue;
+    return scratch ? chunk::launch_staged<DV>(q, k, v, scratch, o, B, Hq, Hkv,
+                                              Tq, S, dh, causal, window, scale,
+                                              stream_q, stream)
+                   : chunk::launch<DV>(q, k, v, dh, o, B, Hq, Hkv, Tq, S, dh,
+                                       causal, window, scale, stream_q,
+                                       stream);
+  } else {
+    if (dtype != 0 || scratch) return cudaErrorInvalidValue;
+    return simt::launch_half<DV>(q, k, v, o, B, Hq, Hkv, Tq, S, dh, causal,
+                                 window, scale, stream);
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; q, k, v and o alike.  inst: the padded
-// instance, dh <= inst: 32, 64, 96, 128 or 256 (the tensor cores for
-// bfloat16; for float32 the FMAs to 128, at 256 the tensor cores in
-// TF32), or 320, 384, 448 or 512 (O in two halves of columns, a block
-// each); or 0, the wide route (any dh, either dtype).  scratch (bfloat16
-// instances): null, TMA on q, k and v (dh a multiple of 8); else the
-// staged route, any dh: (B Hq T + 2 B Hkv S) (dh rounded up to 8)
-// bfloat16 values for the padded copies.  scratch (float32): null but at
-// 256, where it is split_kv's 2 B Hkv (S dhp + dh sp) floats (dhp = dh
-// rounded up to 4, sp = S rounded up to 8).  A float32 FMA instance reads
-// 16-byte pieces where dh % 4 == 0, else values.  Hq a multiple of Hkv;
-// tensors contiguous and 16-byte aligned (the wrapper checks).  window 0
-// means no window.  Any B Hq and any T: blocks of 128 query rows on the
-// bfloat16 tensor cores, 64 in TF32 and on the FMAs, 16 on the wide route,
-// the heads on the grid's x and the query blocks on its y, which takes
-// 65,535 of them (more go in launches of as many, the last blocks, the
-// heaviest under a causal mask, first); the float32 halves put (head,
-// half, pair of query blocks) on the grid's x, one launch.
+// dtype: 0 = float32, 1 = bfloat16; q, k, v and o alike.  chunks 0: inst
+// is the padded instance, dh <= inst: 32, 64, 96, 128 or 256 (the tensor
+// cores for bfloat16; for float32 the FMAs to 128, at 256 the tensor
+// cores in TF32), or 320, 384, 448 or 512 (O in two halves of columns, a
+// block each).  chunks 1 (dh past 512): O in chunks of inst columns, any
+// dh: bfloat16 192 or 256 (chunk::, Q in shared memory where it fits;
+// chunks 2: Q streamed beside K at any dh), float32 192 or 256 (tfc::,
+// dh % 4 == 0, scratch split_kv's copies as at inst 256) or 320
+// (simt::half_kernel, any dh).  scratch (bfloat16): null, TMA on q, k and v (dh a
+// multiple of 8); else the staged route, any dh: (B Hq T + 2 B Hkv S) (dh
+// rounded up to 8) bfloat16 values for the padded copies.  scratch
+// (float32): null but at 256, where it is split_kv's 2 B Hkv (S dhp + dh
+// sp) floats (dhp = dh rounded up to 4, sp = S rounded up to 8).  A
+// float32 FMA instance reads 16-byte pieces where dh % 4 == 0, else
+// values.  Hq a multiple of Hkv; tensors contiguous and 16-byte aligned
+// (the wrapper checks).  window 0 means no window.  Any B Hq and any T:
+// blocks of 128 query rows on the bfloat16 tensor cores (64 in chunks),
+// 64 in TF32 (128 in chunks) and on the FMAs, the heads on the grid's x and the query
+// blocks on its y, which takes 65,535 of them (more go in launches of as
+// many, the last blocks, the heaviest under a causal mask, first); the
+// float32 halves and chunks put (head, chunk, pair of query blocks) on
+// the grid's x, one launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, void* scratch, int dtype, int B,
                                int Hq, int Hkv, int Tq, int S, int dh,
-                               int inst, int causal, int window, float scale,
-                               void* stream) {
+                               int inst, int chunks, int causal, int window,
+                               float scale, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv || Tq <= 0 || S <= 0
       || dh <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
-  if (inst == 0)
-    return dtype == 1
-               ? (int)wide::launch<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Tq,
-                                                  S, dh, causal, window,
-                                                  scale, s)
-               : (int)wide::launch<float>(q, k, v, o, B, Hq, Hkv, Tq, S, dh,
-                                          causal, window, scale, s);
-  if (dh > inst || (dtype == 1 && !scratch && dh % 8) ||
-      (dtype == 0 && (scratch != nullptr) != (inst == tf::kDH)))
+  if (dtype == 1 && !scratch && dh % 8) return (int)cudaErrorInvalidValue;
+  if (chunks) {
+    if (chunks > 2 || (chunks == 2 && dtype != 1))
+      return (int)cudaErrorInvalidValue;
+    const int sq = chunks == 2;
+    switch (inst) {
+      case 192: return (int)launch_chunks<192>(dtype, q, k, v, scratch, o, B,
+                                               Hq, Hkv, Tq, S, dh, causal,
+                                               window, scale, sq, s);
+      case 256: return (int)launch_chunks<256>(dtype, q, k, v, scratch, o, B,
+                                               Hq, Hkv, Tq, S, dh, causal,
+                                               window, scale, sq, s);
+      case 320: return (int)launch_chunks<320>(dtype, q, k, v, scratch, o, B,
+                                               Hq, Hkv, Tq, S, dh, causal,
+                                               window, scale, sq, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dh > inst || (dtype == 0 && (scratch != nullptr) != (inst == tf::kDH)))
     return (int)cudaErrorInvalidValue;
   switch (inst) {
     case 32: return (int)launch_route<32>(dtype, q, k, v, scratch, o, B, Hq,

@@ -88,21 +88,29 @@
 // Routes (the wrappers pick one from the shapes before any launch).
 // refine_topk: the ring kernel above, or, where a row is not whole 16-byte
 // pieces or the fixed parts and two one-row stages outgrow shared memory
-// even at one CTA an SM, refine_general, which reads values one at a
-// time and keeps its buffers in global scratch.  refine_search:
+// even at one CTA an SM, refine_general: a CTA a query row, its alive
+// leaves staged through shared memory by 16-byte copies, rows read in the
+// widest pieces their length allows (group_d2), one fold of the round by
+// selection and merge over all K * M candidates, its lists in shared
+// memory where they fit, else in global scratch.
+// refine_search:
 // search_kernel with the buffer whole (cta3 / cta2 / cta1: shared memory
 // laid out for 3, 2 or 1 CTAs an SM) or spread (spread3 / spread2 /
 // spread1; the first choice from k 1,536, refine_search.py's SPREAD_K),
 // at the most CTAs an SM whose ring stages hold 16 leaf rows;
 // or, where a row is not whole 16-byte pieces or neither layout fits
 // even at one CTA an SM, search_general: one CTA a query, rows read where
-// they lie, distances, keys and buffers in global scratch, the same
-// sort_keys and merge_fold.  The general routes share row_d2, so their two
-// loops agree bit for bit with each other; the fast routes share warp_d2.
+// they lie in the same pieces, distances, keys and buffers in global
+// scratch, the same
+// sort_keys and merge_fold.  The general routes sum a row by one function
+// (group_d2, a warp or fewer lanes a row, the same bits), so their two
+// loops agree bit for bit with each other; the fast routes share
+// warp_d2.
 
 #include <algorithm>
 #include <mutex>
 #include <tuple>
+#include <type_traits>
 #include <vector>
 
 #include <cuda_bf16.h>
@@ -200,91 +208,144 @@ __device__ __forceinline__ void fold(const float* bd, const int* be,
   }
 }
 
-// d^2 of one row at `row` (any alignment): lane l sums q.x over the
-// values l, l + 32, ... in order, the warp adds the lanes by
-// xor-shuffles, and lane 0's d^2 = max((q_sq + |x|^2) - 2 q.x, 0),
-// rounded step by step as warp_d2 rounds it, is returned (valid in lane 0
-// only).  The general routes of both kernels take their distances from
-// here, so they agree bit for bit with each other.
+// The bytes a general route reads a row's values in: the largest power
+// of two, at most 16, dividing the row's bytes (L * sizeof(T)), so that
+// on a 16-byte aligned base every row starts on a piece: 8 for bf16 rows
+// of 100 (200 bytes), 4 for f32 rows of 235 (940 bytes).
+template <typename T>
+__host__ __device__ inline int piece_bytes(int L) {
+  const int b = L * (int)sizeof(T);
+  const int w = b & -b;
+  return w < 16 ? w : 16;
+}
+
+// Value i of a piece read as 32-bit words (values in memory order, the
+// low half of a word first for 16-bit types).
+template <typename T>
+__device__ __forceinline__ float piece_value(const uint32_t* w, int i) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(w[i]);
+  } else {
+    const unsigned short u =
+        (unsigned short)((w[i / 2] >> (16 * (i % 2))) & 0xffffu);
+    if constexpr (std::is_same<T, __half>::value)
+      return __half2float(__ushort_as_half(u));
+    else
+      return __bfloat162float(__ushort_as_bfloat16(u));
+  }
+}
+
+// q's values of piece p of a row read in pieces of kV values, as one load
+// where kV is 2 or a multiple of 4 (W divides L * sizeof(T), so kV divides
+// L and a 16-byte aligned q's row offset).
+template <int kV>
+__device__ __forceinline__ void piece_q(const float* q, int p,
+                                        float (&qv)[kV]) {
+  if constexpr (kV % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < kV; i += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(q + p * kV + i);
+      qv[i] = f.x; qv[i + 1] = f.y; qv[i + 2] = f.z; qv[i + 3] = f.w;
+    }
+  } else if constexpr (kV == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(q + p * kV);
+    qv[0] = f.x; qv[1] = f.y;
+  } else {
+    qv[0] = q[p];
+  }
+}
+
+// dot + q.x over piece p of the row at x (an address aligned to W), one
+// fused multiply-add a value, in order: the one sum step both general
+// routes share.
+template <typename T, int W>
+__device__ __forceinline__ float piece_dot(const uint8_t* x, int p,
+                                           const float (&qv)[W / sizeof(T)],
+                                           float dot) {
+  constexpr int kV = W / (int)sizeof(T);
+  uint32_t w[W >= 4 ? W / 4 : 1];
+  if constexpr (W == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(x + 16 * p);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else if constexpr (W == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(x + 8 * p);
+    w[0] = v.x; w[1] = v.y;
+  } else if constexpr (W == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(x + 4 * p);
+  } else {
+    w[0] = *reinterpret_cast<const unsigned short*>(x + 2 * p);
+  }
+#pragma unroll
+  for (int i = 0; i < kV; ++i) dot = __fmaf_rn(piece_value<T>(w, i), qv[i], dot);
+  return dot;
+}
+
+// A lane's own slots added as a warp's xor-shuffles at distances H, H / 2,
+// ..., 1 add them: d[s] += d[s + H] for s < H, then H / 2, ...  By
+// template, so that every index is a constant and d stays in registers.
+template <int H, int N>
+__device__ __forceinline__ void add_slots(float (&d)[N]) {
+  if constexpr (H > 0) {
+#pragma unroll
+    for (int s = 0; s < H; ++s) d[s] += d[s + H];
+    add_slots<H / 2>(d);
+  }
+}
+
+// d^2 of one row (at an address aligned to W, in global or shared
+// memory, read in pieces of W bytes) by G lanes (G a power of two
+// dividing 32, lane g of an aligned group of G).  The order is a warp's
+// (G 32): lane s sums q.x over the values of pieces s, s + 32, ... in
+// order, each piece's values in order (piece_dot), and the warp adds the
+// lanes by xor-shuffles at distances 16, 8, ..., 1.  With G lanes the
+// warp's lane s becomes slot s of lane s % G: lane g sums the pieces of
+// slots g, g + G, ..., adds its own slots as the shuffles at distances 16
+// .. G would, then the group shuffles at G / 2 .. 1.  The group's lane 0
+// takes d^2 = max((q_sq + |x|^2) - 2 q.x, 0), rounded step by step as
+// warp_d2 rounds it: the same bits at every G.  G 1 is a thread a row
+// (no shuffles, 32 sums in flight).  Every lane of the warp calls it with
+// the same L.
+template <typename T, int W, int G>
+__device__ __forceinline__ float group_d2(const T* row, int L,
+                                          const float* q, float qsq,
+                                          float xn, int g) {
+  constexpr int kV = W / (int)sizeof(T);
+  constexpr int kSlots = 32 / G;
+  const int np = L / kV;
+  const uint8_t* x = reinterpret_cast<const uint8_t*>(row);
+  float dot[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) dot[s] = 0.f;
+#pragma unroll 1   // unrolled, search_general<bf16> spilled (ptxas)
+  for (int p0 = 0; p0 < np; p0 += 32) {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int p = p0 + g + G * s;
+      if (p < np) {
+        float qv[kV];
+        piece_q<kV>(q, p, qv);
+        dot[s] = piece_dot<T, W>(x, p, qv, dot[s]);
+      }
+    }
+  }
+  add_slots<kSlots / 2>(dot);
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    dot[0] += __shfl_xor_sync(0xffffffffu, dot[0], off);
+  return fmaxf(__fsub_rn(__fadd_rn(qsq, xn), __fmul_rn(2.f, dot[0])), 0.f);
+}
+
+// d^2 of one row by a warp (group_d2 at G 32 and the row's piece width,
+// piece_bytes<T>(L)), valid in lane 0: search_general's distances.
 template <typename T>
 __device__ __forceinline__ float row_d2(const T* row, int L, const float* q,
                                         float qsq, float xn, int lane) {
-  float dot = 0.f;
-  for (int j = lane; j < L; j += 32) dot += to_f32(row[j]) * q[j];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    dot += __shfl_xor_sync(0xffffffffu, dot, off);
-  return fmaxf(__fsub_rn(__fadd_rn(qsq, xn), __fmul_rn(2.f, dot)), 0.f);
-}
-
-// refine_topk's general route: any L and alignment, any k.  One block a
-// query row walks the row's K slots in turn: for an alive slot its warps
-// take the leaf's M rows, each row's values read one at a time (row_d2),
-// and the block folds them into the buffer (fold) before the next slot.  The
-// candidates and both buffers live in global scratch, (2 M + 4 k) words a
-// row, so shared memory bounds neither k nor M.  Folding slot by slot gives
-// the ties of one fold over all K * M candidates.
-template <typename T>
-__global__ void refine_general(const float* __restrict__ q,
-                               const float* __restrict__ q_sq,
-                               const T* __restrict__ series,
-                               const float* __restrict__ sq_norms,
-                               const int* __restrict__ leaf_ids,
-                               const uint8_t* __restrict__ alive,
-                               const float* __restrict__ bsf_d,
-                               const int* __restrict__ bsf_e,
-                               float* __restrict__ out_d,
-                               int* __restrict__ out_e, float* scratch,
-                               int L, int K, int M, int k) {
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* cand_d = scratch + (size_t)row * (2 * (size_t)M + 4 * (size_t)k);
-  int* cand_e = reinterpret_cast<int*>(cand_d + M);
-  float* bd = cand_d + 2 * M;
-  int* be = reinterpret_cast<int*>(bd + k);
-  float* nd = bd + 2 * k;
-  int* ne = reinterpret_cast<int*>(bd + 3 * k);
-  const float* qr = q + (long long)row * L;
-  for (int i = tid; i < k; i += kThreads) {
-    bd[i] = bsf_d[(long long)row * k + i];
-    be[i] = bsf_e[(long long)row * k + i];
+  switch (piece_bytes<T>(L)) {
+    case 16: return group_d2<T, 16, 32>(row, L, q, qsq, xn, lane);
+    case 8: return group_d2<T, 8, 32>(row, L, q, qsq, xn, lane);
+    case 4: return group_d2<T, 4, 32>(row, L, q, qsq, xn, lane);
+    default: return group_d2<T, (int)sizeof(T), 32>(row, L, q, qsq, xn, lane);
   }
-  const float qsq = q_sq[row];
-  __syncthreads();
-
-  for (int j = 0; j < K; ++j) {
-    if (!alive[(long long)row * K + j]) continue;  // uniform over the block
-    const long long first = (long long)leaf_ids[(long long)row * K + j] * M;
-    for (int r = warp; r < M; r += kWarps) {
-      const float d = row_d2<T>(series + (first + r) * L, L, qr, qsq,
-                                sq_norms[first + r], lane);
-      if (lane == 0) cand_d[r] = d;
-    }
-    for (int r = tid; r < M; r += kThreads) cand_e[r] = (int)(first + r);
-    __syncthreads();
-    fold(bd, be, cand_d, cand_e, k, M, nd, ne, tid);
-    float* td = bd; bd = nd; nd = td;
-    int* te = be; be = ne; ne = te;
-    __syncthreads();
-  }
-
-  for (int i = tid; i < k; i += kThreads) {
-    out_d[(long long)row * k + i] = bd[i];
-    out_e[(long long)row * k + i] = be[i];
-  }
-}
-
-template <typename T>
-cudaError_t launch_general(const float* q, const float* q_sq,
-                           const void* series, const float* sq_norms,
-                           const int* ids, const uint8_t* alive,
-                           const float* bsf_d, const int* bsf_e,
-                           float* out_d, int* out_e, float* scratch, int Q,
-                           int L, int K, int M, int k, cudaStream_t stream) {
-  refine_general<T><<<Q, kThreads, 0, stream>>>(
-      q, q_sq, static_cast<const T*>(series), sq_norms, ids, alive, bsf_d,
-      bsf_e, out_d, out_e, scratch, L, K, M, k);
-  return cudaGetLastError();
 }
 
 namespace search {
@@ -353,8 +414,11 @@ __host__ __device__ inline int pow2_at_least(int n) {
 // Sorts the n distinct keys at a ascending, in place (a has room for the
 // next power of two above n): up to kThreads by rank (a thread a key),
 // above by a bitonic network.  Every thread calls it, after a barrier
-// that completes a; it ends on one.
-__device__ void sort_keys(uint64_t* a, int n, int tid) {
+// that completes a; it ends on one.  sort_keys_inline is the same code,
+// inlined where it is called (the general kernels: a call there made
+// ptxas spill around it).
+__device__ __forceinline__ void sort_keys_inline(uint64_t* a, int n,
+                                                 int tid) {
   if (n <= 1) return;
   if (n <= kThreads) {
     const uint64_t x = tid < n ? a[tid] : 0ull;
@@ -381,6 +445,10 @@ __device__ void sort_keys(uint64_t* a, int n, int tid) {
       }
       __syncthreads();
     }
+}
+
+__device__ void sort_keys(uint64_t* a, int n, int tid) {
+  sort_keys_inline(a, n, tid);
 }
 
 // The fold by merge: the ascending buffer, spread in slices of S slots over
@@ -858,10 +926,10 @@ inline long long general_words(int K, int M, int k) {
 }
 
 // The general route: one CTA a query (no cluster), any L, alignment, k
-// and K * M.  Rows are read from device memory where they lie, one value
-// a load (row_d2), and the distances, the passing candidates' keys and
-// both buffers live in global scratch, `per` words a CTA; so shared memory
-// bounds nothing.  A round runs as in search_kernel: every alive slot's
+// and K * M.  Rows are read from device memory where they lie, a warp a
+// row, in the widest pieces their length allows (row_d2), and the
+// distances, the passing candidates' keys and both buffers live in
+// global scratch, `per` words a CTA; so shared memory bounds nothing.  A round runs as in search_kernel: every alive slot's
 // distances, then, if one is below the k-th best, the passing candidates
 // sorted as keys (sort_keys) and folded by merge_fold into the buffer,
 // which stays ascending.  The rounds, the alive count and the buffer
@@ -927,7 +995,7 @@ __global__ void __launch_bounds__(kThreads) search_general(const Params p,
             [](int e) { return e; }, keys, &misc[1], tid);
         __syncthreads();
         const int n = misc[1];
-        sort_keys(keys, n, tid);
+        sort_keys_inline(keys, n, tid);
         merge_fold(bd, be, 0, p.k, keys, min(n, p.k), nullptr, 1, 0, leaf_r,
                    p.M, p.k,
                    [&](int pos, float d, int e) {
@@ -958,6 +1026,356 @@ __global__ void __launch_bounds__(kThreads) search_general(const Params p,
 }
 
 }  // namespace search
+
+// refine_topk's general route: any L, alignment, k, K and M.  One block a
+// query row.  Warp 0 lists the row's alive slots.  Where K whole leaves
+// fit the room of kGStages stages (`all`: bf16 rows of 100 at K 8), every
+// alive leaf is copied at once into a stage of its own and the block
+// takes all their rows after one wait; else the leaves stream through
+// kGStages stages of shared memory, a leaf in `chunks` pieces of `rows`
+// rows, kGStages - 1 pieces ahead.  A piece is one byte range copied by
+// 16-byte cp.async over the aligned blocks that cover it, none read past
+// its last byte (the rows in the same place modulo 16, so that each row
+// keeps the alignment its pieces need; the bytes before the first share
+// its block), with the rows' norms beside them.  Staged rows are summed by
+// groups of G lanes (group_d2: G = group_lanes, a thread a row where the
+// rows outnumber the block's threads), with the bits of search_general's
+// warp a row.  A row past a stage (more than kGStageMax bytes) is read
+// where it lies, a warp a row (rows = 0).  Then one fold of the round over
+// all K * M candidates, as search_general's: the candidates below the
+// round's k-th best listed as keys (list_passing), the first k of them in
+// order (select_keys: by warps, then among the kept, where k <= 32 and
+// at most 512 pass; else sorted), and merged with the buffer
+// (merge_fold) into out_d / out_e: the ranks of the rank rule, so the
+// buffer of the round folded slot by slot, bit for bit.  The alive slots
+// and their leaves, the query row, the distances and the keys live in
+// shared memory where they fit in kGInner bytes (`inner`), else in global
+// scratch, `per` words a row (general_topk_words).
+constexpr int kGStages = 4;
+constexpr int kGStageMax = 28 * 1024;    // 4 stages: 2 CTAs an SM
+constexpr int kGInner = 48 * 1024;
+
+// The first min(n, k) of the n distinct keys at a, ascending, in place;
+// merge_fold reads only that prefix.  Where k <= 32 and n <= 2 kThreads
+// (a thread two keys, i and i + kThreads): each warp ranks its 64 keys
+// among themselves by shuffles and keeps those of rank below k (at most k
+// a warp, at spare[warp k + rank], kWarps * 32 keys of room), then each
+// kept key is ranked among the kept, a pass over kWarps k of them, and a
+// key of rank below k goes to its place.  Else all n are sorted
+// (sort_keys_inline).  Every thread calls it, after a barrier that
+// completes a; it ends on one.
+__device__ __forceinline__ void select_keys(uint64_t* a, int n, int k,
+                                            uint64_t* spare, int tid) {
+  if (k > 32 || n > 2 * kThreads) {
+    search::sort_keys_inline(a, n, tid);
+    return;
+  }
+  constexpr uint64_t kNone = ~0ull;      // above every key (d >= 0, no NaN)
+  const int lane = tid & 31, warp = tid >> 5, t1 = tid + kThreads;
+  const uint64_t x0 = tid < n ? a[tid] : kNone, x1 = t1 < n ? a[t1] : kNone;
+  int r0 = 0, r1 = 0;
+#pragma unroll 8
+  for (int src = 0; src < 32; ++src) {
+    const uint64_t y0 = __shfl_sync(0xffffffffu, x0, src);
+    const uint64_t y1 = __shfl_sync(0xffffffffu, x1, src);
+    r0 += (y0 < x0) + (y1 < x0);
+    r1 += (y0 < x1) + (y1 < x1);
+  }
+  uint64_t* mine = spare + warp * k;
+  if (lane < k) mine[lane] = kNone;
+  __syncwarp();
+  if (x0 != kNone && r0 < k) mine[r0] = x0;
+  if (x1 != kNone && r1 < k) mine[r1] = x1;
+  __syncthreads();
+  const int m = kWarps * k;
+  const uint64_t x = tid < m ? spare[tid] : kNone;
+  if (x != kNone) {
+    int r = 0;
+#pragma unroll 4
+    for (int f = 0; f < m; ++f) r += spare[f] < x;
+    if (r < k) a[r] = x;
+  }
+  __syncthreads();
+}
+
+// The lanes a general route gives a staged row: the most of 32, 8, 4 and
+// 1 that take `rows` rows at once within the block's threads (1 past
+// them: a thread a row, in turns).
+__host__ __device__ inline int group_lanes(int rows) {
+  return rows * 32 <= kThreads ? 32
+         : rows * 8 <= kThreads ? 8
+         : rows * 4 <= kThreads ? 4 : 1;
+}
+
+// d^2 of n staged rows, G lanes a row (group_d2 at width W), kThreads / G
+// rows at a time: at(i, row, xn) gives row i's values and norm, put(i,
+// d^2) takes its distance.  Every thread calls it.
+template <typename T, int W, int G, typename At, typename Put>
+__device__ __forceinline__ void staged_d2_g(int n, int L, const float* q,
+                                            float qsq, At at, Put put,
+                                            int tid) {
+  const int g = tid & (G - 1);
+  for (int b = 0; b < n; b += kThreads / G) {     // uniform over the block
+    const int i = b + tid / G;
+    const T* rw;
+    float xn;
+    at(i < n ? i : n - 1, rw, xn);
+    const float d = group_d2<T, W, G>(rw, L, q, qsq, xn, g);
+    if (g == 0 && i < n) put(i, d);
+  }
+}
+
+template <typename T, int W, typename At, typename Put>
+__device__ __forceinline__ void staged_d2_w(int n, int G, int L,
+                                            const float* q, float qsq, At at,
+                                            Put put, int tid) {
+  switch (G) {
+    case 32: staged_d2_g<T, W, 32>(n, L, q, qsq, at, put, tid); break;
+    case 8: staged_d2_g<T, W, 8>(n, L, q, qsq, at, put, tid); break;
+    case 4: staged_d2_g<T, W, 4>(n, L, q, qsq, at, put, tid); break;
+    default: staged_d2_g<T, W, 1>(n, L, q, qsq, at, put, tid); break;
+  }
+}
+
+// staged_d2_g at the row's piece width and G = group_lanes's.
+template <typename T, typename At, typename Put>
+__device__ __forceinline__ void staged_d2(int n, int G, int L,
+                                          const float* q, float qsq, At at,
+                                          Put put, int tid) {
+  switch (piece_bytes<T>(L)) {
+    case 16: staged_d2_w<T, 16>(n, G, L, q, qsq, at, put, tid); break;
+    case 8: staged_d2_w<T, 8>(n, G, L, q, qsq, at, put, tid); break;
+    case 4: staged_d2_w<T, 4>(n, G, L, q, qsq, at, put, tid); break;
+    default:
+      staged_d2_w<T, (int)sizeof(T)>(n, G, L, q, qsq, at, put, tid);
+      break;
+  }
+}
+
+// The keys' room: the power of two at or above n, at least 2 (so that
+// what follows them in shared memory stays 16-byte aligned).
+__host__ __device__ inline long long pow2_ll(long long n) {
+  long long P = 2;
+  while (P < n) P <<= 1;
+  return P;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) refine_general(
+    const float* __restrict__ q, const float* __restrict__ q_sq,
+    const T* __restrict__ series, const float* __restrict__ sq_norms,
+    const int* __restrict__ leaf_ids, const uint8_t* __restrict__ alive,
+    const float* __restrict__ bsf_d, const int* __restrict__ bsf_e,
+    float* __restrict__ out_d, int* __restrict__ out_e, float* scratch,
+    long long per, int L, int K, int M, int k, int rows, int chunks,
+    int stage_bytes, int inner, int all) {
+  extern __shared__ __align__(16) uint8_t smem_g[];
+  __shared__ int misc[2];                // alive slots, passing candidates
+  __shared__ uint64_t spare[kWarps * 32];  // select_keys' kept keys
+  const int row = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long KM = (long long)K * M;
+  // the alive slots and their leaves in order, the query row, the
+  // distances and the keys: in shared memory (inner: [keys][q][distances]
+  // [slots][leaves], then the stages) or in scratch
+  int* slots = reinterpret_cast<int*>(scratch + (long long)row * per);
+  int* leaves = slots + (K + 1) / 2 * 2;
+  const float* qr = q + (long long)row * L;
+  float* cand = reinterpret_cast<float*>(leaves) + (K + 1) / 2 * 2;
+  uint64_t* keys = reinterpret_cast<uint64_t*>(cand + (KM + 1) / 2 * 2);
+  uint8_t* stages = smem_g;
+  if (inner) {
+    keys = reinterpret_cast<uint64_t*>(smem_g);
+    float* qs = reinterpret_cast<float*>(keys + pow2_ll(KM));
+    for (int i = tid; i < L; i += kThreads) qs[i] = qr[i];
+    qr = qs;
+    cand = qs + (L + 3) / 4 * 4;
+    slots = reinterpret_cast<int*>(cand + (KM + 3) / 4 * 4);
+    leaves = slots + (K + 3) / 4 * 4;
+    stages = reinterpret_cast<uint8_t*>(leaves + (K + 3) / 4 * 4);
+  }
+  const uint8_t* al = alive + (long long)row * K;
+  const int* leaf_r = leaf_ids + (long long)row * K;
+  const float qsq = q_sq[row];
+  const long long rb = (long long)L * sizeof(T);   // a row's bytes
+  const int norm_at = (int)((rows * rb + 32 + 15) / 16 * 16);
+  const uint8_t* base = reinterpret_cast<const uint8_t*>(series);
+
+  if (warp == 0) {                        // the alive slots, in order
+    int n = 0;
+    for (int b = 0; b < K; b += 32) {
+      const bool a = b + lane < K && al[b + lane];
+      const unsigned m = __ballot_sync(0xffffffffu, a);
+      if (a) {
+        const int at = n + __popc(m & ((1u << lane) - 1));
+        slots[at] = b + lane;
+        leaves[at] = leaf_r[b + lane];
+      }
+      n += __popc(m);
+    }
+    if (lane == 0) {
+      misc[0] = n;
+      misc[1] = 0;
+    }
+  }
+  __syncthreads();
+  const int na = misc[0];
+
+  if (rows > 0 && !all) {
+    const int items = na * chunks;        // (alive slot, piece of a leaf)
+    const int group = group_lanes(rows);
+    for (int it = 0; it < items + kGStages - 1; ++it) {
+      // piece `it` into its stage, kGStages - 1 ahead of the one reduced
+      // (a group every round, empty past the last piece)
+      if (it < items) {
+        const int c = it % chunks;
+        const long long first =
+            (long long)leaves[it / chunks] * M + (long long)c * rows;
+        const int nr = min(rows, M - c * rows);
+        const uint8_t* src = base + first * rb;
+        const int off = (int)((uintptr_t)src & 15);
+        const long long end = off + nr * rb;     // from src - off
+        const uint32_t dst = sm90::smem_u32(stages + (it % kGStages) *
+                                                     stage_bytes);
+        // the blocks' bytes from the piece's first (the bytes before it
+        // share its 16-byte block), none past its last; then the norms
+        for (long long u = tid; 16 * u < end; u += kThreads)
+          sm90::cp_async<16>(dst + 16 * (uint32_t)u, src - off + 16 * u,
+                             (uint32_t)min(16ll, end - 16 * u));
+        for (int r = tid; r < nr; r += kThreads)
+          sm90::cp_async<4>(dst + norm_at + 4 * r, sq_norms + first + r, 4);
+      }
+      sm90::cp_async_commit();
+      const int cur = it - (kGStages - 1);  // the piece to reduce now
+      if (cur < 0) continue;
+      sm90::cp_async_wait<kGStages - 1>();
+      __syncthreads();                    // piece cur has landed
+      const int c = cur % chunks, j = slots[cur / chunks];
+      const long long first = (long long)leaves[cur / chunks] * M +
+                              (long long)c * rows;
+      const int nr = min(rows, M - c * rows);
+      const int off = (int)((uintptr_t)(base + first * rb) & 15);
+      const uint8_t* st = stages + (cur % kGStages) * stage_bytes;
+      const float* xn = reinterpret_cast<const float*>(st + norm_at);
+      float* cd = cand + (long long)j * M + c * rows;
+      staged_d2<T>(
+          nr, group, L, qr, qsq,
+          [&](int r, const T*& rw, float& x) {
+            rw = reinterpret_cast<const T*>(st + off + r * rb);
+            x = xn[r];
+          },
+          [&](int r, float d) { cd[r] = d; }, tid);
+      __syncthreads();                    // its stage may refill
+    }
+    sm90::cp_async_wait<0>();
+  } else {
+    if (rows > 0) {
+      // every alive leaf into a stage of its own, then every row at once
+      for (int i = 0; i < na; ++i) {
+        const long long first = (long long)leaves[i] * M;
+        const uint8_t* src = base + first * rb;
+        const int off = (int)((uintptr_t)src & 15);
+        const long long end = off + M * rb;       // from src - off
+        const uint32_t dst = sm90::smem_u32(stages + i * stage_bytes);
+        for (long long u = tid; 16 * u < end; u += kThreads)
+          sm90::cp_async<16>(dst + 16 * (uint32_t)u, src - off + 16 * u,
+                             (uint32_t)min(16ll, end - 16 * u));
+        for (int r = tid; r < M; r += kThreads)
+          sm90::cp_async<4>(dst + norm_at + 4 * r, sq_norms + first + r, 4);
+      }
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<0>();
+    }
+    __syncthreads();
+    // staged rows by group_lanes' lanes; rows past a stage a warp each
+    const int n_rows = na * M;
+    staged_d2<T>(
+        n_rows, rows > 0 ? group_lanes(n_rows) : 32, L, qr, qsq,
+        [&](int e, const T*& rw, float& xn) {
+          const int i = e / M, r = e - i * M;
+          if (rows > 0) {
+            const uint8_t* st = stages + i * stage_bytes;
+            const int off = (int)((uintptr_t)(
+                base + (long long)leaves[i] * M * rb) & 15);
+            rw = reinterpret_cast<const T*>(st + off + r * rb);
+            xn = reinterpret_cast<const float*>(st + norm_at)[r];
+          } else {
+            const long long x = (long long)leaves[i] * M + r;
+            rw = series + x * L;
+            xn = sq_norms[x];
+          }
+        },
+        [&](int e, float d) { cand[slots[e / M] * M + e % M] = d; }, tid);
+  }
+  __syncthreads();
+
+  const float* bd = bsf_d + (long long)row * k;
+  const int* be = bsf_e + (long long)row * k;
+  search::list_passing(
+      cand, (int)KM, bd[k - 1], [&](int e) { return al[e / M] != 0; },
+      [](int e) { return e; }, keys, &misc[1], tid);
+  __syncthreads();
+  const int n = misc[1];
+  select_keys(keys, n, k, spare, tid);
+  float* od = out_d + (long long)row * k;
+  int* oe = out_e + (long long)row * k;
+  search::merge_fold(bd, be, 0, k, keys, min(n, k), nullptr, 1, 0, leaf_r, M,
+                     k,
+                     [&](int pos, float d, int e) {
+                       od[pos] = d;
+                       oe[pos] = e;
+                     },
+                     tid);
+}
+
+// Words of global scratch a row of refine_general takes: its alive slots
+// and their leaves (K each), the distances (K M) and the passing
+// candidates' keys (2 words each, room for the power of two at or above
+// K M, at least 2), each part even.
+inline long long general_topk_words(int K, int M) {
+  const long long KM = (long long)K * M;
+  return 2 * ((K + 1) / 2 * 2) + (KM + 1) / 2 * 2 + 2 * pow2_ll(KM);
+}
+
+template <typename T>
+cudaError_t launch_general(const float* q, const float* q_sq,
+                           const void* series, const float* sq_norms,
+                           const int* ids, const uint8_t* alive,
+                           const float* bsf_d, const int* bsf_e,
+                           float* out_d, int* out_e, float* scratch,
+                           long long per, int Q, int L, int K, int M, int k,
+                           cudaStream_t stream) {
+  const long long KM = (long long)K * M;
+  if (per < general_topk_words(K, M) || KM >= (1ll << 30))
+    return cudaErrorInvalidValue;
+  // a stage: a leaf's rows in the fewest pieces of at most kGStageMax
+  // bytes (with 32 for the aligned blocks around them), then their norms;
+  // none where a row alone passes it
+  const long long rb = (long long)L * sizeof(T);
+  int rows = 0, chunks = 0, stage = 0;
+  if (rb + 32 + 16 <= kGStageMax) {
+    const int most = (int)((kGStageMax - 48) / (rb + 4));
+    chunks = (M + most - 1) / most;
+    rows = (M + chunks - 1) / chunks;
+    stage = (int)((rows * rb + 32 + 15) / 16 * 16 + (4 * rows + 15) / 16 * 16);
+  }
+  const long long in_bytes = 8 * pow2_ll(KM) + 4 * ((L + 3) / 4 * 4) +
+                             4 * ((KM + 3) / 4 * 4) + 8 * ((K + 3) / 4 * 4);
+  const int inner = in_bytes <= kGInner;
+  // a stage for each slot where K whole leaves fit kGStages stages' room
+  const int all = rows > 0 && chunks == 1 &&
+                  (long long)K * stage <= (long long)kGStages * kGStageMax;
+  const int smem = (int)(inner ? in_bytes : 0) +
+                   (rows > 0 ? (all ? K : kGStages) * stage : 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      refine_general<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  refine_general<T><<<Q, kThreads, smem, stream>>>(
+      q, q_sq, static_cast<const T*>(series), sq_norms, ids, alive, bsf_d,
+      bsf_e, out_d, out_e, scratch, per, L, K, M, k, rows, chunks, stage,
+      inner, all);
+  return cudaGetLastError();
+}
 
 namespace topk {
 
@@ -1302,7 +1720,8 @@ cudaError_t launch(Params p, cudaStream_t stream) {
 // topk_kernel): L * sizeof(dtype) a multiple of 16, the series, q and
 // sq_norms 16-byte aligned, sq_norms a multiple of 4 entries, and
 // topk::layout fitting at 4, 3, 2 or 1 CTAs an SM; route 1 (general): any
-// shape, with scratch of Q (2 M + 4 k) float32 words.  The wrapper checks.
+// shape, with scratch of Q general_topk_words(K, M) float32 words (a
+// 16-byte aligned base, series' too).  The wrapper checks.
 extern "C" int refine_topk(const void* q, const void* q_sq,
                            const void* series, int dtype,
                            const void* sq_norms, const void* leaf_ids,
@@ -1346,14 +1765,17 @@ extern "C" int refine_topk(const void* q, const void* q_sq,
       case 2: return (int)topk::launch<__half>(p, s);
     }
   } else if (route == 1 && sc != nullptr) {
+    const long long per = general_topk_words(K, M);
     switch (dtype) {
       case 0: return launch_general<float>(qf, qs, series, xn, ids, al, bd,
-                                           be, od, oe, sc, Q, L, K, M, k, s);
+                                           be, od, oe, sc, per, Q, L, K, M,
+                                           k, s);
       case 1: return launch_general<__nv_bfloat16>(qf, qs, series, xn, ids,
-                                                   al, bd, be, od, oe, sc, Q,
-                                                   L, K, M, k, s);
+                                                   al, bd, be, od, oe, sc,
+                                                   per, Q, L, K, M, k, s);
       case 2: return launch_general<__half>(qf, qs, series, xn, ids, al, bd,
-                                            be, od, oe, sc, Q, L, K, M, k, s);
+                                            be, od, oe, sc, per, Q, L, K, M,
+                                            k, s);
     }
   }
   return (int)cudaErrorInvalidValue;

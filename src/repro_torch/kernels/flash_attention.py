@@ -16,8 +16,12 @@ inputs go to float32 FMAs ("simt<w>") to dh 128 and past 256, and from
 dh 129 to 256 to the tensor cores in TF32 ("tf256"): three TF32 products
 a term (hi = tf32(x), lo = x - hi) keep float32's accuracy, on copies of
 K and V split into hi and lo (V transposed) that a first kernel writes;
-they are bound by the TF32 rate. Only a dh past 512 takes the "wide"
-route (float32 FMAs, no TMA). On CPU tensors it runs the plain version
+they are bound by the TF32 rate.  Past dh 512 O is computed in chunks of
+columns, each chunk's blocks taking all of the scores: on the tensor
+cores in chunks of 192 or 256, bfloat16 ("tcc<w>", "stagedc<w>") with
+the scores over dh in 64-column pieces, float32 in TF32 ("tfc<w>") where
+a row is whole 16-byte pieces, to dh 1,024; other float32 rows on the
+FMAs in chunks of 320 ("simtc320"). On CPU tensors it runs the plain version
 `ref.flash_attention_ref`. `launches` counts the kernels' launches,
 `by_route` those of each route. There is no gradient: repro's kernel has
 none.
@@ -40,13 +44,57 @@ INSTANCES = (32, 64, 96, 128, 256)     # the widths of the padded instances
 # past 256 (wgmma's N is at most 256, and float32 tiles pass shared
 # memory): instances whose blocks each compute one half of O's columns
 HALVES = (320, 384, 448, 512)
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float,
+# past 512, O in chunks of these widths on the tensor cores (wgmma's N is
+# at most 256), each chunk's blocks computing all of the scores; float32
+# rows that are not whole 16-byte pieces, which TMA cannot take, in
+# chunks of SIMT_CHUNK on the FMAs (at least two: a thread's O of a wider
+# chunk spills past 255 registers)
+CHUNKS = (192, 256)
+SIMT_CHUNK = 320
+# the widest dh the TF32 chunks take: three TF32 products a term err by
+# ~2^-21 of each, and a sum over more columns of dh carries that past the
+# float32 limit the checks hold (at dh 2,048 it did on the H100); wider
+# float32 rows take the FMAs
+TF32_CHUNK_MAX = 1024
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_float,
                                                             ctypes.c_void_p])
 # query rows a block, by route kind: "tc" and "staged" (TMA over padded
-# copies) on the tensor cores in bf16, "tf" in TF32, "simt" on the FMAs,
-# "wide"
-ROWS = {"tc": 128, "staged": 128, "tf": 64, "simt": 64, "wide": 16}
+# copies) on the tensor cores in bf16, "tcc" and "stagedc" (O in chunks),
+# "tf" and "tfc" (O in chunks) in TF32, "simt" and "simtc" on the FMAs
+ROWS = {"tc": 128, "staged": 128, "tcc": 64, "stagedc": 64, "tf": 64,
+        "tfc": 128, "simt": 64, "simtc": 64}
 MAX_QBLOCKS = 65535                          # the grid's y dimension
+# csrc/flash_attention.cu, namespace chunk: the bf16 chunks' layout
+CHUNK_PIECE = 64 * 64 * 2                    # a 64 x 64 TMA box of bf16
+CHUNK_STAGES = 4                             # K-piece stages a consumer
+SMEM_MAX = 232448                            # shared memory a block may take
+
+
+def chunk_width(dh: int) -> int:
+    """The columns of O a tensor-core block computes past dh 512: O in
+    ceil(dh / 256) chunks, each the narrowest of CHUNKS at least its
+    share of dh (192 to dh 576, else 256)."""
+    n = -(-dh // CHUNKS[-1])
+    return next(w for w in CHUNKS if w >= -(-dh // n))
+
+
+def chunk_smem(dh: int, width: int, stream_q: bool) -> int:
+    """Shared memory bytes of a bfloat16 chunk block (csrc's
+    chunk::Layout::smem): Q whole (ceil(dh / 64) pieces of 8 KB) unless
+    streamed, two consumers' rings of CHUNK_STAGES K-piece stages (with
+    the Q piece where streamed) and one V stage of width / 64 pieces,
+    the hand-over of the max and sum, the barriers, 1 KB of alignment."""
+    q = 0 if stream_q else -(-dh // 64) * CHUNK_PIECE
+    ring = (CHUNK_STAGES * (2 if stream_q else 1) + width // 64) * CHUNK_PIECE
+    return 1024 + q + 2 * ring + 128 * 16 + 8 * (2 * (2 * CHUNK_STAGES + 2)
+                                                 + 1)
+
+
+def chunk_regs(width: int) -> int:
+    """Registers a consumer thread of a bfloat16 chunk block holds for its
+    tiles: O (64 x width f32 over 128 threads), S (64 x 64) and P_hi,
+    P_lo (bf16x2 each), against the 232-240 of setmaxnreg."""
+    return width // 2 + 64 // 2 + 2 * (64 // 16) * 4
 
 
 def route(dtype: torch.dtype, dh: int) -> str:
@@ -57,11 +105,18 @@ def route(dtype: torch.dtype, dh: int) -> str:
     rows are padded to 16-byte pieces); for float32 "tf256" from dh 129
     to 256 (the tensor cores in TF32, three products a term, over split
     copies of K and V: bound by the TF32 rate), else "simt<w>" (float32
-    FMAs, bound by their rate; 16-byte loads where dh % 4 == 0); "wide"
-    past 512 (either dtype, no TMA)."""
+    FMAs, bound by their rate; 16-byte loads where dh % 4 == 0).  Past
+    512, O in chunks of w = chunk_width(dh) columns on the tensor cores:
+    bfloat16 "tcc<w>" or "stagedc<w>" (as above), float32 "tfc<w>" (in
+    TF32, as tf256) where a row is whole 16-byte pieces (dh % 4 == 0) to
+    TF32_CHUNK_MAX, else "simtc320" (the FMAs, chunks of SIMT_CHUNK)."""
     widths = INSTANCES + HALVES
     if dh > widths[-1]:
-        return "wide"
+        w = chunk_width(dh)
+        if dtype != torch.bfloat16:
+            tf32 = dh % 4 == 0 and dh <= TF32_CHUNK_MAX
+            return f"tfc{w}" if tf32 else f"simtc{SIMT_CHUNK}"
+        return f"{'tcc' if dh % 8 == 0 else 'stagedc'}{w}"
     width = next(w for w in widths if w >= dh)
     if dtype != torch.bfloat16:
         return f"{'tf' if 128 < dh <= 256 else 'simt'}{width}"
@@ -77,14 +132,15 @@ def query_launches(T: int, name: str) -> int:
     them (by the route's kind), and a launch's grid at most MAX_QBLOCKS
     blocks in its y dimension, so a longer T takes more launches (the
     last blocks, the heaviest under a causal mask, first); the float32
-    halves (simt past 256) put pairs of query blocks on the grid's x,
-    one launch for any T; a staged route launches its padding first, the
-    TF32 route its split of K and V."""
+    halves and chunks (simt past 256) put pairs of query blocks on the
+    grid's x, one launch for any T; a staged route launches its padding
+    first, the TF32 route its split of K and V."""
     kind = _kind(name)
-    if kind == "simt" and int(name[4:]) > INSTANCES[-1]:
+    if kind == "simtc" or (kind == "simt" and int(name[4:]) > INSTANCES[-1]):
         return 1
     blocks = -(-T // ROWS[kind])
-    return -(-blocks // MAX_QBLOCKS) + (kind in ("staged", "tf"))
+    return -(-blocks // MAX_QBLOCKS) + (kind in ("staged", "stagedc", "tf",
+                                                  "tfc"))
 
 
 def tf32_scratch(B: int, Hkv: int, S: int, dh: int) -> int:
@@ -143,17 +199,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
-           *, causal: bool = True, window: int = 0) -> torch.Tensor:
+           *, causal: bool = True, window: int = 0,
+           stream_q: bool = False) -> torch.Tensor:
     """The kernel of route `name` on CUDA tensors that `flash_attention`
     has checked: the route(q.dtype, dh) gives, or another that takes the
-    shape (a "staged<w>" for the "tc<w>" of the same width, to hold the
-    padded copies to the tensors themselves; ValueError for one that does
-    not).  Counts the launches."""
+    shape (a "staged<w>" for the "tc<w>" of the same width, a "stagedc<w>"
+    for the "tcc<w>", to hold the padded copies to the tensors themselves;
+    "simtc320" for a "tfc<w>", the FMAs beside the TF32 tensor cores;
+    ValueError for one that does not).  stream_q: a bfloat16 chunk route
+    streams Q beside K even where Q fits whole in shared memory (which it
+    takes otherwise).  Counts the launches."""
     global launches
     B, Hq, T, dh = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     kind, want = _kind(name), route(q.dtype, dh)
-    ok = name == want or (kind == "staged" and want == f"tc{name[6:]}")
+    ok = name == want or (kind in ("staged", "stagedc")
+                          and want == f"tc{name[6:]}") or (
+        name == f"simtc{SIMT_CHUNK}" and want.startswith("tfc"))
     if not ok:
         raise ValueError(f"flash_attention cannot take route {name!r} at "
                          f"dh {dh}, {q.dtype} (its route: {want!r})")
@@ -163,21 +225,22 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
                          "aligned")
     out = torch.empty_like(q)
     scratch = None
-    if kind == "staged":
+    if kind in ("staged", "stagedc"):
         # rows padded to whole 16-byte pieces, which TMA takes
         scratch = torch.empty(((B * Hq * T + 2 * B * Hkv * S)
                                * -(-dh // 8) * 8,), dtype=q.dtype,
                               device=q.device)
-    elif kind == "tf":
+    elif kind in ("tf", "tfc"):
         scratch = torch.empty((tf32_scratch(B, Hkv, S, dh),),
                               dtype=torch.float32, device=q.device)
     fn = _build.entry("flash_attention", "flash_attention", _ARGTYPES)
-    width = 0 if kind == "wide" else int(name[len(kind):])
+    chunked = kind in ("tcc", "stagedc", "tfc", "simtc")
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   scratch.data_ptr() if scratch is not None else None,
-                  _DTYPES[q.dtype], B, Hq, Hkv, T, S, dh, width, int(causal),
-                  int(window), dh ** -0.5,
+                  _DTYPES[q.dtype], B, Hq, Hkv, T, S, dh,
+                  int(name[len(kind):]), (1 + bool(stream_q)) if chunked
+                  else 0, int(causal), int(window), dh ** -0.5,
                   torch.cuda.current_stream().cuda_stream)
     _build.check("flash_attention", "flash_attention", code)
     n = query_launches(T, name)

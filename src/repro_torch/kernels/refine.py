@@ -3,8 +3,9 @@
 On CUDA tensors `refine_topk` launches a kernel of `csrc/refine.cu`, by
 the route `route` picks from the shapes (a persistent grid taking query
 rows in turn, each row's alive leaves streamed through a ring of bulk
-copies, their candidates folded 256 at a time; or one block a row with
-its buffers in global scratch); each reads only the alive leaves, at their stored width, and
+copies, their candidates folded 256 at a time; or one block a row, its
+alive leaves staged through shared memory, folded once by selection and
+merge); each reads only the alive leaves, at their stored width, and
 never materializes the (Q, K*M, L) gather.  On CPU tensors it runs the
 plain version `ref.refine_topk_ref`.  `launches` counts the kernel's
 launches.
@@ -81,8 +82,11 @@ def route(L: int, K: int, M: int, k: int, dtype: torch.dtype) -> str:
     all the row's alive leaves streamed through a ring of bulk copies
     into shared memory, their candidates folded 256 at a time) where a
     row is whole 16-byte pieces and the layout fits at 4, 3, 2 or 1 CTAs
-    an SM; "general" (values one at a time, the candidates and buffers in
-    global scratch) for every other shape.  A pure function of the shapes (so cached: the
+    an SM; "general" (a block a row: the alive leaves staged through
+    shared memory, each row read in the widest pieces its length allows,
+    one fold of the round over all K * M candidates by selection and
+    merge, its lists in shared memory where they fit, else in global
+    scratch) for every other shape.  A pure function of the shapes (so cached: the
     sharded search launches one a shard a round); the wrapper realigns a
     base that is not 16-byte aligned."""
     elem = torch.finfo(dtype).bits // 8
@@ -91,6 +95,18 @@ def route(L: int, K: int, M: int, k: int, dtype: torch.dtype) -> str:
     if (L * elem) % 16 == 0 and _fits(L, K, M, k, elem, 1):
         return "ring"
     return "general"
+
+
+def general_words(K: int, M: int) -> int:
+    """Float32 words of global scratch a query row of the general route
+    takes: its alive slots and their leaves (K each), the distances (K
+    M) and the passing candidates' keys (2 words each, room for the power
+    of two at or above K M, at least 2), each part even; csrc/refine.cu's
+    general_topk_words."""
+    P = 2
+    while P < K * M:
+        P *= 2
+    return 2 * ((K + 1) // 2 * 2) + (K * M + 1) // 2 * 2 + 2 * P
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:
@@ -193,7 +209,7 @@ def refine_topk(q: torch.Tensor, q_sq: torch.Tensor, series: torch.Tensor,
     out_e = torch.empty((Q, k), dtype=torch.int32, device=q.device)
     if Q == 0:
         return out_d, out_e
-    scratch = (torch.empty((Q, 2 * M + 4 * k), dtype=torch.float32,
+    scratch = (torch.empty((Q, general_words(K, M)), dtype=torch.float32,
                            device=q.device) if how == "general" else None)
     fn = _build.entry("refine", "refine_topk", _ARGTYPES)
     with torch.cuda.device(q.device):

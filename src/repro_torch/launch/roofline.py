@@ -233,12 +233,20 @@ def flash_attention_work(B: int, Hq: int, Hkv: int, T: int, S: int,
     return Work(nbytes, 3 * flops, TF32_FLOPS)
 
 
-def flash_attention_floors(work: Work) -> Dict[str, float]:
+def flash_attention_floors(work: Work, chunks: int = 1) -> Dict[str, float]:
     """The kernel's own floors beside its bound: P.V runs twice (P_hi,
     P_lo), 6 dh flops a pair where the bound counts 4, on the tensor
-    cores; and the same products as float32 FMAs."""
-    return {"tensor_floor_ms": 1.5 * work.ops / BF16_FLOPS * 1e3,
-            "f32_fma_floor_ms": work.ops / F32_FLOPS * 1e3}
+    cores; and the same products as float32 FMAs.  Where O is computed in
+    `chunks` chunks of columns (past dh 512), each chunk's blocks compute
+    the scores again: `route_floor_ms` counts the scores once a chunk at
+    the work's type, 2 dh (chunks + 2) flops a pair in bf16 (P.V twice),
+    6 dh (chunks + 1) in 3xTF32 (three products a term each)."""
+    out = {"tensor_floor_ms": 1.5 * work.ops / BF16_FLOPS * 1e3,
+           "f32_fma_floor_ms": work.ops / F32_FLOPS * 1e3}
+    if chunks > 1:
+        factor = ((chunks + 2) if work.peak == BF16_FLOPS else chunks + 1) / 2
+        out["route_floor_ms"] = factor * work.ops_ms()
+    return out
 
 
 # -------------------------------------------------------------------- dtw

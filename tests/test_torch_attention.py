@@ -228,14 +228,16 @@ def test_truncated_high_half_bounds_the_split_error():
 
 
 # ------------------------------------------- every head width repro takes
-@pytest.mark.parametrize("dh", [40, 80, 96, 256, 320, 100, 36])
+@pytest.mark.parametrize("dh", [40, 80, 96, 256, 320, 100, 36, 520, 576])
 @pytest.mark.parametrize("bf16", [False, True])
 def test_every_head_width_matches_pallas(dh, bf16):
     """Head widths outside the kernel's old set (32, 64, 128): 96
     (Phi-3-mini), 256 (Gemma 7B), 40 and 80 (padded to the next instance
-    on the card), 320 (O in halves), and 100 and 36 (bfloat16 rows of
-    200 and 72 bytes: the staged producer on the card), with GQA, against
-    repro's kernel in interpret mode at the tolerances above."""
+    on the card), 320 (O in halves), 100 and 36 (bfloat16 rows of 200
+    and 72 bytes: the staged producer on the card), and 520 and 576 (O
+    in chunks on the card; 576 DeepSeek-V2-Lite's latent of 512 + 64),
+    with GQA, against repro's kernel in interpret mode at the tolerances
+    above."""
     oj, ot = _both(_qkv(1, 4, 2, 128, dh, seed=dh), bf16=bf16)
     tol = 2e-2 if bf16 else 2e-5
     np.testing.assert_allclose(ot, oj, rtol=tol, atol=tol)
@@ -471,6 +473,86 @@ def test_the_stale_max_holds_the_bf16_limit(case):
         assert bool((moved == 1).all())
     else:
         assert bool((moved < tiles).any()) and int(moved.min()) >= 1
+
+
+# ------------------------------------- O in chunks past head width 512
+def _chunked(q, k, v, width, causal=True, window=0, piece=64, bn=64,
+             lazy=8.0):
+    """The bfloat16 chunk kernel (csrc/flash_attention.cu, chunk::) on
+    float32 q (B, Hq, T, dh) and k, v (B, Hkv, S, dh): for each chunk of
+    `width` columns of O, 64-row query blocks whose two consumers take
+    alternate key tiles of bn; a tile's scores summed over dh in pieces
+    of `piece` columns, in order, scaled into log2 units and masked as
+    _tiled does; the stale max; P.V from P_hi + P_lo (split2) against the
+    chunk's columns of V; the consumers' O, max and sum merged at the end
+    (tf::'s merge).  Returns O as float32."""
+    B, Hq, T, dh = q.shape
+    G = Hq // k.shape[1]
+    k, v = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    S = k.shape[2]
+    c = dh ** -0.5 * np.log2(np.e)
+    out = torch.zeros(B, Hq, T, dh)
+    t = torch.arange(T)[:, None]
+    for c0 in range(0, dh, width):
+        vc = v[..., c0:c0 + width]
+        parts = []
+        for w in range(2):                       # the two consumers
+            m = torch.full((B, Hq, T, 1), -np.inf)
+            l = torch.zeros(B, Hq, T, 1)
+            o = torch.zeros(B, Hq, T, vc.shape[-1])
+            for k0 in range(w * bn, S, 2 * bn):
+                j = torch.arange(k0, min(k0 + bn, S))[None]
+                x = torch.zeros(B, Hq, T, j.shape[1])
+                for p0 in range(0, dh, piece):
+                    x = x + q[..., p0:p0 + piece] @ k[
+                        :, :, k0:k0 + bn, p0:p0 + piece].transpose(-1, -2)
+                x = x * c
+                seen = (t >= j) if causal else torch.ones(
+                    T, j.shape[1], dtype=torch.bool)
+                if window:
+                    seen &= j > t - window
+                x = x.masked_fill(~seen, ref.NEG_INF)
+                mx = x.amax(-1, keepdim=True)
+                mn = torch.where(mx > m + lazy, mx, m)
+                alpha = torch.exp2(m - mn)
+                p = torch.exp2(x - mn)
+                hi = _trunc_bf16(p)
+                lo = (p - hi).to(torch.bfloat16).float()
+                o = o * alpha + hi @ vc[:, :, k0:k0 + bn] \
+                    + lo @ vc[:, :, k0:k0 + bn]
+                l = l * alpha + p.sum(-1, keepdim=True)
+                m = mn
+            parts.append((o, m, l))
+        (o0, m0, l0), (o1, m1, l1) = parts
+        mm = torch.maximum(m0, m1)
+        a, b = torch.exp2(m0 - mm), torch.exp2(m1 - mm)
+        b = torch.where(torch.isinf(m1), torch.zeros_like(b), b)
+        out[..., c0:c0 + width] = (o0 * a + o1 * b) / (l0 * a + l1 * b)
+    return out
+
+
+@pytest.mark.parametrize("dh,width,causal,window", [
+    (576, 192, True, 0), (576, 192, True, 100), (520, 192, False, 48),
+    (640, 256, True, 0)])
+def test_chunks_of_o_hold_repros_flash_attention(dh, width, causal, window):
+    """The chunked design past dh 512 (O in chunks of `width` columns,
+    the scores over dh in 64-column pieces, P in two bf16 halves, two
+    consumers on alternate key tiles merged at the end), on bf16 inputs
+    with GQA, held to repro's flash_attention on the same values in
+    float32 (its kernel in interpret mode) within the card's bf16 limit,
+    2^-8 |o| + 2e-5, after the output's rounding to bf16; and to the
+    port's plain version alike."""
+    q, k, v = (_bf16(a) for a in _qkv(1, 4, 2, 256, dh, seed=dh + window))
+    kw = dict(causal=causal, window=window)
+    out = _chunked(q.float(), k.float(), v.float(), width, **kw)
+    out = out.to(torch.bfloat16).float()
+    want = np.asarray(jops.flash_attention(
+        *(jnp.asarray(t.float().numpy()) for t in (q, k, v)), block_q=64,
+        interpret=True, **kw), np.float32)
+    excess = (np.abs(out.numpy() - want) - 2 ** -8 * np.abs(want)
+              - 2e-5).max()
+    assert excess <= 0
+    assert _excess(out.to(torch.bfloat16), q, k, v, **kw) <= 0
 
 
 # ------------------------------------------- the TF32 route's split copies

@@ -21,6 +21,12 @@ slices over the cluster.  Held here on the CPU, on the same numpy inputs:
   the sign away, so that case is held to the port's fold bit for bit
   and to `_rank_select` by value);
 * the same for one run or eight and a whole buffer or eight slices.
+
+Beside it, refine_topk's general route (csrc/refine.cu, refine_general):
+one fold of a round over all its candidates held to the round folded
+slot by slot, its selection of the first k (warps, then the kept) held
+to a sort, and its sums of a row by groups of lanes held to the warp's
+xor-shuffle order bit for bit.
 """
 
 import jax.numpy as jnp
@@ -173,3 +179,112 @@ def test_ties_at_the_kth_value_go_to_the_lower_union_index():
         d, e = _model(bd, be, cd, ce, k, M, runs, slices)
         np.testing.assert_array_equal(_bits(d), _bits(want_d))
         np.testing.assert_array_equal(e, want_e)
+
+
+@pytest.mark.parametrize("kind", ["empty", "ties"])
+@pytest.mark.parametrize("k,K,M", [(10, 8, 64), (10, 264, 16), (16000, 8, 64),
+                                   (16000, 16, 256)])
+def test_one_fold_of_a_round_is_the_round_folded_slot_by_slot(k, K, M, kind):
+    """refine_topk's general route folds a round once, over all K * M
+    candidates of its alive slots (one CTA: one run, the buffer whole),
+    where it folded them slot by slot: the same buffer bit for bit, ties
+    included (duplicated rows, candidates equal to buffer entries and to
+    the k-th value), at k 10 and 16,000, half the slots dead (their
+    candidates never pass, as their distance past every k-th best
+    models).  Held to the loop of one-slot rounds of the port's
+    `refine_topk_ref` and to its one round over all the slots."""
+    rng = np.random.default_rng(k + K + M)
+    Q = 2
+    bd, be = _buffer(rng, Q, k, kind)
+    cd = _candidates(rng, bd, K * M, "duplicated")
+    args, ce = _fold_inputs(cd, M)
+    alive = rng.random((Q, K)) < 0.5
+    alive[:, 0] = True
+    q, q_sq, series, norms, leaf_ids, _ = map(torch.from_numpy, args)
+    alive_t = torch.from_numpy(alive)
+    d, e = torch.from_numpy(bd), torch.from_numpy(be)
+    for j in range(K):
+        d, e = ref.refine_topk_ref(q, q_sq, series, norms,
+                                   leaf_ids[:, j:j + 1].contiguous(),
+                                   alive_t[:, j:j + 1].contiguous(), d, e,
+                                   leaf_capacity=M, k=k)
+    once_d, once_e = ref.refine_topk_ref(q, q_sq, series, norms, leaf_ids,
+                                         alive_t, torch.from_numpy(bd),
+                                         torch.from_numpy(be),
+                                         leaf_capacity=M, k=k)
+    live = np.where(np.repeat(alive, M, axis=1), cd, np.float32(np.inf))
+    md, me = _model(bd, be, live, ce, k, M, 1, 1)
+    for got_d, got_e in ((once_d.numpy(), once_e.numpy()), (md, me)):
+        np.testing.assert_array_equal(_bits(got_d), _bits(d.numpy()))
+        np.testing.assert_array_equal(got_e, e.numpy())
+    assert (d.numpy() != bd).any()            # the round changed the buffer
+
+
+def _xor_tree(v):
+    """A warp's xor-shuffle sum of 32 lanes' float32 values at lane 0
+    (distances 16, 8, 4, 2, 1, each lane adding its partner's)."""
+    v = v.copy()
+    off = 16
+    while off:
+        v = (v + v[np.arange(32) ^ off]).astype(np.float32)
+        off //= 2
+    return v[0]
+
+
+@pytest.mark.parametrize("G", [1, 4, 8, 32])
+@pytest.mark.parametrize("pieces", [1, 25, 32, 235, 1001])
+def test_a_group_of_lanes_sums_a_row_as_the_warp_does(G, pieces):
+    """refine_general's group_d2 (csrc/refine.cu) sums a staged row with G
+    lanes where rows_d2 takes a warp: the warp's lane s is slot s of lane
+    s % G, each slot summing its pieces s, s + 32, ... in order, a lane
+    adding its own slots at the xor distances 16 .. G, then the group
+    shuffling at G / 2 .. 1.  Its lane 0 holds the warp's lane-0 sum bit
+    for bit (float32 steps, the pieces' terms at random scales)."""
+    rng = np.random.default_rng(G * 10007 + pieces)
+    terms = (rng.standard_normal(pieces)
+             * 10.0 ** rng.integers(-3, 4, pieces)).astype(np.float32)
+    slot = np.zeros(32, dtype=np.float32)
+    for p in range(pieces):                   # each slot's pieces in order
+        slot[p % 32] = np.float32(slot[p % 32] + terms[p])
+    want = _xor_tree(slot)
+    lanes = np.stack([slot[g::G] for g in range(G)])   # (G, 32 / G) slots
+    h = 32 // G // 2
+    while h:                                  # a lane's own slots
+        lanes[:, :h] = (lanes[:, :h] + lanes[:, h:2 * h]).astype(np.float32)
+        h //= 2
+    v = lanes[:, 0].copy()
+    off = G // 2
+    while off:                                # the group's shuffles
+        v = (v + v[np.arange(G) ^ off]).astype(np.float32)
+        off //= 2
+    assert np.float32(v[0]).tobytes() == np.float32(want).tobytes()
+
+
+@pytest.mark.parametrize("n,k", [(0, 10), (7, 10), (320, 10), (512, 10),
+                                 (512, 32), (300, 1), (64, 32)])
+def test_warps_keep_their_first_k_then_rank_the_kept(n, k):
+    """refine_general's select_keys for k <= 32 and n <= 512 keys: each of
+    8 warps ranks its 64 keys (a lane's keys i and i + 256) among
+    themselves and keeps those of rank below k; the kept, ranked among
+    themselves, give the first min(n, k) of all n in order (keys distinct,
+    as (distance, union index) keys are; clustered so that a warp's kept
+    crowd out another's)."""
+    rng = np.random.default_rng(n * 31 + k)
+    keys = rng.choice(1 << 20, size=n, replace=False).astype(np.uint64)
+    keys[: n // 3] = np.sort(keys[: n // 3])        # one run low, in order
+    pad = np.full(512, np.iinfo(np.uint64).max, dtype=np.uint64)
+    pad[:n] = keys
+    kept = []
+    for w in range(8):
+        mine = np.concatenate([pad[32 * w:32 * w + 32],
+                               pad[256 + 32 * w:256 + 32 * w + 32]])
+        rank = (mine[None, :] < mine[:, None]).sum(1)
+        kept += [x for x, r in zip(mine, rank)
+                 if r < k and x != np.iinfo(np.uint64).max]
+    kept = np.array(kept, dtype=np.uint64)
+    out = np.empty(min(n, k), dtype=np.uint64)
+    for x in kept:
+        r = int((kept < x).sum())
+        if r < k:
+            out[r] = x
+    np.testing.assert_array_equal(out, np.sort(keys)[:k])

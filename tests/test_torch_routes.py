@@ -79,6 +79,13 @@ def test_every_refinement_shape_has_a_route(L, k):
         if (L * elem) % 16:
             assert r == s == "general"
         assert refine_search.general_words(K, M, k) >= 3 * K * M + 4 * k
+        # refine_topk's general route: its alive slots and their leaves,
+        # the distances and room for every candidate's 2-word key (at
+        # least 2 keys), each part even; its buffers are the caller's
+        words = refine.general_words(K, M)
+        assert words % 2 == 0 and words >= 2 * K + 3 * K * M
+        assert words == 2 * (-(-K // 2) * 2) + -(-K * M // 2) * 2 + 2 * max(
+            2, 1 << (K * M - 1).bit_length())
 
 
 def test_the_main_cell_keeps_the_fast_routes():
@@ -430,19 +437,35 @@ def test_ring_scan_cells_by_radius():
 
 
 def test_every_head_width_has_an_attention_route():
-    """Each dtype's route of every head width to 640: the narrowest
+    """Each dtype's route of every head width to 1,100: the narrowest
     instance at least dh (to 256, then the instances of halved O to
     512), on the tensor cores for bfloat16 (by TMA, "tc", where a row is
     whole 16-byte pieces, else by TMA over copies whose rows are padded
     to them, "staged"); for float32 on the tensor cores in TF32 from dh
-    129 to 256 ("tf") and on the FMAs below and above ("simt"); the wide
-    route only past 512."""
+    129 to 256 ("tf") and on the FMAs below and above ("simt"); past 512
+    O in chunks of 192 or 256 columns on the tensor cores ("tcc" /
+    "stagedc" in bfloat16, "tfc" in float32 where a row is whole 16-byte
+    pieces, to dh 1,024), the fewest chunks of 256, each the narrowest
+    width at least its share of dh; other float32 rows in chunks of 320
+    on the FMAs ("simtc320")."""
     widths = flash_attention.INSTANCES + flash_attention.HALVES
-    for dh, dtype in itertools.product(range(1, 641),
+    for dh, dtype in itertools.product(range(1, 1101),
                                        (torch.bfloat16, torch.float32)):
         r = flash_attention.route(dtype, dh)
         if dh > 512:
-            assert r == "wide"
+            if dtype == torch.float32 and (dh % 4 or dh > 1024):
+                assert r == "simtc320"
+                continue
+            if dtype == torch.bfloat16:
+                name = "tcc" if dh % 8 == 0 else "stagedc"
+            else:
+                name = "tfc"
+            width = int(r[len(name):])
+            assert r.startswith(name) and width in flash_attention.CHUNKS
+            n = -(-dh // width)
+            assert n == -(-dh // 256)
+            assert all(-(-dh // n) > w for w in flash_attention.CHUNKS
+                       if w < width)
             continue
         if dtype == torch.bfloat16:
             name = "tc" if dh % 8 == 0 else "staged"
@@ -452,6 +475,36 @@ def test_every_head_width_has_an_attention_route():
         assert r.startswith(name) and width in widths
         assert width >= dh
         assert all(w < dh for w in widths if w < width)
+
+
+@pytest.mark.parametrize("dh,width,chunks,resident", [
+    (520, 192, 3, True), (576, 192, 3, True), (640, 256, 3, True),
+    (1024, 256, 4, False)])
+def test_the_chunk_layout_fits_a_block(dh, width, chunks, resident):
+    """The bfloat16 chunks' shared memory (csrc chunk::Layout::smem) and
+    registers at dh 520, 576, 640 and 1,024: Q whole in shared memory
+    where that fits the 227 KB a block may take (to dh 704 at 256
+    columns), else streamed beside K, which fits at any dh; O, S and P_hi
+    + P_lo of a consumer thread within the 232 / 240 registers of
+    setmaxnreg (less the 40 the rest of a thread takes); warpgroup 1's O
+    fits its ring for the hand-over."""
+    bf16 = torch.bfloat16
+    assert flash_attention.route(bf16, dh) == f"tcc{width}"
+    assert flash_attention.chunk_width(dh) * chunks >= dh
+    assert flash_attention.chunk_width(dh) * (chunks - 1) < dh
+    whole = flash_attention.chunk_smem(dh, width, False)
+    streamed = flash_attention.chunk_smem(dh, width, True)
+    assert (whole <= flash_attention.SMEM_MAX) == resident
+    assert streamed <= flash_attention.SMEM_MAX
+    assert flash_attention.chunk_smem(1 << 16, width, True) == streamed
+    assert whole == streamed + (-(-dh // 64) - 2 * 4) * 8192
+    regs = flash_attention.chunk_regs(width)
+    assert regs == width // 2 + 64
+    assert regs <= 232 - 40
+    ring = (4 + width // 64) * 8192
+    assert ring >= 128 * width // 2 * 4
+    assert flash_attention.chunk_smem(704, 256, False) <= 232448 < \
+        flash_attention.chunk_smem(705, 256, False)
 
 
 def test_the_attention_shapes_before_keep_their_routes():
@@ -471,7 +524,13 @@ def test_the_attention_shapes_before_keep_their_routes():
     assert flash_attention.route(bf16, 320) == "tc320"    # O in halves
     assert flash_attention.route(bf16, 264) == "tc320"
     assert flash_attention.route(bf16, 512) == "tc512"
-    assert flash_attention.route(bf16, 520) == "wide"
+    assert flash_attention.route(bf16, 520) == "tcc192"   # O in chunks
+    assert flash_attention.route(bf16, 576) == "tcc192"
+    assert flash_attention.route(bf16, 578) == "stagedc256"
+    assert flash_attention.route(f32, 576) == "tfc192"    # O in chunks
+    assert flash_attention.route(f32, 1024) == "tfc256"
+    assert flash_attention.route(f32, 578) == "simtc320"  # 2,312-byte rows
+    assert flash_attention.route(f32, 1028) == "simtc320"  # past TF32's
     assert flash_attention.route(f32, 320) == "simt320"   # O in halves
     assert flash_attention.route(f32, 257) == "simt320"
 
@@ -494,12 +553,13 @@ def test_the_tf32_route_splits_once_then_launches_blocks_of_64_rows():
 
 
 @pytest.mark.parametrize("name,rows", [("tc128", 128), ("tc512", 128),
-                                       ("simt96", 64), ("wide", 16)])
+                                       ("simt96", 64), ("tcc192", 64)])
 def test_attention_takes_any_number_of_query_rows(name, rows):
     """Every T launches: the grid's y dimension takes 65,535 blocks of a
     route's query rows, and a longer T goes in more launches (one to
-    65,535 blocks, two past them: 1,048,576 + 16 rows on the wide route,
-    4,194,304 + 64 on the FMAs, 8,388,480 + 128 on the tensor cores)."""
+    65,535 blocks, two past them: 4,194,240 + 64 rows on the FMAs and on
+    the bfloat16 chunks, 8,388,480 + 128 on the other tensor-core
+    routes)."""
     top = flash_attention.MAX_QBLOCKS * rows
     assert flash_attention.ROWS[name.rstrip("0123456789")] == rows
     assert flash_attention.query_launches(1, name) == 1
@@ -509,23 +569,31 @@ def test_attention_takes_any_number_of_query_rows(name, rows):
     assert flash_attention.query_launches(2 * top + 1, name) == 3
 
 
-def test_a_staged_route_pads_once_then_launches_as_its_twin():
+@pytest.mark.parametrize("staged,twin", [("staged128", "tc128"),
+                                         ("stagedc256", "tcc256"),
+                                         ("tfc192", "tc128")])
+def test_a_staged_route_pads_once_then_launches_as_its_twin(staged, twin):
     """The staged routes (bf16 rows not whole 16-byte pieces) launch the
     padding kernel once, then the tensor-core instance as the TMA route
-    of the same width does: 65,535 blocks of 128 query rows a launch."""
-    top = flash_attention.MAX_QBLOCKS * flash_attention.ROWS["staged"]
-    assert flash_attention.ROWS["staged"] == flash_attention.ROWS["tc"]
+    of the same width does: 65,535 blocks of 128 query rows a launch (64
+    where O is in chunks); the float32 chunks launch their split of K and
+    V once, then blocks of 128 rows."""
+    kind = staged.rstrip("0123456789")
+    top = flash_attention.MAX_QBLOCKS * flash_attention.ROWS[kind]
+    assert flash_attention.ROWS[kind] == flash_attention.ROWS[
+        twin.rstrip("0123456789")]
     for T in (1, 4096, top, top + 1, 2 * top + 1):
-        assert flash_attention.query_launches(T, "staged128") == \
-            flash_attention.query_launches(T, "tc128") + 1
+        assert flash_attention.query_launches(T, staged) == \
+            flash_attention.query_launches(T, twin) + 1
 
 
 @pytest.mark.parametrize("name", ["simt320", "simt384", "simt448",
-                                  "simt512"])
+                                  "simt512", "simtc320"])
 def test_float32_halves_take_any_t_in_one_launch(name):
-    """The float32 instances past 256 put (head, half of O, pair of query
-    blocks) on the grid's x, which takes 2^31 - 1 blocks: one launch at
-    any T, where the other routes' grid y takes 65,535 query blocks."""
+    """The float32 instances past 256 put (head, half or chunk of O,
+    pair of query blocks) on the grid's x, which takes 2^31 - 1 blocks:
+    one launch at any T, where the other routes' grid y takes 65,535
+    query blocks."""
     top = flash_attention.MAX_QBLOCKS * flash_attention.ROWS["simt"]
     for T in (1, 4096, top, top + 1, 4 * top + 1):
         assert flash_attention.query_launches(T, name) == 1
